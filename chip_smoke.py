@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch/CUDA port (`deepdfa_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one NVIDIA H100 and
+the CUDA toolkit; it needs no install, no network and no JAX. Each phase
+prints one JSON line; any failure exits non-zero before the last line.
+
+1. device  — the card's name and power limit (nvidia-smi);
+2. build   — nvcc builds every kernel of the package from csrc/;
+3. kernel ggnn_step — the CUDA kernel against its plain PyTorch version
+   on the card (fp32, rtol 1e-4, atol 1e-5) at the flagship batch
+   (N 16384, E 65536, d 128, T 1), a T = 3 batch and the all-padding
+   batch; median times over 20 CUDA-event runs and the card's bound;
+4. serve   — a flagship-width DeepDFA (hidden 32, 5 steps, input_dim
+   1002, random weights from a seeded generator) behind a started
+   DynamicBatcher answers seeded synthetic requests; every probability
+   is finite and in (0, 1), matches the same model on the CPU (plain
+   path, rtol 1e-4, atol 1e-5), and the kernel ran n_steps times per
+   executed batch;
+5. profile — where one full serving batch's time goes: host stages,
+   device time by kernel (torch.profiler) and the device's idle share;
+6. kernels — every kernel with its launches on the serve run, error,
+   time, plain time and bound.
+
+The line before the last is nvidia-smi's "name, power.limit"; the last
+line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+FLAGSHIP_CONFIG = ROOT / "configs" / "bigvul_deepdfa.json"
+RTOL, ATOL = 1e-4, 1e-5
+# published H100 SXM peaks (dense): fp32 outside the tensor cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+TIMED_RUNS = 20
+N_REQUESTS = 96
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def synthetic_graph(rng, gid: int, n: int, input_dim: int, n_etypes: int = 1):
+    """A CFG-like graph: a fall-through chain plus random jumps, about
+    1.5 edges per node."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.graphs import GraphSpec
+
+    extra = max(0, int(round(1.5 * n)) - (n - 1))
+    src = np.concatenate([np.arange(n - 1), rng.integers(0, n, extra)]).astype(np.int32)
+    dst = np.concatenate([np.arange(1, n), rng.integers(0, n, extra)]).astype(np.int32)
+    return GraphSpec(
+        graph_id=gid,
+        node_feats=rng.integers(0, input_dim, (n, 4)).astype(np.int32),
+        node_vuln=np.zeros((n,), np.int32),
+        edge_src=src,
+        edge_dst=dst,
+        label=float(gid % 2),
+        edge_type=(
+            rng.integers(0, n_etypes, src.shape[0]).astype(np.int32)
+            if n_etypes > 1 else None
+        ),
+    )
+
+
+def full_batch(rng, node_budget: int, edge_budget: int, n_etypes: int):
+    """As many seeded graphs of 10-400 nodes as the budgets hold."""
+    from deepdfa_tpu_torch.graphs import pack
+
+    graphs, nodes, edges = [], 0, 0
+    while True:
+        g = synthetic_graph(rng, len(graphs), int(rng.integers(10, 401)), 1002, n_etypes)
+        if nodes + g.num_nodes > node_budget or edges + g.num_edges + g.num_nodes > edge_budget:
+            break
+        graphs.append(g)
+        nodes += g.num_nodes
+        edges += g.num_edges + g.num_nodes
+    return pack(graphs, 256, node_budget, edge_budget)
+
+
+def median_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
+    """Median device time of `fn` over `runs` CUDA-event windows. A spin
+    kernel queued ahead of each window keeps the card busy while the
+    host enqueues, so host-side wrapper time is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def step_bound(n: int, e_live: int, d: int, t: int, with_aggregate: bool):
+    """(bound_ms, bound_by) of one GGNN step: the larger of the fp32
+    operations over the card's fp32 peak and the bytes over its HBM
+    rate. Operations: 2*d per live edge (the run sums), 2*N*d^2*T (the
+    per-type transform), 12*N*d^2 (the two GRU products); the gate
+    arithmetic (~30 per node and column, under 2%) is not counted.
+    Bytes: h read and h' (and a) written once, the live edges' src and
+    weights, the row pointer, the weights."""
+    flops = 2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d
+    weights = t * d * d + t * d + 2 * (3 * d * d + 3 * d)
+    nbytes = 4 * (
+        n * d * (3 if with_aggregate else 2) + e_live * (1 + t) + (n + 1) + weights
+    )
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_phase(torch, rng):
+    from deepdfa_tpu_torch.graphs import pack
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    d = 128
+    gen = torch.Generator().manual_seed(1)
+    cases = {
+        "flagship": full_batch(rng, 16384, 65536, 1),
+        "etypes3": full_batch(rng, 16384, 65536, 3),
+        "all_padding": pack([], 16, 16384, 65536),
+    }
+    report, worst = {}, 0.0
+    timing = None
+    for name, batch in cases.items():
+        t = 3 if name == "etypes3" else 1
+        b = batch.to("cuda")
+        n, e = b.node_budget, b.edge_budget
+        scale = d ** -0.5
+        h = torch.randn(n, d, generator=gen).cuda()
+        wm = (torch.randn(t, d, d, generator=gen) * scale).cuda()
+        bm = (torch.randn(t, d, generator=gen) * 0.1).cuda()
+        wih = (torch.randn(d, 3 * d, generator=gen) * scale).cuda()
+        whh = (torch.randn(d, 3 * d, generator=gen) * scale).cuda()
+        bih = (torch.randn(3 * d, generator=gen) * 0.1).cuda()
+        bhh = (torch.randn(3 * d, generator=gen) * 0.1).cuda()
+        params = (wm, bm, wih, whh, bih, bhh)
+        edges = gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, b.edge_type, n, t)
+        e_live = int(b.edge_mask.sum())
+        if int(edges.rowptr[-1]) != e_live:
+            fail(f"{name}: rowptr[N] {int(edges.rowptr[-1])} != live edges {e_live}")
+        with torch.inference_mode():
+            h_k, a_k = gk.ggnn_step(h, edges, *params, with_aggregate=True)
+            h_k2, a_none = gk.ggnn_step(h, edges, *params)
+            h_p, a_p = gk.ggnn_step_plain(h, edges, *params)
+        torch.cuda.synchronize()
+        if a_none is not None:
+            fail(f"{name}: aggregate returned without being asked for")
+        for what, got, want in (("h", h_k, h_p), ("a", a_k, a_p), ("h_no_a", h_k2, h_p)):
+            if not torch.isfinite(got).all():
+                fail(f"{name}: kernel {what} has non-finite values")
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                fail(f"{name}: kernel {what} differs from the plain version, max abs err {err}")
+            report[f"{name}_{what}_max_abs_err"] = err
+        if name == "flagship":
+            with torch.inference_mode():
+                ms = median_ms(torch, lambda: gk.ggnn_step(h, edges, *params))
+                plain_ms = median_ms(torch, lambda: gk.ggnn_step_plain(h, edges, *params))
+            bound_ms, bound_by = step_bound(n, e_live, d, t, with_aggregate=False)
+            timing = {
+                "n": n, "e": e, "e_live": e_live, "d": d, "n_etypes": t,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "blocks": gk.block_sizes(n)[1],
+            }
+    emit({"phase": "kernel ggnn_step", "ok": True, "rtol": RTOL, "atol": ATOL,
+          "max_abs_err": worst, **report, **timing})
+    return worst, timing
+
+
+def serve_phase(torch, rng):
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve import DynamicBatcher, GgnnExecutor, score_graphs
+
+    cfg = load(FLAGSHIP_CONFIG)
+    input_dim = cfg.data.feat.input_dim
+    model = DeepDFA.from_config(
+        cfg.model, input_dim, generator=torch.Generator().manual_seed(0)
+    )
+    model_cpu = copy.deepcopy(model)
+    specs = [
+        synthetic_graph(rng, i, int(rng.integers(10, 401)), input_dim)
+        for i in range(N_REQUESTS)
+    ]
+    gk.LAUNCHES = 0
+    summary = score_graphs(model, specs, cfg, device="cuda")
+    launches = gk.LAUNCHES
+    probs = np.asarray(summary.pop("probs"), dtype=np.float64)
+    if summary["serve_scored"] != len(specs) or not np.all(np.isfinite(probs)):
+        fail(f"serve: {summary['serve_failed_requests']} requests failed or non-finite")
+    if not np.all((probs > 0.0) & (probs < 1.0)):
+        fail("serve: a probability outside (0, 1)")
+    want = summary["serve_batches"] * cfg.model.n_steps
+    if summary["ggnn_step_launches"] != want:
+        fail(f"serve: {summary['ggnn_step_launches']} kernel launches, "
+             f"expected batches x n_steps = {want}")
+    # the same model on the CPU, plain path, offline drive
+    node_budget = cfg.serve.node_budget or cfg.data.batch.node_budget
+    edge_budget = cfg.serve.edge_budget or cfg.data.batch.edge_budget
+    cpu = GgnnExecutor(model_cpu, node_budget, edge_budget,
+                       cfg.serve.max_batch_graphs, device="cpu")
+    ref = np.asarray([r.wait(600) for r in DynamicBatcher(cpu).score_all(specs)])
+    err = float(np.abs(probs - ref).max())
+    if not np.allclose(probs, ref, rtol=RTOL, atol=ATOL):
+        fail(f"serve: probabilities differ from the CPU plain path, max abs err {err}")
+    emit({"phase": "serve", "ok": True, "requests": len(specs),
+          "kernel_launches": launches, "cpu_max_abs_err": err,
+          "node_budget": node_budget, "edge_budget": edge_budget,
+          "max_batch_graphs": cfg.serve.max_batch_graphs, **summary})
+    return launches, model, specs[: cfg.serve.max_batch_graphs], (node_budget, edge_budget)
+
+
+def profile_phase(torch, model, specs, budgets) -> None:
+    """Where one full serving batch's time goes: host stages timed with
+    synchronize (median of 10), then one batch under torch.profiler for
+    device time by kernel and the device's idle share of the batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepdfa_tpu_torch.serve import GgnnExecutor
+
+    ex = GgnnExecutor(model, *budgets, len(specs), device="cuda")
+    ex.warmup()
+    stages = {"pack_ms": [], "to_device_ms": [], "forward_ms": [], "fetch_ms": [], "batch_ms": []}
+    for _ in range(10):
+        t0 = time.perf_counter()
+        _, (_, batch) = ex.pack_chunk("graph", specs)
+        t1 = time.perf_counter()
+        b = batch.to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            probs = torch.sigmoid(ex.model(b))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ex.fetch(probs, len(specs))
+        t4 = time.perf_counter()
+        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0)):
+            stages[k].append(1e3 * v)
+    _, packed = ex.pack_chunk("graph", specs)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.fetch(ex.dispatch("graph", packed), len(specs))
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # kernels and copies only: an operator's own row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    emit({"phase": "profile", "graphs": len(specs),
+          **{k: statistics.median(v) for k, v in stages.items()},
+          "profiled_batch_ms": profiled_ms, "device_busy_ms": busy_ms,
+          "device_idle_share": (1.0 - busy_ms / profiled_ms) if profiled_ms > 0 else None,
+          "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
+          "top_device_calls": {e.key[:60]: e.count for e in top}})
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False; this script runs on a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    try:
+        import deepdfa_tpu_torch
+    except ImportError as e:
+        fail(f"the deepdfa_tpu_torch package is not beside this script ({e})")
+    if Path(deepdfa_tpu_torch.__file__).resolve().parents[1] != ROOT:
+        fail(f"imported deepdfa_tpu_torch from {deepdfa_tpu_torch.__file__}, not {ROOT}")
+    if not FLAGSHIP_CONFIG.exists():
+        fail(f"{FLAGSHIP_CONFIG} is missing")
+    import numpy as np
+
+    from deepdfa_tpu_torch.nn import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    built = cuda_build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": {
+        name: {"cached": r["cached"], "seconds": r["seconds"],
+               "ptxas": [ln.strip() for ln in r["log"].splitlines()
+                         if "registers" in ln or "spill" in ln]}
+        for name, r in built.items()}})
+
+    rng = np.random.default_rng(0)
+    kernel_err, timing = kernel_phase(torch, rng)
+    launches, model, batch_specs, budgets = serve_phase(torch, rng)
+    if launches <= 0:
+        fail("the serve run launched the ggnn_step kernel no time")
+    profile_phase(torch, model, batch_specs, budgets)
+    emit({"kernels": [{
+        "name": "ggnn_step",
+        "route": "cuda",
+        "source": "deepdfa_tpu_torch/csrc/ggnn_step.cu",
+        "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555",
+        "launches": launches,
+        "max_abs_err": kernel_err,
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": None,
+    }]})
+    if not all(math.isfinite(timing[k]) for k in ("ms", "plain_ms", "bound_ms")):
+        fail("a kernel time is not finite")
+    print(smi)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

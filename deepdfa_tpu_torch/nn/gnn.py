@@ -1,0 +1,152 @@
+"""Graph network modules over padded `GraphBatch`es (the reference's
+`deepdfa_tpu/nn/gnn.py`).
+
+- `GatedGraphConv`: one path. Every step is `nn/ggnn_kernel.py:ggnn_step`
+  — the CUDA kernel on a CUDA device, its plain PyTorch version on the
+  CPU. Weights keep the reference's [in, out] layout, which the kernel
+  reads directly.
+- pooling: masked segment softmax; padded node slots belong to the dummy
+  segment `num_graphs`, which is sliced off. The segment reductions are
+  one-hot products over num_graphs + 1 segments — deterministic on the
+  card, where `index_add_` would sum with float atomics.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from deepdfa_tpu_torch.graphs.batch import GraphBatch
+from deepdfa_tpu_torch.nn import ggnn_kernel
+from deepdfa_tpu_torch.nn.init import truncated_normal_
+
+
+def segment_softmax(
+    scores: torch.Tensor,
+    segment_ids: torch.Tensor,
+    mask: torch.Tensor,
+    num_segments: int,
+) -> torch.Tensor:
+    """Masked softmax within segments; masked slots get weight 0. An
+    empty segment keeps the finfo.min floor and a zero denominator
+    becomes 1, so the all-padding batch stays finite."""
+    neg = torch.finfo(scores.dtype).min
+    scores = torch.where(mask, scores, torch.full_like(scores, neg))
+    onehot = segment_ids[None, :] == torch.arange(
+        num_segments, device=segment_ids.device
+    )[:, None]  # [S, N]
+    smax = torch.where(onehot, scores[None, :], torch.full_like(scores, neg)[None, :])
+    smax = smax.amax(dim=1)
+    ex = torch.exp(scores - smax[segment_ids.long()])
+    ex = torch.where(mask, ex, torch.zeros_like(ex))
+    denom = onehot.to(ex.dtype) @ ex
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    return ex / denom[segment_ids.long()]
+
+
+def attention_pool(
+    gate: torch.Tensor,
+    feat: torch.Tensor,
+    node_graph: torch.Tensor,
+    node_mask: torch.Tensor,
+    num_graphs: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gated-attention readout core: ([G, D] pooled, [N] attention)."""
+    attn = segment_softmax(gate, node_graph, node_mask, num_graphs + 1)
+    onehot = node_graph[None, :] == torch.arange(
+        num_graphs + 1, device=node_graph.device
+    )[:, None]
+    pooled = onehot.to(feat.dtype) @ (attn[:, None] * feat)
+    return pooled[:num_graphs], attn
+
+
+class GRUCell(nn.Module):
+    """torch.nn.GRUCell's update with the reference's parameter layout:
+    input/hidden projections [features, 3 * features] ([in, out]), gates
+    in r, z, n order."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.features = features
+        self.input_kernel = nn.Parameter(torch.empty(features, 3 * features))
+        self.input_bias = nn.Parameter(torch.zeros(3 * features))
+        self.hidden_kernel = nn.Parameter(torch.empty(features, 3 * features))
+        self.hidden_bias = nn.Parameter(torch.zeros(3 * features))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        truncated_normal_(self.input_kernel, self.features, generator)
+        truncated_normal_(self.hidden_kernel, self.features, generator)
+        nn.init.zeros_(self.input_bias)
+        nn.init.zeros_(self.hidden_bias)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        return ggnn_kernel.gru_cell(
+            x, h, self.input_kernel, self.hidden_kernel,
+            self.input_bias, self.hidden_bias,
+        )
+
+
+class GatedGraphConv(nn.Module):
+    """Gated Graph Convolution with DGL-parity semantics: per step
+    a_v = sum_{(u,v)} W_t h_u + b_t, h_v = GRU(a_v, h_v), weights shared
+    across steps, one transform per edge type. Inputs narrower than
+    `out_features` are zero-padded."""
+
+    def __init__(self, out_features: int, n_steps: int, n_etypes: int = 1):
+        super().__init__()
+        self.out_features = out_features
+        self.n_steps = n_steps
+        self.n_etypes = n_etypes
+        self.etype_kernel = nn.Parameter(torch.empty(n_etypes, out_features, out_features))
+        self.etype_bias = nn.Parameter(torch.zeros(n_etypes, out_features))
+        self.gru = GRUCell(out_features)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for t in range(self.n_etypes):
+            truncated_normal_(self.etype_kernel.data[t], self.out_features, generator)
+        nn.init.zeros_(self.etype_bias)
+        self.gru.reset_parameters(generator)
+
+    def forward(self, batch: GraphBatch, feat: torch.Tensor) -> torch.Tensor:
+        if self.n_etypes != 1 and batch.edge_type is None:
+            raise ValueError(
+                f"n_etypes={self.n_etypes} needs edge-type ids on the "
+                "batch (GraphSpec.edge_type)"
+            )
+        if self.n_etypes == 1 and batch.edge_type is not None:
+            raise ValueError(
+                "batch carries edge-type ids but n_etypes=1; set "
+                "model.n_etypes to the relation count (cfg+dep: 3)"
+            )
+        width = feat.shape[-1]
+        if width > self.out_features:
+            raise ValueError(f"input dim {width} > out_features {self.out_features}")
+        if width < self.out_features:
+            feat = nn.functional.pad(feat, (0, self.out_features - width))
+        gru = self.gru
+        return ggnn_kernel.ggnn_propagate(
+            self.etype_kernel, self.etype_bias,
+            gru.input_kernel, gru.hidden_kernel, gru.input_bias, gru.hidden_bias,
+            feat, batch.edge_src, batch.edge_dst, batch.edge_mask,
+            batch.edge_type, n_steps=self.n_steps, n_etypes=self.n_etypes,
+        )
+
+
+class GlobalAttentionPooling(nn.Module):
+    """Gated attention readout: gate = softmax_over_graph(gate_nn(h));
+    out_g = sum_v gate_v * h_v (DGL's, with identity feat_nn)."""
+
+    def __init__(self, in_features: int):
+        super().__init__()
+        self.gate_nn = nn.Linear(in_features, 1)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        truncated_normal_(self.gate_nn.weight, self.gate_nn.in_features, generator)
+        nn.init.zeros_(self.gate_nn.bias)
+
+    def forward(self, batch: GraphBatch, feat: torch.Tensor) -> torch.Tensor:
+        gate = self.gate_nn(feat)[:, 0]
+        pooled, _ = attention_pool(
+            gate, feat, batch.node_graph, batch.node_mask, batch.num_graphs
+        )
+        return pooled
