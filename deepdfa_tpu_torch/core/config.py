@@ -2,11 +2,14 @@
 
 It reads the same JSON files as the JAX package (`configs/*.json`,
 `config.json` in a run dir) and keeps the sections this port runs: the
-feature spec and batch budgets of `data`, all of `model`, and the
-batcher fields of `serve`. Field names and defaults are the reference's
-(`deepdfa_tpu/core/config.py`), so one file configures both packages.
-Keys of sections the port does not run yet (training, observability,
-fleet, the frontend) are read past; the JAX package validates them.
+feature spec, batch budgets, split and sampling fields of `data`, all of
+`model`, the batcher fields of `serve`, and the one-card training fields
+of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
+resilience switch, which must say "one card, off"). Field names and
+defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
+file configures both packages. Keys the port does not run yet
+(observability, fleet, the frontend, the prefetch pipeline) are read
+past; the JAX package validates them.
 """
 
 from __future__ import annotations
@@ -46,6 +49,20 @@ class FeatureSpec:
                 "size the embedding from the built vocab instead"
             )
         return self.limit_all + 2
+
+    @property
+    def name(self) -> str:
+        """The artifact name of this spec (graph-store directories)."""
+        sk = "_".join(sorted(self.subkeys))
+        base = (
+            f"_ABS_DATAFLOW_{sk}_all_limitall_{self.limit_all}"
+            f"_limitsubkeys_{self.limit_subkeys}"
+        )
+        if self.max_defs is not None:
+            base += f"_maxdefs_{self.max_defs}"
+        if self.struct_feats:
+            base += "_struct"
+        return base
 
 
 @dataclass(frozen=True)
@@ -122,6 +139,9 @@ class DataConfig:
     dataset: str = "bigvul"
     feat: FeatureSpec = field(default_factory=FeatureSpec)
     gtype: str = "cfg"
+    split: str = "fixed"  # fixed | random | fixed+random seed schemes
+    seed: int = 0
+    undersample: bool = True  # epoch-wise 1:1 undersampling of negatives
     batch: BatchConfig = field(default_factory=BatchConfig)
 
 
@@ -144,11 +164,78 @@ class ServeConfig:
 
 
 @dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"  # adamw | adam | sgd
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-2
+    warmup_frac: float = 0.0
+    grad_clip_norm: float = 0.0  # 0 = off
+    b1: float = 0.9
+    b2: float = 0.999
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The reference's device mesh. The port trains on one card: every
+    axis must resolve to 1 (`one_card`)."""
+
+    dp: int = -1  # -1 = all remaining devices: 1 on one card
+    tp: int = 1
+    sp: int = 1
+    pp: int = 1
+    ep: int = 1
+    fsdp: int = 1
+    num_shards: int = 0  # logical data shards; 0 = dp
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Only the switch: the resilient runtime comes with a later slice."""
+
+    enabled: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    max_epochs: int = 25
+    eval_every_epochs: int = 1
+    checkpoint_every_epochs: int = 25
+    checkpoint_keep_last: int = 0  # 0 = keep every epoch checkpoint
+    monitor: str = "val_loss"  # checkpoint-selection metric
+    monitor_mode: str = "min"
+    seed: int = 1
+    pos_weight: float | None = None  # None = derived from train labels
+    log_every_steps: int = 50
+    # feature-identity dropout: with this probability per node, known
+    # abstract-dataflow buckets map to UNKNOWN (train/loop.py)
+    feat_unknown_dropout: float = 0.0
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+
+
+@dataclass(frozen=True)
 class Config:
     run_name: str = "default"
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+def one_card(mesh: MeshConfig) -> int:
+    """The data-parallel size of `mesh` on the port's one card: 1, or
+    NotImplementedError for a mesh that needs more than one device or
+    several logical shards per batch."""
+    if mesh.dp not in (-1, 1) or mesh.num_shards not in (0, 1) or any(
+        getattr(mesh, a) != 1 for a in ("tp", "sp", "pp", "ep", "fsdp")
+    ):
+        raise NotImplementedError(
+            f"train.mesh={mesh}: the port trains on one card (dp -1 or 1, "
+            "every other axis and num_shards 1); data parallelism comes "
+            "with a later slice (ROADMAP queue A)"
+        )
+    return 1
 
 
 def serve_budgets(cfg: Config) -> tuple[int, int]:
@@ -187,3 +274,43 @@ def from_dict(d: dict[str, Any]) -> Config:
 
 def load(path: str | Path) -> Config:
     return from_dict(json.loads(Path(path).read_text()))
+
+
+def to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, tuple):
+        return list(cfg)
+    return cfg
+
+
+def to_json(cfg: Config, path: str | Path | None = None) -> str:
+    s = json.dumps(to_dict(cfg), indent=2)
+    if path is not None:
+        Path(path).write_text(s)
+    return s
+
+
+def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
+    """Apply `a.b.c=value` overrides (values parsed as JSON, else kept
+    as strings) to the fields the port reads; an unknown key raises."""
+    d = to_dict(cfg)
+    for ov in overrides:
+        key, eq, raw = ov.partition("=")
+        if not eq:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        try:
+            val = json.loads(raw)
+        except json.JSONDecodeError:
+            val = raw
+        node = d
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.get(p) if isinstance(node, dict) else None
+            if node is None:
+                raise KeyError(f"unknown config key: {key}")
+        if not isinstance(node, dict) or parts[-1] not in node:
+            raise KeyError(f"unknown config key: {key}")
+        old = node[parts[-1]]
+        node[parts[-1]] = {**old, **val} if isinstance(old, dict) and isinstance(val, dict) else val
+    return from_dict(d)

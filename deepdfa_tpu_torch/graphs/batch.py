@@ -14,14 +14,16 @@ A batch is a fixed budget of graphs/nodes/edges with padding masks:
 - self-loop edges are added for every real node.
 
 `pack` is bit-for-bit the reference's (held equal array for array in
-tests/test_torch_pack.py). A `GraphBatch` holds numpy arrays on the
+tests/test_torch_pack.py), and so is the batch planner below
+(`plan_shard_bucket_batches` and friends, with one logical shard;
+tests/test_torch_train.py). A `GraphBatch` holds numpy arrays on the
 host; `to(device)` gives the same batch as torch tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -275,3 +277,147 @@ def pack(
         edge_type=edge_type,
         **bit_arrays,
     )
+
+
+# ---------------------------------------------------------------------------
+# budget-aware batch planning (the reference's planner with one logical
+# shard: the same graphs land in the same batches, bit for bit)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length() if x > 1 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """Packing recipe for one batch: indices into the source graph
+    sequence plus the static budgets. Planning is bookkeeping over
+    node/edge counts; `pack_plan` turns a plan into arrays."""
+
+    indices: tuple[int, ...]
+    num_graphs: int
+    node_budget: int
+    edge_budget: int
+
+
+def pack_plan(
+    graphs: Sequence[GraphSpec], plan: BatchPlan, add_self_loops: bool = True
+) -> GraphBatch:
+    """Materialize one planned batch."""
+    return pack([graphs[i] for i in plan.indices], plan.num_graphs,
+                 plan.node_budget, plan.edge_budget, add_self_loops)
+
+
+def plan_shard_bucket_batches(
+    graphs: Sequence[GraphSpec],
+    num_graphs: int,
+    node_budget: int,
+    edge_budget: int,
+    add_self_loops: bool = True,
+    oversized: str = "drop",
+    stats: dict | None = None,
+) -> Iterator[BatchPlan]:
+    """Greedy budget-aware planning of fixed-budget batches: a new batch
+    starts whenever the next graph does not fit the current one.
+
+    `oversized` decides graphs over the budgets outright: "drop" skips
+    them (training), "raise" raises BudgetExceeded, "singleton" gives
+    each a trailing batch of its own whose budgets are its needs rounded
+    up to powers of two (evaluation: every example is scored). `stats`
+    receives "batches", "dropped", "oversized" and
+    "overflow_signatures", final once the generator is exhausted."""
+    if oversized not in ("drop", "raise", "singleton"):
+        raise ValueError(f"oversized={oversized!r}")
+    if stats is None:
+        stats = {}
+    stats.update(batches=0, dropped=0, oversized=0, overflow_signatures=0)
+    overflow: dict[tuple[int, int], list[int]] = {}
+    cur: list[int] = []
+    n_used = e_used = 0
+    for gi, g in enumerate(graphs):
+        e_need = g.num_edges + (g.num_nodes if add_self_loops else 0)
+        if g.num_nodes > node_budget or e_need > edge_budget:
+            stats["oversized"] += 1
+            if oversized == "raise":
+                raise BudgetExceeded(
+                    f"graph {g.graph_id}: {g.num_nodes} nodes / {e_need} "
+                    f"edges exceed budgets ({node_budget}/{edge_budget})"
+                )
+            if oversized == "drop":
+                stats["dropped"] += 1
+                continue
+            sig = (_pow2_ceil(g.num_nodes), _pow2_ceil(e_need))
+            overflow.setdefault(sig, []).append(gi)
+            continue
+        if not (len(cur) < num_graphs and n_used + g.num_nodes <= node_budget
+                and e_used + e_need <= edge_budget):
+            if cur:
+                stats["batches"] += 1
+                yield BatchPlan(tuple(cur), num_graphs, node_budget, edge_budget)
+            cur, n_used, e_used = [], 0, 0
+        cur.append(gi)
+        n_used += g.num_nodes
+        e_used += e_need
+    if cur:
+        stats["batches"] += 1
+        yield BatchPlan(tuple(cur), num_graphs, node_budget, edge_budget)
+    stats["overflow_signatures"] = len(overflow)
+    for (nb, eb), gis in sorted(overflow.items()):
+        for gi in gis:
+            stats["batches"] += 1
+            yield BatchPlan((gi,), 1, nb, eb)
+
+
+def shard_bucket_batches(
+    graphs: Iterable[GraphSpec],
+    num_graphs: int,
+    node_budget: int,
+    edge_budget: int,
+    add_self_loops: bool = True,
+    oversized: str = "drop",
+    stats: dict | None = None,
+) -> Iterator[GraphBatch]:
+    """`plan_shard_bucket_batches`, each plan packed inline."""
+    graphs = graphs if isinstance(graphs, Sequence) else list(graphs)
+    for plan in plan_shard_bucket_batches(
+        graphs, num_graphs, node_budget, edge_budget, add_self_loops, oversized, stats
+    ):
+        yield pack_plan(graphs, plan, add_self_loops)
+
+
+def bucket_batches(
+    graphs: Iterable[GraphSpec],
+    num_graphs: int,
+    node_budget: int,
+    edge_budget: int,
+    drop_oversized: bool = True,
+    add_self_loops: bool = True,
+    stats: dict | None = None,
+) -> Iterator[GraphBatch]:
+    """Greedy first-fit packing of a graph stream into fixed-budget
+    batches; over-budget graphs are dropped (counted in
+    stats["dropped"]) or raise."""
+    if stats is None:
+        stats = {}
+    stats.setdefault("dropped", 0)
+    cur: list[GraphSpec] = []
+    n_used = e_used = 0
+    for g in graphs:
+        e_need = g.num_edges + (g.num_nodes if add_self_loops else 0)
+        if g.num_nodes > node_budget or e_need > edge_budget:
+            if drop_oversized:
+                stats["dropped"] += 1
+                continue
+            raise BudgetExceeded(
+                f"graph {g.graph_id}: {g.num_nodes} nodes / {e_need} edges "
+                f"exceed budgets ({node_budget}/{edge_budget})"
+            )
+        if (len(cur) == num_graphs or n_used + g.num_nodes > node_budget
+                or e_used + e_need > edge_budget):
+            yield pack(cur, num_graphs, node_budget, edge_budget, add_self_loops)
+            cur, n_used, e_used = [], 0, 0
+        cur.append(g)
+        n_used += g.num_nodes
+        e_used += e_need
+    if cur:
+        yield pack(cur, num_graphs, node_budget, edge_budget, add_self_loops)

@@ -1,14 +1,18 @@
 """Graph network modules over padded `GraphBatch`es (the reference's
 `deepdfa_tpu/nn/gnn.py`).
 
-- `GatedGraphConv`: one path. Every step is `nn/ggnn_kernel.py:ggnn_step`
-  — the CUDA kernel on a CUDA device, its plain PyTorch version on the
-  CPU. Weights keep the reference's [in, out] layout, which the kernel
-  reads directly.
+- `GatedGraphConv`: one path, `nn/ggnn_kernel.py:ggnn_propagate`. Every
+  step is the step kernel on a CUDA device and its plain PyTorch version
+  on the CPU; with gradients enabled each step is a `GgnnStep`, whose
+  backward runs the two backward kernels (or their plain versions).
+  Weights keep the reference's [in, out] layout, which the kernels read
+  directly.
 - pooling: masked segment softmax; padded node slots belong to the dummy
-  segment `num_graphs`, which is sliced off. The segment reductions are
-  one-hot products over num_graphs + 1 segments — deterministic on the
-  card, where `index_add_` would sum with float atomics.
+  segment `num_graphs`, which is sliced off. The segment reductions and
+  the per-node gathers are one-hot products over num_graphs + 1
+  segments — deterministic on the card, forward and backward, where
+  `index_add_` and an indexed gather's backward would sum with float
+  atomics.
 """
 
 from __future__ import annotations
@@ -35,13 +39,16 @@ def segment_softmax(
     onehot = segment_ids[None, :] == torch.arange(
         num_segments, device=segment_ids.device
     )[:, None]  # [S, N]
+    oh = onehot.to(scores.dtype)
     smax = torch.where(onehot, scores[None, :], torch.full_like(scores, neg)[None, :])
     smax = smax.amax(dim=1)
-    ex = torch.exp(scores - smax[segment_ids.long()])
+    # per-node gathers as one-hot products too (exact: one nonzero term
+    # each), so their backward is a matmul and not an atomic scatter
+    ex = torch.exp(scores - oh.T @ smax)
     ex = torch.where(mask, ex, torch.zeros_like(ex))
-    denom = onehot.to(ex.dtype) @ ex
+    denom = oh @ ex
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    return ex / denom[segment_ids.long()]
+    return ex / (oh.T @ denom)
 
 
 def attention_pool(

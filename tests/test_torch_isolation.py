@@ -48,7 +48,11 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.nn.embedding", "deepdfa_tpu_torch.nn.mlp",
         "deepdfa_tpu_torch.nn.gnn", "deepdfa_tpu_torch.models.deepdfa",
         "deepdfa_tpu_torch.models.convert", "deepdfa_tpu_torch.serve.batcher",
-        "deepdfa_tpu_torch.serve.driver",
+        "deepdfa_tpu_torch.serve.driver", "deepdfa_tpu_torch.graphs.store",
+        "deepdfa_tpu_torch.train.losses", "deepdfa_tpu_torch.train.state",
+        "deepdfa_tpu_torch.train.sampler", "deepdfa_tpu_torch.train.metrics",
+        "deepdfa_tpu_torch.train.checkpoint", "deepdfa_tpu_torch.train.loop",
+        "deepdfa_tpu_torch.cli",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
