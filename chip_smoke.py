@@ -37,8 +37,34 @@ prints one JSON line; any failure exits non-zero before the last line.
    steps on the CPU plain path match the card's losses (rtol 1e-4) and
    step-1 gradients (1e-4 of each leaf's scale); median ms per step
    split into host pack, forward, backward and optimiser, and graphs/s;
-8. kernels — every kernel with its launches on the main paths (serve
-   and train, each counted from 0), error, time, plain time and bound.
+8. kernel flash_fwd — the flash-attention forward kernel against its
+   plain version on the card: the flagship serving shape (B 16, H 12,
+   T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
+   case and a bf16 batch with ragged masks and one all-padding row
+   (o within 2e-2 in bf16 and 1e-5 in fp32, lse within 1e-5, o == 0 on
+   the padding row); median times of 20 CUDA-event runs, the plain
+   version's, one scaled_dot_product_attention call's (the yardstick,
+   never called by the port) and the card's bound;
+9. serve_combined — score_combined on the combined DeepDFA+LineVul
+   model at codebert-base width (768 wide, 12 layers, bf16 activations,
+   vocab 50265) with the flagship graph encoder (d 128, 5 steps), random
+   weights from a seeded generator, buckets 128/256/512 at token budget
+   8192 (64/32/16 rows), answering 64 seeded requests spread over the
+   three buckets, each with a seeded graph. Every probability is finite
+   and in (0, 1); the flash kernel ran 12 times and the GGNN step 5
+   times per batch; 3 requests re-scored alone match their batched
+   scores (text-only: the same bits; with graphs within 1e-5); 4
+   requests through a 2-layer model of the same width and seed give
+   logits within 5e-3 between the card and the CPU plain path; then a
+   load window of 768 such requests (256 a bucket, so every bucket runs
+   several full batches, arriving at once) gives requests/s, p50/p99
+   and the tokenizing time, which precedes the batcher's window;
+10. profile_combined — one full 512-token batch split into host
+   collate, copies, forward to sync and fetch; device time by kernel
+   (flash, GGNN step, matmuls, the rest) and the idle share;
+11. kernels — every kernel with its launches on the main paths (serve,
+   train and serve_combined, each counted from 0), error, time, plain
+   time, bound and library time.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -57,10 +83,23 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FLAGSHIP_CONFIG = ROOT / "configs" / "bigvul_deepdfa.json"
+COMBINED_CONFIG = ROOT / "configs" / "bigvul_combined.json"
 RTOL, ATOL = 1e-4, 1e-5
-# published H100 SXM peaks (dense): fp32 outside the tensor cores, HBM3
+# published H100 SXM peaks (dense): fp32 outside the tensor cores, bf16
+# on the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+COMBINED_BUCKETS = [128, 256, 512]
+COMBINED_REQUESTS = 64
+COMBINED_LOAD_REQUESTS = 768  # 256 a bucket: 4-16 full batches each
+# card vs CPU logits of the 2-layer bf16 check (its probabilities agree
+# to ~5e-4 on an H100, where the logits are ~0.3 in size)
+COMBINED_LOGIT_TOL = 5e-3
+C_WORDS = ("int", "char", "*", "buf", "=", "malloc", "(", "len", ")", ";", "if", "{",
+           "}", "return", "memcpy", "src", "0", "42", "+", "-", "[", "]", "free", "n",
+           "size_t", "->", "next", "while", "<", "for", "i", "++", "NULL", "&", "ptr")
 TIMED_RUNS = 20
 N_REQUESTS = 96
 TRAIN_BATCHES, TRAIN_EPOCHS = 4, 5
@@ -143,10 +182,11 @@ def median_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def roofline(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of the fp32 operations over the
-    card's fp32 peak and the bytes over its HBM rate."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def roofline(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of the operations over the
+    card's peak for their type (fp32 unless given) and the bytes over
+    its HBM rate."""
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -579,6 +619,282 @@ def train_phase(torch, rng):
     return launches
 
 
+def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int):
+    """(bound_ms, bound_by) of one flash_fwd call: 4*H*Tq*D operations
+    per live key of each row (q.k and p.v; a padded key needs none) at
+    the bf16 tensor-core peak (fp32 at the fp32 peak); bytes: q, k, v
+    read and o written once, the mask and lse."""
+    flops = 4 * H * Tq * D * sum(Tk_live)
+    Tk = max(Tk_live + [1])
+    nbytes = itemsize * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * Tk + 4 * B * H * Tq
+    return roofline(flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
+
+
+def flash_kernel_phase(torch):
+    """Kernel 5 against attention_plain at the serving bucket shapes;
+    times at the flagship bucket (B 16, T 512, every key live)."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    H, D = 12, 64
+    cases = {  # name: (B, T, dtype, real key counts per row)
+        "flagship_t512": (16, 512, "bfloat16", [512] * 16),
+        "t256": (32, 256, "bfloat16", [256 - 7 * i for i in range(32)]),
+        "t128": (64, 128, "bfloat16", [128 - 2 * i for i in range(64)]),
+        "fp32_t512": (16, 512, "float32", [512 - 31 * i for i in range(16)]),
+        "ragged_all_padding": (16, 512, "bfloat16", [512, 300, 65, 1, 0] + [257] * 11),
+    }
+    gen = torch.Generator().manual_seed(3)
+    report, worst, timing = {}, 0.0, None
+    for name, (B, T, dtype, lens) in cases.items():
+        td = getattr(torch, dtype)
+        q, k, v = (torch.randn(B, H, T, D, generator=gen).to(td).cuda() for _ in range(3))
+        mask = (torch.arange(T)[None, :] < torch.tensor(lens)[:, None]).cuda()
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, mask)
+            po, plse = fa.attention_plain(q, k, v, mask)
+            o2, lse2 = fa.flash_fwd(q, k, v, mask)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+            fail(f"flash_fwd {name}: non-finite o or lse")
+        err_o = (o.float() - po.float()).abs().max().item()
+        err_lse = (lse - plse).abs().max().item()
+        tol = FLASH_TOL[dtype]
+        if err_o > tol or err_lse > 1e-5:
+            fail(f"flash_fwd {name}: o err {err_o} (tol {tol}), lse err {err_lse} (tol 1e-5)")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"flash_fwd {name}: other bits on a rerun")
+        for b, n in enumerate(lens):
+            if n == 0 and not bool((o[b] == 0).all()):
+                fail(f"flash_fwd {name}: row {b} has no key but o != 0")
+        worst = max(worst, err_o, err_lse)
+        report[f"{name}_o_max_abs_err"] = err_o
+        report[f"{name}_lse_max_abs_err"] = err_lse
+        if name == "flagship_t512":
+            bias_mask = mask[:, None, None, :]
+            with torch.inference_mode():
+                ms = median_ms(torch, lambda: fa.flash_fwd(q, k, v, mask))
+                plain_ms = median_ms(torch, lambda: fa.attention_plain(q, k, v, mask))
+                library_ms = median_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias_mask))
+            bound_ms, bound_by = flash_bound(B, H, T, lens, D, 2)
+            timing = {"shape": [B, H, T, T, D], "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit({"phase": "kernel flash_fwd", "ok": True, "tolerance": FLASH_TOL, "lse_tolerance": 1e-5,
+          "max_abs_err": worst, **report, **timing})
+    return worst, timing
+
+
+def c_like_text(rng, n_tokens: int) -> str:
+    """n_tokens C-like tokens (each one hash-tokenizer token), broken
+    into lines after ; { and }."""
+    lines, line = [], []
+    for w in rng.choice(C_WORDS, n_tokens):
+        line.append(str(w))
+        if w in (";", "{", "}"):
+            lines.append(" ".join(line))
+            line = []
+    lines.append(" ".join(line))
+    return "\n".join(lines) + "\n"
+
+
+def combined_model(torch, layers: int | None = None):
+    """The combined model at codebert-base width (bf16 activations) with
+    the flagship graph encoder, random weights from seed 0 on the CPU."""
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.models import CombinedConfig, CombinedModel, TransformerConfig
+
+    cfg = load(COMBINED_CONFIG)
+    enc = TransformerConfig(dtype="bfloat16", **({"num_layers": layers} if layers else {}))
+    mcfg = CombinedConfig(encoder=enc, graph_hidden_dim=cfg.model.hidden_dim,
+                          graph_n_steps=cfg.model.n_steps, graph_input_dim=cfg.data.feat.input_dim)
+    return CombinedModel(mcfg, generator=torch.Generator().manual_seed(0)).eval()
+
+
+def serve_combined_phase(torch, rng):
+    """The combined serving main path through score_combined on the
+    card, its launch counts, batched-vs-alone and card-vs-CPU checks."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import apply_overrides, load
+    from deepdfa_tpu_torch.core.config import serve_budgets
+    from deepdfa_tpu_torch.data import HashTokenizer
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve import CombinedExecutor, DynamicBatcher, score_combined
+
+    override = f"data.seq_buckets={json.dumps(COMBINED_BUCKETS)}"
+    cfg = apply_overrides(load(COMBINED_CONFIG), [override])
+    tok = HashTokenizer(vocab_size=4096)
+    t0 = time.perf_counter()
+    model = combined_model(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    spans = [(20, 126), (127, 254), (255, 510)]  # real tokens + <s> </s> per bucket
+    payloads = []
+    for i in range(COMBINED_REQUESTS):
+        lo, hi = spans[i % 3]
+        text = c_like_text(rng, int(rng.integers(lo, hi + 1)))
+        payloads.append((text, synthetic_graph(rng, i, int(rng.integers(10, 151)),
+                                               cfg.data.feat.input_dim)))
+    n_layers, n_steps = model.cfg.encoder.num_layers, model.cfg.graph_n_steps
+
+    gk.LAUNCHES = fa.LAUNCHES = 0
+    summary = score_combined(model, payloads, cfg, tok, device="cuda")
+    launches = {"flash_fwd": fa.LAUNCHES, "ggnn_step": gk.LAUNCHES}
+    probs = np.asarray(summary.pop("probs"), dtype=np.float64)
+    if summary["serve_scored"] != len(payloads) or not np.all(np.isfinite(probs)):
+        fail(f"serve_combined: {summary['serve_failed_requests']} failed or non-finite")
+    if not np.all((probs > 0.0) & (probs < 1.0)):
+        fail("serve_combined: a probability outside (0, 1)")
+    batches = summary["serve_batches"]
+    warm = len(COMBINED_BUCKETS)
+    want = {"flash_fwd": (batches + warm) * n_layers, "ggnn_step": (batches + warm) * n_steps}
+    if (summary["flash_fwd_launches"], summary["ggnn_step_launches"]) != (
+            batches * n_layers, batches * n_steps) or launches != want:
+        fail(f"serve_combined: launches {launches} (scoring {summary['flash_fwd_launches']}, "
+             f"{summary['ggnn_step_launches']}), expected {want} for {batches} batches + "
+             f"{warm} warmup batches")
+
+    # three requests of one bucket re-scored alone on the same padded shape
+    node_budget, edge_budget = serve_budgets(cfg)
+    ex = CombinedExecutor(model, tok, cfg.data.seq_buckets, cfg.data.token_budget,
+                          node_budget, edge_budget, device="cuda")
+    enc = [(tok.encode(t, COMBINED_BUCKETS[-1]), g) for t, g in payloads]
+    pick = [i for i in range(len(enc)) if ex.bucket_key(enc[i]) == 256][:3]
+    alone = [DynamicBatcher(ex).score_all([enc[i]])[0].wait(600) for i in pick]
+    graph_gap = float(max(abs(a - probs[i]) for a, i in zip(alone, pick)))
+    if graph_gap > 1e-5:
+        fail(f"serve_combined: alone vs batched with graphs differ by {graph_gap}")
+    text_only = [(enc[i][0], None) for i in pick]
+    together = [r.wait(600) for r in DynamicBatcher(ex).score_all(text_only)]
+    text_alone = [DynamicBatcher(ex).score_all([p])[0].wait(600) for p in text_only]
+    if together != text_alone:
+        fail(f"serve_combined: text-only alone {text_alone} != batched {together}")
+
+    # a 2-layer model of the same width and seed: card vs the CPU plain
+    # path, compared on the logits (the probabilities squash their spread)
+    small = [enc[i] for i in range(0, 12, 3)]  # 4 requests, T = 128 bucket
+    two = {}
+    for dev in ("cuda", "cpu"):
+        small_ex = CombinedExecutor(combined_model(torch, layers=2), tok, [128], 4 * 128,
+                                    node_budget, edge_budget, device=dev)
+        _, (_, batch) = small_ex.pack_chunk(128, small)
+        b = batch.to(dev)
+        with torch.inference_mode():
+            logits = small_ex.model(b.input_ids, b.graphs, b.has_graph)
+        two[dev] = logits[: len(small)].float().cpu().numpy().astype(np.float64)
+    cpu_err = float(np.abs(two["cuda"] - two["cpu"]).max())
+    margin = two["cpu"][:, 1] - two["cpu"][:, 0]
+    if not cpu_err <= COMBINED_LOGIT_TOL:
+        fail(f"serve_combined: 2-layer card vs CPU logits differ by {cpu_err} "
+             f"(tol {COMBINED_LOGIT_TOL})")
+
+    # a load window: every bucket runs several full batches, so requests/s
+    # and p99 rest on more than the handful of batches above
+    load = []
+    for i in range(COMBINED_LOAD_REQUESTS):
+        lo, hi = spans[i % 3]
+        load.append((c_like_text(rng, int(rng.integers(lo, hi + 1))),
+                     synthetic_graph(rng, i, int(rng.integers(10, 151)), cfg.data.feat.input_dim)))
+    load_summary = score_combined(model, load, cfg, tok, device="cuda")
+    load_probs = np.asarray(load_summary.pop("probs"), dtype=np.float64)
+    load_batches = load_summary["serve_batches"]
+    if load_summary["serve_scored"] != len(load) or not np.all(
+            (load_probs > 0.0) & (load_probs < 1.0)):
+        fail("serve_combined load: a failed request or a probability outside (0, 1)")
+    load_launches = (load_summary["flash_fwd_launches"], load_summary["ggnn_step_launches"])
+    if load_launches != (load_batches * n_layers, load_batches * n_steps):
+        fail(f"serve_combined load: launches {load_launches} for {load_batches} batches")
+    load_summary.pop("buckets")
+    emit({"phase": "serve_combined", "ok": True, "override": override,
+          "seq_buckets": list(cfg.data.seq_buckets), "token_budget": cfg.data.token_budget,
+          "node_budget": node_budget, "edge_budget": edge_budget, "params": n_params,
+          "init_seconds": init_s, "requests": len(payloads), "kernel_launches": launches,
+          "alone_vs_batched_with_graphs_max_abs": graph_gap,
+          "alone_vs_batched_with_graphs_bit_equal": graph_gap == 0.0,
+          "alone_vs_batched_text_only_bit_equal": True,
+          "two_layer_cpu_logits_max_abs_err": cpu_err,
+          "two_layer_logit_tolerance": COMBINED_LOGIT_TOL,
+          "two_layer_cpu_logits": two["cpu"].tolist(),
+          "two_layer_logit_margin_min": float(margin.min()),
+          "two_layer_logit_margin_max": float(margin.max()),
+          "probs_min": float(probs.min()), "probs_max": float(probs.max()), **summary,
+          "load": {"requests": len(load), "probs_min": float(load_probs.min()),
+                   "probs_max": float(load_probs.max()), **load_summary}})
+    return launches, model, tok, cfg, enc
+
+
+def profile_combined_phase(torch, model, tok, cfg, enc) -> None:
+    """One full 512-token batch (16 rows): host collate, copies, forward
+    to sync and fetch (median of 5, each stage synchronized), then one
+    batch under torch.profiler (after a dropped warm-up batch) for device
+    time by kernel group, the idle share, and whether the trace holds
+    every flash and GGNN launch of the batch."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from deepdfa_tpu_torch.core.config import serve_budgets
+    from deepdfa_tpu_torch.serve import CombinedExecutor
+
+    ex = CombinedExecutor(model, tok, [512], cfg.data.token_budget, *serve_budgets(cfg),
+                          device="cuda")
+    rows = ex.capacity(512)
+    chunk = [p for p in enc if ex.bucket_key(p) == 512][:rows]
+    chunk += chunk[: rows - len(chunk)]
+    ex.warmup()
+    stages = {"collate_ms": [], "to_device_ms": [], "forward_ms": [], "fetch_ms": [], "batch_ms": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        _, (_, batch) = ex.pack_chunk(512, chunk)
+        t1 = time.perf_counter()
+        b = batch.to("cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            probs = torch.softmax(ex.model(b.input_ids, b.graphs, b.has_graph), dim=-1)[:, 1]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        ex.fetch(probs, rows)
+        t4 = time.perf_counter()
+        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0)):
+            stages[k].append(1e3 * v)
+    _, packed = ex.pack_chunk(512, chunk)
+    # the first batch warms the tracer up and is dropped: a trace that
+    # starts cold can miss the window's first kernels
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        ex.fetch(ex.dispatch(512, packed), rows)
+        prof.step()  # the traced step ends where the context does
+        t0 = time.perf_counter()
+        ex.fetch(ex.dispatch(512, packed), rows)
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+    dev = device_profile(prof, profiled_ms)
+    groups = device_groups(prof)
+    mcfg = model.cfg
+    emit({"phase": "profile_combined", "rows": rows, "tokens": rows * 512,
+          **{k: statistics.median(v) for k, v in stages.items()},
+          "device_ms_by_group": groups,
+          "trace_complete": (groups["flash_fwd"]["calls"], groups["ggnn_step"]["calls"]) == (
+              mcfg.encoder.num_layers, mcfg.graph_n_steps), **dev})
+
+
+def device_groups(prof) -> dict:
+    """Device ms of one profiled window by kernel group: the flash
+    kernel, the GGNN step kernel, matmuls (cuBLAS's gemm and Hopper
+    `nvjet` kernels, CUTLASS) and everything else; with launch counts."""
+    groups = {"flash_fwd": [0.0, 0], "ggnn_step": [0.0, 0], "matmul": [0.0, 0], "other": [0.0, 0]}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if not str(e.device_type).endswith("CUDA") or us <= 0 or getattr(e, "is_user_annotation", False):
+            continue
+        name = e.key.lower()
+        key = ("flash_fwd" if "flash_fwd" in name else "ggnn_step" if "ggnn_step" in name
+               else "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
+               else "other")
+        groups[key][0] += us / 1e3
+        groups[key][1] += e.count
+    return {k: {"ms": v[0], "calls": v[1]} for k, v in groups.items()}
+
+
 def main() -> None:
     import torch
 
@@ -591,8 +907,9 @@ def main() -> None:
         fail(f"the deepdfa_tpu_torch package is not beside this script ({e})")
     if Path(deepdfa_tpu_torch.__file__).resolve().parents[1] != ROOT:
         fail(f"imported deepdfa_tpu_torch from {deepdfa_tpu_torch.__file__}, not {ROOT}")
-    if not FLAGSHIP_CONFIG.exists():
-        fail(f"{FLAGSHIP_CONFIG} is missing")
+    for config in (FLAGSHIP_CONFIG, COMBINED_CONFIG):
+        if not config.exists():
+            fail(f"{config} is missing")
     import numpy as np
 
     from deepdfa_tpu_torch.nn import cuda_build
@@ -627,10 +944,16 @@ def main() -> None:
     train_launches = train_phase(torch, rng)
     if min(train_launches.values()) <= 0:
         fail(f"the train run launched a kernel no time: {train_launches}")
+    flash_err, flash_timing = flash_kernel_phase(torch)
+    combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
+    if min(combined_launches.values()) <= 0:
+        fail(f"the serve_combined run launched a kernel no time: {combined_launches}")
+    profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
     kernels = [
         {"name": "ggnn_step", "source": "deepdfa_tpu_torch/csrc/ggnn_step.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555",
-         "launches": launches + train_launches["ggnn_step"], "max_abs_err": kernel_err,
+         "launches": launches + train_launches["ggnn_step"] + combined_launches["ggnn_step"],
+         "max_abs_err": kernel_err,
          **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "ggnn_gru_bwd", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:852",
@@ -640,12 +963,17 @@ def main() -> None:
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:907",
          "launches": train_launches["ggnn_dmsg"], "max_abs_err": bwd_err["ggnn_dmsg"],
          **bwd_timing["ggnn_dmsg"]},
+        {"name": "flash_fwd", "source": "deepdfa_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "deepdfa_tpu/nn/flash_attention.py:427",
+         "launches": combined_launches["flash_fwd"], "max_abs_err": flash_err,
+         **{k: flash_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"], "launches": k["launches"],
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                       "bound_by": k["bound_by"], "library_ms": None} for k in kernels]})
+                       "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+                      for k in kernels]})
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         fail("a kernel time is not finite")
     print(smi)

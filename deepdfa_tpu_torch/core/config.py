@@ -2,7 +2,8 @@
 
 It reads the same JSON files as the JAX package (`configs/*.json`,
 `config.json` in a run dir) and keeps the sections this port runs: the
-feature spec, batch budgets, split and sampling fields of `data`, all of
+feature spec, batch budgets, split and sampling fields and the text
+buckets (`seq_buckets`, `token_budget`) of `data`, all of
 `model`, the batcher fields of `serve`, and the one-card training fields
 of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
 resilience switch, which must say "one card, off"). Field names and
@@ -22,6 +23,12 @@ from pathlib import Path
 from typing import Any
 
 ALL_SUBKEYS = ("api", "datatype", "literal", "operator")
+
+#: pad-token id per encoder family: the one convention shared by the text
+#: collater's padding (data/text.py) and the encoders' attention-mask
+#: derivation (`input_ids != pad`, models/transformer.py). RoBERTa vocabs
+#: put <pad> at 1, the T5 frame at 0.
+PAD_ID_BY_FAMILY = {"roberta": 1, "t5": 0}
 
 
 @dataclass(frozen=True)
@@ -143,6 +150,12 @@ class DataConfig:
     seed: int = 0
     undersample: bool = True  # epoch-wise 1:1 undersampling of negatives
     batch: BatchConfig = field(default_factory=BatchConfig)
+    # sequence-length buckets of the combined (text + graph) path: a row
+    # pads to the smallest edge >= its real token length; () = none
+    seq_buckets: tuple[int, ...] = ()
+    # tokens per bucketed batch: a bucket of edge T holds
+    # token_budget // T rows (data/text.py:rows_for_bucket)
+    token_budget: int = 8192
 
 
 @dataclass(frozen=True)

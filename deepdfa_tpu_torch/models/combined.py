@@ -1,0 +1,122 @@
+"""Combined transformer + graph classifier, the DeepDFA+LineVul family
+(the port of the reference's `deepdfa_tpu/models/combined.py`,
+inference).
+
+    input_ids --RobertaEncoder--> hidden [B, T, D] --> [CLS] hidden[:, 0]
+    graphs ----DeepDFA (encoder mode)--> pooled [B, 8*graph_hidden_dim],
+               zeroed on rows whose has_graph is False
+    concat [CLS, graph] --> dense --> tanh --> out --> logits [B, classes]
+
+(LineVul's RobertaClassificationHead over [CLS] concatenated with the
+DeepDFA embedding.) Rounding points follow the reference: the encoder
+runs in its activation dtype; the fp32 graph embedding is cast to that
+dtype before the concatenation, and the head, whose parameters are
+fp32, promotes the row to fp32. The graph encoder is the port's DeepDFA,
+whose GGNN steps are the step kernel on a CUDA device.
+
+Not ported (raise `NotImplementedError`): the MoE adapter
+(`moe_experts > 0`), the pipeline, expert and sequence/tensor-parallel
+paths, and dropout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from deepdfa_tpu_torch.graphs.batch import GraphBatch
+from deepdfa_tpu_torch.models.deepdfa import DeepDFA
+from deepdfa_tpu_torch.models.transformer import RobertaEncoder, TransformerConfig, _normal_
+
+
+@dataclasses.dataclass(frozen=True)
+class CombinedConfig:
+    """The reference's fields and defaults."""
+
+    encoder: TransformerConfig
+    graph_hidden_dim: int = 32
+    graph_n_steps: int = 5
+    graph_input_dim: int = 1002
+    num_classes: int = 2
+    head_dropout: float = 0.1
+    use_graph: bool = True
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_aux_weight: float = 0.01
+
+    @property
+    def graph_out_dim(self) -> int:
+        return 8 * self.graph_hidden_dim  # concat_all_absdf encoder out_dim
+
+
+class CombinedModel(nn.Module):
+    """Encoder (no pooler), encoder-mode DeepDFA (when `use_graph`) and
+    the classification head. `generator` seeds the initial weights."""
+
+    def __init__(self, cfg: CombinedConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        if cfg.moe_experts:
+            raise NotImplementedError(
+                f"moe_experts={cfg.moe_experts}: the MoE adapter (parallel/moe.py) "
+                "comes with a later slice of the port (ROADMAP queue A, item 8)"
+            )
+        self.cfg = cfg
+        d = cfg.encoder.hidden_size
+        self.encoder = RobertaEncoder(cfg.encoder, with_pooler=False, generator=generator)
+        if cfg.use_graph:
+            self.graph = DeepDFA(
+                cfg.graph_input_dim, cfg.graph_hidden_dim, cfg.graph_n_steps,
+                num_output_layers=0, concat_all_absdf=True, label_style="graph",
+                encoder_mode=True, generator=generator,
+            )
+        in_dim = d + (cfg.graph_out_dim if cfg.use_graph else 0)
+        self.head_dense = nn.Linear(in_dim, d)
+        self.head_out = nn.Linear(d, cfg.num_classes)
+        for lin in (self.head_dense, self.head_out):
+            _normal_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        graph_batch: GraphBatch | None = None,
+        has_graph: torch.Tensor | None = None,
+        *,
+        dropout_key=None,
+        sp_axis: str | None = None,
+        tp_axis: str | None = None,
+        position_offset: int = 0,
+        pp_axis: str | None = None,
+        ep_axis: str | None = None,
+    ) -> torch.Tensor:
+        """[B, T] ids (+ a GraphBatch of B graphs aligned with the rows)
+        -> logits [B, num_classes] in fp32."""
+        if pp_axis is not None or ep_axis is not None:
+            raise NotImplementedError(
+                "pp_axis / ep_axis: pipeline and expert parallelism come with the "
+                "multi-device slice of the port (ROADMAP queue A, item 9)"
+            )
+        if dropout_key is not None or (self.training and self.cfg.head_dropout > 0.0):
+            raise NotImplementedError(
+                "dropout: this slice of the port serves the combined model; dropout "
+                "comes with the combined-training slice (call .eval(), pass no dropout_key)"
+            )
+        hidden = self.encoder.encode(
+            input_ids, dropout_key=dropout_key, sp_axis=sp_axis, tp_axis=tp_axis,
+            position_offset=position_offset,
+        )
+        x = hidden[:, 0, :]
+        if self.cfg.use_graph:
+            if graph_batch is None:
+                raise ValueError(
+                    "CombinedConfig.use_graph=True needs a graph_batch (text-only: "
+                    "use_graph=False, which sizes the head without the graph block)"
+                )
+            graph_vec = self.graph(graph_batch)  # [B, 8H] fp32
+            if has_graph is not None:
+                graph_vec = graph_vec * has_graph[:, None].to(graph_vec.dtype)
+            x = torch.cat([x, graph_vec.to(x.dtype)], dim=-1)
+        x = torch.tanh(self.head_dense(x.float()))
+        return self.head_out(x)

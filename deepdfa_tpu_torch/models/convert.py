@@ -1,11 +1,21 @@
-"""Flax DeepDFA parameters -> the port's `state_dict`.
+"""Reference parameter trees -> the port's `state_dict`s.
 
-The input is the reference model's variables, `{"params": {...}}` (or
+`from_jax_params`: the Flax DeepDFA variables, `{"params": {...}}` (or
 the bare params dict) with numpy arrays as leaves. Embedding tables and
 the GGNN's weights keep their layout (the CUDA kernel reads the
 reference's [in, out] kernels as they are); the per-etype Dense
 subtrees stack into one [T, d, d] tensor; Dense layers that become
 `nn.Linear` are transposed to [out, in].
+
+`from_jax_encoder_params` / `from_jax_combined_params`: the transformer
+encoder's and the combined model's parameter pytrees
+(`models/transformer.py:init_params`, `models/combined.py:init_params`
+of the reference). The stacked per-layer weights ([L, D, H, Dh] for
+q/k/v, [L, H, Dh, D] for the output projection, [L, D, F] / [L, F, D]
+for the FFN) split into the port's layers, with q, k and v fused into
+one [D, 3*H*Dh] kernel; the graph encoder goes through
+`from_jax_params`; the head's [in, out] Dense kernels are transposed for
+`nn.Linear`.
 """
 
 from __future__ import annotations
@@ -51,4 +61,48 @@ def from_jax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for name, dense in p.get("head", {}).items():
         sd[f"head.{name}.weight"] = _t(dense["kernel"]).T.contiguous()
         sd[f"head.{name}.bias"] = _t(dense["bias"])
+    return sd
+
+
+def from_jax_encoder_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference encoder tree {"embeddings", "layers"[, "pooler"]} ->
+    a `RobertaEncoder` state_dict (with its pooler iff the tree has one)."""
+    unknown = set(tree) - {"embeddings", "layers", "pooler"}
+    if unknown:
+        raise KeyError(f"encoder subtrees the port has no module for: {sorted(unknown)}")
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("word", "position", "token_type", "ln_scale", "ln_bias"):
+        sd[f"embeddings.{name}"] = _t(tree["embeddings"][name])
+    lay = {k: np.asarray(v, np.float32) for k, v in tree["layers"].items()}
+    n_layers, d = lay["wq"].shape[:2]
+    for i in range(n_layers):
+        pre = f"layers.{i}."
+        sd[pre + "wqkv"] = _t(np.concatenate(
+            [lay[w][i].reshape(d, -1) for w in ("wq", "wk", "wv")], axis=1))
+        sd[pre + "bqkv"] = _t(np.concatenate(
+            [lay[b][i].reshape(-1) for b in ("bq", "bk", "bv")]))
+        sd[pre + "wo"] = _t(lay["wo"][i].reshape(-1, d))
+        for name in ("bo", "ln1_scale", "ln1_bias", "w1", "b1", "w2", "b2",
+                     "ln2_scale", "ln2_bias"):
+            sd[pre + name] = _t(lay[name][i])
+    if "pooler" in tree:
+        sd["pooler_w"] = _t(tree["pooler"]["w"])
+        sd["pooler_b"] = _t(tree["pooler"]["b"])
+    return sd
+
+
+def from_jax_combined_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference combined tree {"encoder", "head"[, "graph"]} -> a
+    `CombinedModel` state_dict."""
+    unknown = set(tree) - {"encoder", "head", "graph"}
+    if unknown:
+        raise KeyError(f"combined subtrees the port has no module for: {sorted(unknown)}")
+    sd = {f"encoder.{k}": v for k, v in from_jax_encoder_params(tree["encoder"]).items()}
+    head = tree["head"]
+    sd["head_dense.weight"] = _t(head["dense_w"]).T.contiguous()
+    sd["head_dense.bias"] = _t(head["dense_b"])
+    sd["head_out.weight"] = _t(head["out_w"]).T.contiguous()
+    sd["head_out.bias"] = _t(head["out_b"])
+    if "graph" in tree:
+        sd.update({f"graph.{k}": v for k, v in from_jax_params(tree["graph"]).items()})
     return sd

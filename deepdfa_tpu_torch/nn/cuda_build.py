@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every kernel source of the package
-SOURCES = ("ggnn_step", "ggnn_bwd")
+SOURCES = ("ggnn_step", "ggnn_bwd", "flash_attention")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,14 +1,18 @@
-"""Dynamic request batcher over a ladder of batch sizes (the reference's
+"""Dynamic request batcher over bucket signatures (the reference's
 `deepdfa_tpu/serve/batcher.py`, serial path).
 
 - a BOUNDED queue with admission control: a full queue raises
   `QueueFull` instead of buffering unbounded latency;
-- requests group by bucket key (every graph request is co-batchable)
-  and a chunk holds as many as fit the packed node/edge budgets;
+- requests group by bucket key and a chunk holds as many as fit the
+  executor's budgets;
 - a max-latency flush: a partial batch executes once its oldest request
-  has waited `max_batch_delay_s`;
-- each executed chunk pads to the smallest ladder size (1, 2, 4, ...,
-  max_batch_graphs) that holds it.
+  has waited `max_batch_delay_s`.
+
+Two executors: `GgnnExecutor` (graph requests, all co-batchable; each
+chunk pads to the smallest ladder size 1, 2, 4, ..., max_batch_graphs
+that holds it) and `CombinedExecutor` (text + graph requests of the
+combined family, grouped by sequence bucket; each chunk pads to its
+bucket's full row count).
 
 A request's score does not depend on what it was batched with beyond
 fp32 reassociation: padding slots are masked out of every reduction and
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch.core.device import resolve_device
+from deepdfa_tpu_torch.data.text import _fit_width, collate, rows_for_bucket, token_lengths
 from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, pack
 
 _req_ids = itertools.count()
@@ -190,6 +195,149 @@ class GgnnExecutor:
         _, batch = packed
         with torch.inference_mode():
             return torch.sigmoid(self.model(batch.to(self.device)))
+
+    def fetch(self, handle: torch.Tensor, n: int) -> np.ndarray:
+        """The sync point: [n] probabilities on the host."""
+        return handle[:n].cpu().numpy()
+
+
+class CombinedExecutor:
+    """Scores (token_ids, GraphSpec | None) payloads with a
+    `CombinedModel` on one device (the reference's `CombinedExecutor`).
+
+    Requests group by their sequence bucket edge T (the smallest of
+    `seq_buckets` >= the real token length); a bucket's signature is
+    (T, rows, rows) with rows = rows_for_bucket(T, token_budget), and
+    every chunk pads to all `rows` rows, so a request scores on the same
+    padded shape alone or co-batched. The budget accounting of `admit`
+    and `fits` is `collate`'s, so an admitted chunk degrades no row to
+    has_graph=False. The model is moved to `device` (default "cuda",
+    which raises when CUDA is unavailable) and put in eval mode."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        tokenizer,
+        seq_buckets: Sequence[int],
+        token_budget: int,
+        node_budget: int,
+        edge_budget: int,
+        device: str | torch.device | None = None,
+    ):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.tok = tokenizer
+        self.buckets = tuple(int(b) for b in seq_buckets)
+        if not self.buckets:
+            raise ValueError(
+                "CombinedExecutor needs data.seq_buckets (the serve bucket "
+                "signatures); () has no edges"
+            )
+        self.token_budget = int(token_budget)
+        self.node_budget = int(node_budget)
+        self.edge_budget = int(edge_budget)
+        self.pad_id = int(model.cfg.encoder.pad_token_id)
+        if int(tokenizer.pad_id) != self.pad_id:
+            raise ValueError(
+                f"tokenizer pads with {tokenizer.pad_id}, the encoder masks "
+                f"pad_token_id {self.pad_id}"
+            )
+        self._rows = {T: rows_for_bucket(T, self.token_budget, 1) for T in self.buckets}
+        self._warmed: set[int] = set()
+
+    def ledger_signature(self, key: Hashable, n: int) -> str:
+        T = int(key)
+        return f"T{T}xR{self._rows[T]}"
+
+    # -- grouping ------------------------------------------------------------
+
+    def admit(self, payload) -> None:
+        """Reject requests that can never fit their bucket's batch alone,
+        against collate()'s accounting (every one of the bucket's rows
+        holds at least the 1-node placeholder)."""
+        key = self.bucket_key(payload)  # raises on over-long text
+        _, spec = payload
+        if spec is not None:
+            rows = self._rows[key]
+            n_used = rows + spec.num_nodes - 1
+            e_used = rows + spec.num_edges + spec.num_nodes - 1
+            if n_used > self.node_budget or e_used > self.edge_budget:
+                raise RequestTooLarge(
+                    f"graph has {spec.num_nodes} nodes / "
+                    f"{spec.num_edges + spec.num_nodes} edges (incl. self loops); "
+                    f"with the T={key} bucket's {rows} placeholder rows that "
+                    f"exceeds budgets {self.node_budget}/{self.edge_budget}"
+                )
+
+    def bucket_key(self, payload) -> Hashable:
+        ids, _ = payload
+        ln = int(token_lengths(np.asarray(ids)[None], self.pad_id)[0])
+        for T in self.buckets:
+            if ln <= T:
+                return T
+        raise RequestTooLarge(
+            f"token length {ln} exceeds the largest bucket edge {self.buckets[-1]}"
+        )
+
+    def capacity(self, key: Hashable) -> int:
+        return self._rows[key]
+
+    def fits(self, key: Hashable, chunk: Sequence, payload) -> bool:
+        """collate()'s accounting: the bucket's `rows` placeholder slots
+        (1 node + 1 self loop each) plus each real graph's excess."""
+        rows = self._rows[key]
+        n_used = e_used = rows
+        for _, spec in list(chunk) + [payload]:
+            if spec is not None:
+                n_used += spec.num_nodes - 1
+                e_used += spec.num_edges + spec.num_nodes - 1
+        return n_used <= self.node_budget and e_used <= self.edge_budget
+
+    def signatures(self) -> list[tuple[int, int, int]]:
+        """(T, rows, num_graphs) of every bucket."""
+        return [(T, self._rows[T], self._rows[T]) for T in self.buckets]
+
+    def _collate(self, T: int, chunk: Sequence):
+        rows = self._rows[T]
+        if chunk:
+            tok = np.stack([_fit_width(ids, T, self.pad_id) for ids, _ in chunk])
+        else:
+            tok = np.zeros((0, T), np.int32)
+        graphs_by_id = {i: spec for i, (_, spec) in enumerate(chunk) if spec is not None}
+        return collate(
+            tok, [0] * len(chunk), list(range(len(chunk))), graphs_by_id,
+            batch_rows=rows, node_budget=self.node_budget,
+            edge_budget=self.edge_budget, pad_id=self.pad_id,
+        )
+
+    def warmup(self) -> dict[str, float]:
+        """Run every bucket once on its all-padding batch (the first run
+        builds the CUDA kernels); {signature label: seconds}. Idempotent."""
+        report: dict[str, float] = {}
+        for T in self.buckets:
+            if T in self._warmed:
+                continue
+            t0 = time.perf_counter()
+            self.fetch(self.dispatch(T, (T, self._collate(T, []))), self._rows[T])
+            report[self.ledger_signature(T, 0)] = time.perf_counter() - t0
+            self._warmed.add(T)
+        return report
+
+    # -- execution (pack -> dispatch -> fetch) --------------------------------
+
+    def pack_chunk(self, key: Hashable, chunk: Sequence):
+        """Host collate into the bucket's padded batch; (signature
+        label, packed)."""
+        return self.ledger_signature(key, len(chunk)), (int(key), self._collate(int(key), chunk))
+
+    def dispatch(self, key: Hashable, packed) -> torch.Tensor:
+        """Copy the batch to the device and launch the model; returns
+        P(class 1) per row without waiting for the device."""
+        _, batch = packed
+        b = batch.to(self.device)
+        with torch.inference_mode():
+            logits = self.model(b.input_ids, b.graphs, b.has_graph)
+            return torch.softmax(logits, dim=-1)[:, 1]
 
     def fetch(self, handle: torch.Tensor, n: int) -> np.ndarray:
         """The sync point: [n] probabilities on the host."""

@@ -5,9 +5,11 @@ only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (`--noconftest`: tests/conftest.py configures JAX for the reference's
-tests.) The CUDA kernel is held against its plain PyTorch version on
-the card at fp32 rtol 1e-4, atol 1e-5: the plain version's matmuls sum
-in another order than the kernel's FMA loops."""
+tests.) The GGNN kernels are held against their plain PyTorch versions
+on the card at fp32 rtol 1e-4, atol 1e-5: the plain version's matmuls
+sum in another order than the kernel's FMA loops. The flash-attention
+kernel is held at 1e-5 in fp32 and 2e-2 in bf16 (it rounds p to bf16
+against a running max, the plain version against the row's max)."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ torch.set_num_threads(1)
 from deepdfa_tpu_torch.core.config import Config, ServeConfig  # noqa: E402
 from deepdfa_tpu_torch.graphs import GraphSpec, pack  # noqa: E402
 from deepdfa_tpu_torch.models import DeepDFA  # noqa: E402
+from deepdfa_tpu_torch.nn import flash_attention as fa  # noqa: E402
 from deepdfa_tpu_torch.nn import ggnn_kernel as gk  # noqa: E402
 from deepdfa_tpu_torch.serve import DynamicBatcher, GgnnExecutor, score_graphs  # noqa: E402
 
@@ -237,3 +240,112 @@ def test_failed_build_and_launch_raise(card, tmp_path, monkeypatch):
     assert rc != 0  # d = 48 has no kernel instance
     with pytest.raises(RuntimeError, match="launch failed"):
         gk._raise_on(rc, "dmsg", lib, "ggnn_bwd_error_string")
+
+
+@pytest.mark.parametrize(
+    "B, H, Tq, Tk, D, dtype, lens",
+    [(16, 12, 512, 512, 64, "bfloat16", [512] * 12 + [300, 65, 1, 0]),
+     (8, 12, 256, 256, 64, "bfloat16", [256, 200, 17, 0] * 2),
+     (4, 12, 128, 128, 64, "bfloat16", [128, 100, 1, 0]),
+     (4, 12, 256, 256, 64, "float32", [256, 131, 64, 0]),
+     (2, 3, 130, 77, 40, "bfloat16", [77, 0]),
+     (2, 3, 100, 33, 128, "float32", [33, 5])],
+    ids=["flagship_bf16", "t256", "t128", "fp32", "ragged_d40", "cross_d128_fp32"],
+)
+def test_flash_kernel_matches_plain(card, B, H, Tq, Tk, D, dtype, lens):
+    """Kernel 5 against attention_plain on the card: o within the
+    dtype's tolerance, lse within 1e-5, o == 0 on all-padding rows, one
+    launch per call and the same bits on a repeat."""
+    g = torch.Generator().manual_seed(B + Tq + D)
+    td = getattr(torch, dtype)
+    q = torch.randn(B, H, Tq, D, generator=g).to(td).to(card)
+    k, v = (torch.randn(B, H, Tk, D, generator=g).to(td).to(card) for _ in range(2))
+    mask = (torch.arange(Tk)[None, :] < torch.tensor(lens)[:, None]).to(card)
+    before = fa.LAUNCHES
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    po, plse = fa.attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    torch.testing.assert_close(o.float(), po.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(lse).all() and torch.isfinite(o.float()).all()
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (o[b] == 0).all()
+    o2, lse2 = fa.flash_fwd(q, k, v, mask)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_kernel_takes_the_encoders_strided_views(card):
+    g = torch.Generator().manual_seed(5)
+    B, T, H, D = 4, 256, 12, 64
+    qkv = torch.randn(B, T, 3, H, D, generator=g).bfloat16().to(card)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    mask = (torch.arange(T)[None, :] < torch.tensor([256, 10, 0, 128])[:, None]).to(card)
+    o, lse = fa.flash_fwd(q, k, v, mask)
+    oc, lsec = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+    torch.cuda.synchronize()
+    assert o.transpose(1, 2).is_contiguous()  # written as [B, T, H, D]
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+
+
+def test_flash_wrapper_refuses_what_it_cannot_take(card):
+    q = torch.zeros(2, 2, 16, 64, device=card)
+    mask = torch.ones(2, 16, dtype=torch.bool, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q.half(), q.half(), q.half(), mask)
+    with pytest.raises(TypeError, match="share a dtype"):
+        fa.flash_fwd(q, q.bfloat16(), q, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(2, 2, 64, 16, device=card).transpose(2, 3)
+        fa.flash_fwd(t, t, t, mask)
+    with pytest.raises(ValueError, match="is on"):
+        fa.flash_fwd(q, q, q, mask.cpu())
+    wide = torch.zeros(2, 2, 16, 192, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(wide, wide, wide, mask)
+    # bf16 at a tensor-core width never drops to the FMA instance: a view
+    # off the 16-byte grid raises
+    buf = torch.zeros(2 * 2 * 16 * 64 + 1, dtype=torch.bfloat16, device=card)
+    off = buf[1:].view(2, 2, 16, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(off, off, off, mask)
+    from deepdfa_tpu_torch.models.transformer import EncoderLayer, TransformerConfig
+
+    cfg = TransformerConfig.tiny(hidden_size=384, num_heads=2, dtype="bfloat16")
+    layer = EncoderLayer(cfg).to(card)
+    with pytest.raises(ValueError, match="cannot tile"):  # "auto", head 192: no plain route
+        layer(torch.zeros(2, 16, 384, dtype=torch.bfloat16, device=card), mask)
+
+
+def test_combined_serving_on_card_matches_cpu(card):
+    """A small fp32 combined model scored through score_combined on the
+    card against the CPU plain path: 2 layers x (flash) and 3 GGNN steps
+    per batch."""
+    from deepdfa_tpu_torch.core.config import DataConfig
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.models import CombinedConfig, CombinedModel, TransformerConfig
+    from deepdfa_tpu_torch.serve import CombinedExecutor, score_combined
+
+    def model():
+        enc = TransformerConfig.tiny(vocab_size=256, max_position_embeddings=70)
+        cfg = CombinedConfig(encoder=enc, graph_hidden_dim=32, graph_n_steps=3,
+                             graph_input_dim=52)
+        return CombinedModel(cfg, generator=torch.Generator().manual_seed(0)).eval()
+
+    rng = np.random.default_rng(2)
+    tok = HashTokenizer(256)
+    specs = _graphs(rng, 12)
+    payloads = [(" ".join(["x"] * int(rng.integers(1, 60))), specs[i] if i % 3 else None)
+                for i in range(12)]
+    cfg = Config(data=DataConfig(seq_buckets=(16, 32, 64), token_budget=256),
+                 serve=ServeConfig(node_budget=512, edge_budget=2048, max_batch_delay_ms=2.0))
+    summary = score_combined(model(), payloads, cfg, tok)  # the default device is the card
+    assert summary["device"].startswith("cuda") and summary["serve_scored"] == 12
+    assert summary["flash_fwd_launches"] == summary["serve_batches"] * 2
+    assert summary["ggnn_step_launches"] == summary["serve_batches"] * 3
+    cpu = CombinedExecutor(model(), tok, (16, 32, 64), 256, 512, 2048, device="cpu")
+    want = [r.wait(0) for r in DynamicBatcher(cpu).score_all(
+        [(tok.encode(t, 64), s) for t, s in payloads])]
+    np.testing.assert_allclose(summary["probs"], want, rtol=RTOL, atol=ATOL)

@@ -52,7 +52,9 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.train.losses", "deepdfa_tpu_torch.train.state",
         "deepdfa_tpu_torch.train.sampler", "deepdfa_tpu_torch.train.metrics",
         "deepdfa_tpu_torch.train.checkpoint", "deepdfa_tpu_torch.train.loop",
-        "deepdfa_tpu_torch.cli",
+        "deepdfa_tpu_torch.cli", "deepdfa_tpu_torch.nn.flash_attention",
+        "deepdfa_tpu_torch.data.tokenizer", "deepdfa_tpu_torch.data.text",
+        "deepdfa_tpu_torch.models.transformer", "deepdfa_tpu_torch.models.combined",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
