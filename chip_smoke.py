@@ -44,7 +44,9 @@ prints one JSON line; any failure exits non-zero before the last line.
    (o within 2e-2 in bf16 and 1e-5 in fp32, lse within 1e-5, o == 0 on
    the padding row); median times of 20 CUDA-event runs, the plain
    version's, one scaled_dot_product_attention call's (the yardstick,
-   never called by the port) and the card's bound;
+   never called by the port) and the card's bound; then the flagship
+   call at dropout 0.1 against the plain version with the seed's Philox
+   bits, and the keep fraction of its 50 M bits within 0.9 +- 0.002;
 9. serve_combined — score_combined on the combined DeepDFA+LineVul
    model at codebert-base width (768 wide, 12 layers, bf16 activations,
    vocab 50265) with the flagship graph encoder (d 128, 5 steps), random
@@ -62,9 +64,33 @@ prints one JSON line; any failure exits non-zero before the last line.
 10. profile_combined — one full 512-token batch split into host
    collate, copies, forward to sync and fetch; device time by kernel
    (flash, GGNN step, matmuls, the rest) and the idle share;
-11. kernels — every kernel with its launches on the main paths (serve,
-   train and serve_combined, each counted from 0), error, time, plain
-   time, bound and library time.
+11. kernel flash_bwd — the backward kernels dq and dk/dv against the
+   plain backward on the card, at dropout 0 and 0.1 (one seed, the same
+   mask in both), at the flagship training call, the T = 256 and 128
+   buckets, fp32, and a ragged bf16 batch with an all-padding row (its
+   gradients exactly 0); each gradient within 2e-2 of its largest
+   magnitude in bf16 (1e-4 in fp32), the same bits on a rerun; times of
+   both kernels at both rates, the plain backward's, the backward of one
+   scaled_dot_product_attention call, and the bounds;
+12. train_combined — CombinedTrainer.fit of the combined model at
+   codebert-base width (bf16 activations, dropout 0.1, remat "full")
+   with the flagship graph encoder, random weights from seed 0, AdamW
+   at lr 1e-4 without warmup, clip 1.0: 20 steps over 4 fixed bucketed
+   batches (512, 512, 256, 128 tokens at token budget 8192) of seeded
+   labelled texts with graphs, 5 epochs. Every loss finite and the last
+   epoch's mean below the first's; per step 24 flash forward launches
+   (12 layers and their 12 replays under remat), 12 dq, 12 dk/dv and 5
+   each of the GGNN step, B3 and B4 (the warm-up runs one step per
+   bucket, an eval batch 12 flash and 5 GGNN launches); two backward
+   passes with one seed give the same bits; a 2-layer model of the same
+   width with dropout 0 gives the same first two losses (5e-3) and
+   step-1 gradients (2e-2 of each leaf's scale) on the card and on the
+   CPU plain path; a step split (host collate, copies, forward,
+   backward, optimiser), tokens/s, examples/s, peak memory with remat
+   on and off, and one profiled step;
+13. kernels — every kernel with its launches on the main paths (serve,
+   train, serve_combined and train_combined, each counted from 0),
+   error, time, plain time, bound and library time.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -73,8 +99,10 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -97,10 +125,15 @@ COMBINED_LOAD_REQUESTS = 768  # 256 a bucket: 4-16 full batches each
 # card vs CPU logits of the 2-layer bf16 check (its probabilities agree
 # to ~5e-4 on an H100, where the logits are ~0.3 in size)
 COMBINED_LOGIT_TOL = 5e-3
+# 2-layer combined training, card vs CPU plain path (bf16 activations):
+# the first two losses (absolute) and step-1 gradients (of each leaf's scale)
+COMBINED_TRAIN_LOSS_TOL, COMBINED_TRAIN_GRAD_TOL = 5e-3, 2e-2
 C_WORDS = ("int", "char", "*", "buf", "=", "malloc", "(", "len", ")", ";", "if", "{",
            "}", "return", "memcpy", "src", "0", "42", "+", "-", "[", "]", "free", "n",
            "size_t", "->", "next", "while", "<", "for", "i", "++", "NULL", "&", "ptr")
 TIMED_RUNS = 20
+# attention-probs dropout of the training path (TransformerConfig's rate)
+DROPOUT_RATE, DROPOUT_SEED = 0.1, 20241017
 N_REQUESTS = 96
 TRAIN_BATCHES, TRAIN_EPOCHS = 4, 5
 CPU_STEPS = 3
@@ -679,8 +712,154 @@ def flash_kernel_phase(torch):
             bound_ms, bound_by = flash_bound(B, H, T, lens, D, 2)
             timing = {"shape": [B, H, T, T, D], "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            timing["dropout"] = flash_fwd_dropout_case(torch, fa, q, k, v, mask)
+            worst = max(worst, timing["dropout"]["o_max_abs_err"])
     emit({"phase": "kernel flash_fwd", "ok": True, "tolerance": FLASH_TOL, "lse_tolerance": 1e-5,
           "max_abs_err": worst, **report, **timing})
+    return worst, timing
+
+
+def flash_fwd_dropout_case(torch, fa, q, k, v, mask) -> dict:
+    """Kernel 5 at dropout rate 0.1 on the flagship call against the plain
+    version with the seed's Philox bits: o within the bf16 tolerance, lse
+    within 1e-5; the keep fraction of the call's 50 M bits within 0.9 +-
+    0.002; the kernel's and the plain version's times at that rate."""
+    B, H, T, _ = q.shape
+    seed = DROPOUT_SEED
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd(q, k, v, mask, dropout_rate=DROPOUT_RATE, seed=seed)
+        bits = fa.dropout_bits(seed, B, H, T, T, q.device)
+        po, plse = fa.attention_plain(q, k, v, mask, dropout_rate=DROPOUT_RATE, bits=bits)
+        keep = (bits < fa.keep_threshold(DROPOUT_RATE)).double().mean().item()
+        del bits
+        undropped, _ = fa.flash_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    err_o = (o.float() - po.float()).abs().max().item()
+    err_lse = (lse - plse).abs().max().item()
+    if err_o > FLASH_TOL["bfloat16"] or err_lse > 1e-5:
+        fail(f"flash_fwd dropout: o err {err_o}, lse err {err_lse}")
+    if abs(keep - (1.0 - DROPOUT_RATE)) > 0.002:
+        fail(f"flash_fwd dropout: keep fraction {keep} outside 0.9 +- 0.002")
+    if torch.equal(o, undropped):
+        fail("flash_fwd dropout: o is the undropped o")
+    with torch.inference_mode():
+        ms = median_ms(torch, lambda: fa.flash_fwd(q, k, v, mask, dropout_rate=DROPOUT_RATE,
+                                                   seed=seed))
+        plain_ms = median_ms(torch, lambda: fa.attention_plain(
+            q, k, v, mask, dropout_rate=DROPOUT_RATE,
+            bits=fa.dropout_bits(seed, B, H, T, T, q.device)))
+    return {"rate": DROPOUT_RATE, "seed": seed, "bits": B * H * T * T, "keep_fraction": keep,
+            "o_max_abs_err": err_o, "lse_max_abs_err": err_lse, "ms": ms,
+            "plain_ms_with_bits": plain_ms}
+
+
+def flash_bwd_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
+                    products: int, out_tokens: int):
+    """(bound_ms, bound_by) of one backward kernel: `products` matrix
+    products of 2*H*Tq*D operations per live key of each row (dq: s, dp,
+    ds.k = 3; dk/dv: s, dp, p.do, ds.q = 4) at the bf16 tensor-core peak
+    (fp32 at the fp32 peak); bytes: q, k, v, do read and the gradients'
+    `out_tokens` rows of [B, H, ., D] written once (dq: Tq; dk, dv: 2 Tk),
+    lse, delta and the mask."""
+    flops = 2 * products * H * Tq * D * sum(Tk_live)
+    Tk = max(Tk_live + [1])
+    nbytes = itemsize * B * H * D * (2 * Tq + 2 * Tk + out_tokens) + 8 * B * H * Tq + 4 * B * Tk
+    return roofline(flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
+
+
+def flash_bwd_kernel_phase(torch):
+    """Kernels 6 (dq) and 7 (dk/dv) against attention_bwd_plain on the
+    card, each case at dropout 0 and 0.1 with a fixed seed (the same
+    Philox mask in both versions), from the forward kernel's o and lse:
+    the flagship training call (B 16, H 12, T 512, D 64, bf16, every key
+    live), the T = 256 and T = 128 buckets, fp32, a bf16 batch with
+    ragged masks and an all-padding row (whose gradients must be exactly
+    0), and a ragged flagship-shape batch with the training path's
+    strided q, k, v and do. Each gradient within 2e-2 of its largest magnitude in bf16, 1e-4
+    in fp32; the same bits on a repeat. Times at the flagship call: both
+    kernels at rate 0 and 0.1, the plain backward, and the backward of
+    one scaled_dot_product_attention call (boolean mask) as the library
+    yardstick, never called by the port."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    H, D = 12, 64
+    cases = {  # name: (B, T, dtype, real key counts per row)
+        "flagship_t512": (16, 512, "bfloat16", [512] * 16),
+        "t256": (32, 256, "bfloat16", [256 - 7 * i for i in range(32)]),
+        "t128": (64, 128, "bfloat16", [128 - 2 * i for i in range(64)]),
+        "fp32_t512": (16, 512, "float32", [512 - 31 * i for i in range(16)]),
+        "ragged_all_padding": (16, 512, "bfloat16", [512, 300, 65, 1, 0] + [257] * 11),
+        # the training path's operands: q, k, v strided views of the fused
+        # [B, T, 3, H, D] product, do a [B, H, T, D] view of [B, T, H, D]
+        "strided_t512": (16, 512, "bfloat16", [512, 480, 300, 257, 129, 64, 33, 1] + [512] * 8),
+    }
+    gen = torch.Generator().manual_seed(4)
+    report, worst, timing = {}, 0.0, {}
+    for name, (B, T, dtype, lens) in cases.items():
+        td = getattr(torch, dtype)
+        if name.startswith("strided"):
+            qkv = torch.randn(B, T, 3 * H * D, generator=gen).to(td).cuda().view(B, T, 3, H, D)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            do = torch.randn(B, T, H, D, generator=gen).to(td).cuda().transpose(1, 2)
+        else:
+            q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(td).cuda()
+                           for _ in range(4))
+        mask = (torch.arange(T)[None, :] < torch.tensor(lens)[:, None]).cuda()
+        for rate in (0.0, DROPOUT_RATE):
+            kw = {"dropout_rate": rate, "seed": DROPOUT_SEED}
+            with torch.inference_mode():
+                o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+                delta = (do.float() * o.float()).sum(-1, keepdim=True)
+                dq = fa.flash_dq(q, k, v, mask, lse, delta, do, **kw)
+                dk, dv = fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw)
+                again = (fa.flash_dq(q, k, v, mask, lse, delta, do, **kw),
+                         *fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw))
+                bits = fa.dropout_bits(DROPOUT_SEED, B, H, T, T, q.device) if rate else None
+                want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate,
+                                              bits=bits)
+                del bits
+            torch.cuda.synchronize()
+            tag = f"{name}_rate{rate}"
+            for what, got, ref, rerun in zip(("dq", "dk", "dv"), (dq, dk, dv), want, again):
+                if not torch.isfinite(got.float()).all():
+                    fail(f"flash_bwd {tag}: {what} has non-finite values")
+                err = (got.float() - ref.float()).abs().max().item()
+                scale = max(ref.float().abs().max().item(), 1e-6)
+                tol = (FLASH_TOL["bfloat16"] if dtype == "bfloat16" else 1e-4) * scale
+                if err > tol:
+                    fail(f"flash_bwd {tag}: {what} err {err} > {tol}")
+                if not torch.equal(got, rerun):
+                    fail(f"flash_bwd {tag}: {what} other bits on a rerun")
+                for b, n in enumerate(lens):
+                    if n == 0 and not bool((got[b] == 0).all()):
+                        fail(f"flash_bwd {tag}: row {b} has no key but d{what} != 0")
+                worst = max(worst, err)
+                report[f"{tag}_{what}_max_abs_err"] = err
+                report[f"{tag}_{what}_scale"] = scale
+            if name != "flagship_t512":
+                continue
+            with torch.inference_mode():
+                timing[f"dq_ms_rate{rate}"] = median_ms(
+                    torch, lambda: fa.flash_dq(q, k, v, mask, lse, delta, do, **kw))
+                timing[f"dkv_ms_rate{rate}"] = median_ms(
+                    torch, lambda: fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw))
+            if rate:
+                continue
+            with torch.inference_mode():
+                timing["plain_ms"] = median_ms(
+                    torch, lambda: fa.attention_bwd_plain(q, k, v, mask, o, lse, do))
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask[:, None, None, :])
+            timing["library_ms"] = median_ms(
+                torch, lambda: out.backward(do, retain_graph=True))
+            del out, leaves
+            for kernel, products, out_tokens in (("dq", 3, T), ("dkv", 4, 2 * T)):
+                bound_ms, bound_by = flash_bwd_bound(B, H, T, lens, D, 2, products, out_tokens)
+                timing[f"{kernel}_bound_ms"], timing[f"{kernel}_bound_by"] = bound_ms, bound_by
+    emit({"phase": "kernel flash_bwd", "ok": True, "rates": [0.0, DROPOUT_RATE],
+          "seed": DROPOUT_SEED, "tolerance": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"},
+          "max_abs_err": worst, "shape": [16, H, 512, 512, D], **timing, **report})
     return worst, timing
 
 
@@ -877,22 +1056,319 @@ def profile_combined_phase(torch, model, tok, cfg, enc) -> None:
               mcfg.encoder.num_layers, mcfg.graph_n_steps), **dev})
 
 
+def training_corpus(rng, input_dim: int):
+    """Seeded labelled texts with graphs, tokenized: 32 rows a bucket at
+    T 512, 32 at 256 and 64 at 128, so the bucket planner emits 4 full
+    batches (2 of them at 512). A label-1 text uses the second half of
+    C_WORDS' one-token words, a label-0 text the first; a label-1 graph
+    carries token 7 on one node (the GGNN smoke's signal)."""
+    from deepdfa_tpu_torch.data import HashTokenizer
+
+    tok = HashTokenizer(vocab_size=4096)
+    vocab = [w for w in C_WORDS if w not in ("->", "++")]  # those two are 2 tokens each
+    half = len(vocab) // 2
+    spans = {512: (255, 510), 256: (127, 254), 128: (20, 126)}
+    rows = [512] * 32 + [256] * 32 + [128] * 64
+    token_ids, labels, graphs = {}, {}, {}
+    for i, edge in enumerate(rows):
+        label = i % 2
+        words = vocab[half:] if label else vocab[:half]
+        lo, hi = spans[edge]
+        text = " ".join(str(w) for w in rng.choice(words, int(rng.integers(lo, hi + 1))))
+        token_ids[i] = tok.encode(text, 512)
+        labels[i] = label
+        g = synthetic_graph(rng, 2 * (i // 2) + (1 - label), int(rng.integers(10, 151)),
+                            input_dim, signal=True)
+        graphs[i] = dataclasses.replace(g, graph_id=i)
+    return tok, token_ids, labels, graphs
+
+
+def combined_train_setup(torch, layers: int | None = None, dropout: float = DROPOUT_RATE):
+    """(config, CombinedConfig) of the combined training path at
+    codebert-base width (bf16 activations, remat "full") with the
+    flagship graph encoder; AdamW at lr 1e-4, no warmup, clip 1.0."""
+    from deepdfa_tpu_torch.core import apply_overrides, load
+    from deepdfa_tpu_torch.models import CombinedConfig, TransformerConfig
+
+    cfg = apply_overrides(load(COMBINED_CONFIG), [
+        f"data.seq_buckets={json.dumps(COMBINED_BUCKETS)}", "train.optim.learning_rate=1e-4",
+        "train.optim.warmup_frac=0.0", "train.optim.grad_clip_norm=1.0"])
+    enc = TransformerConfig(dtype="bfloat16", dropout_rate=dropout,
+                            **({"num_layers": layers} if layers else {}))
+    mcfg = CombinedConfig(encoder=enc, graph_hidden_dim=cfg.model.hidden_dim,
+                          graph_n_steps=cfg.model.n_steps, graph_input_dim=cfg.data.feat.input_dim,
+                          head_dropout=dropout)
+    return cfg, mcfg
+
+
+def grads_of(state) -> dict:
+    return {k: p.grad.detach().clone() for k, p in state.model.named_parameters()
+            if p.grad is not None}
+
+
+def train_combined_phase(torch, rng):
+    """The combined training main path through CombinedTrainer.fit on the
+    card: launch counts, bit-equal gradients, a 2-layer CPU cross-check,
+    and a step split with remat on and off."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.data import collate_plan, lengths_for, plan_bucketed_batches
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+    from deepdfa_tpu_torch.train import CombinedTrainer
+
+    cfg, mcfg = combined_train_setup(torch)
+    tok, token_ids, labels, graphs = training_corpus(rng, cfg.data.feat.input_dim)
+    bcfg = cfg.data.batch
+    order = sorted(token_ids)
+    lengths = lengths_for(token_ids, order, tok.pad_id)
+
+    plans = list(plan_bucketed_batches(lengths, order, COMBINED_BUCKETS, cfg.data.token_budget,
+                                       1, bcfg.node_budget, bcfg.edge_budget))
+
+    def collate(plan):
+        return collate_plan(plan, token_ids, labels, graphs, pad_id=tok.pad_id)
+
+    batches = [collate(p) for p in plans]
+    shapes = [list(b.input_ids.shape) for b in batches]
+    if len(batches) != TRAIN_BATCHES or sorted(s[1] for s in shapes) != [128, 256, 512, 512]:
+        fail(f"train_combined: planned batches {shapes}, want 4 full ones over 128/256/512")
+    steps = TRAIN_BATCHES * TRAIN_EPOCHS
+    trainer = CombinedTrainer(cfg, mcfg, total_steps=steps, device="cuda")
+    t0 = time.perf_counter()
+    state = trainer.init_state(seed=0)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state.model.parameters())
+    records = []
+
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    gk.LAUNCHES = gk.GRU_BWD_LAUNCHES = gk.DMSG_LAUNCHES = 0
+    t0 = time.perf_counter()
+    trainer.fit(state, lambda epoch: batches, val_batches=lambda: batches[:1],
+                max_epochs=TRAIN_EPOCHS, log_fn=records.append, seed=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
+                "flash_dkv": fa.DKV_LAUNCHES, "ggnn_step": gk.LAUNCHES,
+                "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES, "ggnn_dmsg": gk.DMSG_LAUNCHES}
+    L, S = mcfg.encoder.num_layers, mcfg.graph_n_steps
+    # per step: each layer's forward, its replay under remat, its two
+    # backward kernels; the warm-up runs one step a bucket; eval batches
+    # run the forward alone
+    trained = steps + len(COMBINED_BUCKETS)
+    want = {"flash_fwd": trained * 2 * L + TRAIN_EPOCHS * L, "flash_dq": trained * L,
+            "flash_dkv": trained * L, "ggnn_step": trained * S + TRAIN_EPOCHS * S,
+            "ggnn_gru_bwd": trained * S, "ggnn_dmsg": trained * S}
+    if launches != want:
+        fail(f"train_combined: kernel launches {launches}, expected {want}")
+    epochs = [r for r in records if "epoch" in r]
+    losses = [r["train_loss"] for r in epochs]
+    if not all(math.isfinite(x) for x in losses + [r["val_loss"] for r in epochs]):
+        fail(f"train_combined: a non-finite loss in {epochs}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_combined: the loss did not fall: epoch means {losses}")
+
+    # two backward passes on one batch with one seed: the same bits
+    b0 = batches[0].to(trainer.device)
+
+    def grads():
+        trainer.forward_loss(state, b0, fold_seed(0, 999)).backward()
+        return grads_of(state)
+
+    first, second = grads(), grads()
+    if not all(torch.equal(first[k], second[k]) for k in first):
+        fail("train_combined: two backward passes on one batch gave other gradients")
+    del first, second
+
+    cpu = combined_cpu_check(torch, [batches[2], batches[2]])
+    split = combined_step_split(torch, trainer, state,
+                                lambda: collate(next(p for p in plans if p.seq_len == 512)), tok)
+    last = epochs[-1]
+    emit({"phase": "train_combined", "ok": True, "params": n_params, "init_seconds": init_s,
+          "steps": steps, "epochs": TRAIN_EPOCHS, "batch_shapes": shapes,
+          "seq_buckets": COMBINED_BUCKETS, "token_budget": cfg.data.token_budget,
+          "node_budget": bcfg.node_budget, "edge_budget": bcfg.edge_budget,
+          "dropout": DROPOUT_RATE, "remat": mcfg.encoder.remat_policy,
+          "optim": dataclasses.asdict(cfg.train.optim), "epoch_train_loss": losses,
+          "epoch_val_loss": [r["val_loss"] for r in epochs],
+          "epoch_seconds": [r["epoch_seconds"] for r in epochs],
+          "fit_seconds": fit_s, "warmup": [r for r in records if "warmup_signatures" in r],
+          "last_epoch_tokens_per_sec": last["train_tokens_per_sec"],
+          "last_epoch_examples_per_sec": last["train_examples_per_sec"],
+          "padding_waste": last["padding_waste"], "kernel_launches": launches,
+          "grads_bit_equal": True, **cpu, **split})
+    return launches
+
+
+def combined_cpu_check(torch, batches) -> dict:
+    """A 2-layer model of the same width with dropout 0, the same weights
+    on the card and on the CPU plain path: the first two steps' losses
+    within COMBINED_TRAIN_LOSS_TOL, step-1 gradients within
+    COMBINED_TRAIN_GRAD_TOL of each leaf's scale."""
+    from deepdfa_tpu_torch.train import CombinedTrainer
+
+    cfg, mcfg = combined_train_setup(torch, layers=2, dropout=0.0)
+    pairs, grad_err = [], None
+    runs = {dev: CombinedTrainer(cfg, mcfg, total_steps=2, device=dev) for dev in ("cuda", "cpu")}
+    states = {dev: tr.init_state(seed=0) for dev, tr in runs.items()}
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        step = {}
+        for dev, tr in runs.items():
+            loss = tr.forward_loss(states[dev], batch.to(tr.device), None)
+            loss.backward()
+            step[dev] = (loss.item(), {k: g.cpu() for k, g in grads_of(states[dev]).items()})
+            states[dev].apply_gradients()
+        pairs.append((step["cuda"][0], step["cpu"][0]))
+        if i == 0:
+            errs = leaf_errors(step["cuda"][1], step["cpu"][1])
+            grad_err = max(errs.values())
+            worst_leaf = max(errs, key=errs.get)
+    loss_err = max(abs(a - b) for a, b in pairs)
+    if loss_err > COMBINED_TRAIN_LOSS_TOL or grad_err > COMBINED_TRAIN_GRAD_TOL:
+        fail(f"train_combined: 2-layer card vs CPU losses {pairs} (abs err {loss_err}, tol "
+             f"{COMBINED_TRAIN_LOSS_TOL}), step-1 gradient err {grad_err} at {worst_leaf} "
+             f"(tol {COMBINED_TRAIN_GRAD_TOL})")
+    return {"two_layer_cpu_losses": pairs, "two_layer_cpu_loss_abs_err": loss_err,
+            "two_layer_cpu_step1_grad_rel_err": grad_err, "two_layer_worst_leaf": worst_leaf,
+            "two_layer_cpu_seconds": time.perf_counter() - t0}
+
+
+def combined_step_split(torch, trainer, state, collate_512, tok) -> dict:
+    """Median of 10 steps on a full 512-token batch, each stage
+    synchronized: host collate of its plan, copies, forward, backward,
+    optimiser; tokens/s and examples/s; peak memory with remat on, and
+    one step with it off; one step under torch.profiler."""
+    import dataclasses as dc
+
+    from deepdfa_tpu_torch.data import batch_token_counts
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+
+    split = {k: [] for k in ("host_collate_ms", "to_device_ms", "forward_ms", "backward_ms",
+                             "optimizer_ms", "step_ms")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(10):
+        t_a = time.perf_counter()
+        batch = collate_512()
+        t_b = time.perf_counter()
+        dev = batch.to(trainer.device)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        loss = trainer.forward_loss(state, dev, fold_seed(1, i))
+        torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        t_f = time.perf_counter()
+        for k, v in zip(split, (t_b - t_a, t_c - t_b, t_d - t_c, t_e - t_d, t_f - t_e,
+                                t_f - t_a)):
+            split[k].append(1e3 * v)
+    peak_remat = torch.cuda.max_memory_allocated()
+    med = {k: statistics.median(v) for k, v in split.items()}
+    real, padded, rows = batch_token_counts(batch.input_ids, batch.row_mask, tok.pad_id)
+    # remat off (the encoder reads its config at each encode): one
+    # warm-up step, then the median of 5
+    enc = state.model.encoder
+    enc.cfg = dc.replace(enc.cfg, remat=False)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        no_remat = []
+        for i in range(6):
+            t_a = time.perf_counter()
+            trainer.train_step(state, dev, fold_seed(2, i))
+            torch.cuda.synchronize()
+            no_remat.append(1e3 * (time.perf_counter() - t_a))
+        no_remat_ms = statistics.median(no_remat[1:])
+        peak_no_remat = torch.cuda.max_memory_allocated()
+    finally:
+        enc.cfg = dc.replace(enc.cfg, remat=True)
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        trainer.train_step(state, dev, fold_seed(3, 0))
+        torch.cuda.synchronize()
+        prof.step()
+        t_a = time.perf_counter()
+        trainer.train_step(state, dev, fold_seed(3, 1))
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t_a)
+    return {"step_batch": list(batch.input_ids.shape), "step_real_tokens": real,
+            "step_padded_tokens": padded, "step_rows": rows, **med,
+            "tokens_per_sec": real / (med["step_ms"] / 1e3),
+            "padded_tokens_per_sec": padded / (med["step_ms"] / 1e3),
+            "examples_per_sec": rows / (med["step_ms"] / 1e3),
+            "peak_memory_mb_remat": peak_remat / 2**20, "no_remat_step_ms": no_remat_ms,
+            "peak_memory_mb_no_remat": peak_no_remat / 2**20,
+            "profiled_step": {**device_profile(prof, profiled_ms),
+                              "device_ms_by_group": device_groups(prof)}}
+
+
 def device_groups(prof) -> dict:
-    """Device ms of one profiled window by kernel group: the flash
-    kernel, the GGNN step kernel, matmuls (cuBLAS's gemm and Hopper
-    `nvjet` kernels, CUTLASS) and everything else; with launch counts."""
-    groups = {"flash_fwd": [0.0, 0], "ggnn_step": [0.0, 0], "matmul": [0.0, 0], "other": [0.0, 0]}
+    """Device ms of one profiled window by kernel group: the three flash
+    kernels, the GGNN step kernel and its two backward kernels, matmuls
+    (cuBLAS's gemm and Hopper `nvjet` kernels, CUTLASS) and everything
+    else; with launch counts."""
+    # kernel-name fragments of each group: the flash kernels, the GGNN
+    # step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*)
+    names = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
+             "flash_dkv": ("flash_dkv",), "ggnn_step": ("ggnn_step",),
+             "ggnn_gru_bwd": ("gru_bwd", "reduce_splits"), "ggnn_dmsg": ("dmsg_",)}
+    groups = {name: [0.0, 0] for name in (*names, "matmul", "other")}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         if not str(e.device_type).endswith("CUDA") or us <= 0 or getattr(e, "is_user_annotation", False):
             continue
         name = e.key.lower()
-        key = ("flash_fwd" if "flash_fwd" in name else "ggnn_step" if "ggnn_step" in name
-               else "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
-               else "other")
+        key = next((k for k, frags in names.items() if any(f in name for f in frags)), None) or (
+            "matmul" if any(w in name for w in ("gemm", "nvjet", "xmma", "cutlass", "sm90_"))
+            else "other")
         groups[key][0] += us / 1e3
         groups[key][1] += e.count
     return {k: {"ms": v[0], "calls": v[1]} for k, v in groups.items()}
+
+
+def kernel_name(mangled: str) -> str:
+    """`flash_dq_bf16_mma<64>` from the mangled name of a kernel in an
+    anonymous namespace of a csrc file (the mangled name where the
+    pattern does not hold)."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    base, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
+    arg = re.match(r"ILi(\d+)E", rest)
+    if arg:
+        return f"{base}<{arg.group(1)}>"
+    for code, name in (("IfE", "float"), ("I13__nv_bfloat16E", "bf16")):
+        if rest.startswith(code):
+            return f"{base}<{name}>"
+    return base
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: {"registers", "spill_bytes"}} from nvcc's -Xptxas -v log."""
+    out, name, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = kernel_name(m.group(1)), None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = {"registers": int(m.group(1)), "spill_bytes": spill}
+            name = None
+    return out
 
 
 def main() -> None:
@@ -929,9 +1405,7 @@ def main() -> None:
     t0 = time.perf_counter()
     built = cuda_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": {
-        name: {"cached": r["cached"], "seconds": r["seconds"],
-               "ptxas": [ln.strip() for ln in r["log"].splitlines()
-                         if "registers" in ln or "spill" in ln]}
+        name: {"cached": r["cached"], "seconds": r["seconds"], "ptxas": ptxas_summary(r["log"])}
         for name, r in built.items()}})
 
     rng = np.random.default_rng(0)
@@ -949,30 +1423,58 @@ def main() -> None:
     if min(combined_launches.values()) <= 0:
         fail(f"the serve_combined run launched a kernel no time: {combined_launches}")
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
+    del cmodel
+    bwd_flash_err, bwd_flash = flash_bwd_kernel_phase(torch)
+    tc_launches = train_combined_phase(torch, rng)
+    if min(tc_launches.values()) <= 0:
+        fail(f"the train_combined run launched a kernel no time: {tc_launches}")
+    flash_src = "deepdfa_tpu_torch/csrc/flash_attention.cu"
+    # each flash row's ms, plain_ms and library_ms are at dropout 0 (the
+    # library yardstick computes dq, dk and dv in one call); dropout_ms is
+    # the kernel at the training path's rate
     kernels = [
         {"name": "ggnn_step", "source": "deepdfa_tpu_torch/csrc/ggnn_step.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555",
-         "launches": launches + train_launches["ggnn_step"] + combined_launches["ggnn_step"],
+         "launches": launches + train_launches["ggnn_step"] + combined_launches["ggnn_step"]
+         + tc_launches["ggnn_step"],
          "max_abs_err": kernel_err,
          **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "ggnn_gru_bwd", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:852",
-         "launches": train_launches["ggnn_gru_bwd"], "max_abs_err": bwd_err["ggnn_gru_bwd"],
-         **bwd_timing["ggnn_gru_bwd"]},
+         "launches": train_launches["ggnn_gru_bwd"] + tc_launches["ggnn_gru_bwd"],
+         "max_abs_err": bwd_err["ggnn_gru_bwd"], **bwd_timing["ggnn_gru_bwd"]},
         {"name": "ggnn_dmsg", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:907",
-         "launches": train_launches["ggnn_dmsg"], "max_abs_err": bwd_err["ggnn_dmsg"],
-         **bwd_timing["ggnn_dmsg"]},
-        {"name": "flash_fwd", "source": "deepdfa_tpu_torch/csrc/flash_attention.cu",
+         "launches": train_launches["ggnn_dmsg"] + tc_launches["ggnn_dmsg"],
+         "max_abs_err": bwd_err["ggnn_dmsg"], **bwd_timing["ggnn_dmsg"]},
+        {"name": "flash_fwd", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:427",
-         "launches": combined_launches["flash_fwd"], "max_abs_err": flash_err,
-         **{k: flash_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+         "launches": combined_launches["flash_fwd"] + tc_launches["flash_fwd"],
+         "max_abs_err": flash_err,
+         **{k: flash_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "dropout_ms": flash_timing["dropout"]["ms"]},
+        {"name": "flash_dq", "source": flash_src,
+         "replaces": "deepdfa_tpu/nn/flash_attention.py:495",
+         "launches": tc_launches["flash_dq"], "max_abs_err": bwd_flash_err,
+         "ms": bwd_flash["dq_ms_rate0.0"], "plain_ms": bwd_flash["plain_ms"],
+         "bound_ms": bwd_flash["dq_bound_ms"], "bound_by": bwd_flash["dq_bound_by"],
+         "library_ms": bwd_flash["library_ms"],
+         "dropout_ms": bwd_flash[f"dq_ms_rate{DROPOUT_RATE}"]},
+        {"name": "flash_dkv", "source": flash_src,
+         "replaces": "deepdfa_tpu/nn/flash_attention.py:516",
+         "launches": tc_launches["flash_dkv"], "max_abs_err": bwd_flash_err,
+         "ms": bwd_flash["dkv_ms_rate0.0"], "plain_ms": bwd_flash["plain_ms"],
+         "bound_ms": bwd_flash["dkv_bound_ms"], "bound_by": bwd_flash["dkv_bound_by"],
+         "library_ms": bwd_flash["library_ms"],
+         "dropout_ms": bwd_flash[f"dkv_ms_rate{DROPOUT_RATE}"]},
     ]
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"], "launches": k["launches"],
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                       "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+                       "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+                       **({"dropout_ms": k["dropout_ms"], "dropout_rate": DROPOUT_RATE}
+                          if "dropout_ms" in k else {})}
                       for k in kernels]})
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         fail("a kernel time is not finite")

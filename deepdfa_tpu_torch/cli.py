@@ -1,18 +1,31 @@
-"""Command line of the port: train and test the DeepDFA GGNN on one
-device (the reference's `deepdfa-tpu train` and `deepdfa-tpu test`,
-`deepdfa_tpu/cli/main.py:cmd_train` and `cmd_test`).
+"""Command line of the port: train and test the DeepDFA GGNN, and train
+the combined DeepDFA+LineVul model, on one device (the reference's
+`deepdfa-tpu train`, `test` and `train-combined`,
+`deepdfa_tpu/cli/main.py:cmd_train`, `cmd_test` and
+`cmd_train_combined`).
 
     python -m deepdfa_tpu_torch.cli train --config configs/bigvul_deepdfa.json [key=value ...]
     python -m deepdfa_tpu_torch.cli test --checkpoint best --split test [--export]
+    python -m deepdfa_tpu_torch.cli train-combined --config configs/bigvul_combined.json \
+        --encoder codebert-base [--graph-checkpoint RUN [--freeze-graph]] [key=value ...]
 
-Both read the processed-dir layout the reference's `prepare` and
+They read the processed-dir layout the reference's `prepare` and
 `extract` write under the storage root (`$DEEPDFA_TPU_STORAGE`, else
-`storage/` at the repo root): `processed/<dataset>/splits.json` and the
-graph store `processed/<dataset>/graphs<feat name>[_gtype_<gtype>]/`.
-A run writes `runs/<run_name>/config.json`, `train_log.jsonl` and
-torch checkpoints under `runs/<run_name>/checkpoints-torch/` (the
-reference's orbax `checkpoints/` of the same run stay untouched).
-The card is the default device; `--device cpu` runs the plain path.
+`storage/` at the repo root): `processed/<dataset>/splits.json`, the
+graph store `processed/<dataset>/graphs<feat name>[_gtype_<gtype>]/` and,
+for `train-combined`, `processed/<dataset>/examples.pkl`. A run writes
+`runs/<run_name>/config.json`, `train_log.jsonl` and torch checkpoints
+under `runs/<run_name>/checkpoints-torch/` (GGNN) or
+`checkpoints-combined-torch/` (combined); the reference's orbax
+checkpoints of the same run stay untouched. The card is the default
+device; `--device cpu` runs the plain path.
+
+`train-combined` takes the reference's arguments. Not ported yet, and
+refused: `--arch t5`, `--tokenizer` (BPE; no vocabulary is in the
+repository), `--pretrained` (no CodeBERT weights either),
+`--sp-variant ulysses` and `--remat-policy attn_saved`. Rows are
+bucketed by `data.seq_buckets` (the largest edge equal to
+`--max-length`) or padded to `--max-length` in fixed 16-row batches.
 """
 
 from __future__ import annotations
@@ -30,6 +43,9 @@ from deepdfa_tpu_torch.core import config as config_mod
 from deepdfa_tpu_torch.core.config import Config
 
 CHECKPOINTS_DIR = "checkpoints-torch"
+COMBINED_CHECKPOINTS_DIR = "checkpoints-combined-torch"
+#: rows of a fixed (unbucketed) combined batch: the LineVul recipe's 16
+FIXED_ROWS = 16
 
 
 # -- storage layout (own copy of the reference's core/paths.py) -------------
@@ -219,6 +235,139 @@ def cmd_test(args) -> None:
         print(f"exported {len(rows)} predictions")
 
 
+def combined_setup(args, cfg: Config):
+    """(tokenizer, CombinedConfig) of `train-combined`
+    (the reference's `_combined_setup`, RoBERTa arch); the options the
+    port does not run raise NotImplementedError."""
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.models import CombinedConfig, TransformerConfig
+
+    refused = {
+        "--arch t5": args.arch == "t5",
+        "--tokenizer (BPE: no vocabulary in the repository)": args.tokenizer is not None,
+        "--pretrained (no CodeBERT weights in the repository)": args.pretrained is not None,
+        "--sp-variant ulysses (multi-device slice)": args.sp_variant != "ring",
+        "--remat-policy attn_saved (ROADMAP queue A, item 4)": args.remat_policy != "full",
+    }
+    for what, asked in refused.items():
+        if asked:
+            raise NotImplementedError(f"train-combined {what} is not ported yet")
+    if args.encoder not in ("tiny", "codebert-base"):
+        raise SystemExit(f"--encoder {args.encoder} is not valid for --arch roberta "
+                         "(choose from ('tiny', 'codebert-base'))")
+    tok = HashTokenizer(vocab_size=4096)
+    if args.encoder == "codebert-base":
+        enc_cfg = TransformerConfig(dtype="bfloat16", attn_impl=args.attn_impl,
+                                    remat_policy=args.remat_policy)
+    else:
+        enc_cfg = TransformerConfig.tiny(vocab_size=tok.vocab_size,
+                                         max_position_embeddings=args.max_length + 4,
+                                         attn_impl=args.attn_impl, remat_policy=args.remat_policy)
+    mcfg = CombinedConfig(encoder=enc_cfg, graph_hidden_dim=cfg.model.hidden_dim,
+                          graph_input_dim=cfg.data.feat.input_dim, use_graph=not args.no_graph)
+    return tok, mcfg
+
+
+def cmd_train_combined(args) -> None:
+    from deepdfa_tpu_torch.data import (
+        bucketed_collate_batches,
+        collate,
+        lengths_for,
+        load_examples,
+        plan_bucketed_batches,
+    )
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.train import CheckpointManager, CombinedTrainer, undersample_epoch
+
+    cfg = _load_config(args)
+    if cfg.data.gtype != "cfg":
+        raise SystemExit(f"train-combined supports data.gtype=cfg only (got {cfg.data.gtype!r})")
+    tok, mcfg = combined_setup(args, cfg)
+    out_dir = processed_dir(cfg.data.dataset)
+    run_dir = runs_dir(cfg.run_name)
+    config_mod.to_json(cfg, run_dir / "config.json")
+    examples = load_examples(out_dir / "examples.pkl")
+    splits = json.loads((out_dir / "splits.json").read_text())
+    graphs_by_id = {} if args.no_graph else GraphStore(out_dir / graphs_dirname(cfg)).load_all()
+
+    by_id = {e.id: e for e in examples}
+    used = {int(k) for k, v in splits.items() if v in ("train", "val") and int(k) in by_id}
+    token_ids = {e.id: tok.encode(e.code, max_length=args.max_length)
+                 for e in examples if e.id in used}
+    labels = {e.id: int(e.label or 0) for e in examples if e.id in used}
+    bcfg = cfg.data.batch
+    buckets = tuple(int(b) for b in cfg.data.seq_buckets)
+    lengths_by_id: dict[int, int] = {}
+    if buckets:
+        if buckets[-1] != args.max_length:
+            raise SystemExit(
+                f"data.seq_buckets largest edge {buckets[-1]} != --max-length "
+                f"{args.max_length}: the largest bucket must equal the tokenizer frame"
+            )
+        order = sorted(token_ids)
+        lengths_by_id = dict(zip(order, lengths_for(token_ids, order, tok.pad_id)))
+
+    def split_ids(name):
+        return [int(k) for k, v in splits.items() if v == name and int(k) in by_id]
+
+    train_ids = split_ids("train")
+    train_labels = np.array([labels[i] for i in train_ids])
+
+    def epoch_ids(epoch):
+        if cfg.data.undersample and len(train_ids):
+            return [train_ids[i] for i in undersample_epoch(train_labels, epoch,
+                                                            seed=cfg.data.seed)]
+        return list(train_ids)
+
+    def plan_count(ids):
+        return max(1, sum(1 for _ in plan_bucketed_batches(
+            [lengths_by_id[i] for i in ids], ids, buckets, cfg.data.token_budget, 1,
+            bcfg.node_budget, bcfg.edge_budget)))
+
+    n_epochs = max(1, cfg.train.max_epochs)
+    # the warmup/decay schedule spans the steps the run really takes
+    if buckets and cfg.data.undersample:  # each epoch's selection buckets its own way
+        total_steps = sum(plan_count(epoch_ids(e)) for e in range(n_epochs))
+    elif buckets:
+        total_steps = plan_count(epoch_ids(0)) * n_epochs
+    else:
+        total_steps = max(1, -(-len(epoch_ids(0)) // FIXED_ROWS)) * n_epochs
+    trainer = CombinedTrainer(cfg, mcfg, total_steps=total_steps,
+                              freeze_graph=args.freeze_graph, device=args.device)
+
+    def batches(ids):
+        ids = list(ids)
+        if buckets:
+            return bucketed_collate_batches(
+                token_ids, labels, ids, graphs_by_id, buckets, cfg.data.token_budget, 1,
+                bcfg.node_budget, bcfg.edge_budget, pad_id=tok.pad_id,
+                lengths=[lengths_by_id[i] for i in ids])
+        return [collate(np.stack([token_ids[i] for i in ids[k:k + FIXED_ROWS]]),
+                        [labels[i] for i in ids[k:k + FIXED_ROWS]], ids[k:k + FIXED_ROWS],
+                        graphs_by_id, FIXED_ROWS, bcfg.node_budget, bcfg.edge_budget,
+                        pad_id=tok.pad_id)
+                for k in range(0, len(ids), FIXED_ROWS)]
+
+    state = trainer.init_state()
+    if args.graph_checkpoint:
+        ckpt_dir = Path(args.graph_checkpoint)
+        if not ckpt_dir.exists():
+            ckpt_dir = runs_dir(args.graph_checkpoint) / CHECKPOINTS_DIR
+        state = trainer.load_graph_encoder_params(
+            state, CheckpointManager(ckpt_dir).restore("best")["model"])
+        print(f"loaded graph encoder from {ckpt_dir}"
+              + (" (frozen)" if args.freeze_graph else ""))
+    ckpts = trainer.make_checkpoints(run_dir / COMBINED_CHECKPOINTS_DIR)
+    run_log = RunLog(run_dir)
+    try:
+        trainer.fit(state, lambda epoch: batches(epoch_ids(epoch)),
+                    val_batches=lambda: batches(split_ids("val")), checkpoints=ckpts,
+                    log_fn=run_log.log)
+    finally:
+        run_log.close()
+    print("best:", ckpts.best_metrics())
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m deepdfa_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -240,6 +389,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write per-example predictions csv")
     common(p)
     p.set_defaults(fn=cmd_test)
+
+    p = sub.add_parser("train-combined")
+    p.add_argument("--arch", default="roberta", choices=["roberta", "t5"],
+                   help="roberta (LineVul style); t5 is not ported yet")
+    p.add_argument("--encoder", default="tiny", help="tiny | codebert-base")
+    p.add_argument("--pretrained", default=None,
+                   help="a torch state_dict for the encoder (not ported yet)")
+    p.add_argument("--tokenizer", default=None,
+                   help="dir with vocab.json + merges.txt (not ported yet; default: hash)")
+    p.add_argument("--max-length", type=int, default=512)
+    p.add_argument("--sp-variant", default="ring", choices=["ring", "ulysses"])
+    p.add_argument("--attn-impl", default="auto", choices=["auto", "xla", "flash"],
+                   help="encoder attention: auto/flash = the flash kernels on the card")
+    p.add_argument("--remat-policy", default="full", choices=["full", "attn_saved"])
+    p.add_argument("--no-graph", action="store_true")
+    p.add_argument("--graph-checkpoint", default=None,
+                   help="run name or checkpoints dir of a trained port DeepDFA "
+                        f"({CHECKPOINTS_DIR}) to load into the graph branch")
+    p.add_argument("--freeze-graph", action="store_true",
+                   help="freeze the loaded graph encoder (reference --freeze_graph)")
+    common(p)
+    p.set_defaults(fn=cmd_train_combined)
     return parser
 
 

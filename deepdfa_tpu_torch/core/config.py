@@ -6,11 +6,13 @@ feature spec, batch budgets, split and sampling fields and the text
 buckets (`seq_buckets`, `token_budget`) of `data`, all of
 `model`, the batcher fields of `serve`, and the one-card training fields
 of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
-resilience switch, which must say "one card, off"). Field names and
+resilience switch, which must say "one card, off"), and the `obs`
+switches (which must be off). Field names and
 defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
-file configures both packages. Keys the port does not run yet
-(observability, fleet, the frontend, the prefetch pipeline) are read
-past; the JAX package validates them.
+file configures both packages. Keys the port does not run yet (the
+rest of observability, fleet, the frontend, the prefetch pipeline and
+`train.step_cache_entries`, which sizes the reference's cache of
+compiled steps) are read past; the JAX package validates them.
 """
 
 from __future__ import annotations
@@ -209,6 +211,25 @@ class ResilienceConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """The reference's telemetry switches (its `obs` section). The port
+    has no instruments yet; a trainer refuses a config that turns one on."""
+
+    trace: bool = False
+    metrics: bool = False
+    xprof_start_step: int = -1
+    xprof_trigger: bool = False
+    ledger: bool = False
+    ledger_ceilings: bool = False
+    flight: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return (self.trace or self.metrics or self.xprof_start_step >= 0 or self.xprof_trigger
+                or self.ledger or self.ledger_ceilings or self.flight)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     max_epochs: int = 25
     eval_every_epochs: int = 1
@@ -234,6 +255,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
 
 def one_card(mesh: MeshConfig) -> int:
@@ -249,6 +271,23 @@ def one_card(mesh: MeshConfig) -> int:
             "with a later slice (ROADMAP queue A)"
         )
     return 1
+
+
+def refuse_unported_training(cfg: Config) -> None:
+    """NotImplementedError for the training options the port does not
+    run: a mesh beyond one card, `train.resilience.enabled` and any
+    `obs` instrument."""
+    one_card(cfg.train.mesh)
+    if cfg.train.resilience.enabled:
+        raise NotImplementedError(
+            "train.resilience.enabled: the resilient runtime (guarded step, step "
+            "checkpoints, resume) comes with a later slice of the port (ROADMAP queue A)"
+        )
+    if cfg.obs.enabled:
+        raise NotImplementedError(
+            f"obs={cfg.obs}: the telemetry instruments come with a later slice of the "
+            "port (ROADMAP queue A, item 10)"
+        )
 
 
 def serve_budgets(cfg: Config) -> tuple[int, int]:

@@ -1,55 +1,92 @@
-// Flash-attention forward for NVIDIA Hopper (sm_90a): bf16 on tensor
+// Flash attention for NVIDIA Hopper (sm_90a): the forward with in-kernel
+// dropout, and the two backward kernels dq and dk/dv. bf16 on tensor
 // cores (mma.sync), fp32 in IEEE FMA loops.
 //
-// Replaces the TPU kernel deepdfa_tpu/nn/flash_attention.py:_fwd_kernel
-// (launched by _fwd_call), without its dropout, bias and causal options.
-// For q [B, H, Tq, D], k, v [B, H, Tk, D] and a kv mask [B, Tk] it computes,
-// per (b, h, query row i),
+// Replaces the TPU kernels of deepdfa_tpu/nn/flash_attention.py:
+//   flash_fwd -> _fwd_kernel (launched by _fwd_call)
+//   flash_dq  -> _dq_kernel  (the first pallas_call of _bwd_call)
+//   flash_dkv -> _dkv_kernel (the second pallas_call of _bwd_call)
+// without their bias and causal options. For q [B, H, Tq, D], k, v
+// [B, H, Tk, D] and a kv mask [B, Tk] the forward computes, per (b, h,
+// query row i),
 //
 //   s_j = q_i . k_j * scale        where mask[b, j], else -1e30
 //   m   = max_j s_j,   p_j = exp(s_j - m) where mask[b, j], else 0
-//   l   = sum_j p_j                                     (fp32)
-//   o_i = (sum_j round(p_j) * v_j) / max(l, FLT_MIN)    (fp32 sums)
+//   l   = sum_j p_j                                     (fp32, undropped)
+//   o_i = (sum_j round(d_j p_j) * v_j) / max(l, FLT_MIN)    (fp32 sums)
 //   lse_i = m + log(max(l, FLT_MIN))                    (fp32)
 //
-// where round() casts p to the input dtype before the p.v product, as
-// the reference does (`pv.astype(v_blk.dtype)`). An all-padding row has
-// l = 0 and gets o = 0 and a finite lse (-1e30), never NaN.
+// where round() casts to the input dtype before the product, as the
+// reference does (`pv.astype(v_blk.dtype)`), and d_j is the dropout
+// factor: keep_j / keep_prob, or 1 without dropout. Dropout scales the
+// numerator only; the softmax denominator stays undropped (`_fwd_kernel`
+// :199-208). An all-padding row has l = 0 and gets o = 0 and a finite
+// lse (-1e30), never NaN.
 //
-// Design. The TPU kernel held the whole k/v strip of one (b, h) in VMEM
-// (block_k = min(512, Tk)) and ran its k loop inside one program. A
-// Hopper block has 227 KB of shared memory and blocks run in parallel,
-// so here each block owns one (b*h, q-tile) and streams k/v through
-// shared memory in 64-key tiles with the FlashAttention-2 online softmax:
-// the running max and sum live in fp32 registers and the accumulator is
-// rescaled by exp(m_old - m_new) whenever the max grows. Keys past Tk
-// are loaded as zeros and masked, so any Tq and Tk are taken.
+// The backward (`_dq_kernel`, `_dkv_kernel`), from the forward's lse and
+// delta_i = rowsum(do_i * o_i) (fp32, computed by the wrapper as the
+// reference computes it outside any kernel):
 //
-//  - bf16, D a multiple of 16 (<= 128): 4 warps, 16 query rows each
-//    (64 per block). Q stays in registers as mma A fragments; S = Q K^T
-//    and O += P V are mma.sync m16n8k16 bf16 products with fp32
-//    accumulators; P is reused from the S accumulators as the next A
-//    fragment (converted to bf16, which is the reference's rounding of
-//    p); V's B fragments come from row-major shared memory through
-//    ldmatrix.trans. Shared rows are padded by 8 elements so the
-//    fragment loads hit 32 distinct banks.
-//  - fp32 (and bf16 at other widths): 4 warps, 4 query rows each;
-//    each lane scores one key of a 32-key tile and owns D/32 output
-//    columns. Plain fp32 FMA, no TF32.
+//   p_ij  = exp(s_ij - lse_i) where mask[b, j], else 0    (masked FIRST:
+//           an all-padding row has lse = -1e30, and exp(s - lse) would
+//           be exp(0) = 1 at a masked score of -1e30)
+//   dp_ij = d_ij * (do_i . v_j)
+//   ds_ij = p_ij * (dp_ij - delta_i)
+//   dq_i  = scale * sum_j round(ds_ij) k_j
+//   dk_j  = scale * sum_i round(ds_ij) q_i
+//   dv_j  =         sum_i round(d_ij p_ij) do_i
 //
-// Bound on this card. One flagship call (B 16, H 12, T 512, D 64, bf16)
-// does 4*B*H*T^2*D = 12.9 GFLOP (0.013 ms at 989 TFLOP/s) and must move
-// q, k, v and o once, ~50 MB (0.015 ms at 3.35 TB/s): it is bound by
-// bytes, barely. This first version has no TMA, no wgmma and no
-// double buffering: each tile's loads wait on a barrier, and the k/v
-// tiles are re-read from L2 by each of the Tq/64 q-tile blocks of a
-// (b, h); the 8 q tiles of a (b, h) are neighbouring blocks, so those
-// re-reads hit L2 rather than HBM.
+// Dropout bits. Each element's bits are a pure function of (seed, b, h,
+// row, col): Philox4x32-10 keyed by the 64-bit seed (lo, hi) with the
+// counter (col / 4, row, b*H + h, 0), whose four output words are the
+// columns 4c .. 4c+3. keep = bits < threshold, threshold = min(round(
+// keep_prob * 2^32), 2^32 - 1) (the reference's _Params.keep_threshold).
+// So the forward, the two backward kernels and the plain version
+// (nn/flash_attention.py:dropout_bits) draw the same mask, whatever each
+// one's tiling, without storing it. The reference seeds the TPU PRNG per
+// 512 x 512 block instead; its bits cannot be reproduced here, and the
+// tests hold the math through explicit bits (debug_bits) instead.
 //
-// The wrapper (nn/flash_attention.py:flash_fwd) passes each operand's
-// (batch, head, token) strides; the innermost dimension is contiguous.
-// It writes o into a [B, Tq, H, D] buffer (its strides say so), which
-// the encoder's output projection reads without a copy.
+// Design. The TPU kernels held a (b, h)'s whole k/v (or q/do) strip in
+// VMEM and looped inside one program. Here blocks run in parallel with
+// 227 KB of shared memory each:
+//  - forward: one block per (b*h, 64-row q-tile) streams k/v through
+//    shared memory in 64-key tiles with the FlashAttention-2 online
+//    softmax (running max and sum in fp32 registers, the accumulator
+//    rescaled by exp(m_old - m_new) when the max grows);
+//  - dq: one block per (b*h, 64-row q-tile) loops over the k/v tiles,
+//    recomputing s and p from lse; dq stays in registers;
+//  - dk/dv: one block per (b*h, 64-key k-tile) loops over the q tiles
+//    (q, do, lse and delta staged in shared memory); each warp owns 16
+//    keys, so dk and dv stay in its registers.
+// Two kernels and no float atomics (the usual FA2 backward sums dq with
+// atomics): the same inputs on the same card give the same bits.
+//
+//  - bf16, D a multiple of 16 (<= 128): 4 warps of 16 rows (64 per
+//    block). mma.sync m16n8k16 bf16 products with fp32 accumulators. The
+//    S, dP accumulators are reused as A fragments of the next product
+//    after their bf16 rounding (the reference's rounding points); the
+//    operand whose k-dimension runs along the rows of a row-major tile
+//    (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) comes through
+//    ldmatrix.trans. Shared rows are padded by 8 elements so fragment
+//    loads hit 32 distinct banks.
+//  - fp32 (and bf16 at other widths): 4 warps; a lane scores one key
+//    (forward, dq) or one query (dk/dv) of a 32-wide tile and owns D/32
+//    output columns. Plain fp32 FMA, no TF32.
+//
+// Bound on this card, at the flagship training call (B 16, H 12, T 512,
+// D 64, bf16, every key live): the forward does 2 products (12.9 GFLOP,
+// 0.013 ms at 989 TFLOP/s) on ~50 MB (0.015 ms at 3.35 TB/s); dq does 3
+// (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8 GFLOP,
+// 0.026 ms) on ~76 MB (0.023 ms). This first version has no TMA, no
+// wgmma and no double buffering: each tile's loads wait on a barrier,
+// and the Philox words are recomputed per lane (2 of each call's 4 words
+// used in the forward and dq, 1 in dk/dv).
+//
+// The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
+// token) strides; the innermost dimension is contiguous. o, dq, dk and dv
+// are written through their strides (the wrapper makes them [B, T, H, D]
+// buffers); lse and delta are contiguous [B, H, Tq] fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,20 +97,30 @@ namespace {
 constexpr float kNegBig = -1e30f;              // the reference's _NEG_BIG
 constexpr float kTiny = 1.17549435082228751e-38f;  // jnp.finfo(float32).tiny
 constexpr int kMaxD = 128;
+constexpr int kStaticSmem = 48 * 1024;
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = kMmaWarps * 16;  // query rows per block
-constexpr int kMmaKeys = 64;               // keys per k/v tile
+constexpr int kMmaRows = kMmaWarps * 16;  // query (dq, fwd) or key (dk/dv) rows per block
+constexpr int kMmaKeys = 64;               // keys (fwd, dq) or queries (dk/dv) per tile
 
 constexpr int kScalarWarps = 4;
 constexpr int kScalarThreads = kScalarWarps * 32;
 constexpr int kScalarRowsPerWarp = 4;
 constexpr int kScalarRows = kScalarWarps * kScalarRowsPerWarp;
-constexpr int kScalarKeys = 32;  // one key per lane
+constexpr int kScalarKeys = 32;  // one key (or query) per lane
 
 struct Strides {
   long long b, h, t;
+};
+
+// Dropout: on/off, the keep threshold on uint32 bits, 1/keep_prob and the
+// Philox key (the 64-bit seed).
+struct Drop {
+  int on;
+  uint32_t threshold;
+  float inv_keep;
+  uint32_t key0, key1;
 };
 
 struct Args {
@@ -85,7 +132,25 @@ struct Args {
   float* lse;  // [B, H, Tq] contiguous
   int B, H, Tq, Tk, D;
   float scale;
+  Drop drop;
   Strides sq, sk, sv, so;
+};
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* mask;     // [B, Tk]
+  const float* lse;    // [B, H, Tq] contiguous
+  const float* delta;  // [B, H, Tq] contiguous
+  const void* dout;    // do
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, H, Tq, Tk, D;
+  float scale;
+  Drop drop;
+  Strides sq, sk, sv, sdo, sdq, sdk, sdv;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -100,6 +165,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype()
 }
 
+// x rounded to T and back: the reference's astype() before a product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -113,7 +182,39 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on tensor cores
+// Philox4x32-10 (Salmon et al., Random123), one call per 4 columns
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// the four words of columns 4*(col/4) .. +3 of row `row` of head bh
+__device__ __forceinline__ uint4 bits4(const Drop& d, int bh, int row, int col) {
+  return philox4x32_10(make_uint4((uint32_t)col >> 2, (uint32_t)row, (uint32_t)bh, 0u), d.key0,
+                       d.key1);
+}
+
+// the bits of one element (bh, row, col)
+__device__ __forceinline__ uint32_t bits1(const Drop& d, int bh, int row, int col) {
+  return word(bits4(d, bh, row, col), col & 3);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores: shared helpers
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -145,6 +246,109 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row
   return *reinterpret_cast<const uint32_t*>(base + row * stride + col);
 }
 
+__device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragments (16 rows x 16 columns at k-step kk) of rows `rows0` .. +15
+// of a row-major shared tile with row stride KS
+template <int KS>
+__device__ __forceinline__ void smem_a_frag(uint32_t (&f)[4], const __nv_bfloat16* rows0, int kk,
+                                            int g, int t) {
+  const __nv_bfloat16* p = rows0 + g * KS + kk * 16 + 2 * t;
+  f[0] = smem_pair(p);
+  f[1] = smem_pair(p + 8 * KS);
+  f[2] = smem_pair(p + 8);
+  f[3] = smem_pair(p + 8 * KS + 8);
+}
+
+// A fragments from a global strided [rows, D] operand (zero past `rows`)
+template <int NK>
+__device__ __forceinline__ void global_a_frags(uint32_t (&f)[NK][4], const __nv_bfloat16* base,
+                                               int r0, int r1, int rows, long long stride,
+                                               int t) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    f[kk][0] = load_pair(base, r0, c, rows, stride);
+    f[kk][1] = load_pair(base, r1, c, rows, stride);
+    f[kk][2] = load_pair(base, r0, c + 8, rows, stride);
+    f[kk][3] = load_pair(base, r1, c + 8, rows, stride);
+  }
+}
+
+// rows [row0, row0 + 64) of a strided [rows, D] operand into a shared
+// tile of row stride KS, zeros past `rows`; 16-byte chunks
+template <int D, int KS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                                          int rows, long long stride, int tid) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < 64 * CH; idx += kMmaThreads) {
+    const int r = idx / CH, c = (idx - r * CH) * 8;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows) x = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * KS + c) = x;
+  }
+}
+
+// acc[NJ] += A . B^T where B's rows are the 64 rows of a shared tile
+// (B[k][n] = tile[n][k]: the k-dimension runs along a row)
+template <int NJ, int NK, int KS>
+__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)[NK][4],
+                                        const __nv_bfloat16* tile, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const __nv_bfloat16* r = tile + (j * 8 + g) * KS + kk * 16 + 2 * t;
+      mma_bf16(acc[j], a[kk], smem_pair(r), smem_pair(r + 8));
+    }
+  }
+}
+
+// acc[NO] += round(X) . tile, X the [16, 64] accumulators x[NJ] reused as
+// A fragments after their bf16 rounding, tile a [64, D] row-major shared
+// tile whose rows are the k-dimension (ldmatrix.trans)
+template <int NJ, int NO, int KS>
+__device__ __forceinline__ void mma_xv(float (&acc)[NO][4], const float (&x)[NJ][4],
+                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    uint32_t xa[4];
+    xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      uint32_t b0, b1;
+      ldmatrix_x2_trans(b0, b1, tile + (kk * 16 + (lane & 15)) * KS + n * 8);
+      mma_bf16(acc[n], xa, b0, b1);
+    }
+  }
+}
+
+// rows r0, r1 (= r0 + 8) of the [16, D] accumulators acc times `mul`,
+// as bf16 through the strided pointer
+template <int NO>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&acc)[NO][4],
+                                           int r0, int r1, int rows, long long stride, float mul,
+                                           int t) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (r0 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(base + r0 * stride + c) =
+          __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
+    if (r1 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(base + r1 * stride + c) =
+          __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16 on tensor cores
+
 template <int D>
 __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
   constexpr int KS = D + 8;  // padded shared row, in elements
@@ -168,14 +372,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
   const int* maskp = a.mask + (long long)b * a.Tk;
 
   uint32_t qf[NK][4];
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = load_pair(qp, r0, c, a.Tq, a.sq.t);
-    qf[kk][1] = load_pair(qp, r1, c, a.Tq, a.sq.t);
-    qf[kk][2] = load_pair(qp, r0, c + 8, a.Tq, a.sq.t);
-    qf[kk][3] = load_pair(qp, r1, c + 8, a.Tq, a.sq.t);
-  }
+  global_a_frags<NK>(qf, qp, r0, r1, a.Tq, a.sq.t, t);
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
@@ -184,18 +381,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
 
   for (int k0 = 0; k0 < a.Tk; k0 += kMmaKeys) {
     __syncthreads();  // the previous tile is consumed
-    constexpr int CH = D / 8;  // 16-byte chunks per row
-    for (int idx = tid; idx < kMmaKeys * CH; idx += kMmaThreads) {
-      const int r = idx / CH, c = (idx - r * CH) * 8;
-      const int key = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < a.Tk) {
-        kv = *reinterpret_cast<const uint4*>(kp + key * a.sk.t + c);
-        vv = *reinterpret_cast<const uint4*>(vp + key * a.sv.t + c);
-      }
-      *reinterpret_cast<uint4*>(k_s + r * KS + c) = kv;
-      *reinterpret_cast<uint4*>(v_s + r * KS + c) = vv;
-    }
+    load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
+    load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
     if (tid < kMmaKeys) {
       const int key = k0 + tid;
       ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
@@ -206,16 +393,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
     float s[NJ][4];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const __nv_bfloat16* kr = k_s + (j * 8 + g) * KS + kk * 16 + 2 * t;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-        mma_bf16(s[j], qf[kk], b0, b1);
-      }
-    }
+    mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);
 
     // scale and mask, the tile's row max over the quad
     float mx0 = kNegBig, mx1 = kNegBig;
@@ -248,7 +426,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
         ls1 += s[j][2 + e];
       }
     }
-    l0 = l0 * al0 + ls0;
+    l0 = l0 * al0 + ls0;  // the denominator stays undropped
     l1 = l1 * al1 + ls1;
     m0 = mn0;
     m1 = mn1;
@@ -259,23 +437,27 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
       o[n][2] *= al1;
       o[n][3] *= al1;
     }
+    if (a.drop.on) {
+      // columns j*8 + 2t + {0, 1} share one Philox call: words 2(t&1) + e
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = k0 + j * 8 + 2 * t;
+        const uint4 w0 = bits4(a.drop, bh, r0, col), w1 = bits4(a.drop, bh, r1, col);
+        const bool odd = t & 1;
+        const uint32_t b00 = odd ? w0.z : w0.x, b01 = odd ? w0.w : w0.y;
+        const uint32_t b10 = odd ? w1.z : w1.x, b11 = odd ? w1.w : w1.y;
+        const float inv = a.drop.inv_keep;
+        const uint32_t thr = a.drop.threshold;
+        s[j][0] = b00 < thr ? s[j][0] * inv : 0.0f;
+        s[j][1] = b01 < thr ? s[j][1] * inv : 0.0f;
+        s[j][2] = b10 < thr ? s[j][2] * inv : 0.0f;
+        s[j][3] = b11 < thr ? s[j][3] * inv : 0.0f;
+      }
+    }
 
     // O += bf16(P) V: the S accumulators of n-tiles 2kk, 2kk+1 are the
     // A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, v_s + (kk * 16 + (lane & 15)) * KS + n * 8);
-        mma_bf16(o[n], pa, b0, b1);
-      }
-    }
+    mma_xv<NJ, NO, KS>(o, s, v_s, lane);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -302,7 +484,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 (and bf16 at widths the mma path does not take): FMA loops
+// forward, fp32 (and bf16 at widths the mma path does not take): FMA loops
 
 template <typename T>
 __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
@@ -361,9 +543,13 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
       const float m_new = fmaxf(m[i], warp_max(x));
       const float p = ok ? expf(x - m_new) : 0.0f;
       const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
+      l[i] = l[i] * alpha + warp_sum(p);  // the denominator stays undropped
       m[i] = m_new;
-      p_s[warp][lane] = to_f(from_f<T>(p));  // p in v's dtype for p.v
+      float pv = p;
+      if (a.drop.on)
+        pv = bits1(a.drop, bh, q0 + row, k0 + lane) < a.drop.threshold ? p * a.drop.inv_keep
+                                                                       : 0.0f;
+      p_s[warp][lane] = round_to<T>(pv);  // p in v's dtype for p.v
       __syncwarp();
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -393,11 +579,545 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// dq, bf16 on tensor cores: one block per (b*h, 64-row q-tile)
+
 template <int D>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
+  constexpr int KS = D + 8;
+  constexpr int NJ = kMmaKeys / 8;
+  constexpr int NK = D / 16;
+  constexpr int NO = D / 8;
+  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaKeys * KS];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaKeys * KS];
+  __shared__ float ok_s[kMmaKeys];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int r0 = blockIdx.x * kMmaRows + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const bool v0 = r0 < a.Tq, v1 = r1 < a.Tq;
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const __nv_bfloat16* dop =
+      static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const int* maskp = a.mask + (long long)b * a.Tk;
+  const float* lp = a.lse + (long long)bh * a.Tq;
+  const float* dlp = a.delta + (long long)bh * a.Tq;
+  const float lse0 = v0 ? lp[r0] : 0.0f, lse1 = v1 ? lp[r1] : 0.0f;
+  const float del0 = v0 ? dlp[r0] : 0.0f, del1 = v1 ? dlp[r1] : 0.0f;
+
+  uint32_t qf[NK][4], df[NK][4];
+  global_a_frags<NK>(qf, qp, r0, r1, a.Tq, a.sq.t, t);
+  global_a_frags<NK>(df, dop, r0, r1, a.Tq, a.sdo.t, t);
+  float dq[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+
+  for (int k0 = 0; k0 < a.Tk; k0 += kMmaKeys) {
+    __syncthreads();
+    load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
+    load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
+    if (tid < kMmaKeys) {
+      const int key = k0 + tid;
+      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+    mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);   // S = Q K^T
+    mma_abt<NJ, NK, KS>(dp, df, v_s, g, t);  // dP = dO V^T
+
+    // ds = p (dp - delta) into s
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = j * 8 + 2 * t;
+      uint32_t bw[4] = {0u, 0u, 0u, 0u};
+      if (a.drop.on) {
+        const uint4 w0 = bits4(a.drop, bh, r0, k0 + col), w1 = bits4(a.drop, bh, r1, k0 + col);
+        const bool odd = t & 1;
+        bw[0] = odd ? w0.z : w0.x;
+        bw[1] = odd ? w0.w : w0.y;
+        bw[2] = odd ? w1.z : w1.x;
+        bw[3] = odd ? w1.w : w1.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = ok_s[col + e] != 0.0f;
+        const float p0 = (ok && v0) ? expf(s[j][e] * a.scale - lse0) : 0.0f;
+        const float p1 = (ok && v1) ? expf(s[j][2 + e] * a.scale - lse1) : 0.0f;
+        float d0 = dp[j][e], d1 = dp[j][2 + e];
+        if (a.drop.on) {
+          d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
+          d1 = bw[2 + e] < a.drop.threshold ? d1 * a.drop.inv_keep : 0.0f;
+        }
+        s[j][e] = p0 * (d0 - del0);
+        s[j][2 + e] = p1 * (d1 - del1);
+      }
+    }
+
+    // dq += bf16(dS) K
+    mma_xv<NJ, NO, KS>(dq, s, k_s, lane);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+  store_rows<NO>(out, dq, r0, r1, a.Tq, a.sdq.t, a.scale, t);
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv, bf16 on tensor cores: one block per (b*h, 64-key k-tile); each
+// warp owns 16 keys and loops over the 64-row q tiles
+
+template <int D>
+constexpr int dkv_smem_bytes() {
+  return 4 * kMmaKeys * (D + 8) * 2 + 3 * kMmaKeys * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
+  constexpr int KS = D + 8;
+  constexpr int NJ = kMmaKeys / 8;  // n8 tiles over a q tile
+  constexpr int NK = D / 16;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* v_s = k_s + kMmaRows * KS;
+  __nv_bfloat16* q_s = v_s + kMmaRows * KS;
+  __nv_bfloat16* do_s = q_s + kMmaKeys * KS;
+  float* lse_s = reinterpret_cast<float*>(do_s + kMmaKeys * KS);
+  float* del_s = lse_s + kMmaKeys;
+  float* qok_s = del_s + kMmaKeys;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int c0 = blockIdx.x * kMmaRows;
+  const int kr0 = c0 + warp * 16 + g;  // this lane's keys
+  const int kr1 = kr0 + 8;
+  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const __nv_bfloat16* dop =
+      static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const int* maskp = a.mask + (long long)b * a.Tk;
+  const float* lp = a.lse + (long long)bh * a.Tq;
+  const float* dlp = a.delta + (long long)bh * a.Tq;
+  const bool ok0 = kr0 < a.Tk && maskp[kr0] != 0;
+  const bool ok1 = kr1 < a.Tk && maskp[kr1] != 0;
+
+  load_tile<D, KS>(k_s, kp, c0, a.Tk, a.sk.t, tid);
+  load_tile<D, KS>(v_s, vp, c0, a.Tk, a.sv.t, tid);
+  const __nv_bfloat16* kw = k_s + warp * 16 * KS;  // this warp's 16 keys
+  const __nv_bfloat16* vw = v_s + warp * 16 * KS;
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.0f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
+  }
+
+  for (int q0 = 0; q0 < a.Tq; q0 += kMmaKeys) {
+    __syncthreads();  // the previous q tile is consumed (and k/v are staged)
+    load_tile<D, KS>(q_s, qp, q0, a.Tq, a.sq.t, tid);
+    load_tile<D, KS>(do_s, dop, q0, a.Tq, a.sdo.t, tid);
+    if (tid < kMmaKeys) {
+      const int row = q0 + tid;
+      const bool valid = row < a.Tq;
+      lse_s[tid] = valid ? lp[row] : 0.0f;
+      del_s[tid] = valid ? dlp[row] : 0.0f;
+      qok_s[tid] = valid ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: rows = keys (kr0, kr1), columns =
+    // queries j*8 + 2t + {0, 1} of the tile
+    float st[NJ][4], dpt[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.0f;
+      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t kf[4], vf[4];
+      smem_a_frag<KS>(kf, kw, kk, g, t);
+      smem_a_frag<KS>(vf, vw, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const __nv_bfloat16* qr = q_s + (j * 8 + g) * KS + kk * 16 + 2 * t;
+        const __nv_bfloat16* dr = do_s + (j * 8 + g) * KS + kk * 16 + 2 * t;
+        mma_bf16(st[j], kf, smem_pair(qr), smem_pair(qr + 8));
+        mma_bf16(dpt[j], vf, smem_pair(dr), smem_pair(dr + 8));
+      }
+    }
+
+    // st <- the dropped p (for dV), dpt <- ds (for dK)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qc = j * 8 + 2 * t + e;
+        const float lse = lse_s[qc], del = del_s[qc];
+        const bool qv = qok_s[qc] != 0.0f;
+        const float p0 = (ok0 && qv) ? expf(st[j][e] * a.scale - lse) : 0.0f;
+        const float p1 = (ok1 && qv) ? expf(st[j][2 + e] * a.scale - lse) : 0.0f;
+        float d0 = dpt[j][e], d1 = dpt[j][2 + e];
+        float pv0 = p0, pv1 = p1;
+        if (a.drop.on) {
+          const bool keep0 = bits1(a.drop, bh, q0 + qc, kr0) < a.drop.threshold;
+          const bool keep1 = bits1(a.drop, bh, q0 + qc, kr1) < a.drop.threshold;
+          const float inv = a.drop.inv_keep;
+          pv0 = keep0 ? p0 * inv : 0.0f;
+          d0 = keep0 ? d0 * inv : 0.0f;
+          pv1 = keep1 ? p1 * inv : 0.0f;
+          d1 = keep1 ? d1 * inv : 0.0f;
+        }
+        st[j][e] = pv0;
+        st[j][2 + e] = pv1;
+        dpt[j][e] = p0 * (d0 - del);
+        dpt[j][2 + e] = p1 * (d1 - del);
+      }
+    }
+
+    mma_xv<NJ, NO, KS>(dv, st, do_s, lane);   // dV += bf16(P_dropped)^T dO
+    mma_xv<NJ, NO, KS>(dk, dpt, q_s, lane);   // dK += bf16(dS)^T Q
+  }
+
+  __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
+  __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+  store_rows<NO>(dkp, dk, kr0, kr1, a.Tk, a.sdk.t, a.scale, t);
+  store_rows<NO>(dvp, dv, kr0, kr1, a.Tk, a.sdv.t, 1.0f, t);
+}
+
+// ---------------------------------------------------------------------------
+// dq and dk/dv, fp32 (and bf16 at other widths): FMA loops. Shared tiles
+// are sized by D (dynamic shared memory).
+
+__host__ __device__ constexpr int scalar_dq_smem_floats(int D) {
+  // q_s, do_s [16][D]; k_s, v_s [32][D+1]; ds_s [4][32]; ok_s [32]
+  return 2 * kScalarRows * D + 2 * kScalarKeys * (D + 1) + kScalarWarps * kScalarKeys +
+         kScalarKeys;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
+  constexpr int C = kMaxD / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D;
+  float* q_s = reinterpret_cast<float*>(smem);  // [16][D]
+  float* do_s = q_s + kScalarRows * D;           // [16][D]
+  float* k_s = do_s + kScalarRows * D;           // [32][D + 1]
+  float* v_s = k_s + kScalarKeys * (D + 1);      // [32][D + 1]
+  float* ds_s = v_s + kScalarKeys * (D + 1);     // [4][32]
+  float* ok_s = ds_s + kScalarWarps * kScalarKeys;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.x * kScalarRows;
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const int* maskp = a.mask + (long long)b * a.Tk;
+
+  for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
+    const int r = idx / D, c = idx - r * D;
+    const bool in = q0 + r < a.Tq;
+    q_s[idx] = in ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
+    do_s[idx] = in ? to_f(dop[(q0 + r) * a.sdo.t + c]) : 0.0f;
+  }
+  float lse[kScalarRowsPerWarp], del[kScalarRowsPerWarp], acc[kScalarRowsPerWarp][C];
+#pragma unroll
+  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+    const int row = q0 + warp * kScalarRowsPerWarp + i;
+    lse[i] = row < a.Tq ? a.lse[(long long)bh * a.Tq + row] : 0.0f;
+    del[i] = row < a.Tq ? a.delta[(long long)bh * a.Tq + row] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < a.Tk; k0 += kScalarKeys) {
+    __syncthreads();
+    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
+      const int r = idx / D, c = idx - r * D;
+      const int key = k0 + r;
+      k_s[r * (D + 1) + c] = key < a.Tk ? to_f(kp[key * a.sk.t + c]) : 0.0f;
+      v_s[r * (D + 1) + c] = key < a.Tk ? to_f(vp[key * a.sv.t + c]) : 0.0f;
+    }
+    if (tid < kScalarKeys) {
+      const int key = k0 + tid;
+      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+      const int row = warp * kScalarRowsPerWarp + i;
+      if (q0 + row >= a.Tq) continue;  // warp-uniform
+      float s = 0.0f, dp = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(q_s[row * D + d], k_s[lane * (D + 1) + d], s);
+        dp = fmaf(do_s[row * D + d], v_s[lane * (D + 1) + d], dp);
+      }
+      const float p = ok_s[lane] != 0.0f ? expf(s * a.scale - lse[i]) : 0.0f;
+      if (a.drop.on)
+        dp = bits1(a.drop, bh, q0 + row, k0 + lane) < a.drop.threshold ? dp * a.drop.inv_keep
+                                                                       : 0.0f;
+      ds_s[warp * kScalarKeys + lane] = round_to<T>(p * (dp - del[i]));  // in k's dtype
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int d = c * 32 + lane;
+        if (d < D) {
+          float x = acc[i][c];
+          for (int j = 0; j < kScalarKeys; ++j)
+            x = fmaf(ds_s[warp * kScalarKeys + j], k_s[j * (D + 1) + d], x);
+          acc[i][c] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  T* out = static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
+#pragma unroll
+  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+    const int row = q0 + warp * kScalarRowsPerWarp + i;
+    if (row >= a.Tq) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = c * 32 + lane;
+      if (d < D) out[row * a.sdq.t + d] = from_f<T>(acc[i][c] * a.scale);
+    }
+  }
+}
+
+__host__ __device__ constexpr int scalar_dkv_smem_floats(int D) {
+  // k_s, v_s [16][D]; q_s, do_s [32][D+1]; pv_s, ds_s [4][32]; lse, del, qok [32]
+  return 2 * kScalarRows * D + 2 * kScalarKeys * (D + 1) + 2 * kScalarWarps * kScalarKeys +
+         3 * kScalarKeys;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
+  constexpr int C = kMaxD / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D;
+  float* k_s = reinterpret_cast<float*>(smem);   // [16][D]: this block's keys
+  float* v_s = k_s + kScalarRows * D;             // [16][D]
+  float* q_s = v_s + kScalarRows * D;             // [32][D + 1]
+  float* do_s = q_s + kScalarKeys * (D + 1);      // [32][D + 1]
+  float* pv_s = do_s + kScalarKeys * (D + 1);     // [4][32]
+  float* ds_s = pv_s + kScalarWarps * kScalarKeys;  // [4][32]
+  float* lse_s = ds_s + kScalarWarps * kScalarKeys;
+  float* del_s = lse_s + kScalarKeys;
+  float* qok_s = del_s + kScalarKeys;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int b = bh / a.H, h = bh - b * a.H;
+  const int c0 = blockIdx.x * kScalarRows;
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const int* maskp = a.mask + (long long)b * a.Tk;
+
+  for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
+    const int r = idx / D, c = idx - r * D;
+    const bool in = c0 + r < a.Tk;
+    k_s[idx] = in ? to_f(kp[(c0 + r) * a.sk.t + c]) : 0.0f;
+    v_s[idx] = in ? to_f(vp[(c0 + r) * a.sv.t + c]) : 0.0f;
+  }
+  bool kok[kScalarRowsPerWarp];
+  float dk[kScalarRowsPerWarp][C], dv[kScalarRowsPerWarp][C];
+#pragma unroll
+  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+    const int key = c0 + warp * kScalarRowsPerWarp + i;
+    kok[i] = key < a.Tk && maskp[key] != 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.0f;
+  }
+
+  for (int q0 = 0; q0 < a.Tq; q0 += kScalarKeys) {
+    __syncthreads();
+    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
+      const int r = idx / D, c = idx - r * D;
+      const bool in = q0 + r < a.Tq;
+      q_s[r * (D + 1) + c] = in ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
+      do_s[r * (D + 1) + c] = in ? to_f(dop[(q0 + r) * a.sdo.t + c]) : 0.0f;
+    }
+    if (tid < kScalarKeys) {
+      const int row = q0 + tid;
+      const bool in = row < a.Tq;
+      lse_s[tid] = in ? a.lse[(long long)bh * a.Tq + row] : 0.0f;
+      del_s[tid] = in ? a.delta[(long long)bh * a.Tq + row] : 0.0f;
+      qok_s[tid] = in ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+      const int kl = warp * kScalarRowsPerWarp + i;  // this key, block-relative
+      if (c0 + kl >= a.Tk) continue;  // warp-uniform
+      float s = 0.0f, dp = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(q_s[lane * (D + 1) + d], k_s[kl * D + d], s);
+        dp = fmaf(do_s[lane * (D + 1) + d], v_s[kl * D + d], dp);
+      }
+      const float p =
+          (kok[i] && qok_s[lane] != 0.0f) ? expf(s * a.scale - lse_s[lane]) : 0.0f;
+      float pv = p;
+      if (a.drop.on) {
+        const bool keep = bits1(a.drop, bh, q0 + lane, c0 + kl) < a.drop.threshold;
+        pv = keep ? p * a.drop.inv_keep : 0.0f;
+        dp = keep ? dp * a.drop.inv_keep : 0.0f;
+      }
+      pv_s[warp * kScalarKeys + lane] = round_to<T>(pv);                     // do's dtype
+      ds_s[warp * kScalarKeys + lane] = round_to<T>(p * (dp - del_s[lane]));  // q's dtype
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int d = c * 32 + lane;
+        if (d < D) {
+          float xv = dv[i][c], xk = dk[i][c];
+          for (int j = 0; j < kScalarKeys; ++j) {
+            xv = fmaf(pv_s[warp * kScalarKeys + j], do_s[j * (D + 1) + d], xv);
+            xk = fmaf(ds_s[warp * kScalarKeys + j], q_s[j * (D + 1) + d], xk);
+          }
+          dv[i][c] = xv;
+          dk[i][c] = xk;
+        }
+      }
+      __syncwarp();
+    }
+  }
+
+  T* dkp = static_cast<T*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
+  T* dvp = static_cast<T*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
+#pragma unroll
+  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+    const int key = c0 + warp * kScalarRowsPerWarp + i;
+    if (key >= a.Tk) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int d = c * 32 + lane;
+      if (d < D) {
+        dkp[key * a.sdk.t + d] = from_f<T>(dk[i][c] * a.scale);
+        dvp[key * a.sdv.t + d] = from_f<T>(dv[i][c]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= kStaticSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D>
+cudaError_t launch_fwd_mma(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
   flash_fwd_bf16_mma<D><<<grid, kMmaThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
+  flash_dq_bf16_mma<D><<<grid, kMmaThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int bytes = dkv_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_dkv_bf16_mma<D>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tk + kMmaRows - 1) / kMmaRows, a.B * a.H);
+  flash_dkv_bf16_mma<D><<<grid, kMmaThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// dispatch on the head width of the tensor-core instances
+template <template <int> class L, typename A>
+cudaError_t by_width(int D, const A& a, cudaStream_t s) {
+  switch (D) {
+    case 16: return L<16>::run(a, s);
+    case 32: return L<32>::run(a, s);
+    case 48: return L<48>::run(a, s);
+    case 64: return L<64>::run(a, s);
+    case 80: return L<80>::run(a, s);
+    case 96: return L<96>::run(a, s);
+    case 112: return L<112>::run(a, s);
+    case 128: return L<128>::run(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+struct FwdMma {
+  static cudaError_t run(const Args& a, cudaStream_t s) { return launch_fwd_mma<D>(a, s); }
+};
+template <int D>
+struct DqMma {
+  static cudaError_t run(const BwdArgs& a, cudaStream_t s) { return launch_dq_mma<D>(a, s); }
+};
+template <int D>
+struct DkvMma {
+  static cudaError_t run(const BwdArgs& a, cudaStream_t s) { return launch_dkv_mma<D>(a, s); }
+};
+
+bool bad_problem(int B, int H, int Tq, int Tk, int D) {
+  return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > kMaxD ||
+         (long long)B * H > 65535;  // gridDim.y
+}
+
+Drop make_drop(int on, unsigned threshold, float inv_keep, unsigned long long seed) {
+  Drop d;
+  d.on = on;
+  d.threshold = threshold;
+  d.inv_keep = inv_keep;
+  d.key0 = (uint32_t)(seed & 0xffffffffull);
+  d.key1 = (uint32_t)(seed >> 32);
+  return d;
+}
+
+void fill_bwd(BwdArgs& a, const void* q, const void* k, const void* v, const int* mask,
+              const float* lse, const float* delta, const void* dout, int B, int H, int Tq,
+              int Tk, int D, float scale, Drop drop) {
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.mask = mask;
+  a.lse = lse;
+  a.delta = delta;
+  a.dout = dout;
+  a.dq = a.dk = a.dv = nullptr;
+  a.B = B;
+  a.H = H;
+  a.Tq = Tq;
+  a.Tk = Tk;
+  a.D = D;
+  a.scale = scale;
+  a.drop = drop;
 }
 
 }  // namespace
@@ -407,7 +1127,7 @@ extern "C" {
 // Query rows per thread block of the mma (1) and FMA (0) paths.
 int flash_fwd_tile_rows(int use_mma) { return use_mma ? kMmaRows : kScalarRows; }
 
-// Widest head the kernel takes.
+// Widest head the kernels take.
 int flash_fwd_max_head_dim() { return kMaxD; }
 
 // One forward call. q, k, v, o, mask and lse are device pointers; strides
@@ -415,12 +1135,14 @@ int flash_fwd_max_head_dim() { return kMaxD; }
 // and o, whose innermost dimension is contiguous. dtype_bf16 selects
 // bf16 (else fp32) for q, k, v and o; lse is fp32 [B, H, Tq]; mask is
 // int32 [B, Tk]. use_mma takes the tensor-core path (bf16, D % 16 == 0,
-// 16-byte aligned pointers, strides multiples of 8). Returns a cudaError_t.
+// 16-byte aligned pointers, strides multiples of 8). dropout != 0 drops
+// the numerator with keep = bits < keep_threshold, scaled by inv_keep,
+// the bits drawn from Philox keyed by seed. Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
               int B, int H, int Tq, int Tk, int D, float scale, int dtype_bf16, int use_mma,
+              int dropout, unsigned keep_threshold, float inv_keep, unsigned long long seed,
               const long long* strides, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > kMaxD) return (int)cudaErrorInvalidValue;
-  if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;  // gridDim.y
+  if (bad_problem(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -434,6 +1156,7 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
   a.Tk = Tk;
   a.D = D;
   a.scale = scale;
+  a.drop = make_drop(dropout, keep_threshold, inv_keep, seed);
   a.sq = Strides{strides[0], strides[1], strides[2]};
   a.sk = Strides{strides[3], strides[4], strides[5]};
   a.sv = Strides{strides[6], strides[7], strides[8]};
@@ -441,23 +1164,89 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_mma) {
     if (!dtype_bf16) return (int)cudaErrorInvalidValue;
-    switch (D) {
-      case 16: return (int)launch_mma<16>(a, s);
-      case 32: return (int)launch_mma<32>(a, s);
-      case 48: return (int)launch_mma<48>(a, s);
-      case 64: return (int)launch_mma<64>(a, s);
-      case 80: return (int)launch_mma<80>(a, s);
-      case 96: return (int)launch_mma<96>(a, s);
-      case 112: return (int)launch_mma<112>(a, s);
-      case 128: return (int)launch_mma<128>(a, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    return (int)by_width<FwdMma>(D, a, s);
   }
   const dim3 grid((Tq + kScalarRows - 1) / kScalarRows, B * H);
   if (dtype_bf16)
     flash_fwd_scalar<__nv_bfloat16><<<grid, kScalarThreads, 0, s>>>(a);
   else
     flash_fwd_scalar<float><<<grid, kScalarThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// dq of one backward call (kernel 6). lse and delta are fp32 [B, H, Tq];
+// strides holds 15 element strides: (batch, head, token) of q, k, v, do
+// and dq. The rest as for flash_fwd.
+int flash_dq(const void* q, const void* k, const void* v, const int* mask, const float* lse,
+             const float* delta, const void* dout, void* dq, int B, int H, int Tq, int Tk, int D,
+             float scale, int dtype_bf16, int use_mma, int dropout, unsigned keep_threshold,
+             float inv_keep, unsigned long long seed, const long long* strides, void* stream) {
+  if (bad_problem(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  fill_bwd(a, q, k, v, mask, lse, delta, dout, B, H, Tq, Tk, D, scale,
+           make_drop(dropout, keep_threshold, inv_keep, seed));
+  a.dq = dq;
+  a.sq = Strides{strides[0], strides[1], strides[2]};
+  a.sk = Strides{strides[3], strides[4], strides[5]};
+  a.sv = Strides{strides[6], strides[7], strides[8]};
+  a.sdo = Strides{strides[9], strides[10], strides[11]};
+  a.sdq = Strides{strides[12], strides[13], strides[14]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!dtype_bf16) return (int)cudaErrorInvalidValue;
+    return (int)by_width<DqMma>(D, a, s);
+  }
+  const int bytes = scalar_dq_smem_floats(D) * 4;
+  const dim3 grid((Tq + kScalarRows - 1) / kScalarRows, B * H);
+  cudaError_t err;
+  if (dtype_bf16) {
+    err = allow_smem(flash_dq_scalar<__nv_bfloat16>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_dq_scalar<__nv_bfloat16><<<grid, kScalarThreads, bytes, s>>>(a);
+  } else {
+    err = allow_smem(flash_dq_scalar<float>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_dq_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dk and dv of one backward call (kernel 7). strides holds 18 element
+// strides: (batch, head, token) of q, k, v, do, dk and dv.
+int flash_dkv(const void* q, const void* k, const void* v, const int* mask, const float* lse,
+              const float* delta, const void* dout, void* dk, void* dv, int B, int H, int Tq,
+              int Tk, int D, float scale, int dtype_bf16, int use_mma, int dropout,
+              unsigned keep_threshold, float inv_keep, unsigned long long seed,
+              const long long* strides, void* stream) {
+  if (bad_problem(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  fill_bwd(a, q, k, v, mask, lse, delta, dout, B, H, Tq, Tk, D, scale,
+           make_drop(dropout, keep_threshold, inv_keep, seed));
+  a.dk = dk;
+  a.dv = dv;
+  a.sq = Strides{strides[0], strides[1], strides[2]};
+  a.sk = Strides{strides[3], strides[4], strides[5]};
+  a.sv = Strides{strides[6], strides[7], strides[8]};
+  a.sdo = Strides{strides[9], strides[10], strides[11]};
+  a.sdk = Strides{strides[12], strides[13], strides[14]};
+  a.sdv = Strides{strides[15], strides[16], strides[17]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!dtype_bf16) return (int)cudaErrorInvalidValue;
+    return (int)by_width<DkvMma>(D, a, s);
+  }
+  const int bytes = scalar_dkv_smem_floats(D) * 4;
+  const dim3 grid((Tk + kScalarRows - 1) / kScalarRows, B * H);
+  cudaError_t err;
+  if (dtype_bf16) {
+    err = allow_smem(flash_dkv_scalar<__nv_bfloat16>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_dkv_scalar<__nv_bfloat16><<<grid, kScalarThreads, bytes, s>>>(a);
+  } else {
+    err = allow_smem(flash_dkv_scalar<float>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_dkv_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,21 @@
 """Text (+ graph) batches for the combined transformer models (the port's
-copy of the reference's `deepdfa_tpu/data/text.py`, serving half).
+copy of the reference's `deepdfa_tpu/data/text.py`).
 
 The collater is the index-join bridge with static shapes: text row i
 aligns with graph slot i of one packed `GraphBatch`; a row with no graph,
 or whose graph does not fit the batch's node/edge budgets, gets
 `has_graph = False` and a 1-node placeholder graph instead of being
 dropped. A bucketed batch pads every row to its bucket edge T and holds
-`rows_for_bucket(T, token_budget)` rows. `collate`, `token_lengths`,
-`rows_for_bucket` and `_fit_width` equal the reference's array for array
-(tests/test_torch_combined.py). The training planner
-(`plan_bucketed_batches`) comes with the combined-training slice.
+`rows_for_bucket(T, token_budget)` rows. Training plans its batches
+with `plan_bucketed_batches` (each row to the smallest edge that holds
+its real length, a bucket flushed when full, partial buckets at the end
+in ascending order) and materialises them with `collate_plan`. Every
+function here equals the reference's array for array
+(tests/test_torch_combined.py, tests/test_torch_combined_train.py),
+for one logical shard: the reference's `collate_shards` stacks several
+along a leading axis, which the one-card port has no use for, so
+`collate_plan` takes plans of one shard and `TextBatch` has no leading
+shard axis.
 
 A `TextBatch` holds numpy arrays from `collate`; `to(device)` gives the
 same batch as torch tensors.
@@ -18,7 +24,7 @@ same batch as torch tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Sequence
+from typing import Any, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -132,3 +138,146 @@ def _fit_width(row: np.ndarray, seq_len: int, pad_id: int) -> np.ndarray:
     out = np.full((seq_len,), pad_id, np.int32)
     out[: row.shape[0]] = row
     return out
+
+
+def batch_token_counts(input_ids, row_mask, pad_id: int) -> tuple[int, int, int]:
+    """(real, padded, rows) of one batch: non-pad tokens in valid rows,
+    every token slot of the static shape (padding rows are device work
+    too), and valid rows."""
+    ids = np.asarray(input_ids)
+    mask = np.asarray(row_mask, bool)
+    real = int(((ids != pad_id) & mask[..., None]).sum())
+    return real, int(ids.size), int(mask.sum())
+
+
+def lengths_for(token_ids_by_id: Mapping[int, np.ndarray], example_ids: Sequence[int],
+                pad_id: int) -> list[int]:
+    """Real token length per selected example, in selection order (one
+    vectorised `token_lengths` when the rows share a width)."""
+    if not len(example_ids):
+        return []
+    rows = [np.asarray(token_ids_by_id[i]) for i in example_ids]
+    if len({r.shape[0] for r in rows}) == 1:
+        return [int(n) for n in token_lengths(np.stack(rows), pad_id)]
+    return [int(token_lengths(r[None], pad_id)[0]) for r in rows]
+
+
+@dataclasses.dataclass(frozen=True)
+class TextBatchPlan:
+    """One bucketed batch: which examples, padded to which bucket edge,
+    at which (token-budget-derived) row count."""
+
+    example_ids: tuple[int, ...]
+    seq_len: int
+    rows_per_shard: int
+    num_shards: int
+    node_budget: int
+    edge_budget: int
+
+
+def plan_bucketed_batches(
+    lengths: Sequence[int] | np.ndarray,
+    example_ids: Sequence[int],
+    buckets: Sequence[int],
+    token_budget: int,
+    num_shards: int,
+    node_budget: int,
+    edge_budget: int,
+    stats: dict | None = None,
+) -> Iterator[TextBatchPlan]:
+    """Assign rows to length buckets and emit token-budget-sized plans.
+
+    Each row goes to the smallest bucket edge >= its real length, in
+    arrival order; a bucket flushes when it holds `rows_for_bucket`
+    rows, and partial buckets flush in ascending order at the end. A row
+    longer than the largest edge raises. `stats` receives "batches",
+    "rows", "real_tokens", "padded_tokens" (capacity x edge, summed) and
+    "by_bucket" ({edge: rows}), final once the generator is exhausted."""
+    buckets = tuple(int(b) for b in buckets)
+    if not buckets or list(buckets) != sorted(set(buckets)):
+        raise ValueError(f"seq_buckets must be ascending unique edges, got {buckets}")
+    if buckets[0] < 2:
+        raise ValueError(f"bucket edge {buckets[0]} < 2 is meaningless")
+    lengths = np.asarray(lengths, np.int64)
+    if len(lengths) != len(example_ids):
+        raise ValueError(f"{len(lengths)} lengths vs {len(example_ids)} example_ids")
+    if stats is None:
+        stats = {}
+    stats.update(batches=0, rows=0, real_tokens=0, padded_tokens=0,
+                 by_bucket={b: 0 for b in buckets})
+    capacity = {b: rows_for_bucket(b, token_budget, num_shards) * num_shards for b in buckets}
+    pending: dict[int, list[int]] = {b: [] for b in buckets}
+
+    def emit(edge: int) -> TextBatchPlan:
+        ids = pending[edge]
+        pending[edge] = []
+        stats["batches"] += 1
+        stats["rows"] += len(ids)
+        stats["by_bucket"][edge] += len(ids)
+        stats["padded_tokens"] += capacity[edge] * edge
+        return TextBatchPlan(tuple(ids), edge, capacity[edge] // num_shards, num_shards,
+                             node_budget, edge_budget)
+
+    edges = np.asarray(buckets, np.int64)
+    for eid, ln in zip(example_ids, lengths):
+        ln = int(ln)
+        if ln > buckets[-1]:
+            raise ValueError(
+                f"example {eid}: real token length {ln} exceeds the largest bucket "
+                f"edge {buckets[-1]} (add a bucket >= the tokenizer max_length, "
+                f"data.seq_buckets)"
+            )
+        edge = int(edges[np.searchsorted(edges, max(ln, 1))])
+        pending[edge].append(int(eid))
+        stats["real_tokens"] += ln
+        if len(pending[edge]) == capacity[edge]:
+            yield emit(edge)
+    for edge in buckets:
+        if pending[edge]:
+            yield emit(edge)
+
+
+def collate_plan(
+    plan: TextBatchPlan,
+    token_ids_by_id: Mapping[int, np.ndarray],
+    labels_by_id: Mapping[int, int],
+    graphs_by_id: Mapping[int, GraphSpec],
+    pad_id: int = PAD_ID_BY_FAMILY["roberta"],
+) -> TextBatch:
+    """Materialise one plan of one shard through `collate`: rows cut (only
+    trailing padding: the planner guarantees the fit) or padded to the
+    bucket edge."""
+    if plan.num_shards != 1:
+        raise NotImplementedError(
+            f"a plan of {plan.num_shards} shards: the port collates one logical shard "
+            "(data parallelism comes with the multi-device slice, ROADMAP queue A)"
+        )
+    ids = plan.example_ids
+    if ids:
+        tok = np.stack([_fit_width(token_ids_by_id[i], plan.seq_len, pad_id) for i in ids])
+    else:
+        tok = np.zeros((0, plan.seq_len), np.int32)
+    return collate(tok, [int(labels_by_id[i]) for i in ids], list(ids), graphs_by_id,
+                   plan.rows_per_shard, plan.node_budget, plan.edge_budget, pad_id=pad_id)
+
+
+def bucketed_collate_batches(
+    token_ids_by_id: Mapping[int, np.ndarray],
+    labels_by_id: Mapping[int, int],
+    example_ids: Sequence[int],
+    graphs_by_id: Mapping[int, GraphSpec],
+    buckets: Sequence[int],
+    token_budget: int,
+    num_shards: int,
+    node_budget: int,
+    edge_budget: int,
+    pad_id: int = PAD_ID_BY_FAMILY["roberta"],
+    lengths: Sequence[int] | None = None,
+    stats: dict | None = None,
+) -> Iterable[TextBatch]:
+    """Plan and collate in one pass."""
+    if lengths is None:
+        lengths = lengths_for(token_ids_by_id, example_ids, pad_id)
+    for plan in plan_bucketed_batches(lengths, example_ids, buckets, token_budget, num_shards,
+                                      node_budget, edge_budget, stats=stats):
+        yield collate_plan(plan, token_ids_by_id, labels_by_id, graphs_by_id, pad_id)

@@ -1,6 +1,5 @@
 """Combined transformer + graph classifier, the DeepDFA+LineVul family
-(the port of the reference's `deepdfa_tpu/models/combined.py`,
-inference).
+(the port of the reference's `deepdfa_tpu/models/combined.py`).
 
     input_ids --RobertaEncoder--> hidden [B, T, D] --> [CLS] hidden[:, 0]
     graphs ----DeepDFA (encoder mode)--> pooled [B, 8*graph_hidden_dim],
@@ -14,9 +13,15 @@ dtype before the concatenation, and the head, whose parameters are
 fp32, promotes the row to fp32. The graph encoder is the port's DeepDFA,
 whose GGNN steps are the step kernel on a CUDA device.
 
+Dropout, as in the reference, runs where `forward` is given a
+`dropout_key` (a 64-bit seed): fold (0,) seeds the encoder, fold (1,)
+the head, whose two sites (before the dense layer, after the tanh) take
+(1,) and (2,) of it, at `head_dropout` (`head_logits`, `:141-151`).
+Without a key the function is the same in either module mode.
+
 Not ported (raise `NotImplementedError`): the MoE adapter
 (`moe_experts > 0`), the pipeline, expert and sequence/tensor-parallel
-paths, and dropout.
+paths.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
 from deepdfa_tpu_torch.models.deepdfa import DeepDFA
 from deepdfa_tpu_torch.models.transformer import RobertaEncoder, TransformerConfig, _normal_
+from deepdfa_tpu_torch.nn.dropout import dropout, fold_seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,19 +98,17 @@ class CombinedModel(nn.Module):
         ep_axis: str | None = None,
     ) -> torch.Tensor:
         """[B, T] ids (+ a GraphBatch of B graphs aligned with the rows)
-        -> logits [B, num_classes] in fp32."""
+        -> logits [B, num_classes] in fp32; dropout with a `dropout_key`."""
         if pp_axis is not None or ep_axis is not None:
             raise NotImplementedError(
                 "pp_axis / ep_axis: pipeline and expert parallelism come with the "
                 "multi-device slice of the port (ROADMAP queue A, item 9)"
             )
-        if dropout_key is not None or (self.training and self.cfg.head_dropout > 0.0):
-            raise NotImplementedError(
-                "dropout: this slice of the port serves the combined model; dropout "
-                "comes with the combined-training slice (call .eval(), pass no dropout_key)"
-            )
+        k_enc = k_head = None
+        if dropout_key is not None:
+            k_enc, k_head = fold_seed(dropout_key, 0), fold_seed(dropout_key, 1)
         hidden = self.encoder.encode(
-            input_ids, dropout_key=dropout_key, sp_axis=sp_axis, tp_axis=tp_axis,
+            input_ids, dropout_key=k_enc, sp_axis=sp_axis, tp_axis=tp_axis,
             position_offset=position_offset,
         )
         x = hidden[:, 0, :]
@@ -118,5 +122,13 @@ class CombinedModel(nn.Module):
             if has_graph is not None:
                 graph_vec = graph_vec * has_graph[:, None].to(graph_vec.dtype)
             x = torch.cat([x, graph_vec.to(x.dtype)], dim=-1)
+        return self.head_logits(x, k_head)
+
+    def head_logits(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        """RobertaClassificationHead: dropout -> dense -> tanh -> dropout
+        -> out; x [B, in_dim] in the activation dtype, logits in fp32."""
+        rate = self.cfg.head_dropout
+        x = dropout(x, rate, None if seed is None else fold_seed(seed, 1))
         x = torch.tanh(self.head_dense(x.float()))
+        x = dropout(x, rate, None if seed is None else fold_seed(seed, 2))
         return self.head_out(x)

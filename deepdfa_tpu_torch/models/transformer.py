@@ -1,5 +1,5 @@
 """RoBERTa-family transformer encoder (the port of the reference's
-`deepdfa_tpu/models/transformer.py`, inference).
+`deepdfa_tpu/models/transformer.py`).
 
 HF-roberta numerics as in the reference: learned positions with
 RoBERTa's pad-offset ids (`cumsum(mask) * mask + pad_id`), post-LN
@@ -18,13 +18,24 @@ kernel's [B, T, H, Dh] output feeds the output projection as it lies.
 stacked parameter tree onto this module.
 
 Attention follows `attn_impl` (`nn/flash_attention.py:resolve_impl`):
-on a CUDA tensor "auto" and "flash" launch the flash kernel (kernel 5)
-and raise where it cannot tile the shape, and "xla" is the plain
-PyTorch version, asked for by name; on the CPU every route is the
-plain version. Sequence and tensor parallelism (`sp_axis`, `tp_axis`,
-`sp_variant="ulysses"`) and dropout (a `dropout_key`, or a module in
-training mode with `dropout_rate > 0`) raise `NotImplementedError`:
-this slice serves.
+on a CUDA tensor "auto" and "flash" launch the flash kernels (kernel 5
+forward, kernels 6 and 7 backward, through `FlashAttention`) and raise
+where they cannot tile the shape, and "xla" is the plain PyTorch
+version, asked for by name; on the CPU every route is the plain version.
+
+Dropout follows the reference: it runs where `encode` is given a
+`dropout_key`, whatever the module's mode. The key is a 64-bit seed
+(`nn/dropout.py`): the embedding LayerNorm output, each layer's
+attention output and FFN output are dropped by `dropout` (a generator
+built from the site's seed on each call) and the attention probs inside
+the flash kernel (Philox bits from the layer's seed), at
+`dropout_rate`. With `remat` (the reference's default) and gradients
+on, each layer runs under `torch.utils.checkpoint` (non-reentrant), as
+the reference's `remat_wrap` puts it under `jax.checkpoint`; the
+recomputation draws the same masks because every mask is a function of
+its seed. `remat_policy="attn_saved"` raises `NotImplementedError`, as
+do sequence and tensor parallelism (`sp_axis`, `tp_axis`,
+`sp_variant="ulysses"`).
 """
 
 from __future__ import annotations
@@ -34,9 +45,16 @@ import dataclasses
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepdfa_tpu_torch.core.config import PAD_ID_BY_FAMILY
-from deepdfa_tpu_torch.nn.flash_attention import attention_plain, flash_attention, resolve_impl
+from deepdfa_tpu_torch.nn.dropout import dropout, fold_seed
+from deepdfa_tpu_torch.nn.flash_attention import (
+    attention_plain,
+    dropout_bits,
+    flash_attention,
+    resolve_impl,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -57,15 +75,17 @@ class TransformerConfig:
     dropout_rate: float = 0.1
     dtype: str = "float32"  # activation dtype: float32 | bfloat16
     sp_variant: str = "ring"
-    remat: bool = True  # training only; read past at inference
+    remat: bool = True  # checkpoint each layer when gradients are on
     attn_impl: str = "auto"  # auto | xla | flash
-    remat_policy: str = "full"  # training only; read past at inference
+    remat_policy: str = "full"  # full | attn_saved (not ported)
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"unknown activation dtype {self.dtype!r} (float32 | bfloat16)")
         if self.attn_impl not in ("auto", "xla", "flash"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.remat_policy not in ("full", "attn_saved"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.sp_variant not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_variant {self.sp_variant!r}")
         if self.sp_variant != "ring":
@@ -130,7 +150,8 @@ class Embeddings(nn.Module):
         nn.init.ones_(self.ln_scale)
         nn.init.zeros_(self.ln_bias)
 
-    def forward(self, input_ids: torch.Tensor, position_offset: int = 0) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, position_offset: int = 0,
+                seed: int | None = None) -> torch.Tensor:
         cfg = self.cfg
         top = input_ids.shape[1] + position_offset + cfg.pad_token_id
         if top > cfg.max_position_embeddings - 1:
@@ -145,6 +166,7 @@ class Embeddings(nn.Module):
         pos = (torch.cumsum(mask, dim=-1) + position_offset) * mask + cfg.pad_token_id
         x = F.embedding(input_ids, self.word) + F.embedding(pos, self.position) + self.token_type[0]
         x = _layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
+        x = dropout(x, cfg.dropout_rate, seed)  # fp32, before the cast, as the reference
         return x.to(cfg.torch_dtype)
 
 
@@ -176,9 +198,16 @@ class EncoderLayer(nn.Module):
         nn.init.ones_(self.ln1_scale)
         nn.init.ones_(self.ln2_scale)
 
-    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor) -> torch.Tensor:
-        """x [B, T, D] in the activation dtype; attn_mask [B, T] bool."""
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
+        """x [B, T, D] in the activation dtype; attn_mask [B, T] bool;
+        `seed` (the layer's dropout seed) turns dropout on. Its three
+        sites take the reference's split of the layer key: 1 the
+        attention output, 2 the FFN output, 3 the attention probs."""
         cfg = self.cfg
+        rate = cfg.dropout_rate if seed is not None else 0.0
+        s_out, s_ffn, s_att = ((None,) * 3 if seed is None
+                               else (fold_seed(seed, i) for i in (1, 2, 3)))
         dt = x.dtype
         p = {name: w.to(dt) for name, w in self.named_parameters(recurse=False)}
         B, T, D = x.shape
@@ -186,13 +215,16 @@ class EncoderLayer(nn.Module):
         qkv = (torch.matmul(x, p["wqkv"]) + p["bqkv"]).view(B, T, 3, H, Dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, Dh]
         if resolve_impl(cfg.attn_impl, T, Dh, cuda=x.is_cuda) == "flash":
-            ctx = flash_attention(q, k, v, attn_mask)
+            ctx = flash_attention(q, k, v, attn_mask, dropout_rate=rate, seed=s_att)
         else:
-            ctx, _ = attention_plain(q, k, v, attn_mask)
+            bits = dropout_bits(s_att, B, H, T, T, x.device) if rate > 0.0 else None
+            ctx, _ = attention_plain(q, k, v, attn_mask, dropout_rate=rate, bits=bits)
         out = torch.matmul(ctx.transpose(1, 2).reshape(B, T, H * Dh), p["wo"]) + p["bo"]
+        out = dropout(out, rate, s_out)
         x = _layer_norm(x + out, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
         h = F.gelu(torch.matmul(x, p["w1"]) + p["b1"])  # erf GELU
         h = torch.matmul(h, p["w2"]) + p["b2"]
+        h = dropout(h, rate, s_ffn)
         return _layer_norm(x + h, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
 
 
@@ -221,9 +253,11 @@ class RobertaEncoder(nn.Module):
             _normal_(self.pooler_w, generator)
             nn.init.zeros_(self.pooler_b)
 
-    def embed(self, input_ids: torch.Tensor, position_offset: int = 0) -> torch.Tensor:
-        """[B, T] ids -> [B, T, D] embeddings in the activation dtype."""
-        return self.embeddings(input_ids, position_offset)
+    def embed(self, input_ids: torch.Tensor, position_offset: int = 0,
+              seed: int | None = None) -> torch.Tensor:
+        """[B, T] ids -> [B, T, D] embeddings in the activation dtype
+        (dropped with `seed` when one is given)."""
+        return self.embeddings(input_ids, position_offset, seed)
 
     def encode(
         self,
@@ -235,22 +269,33 @@ class RobertaEncoder(nn.Module):
         tp_axis: str | None = None,
         position_offset: int = 0,
     ) -> torch.Tensor:
-        """[B, T] int ids -> [B, T, D] hidden states."""
+        """[B, T] int ids -> [B, T, D] hidden states. `dropout_key` (a
+        64-bit seed) turns dropout on: the embedding takes seed (0,),
+        layer i seed (1, i) folded from it (`nn/dropout.py:fold_seed`)."""
         if sp_axis is not None or tp_axis is not None:
             raise NotImplementedError(
                 "sp_axis / tp_axis: sequence and tensor parallelism come with the "
                 "multi-device slice of the port (ROADMAP queue A, item 9)"
             )
-        if dropout_key is not None or (self.training and self.cfg.dropout_rate > 0.0):
+        cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy == "attn_saved":
             raise NotImplementedError(
-                "dropout: this slice of the port serves the encoder; dropout comes "
-                "with the combined-training slice (call .eval(), pass no dropout_key)"
+                "remat_policy='attn_saved': saving the attention output across the "
+                "layer checkpoint is not ported yet (ROADMAP queue A, item 4); use 'full'"
             )
         if attn_mask is None:
-            attn_mask = input_ids != self.cfg.pad_token_id
-        x = self.embed(input_ids, position_offset)
-        for layer in self.layers:
-            x = layer(x, attn_mask)
+            attn_mask = input_ids != cfg.pad_token_id
+        seeded = dropout_key is not None
+        x = self.embed(input_ids, position_offset, fold_seed(dropout_key, 0) if seeded else None)
+        for i, layer in enumerate(self.layers):
+            seed = fold_seed(dropout_key, 1, i) if seeded else None
+            if remat:
+                # every mask is a function of its seed: nothing to restore
+                x = checkpoint(layer, x, attn_mask, seed, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, attn_mask, seed)
         return x
 
     forward = encode

@@ -1,31 +1,50 @@
-"""Flash attention on Hopper, forward: the wrapper of
-`csrc/flash_attention.cu`, its plain PyTorch version, and the dispatch
+"""Flash attention on Hopper: the wrappers of `csrc/flash_attention.cu`
+(forward with in-kernel dropout, backward dq and dk/dv), their plain
+PyTorch versions, the `FlashAttention` autograd Function and the dispatch
 helpers of the reference's `deepdfa_tpu/nn/flash_attention.py`.
 
 Kernel 5 of the port replaces the TPU kernel `_fwd_kernel` (launched by
-`_fwd_call`). For q [B, H, Tq, D] and k, v [B, H, Tk, D] in fp32 or bf16
-and a kv mask [B, Tk] (False = padding) it returns
+`_fwd_call`), kernels 6 and 7 replace `_dq_kernel` and `_dkv_kernel`
+(the two pallas_calls of `_bwd_call`). For q [B, H, Tq, D] and k, v
+[B, H, Tk, D] in fp32 or bf16 and a kv mask [B, Tk] (False = padding)
+the forward returns
 
-    o   [B, H, Tq, D] in q's dtype: softmax(q k^T * scale) v over the
-        real keys, with p cast to v's dtype before the p.v product;
+    o   [B, H, Tq, D] in q's dtype: dropout(softmax(q k^T * scale)) v
+        over the real keys, with p cast to v's dtype before the p.v
+        product; dropout scales the numerator only, the softmax
+        denominator stays undropped (`_fwd_kernel`, `:199-208`);
     lse [B, H, Tq, 1] fp32: the log-sum-exp of the masked scores.
 
 Scores of padded keys are -1e30 and their probabilities 0; the softmax
 sum is floored at FLT_MIN, so a query whose keys are all padding (the
-filler rows of a partly full batch) gets o = 0 and a finite lse.
+filler rows of a partly full batch) gets o = 0 and a finite lse; its
+gradients are 0.
 
-`flash_fwd` launches the CUDA kernel for tensors on a CUDA device and
-runs `attention_plain` for tensors on the CPU; there is no other route
-and no fallback from one to the other. `LAUNCHES` counts kernel
-launches. Dropout, an additive bias and the causal mask (the reference's
-training and T5 options) are not ported: `flash_attention` raises
-`NotImplementedError` for them.
+Dropout bits. `dropout_bits(seed, B, H, Tq, Tk)` is a pure function of
+(seed, b, h, row, col): Philox4x32-10 keyed by the 64-bit seed, counter
+(col // 4, row, b*H + h, 0), whose four words are columns 4c .. 4c+3.
+`keep = bits < keep_threshold(rate)` (the reference's
+`_Params.keep_threshold`). The CUDA kernels compute the same bits in
+registers, so the forward, dq, dk/dv and the plain versions draw one
+mask whatever their tiling. These are not the reference's bits (it seeds
+the TPU PRNG per 512 x 512 block); parity with the reference goes
+through `debug_bits`, explicit [B, H, Tq, Tk] uint32 bits, as its own
+tests do. `debug_bits` is for CPU tensors only.
 
-Bound on the card. At the flagship call (B 16, H 12, T 512, D 64, bf16)
-the kernel moves q, k, v and o once, ~50 MB (0.015 ms at 3.35 TB/s),
-for 12.9 GFLOP (0.013 ms at 989 TFLOP/s): bytes bind. The kernel
-streams k/v through shared memory in 64-key tiles with the online
-softmax, so the T x T scores never reach device memory; the source's
+`flash_fwd`, `flash_dq`, `flash_dkv` and `flash_bwd` launch the CUDA
+kernels for tensors on a CUDA device and run the plain versions for
+tensors on the CPU; there is no other route and no fallback from one to
+the other. `LAUNCHES`, `DQ_LAUNCHES` and `DKV_LAUNCHES` count kernel
+launches. An additive bias and the causal mask (the reference's T5
+options) are not ported: `flash_attention` raises `NotImplementedError`
+for them.
+
+Bound on the card, at the flagship training call (B 16, H 12, T 512,
+D 64, bf16): the forward moves q, k, v and o once, ~50 MB (0.015 ms at
+3.35 TB/s), for 12.9 GFLOP (0.013 ms at 989 TFLOP/s); dq does 3
+products (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8
+GFLOP, 0.026 ms) on ~76 MB (0.023 ms). The kernels stream tiles through
+shared memory, so no T x T matrix reaches device memory; the source's
 header has the rest of the design.
 """
 
@@ -40,23 +59,122 @@ from deepdfa_tpu_torch.nn import cuda_build
 from deepdfa_tpu_torch.nn.ggnn_kernel import _on_cuda, _stream
 
 #: kernel launches since the process started (or since a caller reset
-#: them), counted where the kernel is launched and nowhere else
+#: them), counted where each kernel is launched and nowhere else
 LAUNCHES = 0
+DQ_LAUNCHES = 0
+DKV_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 #: the reference's additive mask value and softmax-sum floor
 NEG_BIG = -1e30
 TINY = torch.finfo(torch.float32).tiny
-#: widest head the kernel takes (csrc/flash_attention.cu: kMaxD)
+#: widest head the kernels take (csrc/flash_attention.cu: kMaxD)
 MAX_HEAD_DIM = 128
 
+# ---------------------------------------------------------------------------
+# Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+# 3", SC 2011) on int64 tensors holding uint32 values
 
-def attention_plain(q, k, v, kv_mask, scale: float | None = None):
-    """The kernel's function in plain PyTorch: (o, lse).
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of the 64-bit product a * b, for a < 2^32
+    and b int64 in [0, 2^32), without overflowing int64: b is split
+    into 16-bit halves, each partial product < 2^48."""
+    x = (b >> 16) * a
+    y = (b & 0xFFFF) * a
+    hi = (x + (y >> 16)) >> 16
+    lo = (((x & 0xFFFF) << 16) + y) & _MASK32
+    return hi, lo
+
+
+def philox4x32_10(counter, key) -> tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of `counter` (four uint32 words: int64 tensors that
+    broadcast together, or ints) under `key` (two uint32 words): the four
+    output words as int64 tensors in [0, 2^32)."""
+    c = [torch.as_tensor(w, dtype=torch.int64) & _MASK32 for w in counter]
+    k0, k1 = (int(w) & _MASK32 for w in key)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+    return tuple(c)
+
+
+def seed_words(seed: int) -> tuple[int, int]:
+    """The Philox key (lo, hi) of a 64-bit seed."""
+    seed = int(seed)
+    if not 0 <= seed < 2**64:
+        raise ValueError(f"dropout seed {seed} is not a 64-bit unsigned integer")
+    return seed & _MASK32, seed >> 32
+
+
+def dropout_bits(seed: int, B: int, H: int, Tq: int, Tk: int,
+                 device: str | torch.device = "cpu") -> torch.Tensor:
+    """[B, H, Tq, Tk] int64 bits in [0, 2^32) of element (b, h, row, col):
+    word col % 4 of Philox4x32-10 at counter (col // 4, row, b*H + h, 0)
+    under the seed's key. What the CUDA kernels draw in registers."""
+    groups = (Tk + 3) // 4
+    dev = torch.device(device)
+    bh = torch.arange(B * H, dtype=torch.int64, device=dev).view(B, H, 1, 1)
+    row = torch.arange(Tq, dtype=torch.int64, device=dev).view(1, 1, Tq, 1)
+    col = torch.arange(groups, dtype=torch.int64, device=dev).view(1, 1, 1, groups)
+    words = philox4x32_10((col, row, bh, 0), seed_words(seed))
+    shape = (B, H, Tq, groups)
+    bits = torch.stack([w.expand(shape) for w in words], dim=-1)
+    return bits.reshape(B, H, Tq, 4 * groups)[..., :Tk]
+
+
+def keep_threshold(dropout_rate: float) -> int:
+    """uint32 threshold: keep = bits < threshold, P(keep) = 1 - rate."""
+    return min(int(round((1.0 - dropout_rate) * 2.0**32)), 2**32 - 1)
+
+
+def _check_rate(dropout_rate: float) -> float:
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate {rate} must be in [0, 1)")
+    return rate
+
+
+def _keep(bits: torch.Tensor, dropout_rate: float) -> torch.Tensor:
+    return bits.to(torch.int64) < keep_threshold(dropout_rate)
+
+
+def _plain_bits(q, k, dropout_rate, seed, debug_bits):
+    """The bits a plain version drops with: debug_bits, else the seed's
+    Philox bits; None without dropout."""
+    if dropout_rate <= 0.0:
+        return None
+    B, H, Tq, _ = q.shape
+    Tk = k.shape[2]
+    if debug_bits is not None:
+        if tuple(debug_bits.shape) != (B, H, Tq, Tk):
+            raise ValueError(f"debug_bits {tuple(debug_bits.shape)} must be [B, H, Tq, Tk] = "
+                             f"{(B, H, Tq, Tk)}")
+        return debug_bits
+    if seed is None:
+        raise ValueError("flash attention: dropout needs a seed (or debug_bits)")
+    return dropout_bits(seed, B, H, Tq, Tk, q.device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+def attention_plain(q, k, v, kv_mask, scale: float | None = None,
+                    dropout_rate: float = 0.0, bits: torch.Tensor | None = None):
+    """Kernel 5's function in plain PyTorch: (o, lse).
 
     The reference's one-block form (`block_k = Tk`): scores and sums in
-    fp32, p cast to v's dtype before p.v with an fp32 sum, o cast back
-    to q's dtype."""
+    fp32, p (dropped and scaled by 1/keep_prob where `bits` say so, the
+    denominator undropped) cast to v's dtype before p.v with an fp32
+    sum, o cast back to q's dtype."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
     ok = kv_mask.to(torch.bool)[:, None, None, :]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -64,8 +182,43 @@ def attention_plain(q, k, v, kv_mask, scale: float | None = None):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(TINY)
-    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    pv = p
+    if _check_rate(dropout_rate) > 0.0:
+        if bits is None:
+            raise ValueError("attention_plain: dropout needs its bits")
+        pv = torch.where(_keep(bits, dropout_rate), p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    acc = torch.matmul(pv.to(v.dtype).float(), v.float())
     return (acc / l_safe).to(q.dtype), m + torch.log(l_safe)
+
+
+def attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale: float | None = None,
+                        dropout_rate: float = 0.0, bits: torch.Tensor | None = None):
+    """Kernels 6 and 7 in plain PyTorch: (dq, dk, dv) in q's dtype.
+
+    The math of the reference's `_dq_kernel` and `_dkv_kernel` with its
+    rounding points: p = exp(s - lse) masked first; dp = do v^T, dropped
+    and scaled like p; ds = p (dp - delta) with delta = rowsum(do o) in
+    fp32; ds cast to k's (q's) dtype before ds.k (ds^T.q), the dropped p
+    cast to do's dtype before p^T.do; dq and dk scaled at the end."""
+    scale = float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
+    ok = kv_mask.to(torch.bool)[:, None, None, :]
+    s = torch.where(ok, torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, NEG_BIG)
+    p = torch.where(ok, torch.exp(s - lse), 0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    pv = p
+    if _check_rate(dropout_rate) > 0.0:
+        if bits is None:
+            raise ValueError("attention_bwd_plain: dropout needs its bits")
+        keep = _keep(bits, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pv = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(pv.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +235,13 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = cuda_build.load("flash_attention")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.flash_fwd.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i, i, p, p]
-            lib.flash_fwd.restype = i
+            p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+            drop = [i, u, f, ctypes.c_ulonglong]  # on, threshold, 1/keep_prob, seed
+            lib.flash_fwd.argtypes = [p] * 6 + [i] * 5 + [f, i, i] + drop + [p, p]
+            lib.flash_dq.argtypes = [p] * 8 + [i] * 5 + [f, i, i] + drop + [p, p]
+            lib.flash_dkv.argtypes = [p] * 9 + [i] * 5 + [f, i, i] + drop + [p, p]
+            for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+                fn.restype = i
             lib.flash_fwd_error_string.argtypes = [i]
             lib.flash_fwd_error_string.restype = ctypes.c_char_p
             lib.flash_fwd_max_head_dim.argtypes = []
@@ -98,30 +255,103 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
-def _check_shapes(q, k, v, kv_mask) -> tuple[int, int, int, int, int]:
+def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd") -> tuple[int, int, int, int, int]:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_fwd: q, k and v must be [B, H, T, D]")
+        raise ValueError(f"{what}: q, k and v must be [B, H, T, D]")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if tuple(k.shape) != (B, H, Tk, D) or tuple(v.shape) != (B, H, Tk, D):
         raise ValueError(
-            f"flash_fwd: k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+            f"{what}: k {tuple(k.shape)} and v {tuple(v.shape)} must be "
             f"[B={B}, H={H}, Tk, D={D}]"
         )
     if tuple(kv_mask.shape) != (B, Tk):
-        raise ValueError(f"flash_fwd: kv_mask {tuple(kv_mask.shape)} must be [B={B}, Tk={Tk}]")
+        raise ValueError(f"{what}: kv_mask {tuple(kv_mask.shape)} must be [B={B}, Tk={Tk}]")
     if min(B, H, Tq, Tk, D) <= 0:
-        raise ValueError(f"flash_fwd: empty problem {tuple(q.shape)} x Tk={Tk}")
+        raise ValueError(f"{what}: empty problem {tuple(q.shape)} x Tk={Tk}")
     return B, H, Tq, Tk, D
 
 
-def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None):
+def _tensor_core(x) -> bool:
+    """The tensor-core instance takes this problem: bf16, D % 16 == 0."""
+    return x.dtype == torch.bfloat16 and x.shape[-1] % 16 == 0
+
+
+def _aligned(x) -> bool:
+    return x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3])
+
+
+def _check_card(what: str, q, k, v, kv_mask, extra=()) -> None:
+    """What every kernel of the module takes on the card, or raise."""
+    for name, x in (("k", k), ("v", v), ("kv_mask", kv_mask), *extra):
+        if x.device != q.device:
+            raise ValueError(f"{what}: {name} is on {x.device}, not {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: q is {q.dtype}; the kernel takes float32 or bfloat16")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v must share a dtype ({q.dtype}, {k.dtype}, {v.dtype})")
+    if kv_mask.dtype not in (torch.bool, torch.int32):
+        raise TypeError(f"{what}: kv_mask is {kv_mask.dtype}; needs bool or int32")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1 or min(x.stride()) < 0:
+            raise ValueError(f"{what}: {name}'s last dimension must be contiguous")
+    D = q.shape[-1]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {D} > {MAX_HEAD_DIM}")
+    if q.shape[0] * q.shape[1] > 65535:
+        raise ValueError(f"{what}: B*H = {q.shape[0] * q.shape[1]} > 65535 (the grid's y extent)")
+    if _tensor_core(q):
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if not _aligned(x):
+                raise ValueError(
+                    f"{what}: bf16 {name} (D={D}) must be 16-byte aligned with "
+                    f"strides that are multiples of 8 elements for the tensor-core "
+                    f"kernel; it is at byte {x.data_ptr() % 16} mod 16 with strides "
+                    f"{tuple(x.stride())} (pass a .contiguous() copy)"
+                )
+
+
+def _refuse_debug_bits(debug_bits, what: str) -> None:
+    if debug_bits is not None:
+        raise ValueError(f"{what}: debug_bits is a CPU testing hook; the kernel draws its "
+                         "own Philox bits from the seed")
+
+
+def _drop_args(dropout_rate: float, seed, what: str) -> list:
+    """The kernels' dropout arguments (on, threshold, 1/keep_prob, seed)."""
+    if dropout_rate <= 0.0:
+        return [0, 0, 1.0, 0]
+    if seed is None:
+        raise ValueError(f"{what}: dropout needs a seed")
+    return [1, keep_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate), int(seed)]
+
+
+def _bthd(B, T, H, D, like) -> torch.Tensor:
+    """A [B, H, T, D] view of a new [B, T, H, D] buffer."""
+    return torch.empty((B, T, H, D), dtype=like.dtype, device=like.device).permute(0, 2, 1, 3)
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {lib.flash_fwd_error_string(rc).decode()} "
+            f"(cudaError {rc})"
+        )
+
+
+def _scale(scale, D) -> float:
+    return float(D) ** -0.5 if scale is None else float(scale)
+
+
+def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: float = 0.0,
+              seed: int | None = None, debug_bits: torch.Tensor | None = None):
     """Kernel 5: (o [B, H, Tq, D], lse [B, H, Tq, 1] fp32).
 
-    CPU tensors run `attention_plain`; CUDA tensors launch the kernel on
-    the current stream or raise. q, k and v may be strided views (any
-    batch, head and token strides) whose last dimension is contiguous;
-    o is a [B, H, Tq, D] view of a [B, Tq, H, D] buffer.
+    CPU tensors run `attention_plain` (with `debug_bits` if given, else
+    the seed's Philox bits); CUDA tensors launch the kernel on the
+    current stream or raise. q, k and v may be strided views (any batch,
+    head and token strides) whose last dimension is contiguous; o is a
+    [B, H, Tq, D] view of a [B, Tq, H, D] buffer.
 
     The kernel instance follows from dtype and head width alone: bf16
     with D a multiple of 16 takes the tensor-core (mma.sync) instance,
@@ -130,54 +360,149 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None):
     widths, take the FMA instance."""
     global LAUNCHES
     B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
+    rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_fwd", q.device):
-        return attention_plain(q, k, v, kv_mask, scale)
-    for name, x in (("k", k), ("v", v), ("kv_mask", kv_mask)):
-        if x.device != q.device:
-            raise ValueError(f"flash_fwd: {name} is on {x.device}, not {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_fwd: q is {q.dtype}; the kernel takes float32 or bfloat16")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd: q, k, v must share a dtype ({q.dtype}, {k.dtype}, {v.dtype})")
-    if kv_mask.dtype not in (torch.bool, torch.int32):
-        raise TypeError(f"flash_fwd: kv_mask is {kv_mask.dtype}; needs bool or int32")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(-1) != 1 or min(x.stride()) < 0:
-            raise ValueError(f"flash_fwd: {name}'s last dimension must be contiguous")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_fwd: head dim {D} > {MAX_HEAD_DIM}")
-    if B * H > 65535:
-        raise ValueError(f"flash_fwd: B*H = {B * H} > 65535 (the grid's y extent)")
+        return attention_plain(q, k, v, kv_mask, scale, rate,
+                               _plain_bits(q, k, rate, seed, debug_bits))
+    _check_card("flash_fwd", q, k, v, kv_mask)
+    _refuse_debug_bits(debug_bits, "flash_fwd")
+    drop = _drop_args(rate, seed, "flash_fwd")
     lib = _library()
     mask = kv_mask.to(torch.int32).contiguous()
-    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    o = _bthd(B, Tq, H, D, q)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
     strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
-    use_mma = q.dtype == torch.bfloat16 and D % 16 == 0
-    if use_mma:
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
-                raise ValueError(
-                    f"flash_fwd: bf16 {name} (D={D}) must be 16-byte aligned with "
-                    f"strides that are multiples of 8 elements for the tensor-core "
-                    f"kernel; it is at byte {x.data_ptr() % 16} mod 16 with strides "
-                    f"{tuple(x.stride())} (pass a .contiguous() copy)"
-                )
-    scale = float(D) ** -0.5 if scale is None else float(scale)
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, H, Tq, Tk, D, scale, int(q.dtype == torch.bfloat16),
-            int(use_mma), (ctypes.c_longlong * 12)(*strides), _stream(q.device),
+            lse.data_ptr(), B, H, Tq, Tk, D, _scale(scale, D), int(q.dtype == torch.bfloat16),
+            int(_tensor_core(q)), *drop, (ctypes.c_longlong * 12)(*strides), _stream(q.device),
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed: {lib.flash_fwd_error_string(rc).decode()} "
-            f"(cudaError {rc})"
-        )
+    _raise_on(lib, rc, "flash_fwd")
     with _launch_lock:
         LAUNCHES += 1
     return o, lse
+
+
+def _bwd_operands(what, q, k, v, kv_mask, lse, delta, do):
+    """The backward kernels' common checks; (mask int32, lse, delta and do
+    as the kernels take them). do is copied once where it is not
+    row-contiguous, or (tensor-core instance) off the 16-byte grid."""
+    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, what)
+    _check_card(what, q, k, v, kv_mask, (("lse", lse), ("delta", delta), ("do", do)))
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.dtype != torch.float32 or x.numel() != B * H * Tq:
+            raise ValueError(f"{what}: {name} must be fp32 [B, H, Tq, 1]")
+    if tuple(do.shape) != (B, H, Tq, D) or do.dtype != q.dtype:
+        raise ValueError(f"{what}: do {tuple(do.shape)} {do.dtype} must be q's shape and dtype")
+    if do.stride(-1) != 1 or min(do.stride()) < 0 or (_tensor_core(q) and not _aligned(do)):
+        do = do.contiguous()
+    return (kv_mask.to(torch.int32).contiguous(), lse.contiguous(), delta.contiguous(), do)
+
+
+def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
+             dropout_rate: float = 0.0, seed: int | None = None):
+    """Kernel 6 on CUDA tensors: dq [B, H, Tq, D] in q's dtype (a view of
+    a [B, Tq, H, D] buffer), from the forward's lse and delta =
+    rowsum(do * o) (fp32, [B, H, Tq, 1]). Raises on CPU tensors: the
+    plain version of the whole backward is `attention_bwd_plain`."""
+    global DQ_LAUNCHES
+    if not _on_cuda("flash_dq", q.device):
+        raise ValueError("flash_dq launches the CUDA kernel; on the CPU use attention_bwd_plain")
+    rate = _check_rate(dropout_rate)
+    mask, lse, delta, do = _bwd_operands("flash_dq", q, k, v, kv_mask, lse, delta, do)
+    drop = _drop_args(rate, seed, "flash_dq")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    lib = _library()
+    dq = _bthd(B, Tq, H, D, q)
+    strides = [s for x in (q, k, v, do, dq) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        rc = lib.flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), do.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, D, _scale(scale, D),
+            int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
+            (ctypes.c_longlong * 15)(*strides), _stream(q.device),
+        )
+    _raise_on(lib, rc, "flash_dq")
+    with _launch_lock:
+        DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
+              dropout_rate: float = 0.0, seed: int | None = None):
+    """Kernel 7 on CUDA tensors: (dk, dv) [B, H, Tk, D] in q's dtype
+    (views of [B, Tk, H, D] buffers). Arguments as for `flash_dq`."""
+    global DKV_LAUNCHES
+    if not _on_cuda("flash_dkv", q.device):
+        raise ValueError("flash_dkv launches the CUDA kernel; on the CPU use attention_bwd_plain")
+    rate = _check_rate(dropout_rate)
+    mask, lse, delta, do = _bwd_operands("flash_dkv", q, k, v, kv_mask, lse, delta, do)
+    drop = _drop_args(rate, seed, "flash_dkv")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    lib = _library()
+    dk, dv = _bthd(B, Tk, H, D, q), _bthd(B, Tk, H, D, q)
+    strides = [s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        rc = lib.flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
+            _scale(scale, D), int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
+            (ctypes.c_longlong * 18)(*strides), _stream(q.device),
+        )
+    _raise_on(lib, rc, "flash_dkv")
+    with _launch_lock:
+        DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def flash_bwd(q, k, v, kv_mask, o, lse, do, *, scale: float | None = None,
+              dropout_rate: float = 0.0, seed: int | None = None,
+              debug_bits: torch.Tensor | None = None):
+    """The backward of `flash_fwd`: (dq, dk, dv) in q's dtype.
+
+    CPU tensors run `attention_bwd_plain`. On CUDA tensors delta =
+    rowsum(do * o) is a plain fp32 reduction (the reference computes it
+    outside any kernel too, `_flash_bwd`), then kernel 6 (dq) and kernel
+    7 (dk, dv) launch on the current stream."""
+    rate = _check_rate(dropout_rate)
+    if not _on_cuda("flash_bwd", q.device):
+        _check_shapes(q, k, v, kv_mask, "flash_bwd")
+        return attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale, rate,
+                                   _plain_bits(q, k, rate, seed, debug_bits))
+    _refuse_debug_bits(debug_bits, "flash_bwd")
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    dq = flash_dq(q, k, v, kv_mask, lse, delta, do, scale=scale, dropout_rate=rate, seed=seed)
+    dk, dv = flash_dkv(q, k, v, kv_mask, lse, delta, do, scale=scale, dropout_rate=rate,
+                       seed=seed)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = flash attention of (q, k, v) with the kernels' backward.
+
+    Saves q, k, v, the mask, o and lse (and the seed, an int): the
+    backward recomputes p from lse and redraws the dropout mask from the
+    seed, as the reference's custom VJP does (`_flash_fwd`, `_flash_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, dropout_rate, seed, debug_bits):
+        o, lse = flash_fwd(q, k, v, kv_mask, scale=scale, dropout_rate=dropout_rate,
+                           seed=seed, debug_bits=debug_bits)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse,
+                              *(() if debug_bits is None else (debug_bits,)))
+        ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse, *bits = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, kv_mask, o, lse, do, scale=ctx.scale,
+                               dropout_rate=ctx.dropout_rate, seed=ctx.seed,
+                               debug_bits=bits[0] if bits else None)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -188,20 +513,18 @@ def flash_attention(
     *,
     scale: float | None = None,
     dropout_rate: float = 0.0,
-    seed=None,
+    seed: int | None = None,
     bias=None,
     causal: bool = False,
+    debug_bits: torch.Tensor | None = None,
 ):
-    """The reference's `flash_attention` at inference: o [B, H, Tq, D].
+    """The reference's `flash_attention`: o [B, H, Tq, D], differentiable
+    in q, k and v through `FlashAttention` (kernels 5-7 on the card).
 
-    Dropout, an additive score bias and the causal mask raise
-    `NotImplementedError`: their kernels come with the training and T5
-    slices of the port."""
-    if dropout_rate > 0.0 or seed is not None:
-        raise NotImplementedError(
-            "flash_attention dropout: the in-kernel (Philox) probs dropout comes "
-            "with the combined-training slice of the port (ROADMAP queue B, kernel 5)"
-        )
+    `seed` (a 64-bit int) seeds the in-kernel dropout; `debug_bits`
+    (CPU only) replaces its bits, as the reference's testing hook does.
+    An additive score bias and the causal mask raise
+    `NotImplementedError`: their kernels come with the T5 slice."""
     if bias is not None:
         raise NotImplementedError(
             "flash_attention bias: the additive score bias (T5 relative "
@@ -211,14 +534,18 @@ def flash_attention(
         raise NotImplementedError(
             "flash_attention causal: the causal mask comes with the T5 slice of the port"
         )
-    return flash_fwd(q, k, v, kv_mask, scale=scale)[0]
+    rate = _check_rate(dropout_rate)
+    if rate > 0.0 and seed is None and debug_bits is None:
+        raise ValueError("flash_attention: dropout needs a seed")
+    return FlashAttention.apply(q, k, v, kv_mask, scale, rate, seed, debug_bits)
 
 
 def flash_shape_ok(Tq: int, head_dim: int, Tk: int | None = None, biased: bool = False) -> bool:
-    """Can the CUDA kernel take this problem? It tiles queries in 64-row
-    blocks and keys in 64-key tiles and masks the ragged tail itself,
-    so any Tq, Tk >= 1 qualify; the head must be 1..MAX_HEAD_DIM wide.
-    A biased call is never tileable: the bias is not ported."""
+    """Can the CUDA kernels take this problem? They tile queries and keys
+    in 64-row blocks (16 and 32 in the FMA instances) and mask the ragged
+    tail themselves, so any Tq, Tk >= 1 qualify; the head must be
+    1..MAX_HEAD_DIM wide. A biased call is never tileable: the bias is
+    not ported."""
     Tk = Tq if Tk is None else Tk
     return not biased and min(Tq, Tk) >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
 
@@ -232,7 +559,7 @@ def resolve_impl(attn_impl: str, Tq: int, head_dim: int, *, Tk: int | None = Non
     take the shape: on the card attention launches the kernel or raises,
     never the plain version unasked. For CPU tensors "auto" takes the
     reference's rule (plain where the kernel cannot tile); both routes
-    run `attention_plain` there."""
+    run the plain versions there."""
     if attn_impl == "xla":
         return "xla"
     if attn_impl not in ("auto", "flash"):

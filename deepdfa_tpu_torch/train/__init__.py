@@ -1,8 +1,10 @@
 """Training on one device: losses, optimiser state, samplers, metrics,
-checkpoints and the GraphTrainer loop (the reference's
-`deepdfa_tpu/train/`, for the DeepDFA GGNN)."""
+checkpoints, the GraphTrainer loop (the DeepDFA GGNN) and the
+CombinedTrainer loop (the combined DeepDFA+LineVul model), with the
+graph-encoder transfer (the reference's `deepdfa_tpu/train/`)."""
 
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+from deepdfa_tpu_torch.train.combined_loop import CombinedTrainer
 from deepdfa_tpu_torch.train.loop import GraphTrainer, drop_known_feats
 from deepdfa_tpu_torch.train.losses import (
     bce_elements,
@@ -11,7 +13,9 @@ from deepdfa_tpu_torch.train.losses import (
     classifier_loss,
     graph_labels,
     labels_and_mask,
+    masked_softmax_cross_entropy,
     node_labels,
+    softmax_cross_entropy,
 )
 from deepdfa_tpu_torch.train.metrics import (
     BinaryClassificationMetrics,
@@ -23,10 +27,16 @@ from deepdfa_tpu_torch.train.sampler import (
     undersample_epoch,
 )
 from deepdfa_tpu_torch.train.state import TrainState, lr_factor, make_optimizer
+from deepdfa_tpu_torch.train.transfer import (
+    freeze,
+    graph_encoder_subset,
+    load_graph_encoder,
+)
 
 __all__ = [
     "BinaryClassificationMetrics",
     "CheckpointManager",
+    "CombinedTrainer",
     "GraphTrainer",
     "TrainState",
     "bce_elements",
@@ -35,12 +45,17 @@ __all__ = [
     "classification_report",
     "classifier_loss",
     "drop_known_feats",
+    "freeze",
+    "graph_encoder_subset",
     "graph_labels",
     "labels_and_mask",
+    "load_graph_encoder",
     "lr_factor",
     "make_optimizer",
+    "masked_softmax_cross_entropy",
     "node_labels",
     "oversample_epoch",
     "positive_weight",
+    "softmax_cross_entropy",
     "undersample_epoch",
 ]

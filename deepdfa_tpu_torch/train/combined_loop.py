@@ -1,0 +1,279 @@
+"""Training of the combined transformer + graph classifier on one device
+(the reference's `deepdfa_tpu/train/combined_loop.py:CombinedTrainer`,
+RoBERTa family).
+
+- A train step is the cross-entropy SUM over the batch's valid rows
+  divided by max(valid count, 1), its backward and one optimiser update
+  (AdamW with the reference's warmup/decay schedule and global-norm
+  clip, `train/state.py`). On a CUDA device each encoder layer's
+  attention is kernel 5 forward (with its probs dropout) and kernels 6
+  and 7 backward, replayed under the layer checkpoint (`remat`); the
+  graph branch runs the GGNN step kernel and its backward kernels.
+- Dropout: step s draws its masks from the seed `fold_seed(seed, s)`
+  (the reference folds the step into its root key): the encoder's and
+  head's sites at the model config's rates, with any seed a different
+  but equally distributed stream from the reference's.
+- `freeze_graph` (the reference's `--freeze_graph`): the graph branch
+  takes no gradient, no update and no weight decay (`train/transfer.py`).
+- Evaluation accumulates the exact masked mean of the per-row loss in
+  float64 on the host, and the classification metrics on p(class 1).
+- `fit` runs epochs of a plain host loop: each batch is collated on the
+  host and copied to the device once, `train_step` runs, and the epoch
+  record (loss, host seconds, real-token throughput, padding waste, the
+  per-signature step counts) goes to `log_fn`; validation each epoch;
+  checkpoints on the reference's cadence, the best by `train.monitor`.
+  With `data.seq_buckets` set, `fit` first builds the kernels and runs
+  one forward and backward per bucket signature on an all-padding batch
+  (no update), outside every epoch's time: the counterpart of the
+  reference's ahead-of-time `warmup` compile.
+
+Not in the port yet, and refused when configured: a mesh beyond one
+card, `train.resilience.enabled` (the divergence guard, step
+checkpoints, resume), the `obs` instruments, the T5 family (a
+`DefectConfig`) and the MoE adapter (`moe_experts > 0`). The prefetch
+pipeline, `data.pack_workers`/`data.packed_cache` and
+`train.step_cache_entries` are read past.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from deepdfa_tpu_torch.core.config import Config, refuse_unported_training
+from deepdfa_tpu_torch.core.device import resolve_device
+from deepdfa_tpu_torch.data.text import TextBatch, batch_token_counts, collate, rows_for_bucket
+from deepdfa_tpu_torch.models.combined import CombinedConfig, CombinedModel
+from deepdfa_tpu_torch.nn import cuda_build
+from deepdfa_tpu_torch.nn.dropout import fold_seed
+from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+from deepdfa_tpu_torch.train.losses import masked_softmax_cross_entropy, softmax_cross_entropy
+from deepdfa_tpu_torch.train.metrics import BinaryClassificationMetrics
+from deepdfa_tpu_torch.train.state import TrainState
+from deepdfa_tpu_torch.train.transfer import freeze, load_graph_encoder
+
+logger = logging.getLogger(__name__)
+
+
+class CombinedTrainer:
+    """Train/eval loop for `CombinedModel` on one device (the card
+    unless `device="cpu"`)."""
+
+    def __init__(self, cfg: Config, model_cfg: CombinedConfig, total_steps: int | None = None,
+                 freeze_graph: bool = False, device: str | torch.device | None = None):
+        if not isinstance(model_cfg, CombinedConfig):
+            raise NotImplementedError(
+                f"{type(model_cfg).__name__}: the T5 family (DefectConfig) comes with the "
+                "T5 slice of the port; the trainer takes a CombinedConfig"
+            )
+        if model_cfg.moe_experts:
+            raise NotImplementedError(
+                f"moe_experts={model_cfg.moe_experts}: the MoE adapter comes with a later "
+                "slice of the port (ROADMAP queue A, item 8)"
+            )
+        refuse_unported_training(cfg)
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        self.total_steps = total_steps
+        self.freeze_graph = freeze_graph
+        self.device = resolve_device(device)
+        self.pad_id = model_cfg.encoder.pad_token_id
+        #: per batch signature "T{T}xR{rows}xG{graphs}": train and eval
+        #: steps, and the seconds of its warm-up batch
+        self.signature_stats: dict[str, dict] = {}
+
+    # -- construction -------------------------------------------------------
+
+    def init_state(self, seed: int | None = None,
+                   params: dict[str, torch.Tensor] | None = None) -> TrainState:
+        """A fresh TrainState: the model's weights drawn on the CPU from
+        `seed` (train.seed by default), so one seed gives the same
+        weights on every device, or loaded from `params` (a state dict,
+        e.g. models/convert.py's from the reference's parameters)."""
+        seed = self.cfg.train.seed if seed is None else seed
+        model = CombinedModel(self.model_cfg, generator=torch.Generator().manual_seed(seed))
+        if params is not None:
+            model.load_state_dict(params, strict=True)
+        return self._state(model.to(self.device), step=0)
+
+    def _state(self, model: CombinedModel, step: int) -> TrainState:
+        if self.freeze_graph:
+            freeze(model)
+        state = TrainState.create(model, self.cfg.train.optim, self.total_steps,
+                                  params=[p for p in model.parameters() if p.requires_grad])
+        state.step = step
+        return state
+
+    def load_graph_encoder_params(self, state: TrainState, deepdfa_state) -> TrainState:
+        """Splice a trained DeepDFA's encoder weights (a state dict) into
+        the graph branch; the optimiser starts afresh, as the reference's
+        `tx.init` does."""
+        load_graph_encoder(state.model, deepdfa_state)
+        return self._state(state.model, step=state.step)
+
+    def make_checkpoints(self, directory) -> CheckpointManager:
+        return CheckpointManager(directory, monitor=self.cfg.train.monitor,
+                                 mode=self.cfg.train.monitor_mode,
+                                 keep_last=self.cfg.train.checkpoint_keep_last)
+
+    # -- steps ---------------------------------------------------------------
+
+    @staticmethod
+    def signature(batch: TextBatch) -> str:
+        T, rows = batch.input_ids.shape[-1], batch.input_ids.shape[-2]
+        return f"T{int(T)}xR{int(rows)}xG{int(batch.graphs.num_graphs)}"
+
+    def _stats(self, batch: TextBatch) -> dict:
+        return self.signature_stats.setdefault(
+            self.signature(batch),
+            {"train_steps": 0, "eval_steps": 0, "warmup_seconds": 0.0})
+
+    def forward_loss(self, state: TrainState, batch: TextBatch, seed: int | None) -> torch.Tensor:
+        """The step's loss, sum / max(count, 1), with the graph for its
+        backward; `seed` is the step's dropout seed (None: no dropout)."""
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        logits = state.model(batch.input_ids, batch.graphs, batch.has_graph, dropout_key=seed)
+        loss_sum, count = masked_softmax_cross_entropy(logits, batch.labels, batch.row_mask)
+        return loss_sum / count.clamp(min=1.0)
+
+    def train_step(self, state: TrainState, batch: TextBatch, seed: int | None) -> torch.Tensor:
+        """One update on a batch already on the device; the loss,
+        detached and left on the device."""
+        loss = self.forward_loss(state, batch, seed)
+        loss.backward()
+        state.apply_gradients()
+        self._stats(batch)["train_steps"] += 1
+        return loss.detach()
+
+    @torch.inference_mode()
+    def eval_step(self, state: TrainState, batch: TextBatch):
+        """(p(class 1), labels, row mask, per-row loss) of a device batch."""
+        state.model.eval()
+        logits = state.model(batch.input_ids, batch.graphs, batch.has_graph)
+        per = softmax_cross_entropy(logits, batch.labels)
+        self._stats(batch)["eval_steps"] += 1
+        return torch.softmax(logits.float(), dim=-1)[:, 1], batch.labels, batch.row_mask, per
+
+    def warmup(self, state: TrainState) -> dict:
+        """Build the kernels and run one forward and backward per bucket
+        of `data.seq_buckets` on an all-padding batch (rows from
+        `rows_for_bucket`, the planner's formula; the data.batch
+        budgets), with dropout on and no update. Returns {signature:
+        seconds}."""
+        dcfg = self.cfg.data
+        if not dcfg.seq_buckets:
+            return {}
+        if self.device.type == "cuda":
+            cuda_build.build()
+        report = {}
+        for T in dcfg.seq_buckets:
+            rows = rows_for_bucket(T, dcfg.token_budget, 1)
+            dummy = collate(np.zeros((0, int(T)), np.int32), [], [], {}, rows,
+                            dcfg.batch.node_budget, dcfg.batch.edge_budget,
+                            pad_id=self.pad_id).to(self.device)
+            t0 = time.perf_counter()
+            self.forward_loss(state, dummy, fold_seed(0, int(T))).backward()
+            state.optimizer.zero_grad(set_to_none=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            self._stats(dummy)["warmup_seconds"] += dt
+            report[self.signature(dummy)] = dt
+        return report
+
+    # -- loops ---------------------------------------------------------------
+
+    def evaluate(self, state: TrainState, batches: Iterable[TextBatch]
+                 ) -> tuple[dict[str, float], BinaryClassificationMetrics]:
+        m = BinaryClassificationMetrics()
+        loss_sum = 0.0
+        count = 0.0
+        for batch in batches:
+            probs, labels, mask, per = (
+                x.cpu().numpy() for x in self.eval_step(state, batch.to(self.device)))
+            m.update(probs, labels, mask)
+            valid = np.asarray(mask, bool)
+            loss_sum += float(np.asarray(per, np.float64)[valid].sum())
+            count += float(valid.sum())
+        metrics = m.compute()
+        metrics["loss"] = loss_sum / count if count else float("nan")
+        return metrics, m
+
+    def fit(
+        self,
+        state: TrainState,
+        train_batches: Callable[[int], Iterable[TextBatch]],
+        val_batches: Callable[[], Iterable[TextBatch]] | None = None,
+        checkpoints: CheckpointManager | None = None,
+        max_epochs: int | None = None,
+        log_fn: Callable[[dict], None] | None = None,
+        seed: int = 0,
+    ) -> TrainState:
+        """Epochs over `train_batches(epoch)` (host TextBatches); step s
+        drops with `fold_seed(seed, s)`."""
+        tcfg = self.cfg.train
+        max_epochs = max_epochs if max_epochs is not None else tcfg.max_epochs
+        warm = self.warmup(state)
+        if warm and log_fn is not None:
+            log_fn({"warmup_signatures": len(warm),
+                    "warmup_seconds": round(sum(warm.values()), 3)})
+        for epoch in range(max_epochs):
+            t0 = time.perf_counter()
+            losses = []
+            pack_s = place_s = 0.0
+            real = padded = rows = 0
+            source = iter(train_batches(epoch))
+            while True:
+                t_pull = time.perf_counter()
+                batch = next(source, None)
+                if batch is None:
+                    break
+                t_place = time.perf_counter()
+                r, p, n = batch_token_counts(batch.input_ids, batch.row_mask, self.pad_id)
+                real, padded, rows = real + r, padded + p, rows + n
+                batch = batch.to(self.device)
+                pack_s += t_place - t_pull
+                place_s += time.perf_counter() - t_place
+                losses.append(self.train_step(state, batch, fold_seed(seed, state.step)))
+                if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
+                    log_fn({"step": state.step, "loss": float(losses[-1])})
+            train_loss = (float(np.mean(torch.stack(losses).cpu().numpy()))
+                          if losses else float("nan"))
+            epoch_seconds = time.perf_counter() - t0
+            record = {
+                "epoch": epoch,
+                "train_loss": train_loss,
+                "epoch_seconds": epoch_seconds,
+                "host_pack_seconds": round(pack_s, 3),
+                "host_place_seconds": round(place_s, 3),
+                "train_examples_per_sec": rows / epoch_seconds if epoch_seconds else None,
+                "train_tokens_per_sec": real / epoch_seconds if epoch_seconds else None,
+                "real_tokens": real,
+                "padded_tokens": padded,
+                "padding_waste": round(1.0 - real / padded, 4) if padded else 0.0,
+                "step_signatures": {k: dict(v) for k, v in self.signature_stats.items()},
+            }
+            if val_batches is not None:
+                val_metrics, _ = self.evaluate(state, val_batches())
+                record.update({f"val_{k}": v for k, v in val_metrics.items()})
+            if checkpoints is not None and (
+                any(k.startswith("val_") for k in record)
+                or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
+                or epoch == max_epochs - 1
+            ):
+                checkpoints.save(
+                    f"epoch-{epoch:04d}",
+                    {"model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}},
+                    {k: float(v) for k, v in record.items()
+                     if k != "epoch" and isinstance(v, (int, float))},
+                    step=state.step,
+                )
+            logger.info("epoch %d: %s", epoch, record)
+            if log_fn is not None:
+                log_fn(record)
+        return state

@@ -28,7 +28,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.core.config import Config, one_card
+from deepdfa_tpu_torch.core.config import Config, refuse_unported_training
 from deepdfa_tpu_torch.core.device import resolve_device
 from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, GraphBatch
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
@@ -74,13 +74,7 @@ class GraphTrainer:
         device: str | torch.device | None = None,
     ):
         tcfg = cfg.train
-        one_card(tcfg.mesh)
-        if tcfg.resilience.enabled:
-            raise NotImplementedError(
-                "train.resilience.enabled: the resilient runtime (guarded "
-                "step, step checkpoints, resume) comes with a later slice "
-                "of the port (ROADMAP queue A)"
-            )
+        refuse_unported_training(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)

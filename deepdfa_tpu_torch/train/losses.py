@@ -74,3 +74,18 @@ def classifier_loss(logits, batch: GraphBatch, label_style: str = "graph",
     """(loss, labels, mask) for the configured label style."""
     labels, mask = labels_and_mask(batch, label_style)
     return bce_with_logits(logits, labels, mask, pos_weight), labels, mask
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-row cross-entropy of [B, C] logits against integer labels
+    (`optax.softmax_cross_entropy_with_integer_labels`), in fp32."""
+    return F.cross_entropy(logits.float(), labels.long(), reduction="none")
+
+
+def masked_softmax_cross_entropy(logits, labels, mask):
+    """(sum of the per-row losses over valid rows, valid count): the
+    combined trainer's loss is sum / max(count, 1)
+    (`combined_loop.py:_loss_sum` and `_sharded_grads`)."""
+    per = softmax_cross_entropy(logits, labels)
+    m = mask.to(per.dtype)
+    return (per * m).sum(), m.sum()

@@ -70,14 +70,19 @@ class TrainState:
 
     @classmethod
     def create(cls, model: torch.nn.Module, cfg: OptimConfig,
-               total_steps: int | None = None) -> "TrainState":
-        opt, sched = make_optimizer(cfg, model.parameters(), total_steps)
+               total_steps: int | None = None, params=None) -> "TrainState":
+        """`params`: the parameters to update (all of the model's by
+        default); the others get no update, no decay and no share of the
+        clip's norm."""
+        params = list(model.parameters() if params is None else params)
+        opt, sched = make_optimizer(cfg, params, total_steps)
         return cls(model, opt, sched, cfg.grad_clip_norm)
 
     def apply_gradients(self) -> None:
         """One update from the gradients held in the parameters' .grad."""
         if self.grad_clip_norm > 0.0:
-            torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.grad_clip_norm)
+            params = [p for group in self.optimizer.param_groups for p in group["params"]]
+            torch.nn.utils.clip_grad_norm_(params, self.grad_clip_norm)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()

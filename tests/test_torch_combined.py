@@ -199,11 +199,7 @@ def test_unported_options_raise():
         CombinedModel(CombinedConfig(encoder=tenc, moe_experts=4))
     model = CombinedModel(CombinedConfig(encoder=tenc, use_graph=False))
     ids = torch.full((2, 8), 5, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(ids)  # a fresh module is in training mode
     model.eval()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(ids, dropout_key=1)
     with pytest.raises(NotImplementedError, match="multi-device"):
         model(ids, pp_axis="pp")
     with pytest.raises(NotImplementedError, match="multi-device"):

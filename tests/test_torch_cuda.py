@@ -349,3 +349,124 @@ def test_combined_serving_on_card_matches_cpu(card):
     want = [r.wait(0) for r in DynamicBatcher(cpu).score_all(
         [(tok.encode(t, 64), s) for t, s in payloads])]
     np.testing.assert_allclose(summary["probs"], want, rtol=RTOL, atol=ATOL)
+
+
+BWD_CASES = [
+    (4, 12, 256, 256, 64, "bfloat16", [256, 200, 17, 0]),
+    (2, 4, 130, 77, 128, "bfloat16", [77, 0]),
+    (3, 2, 96, 200, 64, "float32", [200, 131, 0]),
+    (2, 3, 70, 70, 40, "bfloat16", [70, 9]),
+]
+BWD_IDS = ["t256_bf16", "cross_d128_bf16", "cross_fp32", "ragged_d40_fma"]
+
+
+def _bwd_inputs(card, B, H, Tq, Tk, D, dtype, lens):
+    g = torch.Generator().manual_seed(B * 7 + Tq + D)
+    td = getattr(torch, dtype)
+    q, do = (torch.randn(B, H, Tq, D, generator=g).to(td).to(card) for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, generator=g).to(td).to(card) for _ in range(2))
+    mask = (torch.arange(Tk)[None, :] < torch.tensor(lens)[:, None]).to(card)
+    return q, k, v, do, mask
+
+
+def _close(got, want, dtype):
+    """bf16: within 2e-2 of the largest magnitude; fp32: 1e-4 of it."""
+    tol = (2e-2 if dtype == "bfloat16" else 1e-4) * max(want.float().abs().max().item(), 1e-6)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("B, H, Tq, Tk, D, dtype, lens", BWD_CASES, ids=BWD_IDS)
+def test_flash_bwd_kernels_match_plain(card, B, H, Tq, Tk, D, dtype, lens, rate):
+    """Kernels 6 (dq) and 7 (dk, dv) against attention_bwd_plain on the
+    card, from the kernel's own forward; with dropout both draw the
+    seed's Philox mask. All-padding rows get exactly zero gradients."""
+    q, k, v, do, mask = _bwd_inputs(card, B, H, Tq, Tk, D, dtype, lens)
+    seed = 1234567890123
+    o, lse = fa.flash_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
+    bits = fa.dropout_bits(seed, B, H, Tq, Tk, card) if rate else None
+    po, _ = fa.attention_plain(q, k, v, mask, dropout_rate=rate, bits=bits)
+    _close(o, po, dtype)
+    before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate, bits=bits)
+    torch.cuda.synchronize()
+    assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    for x, y in zip(got, want):
+        assert x.dtype == q.dtype and x.shape == y.shape and torch.isfinite(x.float()).all()
+        _close(x, y, dtype)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert all((x[b] == 0).all() for x in got)
+    again = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+def test_flash_bwd_kernels_take_the_training_strides(card, rate):
+    """The training path's operands: q, k and v strided views of the
+    fused [B, T, 3, H, D] product and do a [B, H, T, D] view of a
+    [B, T, H, D] buffer; dq, dk and dv against attention_bwd_plain on
+    the same views, with and without the seed's dropout mask."""
+    B, T, H, D = 4, 200, 12, 64
+    g = torch.Generator().manual_seed(9)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g).bfloat16().to(card).view(B, T, 3, H, D)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn(B, T, H, D, generator=g).bfloat16().to(card).transpose(1, 2)
+    assert not (q.is_contiguous() or do.is_contiguous())
+    mask = (torch.arange(T)[None, :] < torch.tensor([200, 150, 3, 0])[:, None]).to(card)
+    seed = 77
+    o, lse = fa.flash_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
+    bits = fa.dropout_bits(seed, B, H, T, T, card) if rate else None
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate, bits=bits)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.isfinite(x.float()).all()
+        _close(x, y, "bfloat16")
+    assert all((x[3] == 0).all() for x in got)
+
+
+def test_flash_fwd_dropout_keeps_the_philox_mask(card):
+    """The forward kernel's dropout against the plain version with the
+    same seed, a keep fraction near 0.9, and another seed another o."""
+    B, H, T, D = 4, 12, 256, 64
+    q, k, v, _, mask = _bwd_inputs(card, B, H, T, T, D, "bfloat16", [256] * 4)
+    o, lse = fa.flash_fwd(q, k, v, mask, dropout_rate=0.1, seed=99)
+    po, plse = fa.attention_plain(q, k, v, mask, dropout_rate=0.1,
+                                  bits=fa.dropout_bits(99, B, H, T, T, card))
+    _close(o, po, "bfloat16")
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    keep = (fa.dropout_bits(99, B, H, T, T, card) < fa.keep_threshold(0.1)).double().mean()
+    assert abs(keep.item() - 0.9) < 2e-3
+    o2, _ = fa.flash_fwd(q, k, v, mask, dropout_rate=0.1, seed=100)
+    assert not torch.equal(o, o2)
+    with pytest.raises(ValueError, match="debug_bits"):
+        fa.flash_fwd(q, k, v, mask, dropout_rate=0.1, seed=99,
+                     debug_bits=fa.dropout_bits(99, B, H, T, T, card))
+
+
+def test_flash_attention_grads_repeat_bit_equal(card):
+    """FlashAttention through autograd on the encoder's strided views:
+    the kernels' gradients repeat bit for bit (no atomics), and the fp32
+    leaves of a bf16 product get fp32 gradients."""
+    B, T, H, D = 4, 200, 12, 64
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(B, T, 3 * H * D, generator=g).to(card).requires_grad_()
+    mask = (torch.arange(T)[None, :] < torch.tensor([200, 150, 3, 0])[:, None]).to(card)
+    w = torch.randn(B, H, T, D, generator=g).bfloat16().to(card)
+
+    def grads():
+        x.grad = None
+        qkv = x.bfloat16().view(B, T, 3, H, D)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o = fa.flash_attention(q, k, v, mask, dropout_rate=0.1, seed=5)
+        (o.float() * w.float()).sum().backward()
+        return x.grad.clone()
+
+    before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    first, second = grads(), grads()
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == tuple(b + 2 for b in before)
+    assert first.dtype == torch.float32 and torch.equal(first, second)

@@ -112,8 +112,8 @@ def test_flash_attention_returns_o_and_refuses_unported_options():
     torch.testing.assert_close(o, tfa.attention_plain(q, k, v, mask)[0], rtol=0, atol=0)
     torch.testing.assert_close(tfa.flash_attention(q, k, v, mask, scale=0.5),
                                tfa.attention_plain(q, k, v, mask, 0.5)[0], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_attention(q, k, v, mask, dropout_rate=0.1, seed=0)
+    with pytest.raises(ValueError, match="needs a seed"):  # dropout runs, with a seed
+        tfa.flash_attention(q, k, v, mask, dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="bias"):
         tfa.flash_attention(q, k, v, mask, bias=torch.zeros(2, 16, 16))
     with pytest.raises(NotImplementedError, match="causal"):

@@ -123,11 +123,11 @@ def test_unported_knobs_raise():
         TransformerConfig.tiny(**TINY, attn_impl="sdpa")
     model = RobertaEncoder(cfg)
     ids = torch.from_numpy(_ids())
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.encode(ids)  # training mode with dropout_rate 0.1
+    with pytest.raises(NotImplementedError, match="attn_saved"):  # remat with grads on
+        RobertaEncoder(dataclasses.replace(cfg, remat_policy="attn_saved")).encode(ids)
+    with pytest.raises(ValueError, match="remat_policy"):
+        TransformerConfig.tiny(**TINY, remat_policy="dots")
     model.eval()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.encode(ids, dropout_key=0)
     for kw in ({"sp_axis": "sp"}, {"tp_axis": "tp"}):
         with pytest.raises(NotImplementedError, match="multi-device"):
             model.encode(ids, **kw)
