@@ -88,9 +88,32 @@ prints one JSON line; any failure exits non-zero before the last line.
    CPU plain path; a step split (host collate, copies, forward,
    backward, optimiser), tokens/s, examples/s, peak memory with remat
    on and off, and one profiled step;
-13. kernels — every kernel with its launches on the main paths (serve,
-   train, serve_combined and train_combined, each counted from 0),
-   error, time, plain time, bound and library time.
+13. kernel flash_bias — kernels 5-7 with T5's additive [H, T, T] bias
+   and kernel 8 (dbias) against the plain versions at the T5 flagship
+   call (B 16, H 12, T 512, D 64, bf16, scale 1.0), at dropout 0 and 0.1:
+   every key live, ragged keys with an all-padding row, and ragged keys
+   with the training path's strided operands; o within 2e-2, lse within
+   1e-5 + 1e-5 |lse|, each gradient and dbias within 2e-2 of its largest
+   magnitude, the same bits on a repeat; the four kernels' times with the
+   bias, the plain versions', one scaled_dot_product_attention call with
+   the bias as a float attn_mask (forward, and backward with the mask
+   requiring grad) and the bounds;
+14. serve_t5 — phase 9 for the CodeT5+DeepDFA defect model at
+   codet5-base width (768 wide, 12 layers of 12 x 64 heads, FFN 3072,
+   32 relative buckets, vocab 32100, bf16 activations) with the flagship
+   graph encoder and the T5-framed hash tokenizer (pad 0, eos 2): the
+   biased flash kernel 12 times and the GGNN step 5 times a batch, the
+   same alone-vs-batched and 2-layer card-vs-CPU checks, the 768-request
+   load window;
+15. profile_t5 — phase 10 for the defect model;
+16. train_t5 — phase 12 for the defect model (remat "full", hidden
+   dropout 0.1; T5 has no attention-probs dropout): per step 24 biased
+   flash forward launches, 12 dq, 12 dk/dv, 12 dbias and 5 of each GGNN
+   kernel;
+17. kernels — every kernel with its launches on the six main paths
+   (serve, train, serve_combined, train_combined, serve_t5, train_t5,
+   each counted from 0, and by path), error, time, plain time, bound and
+   library time; the flash rows add their biased times as bias_*.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -652,14 +675,17 @@ def train_phase(torch, rng):
     return launches
 
 
-def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int):
+def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
+                extra_bytes: int = 0):
     """(bound_ms, bound_by) of one flash_fwd call: 4*H*Tq*D operations
     per live key of each row (q.k and p.v; a padded key needs none) at
     the bf16 tensor-core peak (fp32 at the fp32 peak); bytes: q, k, v
-    read and o written once, the mask and lse."""
+    read and o written once, the mask and lse, and `extra_bytes` (a
+    bias read once)."""
     flops = 4 * H * Tq * D * sum(Tk_live)
     Tk = max(Tk_live + [1])
-    nbytes = itemsize * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * Tk + 4 * B * H * Tq
+    nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * Tk + 4 * B * H * Tq
+              + extra_bytes)
     return roofline(flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
@@ -754,16 +780,18 @@ def flash_fwd_dropout_case(torch, fa, q, k, v, mask) -> dict:
 
 
 def flash_bwd_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
-                    products: int, out_tokens: int):
+                    products: int, out_tokens: int, extra_bytes: int = 0):
     """(bound_ms, bound_by) of one backward kernel: `products` matrix
     products of 2*H*Tq*D operations per live key of each row (dq: s, dp,
-    ds.k = 3; dk/dv: s, dp, p.do, ds.q = 4) at the bf16 tensor-core peak
-    (fp32 at the fp32 peak); bytes: q, k, v, do read and the gradients'
-    `out_tokens` rows of [B, H, ., D] written once (dq: Tq; dk, dv: 2 Tk),
-    lse, delta and the mask."""
+    ds.k = 3; dk/dv: s, dp, p.do, ds.q = 4; dbias: s, dp = 2) at the bf16
+    tensor-core peak (fp32 at the fp32 peak); bytes: q, k, v, do read and
+    the gradients' `out_tokens` rows of [B, H, ., D] written once (dq: Tq;
+    dk, dv: 2 Tk; dbias: 0), lse, delta and the mask, and `extra_bytes`
+    (a bias read once, dbias written once)."""
     flops = 2 * products * H * Tq * D * sum(Tk_live)
     Tk = max(Tk_live + [1])
-    nbytes = itemsize * B * H * D * (2 * Tq + 2 * Tk + out_tokens) + 8 * B * H * Tq + 4 * B * Tk
+    nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk + out_tokens) + 8 * B * H * Tq
+              + 4 * B * Tk + extra_bytes)
     return roofline(flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
@@ -863,6 +891,133 @@ def flash_bwd_kernel_phase(torch):
     return worst, timing
 
 
+def flash_bias_kernel_phase(torch):
+    """Kernels 5-7 with T5's additive [H, T, T] bias and kernel 8 (dbias)
+    against the plain versions on the card at the T5 flagship call (B 16,
+    H 12, T 512, D 64, bf16, scale 1.0), at dropout 0 and 0.1 (one seed,
+    the same Philox mask in every version): every key live, ragged keys
+    with an all-padding row (its o and gradients exactly 0), and ragged
+    keys with the training path's operands (q, k, v views of the fused
+    [B, T, 3, H, D] product, do a view of [B, T, H, D], the bias the
+    contiguous [H, T, T] bf16 tensor the encoder builds). o within 2e-2
+    (bf16), lse within 1e-5 + 1e-5 |lse|, dq, dk, dv and dbias within
+    2e-2 of each one's largest magnitude; all four the same bits on a
+    repeat. Times at the every-key-live call: the four kernels with the
+    bias (dbias at 0.1 too), the plain forward and backward with the bias,
+    one scaled_dot_product_attention call with bias and mask as a float
+    attn_mask and its backward with that mask requiring grad (the
+    library yardstick, never called by the port), and the bounds."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    B, H, T, D = 16, 12, 512, 64
+    tol = FLASH_TOL["bfloat16"]
+    cases = {  # name: (real key counts per row, the training path's strides)
+        "t5_flagship": ([512] * 16, False),
+        "ragged_all_padding": ([512, 300, 65, 1, 0] + [257] * 11, False),
+        "training_strides": ([512, 480, 300, 257, 129, 64, 33, 1] + [512] * 8, True),
+    }
+    gen = torch.Generator().manual_seed(7)
+    report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
+    for name, (lens, strided) in cases.items():
+        bf = torch.bfloat16
+        if strided:
+            qkv = torch.randn(B, T, 3 * H * D, generator=gen).to(bf).cuda().view(B, T, 3, H, D)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            do = torch.randn(B, T, H, D, generator=gen).to(bf).cuda().transpose(1, 2)
+        else:
+            q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(bf).cuda() for _ in range(4))
+        bias = (torch.randn(H, T, T, generator=gen) * 2.0).to(bf).cuda()
+        mask = (torch.arange(T)[None, :] < torch.tensor(lens)[:, None]).cuda()
+        for rate in (0.0, DROPOUT_RATE):
+            kw = {"scale": 1.0, "dropout_rate": rate, "seed": DROPOUT_SEED, "bias": bias}
+            with torch.inference_mode():
+                o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+                delta = (do.float() * o.float()).sum(-1, keepdim=True)
+                got = (fa.flash_dq(q, k, v, mask, lse, delta, do, **kw),
+                       *fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw),
+                       fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, scale=1.0,
+                                      dropout_rate=rate, seed=DROPOUT_SEED))
+                o2, lse2 = fa.flash_fwd(q, k, v, mask, **kw)
+                again = (fa.flash_dq(q, k, v, mask, lse, delta, do, **kw),
+                         *fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw),
+                         fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, scale=1.0,
+                                        dropout_rate=rate, seed=DROPOUT_SEED))
+                bits = fa.dropout_bits(DROPOUT_SEED, B, H, T, T, q.device) if rate else None
+                po, plse = fa.attention_plain(q, k, v, mask, 1.0, rate, bits, bias)
+                want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, rate, bits, bias)
+                del bits
+            torch.cuda.synchronize()
+            tag = f"{name}_rate{rate}"
+            if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+                fail(f"flash_bias {tag}: non-finite o or lse")
+            err_o = (o.float() - po.float()).abs().max().item()
+            err_lse = ((lse - plse).abs() - 1e-5 * plse.abs()).max().item()
+            if err_o > tol or err_lse > 1e-5:
+                fail(f"flash_bias {tag}: o err {err_o} (tol {tol}), lse err {err_lse} beyond "
+                     "1e-5 |lse| (tol 1e-5)")
+            if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                fail(f"flash_bias {tag}: forward gave other bits on a rerun")
+            worst["fwd"] = max(worst["fwd"], err_o)
+            report[f"{tag}_o_max_abs_err"] = err_o
+            for what, g, ref, rerun in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+                if not torch.isfinite(g.float()).all():
+                    fail(f"flash_bias {tag}: {what} has non-finite values")
+                err = (g.float() - ref.float()).abs().max().item()
+                scale = max(ref.float().abs().max().item(), 1e-6)
+                if err > tol * scale:
+                    fail(f"flash_bias {tag}: {what} err {err} > {tol * scale}")
+                if not torch.equal(g, rerun):
+                    fail(f"flash_bias {tag}: {what} other bits on a rerun")
+                key = {"dk": "dkv", "dv": "dkv"}.get(what, what)
+                worst[key] = max(worst[key], err)
+                report[f"{tag}_{what}_max_abs_err"] = err
+                report[f"{tag}_{what}_scale"] = scale
+            for b, n in enumerate(lens):
+                if n == 0 and not (bool((o[b] == 0).all())
+                                   and all(bool((g[b] == 0).all()) for g in got[:3])):
+                    fail(f"flash_bias {tag}: row {b} has no key but o or a gradient != 0")
+            if name != "t5_flagship":
+                continue
+            with torch.inference_mode():
+                if rate:
+                    timing["dbias_dropout_ms"] = median_ms(torch, lambda: fa.flash_dbias(
+                        q, k, v, mask, lse, delta, do, bias, scale=1.0, dropout_rate=rate,
+                        seed=DROPOUT_SEED))
+                    continue
+                timing["fwd_ms"] = median_ms(torch, lambda: fa.flash_fwd(q, k, v, mask, **kw))
+                timing["dq_ms"] = median_ms(
+                    torch, lambda: fa.flash_dq(q, k, v, mask, lse, delta, do, **kw))
+                timing["dkv_ms"] = median_ms(
+                    torch, lambda: fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw))
+                timing["dbias_ms"] = median_ms(torch, lambda: fa.flash_dbias(
+                    q, k, v, mask, lse, delta, do, bias, scale=1.0))
+                timing["fwd_plain_ms"] = median_ms(
+                    torch, lambda: fa.attention_plain(q, k, v, mask, 1.0, bias=bias))
+                timing["bwd_plain_ms"] = median_ms(torch, lambda: fa.attention_bwd_plain(
+                    q, k, v, mask, o, lse, do, 1.0, bias=bias))
+                float_mask = bias[None] + torch.where(mask, 0.0, -1e9).to(bf)[:, None, None, :]
+                timing["fwd_library_ms"] = median_ms(
+                    torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=float_mask, scale=1.0))
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, float_mask)]
+            out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves[:3], attn_mask=leaves[3], scale=1.0)
+            timing["bwd_library_ms"] = median_ms(torch, lambda: out.backward(do, retain_graph=True))
+            del out, leaves, float_mask
+            bias_bytes = 2 * H * T * T
+            timing["fwd_bound"] = flash_bound(B, H, T, lens, D, 2, bias_bytes)
+            for kernel, products, out_tokens, extra in (
+                    ("dq", 3, T, bias_bytes), ("dkv", 4, 2 * T, bias_bytes),
+                    ("dbias", 2, 0, bias_bytes + 4 * H * T * T)):
+                timing[f"{kernel}_bound"] = flash_bwd_bound(B, H, T, lens, D, 2, products,
+                                                            out_tokens, extra)
+    emit({"phase": "kernel flash_bias", "ok": True, "shape": [B, H, T, T, D], "scale": 1.0,
+          "rates": [0.0, DROPOUT_RATE], "seed": DROPOUT_SEED,
+          "tolerance": {"o": tol, "lse": "1e-5 + 1e-5 |lse|", "grads": "2e-2 of scale"},
+          "max_abs_err": worst, **timing, **report})
+    return worst, timing
+
+
 def c_like_text(rng, n_tokens: int) -> str:
     """n_tokens C-like tokens (each one hash-tokenizer token), broken
     into lines after ; { and }."""
@@ -876,36 +1031,60 @@ def c_like_text(rng, n_tokens: int) -> str:
     return "\n".join(lines) + "\n"
 
 
-def combined_model(torch, layers: int | None = None):
-    """The combined model at codebert-base width (bf16 activations) with
-    the flagship graph encoder, random weights from seed 0 on the CPU."""
+def model_config(arch: str, layers: int | None = None, dropout: float | None = None):
+    """The combined family's model config at full width (bf16
+    activations) with the flagship graph encoder: DeepDFA+LineVul at
+    codebert-base width ("roberta") or CodeT5+DeepDFA at codet5-base
+    width ("t5"); `layers` cuts the depth, `dropout` sets every rate."""
     from deepdfa_tpu_torch.core import load
-    from deepdfa_tpu_torch.models import CombinedConfig, CombinedModel, TransformerConfig
+    from deepdfa_tpu_torch.models import CombinedConfig, DefectConfig, T5Config, TransformerConfig
 
     cfg = load(COMBINED_CONFIG)
-    enc = TransformerConfig(dtype="bfloat16", **({"num_layers": layers} if layers else {}))
-    mcfg = CombinedConfig(encoder=enc, graph_hidden_dim=cfg.model.hidden_dim,
-                          graph_n_steps=cfg.model.n_steps, graph_input_dim=cfg.data.feat.input_dim)
-    return CombinedModel(mcfg, generator=torch.Generator().manual_seed(0)).eval()
+    kw = {"dtype": "bfloat16", **({"num_layers": layers} if layers else {}),
+          **({"dropout_rate": dropout} if dropout is not None else {})}
+    graph = dict(graph_hidden_dim=cfg.model.hidden_dim, graph_n_steps=cfg.model.n_steps,
+                 graph_input_dim=cfg.data.feat.input_dim)
+    if arch == "t5":
+        return DefectConfig(encoder=T5Config(**kw), **graph)
+    head = {} if dropout is None else {"head_dropout": dropout}
+    return CombinedConfig(encoder=TransformerConfig(**kw), **graph, **head)
 
 
-def serve_combined_phase(torch, rng):
-    """The combined serving main path through score_combined on the
-    card, its launch counts, batched-vs-alone and card-vs-CPU checks."""
+def combined_model(torch, layers: int | None = None, arch: str = "roberta"):
+    """The `arch` family's model (`model_config`), random weights from
+    seed 0 on the CPU, in eval mode."""
+    from deepdfa_tpu_torch.models import CombinedModel, DefectModel
+
+    family = DefectModel if arch == "t5" else CombinedModel
+    return family(model_config(arch, layers), generator=torch.Generator().manual_seed(0)).eval()
+
+
+def tokenizer(arch: str):
+    """The hash tokenizer (vocab 4096) in the family's frame: RoBERTa's
+    (pad 1) or T5's (pad 0, eos 2)."""
+    from deepdfa_tpu_torch.data import HashTokenizer
+
+    return HashTokenizer(vocab_size=4096, t5_frame=arch == "t5")
+
+
+def serve_combined_phase(torch, rng, arch: str = "roberta"):
+    """The combined serving main path of the `arch` family through
+    score_combined on the card, its launch counts, batched-vs-alone and
+    card-vs-CPU checks."""
     import numpy as np
 
     from deepdfa_tpu_torch.core import apply_overrides, load
     from deepdfa_tpu_torch.core.config import serve_budgets
-    from deepdfa_tpu_torch.data import HashTokenizer
     from deepdfa_tpu_torch.nn import flash_attention as fa
     from deepdfa_tpu_torch.nn import ggnn_kernel as gk
     from deepdfa_tpu_torch.serve import CombinedExecutor, DynamicBatcher, score_combined
 
+    phase = "serve_t5" if arch == "t5" else "serve_combined"
     override = f"data.seq_buckets={json.dumps(COMBINED_BUCKETS)}"
     cfg = apply_overrides(load(COMBINED_CONFIG), [override])
-    tok = HashTokenizer(vocab_size=4096)
+    tok = tokenizer(arch)
     t0 = time.perf_counter()
-    model = combined_model(torch)
+    model = combined_model(torch, arch=arch)
     n_params = sum(p.numel() for p in model.parameters())
     init_s = time.perf_counter() - t0
     spans = [(20, 126), (127, 254), (255, 510)]  # real tokens + <s> </s> per bucket
@@ -922,15 +1101,15 @@ def serve_combined_phase(torch, rng):
     launches = {"flash_fwd": fa.LAUNCHES, "ggnn_step": gk.LAUNCHES}
     probs = np.asarray(summary.pop("probs"), dtype=np.float64)
     if summary["serve_scored"] != len(payloads) or not np.all(np.isfinite(probs)):
-        fail(f"serve_combined: {summary['serve_failed_requests']} failed or non-finite")
+        fail(f"{phase}: {summary['serve_failed_requests']} failed or non-finite")
     if not np.all((probs > 0.0) & (probs < 1.0)):
-        fail("serve_combined: a probability outside (0, 1)")
+        fail(f"{phase}: a probability outside (0, 1)")
     batches = summary["serve_batches"]
     warm = len(COMBINED_BUCKETS)
     want = {"flash_fwd": (batches + warm) * n_layers, "ggnn_step": (batches + warm) * n_steps}
     if (summary["flash_fwd_launches"], summary["ggnn_step_launches"]) != (
             batches * n_layers, batches * n_steps) or launches != want:
-        fail(f"serve_combined: launches {launches} (scoring {summary['flash_fwd_launches']}, "
+        fail(f"{phase}: launches {launches} (scoring {summary['flash_fwd_launches']}, "
              f"{summary['ggnn_step_launches']}), expected {want} for {batches} batches + "
              f"{warm} warmup batches")
 
@@ -943,19 +1122,19 @@ def serve_combined_phase(torch, rng):
     alone = [DynamicBatcher(ex).score_all([enc[i]])[0].wait(600) for i in pick]
     graph_gap = float(max(abs(a - probs[i]) for a, i in zip(alone, pick)))
     if graph_gap > 1e-5:
-        fail(f"serve_combined: alone vs batched with graphs differ by {graph_gap}")
+        fail(f"{phase}: alone vs batched with graphs differ by {graph_gap}")
     text_only = [(enc[i][0], None) for i in pick]
     together = [r.wait(600) for r in DynamicBatcher(ex).score_all(text_only)]
     text_alone = [DynamicBatcher(ex).score_all([p])[0].wait(600) for p in text_only]
     if together != text_alone:
-        fail(f"serve_combined: text-only alone {text_alone} != batched {together}")
+        fail(f"{phase}: text-only alone {text_alone} != batched {together}")
 
     # a 2-layer model of the same width and seed: card vs the CPU plain
     # path, compared on the logits (the probabilities squash their spread)
     small = [enc[i] for i in range(0, 12, 3)]  # 4 requests, T = 128 bucket
     two = {}
     for dev in ("cuda", "cpu"):
-        small_ex = CombinedExecutor(combined_model(torch, layers=2), tok, [128], 4 * 128,
+        small_ex = CombinedExecutor(combined_model(torch, 2, arch), tok, [128], 4 * 128,
                                     node_budget, edge_budget, device=dev)
         _, (_, batch) = small_ex.pack_chunk(128, small)
         b = batch.to(dev)
@@ -965,7 +1144,7 @@ def serve_combined_phase(torch, rng):
     cpu_err = float(np.abs(two["cuda"] - two["cpu"]).max())
     margin = two["cpu"][:, 1] - two["cpu"][:, 0]
     if not cpu_err <= COMBINED_LOGIT_TOL:
-        fail(f"serve_combined: 2-layer card vs CPU logits differ by {cpu_err} "
+        fail(f"{phase}: 2-layer card vs CPU logits differ by {cpu_err} "
              f"(tol {COMBINED_LOGIT_TOL})")
 
     # a load window: every bucket runs several full batches, so requests/s
@@ -980,12 +1159,12 @@ def serve_combined_phase(torch, rng):
     load_batches = load_summary["serve_batches"]
     if load_summary["serve_scored"] != len(load) or not np.all(
             (load_probs > 0.0) & (load_probs < 1.0)):
-        fail("serve_combined load: a failed request or a probability outside (0, 1)")
+        fail(f"{phase} load: a failed request or a probability outside (0, 1)")
     load_launches = (load_summary["flash_fwd_launches"], load_summary["ggnn_step_launches"])
     if load_launches != (load_batches * n_layers, load_batches * n_steps):
-        fail(f"serve_combined load: launches {load_launches} for {load_batches} batches")
+        fail(f"{phase} load: launches {load_launches} for {load_batches} batches")
     load_summary.pop("buckets")
-    emit({"phase": "serve_combined", "ok": True, "override": override,
+    emit({"phase": phase, "ok": True, "override": override,
           "seq_buckets": list(cfg.data.seq_buckets), "token_budget": cfg.data.token_budget,
           "node_budget": node_budget, "edge_budget": edge_budget, "params": n_params,
           "init_seconds": init_s, "requests": len(payloads), "kernel_launches": launches,
@@ -1003,7 +1182,7 @@ def serve_combined_phase(torch, rng):
     return launches, model, tok, cfg, enc
 
 
-def profile_combined_phase(torch, model, tok, cfg, enc) -> None:
+def profile_combined_phase(torch, model, tok, cfg, enc, phase: str = "profile_combined") -> None:
     """One full 512-token batch (16 rows): host collate, copies, forward
     to sync and fetch (median of 5, each stage synchronized), then one
     batch under torch.profiler (after a dropped warm-up batch) for device
@@ -1049,22 +1228,20 @@ def profile_combined_phase(torch, model, tok, cfg, enc) -> None:
     dev = device_profile(prof, profiled_ms)
     groups = device_groups(prof)
     mcfg = model.cfg
-    emit({"phase": "profile_combined", "rows": rows, "tokens": rows * 512,
+    emit({"phase": phase, "rows": rows, "tokens": rows * 512,
           **{k: statistics.median(v) for k, v in stages.items()},
           "device_ms_by_group": groups,
           "trace_complete": (groups["flash_fwd"]["calls"], groups["ggnn_step"]["calls"]) == (
               mcfg.encoder.num_layers, mcfg.graph_n_steps), **dev})
 
 
-def training_corpus(rng, input_dim: int):
+def training_corpus(rng, input_dim: int, tok):
     """Seeded labelled texts with graphs, tokenized: 32 rows a bucket at
     T 512, 32 at 256 and 64 at 128, so the bucket planner emits 4 full
     batches (2 of them at 512). A label-1 text uses the second half of
     C_WORDS' one-token words, a label-0 text the first; a label-1 graph
-    carries token 7 on one node (the GGNN smoke's signal)."""
-    from deepdfa_tpu_torch.data import HashTokenizer
-
-    tok = HashTokenizer(vocab_size=4096)
+    carries token 7 on one node (the GGNN smoke's signal). `tok` is the
+    family's tokenizer."""
     vocab = [w for w in C_WORDS if w not in ("->", "++")]  # those two are 2 tokens each
     half = len(vocab) // 2
     spans = {512: (255, 510), 256: (127, 254), 128: (20, 126)}
@@ -1080,25 +1257,20 @@ def training_corpus(rng, input_dim: int):
         g = synthetic_graph(rng, 2 * (i // 2) + (1 - label), int(rng.integers(10, 151)),
                             input_dim, signal=True)
         graphs[i] = dataclasses.replace(g, graph_id=i)
-    return tok, token_ids, labels, graphs
+    return token_ids, labels, graphs
 
 
-def combined_train_setup(torch, layers: int | None = None, dropout: float = DROPOUT_RATE):
-    """(config, CombinedConfig) of the combined training path at
-    codebert-base width (bf16 activations, remat "full") with the
-    flagship graph encoder; AdamW at lr 1e-4, no warmup, clip 1.0."""
+def combined_train_setup(torch, layers: int | None = None, dropout: float = DROPOUT_RATE,
+                         arch: str = "roberta"):
+    """(config, model config) of the `arch` family's training path at full
+    width (bf16 activations, remat "full") with the flagship graph
+    encoder; AdamW at lr 1e-4, no warmup, clip 1.0."""
     from deepdfa_tpu_torch.core import apply_overrides, load
-    from deepdfa_tpu_torch.models import CombinedConfig, TransformerConfig
 
     cfg = apply_overrides(load(COMBINED_CONFIG), [
         f"data.seq_buckets={json.dumps(COMBINED_BUCKETS)}", "train.optim.learning_rate=1e-4",
         "train.optim.warmup_frac=0.0", "train.optim.grad_clip_norm=1.0"])
-    enc = TransformerConfig(dtype="bfloat16", dropout_rate=dropout,
-                            **({"num_layers": layers} if layers else {}))
-    mcfg = CombinedConfig(encoder=enc, graph_hidden_dim=cfg.model.hidden_dim,
-                          graph_n_steps=cfg.model.n_steps, graph_input_dim=cfg.data.feat.input_dim,
-                          head_dropout=dropout)
-    return cfg, mcfg
+    return cfg, model_config(arch, layers, dropout)
 
 
 def grads_of(state) -> dict:
@@ -1106,10 +1278,10 @@ def grads_of(state) -> dict:
             if p.grad is not None}
 
 
-def train_combined_phase(torch, rng):
-    """The combined training main path through CombinedTrainer.fit on the
-    card: launch counts, bit-equal gradients, a 2-layer CPU cross-check,
-    and a step split with remat on and off."""
+def train_combined_phase(torch, rng, arch: str = "roberta"):
+    """The `arch` family's training main path through CombinedTrainer.fit
+    on the card: launch counts, bit-equal gradients, a 2-layer CPU
+    cross-check, and a step split with remat on and off."""
     import numpy as np
 
     from deepdfa_tpu_torch.data import collate_plan, lengths_for, plan_bucketed_batches
@@ -1118,8 +1290,10 @@ def train_combined_phase(torch, rng):
     from deepdfa_tpu_torch.nn.dropout import fold_seed
     from deepdfa_tpu_torch.train import CombinedTrainer
 
-    cfg, mcfg = combined_train_setup(torch)
-    tok, token_ids, labels, graphs = training_corpus(rng, cfg.data.feat.input_dim)
+    phase = "train_t5" if arch == "t5" else "train_combined"
+    cfg, mcfg = combined_train_setup(torch, arch=arch)
+    tok = tokenizer(arch)
+    token_ids, labels, graphs = training_corpus(rng, cfg.data.feat.input_dim, tok)
     bcfg = cfg.data.batch
     order = sorted(token_ids)
     lengths = lengths_for(token_ids, order, tok.pad_id)
@@ -1133,7 +1307,7 @@ def train_combined_phase(torch, rng):
     batches = [collate(p) for p in plans]
     shapes = [list(b.input_ids.shape) for b in batches]
     if len(batches) != TRAIN_BATCHES or sorted(s[1] for s in shapes) != [128, 256, 512, 512]:
-        fail(f"train_combined: planned batches {shapes}, want 4 full ones over 128/256/512")
+        fail(f"{phase}: planned batches {shapes}, want 4 full ones over 128/256/512")
     steps = TRAIN_BATCHES * TRAIN_EPOCHS
     trainer = CombinedTrainer(cfg, mcfg, total_steps=steps, device="cuda")
     t0 = time.perf_counter()
@@ -1142,7 +1316,7 @@ def train_combined_phase(torch, rng):
     n_params = sum(p.numel() for p in state.model.parameters())
     records = []
 
-    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = 0
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = fa.DBIAS_LAUNCHES = 0
     gk.LAUNCHES = gk.GRU_BWD_LAUNCHES = gk.DMSG_LAUNCHES = 0
     t0 = time.perf_counter()
     trainer.fit(state, lambda epoch: batches, val_batches=lambda: batches[:1],
@@ -1150,24 +1324,26 @@ def train_combined_phase(torch, rng):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.DQ_LAUNCHES,
-                "flash_dkv": fa.DKV_LAUNCHES, "ggnn_step": gk.LAUNCHES,
-                "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES, "ggnn_dmsg": gk.DMSG_LAUNCHES}
+                "flash_dkv": fa.DKV_LAUNCHES, "flash_dbias": fa.DBIAS_LAUNCHES,
+                "ggnn_step": gk.LAUNCHES, "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES,
+                "ggnn_dmsg": gk.DMSG_LAUNCHES}
     L, S = mcfg.encoder.num_layers, mcfg.graph_n_steps
     # per step: each layer's forward, its replay under remat, its two
-    # backward kernels; the warm-up runs one step a bucket; eval batches
-    # run the forward alone
+    # backward kernels (three with T5's bias: dbias); the warm-up runs one
+    # step a bucket; eval batches run the forward alone
     trained = steps + len(COMBINED_BUCKETS)
     want = {"flash_fwd": trained * 2 * L + TRAIN_EPOCHS * L, "flash_dq": trained * L,
-            "flash_dkv": trained * L, "ggnn_step": trained * S + TRAIN_EPOCHS * S,
+            "flash_dkv": trained * L, "flash_dbias": trained * L if arch == "t5" else 0,
+            "ggnn_step": trained * S + TRAIN_EPOCHS * S,
             "ggnn_gru_bwd": trained * S, "ggnn_dmsg": trained * S}
     if launches != want:
-        fail(f"train_combined: kernel launches {launches}, expected {want}")
+        fail(f"{phase}: kernel launches {launches}, expected {want}")
     epochs = [r for r in records if "epoch" in r]
     losses = [r["train_loss"] for r in epochs]
     if not all(math.isfinite(x) for x in losses + [r["val_loss"] for r in epochs]):
-        fail(f"train_combined: a non-finite loss in {epochs}")
+        fail(f"{phase}: a non-finite loss in {epochs}")
     if not losses[-1] < losses[0]:
-        fail(f"train_combined: the loss did not fall: epoch means {losses}")
+        fail(f"{phase}: the loss did not fall: epoch means {losses}")
 
     # two backward passes on one batch with one seed: the same bits
     b0 = batches[0].to(trainer.device)
@@ -1178,14 +1354,25 @@ def train_combined_phase(torch, rng):
 
     first, second = grads(), grads()
     if not all(torch.equal(first[k], second[k]) for k in first):
-        fail("train_combined: two backward passes on one batch gave other gradients")
+        fail(f"{phase}: two backward passes on one batch gave other gradients")
     del first, second
 
-    cpu = combined_cpu_check(torch, [batches[2], batches[2]])
+    if arch == "t5":
+        # bf16 rounding flips T5's ReLU gates where a pre-activation is
+        # near 0, and eos pooling feeds the last FFN one token a row, so
+        # bf16 gradients of the FFN kernels differ by several percent
+        # between any two bf16 runs (the card and the CPU here): the
+        # gradients are held in fp32 (the fp32 kernel instances on the
+        # card), the bf16 run's losses held and its gradients reported
+        cpu = {"two_layer_fp32": combined_cpu_check(torch, [batches[2]] * 2, arch, "float32"),
+               "two_layer_bf16": combined_cpu_check(torch, [batches[2]] * 2, arch,
+                                                    gate_grads=False)}
+    else:
+        cpu = combined_cpu_check(torch, [batches[2], batches[2]], arch)
     split = combined_step_split(torch, trainer, state,
                                 lambda: collate(next(p for p in plans if p.seq_len == 512)), tok)
     last = epochs[-1]
-    emit({"phase": "train_combined", "ok": True, "params": n_params, "init_seconds": init_s,
+    emit({"phase": phase, "ok": True, "params": n_params, "init_seconds": init_s,
           "steps": steps, "epochs": TRAIN_EPOCHS, "batch_shapes": shapes,
           "seq_buckets": COMBINED_BUCKETS, "token_budget": cfg.data.token_budget,
           "node_budget": bcfg.node_budget, "edge_budget": bcfg.edge_budget,
@@ -1201,14 +1388,17 @@ def train_combined_phase(torch, rng):
     return launches
 
 
-def combined_cpu_check(torch, batches) -> dict:
-    """A 2-layer model of the same width with dropout 0, the same weights
-    on the card and on the CPU plain path: the first two steps' losses
-    within COMBINED_TRAIN_LOSS_TOL, step-1 gradients within
-    COMBINED_TRAIN_GRAD_TOL of each leaf's scale."""
+def combined_cpu_check(torch, batches, arch: str = "roberta", dtype: str = "bfloat16",
+                       gate_grads: bool = True) -> dict:
+    """A 2-layer model of the same width with dropout 0 and `dtype`
+    activations, the same weights on the card and on the CPU plain path:
+    the first two steps' losses within COMBINED_TRAIN_LOSS_TOL, step-1
+    gradients within COMBINED_TRAIN_GRAD_TOL of each leaf's scale (with
+    `gate_grads`; else their error is only reported)."""
     from deepdfa_tpu_torch.train import CombinedTrainer
 
-    cfg, mcfg = combined_train_setup(torch, layers=2, dropout=0.0)
+    cfg, mcfg = combined_train_setup(torch, layers=2, dropout=0.0, arch=arch)
+    mcfg = dataclasses.replace(mcfg, encoder=dataclasses.replace(mcfg.encoder, dtype=dtype))
     pairs, grad_err = [], None
     runs = {dev: CombinedTrainer(cfg, mcfg, total_steps=2, device=dev) for dev in ("cuda", "cpu")}
     states = {dev: tr.init_state(seed=0) for dev, tr in runs.items()}
@@ -1226,12 +1416,13 @@ def combined_cpu_check(torch, batches) -> dict:
             grad_err = max(errs.values())
             worst_leaf = max(errs, key=errs.get)
     loss_err = max(abs(a - b) for a, b in pairs)
-    if loss_err > COMBINED_TRAIN_LOSS_TOL or grad_err > COMBINED_TRAIN_GRAD_TOL:
-        fail(f"train_combined: 2-layer card vs CPU losses {pairs} (abs err {loss_err}, tol "
-             f"{COMBINED_TRAIN_LOSS_TOL}), step-1 gradient err {grad_err} at {worst_leaf} "
-             f"(tol {COMBINED_TRAIN_GRAD_TOL})")
-    return {"two_layer_cpu_losses": pairs, "two_layer_cpu_loss_abs_err": loss_err,
-            "two_layer_cpu_step1_grad_rel_err": grad_err, "two_layer_worst_leaf": worst_leaf,
+    if loss_err > COMBINED_TRAIN_LOSS_TOL or (gate_grads and grad_err > COMBINED_TRAIN_GRAD_TOL):
+        fail(f"train ({arch}, {dtype}): 2-layer card vs CPU losses {pairs} (abs err {loss_err}, "
+             f"tol {COMBINED_TRAIN_LOSS_TOL}), step-1 gradient err {grad_err} at {worst_leaf} "
+             f"(tol {COMBINED_TRAIN_GRAD_TOL}{'' if gate_grads else ', reported only'})")
+    return {"dtype": dtype, "two_layer_cpu_losses": pairs, "two_layer_cpu_loss_abs_err": loss_err,
+            "two_layer_cpu_step1_grad_rel_err": grad_err, "grads_gated": gate_grads,
+            "two_layer_worst_leaf": worst_leaf,
             "two_layer_cpu_seconds": time.perf_counter() - t0}
 
 
@@ -1318,7 +1509,8 @@ def device_groups(prof) -> dict:
     # kernel-name fragments of each group: the flash kernels, the GGNN
     # step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*)
     names = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
-             "flash_dkv": ("flash_dkv",), "ggnn_step": ("ggnn_step",),
+             "flash_dkv": ("flash_dkv",), "flash_dbias": ("flash_dbias",),
+             "ggnn_step": ("ggnn_step",),
              "ggnn_gru_bwd": ("gru_bwd", "reduce_splits"), "ggnn_dmsg": ("dmsg_",)}
     groups = {name: [0.0, 0] for name in (*names, "matmul", "other")}
     for e in prof.key_averages():
@@ -1343,9 +1535,9 @@ def kernel_name(mangled: str) -> str:
         return mangled
     start = m.end()
     base, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
-    arg = re.match(r"ILi(\d+)E", rest)
+    arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?", rest)
     if arg:
-        return f"{base}<{arg.group(1)}>"
+        return f"{base}<{arg.group(1)}{', bias' * (arg.group(2) == '1')}>"
     for code, name in (("IfE", "float"), ("I13__nv_bfloat16E", "bf16")):
         if rest.startswith(code):
             return f"{base}<{name}>"
@@ -1412,72 +1604,102 @@ def main() -> None:
     kernel_err, timing = kernel_phase(torch, rng)
     bwd_err, bwd_timing = bwd_kernel_phase(torch, rng)
     launches, model, batch_specs, budgets = serve_phase(torch, rng)
-    if launches <= 0:
-        fail("the serve run launched the ggnn_step kernel no time")
     profile_phase(torch, model, batch_specs, budgets)
     train_launches = train_phase(torch, rng)
-    if min(train_launches.values()) <= 0:
-        fail(f"the train run launched a kernel no time: {train_launches}")
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
-    if min(combined_launches.values()) <= 0:
-        fail(f"the serve_combined run launched a kernel no time: {combined_launches}")
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
     del cmodel
     bwd_flash_err, bwd_flash = flash_bwd_kernel_phase(torch)
     tc_launches = train_combined_phase(torch, rng)
-    if min(tc_launches.values()) <= 0:
-        fail(f"the train_combined run launched a kernel no time: {tc_launches}")
+    fb_err, fb = flash_bias_kernel_phase(torch)
+    t5_serve, t5_model, t5_tok, t5_cfg, t5_enc = serve_combined_phase(torch, rng, "t5")
+    profile_combined_phase(torch, t5_model, t5_tok, t5_cfg, t5_enc, "profile_t5")
+    del t5_model
+    t5_train = train_combined_phase(torch, rng, "t5")
+    # each main path's launches, counted from 0 just before it ran
+    paths = {"serve": {"ggnn_step": launches}, "train": train_launches,
+             "serve_combined": combined_launches, "train_combined": tc_launches,
+             "serve_t5": t5_serve, "train_t5": t5_train}
+    for path, counts in paths.items():
+        idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
+                                                                     "train_combined")]
+        if idle:
+            fail(f"the {path} run launched {idle} no time: {counts}")
+
+    def by_path(kernel: str) -> dict:
+        return {path: c[kernel] for path, c in paths.items() if c.get(kernel)}
+
     flash_src = "deepdfa_tpu_torch/csrc/flash_attention.cu"
-    # each flash row's ms, plain_ms and library_ms are at dropout 0 (the
-    # library yardstick computes dq, dk and dv in one call); dropout_ms is
-    # the kernel at the training path's rate
+    # each flash row's ms, plain_ms and library_ms are at dropout 0 without
+    # a bias (the library yardstick computes dq, dk and dv in one call);
+    # dropout_ms is the kernel at the training path's rate, bias_* the
+    # kernel, bound and yardsticks at the T5 call with its [H, T, T] bias
     kernels = [
         {"name": "ggnn_step", "source": "deepdfa_tpu_torch/csrc/ggnn_step.cu",
-         "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555",
-         "launches": launches + train_launches["ggnn_step"] + combined_launches["ggnn_step"]
-         + tc_launches["ggnn_step"],
-         "max_abs_err": kernel_err,
+         "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555", "max_abs_err": kernel_err,
          **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "ggnn_gru_bwd", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:852",
-         "launches": train_launches["ggnn_gru_bwd"] + tc_launches["ggnn_gru_bwd"],
          "max_abs_err": bwd_err["ggnn_gru_bwd"], **bwd_timing["ggnn_gru_bwd"]},
         {"name": "ggnn_dmsg", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:907",
-         "launches": train_launches["ggnn_dmsg"] + tc_launches["ggnn_dmsg"],
          "max_abs_err": bwd_err["ggnn_dmsg"], **bwd_timing["ggnn_dmsg"]},
         {"name": "flash_fwd", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:427",
-         "launches": combined_launches["flash_fwd"] + tc_launches["flash_fwd"],
-         "max_abs_err": flash_err,
+         "max_abs_err": max(flash_err, fb_err["fwd"]),
          **{k: flash_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "dropout_ms": flash_timing["dropout"]["ms"]},
+         "dropout_ms": flash_timing["dropout"]["ms"],
+         "bias": {"ms": fb["fwd_ms"], "plain_ms": fb["fwd_plain_ms"],
+                  "library_ms": fb["fwd_library_ms"], "bound_ms": fb["fwd_bound"][0],
+                  "bound_by": fb["fwd_bound"][1]}},
         {"name": "flash_dq", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:495",
-         "launches": tc_launches["flash_dq"], "max_abs_err": bwd_flash_err,
+         "max_abs_err": max(bwd_flash_err, fb_err["dq"]),
          "ms": bwd_flash["dq_ms_rate0.0"], "plain_ms": bwd_flash["plain_ms"],
          "bound_ms": bwd_flash["dq_bound_ms"], "bound_by": bwd_flash["dq_bound_by"],
          "library_ms": bwd_flash["library_ms"],
-         "dropout_ms": bwd_flash[f"dq_ms_rate{DROPOUT_RATE}"]},
+         "dropout_ms": bwd_flash[f"dq_ms_rate{DROPOUT_RATE}"],
+         "bias": {"ms": fb["dq_ms"], "plain_ms": fb["bwd_plain_ms"],
+                  "library_ms": fb["bwd_library_ms"], "bound_ms": fb["dq_bound"][0],
+                  "bound_by": fb["dq_bound"][1]}},
         {"name": "flash_dkv", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:516",
-         "launches": tc_launches["flash_dkv"], "max_abs_err": bwd_flash_err,
+         "max_abs_err": max(bwd_flash_err, fb_err["dkv"]),
          "ms": bwd_flash["dkv_ms_rate0.0"], "plain_ms": bwd_flash["plain_ms"],
          "bound_ms": bwd_flash["dkv_bound_ms"], "bound_by": bwd_flash["dkv_bound_by"],
          "library_ms": bwd_flash["library_ms"],
-         "dropout_ms": bwd_flash[f"dkv_ms_rate{DROPOUT_RATE}"]},
+         "dropout_ms": bwd_flash[f"dkv_ms_rate{DROPOUT_RATE}"],
+         "bias": {"ms": fb["dkv_ms"], "plain_ms": fb["bwd_plain_ms"],
+                  "library_ms": fb["bwd_library_ms"], "bound_ms": fb["dkv_bound"][0],
+                  "bound_by": fb["dkv_bound"][1]}},
+        # kernel 8 exists only with a bias: its row is the T5 call's
+        {"name": "flash_dbias", "source": flash_src,
+         "replaces": "deepdfa_tpu/nn/flash_attention.py:559", "max_abs_err": fb_err["dbias"],
+         "ms": fb["dbias_ms"], "plain_ms": fb["bwd_plain_ms"], "bound_ms": fb["dbias_bound"][0],
+         "bound_by": fb["dbias_bound"][1], "library_ms": fb["bwd_library_ms"],
+         "dropout_ms": fb["dbias_dropout_ms"]},
     ]
+    for k in kernels:
+        k["launches_by_path"] = by_path(k["name"])
+        k["launches"] = sum(k["launches_by_path"].values())
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"], "launches": k["launches"],
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                        "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+                       "launches_by_path": k["launches_by_path"],
                        **({"dropout_ms": k["dropout_ms"], "dropout_rate": DROPOUT_RATE}
-                          if "dropout_ms" in k else {})}
+                          if "dropout_ms" in k else {}),
+                       **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {})}
                       for k in kernels]})
-    if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
+    times = [k[f] for k in kernels for f in ("ms", "plain_ms", "bound_ms")]
+    times += [k["bias"][f] for k in kernels if "bias" in k for f in ("ms", "plain_ms", "bound_ms")]
+    if not all(math.isfinite(t) for t in times):
         fail("a kernel time is not finite")
+    if not all(k["launches"] > 0 for k in kernels):
+        fail(f"a kernel launched no time on the main paths: "
+             f"{[(k['name'], k['launches']) for k in kernels]}")
     print(smi)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,5 +1,6 @@
 """Command line of the port: train and test the DeepDFA GGNN, and train
-the combined DeepDFA+LineVul model, on one device (the reference's
+the combined DeepDFA+LineVul and CodeT5+DeepDFA models, on one device
+(the reference's
 `deepdfa-tpu train`, `test` and `train-combined`,
 `deepdfa_tpu/cli/main.py:cmd_train`, `cmd_test` and
 `cmd_train_combined`).
@@ -7,7 +8,8 @@ the combined DeepDFA+LineVul model, on one device (the reference's
     python -m deepdfa_tpu_torch.cli train --config configs/bigvul_deepdfa.json [key=value ...]
     python -m deepdfa_tpu_torch.cli test --checkpoint best --split test [--export]
     python -m deepdfa_tpu_torch.cli train-combined --config configs/bigvul_combined.json \
-        --encoder codebert-base [--graph-checkpoint RUN [--freeze-graph]] [key=value ...]
+        [--arch roberta|t5] --encoder codebert-base|codet5-base|tiny \
+        [--graph-checkpoint RUN [--freeze-graph]] [key=value ...]
 
 They read the processed-dir layout the reference's `prepare` and
 `extract` write under the storage root (`$DEEPDFA_TPU_STORAGE`, else
@@ -20,9 +22,12 @@ under `runs/<run_name>/checkpoints-torch/` (GGNN) or
 checkpoints of the same run stay untouched. The card is the default
 device; `--device cpu` runs the plain path.
 
-`train-combined` takes the reference's arguments. Not ported yet, and
-refused: `--arch t5`, `--tokenizer` (BPE; no vocabulary is in the
-repository), `--pretrained` (no CodeBERT weights either),
+`train-combined` takes the reference's arguments. `--arch t5` builds
+the CodeT5+DeepDFA defect model (`--encoder tiny|codet5-base`, the
+T5-framed hash tokenizer, `max_sequence_length = --max-length`), as the
+reference does without `--pretrained` (`cli/main.py:771-815`). Not ported
+yet, and refused: `--tokenizer` (BPE; no vocabulary is in the
+repository), `--pretrained` (no CodeBERT or CodeT5 weights either),
 `--sp-variant ulysses` and `--remat-policy attn_saved`. Rows are
 bucketed by `data.seq_buckets` (the largest edge equal to
 `--max-length`) or padded to `--max-length` in fixed 16-row batches.
@@ -236,36 +241,47 @@ def cmd_test(args) -> None:
 
 
 def combined_setup(args, cfg: Config):
-    """(tokenizer, CombinedConfig) of `train-combined`
-    (the reference's `_combined_setup`, RoBERTa arch); the options the
-    port does not run raise NotImplementedError."""
+    """(tokenizer, model config) of `train-combined` (the reference's
+    `_combined_setup`): a CombinedConfig for `--arch roberta`, a
+    DefectConfig for `--arch t5`; the options the port does not run raise
+    NotImplementedError."""
+    import dataclasses
+
     from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
-    from deepdfa_tpu_torch.models import CombinedConfig, TransformerConfig
+    from deepdfa_tpu_torch.models import CombinedConfig, DefectConfig, T5Config, TransformerConfig
 
     refused = {
-        "--arch t5": args.arch == "t5",
         "--tokenizer (BPE: no vocabulary in the repository)": args.tokenizer is not None,
-        "--pretrained (no CodeBERT weights in the repository)": args.pretrained is not None,
+        "--pretrained (no CodeBERT or CodeT5 weights in the repository)":
+            args.pretrained is not None,
         "--sp-variant ulysses (multi-device slice)": args.sp_variant != "ring",
         "--remat-policy attn_saved (ROADMAP queue A, item 4)": args.remat_policy != "full",
     }
     for what, asked in refused.items():
         if asked:
             raise NotImplementedError(f"train-combined {what} is not ported yet")
-    if args.encoder not in ("tiny", "codebert-base"):
-        raise SystemExit(f"--encoder {args.encoder} is not valid for --arch roberta "
-                         "(choose from ('tiny', 'codebert-base'))")
+    widths = {"roberta": ("tiny", "codebert-base"), "t5": ("tiny", "codet5-base")}[args.arch]
+    if args.encoder not in widths:
+        raise SystemExit(f"--encoder {args.encoder} is not valid for --arch {args.arch} "
+                         f"(choose from {widths})")
+    kw = dict(attn_impl=args.attn_impl, remat_policy=args.remat_policy)
+    graph = dict(graph_hidden_dim=cfg.model.hidden_dim, graph_input_dim=cfg.data.feat.input_dim,
+                 use_graph=not args.no_graph)
+    if args.arch == "t5":
+        tok = HashTokenizer(vocab_size=4096, t5_frame=True)
+        enc_cfg = (T5Config(dtype="bfloat16", **kw) if args.encoder == "codet5-base"
+                   else T5Config.tiny(vocab_size=tok.vocab_size, **kw))
+        # the relative bias has no positional capacity of its own: bound T
+        # by the recipe's max_length, as the reference's CLI does
+        enc_cfg = dataclasses.replace(enc_cfg, max_sequence_length=args.max_length)
+        return tok, DefectConfig(encoder=enc_cfg, **graph)
     tok = HashTokenizer(vocab_size=4096)
     if args.encoder == "codebert-base":
-        enc_cfg = TransformerConfig(dtype="bfloat16", attn_impl=args.attn_impl,
-                                    remat_policy=args.remat_policy)
+        enc_cfg = TransformerConfig(dtype="bfloat16", **kw)
     else:
         enc_cfg = TransformerConfig.tiny(vocab_size=tok.vocab_size,
-                                         max_position_embeddings=args.max_length + 4,
-                                         attn_impl=args.attn_impl, remat_policy=args.remat_policy)
-    mcfg = CombinedConfig(encoder=enc_cfg, graph_hidden_dim=cfg.model.hidden_dim,
-                          graph_input_dim=cfg.data.feat.input_dim, use_graph=not args.no_graph)
-    return tok, mcfg
+                                         max_position_embeddings=args.max_length + 4, **kw)
+    return tok, CombinedConfig(encoder=enc_cfg, **graph)
 
 
 def cmd_train_combined(args) -> None:
@@ -392,8 +408,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("train-combined")
     p.add_argument("--arch", default="roberta", choices=["roberta", "t5"],
-                   help="roberta (LineVul style); t5 is not ported yet")
-    p.add_argument("--encoder", default="tiny", help="tiny | codebert-base")
+                   help="roberta (LineVul style) or t5 (CodeT5 DefectModel style)")
+    p.add_argument("--encoder", default="tiny",
+                   help="tiny | codebert-base (roberta) | codet5-base (t5)")
     p.add_argument("--pretrained", default=None,
                    help="a torch state_dict for the encoder (not ported yet)")
     p.add_argument("--tokenizer", default=None,

@@ -1,16 +1,19 @@
 // Flash attention for NVIDIA Hopper (sm_90a): the forward with in-kernel
-// dropout, and the two backward kernels dq and dk/dv. bf16 on tensor
-// cores (mma.sync), fp32 in IEEE FMA loops.
+// dropout and an additive score bias, and the three backward kernels dq,
+// dk/dv and dbias. bf16 on tensor cores (mma.sync), fp32 in IEEE FMA
+// loops.
 //
 // Replaces the TPU kernels of deepdfa_tpu/nn/flash_attention.py:
-//   flash_fwd -> _fwd_kernel (launched by _fwd_call)
-//   flash_dq  -> _dq_kernel  (the first pallas_call of _bwd_call)
-//   flash_dkv -> _dkv_kernel (the second pallas_call of _bwd_call)
-// without their bias and causal options. For q [B, H, Tq, D], k, v
-// [B, H, Tk, D] and a kv mask [B, Tk] the forward computes, per (b, h,
-// query row i),
+//   flash_fwd   -> _fwd_kernel   (launched by _fwd_call)
+//   flash_dq    -> _dq_kernel    (the first pallas_call of _bwd_call)
+//   flash_dkv   -> _dkv_kernel   (the second pallas_call of _bwd_call)
+//   flash_dbias -> _dbias_kernel (the third pallas_call of _bwd_call)
+// without their causal option. For q [B, H, Tq, D], k, v [B, H, Tk, D], a
+// kv mask [B, Tk] and an optional bias [H, Tq, Tk] (T5's relative-position
+// bias, broadcast over the batch) the forward computes, per (b, h, query
+// row i),
 //
-//   s_j = q_i . k_j * scale        where mask[b, j], else -1e30
+//   s_j = q_i . k_j * scale + bias[h, i, j]   where mask[b, j], else -1e30
 //   m   = max_j s_j,   p_j = exp(s_j - m) where mask[b, j], else 0
 //   l   = sum_j p_j                                     (fp32, undropped)
 //   o_i = (sum_j round(d_j p_j) * v_j) / max(l, FLT_MIN)    (fp32 sums)
@@ -18,14 +21,15 @@
 //
 // where round() casts to the input dtype before the product, as the
 // reference does (`pv.astype(v_blk.dtype)`), and d_j is the dropout
-// factor: keep_j / keep_prob, or 1 without dropout. Dropout scales the
-// numerator only; the softmax denominator stays undropped (`_fwd_kernel`
-// :199-208). An all-padding row has l = 0 and gets o = 0 and a finite
-// lse (-1e30), never NaN.
+// factor: keep_j / keep_prob, or 1 without dropout. The bias (bf16 or
+// fp32) is added unscaled in fp32 (the reference's `_scores`). Dropout
+// scales the numerator only; the softmax denominator stays undropped
+// (`_fwd_kernel` :199-208). An all-padding row has l = 0 and gets o = 0
+// and a finite lse (-1e30), never NaN.
 //
-// The backward (`_dq_kernel`, `_dkv_kernel`), from the forward's lse and
-// delta_i = rowsum(do_i * o_i) (fp32, computed by the wrapper as the
-// reference computes it outside any kernel):
+// The backward (`_dq_kernel`, `_dkv_kernel`, `_dbias_kernel`), from the
+// forward's lse and delta_i = rowsum(do_i * o_i) (fp32, computed by the
+// wrapper as the reference computes it outside any kernel):
 //
 //   p_ij  = exp(s_ij - lse_i) where mask[b, j], else 0    (masked FIRST:
 //           an all-padding row has lse = -1e30, and exp(s - lse) would
@@ -35,13 +39,14 @@
 //   dq_i  = scale * sum_j round(ds_ij) k_j
 //   dk_j  = scale * sum_i round(ds_ij) q_i
 //   dv_j  =         sum_i round(d_ij p_ij) do_i
+//   dbias[h, i, j] = sum_b ds_bhij                      (fp32, unscaled)
 //
 // Dropout bits. Each element's bits are a pure function of (seed, b, h,
 // row, col): Philox4x32-10 keyed by the 64-bit seed (lo, hi) with the
 // counter (col / 4, row, b*H + h, 0), whose four output words are the
 // columns 4c .. 4c+3. keep = bits < threshold, threshold = min(round(
 // keep_prob * 2^32), 2^32 - 1) (the reference's _Params.keep_threshold).
-// So the forward, the two backward kernels and the plain version
+// So the forward, the three backward kernels and the plain version
 // (nn/flash_attention.py:dropout_bits) draw the same mask, whatever each
 // one's tiling, without storing it. The reference seeds the TPU PRNG per
 // 512 x 512 block instead; its bits cannot be reproduced here, and the
@@ -58,9 +63,21 @@
 //    recomputing s and p from lse; dq stays in registers;
 //  - dk/dv: one block per (b*h, 64-key k-tile) loops over the q tiles
 //    (q, do, lse and delta staged in shared memory); each warp owns 16
-//    keys, so dk and dv stay in its registers.
-// Two kernels and no float atomics (the usual FA2 backward sums dq with
-// atomics): the same inputs on the same card give the same bits.
+//    keys, so dk and dv stay in its registers;
+//  - dbias: one block per (h, 64-row q-tile, 64-key tile) loops over the
+//    batch IN ORDER, recomputing s, p and dp for each b and summing ds in
+//    the S-shaped fp32 accumulator, then writes its tile once. The
+//    reference zeroes its output at b == 0 and accumulates across grid
+//    steps, which is right only because the TPU grid runs in order; GPU
+//    blocks run concurrently, so the batch loop lives inside the block.
+// No float atomics anywhere (the usual FA2 backward sums dq with atomics):
+// the same inputs on the same card give the same bits.
+//
+// The bias. Each lane reads the bias elements its score fragment owns
+// straight from device memory: the [H, Tq, Tk] bias is shared by the B
+// blocks of a head and stays in the 50 MB L2 across them (6.3 MB in bf16
+// at H 12, T 512). dbias reads its lanes' elements once, before its batch
+// loop. Staging the bias tile through shared memory is later speed work.
 //
 //  - bf16, D a multiple of 16 (<= 128): 4 warps of 16 rows (64 per
 //    block). mma.sync m16n8k16 bf16 products with fp32 accumulators. The
@@ -71,22 +88,25 @@
 //    ldmatrix.trans. Shared rows are padded by 8 elements so fragment
 //    loads hit 32 distinct banks.
 //  - fp32 (and bf16 at other widths): 4 warps; a lane scores one key
-//    (forward, dq) or one query (dk/dv) of a 32-wide tile and owns D/32
-//    output columns. Plain fp32 FMA, no TF32.
+//    (forward, dq, dbias) or one query (dk/dv) of a 32-wide tile and owns
+//    D/32 output columns. Plain fp32 FMA, no TF32.
 //
 // Bound on this card, at the flagship training call (B 16, H 12, T 512,
 // D 64, bf16, every key live): the forward does 2 products (12.9 GFLOP,
-// 0.013 ms at 989 TFLOP/s) on ~50 MB (0.015 ms at 3.35 TB/s); dq does 3
-// (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8 GFLOP,
-// 0.026 ms) on ~76 MB (0.023 ms). This first version has no TMA, no
-// wgmma and no double buffering: each tile's loads wait on a barrier,
-// and the Philox words are recomputed per lane (2 of each call's 4 words
-// used in the forward and dq, 1 in dk/dv).
+// 0.013 ms at 989 TFLOP/s) on ~50 MB (0.015 ms at 3.35 TB/s), 56.6 MB
+// with a bf16 bias; dq does 3 (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019
+// ms); dk/dv 4 (25.8 GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9
+// GFLOP) on ~70 MB with its fp32 output (0.021 ms: bytes bind). This
+// first version has no TMA, no wgmma and no double buffering: each
+// tile's loads wait on a barrier, and the Philox words are recomputed per
+// lane (2 of each call's 4 words used in the forward, dq and dbias, 1 in
+// dk/dv).
 //
 // The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
-// token) strides; the innermost dimension is contiguous. o, dq, dk and dv
-// are written through their strides (the wrapper makes them [B, T, H, D]
-// buffers); lse and delta are contiguous [B, H, Tq] fp32.
+// token) strides and the bias's (head, row) strides; the innermost
+// dimension is contiguous. o, dq, dk and dv are written through their
+// strides (the wrapper makes them [B, T, H, D] buffers); lse and delta
+// are contiguous [B, H, Tq] fp32, dbias contiguous [H, Tq, Tk] fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +143,14 @@ struct Drop {
   uint32_t key0, key1;
 };
 
+// The additive score bias [H, Tq, Tk] (p == nullptr: none), bf16 or
+// fp32, with its head and row strides; the last dimension is contiguous.
+struct Bias {
+  const void* p;
+  int bf16;
+  long long sh, st;
+};
+
 struct Args {
   const void* q;
   const void* k;
@@ -133,6 +161,7 @@ struct Args {
   int B, H, Tq, Tk, D;
   float scale;
   Drop drop;
+  Bias bias;
   Strides sq, sk, sv, so;
 };
 
@@ -147,9 +176,11 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
+  float* dbias;  // [H, Tq, Tk] contiguous
   int B, H, Tq, Tk, D;
   float scale;
   Drop drop;
+  Bias bias;
   Strides sq, sk, sv, sdo, sdq, sdk, sdv;
 };
 
@@ -168,6 +199,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 // x rounded to T and back: the reference's astype() before a product
 template <typename T>
 __device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+// bias[h, row, col] in fp32; the caller reads only live (row, col)
+__device__ __forceinline__ float bias_at(const Bias& bi, int h, int row, int col) {
+  const long long off = (long long)h * bi.sh + (long long)row * bi.st + col;
+  return bi.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bi.p)[off])
+                 : static_cast<const float*>(bi.p)[off];
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -349,7 +387,10 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&ac
 // ---------------------------------------------------------------------------
 // forward, bf16 on tensor cores
 
-template <int D>
+// kBias (here and in dq, dk/dv): the instance that adds a.bias; the
+// unbiased one carries none of its code, so the bias costs the RoBERTa
+// path no registers or instructions
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
   constexpr int KS = D + 8;  // padded shared row, in elements
   constexpr int NJ = kMmaKeys / 8;  // n8 tiles of S
@@ -395,15 +436,21 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
     for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
     mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);
 
-    // scale and mask, the tile's row max over the quad
+    // scale, bias and mask, the tile's row max over the quad
     float mx0 = kNegBig, mx1 = kNegBig;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool ok = ok_s[j * 8 + 2 * t + e] != 0.0f;
-        s[j][e] = ok ? s[j][e] * a.scale : kNegBig;
-        s[j][2 + e] = ok ? s[j][2 + e] * a.scale : kNegBig;
+        const int col = j * 8 + 2 * t + e;
+        const bool ok = ok_s[col] != 0.0f;
+        float b0 = 0.0f, b1 = 0.0f;
+        if (kBias && ok) {
+          if (r0 < a.Tq) b0 = bias_at(a.bias, h, r0, k0 + col);
+          if (r1 < a.Tq) b1 = bias_at(a.bias, h, r1, k0 + col);
+        }
+        s[j][e] = ok ? s[j][e] * a.scale + b0 : kNegBig;
+        s[j][2 + e] = ok ? s[j][2 + e] * a.scale + b1 : kNegBig;
         mx0 = fmaxf(mx0, s[j][e]);
         mx1 = fmaxf(mx1, s[j][2 + e]);
       }
@@ -539,7 +586,8 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
       float s = 0.0f;
       for (int d = 0; d < D; ++d) s = fmaf(q_s[row][d], k_s[lane][d], s);
       const bool ok = ok_s[lane] != 0.0f;
-      const float x = ok ? s * a.scale : kNegBig;
+      const float bv = (a.bias.p && ok) ? bias_at(a.bias, h, q0 + row, k0 + lane) : 0.0f;
+      const float x = ok ? s * a.scale + bv : kNegBig;
       const float m_new = fmaxf(m[i], warp_max(x));
       const float p = ok ? expf(x - m_new) : 0.0f;
       const float alpha = expf(m[i] - m_new);
@@ -582,7 +630,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
 // ---------------------------------------------------------------------------
 // dq, bf16 on tensor cores: one block per (b*h, 64-row q-tile)
 
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
   constexpr int KS = D + 8;
   constexpr int NJ = kMmaKeys / 8;
@@ -653,8 +701,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool ok = ok_s[col + e] != 0.0f;
-        const float p0 = (ok && v0) ? expf(s[j][e] * a.scale - lse0) : 0.0f;
-        const float p1 = (ok && v1) ? expf(s[j][2 + e] * a.scale - lse1) : 0.0f;
+        float b0 = 0.0f, b1 = 0.0f;
+        if (kBias && ok) {
+          if (v0) b0 = bias_at(a.bias, h, r0, k0 + col + e);
+          if (v1) b1 = bias_at(a.bias, h, r1, k0 + col + e);
+        }
+        const float p0 = (ok && v0) ? expf(s[j][e] * a.scale + b0 - lse0) : 0.0f;
+        const float p1 = (ok && v1) ? expf(s[j][2 + e] * a.scale + b1 - lse1) : 0.0f;
         float d0 = dp[j][e], d1 = dp[j][2 + e];
         if (a.drop.on) {
           d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
@@ -682,7 +735,7 @@ constexpr int dkv_smem_bytes() {
   return 4 * kMmaKeys * (D + 8) * 2 + 3 * kMmaKeys * 4;
 }
 
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
   constexpr int KS = D + 8;
   constexpr int NJ = kMmaKeys / 8;  // n8 tiles over a q tile
@@ -771,8 +824,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
         const int qc = j * 8 + 2 * t + e;
         const float lse = lse_s[qc], del = del_s[qc];
         const bool qv = qok_s[qc] != 0.0f;
-        const float p0 = (ok0 && qv) ? expf(st[j][e] * a.scale - lse) : 0.0f;
-        const float p1 = (ok1 && qv) ? expf(st[j][2 + e] * a.scale - lse) : 0.0f;
+        float b0 = 0.0f, b1 = 0.0f;
+        if (kBias && qv) {
+          if (ok0) b0 = bias_at(a.bias, h, q0 + qc, kr0);
+          if (ok1) b1 = bias_at(a.bias, h, q0 + qc, kr1);
+        }
+        const float p0 = (ok0 && qv) ? expf(st[j][e] * a.scale + b0 - lse) : 0.0f;
+        const float p1 = (ok1 && qv) ? expf(st[j][2 + e] * a.scale + b1 - lse) : 0.0f;
         float d0 = dpt[j][e], d1 = dpt[j][2 + e];
         float pv0 = p0, pv1 = p1;
         if (a.drop.on) {
@@ -872,7 +930,9 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
         s = fmaf(q_s[row * D + d], k_s[lane * (D + 1) + d], s);
         dp = fmaf(do_s[row * D + d], v_s[lane * (D + 1) + d], dp);
       }
-      const float p = ok_s[lane] != 0.0f ? expf(s * a.scale - lse[i]) : 0.0f;
+      const bool ok = ok_s[lane] != 0.0f;
+      const float bv = (a.bias.p && ok) ? bias_at(a.bias, h, q0 + row, k0 + lane) : 0.0f;
+      const float p = ok ? expf(s * a.scale + bv - lse[i]) : 0.0f;
       if (a.drop.on)
         dp = bits1(a.drop, bh, q0 + row, k0 + lane) < a.drop.threshold ? dp * a.drop.inv_keep
                                                                        : 0.0f;
@@ -978,8 +1038,9 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
         s = fmaf(q_s[lane * (D + 1) + d], k_s[kl * D + d], s);
         dp = fmaf(do_s[lane * (D + 1) + d], v_s[kl * D + d], dp);
       }
-      const float p =
-          (kok[i] && qok_s[lane] != 0.0f) ? expf(s * a.scale - lse_s[lane]) : 0.0f;
+      const bool live = kok[i] && qok_s[lane] != 0.0f;
+      const float bv = (a.bias.p && live) ? bias_at(a.bias, h, q0 + lane, c0 + kl) : 0.0f;
+      const float p = live ? expf(s * a.scale + bv - lse_s[lane]) : 0.0f;
       float pv = p;
       if (a.drop.on) {
         const bool keep = bits1(a.drop, bh, q0 + lane, c0 + kl) < a.drop.threshold;
@@ -1024,6 +1085,203 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// dbias, bf16 on tensor cores: one block per (64-key tile, 64-row q-tile,
+// h); the batch loop runs inside the block, in order, and ds sums in the
+// S-shaped fp32 accumulator
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
+  constexpr int KS = D + 8;
+  constexpr int NJ = kMmaKeys / 8;
+  constexpr int NK = D / 16;
+  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaKeys * KS];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaKeys * KS];
+  __shared__ float ok_s[kMmaKeys];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.z;
+  const int k0 = blockIdx.x * kMmaKeys;
+  const int r0 = blockIdx.y * kMmaRows + warp * 16 + g;  // this lane's rows
+  const int r1 = r0 + 8;
+  const bool v0 = r0 < a.Tq, v1 = r1 < a.Tq;
+
+  // this lane's bias elements (rows r0, r1; columns j*8 + 2t + {0, 1}),
+  // the same for every b
+  float bv[NJ][4], acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + j * 8 + 2 * t + e;
+      bv[j][e] = (v0 && key < a.Tk) ? bias_at(a.bias, h, r0, key) : 0.0f;
+      bv[j][2 + e] = (v1 && key < a.Tk) ? bias_at(a.bias, h, r1, key) : 0.0f;
+    }
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  }
+
+  for (int b = 0; b < a.B; ++b) {
+    const int bh = b * a.H + h;
+    const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
+    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
+    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
+    const __nv_bfloat16* dop =
+        static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+    const int* maskp = a.mask + (long long)b * a.Tk;
+    __syncthreads();  // the previous b's tiles are consumed
+    load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
+    load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
+    if (tid < kMmaKeys) {
+      const int key = k0 + tid;
+      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+
+    const float* lp = a.lse + (long long)bh * a.Tq;
+    const float* dlp = a.delta + (long long)bh * a.Tq;
+    const float lse0 = v0 ? lp[r0] : 0.0f, lse1 = v1 ? lp[r1] : 0.0f;
+    const float del0 = v0 ? dlp[r0] : 0.0f, del1 = v1 ? dlp[r1] : 0.0f;
+    uint32_t qf[NK][4], df[NK][4];
+    global_a_frags<NK>(qf, qp, r0, r1, a.Tq, a.sq.t, t);
+    global_a_frags<NK>(df, dop, r0, r1, a.Tq, a.sdo.t, t);
+
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+    }
+    mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);   // S = Q K^T
+    mma_abt<NJ, NK, KS>(dp, df, v_s, g, t);  // dP = dO V^T
+
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = j * 8 + 2 * t;
+      uint32_t bw[4] = {0u, 0u, 0u, 0u};
+      if (a.drop.on) {
+        const uint4 w0 = bits4(a.drop, bh, r0, k0 + col), w1 = bits4(a.drop, bh, r1, k0 + col);
+        const bool odd = t & 1;
+        bw[0] = odd ? w0.z : w0.x;
+        bw[1] = odd ? w0.w : w0.y;
+        bw[2] = odd ? w1.z : w1.x;
+        bw[3] = odd ? w1.w : w1.y;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = ok_s[col + e] != 0.0f;
+        const float p0 = (ok && v0) ? expf(s[j][e] * a.scale + bv[j][e] - lse0) : 0.0f;
+        const float p1 = (ok && v1) ? expf(s[j][2 + e] * a.scale + bv[j][2 + e] - lse1) : 0.0f;
+        float d0 = dp[j][e], d1 = dp[j][2 + e];
+        if (a.drop.on) {
+          d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
+          d1 = bw[2 + e] < a.drop.threshold ? d1 * a.drop.inv_keep : 0.0f;
+        }
+        acc[j][e] += p0 * (d0 - del0);
+        acc[j][2 + e] += p1 * (d1 - del1);
+      }
+    }
+  }
+
+  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + j * 8 + 2 * t + e;
+      if (key >= a.Tk) continue;
+      if (v0) out[(long long)r0 * a.Tk + key] = acc[j][e];
+      if (v1) out[(long long)r1 * a.Tk + key] = acc[j][2 + e];
+    }
+  }
+}
+
+// dbias, fp32 (and bf16 at other widths): one block per (32-key tile,
+// 16-row q-tile, h); a lane owns one key of the tile for the warp's 4
+// rows and sums their ds over the batch in order
+
+template <typename T>
+__global__ void __launch_bounds__(kScalarThreads) flash_dbias_scalar(BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D;
+  float* q_s = reinterpret_cast<float*>(smem);  // [16][D]
+  float* do_s = q_s + kScalarRows * D;           // [16][D]
+  float* k_s = do_s + kScalarRows * D;           // [32][D + 1]
+  float* v_s = k_s + kScalarKeys * (D + 1);      // [32][D + 1]
+  float* ok_s = v_s + kScalarKeys * (D + 1);     // [32]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int h = blockIdx.z;
+  const int k0 = blockIdx.x * kScalarKeys;
+  const int q0 = blockIdx.y * kScalarRows;
+  const int key = k0 + lane;
+
+  float bv[kScalarRowsPerWarp], acc[kScalarRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+    const int row = q0 + warp * kScalarRowsPerWarp + i;
+    bv[i] = (row < a.Tq && key < a.Tk) ? bias_at(a.bias, h, row, key) : 0.0f;
+    acc[i] = 0.0f;
+  }
+
+  for (int b = 0; b < a.B; ++b) {
+    const int bh = b * a.H + h;
+    const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
+    const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
+    const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
+    const T* dop = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+    const int* maskp = a.mask + (long long)b * a.Tk;
+    __syncthreads();
+    for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
+      const int r = idx / D, c = idx - r * D;
+      const bool in = q0 + r < a.Tq;
+      q_s[idx] = in ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
+      do_s[idx] = in ? to_f(dop[(q0 + r) * a.sdo.t + c]) : 0.0f;
+    }
+    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
+      const int r = idx / D, c = idx - r * D;
+      const bool in = k0 + r < a.Tk;
+      k_s[r * (D + 1) + c] = in ? to_f(kp[(k0 + r) * a.sk.t + c]) : 0.0f;
+      v_s[r * (D + 1) + c] = in ? to_f(vp[(k0 + r) * a.sv.t + c]) : 0.0f;
+    }
+    if (tid < kScalarKeys) {
+      const int kk = k0 + tid;
+      ok_s[tid] = (kk < a.Tk && maskp[kk] != 0) ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+      const int row = warp * kScalarRowsPerWarp + i;
+      if (q0 + row >= a.Tq) continue;  // warp-uniform
+      float s = 0.0f, dp = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(q_s[row * D + d], k_s[lane * (D + 1) + d], s);
+        dp = fmaf(do_s[row * D + d], v_s[lane * (D + 1) + d], dp);
+      }
+      const float lse = a.lse[(long long)bh * a.Tq + q0 + row];
+      const float del = a.delta[(long long)bh * a.Tq + q0 + row];
+      const float p = ok_s[lane] != 0.0f ? expf(s * a.scale + bv[i] - lse) : 0.0f;
+      if (a.drop.on)
+        dp = bits1(a.drop, bh, q0 + row, key) < a.drop.threshold ? dp * a.drop.inv_keep : 0.0f;
+      acc[i] += p * (dp - del);
+    }
+  }
+
+  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
+#pragma unroll
+  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+    const int row = q0 + warp * kScalarRowsPerWarp + i;
+    if (row < a.Tq && key < a.Tk) out[(long long)row * a.Tk + key] = acc[i];
+  }
+}
+
+__host__ __device__ constexpr int scalar_dbias_smem_floats(int D) {
+  // q_s, do_s [16][D]; k_s, v_s [32][D+1]; ok_s [32]
+  return 2 * kScalarRows * D + 2 * kScalarKeys * (D + 1) + kScalarKeys;
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 template <typename K>
@@ -1035,25 +1293,44 @@ cudaError_t allow_smem(K kernel, int bytes) {
 template <int D>
 cudaError_t launch_fwd_mma(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  flash_fwd_bf16_mma<D><<<grid, kMmaThreads, 0, stream>>>(a);
+  if (a.bias.p)
+    flash_fwd_bf16_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(a);
+  else
+    flash_fwd_bf16_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  flash_dq_bf16_mma<D><<<grid, kMmaThreads, 0, stream>>>(a);
+  if (a.bias.p)
+    flash_dq_bf16_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(a);
+  else
+    flash_dq_bf16_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dbias_mma(const BwdArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.Tk + kMmaKeys - 1) / kMmaKeys, (a.Tq + kMmaRows - 1) / kMmaRows, a.H);
+  flash_dbias_bf16_mma<D><<<grid, kMmaThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, bool kBias>
+cudaError_t launch_dkv_instance(const BwdArgs& a, cudaStream_t stream) {
+  constexpr int bytes = dkv_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_dkv_bf16_mma<D, kBias>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tk + kMmaRows - 1) / kMmaRows, a.B * a.H);
+  flash_dkv_bf16_mma<D, kBias><<<grid, kMmaThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_dkv_bf16_mma<D>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  flash_dkv_bf16_mma<D><<<grid, kMmaThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
+  return a.bias.p ? launch_dkv_instance<D, true>(a, stream)
+                  : launch_dkv_instance<D, false>(a, stream);
 }
 
 // dispatch on the head width of the tensor-core instances
@@ -1084,10 +1361,23 @@ template <int D>
 struct DkvMma {
   static cudaError_t run(const BwdArgs& a, cudaStream_t s) { return launch_dkv_mma<D>(a, s); }
 };
+template <int D>
+struct DbiasMma {
+  static cudaError_t run(const BwdArgs& a, cudaStream_t s) { return launch_dbias_mma<D>(a, s); }
+};
 
 bool bad_problem(int B, int H, int Tq, int Tk, int D) {
   return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > kMaxD ||
          (long long)B * H > 65535;  // gridDim.y
+}
+
+Bias make_bias(const void* p, int bf16, long long sh, long long st) {
+  Bias b;
+  b.p = p;
+  b.bf16 = bf16;
+  b.sh = sh;
+  b.st = st;
+  return b;
 }
 
 Drop make_drop(int on, unsigned threshold, float inv_keep, unsigned long long seed) {
@@ -1111,6 +1401,7 @@ void fill_bwd(BwdArgs& a, const void* q, const void* k, const void* v, const int
   a.delta = delta;
   a.dout = dout;
   a.dq = a.dk = a.dv = nullptr;
+  a.dbias = nullptr;
   a.B = B;
   a.H = H;
   a.Tq = Tq;
@@ -1131,17 +1422,19 @@ int flash_fwd_tile_rows(int use_mma) { return use_mma ? kMmaRows : kScalarRows; 
 int flash_fwd_max_head_dim() { return kMaxD; }
 
 // One forward call. q, k, v, o, mask and lse are device pointers; strides
-// is a host array of 12 element strides: (batch, head, token) of q, k, v
-// and o, whose innermost dimension is contiguous. dtype_bf16 selects
-// bf16 (else fp32) for q, k, v and o; lse is fp32 [B, H, Tq]; mask is
-// int32 [B, Tk]. use_mma takes the tensor-core path (bf16, D % 16 == 0,
-// 16-byte aligned pointers, strides multiples of 8). dropout != 0 drops
-// the numerator with keep = bits < keep_threshold, scaled by inv_keep,
-// the bits drawn from Philox keyed by seed. Returns a cudaError_t.
+// is a host array of 14 element strides: (batch, head, token) of q, k, v
+// and o, whose innermost dimension is contiguous, then the bias's (head,
+// row) strides. bias is a device pointer to the [H, Tq, Tk] score bias
+// (bf16 if bias_bf16, else fp32) or null. dtype_bf16 selects bf16 (else
+// fp32) for q, k, v and o; lse is fp32 [B, H, Tq]; mask is int32 [B, Tk].
+// use_mma takes the tensor-core path (bf16, D % 16 == 0, 16-byte aligned
+// pointers, strides multiples of 8). dropout != 0 drops the numerator
+// with keep = bits < keep_threshold, scaled by inv_keep, the bits drawn
+// from Philox keyed by seed. Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
-              int B, int H, int Tq, int Tk, int D, float scale, int dtype_bf16, int use_mma,
-              int dropout, unsigned keep_threshold, float inv_keep, unsigned long long seed,
-              const long long* strides, void* stream) {
+              const void* bias, int bias_bf16, int B, int H, int Tq, int Tk, int D, float scale,
+              int dtype_bf16, int use_mma, int dropout, unsigned keep_threshold, float inv_keep,
+              unsigned long long seed, const long long* strides, void* stream) {
   if (bad_problem(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -1157,6 +1450,7 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
   a.D = D;
   a.scale = scale;
   a.drop = make_drop(dropout, keep_threshold, inv_keep, seed);
+  a.bias = make_bias(bias, bias_bf16, strides[12], strides[13]);
   a.sq = Strides{strides[0], strides[1], strides[2]};
   a.sk = Strides{strides[3], strides[4], strides[5]};
   a.sv = Strides{strides[6], strides[7], strides[8]};
@@ -1175,17 +1469,19 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
 }
 
 // dq of one backward call (kernel 6). lse and delta are fp32 [B, H, Tq];
-// strides holds 15 element strides: (batch, head, token) of q, k, v, do
-// and dq. The rest as for flash_fwd.
+// strides holds 17 element strides: (batch, head, token) of q, k, v, do
+// and dq, then the bias's (head, row). The rest as for flash_fwd.
 int flash_dq(const void* q, const void* k, const void* v, const int* mask, const float* lse,
-             const float* delta, const void* dout, void* dq, int B, int H, int Tq, int Tk, int D,
-             float scale, int dtype_bf16, int use_mma, int dropout, unsigned keep_threshold,
-             float inv_keep, unsigned long long seed, const long long* strides, void* stream) {
+             const float* delta, const void* dout, void* dq, const void* bias, int bias_bf16,
+             int B, int H, int Tq, int Tk, int D, float scale, int dtype_bf16, int use_mma,
+             int dropout, unsigned keep_threshold, float inv_keep, unsigned long long seed,
+             const long long* strides, void* stream) {
   if (bad_problem(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   fill_bwd(a, q, k, v, mask, lse, delta, dout, B, H, Tq, Tk, D, scale,
            make_drop(dropout, keep_threshold, inv_keep, seed));
   a.dq = dq;
+  a.bias = make_bias(bias, bias_bf16, strides[15], strides[16]);
   a.sq = Strides{strides[0], strides[1], strides[2]};
   a.sk = Strides{strides[3], strides[4], strides[5]};
   a.sv = Strides{strides[6], strides[7], strides[8]};
@@ -1211,19 +1507,21 @@ int flash_dq(const void* q, const void* k, const void* v, const int* mask, const
   return (int)cudaGetLastError();
 }
 
-// dk and dv of one backward call (kernel 7). strides holds 18 element
-// strides: (batch, head, token) of q, k, v, do, dk and dv.
+// dk and dv of one backward call (kernel 7). strides holds 20 element
+// strides: (batch, head, token) of q, k, v, do, dk and dv, then the
+// bias's (head, row).
 int flash_dkv(const void* q, const void* k, const void* v, const int* mask, const float* lse,
-              const float* delta, const void* dout, void* dk, void* dv, int B, int H, int Tq,
-              int Tk, int D, float scale, int dtype_bf16, int use_mma, int dropout,
-              unsigned keep_threshold, float inv_keep, unsigned long long seed,
-              const long long* strides, void* stream) {
+              const float* delta, const void* dout, void* dk, void* dv, const void* bias,
+              int bias_bf16, int B, int H, int Tq, int Tk, int D, float scale, int dtype_bf16,
+              int use_mma, int dropout, unsigned keep_threshold, float inv_keep,
+              unsigned long long seed, const long long* strides, void* stream) {
   if (bad_problem(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   fill_bwd(a, q, k, v, mask, lse, delta, dout, B, H, Tq, Tk, D, scale,
            make_drop(dropout, keep_threshold, inv_keep, seed));
   a.dk = dk;
   a.dv = dv;
+  a.bias = make_bias(bias, bias_bf16, strides[18], strides[19]);
   a.sq = Strides{strides[0], strides[1], strides[2]};
   a.sk = Strides{strides[3], strides[4], strides[5]};
   a.sv = Strides{strides[6], strides[7], strides[8]};
@@ -1246,6 +1544,46 @@ int flash_dkv(const void* q, const void* k, const void* v, const int* mask, cons
     err = allow_smem(flash_dkv_scalar<float>, bytes);
     if (err != cudaSuccess) return (int)err;
     flash_dkv_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dbias of one backward call (kernel 8): dbias [H, Tq, Tk] fp32
+// contiguous, the batch sum of ds. bias is required (the scores are
+// recomputed with it); strides holds 14 element strides: (batch, head,
+// token) of q, k, v and do, then the bias's (head, row). The rest as for
+// flash_dq.
+int flash_dbias(const void* q, const void* k, const void* v, const int* mask, const float* lse,
+                const float* delta, const void* dout, const void* bias, int bias_bf16,
+                float* dbias, int B, int H, int Tq, int Tk, int D, float scale, int dtype_bf16,
+                int use_mma, int dropout, unsigned keep_threshold, float inv_keep,
+                unsigned long long seed, const long long* strides, void* stream) {
+  if (bad_problem(B, H, Tq, Tk, D) || bias == nullptr) return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  fill_bwd(a, q, k, v, mask, lse, delta, dout, B, H, Tq, Tk, D, scale,
+           make_drop(dropout, keep_threshold, inv_keep, seed));
+  a.dbias = dbias;
+  a.bias = make_bias(bias, bias_bf16, strides[12], strides[13]);
+  a.sq = Strides{strides[0], strides[1], strides[2]};
+  a.sk = Strides{strides[3], strides[4], strides[5]};
+  a.sv = Strides{strides[6], strides[7], strides[8]};
+  a.sdo = Strides{strides[9], strides[10], strides[11]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_mma) {
+    if (!dtype_bf16) return (int)cudaErrorInvalidValue;
+    return (int)by_width<DbiasMma>(D, a, s);
+  }
+  const int bytes = scalar_dbias_smem_floats(D) * 4;
+  const dim3 grid((Tk + kScalarKeys - 1) / kScalarKeys, (Tq + kScalarRows - 1) / kScalarRows, H);
+  cudaError_t err;
+  if (dtype_bf16) {
+    err = allow_smem(flash_dbias_scalar<__nv_bfloat16>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_dbias_scalar<__nv_bfloat16><<<grid, kScalarThreads, bytes, s>>>(a);
+  } else {
+    err = allow_smem(flash_dbias_scalar<float>, bytes);
+    if (err != cudaSuccess) return (int)err;
+    flash_dbias_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,14 @@ for the FFN) split into the port's layers, with q, k and v fused into
 one [D, 3*H*Dh] kernel; the graph encoder goes through
 `from_jax_params`; the head's [in, out] Dense kernels are transposed for
 `nn.Linear`.
+
+`from_jax_t5_params` / `from_jax_defect_params`: the T5 encoder's and
+the CodeT5+DeepDFA defect model's trees (`models/t5.py:init_params`,
+`init_defect_params` of the reference): `wq/wk/wv [L, D, H, Dh]` fuse
+into each layer's [D, 3*H*Dh] `wqkv`, `wo [L, H, Dh, D]` becomes [H*Dh,
+D], `wi`, `wo_ffn`, `ln1`, `ln2`, `final_ln`, `word` and `rel_bias [32,
+H]` keep their layout, the head's [in, 2] kernel is transposed for
+`nn.Linear` and the graph encoder goes through `from_jax_params`.
 """
 
 from __future__ import annotations
@@ -103,6 +111,39 @@ def from_jax_combined_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]
     sd["head_dense.bias"] = _t(head["dense_b"])
     sd["head_out.weight"] = _t(head["out_w"]).T.contiguous()
     sd["head_out.bias"] = _t(head["out_b"])
+    if "graph" in tree:
+        sd.update({f"graph.{k}": v for k, v in from_jax_params(tree["graph"]).items()})
+    return sd
+
+
+def from_jax_t5_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference T5 tree {"word", "rel_bias", "layers", "final_ln"} ->
+    a `T5Encoder` state_dict."""
+    unknown = set(tree) - {"word", "rel_bias", "layers", "final_ln"}
+    if unknown:
+        raise KeyError(f"T5 subtrees the port has no module for: {sorted(unknown)}")
+    sd = {name: _t(tree[name]) for name in ("word", "rel_bias", "final_ln")}
+    lay = {k: np.asarray(v, np.float32) for k, v in tree["layers"].items()}
+    n_layers, d = lay["wq"].shape[:2]
+    for i in range(n_layers):
+        pre = f"layers.{i}."
+        sd[pre + "wqkv"] = _t(np.concatenate(
+            [lay[w][i].reshape(d, -1) for w in ("wq", "wk", "wv")], axis=1))
+        sd[pre + "wo"] = _t(lay["wo"][i].reshape(-1, d))
+        for name in ("ln1", "wi", "wo_ffn", "ln2"):
+            sd[pre + name] = _t(lay[name][i])
+    return sd
+
+
+def from_jax_defect_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference defect tree {"encoder", "head"[, "graph"]} -> a
+    `DefectModel` state_dict."""
+    unknown = set(tree) - {"encoder", "head", "graph"}
+    if unknown:
+        raise KeyError(f"defect subtrees the port has no module for: {sorted(unknown)}")
+    sd = {f"encoder.{k}": v for k, v in from_jax_t5_params(tree["encoder"]).items()}
+    sd["head.weight"] = _t(tree["head"]["w"]).T.contiguous()
+    sd["head.bias"] = _t(tree["head"]["b"])
     if "graph" in tree:
         sd.update({f"graph.{k}": v for k, v in from_jax_params(tree["graph"]).items()})
     return sd

@@ -1,51 +1,59 @@
 """Flash attention on Hopper: the wrappers of `csrc/flash_attention.cu`
-(forward with in-kernel dropout, backward dq and dk/dv), their plain
-PyTorch versions, the `FlashAttention` autograd Function and the dispatch
-helpers of the reference's `deepdfa_tpu/nn/flash_attention.py`.
+(forward with in-kernel dropout and an additive score bias, backward dq,
+dk/dv and dbias), their plain PyTorch versions, the `FlashAttention`
+autograd Function and the dispatch helpers of the reference's
+`deepdfa_tpu/nn/flash_attention.py`.
 
 Kernel 5 of the port replaces the TPU kernel `_fwd_kernel` (launched by
-`_fwd_call`), kernels 6 and 7 replace `_dq_kernel` and `_dkv_kernel`
-(the two pallas_calls of `_bwd_call`). For q [B, H, Tq, D] and k, v
-[B, H, Tk, D] in fp32 or bf16 and a kv mask [B, Tk] (False = padding)
-the forward returns
+`_fwd_call`), kernels 6, 7 and 8 replace `_dq_kernel`, `_dkv_kernel` and
+`_dbias_kernel` (the pallas_calls of `_bwd_call`). For q [B, H, Tq, D]
+and k, v [B, H, Tk, D] in fp32 or bf16, a kv mask [B, Tk] (False =
+padding) and an optional bias [H, Tq, Tk] broadcast over the batch (T5's
+relative-position bias) the forward returns
 
-    o   [B, H, Tq, D] in q's dtype: dropout(softmax(q k^T * scale)) v
-        over the real keys, with p cast to v's dtype before the p.v
-        product; dropout scales the numerator only, the softmax
-        denominator stays undropped (`_fwd_kernel`, `:199-208`);
+    o   [B, H, Tq, D] in q's dtype: dropout(softmax(q k^T * scale +
+        bias)) v over the real keys, with p cast to v's dtype before the
+        p.v product; the bias is added unscaled, in fp32; dropout scales
+        the numerator only, the softmax denominator stays undropped
+        (`_fwd_kernel`, `:199-208`);
     lse [B, H, Tq, 1] fp32: the log-sum-exp of the masked scores.
 
 Scores of padded keys are -1e30 and their probabilities 0; the softmax
 sum is floored at FLT_MIN, so a query whose keys are all padding (the
 filler rows of a partly full batch) gets o = 0 and a finite lse; its
-gradients are 0.
+gradients are 0, and padded keys add nothing to dbias. dbias [H, Tq, Tk]
+is the batch sum of ds = p (dp - delta) in fp32; `flash_bwd` and
+`FlashAttention` return it cast to the bias's dtype (`_flash_bwd`,
+`:600-602`).
 
 Dropout bits. `dropout_bits(seed, B, H, Tq, Tk)` is a pure function of
 (seed, b, h, row, col): Philox4x32-10 keyed by the 64-bit seed, counter
 (col // 4, row, b*H + h, 0), whose four words are columns 4c .. 4c+3.
 `keep = bits < keep_threshold(rate)` (the reference's
 `_Params.keep_threshold`). The CUDA kernels compute the same bits in
-registers, so the forward, dq, dk/dv and the plain versions draw one
-mask whatever their tiling. These are not the reference's bits (it seeds
-the TPU PRNG per 512 x 512 block); parity with the reference goes
+registers, so the forward, dq, dk/dv, dbias and the plain versions draw
+one mask whatever their tiling. These are not the reference's bits (it
+seeds the TPU PRNG per 512 x 512 block); parity with the reference goes
 through `debug_bits`, explicit [B, H, Tq, Tk] uint32 bits, as its own
 tests do. `debug_bits` is for CPU tensors only.
 
-`flash_fwd`, `flash_dq`, `flash_dkv` and `flash_bwd` launch the CUDA
-kernels for tensors on a CUDA device and run the plain versions for
-tensors on the CPU; there is no other route and no fallback from one to
-the other. `LAUNCHES`, `DQ_LAUNCHES` and `DKV_LAUNCHES` count kernel
-launches. An additive bias and the causal mask (the reference's T5
-options) are not ported: `flash_attention` raises `NotImplementedError`
-for them.
+`flash_fwd`, `flash_dq`, `flash_dkv`, `flash_dbias` and `flash_bwd`
+launch the CUDA kernels for tensors on a CUDA device and run the plain
+versions for tensors on the CPU; there is no other route and no fallback
+from one to the other. `LAUNCHES`, `DQ_LAUNCHES`, `DKV_LAUNCHES` and
+`DBIAS_LAUNCHES` count kernel launches. The causal mask (the reference's
+decoder option) is not ported: `flash_attention` raises
+`NotImplementedError` for it.
 
 Bound on the card, at the flagship training call (B 16, H 12, T 512,
 D 64, bf16): the forward moves q, k, v and o once, ~50 MB (0.015 ms at
-3.35 TB/s), for 12.9 GFLOP (0.013 ms at 989 TFLOP/s); dq does 3
-products (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8
-GFLOP, 0.026 ms) on ~76 MB (0.023 ms). The kernels stream tiles through
-shared memory, so no T x T matrix reaches device memory; the source's
-header has the rest of the design.
+3.35 TB/s), plus a bf16 bias's 6.3 MB, for 12.9 GFLOP (0.013 ms at 989
+TFLOP/s); dq does 3 products (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019
+ms); dk/dv 4 (25.8 GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9
+GFLOP) on ~70 MB including its fp32 output (0.021 ms, bytes bind). The
+kernels stream tiles through shared memory, so no T x T matrix but the
+bias and dbias reaches device memory; the source's header has the rest
+of the design.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from deepdfa_tpu_torch.nn.ggnn_kernel import _on_cuda, _stream
 LAUNCHES = 0
 DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
+DBIAS_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 #: the reference's additive mask value and softmax-sum floor
@@ -167,18 +176,28 @@ def _plain_bits(q, k, dropout_rate, seed, debug_bits):
 # ---------------------------------------------------------------------------
 # plain versions
 
+def _masked_scores(q, k, kv_mask, scale: float, bias):
+    """(key mask [B, 1, 1, Tk], fp32 scores q k^T * scale + bias with
+    padded keys at NEG_BIG): the reference's `_scores`."""
+    ok = kv_mask.to(torch.bool)[:, None, None, :]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    return ok, torch.where(ok, s, NEG_BIG)
+
+
 def attention_plain(q, k, v, kv_mask, scale: float | None = None,
-                    dropout_rate: float = 0.0, bits: torch.Tensor | None = None):
+                    dropout_rate: float = 0.0, bits: torch.Tensor | None = None,
+                    bias: torch.Tensor | None = None):
     """Kernel 5's function in plain PyTorch: (o, lse).
 
     The reference's one-block form (`block_k = Tk`): scores and sums in
-    fp32, p (dropped and scaled by 1/keep_prob where `bits` say so, the
+    fp32, the bias [H, Tq, Tk] added unscaled before the mask, p
+    (dropped and scaled by 1/keep_prob where `bits` say so, the
     denominator undropped) cast to v's dtype before p.v with an fp32
     sum, o cast back to q's dtype."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
-    ok = kv_mask.to(torch.bool)[:, None, None, :]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    s = torch.where(ok, s, NEG_BIG)
+    ok, s = _masked_scores(q, k, kv_mask, scale, bias)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(TINY)
@@ -192,17 +211,19 @@ def attention_plain(q, k, v, kv_mask, scale: float | None = None,
 
 
 def attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale: float | None = None,
-                        dropout_rate: float = 0.0, bits: torch.Tensor | None = None):
-    """Kernels 6 and 7 in plain PyTorch: (dq, dk, dv) in q's dtype.
+                        dropout_rate: float = 0.0, bits: torch.Tensor | None = None,
+                        bias: torch.Tensor | None = None):
+    """Kernels 6, 7 and 8 in plain PyTorch: (dq, dk, dv) in q's dtype and
+    dbias [H, Tq, Tk] in fp32 (None without a bias).
 
-    The math of the reference's `_dq_kernel` and `_dkv_kernel` with its
-    rounding points: p = exp(s - lse) masked first; dp = do v^T, dropped
-    and scaled like p; ds = p (dp - delta) with delta = rowsum(do o) in
-    fp32; ds cast to k's (q's) dtype before ds.k (ds^T.q), the dropped p
-    cast to do's dtype before p^T.do; dq and dk scaled at the end."""
+    The math of the reference's `_dq_kernel`, `_dkv_kernel` and
+    `_dbias_kernel` with its rounding points: p = exp(s - lse) masked
+    first; dp = do v^T, dropped and scaled like p; ds = p (dp - delta)
+    with delta = rowsum(do o) in fp32; ds cast to k's (q's) dtype before
+    ds.k (ds^T.q), the dropped p cast to do's dtype before p^T.do; dq and
+    dk scaled at the end; dbias the batch sum of ds, unscaled."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
-    ok = kv_mask.to(torch.bool)[:, None, None, :]
-    s = torch.where(ok, torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, NEG_BIG)
+    ok, s = _masked_scores(q, k, kv_mask, scale, bias)
     p = torch.where(ok, torch.exp(s - lse), 0.0)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
@@ -218,7 +239,8 @@ def attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale: float | None = None
     dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float()) * scale
     dv = torch.matmul(pv.to(do.dtype).float().transpose(-1, -2), do.float())
-    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+    dbias = None if bias is None else ds.sum(dim=0)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +259,12 @@ def _library() -> ctypes.CDLL:
             lib = cuda_build.load("flash_attention")
             p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
             drop = [i, u, f, ctypes.c_ulonglong]  # on, threshold, 1/keep_prob, seed
-            lib.flash_fwd.argtypes = [p] * 6 + [i] * 5 + [f, i, i] + drop + [p, p]
-            lib.flash_dq.argtypes = [p] * 8 + [i] * 5 + [f, i, i] + drop + [p, p]
-            lib.flash_dkv.argtypes = [p] * 9 + [i] * 5 + [f, i, i] + drop + [p, p]
-            for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv):
+            bias = [p, i]  # the bias (or NULL) and whether it is bf16
+            lib.flash_fwd.argtypes = [p] * 6 + bias + [i] * 5 + [f, i, i] + drop + [p, p]
+            lib.flash_dq.argtypes = [p] * 8 + bias + [i] * 5 + [f, i, i] + drop + [p, p]
+            lib.flash_dkv.argtypes = [p] * 9 + bias + [i] * 5 + [f, i, i] + drop + [p, p]
+            lib.flash_dbias.argtypes = [p] * 7 + bias + [p] + [i] * 5 + [f, i, i] + drop + [p, p]
+            for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv, lib.flash_dbias):
                 fn.restype = i
             lib.flash_fwd_error_string.argtypes = [i]
             lib.flash_fwd_error_string.restype = ctypes.c_char_p
@@ -255,7 +279,8 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
-def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd") -> tuple[int, int, int, int, int]:
+def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd", bias=None
+                  ) -> tuple[int, int, int, int, int]:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{what}: q, k and v must be [B, H, T, D]")
     B, H, Tq, D = q.shape
@@ -269,6 +294,9 @@ def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd") -> tuple[int, int, 
         raise ValueError(f"{what}: kv_mask {tuple(kv_mask.shape)} must be [B={B}, Tk={Tk}]")
     if min(B, H, Tq, Tk, D) <= 0:
         raise ValueError(f"{what}: empty problem {tuple(q.shape)} x Tk={Tk}")
+    if bias is not None and tuple(bias.shape) != (H, Tq, Tk):
+        raise ValueError(f"{what}: bias {tuple(bias.shape)} must be [H={H}, Tq={Tq}, Tk={Tk}] "
+                         "(broadcast over the batch)")
     return B, H, Tq, Tk, D
 
 
@@ -311,6 +339,22 @@ def _check_card(what: str, q, k, v, kv_mask, extra=()) -> None:
                 )
 
 
+def _bias_args(what: str, q, bias) -> tuple[list, list]:
+    """The kernels' bias arguments: ([pointer or None, is_bf16], [head
+    stride, row stride]). The bias is [H, Tq, Tk] in q's dtype or fp32,
+    on q's device, any non-negative strides with the last one 1."""
+    if bias is None:
+        return [None, 0], [0, 0]
+    if bias.device != q.device:
+        raise ValueError(f"{what}: bias is on {bias.device}, not {q.device}")
+    if bias.dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"{what}: bias is {bias.dtype}; the kernel takes q's dtype "
+                        f"({q.dtype}) or float32")
+    if bias.stride(-1) != 1 or min(bias.stride()) < 0:
+        raise ValueError(f"{what}: the bias's last dimension must be contiguous")
+    return [bias.data_ptr(), int(bias.dtype == torch.bfloat16)], list(bias.stride()[:2])
+
+
 def _refuse_debug_bits(debug_bits, what: str) -> None:
     if debug_bits is not None:
         raise ValueError(f"{what}: debug_bits is a CPU testing hook; the kernel draws its "
@@ -343,15 +387,22 @@ def _scale(scale, D) -> float:
     return float(D) ** -0.5 if scale is None else float(scale)
 
 
+def _strides(*xs) -> list:
+    return [s for x in xs for s in x.stride()[:3]]
+
+
 def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: float = 0.0,
-              seed: int | None = None, debug_bits: torch.Tensor | None = None):
+              seed: int | None = None, debug_bits: torch.Tensor | None = None,
+              bias: torch.Tensor | None = None):
     """Kernel 5: (o [B, H, Tq, D], lse [B, H, Tq, 1] fp32).
 
     CPU tensors run `attention_plain` (with `debug_bits` if given, else
     the seed's Philox bits); CUDA tensors launch the kernel on the
     current stream or raise. q, k and v may be strided views (any batch,
     head and token strides) whose last dimension is contiguous; o is a
-    [B, H, Tq, D] view of a [B, Tq, H, D] buffer.
+    [B, H, Tq, D] view of a [B, Tq, H, D] buffer. `bias` [H, Tq, Tk] (q's
+    dtype or fp32, last dimension contiguous) is added to the scaled
+    scores.
 
     The kernel instance follows from dtype and head width alone: bf16
     with D a multiple of 16 takes the tensor-core (mma.sync) instance,
@@ -359,24 +410,26 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
     of 8 elements (anything else raises); fp32, and bf16 at other head
     widths, take the FMA instance."""
     global LAUNCHES
-    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask)
+    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, bias=bias)
     rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_fwd", q.device):
         return attention_plain(q, k, v, kv_mask, scale, rate,
-                               _plain_bits(q, k, rate, seed, debug_bits))
+                               _plain_bits(q, k, rate, seed, debug_bits), bias)
     _check_card("flash_fwd", q, k, v, kv_mask)
     _refuse_debug_bits(debug_bits, "flash_fwd")
+    bias_args, bias_strides = _bias_args("flash_fwd", q, bias)
     drop = _drop_args(rate, seed, "flash_fwd")
     lib = _library()
     mask = kv_mask.to(torch.int32).contiguous()
     o = _bthd(B, Tq, H, D, q)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
-    strides = [s for x in (q, k, v, o) for s in x.stride()[:3]]
+    strides = _strides(q, k, v, o) + bias_strides
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, H, Tq, Tk, D, _scale(scale, D), int(q.dtype == torch.bfloat16),
-            int(_tensor_core(q)), *drop, (ctypes.c_longlong * 12)(*strides), _stream(q.device),
+            lse.data_ptr(), *bias_args, B, H, Tq, Tk, D, _scale(scale, D),
+            int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
+            (ctypes.c_longlong * 14)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_fwd")
     with _launch_lock:
@@ -384,11 +437,12 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
     return o, lse
 
 
-def _bwd_operands(what, q, k, v, kv_mask, lse, delta, do):
+def _bwd_operands(what, q, k, v, kv_mask, lse, delta, do, bias):
     """The backward kernels' common checks; (mask int32, lse, delta and do
-    as the kernels take them). do is copied once where it is not
-    row-contiguous, or (tensor-core instance) off the 16-byte grid."""
-    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, what)
+    as the kernels take them, the bias arguments). do is copied once
+    where it is not row-contiguous, or (tensor-core instance) off the
+    16-byte grid."""
+    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, what, bias)
     _check_card(what, q, k, v, kv_mask, (("lse", lse), ("delta", delta), ("do", do)))
     for name, x in (("lse", lse), ("delta", delta)):
         if x.dtype != torch.float32 or x.numel() != B * H * Tq:
@@ -397,32 +451,40 @@ def _bwd_operands(what, q, k, v, kv_mask, lse, delta, do):
         raise ValueError(f"{what}: do {tuple(do.shape)} {do.dtype} must be q's shape and dtype")
     if do.stride(-1) != 1 or min(do.stride()) < 0 or (_tensor_core(q) and not _aligned(do)):
         do = do.contiguous()
-    return (kv_mask.to(torch.int32).contiguous(), lse.contiguous(), delta.contiguous(), do)
+    return (kv_mask.to(torch.int32).contiguous(), lse.contiguous(), delta.contiguous(), do,
+            *_bias_args(what, q, bias))
+
+
+def _refuse_cpu(what: str, device) -> None:
+    if not _on_cuda(what, device):
+        raise ValueError(f"{what} launches the CUDA kernel; on the CPU use attention_bwd_plain")
 
 
 def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
-             dropout_rate: float = 0.0, seed: int | None = None):
+             dropout_rate: float = 0.0, seed: int | None = None,
+             bias: torch.Tensor | None = None):
     """Kernel 6 on CUDA tensors: dq [B, H, Tq, D] in q's dtype (a view of
     a [B, Tq, H, D] buffer), from the forward's lse and delta =
-    rowsum(do * o) (fp32, [B, H, Tq, 1]). Raises on CPU tensors: the
-    plain version of the whole backward is `attention_bwd_plain`."""
+    rowsum(do * o) (fp32, [B, H, Tq, 1]) and the forward's bias. Raises
+    on CPU tensors: the plain version of the whole backward is
+    `attention_bwd_plain`."""
     global DQ_LAUNCHES
-    if not _on_cuda("flash_dq", q.device):
-        raise ValueError("flash_dq launches the CUDA kernel; on the CPU use attention_bwd_plain")
+    _refuse_cpu("flash_dq", q.device)
     rate = _check_rate(dropout_rate)
-    mask, lse, delta, do = _bwd_operands("flash_dq", q, k, v, kv_mask, lse, delta, do)
+    mask, lse, delta, do, bias_args, bias_strides = _bwd_operands(
+        "flash_dq", q, k, v, kv_mask, lse, delta, do, bias)
     drop = _drop_args(rate, seed, "flash_dq")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     lib = _library()
     dq = _bthd(B, Tq, H, D, q)
-    strides = [s for x in (q, k, v, do, dq) for s in x.stride()[:3]]
+    strides = _strides(q, k, v, do, dq) + bias_strides
     with torch.cuda.device(q.device):
         rc = lib.flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), do.data_ptr(), dq.data_ptr(), B, H, Tq, Tk, D, _scale(scale, D),
-            int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
-            (ctypes.c_longlong * 15)(*strides), _stream(q.device),
+            delta.data_ptr(), do.data_ptr(), dq.data_ptr(), *bias_args, B, H, Tq, Tk, D,
+            _scale(scale, D), int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
+            (ctypes.c_longlong * 17)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_dq")
     with _launch_lock:
@@ -431,26 +493,27 @@ def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
 
 
 def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
-              dropout_rate: float = 0.0, seed: int | None = None):
+              dropout_rate: float = 0.0, seed: int | None = None,
+              bias: torch.Tensor | None = None):
     """Kernel 7 on CUDA tensors: (dk, dv) [B, H, Tk, D] in q's dtype
     (views of [B, Tk, H, D] buffers). Arguments as for `flash_dq`."""
     global DKV_LAUNCHES
-    if not _on_cuda("flash_dkv", q.device):
-        raise ValueError("flash_dkv launches the CUDA kernel; on the CPU use attention_bwd_plain")
+    _refuse_cpu("flash_dkv", q.device)
     rate = _check_rate(dropout_rate)
-    mask, lse, delta, do = _bwd_operands("flash_dkv", q, k, v, kv_mask, lse, delta, do)
+    mask, lse, delta, do, bias_args, bias_strides = _bwd_operands(
+        "flash_dkv", q, k, v, kv_mask, lse, delta, do, bias)
     drop = _drop_args(rate, seed, "flash_dkv")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     lib = _library()
     dk, dv = _bthd(B, Tk, H, D, q), _bthd(B, Tk, H, D, q)
-    strides = [s for x in (q, k, v, do, dk, dv) for s in x.stride()[:3]]
+    strides = _strides(q, k, v, do, dk, dv) + bias_strides
     with torch.cuda.device(q.device):
         rc = lib.flash_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq, Tk, D,
-            _scale(scale, D), int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
-            (ctypes.c_longlong * 18)(*strides), _stream(q.device),
+            delta.data_ptr(), do.data_ptr(), dk.data_ptr(), dv.data_ptr(), *bias_args,
+            B, H, Tq, Tk, D, _scale(scale, D), int(q.dtype == torch.bfloat16),
+            int(_tensor_core(q)), *drop, (ctypes.c_longlong * 20)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_dkv")
     with _launch_lock:
@@ -458,51 +521,95 @@ def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
     return dk, dv
 
 
+def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None = None,
+                dropout_rate: float = 0.0, seed: int | None = None):
+    """Kernel 8 on CUDA tensors: dbias [H, Tq, Tk] fp32, the batch sum of
+    ds = p (dp - delta) (contiguous). One block per (h, 64-row q tile,
+    64-key tile) loops over the batch in order, so the sum takes the same
+    bits on every run, with no atomics. Arguments as for `flash_dq`; the
+    bias is required (the scores are recomputed with it)."""
+    global DBIAS_LAUNCHES
+    _refuse_cpu("flash_dbias", q.device)
+    if bias is None:
+        raise ValueError("flash_dbias: needs the forward's bias")
+    rate = _check_rate(dropout_rate)
+    mask, lse, delta, do, bias_args, bias_strides = _bwd_operands(
+        "flash_dbias", q, k, v, kv_mask, lse, delta, do, bias)
+    drop = _drop_args(rate, seed, "flash_dbias")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    lib = _library()
+    dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, do) + bias_strides
+    with torch.cuda.device(q.device):
+        rc = lib.flash_dbias(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), do.data_ptr(), *bias_args, dbias.data_ptr(), B, H, Tq, Tk, D,
+            _scale(scale, D), int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
+            (ctypes.c_longlong * 14)(*strides), _stream(q.device),
+        )
+    _raise_on(lib, rc, "flash_dbias")
+    with _launch_lock:
+        DBIAS_LAUNCHES += 1
+    return dbias
+
+
 def flash_bwd(q, k, v, kv_mask, o, lse, do, *, scale: float | None = None,
               dropout_rate: float = 0.0, seed: int | None = None,
-              debug_bits: torch.Tensor | None = None):
-    """The backward of `flash_fwd`: (dq, dk, dv) in q's dtype.
+              debug_bits: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+              with_dbias: bool = True):
+    """The backward of `flash_fwd`: (dq, dk, dv) in q's dtype and dbias
+    [H, Tq, Tk] fp32 (None without a bias, or with `with_dbias` off).
 
     CPU tensors run `attention_bwd_plain`. On CUDA tensors delta =
     rowsum(do * o) is a plain fp32 reduction (the reference computes it
-    outside any kernel too, `_flash_bwd`), then kernel 6 (dq) and kernel
-    7 (dk, dv) launch on the current stream."""
+    outside any kernel too, `_flash_bwd`), then kernel 6 (dq), kernel 7
+    (dk, dv) and, with a bias, kernel 8 (dbias) launch on the current
+    stream."""
     rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_bwd", q.device):
-        _check_shapes(q, k, v, kv_mask, "flash_bwd")
-        return attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale, rate,
-                                   _plain_bits(q, k, rate, seed, debug_bits))
+        _check_shapes(q, k, v, kv_mask, "flash_bwd", bias)
+        dq, dk, dv, dbias = attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale, rate,
+                                                _plain_bits(q, k, rate, seed, debug_bits), bias)
+        return dq, dk, dv, dbias if with_dbias else None
     _refuse_debug_bits(debug_bits, "flash_bwd")
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    dq = flash_dq(q, k, v, kv_mask, lse, delta, do, scale=scale, dropout_rate=rate, seed=seed)
-    dk, dv = flash_dkv(q, k, v, kv_mask, lse, delta, do, scale=scale, dropout_rate=rate,
-                       seed=seed)
-    return dq, dk, dv
+    kw = {"scale": scale, "dropout_rate": rate, "seed": seed}
+    dq = flash_dq(q, k, v, kv_mask, lse, delta, do, bias=bias, **kw)
+    dk, dv = flash_dkv(q, k, v, kv_mask, lse, delta, do, bias=bias, **kw)
+    dbias = None
+    if bias is not None and with_dbias:
+        dbias = flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, **kw)
+    return dq, dk, dv, dbias
 
 
 class FlashAttention(torch.autograd.Function):
     """o = flash attention of (q, k, v) with the kernels' backward.
 
-    Saves q, k, v, the mask, o and lse (and the seed, an int): the
-    backward recomputes p from lse and redraws the dropout mask from the
-    seed, as the reference's custom VJP does (`_flash_fwd`, `_flash_bwd`)."""
+    Saves q, k, v, the mask, the bias, o and lse (and the seed, an int):
+    the backward recomputes p from lse and redraws the dropout mask from
+    the seed, as the reference's custom VJP does (`_flash_fwd`,
+    `_flash_bwd`). The bias's cotangent is computed only when the bias
+    needs a gradient, and is cast to its dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, scale, dropout_rate, seed, debug_bits):
+    def forward(ctx, q, k, v, kv_mask, bias, scale, dropout_rate, seed, debug_bits):
         o, lse = flash_fwd(q, k, v, kv_mask, scale=scale, dropout_rate=dropout_rate,
-                           seed=seed, debug_bits=debug_bits)
-        ctx.save_for_backward(q, k, v, kv_mask, o, lse,
-                              *(() if debug_bits is None else (debug_bits,)))
+                           seed=seed, debug_bits=debug_bits, bias=bias)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse, bias, debug_bits)
         ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, kv_mask, o, lse, *bits = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, kv_mask, o, lse, do, scale=ctx.scale,
-                               dropout_rate=ctx.dropout_rate, seed=ctx.seed,
-                               debug_bits=bits[0] if bits else None)
-        return dq, dk, dv, None, None, None, None, None
+        q, k, v, kv_mask, o, lse, bias, bits = ctx.saved_tensors
+        dq, dk, dv, dbias = flash_bwd(q, k, v, kv_mask, o, lse, do, scale=ctx.scale,
+                                      dropout_rate=ctx.dropout_rate, seed=ctx.seed,
+                                      debug_bits=bits, bias=bias,
+                                      with_dbias=ctx.needs_input_grad[4])
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, None, dbias, None, None, None, None
 
 
 def flash_attention(
@@ -519,39 +626,42 @@ def flash_attention(
     debug_bits: torch.Tensor | None = None,
 ):
     """The reference's `flash_attention`: o [B, H, Tq, D], differentiable
-    in q, k and v through `FlashAttention` (kernels 5-7 on the card).
+    in q, k, v and the bias through `FlashAttention` (kernels 5-8 on the
+    card).
 
     `seed` (a 64-bit int) seeds the in-kernel dropout; `debug_bits`
     (CPU only) replaces its bits, as the reference's testing hook does.
-    An additive score bias and the causal mask raise
-    `NotImplementedError`: their kernels come with the T5 slice."""
-    if bias is not None:
-        raise NotImplementedError(
-            "flash_attention bias: the additive score bias (T5 relative "
-            "positions) comes with the T5 slice of the port"
-        )
+    `bias` [H, Tq, Tk] is an additive score bias broadcast over the batch
+    (T5's relative positions), added unscaled. The causal mask raises
+    `NotImplementedError`: it comes with the generation slice."""
     if causal:
         raise NotImplementedError(
-            "flash_attention causal: the causal mask comes with the T5 slice of the port"
+            "flash_attention causal: the causal mask (T5 decoder self-attention) comes "
+            "with the generation slice of the port (ROADMAP queue A, item 4)"
         )
     rate = _check_rate(dropout_rate)
     if rate > 0.0 and seed is None and debug_bits is None:
         raise ValueError("flash_attention: dropout needs a seed")
-    return FlashAttention.apply(q, k, v, kv_mask, scale, rate, seed, debug_bits)
+    return FlashAttention.apply(q, k, v, kv_mask, bias, scale, rate, seed, debug_bits)
 
 
-def flash_shape_ok(Tq: int, head_dim: int, Tk: int | None = None, biased: bool = False) -> bool:
+def flash_shape_ok(Tq: int, head_dim: int, Tk: int | None = None) -> bool:
     """Can the CUDA kernels take this problem? They tile queries and keys
     in 64-row blocks (16 and 32 in the FMA instances) and mask the ragged
     tail themselves, so any Tq, Tk >= 1 qualify; the head must be
-    1..MAX_HEAD_DIM wide. A biased call is never tileable: the bias is
-    not ported."""
+    1..MAX_HEAD_DIM wide. A biased call has the same rule: each lane
+    reads the bias elements of its own score fragment from device memory
+    (through the L2, where the [H, Tq, Tk] bias stays across the batch),
+    so no sequence cap follows from it. The reference caps biased calls
+    at T = 4096 because its kernels hold a [block_q, T] bias strip in
+    the TPU's VMEM; the port's limit is the device memory the caller's
+    bias (H * Tq * Tk elements) and dbias (as many fp32) take."""
     Tk = Tq if Tk is None else Tk
-    return not biased and min(Tq, Tk) >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
+    return min(Tq, Tk) >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
 
 
 def resolve_impl(attn_impl: str, Tq: int, head_dim: int, *, Tk: int | None = None,
-                 biased: bool = False, cuda: bool = True) -> str:
+                 cuda: bool = True) -> str:
     """"auto" / "xla" / "flash" -> "flash" or "xla". "xla" is
     `attention_plain`, asked for by name. "flash" on a shape the kernel
     cannot tile raises, as in the reference. "auto" is "flash" for
@@ -564,13 +674,13 @@ def resolve_impl(attn_impl: str, Tq: int, head_dim: int, *, Tk: int | None = Non
         return "xla"
     if attn_impl not in ("auto", "flash"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    if flash_shape_ok(Tq, head_dim, Tk, biased):
+    if flash_shape_ok(Tq, head_dim, Tk):
         return "flash"
     if attn_impl == "auto" and not cuda:
         return "xla"
     raise ValueError(
         f"attn_impl={attn_impl!r} cannot tile Tq={Tq}, Tk={Tk or Tq}, "
-        f"head_dim={head_dim}, biased={biased} on the card (the CUDA kernel "
-        f"takes heads up to {MAX_HEAD_DIM} wide and no bias); ask for "
-        f"attn_impl='xla' to run the plain version"
+        f"head_dim={head_dim} on the card (the CUDA kernel "
+        f"takes heads up to {MAX_HEAD_DIM} wide); ask for attn_impl='xla' to run "
+        f"the plain version"
     )

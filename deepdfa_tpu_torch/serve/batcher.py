@@ -11,8 +11,8 @@
 Two executors: `GgnnExecutor` (graph requests, all co-batchable; each
 chunk pads to the smallest ladder size 1, 2, 4, ..., max_batch_graphs
 that holds it) and `CombinedExecutor` (text + graph requests of the
-combined family, grouped by sequence bucket; each chunk pads to its
-bucket's full row count).
+combined families, DeepDFA+LineVul or CodeT5+DeepDFA, grouped by
+sequence bucket; each chunk pads to its bucket's full row count).
 
 A request's score does not depend on what it was batched with beyond
 fp32 reassociation: padding slots are masked out of every reduction and
@@ -203,7 +203,10 @@ class GgnnExecutor:
 
 class CombinedExecutor:
     """Scores (token_ids, GraphSpec | None) payloads with a
-    `CombinedModel` on one device (the reference's `CombinedExecutor`).
+    `CombinedModel` or a `DefectModel` (the T5 family: the reference's
+    `is_t5` branch, which changes only the forward) on one device (the
+    reference's `CombinedExecutor`). The tokenizer must pad with the
+    encoder's pad id (1 for RoBERTa, 0 for T5's frame).
 
     Requests group by their sequence bucket edge T (the smallest of
     `seq_buckets` >= the real token length); a bucket's signature is

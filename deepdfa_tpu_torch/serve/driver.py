@@ -3,7 +3,8 @@ reference's `deepdfa_tpu/serve/driver.py:run_score`, from graphs and
 token ids instead of C sources — the frontend comes with a later slice).
 
 `score_graphs` (a `GgnnExecutor` over the DeepDFA GGNN) and
-`score_combined` (a `CombinedExecutor` over the DeepDFA+LineVul model)
+`score_combined` (a `CombinedExecutor` over the DeepDFA+LineVul model or
+the CodeT5+DeepDFA defect model)
 warm the executor, submit every payload to the online batcher, wait for
 every answer and report the summary the reference's `run_score` reports
 where it applies, plus the kernel launches the scoring made: the GGNN
@@ -136,8 +137,8 @@ def score_combined(
     device: str | torch.device | None = "cuda",
     timeout_s: float = 600.0,
 ) -> dict:
-    """Score (text, GraphSpec | None) payloads with a `CombinedModel`
-    through the online serving path; the summary record, with P(class 1)
+    """Score (text, GraphSpec | None) payloads with a `CombinedModel` or
+    a `DefectModel` through the online serving path; the summary record, with P(class 1)
     per request under "probs" (None for a failed request) and the
     launches of both kernels.
 

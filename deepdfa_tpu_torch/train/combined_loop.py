@@ -1,14 +1,19 @@
-"""Training of the combined transformer + graph classifier on one device
-(the reference's `deepdfa_tpu/train/combined_loop.py:CombinedTrainer`,
-RoBERTa family).
+"""Training of the combined transformer + graph classifiers on one device
+(the reference's `deepdfa_tpu/train/combined_loop.py:CombinedTrainer`):
+the RoBERTa family (`CombinedConfig` -> `CombinedModel`, DeepDFA+LineVul)
+and the T5 family (`DefectConfig` -> `DefectModel`, CodeT5+DeepDFA), as
+the reference's `is_t5` switch picks `defect_forward` (`:123-128,
+278-290`).
 
 - A train step is the cross-entropy SUM over the batch's valid rows
   divided by max(valid count, 1), its backward and one optimiser update
   (AdamW with the reference's warmup/decay schedule and global-norm
   clip, `train/state.py`). On a CUDA device each encoder layer's
-  attention is kernel 5 forward (with its probs dropout) and kernels 6
-  and 7 backward, replayed under the layer checkpoint (`remat`); the
-  graph branch runs the GGNN step kernel and its backward kernels.
+  attention is kernel 5 forward (with its probs dropout on the RoBERTa
+  family, with the relative-position bias on the T5 family) and kernels
+  6 and 7 backward, plus kernel 8 (dbias) on the T5 family, replayed
+  under the layer checkpoint (`remat`); the graph branch runs the GGNN
+  step kernel and its backward kernels.
 - Dropout: step s draws its masks from the seed `fold_seed(seed, s)`
   (the reference folds the step into its root key): the encoder's and
   head's sites at the model config's rates, with any seed a different
@@ -29,8 +34,8 @@ RoBERTa family).
 
 Not in the port yet, and refused when configured: a mesh beyond one
 card, `train.resilience.enabled` (the divergence guard, step
-checkpoints, resume), the `obs` instruments, the T5 family (a
-`DefectConfig`) and the MoE adapter (`moe_experts > 0`). The prefetch
+checkpoints, resume), the `obs` instruments, `remat_policy="attn_saved"`
+and the MoE adapter (`moe_experts > 0`). The prefetch
 pipeline, `data.pack_workers`/`data.packed_cache` and
 `train.step_cache_entries` are read past.
 """
@@ -48,6 +53,7 @@ from deepdfa_tpu_torch.core.config import Config, refuse_unported_training
 from deepdfa_tpu_torch.core.device import resolve_device
 from deepdfa_tpu_torch.data.text import TextBatch, batch_token_counts, collate, rows_for_bucket
 from deepdfa_tpu_torch.models.combined import CombinedConfig, CombinedModel
+from deepdfa_tpu_torch.models.t5 import DefectConfig, DefectModel
 from deepdfa_tpu_torch.nn import cuda_build
 from deepdfa_tpu_torch.nn.dropout import fold_seed
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
@@ -60,17 +66,23 @@ logger = logging.getLogger(__name__)
 
 
 class CombinedTrainer:
-    """Train/eval loop for `CombinedModel` on one device (the card
-    unless `device="cpu"`)."""
+    """Train/eval loop for `CombinedModel` (a `CombinedConfig`) or
+    `DefectModel` (a `DefectConfig`) on one device (the card unless
+    `device="cpu"`)."""
 
-    def __init__(self, cfg: Config, model_cfg: CombinedConfig, total_steps: int | None = None,
-                 freeze_graph: bool = False, device: str | torch.device | None = None):
-        if not isinstance(model_cfg, CombinedConfig):
+    def __init__(self, cfg: Config, model_cfg: CombinedConfig | DefectConfig,
+                 total_steps: int | None = None, freeze_graph: bool = False,
+                 device: str | torch.device | None = None):
+        if not isinstance(model_cfg, (CombinedConfig, DefectConfig)):
+            raise TypeError(f"{type(model_cfg).__name__}: the trainer takes a CombinedConfig "
+                            "(RoBERTa family) or a DefectConfig (T5 family)")
+        if model_cfg.encoder.remat_policy != "full":
             raise NotImplementedError(
-                f"{type(model_cfg).__name__}: the T5 family (DefectConfig) comes with the "
-                "T5 slice of the port; the trainer takes a CombinedConfig"
+                f"remat_policy={model_cfg.encoder.remat_policy!r}: saving the attention "
+                "output across the layer checkpoint is not ported yet (ROADMAP queue A, "
+                "item 4); use 'full'"
             )
-        if model_cfg.moe_experts:
+        if getattr(model_cfg, "moe_experts", 0):
             raise NotImplementedError(
                 f"moe_experts={model_cfg.moe_experts}: the MoE adapter comes with a later "
                 "slice of the port (ROADMAP queue A, item 8)"
@@ -95,12 +107,13 @@ class CombinedTrainer:
         weights on every device, or loaded from `params` (a state dict,
         e.g. models/convert.py's from the reference's parameters)."""
         seed = self.cfg.train.seed if seed is None else seed
-        model = CombinedModel(self.model_cfg, generator=torch.Generator().manual_seed(seed))
+        family = DefectModel if isinstance(self.model_cfg, DefectConfig) else CombinedModel
+        model = family(self.model_cfg, generator=torch.Generator().manual_seed(seed))
         if params is not None:
             model.load_state_dict(params, strict=True)
         return self._state(model.to(self.device), step=0)
 
-    def _state(self, model: CombinedModel, step: int) -> TrainState:
+    def _state(self, model: CombinedModel | DefectModel, step: int) -> TrainState:
         if self.freeze_graph:
             freeze(model)
         state = TrainState.create(model, self.cfg.train.optim, self.total_steps,

@@ -1,5 +1,6 @@
 """Encoder transfer: load a trained DeepDFA's graph encoder into a
-combined model and freeze it (the reference's `train/transfer.py`).
+combined model (`CombinedModel` or the T5 family's `DefectModel`) and
+freeze it (the reference's `train/transfer.py`).
 
 The reference workflow (`--freeze_graph`): train the GGNN alone, load its
 embedding, GGNN and pooling weights (not its classification head) into
@@ -33,8 +34,8 @@ def graph_encoder_subset(state_dict: Mapping[str, torch.Tensor]) -> dict[str, to
 
 
 def load_graph_encoder(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
-    """Copy a trained DeepDFA's encoder weights into `model.graph` (a
-    combined model's graph branch), in place."""
+    """Copy a trained DeepDFA's encoder weights into `model.graph` (the
+    graph branch of a `CombinedModel` or `DefectModel`), in place."""
     sub = graph_encoder_subset(state_dict)
     own = model.graph.state_dict()
     unknown = sorted(set(sub) - set(own))

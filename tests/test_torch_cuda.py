@@ -393,13 +393,15 @@ def test_flash_bwd_kernels_match_plain(card, B, H, Tq, Tk, D, dtype, lens, rate)
     want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate, bits=bits)
     torch.cuda.synchronize()
     assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert got[3] is None and want[3] is None  # no bias: no dbias, no kernel 8
+    got, want = got[:3], want[:3]
     for x, y in zip(got, want):
         assert x.dtype == q.dtype and x.shape == y.shape and torch.isfinite(x.float()).all()
         _close(x, y, dtype)
     for b, n in enumerate(lens):
         if n == 0:
             assert all((x[b] == 0).all() for x in got)
-    again = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)
+    again = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)[:3]
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
@@ -419,8 +421,8 @@ def test_flash_bwd_kernels_take_the_training_strides(card, rate):
     seed = 77
     o, lse = fa.flash_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
     bits = fa.dropout_bits(seed, B, H, T, T, card) if rate else None
-    got = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)
-    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate, bits=bits)
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, dropout_rate=rate, seed=seed)[:3]
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate, bits=bits)[:3]
     torch.cuda.synchronize()
     for x, y in zip(got, want):
         assert x.shape == y.shape and torch.isfinite(x.float()).all()
@@ -470,3 +472,188 @@ def test_flash_attention_grads_repeat_bit_equal(card):
     torch.cuda.synchronize()
     assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES) == tuple(b + 2 for b in before)
     assert first.dtype == torch.float32 and torch.equal(first, second)
+
+
+BIAS_CASES = [
+    # B, H, Tq, Tk, D, dtype, bias dtype, real keys per row, strided
+    (4, 12, 256, 256, 64, "bfloat16", "bfloat16", [256, 200, 17, 0], False),
+    (4, 12, 200, 200, 64, "bfloat16", "bfloat16", [200, 150, 3, 0], True),
+    (2, 4, 130, 77, 128, "bfloat16", "float32", [77, 0], False),
+    (3, 2, 96, 200, 64, "float32", "float32", [200, 131, 0], False),
+    (2, 3, 70, 70, 40, "bfloat16", "bfloat16", [70, 9], False),
+]
+BIAS_IDS = ["t256_bf16", "training_strides", "cross_d128_fp32_bias", "cross_fp32",
+            "ragged_d40_fma"]
+
+
+def _bias_inputs(card, B, H, Tq, Tk, D, dtype, bias_dtype, lens, strided):
+    """q, k, v, do, mask, bias; with `strided`, q/k/v are views of a fused
+    [B, T, 3, H, D] product, do a view of [B, T, H, D] and the bias a
+    [H, T, T] view of a wider buffer, as the T5 training path feeds them."""
+    g = torch.Generator().manual_seed(B * 11 + Tq + D)
+    td = getattr(torch, dtype)
+    if strided:
+        qkv = torch.randn(B, Tq, 3 * H * D, generator=g).to(td).to(card).view(B, Tq, 3, H, D)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        do = torch.randn(B, Tq, H, D, generator=g).to(td).to(card).transpose(1, 2)
+        wide = torch.randn(H, Tq, Tk + 8, generator=g).mul(2.0).to(getattr(torch, bias_dtype))
+        bias = wide.to(card)[:, :, :Tk]
+        assert not (q.is_contiguous() or do.is_contiguous() or bias.is_contiguous())
+    else:
+        q, do = (torch.randn(B, H, Tq, D, generator=g).to(td).to(card) for _ in range(2))
+        k, v = (torch.randn(B, H, Tk, D, generator=g).to(td).to(card) for _ in range(2))
+        bias = (torch.randn(H, Tq, Tk, generator=g) * 2.0).to(getattr(torch, bias_dtype)).to(card)
+    mask = (torch.arange(Tk)[None, :] < torch.tensor(lens)[:, None]).to(card)
+    return q, k, v, do, mask, bias
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("B, H, Tq, Tk, D, dtype, bias_dtype, lens, strided", BIAS_CASES,
+                         ids=BIAS_IDS)
+def test_flash_biased_kernels_match_plain(card, B, H, Tq, Tk, D, dtype, bias_dtype, lens,
+                                          strided, rate):
+    """Kernels 5-7 with the bias and kernel 8 (dbias) against the plain
+    versions on the card (T5's scale 1.0), from the kernel's own forward;
+    with dropout all draw the seed's Philox mask. All-padding rows get
+    o = 0 and zero gradients; padded keys add nothing to dbias; a rerun
+    gives the same bits; each kernel launches once per call."""
+    q, k, v, do, mask, bias = _bias_inputs(card, B, H, Tq, Tk, D, dtype, bias_dtype, lens,
+                                           strided)
+    seed = 987654321
+    kw = {"scale": 1.0, "dropout_rate": rate, "seed": seed, "bias": bias}
+    before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES) == tuple(
+        b + 1 for b in before)
+    bits = fa.dropout_bits(seed, B, H, Tq, Tk, card) if rate else None
+    po, plse = fa.attention_plain(q, k, v, mask, 1.0, rate, bits, bias)
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, rate, bits, bias)
+    _close(o, po, dtype)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    assert got[3].dtype == torch.float32 and got[3].shape == (H, Tq, Tk)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and torch.isfinite(x.float()).all()
+        _close(x, y, dtype)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (o[b] == 0).all() and all((x[b] == 0).all() for x in got[:3])
+    assert (got[3][:, :, max(lens):] == 0).all()
+    again = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_dbias_repeats_bit_for_bit_at_the_t5_call(card):
+    """Kernel 8 at the T5 flagship call (B 16, H 12, T 512, D 64, bf16,
+    scale 1.0, ragged keys): its batch loop runs in order inside each
+    block, so five runs give the same bits, and match the plain dbias."""
+    B, H, T, D = 16, 12, 512, 64
+    lens = [512, 480, 300, 257, 129, 64, 33, 1] + [512] * 8
+    q, k, v, do, mask, bias = _bias_inputs(card, B, H, T, T, D, "bfloat16", "bfloat16", lens,
+                                           False)
+    o, lse = fa.flash_fwd(q, k, v, mask, scale=1.0, bias=bias)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    runs = [fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, scale=1.0) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, bias=bias)[3]
+    _close(runs[0], want, "bfloat16")
+
+
+def test_flash_attention_bias_grad_flows_on_the_card(card):
+    """FlashAttention with a bias leaf on the card: the bias's gradient in
+    its dtype from kernel 8, none when it needs no gradient (kernel 8
+    then does not launch), and causal still refused."""
+    B, H, T, D = 2, 4, 96, 64
+    q, k, v, do, mask, bias = _bias_inputs(card, B, H, T, T, D, "bfloat16", "bfloat16",
+                                           [96, 50], False)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+    o = fa.flash_attention(*leaves[:3], mask, scale=1.0, bias=leaves[3])
+    o.backward(do)
+    assert leaves[3].grad.dtype == torch.bfloat16
+    lse = fa.flash_fwd(q, k, v, mask, scale=1.0, bias=bias)[1]
+    want = fa.flash_bwd(q, k, v, mask, o.detach(), lse, do, scale=1.0, bias=bias)
+    assert torch.equal(leaves[3].grad, want[3].to(torch.bfloat16))
+    before = fa.DBIAS_LAUNCHES
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, mask, scale=1.0, bias=bias).backward(do)
+    assert fa.DBIAS_LAUNCHES == before
+    with pytest.raises(NotImplementedError, match="generation slice"):
+        fa.flash_attention(q, k, v, mask, causal=True)
+    with pytest.raises(TypeError, match="bias"):
+        fa.flash_fwd(q, k, v, mask, bias=bias.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q, k, v, mask, bias=bias.transpose(1, 2))
+
+
+def _defect_cfg(dtype="bfloat16", **kw):
+    from deepdfa_tpu_torch.models import DefectConfig, T5Config
+
+    enc = T5Config.tiny(vocab_size=256, hidden_size=128, num_heads=2, head_dim=64,
+                        ffn_size=256, dtype=dtype, **kw)
+    return DefectConfig(encoder=enc, graph_hidden_dim=32, graph_input_dim=52)
+
+
+def test_defect_train_step_repeats_bit_for_bit(card):
+    """Two CombinedTrainers from one seed take one DefectModel step (bf16,
+    dropout 0.1, remat) on one batch: the same loss and the same weights
+    after the update, to the bit; the step ran kernels 5-8 and the GGNN
+    kernels."""
+    from deepdfa_tpu_torch.core.config import DataConfig
+    from deepdfa_tpu_torch.data.text import collate
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.train import CombinedTrainer
+
+    rng = np.random.default_rng(3)
+    tok = HashTokenizer(256, t5_frame=True)
+    texts = [" ".join(["x", "y", "z"][i % 3] for i in range(int(rng.integers(5, 60))))
+             for _ in range(8)]
+    specs = _graphs(rng, 8)
+    batch = collate(tok.batch_encode(texts, 64), [i % 2 for i in range(8)], list(range(8)),
+                    {i: specs[i] for i in range(8)}, 8, 512, 2048, pad_id=0).to(card)
+    cfg = Config(data=DataConfig(seq_buckets=(), token_budget=512))
+    results = []
+    for _ in range(2):
+        trainer = CombinedTrainer(cfg, _defect_cfg(), total_steps=1, device=card)
+        state = trainer.init_state(seed=0)
+        before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES, gk.LAUNCHES)
+        loss = trainer.train_step(state, batch, 1234)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES, gk.LAUNCHES),
+            before))
+        results.append((loss.item(), {k: v.clone() for k, v in state.model.state_dict().items()}))
+    assert launched == (4, 2, 2, 2, 5)  # 2 layers (+ their remat replays); 5 GGNN steps
+    assert np.isfinite(results[0][0]) and results[0][0] == results[1][0]
+    assert all(torch.equal(results[0][1][k], results[1][1][k]) for k in results[0][1])
+
+
+def test_defect_serving_on_card_matches_cpu(card):
+    """A small fp32 DefectModel scored through score_combined on the card
+    against the CPU plain path: 2 biased flash launches and 5 GGNN steps
+    per batch."""
+    from deepdfa_tpu_torch.core.config import DataConfig
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.models import DefectModel
+    from deepdfa_tpu_torch.serve import CombinedExecutor, score_combined
+
+    def model():
+        return DefectModel(_defect_cfg("float32"),
+                           generator=torch.Generator().manual_seed(0)).eval()
+
+    rng = np.random.default_rng(4)
+    tok = HashTokenizer(256, t5_frame=True)
+    specs = _graphs(rng, 12)
+    payloads = [(" ".join(["x"] * int(rng.integers(1, 60))), specs[i] if i % 3 else None)
+                for i in range(12)]
+    cfg = Config(data=DataConfig(seq_buckets=(16, 32, 64), token_budget=256),
+                 serve=ServeConfig(node_budget=512, edge_budget=2048, max_batch_delay_ms=2.0))
+    summary = score_combined(model(), payloads, cfg, tok)
+    assert summary["device"].startswith("cuda") and summary["serve_scored"] == 12
+    assert summary["flash_fwd_launches"] == summary["serve_batches"] * 2
+    assert summary["ggnn_step_launches"] == summary["serve_batches"] * 5
+    cpu = CombinedExecutor(model(), tok, (16, 32, 64), 256, 512, 2048, device="cpu")
+    want = [r.wait(0) for r in DynamicBatcher(cpu).score_all(
+        [(tok.encode(t, 64), s) for t, s in payloads])]
+    np.testing.assert_allclose(summary["probs"], want, rtol=RTOL, atol=ATOL)

@@ -114,9 +114,13 @@ def test_flash_attention_returns_o_and_refuses_unported_options():
                                tfa.attention_plain(q, k, v, mask, 0.5)[0], rtol=0, atol=0)
     with pytest.raises(ValueError, match="needs a seed"):  # dropout runs, with a seed
         tfa.flash_attention(q, k, v, mask, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="bias"):
-        tfa.flash_attention(q, k, v, mask, bias=torch.zeros(2, 16, 16))
-    with pytest.raises(NotImplementedError, match="causal"):
+    # the additive bias is ported: it is the plain version with the bias
+    bias = torch.from_numpy(rng.standard_normal((2, 16, 16)).astype(np.float32))
+    torch.testing.assert_close(tfa.flash_attention(q, k, v, mask, bias=bias),
+                               tfa.attention_plain(q, k, v, mask, bias=bias)[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="bias"):
+        tfa.flash_attention(q, k, v, mask, bias=bias[:, :8])
+    with pytest.raises(NotImplementedError, match="generation slice"):
         tfa.flash_attention(q, k, v, mask, causal=True)
     with pytest.raises(ValueError, match="kv_mask"):
         tfa.flash_fwd(q, k, v, mask[:, :8])
@@ -126,7 +130,10 @@ def test_flash_attention_returns_o_and_refuses_unported_options():
 
 def test_shape_rule_and_impl_resolution():
     assert tfa.flash_shape_ok(512, 64) and tfa.flash_shape_ok(77, 128, Tk=300)
-    assert not tfa.flash_shape_ok(512, 192) and not tfa.flash_shape_ok(512, 64, biased=True)
+    assert not tfa.flash_shape_ok(512, 192)
+    # one rule with and without a bias: the kernels read the bias from
+    # device memory, so the reference's VMEM cap on biased T does not apply
+    assert tfa.flash_shape_ok(8192, 64) and not jfa.flash_shape_ok(8192, 64, biased=True)
     assert tfa.resolve_impl("auto", 513, 64) == "flash"  # ragged tails are masked in-kernel
     assert tfa.resolve_impl("xla", 512, 64) == "xla"
     assert tfa.resolve_impl("flash", 130, 64) == "flash"
