@@ -110,10 +110,43 @@ prints one JSON line; any failure exits non-zero before the last line.
    dropout 0.1; T5 has no attention-probs dropout): per step 24 biased
    flash forward launches, 12 dq, 12 dk/dv, 12 dbias and 5 of each GGNN
    kernel;
-17. kernels — every kernel with its launches on the six main paths
+17. kernel flash_causal — kernels 5-8 with the causal mask (the causal
+   build of the flash source) against the plain versions: bf16 (D 64)
+   and fp32, with and without the bias, ragged T = 200 with padded keys
+   at the end and at the start (queries without a live key: o = 0, dq =
+   0), dbias exactly 0 above the diagonal, the same bits on a repeat;
+   times, plain and library times (scaled_dot_product_attention with
+   is_causal, or a float attn_mask holding bias and -inf) and bounds
+   over the live pairs at the flagship call (B 16, H 12, T 512, bf16,
+   with and without the bias) and at the gen path's fp32 calls (decoder
+   T 128 causal with the bias, cross 128 x 256, encoder 256 with the
+   bias); this run's unbiased non-causal flagship times beside the ones
+   PERF.md records from before the causal build;
+18. train_gen — `train-gen`'s path (the CLI's hash tokenizer at vocab
+   32100, reader and codet5-base-width model in fp32, 12 + 12 layers)
+   through GenTrainer.fit: 4 batches of 16 summarize rows (256 -> 128
+   tokens), 5 epochs with a dev batch, AdamW lr 1e-4, dropout 0.1. Every
+   loss finite, the last epoch's mean below the first's; per step 72
+   flash forward launches (encoder, decoder self- and cross-attention,
+   each with its remat replay), 36 dq, 36 dk/dv, 24 dbias; two backward
+   passes with one seed give the same bits; a 2+2-layer model (dropout
+   0) gives the same two losses (5e-3) and step-1 gradients (2e-2 of each
+   leaf's scale) on the card and the CPU plain path; a step split,
+   tokens/s, peak memory and a profiled step; 6 bf16 steps;
+19. decode_gen — GenTrainer.decode (beam 5, max length 128) of the
+   trained model over 2 batches of 16 sources: sequences/s, 12 encoder
+   flash launches a batch; a 2+2-layer fp32 model's _decode_step logits
+   at every step within 1e-3 of scale card vs CPU, and its beam ids equal
+   where every step's top-K margin exceeds 1e-4;
+20. train_clone — `train-clone`'s path: the reference's clone files,
+   CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
+   tokens; every loss finite; the gen step's launches per step;
+21. kernels — every kernel with its launches on the nine main paths
    (serve, train, serve_combined, train_combined, serve_t5, train_t5,
-   each counted from 0, and by path), error, time, plain time, bound and
-   library time; the flash rows add their biased times as bias_*.
+   train_gen, decode_gen, train_clone, each counted from 0, and by path),
+   error, time, plain time, bound and library time; the flash rows add
+   their biased times as bias_* and their causal and gen-path times
+   under by_call.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -676,13 +709,14 @@ def train_phase(torch, rng):
 
 
 def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
-                extra_bytes: int = 0):
-    """(bound_ms, bound_by) of one flash_fwd call: 4*H*Tq*D operations
-    per live key of each row (q.k and p.v; a padded key needs none) at
-    the bf16 tensor-core peak (fp32 at the fp32 peak); bytes: q, k, v
-    read and o written once, the mask and lse, and `extra_bytes` (a
-    bias read once)."""
-    flops = 4 * H * Tq * D * sum(Tk_live)
+                extra_bytes: int = 0, pairs: int | None = None):
+    """(bound_ms, bound_by) of one flash_fwd call: 4*H*D operations per
+    live (query, key) pair (q.k and p.v; a padded key, or with causal a
+    key after its query, needs none) at the bf16 tensor-core peak (fp32
+    at the fp32 peak); `pairs` counts them over the batch (default
+    Tq * sum(Tk_live)); bytes: q, k, v read and o written once, the mask
+    and lse, and `extra_bytes` (a bias read once)."""
+    flops = 4 * H * D * (Tq * sum(Tk_live) if pairs is None else pairs)
     Tk = max(Tk_live + [1])
     nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * Tk + 4 * B * H * Tq
               + extra_bytes)
@@ -780,15 +814,16 @@ def flash_fwd_dropout_case(torch, fa, q, k, v, mask) -> dict:
 
 
 def flash_bwd_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
-                    products: int, out_tokens: int, extra_bytes: int = 0):
+                    products: int, out_tokens: int, extra_bytes: int = 0,
+                    pairs: int | None = None):
     """(bound_ms, bound_by) of one backward kernel: `products` matrix
     products of 2*H*Tq*D operations per live key of each row (dq: s, dp,
     ds.k = 3; dk/dv: s, dp, p.do, ds.q = 4; dbias: s, dp = 2) at the bf16
     tensor-core peak (fp32 at the fp32 peak); bytes: q, k, v, do read and
     the gradients' `out_tokens` rows of [B, H, ., D] written once (dq: Tq;
     dk, dv: 2 Tk; dbias: 0), lse, delta and the mask, and `extra_bytes`
-    (a bias read once, dbias written once)."""
-    flops = 2 * products * H * Tq * D * sum(Tk_live)
+    (a bias read once, dbias written once); `pairs` as for `flash_bound`."""
+    flops = 2 * products * H * D * (Tq * sum(Tk_live) if pairs is None else pairs)
     Tk = max(Tk_live + [1])
     nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk + out_tokens) + 8 * B * H * Tq
               + 4 * B * Tk + extra_bytes)
@@ -1501,6 +1536,581 @@ def combined_step_split(torch, trainer, state, collate_512, tok) -> dict:
                               "device_ms_by_group": device_groups(prof)}}
 
 
+# the causal flash phase and the generation family's phases
+
+#: kernels 5-8 causal against their plain versions; name: (B, Tq, Tk, dtype,
+#: biased, causal, real keys per row, padded leading keys of the last row).
+#: The timed cases: the flagship training call with and without T5's bias,
+#: and the gen path's three fp32 calls (decoder self-attention, causal and
+#: biased; cross-attention, rectangular; the encoder, biased), every key live
+FLASH_CAUSAL_CASES = {
+    "bf16_t200_biased_padded": (8, 200, 200, "bfloat16", True, True,
+                                [200, 150, 64, 1, 0, 200, 200, 199], 70),
+    "fp32_t200_biased_padded": (8, 200, 200, "float32", True, True,
+                                [200, 150, 64, 1, 0, 200, 200, 199], 70),
+    "bf16_t200_padded": (8, 200, 200, "bfloat16", False, True,
+                         [200, 150, 64, 1, 0, 200, 200, 199], 70),
+    "fp32_t200_padded": (8, 200, 200, "float32", False, True,
+                         [200, 150, 64, 1, 0, 200, 200, 199], 70),
+    "t5_flagship_t512": (16, 512, 512, "bfloat16", True, True, [512] * 16, 0),
+    "flagship_t512": (16, 512, 512, "bfloat16", False, True, [512] * 16, 0),
+    "gen_decoder_t128": (16, 128, 128, "float32", True, True, [128] * 16, 0),
+    "gen_cross_t128x256": (16, 128, 256, "float32", False, False, [256] * 16, 0),
+    "gen_encoder_t256": (16, 256, 256, "float32", True, False, [256] * 16, 0),
+}
+FLASH_TIMED = ("t5_flagship_t512", "flagship_t512", "gen_decoder_t128", "gen_cross_t128x256",
+               "gen_encoder_t256")
+#: the unbiased non-causal times at the flagship call that PERF.md records
+#: from before the causal build existed (NVIDIA H100 80GB HBM3, 700 W):
+#: forward, dq, dk/dv
+NONCAUSAL_BASELINE_MS = {"flash_fwd": 0.1350, "flash_dq": 0.2031, "flash_dkv": 0.3458}
+
+
+def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
+    """(query, key) pairs that a call computes, over the batch: each real
+    key j of a row pairs with every query, or with causal with queries
+    j .. Tq-1."""
+    m = mask.cpu().to(torch.int64)
+    if not causal:
+        return int(m.sum()) * Tq
+    return int((m * torch.arange(m.shape[1], 0, -1)).sum())
+
+
+def flash_causal_kernel_phase(torch, noncausal: dict):
+    """Kernels 5-8 with the causal mask (the causal build of the flash
+    source) against the plain versions on the card, and the fp32 (FMA)
+    instances at the generation path's shapes: o within 2e-2 (bf16) or
+    1e-5 (fp32), lse within 1e-5 + 1e-5 |lse|, dq, dk, dv and dbias
+    within 2e-2 (bf16) or 1e-4 (fp32) of their largest magnitude; queries
+    without a live key get o = 0 and zero dq; causal dbias exactly 0
+    above the diagonal; the same bits on a repeat. Times of the timed
+    cases: each kernel, the plain forward and backward, one
+    scaled_dot_product_attention call (is_causal, or a float attn_mask
+    holding the bias and -inf; the yardstick, never called by the port)
+    and its backward, and the bounds over the live pairs. `noncausal`
+    holds this run's unbiased non-causal flagship times, set beside
+    NONCAUSAL_BASELINE_MS."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    H, D = 12, 64
+    gen = torch.Generator().manual_seed(11)
+    report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
+    for name, (B, Tq, Tk, dtype, biased, causal, lens, lead) in FLASH_CAUSAL_CASES.items():
+        td = getattr(torch, dtype)
+        q, do = (torch.randn(B, H, Tq, D, generator=gen).to(td).to(CARD) for _ in range(2))
+        k, v = (torch.randn(B, H, Tk, D, generator=gen).to(td).to(CARD) for _ in range(2))
+        bias = (torch.randn(H, Tq, Tk, generator=gen) * 2.0).to(td).to(CARD) if biased else None
+        mask = torch.arange(Tk)[None, :] < torch.tensor(lens)[:, None]
+        mask[-1, :lead] = False
+        mask = mask.to(CARD)
+        kw = {"scale": 1.0, "bias": bias, "causal": causal}
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+
+            def backward():
+                return (fa.flash_dq(q, k, v, mask, lse, delta, do, **kw),
+                        *fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw),
+                        *((fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, scale=1.0,
+                                          causal=causal),) if biased else ()))
+
+            got, again = backward(), backward()
+            o2, lse2 = fa.flash_fwd(q, k, v, mask, **kw)
+            po, plse = fa.attention_plain(q, k, v, mask, 1.0, bias=bias, causal=causal)
+            want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, bias=bias,
+                                          causal=causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        gtol = FLASH_TOL["bfloat16"] if dtype == "bfloat16" else 1e-4
+        err_o = (o.float() - po.float()).abs().max().item()
+        err_lse = ((lse - plse).abs() - 1e-5 * plse.abs()).max().item()
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(lse).all()):
+            fail(f"flash_causal {name}: non-finite o or lse")
+        if err_o > tol or err_lse > 1e-5:
+            fail(f"flash_causal {name}: o err {err_o} (tol {tol}), lse err {err_lse}")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"flash_causal {name}: the forward gave other bits on a rerun")
+        worst["fwd"] = max(worst["fwd"], err_o)
+        report[f"{name}_o_max_abs_err"] = err_o
+        for what, g, ref, rerun in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+            err = (g.float() - ref.float()).abs().max().item()
+            scale = max(ref.float().abs().max().item(), 1e-6)
+            if not torch.isfinite(g.float()).all() or err > gtol * scale:
+                fail(f"flash_causal {name}: {what} err {err} > {gtol * scale} (or non-finite)")
+            if not torch.equal(g, rerun):
+                fail(f"flash_causal {name}: {what} other bits on a rerun")
+            key = {"dk": "dkv", "dv": "dkv"}.get(what, what)
+            worst[key] = max(worst[key], err)
+            report[f"{name}_{what}_max_abs_err"] = err
+        if lead and not (bool((o[-1, :, :lead] == 0).all())
+                         and bool((got[0][-1, :, :lead] == 0).all())):
+            fail(f"flash_causal {name}: queries without a live key got o or dq != 0")
+        if biased and causal:
+            upper = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).triu(1)
+            if not bool((got[3][:, upper] == 0).all()):
+                fail(f"flash_causal {name}: dbias is not 0 above the diagonal")
+        if name not in FLASH_TIMED:
+            continue
+        t = {"shape": [B, H, Tq, Tk, D], "dtype": dtype, "biased": biased, "causal": causal}
+        with torch.inference_mode():
+            t["fwd_ms"] = median_ms(torch, lambda: fa.flash_fwd(q, k, v, mask, **kw))
+            t["dq_ms"] = median_ms(torch, lambda: fa.flash_dq(q, k, v, mask, lse, delta, do, **kw))
+            t["dkv_ms"] = median_ms(
+                torch, lambda: fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw))
+            if biased:
+                t["dbias_ms"] = median_ms(torch, lambda: fa.flash_dbias(
+                    q, k, v, mask, lse, delta, do, bias, scale=1.0, causal=causal))
+            t["fwd_plain_ms"] = median_ms(torch, lambda: fa.attention_plain(
+                q, k, v, mask, 1.0, bias=bias, causal=causal))
+            t["bwd_plain_ms"] = median_ms(torch, lambda: fa.attention_bwd_plain(
+                q, k, v, mask, o, lse, do, 1.0, bias=bias, causal=causal))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if biased or not causal:
+            live = mask[:, None, None, :]
+            if causal:
+                live = live & torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+            float_mask = torch.where(live, 0.0, float("-inf")).to(td)
+            if biased:
+                float_mask = float_mask + bias[None]
+            lib = {"attn_mask": float_mask}
+        else:
+            lib = {"is_causal": True}
+        with torch.inference_mode():
+            t["fwd_library_ms"] = median_ms(torch, lambda: sdpa(q, k, v, scale=1.0, **lib))
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        if "attn_mask" in lib:
+            lib = {"attn_mask": lib["attn_mask"].detach().clone().requires_grad_(biased)}
+        out = sdpa(*leaves, scale=1.0, **lib)
+        t["bwd_library_ms"] = median_ms(torch, lambda: out.backward(do, retain_graph=True))
+        t["library_call"] = ("sdpa(is_causal=True)" if "is_causal" in lib else
+                             "sdpa(float attn_mask" + (" with the bias" if biased else "") + ")")
+        del out, leaves, lib
+        pairs = live_pairs(torch, mask, Tq, causal)
+        itemsize = 2 if dtype == "bfloat16" else 4
+        bias_bytes = itemsize * H * Tq * Tk if biased else 0
+        t["live_pairs"] = pairs
+        t["fwd_bound"] = flash_bound(B, H, Tq, lens, D, itemsize, bias_bytes, pairs)
+        t["dq_bound"] = flash_bwd_bound(B, H, Tq, lens, D, itemsize, 3, Tq, bias_bytes, pairs)
+        t["dkv_bound"] = flash_bwd_bound(B, H, Tq, lens, D, itemsize, 4, 2 * Tk, bias_bytes,
+                                         pairs)
+        if biased:
+            t["dbias_bound"] = flash_bwd_bound(B, H, Tq, lens, D, itemsize, 2, 0,
+                                               bias_bytes + 4 * H * Tq * Tk, pairs)
+        timing[name] = t
+    ratio = {k: noncausal[k] / v for k, v in NONCAUSAL_BASELINE_MS.items()}
+    emit({"phase": "kernel flash_causal", "ok": True,
+          "tolerance": {"o": FLASH_TOL, "lse": "1e-5 + 1e-5 |lse|",
+                        "grads": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"}},
+          "max_abs_err": worst, "timed": timing,
+          "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio, **report})
+    return worst, timing
+
+
+#: the device of the causal and generation phases
+CARD = "cuda"
+GEN_VOCAB = 32100  # codet5-base's vocabulary, through --vocab-size
+GEN_SRC, GEN_TGT, GEN_ROWS = 256, 128, 16  # the reference CLI's defaults
+GEN_BATCHES, GEN_EPOCHS = 4, 5
+GEN_DECODE_BATCHES = 2
+#: 2+2-layer card vs CPU (fp32): the gates of the defect model's check
+GEN_TRAIN_LOSS_TOL, GEN_TRAIN_GRAD_TOL = COMBINED_TRAIN_LOSS_TOL, COMBINED_TRAIN_GRAD_TOL
+GEN_STEP_LOGIT_TOL = 1e-3
+
+
+def gen_args(cmd: str = "train-gen"):
+    """The command line a user gives the generation commands at
+    codet5-base width (hash tokenizer at vocab 32100, the reference's
+    lengths, batch and beam)."""
+    from deepdfa_tpu_torch import cli
+
+    task = ["--task", "summarize"] if cmd == "train-gen" else []
+    return cli.build_parser().parse_args([cmd, *task, "--vocab-size", str(GEN_VOCAB)])
+
+
+def gen_config(overrides=()):
+    from deepdfa_tpu_torch.core import Config, apply_overrides
+
+    return apply_overrides(Config(), ["train.optim.learning_rate=1e-4",
+                                      "train.optim.warmup_frac=0.0",
+                                      "train.optim.grad_clip_norm=1.0", *overrides])
+
+
+def summarize_corpus(rng, n: int) -> Path:
+    """A summarize-task jsonl of n seeded rows (code of 300-500 C-like
+    words, truncated to 256 tokens; docstrings of 20-160 words, to 128)
+    in the reference's format, under build/ (gitignored)."""
+    vocab = [w for w in C_WORDS if w not in ("->", "++")]
+    doc = ("returns", "the", "buffer", "length", "of", "a", "list", "node", "frees", "copies",
+           "into", "checks", "if", "pointer", "is", "null", "size", "array", "index", "value")
+    out = ROOT / "build" / "smoke_gen" / "summarize.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    rows = [{"code_tokens": [str(w) for w in rng.choice(vocab, int(rng.integers(300, 501)))],
+             "docstring_tokens": [str(w) for w in rng.choice(doc, int(rng.integers(20, 161)))],
+             "idx": i} for i in range(n)]
+    out.write_text("\n".join(json.dumps(r) for r in rows) + "\n")
+    return out
+
+
+def flash_counts(fa) -> dict:
+    return {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.DQ_LAUNCHES, "flash_dkv": fa.DKV_LAUNCHES,
+            "flash_dbias": fa.DBIAS_LAUNCHES}
+
+
+def reset_flash(fa) -> None:
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = fa.DBIAS_LAUNCHES = 0
+
+
+def train_gen_phase(torch, rng):
+    """`train-gen`'s main path on the card: the CLI's tokenizer, reader
+    and model (codet5-base width, fp32), GenTrainer.fit over 4 batches of
+    16 summarize rows (256 -> 128 tokens) for 5 epochs with a dev batch,
+    AdamW lr 1e-4, hidden dropout 0.1. Every loss finite and the last
+    epoch's mean below the first's; launches per step: 6 forward per
+    layer (encoder, decoder self-attention and cross-attention, each
+    replayed under remat), 3 dq and 3 dk/dv, 2 dbias (encoder and decoder
+    biases); two backward passes with one seed give the same bits; a
+    2+2-layer model of the same width (dropout 0) gives the same first
+    two losses and step-1 gradients on the card and on the CPU plain
+    path; a step split, tokens/s and peak memory; bf16 steps beside the
+    fp32 ones."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+
+    args = gen_args()
+    cfg = gen_config()
+    path = summarize_corpus(rng, GEN_ROWS * (GEN_BATCHES + 1))
+    steps = GEN_BATCHES * GEN_EPOCHS
+    t0 = time.perf_counter()
+    tok, gcfg, trainer, state, rows = cli._gen_setup(args, cfg, total_steps=steps)
+    init_s = time.perf_counter() - t0
+    _, src, tgt = cli._gen_encode_file(args, tok, "summarize", str(path))
+    train_src, train_tgt = src[:GEN_ROWS * GEN_BATCHES], tgt[:GEN_ROWS * GEN_BATCHES]
+    dev = gen_data.batches_of(src[-GEN_ROWS:], tgt[-GEN_ROWS:], 1, rows, pad_id=tok.pad_id)
+    enc = gcfg.encoder
+    if (enc.hidden_size, enc.num_layers, gcfg.n_dec_layers, enc.vocab_size, enc.dtype,
+            src.shape[1], tgt.shape[1], rows) != (768, 12, 12, GEN_VOCAB, "float32", GEN_SRC,
+                                                   GEN_TGT, GEN_ROWS):
+        fail(f"train_gen: the CLI built {gcfg}, {src.shape}/{tgt.shape}, rows {rows}")
+
+    def epoch_batches(epoch):
+        return gen_data.batches_of(train_src, train_tgt, 1, rows, pad_id=tok.pad_id,
+                                   shuffle_seed=cfg.train.seed + epoch)
+
+    records = []
+    reset_flash(fa)
+    t0 = time.perf_counter()
+    trainer.fit(state, epoch_batches, val_batches=lambda: dev, max_epochs=GEN_EPOCHS,
+                log_fn=records.append, seed=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = flash_counts(fa)
+    L = enc.num_layers
+    want = {"flash_fwd": steps * 6 * L + GEN_EPOCHS * 3 * L, "flash_dq": steps * 3 * L,
+            "flash_dkv": steps * 3 * L, "flash_dbias": steps * 2 * L}
+    if launches != want:
+        fail(f"train_gen: kernel launches {launches}, expected {want}")
+    losses = [r["train_loss"] for r in records]
+    if not all(math.isfinite(x) for x in losses + [r["val_ppl"] for r in records]):
+        fail(f"train_gen: a non-finite loss or perplexity in {records}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_gen: the loss did not fall: epoch means {losses}")
+
+    b0 = epoch_batches(0)[0].to(trainer.device)
+
+    def grads():
+        trainer.forward_loss(state, b0, fold_seed(0, 999)).backward()
+        return grads_of(state)
+
+    first, second = grads(), grads()
+    if not all(torch.equal(first[k], second[k]) for k in first):
+        fail("train_gen: two backward passes on one batch gave other gradients")
+    del first, second
+    cpu = gen_cpu_check(torch, args, cfg, epoch_batches(0)[1])
+    split = gen_step_split(torch, trainer, state, train_src, train_tgt, tok)
+    bf16 = gen_bf16_steps(torch, args, cfg, epoch_batches(0)[:2])
+    emit({"phase": "train_gen", "ok": True, "params": sum(p.numel() for p in
+                                                          state.model.parameters()),
+          "init_seconds": init_s, "steps": steps, "epochs": GEN_EPOCHS,
+          "batch": [rows, GEN_SRC, GEN_TGT], "vocab": GEN_VOCAB, "dtype": enc.dtype,
+          "dropout": enc.dropout_rate, "remat": enc.remat_policy,
+          "optim": dataclasses.asdict(cfg.train.optim), "epoch_train_loss": losses,
+          "epoch_val_ppl": [r["val_ppl"] for r in records],
+          "epoch_seconds": [r["epoch_seconds"] for r in records], "fit_seconds": fit_s,
+          "last_epoch_target_tokens_per_sec": records[-1]["train_target_tokens_per_sec"],
+          "kernel_launches": launches,
+          "launches_per_step": {"flash_fwd": 6 * L, "flash_dq": 3 * L, "flash_dkv": 3 * L,
+                                "flash_dbias": 2 * L},
+          "eval_launches_per_dev_batch": {"flash_fwd": 3 * L},
+          "grads_bit_equal": True, **cpu, **split, "bf16": bf16})
+    return launches, trainer, state, tok, src, tgt
+
+
+def gen_cpu_check(torch, args, cfg, batch) -> dict:
+    """A 2+2-layer GenTrainer of the same width (fp32, dropout 0), the
+    same weights on the card and on the CPU plain path: two steps on one
+    batch, losses within GEN_TRAIN_LOSS_TOL, step-1 gradients within
+    GEN_TRAIN_GRAD_TOL of each leaf's scale."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.models import GenConfig
+    from deepdfa_tpu_torch.train.gen_loop import GenTrainer
+
+    _, enc = cli._gen_tokenizer_and_encoder(args)
+    gcfg = GenConfig(encoder=dataclasses.replace(enc, num_layers=2, dropout_rate=0.0),
+                     max_target_length=args.max_target_length, beam_size=args.beam_size)
+    runs = {name: GenTrainer(cfg, gcfg, total_steps=2, device=dev)
+            for name, dev in (("card", CARD), ("cpu", "cpu"))}
+    states = {name: tr.init_state(seed=0) for name, tr in runs.items()}
+    pairs, t0 = [], time.perf_counter()
+    for i in range(2):
+        step = {}
+        for name, tr in runs.items():
+            loss = tr.forward_loss(states[name], batch.to(tr.device), None)
+            loss.backward()
+            step[name] = (loss.item(), {k: g.cpu() for k, g in grads_of(states[name]).items()})
+            states[name].apply_gradients()
+        pairs.append((step["card"][0], step["cpu"][0]))
+        if i == 0:
+            errs = leaf_errors(step["card"][1], step["cpu"][1])
+            grad_err = max(errs.values())
+            worst_leaf = max(errs, key=errs.get)
+    loss_err = max(abs(a - b) for a, b in pairs)
+    if loss_err > GEN_TRAIN_LOSS_TOL or grad_err > GEN_TRAIN_GRAD_TOL:
+        fail(f"train_gen: 2+2-layer card vs CPU losses {pairs} (abs err {loss_err}), step-1 "
+             f"gradient err {grad_err} at {worst_leaf}")
+    return {"two_layer_cpu_losses": pairs, "two_layer_cpu_loss_abs_err": loss_err,
+            "two_layer_cpu_step1_grad_rel_err": grad_err, "two_layer_worst_leaf": worst_leaf,
+            "two_layer_cpu_seconds": time.perf_counter() - t0}
+
+
+def gen_step_split(torch, trainer, state, src, tgt, tok) -> dict:
+    """Median of 8 steps on one full batch, each stage synchronized: host
+    collate, copies, forward, backward, optimiser; source and target
+    tokens/s (real tokens) and peak memory; one step under
+    torch.profiler (device time by kernel group, idle share)."""
+    from deepdfa_tpu_torch.data.gen_data import collate_gen
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+
+    split = {k: [] for k in ("host_collate_ms", "to_device_ms", "forward_ms", "backward_ms",
+                             "optimizer_ms", "step_ms")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(8):
+        t_a = time.perf_counter()
+        batch = collate_gen(src[:GEN_ROWS], tgt[:GEN_ROWS], GEN_ROWS, tok.pad_id)
+        t_b = time.perf_counter()
+        dev = batch.to(trainer.device)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        loss = trainer.forward_loss(state, dev, fold_seed(1, i))
+        torch.cuda.synchronize()
+        t_d = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        t_f = time.perf_counter()
+        for k, v in zip(split, (t_b - t_a, t_c - t_b, t_d - t_c, t_e - t_d, t_f - t_e,
+                                t_f - t_a)):
+            split[k].append(1e3 * v)
+    med = {k: statistics.median(v) for k, v in split.items()}
+    src_tok = int((batch.source_ids != tok.pad_id).sum())
+    tgt_tok = int((batch.target_ids != tok.pad_id).sum())
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        trainer.train_step(state, dev, fold_seed(3, 0))
+        torch.cuda.synchronize()
+        prof.step()
+        t_a = time.perf_counter()
+        trainer.train_step(state, dev, fold_seed(3, 1))
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t_a)
+    return {"step_source_tokens": src_tok, "step_target_tokens": tgt_tok, **med,
+            "source_tokens_per_sec": src_tok / (med["step_ms"] / 1e3),
+            "target_tokens_per_sec": tgt_tok / (med["step_ms"] / 1e3),
+            "sequences_per_sec": GEN_ROWS / (med["step_ms"] / 1e3),
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "profiled_step": {**device_profile(prof, profiled_ms),
+                              "device_ms_by_group": device_groups(prof)}}
+
+
+def gen_bf16_steps(torch, args, cfg, batches) -> dict:
+    """A few steps of the same model with bf16 activations (a field of
+    the reference's T5Config): the mma instances of the causal kernels
+    on a path; launches per step as in fp32, losses finite, median step
+    ms."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.models import GenConfig
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+    from deepdfa_tpu_torch.train.gen_loop import GenTrainer
+
+    _, enc = cli._gen_tokenizer_and_encoder(args)
+    gcfg = GenConfig(encoder=dataclasses.replace(enc, dtype="bfloat16"))
+    trainer = GenTrainer(cfg, gcfg, total_steps=6, device=CARD)
+    state = trainer.init_state(seed=0)
+    dev = [b.to(trainer.device) for b in batches]
+    times, losses = [], []
+    reset_flash(fa)
+    for i in range(6):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        losses.append(trainer.train_step(state, dev[i % len(dev)], fold_seed(4, i)).item())
+        times.append(1e3 * (time.perf_counter() - t_a))
+    launches = flash_counts(fa)
+    L = enc.num_layers
+    if launches != {"flash_fwd": 6 * 6 * L, "flash_dq": 6 * 3 * L, "flash_dkv": 6 * 3 * L,
+                    "flash_dbias": 6 * 2 * L}:
+        fail(f"train_gen bf16: kernel launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_gen bf16: a non-finite loss in {losses}")
+    del state, trainer
+    return {"steps": 6, "losses": losses, "step_ms_median": statistics.median(times[1:]),
+            "kernel_launches": launches}
+
+
+def decode_gen_phase(torch, trainer, state, src, args):
+    """Beam-search decoding (beam 5, max length 128) of the trained
+    codet5-base-width model through GenTrainer.decode, 2 batches of 16
+    sources: sequences/s; the encoder's flash forward 12 times a batch;
+    then a 2+2-layer fp32 model on the card and on the CPU plain path:
+    each _decode_step's logits within GEN_STEP_LOGIT_TOL of their scale,
+    and the beam ids equal where every step's K-th and (K+1)-th
+    candidates are more than 1e-4 apart."""
+    from deepdfa_tpu_torch import cli
+    import numpy as np
+
+    from deepdfa_tpu_torch.models import GenConfig, T5Seq2Seq
+    from deepdfa_tpu_torch.models import t5_gen as genm
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    n = GEN_ROWS * GEN_DECODE_BATCHES
+    reset_flash(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = trainer.decode(state, src[:n])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in flash_counts(fa).items() if v}
+    if launches != {"flash_fwd": GEN_DECODE_BATCHES * trainer.gen_cfg.encoder.num_layers}:
+        fail(f"decode_gen: kernel launches {launches}")
+    lengths = [len(p) for p in preds]
+
+    _, enc = cli._gen_tokenizer_and_encoder(args)
+    gcfg = GenConfig(encoder=dataclasses.replace(enc, num_layers=2, dropout_rate=0.0))
+    models = {name: T5Seq2Seq(gcfg, generator=torch.Generator().manual_seed(5)).to(dev).eval()
+              for name, dev in (("card", CARD), ("cpu", "cpu"))}
+    small = torch.from_numpy(src[:4].astype(np.int64))
+    Tmax, K = args.max_target_length, args.beam_size
+    worst = 0.0
+    with torch.no_grad():
+        caches = {}
+        for name, m in models.items():
+            s = small.to(m.encoder.word.device)
+            eh = m.encoder.encode(s)
+            ck, cv = genm._precompute_cross_kv(m, eh)
+            z = torch.zeros(2, 4, enc.num_heads, Tmax, enc.head_dim, device=s.device)
+            caches[name] = [ck, cv, z, z.clone(), s != enc.pad_token_id]
+        tokens = torch.zeros(4, dtype=torch.int64)
+        for t in range(Tmax):
+            out = {}
+            for name, m in models.items():
+                ck, cv, kc, vc, em = caches[name]
+                out[name], _, _ = genm._decode_step(m, tokens.to(em.device), t, kc, vc, ck, cv,
+                                                    em)
+            scale = out["cpu"].abs().max().item()
+            worst = max(worst, (out["card"].cpu() - out["cpu"]).abs().max().item() / scale)
+            tokens = out["cpu"].argmax(-1)
+    if worst > GEN_STEP_LOGIT_TOL:
+        fail(f"decode_gen: 2+2-layer decode-step logits card vs CPU rel err {worst}")
+    gaps, real = [], genm.top_k_stable
+
+    def spy(x, k):
+        vals = torch.sort(x, dim=-1, descending=True, stable=True)[0]
+        gaps.append(float((vals[..., k - 1] - vals[..., k]).min()))
+        return real(x, k)
+
+    genm.top_k_stable = spy
+    try:
+        ids_card = genm.beam_search(models["card"], small.to(CARD), K, Tmax).cpu()
+    finally:
+        genm.top_k_stable = real
+    ids_cpu = genm.beam_search(models["cpu"], small, K, Tmax)
+    margin = min(gaps)
+    compared = margin > 1e-4
+    if compared and not torch.equal(ids_card, ids_cpu):
+        fail(f"decode_gen: 2+2-layer beam ids differ card vs CPU at margin {margin}")
+    emit({"phase": "decode_gen", "ok": True, "sources": n, "beam": K, "max_length": Tmax,
+          "seconds": seconds, "sequences_per_sec": n / seconds,
+          "mean_output_tokens": statistics.mean(lengths), "kernel_launches": launches,
+          "two_layer_step_logit_rel_err": worst, "two_layer_steps": Tmax,
+          "two_layer_min_topk_margin": margin, "two_layer_ids_compared": compared,
+          "two_layer_ids_equal": bool(torch.equal(ids_card, ids_cpu))})
+    return launches
+
+
+def train_clone_phase(torch, rng):
+    """`train-clone`'s path on the card at codet5-base width (fp32): the
+    reference's clone files (pairs + data.jsonl, written under build/),
+    read and tokenized as the CLI does at 256 tokens, CloneTrainer steps
+    on 2 batches of 16 pairs (8 steps); every loss finite; per step the
+    launches of the gen step (each code is a row of the seq2seq stack)."""
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.models import CloneConfig
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+    from deepdfa_tpu_torch.train.clone_loop import CloneTrainer, clone_batches_of
+
+    args = gen_args("train-clone")
+    cfg = gen_config()
+    vocab = [w for w in C_WORDS if w not in ("->", "++")]
+    d = ROOT / "build" / "smoke_gen" / "clone"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "data.jsonl").write_text("\n".join(json.dumps(
+        {"idx": str(i), "func": " ".join(str(w) for w in rng.choice(vocab, int(
+            rng.integers(150, 400))))}) for i in range(40)) + "\n")
+    (d / "train.txt").write_text("\n".join(f"{i % 40}\t{(7 * i + 3) % 40}\t{i % 2}"
+                                          for i in range(32)) + "\n")
+    tok, enc = cli._gen_tokenizer_and_encoder(args)
+    ex = gen_data.read_clone_examples(str(d / "train.txt"))
+    a = tok.batch_encode([f"clone: {e.source}" for e in ex], max_length=args.max_source_length)
+    b = tok.batch_encode([f"clone: {e.target}" for e in ex], max_length=args.max_source_length)
+    pairs = np.stack([a, b], axis=1).astype(np.int32)
+    batches = clone_batches_of(pairs, [e.label for e in ex], 1, args.batch_size,
+                               pad_id=tok.pad_id, shuffle_seed=cfg.train.seed)
+    trainer = CloneTrainer(cfg, CloneConfig(encoder=enc), total_steps=8, device=CARD)
+    state = trainer.init_state()
+    losses, times = [], []
+    reset_flash(fa)
+    for i in range(8):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        losses.append(trainer.train_step(state, batches[i % len(batches)].to(trainer.device),
+                                         fold_seed(0, i)).item())
+        times.append(1e3 * (time.perf_counter() - t_a))
+    launches = flash_counts(fa)
+    L = enc.num_layers
+    if launches != {"flash_fwd": 8 * 6 * L, "flash_dq": 8 * 3 * L, "flash_dkv": 8 * 3 * L,
+                    "flash_dbias": 8 * 2 * L}:
+        fail(f"train_clone: kernel launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train_clone: a non-finite loss in {losses}")
+    metrics, _ = trainer.evaluate(state, batches[:1])
+    emit({"phase": "train_clone", "ok": True, "pairs": len(ex), "batch": list(pairs.shape[1:]),
+          "rows": args.batch_size, "steps": 8, "losses": losses,
+          "step_ms_median": statistics.median(times[1:]), "eval": metrics,
+          "kernel_launches": launches})
+    del state, trainer
+    return launches
+
+
 def device_groups(prof) -> dict:
     """Device ms of one profiled window by kernel group: the three flash
     kernels, the GGNN step kernel and its two backward kernels, matmuls
@@ -1527,21 +2137,23 @@ def device_groups(prof) -> dict:
 
 
 def kernel_name(mangled: str) -> str:
-    """`flash_dq_bf16_mma<64>` from the mangled name of a kernel in an
-    anonymous namespace of a csrc file (the mangled name where the
-    pattern does not hold)."""
+    """`flash_dq_bf16_mma<64, bias, causal>` from the mangled name of a
+    kernel in an anonymous namespace of a csrc file: the width or element
+    type, then the bool template flags that are on (the flash kernels'
+    kBias and kCausal; the dbias and FMA instances have kCausal only);
+    the mangled name where the pattern does not hold."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
     if not m:
         return mangled
     start = m.end()
     base, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
-    arg = re.match(r"ILi(\d+)E(?:Lb([01])E)?", rest)
-    if arg:
-        return f"{base}<{arg.group(1)}{', bias' * (arg.group(2) == '1')}>"
-    for code, name in (("IfE", "float"), ("I13__nv_bfloat16E", "bf16")):
-        if rest.startswith(code):
-            return f"{base}<{name}>"
-    return base
+    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))((?:Lb[01]E)*)E", rest)
+    if not arg:
+        return base
+    first = arg.group(1) or ("float" if arg.group(2) else "bf16")
+    flags = re.findall(r"Lb([01])E", arg.group(4))
+    names = ("bias", "causal") if len(flags) == 2 else ("causal",)
+    return f"{base}<{', '.join([first, *(n for n, f in zip(names, flags) if f == '1')])}>"
 
 
 def ptxas_summary(log: str) -> dict:
@@ -1617,10 +2229,18 @@ def main() -> None:
     profile_combined_phase(torch, t5_model, t5_tok, t5_cfg, t5_enc, "profile_t5")
     del t5_model
     t5_train = train_combined_phase(torch, rng, "t5")
+    causal_err, causal_timing = flash_causal_kernel_phase(torch, {
+        "flash_fwd": flash_timing["ms"], "flash_dq": bwd_flash["dq_ms_rate0.0"],
+        "flash_dkv": bwd_flash["dkv_ms_rate0.0"]})
+    gen_train, gen_trainer, gen_state, _, gen_src, _ = train_gen_phase(torch, rng)
+    gen_decode = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
+    del gen_trainer, gen_state
+    gen_clone = train_clone_phase(torch, rng)
     # each main path's launches, counted from 0 just before it ran
     paths = {"serve": {"ggnn_step": launches}, "train": train_launches,
              "serve_combined": combined_launches, "train_combined": tc_launches,
-             "serve_t5": t5_serve, "train_t5": t5_train}
+             "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
+             "decode_gen": gen_decode, "train_clone": gen_clone}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]
@@ -1629,6 +2249,17 @@ def main() -> None:
 
     def by_path(kernel: str) -> dict:
         return {path: c[kernel] for path, c in paths.items() if c.get(kernel)}
+
+    def by_call(kernel: str) -> dict:
+        """The kernel's times at the causal and the gen path's calls."""
+        fwd = kernel == "fwd"
+        return {case: {"ms": t[f"{kernel}_ms"],
+                       "plain_ms": t["fwd_plain_ms" if fwd else "bwd_plain_ms"],
+                       "library_ms": t["fwd_library_ms" if fwd else "bwd_library_ms"],
+                       "library_call": t["library_call"], "bound_ms": t[f"{kernel}_bound"][0],
+                       "bound_by": t[f"{kernel}_bound"][1], "live_pairs": t["live_pairs"],
+                       **{f: t[f] for f in ("shape", "dtype", "causal", "biased")}}
+                for case, t in causal_timing.items() if f"{kernel}_ms" in t}
 
     flash_src = "deepdfa_tpu_torch/csrc/flash_attention.cu"
     # each flash row's ms, plain_ms and library_ms are at dropout 0 without
@@ -1647,7 +2278,7 @@ def main() -> None:
          "max_abs_err": bwd_err["ggnn_dmsg"], **bwd_timing["ggnn_dmsg"]},
         {"name": "flash_fwd", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:427",
-         "max_abs_err": max(flash_err, fb_err["fwd"]),
+         "max_abs_err": max(flash_err, fb_err["fwd"], causal_err["fwd"]),
          **{k: flash_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "dropout_ms": flash_timing["dropout"]["ms"],
          "bias": {"ms": fb["fwd_ms"], "plain_ms": fb["fwd_plain_ms"],
@@ -1655,7 +2286,7 @@ def main() -> None:
                   "bound_by": fb["fwd_bound"][1]}},
         {"name": "flash_dq", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:495",
-         "max_abs_err": max(bwd_flash_err, fb_err["dq"]),
+         "max_abs_err": max(bwd_flash_err, fb_err["dq"], causal_err["dq"]),
          "ms": bwd_flash["dq_ms_rate0.0"], "plain_ms": bwd_flash["plain_ms"],
          "bound_ms": bwd_flash["dq_bound_ms"], "bound_by": bwd_flash["dq_bound_by"],
          "library_ms": bwd_flash["library_ms"],
@@ -1665,7 +2296,7 @@ def main() -> None:
                   "bound_by": fb["dq_bound"][1]}},
         {"name": "flash_dkv", "source": flash_src,
          "replaces": "deepdfa_tpu/nn/flash_attention.py:516",
-         "max_abs_err": max(bwd_flash_err, fb_err["dkv"]),
+         "max_abs_err": max(bwd_flash_err, fb_err["dkv"], causal_err["dkv"]),
          "ms": bwd_flash["dkv_ms_rate0.0"], "plain_ms": bwd_flash["plain_ms"],
          "bound_ms": bwd_flash["dkv_bound_ms"], "bound_by": bwd_flash["dkv_bound_by"],
          "library_ms": bwd_flash["library_ms"],
@@ -1675,7 +2306,8 @@ def main() -> None:
                   "bound_by": fb["dkv_bound"][1]}},
         # kernel 8 exists only with a bias: its row is the T5 call's
         {"name": "flash_dbias", "source": flash_src,
-         "replaces": "deepdfa_tpu/nn/flash_attention.py:559", "max_abs_err": fb_err["dbias"],
+         "replaces": "deepdfa_tpu/nn/flash_attention.py:559",
+         "max_abs_err": max(fb_err["dbias"], causal_err["dbias"]),
          "ms": fb["dbias_ms"], "plain_ms": fb["bwd_plain_ms"], "bound_ms": fb["dbias_bound"][0],
          "bound_by": fb["dbias_bound"][1], "library_ms": fb["bwd_library_ms"],
          "dropout_ms": fb["dbias_dropout_ms"]},
@@ -1683,6 +2315,8 @@ def main() -> None:
     for k in kernels:
         k["launches_by_path"] = by_path(k["name"])
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"].startswith("flash_"):
+            k["by_call"] = by_call(k["name"][len("flash_"):])
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
                        "replaces": k["replaces"], "launches": k["launches"],
                        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
@@ -1691,10 +2325,13 @@ def main() -> None:
                        "launches_by_path": k["launches_by_path"],
                        **({"dropout_ms": k["dropout_ms"], "dropout_rate": DROPOUT_RATE}
                           if "dropout_ms" in k else {}),
-                       **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {})}
+                       **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {}),
+                       **({"by_call": k["by_call"]} if "by_call" in k else {})}
                       for k in kernels]})
     times = [k[f] for k in kernels for f in ("ms", "plain_ms", "bound_ms")]
     times += [k["bias"][f] for k in kernels if "bias" in k for f in ("ms", "plain_ms", "bound_ms")]
+    times += [c[f] for k in kernels for c in k.get("by_call", {}).values()
+              for f in ("ms", "plain_ms", "library_ms", "bound_ms")]
     if not all(math.isfinite(t) for t in times):
         fail("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):

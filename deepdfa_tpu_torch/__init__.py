@@ -1,13 +1,15 @@
-"""deepdfa_tpu_torch: the DeepDFA scorer and trainer, and the combined
-DeepDFA+LineVul scorer, in PyTorch, for NVIDIA Hopper.
+"""deepdfa_tpu_torch: the DeepDFA scorer and trainer, the combined
+DeepDFA+LineVul and CodeT5+DeepDFA scorers and trainers, and the CodeT5
+generation family, in PyTorch, for NVIDIA Hopper.
 
 A second package beside `deepdfa_tpu` (the JAX reference). It imports
 `torch` and `numpy` only — never `jax`, `flax` or any `deepdfa_tpu`
 module — and keeps its own copy of the host code it needs. Each GGNN
 step on a CUDA device runs one hand-written CUDA C++ kernel
 (`csrc/ggnn_step.cu`) and its backward two more (`csrc/ggnn_bwd.cu`);
-each transformer layer's attention runs the flash-attention forward
-kernel (`csrc/flash_attention.cu`). On the CPU the same steps run as
+each transformer layer's attention runs the flash-attention kernels
+(`csrc/flash_attention.cu`; the T5 decoder's self-attention its causal
+build). On the CPU the same steps run as
 plain PyTorch, which is what the parity tests hold against the JAX
 package.
 
@@ -15,14 +17,19 @@ Layering (bottom-up):
   core/     typed config (the JSON files shared with the JAX package), device choice
   graphs/   GraphSpec / GraphBatch, `pack` and the bucket planner, bit-for-bit
             with the reference; the graph-store reader
-  data/     the hash tokenizer and the text (+ graph) collater of the combined path
+  data/     the hash tokenizer, the text (+ graph) collater of the combined path, the
+            generation and clone task readers and batches
   csrc/     CUDA C++ kernel sources, built at first use by nn/cuda_build.py
   nn/       the GGNN step kernels' wrappers and autograd Function, the flash-attention
             wrapper, embedding, GGNN, pooling, head
-  models/   DeepDFA, the RoBERTa encoder, the combined model and the parameter converters
+  models/   DeepDFA, the RoBERTa and T5 encoders, the combined and defect models, the
+            T5 encoder-decoder (beam search, clone head) and the parameter converters
   serve/    ladder and bucket executors, dynamic batcher, offline scoring drives
-  train/    losses, optimiser state, samplers, metrics, checkpoints, GraphTrainer
-  cli.py    `python -m deepdfa_tpu_torch.cli train|test`
+  eval/     corpus BLEU (the n-gram half of CodeBLEU)
+  train/    losses, optimiser state, samplers, metrics, checkpoints, GraphTrainer,
+            CombinedTrainer, GenTrainer, fit_multi, CloneTrainer
+  cli.py    `python -m deepdfa_tpu_torch.cli train|test|train-combined|train-gen|
+            train-multi-gen|train-clone`
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,20 @@
-"""Command line of the port: train and test the DeepDFA GGNN, and train
-the combined DeepDFA+LineVul and CodeT5+DeepDFA models, on one device
-(the reference's
-`deepdfa-tpu train`, `test` and `train-combined`,
-`deepdfa_tpu/cli/main.py:cmd_train`, `cmd_test` and
-`cmd_train_combined`).
+"""Command line of the port: train and test the DeepDFA GGNN, train the
+combined DeepDFA+LineVul and CodeT5+DeepDFA models, and train and decode
+the CodeT5 generation family, on one device (the reference's
+`deepdfa-tpu train`, `test`, `train-combined`, `train-gen`,
+`train-multi-gen` and `train-clone`, `deepdfa_tpu/cli/main.py:cmd_train`,
+`cmd_test`, `cmd_train_combined`, `cmd_train_gen`, `cmd_train_multi_gen`
+and `cmd_train_clone`).
 
     python -m deepdfa_tpu_torch.cli train --config configs/bigvul_deepdfa.json [key=value ...]
     python -m deepdfa_tpu_torch.cli test --checkpoint best --split test [--export]
     python -m deepdfa_tpu_torch.cli train-combined --config configs/bigvul_combined.json \
         [--arch roberta|t5] --encoder codebert-base|codet5-base|tiny \
         [--graph-checkpoint RUN [--freeze-graph]] [key=value ...]
+    python -m deepdfa_tpu_torch.cli train-gen --task summarize --train-file F \
+        [--dev-file F] [--test-file F] [--do-eval-bleu] [--tiny] [key=value ...]
+    python -m deepdfa_tpu_torch.cli train-multi-gen --task-spec NAME=TRAIN[:DEV] ...
+    python -m deepdfa_tpu_torch.cli train-clone --train-file F [--dev-file F] [--test-file F]
 
 They read the processed-dir layout the reference's `prepare` and
 `extract` write under the storage root (`$DEEPDFA_TPU_STORAGE`, else
@@ -31,6 +36,19 @@ repository), `--pretrained` (no CodeBERT or CodeT5 weights either),
 `--sp-variant ulysses` and `--remat-policy attn_saved`. Rows are
 bucketed by `data.seq_buckets` (the largest edge equal to
 `--max-length`) or padded to `--max-length` in fixed 16-row batches.
+
+The generation commands read the reference's task files
+(`data/gen_data.py`) and build the T5 encoder-decoder with the reference's
+defaults (`--tiny`, else codet5-base width; fp32 activations; the
+T5-framed hash tokenizer at `--vocab-size`). `train-gen` keeps the
+best-ppl checkpoint in `runs/<run>/checkpoints-gen-torch/` (and with
+`--do-eval-bleu` the best BLEU+EM one in `checkpoints-gen-bleu-torch/`),
+and with `--test-file` restores the best-ppl checkpoint, decodes the test
+set by beam search and writes `results/test_best-ppl.{output,gold}`.
+`train-multi-gen` keeps `checkpoints-multi-<task>-torch/`, `train-clone`
+`checkpoints-clone-torch/`. Refused (`NotImplementedError`):
+`--pretrained` and `--tokenizer bpe` (ROADMAP queue A, item 4), and the
+training options `core/config.py:refuse_unported_training` names.
 """
 
 from __future__ import annotations
@@ -136,7 +154,9 @@ def epoch_batches(cfg: Config, specs, shuffle_epoch: int | None = None,
 
 def _load_config(args) -> Config:
     cfg = config_mod.load(args.config) if args.config else Config()
-    return config_mod.apply_overrides(cfg, args.overrides)
+    cfg = config_mod.apply_overrides(cfg, args.overrides)
+    config_mod.validate(cfg)
+    return cfg
 
 
 def _load_run_config(args) -> Config:
@@ -147,6 +167,7 @@ def _load_run_config(args) -> Config:
         saved = runs_dir(cfg.run_name) / "config.json"
         if saved.exists():
             cfg = config_mod.apply_overrides(config_mod.load(saved), args.overrides)
+            config_mod.validate(cfg)
     return cfg
 
 
@@ -384,6 +405,255 @@ def cmd_train_combined(args) -> None:
     print("best:", ckpts.best_metrics())
 
 
+# -- the generation family -------------------------------------------------
+
+
+GEN_CHECKPOINTS_DIR = "checkpoints-gen-torch"
+GEN_BLEU_CHECKPOINTS_DIR = "checkpoints-gen-bleu-torch"
+CLONE_CHECKPOINTS_DIR = "checkpoints-clone-torch"
+
+
+def _gen_tokenizer_and_encoder(args):
+    """(tokenizer, T5Config) of the generation commands: the T5-framed
+    hash tokenizer at --vocab-size and the tiny or codet5-base config
+    (fp32 activations, the reference's default); --pretrained and
+    --tokenizer bpe raise NotImplementedError."""
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.models import T5Config
+
+    if args.tokenizer == "bpe":
+        raise NotImplementedError(
+            f"{args.cmd} --tokenizer bpe is not ported yet: the port has no BpeTokenizer "
+            "(ROADMAP queue A, item 4)")
+    if args.pretrained is not None:
+        raise NotImplementedError(
+            f"{args.cmd} --pretrained is not ported yet: the port has no "
+            "gen_params_from_hf_torch (ROADMAP queue A, item 4)")
+    tok = HashTokenizer(vocab_size=args.vocab_size, t5_frame=True)
+    kw = dict(vocab_size=tok.vocab_size, pad_token_id=tok.pad_id, eos_token_id=tok.sep_id)
+    return tok, (T5Config.tiny(**kw) if args.tiny else T5Config(**kw))
+
+
+def _gen_setup(args, cfg: Config, total_steps: int | None = None):
+    """(tokenizer, GenConfig, GenTrainer, fresh state, rows per batch) of
+    `train-gen` and `train-multi-gen` (the reference's `_gen_setup`)."""
+    from deepdfa_tpu_torch.models import GenConfig
+    from deepdfa_tpu_torch.train.gen_loop import GenTrainer
+
+    tok, enc_cfg = _gen_tokenizer_and_encoder(args)
+    gcfg = GenConfig(encoder=enc_cfg, max_target_length=args.max_target_length,
+                     beam_size=args.beam_size)
+    config_mod.one_card(cfg.train.mesh)
+    trainer = GenTrainer(cfg, gcfg, total_steps=total_steps, device=args.device)
+    return tok, gcfg, trainer, trainer.init_state(), max(1, args.batch_size)
+
+
+def _gen_encode_file(args, tok, task_name: str, filename: str,
+                     max_target_length: int | None = None):
+    """(examples, source ids, target ids) of one task file, the sources
+    prefixed "<family>: " as the reference's `_utils.py:24-29` does."""
+    from deepdfa_tpu_torch.data import gen_data
+
+    family = task_name.split("_")[0]
+    if family not in gen_data.READERS:
+        raise SystemExit(f"unknown task family {family!r} (task {task_name!r}); "
+                         f"known: {sorted(gen_data.READERS)}")
+    ex = gen_data.READERS[family](filename, args.data_num)
+    src = tok.batch_encode([f"{family}: {e.source}" for e in ex],
+                           max_length=args.max_source_length)
+    tgt = tok.batch_encode([e.target for e in ex],
+                           max_length=max_target_length or args.max_target_length)
+    return ex, src.astype(np.int32), tgt.astype(np.int32)
+
+
+def cmd_train_gen(args) -> None:
+    """Seq2seq training and test decoding (CodeT5's run_gen.py)."""
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.models import t5_gen as genm
+
+    cfg = _load_config(args)
+    run_dir = runs_dir(cfg.run_name)
+    total_steps = 1  # an eval-only run steps nothing
+    if args.train_file:
+        family = args.task.split("_")[0]
+        n_train = len(gen_data.READERS[family](args.train_file, args.data_num))
+        total_steps = max(1, -(-n_train // max(1, args.batch_size))) * max(1, cfg.train.max_epochs)
+    tok, gcfg, trainer, state, rows = _gen_setup(args, cfg, total_steps=total_steps)
+
+    def load(filename):
+        return _gen_encode_file(args, tok, args.task, filename)
+
+    if args.train_file:
+        config_mod.to_json(cfg, run_dir / "config.json")
+        _, train_src, train_tgt = load(args.train_file)
+        dev = load(args.dev_file) if args.dev_file else None
+        val_batches = val_decode = None
+        if dev is not None:
+            dev_batches = gen_data.batches_of(dev[1], dev[2], 1, rows, pad_id=tok.pad_id)
+            val_batches = lambda: dev_batches  # noqa: E731
+            if args.do_eval_bleu:
+                val_decode = (dev[1], genm.trim_at_eos(dev[2], tok.sep_id, tok.pad_id))
+        ckpts = trainer.make_checkpoints(run_dir / GEN_CHECKPOINTS_DIR)
+        bleu_ckpts = (trainer.make_checkpoints(run_dir / GEN_BLEU_CHECKPOINTS_DIR,
+                                               monitor="val_bleu_em", mode="max")
+                      if args.do_eval_bleu else None)
+        run_log = RunLog(run_dir)
+        try:
+            state = trainer.fit(
+                state,
+                lambda epoch: gen_data.batches_of(train_src, train_tgt, 1, rows,
+                                                  pad_id=tok.pad_id,
+                                                  shuffle_seed=cfg.train.seed + epoch),
+                val_batches=val_batches, val_decode=val_decode, checkpoints=ckpts,
+                bleu_checkpoints=bleu_ckpts, patience=args.patience, log_fn=run_log.log)
+        finally:
+            run_log.close()
+        print("best:", ckpts.best_metrics())
+
+    if args.test_file:
+        ex, test_src, test_tgt = load(args.test_file)
+        # decode from the best-ppl weights, not the last epoch's (run_gen.py
+        # reloads checkpoint-best-ppl before test decoding)
+        if (run_dir / GEN_CHECKPOINTS_DIR / "best").exists():
+            best = trainer.make_checkpoints(run_dir / GEN_CHECKPOINTS_DIR).restore("best")
+            state = trainer.load_params(state, best["model"])
+        refs = genm.trim_at_eos(test_tgt, tok.sep_id, tok.pad_id)
+        scores = trainer.eval_bleu_em(state, test_src, refs, return_preds=True)
+        preds = scores.pop("preds")
+        res_dir = run_dir / "results"
+        res_dir.mkdir(parents=True, exist_ok=True)
+        with (res_dir / "test_best-ppl.output").open("w") as f_out, (
+            res_dir / "test_best-ppl.gold"
+        ).open("w") as f_gold:
+            for e, pr, r in zip(ex, preds, refs):
+                f_out.write(f"{e.idx}\t{' '.join(map(str, pr))}\n")
+                f_gold.write(f"{e.idx}\t{' '.join(map(str, r))}\n")
+        print(json.dumps({"test_em": scores["em"], "test_bleu": scores["bleu"]}))
+
+
+def cmd_train_multi_gen(args) -> None:
+    """Multi-task generation training (CodeT5's run_multi_gen.py):
+    --task-spec name=train_file[:dev_file], repeatable; the name's family
+    picks the reader, the patience and the target length."""
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.models import t5_gen as genm
+    from deepdfa_tpu_torch.train.multi_gen import GenTask, fit_multi, task_target_length
+
+    cfg = _load_config(args)
+    run_dir = runs_dir(cfg.run_name)
+    specs: list[tuple[str, str, str | None]] = []
+    for spec in args.task_spec:
+        name, _, files = spec.partition("=")
+        if not files:
+            raise SystemExit(f"--task-spec {spec!r}: expected name=train[:dev]")
+        if name.split("_")[0] not in gen_data.READERS:
+            raise SystemExit(f"--task-spec {spec!r}: unknown task family "
+                             f"{name.split('_')[0]!r}; known: {sorted(gen_data.READERS)}")
+        train_file, _, dev_file = files.partition(":")
+        specs.append((name, train_file, dev_file or None))
+    tok, gcfg, trainer, state, rows = _gen_setup(args, cfg, total_steps=max(1, args.max_steps))
+
+    def load(name, filename):
+        _, src, tgt = _gen_encode_file(
+            args, tok, name, filename,
+            max_target_length=min(args.max_target_length, task_target_length(name)))
+        return src, tgt
+
+    tasks = []
+    for name, train_file, dev_file in specs:
+        src, tgt = load(name, train_file)
+
+        def factory(epoch, _src=src, _tgt=tgt):
+            return gen_data.batches_of(_src, _tgt, 1, rows, pad_id=tok.pad_id,
+                                       shuffle_seed=cfg.train.seed + epoch)
+
+        val_batches = val_decode = None
+        if dev_file:
+            dsrc, dtgt = load(name, dev_file)
+            dev = gen_data.batches_of(dsrc, dtgt, 1, rows, pad_id=tok.pad_id)
+            val_batches = lambda _dev=dev: _dev  # noqa: E731
+            if args.do_eval_bleu:
+                val_decode = (dsrc, genm.trim_at_eos(dtgt, tok.sep_id, tok.pad_id))
+        tasks.append(GenTask(name, factory, size=src.shape[0], val_batches=val_batches,
+                             val_decode=val_decode))
+
+    def checkpoints(task_name, monitor, mode):
+        return trainer.make_checkpoints(run_dir / f"checkpoints-multi-{task_name}-torch",
+                                        monitor=monitor, mode=mode)
+
+    config_mod.to_json(cfg, run_dir / "config.json")
+    run_log = RunLog(run_dir)
+    try:
+        state, summary = fit_multi(trainer, state, tasks, max_steps=args.max_steps,
+                                   eval_every=args.eval_every, checkpoints=checkpoints,
+                                   seed=cfg.train.seed, log_fn=run_log.log)
+    finally:
+        run_log.close()
+    print(json.dumps({"tasks": summary}, default=float))
+
+
+def cmd_train_clone(args) -> None:
+    """Pairwise clone-detection training (CodeT5's run_clone.py): best-F1
+    checkpoints and test precision / recall / F1."""
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.models import CloneConfig
+    from deepdfa_tpu_torch.train.clone_loop import CloneTrainer, clone_batches_of
+
+    cfg = _load_config(args)
+    run_dir = runs_dir(cfg.run_name)
+    tok, enc_cfg = _gen_tokenizer_and_encoder(args)
+    ccfg = CloneConfig(encoder=enc_cfg)
+
+    def load(filename):
+        ex = gen_data.read_clone_examples(filename, args.data_num)
+        a = tok.batch_encode([f"clone: {e.source}" for e in ex],
+                             max_length=args.max_source_length)
+        b = tok.batch_encode([f"clone: {e.target}" for e in ex],
+                             max_length=args.max_source_length)
+        return ex, np.stack([a, b], axis=1).astype(np.int32), np.array(
+            [e.label for e in ex], np.int32)
+
+    config_mod.one_card(cfg.train.mesh)
+    rows = max(1, args.batch_size)
+    total_steps = 1
+    if args.train_file:
+        n_train = len(gen_data.read_clone_examples(args.train_file, args.data_num))
+        total_steps = max(1, -(-n_train // rows)) * max(1, cfg.train.max_epochs)
+    trainer = CloneTrainer(cfg, ccfg, total_steps=total_steps, device=args.device)
+    state = trainer.init_state()
+    ckpt_dir = run_dir / CLONE_CHECKPOINTS_DIR
+    if args.train_file:
+        config_mod.to_json(cfg, run_dir / "config.json")
+        _, train_pairs, train_labels = load(args.train_file)
+        val_batches = None
+        if args.dev_file:
+            _, dev_pairs, dev_labels = load(args.dev_file)
+            dev = clone_batches_of(dev_pairs, dev_labels, 1, rows, pad_id=tok.pad_id)
+            val_batches = lambda: dev  # noqa: E731
+        ckpts = trainer.make_checkpoints(ckpt_dir)
+        run_log = RunLog(run_dir)
+        try:
+            state = trainer.fit(
+                state,
+                lambda epoch: clone_batches_of(train_pairs, train_labels, 1, rows,
+                                               pad_id=tok.pad_id,
+                                               shuffle_seed=cfg.train.seed + epoch),
+                val_batches=val_batches, checkpoints=ckpts, patience=args.patience,
+                log_fn=run_log.log)
+        finally:
+            run_log.close()
+        print("best:", ckpts.best_metrics())
+
+    if args.test_file:
+        _, test_pairs, test_labels = load(args.test_file)
+        if (ckpt_dir / "best").exists():
+            best = trainer.make_checkpoints(ckpt_dir).restore("best")
+            state = trainer.load_params(state, best["model"])
+        metrics, _ = trainer.evaluate(
+            state, clone_batches_of(test_pairs, test_labels, 1, rows, pad_id=tok.pad_id))
+        print(json.dumps({f"test_{k}": v for k, v in metrics.items()}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m deepdfa_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -428,6 +698,61 @@ def build_parser() -> argparse.ArgumentParser:
                    help="freeze the loaded graph encoder (reference --freeze_graph)")
     common(p)
     p.set_defaults(fn=cmd_train_combined)
+
+    def gen_model_args(p):
+        p.add_argument("--tiny", action="store_true", help="tiny T5 config (tests, smoke)")
+        p.add_argument("--tokenizer", choices=("hash", "bpe"), default="hash",
+                       help="hash (default); bpe is not ported yet")
+        p.add_argument("--vocab-size", type=int, default=4096)
+        p.add_argument("--vocab-file", default=None)
+        p.add_argument("--merges-file", default=None)
+        p.add_argument("--pretrained", default=None,
+                       help="HF torch T5ForConditionalGeneration state_dict (not ported yet)")
+
+    p = sub.add_parser("train-gen")
+    p.add_argument("--task", required=True,
+                   choices=sorted(("summarize", "translate", "refine", "concode", "defect")))
+    p.add_argument("--train-file", default=None)
+    p.add_argument("--dev-file", default=None)
+    p.add_argument("--test-file", default=None)
+    p.add_argument("--data-num", type=int, default=-1)
+    p.add_argument("--max-source-length", type=int, default=256)
+    p.add_argument("--max-target-length", type=int, default=128)
+    p.add_argument("--beam-size", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--patience", type=int, default=2)
+    p.add_argument("--do-eval-bleu", action="store_true")
+    gen_model_args(p)
+    common(p)
+    p.set_defaults(fn=cmd_train_gen)
+
+    p = sub.add_parser("train-multi-gen")
+    p.add_argument("--task-spec", action="append", required=True,
+                   help="name=train_file[:dev_file]; the name's <family>_* prefix picks "
+                        "reader, patience and target length (repeatable)")
+    p.add_argument("--max-steps", type=int, default=1000)
+    p.add_argument("--eval-every", type=int, default=None)
+    p.add_argument("--data-num", type=int, default=-1)
+    p.add_argument("--max-source-length", type=int, default=256)
+    p.add_argument("--max-target-length", type=int, default=128)
+    p.add_argument("--beam-size", type=int, default=5)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--do-eval-bleu", action="store_true")
+    gen_model_args(p)
+    common(p)
+    p.set_defaults(fn=cmd_train_multi_gen)
+
+    p = sub.add_parser("train-clone")
+    p.add_argument("--train-file", default=None)
+    p.add_argument("--dev-file", default=None)
+    p.add_argument("--test-file", default=None)
+    p.add_argument("--data-num", type=int, default=-1)
+    p.add_argument("--max-source-length", type=int, default=256)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--patience", type=int, default=2)
+    gen_model_args(p)
+    common(p)
+    p.set_defaults(fn=cmd_train_clone)
     return parser
 
 

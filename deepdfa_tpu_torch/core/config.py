@@ -6,8 +6,9 @@ feature spec, batch budgets, split and sampling fields and the text
 buckets (`seq_buckets`, `token_budget`) of `data`, all of
 `model`, the batcher fields of `serve`, and the one-card training fields
 of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
-resilience switch, which must say "one card, off"), and the `obs`
-switches (which must be off). Field names and
+resilience switch, which must say "one card, off", and the
+`debug_nans`/`enable_checks` sanitizer switches, which must be off), and
+the `obs` switches (which must be off). Field names and
 defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
 file configures both packages. Keys the port does not run yet (the
 rest of observability, fleet, the frontend, the prefetch pipeline and
@@ -243,6 +244,10 @@ class TrainConfig:
     # feature-identity dropout: with this probability per node, known
     # abstract-dataflow buckets map to UNKNOWN (train/loop.py)
     feat_unknown_dropout: float = 0.0
+    # the reference's jax sanitizers (NaN checks, invariant checks): the
+    # port has no counterpart yet and refuses them when set
+    debug_nans: bool = False
+    enable_checks: bool = False
     optim: OptimConfig = field(default_factory=OptimConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
@@ -275,9 +280,16 @@ def one_card(mesh: MeshConfig) -> int:
 
 def refuse_unported_training(cfg: Config) -> None:
     """NotImplementedError for the training options the port does not
-    run: a mesh beyond one card, `train.resilience.enabled` and any
-    `obs` instrument."""
+    run: a mesh beyond one card, `train.resilience.enabled`, the
+    `train.debug_nans`/`train.enable_checks` sanitizers and any `obs`
+    instrument."""
     one_card(cfg.train.mesh)
+    for name in ("debug_nans", "enable_checks"):
+        if getattr(cfg.train, name):
+            raise NotImplementedError(
+                f"train.{name}: the reference's jax sanitizer has no counterpart in the "
+                "port yet (ROADMAP queue C); set it to false"
+            )
     if cfg.train.resilience.enabled:
         raise NotImplementedError(
             "train.resilience.enabled: the resilient runtime (guarded step, step "
@@ -287,6 +299,25 @@ def refuse_unported_training(cfg: Config) -> None:
         raise NotImplementedError(
             f"obs={cfg.obs}: the telemetry instruments come with a later slice of the "
             "port (ROADMAP queue A, item 10)"
+        )
+
+
+#: relation count each gtype produces (the reference's pipeline.extract_graph)
+GTYPE_ETYPES = {"cfg": 1, "pdg": 1, "cfg+dep": 3}
+
+
+def validate(cfg: Config) -> None:
+    """Cross-field checks at config load (the reference's `validate`):
+    the GGNN's relation count must match the edge-relation set of
+    `data.gtype`, or a typed store fed to a single-relation model (or the
+    other way round) would route messages wrongly."""
+    want = GTYPE_ETYPES.get(cfg.data.gtype)
+    if want is None:
+        raise ValueError(f"unknown data.gtype {cfg.data.gtype!r}")
+    if cfg.model.n_etypes != want:
+        raise ValueError(
+            f"model.n_etypes={cfg.model.n_etypes} does not match "
+            f"data.gtype={cfg.data.gtype!r} (needs n_etypes={want})"
         )
 
 
@@ -345,7 +376,11 @@ def to_json(cfg: Config, path: str | Path | None = None) -> str:
 
 def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
     """Apply `a.b.c=value` overrides (values parsed as JSON, else kept
-    as strings) to the fields the port reads; an unknown key raises."""
+    as strings) to the fields the port reads, with the reference's type
+    rules: an unknown key raises KeyError; a value of another type than
+    the field's raises TypeError (an int widens to a float, a bool is
+    never an int); a section takes only a JSON object, merged into it; a
+    field whose value is None takes only valid JSON."""
     d = to_dict(cfg)
     for ov in overrides:
         key, eq, raw = ov.partition("=")
@@ -353,16 +388,36 @@ def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
             raise ValueError(f"override must be key=value, got {ov!r}")
         try:
             val = json.loads(raw)
+            parsed_json = True
         except json.JSONDecodeError:
             val = raw
+            parsed_json = False
         node = d
         parts = key.split(".")
         for p in parts[:-1]:
-            node = node.get(p) if isinstance(node, dict) else None
-            if node is None:
+            if not isinstance(node, dict) or p not in node:
                 raise KeyError(f"unknown config key: {key}")
+            node = node[p]
         if not isinstance(node, dict) or parts[-1] not in node:
             raise KeyError(f"unknown config key: {key}")
         old = node[parts[-1]]
-        node[parts[-1]] = {**old, **val} if isinstance(old, dict) and isinstance(val, dict) else val
+        if isinstance(old, dict):
+            if not isinstance(val, dict):
+                raise TypeError(f"override {key}={raw!r}: {key} is a config section; override "
+                                "its fields one by one or pass a JSON object")
+            node[parts[-1]] = {**old, **val}
+            continue
+        if old is None and not parsed_json:
+            raise TypeError(f"override {key}={raw!r} is not valid JSON; quote strings "
+                            f"explicitly (e.g. {key}='\"text\"')")
+        if old is not None and val is not None and not isinstance(val, type(old)):
+            if isinstance(old, float) and isinstance(val, int) and not isinstance(val, bool):
+                val = float(val)
+            else:
+                raise TypeError(f"override {key}={raw!r}: expected {type(old).__name__}, "
+                                f"got {type(val).__name__}")
+        elif isinstance(val, bool) != isinstance(old, bool) and None not in (old, val):
+            raise TypeError(f"override {key}={raw!r}: expected {type(old).__name__}, "
+                            f"got {type(val).__name__}")
+        node[parts[-1]] = val
     return from_dict(d)

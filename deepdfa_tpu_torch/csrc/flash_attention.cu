@@ -8,13 +8,16 @@
 //   flash_dq    -> _dq_kernel    (the first pallas_call of _bwd_call)
 //   flash_dkv   -> _dkv_kernel   (the second pallas_call of _bwd_call)
 //   flash_dbias -> _dbias_kernel (the third pallas_call of _bwd_call)
-// without their causal option. For q [B, H, Tq, D], k, v [B, H, Tk, D], a
-// kv mask [B, Tk] and an optional bias [H, Tq, Tk] (T5's relative-position
-// bias, broadcast over the batch) the forward computes, per (b, h, query
-// row i),
+// with their causal option (_block_ok, _block_dead). For q [B, H, Tq, D],
+// k, v [B, H, Tk, D], a kv mask [B, Tk] and an optional bias [H, Tq, Tk]
+// (T5's relative-position bias, broadcast over the batch) the forward
+// computes, per (b, h, query row i),
 //
-//   s_j = q_i . k_j * scale + bias[h, i, j]   where mask[b, j], else -1e30
-//   m   = max_j s_j,   p_j = exp(s_j - m) where mask[b, j], else 0
+//   s_j = q_i . k_j * scale + bias[h, i, j]   where live(i, j), else -1e30
+//
+// where live(i, j) = mask[b, j], and with causal also j <= i (Tq == Tk,
+// global positions: T5's decoder self-attention),
+//   m   = max_j s_j,   p_j = exp(s_j - m) where live(i, j), else 0
 //   l   = sum_j p_j                                     (fp32, undropped)
 //   o_i = (sum_j round(d_j p_j) * v_j) / max(l, FLT_MIN)    (fp32 sums)
 //   lse_i = m + log(max(l, FLT_MIN))                    (fp32)
@@ -31,7 +34,7 @@
 // forward's lse and delta_i = rowsum(do_i * o_i) (fp32, computed by the
 // wrapper as the reference computes it outside any kernel):
 //
-//   p_ij  = exp(s_ij - lse_i) where mask[b, j], else 0    (masked FIRST:
+//   p_ij  = exp(s_ij - lse_i) where live(i, j), else 0   (masked FIRST:
 //           an all-padding row has lse = -1e30, and exp(s - lse) would
 //           be exp(0) = 1 at a masked score of -1e30)
 //   dp_ij = d_ij * (do_i . v_j)
@@ -73,6 +76,24 @@
 // No float atomics anywhere (the usual FA2 backward sums dq with atomics):
 // the same inputs on the same card give the same bits.
 //
+// Causal. kCausal is a template argument of every kernel, as kBias is, so
+// the non-causal instances carry none of its code. The source builds twice
+// (nn/cuda_build.py): FLASH_CAUSAL=0 gives the non-causal instances,
+// FLASH_CAUSAL=1 the causal ones, in two libraries that nvcc compiles in
+// parallel. Tiles wholly above the diagonal are skipped by loop bound, not
+// by predicate: the k loop of a forward or dq block whose q tile starts at
+// row r ends at min(Tk, r + rows); the q loop of a dk/dv block whose k tile
+// starts at key c starts at the q tile holding row c. Only a tile that
+// crosses the diagonal applies the per-element j <= i mask: the forward
+// runs that tile through its own instance of the tile body (a generic
+// lambda on kMasked), so every other tile runs the non-causal code; dq,
+// dk/dv and dbias test a per-tile flag instead (the split instance took
+// dq from 166 to 184 registers, 3 blocks an SM to 2, and was slower). A
+// dbias block whose tile lies wholly above the diagonal writes zeros and
+// returns, so every element of dbias is written once. The reference's
+// blocks are min(512, T), so at T <= 512 it skips nothing; 64 x 64 tiles
+// here skip (n - 1) n / 2 of n^2 tile pairs, n = T / 64.
+//
 // The bias. Each lane reads the bias elements its score fragment owns
 // straight from device memory: the [H, Tq, Tk] bias is shared by the B
 // blocks of a head and stays in the 50 MB L2 across them (6.3 MB in bf16
@@ -111,6 +132,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -390,7 +413,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&ac
 // kBias (here and in dq, dk/dv): the instance that adds a.bias; the
 // unbiased one carries none of its code, so the bias costs the RoBERTa
 // path no registers or instructions
-template <int D, bool kBias>
+template <int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
   constexpr int KS = D + 8;  // padded shared row, in elements
   constexpr int NJ = kMmaKeys / 8;  // n8 tiles of S
@@ -419,8 +442,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   float m0 = kNegBig, m1 = kNegBig;  // running max of rows r0, r1 (quad-uniform)
   float l0 = 0.0f, l1 = 0.0f;  // this lane's share of the running sums
+  const int q_start = blockIdx.x * kMmaRows;
+  // causal: the keys past this q tile's last row are dead for all its rows
+  const int k_end = kCausal ? min(a.Tk, q_start + kMmaRows) : a.Tk;
 
-  for (int k0 = 0; k0 < a.Tk; k0 += kMmaKeys) {
+  for (int k0 = 0; k0 < k_end; k0 += kMmaKeys) {
     __syncthreads();  // the previous tile is consumed
     load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
     load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
@@ -429,82 +455,100 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
       ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
     }
     __syncthreads();
+    // one k tile; kMasked (the tile that crosses the diagonal) applies
+    // the per-element col <= row mask, every other tile runs the
+    // non-causal code
+    auto tile = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+      // (row, tile column) is live: a real key, on or below the diagonal
+      auto live = [&](int col, int row) {
+        return ok_s[col] != 0.0f && (!kMasked || k0 + col <= row);
+      };
 
-    // S = Q K^T: rows (r0, r1), columns j*8 + 2t + {0, 1}
-    float s[NJ][4];
+      // S = Q K^T: rows (r0, r1), columns j*8 + 2t + {0, 1}
+      float s[NJ][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-    mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);
+      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);
 
-    // scale, bias and mask, the tile's row max over the quad
-    float mx0 = kNegBig, mx1 = kNegBig;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j * 8 + 2 * t + e;
-        const bool ok = ok_s[col] != 0.0f;
-        float b0 = 0.0f, b1 = 0.0f;
-        if (kBias && ok) {
-          if (r0 < a.Tq) b0 = bias_at(a.bias, h, r0, k0 + col);
-          if (r1 < a.Tq) b1 = bias_at(a.bias, h, r1, k0 + col);
-        }
-        s[j][e] = ok ? s[j][e] * a.scale + b0 : kNegBig;
-        s[j][2 + e] = ok ? s[j][2 + e] * a.scale + b1 : kNegBig;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    float ls0 = 0.0f, ls1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = ok_s[j * 8 + 2 * t + e] != 0.0f;
-        s[j][e] = ok ? expf(s[j][e] - mn0) : 0.0f;
-        s[j][2 + e] = ok ? expf(s[j][2 + e] - mn1) : 0.0f;
-        ls0 += s[j][e];
-        ls1 += s[j][2 + e];
-      }
-    }
-    l0 = l0 * al0 + ls0;  // the denominator stays undropped
-    l1 = l1 * al1 + ls1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= al0;
-      o[n][1] *= al0;
-      o[n][2] *= al1;
-      o[n][3] *= al1;
-    }
-    if (a.drop.on) {
-      // columns j*8 + 2t + {0, 1} share one Philox call: words 2(t&1) + e
+      // scale, bias and mask, the tile's row max over the quad
+      float mx0 = kNegBig, mx1 = kNegBig;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int col = k0 + j * 8 + 2 * t;
-        const uint4 w0 = bits4(a.drop, bh, r0, col), w1 = bits4(a.drop, bh, r1, col);
-        const bool odd = t & 1;
-        const uint32_t b00 = odd ? w0.z : w0.x, b01 = odd ? w0.w : w0.y;
-        const uint32_t b10 = odd ? w1.z : w1.x, b11 = odd ? w1.w : w1.y;
-        const float inv = a.drop.inv_keep;
-        const uint32_t thr = a.drop.threshold;
-        s[j][0] = b00 < thr ? s[j][0] * inv : 0.0f;
-        s[j][1] = b01 < thr ? s[j][1] * inv : 0.0f;
-        s[j][2] = b10 < thr ? s[j][2] * inv : 0.0f;
-        s[j][3] = b11 < thr ? s[j][3] * inv : 0.0f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = j * 8 + 2 * t + e;
+          const bool ok0 = live(col, r0), ok1 = live(col, r1);
+          float b0 = 0.0f, b1 = 0.0f;
+          if (kBias) {
+            if (ok0 && r0 < a.Tq) b0 = bias_at(a.bias, h, r0, k0 + col);
+            if (ok1 && r1 < a.Tq) b1 = bias_at(a.bias, h, r1, k0 + col);
+          }
+          s[j][e] = ok0 ? s[j][e] * a.scale + b0 : kNegBig;
+          s[j][2 + e] = ok1 ? s[j][2 + e] * a.scale + b1 : kNegBig;
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
       }
-    }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+      float ls0 = 0.0f, ls1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = j * 8 + 2 * t + e;
+          s[j][e] = live(col, r0) ? expf(s[j][e] - mn0) : 0.0f;
+          s[j][2 + e] = live(col, r1) ? expf(s[j][2 + e] - mn1) : 0.0f;
+          ls0 += s[j][e];
+          ls1 += s[j][2 + e];
+        }
+      }
+      l0 = l0 * al0 + ls0;  // the denominator stays undropped
+      l1 = l1 * al1 + ls1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= al0;
+        o[n][1] *= al0;
+        o[n][2] *= al1;
+        o[n][3] *= al1;
+      }
+      if (a.drop.on) {
+        // columns j*8 + 2t + {0, 1} share one Philox call: words 2(t&1) + e
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = k0 + j * 8 + 2 * t;
+          const uint4 w0 = bits4(a.drop, bh, r0, col), w1 = bits4(a.drop, bh, r1, col);
+          const bool odd = t & 1;
+          const uint32_t b00 = odd ? w0.z : w0.x, b01 = odd ? w0.w : w0.y;
+          const uint32_t b10 = odd ? w1.z : w1.x, b11 = odd ? w1.w : w1.y;
+          const float inv = a.drop.inv_keep;
+          const uint32_t thr = a.drop.threshold;
+          s[j][0] = b00 < thr ? s[j][0] * inv : 0.0f;
+          s[j][1] = b01 < thr ? s[j][1] * inv : 0.0f;
+          s[j][2] = b10 < thr ? s[j][2] * inv : 0.0f;
+          s[j][3] = b11 < thr ? s[j][3] * inv : 0.0f;
+        }
+      }
 
-    // O += bf16(P) V: the S accumulators of n-tiles 2kk, 2kk+1 are the
-    // A fragment of k-step kk
-    mma_xv<NJ, NO, KS>(o, s, v_s, lane);
+      // O += bf16(P) V: the S accumulators of n-tiles 2kk, 2kk+1 are the
+      // A fragment of k-step kk
+      mma_xv<NJ, NO, KS>(o, s, v_s, lane);
+    };
+    if constexpr (kCausal) {
+      if (k0 + kMmaKeys > q_start)
+        tile(std::true_type{});
+      else
+        tile(std::false_type{});
+    } else {
+      tile(std::false_type{});
+    }
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -533,7 +577,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
 // ---------------------------------------------------------------------------
 // forward, fp32 (and bf16 at widths the mma path does not take): FMA loops
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
   constexpr int C = kMaxD / 32;  // output columns per lane, at most
   __shared__ float q_s[kScalarRows][kMaxD];
@@ -566,7 +610,9 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
     for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < a.Tk; k0 += kScalarKeys) {
+  // causal: the keys past this q tile's last row are dead for all its rows
+  const int k_end = kCausal ? min(a.Tk, q0 + kScalarRows) : a.Tk;
+  for (int k0 = 0; k0 < k_end; k0 += kScalarKeys) {
     __syncthreads();
     for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
       const int r = idx / D, c = idx - r * D;
@@ -579,13 +625,14 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
       ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
     }
     __syncthreads();
+    const bool diag = kCausal && k0 + kScalarKeys > q0;  // crosses the diagonal
 #pragma unroll
     for (int i = 0; i < kScalarRowsPerWarp; ++i) {
       const int row = warp * kScalarRowsPerWarp + i;
       if (q0 + row >= a.Tq) continue;  // warp-uniform
       float s = 0.0f;
       for (int d = 0; d < D; ++d) s = fmaf(q_s[row][d], k_s[lane][d], s);
-      const bool ok = ok_s[lane] != 0.0f;
+      const bool ok = ok_s[lane] != 0.0f && (!diag || k0 + lane <= q0 + row);
       const float bv = (a.bias.p && ok) ? bias_at(a.bias, h, q0 + row, k0 + lane) : 0.0f;
       const float x = ok ? s * a.scale + bv : kNegBig;
       const float m_new = fmaxf(m[i], warp_max(x));
@@ -630,7 +677,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
 // ---------------------------------------------------------------------------
 // dq, bf16 on tensor cores: one block per (b*h, 64-row q-tile)
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
   constexpr int KS = D + 8;
   constexpr int NJ = kMmaKeys / 8;
@@ -666,7 +713,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
 #pragma unroll
   for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
 
-  for (int k0 = 0; k0 < a.Tk; k0 += kMmaKeys) {
+  const int q_start = blockIdx.x * kMmaRows;
+  const int k_end = kCausal ? min(a.Tk, q_start + kMmaRows) : a.Tk;
+  for (int k0 = 0; k0 < k_end; k0 += kMmaKeys) {
     __syncthreads();
     load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
     load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
@@ -675,6 +724,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
       ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
     }
     __syncthreads();
+    const bool diag = kCausal && k0 + kMmaKeys > q_start;
 
     float s[NJ][4], dp[NJ][4];
 #pragma unroll
@@ -701,13 +751,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool ok = ok_s[col + e] != 0.0f;
+        const bool ok0 = ok && v0 && (!diag || k0 + col + e <= r0);
+        const bool ok1 = ok && v1 && (!diag || k0 + col + e <= r1);
         float b0 = 0.0f, b1 = 0.0f;
-        if (kBias && ok) {
-          if (v0) b0 = bias_at(a.bias, h, r0, k0 + col + e);
-          if (v1) b1 = bias_at(a.bias, h, r1, k0 + col + e);
+        if (kBias) {
+          if (ok0) b0 = bias_at(a.bias, h, r0, k0 + col + e);
+          if (ok1) b1 = bias_at(a.bias, h, r1, k0 + col + e);
         }
-        const float p0 = (ok && v0) ? expf(s[j][e] * a.scale + b0 - lse0) : 0.0f;
-        const float p1 = (ok && v1) ? expf(s[j][2 + e] * a.scale + b1 - lse1) : 0.0f;
+        const float p0 = ok0 ? expf(s[j][e] * a.scale + b0 - lse0) : 0.0f;
+        const float p1 = ok1 ? expf(s[j][2 + e] * a.scale + b1 - lse1) : 0.0f;
         float d0 = dp[j][e], d1 = dp[j][2 + e];
         if (a.drop.on) {
           d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
@@ -735,7 +787,7 @@ constexpr int dkv_smem_bytes() {
   return 4 * kMmaKeys * (D + 8) * 2 + 3 * kMmaKeys * 4;
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
   constexpr int KS = D + 8;
   constexpr int NJ = kMmaKeys / 8;  // n8 tiles over a q tile
@@ -781,7 +833,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
     dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
   }
 
-  for (int q0 = 0; q0 < a.Tq; q0 += kMmaKeys) {
+  // causal: the q tiles before the one holding this block's first key are
+  // dead for all its keys
+  const int q_begin = kCausal ? (c0 / kMmaKeys) * kMmaKeys : 0;
+  for (int q0 = q_begin; q0 < a.Tq; q0 += kMmaKeys) {
     __syncthreads();  // the previous q tile is consumed (and k/v are staged)
     load_tile<D, KS>(q_s, qp, q0, a.Tq, a.sq.t, tid);
     load_tile<D, KS>(do_s, dop, q0, a.Tq, a.sdo.t, tid);
@@ -793,6 +848,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
       qok_s[tid] = valid ? 1.0f : 0.0f;
     }
     __syncthreads();
+    const bool diag = kCausal && q0 < c0 + kMmaRows;  // crosses the diagonal
 
     // S^T = K Q^T and dP^T = V dO^T: rows = keys (kr0, kr1), columns =
     // queries j*8 + 2t + {0, 1} of the tile
@@ -824,13 +880,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
         const int qc = j * 8 + 2 * t + e;
         const float lse = lse_s[qc], del = del_s[qc];
         const bool qv = qok_s[qc] != 0.0f;
+        const bool live0 = ok0 && qv && (!diag || kr0 <= q0 + qc);
+        const bool live1 = ok1 && qv && (!diag || kr1 <= q0 + qc);
         float b0 = 0.0f, b1 = 0.0f;
-        if (kBias && qv) {
-          if (ok0) b0 = bias_at(a.bias, h, q0 + qc, kr0);
-          if (ok1) b1 = bias_at(a.bias, h, q0 + qc, kr1);
+        if (kBias) {
+          if (live0) b0 = bias_at(a.bias, h, q0 + qc, kr0);
+          if (live1) b1 = bias_at(a.bias, h, q0 + qc, kr1);
         }
-        const float p0 = (ok0 && qv) ? expf(st[j][e] * a.scale + b0 - lse) : 0.0f;
-        const float p1 = (ok1 && qv) ? expf(st[j][2 + e] * a.scale + b1 - lse) : 0.0f;
+        const float p0 = live0 ? expf(st[j][e] * a.scale + b0 - lse) : 0.0f;
+        const float p1 = live1 ? expf(st[j][2 + e] * a.scale + b1 - lse) : 0.0f;
         float d0 = dpt[j][e], d1 = dpt[j][2 + e];
         float pv0 = p0, pv1 = p1;
         if (a.drop.on) {
@@ -869,7 +927,7 @@ __host__ __device__ constexpr int scalar_dq_smem_floats(int D) {
          kScalarKeys;
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
   constexpr int C = kMaxD / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -908,7 +966,8 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
     for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
   }
 
-  for (int k0 = 0; k0 < a.Tk; k0 += kScalarKeys) {
+  const int k_end = kCausal ? min(a.Tk, q0 + kScalarRows) : a.Tk;
+  for (int k0 = 0; k0 < k_end; k0 += kScalarKeys) {
     __syncthreads();
     for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
       const int r = idx / D, c = idx - r * D;
@@ -921,6 +980,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
       ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
     }
     __syncthreads();
+    const bool diag = kCausal && k0 + kScalarKeys > q0;
 #pragma unroll
     for (int i = 0; i < kScalarRowsPerWarp; ++i) {
       const int row = warp * kScalarRowsPerWarp + i;
@@ -930,7 +990,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
         s = fmaf(q_s[row * D + d], k_s[lane * (D + 1) + d], s);
         dp = fmaf(do_s[row * D + d], v_s[lane * (D + 1) + d], dp);
       }
-      const bool ok = ok_s[lane] != 0.0f;
+      const bool ok = ok_s[lane] != 0.0f && (!diag || k0 + lane <= q0 + row);
       const float bv = (a.bias.p && ok) ? bias_at(a.bias, h, q0 + row, k0 + lane) : 0.0f;
       const float p = ok ? expf(s * a.scale + bv - lse[i]) : 0.0f;
       if (a.drop.on)
@@ -971,7 +1031,7 @@ __host__ __device__ constexpr int scalar_dkv_smem_floats(int D) {
          3 * kScalarKeys;
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
   constexpr int C = kMaxD / 32;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -1013,7 +1073,8 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
     for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.0f;
   }
 
-  for (int q0 = 0; q0 < a.Tq; q0 += kScalarKeys) {
+  const int q_begin = kCausal ? (c0 / kScalarKeys) * kScalarKeys : 0;
+  for (int q0 = q_begin; q0 < a.Tq; q0 += kScalarKeys) {
     __syncthreads();
     for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
       const int r = idx / D, c = idx - r * D;
@@ -1029,6 +1090,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
       qok_s[tid] = in ? 1.0f : 0.0f;
     }
     __syncthreads();
+    const bool diag = kCausal && q0 < c0 + kScalarRows;
 #pragma unroll
     for (int i = 0; i < kScalarRowsPerWarp; ++i) {
       const int kl = warp * kScalarRowsPerWarp + i;  // this key, block-relative
@@ -1038,7 +1100,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
         s = fmaf(q_s[lane * (D + 1) + d], k_s[kl * D + d], s);
         dp = fmaf(do_s[lane * (D + 1) + d], v_s[kl * D + d], dp);
       }
-      const bool live = kok[i] && qok_s[lane] != 0.0f;
+      const bool live = kok[i] && qok_s[lane] != 0.0f && (!diag || c0 + kl <= q0 + lane);
       const float bv = (a.bias.p && live) ? bias_at(a.bias, h, q0 + lane, c0 + kl) : 0.0f;
       const float p = live ? expf(s * a.scale + bv - lse_s[lane]) : 0.0f;
       float pv = p;
@@ -1089,7 +1151,7 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
 // h); the batch loop runs inside the block, in order, and ds sums in the
 // S-shaped fp32 accumulator
 
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
   constexpr int KS = D + 8;
   constexpr int NJ = kMmaKeys / 8;
@@ -1106,6 +1168,23 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
   const int r0 = blockIdx.y * kMmaRows + warp * 16 + g;  // this lane's rows
   const int r1 = r0 + 8;
   const bool v0 = r0 < a.Tq, v1 = r1 < a.Tq;
+  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
+  const int q_start = blockIdx.y * kMmaRows;
+  if (kCausal && k0 >= q_start + kMmaRows) {
+    // wholly above the diagonal: ds is 0 there, and the tile is written
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = k0 + j * 8 + 2 * t + e;
+        if (key >= a.Tk) continue;
+        if (v0) out[(long long)r0 * a.Tk + key] = 0.0f;
+        if (v1) out[(long long)r1 * a.Tk + key] = 0.0f;
+      }
+    }
+    return;
+  }
+  const bool diag = kCausal && k0 + kMmaKeys > q_start;
 
   // this lane's bias elements (rows r0, r1; columns j*8 + 2t + {0, 1}),
   // the same for every b
@@ -1170,8 +1249,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool ok = ok_s[col + e] != 0.0f;
-        const float p0 = (ok && v0) ? expf(s[j][e] * a.scale + bv[j][e] - lse0) : 0.0f;
-        const float p1 = (ok && v1) ? expf(s[j][2 + e] * a.scale + bv[j][2 + e] - lse1) : 0.0f;
+        const bool ok0 = ok && v0 && (!diag || k0 + col + e <= r0);
+        const bool ok1 = ok && v1 && (!diag || k0 + col + e <= r1);
+        const float p0 = ok0 ? expf(s[j][e] * a.scale + bv[j][e] - lse0) : 0.0f;
+        const float p1 = ok1 ? expf(s[j][2 + e] * a.scale + bv[j][2 + e] - lse1) : 0.0f;
         float d0 = dp[j][e], d1 = dp[j][2 + e];
         if (a.drop.on) {
           d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
@@ -1183,7 +1264,6 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
     }
   }
 
-  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
 #pragma unroll
@@ -1200,7 +1280,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
 // 16-row q-tile, h); a lane owns one key of the tile for the warp's 4
 // rows and sums their ds over the batch in order
 
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kScalarThreads) flash_dbias_scalar(BwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D;
@@ -1216,6 +1296,17 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dbias_scalar(BwdArgs a) 
   const int k0 = blockIdx.x * kScalarKeys;
   const int q0 = blockIdx.y * kScalarRows;
   const int key = k0 + lane;
+  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
+  if (kCausal && k0 >= q0 + kScalarRows) {
+    // wholly above the diagonal: ds is 0 there, and the tile is written
+#pragma unroll
+    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
+      const int row = q0 + warp * kScalarRowsPerWarp + i;
+      if (row < a.Tq && key < a.Tk) out[(long long)row * a.Tk + key] = 0.0f;
+    }
+    return;
+  }
+  const bool diag = kCausal && k0 + kScalarKeys > q0;
 
   float bv[kScalarRowsPerWarp], acc[kScalarRowsPerWarp];
 #pragma unroll
@@ -1261,14 +1352,14 @@ __global__ void __launch_bounds__(kScalarThreads) flash_dbias_scalar(BwdArgs a) 
       }
       const float lse = a.lse[(long long)bh * a.Tq + q0 + row];
       const float del = a.delta[(long long)bh * a.Tq + q0 + row];
-      const float p = ok_s[lane] != 0.0f ? expf(s * a.scale + bv[i] - lse) : 0.0f;
+      const bool ok = ok_s[lane] != 0.0f && (!diag || key <= q0 + row);
+      const float p = ok ? expf(s * a.scale + bv[i] - lse) : 0.0f;
       if (a.drop.on)
         dp = bits1(a.drop, bh, q0 + row, key) < a.drop.threshold ? dp * a.drop.inv_keep : 0.0f;
       acc[i] += p * (dp - del);
     }
   }
 
-  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
 #pragma unroll
   for (int i = 0; i < kScalarRowsPerWarp; ++i) {
     const int row = q0 + warp * kScalarRowsPerWarp + i;
@@ -1282,7 +1373,13 @@ __host__ __device__ constexpr int scalar_dbias_smem_floats(int D) {
 }
 
 // ---------------------------------------------------------------------------
-// launches
+// launches: this build's instances are the causal ones (FLASH_CAUSAL=1) or
+// the non-causal ones
+
+#ifndef FLASH_CAUSAL
+#define FLASH_CAUSAL 0
+#endif
+constexpr bool kCausalBuild = FLASH_CAUSAL != 0;
 
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -1294,9 +1391,9 @@ template <int D>
 cudaError_t launch_fwd_mma(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
   if (a.bias.p)
-    flash_fwd_bf16_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(a);
+    flash_fwd_bf16_mma<D, true, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
   else
-    flash_fwd_bf16_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(a);
+    flash_fwd_bf16_mma<D, false, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1304,26 +1401,26 @@ template <int D>
 cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
   if (a.bias.p)
-    flash_dq_bf16_mma<D, true><<<grid, kMmaThreads, 0, stream>>>(a);
+    flash_dq_bf16_mma<D, true, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
   else
-    flash_dq_bf16_mma<D, false><<<grid, kMmaThreads, 0, stream>>>(a);
+    flash_dq_bf16_mma<D, false, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dbias_mma(const BwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Tk + kMmaKeys - 1) / kMmaKeys, (a.Tq + kMmaRows - 1) / kMmaRows, a.H);
-  flash_dbias_bf16_mma<D><<<grid, kMmaThreads, 0, stream>>>(a);
+  flash_dbias_bf16_mma<D, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int D, bool kBias>
 cudaError_t launch_dkv_instance(const BwdArgs& a, cudaStream_t stream) {
   constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_dkv_bf16_mma<D, kBias>, bytes);
+  cudaError_t err = allow_smem(flash_dkv_bf16_mma<D, kBias, kCausalBuild>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tk + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  flash_dkv_bf16_mma<D, kBias><<<grid, kMmaThreads, bytes, stream>>>(a);
+  flash_dkv_bf16_mma<D, kBias, kCausalBuild><<<grid, kMmaThreads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1368,7 +1465,8 @@ struct DbiasMma {
 
 bool bad_problem(int B, int H, int Tq, int Tk, int D) {
   return B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > kMaxD ||
-         (long long)B * H > 65535;  // gridDim.y
+         (long long)B * H > 65535 ||  // gridDim.y
+         (kCausalBuild && Tq != Tk);  // causal is the square self-attention
 }
 
 Bias make_bias(const void* p, int bf16, long long sh, long long st) {
@@ -1421,6 +1519,9 @@ int flash_fwd_tile_rows(int use_mma) { return use_mma ? kMmaRows : kScalarRows; 
 // Widest head the kernels take.
 int flash_fwd_max_head_dim() { return kMaxD; }
 
+// 1 if this library holds the causal instances (FLASH_CAUSAL=1), else 0.
+int flash_causal() { return kCausalBuild ? 1 : 0; }
+
 // One forward call. q, k, v, o, mask and lse are device pointers; strides
 // is a host array of 14 element strides: (batch, head, token) of q, k, v
 // and o, whose innermost dimension is contiguous, then the bias's (head,
@@ -1462,9 +1563,9 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
   }
   const dim3 grid((Tq + kScalarRows - 1) / kScalarRows, B * H);
   if (dtype_bf16)
-    flash_fwd_scalar<__nv_bfloat16><<<grid, kScalarThreads, 0, s>>>(a);
+    flash_fwd_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, 0, s>>>(a);
   else
-    flash_fwd_scalar<float><<<grid, kScalarThreads, 0, s>>>(a);
+    flash_fwd_scalar<float, kCausalBuild><<<grid, kScalarThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1496,13 +1597,13 @@ int flash_dq(const void* q, const void* k, const void* v, const int* mask, const
   const dim3 grid((Tq + kScalarRows - 1) / kScalarRows, B * H);
   cudaError_t err;
   if (dtype_bf16) {
-    err = allow_smem(flash_dq_scalar<__nv_bfloat16>, bytes);
+    err = allow_smem(flash_dq_scalar<__nv_bfloat16, kCausalBuild>, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_dq_scalar<__nv_bfloat16><<<grid, kScalarThreads, bytes, s>>>(a);
+    flash_dq_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
   } else {
-    err = allow_smem(flash_dq_scalar<float>, bytes);
+    err = allow_smem(flash_dq_scalar<float, kCausalBuild>, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_dq_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
+    flash_dq_scalar<float, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -1537,13 +1638,13 @@ int flash_dkv(const void* q, const void* k, const void* v, const int* mask, cons
   const dim3 grid((Tk + kScalarRows - 1) / kScalarRows, B * H);
   cudaError_t err;
   if (dtype_bf16) {
-    err = allow_smem(flash_dkv_scalar<__nv_bfloat16>, bytes);
+    err = allow_smem(flash_dkv_scalar<__nv_bfloat16, kCausalBuild>, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_dkv_scalar<__nv_bfloat16><<<grid, kScalarThreads, bytes, s>>>(a);
+    flash_dkv_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
   } else {
-    err = allow_smem(flash_dkv_scalar<float>, bytes);
+    err = allow_smem(flash_dkv_scalar<float, kCausalBuild>, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_dkv_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
+    flash_dkv_scalar<float, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -1577,13 +1678,13 @@ int flash_dbias(const void* q, const void* k, const void* v, const int* mask, co
   const dim3 grid((Tk + kScalarKeys - 1) / kScalarKeys, (Tq + kScalarRows - 1) / kScalarRows, H);
   cudaError_t err;
   if (dtype_bf16) {
-    err = allow_smem(flash_dbias_scalar<__nv_bfloat16>, bytes);
+    err = allow_smem(flash_dbias_scalar<__nv_bfloat16, kCausalBuild>, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_dbias_scalar<__nv_bfloat16><<<grid, kScalarThreads, bytes, s>>>(a);
+    flash_dbias_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
   } else {
-    err = allow_smem(flash_dbias_scalar<float>, bytes);
+    err = allow_smem(flash_dbias_scalar<float, kCausalBuild>, bytes);
     if (err != cudaSuccess) return (int)err;
-    flash_dbias_scalar<float><<<grid, kScalarThreads, bytes, s>>>(a);
+    flash_dbias_scalar<float, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
   }
   return (int)cudaGetLastError();
 }

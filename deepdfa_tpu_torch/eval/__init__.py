@@ -1,0 +1,5 @@
+"""Evaluation: the BLEU half of CodeBLEU (`eval/codebleu.py`)."""
+
+from deepdfa_tpu_torch.eval.codebleu import corpus_bleu, weighted_corpus_bleu
+
+__all__ = ["corpus_bleu", "weighted_corpus_bleu"]

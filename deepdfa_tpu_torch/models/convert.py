@@ -24,6 +24,14 @@ into each layer's [D, 3*H*Dh] `wqkv`, `wo [L, H, Dh, D]` becomes [H*Dh,
 D], `wi`, `wo_ffn`, `ln1`, `ln2`, `final_ln`, `word` and `rel_bias [32,
 H]` keep their layout, the head's [in, 2] kernel is transposed for
 `nn.Linear` and the graph encoder goes through `from_jax_params`.
+
+`from_jax_gen_params` / `from_jax_clone_params`: the seq2seq and clone
+trees (`models/t5_gen.py:init_gen_params`, `init_clone_params` of the
+reference). The decoder's `wq/wk/wv` fuse into `wqkv`, `cq` stays [D,
+H*Dh], `ck/cv` fuse into `ckv` [D, 2*H*Dh], `wo`/`co` become [H*Dh, D];
+an untied `lm_head` [V, D] keeps its layout (the model must then be
+built with `untied_head=True`); the clone head's Dense kernels are
+transposed for `nn.Linear`.
 """
 
 from __future__ import annotations
@@ -146,4 +154,53 @@ def from_jax_defect_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     sd["head.bias"] = _t(tree["head"]["b"])
     if "graph" in tree:
         sd.update({f"graph.{k}": v for k, v in from_jax_params(tree["graph"]).items()})
+    return sd
+
+
+def from_jax_gen_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference seq2seq tree {"encoder", "decoder"} -> a `T5Seq2Seq`
+    state_dict (with `decoder.lm_head` iff the tree has an untied head)."""
+    unknown = set(tree) - {"encoder", "decoder"}
+    if unknown:
+        raise KeyError(f"seq2seq subtrees the port has no module for: {sorted(unknown)}")
+    dec = tree["decoder"]
+    unknown = set(dec) - {"rel_bias", "layers", "final_ln", "lm_head"}
+    if unknown:
+        raise KeyError(f"decoder subtrees the port has no module for: {sorted(unknown)}")
+    sd = {f"encoder.{k}": v for k, v in from_jax_t5_params(tree["encoder"]).items()}
+    for name in ("rel_bias", "final_ln", "lm_head"):
+        if name in dec:
+            sd[f"decoder.{name}"] = _t(dec[name])
+    lay = {k: np.asarray(v, np.float32) for k, v in dec["layers"].items()}
+    n_layers, d = lay["wq"].shape[:2]
+
+    def fused(i, names):
+        return _t(np.concatenate([lay[w][i].reshape(d, -1) for w in names], axis=1))
+
+    for i in range(n_layers):
+        pre = f"decoder.layers.{i}."
+        sd[pre + "wqkv"] = fused(i, ("wq", "wk", "wv"))
+        sd[pre + "cq"] = fused(i, ("cq",))
+        sd[pre + "ckv"] = fused(i, ("ck", "cv"))
+        sd[pre + "wo"] = _t(lay["wo"][i].reshape(-1, d))
+        sd[pre + "co"] = _t(lay["co"][i].reshape(-1, d))
+        for name in ("ln1", "lnc", "wi", "wo_ffn", "ln2"):
+            sd[pre + name] = _t(lay[name][i])
+    return sd
+
+
+def from_jax_clone_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The reference clone tree {"seq2seq", "head"} -> a `CloneModel`
+    state_dict (the clone path never uses an LM head: one in the tree is
+    dropped, as the reference's `load_seq2seq` drops it)."""
+    unknown = set(tree) - {"seq2seq", "head"}
+    if unknown:
+        raise KeyError(f"clone subtrees the port has no module for: {sorted(unknown)}")
+    sd = {f"seq2seq.{k}": v for k, v in from_jax_gen_params(tree["seq2seq"]).items()
+          if k != "decoder.lm_head"}
+    head = tree["head"]
+    sd["dense.weight"] = _t(head["dense_w"]).T.contiguous()
+    sd["dense.bias"] = _t(head["dense_b"])
+    sd["out.weight"] = _t(head["out_w"]).T.contiguous()
+    sd["out.bias"] = _t(head["out_b"])
     return sd

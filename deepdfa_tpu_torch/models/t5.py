@@ -143,17 +143,19 @@ _onehot_cache: dict[tuple, torch.Tensor] = {}
 
 
 def bucket_one_hot(T: int, num_buckets: int, max_distance: int,
-                   device: torch.device) -> torch.Tensor:
-    """[num_buckets, T*T] fp32 one-hot of the encoder's bucket table,
-    cached per (T, buckets, distance, device); built outside inference
-    mode, so a cached table serves training passes too."""
-    key = (int(T), num_buckets, max_distance, torch.device(device))
+                   device: torch.device, bidirectional: bool = True) -> torch.Tensor:
+    """[num_buckets, T*T] fp32 one-hot of a [T, T] bucket table, the
+    encoder's (`bidirectional`) or the decoder's, cached per (T, buckets,
+    distance, device, bidirectional); built outside inference mode, so a
+    cached table serves training passes too."""
+    key = (int(T), num_buckets, max_distance, torch.device(device), bool(bidirectional))
     with _onehot_lock, torch.inference_mode(False), torch.no_grad():
         oh = _onehot_cache.get(key)
         if oh is None:
             pos = np.arange(T)
             buckets = torch.from_numpy(
-                relative_position_buckets(pos, pos, num_buckets, max_distance).reshape(-1)
+                relative_position_buckets(pos, pos, num_buckets, max_distance,
+                                          bidirectional).reshape(-1)
             ).to(device=device, dtype=torch.int64)
             oh = (torch.arange(num_buckets, device=device)[:, None] == buckets[None, :]).float()
             _onehot_cache[key] = oh
@@ -168,6 +170,27 @@ def encoder_rel_bias(cfg: T5Config, rel_bias: torch.Tensor, T: int,
     oh = bucket_one_hot(T, cfg.rel_buckets, cfg.rel_max_distance, rel_bias.device)
     H = rel_bias.shape[1]
     return (rel_bias.t() @ oh).view(H, T, T).to(dtype)
+
+
+def decoder_rel_bias(cfg: T5Config, rel_bias: torch.Tensor, T: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The decoder's shared [H, T, T] unidirectional relative-position
+    bias in `dtype` (contiguous): rel_bias^T @ one_hot(decoder buckets),
+    the product form of the reference's `rel_bias[buckets]` gather in
+    `decode_train` (its gradient is a product too, not a scatter)."""
+    oh = bucket_one_hot(T, cfg.rel_buckets, cfg.rel_max_distance, rel_bias.device,
+                        bidirectional=False)
+    H = rel_bias.shape[1]
+    return (rel_bias.t() @ oh).view(H, T, T).to(dtype)
+
+
+def attend(cfg: T5Config, q, k, v, kv_mask, bias=None, causal: bool = False) -> torch.Tensor:
+    """T5 attention (scale 1.0): the flash kernels where `attn_impl`
+    resolves to them, else the plain version."""
+    Tq, Tk, Dh = q.shape[2], k.shape[2], q.shape[3]
+    if resolve_impl(cfg.attn_impl, Tq, Dh, Tk=Tk, cuda=q.is_cuda) == "flash":
+        return flash_attention(q, k, v, kv_mask, scale=1.0, bias=bias, causal=causal)
+    return attention_plain(q, k, v, kv_mask, scale=1.0, bias=bias, causal=causal)[0]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -223,10 +246,7 @@ class T5Layer(nn.Module):
         h = rms_norm(x, self.ln1, cfg.layer_norm_eps)  # the fp32 scale, as the reference
         qkv = torch.matmul(h, p["wqkv"]).view(B, T, 3, H, Dh)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B, H, T, Dh]
-        if resolve_impl(cfg.attn_impl, T, Dh, cuda=x.is_cuda) == "flash":
-            ctx = flash_attention(q, k, v, attn_mask, scale=1.0, bias=bias)
-        else:
-            ctx, _ = attention_plain(q, k, v, attn_mask, scale=1.0, bias=bias)
+        ctx = attend(cfg, q, k, v, attn_mask, bias=bias)
         out = torch.matmul(ctx.transpose(1, 2).reshape(B, T, H * Dh), p["wo"])
         x = x + dropout(out, rate, s_att)
         h = torch.relu(torch.matmul(rms_norm(x, self.ln2, cfg.layer_norm_eps), p["wi"]))

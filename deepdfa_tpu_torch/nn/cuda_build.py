@@ -1,11 +1,15 @@
 """Build the port's CUDA C++ kernels with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C interface and compiles on its
-own into `build/deepdfa_tpu_torch/lib<name>-<hash>.so` under the repo
-root, a directory that `.gitignore` lists. The hash covers the source
-and the compiler flags, so an edited source builds anew and an
+Each library `<name>` is one `csrc/*.cu` source with a plain C interface,
+compiled on its own into `build/deepdfa_tpu_torch/lib<name>-<hash>.so`
+under the repo root, a directory that `.gitignore` lists. A library is
+`csrc/<name>.cu` unless `VARIANTS` names another source and the macros
+it is built with: `flash_attention_causal` is `flash_attention.cu` built
+with `FLASH_CAUSAL=1` (the causal instances of the flash kernels), so
+the two halves of that source compile in parallel. The hash covers the
+source and the compiler flags, so an edited source builds anew and an
 unchanged one loads from the cache. Nothing is built when the module is
-imported: `load` builds at first use, `build` builds a set of sources
+imported: `load` builds at first use, `build` builds a set of libraries
 with one nvcc process each, all started together.
 
 The sources include no PyTorch headers, which keeps a build to seconds;
@@ -31,8 +35,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: every kernel source of the package
-SOURCES = ("ggnn_step", "ggnn_bwd", "flash_attention")
+#: library -> (source stem, extra nvcc flags), where they differ from
+#: (the library's name, none)
+VARIANTS = {"flash_attention_causal": ("flash_attention", ("-DFLASH_CAUSAL=1",))}
+#: every kernel library of the package
+SOURCES = ("ggnn_step", "ggnn_bwd", "flash_attention", "flash_attention_causal")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -51,18 +58,21 @@ def nvcc() -> str:
     )
 
 
+def _source_and_flags(name: str) -> tuple[Path, tuple[str, ...]]:
+    stem, extra = VARIANTS.get(name, (name, ()))
+    return CSRC_DIR / f"{stem}.cu", (*NVCC_FLAGS, *extra)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    src, flags = _source_and_flags(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
-    """Compile every source in `names` whose library is missing, one
-    nvcc per source, all started together. Returns per source
-    {"cached", "seconds", "log"}, `log` holding ptxas's report."""
+    """Compile every library in `names` that is missing, one nvcc per
+    library, all started together. Returns per library {"cached",
+    "seconds", "log"}, `log` holding ptxas's report."""
     report: dict[str, dict] = {}
     started = {}
     try:
@@ -77,7 +87,8 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            src, flags = _source_and_flags(name)
+            cmd = [nvcc(), *flags, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
             )
@@ -86,7 +97,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                    f"nvcc failed for {name} (exit {proc.returncode}):\n"
                     f"{stdout}{stderr}"
                 )
             os.replace(tmp, out)
@@ -107,7 +118,7 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library `name`, built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

@@ -8,8 +8,10 @@ Kernel 5 of the port replaces the TPU kernel `_fwd_kernel` (launched by
 `_fwd_call`), kernels 6, 7 and 8 replace `_dq_kernel`, `_dkv_kernel` and
 `_dbias_kernel` (the pallas_calls of `_bwd_call`). For q [B, H, Tq, D]
 and k, v [B, H, Tk, D] in fp32 or bf16, a kv mask [B, Tk] (False =
-padding) and an optional bias [H, Tq, Tk] broadcast over the batch (T5's
-relative-position bias) the forward returns
+padding), an optional bias [H, Tq, Tk] broadcast over the batch (T5's
+relative-position bias) and the causal option (Tq == Tk: query i sees
+keys j <= i only, the reference's `_block_ok`; T5's decoder
+self-attention) the forward returns
 
     o   [B, H, Tq, D] in q's dtype: dropout(softmax(q k^T * scale +
         bias)) v over the real keys, with p cast to v's dtype before the
@@ -41,9 +43,13 @@ tests do. `debug_bits` is for CPU tensors only.
 launch the CUDA kernels for tensors on a CUDA device and run the plain
 versions for tensors on the CPU; there is no other route and no fallback
 from one to the other. `LAUNCHES`, `DQ_LAUNCHES`, `DKV_LAUNCHES` and
-`DBIAS_LAUNCHES` count kernel launches. The causal mask (the reference's
-decoder option) is not ported: `flash_attention` raises
-`NotImplementedError` for it.
+`DBIAS_LAUNCHES` count kernel launches, causal or not. The causal
+instances live in a second build of the same source
+(`flash_attention_causal`, `nn/cuda_build.py`); they skip the tiles above
+the diagonal by loop bound, and dbias writes zeros there. With causal and
+padded keys a query can have no live key: it gets o = 0 and a finite lse,
+as an all-padding row does (the reference's flash path; its XLA path
+averages such a row instead).
 
 Bound on the card, at the flagship training call (B 16, H 12, T 512,
 D 64, bf16): the forward moves q, k, v and o once, ~50 MB (0.015 ms at
@@ -176,10 +182,15 @@ def _plain_bits(q, k, dropout_rate, seed, debug_bits):
 # ---------------------------------------------------------------------------
 # plain versions
 
-def _masked_scores(q, k, kv_mask, scale: float, bias):
-    """(key mask [B, 1, 1, Tk], fp32 scores q k^T * scale + bias with
-    padded keys at NEG_BIG): the reference's `_scores`."""
+def _masked_scores(q, k, kv_mask, scale: float, bias, causal: bool = False):
+    """(live mask [B, 1, 1 or Tq, Tk], fp32 scores q k^T * scale + bias
+    with dead pairs at NEG_BIG): the reference's `_scores` over
+    `_block_ok`'s mask (a real key, and with causal col <= row)."""
     ok = kv_mask.to(torch.bool)[:, None, None, :]
+    if causal:
+        Tq, Tk = q.shape[2], k.shape[2]
+        rows = torch.arange(Tq, device=q.device)[:, None]
+        ok = ok & (torch.arange(Tk, device=q.device)[None, :] <= rows)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
@@ -188,16 +199,17 @@ def _masked_scores(q, k, kv_mask, scale: float, bias):
 
 def attention_plain(q, k, v, kv_mask, scale: float | None = None,
                     dropout_rate: float = 0.0, bits: torch.Tensor | None = None,
-                    bias: torch.Tensor | None = None):
+                    bias: torch.Tensor | None = None, causal: bool = False):
     """Kernel 5's function in plain PyTorch: (o, lse).
 
     The reference's one-block form (`block_k = Tk`): scores and sums in
     fp32, the bias [H, Tq, Tk] added unscaled before the mask, p
     (dropped and scaled by 1/keep_prob where `bits` say so, the
     denominator undropped) cast to v's dtype before p.v with an fp32
-    sum, o cast back to q's dtype."""
+    sum, o cast back to q's dtype. `causal` ANDs col <= row into the key
+    mask."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
-    ok, s = _masked_scores(q, k, kv_mask, scale, bias)
+    ok, s = _masked_scores(q, k, kv_mask, scale, bias, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(TINY)
@@ -212,7 +224,7 @@ def attention_plain(q, k, v, kv_mask, scale: float | None = None,
 
 def attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale: float | None = None,
                         dropout_rate: float = 0.0, bits: torch.Tensor | None = None,
-                        bias: torch.Tensor | None = None):
+                        bias: torch.Tensor | None = None, causal: bool = False):
     """Kernels 6, 7 and 8 in plain PyTorch: (dq, dk, dv) in q's dtype and
     dbias [H, Tq, Tk] in fp32 (None without a bias).
 
@@ -221,9 +233,10 @@ def attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale: float | None = None
     first; dp = do v^T, dropped and scaled like p; ds = p (dp - delta)
     with delta = rowsum(do o) in fp32; ds cast to k's (q's) dtype before
     ds.k (ds^T.q), the dropped p cast to do's dtype before p^T.do; dq and
-    dk scaled at the end; dbias the batch sum of ds, unscaled."""
+    dk scaled at the end; dbias the batch sum of ds, unscaled (0 above
+    the diagonal with `causal`)."""
     scale = float(q.shape[-1]) ** -0.5 if scale is None else float(scale)
-    ok, s = _masked_scores(q, k, kv_mask, scale, bias)
+    ok, s = _masked_scores(q, k, kv_mask, scale, bias, causal)
     p = torch.where(ok, torch.exp(s - lse), 0.0)
     dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
@@ -247,16 +260,17 @@ def attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale: float | None = None
 # the CUDA library
 
 _lib_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[bool, ctypes.CDLL] = {}
 
 
-def _library() -> ctypes.CDLL:
+def _library(causal: bool = False) -> ctypes.CDLL:
     """The loaded, typed library of csrc/flash_attention.cu (built at
-    first use)."""
-    global _lib
+    first use): its non-causal instances, or with `causal` the causal
+    build (`flash_attention_causal`)."""
     with _lib_lock:
-        if _lib is None:
-            lib = cuda_build.load("flash_attention")
+        lib = _libs.get(causal)
+        if lib is None:
+            lib = cuda_build.load("flash_attention_causal" if causal else "flash_attention")
             p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
             drop = [i, u, f, ctypes.c_ulonglong]  # on, threshold, 1/keep_prob, seed
             bias = [p, i]  # the bias (or NULL) and whether it is bf16
@@ -270,16 +284,21 @@ def _library() -> ctypes.CDLL:
             lib.flash_fwd_error_string.restype = ctypes.c_char_p
             lib.flash_fwd_max_head_dim.argtypes = []
             lib.flash_fwd_max_head_dim.restype = i
+            lib.flash_causal.argtypes = []
+            lib.flash_causal.restype = i
             if lib.flash_fwd_max_head_dim() != MAX_HEAD_DIM:
                 raise RuntimeError(
                     f"csrc/flash_attention.cu takes heads up to "
                     f"{lib.flash_fwd_max_head_dim()}; MAX_HEAD_DIM says {MAX_HEAD_DIM}"
                 )
-            _lib = lib
-        return _lib
+            if lib.flash_causal() != int(causal):
+                raise RuntimeError(f"the flash library loaded for causal={causal} holds "
+                                   f"causal={bool(lib.flash_causal())} instances")
+            _libs[causal] = lib
+        return lib
 
 
-def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd", bias=None
+def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd", bias=None, causal: bool = False
                   ) -> tuple[int, int, int, int, int]:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{what}: q, k and v must be [B, H, T, D]")
@@ -297,6 +316,8 @@ def _check_shapes(q, k, v, kv_mask, what: str = "flash_fwd", bias=None
     if bias is not None and tuple(bias.shape) != (H, Tq, Tk):
         raise ValueError(f"{what}: bias {tuple(bias.shape)} must be [H={H}, Tq={Tq}, Tk={Tk}] "
                          "(broadcast over the batch)")
+    if causal and Tq != Tk:
+        raise ValueError(f"{what}: causal needs Tq == Tk (got {Tq} vs {Tk})")
     return B, H, Tq, Tk, D
 
 
@@ -393,7 +414,7 @@ def _strides(*xs) -> list:
 
 def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: float = 0.0,
               seed: int | None = None, debug_bits: torch.Tensor | None = None,
-              bias: torch.Tensor | None = None):
+              bias: torch.Tensor | None = None, causal: bool = False):
     """Kernel 5: (o [B, H, Tq, D], lse [B, H, Tq, 1] fp32).
 
     CPU tensors run `attention_plain` (with `debug_bits` if given, else
@@ -402,7 +423,7 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
     head and token strides) whose last dimension is contiguous; o is a
     [B, H, Tq, D] view of a [B, Tq, H, D] buffer. `bias` [H, Tq, Tk] (q's
     dtype or fp32, last dimension contiguous) is added to the scaled
-    scores.
+    scores; `causal` (Tq == Tk) launches the causal instance.
 
     The kernel instance follows from dtype and head width alone: bf16
     with D a multiple of 16 takes the tensor-core (mma.sync) instance,
@@ -410,16 +431,16 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
     of 8 elements (anything else raises); fp32, and bf16 at other head
     widths, take the FMA instance."""
     global LAUNCHES
-    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, bias=bias)
+    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, bias=bias, causal=causal)
     rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_fwd", q.device):
         return attention_plain(q, k, v, kv_mask, scale, rate,
-                               _plain_bits(q, k, rate, seed, debug_bits), bias)
+                               _plain_bits(q, k, rate, seed, debug_bits), bias, causal)
     _check_card("flash_fwd", q, k, v, kv_mask)
     _refuse_debug_bits(debug_bits, "flash_fwd")
     bias_args, bias_strides = _bias_args("flash_fwd", q, bias)
     drop = _drop_args(rate, seed, "flash_fwd")
-    lib = _library()
+    lib = _library(causal)
     mask = kv_mask.to(torch.int32).contiguous()
     o = _bthd(B, Tq, H, D, q)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
@@ -437,12 +458,12 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
     return o, lse
 
 
-def _bwd_operands(what, q, k, v, kv_mask, lse, delta, do, bias):
+def _bwd_operands(what, q, k, v, kv_mask, lse, delta, do, bias, causal):
     """The backward kernels' common checks; (mask int32, lse, delta and do
     as the kernels take them, the bias arguments). do is copied once
     where it is not row-contiguous, or (tensor-core instance) off the
     16-byte grid."""
-    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, what, bias)
+    B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, what, bias, causal)
     _check_card(what, q, k, v, kv_mask, (("lse", lse), ("delta", delta), ("do", do)))
     for name, x in (("lse", lse), ("delta", delta)):
         if x.dtype != torch.float32 or x.numel() != B * H * Tq:
@@ -462,7 +483,7 @@ def _refuse_cpu(what: str, device) -> None:
 
 def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
              dropout_rate: float = 0.0, seed: int | None = None,
-             bias: torch.Tensor | None = None):
+             bias: torch.Tensor | None = None, causal: bool = False):
     """Kernel 6 on CUDA tensors: dq [B, H, Tq, D] in q's dtype (a view of
     a [B, Tq, H, D] buffer), from the forward's lse and delta =
     rowsum(do * o) (fp32, [B, H, Tq, 1]) and the forward's bias. Raises
@@ -472,11 +493,11 @@ def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
     _refuse_cpu("flash_dq", q.device)
     rate = _check_rate(dropout_rate)
     mask, lse, delta, do, bias_args, bias_strides = _bwd_operands(
-        "flash_dq", q, k, v, kv_mask, lse, delta, do, bias)
+        "flash_dq", q, k, v, kv_mask, lse, delta, do, bias, causal)
     drop = _drop_args(rate, seed, "flash_dq")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    lib = _library()
+    lib = _library(causal)
     dq = _bthd(B, Tq, H, D, q)
     strides = _strides(q, k, v, do, dq) + bias_strides
     with torch.cuda.device(q.device):
@@ -494,18 +515,18 @@ def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
 
 def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
               dropout_rate: float = 0.0, seed: int | None = None,
-              bias: torch.Tensor | None = None):
+              bias: torch.Tensor | None = None, causal: bool = False):
     """Kernel 7 on CUDA tensors: (dk, dv) [B, H, Tk, D] in q's dtype
     (views of [B, Tk, H, D] buffers). Arguments as for `flash_dq`."""
     global DKV_LAUNCHES
     _refuse_cpu("flash_dkv", q.device)
     rate = _check_rate(dropout_rate)
     mask, lse, delta, do, bias_args, bias_strides = _bwd_operands(
-        "flash_dkv", q, k, v, kv_mask, lse, delta, do, bias)
+        "flash_dkv", q, k, v, kv_mask, lse, delta, do, bias, causal)
     drop = _drop_args(rate, seed, "flash_dkv")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    lib = _library()
+    lib = _library(causal)
     dk, dv = _bthd(B, Tk, H, D, q), _bthd(B, Tk, H, D, q)
     strides = _strides(q, k, v, do, dk, dv) + bias_strides
     with torch.cuda.device(q.device):
@@ -522,23 +543,24 @@ def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
 
 
 def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None = None,
-                dropout_rate: float = 0.0, seed: int | None = None):
+                dropout_rate: float = 0.0, seed: int | None = None, causal: bool = False):
     """Kernel 8 on CUDA tensors: dbias [H, Tq, Tk] fp32, the batch sum of
     ds = p (dp - delta) (contiguous). One block per (h, 64-row q tile,
     64-key tile) loops over the batch in order, so the sum takes the same
     bits on every run, with no atomics. Arguments as for `flash_dq`; the
-    bias is required (the scores are recomputed with it)."""
+    bias is required (the scores are recomputed with it). With `causal`,
+    the tiles wholly above the diagonal are written as zeros."""
     global DBIAS_LAUNCHES
     _refuse_cpu("flash_dbias", q.device)
     if bias is None:
         raise ValueError("flash_dbias: needs the forward's bias")
     rate = _check_rate(dropout_rate)
     mask, lse, delta, do, bias_args, bias_strides = _bwd_operands(
-        "flash_dbias", q, k, v, kv_mask, lse, delta, do, bias)
+        "flash_dbias", q, k, v, kv_mask, lse, delta, do, bias, causal)
     drop = _drop_args(rate, seed, "flash_dbias")
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    lib = _library()
+    lib = _library(causal)
     dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, do) + bias_strides
     with torch.cuda.device(q.device):
@@ -557,7 +579,7 @@ def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None =
 def flash_bwd(q, k, v, kv_mask, o, lse, do, *, scale: float | None = None,
               dropout_rate: float = 0.0, seed: int | None = None,
               debug_bits: torch.Tensor | None = None, bias: torch.Tensor | None = None,
-              with_dbias: bool = True):
+              with_dbias: bool = True, causal: bool = False):
     """The backward of `flash_fwd`: (dq, dk, dv) in q's dtype and dbias
     [H, Tq, Tk] fp32 (None without a bias, or with `with_dbias` off).
 
@@ -568,13 +590,14 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, *, scale: float | None = None,
     stream."""
     rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_bwd", q.device):
-        _check_shapes(q, k, v, kv_mask, "flash_bwd", bias)
+        _check_shapes(q, k, v, kv_mask, "flash_bwd", bias, causal)
         dq, dk, dv, dbias = attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale, rate,
-                                                _plain_bits(q, k, rate, seed, debug_bits), bias)
+                                                _plain_bits(q, k, rate, seed, debug_bits), bias,
+                                                causal)
         return dq, dk, dv, dbias if with_dbias else None
     _refuse_debug_bits(debug_bits, "flash_bwd")
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-    kw = {"scale": scale, "dropout_rate": rate, "seed": seed}
+    kw = {"scale": scale, "dropout_rate": rate, "seed": seed, "causal": causal}
     dq = flash_dq(q, k, v, kv_mask, lse, delta, do, bias=bias, **kw)
     dk, dv = flash_dkv(q, k, v, kv_mask, lse, delta, do, bias=bias, **kw)
     dbias = None
@@ -586,18 +609,20 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, *, scale: float | None = None,
 class FlashAttention(torch.autograd.Function):
     """o = flash attention of (q, k, v) with the kernels' backward.
 
-    Saves q, k, v, the mask, the bias, o and lse (and the seed, an int):
+    Saves q, k, v, the mask, the bias, o and lse (and the seed, an int,
+    and the causal flag):
     the backward recomputes p from lse and redraws the dropout mask from
     the seed, as the reference's custom VJP does (`_flash_fwd`,
     `_flash_bwd`). The bias's cotangent is computed only when the bias
     needs a gradient, and is cast to its dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, bias, scale, dropout_rate, seed, debug_bits):
+    def forward(ctx, q, k, v, kv_mask, bias, scale, dropout_rate, seed, debug_bits,
+                causal=False):
         o, lse = flash_fwd(q, k, v, kv_mask, scale=scale, dropout_rate=dropout_rate,
-                           seed=seed, debug_bits=debug_bits, bias=bias)
+                           seed=seed, debug_bits=debug_bits, bias=bias, causal=causal)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse, bias, debug_bits)
-        ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
+        ctx.scale, ctx.dropout_rate, ctx.seed, ctx.causal = scale, dropout_rate, seed, causal
         return o
 
     @staticmethod
@@ -606,10 +631,10 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv, dbias = flash_bwd(q, k, v, kv_mask, o, lse, do, scale=ctx.scale,
                                       dropout_rate=ctx.dropout_rate, seed=ctx.seed,
                                       debug_bits=bits, bias=bias,
-                                      with_dbias=ctx.needs_input_grad[4])
+                                      with_dbias=ctx.needs_input_grad[4], causal=ctx.causal)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
-        return dq, dk, dv, None, dbias, None, None, None, None
+        return dq, dk, dv, None, dbias, None, None, None, None, None
 
 
 def flash_attention(
@@ -632,17 +657,12 @@ def flash_attention(
     `seed` (a 64-bit int) seeds the in-kernel dropout; `debug_bits`
     (CPU only) replaces its bits, as the reference's testing hook does.
     `bias` [H, Tq, Tk] is an additive score bias broadcast over the batch
-    (T5's relative positions), added unscaled. The causal mask raises
-    `NotImplementedError`: it comes with the generation slice."""
-    if causal:
-        raise NotImplementedError(
-            "flash_attention causal: the causal mask (T5 decoder self-attention) comes "
-            "with the generation slice of the port (ROADMAP queue A, item 4)"
-        )
+    (T5's relative positions), added unscaled. `causal` masks keys after
+    each query (Tq == Tk, else ValueError, as the reference raises)."""
     rate = _check_rate(dropout_rate)
     if rate > 0.0 and seed is None and debug_bits is None:
         raise ValueError("flash_attention: dropout needs a seed")
-    return FlashAttention.apply(q, k, v, kv_mask, bias, scale, rate, seed, debug_bits)
+    return FlashAttention.apply(q, k, v, kv_mask, bias, scale, rate, seed, debug_bits, causal)
 
 
 def flash_shape_ok(Tq: int, head_dim: int, Tk: int | None = None) -> bool:

@@ -1,10 +1,14 @@
 """Training on one device: losses, optimiser state, samplers, metrics,
-checkpoints, the GraphTrainer loop (the DeepDFA GGNN) and the
-CombinedTrainer loop (the combined DeepDFA+LineVul model), with the
-graph-encoder transfer (the reference's `deepdfa_tpu/train/`)."""
+checkpoints, the GraphTrainer loop (the DeepDFA GGNN), the
+CombinedTrainer loop (the combined DeepDFA+LineVul and CodeT5+DeepDFA
+models) with the graph-encoder transfer, and the generation family's
+GenTrainer, fit_multi and CloneTrainer (the reference's
+`deepdfa_tpu/train/`)."""
 
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+from deepdfa_tpu_torch.train.clone_loop import CloneTrainer
 from deepdfa_tpu_torch.train.combined_loop import CombinedTrainer
+from deepdfa_tpu_torch.train.gen_loop import GenTrainer
 from deepdfa_tpu_torch.train.loop import GraphTrainer, drop_known_feats
 from deepdfa_tpu_torch.train.losses import (
     bce_elements,
@@ -21,6 +25,7 @@ from deepdfa_tpu_torch.train.metrics import (
     BinaryClassificationMetrics,
     classification_report,
 )
+from deepdfa_tpu_torch.train.multi_gen import GenTask, fit_multi
 from deepdfa_tpu_torch.train.sampler import (
     oversample_epoch,
     positive_weight,
@@ -36,7 +41,10 @@ from deepdfa_tpu_torch.train.transfer import (
 __all__ = [
     "BinaryClassificationMetrics",
     "CheckpointManager",
+    "CloneTrainer",
     "CombinedTrainer",
+    "GenTask",
+    "GenTrainer",
     "GraphTrainer",
     "TrainState",
     "bce_elements",
@@ -45,6 +53,7 @@ __all__ = [
     "classification_report",
     "classifier_loss",
     "drop_known_feats",
+    "fit_multi",
     "freeze",
     "graph_encoder_subset",
     "graph_labels",

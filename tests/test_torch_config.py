@@ -69,3 +69,88 @@ def test_unported_kernel_variants_raise(knob, value, error):
         tcfg.ModelConfig(**{knob: value})
     with pytest.raises(error):
         tcfg.from_dict({"model": {knob: value}})
+
+
+OVERRIDES = [
+    "train.optim.learning_rate=true",
+    "train.optim.learning_rate=1",
+    "train.optim.learning_rate=0.5",
+    "model.hidden_dim=1.5",
+    "model.hidden_dim=true",
+    "model.hidden_dim=64",
+    "model.concat_all_absdf=1",
+    "model.concat_all_absdf=false",
+    "train.pos_weight=abc",
+    "train.pos_weight=2.5",
+    "train.pos_weight=null",
+    "data.seq_buckets=[16, 32]",
+    "data.seq_buckets=5",
+    "run_name=x",
+    "run_name=3",
+    "train.optim=3",
+    'train.optim={"learning_rate": 0.25}',
+    "model.nope=1",
+    "nope.key=1",
+    "noequals",
+]
+
+
+@pytest.mark.parametrize("override", OVERRIDES)
+def test_overrides_accept_and_refuse_what_the_reference_does(override):
+    """The same override list through both packages: the same exception
+    type where the reference refuses (a bool for a float, a float for an
+    int, non-JSON for a None field, a scalar for a section, unknown
+    keys), the same value where it accepts (an int widens to a float)."""
+    try:
+        ref = jcfg.apply_overrides(jcfg.Config(), [override])
+    except Exception as e:  # noqa: BLE001 - the type is what is compared
+        with pytest.raises(type(e)):
+            tcfg.apply_overrides(tcfg.Config(), [override])
+        return
+    port = tcfg.apply_overrides(tcfg.Config(), [override])
+    key = override.partition("=")[0]
+    got, want = port, ref
+    for part in key.split("."):
+        got, want = getattr(got, part), getattr(want, part)
+    if dataclasses.is_dataclass(got):
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        want = {k: want[k] for k in got}
+    assert got == want and type(got) is type(want), (got, want)
+
+
+@pytest.mark.parametrize("gtype, n_etypes, ok", [("cfg", 1, True), ("cfg+dep", 3, True),
+                                                 ("cfg+dep", 2, False), ("pdg", 3, False),
+                                                 ("ast", 1, False)])
+def test_validate_checks_etypes_against_gtype_like_the_reference(gtype, n_etypes, ok):
+    overrides = [f'data.gtype="{gtype}"', f"model.n_etypes={n_etypes}"]
+    for mod in (jcfg, tcfg):
+        cfg = mod.apply_overrides(mod.Config(), overrides)
+        if ok:
+            mod.validate(cfg)
+        else:
+            with pytest.raises(ValueError, match="gtype|n_etypes"):
+                mod.validate(cfg)
+    assert tcfg.GTYPE_ETYPES == jcfg.GTYPE_ETYPES
+    from deepdfa_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(["train", "--device", "cpu", *overrides])
+    if ok:
+        assert cli._load_config(args).model.n_etypes == n_etypes
+    else:  # the command refuses the config before it reads any data
+        with pytest.raises(ValueError):
+            cli._load_config(args)
+
+
+@pytest.mark.parametrize("name", ["debug_nans", "enable_checks"])
+def test_sanitizer_switches_are_read_and_refused(name):
+    """train.debug_nans / train.enable_checks are fields of the port's
+    config with the reference's defaults, read from JSON (not passed
+    over), and refused by every trainer of the port."""
+    assert getattr(tcfg.TrainConfig(), name) is getattr(jcfg.TrainConfig(), name) is False
+    cfg = tcfg.from_dict({"train": {name: True}})
+    assert getattr(cfg.train, name) is True
+    tcfg.refuse_unported_training(tcfg.Config())
+    with pytest.raises(NotImplementedError, match=name):
+        tcfg.refuse_unported_training(cfg)
+    with pytest.raises(NotImplementedError, match=name):
+        tcfg.refuse_unported_training(tcfg.apply_overrides(tcfg.Config(), [f"train.{name}=true"]))

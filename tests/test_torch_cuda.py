@@ -564,7 +564,7 @@ def test_flash_dbias_repeats_bit_for_bit_at_the_t5_call(card):
 def test_flash_attention_bias_grad_flows_on_the_card(card):
     """FlashAttention with a bias leaf on the card: the bias's gradient in
     its dtype from kernel 8, none when it needs no gradient (kernel 8
-    then does not launch), and causal still refused."""
+    then does not launch), and causal with Tq != Tk refused."""
     B, H, T, D = 2, 4, 96, 64
     q, k, v, do, mask, bias = _bias_inputs(card, B, H, T, T, D, "bfloat16", "bfloat16",
                                            [96, 50], False)
@@ -579,8 +579,8 @@ def test_flash_attention_bias_grad_flows_on_the_card(card):
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     fa.flash_attention(*leaves, mask, scale=1.0, bias=bias).backward(do)
     assert fa.DBIAS_LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="generation slice"):
-        fa.flash_attention(q, k, v, mask, causal=True)
+    with pytest.raises(ValueError, match="causal needs Tq == Tk"):
+        fa.flash_attention(q, k[:, :, :64], v[:, :, :64], mask[:, :64], causal=True)
     with pytest.raises(TypeError, match="bias"):
         fa.flash_fwd(q, k, v, mask, bias=bias.half())
     with pytest.raises(ValueError, match="contiguous"):
@@ -657,3 +657,138 @@ def test_defect_serving_on_card_matches_cpu(card):
     want = [r.wait(0) for r in DynamicBatcher(cpu).score_all(
         [(tok.encode(t, 64), s) for t, s in payloads])]
     np.testing.assert_allclose(summary["probs"], want, rtol=RTOL, atol=ATOL)
+
+
+CAUSAL_CASES = [
+    # B, H, T, D, dtype, biased, lens, lead_pad
+    (4, 3, 200, 64, "bfloat16", True, [200, 150, 64, 1], 70),
+    (4, 3, 200, 64, "float32", True, [200, 150, 64, 1], 70),
+    (2, 4, 256, 64, "bfloat16", False, [256, 100], 0),
+    (2, 4, 130, 32, "float32", False, [130, 65], 3),
+    (2, 2, 96, 40, "bfloat16", True, [96, 50], 0),
+]
+CAUSAL_IDS = ["bf16_T200_biased_lead_pad", "fp32_T200_biased_lead_pad", "bf16_T256",
+              "fp32_T130_D32", "bf16_D40_fma"]
+
+
+def _causal_inputs(card, B, H, T, D, dtype, biased, lens, lead_pad):
+    g = torch.Generator().manual_seed(B * 13 + T + D)
+    td = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(B, H, T, D, generator=g).to(td).to(card) for _ in range(4))
+    bias = (torch.randn(H, T, T, generator=g) * 2.0).to(td).to(card) if biased else None
+    mask = torch.arange(T)[None, :] < torch.tensor(lens)[:, None]
+    mask[-1, :lead_pad] = False
+    return q, k, v, do, mask.to(card), bias
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("B, H, T, D, dtype, biased, lens, lead_pad", CAUSAL_CASES,
+                         ids=CAUSAL_IDS)
+def test_flash_causal_kernels_match_plain(card, B, H, T, D, dtype, biased, lens, lead_pad,
+                                          rate):
+    """The causal instances of kernels 5-8 against the plain versions on
+    the card: ragged T, keys padded at the end and at the start (queries
+    without a live key get o = 0 and zero gradients), with and without
+    the bias and dropout; dbias is exactly 0 above the diagonal; a rerun
+    gives the same bits; each kernel launches once per call."""
+    q, k, v, do, mask, bias = _causal_inputs(card, B, H, T, D, dtype, biased, lens, lead_pad)
+    seed = 24681357
+    kw = {"scale": 1.0, "dropout_rate": rate, "seed": seed, "bias": bias, "causal": True}
+    before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES) == tuple(
+        b + n for b, n in zip(before, (1, 1, 1, int(biased))))
+    bits = fa.dropout_bits(seed, B, H, T, T, card) if rate else None
+    po, plse = fa.attention_plain(q, k, v, mask, 1.0, rate, bits, bias, causal=True)
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, rate, bits, bias,
+                                  causal=True)
+    _close(o, po, dtype)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+            continue
+        assert x.shape == y.shape and torch.isfinite(x.float()).all()
+        _close(x, y, dtype)
+    if lead_pad:
+        assert (o[-1, :, :lead_pad] == 0).all() and (got[0][-1, :, :lead_pad] == 0).all()
+    if biased:
+        upper = torch.ones(T, T, dtype=torch.bool, device=card).triu(1)
+        assert (got[3][:, upper] == 0).all()
+    again = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_causal_dbias_writes_every_tile(card):
+    """The dead tiles of causal dbias are written (zeros), not left as
+    whatever the allocator hands back: the cache is first filled with NaN,
+    and at the decoder call of the gen path (fp32, B 16, H 12, T 128) and
+    at the bf16 flagship (T 512) the upper triangle comes back 0."""
+    for B, H, T, dtype in ((16, 12, 128, "float32"), (16, 12, 512, "bfloat16")):
+        q, k, v, do, mask, bias = _causal_inputs(card, B, H, T, 64, dtype, True, [T] * B, 0)
+        o, lse = fa.flash_fwd(q, k, v, mask, scale=1.0, bias=bias, causal=True)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        junk = torch.full((H, T, T), float("nan"), device=card)
+        del junk  # the allocator's cache now holds NaN where dbias will land
+        dbias = fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, scale=1.0, causal=True)
+        upper = torch.ones(T, T, dtype=torch.bool, device=card).triu(1)
+        assert torch.isfinite(dbias).all() and (dbias[:, upper] == 0).all()
+
+
+def test_flash_attention_causal_launches_the_causal_instances(card):
+    """flash_attention(causal=True) on CUDA tensors runs the causal build
+    (`flash_attention_causal`) forward and backward, and agrees with the
+    plain causal version; the non-causal build is a different library."""
+    assert fa._library(True).flash_causal() == 1 and fa._library(False).flash_causal() == 0
+    q, k, v, do, mask, bias = _causal_inputs(card, 2, 4, 96, 64, "float32", True, [96, 40], 0)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, bias)]
+    before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES)
+    o = fa.flash_attention(*leaves[:3], mask, scale=1.0, bias=leaves[3], causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES) == tuple(
+        b + 1 for b in before)
+    want = fa.attention_plain(q, k, v, mask, 1.0, bias=bias, causal=True)[0]
+    _close(o.detach(), want, "float32")
+    noncausal = fa.flash_attention(q, k, v, mask, scale=1.0, bias=bias)
+    assert not torch.allclose(noncausal, o.detach())
+
+
+def _gen_cfg(dtype="float32"):
+    from deepdfa_tpu_torch.models import GenConfig, T5Config
+
+    enc = T5Config.tiny(vocab_size=256, hidden_size=128, num_heads=2, head_dim=64,
+                        ffn_size=256, dtype=dtype)
+    return GenConfig(encoder=enc, max_target_length=24, beam_size=3)
+
+
+def test_gen_train_step_repeats_bit_for_bit(card):
+    """Two GenTrainers from one seed take one step (fp32, dropout 0.1,
+    remat) on one batch: the same loss and weights to the bit; the step
+    ran kernels 5-8: per layer and its remat replay the encoder's biased
+    forward, the decoder's causal biased forward and its cross forward."""
+    from deepdfa_tpu_torch.data.gen_data import collate_gen
+    from deepdfa_tpu_torch.train import GenTrainer
+
+    rng = np.random.default_rng(5)
+    src = rng.integers(3, 256, (6, 40)).astype(np.int32)
+    tgt = rng.integers(3, 256, (6, 24)).astype(np.int32)
+    src[2, 30:] = 0
+    tgt[3, 10:] = 0
+    batch = collate_gen(src, tgt, 8).to(card)
+    results = []
+    for _ in range(2):
+        trainer = GenTrainer(Config(), _gen_cfg(), total_steps=1, device=card)
+        state = trainer.init_state(seed=0)
+        before = (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES)
+        loss = trainer.train_step(state, batch, 99)
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (fa.LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES), before))
+        results.append((loss.item(), {k: v.clone() for k, v in state.model.state_dict().items()}))
+    # 2 encoder + 2 x 2 decoder attentions, each replayed once; dbias: 2 + 2
+    assert launched == (12, 6, 6, 4)
+    assert np.isfinite(results[0][0]) and results[0][0] == results[1][0]
+    assert all(torch.equal(results[0][1][k], results[1][1][k]) for k in results[0][1])

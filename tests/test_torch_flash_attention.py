@@ -120,8 +120,13 @@ def test_flash_attention_returns_o_and_refuses_unported_options():
                                tfa.attention_plain(q, k, v, mask, bias=bias)[0], rtol=0, atol=0)
     with pytest.raises(ValueError, match="bias"):
         tfa.flash_attention(q, k, v, mask, bias=bias[:, :8])
-    with pytest.raises(NotImplementedError, match="generation slice"):
-        tfa.flash_attention(q, k, v, mask, causal=True)
+    # the causal option is ported: the plain version with the causal mask;
+    # Tq != Tk refuses it, as the reference does
+    torch.testing.assert_close(tfa.flash_attention(q, k, v, mask, causal=True),
+                               tfa.attention_plain(q, k, v, mask, causal=True)[0],
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="causal needs Tq == Tk"):
+        tfa.flash_attention(q, k[:, :, :8], v[:, :, :8], mask[:, :8], causal=True)
     with pytest.raises(ValueError, match="kv_mask"):
         tfa.flash_fwd(q, k, v, mask[:, :8])
     with pytest.raises(ValueError, match="must be"):
