@@ -37,6 +37,36 @@ prints one JSON line; any failure exits non-zero before the last line.
    steps on the CPU plain path match the card's losses (rtol 1e-4) and
    step-1 gradients (1e-4 of each leaf's scale); median ms per step
    split into host pack, forward, backward and optimiser, and graphs/s;
+7a. kernel ggnn_step_policy — kernel 1's bf16 and int8 instances
+   against the plain version of the same policy on the card (the same
+   rounded or quantized rows: rtol 1e-4, atol 1e-5) at the three
+   batches of phase 3, the same bits on a rerun, the aggregate moved off
+   fp32's; times, plain times and bounds at the flagship batch;
+7b. kernel ggnn_fused — kernel 2 (5 steps in one cooperative launch)
+   under fp32, bf16 and int8 at the same three batches: h_out, with and
+   without the chain, and every chain plane the bits of 5 launches of
+   kernel 1 of the policy, the same bits on a repeat, and each of its
+   steps within rtol 1e-4 / atol 1e-5 of the plain step from that step's
+   input (five plain steps from the first input are not compared: a
+   rounding or a quantum can flip between two fp32 summation orders and
+   spread); times with and without the chain beside the 5 step
+   launches', one step in one launch beside one step launch, the plain
+   version's and the bounds; the residency against the card's L2;
+7c. serve_bf16, serve_fused, serve_int8, serve_int8_fused — phase 5's
+   model and requests through score_graphs with model.ggnn_kernel=true
+   under (bf16, per_step), (fp32, fused), (int8, per_step), (int8,
+   fused), each counted from 0: every request scored, no fused fallback,
+   the variant's kernel n_steps times (fused: once) a batch and no other,
+   scores within 5e-2 of scale of phase 5's fp32 scores and, for a
+   policy, not equal to them; requests/s and p50/p99; then
+   serve_variants: on fixed batches (the offline drive) the fused scores
+   are the bits of the per-step scores of the same policy;
+7d. train_fused, train_bf16 — phase 7's fit with model.ggnn_kernel=true
+   under (fp32, fused) and (bf16, per_step), 20 AdamW steps, counted from
+   0: losses finite and falling, the launches the unroll implies (fused:
+   one launch with the chain a step and one without an eval batch, then
+   5 kernel-1 recomputes, 5 B3 and 5 B4 a step), step-1 gradients of the
+   fused unroll the bits of the per-step one, median step ms;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -141,12 +171,14 @@ prints one JSON line; any failure exits non-zero before the last line.
 20. train_clone — `train-clone`'s path: the reference's clone files,
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step;
-21. kernels — every kernel with its launches on the nine main paths
+21. kernels — every kernel with its launches on the fifteen main paths
    (serve, train, serve_combined, train_combined, serve_t5, train_t5,
-   train_gen, decode_gen, train_clone, each counted from 0, and by path),
-   error, time, plain time, bound and library time; the flash rows add
-   their biased times as bias_* and their causal and gen-path times
-   under by_call.
+   train_gen, decode_gen, train_clone and the six of 7c-7d, each counted
+   from 0, and by path), error, time, plain time, bound and library time;
+   the flash rows add their biased times as bias_* and their causal and
+   gen-path times under by_call; ggnn_step_bf16 and ggnn_step_int8 are
+   kernel 1's instances, ggnn_fused is kernel 2 (fp32 without the chain,
+   by_policy and chain the rest).
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -399,7 +431,8 @@ def serve_phase(torch, rng):
           "kernel_launches": launches, "cpu_max_abs_err": err,
           "node_budget": node_budget, "edge_budget": edge_budget,
           "max_batch_graphs": cfg.serve.max_batch_graphs, **summary})
-    return launches, model, specs[: cfg.serve.max_batch_graphs], (node_budget, edge_budget)
+    return (launches, model, specs, probs, (node_budget, edge_budget),
+            cfg.serve.max_batch_graphs)
 
 
 def profile_phase(torch, model, specs, budgets) -> None:
@@ -706,6 +739,364 @@ def train_phase(torch, rng):
           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
           "profiled_step": device_profile(prof, profiled_ms)})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# kernel 1's bf16/int8 instances, kernel 2 (the whole unroll) and the
+# GGNN paths under the message policies and the fused unroll
+
+#: the serving and training paths under ggnn_kernel=true: (accum, unroll)
+SERVE_VARIANTS = {"serve_bf16": ("bf16", "per_step"), "serve_fused": ("fp32", "fused"),
+                  "serve_int8": ("int8", "per_step"), "serve_int8_fused": ("int8", "fused")}
+TRAIN_VARIANTS = {"train_fused": ("fp32", "fused"), "train_bf16": ("bf16", "per_step")}
+#: the step counter of each policy and the kernels-line row it feeds
+POLICY_ROWS = {"fp32": ("LAUNCHES", "ggnn_step"), "bf16": ("BF16_LAUNCHES", "ggnn_step_bf16"),
+               "int8": ("INT8_LAUNCHES", "ggnn_step_int8")}
+#: score_graphs' summary key of each counter
+SUMMARY_KEYS = {"LAUNCHES": "ggnn_step_launches", "BF16_LAUNCHES": "ggnn_step_bf16_launches",
+                "INT8_LAUNCHES": "ggnn_step_int8_launches",
+                "FUSED_LAUNCHES": "ggnn_fused_launches"}
+#: bf16/int8 scores against the fp32 scores, of their scale (the
+#: reference's INT8_DRIFT_BOUND, and its bf16 rung)
+POLICY_SCORE_TOL = 5e-2
+FUSED_STEPS = 5
+
+
+def variant_config(cfg, accum: str, unroll: str):
+    from deepdfa_tpu_torch.core import apply_overrides
+
+    return apply_overrides(cfg, ["model.ggnn_kernel=true", f'model.ggnn_kernel_accum="{accum}"',
+                                 f'model.ggnn_kernel_unroll="{unroll}"'])
+
+
+def ggnn_case(torch, gen, batch, t: int, d: int = 128):
+    """(batch on the card, edges, h, the six step weights) from seeded
+    normal draws, as kernel_phase draws them."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    b = batch.to(CARD)
+    n = b.node_budget
+    scale = d ** -0.5
+    h = torch.randn(n, d, generator=gen).to(CARD)
+    params = [(torch.randn(*shape, generator=gen) * sc).to(CARD) for shape, sc in (
+        ((t, d, d), scale), ((t, d), 0.1), ((d, 3 * d), scale), ((d, 3 * d), scale),
+        ((3 * d,), 0.1), ((3 * d,), 0.1))]
+    edges = gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, b.edge_type, n, t)
+    return b, edges, h, params
+
+
+def ggnn_cases(rng) -> dict:
+    from deepdfa_tpu_torch.graphs import pack
+
+    return {"flagship": (full_batch(rng, 16384, 65536, 1), 1),
+            "etypes3": (full_batch(rng, 16384, 65536, 3), 3),
+            "all_padding": (pack([], 16, 16384, 65536), 1)}
+
+
+def policy_step_bound(n: int, e_live: int, d: int, t: int, accum: str):
+    """step_bound without the aggregate, with Wm read in the policy's
+    type (int8 adds its [T, d] scales); the per-row quantization (~4
+    operations an element) is not counted. The message-side table is an
+    intermediate and moves no counted bytes."""
+    flops = 2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d
+    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[accum]
+    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d) + (t * d if accum == "int8" else 0))
+    nbytes = 4 * (2 * n * d + e_live * (1 + t) + (n + 1)) + weights + itemsize * t * d * d
+    return roofline(flops, nbytes)
+
+
+def fused_bound(n: int, e_live: int, d: int, t: int, accum: str, n_steps: int, chain: bool):
+    """(bound_ms, bound_by) of kernel 2: n_steps steps' operations
+    (step_bound's count); bytes: feat read and h_out written once, the
+    chain written once when asked for, the edges and weights once."""
+    flops = n_steps * (2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d)
+    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[accum]
+    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d)) + itemsize * t * d * d
+    nbytes = 4 * ((2 + (n_steps if chain else 0)) * n * d + e_live * (1 + t) + (n + 1)) + weights
+    return roofline(flops, nbytes)
+
+
+def step_check(torch, what: str, got, want) -> float:
+    """got vs want at rtol/atol; the max abs error."""
+    if not torch.isfinite(got).all():
+        fail(f"{what}: non-finite values")
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        fail(f"{what}: differs from the plain version, max abs err {err}")
+    return err
+
+
+def policy_kernel_phase(torch, rng):
+    """Kernel 1's bf16 and int8 instances against the plain version of
+    the same policy on the card, at the flagship, T = 3 and all-padding
+    batches; the same bits on a rerun; times at the flagship batch."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    gen = torch.Generator().manual_seed(3)
+    report, worst, timing = {}, {"bf16": 0.0, "int8": 0.0}, {}
+    for name, (batch, t) in ggnn_cases(rng).items():
+        b, edges, h, params = ggnn_case(torch, gen, batch, t)
+        n, e_live, d = b.node_budget, int(b.edge_mask.sum()), h.shape[1]
+        for accum in ("bf16", "int8"):
+            with torch.inference_mode():
+                h_k, a_k = gk.ggnn_step(h, edges, *params, accum=accum, with_aggregate=True)
+                h_p, a_p = gk.ggnn_step_plain(h, edges, *params, accum)
+                again, _ = gk.ggnn_step(h, edges, *params, accum=accum)
+                _, a32 = gk.ggnn_step(h, edges, *params, with_aggregate=True)
+            torch.cuda.synchronize()
+            for what, got, want in (("h", h_k, h_p), ("a", a_k, a_p)):
+                err = step_check(torch, f"{name} {accum} step {what}", got, want)
+                worst[accum] = max(worst[accum], err)
+                report[f"{accum}_{name}_{what}_max_abs_err"] = err
+            if not torch.equal(again, h_k):
+                fail(f"{name}: the {accum} step gave other bits on a rerun")
+            if name != "all_padding" and torch.equal(a_k, a32):
+                fail(f"{name}: the {accum} aggregate equals the fp32 one (policy not engaged)")
+            report[f"{accum}_{name}_a_vs_fp32_max_abs"] = (a_k - a32).abs().max().item()
+            if name == "flagship":
+                with torch.inference_mode():
+                    timing[accum] = {
+                        "ms": median_ms(torch, lambda: gk.ggnn_step(h, edges, *params, accum=accum)),
+                        "plain_ms": median_ms(
+                            torch, lambda: gk.ggnn_step_plain(h, edges, *params, accum)),
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   policy_step_bound(n, e_live, d, t, accum))),
+                        "shape": {"n": n, "e": b.edge_budget, "e_live": e_live, "d": d,
+                                  "n_etypes": t},
+                    }
+    emit({"phase": "kernel ggnn_step_policy", "ok": True, "rtol": RTOL, "atol": ATOL,
+          "max_abs_err": worst, **report, "timing": timing})
+    return worst, timing
+
+
+def fused_kernel_phase(torch, rng):
+    """Kernel 2 at the flagship, T = 3 and all-padding batches under each
+    policy: h_out, with and without the chain, and every chain plane the
+    bits of FUSED_STEPS launches of kernel 1, the same bits on a repeat;
+    each of its steps against the plain step of the same policy from that
+    step's input (its chain plane) at rtol/atol. Five plain steps from
+    the first input are not compared: a bf16 rounding or an int8 quantum
+    of a state element near its boundary can flip between two fp32
+    summation orders and spread. Times at the flagship batch beside the
+    FUSED_STEPS step launches, one step in one launch, and the bound."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    gen = torch.Generator().manual_seed(4)
+    report, worst, timing = {}, 0.0, {}
+    S = FUSED_STEPS
+    for name, (batch, t) in ggnn_cases(rng).items():
+        b, edges, h, params = ggnn_case(torch, gen, batch, t)
+        n, e_live, d = b.node_budget, int(b.edge_mask.sum()), h.shape[1]
+        for accum in ("fp32", "bf16", "int8"):
+            with torch.inference_mode():
+                states = [h]
+                for _ in range(S):
+                    states.append(gk.ggnn_step(states[-1], edges, *params, accum=accum)[0])
+                h_f, chain = gk.ggnn_fused(h, edges, *params, n_steps=S, accum=accum,
+                                           with_chain=True)
+                h_nc, _ = gk.ggnn_fused(h, edges, *params, n_steps=S, accum=accum)
+                h_again, _ = gk.ggnn_fused(h, edges, *params, n_steps=S, accum=accum)
+                # the plain step from each of the kernel's own step inputs
+                plain = [gk.ggnn_step_plain(chain[s], edges, *params, accum)[0]
+                         for s in range(S)]
+            torch.cuda.synchronize()
+            if not (torch.equal(h_f, states[-1]) and torch.equal(h_nc, h_f)):
+                fail(f"{name} {accum}: the fused kernel's h_out differs from {S} step launches")
+            if not all(torch.equal(chain[s], states[s]) for s in range(S)):
+                fail(f"{name} {accum}: the fused kernel's chain differs from the step inputs")
+            if not torch.equal(h_again, h_f):
+                fail(f"{name} {accum}: the fused kernel gave other bits on a repeat")
+            outs = [*chain[1:], h_f]
+            err = max(step_check(torch, f"{name} {accum} fused step {s}", outs[s], plain[s])
+                      for s in range(S))
+            worst = max(worst, err)
+            report[f"{accum}_{name}_max_abs_err"] = err
+            if name == "flagship":
+                def steps(accum=accum):
+                    x = h
+                    for _ in range(S):
+                        x = gk.ggnn_step(x, edges, *params, accum=accum)[0]
+
+                with torch.inference_mode():
+                    timing[accum] = {
+                        "ms": median_ms(torch, lambda: gk.ggnn_fused(
+                            h, edges, *params, n_steps=S, accum=accum)),
+                        "chain_ms": median_ms(torch, lambda: gk.ggnn_fused(
+                            h, edges, *params, n_steps=S, accum=accum, with_chain=True)),
+                        "step_launches_ms": median_ms(torch, steps),
+                        "plain_ms": median_ms(torch, lambda: gk.ggnn_fused_plain(
+                            h, edges, *params, n_steps=S, accum=accum)),
+                        # one step in one cooperative launch, beside one launch of kernel 1
+                        "one_step_ms": median_ms(torch, lambda: gk.ggnn_fused(
+                            h, edges, *params, n_steps=1, accum=accum)),
+                        "one_step_launch_ms": median_ms(torch, lambda: gk.ggnn_step(
+                            h, edges, *params, accum=accum)),
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   fused_bound(n, e_live, d, t, accum, S, False))),
+                        "chain_bound_ms": fused_bound(n, e_live, d, t, accum, S, True)[0],
+                        "residency_bytes": gk.fused_residency_bytes(n, d, accum, S),
+                    }
+    emit({"phase": "kernel ggnn_fused", "ok": True, "n_steps": S, "rtol": RTOL, "atol": ATOL,
+          "max_abs_err": worst, **report,
+          "l2_budget_bytes": gk.fused_budget_bytes(torch.device(CARD)), "timing": timing})
+    return worst, timing
+
+
+def serve_variants_phase(torch, model, specs, fp32_probs):
+    """score_graphs of the serve phase's model and requests under each
+    SERVE_VARIANTS entry (ggnn_kernel=true), each path's launches counted
+    from 0: every request scored, no fused fallback, the variant's kernel
+    n_steps times (or once, fused) per batch, scores within
+    POLICY_SCORE_TOL of scale of the fp32 scores; then the same requests
+    offline (fixed batches): fused scores the bits of per-step scores of
+    the same policy."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve import DynamicBatcher, GgnnExecutor, score_graphs
+
+    cfg = load(FLAGSHIP_CONFIG)
+    node_budget = cfg.serve.node_budget or cfg.data.batch.node_budget
+    edge_budget = cfg.serve.edge_budget or cfg.data.batch.edge_budget
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def offline(m):
+        ex = GgnnExecutor(m, node_budget, edge_budget, cfg.serve.max_batch_graphs, device=CARD)
+        return np.asarray([r.wait(600) for r in DynamicBatcher(ex).score_all(specs)])
+
+    fixed = {("fp32", "per_step"): offline(model)}
+    paths = {}
+    for path, (accum, unroll) in SERVE_VARIANTS.items():
+        vcfg = variant_config(cfg, accum, unroll)
+        vmodel = DeepDFA.from_config(vcfg.model, cfg.data.feat.input_dim)
+        vmodel.load_state_dict(weights)
+        gk.reset_launch_counts()
+        summary = score_graphs(vmodel, specs, vcfg, device=CARD)
+        counts = gk.launch_counts()
+        probs = np.asarray(summary.pop("probs"), dtype=np.float64)
+        if summary["serve_scored"] != len(specs) or not np.all(np.isfinite(probs)):
+            fail(f"{path}: {summary['serve_failed_requests']} requests failed or non-finite")
+        if counts["FUSED_FALLBACKS"]:
+            fail(f"{path}: {counts['FUSED_FALLBACKS']} fused unrolls fell back to per step")
+        # the summary counts the scoring window, `counts` the warm-up too
+        scored = {k: v for k, v in summary.items() if k.startswith("ggnn_")}
+        counter, row = ("FUSED_LAUNCHES", "ggnn_fused") if unroll == "fused" else \
+            POLICY_ROWS[accum]
+        key = SUMMARY_KEYS[counter]
+        want = summary["serve_batches"] * (1 if unroll == "fused" else cfg.model.n_steps)
+        if scored[key] != want or any(v for k, v in scored.items() if k != key):
+            fail(f"{path}: launches {scored}, expected {key} = {want} and no other")
+        drift = float(np.abs(probs - fp32_probs).max()) / float(np.abs(fp32_probs).max())
+        if drift > POLICY_SCORE_TOL or (accum != "fp32" and drift == 0.0):
+            fail(f"{path}: scores {drift} of scale from the fp32 scores (limit "
+                 f"{POLICY_SCORE_TOL}, and a policy must move them)")
+        fixed[accum, unroll] = offline(vmodel)
+        paths[path] = {row: counts[counter]}
+        emit({"phase": path, "ok": True, "accum": accum, "unroll": unroll,
+              "requests": len(specs), "launches": counts, "score_drift_vs_fp32": drift,
+              **summary})
+    for accum in ("fp32", "int8"):
+        if not np.array_equal(fixed[accum, "fused"], fixed[accum, "per_step"]):
+            fail(f"serve {accum}: fused scores differ from per-step scores on fixed batches")
+    emit({"phase": "serve_variants", "ok": True, "fused_bit_equal_per_step": ["fp32", "int8"],
+          "offline_drift_vs_fp32": {f"{a}_{u}": float(np.abs(p - fixed["fp32", "per_step"]).max())
+                                    for (a, u), p in fixed.items()}})
+    return paths
+
+
+def train_variants_phase(torch, rng):
+    """GraphTrainer.fit under each TRAIN_VARIANTS entry (ggnn_kernel=true)
+    on the train phase's kind of batches, 20 AdamW steps, launches
+    counted from 0: losses finite and falling, each kernel's launches as
+    the unroll implies; step-1 gradients of the fused unroll the bits of
+    the per-step one of the same policy on one batch; median step ms of
+    train_step on batches already on the card, and of the fp32 per-step
+    model the same way (the train phase's step_ms counts host packing
+    and copies too)."""
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.train import GraphTrainer
+
+    cfg = load(FLAGSHIP_CONFIG)
+    input_dim, n_steps = cfg.data.feat.input_dim, cfg.model.n_steps
+    _, batches = train_batches(cfg, rng)
+    steps = TRAIN_BATCHES * TRAIN_EPOCHS
+    on_card = [b.to(CARD) for b in batches]
+
+    def step_ms(trainer, state) -> float:
+        times = []
+        for i in range(10):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            trainer.train_step(state, on_card[i % TRAIN_BATCHES])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t_a))
+        return statistics.median(times)
+
+    base = GraphTrainer(DeepDFA.from_config(cfg.model, input_dim), cfg, device=CARD)
+    base_ms = step_ms(base, base.init_state(seed=0))
+    del base
+    paths = {}
+    for path, (accum, unroll) in TRAIN_VARIANTS.items():
+        vcfg = variant_config(cfg, accum, unroll)
+        model = DeepDFA.from_config(vcfg.model, input_dim)
+        trainer = GraphTrainer(model, vcfg, device=CARD)
+        state = trainer.init_state(seed=0)
+        init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        records = []
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(state, lambda epoch: batches, val_batches=lambda: batches[:1],
+                    max_epochs=TRAIN_EPOCHS, log_fn=records.append)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = gk.launch_counts()
+        step_counter, step_row = POLICY_ROWS[accum]
+        evals = TRAIN_EPOCHS  # one eval batch an epoch
+        if unroll == "fused":
+            # the forward: one launch with the chain a step, one without an
+            # eval batch; the backward recomputes each step's aggregate
+            want = {"FUSED_LAUNCHES": steps + evals, "FUSED_CHAIN_LAUNCHES": steps,
+                    step_counter: steps * n_steps}
+            launched = {"ggnn_fused": counts["FUSED_LAUNCHES"], step_row: counts[step_counter]}
+        else:
+            want = {step_counter: (steps + evals) * n_steps}
+            launched = {step_row: counts[step_counter]}
+        want |= {"GRU_BWD_LAUNCHES": steps * n_steps, "DMSG_LAUNCHES": steps * n_steps}
+        if any(counts[k] != v for k, v in want.items()) or counts["FUSED_FALLBACKS"]:
+            fail(f"{path}: kernel launches {counts}, expected {want}")
+        launched |= {"ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"],
+                     "ggnn_dmsg": counts["DMSG_LAUNCHES"]}
+        epochs = [r for r in records if "epoch" in r]
+        losses = [r["train_loss"] for r in epochs]
+        if not all(math.isfinite(x) for x in losses + [r["val_loss"] for r in epochs]):
+            fail(f"{path}: a non-finite loss in {epochs}")
+        if not losses[-1] < losses[0]:
+            fail(f"{path}: the loss did not fall: epoch means {losses}")
+        report = {}
+        if unroll == "fused":
+            b0 = batches[0].to(CARD)
+            grads = {}
+            for u in ("per_step", "fused"):
+                m = DeepDFA.from_config(variant_config(cfg, accum, u).model, input_dim)
+                tr = GraphTrainer(m, variant_config(cfg, accum, u), device=CARD)
+                st = tr.init_state(params=init)
+                loss = tr.forward_loss(st, b0)
+                loss.backward()
+                grads[u] = {"loss": loss.detach()} | {
+                    k: p.grad.detach().clone() for k, p in m.named_parameters()}
+            if not all(torch.equal(grads["fused"][k], g) for k, g in grads["per_step"].items()):
+                fail(f"{path}: step-1 gradients of the fused unroll differ from per-step")
+            report["step1_grads_bit_equal_per_step"] = True
+        paths[path] = launched
+        emit({"phase": path, "ok": True, "accum": accum, "unroll": unroll, "steps": steps,
+              "epoch_train_loss": losses, "epoch_val_loss": [r["val_loss"] for r in epochs],
+              "launches": counts, "fit_seconds": fit_s, "step_ms": step_ms(trainer, state),
+              "fp32_per_step_step_ms": base_ms, **report})
+    return paths
 
 
 def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
@@ -2112,15 +2503,16 @@ def train_clone_phase(torch, rng):
 
 
 def device_groups(prof) -> dict:
-    """Device ms of one profiled window by kernel group: the three flash
-    kernels, the GGNN step kernel and its two backward kernels, matmuls
+    """Device ms of one profiled window by kernel group: the four flash
+    kernels, the GGNN step kernel (with its bf16/int8 table launch), the
+    whole-unroll kernel and the two backward kernels, matmuls
     (cuBLAS's gemm and Hopper `nvjet` kernels, CUTLASS) and everything
     else; with launch counts."""
     # kernel-name fragments of each group: the flash kernels, the GGNN
-    # step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*)
+    # whole unroll and step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*)
     names = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
              "flash_dkv": ("flash_dkv",), "flash_dbias": ("flash_dbias",),
-             "ggnn_step": ("ggnn_step",),
+             "ggnn_fused": ("ggnn_fused",), "ggnn_step": ("ggnn_step", "msg_table"),
              "ggnn_gru_bwd": ("gru_bwd", "reduce_splits"), "ggnn_dmsg": ("dmsg_",)}
     groups = {name: [0.0, 0] for name in (*names, "matmul", "other")}
     for e in prof.key_averages():
@@ -2139,21 +2531,24 @@ def device_groups(prof) -> dict:
 def kernel_name(mangled: str) -> str:
     """`flash_dq_bf16_mma<64, bias, causal>` from the mangled name of a
     kernel in an anonymous namespace of a csrc file: the width or element
-    type, then the bool template flags that are on (the flash kernels'
-    kBias and kCausal; the dbias and FMA instances have kCausal only);
-    the mangled name where the pattern does not hold."""
+    type, any further int template arguments (the GGNN kernels' message
+    policy: `ggnn_fused_kernel<128, 2>` is int8), then the bool template
+    flags that are on (the flash kernels' kBias and kCausal; the dbias
+    and FMA instances have kCausal only); the mangled name where the
+    pattern does not hold."""
     m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
     if not m:
         return mangled
     start = m.end()
     base, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
-    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))((?:Lb[01]E)*)E", rest)
+    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))((?:Li\d+E)*)((?:Lb[01]E)*)E", rest)
     if not arg:
         return base
     first = arg.group(1) or ("float" if arg.group(2) else "bf16")
-    flags = re.findall(r"Lb([01])E", arg.group(4))
+    ints = re.findall(r"Li(\d+)E", arg.group(4))
+    flags = re.findall(r"Lb([01])E", arg.group(5))
     names = ("bias", "causal") if len(flags) == 2 else ("causal",)
-    return f"{base}<{', '.join([first, *(n for n, f in zip(names, flags) if f == '1')])}>"
+    return f"{base}<{', '.join([first, *ints, *(n for n, f in zip(names, flags) if f == '1')])}>"
 
 
 def ptxas_summary(log: str) -> dict:
@@ -2215,9 +2610,16 @@ def main() -> None:
     rng = np.random.default_rng(0)
     kernel_err, timing = kernel_phase(torch, rng)
     bwd_err, bwd_timing = bwd_kernel_phase(torch, rng)
-    launches, model, batch_specs, budgets = serve_phase(torch, rng)
-    profile_phase(torch, model, batch_specs, budgets)
+    launches, model, serve_specs, serve_probs, budgets, max_graphs = serve_phase(torch, rng)
+    profile_phase(torch, model, serve_specs[:max_graphs], budgets)
     train_launches = train_phase(torch, rng)
+    # kernel 1's bf16/int8 instances, kernel 2 and their paths, on their
+    # own seed so the phases after them see the data they always saw
+    vrng = np.random.default_rng(7)
+    policy_err, policy_timing = policy_kernel_phase(torch, vrng)
+    fused_err, fused_timing = fused_kernel_phase(torch, vrng)
+    serve_variants = serve_variants_phase(torch, model, serve_specs, serve_probs)
+    train_variants = train_variants_phase(torch, vrng)
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
@@ -2240,7 +2642,8 @@ def main() -> None:
     paths = {"serve": {"ggnn_step": launches}, "train": train_launches,
              "serve_combined": combined_launches, "train_combined": tc_launches,
              "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
-             "decode_gen": gen_decode, "train_clone": gen_clone}
+             "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
+             **train_variants}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]
@@ -2266,10 +2669,22 @@ def main() -> None:
     # a bias (the library yardstick computes dq, dk and dv in one call);
     # dropout_ms is the kernel at the training path's rate, bias_* the
     # kernel, bound and yardsticks at the T5 call with its [H, T, T] bias
+    step_src = "deepdfa_tpu_torch/csrc/ggnn_step.cu"
+    fused_row = {k: fused_timing["fp32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
     kernels = [
-        {"name": "ggnn_step", "source": "deepdfa_tpu_torch/csrc/ggnn_step.cu",
+        {"name": "ggnn_step", "source": step_src,
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555", "max_abs_err": kernel_err,
          **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}},
+        *({"name": f"ggnn_step_{accum}", "source": step_src,
+           "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555", "max_abs_err": policy_err[accum],
+           **{k: policy_timing[accum][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+          for accum in ("bf16", "int8")),
+        # kernel 2's row: fp32 without the chain; by_policy and chain the rest
+        {"name": "ggnn_fused", "source": step_src,
+         "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:717", "max_abs_err": fused_err,
+         **fused_row, "by_policy": fused_timing,
+         "chain": {a: {"ms": t["chain_ms"], "bound_ms": t["chain_bound_ms"]}
+                   for a, t in fused_timing.items()}},
         {"name": "ggnn_gru_bwd", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:852",
          "max_abs_err": bwd_err["ggnn_gru_bwd"], **bwd_timing["ggnn_gru_bwd"]},
@@ -2326,12 +2741,15 @@ def main() -> None:
                        **({"dropout_ms": k["dropout_ms"], "dropout_rate": DROPOUT_RATE}
                           if "dropout_ms" in k else {}),
                        **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {}),
-                       **({"by_call": k["by_call"]} if "by_call" in k else {})}
+                       **({"by_call": k["by_call"]} if "by_call" in k else {}),
+                       **({f: k[f] for f in ("by_policy", "chain") if f in k})}
                       for k in kernels]})
     times = [k[f] for k in kernels for f in ("ms", "plain_ms", "bound_ms")]
     times += [k["bias"][f] for k in kernels if "bias" in k for f in ("ms", "plain_ms", "bound_ms")]
     times += [c[f] for k in kernels for c in k.get("by_call", {}).values()
               for f in ("ms", "plain_ms", "library_ms", "bound_ms")]
+    times += [c[f] for k in kernels for c in k.get("by_policy", {}).values()
+              for f in ("ms", "chain_ms", "step_launches_ms", "plain_ms", "bound_ms")]
     if not all(math.isfinite(t) for t in times):
         fail("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):

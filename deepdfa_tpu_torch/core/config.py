@@ -79,14 +79,17 @@ class FeatureSpec:
 class ModelConfig:
     """GGNN architecture; the reference's fields and defaults.
 
-    On a CUDA device every GGNN step runs the hand-written kernel
-    (nn/ggnn_kernel.py), whatever `ggnn_kernel` says; on the CPU it runs
-    the kernel's plain PyTorch version. `ggnn_kernel` and `scan_steps`
-    choose between XLA lowerings in the reference, the block knobs its
-    VMEM tiling; they are read past here (the CUDA kernel's tiling is
-    fixed, nn/ggnn_kernel.py:block_sizes). The other kernel knobs keep
-    their names: the variants this slice has not ported raise
-    NotImplementedError."""
+    On a CUDA device every GGNN step runs the hand-written kernels
+    (nn/ggnn_kernel.py) and on the CPU their plain PyTorch versions,
+    whatever `ggnn_kernel` says. As in the reference, `ggnn_kernel` gates
+    the kernel's knobs: with it, `ggnn_kernel_accum` (fp32 | bf16 | int8
+    message policy) and `ggnn_kernel_unroll` (per_step | fused, the
+    whole-unroll kernel) act; without it the steps run fp32 per step,
+    the reference's lax function. `scan_steps` enters the fused
+    admission rule. The block knobs are the reference's VMEM tiling and
+    are read past here (the CUDA kernels' tiling is fixed,
+    nn/ggnn_kernel.py:block_sizes). `ggnn_kernel_scatter="mxu"` is not
+    ported and raises NotImplementedError."""
 
     hidden_dim: int = 32
     n_steps: int = 5
@@ -109,28 +112,19 @@ class ModelConfig:
     def __post_init__(self):
         if self.ggnn_kernel_accum not in ("fp32", "bf16", "int8"):
             raise ValueError(f"unknown ggnn_kernel_accum {self.ggnn_kernel_accum!r}")
-        if self.ggnn_kernel_accum != "fp32":
-            raise NotImplementedError(
-                f"ggnn_kernel_accum={self.ggnn_kernel_accum!r}: the bf16/int8 "
-                "message policies of the GGNN step kernel come with a later "
-                "slice of the port (ROADMAP queue A, kernel 1 variants)"
-            )
         if self.ggnn_kernel_unroll not in ("per_step", "fused"):
             raise ValueError(f"unknown ggnn_kernel_unroll {self.ggnn_kernel_unroll!r}")
-        if self.ggnn_kernel_unroll == "fused":
-            raise NotImplementedError(
-                "ggnn_kernel_unroll='fused': the whole-unroll GGNN kernel "
-                "comes with a later slice of the port (ROADMAP queue A, kernel 2)"
-            )
         if self.ggnn_kernel_scatter not in ("auto", "fold", "mxu"):
             raise ValueError(
                 f"unknown ggnn_kernel_scatter {self.ggnn_kernel_scatter!r}"
             )
         if self.ggnn_kernel_scatter == "mxu":
             raise NotImplementedError(
-                "ggnn_kernel_scatter='mxu': the one-hot matmul scatter comes "
-                "with a later slice of the port; the CUDA kernel sums each "
-                "node's dst-sorted edge run in edge order (the 'fold' order)"
+                "ggnn_kernel_scatter='mxu': the one-hot matmul scatter (under "
+                "int8 it requantizes each edge block's messages per column) is "
+                "still to port (ROADMAP queue B, the mxu scatter); the CUDA "
+                "kernels sum each node's dst-sorted edge run in edge order, "
+                "the 'fold' scatter"
             )
 
 

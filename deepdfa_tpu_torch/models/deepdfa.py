@@ -39,9 +39,17 @@ class DeepDFA(nn.Module):
         label_style: str = "graph",
         encoder_mode: bool = False,
         generator: torch.Generator | None = None,
+        *,
+        scan_steps: bool = False,
+        ggnn_kernel: bool = False,
+        ggnn_kernel_accum: str = "fp32",
+        ggnn_kernel_unroll: str = "per_step",
     ):
         """`generator` seeds the initial weights (Flax's initializers,
-        torch's draws)."""
+        torch's draws). The GGNN knobs are the reference's: `accum` and
+        `unroll` act only with `ggnn_kernel` (nn/gnn.py:GatedGraphConv);
+        the combined families build their graph encoder without them, so
+        it runs fp32 per step, as in the reference."""
         super().__init__()
         if label_style.startswith("dataflow_solution"):
             raise NotImplementedError(
@@ -57,7 +65,10 @@ class DeepDFA(nn.Module):
             input_dim, hidden_dim, concat_all=concat_all_absdf
         )
         width = self.embedding.out_dim
-        self.ggnn = GatedGraphConv(width, n_steps, n_etypes)
+        self.ggnn = GatedGraphConv(
+            width, n_steps, n_etypes, use_kernel=ggnn_kernel, accum=ggnn_kernel_accum,
+            unroll=ggnn_kernel_unroll, scan_steps=scan_steps,
+        )
         if label_style == "graph":
             self.pooling = GlobalAttentionPooling(2 * width)
         if not encoder_mode:
@@ -85,6 +96,10 @@ class DeepDFA(nn.Module):
             concat_all_absdf=cfg.concat_all_absdf,
             label_style=cfg.label_style,
             encoder_mode=cfg.encoder_mode,
+            scan_steps=cfg.scan_steps,
+            ggnn_kernel=cfg.ggnn_kernel,
+            ggnn_kernel_accum=cfg.ggnn_kernel_accum,
+            ggnn_kernel_unroll=cfg.ggnn_kernel_unroll,
         )
         kw.update(overrides)
         return cls(**kw)

@@ -5,7 +5,11 @@
   step is the step kernel on a CUDA device and its plain PyTorch version
   on the CPU; with gradients enabled each step is a `GgnnStep`, whose
   backward runs the two backward kernels (or their plain versions).
-  Weights keep the reference's [in, out] layout, which the kernels read
+  `use_kernel` (the reference's switch between its lax path and its
+  Pallas kernel) gates the kernel's knobs as the reference does: only
+  with it does the module pass `accum` and `unroll` on; without it the
+  steps run fp32 and per step, the reference's lax function. Weights
+  keep the reference's [in, out] layout, which the kernels read
   directly.
 - pooling: masked segment softmax; padded node slots belong to the dummy
   segment `num_graphs`, which is sliced off. The segment reductions and
@@ -97,13 +101,21 @@ class GatedGraphConv(nn.Module):
     """Gated Graph Convolution with DGL-parity semantics: per step
     a_v = sum_{(u,v)} W_t h_u + b_t, h_v = GRU(a_v, h_v), weights shared
     across steps, one transform per edge type. Inputs narrower than
-    `out_features` are zero-padded."""
+    `out_features` are zero-padded. `accum` (fp32 | bf16 | int8) and
+    `unroll` (per_step | fused) act only under `use_kernel`;
+    `scan_steps` enters the fused admission rule."""
 
-    def __init__(self, out_features: int, n_steps: int, n_etypes: int = 1):
+    def __init__(self, out_features: int, n_steps: int, n_etypes: int = 1, *,
+                 use_kernel: bool = False, accum: str = "fp32",
+                 unroll: str = "per_step", scan_steps: bool = False):
         super().__init__()
         self.out_features = out_features
         self.n_steps = n_steps
         self.n_etypes = n_etypes
+        self.use_kernel = use_kernel
+        self.accum = accum
+        self.unroll = unroll
+        self.scan_steps = scan_steps
         self.etype_kernel = nn.Parameter(torch.empty(n_etypes, out_features, out_features))
         self.etype_bias = nn.Parameter(torch.zeros(n_etypes, out_features))
         self.gru = GRUCell(out_features)
@@ -136,6 +148,9 @@ class GatedGraphConv(nn.Module):
             gru.input_kernel, gru.hidden_kernel, gru.input_bias, gru.hidden_bias,
             feat, batch.edge_src, batch.edge_dst, batch.edge_mask,
             batch.edge_type, n_steps=self.n_steps, n_etypes=self.n_etypes,
+            accum=self.accum if self.use_kernel else "fp32",
+            unroll=self.unroll if self.use_kernel else "per_step",
+            scan_steps=self.scan_steps,
         )
 
 

@@ -8,9 +8,11 @@ the CodeT5+DeepDFA defect model)
 warm the executor, submit every payload to the online batcher, wait for
 every answer and report the summary the reference's `run_score` reports
 where it applies, plus the kernel launches the scoring made: the GGNN
-step kernel's (n_steps per batch on a CUDA device, 0 on the CPU) and,
-for the combined model, the flash-attention kernel's (one per encoder
-layer per batch).
+step kernel's under each message policy (n_steps per batch on a CUDA
+device, 0 on the CPU), the whole-unroll kernel's (one per batch under
+`model.ggnn_kernel_unroll=fused`), the fused unrolls that fell back to
+per step and, for the combined model, the flash-attention kernel's (one
+per encoder layer per batch).
 """
 
 from __future__ import annotations
@@ -44,7 +46,12 @@ def _check_serial(cfg: Config) -> None:
 
 
 def _launch_counts() -> dict[str, int]:
-    return {"ggnn_step_launches": ggnn_kernel.LAUNCHES,
+    gk = ggnn_kernel.launch_counts()
+    return {"ggnn_step_launches": gk["LAUNCHES"],
+            "ggnn_step_bf16_launches": gk["BF16_LAUNCHES"],
+            "ggnn_step_int8_launches": gk["INT8_LAUNCHES"],
+            "ggnn_fused_launches": gk["FUSED_LAUNCHES"],
+            "ggnn_fused_fallbacks": gk["FUSED_FALLBACKS"],
             "flash_fwd_launches": flash_attention.LAUNCHES}
 
 

@@ -1,7 +1,7 @@
 """The port's config (deepdfa_tpu_torch/core/config.py) reads the same
 JSON files as the reference and keeps the reference's field names and
 defaults for every field it holds; the kernel variants this slice has
-not ported raise NotImplementedError."""
+not ported (the mxu scatter) raise NotImplementedError."""
 
 import dataclasses
 from pathlib import Path
@@ -56,19 +56,33 @@ def test_flagship_serving_budgets():
 @pytest.mark.parametrize(
     "knob, value, error",
     [
-        ("ggnn_kernel_accum", "bf16", NotImplementedError),
-        ("ggnn_kernel_accum", "int8", NotImplementedError),
-        ("ggnn_kernel_unroll", "fused", NotImplementedError),
         ("ggnn_kernel_scatter", "mxu", NotImplementedError),
         ("ggnn_kernel_accum", "fp64", ValueError),
         ("ggnn_kernel_unroll", "whole", ValueError),
     ],
 )
 def test_unported_kernel_variants_raise(knob, value, error):
-    with pytest.raises(error):
+    with pytest.raises(error, match="ROADMAP queue B" if error is NotImplementedError else None):
         tcfg.ModelConfig(**{knob: value})
     with pytest.raises(error):
         tcfg.from_dict({"model": {knob: value}})
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [["model.ggnn_kernel_accum=\"bf16\""], ["model.ggnn_kernel_accum=\"int8\""],
+     ["model.ggnn_kernel_unroll=\"fused\""],
+     ["model.ggnn_kernel_accum=\"int8\"", "model.ggnn_kernel_unroll=\"fused\""]],
+    ids=["bf16", "int8", "fused", "int8_fused"],
+)
+def test_ported_kernel_variants_load_like_the_reference(overrides):
+    """The reference's flagship config with the kernel and its policy
+    and unroll knobs loads in the port with the same model fields."""
+    overrides = ["model.ggnn_kernel=true", *overrides]
+    port = tcfg.apply_overrides(tcfg.load(ROOT / "configs" / "bigvul_deepdfa.json"), overrides)
+    ref = jcfg.apply_overrides(jcfg.load(ROOT / "configs" / "bigvul_deepdfa.json"), overrides)
+    for f in dataclasses.fields(tcfg.ModelConfig):
+        assert getattr(port.model, f.name) == getattr(ref.model, f.name), f.name
 
 
 OVERRIDES = [

@@ -7,8 +7,10 @@ only PyTorch:
 (`--noconftest`: tests/conftest.py configures JAX for the reference's
 tests.) The GGNN kernels are held against their plain PyTorch versions
 on the card at fp32 rtol 1e-4, atol 1e-5: the plain version's matmuls
-sum in another order than the kernel's FMA loops. The flash-attention
-kernel is held at 1e-5 in fp32 and 2e-2 in bf16 (it rounds p to bf16
+sum in another order than the kernel's FMA loops (under bf16 and int8
+too: both round or quantize the same rows). The whole-unroll kernel is
+held to the bits of five step launches. The flash-attention kernel is
+held at 1e-5 in fp32 and 2e-2 in bf16 (it rounds p to bf16
 against a running max, the plain version against the row's max)."""
 
 import numpy as np
@@ -240,6 +242,127 @@ def test_failed_build_and_launch_raise(card, tmp_path, monkeypatch):
     assert rc != 0  # d = 48 has no kernel instance
     with pytest.raises(RuntimeError, match="launch failed"):
         gk._raise_on(rc, "dmsg", lib, "ggnn_bwd_error_string")
+
+
+# -- kernel 1's bf16/int8 instances and kernel 2 (the whole unroll) ----------
+
+POLICY_CASES = [(512, 128, 1, 8), (512, 128, 3, 8), (200, 32, 1, 4), (512, 256, 2, 8),
+                (512, 96, 1, 8), (512, 128, 1, 0)]
+POLICY_IDS = ["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding"]
+#: card vs CPU probabilities under bf16/int8: the two sum the fp32 state
+#: in other orders, so a bf16 rounding or an int8 quantum of a state
+#: element near its boundary can flip between them and move that row's
+#: messages by one rounding step
+POLICY_PROB_TOL = 5e-3
+
+
+def _policy_case(rng, n, d, n_etypes, count, device, transpose=False):
+    b = pack(_graphs(rng, count, n_etypes), max(count, 1), n, 4 * n,
+             etypes=n_etypes > 1).to(device)
+    edges = gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, b.edge_type, n, n_etypes,
+                             transpose=transpose)
+    h = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(device)
+    return b, edges, h, _params(rng, d, n_etypes, device)
+
+
+@pytest.mark.parametrize("accum", ["bf16", "int8"])
+@pytest.mark.parametrize("n, d, n_etypes, count", POLICY_CASES, ids=POLICY_IDS)
+def test_policy_kernels_match_plain(card, n, d, n_etypes, count, accum):
+    """Kernel 1's bf16 and int8 instances against the plain version of
+    the same policy on the card (the same quantized rows: fp32 rtol
+    1e-4, atol 1e-5), one count per launch, the same bits on a rerun."""
+    rng = np.random.default_rng(n + d + n_etypes + 11)
+    _, edges, h, params = _policy_case(rng, n, d, n_etypes, count, card)
+    counter = {"bf16": "BF16_LAUNCHES", "int8": "INT8_LAUNCHES"}[accum]
+    before = gk.launch_counts()
+    with torch.inference_mode():
+        h_k, a_k = gk.ggnn_step(h, edges, *params, accum=accum, with_aggregate=True)
+        h_p, a_p = gk.ggnn_step_plain(h, edges, *params, accum)
+        again, _ = gk.ggnn_step(h, edges, *params, accum=accum)
+    torch.cuda.synchronize()
+    after = gk.launch_counts()
+    assert after[counter] == before[counter] + 2 and after["LAUNCHES"] == before["LAUNCHES"]
+    torch.testing.assert_close(h_k, h_p, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
+    assert torch.equal(again, h_k)
+    if count:  # the policy is engaged: the aggregate moves off fp32's
+        _, a32 = gk.ggnn_step(h, edges, *params, with_aggregate=True)
+        assert not torch.equal(a_k, a32)
+
+
+@pytest.mark.parametrize("accum", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("n, d, n_etypes, count", POLICY_CASES, ids=POLICY_IDS)
+def test_fused_kernel_is_bit_equal_to_step_launches(card, n, d, n_etypes, count, accum):
+    """Kernel 2 against 5 launches of kernel 1 of the same policy: h_out
+    and every chain plane the same bits, with and without the chain and
+    on a repeat; gradients through GgnnUnroll the same bits as through
+    five GgnnSteps."""
+    rng = np.random.default_rng(n + d + n_etypes + 13)
+    b, edges, h, params = _policy_case(rng, n, d, n_etypes, count, card, transpose=True)
+    with torch.inference_mode():
+        states = [h]
+        for _ in range(5):
+            states.append(gk.ggnn_step(states[-1], edges, *params, accum=accum)[0])
+        before = gk.FUSED_LAUNCHES
+        h_f, chain = gk.ggnn_fused(h, edges, *params, n_steps=5, accum=accum, with_chain=True)
+        h_f2, none = gk.ggnn_fused(h, edges, *params, n_steps=5, accum=accum)
+        h_f3, _ = gk.ggnn_fused(h, edges, *params, n_steps=5, accum=accum)
+    torch.cuda.synchronize()
+    assert gk.FUSED_LAUNCHES == before + 3 and none is None
+    assert torch.equal(h_f, states[-1]) and torch.equal(h_f2, h_f) and torch.equal(h_f3, h_f)
+    assert all(torch.equal(chain[s], states[s]) for s in range(5))
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(card)
+    grads = {}
+    for unroll in ("per_step", "fused"):
+        ps = [p.clone().requires_grad_() for p in params]
+        f = h.clone().requires_grad_()
+        out = gk.ggnn_propagate(*ps, f, b.edge_src, b.edge_dst, b.edge_mask, b.edge_type,
+                                n_steps=5, n_etypes=n_etypes, accum=accum, unroll=unroll)
+        out.backward(g)
+        grads[unroll] = [out.detach(), f.grad, *(p.grad for p in ps)]
+    assert all(torch.equal(x, y) for x, y in zip(grads["fused"], grads["per_step"]))
+
+
+def test_refused_cooperative_launch_raises(card):
+    rng = np.random.default_rng(5)
+    _, edges, h, params = _policy_case(rng, 512, 128, 1, 8, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    before = gk.FUSED_LAUNCHES
+    with pytest.raises(RuntimeError, match="ggnn_fused kernel launch failed"):
+        gk.ggnn_fused(h, edges, *params, n_steps=5, grid=64 * sms)
+    assert gk.FUSED_LAUNCHES == before
+    h_ok, _ = gk.ggnn_fused(h, edges, *params, n_steps=5, grid=1)  # one block, every tile
+    torch.cuda.synchronize()
+    assert torch.equal(h_ok, gk.ggnn_fused(h, edges, *params, n_steps=5)[0])
+    # the card's L2 admits the flagship's resident set under every policy
+    assert gk.fused_residency_bytes(16384, 128, "int8", 5) <= gk.fused_budget_bytes(card)
+
+
+@pytest.mark.parametrize("accum, unroll", [("bf16", "per_step"), ("fp32", "fused"),
+                                           ("int8", "fused"), ("int8", "per_step")])
+def test_serving_variants_on_card_match_cpu(card, accum, unroll):
+    rng = np.random.default_rng(1)
+    specs = _graphs(rng, 20)
+    cfg = Config(serve=ServeConfig(max_batch_graphs=4, node_budget=512, edge_budget=2048,
+                                   max_batch_delay_ms=2.0))
+
+    def model():
+        return DeepDFA(52, 8, 3, generator=torch.Generator().manual_seed(0), ggnn_kernel=True,
+                       ggnn_kernel_accum=accum, ggnn_kernel_unroll=unroll)
+
+    summary = score_graphs(model(), specs, cfg)
+    fused = unroll == "fused"
+    assert summary["ggnn_fused_fallbacks"] == 0
+    assert summary["ggnn_fused_launches"] == (summary["serve_batches"] if fused else 0)
+    key = {"fp32": "ggnn_step_launches", "bf16": "ggnn_step_bf16_launches",
+           "int8": "ggnn_step_int8_launches"}[accum]
+    assert summary[key] == (0 if fused else summary["serve_batches"] * 3)
+    want = [r.wait(0) for r in DynamicBatcher(
+        GgnnExecutor(model(), 512, 2048, 4, device="cpu")).score_all(specs)]
+    if accum == "fp32":
+        np.testing.assert_allclose(summary["probs"], want, rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(summary["probs"], want, rtol=0, atol=POLICY_PROB_TOL)
 
 
 @pytest.mark.parametrize(
