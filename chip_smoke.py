@@ -67,6 +67,40 @@ prints one JSON line; any failure exits non-zero before the last line.
    one launch with the chain a step and one without an eval batch, then
    5 kernel-1 recomputes, 5 B3 and 5 B4 a step), step-1 gradients of the
    fused unroll the bits of the per-step one, median step ms;
+7e. kernel ggnn_step_mxu — kernel 1's mxu instances (fp32, bf16, int8;
+   edge block 512) against the plain mxu version of the same policy on
+   the card (rtol 1e-4, atol 1e-5) at the three batches of phase 3, int8
+   also at edge blocks 128 and 1024 on the flagship batch (each against
+   its own plain version, and not block 512's aggregate), the same bits
+   on a rerun, the int8 mxu aggregate not the int8 fold one; times, the
+   fold instance's times, plain times and bounds at the flagship batch;
+7f. kernel ggnn_fused_mxu — kernel 2's mxu instances (5 steps) under each
+   policy at the same batches: h_out, with and without the chain, and
+   every chain plane the bits of 5 launches of kernel 1's mxu instance,
+   the same bits on a repeat, each step within rtol 1e-4 / atol 1e-5 of
+   the plain mxu step from that step's input; times, bounds and the
+   residency against the card's L2;
+7g. serve_mxu, serve_mxu_int8, serve_mxu_int8_fused — phase 5's model and
+   requests through score_graphs under (fp32, mxu, per_step), (int8,
+   mxu, per_step), (int8, mxu, fused), each counted from 0: every request
+   scored, no fused fallback, only the variant's kernel, n_steps times
+   (fused: once) a batch; scores within 5e-2 of scale of phase 5's fp32
+   fold scores, the int8 mxu scores not serve_int8's;
+7h. train_mxu — phase 7's fit under (int8, mxu, per_step), 20 AdamW
+   steps counted from 0: losses finite and falling, the instance's, B3's
+   and B4's launches and no other, two backward passes the same bits,
+   each of the first 3 losses of a fresh run within rtol 1e-4 of the CPU
+   plain path's loss from that step's parameters (the free CPU
+   trajectory beside it is reported: an int8 quantum that flips between
+   two fp32 summation orders spreads through AdamW), median step ms;
+7i. tune — `cli tune` at the flagship serving budgets (16384 x 65536,
+   d 128, 5 steps) over the card-legal grid, counted from 0, under a
+   temporary storage root: every candidate timed with its numerics
+   verdict, a winner, a valid tuned.json (its candidate table on the
+   line tune_candidates); then `cli train` (flagship model,
+   ggnn_kernel=true, tune.enabled=true, 2 epochs on 120 seeded graphs in
+   a graph store there) prints the overrides it applied, saves them in
+   its config and launches the winner's kernel;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -171,13 +205,15 @@ prints one JSON line; any failure exits non-zero before the last line.
 20. train_clone — `train-clone`'s path: the reference's clone files,
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step;
-21. kernels — every kernel with its launches on the fifteen main paths
-   (serve, train, serve_combined, train_combined, serve_t5, train_t5,
-   train_gen, decode_gen, train_clone and the six of 7c-7d, each counted
-   from 0, and by path), error, time, plain time, bound and library time;
-   the flash rows add their biased times as bias_* and their causal and
-   gen-path times under by_call; ggnn_step_bf16 and ggnn_step_int8 are
-   kernel 1's instances, ggnn_fused is kernel 2 (fp32 without the chain,
+21. kernels — every kernel with its launches on the twenty-one main
+   paths (serve, train, serve_combined, train_combined, serve_t5,
+   train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
+   four of 7g-7h, tune and tune_train, each counted from 0, and by path),
+   error, time, plain time, bound and library time; the flash rows add
+   their biased times as bias_* and their causal and gen-path times under
+   by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
+   1's instances (the mxu rows add their fold instance's fold_ms),
+   ggnn_fused and ggnn_fused_mxu kernel 2's (fp32 without the chain,
    by_policy and chain the rest).
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
@@ -752,21 +788,18 @@ TRAIN_VARIANTS = {"train_fused": ("fp32", "fused"), "train_bf16": ("bf16", "per_
 #: the step counter of each policy and the kernels-line row it feeds
 POLICY_ROWS = {"fp32": ("LAUNCHES", "ggnn_step"), "bf16": ("BF16_LAUNCHES", "ggnn_step_bf16"),
                "int8": ("INT8_LAUNCHES", "ggnn_step_int8")}
-#: score_graphs' summary key of each counter
-SUMMARY_KEYS = {"LAUNCHES": "ggnn_step_launches", "BF16_LAUNCHES": "ggnn_step_bf16_launches",
-                "INT8_LAUNCHES": "ggnn_step_int8_launches",
-                "FUSED_LAUNCHES": "ggnn_fused_launches"}
 #: bf16/int8 scores against the fp32 scores, of their scale (the
 #: reference's INT8_DRIFT_BOUND, and its bf16 rung)
 POLICY_SCORE_TOL = 5e-2
 FUSED_STEPS = 5
 
 
-def variant_config(cfg, accum: str, unroll: str):
+def variant_config(cfg, accum: str, unroll: str, scatter: str = "auto"):
     from deepdfa_tpu_torch.core import apply_overrides
 
     return apply_overrides(cfg, ["model.ggnn_kernel=true", f'model.ggnn_kernel_accum="{accum}"',
-                                 f'model.ggnn_kernel_unroll="{unroll}"'])
+                                 f'model.ggnn_kernel_unroll="{unroll}"',
+                                 f'model.ggnn_kernel_scatter="{scatter}"'])
 
 
 def ggnn_case(torch, gen, batch, t: int, d: int = 128):
@@ -956,6 +989,7 @@ def serve_variants_phase(torch, model, specs, fp32_probs):
     from deepdfa_tpu_torch.models import DeepDFA
     from deepdfa_tpu_torch.nn import ggnn_kernel as gk
     from deepdfa_tpu_torch.serve import DynamicBatcher, GgnnExecutor, score_graphs
+    from deepdfa_tpu_torch.serve.driver import SUMMARY_KEYS
 
     cfg = load(FLAGSHIP_CONFIG)
     node_budget = cfg.serve.node_budget or cfg.data.batch.node_budget
@@ -967,7 +1001,7 @@ def serve_variants_phase(torch, model, specs, fp32_probs):
         return np.asarray([r.wait(600) for r in DynamicBatcher(ex).score_all(specs)])
 
     fixed = {("fp32", "per_step"): offline(model)}
-    paths = {}
+    paths, online = {}, {}
     for path, (accum, unroll) in SERVE_VARIANTS.items():
         vcfg = variant_config(cfg, accum, unroll)
         vmodel = DeepDFA.from_config(vcfg.model, cfg.data.feat.input_dim)
@@ -993,6 +1027,7 @@ def serve_variants_phase(torch, model, specs, fp32_probs):
             fail(f"{path}: scores {drift} of scale from the fp32 scores (limit "
                  f"{POLICY_SCORE_TOL}, and a policy must move them)")
         fixed[accum, unroll] = offline(vmodel)
+        online[accum, unroll] = probs
         paths[path] = {row: counts[counter]}
         emit({"phase": path, "ok": True, "accum": accum, "unroll": unroll,
               "requests": len(specs), "launches": counts, "score_drift_vs_fp32": drift,
@@ -1003,7 +1038,7 @@ def serve_variants_phase(torch, model, specs, fp32_probs):
     emit({"phase": "serve_variants", "ok": True, "fused_bit_equal_per_step": ["fp32", "int8"],
           "offline_drift_vs_fp32": {f"{a}_{u}": float(np.abs(p - fixed["fp32", "per_step"]).max())
                                     for (a, u), p in fixed.items()}})
-    return paths
+    return paths, online
 
 
 def train_variants_phase(torch, rng):
@@ -1097,6 +1132,451 @@ def train_variants_phase(torch, rng):
               "launches": counts, "fit_seconds": fit_s, "step_ms": step_ms(trainer, state),
               "fp32_per_step_step_ms": base_ms, **report})
     return paths
+
+
+# ---------------------------------------------------------------------------
+# the mxu scatter of kernels 1 and 2, and the tune entry point
+
+#: kernel 1's mxu instances: the counter of each policy and its row
+MXU_ROWS = {"fp32": ("MXU_LAUNCHES", "ggnn_step_mxu"),
+            "bf16": ("MXU_BF16_LAUNCHES", "ggnn_step_mxu_bf16"),
+            "int8": ("MXU_INT8_LAUNCHES", "ggnn_step_mxu_int8")}
+#: every GGNN kernel row of the kernels line and its counter
+GGNN_ROWS = {"ggnn_step": "LAUNCHES", "ggnn_step_bf16": "BF16_LAUNCHES",
+             "ggnn_step_int8": "INT8_LAUNCHES", **{r: c for c, r in MXU_ROWS.values()},
+             "ggnn_fused": "FUSED_LAUNCHES", "ggnn_fused_mxu": "FUSED_MXU_LAUNCHES",
+             "ggnn_gru_bwd": "GRU_BWD_LAUNCHES", "ggnn_dmsg": "DMSG_LAUNCHES"}
+SERVE_MXU = {"serve_mxu": ("fp32", "per_step"), "serve_mxu_int8": ("int8", "per_step"),
+             "serve_mxu_int8_fused": ("int8", "fused")}
+MXU_BLOCK = 512  # the reference's default edge block
+MXU_INT8_BLOCKS = (128, 1024)  # int8 at other blocks: other numbers
+#: the card's peak for the message products of each policy (fp32 FMA,
+#: bf16 and int8 on the tensor cores); the GRU stays fp32
+MSG_PEAK = {"fp32": PEAK_FP32_FLOPS, "bf16": PEAK_BF16_FLOPS, "int8": 1979e12}
+
+
+def mxu_bound(n: int, e_live: int, d: int, t: int, accum: str, n_steps: int = 1,
+              chain: bool = False):
+    """(bound_ms, bound_by) of n_steps mxu steps: the per-edge messages'
+    2*E_live*d^2*T products at the policy's peak (MSG_PEAK) plus the
+    GRU's 12*N*d^2 and the sums' 2*E_live*d at the fp32 peak, against
+    policy_step_bound's bytes (kernel 2's: fused_bound's)."""
+    t_ops = n_steps * (2 * e_live * d * d * t / MSG_PEAK[accum]
+                       + (12 * n * d * d + 2 * e_live * d) / PEAK_FP32_FLOPS) * 1e3
+    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[accum]
+    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d) + (t * d if accum == "int8" else 0))
+    nbytes = (4 * ((2 + (n_steps if chain else 0)) * n * d + e_live * (1 + t) + (n + 1))
+              + weights + itemsize * t * d * d)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def mxu_kernel_phase(torch, rng):
+    """Kernel 1's mxu instances against the plain mxu of the same policy
+    on the card at the three batches of phase 3 (fp32 rtol/atol: the
+    plain matmuls sum the message products in another order; int8's
+    products and quanta are exact), int8 also at edge blocks 128 and 1024
+    on the flagship batch, each against its own plain version and not
+    equal to block 512's; the same bits on a rerun; int8 mxu not equal to
+    int8 fold; times at the flagship batch."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    gen = torch.Generator().manual_seed(5)
+    report, worst, timing = {}, dict.fromkeys(MXU_ROWS, 0.0), {}
+    for name, (batch, t) in ggnn_cases(rng).items():
+        b, edges, h, params = ggnn_case(torch, gen, batch, t)
+        n, e_live, d = b.node_budget, int(b.edge_mask.sum()), h.shape[1]
+        aggs = {}
+        for accum in MXU_ROWS:
+            blocks = (MXU_BLOCK, *MXU_INT8_BLOCKS) if accum == "int8" and name == "flagship" \
+                else (MXU_BLOCK,)
+            for be in blocks:
+                kw = dict(accum=accum, scatter="mxu", block_e=be)
+                with torch.inference_mode():
+                    h_k, a_k = gk.ggnn_step(h, edges, *params, with_aggregate=True, **kw)
+                    h_p, a_p = gk.ggnn_step_plain(h, edges, *params, accum, "mxu", be)
+                    again, _ = gk.ggnn_step(h, edges, *params, **kw)
+                torch.cuda.synchronize()
+                for what, got, want in (("h", h_k, h_p), ("a", a_k, a_p)):
+                    err = step_check(torch, f"{name} mxu {accum} be{be} step {what}", got, want)
+                    worst[accum] = max(worst[accum], err)
+                    report[f"{accum}_be{be}_{name}_{what}_max_abs_err"] = err
+                if not torch.equal(again, h_k):
+                    fail(f"{name}: the mxu {accum} step gave other bits on a rerun")
+                aggs[accum, be] = a_k
+            if accum == "int8" and name != "all_padding":
+                with torch.inference_mode():
+                    _, a_fold = gk.ggnn_step(h, edges, *params, accum="int8", with_aggregate=True)
+                if torch.equal(a_fold, aggs["int8", MXU_BLOCK]):
+                    fail(f"{name}: the int8 mxu aggregate equals the int8 fold one")
+                report[f"int8_{name}_mxu_vs_fold_max_abs"] = \
+                    (a_fold - aggs["int8", MXU_BLOCK]).abs().max().item()
+            if name == "flagship":
+                with torch.inference_mode():
+                    kw = dict(accum=accum, scatter="mxu", block_e=MXU_BLOCK)
+                    timing[accum] = {
+                        "ms": median_ms(torch, lambda: gk.ggnn_step(h, edges, *params, **kw)),
+                        "plain_ms": median_ms(torch, lambda: gk.ggnn_step_plain(
+                            h, edges, *params, accum, "mxu", MXU_BLOCK)),
+                        "fold_ms": median_ms(torch, lambda: gk.ggnn_step(
+                            h, edges, *params, accum=accum)),
+                        **dict(zip(("bound_ms", "bound_by"), mxu_bound(n, e_live, d, t, accum))),
+                        "shape": {"n": n, "e": b.edge_budget, "e_live": e_live, "d": d,
+                                  "n_etypes": t, "block_e": MXU_BLOCK},
+                    }
+        if name == "flagship":
+            for be in MXU_INT8_BLOCKS:
+                if torch.equal(aggs["int8", be], aggs["int8", MXU_BLOCK]):
+                    fail(f"flagship: the int8 mxu aggregate at block {be} equals block "
+                         f"{MXU_BLOCK}'s")
+                report[f"int8_be{be}_vs_be{MXU_BLOCK}_max_abs"] = \
+                    (aggs["int8", be] - aggs["int8", MXU_BLOCK]).abs().max().item()
+    emit({"phase": "kernel ggnn_step_mxu", "ok": True, "rtol": RTOL, "atol": ATOL,
+          "max_abs_err": worst, **report, "timing": timing})
+    return worst, timing
+
+
+def mxu_fused_kernel_phase(torch, rng):
+    """Kernel 2's mxu instances at the three batches under each policy:
+    h_out, with and without the chain, and every chain plane the bits of
+    FUSED_STEPS launches of kernel 1's mxu instance, the same bits on a
+    repeat; each step against the plain mxu step from that step's input
+    (fused_kernel_phase's rule); times at the flagship batch and
+    the residency against the card's L2."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    gen = torch.Generator().manual_seed(6)
+    report, worst, timing = {}, 0.0, {}
+    S = FUSED_STEPS
+    for name, (batch, t) in ggnn_cases(rng).items():
+        b, edges, h, params = ggnn_case(torch, gen, batch, t)
+        n, e_live, d = b.node_budget, int(b.edge_mask.sum()), h.shape[1]
+        for accum in MXU_ROWS:
+            kw = dict(accum=accum, scatter="mxu", block_e=MXU_BLOCK)
+            with torch.inference_mode():
+                states = [h]
+                for _ in range(S):
+                    states.append(gk.ggnn_step(states[-1], edges, *params, **kw)[0])
+                h_f, chain = gk.ggnn_fused(h, edges, *params, n_steps=S, with_chain=True, **kw)
+                h_nc, _ = gk.ggnn_fused(h, edges, *params, n_steps=S, **kw)
+                h_again, _ = gk.ggnn_fused(h, edges, *params, n_steps=S, **kw)
+                plain = [gk.ggnn_step_plain(chain[s], edges, *params, accum, "mxu", MXU_BLOCK)[0]
+                         for s in range(S)]
+            torch.cuda.synchronize()
+            if not (torch.equal(h_f, states[-1]) and torch.equal(h_nc, h_f)):
+                fail(f"{name} mxu {accum}: kernel 2's h_out differs from {S} step launches")
+            if not all(torch.equal(chain[s], states[s]) for s in range(S)):
+                fail(f"{name} mxu {accum}: kernel 2's chain differs from the step inputs")
+            if not torch.equal(h_again, h_f):
+                fail(f"{name} mxu {accum}: kernel 2 gave other bits on a repeat")
+            outs = [*chain[1:], h_f]
+            err = max(step_check(torch, f"{name} mxu {accum} fused step {s}", outs[s], plain[s])
+                      for s in range(S))
+            worst = max(worst, err)
+            report[f"{accum}_{name}_max_abs_err"] = err
+            if name == "flagship":
+                def steps(kw=kw):
+                    x = h
+                    for _ in range(S):
+                        x = gk.ggnn_step(x, edges, *params, **kw)[0]
+
+                with torch.inference_mode():
+                    timing[accum] = {
+                        "ms": median_ms(torch, lambda: gk.ggnn_fused(
+                            h, edges, *params, n_steps=S, **kw)),
+                        "chain_ms": median_ms(torch, lambda: gk.ggnn_fused(
+                            h, edges, *params, n_steps=S, with_chain=True, **kw)),
+                        "step_launches_ms": median_ms(torch, steps),
+                        "plain_ms": median_ms(torch, lambda: gk.ggnn_fused_plain(
+                            h, edges, *params, n_steps=S, **kw)),
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   mxu_bound(n, e_live, d, t, accum, S))),
+                        "chain_bound_ms": mxu_bound(n, e_live, d, t, accum, S, True)[0],
+                        "residency_bytes": gk.fused_residency_bytes(
+                            n, d, accum, S, scatter="mxu", n_eb=b.edge_budget // MXU_BLOCK,
+                            n_etypes=t),
+                    }
+    emit({"phase": "kernel ggnn_fused_mxu", "ok": True, "n_steps": S, "rtol": RTOL,
+          "atol": ATOL, "max_abs_err": worst, **report,
+          "l2_budget_bytes": gk.fused_budget_bytes(torch.device(CARD)), "timing": timing})
+    return worst, timing
+
+
+def serve_mxu_phase(torch, model, specs, fp32_probs, int8_fold_probs):
+    """score_graphs of the serve phase's model and requests under each
+    SERVE_MXU entry, launches counted from 0: every request scored, no
+    fused fallback, the variant's kernel n_steps times (fused: once) a
+    batch and no other, scores within POLICY_SCORE_TOL of scale of the
+    fp32 fold scores, and the int8 mxu scores not the int8 fold ones."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve import score_graphs
+    from deepdfa_tpu_torch.serve.driver import SUMMARY_KEYS
+
+    cfg = load(FLAGSHIP_CONFIG)
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    paths = {}
+    for path, (accum, unroll) in SERVE_MXU.items():
+        vcfg = variant_config(cfg, accum, unroll, "mxu")
+        vmodel = DeepDFA.from_config(vcfg.model, cfg.data.feat.input_dim)
+        vmodel.load_state_dict(weights)
+        gk.reset_launch_counts()
+        summary = score_graphs(vmodel, specs, vcfg, device=CARD)
+        counts = gk.launch_counts()
+        probs = np.asarray(summary.pop("probs"), dtype=np.float64)
+        if summary["serve_scored"] != len(specs) or not np.all(np.isfinite(probs)):
+            fail(f"{path}: {summary['serve_failed_requests']} requests failed or non-finite")
+        if counts["FUSED_FALLBACKS"]:
+            fail(f"{path}: {counts['FUSED_FALLBACKS']} fused unrolls fell back to per step")
+        counter, row = ("FUSED_MXU_LAUNCHES", "ggnn_fused_mxu") if unroll == "fused" \
+            else MXU_ROWS[accum]
+        key = SUMMARY_KEYS[counter]
+        scored = {k: v for k, v in summary.items() if k.startswith("ggnn_")}
+        want = summary["serve_batches"] * (1 if unroll == "fused" else cfg.model.n_steps)
+        if scored[key] != want or any(v for k, v in scored.items() if k != key):
+            fail(f"{path}: launches {scored}, expected {key} = {want} and no other")
+        drift = float(np.abs(probs - fp32_probs).max()) / float(np.abs(fp32_probs).max())
+        if drift > POLICY_SCORE_TOL:
+            fail(f"{path}: scores {drift} of scale from the fp32 fold scores (limit "
+                 f"{POLICY_SCORE_TOL})")
+        vs_fold = None
+        if accum == "int8":
+            vs_fold = float(np.abs(probs - int8_fold_probs).max())
+            if vs_fold == 0.0:
+                fail(f"{path}: the int8 mxu scores equal the int8 fold scores")
+        paths[path] = {row: counts[counter]}
+        emit({"phase": path, "ok": True, "accum": accum, "scatter": "mxu", "unroll": unroll,
+              "requests": len(specs), "launches": counts, "score_drift_vs_fp32_fold": drift,
+              "int8_mxu_vs_int8_fold_max_abs": vs_fold, **summary})
+    return paths
+
+
+def train_mxu_phase(torch, rng):
+    """GraphTrainer.fit under (int8, mxu, per_step), TRAIN_BATCHES x
+    TRAIN_EPOCHS AdamW steps, launches counted from 0: losses finite and
+    falling, kernel 1's int8 mxu instance (steps + evals) x n_steps
+    times, B3 and B4 steps x n_steps; two backward passes on one batch
+    the same bits; each of the first CPU_STEPS losses within rtol 1e-4 of
+    the CPU plain path's from the same parameters (a free CPU trajectory
+    from the same start is reported beside it); median step ms."""
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.train import GraphTrainer
+
+    cfg = variant_config(load(FLAGSHIP_CONFIG), "int8", "per_step", "mxu")
+    input_dim, n_steps = cfg.data.feat.input_dim, cfg.model.n_steps
+    _, batches = train_batches(cfg, rng)
+    steps = TRAIN_BATCHES * TRAIN_EPOCHS
+    model = DeepDFA.from_config(cfg.model, input_dim)
+    trainer = GraphTrainer(model, cfg, device=CARD)
+    state = trainer.init_state(seed=0)
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    records = []
+    gk.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(state, lambda epoch: batches, val_batches=lambda: batches[:1],
+                max_epochs=TRAIN_EPOCHS, log_fn=records.append)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = gk.launch_counts()
+    want = {"MXU_INT8_LAUNCHES": (steps + TRAIN_EPOCHS) * n_steps,
+            "GRU_BWD_LAUNCHES": steps * n_steps, "DMSG_LAUNCHES": steps * n_steps}
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if any(counts[k] != v for k, v in want.items()) or others:
+        fail(f"train_mxu: kernel launches {counts}, expected {want} and no other")
+    epochs = [r for r in records if "epoch" in r]
+    losses = [r["train_loss"] for r in epochs]
+    if not all(math.isfinite(x) for x in losses + [r["val_loss"] for r in epochs]):
+        fail(f"train_mxu: a non-finite loss in {epochs}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_mxu: the loss did not fall: epoch means {losses}")
+    b0 = batches[0].to(CARD)
+
+    def grads():
+        trainer.forward_loss(state, b0).backward()
+        return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+    first, second = grads(), grads()
+    if not all(torch.equal(first[k], second[k]) for k in first):
+        fail("train_mxu: two backward passes on one batch gave other gradients")
+    # the first CPU_STEPS steps: the card's trajectory against the CPU
+    # plain path's loss from the card's parameters of that step (gated), and
+    # against a free CPU trajectory from the same start (reported): under
+    # int8 an element near a quantum's edge rounds the other way in the two
+    # fp32 summation orders, and AdamW's normalized update spreads the flip
+    cpu = GraphTrainer(DeepDFA.from_config(cfg.model, input_dim), cfg, device="cpu")
+    cpu_state = cpu.init_state(params=init)
+    card = GraphTrainer(DeepDFA.from_config(cfg.model, input_dim), cfg, device=CARD)
+    card_state = card.init_state(params=init)
+    synced = GraphTrainer(DeepDFA.from_config(cfg.model, input_dim), cfg, device="cpu")
+    loss_pairs, free_pairs = [], []
+    for i in range(CPU_STEPS):
+        here = {k: v.detach().cpu().clone() for k, v in card.model.state_dict().items()}
+        with torch.no_grad():
+            want = synced.forward_loss(synced.init_state(params=here),
+                                       batches[i].to("cpu")).item()
+        pair = []
+        for tr, st in ((card, card_state), (cpu, cpu_state)):
+            loss = tr.forward_loss(st, batches[i].to(tr.device))
+            loss.backward()
+            pair.append(loss.item())
+            st.apply_gradients()
+        loss_pairs.append((pair[0], want))
+        free_pairs.append(tuple(pair))
+    loss_err = max(abs(a - b) / abs(b) for a, b in loss_pairs)
+    free_err = max(abs(a - b) / abs(b) for a, b in free_pairs)
+    if loss_err > 1e-4:
+        fail(f"train_mxu: card vs CPU losses from the card's parameters {loss_pairs} "
+             f"(rel {loss_err})")
+    on_card = [b.to(CARD) for b in batches]
+    times = []
+    for i in range(10):
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        trainer.train_step(state, on_card[i % TRAIN_BATCHES])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t_a))
+    emit({"phase": "train_mxu", "ok": True, "accum": "int8", "scatter": "mxu", "steps": steps,
+          "epoch_train_loss": losses, "epoch_val_loss": [r["val_loss"] for r in epochs],
+          "launches": counts, "grads_bit_equal": True, "cpu_losses": loss_pairs,
+          "cpu_loss_rel_err": loss_err, "free_cpu_losses": free_pairs,
+          "free_cpu_loss_rel_err": free_err, "fit_seconds": fit_s,
+          "step_ms": statistics.median(times)})
+    return {"ggnn_step_mxu_int8": counts["MXU_INT8_LAUNCHES"],
+            "ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"], "ggnn_dmsg": counts["DMSG_LAUNCHES"]}
+
+
+def write_graph_store(directory: Path, graphs) -> None:
+    """One npz shard in the reference's graph-store layout (the port
+    reads stores; the reference's `extract` writes them)."""
+    import numpy as np
+
+    directory.mkdir(parents=True, exist_ok=True)
+    cat = lambda f: np.concatenate([getattr(g, f) for g in graphs])  # noqa: E731
+    np.savez(directory / "graphs-00000.npz", version=np.int64(1),
+             graph_ids=np.array([g.graph_id for g in graphs], np.int64),
+             labels=np.array([g.label for g in graphs], np.float32),
+             node_offsets=np.concatenate([[0], np.cumsum([g.num_nodes for g in graphs])]),
+             edge_offsets=np.concatenate([[0], np.cumsum([g.num_edges for g in graphs])]),
+             node_feats=cat("node_feats"), node_vuln=cat("node_vuln"),
+             edge_src=cat("edge_src"), edge_dst=cat("edge_dst"))
+
+
+def tune_phase(torch, rng):
+    """`cli tune` at the flagship serving budgets (16384 x 65536, d 128,
+    5 steps) over the card-legal grid, counted from 0: every candidate
+    timed with a verdict, a winner, a valid tuned.json under a temporary
+    storage root (its candidate table on a line of its own); then `cli
+    train` of the flagship model (ggnn_kernel=true) with
+    tune.enabled=true on seeded graphs in a graph store there: the
+    overrides it applied printed and in its saved config, the winner's
+    kernel launched, finite losses."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.tune import cache as tune_cache
+
+    def run_cli(argv) -> list[str]:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+        return out.getvalue().splitlines()
+
+    saved_env = os.environ.get("DEEPDFA_TPU_STORAGE")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["DEEPDFA_TPU_STORAGE"] = tmp
+        try:
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            lines = run_cli(["tune", "--config", str(FLAGSHIP_CONFIG), "--device", CARD])
+            tune_s = time.perf_counter() - t0
+            tune_counts = gk.launch_counts()
+            report = json.loads(lines[-1])
+            path = Path(tmp) / "tuned.json"
+            verdict = tune_cache.validate_tuned_file(path)
+            if not (report["valid"] and verdict["ok"]):
+                fail(f"tune: tuned.json invalid: {verdict['problems']}")
+            rec = tune_cache.load_tuned(path)["records"][-1]
+            sig = report["kernel"]["signature"]
+            srec = rec["kernel"][sig]
+            rows = srec["candidates"]
+            untimed = [r["candidate"] for r in rows
+                       if "step_us" not in r or not isinstance(r.get("numerics"), dict)]
+            if untimed or not rows or srec.get("winner") is None:
+                fail(f"tune: candidates without a time or verdict {untimed}, winner "
+                     f"{srec.get('winner')}")
+            emit({"phase": "tune_candidates", "signature": sig, "hardware": rec["hardware"],
+                  "lax_step_us": srec["lax_step_us"], "winner": srec["winner"],
+                  "candidates": [{k: r.get(k) for k in ("candidate", "step_us",
+                                                        "mfu_vs_measured_ceiling")}
+                                 | {"rel_err": r["numerics"]["rel_err"],
+                                    "ok": r["numerics"]["ok"]} for r in rows],
+                  "pruned": len(srec["pruned"])})
+            # cli train on the tuned layout
+            cfg = load(FLAGSHIP_CONFIG)
+            graphs = [synthetic_graph(rng, i, int(rng.integers(10, 401)),
+                                      cfg.data.feat.input_dim, signal=True) for i in range(120)]
+            out = Path(tmp) / "processed" / cfg.data.dataset
+            write_graph_store(out / cli.graphs_dirname(cfg), graphs)
+            (out / "splits.json").write_text(json.dumps(
+                {str(g.graph_id): "val" if g.graph_id % 4 == 3 else "train" for g in graphs}))
+            tcfg = config_mod.apply_overrides(cfg, [
+                'run_name="tune-train"', "model.ggnn_kernel=true", "train.max_epochs=2",
+                "train.checkpoint_every_epochs=1", "tune.enabled=true"])
+            cfg_path = Path(tmp) / "train.json"
+            config_mod.to_json(tcfg, cfg_path)
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            lines = run_cli(["train", "--config", str(cfg_path), "--device", CARD])
+            train_s = time.perf_counter() - t0
+            train_counts = gk.launch_counts()
+            applied = json.loads(next(x for x in lines if x.startswith("[tune] "))[7:])
+            saved = load(Path(tmp) / "runs" / "tune-train" / "config.json")
+            layout = tune_cache.kernel_layout_from(rec, *map(int, sig.split("x")))
+            m = saved.model
+            if not applied["matched"] or not applied["overrides"] or (
+                    m.ggnn_kernel_scatter, m.ggnn_kernel_accum, m.ggnn_kernel_unroll,
+                    m.ggnn_kernel_block_edges) != (layout["scatter"], layout["accum"],
+                                                   layout["unroll"], layout["block_e"]):
+                fail(f"tune: cli train applied {applied}, saved {m}, winner {layout}")
+            scatter, accum = layout["scatter"], layout["accum"]
+            if layout["unroll"] == "fused":
+                row = "ggnn_fused_mxu" if scatter == "mxu" else "ggnn_fused"
+            else:
+                row = (MXU_ROWS[accum][1] if scatter == "mxu"
+                       else POLICY_ROWS[accum][1])
+            log = (Path(tmp) / "runs" / "tune-train" / "train_log.jsonl").read_text()
+            epochs = [json.loads(x) for x in log.splitlines() if '"epoch"' in x]
+            losses = [r["train_loss"] for r in epochs]
+            if train_counts[GGNN_ROWS[row]] <= 0 or not epochs or not all(
+                    math.isfinite(x) for x in losses):
+                fail(f"tune: cli train launched {train_counts}, winner row {row}, "
+                     f"losses {losses}")
+        finally:
+            if saved_env is None:
+                os.environ.pop("DEEPDFA_TPU_STORAGE", None)
+            else:
+                os.environ["DEEPDFA_TPU_STORAGE"] = saved_env
+    forward_rows = [r for r in GGNN_ROWS if r not in ("ggnn_gru_bwd", "ggnn_dmsg")]
+    emit({"phase": "tune", "ok": True, "tune_seconds": tune_s, "report": report,
+          "launches": tune_counts, "train_applied": applied, "train_winner_row": row,
+          "train_launches": train_counts, "train_epoch_loss": losses, "train_seconds": train_s})
+    tune_paths = {"tune": {r: tune_counts[GGNN_ROWS[r]] for r in forward_rows},
+                  "tune_train": {r: train_counts[GGNN_ROWS[r]]
+                                 for r in (row, "ggnn_gru_bwd", "ggnn_dmsg")}}
+    return tune_paths
 
 
 def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
@@ -2505,14 +2985,16 @@ def train_clone_phase(torch, rng):
 def device_groups(prof) -> dict:
     """Device ms of one profiled window by kernel group: the four flash
     kernels, the GGNN step kernel (with its bf16/int8 table launch), the
-    whole-unroll kernel and the two backward kernels, matmuls
+    whole-unroll kernel and the two backward kernels (the step group
+    holds the bf16/int8 table launch and the int8 mxu pre-pass), matmuls
     (cuBLAS's gemm and Hopper `nvjet` kernels, CUTLASS) and everything
     else; with launch counts."""
     # kernel-name fragments of each group: the flash kernels, the GGNN
     # whole unroll and step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*)
     names = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
              "flash_dkv": ("flash_dkv",), "flash_dbias": ("flash_dbias",),
-             "ggnn_fused": ("ggnn_fused",), "ggnn_step": ("ggnn_step", "msg_table"),
+             "ggnn_fused": ("ggnn_fused",),
+             "ggnn_step": ("ggnn_step", "msg_table", "mxu_colmax"),
              "ggnn_gru_bwd": ("gru_bwd", "reduce_splits"), "ggnn_dmsg": ("dmsg_",)}
     groups = {name: [0.0, 0] for name in (*names, "matmul", "other")}
     for e in prof.key_averages():
@@ -2547,7 +3029,8 @@ def kernel_name(mangled: str) -> str:
     first = arg.group(1) or ("float" if arg.group(2) else "bf16")
     ints = re.findall(r"Li(\d+)E", arg.group(4))
     flags = re.findall(r"Lb([01])E", arg.group(5))
-    names = ("bias", "causal") if len(flags) == 2 else ("causal",)
+    names = (("mxu",) if base.startswith("ggnn") else
+             ("bias", "causal") if len(flags) == 2 else ("causal",))
     return f"{base}<{', '.join([first, *ints, *(n for n, f in zip(names, flags) if f == '1')])}>"
 
 
@@ -2618,8 +3101,17 @@ def main() -> None:
     vrng = np.random.default_rng(7)
     policy_err, policy_timing = policy_kernel_phase(torch, vrng)
     fused_err, fused_timing = fused_kernel_phase(torch, vrng)
-    serve_variants = serve_variants_phase(torch, model, serve_specs, serve_probs)
+    serve_variants, variant_probs = serve_variants_phase(torch, model, serve_specs, serve_probs)
     train_variants = train_variants_phase(torch, vrng)
+    # the mxu scatter's instances, their paths and the tune entry point, on
+    # their own seed so the phases after them see the data they always saw
+    mrng = np.random.default_rng(8)
+    mxu_err, mxu_timing = mxu_kernel_phase(torch, mrng)
+    fused_mxu_err, fused_mxu_timing = mxu_fused_kernel_phase(torch, mrng)
+    serve_mxu = serve_mxu_phase(torch, model, serve_specs, serve_probs,
+                                variant_probs["int8", "per_step"])
+    train_mxu = train_mxu_phase(torch, mrng)
+    tune_paths = tune_phase(torch, mrng)
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
@@ -2643,7 +3135,7 @@ def main() -> None:
              "serve_combined": combined_launches, "train_combined": tc_launches,
              "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
              "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
-             **train_variants}
+             **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]
@@ -2685,6 +3177,19 @@ def main() -> None:
          **fused_row, "by_policy": fused_timing,
          "chain": {a: {"ms": t["chain_ms"], "bound_ms": t["chain_bound_ms"]}
                    for a, t in fused_timing.items()}},
+        # kernel 1's mxu instances (int8: with its quantizing and pre-pass
+        # launches) and kernel 2's, fp32 without the chain; by_policy the rest
+        *({"name": MXU_ROWS[accum][1], "source": step_src,
+           "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:555", "max_abs_err": mxu_err[accum],
+           "library_ms": None, "fold_ms": mxu_timing[accum]["fold_ms"],
+           **{k: mxu_timing[accum][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+          for accum in MXU_ROWS),
+        {"name": "ggnn_fused_mxu", "source": step_src,
+         "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:717", "max_abs_err": fused_mxu_err,
+         **{k: fused_mxu_timing["fp32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "by_policy": fused_mxu_timing,
+         "chain": {a: {"ms": t["chain_ms"], "bound_ms": t["chain_bound_ms"]}
+                   for a, t in fused_mxu_timing.items()}},
         {"name": "ggnn_gru_bwd", "source": "deepdfa_tpu_torch/csrc/ggnn_bwd.cu",
          "replaces": "deepdfa_tpu/nn/ggnn_kernel.py:852",
          "max_abs_err": bwd_err["ggnn_gru_bwd"], **bwd_timing["ggnn_gru_bwd"]},
@@ -2742,7 +3247,7 @@ def main() -> None:
                           if "dropout_ms" in k else {}),
                        **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {}),
                        **({"by_call": k["by_call"]} if "by_call" in k else {}),
-                       **({f: k[f] for f in ("by_policy", "chain") if f in k})}
+                       **({f: k[f] for f in ("by_policy", "chain", "fold_ms") if f in k})}
                       for k in kernels]})
     times = [k[f] for k in kernels for f in ("ms", "plain_ms", "bound_ms")]
     times += [k["bias"][f] for k in kernels if "bias" in k for f in ("ms", "plain_ms", "bound_ms")]

@@ -2,9 +2,10 @@
 combined DeepDFA+LineVul and CodeT5+DeepDFA models, and train and decode
 the CodeT5 generation family, on one device (the reference's
 `deepdfa-tpu train`, `test`, `train-combined`, `train-gen`,
-`train-multi-gen` and `train-clone`, `deepdfa_tpu/cli/main.py:cmd_train`,
-`cmd_test`, `cmd_train_combined`, `cmd_train_gen`, `cmd_train_multi_gen`
-and `cmd_train_clone`).
+`train-multi-gen`, `train-clone` and `tune`,
+`deepdfa_tpu/cli/main.py:cmd_train`, `cmd_test`, `cmd_train_combined`,
+`cmd_train_gen`, `cmd_train_multi_gen`, `cmd_train_clone` and
+`cmd_tune`), and tune the GGNN kernel layout on the card.
 
     python -m deepdfa_tpu_torch.cli train --config configs/bigvul_deepdfa.json [key=value ...]
     python -m deepdfa_tpu_torch.cli test --checkpoint best --split test [--export]
@@ -15,6 +16,8 @@ and `cmd_train_clone`).
         [--dev-file F] [--test-file F] [--do-eval-bleu] [--tiny] [key=value ...]
     python -m deepdfa_tpu_torch.cli train-multi-gen --task-spec NAME=TRAIN[:DEV] ...
     python -m deepdfa_tpu_torch.cli train-clone --train-file F [--dev-file F] [--test-file F]
+    python -m deepdfa_tpu_torch.cli tune [--smoke] [--out F] [--serve-log F] [--manifest F] \
+        [--skip-kernel] [--config F] [--override key=value ...] [--device cpu]
 
 They read the processed-dir layout the reference's `prepare` and
 `extract` write under the storage root (`$DEEPDFA_TPU_STORAGE`, else
@@ -49,6 +52,14 @@ set by beam search and writes `results/test_best-ppl.{output,gold}`.
 `checkpoints-clone-torch/`. Refused (`NotImplementedError`):
 `--pretrained` and `--tokenizer bpe` (ROADMAP queue A, item 4), and the
 training options `core/config.py:refuse_unported_training` names.
+
+`tune` searches the GGNN kernel layouts (fold and mxu scatter, fp32,
+bf16 and int8 policies, per step and fused) at the serving budgets on
+the card and writes the winner, with every candidate's time and
+numerics verdict, into a hardware-keyed `tuned.json`
+(`<storage>/tuned.json` or `tune.path`); with `tune.enabled=true`,
+`train` and `train-combined` fold the record matching this card into
+their config first and print `[tune] {"matched", "overrides"}`.
 """
 
 from __future__ import annotations
@@ -192,10 +203,25 @@ class RunLog:
         self._f.close()
 
 
+def _apply_tuned(cfg: Config, device) -> Config:
+    """Under tune.enabled, fold the tuned.json record matching this
+    card and the data.batch budgets into the config (the reference's
+    `_apply_tuned`): the winning kernel layout and fitted seq-bucket
+    edges; printed as `[tune] ...`. A mismatch or a missing file falls
+    back to the config as it is, loudly (tune/cache.py)."""
+    if not cfg.tune.enabled:
+        return cfg
+    from deepdfa_tpu_torch.tune import cache as tune_cache
+
+    cfg, report = tune_cache.apply_to_config(cfg, device=device)
+    print("[tune] " + json.dumps(report), flush=True)
+    return cfg
+
+
 def cmd_train(args) -> None:
     from deepdfa_tpu_torch.train import GraphTrainer, positive_weight
 
-    cfg = _load_config(args)
+    cfg = _apply_tuned(_load_config(args), args.device)
     split_specs = load_graph_splits(cfg)
     run_dir = runs_dir(cfg.run_name)
     config_mod.to_json(cfg, run_dir / "config.json")
@@ -316,7 +342,7 @@ def cmd_train_combined(args) -> None:
     from deepdfa_tpu_torch.graphs import GraphStore
     from deepdfa_tpu_torch.train import CheckpointManager, CombinedTrainer, undersample_epoch
 
-    cfg = _load_config(args)
+    cfg = _apply_tuned(_load_config(args), args.device)
     if cfg.data.gtype != "cfg":
         raise SystemExit(f"train-combined supports data.gtype=cfg only (got {cfg.data.gtype!r})")
     tok, mcfg = combined_setup(args, cfg)
@@ -654,6 +680,38 @@ def cmd_train_clone(args) -> None:
         print(json.dumps({f"test_{k}": v for k, v in metrics.items()}))
 
 
+def cmd_tune(args) -> None:
+    """The offline autotuner (the reference's `cmd_tune`): time every
+    card-legal GGNN kernel layout under the numerics contract, fit the
+    serve rungs and seq-bucket edges to observed sizes, and write a
+    hardware-keyed tuned.json. `--smoke` is the reference's acceptance
+    drive (reduced candidates, synthetic skewed distributions): it fails
+    unless a real search picked a winner, the fitted ladder beats pow2
+    and the record is valid."""
+    from deepdfa_tpu_torch.tune import cache as tune_cache
+    from deepdfa_tpu_torch.tune import driver as tune_driver
+
+    if args.smoke:
+        report = tune_driver.run_tune_smoke(out_path=args.out, device=args.device)
+        print(json.dumps(report), flush=True)
+        if (not report["valid"] or report["winner"] is None or report["candidates_timed"] == 0
+                or not report["tuned_ladder_padding_waste"] < report["pow2_ladder_padding_waste"]
+                or not (report["seq_bucket_padding_waste"]
+                        <= report["seq_bucket_pow2_padding_waste"])):
+            raise SystemExit("tune smoke contract violated (see report)")
+        return
+    cfg = _load_run_config(args)
+    report = tune_driver.run_tune(cfg, serve_logs=args.serve_log, manifest=args.manifest,
+                                  out_path=args.out, skip_kernel=args.skip_kernel,
+                                  device=args.device)
+    if not report["valid"]:
+        raise SystemExit("tuned.json failed validation: " + "; ".join(report["problems"]))
+    verdict = tune_cache.validate_tuned_file(report["tuned_path"])
+    if not verdict["ok"]:
+        raise SystemExit("tuned.json on disk failed validation: "
+                         + "; ".join(verdict["problems"]))
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m deepdfa_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -753,6 +811,28 @@ def build_parser() -> argparse.ArgumentParser:
     gen_model_args(p)
     common(p)
     p.set_defaults(fn=cmd_train_clone)
+
+    p = sub.add_parser("tune", help="offline autotuner: GGNN kernel layouts and batch "
+                                    "ladders fitted to observed traffic, in tuned.json")
+    p.add_argument("--serve-log", action="append", default=[], metavar="PATH",
+                   help="serve log (request entries with batch_size) to replay the observed "
+                        "batch sizes from (repeatable)")
+    p.add_argument("--manifest", default=None, metavar="PATH",
+                   help="token lengths (JSON array, or JSONL with a length/tokens field) for "
+                        "the seq-bucket fit")
+    p.add_argument("--out", default=None,
+                   help="tuned.json path (default tune.path, else <storage>/tuned.json)")
+    p.add_argument("--skip-kernel", action="store_true",
+                   help="ladder fits only (no kernel search)")
+    p.add_argument("--smoke", action="store_true",
+                   help="acceptance drive: the reference's reduced search and synthetic "
+                        "distributions; asserts a winner, fit-beats-pow2 and a valid file")
+    p.add_argument("--config", default=None, help="json config file")
+    p.add_argument("--override", action="append", default=[], dest="overrides",
+                   help="dotted key=value config override (repeatable)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (the plain PyTorch path)")
+    p.set_defaults(fn=cmd_tune)
     return parser
 
 

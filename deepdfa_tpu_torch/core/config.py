@@ -7,9 +7,9 @@ buckets (`seq_buckets`, `token_budget`) of `data`, all of
 `model`, the batcher fields of `serve`, and the one-card training fields
 of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
 resilience switch, which must say "one card, off", and the
-`debug_nans`/`enable_checks` sanitizer switches, which must be off), and
-the `obs` switches (which must be off). Field names and
-defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
+`debug_nans`/`enable_checks` sanitizer switches, which must be off),
+the `obs` switches (which must be off) and the autotuner's `tune`
+section. Field names and defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
 file configures both packages. Keys the port does not run yet (the
 rest of observability, fleet, the frontend, the prefetch pipeline and
 `train.step_cache_entries`, which sizes the reference's cache of
@@ -83,13 +83,18 @@ class ModelConfig:
     (nn/ggnn_kernel.py) and on the CPU their plain PyTorch versions,
     whatever `ggnn_kernel` says. As in the reference, `ggnn_kernel` gates
     the kernel's knobs: with it, `ggnn_kernel_accum` (fp32 | bf16 | int8
-    message policy) and `ggnn_kernel_unroll` (per_step | fused, the
-    whole-unroll kernel) act; without it the steps run fp32 per step,
-    the reference's lax function. `scan_steps` enters the fused
-    admission rule. The block knobs are the reference's VMEM tiling and
-    are read past here (the CUDA kernels' tiling is fixed,
-    nn/ggnn_kernel.py:block_sizes). `ggnn_kernel_scatter="mxu"` is not
-    ported and raises NotImplementedError."""
+    message policy), `ggnn_kernel_scatter` (auto | fold | mxu; auto is
+    fold, as off the TPU in the reference), `ggnn_kernel_unroll`
+    (per_step | fused, the whole-unroll kernel) and
+    `ggnn_kernel_block_edges` act; without it the steps run fp32, fold,
+    per step, the reference's lax function. `ggnn_kernel_block_edges` is
+    the mxu scatter's edge block (0: 512, shrunk to divide the edge
+    budget, nn/ggnn_kernel.py:edge_block): under int8 mxu it changes the
+    numbers, as in the reference; under fold it is layout only (the CUDA
+    fold walks CSR runs and has no edge blocks). `ggnn_kernel_block_nodes`
+    is the reference's VMEM node tile and is read past here (the CUDA
+    kernels' node tile is fixed, nn/ggnn_kernel.py:block_sizes).
+    `scan_steps` enters the fused admission rule."""
 
     hidden_dim: int = 32
     n_steps: int = 5
@@ -117,14 +122,6 @@ class ModelConfig:
         if self.ggnn_kernel_scatter not in ("auto", "fold", "mxu"):
             raise ValueError(
                 f"unknown ggnn_kernel_scatter {self.ggnn_kernel_scatter!r}"
-            )
-        if self.ggnn_kernel_scatter == "mxu":
-            raise NotImplementedError(
-                "ggnn_kernel_scatter='mxu': the one-hot matmul scatter (under "
-                "int8 it requantizes each edge block's messages per column) is "
-                "still to port (ROADMAP queue B, the mxu scatter); the CUDA "
-                "kernels sum each node's dst-sorted edge run in edge order, "
-                "the 'fold' scatter"
             )
 
 
@@ -248,6 +245,22 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class TuneConfig:
+    """The reference's autotuner section (its `TuneConfig`): `enabled`
+    makes `train` fold the matching tuned.json record into the config
+    (tune/cache.py:apply_to_config); `path` (None: <storage>/tuned.json),
+    the ladder budgets, the compile-seconds budget and the timing reps
+    drive `cli tune`."""
+
+    enabled: bool = False
+    path: str | None = None
+    max_rungs: int = 6
+    max_seq_buckets: int = 6
+    compile_budget_s: float = 120.0
+    reps: int = 3
+
+
+@dataclass(frozen=True)
 class Config:
     run_name: str = "default"
     data: DataConfig = field(default_factory=DataConfig)
@@ -255,6 +268,7 @@ class Config:
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    tune: TuneConfig = field(default_factory=TuneConfig)
 
 
 def one_card(mesh: MeshConfig) -> int:

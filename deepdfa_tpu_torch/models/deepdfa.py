@@ -43,11 +43,14 @@ class DeepDFA(nn.Module):
         scan_steps: bool = False,
         ggnn_kernel: bool = False,
         ggnn_kernel_accum: str = "fp32",
+        ggnn_kernel_scatter: str = "auto",
+        ggnn_kernel_block_edges: int = 0,
         ggnn_kernel_unroll: str = "per_step",
     ):
         """`generator` seeds the initial weights (Flax's initializers,
-        torch's draws). The GGNN knobs are the reference's: `accum` and
-        `unroll` act only with `ggnn_kernel` (nn/gnn.py:GatedGraphConv);
+        torch's draws). The GGNN knobs are the reference's: `accum`,
+        `scatter`, `block_edges` and `unroll` act only with `ggnn_kernel`
+        (nn/gnn.py:GatedGraphConv);
         the combined families build their graph encoder without them, so
         it runs fp32 per step, as in the reference."""
         super().__init__()
@@ -67,6 +70,7 @@ class DeepDFA(nn.Module):
         width = self.embedding.out_dim
         self.ggnn = GatedGraphConv(
             width, n_steps, n_etypes, use_kernel=ggnn_kernel, accum=ggnn_kernel_accum,
+            scatter=ggnn_kernel_scatter, block_edges=ggnn_kernel_block_edges,
             unroll=ggnn_kernel_unroll, scan_steps=scan_steps,
         )
         if label_style == "graph":
@@ -99,6 +103,8 @@ class DeepDFA(nn.Module):
             scan_steps=cfg.scan_steps,
             ggnn_kernel=cfg.ggnn_kernel,
             ggnn_kernel_accum=cfg.ggnn_kernel_accum,
+            ggnn_kernel_scatter=cfg.ggnn_kernel_scatter,
+            ggnn_kernel_block_edges=cfg.ggnn_kernel_block_edges,
             ggnn_kernel_unroll=cfg.ggnn_kernel_unroll,
         )
         kw.update(overrides)

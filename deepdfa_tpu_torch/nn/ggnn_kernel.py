@@ -2,7 +2,7 @@
 `csrc/ggnn_step.cu` and `csrc/ggnn_bwd.cu`, their plain PyTorch
 versions, the `GgnnStep` and `GgnnUnroll` autograd Functions and
 `ggnn_propagate`, the port of the reference's
-`deepdfa_tpu/nn/ggnn_kernel.py` (the "fold" scatter).
+`deepdfa_tpu/nn/ggnn_kernel.py` (the "fold" and "mxu" scatters).
 
 One step computes, for every node v of the padded batch,
 
@@ -17,7 +17,14 @@ the policy `accum` (the reference's `_edge_messages`):
     int8: (q(h_src) @ Wq_t) * s(h_src) * ws_t + bm_t, with rows quantized
           per row (`quant_rows`) and Wm_t per output channel (`quant_wm`)
 
-The aggregate and the GRU are fp32 under every policy. Its backward, as
+The aggregate and the GRU are fp32 under every policy. The scatter sums
+the messages into a: "fold" sums each node's in-edges in edge order;
+"mxu" (the reference's one-hot product per edge block) sums them per
+node within each block of `block_e` edges (`edge_block`), the blocks in
+ascending order, and under int8 first requantizes each block's messages
+per column, ms = max|msg| * (1/127), q = clip(rint(msg / ms), -127,
+127), adding float(sum q) * ms: a different function, whose numbers
+depend on `block_e`. Its backward, as
 the reference's `_step_bwd` splits it, is straight-through for the
 policies (fp32 on h and Wm, from the policy's aggregate a):
 
@@ -36,16 +43,20 @@ inputs in reverse through kernel 1, B3 and B4.
 Each wrapper (`ggnn_step`, `ggnn_fused`, `gru_bwd`, `dmsg`) launches its
 CUDA kernel for tensors on a CUDA device and runs its plain PyTorch
 version for tensors on the CPU; there is no other route and no fallback
-from one to the other. `LAUNCHES` (fp32), `BF16_LAUNCHES`,
-`INT8_LAUNCHES`, `FUSED_LAUNCHES` (of them `FUSED_CHAIN_LAUNCHES` with
-the chain), `GRU_BWD_LAUNCHES` and `DMSG_LAUNCHES` count kernel launches;
-`FUSED_FALLBACKS` counts the fused unrolls `resolve_unroll` refused.
+from one to the other. `launch_counts()` names every counter: kernel
+1's per (scatter, policy) (`LAUNCHES`, `BF16_LAUNCHES`, `INT8_LAUNCHES`,
+`MXU_LAUNCHES`, `MXU_BF16_LAUNCHES`, `MXU_INT8_LAUNCHES`), kernel 2's per
+scatter (`FUSED_LAUNCHES`, `FUSED_MXU_LAUNCHES`; of them
+`FUSED_CHAIN_LAUNCHES` with the chain), `GRU_BWD_LAUNCHES`,
+`DMSG_LAUNCHES`, and `FUSED_FALLBACKS`, the fused unrolls
+`resolve_unroll` refused.
 
-The forward aggregates sum(coef * row) and sum(w) per node first and
-applies the policy's Wm_t, bm_t once per node; B4 applies Wm_t^T once
-per node before the edge sums. Both are reassociations of the
+The fold forward aggregates sum(coef * row) and sum(w) per node first
+and applies the policy's Wm_t, bm_t once per node; B4 applies Wm_t^T
+once per node before the edge sums. Both are reassociations of the
 reference's per-edge transform, covered by the fp32 tolerances of the
-tests. Weights keep the reference's [in, out] layout.
+tests. The mxu forward computes every edge's message, as the reference
+does. Weights keep the reference's [in, out] layout.
 """
 
 from __future__ import annotations
@@ -64,11 +75,15 @@ logger = logging.getLogger(__name__)
 
 #: kernel launches since the process started (or since a caller reset
 #: them); each is counted where its kernel is launched and nowhere else
-LAUNCHES = 0  # ggnn_step, accum="fp32"
+LAUNCHES = 0  # ggnn_step, accum="fp32" (the fold scatter unless named)
 BF16_LAUNCHES = 0  # ggnn_step, accum="bf16"
 INT8_LAUNCHES = 0  # ggnn_step, accum="int8"
-FUSED_LAUNCHES = 0  # ggnn_fused (kernel 2), any policy
-FUSED_CHAIN_LAUNCHES = 0  # of those, the ones writing the chain
+MXU_LAUNCHES = 0  # ggnn_step, scatter="mxu", accum="fp32"
+MXU_BF16_LAUNCHES = 0  # ggnn_step, scatter="mxu", accum="bf16"
+MXU_INT8_LAUNCHES = 0  # ggnn_step, scatter="mxu", accum="int8" (with its pre-pass)
+FUSED_LAUNCHES = 0  # ggnn_fused (kernel 2), fold, any policy
+FUSED_MXU_LAUNCHES = 0  # ggnn_fused, mxu, any policy
+FUSED_CHAIN_LAUNCHES = 0  # of those two, the ones writing the chain
 GRU_BWD_LAUNCHES = 0  # gru_bwd (B3)
 DMSG_LAUNCHES = 0  # dmsg (B4)
 #: unroll="fused" requests that ran per step (resolve_unroll's fallbacks)
@@ -77,7 +92,14 @@ _launch_lock = threading.Lock()
 
 #: the message policies and their numbers in csrc/ggnn_step.cu
 POLICIES = {"fp32": 0, "bf16": 1, "int8": 2}
-_STEP_COUNTER = {"fp32": "LAUNCHES", "bf16": "BF16_LAUNCHES", "int8": "INT8_LAUNCHES"}
+#: the scatters and their numbers in csrc/ggnn_step.cu
+SCATTERS = {"fold": 0, "mxu": 1}
+_STEP_COUNTER = {
+    ("fold", "fp32"): "LAUNCHES", ("fold", "bf16"): "BF16_LAUNCHES",
+    ("fold", "int8"): "INT8_LAUNCHES", ("mxu", "fp32"): "MXU_LAUNCHES",
+    ("mxu", "bf16"): "MXU_BF16_LAUNCHES", ("mxu", "int8"): "MXU_INT8_LAUNCHES",
+}
+_FUSED_COUNTER = {"fold": "FUSED_LAUNCHES", "mxu": "FUSED_MXU_LAUNCHES"}
 
 #: relative drift bound of accum="int8" against fp32 (the reference's
 #: INT8_DRIFT_BOUND, pinned equal in the tests); bf16's is 5e-2 too
@@ -95,17 +117,55 @@ NODE_TILE = 64
 MAX_WIDTH = 256
 
 
+#: the reference's default edge block (`block_sizes`: 512-edge tiles)
+DEFAULT_BLOCK_EDGES = 512
+
+
 def block_sizes(node_budget: int) -> tuple[int, int]:
     """(nodes per thread block, thread blocks) of one step launch.
 
     The reference tiled nodes and edges into VMEM blocks; here the node
-    tile is fixed by the kernel (one warp per 8 nodes, 8 warps) and
-    edges are not blocked at all — each node walks its own CSR run."""
+    tile is fixed by the kernel (one warp per 8 nodes, 8 warps). The
+    fold scatter does not block edges at all — each node walks its own
+    CSR run; the mxu scatter cuts those runs at `edge_block`'s
+    boundaries."""
     return NODE_TILE, -(-int(node_budget) // NODE_TILE)
 
 
-_COUNTERS = ("LAUNCHES", "BF16_LAUNCHES", "INT8_LAUNCHES", "FUSED_LAUNCHES",
-             "FUSED_CHAIN_LAUNCHES", "GRU_BWD_LAUNCHES", "DMSG_LAUNCHES", "FUSED_FALLBACKS")
+def pick_block(total: int, target: int) -> int:
+    """The reference's `_pick_block`: the largest divisor of `total` in
+    (target // 8, target], preferring `target`; `total` itself (one
+    block) when `total <= target` or no such divisor exists."""
+    total = int(total)
+    if total <= target:
+        return max(total, 1)
+    for cand in range(target, max(target // 8, 1), -1):
+        if total % cand == 0:
+            return cand
+    return total
+
+
+def edge_block(edge_budget: int, block_edges: int = 0) -> int:
+    """Edges per block of the mxu scatter, as the reference sizes its
+    edge tile (`block_sizes`' second half): `block_edges` (0: 512),
+    shrunk to a divisor of the edge budget. Under int8 the messages are
+    requantized per column within each block, so this changes the
+    numbers; under fp32/bf16 only the summation order."""
+    return pick_block(edge_budget, int(block_edges) or DEFAULT_BLOCK_EDGES)
+
+
+def resolve_scatter(scatter: str) -> str:
+    """The reference's `resolve_scatter`: "fold" and "mxu" pass; "auto"
+    is "fold" here, as the reference resolves it off the TPU."""
+    if scatter in SCATTERS:
+        return scatter
+    if scatter != "auto":
+        raise ValueError(f"unknown ggnn_kernel scatter {scatter!r}")
+    return "fold"
+
+
+_COUNTERS = (*_STEP_COUNTER.values(), *_FUSED_COUNTER.values(), "FUSED_CHAIN_LAUNCHES",
+             "GRU_BWD_LAUNCHES", "DMSG_LAUNCHES", "FUSED_FALLBACKS")
 
 
 def launch_counts() -> dict[str, int]:
@@ -123,9 +183,11 @@ def _count(name: str) -> None:
         globals()[name] += 1
 
 
-def check_accum(accum: str) -> None:
+def check_accum(accum: str, scatter: str = "fold") -> None:
     if accum not in POLICIES:
         raise ValueError(f"unknown ggnn_kernel accum {accum!r}")
+    if scatter not in SCATTERS:
+        raise ValueError(f"unknown ggnn_kernel scatter {scatter!r}")
 
 
 def kernel_shape_ok(
@@ -261,10 +323,9 @@ def msg_weights(wm: torch.Tensor, accum: str) -> tuple[torch.Tensor, torch.Tenso
     return wm, None
 
 
-def ggnn_step_plain(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, accum: str = "fp32"):
-    """The forward kernel's function in plain PyTorch: (h', a). The
-    message-side rows are rounded (bf16) or quantized (int8) before the
-    per-node sums, as the kernel does."""
+def _fold_aggregate_plain(h, edges: EdgeIndex, wm, bm, accum: str):
+    """The fold scatter's aggregate: per type, sum(coef * row) and
+    sum(w) per node, then the policy's Wm_t (and ws_t) and c * bm_t."""
     src = edges.src.long()
     dst = edges.dst.long()
     n = h.shape[0]
@@ -289,17 +350,102 @@ def ggnn_step_plain(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, accum: str 
         if ws is not None:
             m = m * ws[t]
         a = a + (m + c[:, None] * bm[t])
+    return a
+
+
+def mxu_messages_plain(h, edges: EdgeIndex, wm, bm, accum: str) -> torch.Tensor:
+    """Every edge slot's message under `accum`, masked by its weight:
+    [T, E, d] f32, in the reference's `_edge_messages` operation order
+    (int8: ((q(h_src) @ Wq_t) * s_src * ws_t + bm_t) * w). The int8
+    products are integers below 2^24, so the fp32 matmul is exact."""
+    src = edges.src.long()
+    wm_k, ws = msg_weights(wm, accum)
+    wm_k = wm_k.to(h.dtype)
+    if accum == "int8":
+        q, row_scale = quant_rows(h)
+        rows, sg = q.to(h.dtype)[src], row_scale[src]
+    else:
+        rows = (h.to(torch.bfloat16).to(h.dtype) if accum == "bf16" else h)[src]
+    out = []
+    for t in range(wm.shape[0]):
+        m = rows @ wm_k[t]
+        if accum == "int8":
+            m = m * sg * ws[t]
+        out.append((m + bm[t]) * edges.w2[t].to(h.dtype)[:, None])
+    return torch.stack(out)
+
+
+def mxu_colmax_plain(msg: torch.Tensor, block_e: int) -> torch.Tensor:
+    """max |msg| per (type, edge block, column): [T, E / block_e, d]."""
+    t, e, d = msg.shape
+    return msg.abs().reshape(t, e // block_e, block_e, d).amax(dim=2)
+
+
+def _mxu_aggregate_plain(h, edges: EdgeIndex, wm, bm, accum: str, block_e: int):
+    """The mxu scatter's aggregate (the reference's one-hot product per
+    edge block, `_aggregate`/`_block_aggregate`): per type, each node
+    sums its edges' messages within each block of `block_e` edges, and
+    the block partials are added in ascending block order; under int8
+    each block's messages are first requantized per column
+    (ms = max|msg| * (1/127), q = clip(rint(msg / ms), -127, 127)), the
+    quanta summed exactly and dequantized as float(sum) * ms. A node's
+    run covers consecutive blocks, so its k-th block is
+    rowptr[v] // block_e + k; the partials are added rank by rank."""
+    n, d = h.shape
+    e = edges.src.shape[0]
+    n_eb = e // block_e
+    idx = torch.arange(e, device=h.device)
+    live = idx < edges.rowptr[-1]
+    dst = edges.dst.long()[live]
+    blk = idx // block_e
+    first = edges.rowptr[:n].long() // block_e  # each node's first block
+    rank = blk[live] - first[dst]
+    n_ranks = int(rank.max()) + 1 if dst.numel() else 0
+    msg = mxu_messages_plain(h, edges, wm, bm, accum)
+    a = torch.zeros_like(h)
+    for t in range(wm.shape[0]):
+        vals = msg[t]
+        if accum == "int8":
+            ms = mxu_colmax_plain(msg[t:t + 1], block_e)[0] * _INV_127
+            ms = torch.where(ms > 0.0, ms, torch.ones_like(ms))
+            vals = torch.clamp(torch.round(vals / ms[blk]), -127.0, 127.0).to(torch.float64)
+        vals = vals[live]
+        acc_t = torch.zeros_like(h)
+        for r in range(n_ranks):
+            sel = rank == r
+            part = torch.zeros((n, d), dtype=vals.dtype, device=h.device).index_add_(
+                0, dst[sel], vals[sel])
+            if accum == "int8":
+                part = part.to(h.dtype) * ms[(first + r).clamp(max=n_eb - 1)]
+            acc_t = acc_t + part
+        a = a + acc_t
+    return a
+
+
+def ggnn_step_plain(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, accum: str = "fp32",
+                    scatter: str = "fold", block_e: int = 0):
+    """The forward kernel's function in plain PyTorch: (h', a). Under
+    fold the message-side rows are rounded (bf16) or quantized (int8)
+    before the per-node sums, as the kernel does; under mxu the
+    aggregate is `_mxu_aggregate_plain` over blocks of `block_e` edges
+    (0: `edge_block`'s default)."""
+    if scatter == "mxu":
+        a = _mxu_aggregate_plain(h, edges, wm, bm, accum,
+                                 block_e or edge_block(edges.src.shape[0]))
+    else:
+        a = _fold_aggregate_plain(h, edges, wm, bm, accum)
     return gru_cell(a, h, wih, whh, bih, bhh), a
 
 
 def ggnn_fused_plain(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *,
-                     n_steps: int, accum: str = "fp32", with_chain: bool = False):
+                     n_steps: int, accum: str = "fp32", with_chain: bool = False,
+                     scatter: str = "fold", block_e: int = 0):
     """Kernel 2's function in plain PyTorch: n_steps of `ggnn_step_plain`;
     (h_out, chain [n_steps, N, d] of the step inputs | None)."""
     h, chain = feat, []
     for _ in range(n_steps):
         chain.append(h)
-        h, _ = ggnn_step_plain(h, edges, wm, bm, wih, whh, bih, bhh, accum)
+        h, _ = ggnn_step_plain(h, edges, wm, bm, wih, whh, bih, bhh, accum, scatter, block_e)
     return h, (torch.stack(chain) if with_chain else None)
 
 
@@ -308,17 +454,22 @@ def ggnn_fused_plain(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *,
 # resolve_unroll and _note_fused_fallback, re-derived for the card)
 
 
-def fused_residency_bytes(n: int, d: int, accum: str, n_steps: int = 1) -> int:
+def fused_residency_bytes(n: int, d: int, accum: str, n_steps: int = 1, *,
+                          scatter: str = "fold", n_eb: int = 0, n_etypes: int = 1) -> int:
     """Bytes kernel 2 keeps live across its steps: the f32 state planes
     (h_out, plus a scratch plane when n_steps > 1) and, under int8, the
     int8 shadow tables with their row scales (one read and one written a
-    step, so two when n_steps > 1). The chain is written once and not
-    read back; the edges and weights are the per-step kernel's too. At the
-    flagship (N 16384, d 128, 5 steps): 16.8 MB, 21.1 MB under int8."""
+    step, so two when n_steps > 1); under int8 mxu also the pre-pass's
+    column maxima, one [n_etypes, n_eb, d] uint32 slice a step. The chain
+    is written once and not read back; the edges and weights are the
+    per-step kernel's too. At the flagship (N 16384, d 128, 5 steps):
+    16.8 MB, 21.1 MB under int8, +0.33 MB under int8 mxu (n_eb 128)."""
     planes = min(int(n_steps), 2)
     total = planes * n * d * 4
     if accum == "int8":
         total += planes * (n * d + n * 4)
+        if scatter == "mxu":
+            total += int(n_steps) * n_etypes * n_eb * d * 4
     return total
 
 
@@ -332,7 +483,8 @@ def fused_budget_bytes(device: torch.device) -> int:
 
 
 def resolve_unroll(unroll: str, *, n: int, d: int, n_steps: int, accum: str,
-                   scan_steps: bool, budget_bytes: int) -> tuple[str, str]:
+                   scan_steps: bool, budget_bytes: int, scatter: str = "fold",
+                   n_eb: int = 0, n_etypes: int = 1) -> tuple[str, str]:
     """(the unroll that runs, the reason when it is not the one asked
     for). `fused` runs per step when `scan_steps` asks for a bounded
     trace over n_steps > 1 (the reference's rule, kept so one config
@@ -345,7 +497,8 @@ def resolve_unroll(unroll: str, *, n: int, d: int, n_steps: int, accum: str,
     if scan_steps and n_steps > 1:
         return ("per_step", "scan_steps requested a bounded trace; the fused "
                 "unroll's backward re-unrolls every step")
-    need = fused_residency_bytes(n, d, accum, n_steps)
+    need = fused_residency_bytes(n, d, accum, n_steps, scatter=scatter, n_eb=n_eb,
+                                 n_etypes=n_etypes)
     if need > budget_bytes:
         return ("per_step", f"fused unroll residency {need} B exceeds the L2 "
                 f"budget {budget_bytes} B at {n}x{d}")
@@ -430,9 +583,9 @@ def _library(name: str) -> ctypes.CDLL:
         lib = cuda_build.load(name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "ggnn_step":
-            lib.ggnn_step.argtypes = [i] + [p] * 15 + [i] * 4 + [p]
+            lib.ggnn_step.argtypes = [i, i] + [p] * 16 + [i] * 5 + [p]
             lib.ggnn_step.restype = i
-            lib.ggnn_fused.argtypes = [i] + [p] * 18 + [i] * 6 + [p, p]
+            lib.ggnn_fused.argtypes = [i, i] + [p] * 19 + [i] * 7 + [p, p]
             lib.ggnn_fused.restype = i
             lib.ggnn_cuda_error_string.argtypes = [i]
             lib.ggnn_cuda_error_string.restype = ctypes.c_char_p
@@ -521,44 +674,61 @@ def _check_step_operands(kernel: str, h, edges: EdgeIndex, wm, bm, wih, whh, bih
     return n, e, d, t
 
 
+def _mxu_block(scatter: str, e: int, block_e: int) -> int:
+    """The mxu scatter's edge block for an edge budget e (0 under fold)."""
+    if scatter != "mxu":
+        return 0
+    block_e = block_e or edge_block(e)
+    if block_e <= 0 or e % block_e:
+        raise ValueError(f"the mxu edge block {block_e} does not divide the edge budget {e}")
+    return block_e
+
+
 def ggnn_step(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh,
-              *, accum: str = "fp32", with_aggregate: bool = False):
-    """One GGNN step under the message policy `accum`: (h', a) with a
-    None unless `with_aggregate`.
+              *, accum: str = "fp32", scatter: str = "fold", block_e: int = 0,
+              with_aggregate: bool = False):
+    """One GGNN step under the message policy `accum` and `scatter`: (h',
+    a) with a None unless `with_aggregate`. `block_e` is the mxu
+    scatter's edge block (0: `edge_block`'s default).
 
     CPU tensors run `ggnn_step_plain`; CUDA tensors launch the kernel on
     the current stream (under bf16 and int8 after a launch that writes
-    the message-side table) or raise."""
-    check_accum(accum)
+    the message-side table, under int8 mxu then the pre-pass's) or
+    raise."""
+    check_accum(accum, scatter)
+    block_e = _mxu_block(scatter, edges.src.shape[0], block_e)
     if not _on_cuda("ggnn_step", h.device):
-        h_new, a = ggnn_step_plain(h, edges, wm, bm, wih, whh, bih, bhh, accum)
+        h_new, a = ggnn_step_plain(h, edges, wm, bm, wih, whh, bih, bhh, accum, scatter, block_e)
         return h_new, (a if with_aggregate else None)
     n, e, d, t = _check_step_operands("ggnn_step", h, edges, wm, bm, wih, whh, bih, bhh)
     lib = _library("ggnn_step")
     wm_k, ws = msg_weights(wm, accum)
-    table = tscale = None
+    table = tscale = colmax = None
     if accum == "bf16":
         table = torch.empty((n, d), dtype=torch.bfloat16, device=h.device)
     elif accum == "int8":
         table = torch.empty((n, d), dtype=torch.int8, device=h.device)
         tscale = torch.empty(n, dtype=torch.float32, device=h.device)
+        if scatter == "mxu":
+            colmax = torch.empty((t, e // block_e, d), dtype=torch.int32, device=h.device)
     h_out = torch.empty_like(h)
     a_out = torch.empty_like(h) if with_aggregate else None
     with torch.cuda.device(h.device):
         rc = lib.ggnn_step(
-            POLICIES[accum], h.data_ptr(), _ptr(table), _ptr(tscale),
+            POLICIES[accum], SCATTERS[scatter], h.data_ptr(), _ptr(table), _ptr(tscale),
             edges.src.data_ptr(), edges.w2.data_ptr(), edges.rowptr.data_ptr(),
             wm_k.data_ptr(), _ptr(ws), bm.data_ptr(), wih.data_ptr(), whh.data_ptr(),
-            bih.data_ptr(), bhh.data_ptr(), h_out.data_ptr(), _ptr(a_out),
-            n, e, d, t, _stream(h.device),
+            bih.data_ptr(), bhh.data_ptr(), h_out.data_ptr(), _ptr(a_out), _ptr(colmax),
+            n, e, d, t, block_e, _stream(h.device),
         )
     _raise_on(rc, "ggnn_step", lib, "ggnn_cuda_error_string")
-    _count(_STEP_COUNTER[accum])
+    _count(_STEP_COUNTER[scatter, accum])
     return h_out, a_out
 
 
 def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: int,
-               accum: str = "fp32", with_chain: bool = False, grid: int = 0):
+               accum: str = "fp32", scatter: str = "fold", block_e: int = 0,
+               with_chain: bool = False, grid: int = 0):
     """Kernel 2: `n_steps` >= 1 GGNN steps in one launch; (h_out, chain
     [n_steps, N, d] of each step's input state | None unless
     `with_chain`).
@@ -567,12 +737,14 @@ def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: i
     cooperatively on the current stream or raise. `grid` asks for that
     many blocks (0: as many as the card holds at once); the card refuses
     a grid it cannot hold at once, and then this raises."""
-    check_accum(accum)
+    check_accum(accum, scatter)
     if n_steps < 1:
         raise ValueError(f"ggnn_fused runs n_steps >= 1, got {n_steps}")
+    block_e = _mxu_block(scatter, edges.src.shape[0], block_e)
     if not _on_cuda("ggnn_fused", feat.device):
-        return ggnn_fused_plain(feat, edges, wm, bm, wih, whh, bih, bhh,
-                                n_steps=n_steps, accum=accum, with_chain=with_chain)
+        return ggnn_fused_plain(feat, edges, wm, bm, wih, whh, bih, bhh, n_steps=n_steps,
+                                accum=accum, with_chain=with_chain, scatter=scatter,
+                                block_e=block_e)
     n, e, d, t = _check_step_operands("ggnn_fused", feat, edges, wm, bm, wih, whh, bih, bhh)
     lib = _library("ggnn_step")
     wm_k, ws = msg_weights(wm, accum)
@@ -582,22 +754,25 @@ def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: i
     chain = torch.empty((n_steps, n, d), dtype=torch.float32, device=dev) if with_chain else None
     q = [None, None]
     qs = [None, None]
+    colmax = None
     if accum == "int8":
         for k in range(min(n_steps, 2)):
             q[k] = torch.empty((n, d), dtype=torch.int8, device=dev)
             qs[k] = torch.empty(n, dtype=torch.float32, device=dev)
+        if scatter == "mxu":
+            colmax = torch.empty((n_steps, t, e // block_e, d), dtype=torch.int32, device=dev)
     used = ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = lib.ggnn_fused(
-            POLICIES[accum], feat.data_ptr(), edges.src.data_ptr(), edges.w2.data_ptr(),
-            edges.rowptr.data_ptr(), wm_k.data_ptr(), _ptr(ws), bm.data_ptr(),
-            wih.data_ptr(), whh.data_ptr(), bih.data_ptr(), bhh.data_ptr(),
+            POLICIES[accum], SCATTERS[scatter], feat.data_ptr(), edges.src.data_ptr(),
+            edges.w2.data_ptr(), edges.rowptr.data_ptr(), wm_k.data_ptr(), _ptr(ws),
+            bm.data_ptr(), wih.data_ptr(), whh.data_ptr(), bih.data_ptr(), bhh.data_ptr(),
             h_out.data_ptr(), _ptr(scratch), _ptr(chain), _ptr(q[0]), _ptr(q[1]),
-            _ptr(qs[0]), _ptr(qs[1]), n, e, d, t, n_steps, int(grid),
+            _ptr(qs[0]), _ptr(qs[1]), _ptr(colmax), n, e, d, t, block_e, n_steps, int(grid),
             ctypes.addressof(used), _stream(dev),
         )
     _raise_on(rc, "ggnn_fused", lib, "ggnn_cuda_error_string")
-    _count("FUSED_LAUNCHES")
+    _count(_FUSED_COUNTER[scatter])
     if with_chain:
         _count("FUSED_CHAIN_LAUNCHES")
     return h_out, chain
@@ -691,21 +866,22 @@ def step_bwd(h, a, g, edges: EdgeIndex, wm, wih, whh, bih, bhh):
 class GgnnStep(torch.autograd.Function):
     """One differentiable GGNN step (the reference's `_step` custom_vjp).
 
-    forward: the step kernel under `accum` with its aggregate, saving
-    (h, a); backward: `step_bwd`, straight-through for the policy (fp32
-    on h and Wm). The edge tensors (`EdgeIndex.tensors()`, src-sorted
-    layout included) are passed one by one, take no gradient and must
-    not require one."""
+    forward: the step kernel under `accum` and `scatter` (mxu: edge
+    blocks of `block_e`) with its aggregate, saving (h, a); backward:
+    `step_bwd`, straight-through for the policy and the scatter (fp32 on
+    h and Wm, from the saved aggregate). The edge tensors
+    (`EdgeIndex.tensors()`, src-sorted layout included) are passed one by
+    one, take no gradient and must not require one."""
 
     @staticmethod
-    def forward(ctx, accum, h, wm, bm, wih, whh, bih, bhh, *edge_tensors):
+    def forward(ctx, accum, scatter, block_e, h, wm, bm, wih, whh, bih, bhh, *edge_tensors):
         edges = EdgeIndex(*edge_tensors)
         if edges.srcptr is None:
             raise ValueError("GgnnStep needs prepare_edges(..., transpose=True)")
         if any(x.requires_grad for x in edge_tensors):
             raise ValueError("GgnnStep: edge tensors take no gradient")
         h_new, a = ggnn_step(h, edges, wm, bm, wih, whh, bih, bhh, accum=accum,
-                             with_aggregate=True)
+                             scatter=scatter, block_e=block_e, with_aggregate=True)
         ctx.save_for_backward(h, a, wm, wih, whh, bih, bhh, *edge_tensors)
         return h_new
 
@@ -714,7 +890,7 @@ class GgnnStep(torch.autograd.Function):
     def backward(ctx, g):
         h, a, wm, wih, whh, bih, bhh, *edge_tensors = ctx.saved_tensors
         dh, *grads = step_bwd(h, a, g, EdgeIndex(*edge_tensors), wm, wih, whh, bih, bhh)
-        return (None, dh, *grads) + (None,) * len(edge_tensors)
+        return (None, None, None, dh, *grads) + (None,) * len(edge_tensors)
 
 
 class GgnnUnroll(torch.autograd.Function):
@@ -723,21 +899,24 @@ class GgnnUnroll(torch.autograd.Function):
 
     forward: `ggnn_fused` with the chain, which it saves (the step
     inputs, the backward's only residual); backward: for each step in
-    reverse, kernel 1 under `accum` recomputes that step's aggregate from
-    its chain entry, then `step_bwd`; the parameter cotangents sum over
-    the steps from the last one down, the order in which autograd sums a
-    chain of `GgnnStep`s, so both unrolls give the same bits."""
+    reverse, kernel 1 under `accum` and `scatter` recomputes that step's
+    aggregate from its chain entry, then `step_bwd`; the parameter
+    cotangents sum over the steps from the last one down, the order in
+    which autograd sums a chain of `GgnnStep`s, so both unrolls give the
+    same bits."""
 
     @staticmethod
-    def forward(ctx, accum, n_steps, feat, wm, bm, wih, whh, bih, bhh, *edge_tensors):
+    def forward(ctx, accum, scatter, block_e, n_steps, feat, wm, bm, wih, whh, bih, bhh,
+                *edge_tensors):
         edges = EdgeIndex(*edge_tensors)
         if edges.srcptr is None:
             raise ValueError("GgnnUnroll needs prepare_edges(..., transpose=True)")
         if any(x.requires_grad for x in edge_tensors):
             raise ValueError("GgnnUnroll: edge tensors take no gradient")
-        h_out, chain = ggnn_fused(feat, edges, wm, bm, wih, whh, bih, bhh,
-                                  n_steps=n_steps, accum=accum, with_chain=True)
-        ctx.accum = accum
+        h_out, chain = ggnn_fused(feat, edges, wm, bm, wih, whh, bih, bhh, n_steps=n_steps,
+                                  accum=accum, scatter=scatter, block_e=block_e,
+                                  with_chain=True)
+        ctx.variant = (accum, scatter, block_e)
         ctx.save_for_backward(chain, wm, bm, wih, whh, bih, bhh, *edge_tensors)
         return h_out
 
@@ -746,13 +925,14 @@ class GgnnUnroll(torch.autograd.Function):
     def backward(ctx, g):
         chain, wm, bm, wih, whh, bih, bhh, *edge_tensors = ctx.saved_tensors
         edges = EdgeIndex(*edge_tensors)
+        accum, scatter, block_e = ctx.variant
         dh, total = g, None
         for s in reversed(range(chain.shape[0])):
-            _, a = ggnn_step(chain[s], edges, wm, bm, wih, whh, bih, bhh,
-                             accum=ctx.accum, with_aggregate=True)
+            _, a = ggnn_step(chain[s], edges, wm, bm, wih, whh, bih, bhh, accum=accum,
+                             scatter=scatter, block_e=block_e, with_aggregate=True)
             dh, *grads = step_bwd(chain[s], a, dh, edges, wm, wih, whh, bih, bhh)
             total = grads if total is None else [x + y for x, y in zip(total, grads)]
-        return (None, None, dh, *total) + (None,) * len(edge_tensors)
+        return (None, None, None, None, dh, *total) + (None,) * len(edge_tensors)
 
 
 def ggnn_propagate(
@@ -771,10 +951,14 @@ def ggnn_propagate(
     n_steps: int,
     n_etypes: int = 1,
     accum: str = "fp32",
+    scatter: str = "fold",
+    block_edges: int = 0,
     unroll: str = "per_step",
     scan_steps: bool = False,
 ) -> torch.Tensor:
-    """Run `n_steps` GGNN steps under the message policy `accum`; the
+    """Run `n_steps` GGNN steps under the message policy `accum` and
+    `scatter` ("auto" is "fold", as off the TPU in the reference; mxu
+    cuts the edges into blocks of `edge_block(E, block_edges)`); the
     edge preprocessing is done once and shared by all of them and by the
     backward. `unroll="fused"` runs them in one launch of kernel 2 when
     `resolve_unroll` admits it (against this device's budget), else per
@@ -784,26 +968,33 @@ def ggnn_propagate(
     launch without the aggregate, or the unroll one launch without the
     chain. `scan_steps` only enters the admission rule: PyTorch has no
     traced loop to bound."""
-    check_accum(accum)
+    scatter = resolve_scatter(scatter)
+    check_accum(accum, scatter)
     if n_steps == 0:
         return feat
     params = [x.to(torch.float32).contiguous() for x in (wm, bm, wih, whh, bih, bhh)]
     h = feat.to(torch.float32).contiguous()
     n, d = h.shape
+    e = edge_src.shape[0]
+    block_e = _mxu_block(scatter, e, edge_block(e, block_edges))
     mode, why = resolve_unroll(unroll, n=n, d=d, n_steps=n_steps, accum=accum,
-                               scan_steps=scan_steps, budget_bytes=fused_budget_bytes(h.device))
+                               scan_steps=scan_steps, budget_bytes=fused_budget_bytes(h.device),
+                               scatter=scatter, n_eb=e // block_e if block_e else 0,
+                               n_etypes=n_etypes)
     if unroll == "fused" and mode != "fused":
         _note_fused_fallback(why)
     train = torch.is_grad_enabled() and any(x.requires_grad for x in (*params, h))
     edges = prepare_edges(edge_src, edge_dst, edge_mask, edge_type, n, n_etypes,
                           transpose=train)
+    variant = dict(accum=accum, scatter=scatter, block_e=block_e)
     if mode == "fused":
         if train:
-            return GgnnUnroll.apply(accum, n_steps, h, *params, *edges.tensors())
-        return ggnn_fused(h, edges, *params, n_steps=n_steps, accum=accum)[0]
+            return GgnnUnroll.apply(accum, scatter, block_e, n_steps, h, *params,
+                                    *edges.tensors())
+        return ggnn_fused(h, edges, *params, n_steps=n_steps, **variant)[0]
     for _ in range(n_steps):
         if train:
-            h = GgnnStep.apply(accum, h, *params, *edges.tensors())
+            h = GgnnStep.apply(accum, scatter, block_e, h, *params, *edges.tensors())
         else:
-            h, _ = ggnn_step(h, edges, *params, accum=accum)
+            h, _ = ggnn_step(h, edges, *params, **variant)
     return h

@@ -7,8 +7,9 @@
   backward runs the two backward kernels (or their plain versions).
   `use_kernel` (the reference's switch between its lax path and its
   Pallas kernel) gates the kernel's knobs as the reference does: only
-  with it does the module pass `accum` and `unroll` on; without it the
-  steps run fp32 and per step, the reference's lax function. Weights
+  with it does the module pass `accum`, `scatter`, `block_edges` and
+  `unroll` on; without it the steps run fp32, fold and per step, the
+  reference's lax function. Weights
   keep the reference's [in, out] layout, which the kernels read
   directly.
 - pooling: masked segment softmax; padded node slots belong to the dummy
@@ -101,19 +102,24 @@ class GatedGraphConv(nn.Module):
     """Gated Graph Convolution with DGL-parity semantics: per step
     a_v = sum_{(u,v)} W_t h_u + b_t, h_v = GRU(a_v, h_v), weights shared
     across steps, one transform per edge type. Inputs narrower than
-    `out_features` are zero-padded. `accum` (fp32 | bf16 | int8) and
-    `unroll` (per_step | fused) act only under `use_kernel`;
-    `scan_steps` enters the fused admission rule."""
+    `out_features` are zero-padded. `accum` (fp32 | bf16 | int8),
+    `scatter` (auto | fold | mxu; the reference's `kernel_scatter`),
+    `block_edges` (the mxu edge block; the reference's
+    `kernel_block_edges`, 0 = 512) and `unroll` (per_step | fused) act
+    only under `use_kernel`; `scan_steps` enters the fused admission
+    rule."""
 
     def __init__(self, out_features: int, n_steps: int, n_etypes: int = 1, *,
-                 use_kernel: bool = False, accum: str = "fp32",
-                 unroll: str = "per_step", scan_steps: bool = False):
+                 use_kernel: bool = False, accum: str = "fp32", scatter: str = "auto",
+                 block_edges: int = 0, unroll: str = "per_step", scan_steps: bool = False):
         super().__init__()
         self.out_features = out_features
         self.n_steps = n_steps
         self.n_etypes = n_etypes
         self.use_kernel = use_kernel
         self.accum = accum
+        self.scatter = scatter
+        self.block_edges = block_edges
         self.unroll = unroll
         self.scan_steps = scan_steps
         self.etype_kernel = nn.Parameter(torch.empty(n_etypes, out_features, out_features))
@@ -149,6 +155,8 @@ class GatedGraphConv(nn.Module):
             feat, batch.edge_src, batch.edge_dst, batch.edge_mask,
             batch.edge_type, n_steps=self.n_steps, n_etypes=self.n_etypes,
             accum=self.accum if self.use_kernel else "fp32",
+            scatter=self.scatter if self.use_kernel else "fold",
+            block_edges=self.block_edges if self.use_kernel else 0,
             unroll=self.unroll if self.use_kernel else "per_step",
             scan_steps=self.scan_steps,
         )

@@ -9,10 +9,11 @@
   has waited `max_batch_delay_s`.
 
 Two executors: `GgnnExecutor` (graph requests, all co-batchable; each
-chunk pads to the smallest ladder size 1, 2, 4, ..., max_batch_graphs
-that holds it) and `CombinedExecutor` (text + graph requests of the
-combined families, DeepDFA+LineVul or CodeT5+DeepDFA, grouped by
-sequence bucket; each chunk pads to its bucket's full row count).
+chunk pads to the smallest ladder size 1, 2, 4, ..., max_batch_graphs,
+or of a tuned rung set, that holds it) and `CombinedExecutor` (text +
+graph requests of the combined families, DeepDFA+LineVul or
+CodeT5+DeepDFA, grouped by sequence bucket; each chunk pads to its
+bucket's full row count).
 
 A request's score does not depend on what it was batched with beyond
 fp32 reassociation: padding slots are masked out of every reduction and
@@ -102,13 +103,28 @@ def _pow2_sizes(max_size: int) -> tuple[int, ...]:
     return tuple(sorted(set(sizes)))
 
 
+def _ladder_sizes(ladder: Sequence[int] | None, capacity: int) -> tuple[int, ...]:
+    """An executor's rungs (the reference's `_ladder_sizes`): a tuned
+    rung set clamped to [1, capacity] with the capacity always present,
+    so every legal chunk fits a warmed rung; else the pow2 ladder."""
+    capacity = int(capacity)
+    if not ladder:
+        return _pow2_sizes(capacity)
+    rungs = sorted({int(s) for s in ladder if 1 <= int(s) <= capacity})
+    if not rungs or rungs[-1] != capacity:
+        rungs.append(capacity)
+    return tuple(rungs)
+
+
 class GgnnExecutor:
     """Scores chunks of `GraphSpec`s with a DeepDFA model on one device.
 
     Capacity is bounded by `max_batch_graphs` AND the packed node/edge
     budgets; each chunk pads to the smallest ladder size >= its row
-    count. The model is moved to `device` (default "cuda", which raises
-    when CUDA is unavailable) and put in eval mode."""
+    count: the pow2 ladder, or the tuned rungs `ladder` (tune/ladder.py,
+    clamped to the capacity). The model is moved to `device` (default
+    "cuda", which raises when CUDA is unavailable) and put in eval
+    mode."""
 
     def __init__(
         self,
@@ -118,12 +134,13 @@ class GgnnExecutor:
         max_batch_graphs: int = 16,
         etypes: bool = False,
         device: str | torch.device | None = None,
+        ladder: Sequence[int] | None = None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.node_budget = int(node_budget)
         self.edge_budget = int(edge_budget)
-        self.sizes = _pow2_sizes(int(max_batch_graphs))
+        self.sizes = _ladder_sizes(ladder, int(max_batch_graphs))
         self.etypes = bool(etypes)
         self._warmed: set[int] = set()
 

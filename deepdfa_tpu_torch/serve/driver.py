@@ -8,11 +8,11 @@ the CodeT5+DeepDFA defect model)
 warm the executor, submit every payload to the online batcher, wait for
 every answer and report the summary the reference's `run_score` reports
 where it applies, plus the kernel launches the scoring made: the GGNN
-step kernel's under each message policy (n_steps per batch on a CUDA
-device, 0 on the CPU), the whole-unroll kernel's (one per batch under
-`model.ggnn_kernel_unroll=fused`), the fused unrolls that fell back to
-per step and, for the combined model, the flash-attention kernel's (one
-per encoder layer per batch).
+step kernel's under each message policy and scatter (n_steps per batch
+on a CUDA device, 0 on the CPU), the whole-unroll kernel's under each
+scatter (one per batch under `model.ggnn_kernel_unroll=fused`), the
+fused unrolls that fell back to per step and, for the combined model,
+the flash-attention kernel's (one per encoder layer per batch).
 """
 
 from __future__ import annotations
@@ -45,13 +45,20 @@ def _check_serial(cfg: Config) -> None:
         )
 
 
+#: score summary key of each GGNN counter (nn/ggnn_kernel.py)
+SUMMARY_KEYS = {
+    "LAUNCHES": "ggnn_step_launches", "BF16_LAUNCHES": "ggnn_step_bf16_launches",
+    "INT8_LAUNCHES": "ggnn_step_int8_launches", "MXU_LAUNCHES": "ggnn_step_mxu_launches",
+    "MXU_BF16_LAUNCHES": "ggnn_step_mxu_bf16_launches",
+    "MXU_INT8_LAUNCHES": "ggnn_step_mxu_int8_launches",
+    "FUSED_LAUNCHES": "ggnn_fused_launches", "FUSED_MXU_LAUNCHES": "ggnn_fused_mxu_launches",
+    "FUSED_FALLBACKS": "ggnn_fused_fallbacks",
+}
+
+
 def _launch_counts() -> dict[str, int]:
     gk = ggnn_kernel.launch_counts()
-    return {"ggnn_step_launches": gk["LAUNCHES"],
-            "ggnn_step_bf16_launches": gk["BF16_LAUNCHES"],
-            "ggnn_step_int8_launches": gk["INT8_LAUNCHES"],
-            "ggnn_fused_launches": gk["FUSED_LAUNCHES"],
-            "ggnn_fused_fallbacks": gk["FUSED_FALLBACKS"],
+    return {**{key: gk[name] for name, key in SUMMARY_KEYS.items()},
             "flash_fwd_launches": flash_attention.LAUNCHES}
 
 

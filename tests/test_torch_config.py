@@ -1,7 +1,7 @@
 """The port's config (deepdfa_tpu_torch/core/config.py) reads the same
 JSON files as the reference and keeps the reference's field names and
-defaults for every field it holds; the kernel variants this slice has
-not ported (the mxu scatter) raise NotImplementedError."""
+defaults for every field it holds; every GGNN kernel variant of the
+reference loads, and unknown ones raise as in the reference."""
 
 import dataclasses
 from pathlib import Path
@@ -56,13 +56,15 @@ def test_flagship_serving_budgets():
 @pytest.mark.parametrize(
     "knob, value, error",
     [
-        ("ggnn_kernel_scatter", "mxu", NotImplementedError),
+        ("ggnn_kernel_scatter", "onehot", ValueError),
         ("ggnn_kernel_accum", "fp64", ValueError),
         ("ggnn_kernel_unroll", "whole", ValueError),
     ],
 )
 def test_unported_kernel_variants_raise(knob, value, error):
-    with pytest.raises(error, match="ROADMAP queue B" if error is NotImplementedError else None):
+    """An unknown scatter, policy or unroll raises when the config loads
+    (the reference raises when it builds the step)."""
+    with pytest.raises(error):
         tcfg.ModelConfig(**{knob: value})
     with pytest.raises(error):
         tcfg.from_dict({"model": {knob: value}})
@@ -72,8 +74,13 @@ def test_unported_kernel_variants_raise(knob, value, error):
     "overrides",
     [["model.ggnn_kernel_accum=\"bf16\""], ["model.ggnn_kernel_accum=\"int8\""],
      ["model.ggnn_kernel_unroll=\"fused\""],
-     ["model.ggnn_kernel_accum=\"int8\"", "model.ggnn_kernel_unroll=\"fused\""]],
-    ids=["bf16", "int8", "fused", "int8_fused"],
+     ["model.ggnn_kernel_accum=\"int8\"", "model.ggnn_kernel_unroll=\"fused\""],
+     ["model.ggnn_kernel_scatter=\"mxu\""],
+     ["model.ggnn_kernel_scatter=\"mxu\"", "model.ggnn_kernel_accum=\"int8\"",
+      "model.ggnn_kernel_block_edges=128"],
+     ["model.ggnn_kernel_scatter=\"mxu\"", "model.ggnn_kernel_accum=\"bf16\"",
+      "model.ggnn_kernel_unroll=\"fused\""]],
+    ids=["bf16", "int8", "fused", "int8_fused", "mxu", "mxu_int8_be128", "mxu_bf16_fused"],
 )
 def test_ported_kernel_variants_load_like_the_reference(overrides):
     """The reference's flagship config with the kernel and its policy

@@ -365,6 +365,111 @@ def test_serving_variants_on_card_match_cpu(card, accum, unroll):
         np.testing.assert_allclose(summary["probs"], want, rtol=0, atol=POLICY_PROB_TOL)
 
 
+# -- the mxu scatter of kernels 1 and 2 ----------------------------------------
+
+MXU_COUNTER = {"fp32": "MXU_LAUNCHES", "bf16": "MXU_BF16_LAUNCHES", "int8": "MXU_INT8_LAUNCHES"}
+
+
+@pytest.mark.parametrize("block_e", [128, 512])
+@pytest.mark.parametrize("accum", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("n, d, n_etypes, count", POLICY_CASES, ids=POLICY_IDS)
+def test_mxu_kernels_match_plain(card, n, d, n_etypes, count, accum, block_e):
+    """Kernel 1's mxu instances against the plain mxu of the same policy
+    on the card (fp32 rtol 1e-4, atol 1e-5: the plain version's matmuls
+    sum the messages' products in another order; under int8 the products
+    are exact and the quanta the same), one count per launch and no fold
+    count, the same bits on a rerun; int8's aggregate moves with the edge
+    block, as in the reference."""
+    rng = np.random.default_rng(n + d + n_etypes + 17)
+    _, edges, h, params = _policy_case(rng, n, d, n_etypes, count, card)
+    counter = MXU_COUNTER[accum]
+    block_e = gk.edge_block(edges.src.shape[0], block_e)
+    other = gk.edge_block(edges.src.shape[0], 640 - block_e)  # 512 <-> 128
+    before = gk.launch_counts()
+    kw = dict(accum=accum, scatter="mxu", block_e=block_e)
+    with torch.inference_mode():
+        h_k, a_k = gk.ggnn_step(h, edges, *params, with_aggregate=True, **kw)
+        h_p, a_p = gk.ggnn_step_plain(h, edges, *params, accum, "mxu", block_e)
+        again, _ = gk.ggnn_step(h, edges, *params, **kw)
+        _, a_fold = gk.ggnn_step(h, edges, *params, accum=accum, with_aggregate=True)
+    torch.cuda.synchronize()
+    after = gk.launch_counts()
+    assert after[counter] == before[counter] + 2
+    torch.testing.assert_close(h_k, h_p, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
+    assert torch.equal(again, h_k)
+    if accum == "int8" and count:  # a different function from the fold
+        assert not torch.equal(a_k, a_fold)
+        _, a_other = gk.ggnn_step(h, edges, *params, accum="int8", scatter="mxu",
+                                  block_e=other, with_aggregate=True)
+        assert not torch.equal(a_other, a_k)
+
+
+@pytest.mark.parametrize("accum", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("n, d, n_etypes, count", POLICY_CASES, ids=POLICY_IDS)
+def test_mxu_fused_kernel_is_bit_equal_to_step_launches(card, n, d, n_etypes, count, accum):
+    """Kernel 2's mxu instances against 5 launches of kernel 1's (edge
+    blocks of about 128, so every batch spans several): h_out and the chain
+    the same bits, with and without the chain; gradients through
+    GgnnUnroll the bits of five GgnnSteps."""
+    rng = np.random.default_rng(n + d + n_etypes + 19)
+    b, edges, h, params = _policy_case(rng, n, d, n_etypes, count, card, transpose=True)
+    block_e = gk.edge_block(edges.src.shape[0], 128)
+    kw = dict(accum=accum, scatter="mxu", block_e=block_e)
+    with torch.inference_mode():
+        states = [h]
+        for _ in range(5):
+            states.append(gk.ggnn_step(states[-1], edges, *params, **kw)[0])
+        before = gk.launch_counts()
+        h_f, chain = gk.ggnn_fused(h, edges, *params, n_steps=5, with_chain=True, **kw)
+        h_f2, none = gk.ggnn_fused(h, edges, *params, n_steps=5, **kw)
+    torch.cuda.synchronize()
+    after = gk.launch_counts()
+    assert after["FUSED_MXU_LAUNCHES"] == before["FUSED_MXU_LAUNCHES"] + 2
+    assert after["FUSED_LAUNCHES"] == before["FUSED_LAUNCHES"] and none is None
+    assert torch.equal(h_f, states[-1]) and torch.equal(h_f2, h_f)
+    assert all(torch.equal(chain[s], states[s]) for s in range(5))
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(card)
+    grads = {}
+    for unroll in ("per_step", "fused"):
+        ps = [p.clone().requires_grad_() for p in params]
+        f = h.clone().requires_grad_()
+        out = gk.ggnn_propagate(*ps, f, b.edge_src, b.edge_dst, b.edge_mask, b.edge_type,
+                                n_steps=5, n_etypes=n_etypes, accum=accum, scatter="mxu",
+                                block_edges=128, unroll=unroll)
+        out.backward(g)
+        grads[unroll] = [out.detach(), f.grad, *(p.grad for p in ps)]
+    assert all(torch.equal(x, y) for x, y in zip(grads["fused"], grads["per_step"]))
+
+
+@pytest.mark.parametrize("accum, unroll", [("fp32", "per_step"), ("int8", "per_step"),
+                                           ("int8", "fused")])
+def test_mxu_serving_on_card_matches_cpu(card, accum, unroll):
+    rng = np.random.default_rng(3)
+    specs = _graphs(rng, 20)
+    cfg = Config(serve=ServeConfig(max_batch_graphs=4, node_budget=512, edge_budget=2048,
+                                   max_batch_delay_ms=2.0))
+
+    def model():
+        return DeepDFA(52, 8, 3, generator=torch.Generator().manual_seed(0), ggnn_kernel=True,
+                       ggnn_kernel_accum=accum, ggnn_kernel_scatter="mxu",
+                       ggnn_kernel_unroll=unroll)
+
+    summary = score_graphs(model(), specs, cfg)
+    fused = unroll == "fused"
+    assert summary["ggnn_fused_fallbacks"] == 0
+    assert summary["ggnn_fused_mxu_launches"] == (summary["serve_batches"] if fused else 0)
+    key = {"fp32": "ggnn_step_mxu_launches", "int8": "ggnn_step_mxu_int8_launches"}[accum]
+    assert summary[key] == (0 if fused else summary["serve_batches"] * 3)
+    assert summary["ggnn_step_launches"] == summary["ggnn_fused_launches"] == 0
+    want = [r.wait(0) for r in DynamicBatcher(
+        GgnnExecutor(model(), 512, 2048, 4, device="cpu")).score_all(specs)]
+    if accum == "fp32":
+        np.testing.assert_allclose(summary["probs"], want, rtol=RTOL, atol=ATOL)
+    else:
+        np.testing.assert_allclose(summary["probs"], want, rtol=0, atol=POLICY_PROB_TOL)
+
+
 @pytest.mark.parametrize(
     "B, H, Tq, Tk, D, dtype, lens",
     [(16, 12, 512, 512, 64, "bfloat16", [512] * 12 + [300, 65, 1, 0]),

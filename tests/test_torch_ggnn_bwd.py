@@ -254,7 +254,7 @@ def test_gradcheck_float64():
     args = [(torch.randn(s, dtype=torch.float64, generator=gen) * 0.5).requires_grad_()
             for s in shapes]
     assert torch.autograd.gradcheck(
-        lambda *a: tgk.GgnnStep.apply("fp32", *a, *edge_tensors), args
+        lambda *a: tgk.GgnnStep.apply("fp32", "fold", 0, *a, *edge_tensors), args
     )
 
 

@@ -293,8 +293,3 @@ def test_cli_train_under_the_knobs_matches_per_step(tmp_path, monkeypatch, capsy
         losses[unroll] = [json.loads(x)["train_loss"] for x in log if "epoch" in json.loads(x)]
     assert len(losses["fused"]) == 2 and all(np.isfinite(losses["fused"]))
     assert losses["fused"] == losses["per_step"]
-
-
-def test_mxu_scatter_still_raises():
-    with pytest.raises(NotImplementedError, match="mxu"):
-        tconfig.apply_overrides(tconfig.Config(), ['model.ggnn_kernel_scatter="mxu"'])

@@ -57,7 +57,9 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.models.transformer", "deepdfa_tpu_torch.models.combined",
         "deepdfa_tpu_torch.data.examples", "deepdfa_tpu_torch.train.combined_loop",
         "deepdfa_tpu_torch.train.transfer", "deepdfa_tpu_torch.nn.dropout",
-        "deepdfa_tpu_torch.models.t5",
+        "deepdfa_tpu_torch.models.t5", "deepdfa_tpu_torch.tune.kernel",
+        "deepdfa_tpu_torch.tune.ladder", "deepdfa_tpu_torch.tune.cache",
+        "deepdfa_tpu_torch.tune.driver",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
