@@ -185,7 +185,10 @@ prints one JSON line; any failure exits non-zero before the last line.
    with and without the bias) and at the gen path's fp32 calls (decoder
    T 128 causal with the bias, cross 128 x 256, encoder 256 with the
    bias); this run's unbiased non-causal flagship times beside the ones
-   PERF.md records from before the causal build;
+   PERF.md records from before the causal build, and its fp32 dq and
+   dk/dv times at the gen calls beside the first FMA version's
+   (FP32_BWD_BASELINE_MS), with the register-tiled instances' registers
+   and spills from the build (none may spill at D 64);
 18. train_gen — `train-gen`'s path (the CLI's hash tokenizer at vocab
    32100, reader and codet5-base-width model in fp32, 12 + 12 layers)
    through GenTrainer.fit: 4 batches of 16 summarize rows (256 -> 128
@@ -2435,6 +2438,21 @@ FLASH_TIMED = ("t5_flagship_t512", "flagship_t512", "gen_decoder_t128", "gen_cro
 #: from before the causal build existed (NVIDIA H100 80GB HBM3, 700 W):
 #: forward, dq, dk/dv
 NONCAUSAL_BASELINE_MS = {"flash_fwd": 0.1350, "flash_dq": 0.2031, "flash_dkv": 0.3458}
+#: the fp32 dq and dk/dv times at the gen path's calls that PERF.md records
+#: for the first FMA instances (one key a lane; NVIDIA H100 80GB HBM3,
+#: 700 W), before their register-tiled redesign
+FP32_BWD_BASELINE_MS = {
+    "gen_decoder_t128": {"flash_dq": 0.1313, "flash_dkv": 0.1740},
+    "gen_cross_t128x256": {"flash_dq": 0.3138, "flash_dkv": 0.4026},
+    "gen_encoder_t256": {"flash_dq": 0.6015, "flash_dkv": 0.8173},
+}
+#: the register-tiled FMA dq and dk/dv instances the gen path launches
+#: (fp32, D 64), by library: ptxas must report no spills for them
+FP32_BWD_INSTANCES = {
+    "flash_attention": ("flash_dq_scalar<float, 64>", "flash_dkv_scalar<float, 64>"),
+    "flash_attention_causal": ("flash_dq_scalar<float, 64, causal>",
+                               "flash_dkv_scalar<float, 64, causal>"),
+}
 
 
 def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
@@ -2447,7 +2465,7 @@ def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
     return int((m * torch.arange(m.shape[1], 0, -1)).sum())
 
 
-def flash_causal_kernel_phase(torch, noncausal: dict):
+def flash_causal_kernel_phase(torch, noncausal: dict, ptxas: dict):
     """Kernels 5-8 with the causal mask (the causal build of the flash
     source) against the plain versions on the card, and the fp32 (FMA)
     instances at the generation path's shapes: o within 2e-2 (bf16) or
@@ -2460,9 +2478,14 @@ def flash_causal_kernel_phase(torch, noncausal: dict):
     holding the bias and -inf; the yardstick, never called by the port)
     and its backward, and the bounds over the live pairs. `noncausal`
     holds this run's unbiased non-causal flagship times, set beside
-    NONCAUSAL_BASELINE_MS."""
+    NONCAUSAL_BASELINE_MS; the gen calls' dq and dk/dv times are set
+    beside FP32_BWD_BASELINE_MS. `ptxas` is the build's report by library:
+    the FP32_BWD_INSTANCES must not spill."""
     from deepdfa_tpu_torch.nn import flash_attention as fa
 
+    fp32_regs = {k: ptxas[lib].get(k) for lib, ks in FP32_BWD_INSTANCES.items() for k in ks}
+    if any(r is None or r["spill_bytes"] for r in fp32_regs.values()):
+        fail(f"flash_causal: a register-tiled fp32 instance is missing or spills: {fp32_regs}")
     H, D = 12, 64
     gen = torch.Generator().manual_seed(11)
     report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
@@ -2569,11 +2592,18 @@ def flash_causal_kernel_phase(torch, noncausal: dict):
                                                bias_bytes + 4 * H * Tq * Tk, pairs)
         timing[name] = t
     ratio = {k: noncausal[k] / v for k, v in NONCAUSAL_BASELINE_MS.items()}
+    fp32_bwd = {case: {kernel: {"ms": timing[case][f"{kernel[len('flash_'):]}_ms"],
+                                "baseline_ms": base,
+                                "baseline_over_ms": base / timing[case][
+                                    f"{kernel[len('flash_'):]}_ms"]}
+                       for kernel, base in by_kernel.items()}
+                for case, by_kernel in FP32_BWD_BASELINE_MS.items()}
     emit({"phase": "kernel flash_causal", "ok": True,
           "tolerance": {"o": FLASH_TOL, "lse": "1e-5 + 1e-5 |lse|",
                         "grads": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"}},
           "max_abs_err": worst, "timed": timing,
-          "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio, **report})
+          "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio,
+          "fp32_bwd_vs_baseline": fp32_bwd, "fp32_bwd_ptxas": fp32_regs, **report})
     return worst, timing
 
 
@@ -3075,10 +3105,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        fail(f"nvidia-smi could not read the card's name and power limit: {e!r}")
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -3086,8 +3119,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     built = cuda_build.build()
+    ptxas = {name: ptxas_summary(r["log"]) for name, r in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": {
-        name: {"cached": r["cached"], "seconds": r["seconds"], "ptxas": ptxas_summary(r["log"])}
+        name: {"cached": r["cached"], "seconds": r["seconds"], "ptxas": ptxas[name]}
         for name, r in built.items()}})
 
     rng = np.random.default_rng(0)
@@ -3125,7 +3159,7 @@ def main() -> None:
     t5_train = train_combined_phase(torch, rng, "t5")
     causal_err, causal_timing = flash_causal_kernel_phase(torch, {
         "flash_fwd": flash_timing["ms"], "flash_dq": bwd_flash["dq_ms_rate0.0"],
-        "flash_dkv": bwd_flash["dkv_ms_rate0.0"]})
+        "flash_dkv": bwd_flash["dkv_ms_rate0.0"]}, ptxas)
     gen_train, gen_trainer, gen_state, _, gen_src, _ = train_gen_phase(torch, rng)
     gen_decode = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
     del gen_trainer, gen_state

@@ -65,8 +65,9 @@
 //  - dq: one block per (b*h, 64-row q-tile) loops over the k/v tiles,
 //    recomputing s and p from lse; dq stays in registers;
 //  - dk/dv: one block per (b*h, 64-key k-tile) loops over the q tiles
-//    (q, do, lse and delta staged in shared memory); each warp owns 16
-//    keys, so dk and dv stay in its registers;
+//    (q, do and, on tensor cores, lse and delta staged in shared memory);
+//    each warp owns 16 keys (tensor cores) or each thread 4 (FMA), so dk
+//    and dv stay in registers;
 //  - dbias: one block per (h, 64-row q-tile, 64-key tile) loops over the
 //    batch IN ORDER, recomputing s, p and dp for each b and summing ds in
 //    the S-shaped fp32 accumulator, then writes its tile once. The
@@ -108,20 +109,36 @@
 //    (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) comes through
 //    ldmatrix.trans. Shared rows are padded by 8 elements so fragment
 //    loads hit 32 distinct banks.
-//  - fp32 (and bf16 at other widths): 4 warps; a lane scores one key
-//    (forward, dq, dbias) or one query (dk/dv) of a 32-wide tile and owns
-//    D/32 output columns. Plain fp32 FMA, no TF32.
+//  - fp32 (and bf16 at other widths), forward and dbias: 4 warps; a lane
+//    scores one key of a 32-wide tile and owns D/32 output columns.
+//  - fp32 (and bf16 at other widths), dq and dk/dv: register-tiled FMA
+//    kernels. 256 threads over a 64 x 64 score tile each own a 4 x 4
+//    micro-tile of S and dP, so per 4 columns of a product 8 LDS.128 feed
+//    64 FMAs. (The first version scored one key a lane, and about one
+//    shared load fed each FMA: shared memory, not the FMA units, set the
+//    pace, at 12% of the fp32 peak.) The k/v (dq) or q/do (dk/dv) tiles
+//    come in through 16-byte cp.async into a two-stage ring while the
+//    tile before computes (4-byte copies where a row is not 16-byte
+//    aligned; bf16 through registers). At D <= 64, ~113 KB of shared
+//    memory and 128 registers a thread give two blocks an SM; at D <= 128
+//    one. Bound at the generation path's calls (B 16, H 12, D 64, fp32,
+//    every key live): the encoder's T 256 dq 4.8 GFLOP (0.072 ms at 67
+//    TFLOP/s), dk/dv 6.4 GFLOP (0.096 ms); cross-attention 128 x 256
+//    0.036 and 0.048 ms; the causal decoder's T 128 is bound by bytes
+//    (0.0097 and 0.0121 ms). Plain fp32 FMA, no TF32 (the generation
+//    path's fp32 contract), d and k ascending in every sum.
 //
 // Bound on this card, at the flagship training call (B 16, H 12, T 512,
 // D 64, bf16, every key live): the forward does 2 products (12.9 GFLOP,
 // 0.013 ms at 989 TFLOP/s) on ~50 MB (0.015 ms at 3.35 TB/s), 56.6 MB
 // with a bf16 bias; dq does 3 (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019
 // ms); dk/dv 4 (25.8 GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9
-// GFLOP) on ~70 MB with its fp32 output (0.021 ms: bytes bind). This
-// first version has no TMA, no wgmma and no double buffering: each
-// tile's loads wait on a barrier, and the Philox words are recomputed per
-// lane (2 of each call's 4 words used in the forward, dq and dbias, 1 in
-// dk/dv).
+// GFLOP) on ~70 MB with its fp32 output (0.021 ms: bytes bind). The
+// tensor-core kernels and the FMA forward and dbias have no TMA, no wgmma
+// and no double buffering: each tile's loads wait on a barrier, and the
+// Philox words are recomputed per lane (2 of each call's 4 words used in
+// the forward, dq and dbias, 1 in the tensor-core dk/dv; the FMA dq and
+// dk/dv use all 4).
 //
 // The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
 // token) strides and the bias's (head, row) strides; the innermost
@@ -171,6 +188,7 @@ struct Drop {
 struct Bias {
   const void* p;
   int bf16;
+  int vec;  // every row start is 16-byte (fp32) or 8-byte (bf16) aligned
   long long sh, st;
 };
 
@@ -201,6 +219,8 @@ struct BwdArgs {
   void* dv;
   float* dbias;  // [H, Tq, Tk] contiguous
   int B, H, Tq, Tk, D;
+  int vec;  // fp32 q, k, v and do rows all start 16-byte aligned
+  int n16;  // the FMA dq and dk/dv: D rounded up to 16, in 16-column groups
   float scale;
   Drop drop;
   Bias bias;
@@ -918,229 +938,455 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// dq and dk/dv, fp32 (and bf16 at other widths): FMA loops. Shared tiles
-// are sized by D (dynamic shared memory).
+// dq and dk/dv, fp32 (and bf16 at other widths): register-tiled FMA
+// kernels. 256 threads form a 16 x 16 grid (ty, tx) over a 64 x 64 score
+// tile: a thread owns the 4 consecutive keys 4ty .. 4ty+3 and the 4
+// queries tx, tx+16, tx+32, tx+48, so one Philox call gives the bits of
+// a query's 4 keys and one 16-byte load its 4 bias elements. Key tiles
+// (k, v) are plain row-major [64][KS] fp32; query tiles (q, do) and dq's
+// dS tile are swizzled: 16-byte chunk c of row r sits at chunk c ^ (r & 7),
+// so the 8 lanes of a quarter warp, reading chunk c of 8 consecutive
+// rows, hit 8 distinct bank groups. KS is 64 (D <= 64) or 128, a template
+// argument, and the products run over D rounded up to 16, the padding
+// zero-filled.
 
-__host__ __device__ constexpr int scalar_dq_smem_floats(int D) {
-  // q_s, do_s [16][D]; k_s, v_s [32][D+1]; ds_s [4][32]; ok_s [32]
-  return 2 * kScalarRows * D + 2 * kScalarKeys * (D + 1) + kScalarWarps * kScalarKeys +
-         kScalarKeys;
+constexpr int kTileThreads = 256;
+constexpr int kTileRows = 64;  // queries (dq) or keys (dk/dv) per block
+constexpr int kTileKeys = 64;  // keys (dq) or queries (dk/dv) per tile of the loop
+
+__device__ __forceinline__ int swz(int c, int r) { return c ^ (r & 7); }
+
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-template <typename T, bool kCausal>
-__global__ void __launch_bounds__(kScalarThreads) flash_dq_scalar(BwdArgs a) {
-  constexpr int C = kMaxD / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D = a.D;
-  float* q_s = reinterpret_cast<float*>(smem);  // [16][D]
-  float* do_s = q_s + kScalarRows * D;           // [16][D]
-  float* k_s = do_s + kScalarRows * D;           // [32][D + 1]
-  float* v_s = k_s + kScalarKeys * (D + 1);      // [32][D + 1]
-  float* ds_s = v_s + kScalarKeys * (D + 1);     // [4][32]
-  float* ok_s = ds_s + kScalarWarps * kScalarKeys;
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh - b * a.H;
-  const int q0 = blockIdx.x * kScalarRows;
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const int* maskp = a.mask + (long long)b * a.Tk;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 
-  for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const bool in = q0 + r < a.Tq;
-    q_s[idx] = in ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
-    do_s[idx] = in ? to_f(dop[(q0 + r) * a.sdo.t + c]) : 0.0f;
-  }
-  float lse[kScalarRowsPerWarp], del[kScalarRowsPerWarp], acc[kScalarRowsPerWarp][C];
-#pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int row = q0 + warp * kScalarRowsPerWarp + i;
-    lse[i] = row < a.Tq ? a.lse[(long long)bh * a.Tq + row] : 0.0f;
-    del[i] = row < a.Tq ? a.delta[(long long)bh * a.Tq + row] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const int k_end = kCausal ? min(a.Tk, q0 + kScalarRows) : a.Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kScalarKeys) {
-    __syncthreads();
-    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const int key = k0 + r;
-      k_s[r * (D + 1) + c] = key < a.Tk ? to_f(kp[key * a.sk.t + c]) : 0.0f;
-      v_s[r * (D + 1) + c] = key < a.Tk ? to_f(vp[key * a.sv.t + c]) : 0.0f;
-    }
-    if (tid < kScalarKeys) {
-      const int key = k0 + tid;
-      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    const bool diag = kCausal && k0 + kScalarKeys > q0;
-#pragma unroll
-    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-      const int row = warp * kScalarRowsPerWarp + i;
-      if (q0 + row >= a.Tq) continue;  // warp-uniform
-      float s = 0.0f, dp = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q_s[row * D + d], k_s[lane * (D + 1) + d], s);
-        dp = fmaf(do_s[row * D + d], v_s[lane * (D + 1) + d], dp);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows r0 .. r0+63 (zero past `rows`) and columns 0 .. 16*n16-1 (zero
+// past D) of a strided [rows, D] operand into a [64][KS] fp32 tile,
+// swizzled with kSwz. fp32 goes through cp.async (the caller commits):
+// 16 bytes a copy where `vec` says every row starts 16-byte aligned, else
+// 4. bf16 is converted to fp32 through registers.
+template <typename T, int KS, bool kSwz>
+__device__ __forceinline__ void stage_tile(float* tile, const T* src, int r0, int rows,
+                                           long long st, int D, int n16, bool vec, int tid) {
+  constexpr int kLanes = KS / 4;  // threads of a row, one 16-byte chunk each
+  const int n4 = 4 * n16;
+  if constexpr (std::is_same<T, float>::value) {
+    if (!vec) {
+      const int e = tid % KS;
+      if (e >= 4 * n4) return;
+      const int c = e >> 2;
+      for (int r = tid / KS; r < kTileRows; r += kTileThreads / KS) {
+        const int row = r0 + r;
+        const bool in = row < rows && e < D;
+        cp_async4(tile + r * KS + 4 * (kSwz ? swz(c, r) : c) + (e & 3),
+                  in ? static_cast<const void*>(src + row * st + e) : src, in ? 4 : 0);
       }
-      const bool ok = ok_s[lane] != 0.0f && (!diag || k0 + lane <= q0 + row);
-      const float bv = (a.bias.p && ok) ? bias_at(a.bias, h, q0 + row, k0 + lane) : 0.0f;
-      const float p = ok ? expf(s * a.scale + bv - lse[i]) : 0.0f;
-      if (a.drop.on)
-        dp = bits1(a.drop, bh, q0 + row, k0 + lane) < a.drop.threshold ? dp * a.drop.inv_keep
-                                                                       : 0.0f;
-      ds_s[warp * kScalarKeys + lane] = round_to<T>(p * (dp - del[i]));  // in k's dtype
-      __syncwarp();
+      return;
+    }
+  }
+  const int c = tid % kLanes;
+  if (c >= n4) return;
+  for (int r = tid / kLanes; r < kTileRows; r += kTileThreads / kLanes) {
+    const int row = r0 + r;
+    const int cols = row < rows ? min(4, max(0, D - 4 * c)) : 0;
+    float* dst = tile + r * KS + 4 * (kSwz ? swz(c, r) : c);
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(dst, cols ? static_cast<const void*>(src + row * st + 4 * c) : src, 4 * cols);
+    } else {
+      float x[4];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int d = c * 32 + lane;
-        if (d < D) {
-          float x = acc[i][c];
-          for (int j = 0; j < kScalarKeys; ++j)
-            x = fmaf(ds_s[warp * kScalarKeys + j], k_s[j * (D + 1) + d], x);
-          acc[i][c] = x;
+      for (int e = 0; e < 4; ++e) x[e] = e < cols ? to_f(src[row * st + 4 * c + e]) : 0.0f;
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
+// operand x's [T, D] strip of head (b, h)
+template <typename T>
+__device__ __forceinline__ const T* strip(const void* x, const Strides& s, int b, int h) {
+  return static_cast<const T*>(x) + b * s.b + h * s.h;
+}
+
+// acc[i][j] += sum_d a[4ty + i][d] * b[tx + 16j][d] over the n16 16-column
+// groups: `a` points at row 4ty of a plain tile (its 4 rows are one
+// broadcast per quarter warp), `b` at row tx of a swizzled one (sw = tx &
+// 7). Per 4 columns, 8 LDS.128 feed 64 FMAs; d ascends in every sum, as
+// in the plain dot product.
+template <int KS>
+__device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* a, const float* b,
+                                          int sw, int n16) {
+  for (int g = 0; g < n16; ++g) {
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int c = 4 * g + cc;
+      float4 y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        y[j] = *reinterpret_cast<const float4*>(b + 16 * j * KS + 4 * (c ^ sw));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 x = *reinterpret_cast<const float4*>(a + i * KS + 4 * c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(x.x, y[j].x, acc[i][j]);
+          acc[i][j] = fmaf(x.y, y[j].y, acc[i][j]);
+          acc[i][j] = fmaf(x.z, y[j].z, acc[i][j]);
+          acc[i][j] = fmaf(x.w, y[j].w, acc[i][j]);
         }
       }
-      __syncwarp();
     }
+  }
+}
+
+// acc[i][4cc + e] += sum_k x[4ty + i][k] * y[k][4 (tx + 16cc) + e] over
+// the 64 keys (dq) or queries (dk/dv) of a tile, k ascending: `x` points
+// at row 4ty of a [64][64] tile (dS swizzled, or p / dS^T plain), `y` is a
+// [64][KS] tile. Columns at or past D are skipped. kUnroll unrolls the
+// loop over k (register pressure against latency hiding).
+template <int KS, int NC, bool kXSwz, bool kYSwz, int kUnroll>
+__device__ __forceinline__ void tile_xv(float (&acc)[4][4 * NC], const float* x, const float* y,
+                                        int ty, int tx, int D) {
+  bool on[NC];
+#pragma unroll
+  for (int cc = 0; cc < NC; ++cc) on[cc] = 4 * (tx + 16 * cc) < D;
+#pragma unroll (kUnroll)
+  for (int kc = 0; kc < kTileKeys / 4; ++kc) {
+    float4 xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      xv[i] = *reinterpret_cast<const float4*>(x + i * kTileKeys +
+                                               4 * (kXSwz ? swz(kc, 4 * ty + i) : kc));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * kc + e;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        if (!on[cc]) continue;
+        const int c = tx + 16 * cc;
+        const float4 yv =
+            *reinterpret_cast<const float4*>(y + k * KS + 4 * (kYSwz ? swz(c, k) : c));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xe = lane_of(xv[i], e);
+          acc[i][4 * cc + 0] = fmaf(xe, yv.x, acc[i][4 * cc + 0]);
+          acc[i][4 * cc + 1] = fmaf(xe, yv.y, acc[i][4 * cc + 1]);
+          acc[i][4 * cc + 2] = fmaf(xe, yv.z, acc[i][4 * cc + 2]);
+          acc[i][4 * cc + 3] = fmaf(xe, yv.w, acc[i][4 * cc + 3]);
+        }
+      }
+    }
+  }
+}
+
+// bias[h, row, key0 .. key0+3] in fp32, 0 past Tq or Tk and without a
+// bias: one 16-byte (fp32) or 8-byte (bf16) load where the bias's
+// alignment allows (key0 is a multiple of 4)
+__device__ __forceinline__ void bias4(const Bias& bi, int h, int row, int key0, int Tq, int Tk,
+                                      float (&bv)[4]) {
+  bv[0] = bv[1] = bv[2] = bv[3] = 0.0f;
+  if (bi.p == nullptr || row >= Tq) return;
+  const long long off = (long long)h * bi.sh + (long long)row * bi.st + key0;
+  if (bi.vec && key0 + 3 < Tk) {
+    if (bi.bf16) {
+      const uint2 u =
+          *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(bi.p) + off);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+      bv[0] = __low2float(lo);
+      bv[1] = __high2float(lo);
+      bv[2] = __low2float(hi);
+      bv[3] = __high2float(hi);
+    } else {
+      const float4 f = *reinterpret_cast<const float4*>(static_cast<const float*>(bi.p) + off);
+      bv[0] = f.x;
+      bv[1] = f.y;
+      bv[2] = f.z;
+      bv[3] = f.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (key0 + e < Tk) bv[e] = bias_at(bi, h, row, key0 + e);
+}
+
+template <int KS>
+__host__ __device__ constexpr int dq_tile_smem_bytes() {
+  // q_s, do_s [64][KS]; k_s, v_s [2 stages][64][KS]; ds_s [64][64]; ok_s [2][64]
+  return (6 * kTileRows * KS + kTileRows * kTileKeys + 2 * kTileKeys) * 4;
+}
+
+template <int KS>
+__host__ __device__ constexpr int dkv_tile_smem_bytes() {
+  // k_s, v_s [64][KS]; q_s, do_s [2 stages][64][KS]; x_s [64][64]; ok_s [64]
+  return (6 * kTileRows * KS + kTileRows * kTileKeys + kTileRows) * 4;
+}
+
+// dq: one block per (b*h, 64-row q tile) loops over 64-key k/v tiles; the
+// next tile's k, v and mask come in through cp.async while this one
+// computes. dq stays in registers: a thread owns rows 4ty .. 4ty+3 and
+// the 4-column chunks tx (and tx + 16 at KS 128).
+template <typename T, int KS, bool kCausal>
+__global__ void __launch_bounds__(kTileThreads, KS == 64 ? 2 : 1) flash_dq_scalar(BwdArgs a) {
+  constexpr int NC = KS / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [64][KS], swizzled
+  float* do_s = q_s + kTileRows * KS;            // [64][KS], swizzled
+  float* kv_s = do_s + kTileRows * KS;           // [stage][k, v][64][KS]
+  float* ds_s = kv_s + 4 * kTileKeys * KS;       // [64 rows][64 keys], swizzled
+  int* ok_s = reinterpret_cast<int*>(ds_s + kTileRows * kTileKeys);  // [stage][64]
+
+  // Pointers and widths are read from the arguments where they are used
+  // (register pressure: two blocks an SM leave 128 registers a thread).
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * a.H + h;
+  const int q0 = blockIdx.x * kTileRows;
+
+  const int k_end = kCausal ? min(a.Tk, q0 + kTileRows) : a.Tk;
+  // tile k0 sits in stage (k0 / 64) & 1
+  auto stage_kv = [&](int k0) {
+    float* ks = kv_s + ((k0 / kTileKeys) & 1) * 2 * kTileKeys * KS;
+    stage_tile<T, KS, false>(ks, strip<T>(a.k, a.sk, b, h), k0, a.Tk, a.sk.t, a.D, a.n16, a.vec,
+                             tid);
+    stage_tile<T, KS, false>(ks + kTileKeys * KS, strip<T>(a.v, a.sv, b, h), k0, a.Tk, a.sv.t,
+                             a.D, a.n16, a.vec, tid);
+    if (tid < kTileKeys) {
+      const int* maskp = a.mask + (long long)b * a.Tk;
+      const bool in = k0 + tid < a.Tk;
+      cp_async4(ok_s + ((k0 / kTileKeys) & 1) * kTileKeys + tid, in ? maskp + k0 + tid : maskp,
+                in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  stage_tile<T, KS, true>(q_s, strip<T>(a.q, a.sq, b, h), q0, a.Tq, a.sq.t, a.D, a.n16, a.vec,
+                          tid);
+  stage_tile<T, KS, true>(do_s, strip<T>(a.dout, a.sdo, b, h), q0, a.Tq, a.sdo.t, a.D, a.n16,
+                          a.vec, tid);
+  stage_kv(0);  // one group: q, do and the first k/v tile
+
+  float dq[4][4 * NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) dq[i][c] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += kTileKeys) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every thread is done with the last one
+    if (k0 + kTileKeys < k_end) stage_kv(k0 + kTileKeys);
+    const int stage = (k0 / kTileKeys) & 1;
+    const float* ks = kv_s + stage * 2 * kTileKeys * KS;
+    const float* vs = ks + kTileKeys * KS;
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    }
+    tile_dots<KS>(s, ks + 4 * ty * KS, q_s + tx * KS, tx & 7, a.n16);    // S^T = K Q^T
+    tile_dots<KS>(dp, vs + 4 * ty * KS, do_s + tx * KS, tx & 7, a.n16);  // dP^T = V dO^T
+
+    // ds = round(p (dp - delta)) in registers, then once into ds_s
+    const bool diag = kCausal && k0 + kTileKeys > q0;  // crosses the diagonal
+    const int key0 = k0 + 4 * ty;
+    const int4 okq = *reinterpret_cast<const int4*>(ok_s + stage * kTileKeys + 4 * ty);
+    const int ok[4] = {okq.x, okq.y, okq.z, okq.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = q0 + tx + 16 * j;
+      const bool rin = row < a.Tq;
+      const long long lrow = (long long)bh * a.Tq + row;
+      const float lse = rin ? a.lse[lrow] : 0.0f, del = rin ? a.delta[lrow] : 0.0f;
+      float bv[4];
+      bias4(a.bias, h, row, key0, a.Tq, a.Tk, bv);
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (a.drop.on && rin) w = bits4(a.drop, bh, row, key0);
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live = ok[i] != 0 && rin && (!diag || key0 + i <= row);
+        const float p = live ? expf(s[i][j] * a.scale + bv[i] - lse) : 0.0f;
+        float d = dp[i][j];
+        if (a.drop.on) d = word(w, i) < a.drop.threshold ? d * a.drop.inv_keep : 0.0f;
+        ds[i] = round_to<T>(p * (d - del));  // in k's dtype
+      }
+      *reinterpret_cast<float4*>(ds_s + (tx + 16 * j) * kTileKeys + 4 * (ty ^ (tx & 7))) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+    // dq += dS K; the causal instance keeps its k loop rolled, which its
+    // diagonal flag's registers need to stay within 128 without spilling
+    tile_xv<KS, NC, true, false, kCausal ? 1 : 2>(dq, ds_s + 4 * ty * kTileKeys, ks, ty, tx,
+                                                  a.D);
   }
 
   T* out = static_cast<T*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
 #pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int row = q0 + warp * kScalarRowsPerWarp + i;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
     if (row >= a.Tq) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) out[row * a.sdq.t + d] = from_f<T>(acc[i][c] * a.scale);
+    for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * (tx + 16 * cc) + e;
+        if (d < a.D) out[row * a.sdq.t + d] = from_f<T>(dq[i][4 * cc + e] * a.scale);
+      }
     }
   }
 }
 
-__host__ __device__ constexpr int scalar_dkv_smem_floats(int D) {
-  // k_s, v_s [16][D]; q_s, do_s [32][D+1]; pv_s, ds_s [4][32]; lse, del, qok [32]
-  return 2 * kScalarRows * D + 2 * kScalarKeys * (D + 1) + 2 * kScalarWarps * kScalarKeys +
-         3 * kScalarKeys;
-}
-
-template <typename T, bool kCausal>
-__global__ void __launch_bounds__(kScalarThreads) flash_dkv_scalar(BwdArgs a) {
-  constexpr int C = kMaxD / 32;
+// dk/dv: one block per (b*h, 64-key tile) loops over 64-row q/do tiles
+// (the causal build from the tile holding its first key); the next tile
+// comes in through cp.async while this one computes. round(d p)^T and
+// then dS^T pass through one [64][64] shared tile; dk and dv stay in
+// registers: a thread owns keys 4ty .. 4ty+3 and the 4-column chunks tx
+// (and tx + 16 at KS 128).
+template <typename T, int KS, bool kCausal>
+__global__ void __launch_bounds__(kTileThreads, KS == 64 ? 2 : 1) flash_dkv_scalar(BwdArgs a) {
+  constexpr int NC = KS / 64;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = a.D;
-  float* k_s = reinterpret_cast<float*>(smem);   // [16][D]: this block's keys
-  float* v_s = k_s + kScalarRows * D;             // [16][D]
-  float* q_s = v_s + kScalarRows * D;             // [32][D + 1]
-  float* do_s = q_s + kScalarKeys * (D + 1);      // [32][D + 1]
-  float* pv_s = do_s + kScalarKeys * (D + 1);     // [4][32]
-  float* ds_s = pv_s + kScalarWarps * kScalarKeys;  // [4][32]
-  float* lse_s = ds_s + kScalarWarps * kScalarKeys;
-  float* del_s = lse_s + kScalarKeys;
-  float* qok_s = del_s + kScalarKeys;
+  float* k_s = reinterpret_cast<float*>(smem);  // [64][KS]: this block's keys
+  float* v_s = k_s + kTileRows * KS;             // [64][KS]
+  float* qd_s = v_s + kTileRows * KS;            // [stage][q, do][64][KS], swizzled
+  float* x_s = qd_s + 4 * kTileKeys * KS;        // [64 keys][64 queries]: p, then ds
+  int* ok_s = reinterpret_cast<int*>(x_s + kTileRows * kTileKeys);  // [64]: the keys' mask
 
+  // Pointers and widths are read from the arguments where they are used
+  // (register pressure: two blocks an SM leave 128 registers a thread).
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh - b * a.H;
-  const int c0 = blockIdx.x * kScalarRows;
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const int* maskp = a.mask + (long long)b * a.Tk;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * a.H + h;
+  const int c0 = blockIdx.x * kTileRows;
 
-  for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const bool in = c0 + r < a.Tk;
-    k_s[idx] = in ? to_f(kp[(c0 + r) * a.sk.t + c]) : 0.0f;
-    v_s[idx] = in ? to_f(vp[(c0 + r) * a.sv.t + c]) : 0.0f;
+  // the causal build starts at the q tile holding key c0 (64-aligned);
+  // tile q0 sits in stage ((q0 - q_begin) / 64) & 1
+  const int q_begin = kCausal ? c0 : 0;
+  auto stage_qd = [&](int q0) {
+    float* qs = qd_s + (((q0 - q_begin) / kTileKeys) & 1) * 2 * kTileKeys * KS;
+    stage_tile<T, KS, true>(qs, strip<T>(a.q, a.sq, b, h), q0, a.Tq, a.sq.t, a.D, a.n16, a.vec,
+                            tid);
+    stage_tile<T, KS, true>(qs + kTileKeys * KS, strip<T>(a.dout, a.sdo, b, h), q0, a.Tq,
+                            a.sdo.t, a.D, a.n16, a.vec, tid);
+    cp_async_commit();
+  };
+  stage_tile<T, KS, false>(k_s, strip<T>(a.k, a.sk, b, h), c0, a.Tk, a.sk.t, a.D, a.n16, a.vec,
+                           tid);
+  stage_tile<T, KS, false>(v_s, strip<T>(a.v, a.sv, b, h), c0, a.Tk, a.sv.t, a.D, a.n16, a.vec,
+                           tid);
+  if (tid < kTileRows) {
+    const int* maskp = a.mask + (long long)b * a.Tk;
+    const bool in = c0 + tid < a.Tk;
+    cp_async4(ok_s + tid, in ? maskp + c0 + tid : maskp, in ? 4 : 0);
   }
-  bool kok[kScalarRowsPerWarp];
-  float dk[kScalarRowsPerWarp][C], dv[kScalarRowsPerWarp][C];
+  stage_qd(q_begin);  // one group: k, v, the mask and the first q/do tile
+
+  const int key0 = c0 + 4 * ty;
+  float dk[4][4 * NC], dv[4][4 * NC];
 #pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int key = c0 + warp * kScalarRowsPerWarp + i;
-    kok[i] = key < a.Tk && maskp[key] != 0;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.0f;
+    for (int c = 0; c < 4 * NC; ++c) dk[i][c] = dv[i][c] = 0.0f;
   }
 
-  const int q_begin = kCausal ? (c0 / kScalarKeys) * kScalarKeys : 0;
-  for (int q0 = q_begin; q0 < a.Tq; q0 += kScalarKeys) {
-    __syncthreads();
-    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const bool in = q0 + r < a.Tq;
-      q_s[r * (D + 1) + c] = in ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
-      do_s[r * (D + 1) + c] = in ? to_f(dop[(q0 + r) * a.sdo.t + c]) : 0.0f;
-    }
-    if (tid < kScalarKeys) {
-      const int row = q0 + tid;
-      const bool in = row < a.Tq;
-      lse_s[tid] = in ? a.lse[(long long)bh * a.Tq + row] : 0.0f;
-      del_s[tid] = in ? a.delta[(long long)bh * a.Tq + row] : 0.0f;
-      qok_s[tid] = in ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    const bool diag = kCausal && q0 < c0 + kScalarRows;
+  for (int q0 = q_begin; q0 < a.Tq; q0 += kTileKeys) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every thread is done with the last one
+    if (q0 + kTileKeys < a.Tq) stage_qd(q0 + kTileKeys);
+    const float* qs = qd_s + (((q0 - q_begin) / kTileKeys) & 1) * 2 * kTileKeys * KS;
+    const float* dos = qs + kTileKeys * KS;
+
+    float s[4][4], dp[4][4];
 #pragma unroll
-    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-      const int kl = warp * kScalarRowsPerWarp + i;  // this key, block-relative
-      if (c0 + kl >= a.Tk) continue;  // warp-uniform
-      float s = 0.0f, dp = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q_s[lane * (D + 1) + d], k_s[kl * D + d], s);
-        dp = fmaf(do_s[lane * (D + 1) + d], v_s[kl * D + d], dp);
-      }
-      const bool live = kok[i] && qok_s[lane] != 0.0f && (!diag || c0 + kl <= q0 + lane);
-      const float bv = (a.bias.p && live) ? bias_at(a.bias, h, q0 + lane, c0 + kl) : 0.0f;
-      const float p = live ? expf(s * a.scale + bv - lse_s[lane]) : 0.0f;
-      float pv = p;
-      if (a.drop.on) {
-        const bool keep = bits1(a.drop, bh, q0 + lane, c0 + kl) < a.drop.threshold;
-        pv = keep ? p * a.drop.inv_keep : 0.0f;
-        dp = keep ? dp * a.drop.inv_keep : 0.0f;
-      }
-      pv_s[warp * kScalarKeys + lane] = round_to<T>(pv);                     // do's dtype
-      ds_s[warp * kScalarKeys + lane] = round_to<T>(p * (dp - del_s[lane]));  // q's dtype
-      __syncwarp();
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int d = c * 32 + lane;
-        if (d < D) {
-          float xv = dv[i][c], xk = dk[i][c];
-          for (int j = 0; j < kScalarKeys; ++j) {
-            xv = fmaf(pv_s[warp * kScalarKeys + j], do_s[j * (D + 1) + d], xv);
-            xk = fmaf(ds_s[warp * kScalarKeys + j], q_s[j * (D + 1) + d], xk);
-          }
-          dv[i][c] = xv;
-          dk[i][c] = xk;
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
+    }
+    tile_dots<KS>(s, k_s + 4 * ty * KS, qs + tx * KS, tx & 7, a.n16);    // S^T = K Q^T
+    tile_dots<KS>(dp, v_s + 4 * ty * KS, dos + tx * KS, tx & 7, a.n16);  // dP^T = V dO^T
+
+    // round(d p) goes to x_s as it is formed, round(ds) waits in dp
+    const bool diag = kCausal && q0 < c0 + kTileRows;  // crosses the diagonal
+    const int4 okq = *reinterpret_cast<const int4*>(ok_s + 4 * ty);
+    const int kok[4] = {okq.x, okq.y, okq.z, okq.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = q0 + tx + 16 * j;
+      const bool rin = row < a.Tq;
+      const long long lrow = (long long)bh * a.Tq + row;
+      const float lse = rin ? a.lse[lrow] : 0.0f, del = rin ? a.delta[lrow] : 0.0f;
+      float bv[4];
+      bias4(a.bias, h, row, key0, a.Tq, a.Tk, bv);
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      if (a.drop.on && rin) w = bits4(a.drop, bh, row, key0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool live = kok[i] != 0 && rin && (!diag || key0 + i <= row);
+        const float p = live ? expf(s[i][j] * a.scale + bv[i] - lse) : 0.0f;
+        float pv = p, d = dp[i][j];
+        if (a.drop.on) {
+          const bool keep = word(w, i) < a.drop.threshold;
+          pv = keep ? p * a.drop.inv_keep : 0.0f;
+          d = keep ? d * a.drop.inv_keep : 0.0f;
         }
+        x_s[(4 * ty + i) * kTileKeys + tx + 16 * j] = round_to<T>(pv);  // do's dtype
+        dp[i][j] = round_to<T>(p * (d - del));                          // q's dtype
       }
-      __syncwarp();
     }
+    __syncthreads();
+    tile_xv<KS, NC, false, true, 2>(dv, x_s + 4 * ty * kTileKeys, dos, ty, tx, a.D);  // P^T dO
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x_s[(4 * ty + i) * kTileKeys + tx + 16 * j] = dp[i][j];
+    }
+    __syncthreads();
+    tile_xv<KS, NC, false, true, 2>(dk, x_s + 4 * ty * kTileKeys, qs, ty, tx, a.D);  // dS^T Q
   }
 
   T* dkp = static_cast<T*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
   T* dvp = static_cast<T*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
 #pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int key = c0 + warp * kScalarRowsPerWarp + i;
+  for (int i = 0; i < 4; ++i) {
+    const int key = key0 + i;
     if (key >= a.Tk) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) {
-        dkp[key * a.sdk.t + d] = from_f<T>(dk[i][c] * a.scale);
-        dvp[key * a.sdv.t + d] = from_f<T>(dv[i][c]);
+    for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * (tx + 16 * cc) + e;
+        if (d < a.D) {
+          dkp[key * a.sdk.t + d] = from_f<T>(dk[i][4 * cc + e] * a.scale);
+          dvp[key * a.sdv.t + d] = from_f<T>(dv[i][4 * cc + e]);
+        }
       }
     }
   }
@@ -1430,6 +1676,36 @@ cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
                   : launch_dkv_instance<D, false>(a, stream);
 }
 
+// the FMA dq and dk/dv: KS 64 for D <= 64 (two blocks an SM), else 128
+template <typename K>
+cudaError_t launch_tiled(K kernel, dim3 grid, int bytes, const BwdArgs& a, cudaStream_t s) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kTileThreads, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int KS>
+cudaError_t launch_dq_tiled(const BwdArgs& a, int bf16, cudaStream_t s) {
+  const dim3 grid((a.Tq + kTileRows - 1) / kTileRows, a.H, a.B);
+  constexpr int bytes = dq_tile_smem_bytes<KS>();
+  if (bf16)
+    return launch_tiled(flash_dq_scalar<__nv_bfloat16, KS, kCausalBuild>, grid, bytes, a, s);
+  return launch_tiled(flash_dq_scalar<float, KS, kCausalBuild>, grid, bytes, a, s);
+}
+
+template <int KS>
+cudaError_t launch_dkv_tiled(const BwdArgs& a, int bf16, cudaStream_t s) {
+  const dim3 grid((a.Tk + kTileRows - 1) / kTileRows, a.H, a.B);
+  constexpr int bytes = dkv_tile_smem_bytes<KS>();
+  if (bf16)
+    return launch_tiled(flash_dkv_scalar<__nv_bfloat16, KS, kCausalBuild>, grid, bytes, a, s);
+  return launch_tiled(flash_dkv_scalar<float, KS, kCausalBuild>, grid, bytes, a, s);
+}
+
 // dispatch on the head width of the tensor-core instances
 template <template <int> class L, typename A>
 cudaError_t by_width(int D, const A& a, cudaStream_t s) {
@@ -1473,9 +1749,17 @@ Bias make_bias(const void* p, int bf16, long long sh, long long st) {
   Bias b;
   b.p = p;
   b.bf16 = bf16;
+  b.vec = reinterpret_cast<uintptr_t>(p) % (bf16 ? 8 : 16) == 0 && sh % 4 == 0 && st % 4 == 0;
   b.sh = sh;
   b.st = st;
   return b;
+}
+
+// every row of the operand starts 16-byte aligned (fp32: element strides
+// that are multiples of 4 from a 16-byte aligned pointer)
+bool rows_aligned16(const void* p, const Strides& s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % 4 == 0 && s.h % 4 == 0 &&
+         s.t % 4 == 0;
 }
 
 Drop make_drop(int on, unsigned threshold, float inv_keep, unsigned long long seed) {
@@ -1505,8 +1789,18 @@ void fill_bwd(BwdArgs& a, const void* q, const void* k, const void* v, const int
   a.Tq = Tq;
   a.Tk = Tk;
   a.D = D;
+  a.vec = 0;
+  a.n16 = 0;
   a.scale = scale;
   a.drop = drop;
+}
+
+// what the FMA dq and dk/dv read besides the problem: the alignment of
+// the operands' rows and D's 16-column groups
+void set_tile_args(BwdArgs& a) {
+  a.vec = rows_aligned16(a.q, a.sq) && rows_aligned16(a.k, a.sk) && rows_aligned16(a.v, a.sv) &&
+          rows_aligned16(a.dout, a.sdo);
+  a.n16 = (a.D + 15) / 16;
 }
 
 }  // namespace
@@ -1593,19 +1887,9 @@ int flash_dq(const void* q, const void* k, const void* v, const int* mask, const
     if (!dtype_bf16) return (int)cudaErrorInvalidValue;
     return (int)by_width<DqMma>(D, a, s);
   }
-  const int bytes = scalar_dq_smem_floats(D) * 4;
-  const dim3 grid((Tq + kScalarRows - 1) / kScalarRows, B * H);
-  cudaError_t err;
-  if (dtype_bf16) {
-    err = allow_smem(flash_dq_scalar<__nv_bfloat16, kCausalBuild>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_dq_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
-  } else {
-    err = allow_smem(flash_dq_scalar<float, kCausalBuild>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_dq_scalar<float, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+  set_tile_args(a);
+  return (int)(D <= 64 ? launch_dq_tiled<64>(a, dtype_bf16, s)
+                       : launch_dq_tiled<128>(a, dtype_bf16, s));
 }
 
 // dk and dv of one backward call (kernel 7). strides holds 20 element
@@ -1634,19 +1918,9 @@ int flash_dkv(const void* q, const void* k, const void* v, const int* mask, cons
     if (!dtype_bf16) return (int)cudaErrorInvalidValue;
     return (int)by_width<DkvMma>(D, a, s);
   }
-  const int bytes = scalar_dkv_smem_floats(D) * 4;
-  const dim3 grid((Tk + kScalarRows - 1) / kScalarRows, B * H);
-  cudaError_t err;
-  if (dtype_bf16) {
-    err = allow_smem(flash_dkv_scalar<__nv_bfloat16, kCausalBuild>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_dkv_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
-  } else {
-    err = allow_smem(flash_dkv_scalar<float, kCausalBuild>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_dkv_scalar<float, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+  set_tile_args(a);
+  return (int)(D <= 64 ? launch_dkv_tiled<64>(a, dtype_bf16, s)
+                       : launch_dkv_tiled<128>(a, dtype_bf16, s));
 }
 
 // dbias of one backward call (kernel 8): dbias [H, Tq, Tk] fp32

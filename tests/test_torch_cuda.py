@@ -584,8 +584,19 @@ BWD_CASES = [
     (2, 4, 130, 77, 128, "bfloat16", [77, 0]),
     (3, 2, 96, 200, 64, "float32", [200, 131, 0]),
     (2, 3, 70, 70, 40, "bfloat16", [70, 9]),
+    # the FMA instances: the generation path's cross-attention call, and
+    # ragged tiles (Tq 200, Tk 77) at every width class, with an
+    # all-padding row
+    (16, 12, 128, 256, 64, "float32", [256] * 16),
+    (3, 2, 200, 77, 8, "float32", [77, 40, 0]),
+    (3, 2, 200, 77, 40, "float32", [77, 40, 0]),
+    (3, 2, 200, 77, 64, "float32", [77, 40, 0]),
+    (3, 2, 200, 77, 72, "float32", [77, 40, 0]),
+    (3, 2, 200, 77, 128, "float32", [77, 40, 0]),
 ]
-BWD_IDS = ["t256_bf16", "cross_d128_bf16", "cross_fp32", "ragged_d40_fma"]
+BWD_IDS = ["t256_bf16", "cross_d128_bf16", "cross_fp32", "ragged_d40_fma", "gen_cross_fp32",
+           "ragged_d8_fp32", "ragged_d40_fp32", "ragged_d64_fp32", "ragged_d72_fp32",
+           "ragged_d128_fp32"]
 
 
 def _bwd_inputs(card, B, H, Tq, Tk, D, dtype, lens):
@@ -658,6 +669,38 @@ def test_flash_bwd_kernels_take_the_training_strides(card, rate):
     assert all((x[3] == 0).all() for x in got)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("D", [40, 64])
+def test_flash_fp32_bwd_takes_unaligned_views(card, D, rate):
+    """fp32 q, k, v and do as views that start 4 bytes past a 16-byte
+    boundary with a row stride of D + 3 elements: the FMA dq and dk/dv
+    stage their tiles 4 bytes a copy and give the bits of the same call
+    on contiguous copies, within 1e-4 of scale of attention_bwd_plain."""
+    B, H, Tq, Tk = 2, 3, 90, 77
+    g = torch.Generator().manual_seed(D)
+
+    def view(T):
+        buf = torch.randn(B * H * T * (D + 3) + 1, generator=g).to(card)
+        return buf[1:].as_strided((B, H, T, D), (H * T * (D + 3), T * (D + 3), D + 3, 1))
+
+    q, do, k, v = view(Tq), view(Tq), view(Tk), view(Tk)
+    assert q.data_ptr() % 16 == 4
+    bias = torch.randn(H, Tq, Tk, generator=g).to(card)
+    mask = (torch.arange(Tk)[None, :] < torch.tensor([77, 50])[:, None]).to(card)
+    kw = {"dropout_rate": rate, "seed": 31, "bias": bias}
+    o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)[:3]
+    dense = fa.flash_bwd(q.contiguous(), k.contiguous(), v.contiguous(), mask, o, lse,
+                         do.contiguous(), **kw)[:3]
+    bits = fa.dropout_bits(31, B, H, Tq, Tk, card) if rate else None
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, dropout_rate=rate, bits=bits,
+                                  bias=bias)[:3]
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, dense, want):
+        assert torch.equal(x, y)
+        _close(x, z, "float32")
+
+
 def test_flash_fwd_dropout_keeps_the_philox_mask(card):
     """The forward kernel's dropout against the plain version with the
     same seed, a keep fraction near 0.9, and another seed another o."""
@@ -709,9 +752,10 @@ BIAS_CASES = [
     (2, 4, 130, 77, 128, "bfloat16", "float32", [77, 0], False),
     (3, 2, 96, 200, 64, "float32", "float32", [200, 131, 0], False),
     (2, 3, 70, 70, 40, "bfloat16", "bfloat16", [70, 9], False),
+    (16, 12, 256, 256, 64, "float32", "float32", [256] * 16, False),
 ]
 BIAS_IDS = ["t256_bf16", "training_strides", "cross_d128_fp32_bias", "cross_fp32",
-            "ragged_d40_fma"]
+            "ragged_d40_fma", "gen_encoder_fp32"]
 
 
 def _bias_inputs(card, B, H, Tq, Tk, D, dtype, bias_dtype, lens, strided):
@@ -894,9 +938,10 @@ CAUSAL_CASES = [
     (2, 4, 256, 64, "bfloat16", False, [256, 100], 0),
     (2, 4, 130, 32, "float32", False, [130, 65], 3),
     (2, 2, 96, 40, "bfloat16", True, [96, 50], 0),
+    (16, 12, 128, 64, "float32", True, [128] * 16, 0),
 ]
 CAUSAL_IDS = ["bf16_T200_biased_lead_pad", "fp32_T200_biased_lead_pad", "bf16_T256",
-              "fp32_T130_D32", "bf16_D40_fma"]
+              "fp32_T130_D32", "bf16_D40_fma", "gen_decoder_fp32"]
 
 
 def _causal_inputs(card, B, H, T, D, dtype, biased, lens, lead_pad):
