@@ -185,10 +185,13 @@ prints one JSON line; any failure exits non-zero before the last line.
    with and without the bias) and at the gen path's fp32 calls (decoder
    T 128 causal with the bias, cross 128 x 256, encoder 256 with the
    bias); this run's unbiased non-causal flagship times beside the ones
-   PERF.md records from before the causal build, and its fp32 dq and
-   dk/dv times at the gen calls beside the first FMA version's
-   (FP32_BWD_BASELINE_MS), with the register-tiled instances' registers
-   and spills from the build (none may spill at D 64);
+   PERF.md records from before the causal build, its fp32 dq and dk/dv
+   times at the gen calls beside the first FMA version's
+   (FP32_BWD_BASELINE_MS), and its forward times at the gen calls and
+   the flagship call (plain, bias, causal, causal + bias, dropout 0.1)
+   beside the first design's (FWD_BASELINE_MS), with the registers and
+   spills from the build of every forward instance at D 64 and the
+   register-tiled fp32 dq and dk/dv (none may spill);
 18. train_gen — `train-gen`'s path (the CLI's hash tokenizer at vocab
    32100, reader and codet5-base-width model in fp32, 12 + 12 layers)
    through GenTrainer.fit: 4 batches of 16 summarize rows (256 -> 128
@@ -2446,13 +2449,34 @@ FP32_BWD_BASELINE_MS = {
     "gen_cross_t128x256": {"flash_dq": 0.3138, "flash_dkv": 0.4026},
     "gen_encoder_t256": {"flash_dq": 0.6015, "flash_dkv": 0.8173},
 }
-#: the register-tiled FMA dq and dk/dv instances the gen path launches
-#: (fp32, D 64), by library: ptxas must report no spills for them
-FP32_BWD_INSTANCES = {
-    "flash_attention": ("flash_dq_scalar<float, 64>", "flash_dkv_scalar<float, 64>"),
-    "flash_attention_causal": ("flash_dq_scalar<float, 64, causal>",
-                               "flash_dkv_scalar<float, 64, causal>"),
+#: kernel 5's times that PERF.md records from before its redesign (NVIDIA
+#: H100 80GB HBM3, 700 W): the FMA instance at the gen path's calls (one
+#: key a lane) and the tensor-core instance at the flagship call (B 16,
+#: H 12, T 512, D 64, bf16; each tile's loads behind two barriers, the
+#: bias read from device memory a pair at a time)
+FWD_BASELINE_MS = {
+    "gen_decoder_t128": 0.1019, "gen_cross_t128x256": 0.2465, "gen_encoder_t256": 0.4708,
+    "flagship": 0.1360, "flagship_bias": 0.2334, "flagship_causal": 0.1118,
+    "flagship_causal_bias": 0.1813, "flagship_dropout": 0.2133,
 }
+
+
+def no_spill_report(ptxas: dict) -> dict:
+    """{kernel: ptxas's registers and spills} of the instances that must
+    not spill, in both flash libraries: every forward instance at D 64 (the
+    three tensor-core ones, without a bias and with a bf16 or fp32 bias;
+    the fp32 and bf16 FMA ones) and the register-tiled fp32 dq and dk/dv
+    that the gen path launches; None for one the build did not report."""
+    out = {}
+    for lib, c in (("flash_attention", ""), ("flash_attention_causal", ", causal")):
+        mma = sorted(k for k in ptxas[lib] if k.startswith("flash_fwd_bf16_mma<64, "))
+        out.update({k: ptxas[lib][k] for k in mma})
+        if len(mma) != 3:
+            out[f"flash_fwd_bf16_mma<64, ...{c}> x 3"] = None
+        for k in (f"flash_fwd_scalar<float, 64{c}>", f"flash_fwd_scalar<bf16, 64{c}>",
+                  f"flash_dq_scalar<float, 64{c}>", f"flash_dkv_scalar<float, 64{c}>"):
+            out[k] = ptxas[lib].get(k)
+    return out
 
 
 def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
@@ -2465,7 +2489,7 @@ def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
     return int((m * torch.arange(m.shape[1], 0, -1)).sum())
 
 
-def flash_causal_kernel_phase(torch, noncausal: dict, ptxas: dict):
+def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, ptxas: dict):
     """Kernels 5-8 with the causal mask (the causal build of the flash
     source) against the plain versions on the card, and the fp32 (FMA)
     instances at the generation path's shapes: o within 2e-2 (bf16) or
@@ -2479,13 +2503,18 @@ def flash_causal_kernel_phase(torch, noncausal: dict, ptxas: dict):
     and its backward, and the bounds over the live pairs. `noncausal`
     holds this run's unbiased non-causal flagship times, set beside
     NONCAUSAL_BASELINE_MS; the gen calls' dq and dk/dv times are set
-    beside FP32_BWD_BASELINE_MS. `ptxas` is the build's report by library:
-    the FP32_BWD_INSTANCES must not spill."""
+    beside FP32_BWD_BASELINE_MS, and the forward's times there and at the
+    flagship call (`fwd_flagship`: this run's plain, bias and dropout
+    times; the causal ones are this phase's) beside FWD_BASELINE_MS.
+    `ptxas` is the build's report by library: the instances of
+    no_spill_report must not spill."""
     from deepdfa_tpu_torch.nn import flash_attention as fa
 
-    fp32_regs = {k: ptxas[lib].get(k) for lib, ks in FP32_BWD_INSTANCES.items() for k in ks}
-    if any(r is None or r["spill_bytes"] for r in fp32_regs.values()):
-        fail(f"flash_causal: a register-tiled fp32 instance is missing or spills: {fp32_regs}")
+    rows = fa._library(False).flash_fwd_tile_rows(1)
+    no_spill = no_spill_report(ptxas)
+    if any(r is None or r["spill_bytes"] for r in no_spill.values()):
+        fail(f"flash_causal: a D 64 forward or register-tiled fp32 instance is missing or "
+             f"spills: {no_spill}")
     H, D = 12, 64
     gen = torch.Generator().manual_seed(11)
     report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
@@ -2598,12 +2627,19 @@ def flash_causal_kernel_phase(torch, noncausal: dict, ptxas: dict):
                                     f"{kernel[len('flash_'):]}_ms"]}
                        for kernel, base in by_kernel.items()}
                 for case, by_kernel in FP32_BWD_BASELINE_MS.items()}
+    fwd_now = {**fwd_flagship, "flagship_causal": timing["flagship_t512"]["fwd_ms"],
+               "flagship_causal_bias": timing["t5_flagship_t512"]["fwd_ms"],
+               **{case: timing[case]["fwd_ms"] for case in FP32_BWD_BASELINE_MS}}
+    fwd = {case: {"ms": fwd_now[case], "baseline_ms": base,
+                  "baseline_over_ms": base / fwd_now[case]}
+           for case, base in FWD_BASELINE_MS.items()}
     emit({"phase": "kernel flash_causal", "ok": True,
           "tolerance": {"o": FLASH_TOL, "lse": "1e-5 + 1e-5 |lse|",
                         "grads": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"}},
           "max_abs_err": worst, "timed": timing,
           "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio,
-          "fp32_bwd_vs_baseline": fp32_bwd, "fp32_bwd_ptxas": fp32_regs, **report})
+          "fp32_bwd_vs_baseline": fp32_bwd, "fwd_vs_baseline": fwd, "fwd_mma_rows": rows,
+          "no_spill_ptxas": no_spill, **report})
     return worst, timing
 
 
@@ -3159,7 +3195,9 @@ def main() -> None:
     t5_train = train_combined_phase(torch, rng, "t5")
     causal_err, causal_timing = flash_causal_kernel_phase(torch, {
         "flash_fwd": flash_timing["ms"], "flash_dq": bwd_flash["dq_ms_rate0.0"],
-        "flash_dkv": bwd_flash["dkv_ms_rate0.0"]}, ptxas)
+        "flash_dkv": bwd_flash["dkv_ms_rate0.0"]}, {
+        "flagship": flash_timing["ms"], "flagship_dropout": flash_timing["dropout"]["ms"],
+        "flagship_bias": fb["fwd_ms"]}, ptxas)
     gen_train, gen_trainer, gen_state, _, gen_src, _ = train_gen_phase(torch, rng)
     gen_decode = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
     del gen_trainer, gen_state

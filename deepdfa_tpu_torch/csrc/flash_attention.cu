@@ -58,10 +58,12 @@
 // Design. The TPU kernels held a (b, h)'s whole k/v (or q/do) strip in
 // VMEM and looped inside one program. Here blocks run in parallel with
 // 227 KB of shared memory each:
-//  - forward: one block per (b*h, 64-row q-tile) streams k/v through
-//    shared memory in 64-key tiles with the FlashAttention-2 online
-//    softmax (running max and sum in fp32 registers, the accumulator
-//    rescaled by exp(m_old - m_new) when the max grows);
+//  - forward: one block per (b*h, q-tile) streams k/v through shared
+//    memory in 64-key tiles with the FlashAttention-2 online softmax
+//    (running max and sum in fp32 registers, the accumulator rescaled by
+//    exp(m_old - m_new) when the max grows). Both instances stage key
+//    tile k+1 (k, v, the kv mask and the bias tile) through cp.async into
+//    a two-stage ring while tile k computes;
 //  - dq: one block per (b*h, 64-row q-tile) loops over the k/v tiles,
 //    recomputing s and p from lse; dq stays in registers;
 //  - dk/dv: one block per (b*h, 64-key k-tile) loops over the q tiles
@@ -85,59 +87,77 @@
 // by predicate: the k loop of a forward or dq block whose q tile starts at
 // row r ends at min(Tk, r + rows); the q loop of a dk/dv block whose k tile
 // starts at key c starts at the q tile holding row c. Only a tile that
-// crosses the diagonal applies the per-element j <= i mask: the forward
-// runs that tile through its own instance of the tile body (a generic
-// lambda on kMasked), so every other tile runs the non-causal code; dq,
-// dk/dv and dbias test a per-tile flag instead (the split instance took
-// dq from 166 to 184 registers, 3 blocks an SM to 2, and was slower). A
-// dbias block whose tile lies wholly above the diagonal writes zeros and
-// returns, so every element of dbias is written once. The reference's
-// blocks are min(512, T), so at T <= 512 it skips nothing; 64 x 64 tiles
-// here skip (n - 1) n / 2 of n^2 tile pairs, n = T / 64.
+// crosses the diagonal applies the per-element j <= i mask: the
+// tensor-core forward runs that tile through its own instance of the tile
+// body (a generic lambda on kMasked), so every other tile runs the
+// non-causal code; the FMA forward, dq, dk/dv and dbias test a per-tile
+// flag instead (the split instance took dq from 166 to 184 registers, 3
+// blocks an SM to 2, and was slower). Both forwards hand out their q tiles
+// from the last one down, so that the blocks with the most key tiles
+// start first and the short ones fill the tail. A dbias block whose tile
+// lies wholly above the diagonal writes zeros and returns, so every
+// element of dbias is written once. The reference's blocks are min(512,
+// T), so at T <= 512 it skips nothing; 64 x 64 tiles here skip (n - 1) n
+// / 2 of n^2 tile pairs, n = T / 64.
 //
-// The bias. Each lane reads the bias elements its score fragment owns
-// straight from device memory: the [H, Tq, Tk] bias is shared by the B
-// blocks of a head and stays in the 50 MB L2 across them (6.3 MB in bf16
-// at H 12, T 512). dbias reads its lanes' elements once, before its batch
-// loop. Staging the bias tile through shared memory is later speed work.
+// The bias. The forward stages each [rows, 64] bias tile through the
+// cp.async ring with k and v and reads its fragments from shared memory.
+// dq and dk/dv read the bias elements their score fragments own straight
+// from device memory: the [H, Tq, Tk] bias is shared by the B blocks of a
+// head and stays in the 50 MB L2 across them (6.3 MB in bf16 at H 12, T
+// 512). dbias reads its lanes' elements once, before its batch loop.
 //
-//  - bf16, D a multiple of 16 (<= 128): 4 warps of 16 rows (64 per
-//    block). mma.sync m16n8k16 bf16 products with fp32 accumulators. The
-//    S, dP accumulators are reused as A fragments of the next product
-//    after their bf16 rounding (the reference's rounding points); the
-//    operand whose k-dimension runs along the rows of a row-major tile
-//    (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) comes through
-//    ldmatrix.trans. Shared rows are padded by 8 elements so fragment
-//    loads hit 32 distinct banks.
-//  - fp32 (and bf16 at other widths), forward and dbias: 4 warps; a lane
-//    scores one key of a 32-wide tile and owns D/32 output columns.
-//  - fp32 (and bf16 at other widths), dq and dk/dv: register-tiled FMA
-//    kernels. 256 threads over a 64 x 64 score tile each own a 4 x 4
-//    micro-tile of S and dP, so per 4 columns of a product 8 LDS.128 feed
-//    64 FMAs. (The first version scored one key a lane, and about one
-//    shared load fed each FMA: shared memory, not the FMA units, set the
-//    pace, at 12% of the fp32 peak.) The k/v (dq) or q/do (dk/dv) tiles
-//    come in through 16-byte cp.async into a two-stage ring while the
-//    tile before computes (4-byte copies where a row is not 16-byte
-//    aligned; bf16 through registers). At D <= 64, ~113 KB of shared
-//    memory and 128 registers a thread give two blocks an SM; at D <= 128
-//    one. Bound at the generation path's calls (B 16, H 12, D 64, fp32,
-//    every key live): the encoder's T 256 dq 4.8 GFLOP (0.072 ms at 67
-//    TFLOP/s), dk/dv 6.4 GFLOP (0.096 ms); cross-attention 128 x 256
-//    0.036 and 0.048 ms; the causal decoder's T 128 is bound by bytes
-//    (0.0097 and 0.0121 ms). Plain fp32 FMA, no TF32 (the generation
-//    path's fp32 contract), d and k ascending in every sum.
+//  - bf16, D a multiple of 16 (<= 128): warps of 16 rows (the
+//    non-causal forward at D <= 64: 32, two m16 tiles sharing each k/v
+//    fragment load, 128 rows a block). mma.sync m16n8k16 bf16 products
+//    with fp32 accumulators. The S, dP accumulators
+//    are reused as A fragments of the next product after their bf16
+//    rounding (the reference's rounding points); the operand whose
+//    k-dimension runs along the rows of a row-major tile (V in P.V, K in
+//    dS.K, dO in P^T.dO, Q in dS^T.Q) comes through ldmatrix.trans. Shared
+//    rows are padded by 8 elements so fragment loads hit 32 distinct banks.
+//    Bound of the forward at the flagship call (B 16, H 12, T 512, D 64,
+//    every key live): 12.9 GFLOP, 0.013 ms at 989 TFLOP/s, on ~50 MB,
+//    0.015 ms at 3.35 TB/s (56.6 MB and 0.017 ms with a bf16 bias): bytes
+//    bind, and the tensor cores idle while a tile's loads wait. So the
+//    forward keeps the next tile's copies in flight (two stages in
+//    dynamic shared memory), feeds the products through ldmatrix.x4 (two
+//    n8 tiles a load), reads the bias from the staged tile, and makes one
+//    Philox call a lane per n8 tile: the quad's four calls cover its two
+//    rows x two 4-column groups, and each lane hands its 4 keep bits to
+//    the quad by shuffle. Its exponentials are ex2.approx.ftz of a
+//    log2(e)-scaled score (expf was ~8 instructions an element and held
+//    the plain call): relative error ~2^-22, and a p below 2^-126 is
+//    flushed to 0; the backward kernels recompute p from lse with expf.
+//  - fp32 (and bf16 at other widths), forward, dq and dk/dv:
+//    register-tiled FMA kernels. 256 threads over a 64 x 64 score tile
+//    each own a 4 x 4 micro-tile of S (and dP), so per 4 columns of a
+//    product 8 LDS.128 feed 64 FMAs. (The first versions scored one key a
+//    lane, and about one shared load fed each FMA: shared memory, not the
+//    FMA units, set the pace, at 8-12% of the fp32 peak.) The k/v
+//    (forward, dq) or q/do (dk/dv) tiles come in through 16-byte cp.async
+//    into a two-stage ring while the tile before computes (4-byte copies
+//    where a row is not 16-byte aligned; bf16 through registers). At D <=
+//    64, ~113 KB of shared memory and 128 registers a thread give two
+//    blocks an SM (the forward's p tile is written over the bias tile it
+//    came from to fit); at D <= 128 one. Bound at the generation path's
+//    calls (B 16, H 12, D 64, fp32, every key live): the encoder's T 256
+//    forward 3.2 GFLOP (0.048 ms at 67 TFLOP/s), dq 4.8 GFLOP (0.072 ms),
+//    dk/dv 6.4 GFLOP (0.096 ms); cross-attention 128 x 256 0.024, 0.036
+//    and 0.048 ms; the causal decoder's T 128 is bound by bytes (forward
+//    0.0078, dq 0.0097 and dk/dv 0.0121 ms). Plain fp32 FMA, no TF32 (the
+//    generation path's fp32 contract), d and k ascending in every sum.
+//  - fp32 (and bf16 at other widths), dbias: 4 warps; a lane scores one
+//    key of a 32-wide tile.
 //
-// Bound on this card, at the flagship training call (B 16, H 12, T 512,
-// D 64, bf16, every key live): the forward does 2 products (12.9 GFLOP,
-// 0.013 ms at 989 TFLOP/s) on ~50 MB (0.015 ms at 3.35 TB/s), 56.6 MB
-// with a bf16 bias; dq does 3 (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019
-// ms); dk/dv 4 (25.8 GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9
-// GFLOP) on ~70 MB with its fp32 output (0.021 ms: bytes bind). The
-// tensor-core kernels and the FMA forward and dbias have no TMA, no wgmma
-// and no double buffering: each tile's loads wait on a barrier, and the
-// Philox words are recomputed per lane (2 of each call's 4 words used in
-// the forward, dq and dbias, 1 in the tensor-core dk/dv; the FMA dq and
+// Bound of the backward at the flagship training call: dq does 3
+// products (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8
+// GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9 GFLOP) on ~70 MB
+// with its fp32 output (0.021 ms: bytes bind). The tensor-core dq, dk/dv
+// and dbias and the FMA dbias have no TMA, no wgmma and no double
+// buffering: each tile's loads wait on a barrier, and the Philox words
+// are recomputed per lane (2 of each call's 4 words used in dq and
+// dbias, 1 in the tensor-core dk/dv; both forwards and the FMA dq and
 // dk/dv use all 4).
 //
 // The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
@@ -161,7 +181,7 @@ constexpr int kStaticSmem = 48 * 1024;
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = kMmaWarps * 16;  // query (dq, fwd) or key (dk/dv) rows per block
+constexpr int kMmaRows = kMmaWarps * 16;  // query (dq, dbias) or key (dk/dv) rows per block
 constexpr int kMmaKeys = 64;               // keys (fwd, dq) or queries (dk/dv) per tile
 
 constexpr int kScalarWarps = 4;
@@ -188,7 +208,8 @@ struct Drop {
 struct Bias {
   const void* p;
   int bf16;
-  int vec;  // every row start is 16-byte (fp32) or 8-byte (bf16) aligned
+  int vec;    // every row start is 16-byte (fp32) or 8-byte (bf16) aligned
+  int vec16;  // every row start is 16-byte aligned
   long long sh, st;
 };
 
@@ -200,6 +221,8 @@ struct Args {
   void* o;
   float* lse;  // [B, H, Tq] contiguous
   int B, H, Tq, Tk, D;
+  int vec;  // the FMA forward: fp32 q, k and v rows all start 16-byte aligned
+  int n16;  // the FMA forward: D rounded up to 16, in 16-column groups
   float scale;
   Drop drop;
   Bias bias;
@@ -248,18 +271,6 @@ __device__ __forceinline__ float bias_at(const Bias& bi, int h, int row, int col
   const long long off = (long long)h * bi.sh + (long long)row * bi.st + col;
   return bi.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bi.p)[off])
                  : static_cast<const float*>(bi.p)[off];
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // ---------------------------------------------------------------------------
@@ -428,141 +439,413 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&ac
 }
 
 // ---------------------------------------------------------------------------
-// forward, bf16 on tensor cores
+// cp.async: 16- and 4-byte copies from device into shared memory that run
+// while the block computes; src_bytes < the copy's size zero-fills the rest
 
-// kBias (here and in dq, dk/dv): the instance that adds a.bias; the
-// unbiased one carries none of its code, so the bias costs the RoBERTa
-// path no registers or instructions
-template <int D, bool kBias, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
-  constexpr int KS = D + 8;  // padded shared row, in elements
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16 on tensor cores: one block per (b*h, ROWS-row q tile),
+// a warp per 16 (or 32) rows; the q tile is staged once, and k, v, the kv
+// mask and the bias tile of key tile k+1 come in through cp.async into a
+// two-stage ring while tile k's products run
+
+// The tile layout of the tensor-core forward: query rows a block (64 or
+// 128) and a warp (16 or 32: one or two m16 tiles, which share each k/v
+// fragment load). 128 x 32 for the non-causal build at D <= 64, else
+// 64 x 16: the faster at the flagship calls, weighted by the main paths'
+// launches (PERF.md, PR 10).
+template <int D, bool kCausal>
+struct FwdMmaLayout {
+  static constexpr bool kWide = D <= 64 && !kCausal;
+  static constexpr int kRows = kWide ? 128 : 64;
+  static constexpr int kWarpRows = kWide ? 32 : 16;
+};
+
+// a staged bias row: the tile's 64 keys and 8 elements of padding, so the
+// fragment reads of a warp's 8 rows hit distinct banks
+constexpr int kBiasRow = kMmaKeys + 8;
+
+// [stage][k, v][64][D + 8] bf16
+template <int D>
+__host__ __device__ constexpr int fwd_kv_bytes() {
+  return 2 * 2 * kMmaKeys * (D + 8) * 2;
+}
+
+// one stage of the staged bias tile: [rows][kBiasRow] in the bias's dtype
+__host__ __device__ constexpr int fwd_bias_stage_bytes(int rows, int bf16) {
+  return rows * kBiasRow * (bf16 ? 2 : 4);
+}
+
+// S += Q K^T for the 64 keys of a [64][KS] shared k tile and the warp's MT
+// m16 tiles, whose q rows start at `q_rows` of a [.][KS] shared tile: per
+// k-step, ldmatrix.x4 hands each lane the A fragment of an m16 tile, or
+// the B fragments of two n8 tiles, used by every m16 tile
+template <int MT, int NJ, int NK, int KS>
+__device__ __forceinline__ void mma_qk(float (&acc)[MT][NJ][4], const __nv_bfloat16* q_rows,
+                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const __nv_bfloat16* p = q_rows + (16 * m + (lane & 15)) * KS + kk * 16 + (lane >> 4) * 8;
+      const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(a[m][0]), "=r"(a[m][1]), "=r"(a[m][2]), "=r"(a[m][3])
+                   : "r"(addr)
+                   : "memory");
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      const __nv_bfloat16* p =
+          tile + ((2 * jj + (lane >> 4)) * 8 + (lane & 7)) * KS + kk * 16 + ((lane >> 3) & 1) * 8;
+      const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+      uint32_t b0, b1, b2, b3;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+                   : "r"(addr)
+                   : "memory");
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(acc[m][2 * jj], a[m], b0, b1);
+        mma_bf16(acc[m][2 * jj + 1], a[m], b2, b3);
+      }
+    }
+  }
+}
+
+// O += round(P) V for the warp's MT m16 tiles: the S accumulators of
+// n-tiles 2kk, 2kk+1, rounded to bf16, are the A fragment of k-step kk;
+// ldmatrix.x4.trans hands each lane the B fragments of two n8 column
+// tiles of the [64][KS] v tile at once
+template <int MT, int NJ, int NO, int KS>
+__device__ __forceinline__ void mma_pv(float (&acc)[MT][NO][4], const float (&x)[MT][NJ][4],
+                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    uint32_t xa[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      xa[m][0] = pack_bf16(x[m][2 * kk][0], x[m][2 * kk][1]);
+      xa[m][1] = pack_bf16(x[m][2 * kk][2], x[m][2 * kk][3]);
+      xa[m][2] = pack_bf16(x[m][2 * kk + 1][0], x[m][2 * kk + 1][1]);
+      xa[m][3] = pack_bf16(x[m][2 * kk + 1][2], x[m][2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      const __nv_bfloat16* p = tile + (kk * 16 + (lane & 15)) * KS + (n + (lane >> 4)) * 8;
+      const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+      uint32_t b0, b1, b2, b3;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+                   : "r"(addr)
+                   : "memory");
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(acc[m][n], xa[m], b0, b1);
+        mma_bf16(acc[m][n + 1], xa[m], b2, b3);
+      }
+    }
+  }
+}
+
+// rows [row0, row0 + R) of a strided [rows, D] bf16 operand (16-byte
+// aligned rows) into a shared tile of row stride KS through 16-byte
+// cp.async; zeros past `rows`. The caller commits.
+template <int R, int D, int KS, int NT>
+__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                                        int rows, long long stride, int tid) {
+  constexpr int CH = D / 8;
+  for (int idx = tid; idx < R * CH; idx += NT) {
+    const int r = idx / CH, c = (idx - r * CH) * 8;
+    const bool in = row0 + r < rows;
+    cp_async16(dst + r * KS + c, in ? static_cast<const void*>(src + (row0 + r) * stride + c) : src,
+               in ? 16 : 0);
+  }
+}
+
+// bias[h, r0 .. r0+ROWS-1, k0 .. k0+63] into a [ROWS][kBiasRow] shared
+// tile in the bias's own dtype (ES bytes an element: 2 bf16, 4 fp32),
+// zeros past Tq and Tk: 16-byte cp.async where every bias row starts
+// 16-byte aligned (the caller commits), else element by element through
+// registers
+template <int ROWS, int NT, int ES>
+__device__ __forceinline__ void stage_bias_raw(unsigned char* dst, const Bias& bi, int h, int r0,
+                                               int k0, int Tq, int Tk, int tid) {
+  const unsigned char* src =
+      static_cast<const unsigned char*>(bi.p) + ((long long)h * bi.sh + k0) * ES;
+  if (bi.vec16) {
+    constexpr int per = 16 / ES;        // elements a chunk
+    constexpr int ch = kMmaKeys / per;  // chunks a row
+    for (int idx = tid; idx < ROWS * ch; idx += NT) {
+      const int r = idx / ch, c = idx - r * ch;
+      const int n = r0 + r < Tq ? min(per, max(0, Tk - k0 - c * per)) : 0;
+      cp_async16(dst + (r * kBiasRow + c * per) * ES,
+                 n ? static_cast<const void*>(src + ((long long)(r0 + r) * bi.st + c * per) * ES)
+                   : src,
+                 n * ES);
+    }
+    return;
+  }
+  for (int idx = tid; idx < ROWS * kMmaKeys; idx += NT) {
+    const int r = idx / kMmaKeys, c = idx - r * kMmaKeys;
+    const bool in = r0 + r < Tq && k0 + c < Tk;
+    const long long off = (long long)(r0 + r) * bi.st + c;
+    if (ES == 2)
+      reinterpret_cast<uint16_t*>(dst)[r * kBiasRow + c] =
+          in ? reinterpret_cast<const uint16_t*>(src)[off] : (uint16_t)0;
+    else
+      reinterpret_cast<float*>(dst)[r * kBiasRow + c] =
+          in ? reinterpret_cast<const float*>(src)[off] : 0.0f;
+  }
+}
+
+// the staged bias of (tile row r, columns col, col + 1), ES bytes an element
+template <int ES>
+__device__ __forceinline__ float2 bias_pair(const unsigned char* tile, int r, int col) {
+  if (ES == 2) {
+    const __nv_bfloat162 v =
+        *reinterpret_cast<const __nv_bfloat162*>(tile + (r * kBiasRow + col) * 2);
+    return make_float2(__low2float(v), __high2float(v));
+  }
+  return *reinterpret_cast<const float2*>(tile + (r * kBiasRow + col) * 4);
+}
+
+// 2^x on the special-function unit (one instruction; tiny results flush
+// to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// [rows][D + 8] bf16: the q tile of the tensor-core forward
+template <int D>
+__host__ __device__ constexpr int fwd_q_bytes(int rows) {
+  return rows * (D + 8) * 2;
+}
+
+// dynamic shared memory of the tensor-core forward: the k/v ring, the q
+// tile, the mask ring, and with a bias its two stages
+template <int D>
+int fwd_mma_smem_bytes(int rows, const Bias& bi) {
+  return fwd_kv_bytes<D>() + fwd_q_bytes<D>(rows) + 2 * kMmaKeys * 4 +
+         (bi.p ? 2 * fwd_bias_stage_bytes(rows, bi.bf16) : 0);
+}
+
+// BIAS: the bytes of a bias element, 2 (bf16) or 4 (fp32), or 0 for the
+// unbiased instance, which carries none of its code, so the bias costs the
+// RoBERTa path no registers or instructions (kBias in dq and dk/dv). At D
+// <= 64 and 16 rows a warp the unbiased instance is held to 128 registers,
+// for 16 warps an SM; the biased ones are held to three blocks by shared
+// memory.
+template <int D, int ROWS, int WR, int BIAS, bool kCausal>
+__global__ void __launch_bounds__(ROWS / WR * 32,
+                                  (D <= 64 && WR == 16 && !BIAS) ? 512 / (ROWS / WR * 32) : 1)
+    flash_fwd_bf16_mma(Args a) {
+  constexpr bool kBias = BIAS != 0;
+  constexpr int NT = ROWS / WR * 32;  // a warp per WR rows
+  constexpr int MT = WR / 16;  // m16 tiles a warp
+  constexpr int KS = D + 8;     // padded shared row, in elements
   constexpr int NJ = kMmaKeys / 8;  // n8 tiles of S
   constexpr int NK = D / 16;  // k16 steps of Q K^T
   constexpr int NO = D / 8;  // n8 tiles of O
-  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaKeys * KS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaKeys * KS];
-  __shared__ float ok_s[kMmaKeys];
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [stage][k, v][64][KS]
+  __nv_bfloat16* q_s = kv_s + 4 * kMmaKeys * KS;                  // [ROWS][KS]
+  int* ok_s = reinterpret_cast<int*>(q_s + ROWS * KS);            // [stage][64]
+  // [stage][ROWS][kBiasRow] in the bias's dtype
+  unsigned char* bias_s = reinterpret_cast<unsigned char*>(ok_s + 2 * kMmaKeys);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh - b * a.H;
-  const int r0 = blockIdx.x * kMmaRows + warp * 16 + g;  // this lane's rows
-  const int r1 = r0 + 8;
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  // causal: the q tiles from the last one down, so that the longest
+  // blocks of every head start first
+  const int q_start = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * ROWS;
+  const int w0 = q_start + warp * WR;  // this warp's first row
+  // this lane's rows: r0 + 16m and r0 + 16m + 8 of m16 tile m
+  const int r0 = w0 + g;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const int* maskp = a.mask + (long long)b * a.Tk;
-
-  uint32_t qf[NK][4];
-  global_a_frags<NK>(qf, qp, r0, r1, a.Tq, a.sq.t, t);
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  float m0 = kNegBig, m1 = kNegBig;  // running max of rows r0, r1 (quad-uniform)
-  float l0 = 0.0f, l1 = 0.0f;  // this lane's share of the running sums
-  const int q_start = blockIdx.x * kMmaRows;
+  constexpr int bias_stage = kBias ? fwd_bias_stage_bytes(ROWS, BIAS == 2) : 0;
   // causal: the keys past this q tile's last row are dead for all its rows
-  const int k_end = kCausal ? min(a.Tk, q_start + kMmaRows) : a.Tk;
+  const int k_end = kCausal ? min(a.Tk, q_start + ROWS) : a.Tk;
+
+  // key tile k0 sits in stage (k0 / 64) & 1
+  auto stage = [&](int k0) {
+    const int st = (k0 / kMmaKeys) & 1;
+    __nv_bfloat16* ks = kv_s + st * 2 * kMmaKeys * KS;
+    cp_tile<kMmaKeys, D, KS, NT>(ks, kp, k0, a.Tk, a.sk.t, tid);
+    cp_tile<kMmaKeys, D, KS, NT>(ks + kMmaKeys * KS, vp, k0, a.Tk, a.sv.t, tid);
+    if (tid < kMmaKeys) {
+      const int* maskp = a.mask + (long long)b * a.Tk;
+      const bool in = k0 + tid < a.Tk;
+      cp_async4(ok_s + st * kMmaKeys + tid, in ? maskp + k0 + tid : maskp, in ? 4 : 0);
+    }
+    if constexpr (kBias)
+      stage_bias_raw<ROWS, NT, BIAS>(bias_s + st * bias_stage, a.bias, h, q_start, k0, a.Tq, a.Tk,
+                                     tid);
+    cp_async_commit();
+  };
+  cp_tile<ROWS, D, KS, NT>(q_s, static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h,
+                           q_start, a.Tq, a.sq.t, tid);
+  stage(0);  // one group: q and the first k/v tile
+
+  float o[MT][NO][4];
+  float m0[MT], m1[MT];  // running max of rows r0 + 16m, r0 + 16m + 8 (quad-uniform)
+  float l0[MT], l1[MT];  // this lane's share of the running sums
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) o[m][n][0] = o[m][n][1] = o[m][n][2] = o[m][n][3] = 0.0f;
+    m0[m] = m1[m] = kNegBig;
+    l0[m] = l1[m] = 0.0f;
+  }
 
   for (int k0 = 0; k0 < k_end; k0 += kMmaKeys) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
-    load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
-    if (tid < kMmaKeys) {
-      const int key = k0 + tid;
-      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    // one k tile; kMasked (the tile that crosses the diagonal) applies
-    // the per-element col <= row mask, every other tile runs the
-    // non-causal code
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every warp is done with the last one
+    if (k0 + kMmaKeys < k_end) stage(k0 + kMmaKeys);
+    const int st = (k0 / kMmaKeys) & 1;
+    const __nv_bfloat16* ks = kv_s + st * 2 * kMmaKeys * KS;
+    const unsigned char* bt = bias_s + st * bias_stage;
+    if (kCausal && w0 + WR - 1 < k0) continue;  // every key of the tile is past this warp's rows
+    // the tile's real keys as bits, bit c <-> column 2t + c of this lane
+    const int* okp = ok_s + st * kMmaKeys;
+    const uint64_t real =
+        ((uint64_t)__ballot_sync(0xffffffffu, okp[32 + lane] != 0) << 32 |
+         __ballot_sync(0xffffffffu, okp[lane] != 0)) >> (2 * t);
+
+    // one k tile; kMasked (a tile that crosses this warp's diagonal)
+    // applies the col <= row mask, every other tile runs the non-causal
+    // code
     auto tile = [&](auto masked) {
       constexpr bool kMasked = decltype(masked)::value;
-      // (row, tile column) is live: a real key, on or below the diagonal
-      auto live = [&](int col, int row) {
-        return ok_s[col] != 0.0f && (!kMasked || k0 + col <= row);
+      // the live columns of a row: real keys, with kMasked on or below
+      // the diagonal (bit c <-> column 2t + c)
+      auto live = [&](int row) -> uint64_t {
+        if (!kMasked) return real;
+        const int n = row - k0 - 2 * t + 1;  // columns 2t .. 2t + n - 1
+        return n >= 64 ? real : n <= 0 ? 0 : real & (((uint64_t)1 << n) - 1);
       };
 
-      // S = Q K^T: rows (r0, r1), columns j*8 + 2t + {0, 1}
-      float s[NJ][4];
+      // S = Q K^T: rows (r0, r0 + 8) + 16m, columns j*8 + 2t + {0, 1}
+      float s[MT][NJ][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) s[m][j][0] = s[m][j][1] = s[m][j][2] = s[m][j][3] = 0.0f;
+      }
+      mma_qk<MT, NJ, NK, KS>(s, q_s + (w0 - q_start) * KS, ks, lane);
 
-      // scale, bias and mask, the tile's row max over the quad
-      float mx0 = kNegBig, mx1 = kNegBig;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = j * 8 + 2 * t + e;
-          const bool ok0 = live(col, r0), ok1 = live(col, r1);
-          float b0 = 0.0f, b1 = 0.0f;
-          if (kBias) {
-            if (ok0 && r0 < a.Tq) b0 = bias_at(a.bias, h, r0, k0 + col);
-            if (ok1 && r1 < a.Tq) b1 = bias_at(a.bias, h, r1, k0 + col);
-          }
-          s[j][e] = ok0 ? s[j][e] * a.scale + b0 : kNegBig;
-          s[j][2 + e] = ok1 ? s[j][2 + e] * a.scale + b1 : kNegBig;
-          mx0 = fmaxf(mx0, s[j][e]);
-          mx1 = fmaxf(mx1, s[j][2 + e]);
-        }
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-      float ls0 = 0.0f, ls1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = j * 8 + 2 * t + e;
-          s[j][e] = live(col, r0) ? expf(s[j][e] - mn0) : 0.0f;
-          s[j][2 + e] = live(col, r1) ? expf(s[j][2 + e] - mn1) : 0.0f;
-          ls0 += s[j][e];
-          ls1 += s[j][2 + e];
-        }
-      }
-      l0 = l0 * al0 + ls0;  // the denominator stays undropped
-      l1 = l1 * al1 + ls1;
-      m0 = mn0;
-      m1 = mn1;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][0] *= al0;
-        o[n][1] *= al0;
-        o[n][2] *= al1;
-        o[n][3] *= al1;
-      }
-      if (a.drop.on) {
-        // columns j*8 + 2t + {0, 1} share one Philox call: words 2(t&1) + e
+      for (int m = 0; m < MT; ++m) {
+        const int ra = r0 + 16 * m, rb = ra + 8;
+        const uint64_t la = live(ra), lb = live(rb);
+        // scale, bias and mask (kNegBig where dead), the tile's row max
+        // over the quad
+        float mx0 = kNegBig, mx1 = kNegBig;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const int col = k0 + j * 8 + 2 * t;
-          const uint4 w0 = bits4(a.drop, bh, r0, col), w1 = bits4(a.drop, bh, r1, col);
-          const bool odd = t & 1;
-          const uint32_t b00 = odd ? w0.z : w0.x, b01 = odd ? w0.w : w0.y;
-          const uint32_t b10 = odd ? w1.z : w1.x, b11 = odd ? w1.w : w1.y;
-          const float inv = a.drop.inv_keep;
+          const int col = j * 8 + 2 * t;
+          float2 b0 = make_float2(0.0f, 0.0f), b1 = b0;
+          if constexpr (kBias) {
+            b0 = bias_pair<BIAS>(bt, ra - q_start, col);
+            b1 = bias_pair<BIAS>(bt, rb - q_start, col);
+          }
+          s[m][j][0] = (la >> (8 * j)) & 1 ? s[m][j][0] * a.scale + b0.x : kNegBig;
+          s[m][j][1] = (la >> (8 * j + 1)) & 1 ? s[m][j][1] * a.scale + b0.y : kNegBig;
+          s[m][j][2] = (lb >> (8 * j)) & 1 ? s[m][j][2] * a.scale + b1.x : kNegBig;
+          s[m][j][3] = (lb >> (8 * j + 1)) & 1 ? s[m][j][3] * a.scale + b1.y : kNegBig;
+          mx0 = fmaxf(mx0, fmaxf(s[m][j][0], s[m][j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[m][j][2], s[m][j][3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float mn0 = fmaxf(m0[m], mx0), mn1 = fmaxf(m1[m], mx1);
+        // p = exp(s - m) = 2^(s log2 e - m log2 e); a dead score (kNegBig)
+        // gives 0, also in a row with no live key yet (m = kNegBig)
+        const float ml0 = mn0 == kNegBig ? 0.0f : mn0 * kLog2e;
+        const float ml1 = mn1 == kNegBig ? 0.0f : mn1 * kLog2e;
+        const float al0 = ex2((m0[m] - mn0) * kLog2e), al1 = ex2((m1[m] - mn1) * kLog2e);
+        float ls0 = 0.0f, ls1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[m][j][e] = ex2(fmaf(s[m][j][e], kLog2e, -ml0));
+            s[m][j][2 + e] = ex2(fmaf(s[m][j][2 + e], kLog2e, -ml1));
+            ls0 += s[m][j][e];
+            ls1 += s[m][j][2 + e];
+          }
+        }
+        l0[m] = l0[m] * al0 + ls0;  // the denominator stays undropped
+        l1[m] = l1[m] * al1 + ls1;
+        m0[m] = mn0;
+        m1[m] = mn1;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          o[m][n][0] *= al0;
+          o[m][n][1] *= al0;
+          o[m][n][2] *= al1;
+          o[m][n][3] *= al1;
+        }
+        if (a.drop.on) {
+          // The quad's n8 tile j needs 4 Philox calls: rows (ra, rb) x
+          // the two 4-column groups j*8 + {0, 4}. Lane t makes the call
+          // of row ra or rb (t & 2) and group t & 1, and hands its 4 keep
+          // bits to the quad; lane t's columns 2t, 2t+1 are words
+          // 2(t & 1) + {0, 1} of group t >> 1.
           const uint32_t thr = a.drop.threshold;
-          s[j][0] = b00 < thr ? s[j][0] * inv : 0.0f;
-          s[j][1] = b01 < thr ? s[j][1] * inv : 0.0f;
-          s[j][2] = b10 < thr ? s[j][2] * inv : 0.0f;
-          s[j][3] = b11 < thr ? s[j][3] * inv : 0.0f;
+          const float inv = a.drop.inv_keep;
+          const int quad = lane & ~3, sh = 2 * (t & 1);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const uint4 w = bits4(a.drop, bh, (t & 2) ? rb : ra, k0 + j * 8 + 4 * (t & 1));
+            const uint32_t kb = (uint32_t)(w.x < thr) | (uint32_t)(w.y < thr) << 1 |
+                                (uint32_t)(w.z < thr) << 2 | (uint32_t)(w.w < thr) << 3;
+            const uint32_t k0b = __shfl_sync(0xffffffffu, kb, quad + (t >> 1)) >> sh;
+            const uint32_t k1b = __shfl_sync(0xffffffffu, kb, quad + 2 + (t >> 1)) >> sh;
+            s[m][j][0] = k0b & 1u ? s[m][j][0] * inv : 0.0f;
+            s[m][j][1] = k0b & 2u ? s[m][j][1] * inv : 0.0f;
+            s[m][j][2] = k1b & 1u ? s[m][j][2] * inv : 0.0f;
+            s[m][j][3] = k1b & 2u ? s[m][j][3] * inv : 0.0f;
+          }
         }
       }
 
-      // O += bf16(P) V: the S accumulators of n-tiles 2kk, 2kk+1 are the
-      // A fragment of k-step kk
-      mma_xv<NJ, NO, KS>(o, s, v_s, lane);
+      // O += bf16(P) V
+      mma_pv<MT, NJ, NO, KS>(o, s, ks + kMmaKeys * KS, lane);
     };
     if constexpr (kCausal) {
-      if (k0 + kMmaKeys > q_start)
+      if (k0 + kMmaKeys - 1 > w0)
         tile(std::true_type{});
       else
         tile(std::false_type{});
@@ -571,126 +854,31 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Args a) {
     }
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float d0 = fmaxf(l0, kTiny), d1 = fmaxf(l1, kTiny);
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + b * a.so.b + h * a.so.h;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < a.Tq)
-      *reinterpret_cast<__nv_bfloat162*>(op + r0 * a.so.t + c) =
-          __floats2bfloat162_rn(o[n][0] / d0, o[n][1] / d0);
-    if (r1 < a.Tq)
-      *reinterpret_cast<__nv_bfloat162*>(op + r1 * a.so.t + c) =
-          __floats2bfloat162_rn(o[n][2] / d1, o[n][3] / d1);
-  }
-  if (t == 0) {
-    float* lp = a.lse + (long long)bh * a.Tq;
-    if (r0 < a.Tq) lp[r0] = m0 + logf(d0);
-    if (r1 < a.Tq) lp[r1] = m1 + logf(d1);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward, fp32 (and bf16 at widths the mma path does not take): FMA loops
-
-template <typename T, bool kCausal>
-__global__ void __launch_bounds__(kScalarThreads) flash_fwd_scalar(Args a) {
-  constexpr int C = kMaxD / 32;  // output columns per lane, at most
-  __shared__ float q_s[kScalarRows][kMaxD];
-  __shared__ float k_s[kScalarKeys][kMaxD + 1];  // +1: lanes read distinct banks
-  __shared__ float v_s[kScalarKeys][kMaxD];
-  __shared__ float p_s[kScalarWarps][kScalarKeys];
-  __shared__ float ok_s[kScalarKeys];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh - b * a.H;
-  const int q0 = blockIdx.x * kScalarRows;
-  const int D = a.D;
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const int* maskp = a.mask + (long long)b * a.Tk;
-
-  for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
-    const int r = idx / D, c = idx - r * D;
-    q_s[r][c] = q0 + r < a.Tq ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
-  }
-  float m[kScalarRowsPerWarp], l[kScalarRowsPerWarp], acc[kScalarRowsPerWarp][C];
+  for (int m = 0; m < MT; ++m) {
+    const int ra = r0 + 16 * m, rb = ra + 8;
+    float la = l0[m], lb = l1[m];
+    la += __shfl_xor_sync(0xffffffffu, la, 1);
+    la += __shfl_xor_sync(0xffffffffu, la, 2);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 1);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+    const float d0 = fmaxf(la, kTiny), d1 = fmaxf(lb, kTiny);
 #pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-  }
-
-  // causal: the keys past this q tile's last row are dead for all its rows
-  const int k_end = kCausal ? min(a.Tk, q0 + kScalarRows) : a.Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kScalarKeys) {
-    __syncthreads();
-    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const int key = k0 + r;
-      k_s[r][c] = key < a.Tk ? to_f(kp[key * a.sk.t + c]) : 0.0f;
-      v_s[r][c] = key < a.Tk ? to_f(vp[key * a.sv.t + c]) : 0.0f;
+    for (int n = 0; n < NO; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (ra < a.Tq)
+        *reinterpret_cast<__nv_bfloat162*>(op + ra * a.so.t + c) =
+            __floats2bfloat162_rn(o[m][n][0] / d0, o[m][n][1] / d0);
+      if (rb < a.Tq)
+        *reinterpret_cast<__nv_bfloat162*>(op + rb * a.so.t + c) =
+            __floats2bfloat162_rn(o[m][n][2] / d1, o[m][n][3] / d1);
     }
-    if (tid < kScalarKeys) {
-      const int key = k0 + tid;
-      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
+    if (t == 0) {
+      float* lp = a.lse + (long long)bh * a.Tq;
+      if (ra < a.Tq) lp[ra] = m0[m] + logf(d0);
+      if (rb < a.Tq) lp[rb] = m1[m] + logf(d1);
     }
-    __syncthreads();
-    const bool diag = kCausal && k0 + kScalarKeys > q0;  // crosses the diagonal
-#pragma unroll
-    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-      const int row = warp * kScalarRowsPerWarp + i;
-      if (q0 + row >= a.Tq) continue;  // warp-uniform
-      float s = 0.0f;
-      for (int d = 0; d < D; ++d) s = fmaf(q_s[row][d], k_s[lane][d], s);
-      const bool ok = ok_s[lane] != 0.0f && (!diag || k0 + lane <= q0 + row);
-      const float bv = (a.bias.p && ok) ? bias_at(a.bias, h, q0 + row, k0 + lane) : 0.0f;
-      const float x = ok ? s * a.scale + bv : kNegBig;
-      const float m_new = fmaxf(m[i], warp_max(x));
-      const float p = ok ? expf(x - m_new) : 0.0f;
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);  // the denominator stays undropped
-      m[i] = m_new;
-      float pv = p;
-      if (a.drop.on)
-        pv = bits1(a.drop, bh, q0 + row, k0 + lane) < a.drop.threshold ? p * a.drop.inv_keep
-                                                                       : 0.0f;
-      p_s[warp][lane] = round_to<T>(pv);  // p in v's dtype for p.v
-      __syncwarp();
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int d = c * 32 + lane;
-        if (d < D) {
-          float x_acc = acc[i][c] * alpha;
-          for (int j = 0; j < kScalarKeys; ++j) x_acc = fmaf(p_s[warp][j], v_s[j][d], x_acc);
-          acc[i][c] = x_acc;
-        }
-      }
-      __syncwarp();
-    }
-  }
-
-  T* op = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
-#pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int row = q0 + warp * kScalarRowsPerWarp + i;
-    if (row >= a.Tq) continue;
-    const float den = fmaxf(l[i], kTiny);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) op[row * a.so.t + d] = from_f<T>(acc[i][c] / den);
-    }
-    if (lane == 0) a.lse[(long long)bh * a.Tq + row] = m[i] + logf(den);
   }
 }
 
@@ -960,28 +1148,6 @@ __device__ __forceinline__ float lane_of(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Rows r0 .. r0+63 (zero past `rows`) and columns 0 .. 16*n16-1 (zero
 // past D) of a strided [rows, D] operand into a [64][KS] fp32 tile,
 // swizzled with kSwz. fp32 goes through cp.async (the caller commits):
@@ -1142,6 +1308,196 @@ template <int KS>
 __host__ __device__ constexpr int dkv_tile_smem_bytes() {
   // k_s, v_s [64][KS]; q_s, do_s [2 stages][64][KS]; x_s [64][64]; ok_s [64]
   return (6 * kTileRows * KS + kTileRows * kTileKeys + kTileRows) * 4;
+}
+
+template <int KS>
+__host__ __device__ constexpr int fwd_tile_smem_bytes() {
+  // q_s [64][KS]; k_s, v_s [2 stages][64][KS]; x_s [2 stages][64][64]: the
+  // bias tile, then p over it; ok_s [2][64]
+  return (5 * kTileRows * KS + 2 * kTileRows * kTileKeys + 2 * kTileKeys) * 4;
+}
+
+// forward, fp32 (and bf16 at widths the mma path does not take): one block
+// per (b*h, 64-row q tile) loops over 64-key tiles; the next tile's k, v,
+// mask and bias come in through cp.async while this one computes. Here a
+// thread owns the queries 4ty .. 4ty+3 and the keys tx + 16j of the score
+// tile (S = Q K^T, the k tile swizzled), so a row's 64 scores lie in the
+// 16 lanes of one half warp: its max is 4 shuffles, and each thread keeps
+// its own share of the sum until the end. p replaces the bias element it
+// came from in x_s (the same thread reads and writes each element), and
+// o stays in registers: rows 4ty .. 4ty+3, the 4-column chunks tx (and
+// tx + 16 at KS 128). fp32 at KS 64 runs two blocks an SM (~113 KB, 128
+// registers); the bf16 instances (no main path) have no register cap: at
+// 128 registers the KS 64 one spilled 40 bytes.
+template <typename T, int KS, bool kCausal>
+__global__ void __launch_bounds__(kTileThreads, KS == 64 && sizeof(T) == 4 ? 2 : 1)
+    flash_fwd_scalar(Args a) {
+  constexpr int NC = KS / 64;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [64][KS]
+  float* kv_s = q_s + kTileRows * KS;           // [stage][k (swizzled), v][64][KS]
+  float* x_s = kv_s + 4 * kTileKeys * KS;       // [stage][64 rows][64 keys], swizzled
+  int* ok_s = reinterpret_cast<int*>(x_s + 2 * kTileRows * kTileKeys);  // [stage][64]
+
+  // Pointers and widths are read from the arguments where they are used
+  // (register pressure: two blocks an SM leave 128 registers a thread).
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int bh = b * a.H + h;
+  // causal: the q tiles from the last one down, so that the longest
+  // blocks start first
+  const int q0 = (kCausal ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * kTileRows;
+
+  const int k_end = kCausal ? min(a.Tk, q0 + kTileRows) : a.Tk;
+  // tile k0 sits in stage (k0 / 64) & 1
+  auto stage_kv = [&](int k0) {
+    const int st = (k0 / kTileKeys) & 1;
+    float* ks = kv_s + st * 2 * kTileKeys * KS;
+    stage_tile<T, KS, true>(ks, strip<T>(a.k, a.sk, b, h), k0, a.Tk, a.sk.t, a.D, a.n16, a.vec,
+                            tid);
+    stage_tile<T, KS, false>(ks + kTileKeys * KS, strip<T>(a.v, a.sv, b, h), k0, a.Tk, a.sv.t,
+                             a.D, a.n16, a.vec, tid);
+    if (a.bias.p) {
+      // bias[h, q0.., k0..] as a [64][64] tile swizzled like p: 4 of its
+      // 16 columns' chunks a thread, zeros past Tq and Tk
+      const long long off = (long long)h * a.bias.sh + k0;
+      float* xs = x_s + st * kTileRows * kTileKeys;
+      if (a.bias.bf16)
+        stage_tile<__nv_bfloat16, kTileKeys, true>(
+            xs, static_cast<const __nv_bfloat16*>(a.bias.p) + off, q0, a.Tq, a.bias.st,
+            a.Tk - k0, kTileKeys / 16, false, tid);
+      else
+        stage_tile<float, kTileKeys, true>(xs, static_cast<const float*>(a.bias.p) + off, q0,
+                                           a.Tq, a.bias.st, a.Tk - k0, kTileKeys / 16,
+                                           a.bias.vec != 0, tid);
+    }
+    if (tid < kTileKeys) {
+      const int* maskp = a.mask + (long long)b * a.Tk;
+      const bool in = k0 + tid < a.Tk;
+      cp_async4(ok_s + st * kTileKeys + tid, in ? maskp + k0 + tid : maskp, in ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  stage_tile<T, KS, false>(q_s, strip<T>(a.q, a.sq, b, h), q0, a.Tq, a.sq.t, a.D, a.n16, a.vec,
+                           tid);
+  stage_kv(0);  // one group: q and the first k/v tile
+
+  float o[4][4 * NC], m[4], l[4];  // l: this thread's share of the row sums
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegBig;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < k_end; k0 += kTileKeys) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every thread is done with the last one
+    if (k0 + kTileKeys < k_end) stage_kv(k0 + kTileKeys);
+    const int stage = (k0 / kTileKeys) & 1;
+    const float* ks = kv_s + stage * 2 * kTileKeys * KS;
+    float* xs = x_s + stage * kTileRows * kTileKeys;  // the bias tile, then p over it
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    }
+    tile_dots<KS>(s, q_s + 4 * ty * KS, ks + tx * KS, tx & 7, a.n16);  // S = Q K^T
+
+    // scale, bias and mask; live bit 4i + j: (row 4ty + i, key tx + 16j)
+    const bool diag = kCausal && k0 + kTileKeys > q0;  // crosses the diagonal
+    const int* okp = ok_s + stage * kTileKeys;
+    uint32_t live = 0;
+    float mx[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      mx[i] = kNegBig;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = okp[c] != 0 && (!diag || k0 + c <= q0 + r);
+        const float bv = a.bias.p ? xs[r * kTileKeys + 4 * swz(c >> 2, r) + (c & 3)] : 0.0f;
+        s[i][j] = ok ? s[i][j] * a.scale + bv : kNegBig;
+        live |= (uint32_t)ok << (4 * i + j);
+        mx[i] = fmaxf(mx[i], s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+    }
+
+    // dropout: lane e = tx & 3 of a quad (its keys are the 4 columns of one
+    // Philox group) makes the call of row 4ty + e, and the quad trades
+    // words so that each lane holds its own column's word of every row
+    uint32_t keep = 0xffffu;
+    if (a.drop.on) {
+      const int e = tx & 3, quad = (tid & 31) & ~3;
+      keep = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint4 w = bits4(a.drop, bh, q0 + 4 * ty + e, k0 + 16 * j + (tx & ~3));
+#pragma unroll
+        for (int sft = 0; sft < 4; ++sft) {
+          // lane e sends word e + sft of its row and takes word e of row e - sft
+          uint32_t x = word(w, (e + sft) & 3);
+          if (sft) x = __shfl_sync(0xffffffffu, x, quad | ((e - sft) & 3));
+          keep |= (uint32_t)(x < a.drop.threshold) << (4 * ((e - sft) & 3) + j);
+        }
+      }
+    }
+
+    // p = exp(s - m), the rescale, and round(d p) into x_s over the bias
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      const float mn = fmaxf(m[i], mx[i]);
+      const float alpha = expf(m[i] - mn);
+      float ls = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const float p = (live >> (4 * i + j)) & 1u ? expf(s[i][j] - mn) : 0.0f;
+        ls += p;
+        const float pv = (keep >> (4 * i + j)) & 1u ? (a.drop.on ? p * a.drop.inv_keep : p) : 0.0f;
+        xs[r * kTileKeys + 4 * swz(c >> 2, r) + (c & 3)] = round_to<T>(pv);  // v's dtype
+      }
+      l[i] = l[i] * alpha + ls;  // the denominator stays undropped
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) o[i][c] *= alpha;
+    }
+    __syncthreads();
+    // O += P V, keys ascending
+    tile_xv<KS, NC, true, false, 2>(o, xs + 4 * ty * kTileKeys, ks + kTileKeys * KS, ty, tx,
+                                    a.D);
+  }
+
+  T* out = static_cast<T*>(a.o) + b * a.so.b + h * a.so.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + 4 * ty + i;
+    if (row >= a.Tq) continue;
+    const float den = fmaxf(l[i], kTiny);
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 4 * (tx + 16 * cc) + e;
+        if (d < a.D) out[row * a.so.t + d] = from_f<T>(o[i][4 * cc + e] / den);
+      }
+    }
+    if (tx == 0) a.lse[(long long)bh * a.Tq + row] = m[i] + logf(den);
+  }
 }
 
 // dq: one block per (b*h, 64-row q tile) loops over 64-key k/v tiles; the
@@ -1633,15 +1989,6 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
-cudaError_t launch_fwd_mma(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  if (a.bias.p)
-    flash_fwd_bf16_mma<D, true, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
-  else
-    flash_fwd_bf16_mma<D, false, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
 
 template <int D>
 cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
@@ -1676,16 +2023,49 @@ cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
                   : launch_dkv_instance<D, false>(a, stream);
 }
 
-// the FMA dq and dk/dv: KS 64 for D <= 64 (two blocks an SM), else 128
-template <typename K>
-cudaError_t launch_tiled(K kernel, dim3 grid, int bytes, const BwdArgs& a, cudaStream_t s) {
+// a kernel with `bytes` of dynamic shared memory and the largest shared
+// carveout, so that as many blocks as its shared memory allows share an SM
+template <typename K, typename A>
+cudaError_t launch_smem(K kernel, dim3 grid, int threads, int bytes, const A& a, cudaStream_t s) {
   cudaError_t err = allow_smem(kernel, bytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kTileThreads, bytes, s>>>(a);
+  kernel<<<grid, threads, bytes, s>>>(a);
   return cudaGetLastError();
+}
+
+// the tensor-core forward: the grid is (b*h, q tiles), so that with causal
+// the q tiles counted from the last one start first for every head
+template <int D>
+cudaError_t launch_fwd_mma(const Args& a, cudaStream_t s) {
+  using L = FwdMmaLayout<D, kCausalBuild>;
+  constexpr int R = L::kRows, WR = L::kWarpRows, NT = R / WR * 32;
+  const dim3 grid(a.B * a.H, (a.Tq + R - 1) / R);
+  const int bytes = fwd_mma_smem_bytes<D>(R, a.bias);
+  if (!a.bias.p)
+    return launch_smem(flash_fwd_bf16_mma<D, R, WR, 0, kCausalBuild>, grid, NT, bytes, a, s);
+  if (a.bias.bf16)
+    return launch_smem(flash_fwd_bf16_mma<D, R, WR, 2, kCausalBuild>, grid, NT, bytes, a, s);
+  return launch_smem(flash_fwd_bf16_mma<D, R, WR, 4, kCausalBuild>, grid, NT, bytes, a, s);
+}
+
+// the FMA kernels: KS 64 for D <= 64 (two blocks an SM), else 128
+template <typename K, typename A>
+cudaError_t launch_tiled(K kernel, dim3 grid, int bytes, const A& a, cudaStream_t s) {
+  return launch_smem(kernel, grid, kTileThreads, bytes, a, s);
+}
+
+// the FMA forward: the grid is (h, b, q tiles), the causal build's q
+// tiles counted from the last one
+template <int KS>
+cudaError_t launch_fwd_tiled(const Args& a, int bf16, cudaStream_t s) {
+  const dim3 grid(a.H, a.B, (a.Tq + kTileRows - 1) / kTileRows);
+  constexpr int bytes = fwd_tile_smem_bytes<KS>();
+  if (bf16)
+    return launch_tiled(flash_fwd_scalar<__nv_bfloat16, KS, kCausalBuild>, grid, bytes, a, s);
+  return launch_tiled(flash_fwd_scalar<float, KS, kCausalBuild>, grid, bytes, a, s);
 }
 
 template <int KS>
@@ -1750,6 +2130,8 @@ Bias make_bias(const void* p, int bf16, long long sh, long long st) {
   b.p = p;
   b.bf16 = bf16;
   b.vec = reinterpret_cast<uintptr_t>(p) % (bf16 ? 8 : 16) == 0 && sh % 4 == 0 && st % 4 == 0;
+  const int per16 = bf16 ? 8 : 4;  // elements in 16 bytes
+  b.vec16 = reinterpret_cast<uintptr_t>(p) % 16 == 0 && sh % per16 == 0 && st % per16 == 0;
   b.sh = sh;
   b.st = st;
   return b;
@@ -1807,8 +2189,11 @@ void set_tile_args(BwdArgs& a) {
 
 extern "C" {
 
-// Query rows per thread block of the mma (1) and FMA (0) paths.
-int flash_fwd_tile_rows(int use_mma) { return use_mma ? kMmaRows : kScalarRows; }
+// Query rows per block of the forward's tensor-core (1, at D 64) and FMA
+// (0) instances.
+int flash_fwd_tile_rows(int use_mma) {
+  return use_mma ? FwdMmaLayout<64, kCausalBuild>::kRows : kTileRows;
+}
 
 // Widest head the kernels take.
 int flash_fwd_max_head_dim() { return kMaxD; }
@@ -1843,6 +2228,8 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
   a.Tq = Tq;
   a.Tk = Tk;
   a.D = D;
+  a.vec = 0;
+  a.n16 = 0;
   a.scale = scale;
   a.drop = make_drop(dropout, keep_threshold, inv_keep, seed);
   a.bias = make_bias(bias, bias_bf16, strides[12], strides[13]);
@@ -1855,12 +2242,10 @@ int flash_fwd(const void* q, const void* k, const void* v, const int* mask, void
     if (!dtype_bf16) return (int)cudaErrorInvalidValue;
     return (int)by_width<FwdMma>(D, a, s);
   }
-  const dim3 grid((Tq + kScalarRows - 1) / kScalarRows, B * H);
-  if (dtype_bf16)
-    flash_fwd_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, 0, s>>>(a);
-  else
-    flash_fwd_scalar<float, kCausalBuild><<<grid, kScalarThreads, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  a.vec = rows_aligned16(q, a.sq) && rows_aligned16(k, a.sk) && rows_aligned16(v, a.sv);
+  a.n16 = (D + 15) / 16;
+  return (int)(D <= 64 ? launch_fwd_tiled<64>(a, dtype_bf16, s)
+                       : launch_fwd_tiled<128>(a, dtype_bf16, s));
 }
 
 // dq of one backward call (kernel 6). lse and delta are fp32 [B, H, Tq];

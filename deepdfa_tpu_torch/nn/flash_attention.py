@@ -284,6 +284,8 @@ def _library(causal: bool = False) -> ctypes.CDLL:
             lib.flash_fwd_error_string.restype = ctypes.c_char_p
             lib.flash_fwd_max_head_dim.argtypes = []
             lib.flash_fwd_max_head_dim.restype = i
+            lib.flash_fwd_tile_rows.argtypes = [i]
+            lib.flash_fwd_tile_rows.restype = i
             lib.flash_causal.argtypes = []
             lib.flash_causal.restype = i
             if lib.flash_fwd_max_head_dim() != MAX_HEAD_DIM:

@@ -701,6 +701,78 @@ def test_flash_fp32_bwd_takes_unaligned_views(card, D, rate):
         _close(x, z, "float32")
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("biased", [False, True], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("D", [40, 64])
+def test_flash_fp32_fwd_takes_unaligned_and_strided_views(card, D, biased, rate):
+    """The FMA forward on fp32 views that start 4 bytes past a 16-byte
+    boundary with a row stride of D + 3 elements (its tiles come in 4
+    bytes a copy; with the bias, a bias view of row stride Tk + 3 too) and
+    on the strided views of a fused [B, T, 3, H, D] product: the bits of
+    the same call on contiguous copies, o within 1e-5 and lse within 1e-5
+    of attention_plain."""
+    B, H, Tq, Tk = 2, 3, 90, 77
+    g = torch.Generator().manual_seed(D + 2 * biased)
+
+    def view(T):
+        buf = torch.randn(B * H * T * (D + 3) + 1, generator=g).to(card)
+        return buf[1:].as_strided((B, H, T, D), (H * T * (D + 3), T * (D + 3), D + 3, 1))
+
+    q, k, v = view(Tq), view(Tk), view(Tk)
+    assert q.data_ptr() % 16 == 4
+    bias = None
+    if biased:
+        wide = torch.randn(H * Tq * (Tk + 3) + 1, generator=g).to(card)
+        bias = wide[1:].as_strided((H, Tq, Tk), (Tq * (Tk + 3), Tk + 3, 1))
+    mask = (torch.arange(Tk)[None, :] < torch.tensor([77, 50])[:, None]).to(card)
+    kw = {"scale": 1.0, "dropout_rate": rate, "seed": 31, "bias": bias}
+    o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+    dense = fa.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), mask,
+                         **{**kw, "bias": None if bias is None else bias.contiguous()})
+    qkv = torch.randn(B, Tq, 3 * H * D, generator=g).to(card).view(B, Tq, 3, H, D)
+    sq, sk, sv = (qkv[:, :, i].transpose(1, 2)[:, :, :Tk] if i else qkv[:, :, i].transpose(1, 2)
+                  for i in range(3))
+    so, slse = fa.flash_fwd(sq, sk, sv, mask, **kw)
+    sdense = fa.flash_fwd(sq.contiguous(), sk.contiguous(), sv.contiguous(), mask, **kw)
+    bits = fa.dropout_bits(31, B, H, Tq, Tk, card) if rate else None
+    po, plse = fa.attention_plain(q, k, v, mask, 1.0, rate, bits, bias)
+    spo, splse = fa.attention_plain(sq, sk, sv, mask, 1.0, rate, bits, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(o, dense[0]) and torch.equal(lse, dense[1])
+    assert torch.equal(so, sdense[0]) and torch.equal(slse, sdense[1])
+    for got, want in ((o, po), (lse, plse), (so, spo), (slse, splse)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "Tq, Tk, biased, causal",
+    [(128, 128, True, True), (128, 256, False, False), (256, 256, True, False)],
+    ids=["decoder_t128_causal_biased", "cross_t128x256", "encoder_t256_biased"],
+)
+def test_flash_fp32_fwd_at_the_generation_calls(card, Tq, Tk, biased, causal):
+    """The FMA forward at the generation path's three calls (B 16, H 12,
+    D 64, fp32, T5's scale 1.0, the last row's keys padded at the end):
+    one launch, o within 1e-5 and lse within 1e-5 of attention_plain, the
+    same bits on a repeat."""
+    B, H, D = 16, 12, 64
+    g = torch.Generator().manual_seed(Tq + Tk)
+    q = (torch.randn(B, H, Tq, D, generator=g) * D ** -0.5).to(card)
+    k, v = (torch.randn(B, H, Tk, D, generator=g).to(card) for _ in range(2))
+    bias = (torch.randn(H, Tq, Tk, generator=g) * 0.5).to(card) if biased else None
+    mask = (torch.arange(Tk)[None, :] < torch.tensor([Tk] * (B - 1) + [Tk - 37])[:, None])
+    mask = mask.to(card)
+    kw = {"scale": 1.0, "bias": bias, "causal": causal}
+    before = fa.LAUNCHES
+    o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    po, plse = fa.attention_plain(q, k, v, mask, **kw)
+    torch.testing.assert_close(o, po, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    o2, lse2 = fa.flash_fwd(q, k, v, mask, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
 def test_flash_fwd_dropout_keeps_the_philox_mask(card):
     """The forward kernel's dropout against the plain version with the
     same seed, a keep fraction near 0.9, and another seed another o."""

@@ -7,10 +7,14 @@ its dead block; T spans four of the port's 64-row tiles) and a ragged T =
 200 in one block, with and without the bias, keys padded at the end and
 at the start (a query whose keys up to itself are all padding has no live
 key: o = 0, a finite lse and zero gradients, as on the reference's flash
-path).
+path). The forward's plain version is also held against the reference
+at the generation path's three calls (decoder self-attention T 128,
+causal and biased; cross-attention 128 x 256; the encoder's T 256,
+biased), cut to B 2, H 2.
 
 Tolerances: every output within 1e-5 of its own largest magnitude in fp32
-(o, lse, dq, dk, dv and dbias); dbias above the diagonal exactly 0."""
+(o, lse, dq, dk, dv and dbias); dbias above the diagonal exactly 0; at
+the generation calls o and lse within rtol = atol = 1e-5."""
 
 import numpy as np
 import pytest
@@ -142,3 +146,40 @@ def test_causal_with_unequal_lengths_raises_in_both_packages():
     tfa.flash_bwd(qt, kt, vt, mt, o, lse, qt, causal=True, bias=torch.zeros(2, 64, 64))
     # on the CPU the plain versions run: no launch is counted
     assert (tfa.LAUNCHES, tfa.DQ_LAUNCHES, tfa.DKV_LAUNCHES, tfa.DBIAS_LAUNCHES) == before
+
+
+@pytest.mark.parametrize(
+    "Tq, Tk, biased, causal, block, lens",
+    [(128, 128, True, True, 64, [128, 93]),
+     (128, 256, False, False, 128, [256, 141]),
+     (256, 256, True, False, 128, [256, 200])],
+    ids=["decoder_t128_causal_biased", "cross_t128x256", "encoder_t256_biased"],
+)
+def test_plain_fwd_matches_reference_at_the_generation_calls(Tq, Tk, biased, causal, block,
+                                                             lens):
+    """The forward's plain version (o and lse) against the reference's
+    kernel in interpret mode at the generation path's three attention
+    calls (T5's scale 1.0, D 64), cut to B 2, H 2, the second row's keys
+    padded at the end: o and lse within rtol = atol = 1e-5 in fp32."""
+    B, H, D = 2, 2, 64
+    rng = np.random.default_rng(Tq + Tk + int(causal))
+    q = (rng.standard_normal((B, H, Tq, D)) * D ** -0.5).astype(np.float32)
+    k, v = (rng.standard_normal((B, H, Tk, D)).astype(np.float32) for _ in range(2))
+    bias = (rng.standard_normal((H, Tq, Tk)) * 0.5).astype(np.float32) if biased else None
+    mask = np.arange(Tk)[None, :] < np.asarray(lens)[:, None]
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    jb = None if bias is None else jnp.asarray(bias)
+    want_o = jfa.flash_attention(*args, jnp.asarray(mask), scale=1.0, bias=jb, causal=causal,
+                                 block_q=block, block_k=block, interpret=True)
+    p = jfa._Params(scale=1.0, dropout_rate=0.0, block_q=block, block_k=block, n_q=Tq // block,
+                    n_k=Tk // block, use_prng=True, has_bias=biased, causal=causal,
+                    interpret=True)
+    _, want_lse = jfa._fwd_call(p, *args, jnp.asarray(mask, jnp.int32)[:, None, :],
+                                jnp.zeros((1,), jnp.int32), jfa._dummy_bits(),
+                                jfa._dummy_bias() if jb is None else jb)
+    o, lse = tfa.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(mask),
+                           scale=1.0, bias=None if bias is None else torch.from_numpy(bias),
+                           causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=1e-5, atol=1e-5)
+    assert np.isfinite(lse.numpy()).all()
