@@ -1719,7 +1719,8 @@ def flash_bwd_kernel_phase(torch):
     in fp32; the same bits on a repeat. Times at the flagship call: both
     kernels at rate 0 and 0.1, the plain backward, and the backward of
     one scaled_dot_product_attention call (boolean mask) as the library
-    yardstick, never called by the port."""
+    yardstick, never called by the port, at rate 0 and at rate 0.1
+    (`sdpa_dropout_yardstick`, with the backend that ran)."""
     from deepdfa_tpu_torch.nn import flash_attention as fa
 
     H, D = 12, 64
@@ -1784,6 +1785,7 @@ def flash_bwd_kernel_phase(torch):
                 timing[f"dkv_ms_rate{rate}"] = median_ms(
                     torch, lambda: fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw))
             if rate:
+                timing["dropout_library"] = sdpa_dropout_yardstick(torch, q, k, v, do, mask, rate)
                 continue
             with torch.inference_mode():
                 timing["plain_ms"] = median_ms(
@@ -1801,6 +1803,41 @@ def flash_bwd_kernel_phase(torch):
           "seed": DROPOUT_SEED, "tolerance": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"},
           "max_abs_err": worst, "shape": [16, H, 512, 512, D], **timing, **report})
     return worst, timing
+
+
+def sdpa_dropout_yardstick(torch, q, k, v, do, mask, rate: float) -> dict:
+    """The library yardstick of kernels 6 and 7 at dropout `rate`, never
+    called by the port: one scaled_dot_product_attention call with the
+    boolean key mask and dropout_p=rate; its backward (dq, dk and dv
+    together, the mask replayed from the RNG state the call saved) timed
+    as the kernels are, and the card's kernels of one forward and
+    backward by device time, which name the SDPA backend that ran."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask[:, None, None, :], dropout_p=rate)
+
+    out = forward()
+    ms = median_ms(torch, lambda: out.backward(do, retain_graph=True))
+    del out
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        forward().backward(do)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if str(e.device_type).endswith("CUDA") and us > 0:
+            kernels[e.key[:90]] = us / 1e3
+    names = " ".join(kernels).lower()
+    # cuDNN's kernel names hold "flash" too, so it is asked for first
+    backend = next((b for b, frags in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                                       ("efficient", ("fmha", "efficient", "mem_eff")))
+                    if any(f in names for f in frags)), "math")
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
+    return {"ms": ms, "rate": rate, "call": "sdpa(bool attn_mask, dropout_p) backward",
+            "backend": backend, "device_ms_by_kernel": top}
 
 
 def flash_bias_kernel_phase(torch):
@@ -2449,6 +2486,17 @@ FP32_BWD_BASELINE_MS = {
     "gen_cross_t128x256": {"flash_dq": 0.3138, "flash_dkv": 0.4026},
     "gen_encoder_t256": {"flash_dq": 0.6015, "flash_dkv": 0.8173},
 }
+#: the tensor-core dq and dk/dv times at the flagship call that PERF.md
+#: records from before their redesign (NVIDIA H100 80GB HBM3, 700 W; each
+#: tile's loads behind two barriers, p through expf, the bias read from
+#: device memory an element at a time)
+BF16_BWD_BASELINE_MS = {
+    "plain": {"flash_dq": 0.2063, "flash_dkv": 0.3474},
+    "dropout": {"flash_dq": 0.2705, "flash_dkv": 0.4562},
+    "bias": {"flash_dq": 0.3307, "flash_dkv": 0.5947},
+    "causal": {"flash_dq": 0.1511, "flash_dkv": 0.2008},
+    "causal_bias": {"flash_dq": 0.2444, "flash_dkv": 0.3732},
+}
 #: kernel 5's times that PERF.md records from before its redesign (NVIDIA
 #: H100 80GB HBM3, 700 W): the FMA instance at the gen path's calls (one
 #: key a lane) and the tensor-core instance at the flagship call (B 16,
@@ -2463,16 +2511,18 @@ FWD_BASELINE_MS = {
 
 def no_spill_report(ptxas: dict) -> dict:
     """{kernel: ptxas's registers and spills} of the instances that must
-    not spill, in both flash libraries: every forward instance at D 64 (the
-    three tensor-core ones, without a bias and with a bf16 or fp32 bias;
-    the fp32 and bf16 FMA ones) and the register-tiled fp32 dq and dk/dv
-    that the gen path launches; None for one the build did not report."""
+    not spill, in both flash libraries: every tensor-core forward, dq and
+    dk/dv instance at D 64 (three of each: without a bias and with a bf16
+    or fp32 bias), the fp32 and bf16 FMA forwards, and the
+    register-tiled fp32 dq and dk/dv that the gen path launches; None for
+    one the build did not report."""
     out = {}
     for lib, c in (("flash_attention", ""), ("flash_attention_causal", ", causal")):
-        mma = sorted(k for k in ptxas[lib] if k.startswith("flash_fwd_bf16_mma<64, "))
-        out.update({k: ptxas[lib][k] for k in mma})
-        if len(mma) != 3:
-            out[f"flash_fwd_bf16_mma<64, ...{c}> x 3"] = None
+        for kernel in ("flash_fwd_bf16_mma", "flash_dq_bf16_mma", "flash_dkv_bf16_mma"):
+            mma = sorted(k for k in ptxas[lib] if k.startswith(f"{kernel}<64, "))
+            out.update({k: ptxas[lib][k] for k in mma})
+            if len(mma) != 3:
+                out[f"{kernel}<64, ...{c}> x 3"] = None
         for k in (f"flash_fwd_scalar<float, 64{c}>", f"flash_fwd_scalar<bf16, 64{c}>",
                   f"flash_dq_scalar<float, 64{c}>", f"flash_dkv_scalar<float, 64{c}>"):
             out[k] = ptxas[lib].get(k)
@@ -2489,7 +2539,8 @@ def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
     return int((m * torch.arange(m.shape[1], 0, -1)).sum())
 
 
-def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, ptxas: dict):
+def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_flagship: dict,
+                              ptxas: dict):
     """Kernels 5-8 with the causal mask (the causal build of the flash
     source) against the plain versions on the card, and the fp32 (FMA)
     instances at the generation path's shapes: o within 2e-2 (bf16) or
@@ -2505,7 +2556,10 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, ptxas:
     NONCAUSAL_BASELINE_MS; the gen calls' dq and dk/dv times are set
     beside FP32_BWD_BASELINE_MS, and the forward's times there and at the
     flagship call (`fwd_flagship`: this run's plain, bias and dropout
-    times; the causal ones are this phase's) beside FWD_BASELINE_MS.
+    times; the causal ones are this phase's) beside FWD_BASELINE_MS, and
+    the tensor-core dq and dk/dv at the flagship call (`bwd_flagship`:
+    this run's plain, dropout and bias times, {call: {kernel: ms}}; the
+    causal ones are this phase's) beside BF16_BWD_BASELINE_MS.
     `ptxas` is the build's report by library: the instances of
     no_spill_report must not spill."""
     from deepdfa_tpu_torch.nn import flash_attention as fa
@@ -2513,8 +2567,8 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, ptxas:
     rows = fa._library(False).flash_fwd_tile_rows(1)
     no_spill = no_spill_report(ptxas)
     if any(r is None or r["spill_bytes"] for r in no_spill.values()):
-        fail(f"flash_causal: a D 64 forward or register-tiled fp32 instance is missing or "
-             f"spills: {no_spill}")
+        fail(f"flash_causal: a D 64 tensor-core instance or register-tiled fp32 instance is "
+             f"missing or spills: {no_spill}")
     H, D = 12, 64
     gen = torch.Generator().manual_seed(11)
     report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
@@ -2633,12 +2687,21 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, ptxas:
     fwd = {case: {"ms": fwd_now[case], "baseline_ms": base,
                   "baseline_over_ms": base / fwd_now[case]}
            for case, base in FWD_BASELINE_MS.items()}
+    bwd_now = {**bwd_flagship,
+               **{call: {f"flash_{k}": timing[case][f"{k}_ms"] for k in ("dq", "dkv")}
+                  for call, case in (("causal", "flagship_t512"),
+                                     ("causal_bias", "t5_flagship_t512"))}}
+    bf16_bwd = {call: {kernel: {"ms": bwd_now[call][kernel], "baseline_ms": base,
+                                "baseline_over_ms": base / bwd_now[call][kernel]}
+                       for kernel, base in by_kernel.items()}
+                for call, by_kernel in BF16_BWD_BASELINE_MS.items()}
     emit({"phase": "kernel flash_causal", "ok": True,
           "tolerance": {"o": FLASH_TOL, "lse": "1e-5 + 1e-5 |lse|",
                         "grads": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"}},
           "max_abs_err": worst, "timed": timing,
           "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio,
-          "fp32_bwd_vs_baseline": fp32_bwd, "fwd_vs_baseline": fwd, "fwd_mma_rows": rows,
+          "fp32_bwd_vs_baseline": fp32_bwd, "fwd_vs_baseline": fwd,
+          "bf16_bwd_vs_baseline": bf16_bwd, "fwd_mma_rows": rows,
           "no_spill_ptxas": no_spill, **report})
     return worst, timing
 
@@ -3197,7 +3260,11 @@ def main() -> None:
         "flash_fwd": flash_timing["ms"], "flash_dq": bwd_flash["dq_ms_rate0.0"],
         "flash_dkv": bwd_flash["dkv_ms_rate0.0"]}, {
         "flagship": flash_timing["ms"], "flagship_dropout": flash_timing["dropout"]["ms"],
-        "flagship_bias": fb["fwd_ms"]}, ptxas)
+        "flagship_bias": fb["fwd_ms"]}, {
+        "plain": {"flash_dq": bwd_flash["dq_ms_rate0.0"], "flash_dkv": bwd_flash["dkv_ms_rate0.0"]},
+        "dropout": {"flash_dq": bwd_flash[f"dq_ms_rate{DROPOUT_RATE}"],
+                    "flash_dkv": bwd_flash[f"dkv_ms_rate{DROPOUT_RATE}"]},
+        "bias": {"flash_dq": fb["dq_ms"], "flash_dkv": fb["dkv_ms"]}}, ptxas)
     gen_train, gen_trainer, gen_state, _, gen_src, _ = train_gen_phase(torch, rng)
     gen_decode = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
     del gen_trainer, gen_state
@@ -3283,6 +3350,7 @@ def main() -> None:
          "bound_ms": bwd_flash["dq_bound_ms"], "bound_by": bwd_flash["dq_bound_by"],
          "library_ms": bwd_flash["library_ms"],
          "dropout_ms": bwd_flash[f"dq_ms_rate{DROPOUT_RATE}"],
+         "dropout_library_ms": bwd_flash["dropout_library"]["ms"],
          "bias": {"ms": fb["dq_ms"], "plain_ms": fb["bwd_plain_ms"],
                   "library_ms": fb["bwd_library_ms"], "bound_ms": fb["dq_bound"][0],
                   "bound_by": fb["dq_bound"][1]}},
@@ -3293,6 +3361,7 @@ def main() -> None:
          "bound_ms": bwd_flash["dkv_bound_ms"], "bound_by": bwd_flash["dkv_bound_by"],
          "library_ms": bwd_flash["library_ms"],
          "dropout_ms": bwd_flash[f"dkv_ms_rate{DROPOUT_RATE}"],
+         "dropout_library_ms": bwd_flash["dropout_library"]["ms"],
          "bias": {"ms": fb["dkv_ms"], "plain_ms": fb["bwd_plain_ms"],
                   "library_ms": fb["bwd_library_ms"], "bound_ms": fb["dkv_bound"][0],
                   "bound_by": fb["dkv_bound"][1]}},
@@ -3317,6 +3386,8 @@ def main() -> None:
                        "launches_by_path": k["launches_by_path"],
                        **({"dropout_ms": k["dropout_ms"], "dropout_rate": DROPOUT_RATE}
                           if "dropout_ms" in k else {}),
+                       **({"dropout_library_ms": k["dropout_library_ms"]}
+                          if "dropout_library_ms" in k else {}),
                        **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {}),
                        **({"by_call": k["by_call"]} if "by_call" in k else {}),
                        **({f: k[f] for f in ("by_policy", "chain", "fold_ms") if f in k})}

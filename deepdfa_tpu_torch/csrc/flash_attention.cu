@@ -65,9 +65,12 @@
 //    tile k+1 (k, v, the kv mask and the bias tile) through cp.async into
 //    a two-stage ring while tile k computes;
 //  - dq: one block per (b*h, 64-row q-tile) loops over the k/v tiles,
-//    recomputing s and p from lse; dq stays in registers;
+//    recomputing s and p from lse; dq stays in registers. On tensor
+//    cores the k/v tile k+1 (with the kv mask and the bias tile) comes in
+//    through a two-stage cp.async ring while tile k computes;
 //  - dk/dv: one block per (b*h, 64-key k-tile) loops over the q tiles
-//    (q, do and, on tensor cores, lse and delta staged in shared memory);
+//    (q, do, lse and delta, on tensor cores also the bias tile, staged in
+//    shared memory, the next tile's in flight while this one computes);
 //    each warp owns 16 keys (tensor cores) or each thread 4 (FMA), so dk
 //    and dv stay in registers;
 //  - dbias: one block per (h, 64-row q-tile, 64-key tile) loops over the
@@ -100,12 +103,14 @@
 // T), so at T <= 512 it skips nothing; 64 x 64 tiles here skip (n - 1) n
 // / 2 of n^2 tile pairs, n = T / 64.
 //
-// The bias. The forward stages each [rows, 64] bias tile through the
-// cp.async ring with k and v and reads its fragments from shared memory.
-// dq and dk/dv read the bias elements their score fragments own straight
-// from device memory: the [H, Tq, Tk] bias is shared by the B blocks of a
-// head and stays in the 50 MB L2 across them (6.3 MB in bf16 at H 12, T
-// 512). dbias reads its lanes' elements once, before its batch loop.
+// The bias. The tensor-core forward and dq stage each [rows, 64] bias
+// tile through their cp.async ring with k and v, dk/dv each [64 queries,
+// keys] tile with q and do (read transposed from shared memory), and all
+// three read its fragments there; the FMA forward stages it the same way.
+// The FMA dq and dk/dv read their elements from device memory four at a
+// time (bias4), dbias its lanes' elements once, before its batch loop: the
+// [H, Tq, Tk] bias is shared by the B blocks of a head and stays in the
+// 50 MB L2 across them (6.3 MB in bf16 at H 12, T 512).
 //
 //  - bf16, D a multiple of 16 (<= 128): warps of 16 rows (the
 //    non-causal forward at D <= 64: 32, two m16 tiles sharing each k/v
@@ -128,7 +133,9 @@
 //    the quad by shuffle. Its exponentials are ex2.approx.ftz of a
 //    log2(e)-scaled score (expf was ~8 instructions an element and held
 //    the plain call): relative error ~2^-22, and a p below 2^-126 is
-//    flushed to 0; the backward kernels recompute p from lse with expf.
+//    flushed to 0. The tensor-core dq, dk/dv and dbias recompute p with
+//    the same instruction from lse log2(e) (bwd_p, one expression, so the
+//    three sum the same p); the FMA kernels keep expf.
 //  - fp32 (and bf16 at other widths), forward, dq and dk/dv:
 //    register-tiled FMA kernels. 256 threads over a 64 x 64 score tile
 //    each own a 4 x 4 micro-tile of S (and dP), so per 4 columns of a
@@ -153,12 +160,17 @@
 // Bound of the backward at the flagship training call: dq does 3
 // products (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8
 // GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9 GFLOP) on ~70 MB
-// with its fp32 output (0.021 ms: bytes bind). The tensor-core dq, dk/dv
-// and dbias and the FMA dbias have no TMA, no wgmma and no double
-// buffering: each tile's loads wait on a barrier, and the Philox words
-// are recomputed per lane (2 of each call's 4 words used in dq and
-// dbias, 1 in the tensor-core dk/dv; both forwards and the FMA dq and
-// dk/dv use all 4).
+// with its fp32 output (0.021 ms: bytes bind). The operations bind, and
+// on tensor cores the products are the smaller part: each score also
+// costs an exponential, the masks, ds and, under dropout, a quarter of a
+// Philox4x32-10 call (12.6 M calls a launch). So the tensor-core dq and
+// dk/dv keep the next tile's copies in flight, feed every product through
+// ldmatrix.x4, score a tile in 32-column parts (half the S and dP
+// accumulators live, for more warps an SM), issue a part's Philox calls
+// before its elementwise work, so that their chains overlap, and use
+// every word of each call (lanes trade them by shuffle). dbias and the
+// FMA dbias have no double buffering: each tile's loads wait on a
+// barrier, and dbias uses 2 of each Philox call's 4 words.
 //
 // The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
 // token) strides and the bias's (head, row) strides; the innermost
@@ -317,16 +329,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// B fragments of a k16 x n8 tile stored row-major (rows = k) at `row0`:
-// lanes 0-15 address rows 0-15; .trans hands each lane B[2t, 2t+1][g].
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* row0) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row0));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr)
-               : "memory");
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -340,18 +342,6 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row
 
 __device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments (16 rows x 16 columns at k-step kk) of rows `rows0` .. +15
-// of a row-major shared tile with row stride KS
-template <int KS>
-__device__ __forceinline__ void smem_a_frag(uint32_t (&f)[4], const __nv_bfloat16* rows0, int kk,
-                                            int g, int t) {
-  const __nv_bfloat16* p = rows0 + g * KS + kk * 16 + 2 * t;
-  f[0] = smem_pair(p);
-  f[1] = smem_pair(p + 8 * KS);
-  f[2] = smem_pair(p + 8);
-  f[3] = smem_pair(p + 8 * KS + 8);
 }
 
 // A fragments from a global strided [rows, D] operand (zero past `rows`)
@@ -394,28 +384,6 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)
     for (int j = 0; j < NJ; ++j) {
       const __nv_bfloat16* r = tile + (j * 8 + g) * KS + kk * 16 + 2 * t;
       mma_bf16(acc[j], a[kk], smem_pair(r), smem_pair(r + 8));
-    }
-  }
-}
-
-// acc[NO] += round(X) . tile, X the [16, 64] accumulators x[NJ] reused as
-// A fragments after their bf16 rounding, tile a [64, D] row-major shared
-// tile whose rows are the k-dimension (ldmatrix.trans)
-template <int NJ, int NO, int KS>
-__device__ __forceinline__ void mma_xv(float (&acc)[NO][4], const float (&x)[NJ][4],
-                                       const __nv_bfloat16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < NJ / 2; ++kk) {
-    uint32_t xa[4];
-    xa[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    xa[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    xa[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    xa[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, tile + (kk * 16 + (lane & 15)) * KS + n * 8);
-      mma_bf16(acc[n], xa, b0, b1);
     }
   }
 }
@@ -492,9 +460,10 @@ __host__ __device__ constexpr int fwd_kv_bytes() {
   return 2 * 2 * kMmaKeys * (D + 8) * 2;
 }
 
-// one stage of the staged bias tile: [rows][kBiasRow] in the bias's dtype
-__host__ __device__ constexpr int fwd_bias_stage_bytes(int rows, int bf16) {
-  return rows * kBiasRow * (bf16 ? 2 : 4);
+// one stage of a staged bias tile: [rows][cols + 8] in the bias's dtype
+// (stage_bias_raw), by default [rows][kBiasRow]
+__host__ __device__ constexpr int bias_stage_bytes(int rows, int bf16, int cols = kMmaKeys) {
+  return rows * (cols + 8) * (bf16 ? 2 : 4);
 }
 
 // S += Q K^T for the 64 keys of a [64][KS] shared k tile and the warp's MT
@@ -585,51 +554,60 @@ __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16*
   }
 }
 
-// bias[h, r0 .. r0+ROWS-1, k0 .. k0+63] into a [ROWS][kBiasRow] shared
-// tile in the bias's own dtype (ES bytes an element: 2 bf16, 4 fp32),
-// zeros past Tq and Tk: 16-byte cp.async where every bias row starts
-// 16-byte aligned (the caller commits), else element by element through
-// registers
-template <int ROWS, int NT, int ES>
+// bias[h, r0 .. r0+ROWS-1, k0 .. k0+COLS-1] into a [ROWS][COLS + 8]
+// shared tile in the bias's own dtype (ES bytes an element: 2 bf16, 4
+// fp32), zeros past Tq and Tk: 16-byte cp.async where every bias row
+// starts 16-byte aligned (the caller commits), else element by element
+// through registers
+template <int ROWS, int NT, int ES, int COLS = kMmaKeys>
 __device__ __forceinline__ void stage_bias_raw(unsigned char* dst, const Bias& bi, int h, int r0,
                                                int k0, int Tq, int Tk, int tid) {
+  constexpr int RS = COLS + 8;  // a staged row, in elements
   const unsigned char* src =
       static_cast<const unsigned char*>(bi.p) + ((long long)h * bi.sh + k0) * ES;
   if (bi.vec16) {
-    constexpr int per = 16 / ES;        // elements a chunk
-    constexpr int ch = kMmaKeys / per;  // chunks a row
+    constexpr int per = 16 / ES;    // elements a chunk
+    constexpr int ch = COLS / per;  // chunks a row
     for (int idx = tid; idx < ROWS * ch; idx += NT) {
       const int r = idx / ch, c = idx - r * ch;
       const int n = r0 + r < Tq ? min(per, max(0, Tk - k0 - c * per)) : 0;
-      cp_async16(dst + (r * kBiasRow + c * per) * ES,
+      cp_async16(dst + (r * RS + c * per) * ES,
                  n ? static_cast<const void*>(src + ((long long)(r0 + r) * bi.st + c * per) * ES)
                    : src,
                  n * ES);
     }
     return;
   }
-  for (int idx = tid; idx < ROWS * kMmaKeys; idx += NT) {
-    const int r = idx / kMmaKeys, c = idx - r * kMmaKeys;
+  for (int idx = tid; idx < ROWS * COLS; idx += NT) {
+    const int r = idx / COLS, c = idx - r * COLS;
     const bool in = r0 + r < Tq && k0 + c < Tk;
     const long long off = (long long)(r0 + r) * bi.st + c;
     if (ES == 2)
-      reinterpret_cast<uint16_t*>(dst)[r * kBiasRow + c] =
+      reinterpret_cast<uint16_t*>(dst)[r * RS + c] =
           in ? reinterpret_cast<const uint16_t*>(src)[off] : (uint16_t)0;
     else
-      reinterpret_cast<float*>(dst)[r * kBiasRow + c] =
+      reinterpret_cast<float*>(dst)[r * RS + c] =
           in ? reinterpret_cast<const float*>(src)[off] : 0.0f;
   }
 }
 
 // the staged bias of (tile row r, columns col, col + 1), ES bytes an element
-template <int ES>
+template <int ES, int COLS = kMmaKeys>
 __device__ __forceinline__ float2 bias_pair(const unsigned char* tile, int r, int col) {
+  constexpr int RS = COLS + 8;
   if (ES == 2) {
-    const __nv_bfloat162 v =
-        *reinterpret_cast<const __nv_bfloat162*>(tile + (r * kBiasRow + col) * 2);
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(tile + (r * RS + col) * 2);
     return make_float2(__low2float(v), __high2float(v));
   }
-  return *reinterpret_cast<const float2*>(tile + (r * kBiasRow + col) * 4);
+  return *reinterpret_cast<const float2*>(tile + (r * RS + col) * 4);
+}
+
+// the staged bias of (tile row r, column c)
+template <int ES, int COLS>
+__device__ __forceinline__ float bias_one(const unsigned char* tile, int r, int c) {
+  constexpr int RS = COLS + 8;
+  if (ES == 2) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(tile)[r * RS + c]);
+  return reinterpret_cast<const float*>(tile)[r * RS + c];
 }
 
 // 2^x on the special-function unit (one instruction; tiny results flush
@@ -638,6 +616,19 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The backward's p = exp(s scale + bias - lse) (masking is the caller's)
+// as 2^((s scale + bias) log2 e - lse log2 e), nl = -lse log2 e. With
+// kBias, sc is the scale: dq, dk/dv and dbias evaluate this one
+// expression, so they sum the same p. Without, sc is scale log2 e and
+// the bias is not read: one FMA and ex2.
+template <bool kBias>
+__device__ __forceinline__ float bwd_p(float s, float sc, float bias, float nl) {
+  if (kBias) return ex2(fmaf(fmaf(s, sc, bias), kLog2e, nl));
+  return ex2(fmaf(s, sc, nl));
 }
 
 // [rows][D + 8] bf16: the q tile of the tensor-core forward
@@ -651,7 +642,7 @@ __host__ __device__ constexpr int fwd_q_bytes(int rows) {
 template <int D>
 int fwd_mma_smem_bytes(int rows, const Bias& bi) {
   return fwd_kv_bytes<D>() + fwd_q_bytes<D>(rows) + 2 * kMmaKeys * 4 +
-         (bi.p ? 2 * fwd_bias_stage_bytes(rows, bi.bf16) : 0);
+         (bi.p ? 2 * bias_stage_bytes(rows, bi.bf16) : 0);
 }
 
 // BIAS: the bytes of a bias element, 2 (bf16) or 4 (fp32), or 0 for the
@@ -671,7 +662,6 @@ __global__ void __launch_bounds__(ROWS / WR * 32,
   constexpr int NJ = kMmaKeys / 8;  // n8 tiles of S
   constexpr int NK = D / 16;  // k16 steps of Q K^T
   constexpr int NO = D / 8;  // n8 tiles of O
-  constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [stage][k, v][64][KS]
   __nv_bfloat16* q_s = kv_s + 4 * kMmaKeys * KS;                  // [ROWS][KS]
@@ -692,7 +682,7 @@ __global__ void __launch_bounds__(ROWS / WR * 32,
   const int r0 = w0 + g;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
-  constexpr int bias_stage = kBias ? fwd_bias_stage_bytes(ROWS, BIAS == 2) : 0;
+  constexpr int bias_stage = kBias ? bias_stage_bytes(ROWS, BIAS == 2) : 0;
   // causal: the keys past this q tile's last row are dead for all its rows
   const int k_end = kCausal ? min(a.Tk, q_start + ROWS) : a.Tk;
 
@@ -883,246 +873,404 @@ __global__ void __launch_bounds__(ROWS / WR * 32,
 }
 
 // ---------------------------------------------------------------------------
-// dq, bf16 on tensor cores: one block per (b*h, 64-row q-tile)
+// dq and dk/dv, bf16 on tensor cores.
+//  - dq: one block per (b*h, ROWS-row q tile), a warp per 16 rows. The q
+//    and do tiles are staged once; k, v, the kv mask and the bias tile of
+//    key tile k+1 come in through a two-stage cp.async ring while tile k
+//    computes S = Q K^T, dP = dO V^T, ds = p (dp - delta) and
+//    dq += bf16(dS) K.
+//  - dk/dv: one block per (b*h, KEYS-key tile), a warp per 16 keys. The k
+//    and v tiles are staged once; q, do, lse, delta and the bias tile of q
+//    tile i+1 come in through the ring while tile i computes S^T = K Q^T,
+//    dP^T = V dO^T, p and ds, dV += bf16(P_dropped)^T dO and
+//    dK += bf16(dS)^T Q. The bias tile is [64 queries][KEYS keys] and is
+//    read transposed from shared memory.
+// Both read every fragment through ldmatrix.x4 (mma_qk, mma_pv, the
+// forward's helpers), compute p with bwd_p (ex2 of a log2(e)-scaled
+// score) and make one Philox call a lane per n8 tile of S: in dq the lane
+// quad's four calls cover its two rows x two 4-key groups, in dk/dv the
+// four lanes g = 4m .. 4m+3 of one t cover their keys 4m .. 4m+3 and
+// 4m+8 .. 4m+11 at the quad's two queries; two xor shuffles hand every
+// lane all four calls' keep bits.
 
-template <int D, bool kBias, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_mma(BwdArgs a) {
+// The tile layout of the tensor-core backward: query rows a dq block and
+// keys a dk/dv block (a warp per 16 of either); the columns of a 64-wide
+// tile that a warp scores at a time (its S and dP accumulators hold 16 x
+// that many, so 32 halves what 64 keeps live); and the blocks an SM that
+// each kernel's register budget is set for (1: no cap). At D <= 64, dq
+// fits 128 registers for four blocks and the non-causal dk/dv 168 for
+// three, neither spilling; the causal dk/dv spills at 168 and is not
+// capped. The faster at the flagship calls (PERF.md; flash_bwd_trial.py).
+template <int D, bool kCausal>
+struct BwdMmaLayout {
+  static constexpr int kDqRows = 64;
+  static constexpr int kDkvKeys = 64;
+  static constexpr int kDqSub = 32;
+  static constexpr int kDkvSub = 32;
+  static constexpr int kDqBlocks = D <= 64 ? 4 : 1;
+  static constexpr int kDkvBlocks = D <= 64 && !kCausal ? 3 : 1;
+};
+
+// the keep bits of one Philox call's four words, as a nibble
+__device__ __forceinline__ uint32_t keep4(const uint4& w, uint32_t thr) {
+  return (uint32_t)(w.x < thr) | (uint32_t)(w.y < thr) << 1 | (uint32_t)(w.z < thr) << 2 |
+         (uint32_t)(w.w < thr) << 3;
+}
+
+// the live columns of a row `n` columns into a causal diagonal (bit c <->
+// this lane's column 2t + c): the first n of `real`
+__device__ __forceinline__ uint64_t first_cols(uint64_t real, int n) {
+  return n >= 64 ? real : n <= 0 ? 0 : real & (((uint64_t)1 << n) - 1);
+}
+
+// dynamic shared memory of the tensor-core dq: the k/v ring, the q and do
+// tiles, the mask ring, and with a bias its two stages
+template <int D>
+int dq_mma_smem_bytes(int rows, const Bias& bi) {
+  return fwd_kv_bytes<D>() + 2 * fwd_q_bytes<D>(rows) + 2 * kMmaKeys * 4 +
+         (bi.p ? 2 * bias_stage_bytes(rows, bi.bf16) : 0);
+}
+
+// BIAS: the bytes of a bias element, 2 (bf16) or 4 (fp32), or 0 for the
+// unbiased instance, which carries none of its code (as in the forward)
+template <int D, int BIAS, bool kCausal>
+__global__ void __launch_bounds__(BwdMmaLayout<D, kCausal>::kDqRows * 2,
+                                  BwdMmaLayout<D, kCausal>::kDqBlocks)
+    flash_dq_bf16_mma(BwdArgs a) {
+  constexpr bool kBias = BIAS != 0;
+  constexpr int ROWS = BwdMmaLayout<D, kCausal>::kDqRows;
+  constexpr int SUB = BwdMmaLayout<D, kCausal>::kDqSub;  // keys scored at a time
+  constexpr int NT = ROWS * 2;  // a warp per 16 rows
   constexpr int KS = D + 8;
-  constexpr int NJ = kMmaKeys / 8;
-  constexpr int NK = D / 16;
-  constexpr int NO = D / 8;
-  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaKeys * KS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaKeys * KS];
-  __shared__ float ok_s[kMmaKeys];
+  constexpr int NJ = SUB / 8;  // n8 tiles of S
+  constexpr int NK = D / 16;   // k16 steps of Q K^T
+  constexpr int NO = D / 8;    // n8 tiles of dq
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [stage][k, v][64][KS]
+  __nv_bfloat16* q_s = kv_s + 4 * kMmaKeys * KS;                  // [ROWS][KS]
+  __nv_bfloat16* do_s = q_s + ROWS * KS;                          // [ROWS][KS]
+  int* ok_s = reinterpret_cast<int*>(do_s + ROWS * KS);           // [stage][64]
+  // [stage][ROWS][kBiasRow] in the bias's dtype
+  unsigned char* bias_s = reinterpret_cast<unsigned char*>(ok_s + 2 * kMmaKeys);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh - b * a.H;
-  const int r0 = blockIdx.x * kMmaRows + warp * 16 + g;
-  const int r1 = r0 + 8;
-  const bool v0 = r0 < a.Tq, v1 = r1 < a.Tq;
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  // causal: the q tiles from the last one down, the longest blocks first
+  const int q_start = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * ROWS;
+  const int w0 = q_start + warp * 16;  // this warp's first row
+  const int ra = w0 + g, rb = ra + 8;  // this lane's rows
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const __nv_bfloat16* dop =
-      static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-  const int* maskp = a.mask + (long long)b * a.Tk;
+  constexpr int bias_stage = kBias ? bias_stage_bytes(ROWS, BIAS == 2) : 0;
+  // causal: the keys past this q tile's last row are dead for all its rows
+  const int k_end = kCausal ? min(a.Tk, q_start + ROWS) : a.Tk;
+
+  // key tile k0 sits in stage (k0 / 64) & 1
+  auto stage = [&](int k0) {
+    const int st = (k0 / kMmaKeys) & 1;
+    __nv_bfloat16* ks = kv_s + st * 2 * kMmaKeys * KS;
+    cp_tile<kMmaKeys, D, KS, NT>(ks, kp, k0, a.Tk, a.sk.t, tid);
+    cp_tile<kMmaKeys, D, KS, NT>(ks + kMmaKeys * KS, vp, k0, a.Tk, a.sv.t, tid);
+    if (tid < kMmaKeys) {
+      const int* maskp = a.mask + (long long)b * a.Tk;
+      const bool in = k0 + tid < a.Tk;
+      cp_async4(ok_s + st * kMmaKeys + tid, in ? maskp + k0 + tid : maskp, in ? 4 : 0);
+    }
+    if constexpr (kBias)
+      stage_bias_raw<ROWS, NT, BIAS>(bias_s + st * bias_stage, a.bias, h, q_start, k0, a.Tq, a.Tk,
+                                     tid);
+    cp_async_commit();
+  };
+  cp_tile<ROWS, D, KS, NT>(q_s, static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h,
+                           q_start, a.Tq, a.sq.t, tid);
+  cp_tile<ROWS, D, KS, NT>(do_s,
+                           static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h,
+                           q_start, a.Tq, a.sdo.t, tid);
+  stage(0);  // one group: q, do and the first k/v tile
+
+  // this lane's rows' -lse log2 e and delta (a row past Tq is never stored)
   const float* lp = a.lse + (long long)bh * a.Tq;
   const float* dlp = a.delta + (long long)bh * a.Tq;
-  const float lse0 = v0 ? lp[r0] : 0.0f, lse1 = v1 ? lp[r1] : 0.0f;
-  const float del0 = v0 ? dlp[r0] : 0.0f, del1 = v1 ? dlp[r1] : 0.0f;
+  const float nla = ra < a.Tq ? -lp[ra] * kLog2e : 0.0f;
+  const float nlb = rb < a.Tq ? -lp[rb] * kLog2e : 0.0f;
+  const float dela = ra < a.Tq ? dlp[ra] : 0.0f;
+  const float delb = rb < a.Tq ? dlp[rb] : 0.0f;
+  const float sc = kBias ? a.scale : a.scale * kLog2e;
 
-  uint32_t qf[NK][4], df[NK][4];
-  global_a_frags<NK>(qf, qp, r0, r1, a.Tq, a.sq.t, t);
-  global_a_frags<NK>(df, dop, r0, r1, a.Tq, a.sdo.t, t);
-  float dq[NO][4];
+  float dq[1][NO][4];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+  for (int n = 0; n < NO; ++n) dq[0][n][0] = dq[0][n][1] = dq[0][n][2] = dq[0][n][3] = 0.0f;
 
-  const int q_start = blockIdx.x * kMmaRows;
-  const int k_end = kCausal ? min(a.Tk, q_start + kMmaRows) : a.Tk;
   for (int k0 = 0; k0 < k_end; k0 += kMmaKeys) {
-    __syncthreads();
-    load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
-    load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
-    if (tid < kMmaKeys) {
-      const int key = k0 + tid;
-      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    const bool diag = kCausal && k0 + kMmaKeys > q_start;
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every warp is done with the last one
+    if (k0 + kMmaKeys < k_end) stage(k0 + kMmaKeys);
+    const int st = (k0 / kMmaKeys) & 1;
+    const __nv_bfloat16* ks = kv_s + st * 2 * kMmaKeys * KS;
+    const unsigned char* bt = bias_s + st * bias_stage;
+    if (kCausal && k0 > w0 + 15) continue;  // every key of the tile is past this warp's rows
+    // the tile's real keys as bits, bit c <-> column c
+    const int* okp = ok_s + st * kMmaKeys;
+    const uint64_t real64 = (uint64_t)__ballot_sync(0xffffffffu, okp[32 + lane] != 0) << 32 |
+                            __ballot_sync(0xffffffffu, okp[lane] != 0);
 
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-    mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);   // S = Q K^T
-    mma_abt<NJ, NK, KS>(dp, df, v_s, g, t);  // dP = dO V^T
+    // the tile in SUB-key parts kc .. kc + SUB - 1
+#pragma unroll 1
+    for (int kc = 0; kc < kMmaKeys; kc += SUB) {
+      const int c0 = k0 + kc;  // the part's first key
+      if (kCausal && c0 > w0 + 15) break;
+      // the part's live keys, bit c <-> column kc + 2t + c of this lane; a
+      // part that crosses this warp's diagonal keeps col <= row
+      const uint64_t real = real64 >> (kc + 2 * t);
+      const bool diag = kCausal && c0 + SUB - 1 > w0;
+      const uint64_t la = diag ? first_cols(real, ra - c0 - 2 * t + 1) : real;
+      const uint64_t lb = diag ? first_cols(real, rb - c0 - 2 * t + 1) : real;
 
-    // ds = p (dp - delta) into s
+      // S = Q K^T and dP = dO V^T: rows ra, rb, columns j*8 + 2t + {0, 1}
+      float s[1][NJ][4], dp[1][NJ][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = j * 8 + 2 * t;
-      uint32_t bw[4] = {0u, 0u, 0u, 0u};
+      for (int j = 0; j < NJ; ++j) {
+        s[0][j][0] = s[0][j][1] = s[0][j][2] = s[0][j][3] = 0.0f;
+        dp[0][j][0] = dp[0][j][1] = dp[0][j][2] = dp[0][j][3] = 0.0f;
+      }
+      mma_qk<1, NJ, NK, KS>(s, q_s + warp * 16 * KS, ks + kc * KS, lane);
+      mma_qk<1, NJ, NK, KS>(dp, do_s + warp * 16 * KS, ks + (kMmaKeys + kc) * KS, lane);
+
+      // keep bits of n8 tile j: 0, 1 for row ra, 8, 9 for rb (columns 2t,
+      // 2t + 1). Lane t calls row (t & 2 ? rb : ra) and the 4-column group
+      // t & 1: nibble t of the quad's 16 bits. The part's calls first, so
+      // that their chains overlap.
+      uint32_t keep[NJ];
       if (a.drop.on) {
-        const uint4 w0 = bits4(a.drop, bh, r0, k0 + col), w1 = bits4(a.drop, bh, r1, k0 + col);
-        const bool odd = t & 1;
-        bw[0] = odd ? w0.z : w0.x;
-        bw[1] = odd ? w0.w : w0.y;
-        bw[2] = odd ? w1.z : w1.x;
-        bw[3] = odd ? w1.w : w1.y;
-      }
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = ok_s[col + e] != 0.0f;
-        const bool ok0 = ok && v0 && (!diag || k0 + col + e <= r0);
-        const bool ok1 = ok && v1 && (!diag || k0 + col + e <= r1);
-        float b0 = 0.0f, b1 = 0.0f;
-        if (kBias) {
-          if (ok0) b0 = bias_at(a.bias, h, r0, k0 + col + e);
-          if (ok1) b1 = bias_at(a.bias, h, r1, k0 + col + e);
+        for (int j = 0; j < NJ; ++j)
+          keep[j] = keep4(bits4(a.drop, bh, (t & 2) ? rb : ra, c0 + j * 8 + 4 * (t & 1)),
+                          a.drop.threshold)
+                    << (4 * t);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          keep[j] |= __shfl_xor_sync(0xffffffffu, keep[j], 1);
+          keep[j] |= __shfl_xor_sync(0xffffffffu, keep[j], 2);
+          keep[j] >>= 2 * t;
         }
-        const float p0 = ok0 ? expf(s[j][e] * a.scale + b0 - lse0) : 0.0f;
-        const float p1 = ok1 ? expf(s[j][2 + e] * a.scale + b1 - lse1) : 0.0f;
-        float d0 = dp[j][e], d1 = dp[j][2 + e];
-        if (a.drop.on) {
-          d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
-          d1 = bw[2 + e] < a.drop.threshold ? d1 * a.drop.inv_keep : 0.0f;
-        }
-        s[j][e] = p0 * (d0 - del0);
-        s[j][2 + e] = p1 * (d1 - del1);
       }
-    }
 
-    // dq += bf16(dS) K
-    mma_xv<NJ, NO, KS>(dq, s, k_s, lane);
+      // ds = p (dp - delta) into s
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float2 ba = make_float2(0.0f, 0.0f), bb = ba;
+        if constexpr (kBias) {
+          ba = bias_pair<BIAS>(bt, ra - q_start, kc + j * 8 + 2 * t);
+          bb = bias_pair<BIAS>(bt, rb - q_start, kc + j * 8 + 2 * t);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + e;
+          const float pa =
+              (la >> c) & 1 ? bwd_p<kBias>(s[0][j][e], sc, e ? ba.y : ba.x, nla) : 0.0f;
+          const float pb =
+              (lb >> c) & 1 ? bwd_p<kBias>(s[0][j][2 + e], sc, e ? bb.y : bb.x, nlb) : 0.0f;
+          float da = dp[0][j][e], db = dp[0][j][2 + e];
+          if (a.drop.on) {
+            da = (keep[j] >> e) & 1u ? da * a.drop.inv_keep : 0.0f;
+            db = (keep[j] >> (8 + e)) & 1u ? db * a.drop.inv_keep : 0.0f;
+          }
+          s[0][j][e] = pa * (da - dela);
+          s[0][j][2 + e] = pb * (db - delb);
+        }
+      }
+
+      // dq += bf16(dS) K
+      mma_pv<1, NJ, NO, KS>(dq, s, ks + kc * KS, lane);
+    }
   }
 
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.dq) + b * a.sdq.b + h * a.sdq.h;
-  store_rows<NO>(out, dq, r0, r1, a.Tq, a.sdq.t, a.scale, t);
+  store_rows<NO>(out, dq[0], ra, rb, a.Tq, a.sdq.t, a.scale, t);
 }
 
-// ---------------------------------------------------------------------------
-// dk/dv, bf16 on tensor cores: one block per (b*h, 64-key k-tile); each
-// warp owns 16 keys and loops over the 64-row q tiles
-
+// dynamic shared memory of the tensor-core dk/dv: the k and v tiles, the
+// q/do ring, the lse/delta ring, and with a bias its two stages
+// ([64 queries][keys + 8])
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return 4 * kMmaKeys * (D + 8) * 2 + 3 * kMmaKeys * 4;
+int dkv_mma_smem_bytes(int keys, const Bias& bi) {
+  return 2 * keys * (D + 8) * 2 + fwd_kv_bytes<D>() + 2 * 2 * kMmaKeys * 4 +
+         (bi.p ? 2 * bias_stage_bytes(kMmaKeys, bi.bf16, keys) : 0);
 }
 
-template <int D, bool kBias, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_mma(BwdArgs a) {
+template <int D, int BIAS, bool kCausal>
+__global__ void __launch_bounds__(BwdMmaLayout<D, kCausal>::kDkvKeys * 2,
+                                  BwdMmaLayout<D, kCausal>::kDkvBlocks)
+    flash_dkv_bf16_mma(BwdArgs a) {
+  constexpr bool kBias = BIAS != 0;
+  constexpr int KEYS = BwdMmaLayout<D, kCausal>::kDkvKeys;
+  constexpr int SUB = BwdMmaLayout<D, kCausal>::kDkvSub;  // queries scored at a time
+  constexpr int NT = KEYS * 2;  // a warp per 16 keys
   constexpr int KS = D + 8;
-  constexpr int NJ = kMmaKeys / 8;  // n8 tiles over a q tile
+  constexpr int NJ = SUB / 8;  // n8 tiles of S^T
   constexpr int NK = D / 16;
   constexpr int NO = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* v_s = k_s + kMmaRows * KS;
-  __nv_bfloat16* q_s = v_s + kMmaRows * KS;
-  __nv_bfloat16* do_s = q_s + kMmaKeys * KS;
-  float* lse_s = reinterpret_cast<float*>(do_s + kMmaKeys * KS);
-  float* del_s = lse_s + kMmaKeys;
-  float* qok_s = del_s + kMmaKeys;
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [KEYS][KS]
+  __nv_bfloat16* v_s = k_s + KEYS * KS;                          // [KEYS][KS]
+  __nv_bfloat16* qd_s = v_s + KEYS * KS;                         // [stage][q, do][64][KS]
+  float* ld_s = reinterpret_cast<float*>(qd_s + 4 * kMmaKeys * KS);  // [stage][lse, delta][64]
+  // [stage][64][KEYS + 8] in the bias's dtype
+  unsigned char* bias_s = reinterpret_cast<unsigned char*>(ld_s + 4 * kMmaKeys);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh - b * a.H;
-  const int c0 = blockIdx.x * kMmaRows;
-  const int kr0 = c0 + warp * 16 + g;  // this lane's keys
-  const int kr1 = kr0 + 8;
+  const int c0 = blockIdx.y * KEYS;
+  const int kw0 = c0 + warp * 16;      // this warp's first key
+  const int ka = kw0 + g, kb = ka + 8;  // this lane's keys
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
   const __nv_bfloat16* dop =
       static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
   const int* maskp = a.mask + (long long)b * a.Tk;
-  const float* lp = a.lse + (long long)bh * a.Tq;
-  const float* dlp = a.delta + (long long)bh * a.Tq;
-  const bool ok0 = kr0 < a.Tk && maskp[kr0] != 0;
-  const bool ok1 = kr1 < a.Tk && maskp[kr1] != 0;
+  const bool oka = ka < a.Tk && maskp[ka] != 0;
+  const bool okb = kb < a.Tk && maskp[kb] != 0;
+  constexpr int bias_stage = kBias ? bias_stage_bytes(kMmaKeys, BIAS == 2, KEYS) : 0;
 
-  load_tile<D, KS>(k_s, kp, c0, a.Tk, a.sk.t, tid);
-  load_tile<D, KS>(v_s, vp, c0, a.Tk, a.sv.t, tid);
-  const __nv_bfloat16* kw = k_s + warp * 16 * KS;  // this warp's 16 keys
-  const __nv_bfloat16* vw = v_s + warp * 16 * KS;
-
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.0f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
-  }
-
+  // q tile q0 sits in stage (q0 / 64) & 1
+  auto stage = [&](int q0) {
+    const int st = (q0 / kMmaKeys) & 1;
+    __nv_bfloat16* qs = qd_s + st * 2 * kMmaKeys * KS;
+    cp_tile<kMmaKeys, D, KS, NT>(qs, qp, q0, a.Tq, a.sq.t, tid);
+    cp_tile<kMmaKeys, D, KS, NT>(qs + kMmaKeys * KS, dop, q0, a.Tq, a.sdo.t, tid);
+    if (tid < 2 * kMmaKeys) {  // lse by the first 64 threads, delta by the next
+      const int i = tid & (kMmaKeys - 1);
+      const float* src = (tid < kMmaKeys ? a.lse : a.delta) + (long long)bh * a.Tq;
+      const bool in = q0 + i < a.Tq;
+      cp_async4(ld_s + st * 2 * kMmaKeys + tid, in ? src + q0 + i : src, in ? 4 : 0);
+    }
+    if constexpr (kBias)
+      stage_bias_raw<kMmaKeys, NT, BIAS, KEYS>(bias_s + st * bias_stage, a.bias, h, q0, c0, a.Tq,
+                                               a.Tk, tid);
+    cp_async_commit();
+  };
+  cp_tile<KEYS, D, KS, NT>(k_s, static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h,
+                           c0, a.Tk, a.sk.t, tid);
+  cp_tile<KEYS, D, KS, NT>(v_s, static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h,
+                           c0, a.Tk, a.sv.t, tid);
   // causal: the q tiles before the one holding this block's first key are
   // dead for all its keys
   const int q_begin = kCausal ? (c0 / kMmaKeys) * kMmaKeys : 0;
-  for (int q0 = q_begin; q0 < a.Tq; q0 += kMmaKeys) {
-    __syncthreads();  // the previous q tile is consumed (and k/v are staged)
-    load_tile<D, KS>(q_s, qp, q0, a.Tq, a.sq.t, tid);
-    load_tile<D, KS>(do_s, dop, q0, a.Tq, a.sdo.t, tid);
-    if (tid < kMmaKeys) {
-      const int row = q0 + tid;
-      const bool valid = row < a.Tq;
-      lse_s[tid] = valid ? lp[row] : 0.0f;
-      del_s[tid] = valid ? dlp[row] : 0.0f;
-      qok_s[tid] = valid ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    const bool diag = kCausal && q0 < c0 + kMmaRows;  // crosses the diagonal
+  stage(q_begin);  // one group: k, v and the first q tile
+  const float sc = kBias ? a.scale : a.scale * kLog2e;
 
-    // S^T = K Q^T and dP^T = V dO^T: rows = keys (kr0, kr1), columns =
-    // queries j*8 + 2t + {0, 1} of the tile
-    float st[NJ][4], dpt[NJ][4];
+  float dk[1][NO][4], dv[1][NO][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.0f;
-      dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
-      uint32_t kf[4], vf[4];
-      smem_a_frag<KS>(kf, kw, kk, g, t);
-      smem_a_frag<KS>(vf, vw, kk, g, t);
+  for (int n = 0; n < NO; ++n) {
+    dk[0][n][0] = dk[0][n][1] = dk[0][n][2] = dk[0][n][3] = 0.0f;
+    dv[0][n][0] = dv[0][n][1] = dv[0][n][2] = dv[0][n][3] = 0.0f;
+  }
+
+  for (int q0 = q_begin; q0 < a.Tq; q0 += kMmaKeys) {
+    cp_async_wait_all();
+    __syncthreads();  // this tile is in; every warp is done with the last one
+    if (q0 + kMmaKeys < a.Tq) stage(q0 + kMmaKeys);
+    const int st = (q0 / kMmaKeys) & 1;
+    const __nv_bfloat16* qs = qd_s + st * 2 * kMmaKeys * KS;
+    const __nv_bfloat16* dos = qs + kMmaKeys * KS;
+    const float* lsp = ld_s + st * 2 * kMmaKeys;
+    const unsigned char* bt = bias_s + st * bias_stage;
+    const int qlim = a.Tq - q0;  // the tile's real queries
+
+    // the tile in SUB-query parts qh .. qh + SUB - 1
+#pragma unroll 1
+    for (int qh = 0; qh < kMmaKeys; qh += SUB) {
+      if (kCausal && q0 + qh + SUB - 1 < kw0) continue;  // every query is before this warp's keys
+      const bool diag = kCausal && q0 + qh < kw0 + 15;  // some query is before some key
+      const __nv_bfloat16* qp_s = qs + qh * KS;
+      const __nv_bfloat16* dp_s = dos + qh * KS;
+
+      // S^T = K Q^T and dP^T = V dO^T: rows = keys ka, kb, columns =
+      // queries qh + j*8 + 2t + {0, 1} of the tile
+      float s[1][NJ][4], dpt[1][NJ][4];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const __nv_bfloat16* qr = q_s + (j * 8 + g) * KS + kk * 16 + 2 * t;
-        const __nv_bfloat16* dr = do_s + (j * 8 + g) * KS + kk * 16 + 2 * t;
-        mma_bf16(st[j], kf, smem_pair(qr), smem_pair(qr + 8));
-        mma_bf16(dpt[j], vf, smem_pair(dr), smem_pair(dr + 8));
+        s[0][j][0] = s[0][j][1] = s[0][j][2] = s[0][j][3] = 0.0f;
+        dpt[0][j][0] = dpt[0][j][1] = dpt[0][j][2] = dpt[0][j][3] = 0.0f;
       }
-    }
+      mma_qk<1, NJ, NK, KS>(s, k_s + warp * 16 * KS, qp_s, lane);
+      mma_qk<1, NJ, NK, KS>(dpt, v_s + warp * 16 * KS, dp_s, lane);
 
-    // st <- the dropped p (for dV), dpt <- ds (for dK)
+      // keep bits of n8 tile j: 4e for (ka, query qc + e), 8 + 4e for kb.
+      // Lane g = 4m + i calls query qc + (i & 1) and keys kw0 + 4m +
+      // 8 (i >> 1) .. +3: nibble i of the four lanes' 16 bits, word i of
+      // each is its key. The part's calls first, so that their chains
+      // overlap.
+      uint32_t keep[NJ];
+      if (a.drop.on) {
+        const int i = g & 3;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
+        for (int j = 0; j < NJ; ++j)
+          keep[j] = keep4(bits4(a.drop, bh, q0 + qh + j * 8 + 2 * t + (i & 1),
+                                kw0 + (g & 4) + 8 * (i >> 1)),
+                          a.drop.threshold)
+                    << (4 * i);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int qc = j * 8 + 2 * t + e;
-        const float lse = lse_s[qc], del = del_s[qc];
-        const bool qv = qok_s[qc] != 0.0f;
-        const bool live0 = ok0 && qv && (!diag || kr0 <= q0 + qc);
-        const bool live1 = ok1 && qv && (!diag || kr1 <= q0 + qc);
-        float b0 = 0.0f, b1 = 0.0f;
-        if (kBias) {
-          if (live0) b0 = bias_at(a.bias, h, q0 + qc, kr0);
-          if (live1) b1 = bias_at(a.bias, h, q0 + qc, kr1);
+        for (int j = 0; j < NJ; ++j) {
+          keep[j] |= __shfl_xor_sync(0xffffffffu, keep[j], 4);
+          keep[j] |= __shfl_xor_sync(0xffffffffu, keep[j], 8);
+          keep[j] >>= i;
         }
-        const float p0 = live0 ? expf(st[j][e] * a.scale + b0 - lse) : 0.0f;
-        const float p1 = live1 ? expf(st[j][2 + e] * a.scale + b1 - lse) : 0.0f;
-        float d0 = dpt[j][e], d1 = dpt[j][2 + e];
-        float pv0 = p0, pv1 = p1;
-        if (a.drop.on) {
-          const bool keep0 = bits1(a.drop, bh, q0 + qc, kr0) < a.drop.threshold;
-          const bool keep1 = bits1(a.drop, bh, q0 + qc, kr1) < a.drop.threshold;
-          const float inv = a.drop.inv_keep;
-          pv0 = keep0 ? p0 * inv : 0.0f;
-          d0 = keep0 ? d0 * inv : 0.0f;
-          pv1 = keep1 ? p1 * inv : 0.0f;
-          d1 = keep1 ? d1 * inv : 0.0f;
-        }
-        st[j][e] = pv0;
-        st[j][2 + e] = pv1;
-        dpt[j][e] = p0 * (d0 - del);
-        dpt[j][2 + e] = p1 * (d1 - del);
       }
-    }
 
-    mma_xv<NJ, NO, KS>(dv, st, do_s, lane);   // dV += bf16(P_dropped)^T dO
-    mma_xv<NJ, NO, KS>(dk, dpt, q_s, lane);   // dK += bf16(dS)^T Q
+      // s <- the dropped p (for dV), dpt <- ds (for dK)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int qc = qh + j * 8 + 2 * t;
+        const float2 lse = *reinterpret_cast<const float2*>(lsp + qc);
+        const float2 del = *reinterpret_cast<const float2*>(lsp + kMmaKeys + qc);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool qv = qc + e < qlim;
+          const int query = q0 + qc + e;
+          const bool la = oka && qv && (!diag || ka <= query);
+          const bool lb = okb && qv && (!diag || kb <= query);
+          float ba = 0.0f, bb = 0.0f;
+          if constexpr (kBias) {
+            ba = bias_one<BIAS, KEYS>(bt, qc + e, ka - c0);
+            bb = bias_one<BIAS, KEYS>(bt, qc + e, kb - c0);
+          }
+          const float nl = -(e ? lse.y : lse.x) * kLog2e;
+          const float dl = e ? del.y : del.x;
+          const float pa = la ? bwd_p<kBias>(s[0][j][e], sc, ba, nl) : 0.0f;
+          const float pb = lb ? bwd_p<kBias>(s[0][j][2 + e], sc, bb, nl) : 0.0f;
+          float da = dpt[0][j][e], db = dpt[0][j][2 + e];
+          float va = pa, vb = pb;
+          if (a.drop.on) {
+            const bool keep_a = (keep[j] >> (4 * e)) & 1u;
+            const bool keep_b = (keep[j] >> (8 + 4 * e)) & 1u;
+            const float inv = a.drop.inv_keep;
+            va = keep_a ? pa * inv : 0.0f;
+            da = keep_a ? da * inv : 0.0f;
+            vb = keep_b ? pb * inv : 0.0f;
+            db = keep_b ? db * inv : 0.0f;
+          }
+          s[0][j][e] = va;
+          s[0][j][2 + e] = vb;
+          dpt[0][j][e] = pa * (da - dl);
+          dpt[0][j][2 + e] = pb * (db - dl);
+        }
+      }
+
+      mma_pv<1, NJ, NO, KS>(dv, s, dp_s, lane);    // dV += bf16(P_dropped)^T dO
+      mma_pv<1, NJ, NO, KS>(dk, dpt, qp_s, lane);  // dK += bf16(dS)^T Q
+    }
   }
 
   __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(a.dk) + b * a.sdk.b + h * a.sdk.h;
   __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(a.dv) + b * a.sdv.b + h * a.sdv.h;
-  store_rows<NO>(dkp, dk, kr0, kr1, a.Tk, a.sdk.t, a.scale, t);
-  store_rows<NO>(dvp, dv, kr0, kr1, a.Tk, a.sdv.t, 1.0f, t);
+  store_rows<NO>(dkp, dk[0], ka, kb, a.Tk, a.sdk.t, a.scale, t);
+  store_rows<NO>(dvp, dv[0], ka, kb, a.Tk, a.sdv.t, 1.0f, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1853,8 +2001,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
         const bool ok = ok_s[col + e] != 0.0f;
         const bool ok0 = ok && v0 && (!diag || k0 + col + e <= r0);
         const bool ok1 = ok && v1 && (!diag || k0 + col + e <= r1);
-        const float p0 = ok0 ? expf(s[j][e] * a.scale + bv[j][e] - lse0) : 0.0f;
-        const float p1 = ok1 ? expf(s[j][2 + e] * a.scale + bv[j][2 + e] - lse1) : 0.0f;
+        const float p0 = ok0 ? bwd_p<true>(s[j][e], a.scale, bv[j][e], -lse0 * kLog2e) : 0.0f;
+        const float p1 =
+            ok1 ? bwd_p<true>(s[j][2 + e], a.scale, bv[j][2 + e], -lse1 * kLog2e) : 0.0f;
         float d0 = dp[j][e], d1 = dp[j][2 + e];
         if (a.drop.on) {
           d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
@@ -1991,36 +2140,10 @@ cudaError_t allow_smem(K kernel, int bytes) {
 
 
 template <int D>
-cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.Tq + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  if (a.bias.p)
-    flash_dq_bf16_mma<D, true, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
-  else
-    flash_dq_bf16_mma<D, false, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
 cudaError_t launch_dbias_mma(const BwdArgs& a, cudaStream_t stream) {
   const dim3 grid((a.Tk + kMmaKeys - 1) / kMmaKeys, (a.Tq + kMmaRows - 1) / kMmaRows, a.H);
   flash_dbias_bf16_mma<D, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
   return cudaGetLastError();
-}
-
-template <int D, bool kBias>
-cudaError_t launch_dkv_instance(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t err = allow_smem(flash_dkv_bf16_mma<D, kBias, kCausalBuild>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tk + kMmaRows - 1) / kMmaRows, a.B * a.H);
-  flash_dkv_bf16_mma<D, kBias, kCausalBuild><<<grid, kMmaThreads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t stream) {
-  return a.bias.p ? launch_dkv_instance<D, true>(a, stream)
-                  : launch_dkv_instance<D, false>(a, stream);
 }
 
 // a kernel with `bytes` of dynamic shared memory and the largest shared
@@ -2049,6 +2172,31 @@ cudaError_t launch_fwd_mma(const Args& a, cudaStream_t s) {
   if (a.bias.bf16)
     return launch_smem(flash_fwd_bf16_mma<D, R, WR, 2, kCausalBuild>, grid, NT, bytes, a, s);
   return launch_smem(flash_fwd_bf16_mma<D, R, WR, 4, kCausalBuild>, grid, NT, bytes, a, s);
+}
+
+// the tensor-core dq and dk/dv: the grid is (b*h, q or key tiles); the
+// causal dq takes its q tiles from the last one down, and dk/dv's first
+// key tiles hold the most q tiles
+template <int D>
+cudaError_t launch_dq_mma(const BwdArgs& a, cudaStream_t s) {
+  constexpr int R = BwdMmaLayout<D, kCausalBuild>::kDqRows, NT = R * 2;
+  const dim3 grid(a.B * a.H, (a.Tq + R - 1) / R);
+  const int bytes = dq_mma_smem_bytes<D>(R, a.bias);
+  if (!a.bias.p) return launch_smem(flash_dq_bf16_mma<D, 0, kCausalBuild>, grid, NT, bytes, a, s);
+  if (a.bias.bf16)
+    return launch_smem(flash_dq_bf16_mma<D, 2, kCausalBuild>, grid, NT, bytes, a, s);
+  return launch_smem(flash_dq_bf16_mma<D, 4, kCausalBuild>, grid, NT, bytes, a, s);
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const BwdArgs& a, cudaStream_t s) {
+  constexpr int K = BwdMmaLayout<D, kCausalBuild>::kDkvKeys, NT = K * 2;
+  const dim3 grid(a.B * a.H, (a.Tk + K - 1) / K);
+  const int bytes = dkv_mma_smem_bytes<D>(K, a.bias);
+  if (!a.bias.p) return launch_smem(flash_dkv_bf16_mma<D, 0, kCausalBuild>, grid, NT, bytes, a, s);
+  if (a.bias.bf16)
+    return launch_smem(flash_dkv_bf16_mma<D, 2, kCausalBuild>, grid, NT, bytes, a, s);
+  return launch_smem(flash_dkv_bf16_mma<D, 4, kCausalBuild>, grid, NT, bytes, a, s);
 }
 
 // the FMA kernels: KS 64 for D <= 64 (two blocks an SM), else 128

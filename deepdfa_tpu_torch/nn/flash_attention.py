@@ -671,13 +671,14 @@ def flash_shape_ok(Tq: int, head_dim: int, Tk: int | None = None) -> bool:
     """Can the CUDA kernels take this problem? They tile queries and keys
     in 64-row blocks (16 and 32 in the FMA instances) and mask the ragged
     tail themselves, so any Tq, Tk >= 1 qualify; the head must be
-    1..MAX_HEAD_DIM wide. A biased call has the same rule: each lane
-    reads the bias elements of its own score fragment from device memory
-    (through the L2, where the [H, Tq, Tk] bias stays across the batch),
-    so no sequence cap follows from it. The reference caps biased calls
-    at T = 4096 because its kernels hold a [block_q, T] bias strip in
-    the TPU's VMEM; the port's limit is the device memory the caller's
-    bias (H * Tq * Tk elements) and dbias (as many fp32) take."""
+    1..MAX_HEAD_DIM wide. A biased call has the same rule: the kernels
+    stage the bias a 64-row or 64-key tile at a time, or read a lane's
+    elements from device memory (through the L2, where the [H, Tq, Tk]
+    bias stays across the batch), so no sequence cap follows from it.
+    The reference caps biased calls at T = 4096 because its kernels hold
+    a [block_q, T] bias strip in the TPU's VMEM; the port's limit is the
+    device memory the caller's bias (H * Tq * Tk elements) and dbias (as
+    many fp32) take."""
     Tk = Tq if Tk is None else Tk
     return min(Tq, Tk) >= 1 and 1 <= head_dim <= MAX_HEAD_DIM
 

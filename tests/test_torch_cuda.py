@@ -608,9 +608,12 @@ def _bwd_inputs(card, B, H, Tq, Tk, D, dtype, lens):
     return q, k, v, do, mask
 
 
-def _close(got, want, dtype):
-    """bf16: within 2e-2 of the largest magnitude; fp32: 1e-4 of it."""
-    tol = (2e-2 if dtype == "bfloat16" else 1e-4) * max(want.float().abs().max().item(), 1e-6)
+def _close(got, want, dtype, scale=None):
+    """bf16: within 2e-2 of `scale`, by default want's largest magnitude;
+    fp32: 1e-4 of it."""
+    if scale is None:
+        scale = want.float().abs().max().item()
+    tol = (2e-2 if dtype == "bfloat16" else 1e-4) * max(scale, 1e-6)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol, (err, tol)
 
@@ -645,18 +648,21 @@ def test_flash_bwd_kernels_match_plain(card, B, H, Tq, Tk, D, dtype, lens, rate)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
-def test_flash_bwd_kernels_take_the_training_strides(card, rate):
+@pytest.mark.parametrize("T", [200, 65, 129])
+def test_flash_bwd_kernels_take_the_training_strides(card, T, rate):
     """The training path's operands: q, k and v strided views of the
     fused [B, T, 3, H, D] product and do a [B, H, T, D] view of a
     [B, T, H, D] buffer; dq, dk and dv against attention_bwd_plain on
-    the same views, with and without the seed's dropout mask."""
-    B, T, H, D = 4, 200, 12, 64
+    the same views, with and without the seed's dropout mask, at T 200
+    and one past the first and second 64-row tiles."""
+    B, H, D = 4, 12, 64
     g = torch.Generator().manual_seed(9)
     qkv = torch.randn(B, T, 3 * H * D, generator=g).bfloat16().to(card).view(B, T, 3, H, D)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     do = torch.randn(B, T, H, D, generator=g).bfloat16().to(card).transpose(1, 2)
     assert not (q.is_contiguous() or do.is_contiguous())
-    mask = (torch.arange(T)[None, :] < torch.tensor([200, 150, 3, 0])[:, None]).to(card)
+    lens = torch.tensor([T, 3 * T // 4, 3, 0])
+    mask = (torch.arange(T)[None, :] < lens[:, None]).to(card)
     seed = 77
     o, lse = fa.flash_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
     bits = fa.dropout_bits(seed, B, H, T, T, card) if rate else None
@@ -667,6 +673,86 @@ def test_flash_bwd_kernels_take_the_training_strides(card, rate):
         assert x.shape == y.shape and torch.isfinite(x.float()).all()
         _close(x, y, "bfloat16")
     assert all((x[3] == 0).all() for x in got)
+
+
+#: the tensor-core dq and dk/dv tiles' edges (64-row tiles, 64-key steps):
+#: one row or key, a tile's last and one past, two tiles' either side, and
+#: Tq != Tk both ways
+MMA_EDGE_T = [(1, 1), (1, 200), (200, 1), (63, 65), (65, 63), (127, 129), (129, 127), (200, 64),
+              (64, 200)]
+#: the head widths of the tensor-core instances (csrc/flash_attention.cu:
+#: by_width)
+MMA_WIDTHS = [16, 32, 48, 64, 80, 96, 112, 128]
+
+
+def _mma_bwd_case(card, Tq, Tk, D, bias_dtype, rate, causal=False, lens=None):
+    """One bf16 backward call (the tensor-core dq and dk/dv, and dbias
+    with a bias; B 3, H 2; by default a full, a half and an all-padding
+    batch row) against attention_bwd_plain from the kernel's own forward:
+    each gradient within 2e-2 of its scale, the all-padding row's
+    gradients exactly 0, the same bits on a repeat, each kernel launched
+    once. With one key (Tk = 1) every live row's p is 1 and ds = p (dp -
+    delta) is 0 up to rounding, so dq, dk and dbias are rounding noise in
+    both versions and are held to dv's scale, the call's other
+    gradient."""
+    B, H = 3, 2
+    g = torch.Generator().manual_seed(1000 * Tq + Tk + D)
+    q, do = (torch.randn(B, H, Tq, D, generator=g).bfloat16().to(card) for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, generator=g).bfloat16().to(card) for _ in range(2))
+    bias = None
+    if bias_dtype is not None:
+        bias = (torch.randn(H, Tq, Tk, generator=g) * 2.0).to(getattr(torch, bias_dtype)).to(card)
+    lens = [Tk, (Tk + 1) // 2, 0] if lens is None else lens
+    mask = (torch.arange(Tk)[None, :] < torch.tensor(lens)[:, None]).to(card)
+    seed = 5551212
+    scale = None if bias is None else 1.0
+    kw = {"scale": scale, "dropout_rate": rate, "seed": seed, "bias": bias, "causal": causal}
+    o, lse = fa.flash_fwd(q, k, v, mask, **kw)
+    before = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES)
+    got = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.DBIAS_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + int(bias is not None))
+    bits = fa.dropout_bits(seed, B, H, Tq, Tk, card) if rate else None
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, scale, rate, bits, bias, causal)
+    noise = want[2].float().abs().max().item() if Tk == 1 else None
+    for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
+        if y is None:
+            assert x is None
+            continue
+        assert x.shape == y.shape and torch.isfinite(x.float()).all()
+        _close(x, y, "bfloat16", None if name == "dv" else noise)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert all((x[b] == 0).all() for x in got[:3])
+    again = fa.flash_bwd(q, k, v, mask, o, lse, do, **kw)
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("bias_dtype", [None, "bfloat16"], ids=["no_bias", "bias"])
+@pytest.mark.parametrize("Tq, Tk", MMA_EDGE_T, ids=[f"q{a}_k{b}" for a, b in MMA_EDGE_T])
+def test_flash_bwd_mma_tile_edges_match_plain(card, Tq, Tk, bias_dtype, rate):
+    """The tensor-core dq and dk/dv (D 64) where their tiles end, with and
+    without T5's bf16 bias and dropout 0.1."""
+    _mma_bwd_case(card, Tq, Tk, 64, bias_dtype, rate)
+
+
+@pytest.mark.parametrize("bias_dtype", [None, "bfloat16", "float32"],
+                         ids=["no_bias", "bf16_bias", "fp32_bias"])
+@pytest.mark.parametrize("D", MMA_WIDTHS)
+def test_flash_bwd_mma_every_width_matches_plain(card, D, bias_dtype):
+    """Every head width the tensor-core instances take, at ragged Tq 129,
+    Tk 200, dropout 0.1, without a bias and with a bf16 or fp32 one."""
+    _mma_bwd_case(card, 129, 200, D, bias_dtype, 0.1)
+
+
+@pytest.mark.parametrize("D", MMA_WIDTHS)
+def test_flash_bwd_mma_causal_every_width_matches_plain(card, D):
+    """The causal build's tensor-core dq and dk/dv at every head width: T
+    129 with ragged keys and an all-padding row, the bf16 bias and dropout
+    0.1."""
+    _mma_bwd_case(card, 129, 129, D, "bfloat16", 0.1, causal=True, lens=[129, 70, 0])
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
@@ -1011,9 +1097,15 @@ CAUSAL_CASES = [
     (2, 4, 130, 32, "float32", False, [130, 65], 3),
     (2, 2, 96, 40, "bfloat16", True, [96, 50], 0),
     (16, 12, 128, 64, "float32", True, [128] * 16, 0),
+    # the tensor-core instances' tile edges with ragged keys
+    (3, 2, 63, 64, "bfloat16", False, [63, 10, 2], 1),
+    (3, 2, 65, 64, "bfloat16", True, [65, 33, 1], 7),
+    (3, 2, 127, 64, "bfloat16", False, [127, 64, 65], 0),
+    (3, 2, 129, 64, "bfloat16", True, [129, 128, 65], 3),
 ]
 CAUSAL_IDS = ["bf16_T200_biased_lead_pad", "fp32_T200_biased_lead_pad", "bf16_T256",
-              "fp32_T130_D32", "bf16_D40_fma", "gen_decoder_fp32"]
+              "fp32_T130_D32", "bf16_D40_fma", "gen_decoder_fp32", "bf16_T63_lead_pad",
+              "bf16_T65_biased_lead_pad", "bf16_T127", "bf16_T129_biased_lead_pad"]
 
 
 def _causal_inputs(card, B, H, T, D, dtype, biased, lens, lead_pad):

@@ -57,8 +57,9 @@ def _reference(q, k, v, do, bias, mask, scale, rate=0.0, bits=None):
     return np.asarray(o), np.asarray(lse), [np.asarray(g) for g in grads]
 
 
-def _close(got, want, what):
-    scale = max(float(np.abs(want).max()), 1e-30)
+def _close(got, want, what, scale=None):
+    """Within REL of `scale`, by default want's largest magnitude."""
+    scale = max(float(np.abs(want).max()), 1e-30) if scale is None else scale
     err = float(np.abs(np.asarray(got, np.float64) - want).max())
     assert err <= REL * scale, (what, err, scale)
 
@@ -166,3 +167,48 @@ def test_dbias_wrapper_refuses_the_cpu_and_a_missing_bias():
     before = tfa.DBIAS_LAUNCHES
     tfa.flash_bwd(qt, kt, vt, mt, *tfa.flash_fwd(qt, kt, vt, mt, bias=bt), dot, bias=bt)
     assert tfa.DBIAS_LAUNCHES == before  # counted only where the kernel launches
+
+
+#: the kernels' tiling edges: one row or key, a 64-row tile's last and one
+#: past, two tiles' either side, and Tq != Tk both ways
+EDGE_T = [(1, 1), (1, 200), (200, 1), (63, 65), (65, 63), (127, 129), (129, 127), (200, 64),
+          (64, 200)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("Tq, Tk", EDGE_T, ids=[f"q{a}_k{b}" for a, b in EDGE_T])
+def test_plain_biased_bwd_matches_reference_at_the_tile_edges(Tq, Tk, rate):
+    """The biased plain versions against the reference's custom VJP
+    (interpret mode, one block a side) at the shapes where the kernels'
+    tiles end, T5's scale 1.0, with and without dropout through explicit
+    bits; a full, a half and an all-padding batch row. With one key (Tk =
+    1) every live row's p is 1 and ds = p (dp - delta) is 0 up to fp32
+    rounding, so dq, dk and dbias are rounding noise on both sides: they
+    are held to REL of dv's scale, the call's other gradient."""
+    rng = np.random.default_rng(20 + Tq + Tk)
+    B, H, D = 3, 2, 16
+    q, do = (rng.standard_normal((B, H, Tq, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, H, Tk, D)).astype(np.float32) for _ in range(2))
+    bias = (rng.standard_normal((H, Tq, Tk)) * 0.5).astype(np.float32)
+    mask = np.arange(Tk)[None, :] < np.asarray([Tk, (Tk + 1) // 2, 0])[:, None]
+    bits = rng.integers(0, 2**32, (B, H, Tq, Tk), dtype=np.uint32)
+    jbits = jnp.asarray(bits) if rate else None
+
+    def fl(q, k, v, bias):
+        return jfa.flash_attention(q, k, v, jnp.asarray(mask), scale=1.0, dropout_rate=rate,
+                                   bias=bias, debug_bits=jbits, block_q=Tq, block_k=Tk,
+                                   interpret=True)
+
+    want_o, vjp = jax.vjp(fl, *(jnp.asarray(x) for x in (q, k, v, bias)))
+    want_g = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    qt, kt, vt, dot, bt, mt = (torch.from_numpy(x) for x in (q, k, v, do, bias, mask))
+    bits_t = torch.from_numpy(bits) if rate else None
+    o, lse = tfa.flash_fwd(qt, kt, vt, mt, scale=1.0, dropout_rate=rate, debug_bits=bits_t,
+                           bias=bt)
+    _close(o.numpy(), np.asarray(want_o), "o")
+    got = tfa.flash_bwd(qt, kt, vt, mt, o, lse, dot, scale=1.0, dropout_rate=rate,
+                        debug_bits=bits_t, bias=bt)
+    noise = float(np.abs(want_g[2]).max()) if Tk == 1 else None
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want_g):
+        _close(g.numpy(), w, name, None if name == "dv" else noise)
+    assert all((g[2] == 0).all() for g in got[:3])  # the all-padding row

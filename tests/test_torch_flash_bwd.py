@@ -188,3 +188,47 @@ def test_all_padding_row_gives_zero_gradients():
     for leaf in leaves[1:]:  # the padded keys of the live row
         assert (leaf.grad[1, :, 50:] == 0).all()
     assert leaves[0].grad[1].abs().sum() > 0
+
+
+#: the kernels' tiling edges: one row or key, a 64-row tile's last and one
+#: past, two tiles' either side, and Tq != Tk both ways
+EDGE_T = [(1, 1), (1, 200), (200, 1), (63, 65), (65, 63), (127, 129), (129, 127), (200, 64),
+          (64, 200)]
+
+
+def _edge_inputs(seed, Tq, Tk, D=16):
+    """q, k, v, do, a mask with a full, a half and an all-padding row, and
+    explicit bits: B 3, H 2."""
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((3, 2, Tq, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((3, 2, Tk, D)).astype(np.float32) for _ in range(2))
+    mask = np.arange(Tk)[None, :] < np.asarray([Tk, (Tk + 1) // 2, 0])[:, None]
+    bits = rng.integers(0, 2**32, (3, 2, Tq, Tk), dtype=np.uint32)
+    return q, k, v, do, mask, bits
+
+
+@pytest.mark.parametrize("Tq, Tk", EDGE_T, ids=[f"q{a}_k{b}" for a, b in EDGE_T])
+def test_plain_bwd_matches_reference_at_the_tile_edges(Tq, Tk):
+    """attention_bwd_plain against the reference's custom VJP (interpret
+    mode, one block a side) at the shapes where the kernels' tiles end,
+    dropout 0.1 through explicit bits. With one key (Tk = 1) every live
+    row's p is 1 and ds = p (dp - delta) is 0 up to fp32 rounding, so dq
+    and dk are rounding noise on both sides: they are held to the
+    tolerance in absolute terms, as every gradient is."""
+    q, k, v, do, mask, bits = _edge_inputs(10 + Tq + Tk, Tq, Tk)
+
+    def fl(q, k, v):
+        return jfa.flash_attention(q, k, v, jnp.asarray(mask), dropout_rate=RATE,
+                                   debug_bits=jnp.asarray(bits), block_q=Tq, block_k=Tk,
+                                   interpret=True)
+
+    want_o, vjp = jax.vjp(fl, *(jnp.asarray(x) for x in (q, k, v)))
+    want_g = vjp(jnp.asarray(do))
+    qt, kt, vt, dot, mt, bt = (torch.from_numpy(x) for x in (q, k, v, do, mask, bits))
+    o, lse = tfa.flash_fwd(qt, kt, vt, mt, dropout_rate=RATE, debug_bits=bt)
+    np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=2e-6, rtol=0)
+    got = tfa.attention_bwd_plain(qt, kt, vt, mt, o, lse, dot, dropout_rate=RATE, bits=bt)[:3]
+    for name, g, w in zip("qkv", got, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-6, rtol=1e-4,
+                                   err_msg=f"d{name}")
+        assert (g[2] == 0).all()  # the all-padding row
