@@ -18,7 +18,9 @@ prints one JSON line; any failure exits non-zero before the last line.
 4. kernel ggnn_gru_bwd, kernel ggnn_dmsg — the two backward kernels
    (B3, B4) against their plain versions at the same three batches, the
    same way (the parameter cotangents, sums over every node, are held
-   with atol 1e-5 times their largest magnitude);
+   with atol 1e-5 times their largest magnitude); B3's time beside its
+   first design's (GRU_BWD_BASELINE_MS), and on a line before the
+   phase's, one B3 call's device time split by launch (torch.profiler);
 5. serve   — a flagship-width DeepDFA (hidden 32, 5 steps, input_dim
    1002, random weights from a seeded generator) behind a started
    DynamicBatcher answers seeded synthetic requests; every probability
@@ -110,7 +112,9 @@ prints one JSON line; any failure exits non-zero before the last line.
    version's, one scaled_dot_product_attention call's (the yardstick,
    never called by the port) and the card's bound; then the flagship
    call at dropout 0.1 against the plain version with the seed's Philox
-   bits, and the keep fraction of its 50 M bits within 0.9 +- 0.002;
+   bits, and the keep fraction of its 50 M bits within 0.9 +- 0.002,
+   with one scaled_dot_product_attention call's time at that rate and
+   the backend that ran it;
 9. serve_combined — score_combined on the combined DeepDFA+LineVul
    model at codebert-base width (768 wide, 12 layers, bf16 activations,
    vocab 50265) with the flagship graph encoder (d 128, 5 steps), random
@@ -161,7 +165,8 @@ prints one JSON line; any failure exits non-zero before the last line.
    magnitude, the same bits on a repeat; the four kernels' times with the
    bias, the plain versions', one scaled_dot_product_attention call with
    the bias as a float attn_mask (forward, and backward with the mask
-   requiring grad) and the bounds;
+   requiring grad; the backward at dropout 0.1 too, with its backend)
+   and the bounds;
 14. serve_t5 — phase 9 for the CodeT5+DeepDFA defect model at
    codet5-base width (768 wide, 12 layers of 12 x 64 heads, FFN 3072,
    32 relative buckets, vocab 32100, bf16 activations) with the flagship
@@ -178,7 +183,10 @@ prints one JSON line; any failure exits non-zero before the last line.
    build of the flash source) against the plain versions: bf16 (D 64)
    and fp32, with and without the bias, ragged T = 200 with padded keys
    at the end and at the start (queries without a live key: o = 0, dq =
-   0), dbias exactly 0 above the diagonal, the same bits on a repeat;
+   0), dbias exactly 0 above the diagonal, the same bits on a repeat,
+   and the clone path's two fp32 biased calls (B 32, T 256: the encoder
+   with ragged rows, the causal decoder), where the fp32 dbias cuts the
+   batch into runs of more than one row;
    times, plain and library times (scaled_dot_product_attention with
    is_causal, or a float attn_mask holding bias and -inf) and bounds
    over the live pairs at the flagship call (B 16, H 12, T 512, bf16,
@@ -189,9 +197,13 @@ prints one JSON line; any failure exits non-zero before the last line.
    times at the gen calls beside the first FMA version's
    (FP32_BWD_BASELINE_MS), and its forward times at the gen calls and
    the flagship call (plain, bias, causal, causal + bias, dropout 0.1)
-   beside the first design's (FWD_BASELINE_MS), with the registers and
-   spills from the build of every forward instance at D 64 and the
-   register-tiled fp32 dq and dk/dv (none may spill);
+   beside the first design's (FWD_BASELINE_MS), its fp32 dbias times
+   at the decoder and encoder calls beside the first FMA dbias's
+   (FP32_DBIAS_BASELINE_MS), the batch cut of every fp32 biased case
+   (slices, rows a slice), with the
+   registers and spills from the build of every forward instance at D
+   64, the register-tiled fp32 dq, dk/dv and dbias, the bf16 FMA dbias
+   and every width's B3 passes (none may spill);
 18. train_gen — `train-gen`'s path (the CLI's hash tokenizer at vocab
    32100, reader and codet5-base-width model in fp32, 12 + 12 layers)
    through GenTrainer.fit: 4 batches of 16 summarize rows (256 -> 128
@@ -210,7 +222,8 @@ prints one JSON line; any failure exits non-zero before the last line.
    where every step's top-K margin exceeds 1e-4;
 20. train_clone — `train-clone`'s path: the reference's clone files,
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
-   tokens; every loss finite; the gen step's launches per step;
+   tokens; every loss finite; the gen step's launches per step; one
+   profiled step (device busy time, idle share, device ms by group);
 21. kernels — every kernel with its launches on the twenty-one main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
@@ -224,6 +237,14 @@ prints one JSON line; any failure exits non-zero before the last line.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --phase train_clone [--phase ...]
+
+runs only the named training phases (train, train_gen, train_clone) on
+a fresh seed after phases 1-2, and prints their lines and no last line:
+set beside another checkout's package (copy this script into that
+checkout and run it there), it gives both trees' profiled steps from one
+script.
 """
 
 from __future__ import annotations
@@ -554,9 +575,32 @@ def dmsg_bound(n: int, e_live: int, d: int, t: int):
     return roofline(flops, nbytes)
 
 
+def launch_split(torch, fn, calls: int = 10) -> dict:
+    """{kernel: {"ms", "launches"}} a call of `fn`: the device time and
+    launches of each kernel it runs (copies too), from torch.profiler over
+    `calls` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if str(e.device_type).endswith("CUDA") and us > 0 and \
+                not getattr(e, "is_user_annotation", False):
+            out[e.key[:70]] = {"ms": us / 1e3 / calls, "launches": e.count / calls}
+    return out
+
+
 def bwd_kernel_phase(torch, rng):
     """B3 and B4 against their plain versions at the flagship, T = 3
-    and all-padding batches; timings at the flagship batch."""
+    and all-padding batches; timings at the flagship batch, B3's beside
+    its first design's (GRU_BWD_BASELINE_MS), and B3's device time split
+    by launch on a line of its own before the phase's lines."""
     from deepdfa_tpu_torch.graphs import pack
     from deepdfa_tpu_torch.nn import ggnn_kernel as gk
 
@@ -614,23 +658,28 @@ def bwd_kernel_phase(torch, rng):
             fail(f"{name}: a backward kernel gave other bits on a rerun")
         if name == "flagship":
             with torch.inference_mode():
-                # the wrapper's two weight transposes are timed with it
                 timing["ggnn_gru_bwd"] = {
                     "ms": median_ms(torch, lambda: gk.gru_bwd(h, a, *gru, g)),
                     "plain_ms": median_ms(torch, lambda: gk.gru_bwd_plain(h, a, *gru, g)),
                     **dict(zip(("bound_ms", "bound_by"), gru_bwd_bound(n, d))),
                 }
+                base = GRU_BWD_BASELINE_MS["ggnn_gru_bwd"]
+                timing["ggnn_gru_bwd"].update(
+                    baseline_ms=base, baseline_over_ms=base / timing["ggnn_gru_bwd"]["ms"])
+                split = launch_split(torch, lambda: gk.gru_bwd(h, a, *gru, g))
                 timing["ggnn_dmsg"] = {
                     "ms": median_ms(torch, lambda: gk.dmsg(a, edges, wm)),
                     "plain_ms": median_ms(torch, lambda: gk.dmsg_plain(a, edges, wm)),
                     **dict(zip(("bound_ms", "bound_by"), dmsg_bound(n, e_live, d, t))),
                 }
             shape = {"n": n, "e": b.edge_budget, "e_live": e_live, "d": d, "n_etypes": t}
+    emit({"phase": "kernel ggnn_gru_bwd launches", **shape, "device_ms_by_launch": split,
+          "device_ms": sum(x["ms"] for x in split.values())})
     for kernel in reports:
         emit({"phase": f"kernel {kernel}", "ok": True, "rtol": RTOL, "atol": ATOL,
               "max_abs_err": worst[kernel], **reports[kernel], **shape, **timing[kernel],
-              **({"weight_pass_splits": gk._library("ggnn_bwd").ggnn_gru_bwd_splits(shape["n"])}
-                 if kernel == "ggnn_gru_bwd" else {})})
+              **({"weight_pass_splits": gk._library("ggnn_bwd").ggnn_gru_bwd_splits(
+                  shape["n"], shape["d"])} if kernel == "ggnn_gru_bwd" else {})})
     return worst, timing
 
 
@@ -779,7 +828,8 @@ def train_phase(torch, rng):
           "fit_graphs_per_sec": sum(graphs) * TRAIN_EPOCHS / fit_s, **med,
           "graphs_per_sec": graphs[0] / (med["step_ms"] / 1e3),
           "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
-          "profiled_step": device_profile(prof, profiled_ms)})
+          "profiled_step": {**device_profile(prof, profiled_ms),
+                            "device_ms_by_group": device_groups(prof)}})
     return launches
 
 
@@ -1649,7 +1699,8 @@ def flash_kernel_phase(torch):
             bound_ms, bound_by = flash_bound(B, H, T, lens, D, 2)
             timing = {"shape": [B, H, T, T, D], "dtype": dtype, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-            timing["dropout"] = flash_fwd_dropout_case(torch, fa, q, k, v, mask)
+            timing["dropout"] = {**flash_fwd_dropout_case(torch, fa, q, k, v, mask),
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
             worst = max(worst, timing["dropout"]["o_max_abs_err"])
     emit({"phase": "kernel flash_fwd", "ok": True, "tolerance": FLASH_TOL, "lse_tolerance": 1e-5,
           "max_abs_err": worst, **report, **timing})
@@ -1660,7 +1711,8 @@ def flash_fwd_dropout_case(torch, fa, q, k, v, mask) -> dict:
     """Kernel 5 at dropout rate 0.1 on the flagship call against the plain
     version with the seed's Philox bits: o within the bf16 tolerance, lse
     within 1e-5; the keep fraction of the call's 50 M bits within 0.9 +-
-    0.002; the kernel's and the plain version's times at that rate."""
+    0.002; the kernel's and the plain version's times at that rate, and one scaled_dot_product_attention call's at
+    that rate with the backend that ran it."""
     B, H, T, _ = q.shape
     seed = DROPOUT_SEED
     with torch.inference_mode():
@@ -1685,9 +1737,18 @@ def flash_fwd_dropout_case(torch, fa, q, k, v, mask) -> dict:
         plain_ms = median_ms(torch, lambda: fa.attention_plain(
             q, k, v, mask, dropout_rate=DROPOUT_RATE,
             bits=fa.dropout_bits(seed, B, H, T, T, q.device)))
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask[:, None, None, :], dropout_p=DROPOUT_RATE)
+
+        library_ms = median_ms(torch, library)
+        backend, top = sdpa_backend(torch, library)
     return {"rate": DROPOUT_RATE, "seed": seed, "bits": B * H * T * T, "keep_fraction": keep,
             "o_max_abs_err": err_o, "lse_max_abs_err": err_lse, "ms": ms,
-            "plain_ms_with_bits": plain_ms}
+            "plain_ms_with_bits": plain_ms, "library_ms": library_ms,
+            "library_call": "sdpa(bool attn_mask, dropout_p)", "library_backend": backend,
+            "library_device_ms_by_kernel": top}
 
 
 def flash_bwd_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
@@ -1785,7 +1846,8 @@ def flash_bwd_kernel_phase(torch):
                 timing[f"dkv_ms_rate{rate}"] = median_ms(
                     torch, lambda: fa.flash_dkv(q, k, v, mask, lse, delta, do, **kw))
             if rate:
-                timing["dropout_library"] = sdpa_dropout_yardstick(torch, q, k, v, do, mask, rate)
+                timing["dropout_library"] = sdpa_dropout_yardstick(
+                    torch, q, k, v, do, mask[:, None, None, :], rate)
                 continue
             with torch.inference_mode():
                 timing["plain_ms"] = median_ms(
@@ -1805,25 +1867,13 @@ def flash_bwd_kernel_phase(torch):
     return worst, timing
 
 
-def sdpa_dropout_yardstick(torch, q, k, v, do, mask, rate: float) -> dict:
-    """The library yardstick of kernels 6 and 7 at dropout `rate`, never
-    called by the port: one scaled_dot_product_attention call with the
-    boolean key mask and dropout_p=rate; its backward (dq, dk and dv
-    together, the mask replayed from the RNG state the call saved) timed
-    as the kernels are, and the card's kernels of one forward and
-    backward by device time, which name the SDPA backend that ran."""
-    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-
-    def forward():
-        return torch.nn.functional.scaled_dot_product_attention(
-            *leaves, attn_mask=mask[:, None, None, :], dropout_p=rate)
-
-    out = forward()
-    ms = median_ms(torch, lambda: out.backward(do, retain_graph=True))
-    del out
+def sdpa_backend(torch, fn) -> tuple[str, dict]:
+    """(backend, top kernels): the SDPA backend whose card kernels one run
+    of `fn` launched, from their names, and its 4 largest kernels by
+    device ms."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        forward().backward(do)
+        fn()
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
@@ -1835,8 +1885,30 @@ def sdpa_dropout_yardstick(torch, q, k, v, do, mask, rate: float) -> dict:
     backend = next((b for b, frags in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
                                        ("efficient", ("fmha", "efficient", "mem_eff")))
                     if any(f in names for f in frags)), "math")
-    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
-    return {"ms": ms, "rate": rate, "call": "sdpa(bool attn_mask, dropout_p) backward",
+    return backend, dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:4])
+
+
+def sdpa_dropout_yardstick(torch, q, k, v, do, attn_mask, rate: float,
+                           scale: float | None = None) -> dict:
+    """The library yardstick of the backward kernels at dropout `rate`,
+    never called by the port: one scaled_dot_product_attention call with
+    `attn_mask` (a boolean key mask, or a float mask holding a bias,
+    which then gets its gradient too) and dropout_p=rate; its backward
+    (the mask replayed from the RNG state the call saved) timed as the
+    kernels are, and the backend that ran one forward and backward."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    mask = attn_mask.detach().clone().requires_grad_(attn_mask.is_floating_point())
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, dropout_p=rate, scale=scale)
+
+    out = forward()
+    ms = median_ms(torch, lambda: out.backward(do, retain_graph=True))
+    del out
+    backend, top = sdpa_backend(torch, lambda: forward().backward(do))
+    kind = "float attn_mask with the bias" if attn_mask.is_floating_point() else "bool attn_mask"
+    return {"ms": ms, "rate": rate, "call": f"sdpa({kind}, dropout_p) backward",
             "backend": backend, "device_ms_by_kernel": top}
 
 
@@ -1932,7 +2004,13 @@ def flash_bias_kernel_phase(torch):
                     timing["dbias_dropout_ms"] = median_ms(torch, lambda: fa.flash_dbias(
                         q, k, v, mask, lse, delta, do, bias, scale=1.0, dropout_rate=rate,
                         seed=DROPOUT_SEED))
-                    continue
+            if rate:
+                float_mask = bias[None] + torch.where(mask, 0.0, -1e9).to(bf)[:, None, None, :]
+                timing["dbias_dropout_library"] = sdpa_dropout_yardstick(
+                    torch, q, k, v, do, float_mask, rate, scale=1.0)
+                del float_mask
+                continue
+            with torch.inference_mode():
                 timing["fwd_ms"] = median_ms(torch, lambda: fa.flash_fwd(q, k, v, mask, **kw))
                 timing["dq_ms"] = median_ms(
                     torch, lambda: fa.flash_dq(q, k, v, mask, lse, delta, do, **kw))
@@ -2456,7 +2534,11 @@ def combined_step_split(torch, trainer, state, collate_512, tok) -> dict:
 #: biased, causal, real keys per row, padded leading keys of the last row).
 #: The timed cases: the flagship training call with and without T5's bias,
 #: and the gen path's three fp32 calls (decoder self-attention, causal and
-#: biased; cross-attention, rectangular; the encoder, biased), every key live
+#: biased; cross-attention, rectangular; the encoder, biased), every key live.
+#: The clone path's two fp32 biased calls (B 32) are held to the gates only:
+#: there the fp32 dbias cuts the batch into runs of several rows (4 x 8 for
+#: the encoder, 8 x 4 for the causal decoder), where the gen calls give
+#: 4 x 4 and 16 x 1
 FLASH_CAUSAL_CASES = {
     "bf16_t200_biased_padded": (8, 200, 200, "bfloat16", True, True,
                                 [200, 150, 64, 1, 0, 200, 200, 199], 70),
@@ -2471,6 +2553,9 @@ FLASH_CAUSAL_CASES = {
     "gen_decoder_t128": (16, 128, 128, "float32", True, True, [128] * 16, 0),
     "gen_cross_t128x256": (16, 128, 256, "float32", False, False, [256] * 16, 0),
     "gen_encoder_t256": (16, 256, 256, "float32", True, False, [256] * 16, 0),
+    "clone_encoder_t256": (32, 256, 256, "float32", True, False,
+                           [256, 255, 200, 129, 128, 64, 1, 0] * 4, 0),
+    "clone_decoder_t256": (32, 256, 256, "float32", True, True, [256] * 32, 0),
 }
 FLASH_TIMED = ("t5_flagship_t512", "flagship_t512", "gen_decoder_t128", "gen_cross_t128x256",
                "gen_encoder_t256")
@@ -2509,13 +2594,26 @@ FWD_BASELINE_MS = {
 }
 
 
+#: B3's time at the flagship batch (N 16384, d 128) that PERF.md records
+#: for its first design (six launches: the gate pass reading its weights
+#: a column a lane from device memory, the input pass, the split-K weight
+#: pass, the reduce and two weight transposes; NVIDIA H100 80GB HBM3,
+#: 700 W), before its register-tiled redesign
+GRU_BWD_BASELINE_MS = {"ggnn_gru_bwd": 0.6196}
+#: the fp32 dbias times at the gen path's biased calls that PERF.md records
+#: for its first FMA instance (a lane one key of a 32-key tile for 4 rows;
+#: NVIDIA H100 80GB HBM3, 700 W), before its register-tiled redesign
+FP32_DBIAS_BASELINE_MS = {"gen_decoder_t128": 0.1674, "gen_encoder_t256": 0.4932}
+
+
 def no_spill_report(ptxas: dict) -> dict:
     """{kernel: ptxas's registers and spills} of the instances that must
     not spill, in both flash libraries: every tensor-core forward, dq and
     dk/dv instance at D 64 (three of each: without a bias and with a bf16
-    or fp32 bias), the fp32 and bf16 FMA forwards, and the
-    register-tiled fp32 dq and dk/dv that the gen path launches; None for
-    one the build did not report."""
+    or fp32 bias), the fp32 and bf16 FMA forwards, the register-tiled
+    fp32 dq, dk/dv and dbias that the gen path launches and the bf16 FMA
+    dbias; and every width's instance of B3's three passes
+    (`ggnn_bwd`); None for one the build did not report."""
     out = {}
     for lib, c in (("flash_attention", ""), ("flash_attention_causal", ", causal")):
         for kernel in ("flash_fwd_bf16_mma", "flash_dq_bf16_mma", "flash_dkv_bf16_mma"):
@@ -2524,9 +2622,22 @@ def no_spill_report(ptxas: dict) -> dict:
             if len(mma) != 3:
                 out[f"{kernel}<64, ...{c}> x 3"] = None
         for k in (f"flash_fwd_scalar<float, 64{c}>", f"flash_fwd_scalar<bf16, 64{c}>",
-                  f"flash_dq_scalar<float, 64{c}>", f"flash_dkv_scalar<float, 64{c}>"):
+                  f"flash_dq_scalar<float, 64{c}>", f"flash_dkv_scalar<float, 64{c}>",
+                  f"flash_dbias_scalar<float, 64{c}>", f"flash_dbias_scalar<bf16, 64{c}>"):
             out[k] = ptxas[lib].get(k)
+    for kernel in ("gru_bwd_gates_kernel", "gru_bwd_inputs_kernel", "gru_bwd_weights_kernel"):
+        for d in range(32, 257, 32):
+            out[f"{kernel}<{d}>"] = ptxas["ggnn_bwd"].get(f"{kernel}<{d}>")
     return out
+
+
+def dbias_cut(fa, B: int, H: int, Tq: int, Tk: int, causal: bool) -> dict:
+    """The batch cut of the fp32 dbias (kernel 8's FMA instance) at a
+    call, from the workspace its library asks for: `slices` runs of `per`
+    rows (per = ceil(B / slices) for the library's power-of-two cuts)."""
+    floats = fa._library(causal).flash_dbias_workspace_floats(B, H, Tq, Tk)
+    slices = max(1, floats // (H * Tq * Tk))
+    return {"slices": slices, "per": -(-B // slices)}
 
 
 def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
@@ -2567,11 +2678,12 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
     rows = fa._library(False).flash_fwd_tile_rows(1)
     no_spill = no_spill_report(ptxas)
     if any(r is None or r["spill_bytes"] for r in no_spill.values()):
-        fail(f"flash_causal: a D 64 tensor-core instance or register-tiled fp32 instance is "
-             f"missing or spills: {no_spill}")
+        fail(f"flash_causal: an instance that must not spill (a D 64 tensor-core instance, a "
+             f"register-tiled FMA instance or a B3 pass) is missing or spills: {no_spill}")
     H, D = 12, 64
     gen = torch.Generator().manual_seed(11)
     report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
+    cuts = {}
     for name, (B, Tq, Tk, dtype, biased, causal, lens, lead) in FLASH_CAUSAL_CASES.items():
         td = getattr(torch, dtype)
         q, do = (torch.randn(B, H, Tq, D, generator=gen).to(td).to(CARD) for _ in range(2))
@@ -2622,6 +2734,8 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
         if lead and not (bool((o[-1, :, :lead] == 0).all())
                          and bool((got[0][-1, :, :lead] == 0).all())):
             fail(f"flash_causal {name}: queries without a live key got o or dq != 0")
+        if biased and dtype == "float32":
+            cuts[name] = dbias_cut(fa, B, H, Tq, Tk, causal)
         if biased and causal:
             upper = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).triu(1)
             if not bool((got[3][:, upper] == 0).all()):
@@ -2695,13 +2809,19 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
                                 "baseline_over_ms": base / bwd_now[call][kernel]}
                        for kernel, base in by_kernel.items()}
                 for call, by_kernel in BF16_BWD_BASELINE_MS.items()}
+    fp32_dbias = {case: {"ms": timing[case]["dbias_ms"], "baseline_ms": base,
+                         "baseline_over_ms": base / timing[case]["dbias_ms"],
+                         "cut": cuts[case]}
+                  for case, base in FP32_DBIAS_BASELINE_MS.items()}
     emit({"phase": "kernel flash_causal", "ok": True,
           "tolerance": {"o": FLASH_TOL, "lse": "1e-5 + 1e-5 |lse|",
                         "grads": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"}},
           "max_abs_err": worst, "timed": timing,
           "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio,
           "fp32_bwd_vs_baseline": fp32_bwd, "fwd_vs_baseline": fwd,
-          "bf16_bwd_vs_baseline": bf16_bwd, "fwd_mma_rows": rows,
+          "bf16_bwd_vs_baseline": bf16_bwd, "fp32_dbias_vs_baseline": fp32_dbias,
+          "fp32_dbias_cut": cuts,
+          "fwd_mma_rows": rows,
           "no_spill_ptxas": no_spill, **report})
     return worst, timing
 
@@ -3102,11 +3222,21 @@ def train_clone_phase(torch, rng):
         fail(f"train_clone: kernel launches {launches}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"train_clone: a non-finite loss in {losses}")
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = batches[0].to(trainer.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_a = time.perf_counter()
+        trainer.train_step(state, batch, fold_seed(0, 8))
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t_a)
     metrics, _ = trainer.evaluate(state, batches[:1])
     emit({"phase": "train_clone", "ok": True, "pairs": len(ex), "batch": list(pairs.shape[1:]),
           "rows": args.batch_size, "steps": 8, "losses": losses,
           "step_ms_median": statistics.median(times[1:]), "eval": metrics,
-          "kernel_launches": launches})
+          "kernel_launches": launches,
+          "profiled_step": {**device_profile(prof, profiled_ms),
+                            "device_ms_by_group": device_groups(prof)}})
     del state, trainer
     return launches
 
@@ -3119,9 +3249,10 @@ def device_groups(prof) -> dict:
     (cuBLAS's gemm and Hopper `nvjet` kernels, CUTLASS) and everything
     else; with launch counts."""
     # kernel-name fragments of each group: the flash kernels, the GGNN
-    # whole unroll and step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*)
+    # whole unroll and step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*);
+    # kernel 8 with the sum of its cut batch's partials (dbias_reduce)
     names = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
-             "flash_dkv": ("flash_dkv",), "flash_dbias": ("flash_dbias",),
+             "flash_dkv": ("flash_dkv",), "flash_dbias": ("flash_dbias", "dbias_reduce"),
              "ggnn_fused": ("ggnn_fused",),
              "ggnn_step": ("ggnn_step", "msg_table", "mxu_colmax"),
              "ggnn_gru_bwd": ("gru_bwd", "reduce_splits"), "ggnn_dmsg": ("dmsg_",)}
@@ -3182,7 +3313,17 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+#: the phases --phase can run alone
+LONE_PHASES = ("train", "train_gen", "train_clone")
+
+
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", action="append", choices=LONE_PHASES, default=[],
+                    help="run only this training phase (repeatable)")
+    only = ap.parse_args().phase
     import torch
 
     if not torch.cuda.is_available():
@@ -3224,6 +3365,10 @@ def main() -> None:
         for name, r in built.items()}})
 
     rng = np.random.default_rng(0)
+    if only:
+        for name in only:
+            globals()[f"{name}_phase"](torch, rng)
+        return
     kernel_err, timing = kernel_phase(torch, rng)
     bwd_err, bwd_timing = bwd_kernel_phase(torch, rng)
     launches, model, serve_specs, serve_probs, budgets, max_graphs = serve_phase(torch, rng)
@@ -3340,6 +3485,7 @@ def main() -> None:
          "max_abs_err": max(flash_err, fb_err["fwd"], causal_err["fwd"]),
          **{k: flash_timing[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "dropout_ms": flash_timing["dropout"]["ms"],
+         "dropout_library_ms": flash_timing["dropout"]["library_ms"],
          "bias": {"ms": fb["fwd_ms"], "plain_ms": fb["fwd_plain_ms"],
                   "library_ms": fb["fwd_library_ms"], "bound_ms": fb["fwd_bound"][0],
                   "bound_by": fb["fwd_bound"][1]}},
@@ -3371,7 +3517,8 @@ def main() -> None:
          "max_abs_err": max(fb_err["dbias"], causal_err["dbias"]),
          "ms": fb["dbias_ms"], "plain_ms": fb["bwd_plain_ms"], "bound_ms": fb["dbias_bound"][0],
          "bound_by": fb["dbias_bound"][1], "library_ms": fb["bwd_library_ms"],
-         "dropout_ms": fb["dbias_dropout_ms"]},
+         "dropout_ms": fb["dbias_dropout_ms"],
+         "dropout_library_ms": fb["dbias_dropout_library"]["ms"]},
     ]
     for k in kernels:
         k["launches_by_path"] = by_path(k["name"])

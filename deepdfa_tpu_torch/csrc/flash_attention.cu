@@ -79,6 +79,8 @@
 //    reference zeroes its output at b == 0 and accumulates across grid
 //    steps, which is right only because the TPU grid runs in order; GPU
 //    blocks run concurrently, so the batch loop lives inside the block.
+//    The FMA dbias cuts the batch into slices whose partials a second
+//    launch sums in slice order, to fill the card at few tiles a head.
 // No float atomics anywhere (the usual FA2 backward sums dq with atomics):
 // the same inputs on the same card give the same bits.
 //
@@ -154,8 +156,12 @@
 //    and 0.048 ms; the causal decoder's T 128 is bound by bytes (forward
 //    0.0078, dq 0.0097 and dk/dv 0.0121 ms). Plain fp32 FMA, no TF32 (the
 //    generation path's fp32 contract), d and k ascending in every sum.
-//  - fp32 (and bf16 at other widths), dbias: 4 warps; a lane scores one
-//    key of a 32-wide tile.
+//  - fp32 (and bf16 at other widths), dbias: the same 4 x 4 score
+//    micro-tile a thread over 64 keys x 64 rows, q, do, k and v through
+//    a two-stage cp.async ring in 64-column chunks of D (S's, then dP's),
+//    the batch cut into slices (its note, at flash_dbias_scalar, has the
+//    rest). Bound: 3.2 GFLOP (0.048 ms) at the encoder call; 0.008 ms of
+//    bytes at the decoder's.
 //
 // Bound of the backward at the flagship training call: dq does 3
 // products (19.3 GFLOP, 0.0195 ms) on ~64 MB (0.019 ms); dk/dv 4 (25.8
@@ -168,9 +174,9 @@
 // ldmatrix.x4, score a tile in 32-column parts (half the S and dP
 // accumulators live, for more warps an SM), issue a part's Philox calls
 // before its elementwise work, so that their chains overlap, and use
-// every word of each call (lanes trade them by shuffle). dbias and the
-// FMA dbias have no double buffering: each tile's loads wait on a
-// barrier, and dbias uses 2 of each Philox call's 4 words.
+// every word of each call (lanes trade them by shuffle). The tensor-core
+// dbias has no double buffering: each tile's loads wait on a barrier, and
+// it uses 2 of each Philox call's 4 words.
 //
 // The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
 // token) strides and the bias's (head, row) strides; the innermost
@@ -184,23 +190,19 @@
 
 #include <type_traits>
 
+#include "cuda_common.cuh"
+
 namespace {
 
 constexpr float kNegBig = -1e30f;              // the reference's _NEG_BIG
 constexpr float kTiny = 1.17549435082228751e-38f;  // jnp.finfo(float32).tiny
 constexpr int kMaxD = 128;
-constexpr int kStaticSmem = 48 * 1024;
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kMmaRows = kMmaWarps * 16;  // query (dq, dbias) or key (dk/dv) rows per block
 constexpr int kMmaKeys = 64;               // keys (fwd, dq) or queries (dk/dv) per tile
 
-constexpr int kScalarWarps = 4;
-constexpr int kScalarThreads = kScalarWarps * 32;
-constexpr int kScalarRowsPerWarp = 4;
-constexpr int kScalarRows = kScalarWarps * kScalarRowsPerWarp;
-constexpr int kScalarKeys = 32;  // one key (or query) per lane
 
 struct Strides {
   long long b, h, t;
@@ -404,32 +406,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, const float (&ac
       *reinterpret_cast<__nv_bfloat162*>(base + r1 * stride + c) =
           __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
   }
-}
-
-// ---------------------------------------------------------------------------
-// cp.async: 16- and 4-byte copies from device into shared memory that run
-// while the block computes; src_bytes < the copy's size zero-fills the rest
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -900,7 +876,7 @@ __global__ void __launch_bounds__(ROWS / WR * 32,
 // each kernel's register budget is set for (1: no cap). At D <= 64, dq
 // fits 128 registers for four blocks and the non-causal dk/dv 168 for
 // three, neither spilling; the causal dk/dv spills at 168 and is not
-// capped. The faster at the flagship calls (PERF.md; flash_bwd_trial.py).
+// capped. The faster at the flagship calls (PERF.md; kernel_trial.py bwd).
 template <int D, bool kCausal>
 struct BwdMmaLayout {
   static constexpr int kDqRows = 64;
@@ -1292,10 +1268,6 @@ constexpr int kTileKeys = 64;  // keys (dq) or queries (dk/dv) per tile of the l
 
 __device__ __forceinline__ int swz(int c, int r) { return c ^ (r & 7); }
 
-__device__ __forceinline__ float lane_of(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
 // Rows r0 .. r0+63 (zero past `rows`) and columns 0 .. 16*n16-1 (zero
 // past D) of a strided [rows, D] operand into a [64][KS] fp32 tile,
 // swizzled with kSwz. fp32 goes through cp.async (the caller commits):
@@ -1343,12 +1315,12 @@ __device__ __forceinline__ const T* strip(const void* x, const Strides& s, int b
   return static_cast<const T*>(x) + b * s.b + h * s.h;
 }
 
-// acc[i][j] += sum_d a[4ty + i][d] * b[tx + 16j][d] over the n16 16-column
+// acc[i][j] += sum_d a[4ty + i][d] * b[tx + RS j][d] over the n16 16-column
 // groups: `a` points at row 4ty of a plain tile (its 4 rows are one
 // broadcast per quarter warp), `b` at row tx of a swizzled one (sw = tx &
-// 7). Per 4 columns, 8 LDS.128 feed 64 FMAs; d ascends in every sum, as
-// in the plain dot product.
-template <int KS>
+// 7; RS is a multiple of 8). Per 4 columns, 8 LDS.128 feed 64 FMAs; d
+// ascends in every sum, as in the plain dot product.
+template <int KS, int RS = 16>
 __device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* a, const float* b,
                                           int sw, int n16) {
   for (int g = 0; g < n16; ++g) {
@@ -1358,7 +1330,7 @@ __device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* a, co
       float4 y[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        y[j] = *reinterpret_cast<const float4*>(b + 16 * j * KS + 4 * (c ^ sw));
+        y[j] = *reinterpret_cast<const float4*>(b + RS * j * KS + 4 * (c ^ sw));
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float4 x = *reinterpret_cast<const float4*>(a + i * KS + 4 * c);
@@ -2027,100 +1999,280 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
   }
 }
 
-// dbias, fp32 (and bf16 at other widths): one block per (32-key tile,
-// 16-row q-tile, h); a lane owns one key of the tile for the warp's 4
-// rows and sums their ds over the batch in order
+// dbias, fp32 (and bf16 at widths the mma path does not take): a
+// register-tiled FMA kernel. (The first version gave a lane one key of a
+// 32-key tile for 4 rows: two shared loads fed each FMA, each b's tiles
+// waited on a barrier, and the generation path's decoder call filled 36
+// blocks of 132 SMs; PERF.md has its times.)
+//
+// A block owns kDbRows query rows x 64 keys of one head and a contiguous
+// slice of the batch, whose b it visits in order. Its 4 kDbRows threads
+// form a grid (ty 0..15, tx < R4 = kDbRows / 4): a thread owns the keys
+// 4ty .. 4ty+3 and the rows tx + R4 j (j < 4) of S^T = K Q^T and dP^T =
+// V dO^T (tile_dots: per 4 columns 8 LDS.128 feed 64 FMAs) and sums ds =
+// p (dp - delta) over b in 16 fp32 registers. Each b is 2 C units of a
+// two-stage cp.async ring, C = ceil(D / 64): first the C 64-column chunks
+// of q and k (S, then p = exp(s scale + bias - lse), which waits in
+// shared memory), then those of do and v (dP, then ds), all into one
+// 16-register accumulator. With the product and copy loops rolled and
+// the dropout keep bits drawn into a 16-bit mask before the sum, the
+// kernel fits 128 registers (two blocks an SM) without spilling; lse,
+// delta and the key mask of each b ride with its first unit, and the next
+// unit is in flight while one computes. The block's bias tile is read
+// once into shared memory. (S, dP, the bias and the sum in registers
+// together spilled 84 to 236 bytes; with one accumulator, 8.) A head has
+// few tiles (the decoder call, T 128 causal: 3 live 64 x 64 tiles, 36
+// blocks for 132 SMs), so the batch is cut into `slices` of `per` rows: each block
+// writes its slice's [H, Tq, Tk] partial and dbias_reduce sums the
+// partials in slice order. dbias_cut picks the cut so that the grid holds
+// about kDbSplitBlocks live blocks. Every sum
+// keeps one order: the same bits on every run, no atomics. p uses expf,
+// as in the FMA dq and dk/dv. Bound at the generation path's calls (B
+// 16, H 12, D 64, fp32): the encoder's T 256 does 2 products, 3.2 GFLOP
+// (0.048 ms at 67 TFLOP/s); the causal decoder's T 128 is bound by its
+// bytes (0.008 ms).
 
-template <typename T, bool kCausal>
-__global__ void __launch_bounds__(kScalarThreads) flash_dbias_scalar(BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D = a.D;
-  float* q_s = reinterpret_cast<float*>(smem);  // [16][D]
-  float* do_s = q_s + kScalarRows * D;           // [16][D]
-  float* k_s = do_s + kScalarRows * D;           // [32][D + 1]
-  float* v_s = k_s + kScalarKeys * (D + 1);      // [32][D + 1]
-  float* ok_s = v_s + kScalarKeys * (D + 1);     // [32]
+constexpr int kDbKeys = 64;          // keys a block
+constexpr int kDbRows = 64;          // query rows a block
+constexpr int kDbChunk = 64;         // columns of D a ring unit holds
+constexpr int kDbBiasRow = kDbKeys + 4;  // a staged bias row: 8 rows hit 8 bank groups
+constexpr int kDbSplitBlocks = 528;  // live blocks the batch split aims for
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int h = blockIdx.z;
-  const int k0 = blockIdx.x * kScalarKeys;
-  const int q0 = blockIdx.y * kScalarRows;
-  const int key = k0 + lane;
-  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
-  if (kCausal && k0 >= q0 + kScalarRows) {
-    // wholly above the diagonal: ds is 0 there, and the tile is written
-#pragma unroll
-    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-      const int row = q0 + warp * kScalarRowsPerWarp + i;
-      if (row < a.Tq && key < a.Tk) out[(long long)row * a.Tk + key] = 0.0f;
-    }
-    return;
-  }
-  const bool diag = kCausal && k0 + kScalarKeys > q0;
+template <int R>
+__host__ __device__ constexpr int dbias_tile_smem_bytes() {
+  // [2 stages][q or do [R][64]; k or v [64][64]]; the bias [R][68]; p
+  // [16][4R]; [2][lse, delta [R]]; [2][mask [64]]
+  return (2 * (R + kDbKeys) * kDbChunk + R * kDbBiasRow + 64 * R + 4 * R + 2 * kDbKeys) * 4;
+}
 
-  float bv[kScalarRowsPerWarp], acc[kScalarRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int row = q0 + warp * kScalarRowsPerWarp + i;
-    bv[i] = (row < a.Tq && key < a.Tk) ? bias_at(a.bias, h, row, key) : 0.0f;
-    acc[i] = 0.0f;
-  }
-
-  for (int b = 0; b < a.B; ++b) {
-    const int bh = b * a.H + h;
-    const T* qp = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-    const T* kp = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-    const T* vp = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-    const T* dop = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-    const int* maskp = a.mask + (long long)b * a.Tk;
-    __syncthreads();
-    for (int idx = tid; idx < kScalarRows * D; idx += kScalarThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const bool in = q0 + r < a.Tq;
-      q_s[idx] = in ? to_f(qp[(q0 + r) * a.sq.t + c]) : 0.0f;
-      do_s[idx] = in ? to_f(dop[(q0 + r) * a.sdo.t + c]) : 0.0f;
-    }
-    for (int idx = tid; idx < kScalarKeys * D; idx += kScalarThreads) {
-      const int r = idx / D, c = idx - r * D;
-      const bool in = k0 + r < a.Tk;
-      k_s[r * (D + 1) + c] = in ? to_f(kp[(k0 + r) * a.sk.t + c]) : 0.0f;
-      v_s[r * (D + 1) + c] = in ? to_f(vp[(k0 + r) * a.sv.t + c]) : 0.0f;
-    }
-    if (tid < kScalarKeys) {
-      const int kk = k0 + tid;
-      ok_s[tid] = (kk < a.Tk && maskp[kk] != 0) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-      const int row = warp * kScalarRowsPerWarp + i;
-      if (q0 + row >= a.Tq) continue;  // warp-uniform
-      float s = 0.0f, dp = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q_s[row * D + d], k_s[lane * (D + 1) + d], s);
-        dp = fmaf(do_s[row * D + d], v_s[lane * (D + 1) + d], dp);
+// Rows r0 .. r0+NR-1 (zero past `rows`) and columns col0 .. col0+63 (zero
+// past D) of a strided [rows, D] operand into a [NR][64] fp32 tile,
+// swizzled with kSwz, by NT threads. As stage_tile: fp32 through cp.async
+// (16 bytes a copy where `vec`, else 4; the caller commits), bf16 through
+// registers.
+template <typename T, int NR, int NT, bool kSwz>
+__device__ __forceinline__ void stage_chunk(float* tile, const T* src, int r0, int rows,
+                                            long long st, int col0, int D, bool vec, int tid) {
+  constexpr int C4 = kDbChunk / 4;  // 16-byte chunks a row
+  if constexpr (std::is_same<T, float>::value) {
+    if (!vec) {
+#pragma unroll 1
+      for (int idx = tid; idx < NR * kDbChunk; idx += NT) {
+        const int r = idx / kDbChunk, e = idx % kDbChunk, c = e >> 2;
+        const int row = r0 + r, col = col0 + e;
+        const bool in = row < rows && col < D;
+        cp_async4(tile + r * kDbChunk + 4 * (kSwz ? swz(c, r) : c) + (e & 3),
+                  in ? static_cast<const void*>(src + row * st + col) : src, in ? 4 : 0);
       }
-      const float lse = a.lse[(long long)bh * a.Tq + q0 + row];
-      const float del = a.delta[(long long)bh * a.Tq + q0 + row];
-      const bool ok = ok_s[lane] != 0.0f && (!diag || key <= q0 + row);
-      const float p = ok ? expf(s * a.scale + bv[i] - lse) : 0.0f;
-      if (a.drop.on)
-        dp = bits1(a.drop, bh, q0 + row, key) < a.drop.threshold ? dp * a.drop.inv_keep : 0.0f;
-      acc[i] += p * (dp - del);
+      return;
     }
   }
-
+#pragma unroll 1
+  for (int idx = tid; idx < NR * C4; idx += NT) {
+    const int r = idx / C4, c = idx % C4;
+    const int row = r0 + r, col = col0 + 4 * c;
+    const int cols = row < rows ? min(4, max(0, D - col)) : 0;
+    float* dst = tile + r * kDbChunk + 4 * (kSwz ? swz(c, r) : c);
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(dst, cols ? static_cast<const void*>(src + row * st + col) : src, 4 * cols);
+    } else {
+      float x[4];
 #pragma unroll
-  for (int i = 0; i < kScalarRowsPerWarp; ++i) {
-    const int row = q0 + warp * kScalarRowsPerWarp + i;
-    if (row < a.Tq && key < a.Tk) out[(long long)row * a.Tk + key] = acc[i];
+      for (int e = 0; e < 4; ++e) x[e] = e < cols ? to_f(src[row * st + col + e]) : 0.0f;
+      *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+    }
   }
 }
 
-__host__ __device__ constexpr int scalar_dbias_smem_floats(int D) {
-  // q_s, do_s [16][D]; k_s, v_s [32][D+1]; ok_s [32]
-  return 2 * kScalarRows * D + 2 * kScalarKeys * (D + 1) + kScalarKeys;
+// One block: keys k0 .. k0+63 and rows q0 .. q0+R-1 of head h over the
+// batch rows slice * per .. of its slice, into slice's [H, Tq, Tk] of
+// `out` (dbias itself when the batch is not cut). In the causal build a
+// tile wholly above the diagonal writes zeros, so every element is
+// written once. The bf16 instances (no main path) have no register cap.
+template <typename T, int R, bool kCausal>
+__global__ void __launch_bounds__(4 * R, sizeof(T) == 4 ? (R == 64 ? 2 : 4) : 1)
+    flash_dbias_scalar(BwdArgs a, float* out, int per) {
+  constexpr int R4 = R / 4;
+  constexpr int NT = 4 * R;
+  constexpr int SF = (R + kDbKeys) * kDbChunk;  // floats of a ring stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);  // [2][q or do [R][64], k or v [64][64]]
+  float* bias_s = ring + 2 * SF;                  // [R][kDbBiasRow]
+  float* p_s = bias_s + R * kDbBiasRow;           // [16][NT]: each thread's p, i-major
+  float* ld_s = p_s + 16 * NT;                    // [2][lse [R], delta [R]]
+  int* ok_s = reinterpret_cast<int*>(ld_s + 4 * R);  // [2][64]: the keys' mask
+
+  const int tid = threadIdx.x;
+  const int tx = tid % R4, ty = tid / R4;
+  const int h = blockIdx.z % a.H, slice = blockIdx.z / a.H;
+  const int k0 = blockIdx.x * kDbKeys, q0 = blockIdx.y * R;
+  const int key0 = k0 + 4 * ty;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  if (!kCausal || k0 < q0 + R) {  // else wholly above the diagonal: ds is 0
+    const bool diag = kCausal && k0 + kDbKeys > q0;  // crosses the diagonal
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // this thread's bias elements, the same for every b
+      float bv[4];
+      bias4(a.bias, h, q0 + tx + R4 * j, key0, a.Tq, a.Tk, bv);
+      *reinterpret_cast<float4*>(bias_s + (tx + R4 * j) * kDbBiasRow + 4 * ty) =
+          make_float4(bv[0], bv[1], bv[2], bv[3]);
+    }
+    const int b0 = slice * per;
+    const int chunks = (a.D + kDbChunk - 1) / kDbChunk;
+    const int units = min(per, a.B - b0) * 2 * chunks;
+    // unit u of batch row b0 + u / (2 chunks), in stage u & 1: the q and k
+    // chunk c, or (c >= chunks) the do and v chunk c - chunks
+    auto issue = [&](int u) {
+      const int b = b0 + u / (2 * chunks), c = u % (2 * chunks);
+      const bool dp_part = c >= chunks;
+      const int col0 = (dp_part ? c - chunks : c) * kDbChunk;
+      float* st = ring + (u & 1) * SF;
+      if (dp_part) {
+        stage_chunk<T, R, NT, true>(st, strip<T>(a.dout, a.sdo, b, h), q0, a.Tq, a.sdo.t, col0,
+                                    a.D, a.vec, tid);
+        stage_chunk<T, kDbKeys, NT, false>(st + R * kDbChunk, strip<T>(a.v, a.sv, b, h), k0,
+                                           a.Tk, a.sv.t, col0, a.D, a.vec, tid);
+      } else {
+        stage_chunk<T, R, NT, true>(st, strip<T>(a.q, a.sq, b, h), q0, a.Tq, a.sq.t, col0, a.D,
+                                    a.vec, tid);
+        stage_chunk<T, kDbKeys, NT, false>(st + R * kDbChunk, strip<T>(a.k, a.sk, b, h), k0,
+                                           a.Tk, a.sk.t, col0, a.D, a.vec, tid);
+      }
+      if (c == 0) {  // NT >= 2R + 64 threads: lse, delta, the mask
+        const int m = b & 1;
+        const long long lrow = ((long long)b * a.H + h) * a.Tq + q0;
+        if (tid < 2 * R) {
+          const int r = tid % R;
+          const float* src = tid < R ? a.lse : a.delta;
+          const bool in = q0 + r < a.Tq;
+          cp_async4(ld_s + m * 2 * R + tid, in ? src + lrow + r : src, in ? 4 : 0);
+        } else if (tid < 2 * R + kDbKeys) {
+          const int kc = tid - 2 * R;
+          const int* maskp = a.mask + (long long)b * a.Tk;
+          const bool in = k0 + kc < a.Tk;
+          cp_async4(ok_s + m * kDbKeys + kc, in ? maskp + k0 + kc : maskp, in ? 4 : 0);
+        }
+      }
+      cp_async_commit();
+    };
+
+    // one accumulator serves both products: S, then (p gone to p_s) dP
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[i][j] = 0.0f;
+    }
+    if (units > 0) issue(0);
+    for (int u = 0; u < units; ++u) {
+      cp_async_wait_all();
+      __syncthreads();  // unit u is in; every thread is done with unit u - 1
+      if (u + 1 < units) issue(u + 1);
+      const float* st = ring + (u & 1) * SF;
+      const int c = u % (2 * chunks);
+      // the chunk's 16-column groups that hold columns of D, a count known
+      // only at run time: the product loop stays rolled
+      const int n16 = min(kDbChunk / 16, (a.D - (c % chunks) * kDbChunk + 15) / 16);
+      // S^T = K Q^T (c < chunks), then dP^T = V dO^T
+      tile_dots<kDbChunk, R4>(x, st + (R + 4 * ty) * kDbChunk, st + tx * kDbChunk, tx & 7, n16);
+      if (c % chunks != chunks - 1) continue;
+      const int b = b0 + u / (2 * chunks), m = b & 1;
+      if (c < chunks) {
+        // S is complete: p into p_s, x back to 0
+        const int4 okq = *reinterpret_cast<const int4*>(ok_s + m * kDbKeys + 4 * ty);
+        const int ok[4] = {okq.x, okq.y, okq.z, okq.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = q0 + tx + R4 * j;
+          const bool rin = row < a.Tq;
+          const float lse = ld_s[m * 2 * R + tx + R4 * j];
+          const float4 bq =
+              *reinterpret_cast<const float4*>(bias_s + (tx + R4 * j) * kDbBiasRow + 4 * ty);
+          const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const bool live = ok[i] != 0 && rin && (!diag || key0 + i <= row);
+            p_s[(4 * i + j) * NT + tid] = live ? expf(x[i][j] * a.scale + bv[i] - lse) : 0.0f;
+            x[i][j] = 0.0f;
+          }
+        }
+        continue;
+      }
+      // dP is complete: acc += p (dp - delta), in batch order; the keep
+      // bits first (bit 4j + i: element (i, j) is kept)
+      unsigned keep = 0xffffu;
+      if (a.drop.on) {
+        const int bh = b * a.H + h;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = q0 + tx + R4 * j;
+          if (row >= a.Tq) continue;
+          const uint4 w = bits4(a.drop, bh, row, key0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (word(w, i) >= a.drop.threshold) keep &= ~(1u << (4 * j + i));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float del = ld_s[m * 2 * R + R + tx + R4 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float d = x[i][j];
+          if (a.drop.on) d = (keep >> (4 * j + i)) & 1u ? d * a.drop.inv_keep : 0.0f;
+          acc[i][j] += p_s[(4 * i + j) * NT + tid] * (d - del);
+          x[i][j] = 0.0f;
+        }
+      }
+    }
+  }
+
+  float* o = out + ((long long)slice * a.H + h) * a.Tq * a.Tk;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int row = q0 + tx + R4 * j;
+    if (row >= a.Tq) continue;
+    float* orow = o + (long long)row * a.Tk;
+    if ((a.Tk & 3) == 0 && key0 < a.Tk) {
+      *reinterpret_cast<float4*>(orow + key0) =
+          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (key0 + i < a.Tk) orow[key0 + i] = acc[i][j];
+    }
+  }
+}
+
+// dbias = the sum of the [slices, count] partials (count = H Tq Tk), in
+// slice order; a thread sums 4 elements
+__global__ void dbias_reduce(const float* __restrict__ part, float* __restrict__ out,
+                             long long count, int slices) {
+  const long long i0 = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i0 >= count) return;
+  if ((count & 3) == 0) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s = 0; s < slices; ++s) {
+      const float4 x = *reinterpret_cast<const float4*>(part + s * count + i0);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    *reinterpret_cast<float4*>(out + i0) = acc;
+    return;
+  }
+  for (long long i = i0; i < min(count, i0 + 4); ++i) {
+    float acc = 0.0f;
+    for (int s = 0; s < slices; ++s) acc += part[s * count + i];
+    out[i] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2132,11 +2284,6 @@ __host__ __device__ constexpr int scalar_dbias_smem_floats(int D) {
 #endif
 constexpr bool kCausalBuild = FLASH_CAUSAL != 0;
 
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  if (bytes <= kStaticSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
 
 
 template <int D>
@@ -2146,14 +2293,10 @@ cudaError_t launch_dbias_mma(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// a kernel with `bytes` of dynamic shared memory and the largest shared
-// carveout, so that as many blocks as its shared memory allows share an SM
+// a kernel with `bytes` of dynamic shared memory (allow_smem)
 template <typename K, typename A>
 cudaError_t launch_smem(K kernel, dim3 grid, int threads, int bytes, const A& a, cudaStream_t s) {
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, bytes, s>>>(a);
   return cudaGetLastError();
@@ -2232,6 +2375,53 @@ cudaError_t launch_dkv_tiled(const BwdArgs& a, int bf16, cudaStream_t s) {
   if (bf16)
     return launch_tiled(flash_dkv_scalar<__nv_bfloat16, KS, kCausalBuild>, grid, bytes, a, s);
   return launch_tiled(flash_dkv_scalar<float, KS, kCausalBuild>, grid, bytes, a, s);
+}
+
+// The FMA dbias's cut of the batch: `slices` contiguous runs of `per`
+// rows (the last may be shorter), a block each. The cut is the smallest
+// power of two (at most about B) that puts kDbSplitBlocks live blocks on
+// the card; a causal tile wholly above the diagonal is not live. One
+// slice keeps the whole batch in each block.
+struct DbiasCut {
+  int slices, per;
+};
+
+DbiasCut dbias_cut(int B, int H, int Tq, int Tk) {
+  const int n_q = (Tq + kDbRows - 1) / kDbRows, n_k = (Tk + kDbKeys - 1) / kDbKeys;
+  long long tiles = (long long)n_q * n_k;
+  if (kCausalBuild) {  // key tile c is live for the q tile r if 64 c < kDbRows (r + 1)
+    tiles = 0;
+    for (int r = 0; r < n_q; ++r) {
+      const int live = (kDbRows * (r + 1) + kDbKeys - 1) / kDbKeys;
+      tiles += live < n_k ? live : n_k;
+    }
+  }
+  int want = 1;
+  while (want < B && (long long)want * H * tiles < kDbSplitBlocks) want *= 2;
+  const int per = (B + want - 1) / want;
+  return {(B + per - 1) / per, per};
+}
+
+// the FMA dbias: the grid is (key tiles, q tiles, slices x H); with
+// slices > 1 the blocks write their partials to `work`, and dbias_reduce
+// sums them into dbias
+template <typename T>
+cudaError_t launch_dbias_tiled(const BwdArgs& a, float* work, cudaStream_t s) {
+  constexpr int R = kDbRows;
+  const DbiasCut cut = dbias_cut(a.B, a.H, a.Tq, a.Tk);
+  const int slices = cut.slices;
+  if (slices > 1 && work == nullptr) return cudaErrorInvalidValue;
+  auto kernel = flash_dbias_scalar<T, R, kCausalBuild>;
+  constexpr int bytes = dbias_tile_smem_bytes<R>();
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tk + kDbKeys - 1) / kDbKeys, (a.Tq + R - 1) / R, a.H * slices);
+  kernel<<<grid, 4 * R, bytes, s>>>(a, slices > 1 ? work : a.dbias, cut.per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  const long long count = (long long)a.H * a.Tq * a.Tk;
+  dbias_reduce<<<(unsigned)((count + 1023) / 1024), 256, 0, s>>>(work, a.dbias, count, slices);
+  return cudaGetLastError();
 }
 
 // dispatch on the head width of the tensor-core instances
@@ -2456,16 +2646,27 @@ int flash_dkv(const void* q, const void* k, const void* v, const int* mask, cons
                        : launch_dkv_tiled<128>(a, dtype_bf16, s));
 }
 
+// Floats of the FMA dbias's workspace (kernel 8's fp32 instance): the
+// [slices, H, Tq, Tk] partials of its cut batch, 0 when it is not cut.
+long long flash_dbias_workspace_floats(int B, int H, int Tq, int Tk) {
+  const int slices = dbias_cut(B, H, Tq, Tk).slices;
+  return slices > 1 ? (long long)slices * H * Tq * Tk : 0;
+}
+
 // dbias of one backward call (kernel 8): dbias [H, Tq, Tk] fp32
 // contiguous, the batch sum of ds. bias is required (the scores are
 // recomputed with it); strides holds 14 element strides: (batch, head,
-// token) of q, k, v and do, then the bias's (head, row). The rest as for
-// flash_dq.
+// token) of q, k, v and do, then the bias's (head, row). The FMA instance
+// (use_mma 0) cuts the batch (dbias_cut) and sums the cut's partials in
+// slice order: work holds flash_dbias_workspace_floats(B, H, Tq, Tk)
+// floats (NULL when that is 0). The tensor-core instance takes no
+// workspace. The rest as for flash_dq.
 int flash_dbias(const void* q, const void* k, const void* v, const int* mask, const float* lse,
                 const float* delta, const void* dout, const void* bias, int bias_bf16,
-                float* dbias, int B, int H, int Tq, int Tk, int D, float scale, int dtype_bf16,
-                int use_mma, int dropout, unsigned keep_threshold, float inv_keep,
-                unsigned long long seed, const long long* strides, void* stream) {
+                float* dbias, float* work, int B, int H, int Tq, int Tk, int D, float scale,
+                int dtype_bf16, int use_mma, int dropout, unsigned keep_threshold,
+                float inv_keep, unsigned long long seed, const long long* strides,
+                void* stream) {
   if (bad_problem(B, H, Tq, Tk, D) || bias == nullptr) return (int)cudaErrorInvalidValue;
   BwdArgs a;
   fill_bwd(a, q, k, v, mask, lse, delta, dout, B, H, Tq, Tk, D, scale,
@@ -2481,19 +2682,9 @@ int flash_dbias(const void* q, const void* k, const void* v, const int* mask, co
     if (!dtype_bf16) return (int)cudaErrorInvalidValue;
     return (int)by_width<DbiasMma>(D, a, s);
   }
-  const int bytes = scalar_dbias_smem_floats(D) * 4;
-  const dim3 grid((Tk + kScalarKeys - 1) / kScalarKeys, (Tq + kScalarRows - 1) / kScalarRows, H);
-  cudaError_t err;
-  if (dtype_bf16) {
-    err = allow_smem(flash_dbias_scalar<__nv_bfloat16, kCausalBuild>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_dbias_scalar<__nv_bfloat16, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
-  } else {
-    err = allow_smem(flash_dbias_scalar<float, kCausalBuild>, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_dbias_scalar<float, kCausalBuild><<<grid, kScalarThreads, bytes, s>>>(a);
-  }
-  return (int)cudaGetLastError();
+  set_tile_args(a);
+  return (int)(dtype_bf16 ? launch_dbias_tiled<__nv_bfloat16>(a, work, s)
+                          : launch_dbias_tiled<float>(a, work, s));
 }
 
 const char* flash_fwd_error_string(int code) {

@@ -6,9 +6,10 @@ under the repo root, a directory that `.gitignore` lists. A library is
 `csrc/<name>.cu` unless `VARIANTS` names another source and the macros
 it is built with: `flash_attention_causal` is `flash_attention.cu` built
 with `FLASH_CAUSAL=1` (the causal instances of the flash kernels), so
-the two halves of that source compile in parallel. The hash covers the
-source and the compiler flags, so an edited source builds anew and an
-unchanged one loads from the cache. Nothing is built when the module is
+the two halves of that source compile in parallel. A source may include
+the headers beside it (`csrc/*.cuh`). The hash covers the source, those
+headers and the compiler flags, so an edited source or header builds
+anew and an unchanged one loads from the cache. Nothing is built when the module is
 imported: `load` builds at first use, `build` builds a set of libraries
 with one nvcc process each, all started together.
 
@@ -65,7 +66,8 @@ def _source_and_flags(name: str) -> tuple[Path, tuple[str, ...]]:
 
 def library_path(name: str) -> Path:
     src, flags = _source_and_flags(name)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

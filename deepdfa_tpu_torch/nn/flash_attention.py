@@ -277,7 +277,8 @@ def _library(causal: bool = False) -> ctypes.CDLL:
             lib.flash_fwd.argtypes = [p] * 6 + bias + [i] * 5 + [f, i, i] + drop + [p, p]
             lib.flash_dq.argtypes = [p] * 8 + bias + [i] * 5 + [f, i, i] + drop + [p, p]
             lib.flash_dkv.argtypes = [p] * 9 + bias + [i] * 5 + [f, i, i] + drop + [p, p]
-            lib.flash_dbias.argtypes = [p] * 7 + bias + [p] + [i] * 5 + [f, i, i] + drop + [p, p]
+            lib.flash_dbias.argtypes = ([p] * 7 + bias + [p, p] + [i] * 5 + [f, i, i] + drop
+                                        + [p, p])
             for fn in (lib.flash_fwd, lib.flash_dq, lib.flash_dkv, lib.flash_dbias):
                 fn.restype = i
             lib.flash_fwd_error_string.argtypes = [i]
@@ -288,6 +289,8 @@ def _library(causal: bool = False) -> ctypes.CDLL:
             lib.flash_fwd_tile_rows.restype = i
             lib.flash_causal.argtypes = []
             lib.flash_causal.restype = i
+            lib.flash_dbias_workspace_floats.argtypes = [i] * 4
+            lib.flash_dbias_workspace_floats.restype = ctypes.c_longlong
             if lib.flash_fwd_max_head_dim() != MAX_HEAD_DIM:
                 raise RuntimeError(
                     f"csrc/flash_attention.cu takes heads up to "
@@ -547,8 +550,12 @@ def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
 def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None = None,
                 dropout_rate: float = 0.0, seed: int | None = None, causal: bool = False):
     """Kernel 8 on CUDA tensors: dbias [H, Tq, Tk] fp32, the batch sum of
-    ds = p (dp - delta) (contiguous). One block per (h, 64-row q tile,
-    64-key tile) loops over the batch in order, so the sum takes the same
+    ds = p (dp - delta) (contiguous). The tensor-core instance gives each
+    block (h, 64-row q tile, 64-key tile) the whole batch; the FMA
+    instance cuts the batch into runs, a block each (the library picks the
+    cut and says how much workspace its [slices, H, Tq, Tk] partials
+    take), and a second launch sums the partials in slice order. Each block
+    loops over its rows of the batch in order, so the sum takes the same
     bits on every run, with no atomics. Arguments as for `flash_dq`; the
     bias is required (the scores are recomputed with it). With `causal`,
     the tiles wholly above the diagonal are written as zeros."""
@@ -564,12 +571,16 @@ def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None =
     Tk = k.shape[2]
     lib = _library(causal)
     dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
+    mma = _tensor_core(q)
+    floats = 0 if mma else lib.flash_dbias_workspace_floats(B, H, Tq, Tk)
+    work = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
     strides = _strides(q, k, v, do) + bias_strides
     with torch.cuda.device(q.device):
         rc = lib.flash_dbias(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), do.data_ptr(), *bias_args, dbias.data_ptr(), B, H, Tq, Tk, D,
-            _scale(scale, D), int(q.dtype == torch.bfloat16), int(_tensor_core(q)), *drop,
+            delta.data_ptr(), do.data_ptr(), *bias_args, dbias.data_ptr(),
+            None if work is None else work.data_ptr(), B, H, Tq, Tk, D,
+            _scale(scale, D), int(q.dtype == torch.bfloat16), int(mma), *drop,
             (ctypes.c_longlong * 14)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_dbias")

@@ -597,11 +597,11 @@ def _library(name: str) -> ctypes.CDLL:
                     f"nodes per block; NODE_TILE says {NODE_TILE}"
                 )
         else:
-            lib.ggnn_gru_bwd_f32.argtypes = [p] * 13 + [i] * 2 + [p]
+            lib.ggnn_gru_bwd_f32.argtypes = [p] * 11 + [i] * 2 + [p]
             lib.ggnn_gru_bwd_f32.restype = i
             lib.ggnn_gru_bwd_workspace_floats.argtypes = [i, i]
             lib.ggnn_gru_bwd_workspace_floats.restype = ll
-            lib.ggnn_gru_bwd_splits.argtypes = [i]
+            lib.ggnn_gru_bwd_splits.argtypes = [i, i]
             lib.ggnn_gru_bwd_splits.restype = i
             lib.ggnn_dmsg_f32.argtypes = [p] * 7 + [i] * 4 + [p]
             lib.ggnn_dmsg_f32.restype = i
@@ -782,8 +782,9 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g):
     """B3: (da, dh_gru, dwih, dwhh, dbih, dbhh) of one step's GRU.
 
     CPU tensors run `gru_bwd_plain`; CUDA tensors launch the kernel (its
-    node pass, split-K weight pass and fixed-order reduce) on the
-    current stream or raise."""
+    gate pass, input pass, split-K weight pass and fixed-order reduce) on
+    the current stream or raise. The kernel stages its operands 16 bytes
+    at a time, so every operand must start 16-byte aligned."""
     global GRU_BWD_LAUNCHES
     if not _on_cuda("gru_bwd", h.device):
         return gru_bwd_plain(h, a, wih, whh, bih, bhh, g)
@@ -795,9 +796,10 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g):
         "bih": (bih, f32, (3 * d,)), "bhh": (bhh, f32, (3 * d,)),
     })
     _check_shape("gru_bwd", n, 1, d, 1)
+    for name, x in (("h", h), ("a", a), ("g", g), ("wih", wih), ("whh", whh)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"gru_bwd: {name} must start 16-byte aligned")
     lib = _library("ggnn_bwd")
-    wih_t = wih.T.contiguous()
-    whh_t = whh.T.contiguous()
     da = torch.empty_like(h)
     dh = torch.empty_like(h)
     grads = torch.empty(2 * d * 3 * d + 2 * 3 * d, dtype=f32, device=h.device)
@@ -805,8 +807,8 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g):
     with torch.cuda.device(h.device):
         rc = lib.ggnn_gru_bwd_f32(
             h.data_ptr(), a.data_ptr(), g.data_ptr(), wih.data_ptr(),
-            whh.data_ptr(), bih.data_ptr(), bhh.data_ptr(), wih_t.data_ptr(),
-            whh_t.data_ptr(), da.data_ptr(), dh.data_ptr(), grads.data_ptr(),
+            whh.data_ptr(), bih.data_ptr(), bhh.data_ptr(), da.data_ptr(),
+            dh.data_ptr(), grads.data_ptr(),
             work.data_ptr(), n, d, _stream(h.device),
         )
     _raise_on(rc, "gru_bwd", lib, "ggnn_bwd_error_string")

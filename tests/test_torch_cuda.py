@@ -169,6 +169,60 @@ def test_backward_kernels_match_plain(card, n, d, n_etypes, count):
     assert torch.equal(gk.dmsg(a, edges, wm), got_msg)
 
 
+def _gru_operands(rng, n, d, device):
+    h, a, g = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(device)
+               for _ in range(3))
+    return h, a, g, _params(rng, d, 1, device)[2:]
+
+
+def _check_gru_bwd(got, want):
+    for name, x, y in zip(("da", "dh", "dwih", "dwhh", "dbih", "dbhh"), got, want):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL * max(1.0, y.abs().max().item()),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("n, d", [(1000, 128), (16384 - 37, 128), (1000, 32), (1000, 96),
+                                  (1000, 256), (1, 64)],
+                         ids=["n1000_d128", "flagship_less_37", "d32", "d96", "d256", "one_node"])
+def test_gru_bwd_at_ragged_node_counts_matches_plain(card, n, d):
+    """B3 at node counts that are no multiple of its 64-node tiles or its
+    weight pass's 32-node panels, at widths whose weight tiles are 32 rows
+    (d 32, 96) or 64: against its plain version, each launch counted, and
+    five runs the same bits (its split-K partials are summed in order)."""
+    rng = np.random.default_rng(n + d)
+    h, a, g, gru = _gru_operands(rng, n, d, card)
+    before = gk.GRU_BWD_LAUNCHES
+    runs = [gk.gru_bwd(h, a, *gru, g) for _ in range(5)]
+    want = gk.gru_bwd_plain(h, a, *gru, g)
+    torch.cuda.synchronize()
+    assert gk.GRU_BWD_LAUNCHES == before + 5
+    _check_gru_bwd(runs[0], want)
+    assert all(torch.equal(x, y) for r in runs[1:] for x, y in zip(runs[0], r))
+
+
+def test_gru_bwd_of_all_padding_nodes_is_zero(card):
+    """A batch of padding only (h = a = 0, no gradient reaching it) gives
+    B3 exact zeros in every output, as its plain version does."""
+    rng = np.random.default_rng(5)
+    n, d = 4096, 128
+    h, a, g = (torch.zeros(n, d, device=card) for _ in range(3))
+    gru = _params(rng, d, 1, card)[2:]
+    got = gk.gru_bwd(h, a, *gru, g)
+    _check_gru_bwd(got, gk.gru_bwd_plain(h, a, *gru, g))
+    assert all(bool((x == 0).all()) for x in got)
+
+
+def test_gru_bwd_refuses_unaligned_operands(card):
+    """The kernel stages h, a, g and the weights 16 bytes at a time: an
+    operand off the 16-byte grid is refused, not read wrong."""
+    rng = np.random.default_rng(6)
+    h, a, g, gru = _gru_operands(rng, 65, 32, card)
+    off = torch.zeros(65 * 32 + 1, device=card)[1:].view(65, 32)
+    off.copy_(h)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gk.gru_bwd(off, a, *gru, g)
+
+
 def _train_model_and_batch(device):
     rng = np.random.default_rng(3)
     specs = _graphs(rng, 8)
@@ -989,6 +1043,79 @@ def test_flash_dbias_repeats_bit_for_bit_at_the_t5_call(card):
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, bias=bias)[3]
     _close(runs[0], want, "bfloat16")
+
+
+DBIAS_FMA_CASES = [
+    # B, Tq, Tk, D, dtype (q's and the bias's), real keys per row, causal
+    (1, 100, 77, 64, "float32", [77], False),
+    (3, 100, 77, 64, "float32", [77, 40, 0], False),
+    (5, 100, 100, 64, "float32", [100, 60, 1, 0, 100], True),
+    (3, 100, 77, 40, "bfloat16", [77, 13, 0], False),
+    (4, 100, 100, 40, "bfloat16", [100, 50, 99, 0], True),
+    (16, 128, 128, 64, "float32", [128] * 16, True),
+]
+DBIAS_FMA_IDS = ["b1_q100_k77", "q100_k77_padded", "causal_t100_padded", "bf16_d40_q100_k77",
+                 "bf16_d40_causal_t100", "gen_decoder_cut_batch"]
+
+
+@pytest.mark.parametrize("B, Tq, Tk, D, dtype, lens, causal", DBIAS_FMA_CASES,
+                         ids=DBIAS_FMA_IDS)
+def test_fma_dbias_matches_plain_and_repeats(card, B, Tq, Tk, D, dtype, lens, causal):
+    """Kernel 8's FMA instance (fp32, and bf16 at a width the tensor cores
+    do not take) at tiles that Tq and Tk do not fill, one batch row or a
+    batch cut into slices, padded keys, an fp32 or bf16 bias, in both
+    builds: within 1e-4 (fp32) or 2e-2 (bf16) of the plain dbias's largest
+    magnitude, padded keys' columns and (causal) the upper triangle exactly
+    0, one launch a call, and five runs the same bits."""
+    _check_fma_dbias(card, B, 3, Tq, Tk, D, dtype, lens, causal)
+
+
+#: batches that the FMA dbias cuts into runs of several rows (12 heads:
+#: few slices fill the card): the clone path's encoder (ragged rows) and
+#: causal decoder, and an odd batch whose last run is shorter
+DBIAS_RUN_CASES = [
+    (32, 256, "float32", [256, 255, 200, 129, 128, 64, 1, 0] * 4, False),
+    (32, 256, "float32", [256] * 32, True),
+    (13, 200, "float32", [200, 199, 150, 64, 1, 0, 200] * 2, True),
+]
+DBIAS_RUN_IDS = ["clone_encoder_b32", "clone_decoder_b32_causal", "b13_t200_causal_padded"]
+
+
+@pytest.mark.parametrize("B, T, dtype, lens, causal", DBIAS_RUN_CASES, ids=DBIAS_RUN_IDS)
+def test_fma_dbias_sums_runs_of_rows_in_order(card, B, T, dtype, lens, causal):
+    """The FMA dbias where each block sums a run of several batch rows
+    before the partials are summed in slice order: the same gates as
+    test_fma_dbias_matches_plain_and_repeats (within 1e-4 of the plain
+    dbias's largest magnitude, padded and causal zeros, five runs the same
+    bits)."""
+    H = 12
+    floats = fa._library(causal).flash_dbias_workspace_floats(B, H, T, T)
+    slices = floats // (H * T * T)
+    assert 1 < slices < B  # a cut, with runs of more than one row
+    _check_fma_dbias(card, B, H, T, T, 64, dtype, lens[:B], causal)
+
+
+def _check_fma_dbias(card, B, H, Tq, Tk, D, dtype, lens, causal):
+    g = torch.Generator().manual_seed(B * 17 + Tq + Tk + D)
+    td = getattr(torch, dtype)
+    q, do = (torch.randn(B, H, Tq, D, generator=g).to(td).to(card) for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, generator=g).to(td).to(card) for _ in range(2))
+    bias = (torch.randn(H, Tq, Tk, generator=g) * 2.0).to(td).to(card)
+    mask = (torch.arange(Tk)[None, :] < torch.tensor(lens)[:, None]).to(card)
+    kw = {"scale": 1.0, "causal": causal}
+    o, lse = fa.flash_fwd(q, k, v, mask, bias=bias, **kw)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    before = fa.DBIAS_LAUNCHES
+    runs = [fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, **kw) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert fa.DBIAS_LAUNCHES == before + 5
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, bias=bias, causal=causal)[3]
+    assert torch.isfinite(runs[0]).all()
+    _close(runs[0], want, dtype)
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert (runs[0][:, :, max(lens):] == 0).all()
+    if causal:
+        assert (runs[0][:, torch.ones(Tq, Tk, dtype=torch.bool, device=card).triu(1)] == 0).all()
 
 
 def test_flash_attention_bias_grad_flows_on_the_card(card):

@@ -212,3 +212,47 @@ def test_plain_biased_bwd_matches_reference_at_the_tile_edges(Tq, Tk, rate):
     for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, want_g):
         _close(g.numpy(), w, name, None if name == "dv" else noise)
     assert all((g[2] == 0).all() for g in got[:3])  # the all-padding row
+
+
+
+#: (B, slices): cuts of the batch as the FMA dbias makes them, contiguous
+#: runs of ceil(B / slices) rows with the last one shorter: no cut, an
+#: odd batch in 2, 3 and 5 runs, the gen path's 16 in 4 and in 16
+BATCH_CUTS = [(1, 1), (5, 2), (5, 3), (5, 5), (16, 4), (16, 16)]
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("B, slices", BATCH_CUTS, ids=[f"b{b}_s{s}" for b, s in BATCH_CUTS])
+def test_dbias_is_the_in_order_sum_of_its_batch_runs(B, slices, causal):
+    """dbias is the batch sum of ds, so a cut batch gives the whole one:
+    the reference's dbias of the whole batch (interpret mode, causal or
+    not) equals, within REL, the plain version's dbias of each contiguous
+    run of the batch summed in run order, as the FMA kernel sums its
+    slices' partials; ragged rows and an all-padding one included."""
+    rng = np.random.default_rng(40 + B + slices)
+    H, T, D = 2, 64, 16
+    q, k, v, do = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(4))
+    bias = (rng.standard_normal((H, T, T)) * 0.5).astype(np.float32)
+    lens = np.resize([T, 1, 0, 40, 63], B)
+    mask = np.arange(T)[None, :] < lens[:, None]
+    if causal:  # the causal build takes every row at full length
+        mask[:] = True
+
+    def fl(q, k, v, bias):
+        return jfa.flash_attention(q, k, v, jnp.asarray(mask), scale=1.0, bias=bias,
+                                   causal=causal, block_q=T, block_k=T, interpret=True)
+
+    _, vjp = jax.vjp(fl, *(jnp.asarray(x) for x in (q, k, v, bias)))
+    want = np.asarray(vjp(jnp.asarray(do))[3])
+    qt, kt, vt, dot, bt, mt = (torch.from_numpy(x) for x in (q, k, v, do, bias, mask))
+    per = -(-B // slices)
+    total = torch.zeros(H, T, T)
+    for b0 in range(0, B, per):
+        run = slice(b0, b0 + per)
+        o, lse = tfa.flash_fwd(qt[run], kt[run], vt[run], mt[run], scale=1.0, bias=bt,
+                               causal=causal)
+        total += tfa.flash_bwd(qt[run], kt[run], vt[run], mt[run], o, lse, dot[run], scale=1.0,
+                               bias=bt, causal=causal)[3]
+    _close(total.numpy(), want, "dbias")
+    if causal:
+        assert (total.triu(1) == 0).all()
