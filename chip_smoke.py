@@ -53,7 +53,8 @@ prints one JSON line; any failure exits non-zero before the last line.
    rounding or a quantum can flip between two fp32 summation orders and
    spread); times with and without the chain beside the 5 step
    launches', one step in one launch beside one step launch, the plain
-   version's and the bounds; the residency against the card's L2;
+   version's and the bounds; the residency against the card's L2, and
+   its blocks an SM and grid;
 7c. serve_bf16, serve_fused, serve_int8, serve_int8_fused — phase 5's
    model and requests through score_graphs with model.ggnn_kernel=true
    under (bf16, per_step), (fp32, fused), (int8, per_step), (int8,
@@ -75,13 +76,15 @@ prints one JSON line; any failure exits non-zero before the last line.
    also at edge blocks 128 and 1024 on the flagship batch (each against
    its own plain version, and not block 512's aggregate), the same bits
    on a rerun, the int8 mxu aggregate not the int8 fold one; times, the
-   fold instance's times, plain times and bounds at the flagship batch;
+   fold instance's times, plain times and bounds at the flagship batch,
+   and one int8 call's device time split by launch (the quantizing
+   table, the pre-pass, the step);
 7f. kernel ggnn_fused_mxu — kernel 2's mxu instances (5 steps) under each
    policy at the same batches: h_out, with and without the chain, and
    every chain plane the bits of 5 launches of kernel 1's mxu instance,
    the same bits on a repeat, each step within rtol 1e-4 / atol 1e-5 of
-   the plain mxu step from that step's input; times, bounds and the
-   residency against the card's L2;
+   the plain mxu step from that step's input; times, bounds, the
+   residency against the card's L2, and its blocks an SM and grid;
 7g. serve_mxu, serve_mxu_int8, serve_mxu_int8_fused — phase 5's model and
    requests through score_graphs under (fp32, mxu, per_step), (int8,
    mxu, per_step), (int8, mxu, fused), each counted from 0: every request
@@ -202,8 +205,11 @@ prints one JSON line; any failure exits non-zero before the last line.
    (FP32_DBIAS_BASELINE_MS), the batch cut of every fp32 biased case
    (slices, rows a slice), with the
    registers and spills from the build of every forward instance at D
-   64, the register-tiled fp32 dq, dk/dv and dbias, the bf16 FMA dbias
-   and every width's B3 passes (none may spill);
+   64, the register-tiled fp32 dq, dk/dv and dbias, the bf16 FMA dbias,
+   every width's B3 passes and every width's instances of GGNN kernel 1
+   with its step bodies and the int8 pre-pass (none may spill; the GGNN
+   ones reported at d 128), and every width's instances of kernel 2 with
+   their spills (reported);
 18. train_gen — `train-gen`'s path (the CLI's hash tokenizer at vocab
    32100, reader and codet5-base-width model in fp32, 12 + 12 layers)
    through GenTrainer.fit: 4 batches of 16 summarize rows (256 -> 128
@@ -958,6 +964,16 @@ def policy_kernel_phase(torch, rng):
     return worst, timing
 
 
+def fused_grid(torch, gk, accum: str, scatter: str, n: int, d: int) -> dict:
+    """Kernel 2's blocks an SM and the cooperative grid it launches at n
+    nodes (at most one block a tile); nothing off the card."""
+    if CARD != "cuda":
+        return {}
+    per_sm = gk.fused_blocks_per_sm(accum, scatter, d, torch.device(CARD))
+    sms = torch.cuda.get_device_properties(CARD).multi_processor_count
+    return {"blocks_per_sm": per_sm, "grid": min(-(-n // gk.NODE_TILE), per_sm * sms)}
+
+
 def fused_kernel_phase(torch, rng):
     """Kernel 2 at the flagship, T = 3 and all-padding batches under each
     policy: h_out, with and without the chain, and every chain plane the
@@ -1024,6 +1040,7 @@ def fused_kernel_phase(torch, rng):
                                    fused_bound(n, e_live, d, t, accum, S, False))),
                         "chain_bound_ms": fused_bound(n, e_live, d, t, accum, S, True)[0],
                         "residency_bytes": gk.fused_residency_bytes(n, d, accum, S),
+                        **fused_grid(torch, gk, accum, "fold", n, d),
                     }
     emit({"phase": "kernel ggnn_fused", "ok": True, "n_steps": S, "rtol": RTOL, "atol": ATOL,
           "max_abs_err": worst, **report,
@@ -1280,6 +1297,9 @@ def mxu_kernel_phase(torch, rng):
                         "shape": {"n": n, "e": b.edge_budget, "e_live": e_live, "d": d,
                                   "n_etypes": t, "block_e": MXU_BLOCK},
                     }
+                    if accum == "int8":  # the quantizing table, the pre-pass, the step
+                        timing[accum]["launch_split"] = launch_split(
+                            torch, lambda: gk.ggnn_step(h, edges, *params, **kw))
         if name == "flagship":
             for be in MXU_INT8_BLOCKS:
                 if torch.equal(aggs["int8", be], aggs["int8", MXU_BLOCK]):
@@ -1351,6 +1371,7 @@ def mxu_fused_kernel_phase(torch, rng):
                         "residency_bytes": gk.fused_residency_bytes(
                             n, d, accum, S, scatter="mxu", n_eb=b.edge_budget // MXU_BLOCK,
                             n_etypes=t),
+                        **fused_grid(torch, gk, accum, "mxu", n, d),
                     }
     emit({"phase": "kernel ggnn_fused_mxu", "ok": True, "n_steps": S, "rtol": RTOL,
           "atol": ATOL, "max_abs_err": worst, **report,
@@ -2612,8 +2633,13 @@ def no_spill_report(ptxas: dict) -> dict:
     dk/dv instance at D 64 (three of each: without a bias and with a bf16
     or fp32 bias), the fp32 and bf16 FMA forwards, the register-tiled
     fp32 dq, dk/dv and dbias that the gen path launches and the bf16 FMA
-    dbias; and every width's instance of B3's three passes
-    (`ggnn_bwd`); None for one the build did not report."""
+    dbias; every width's instance of B3's three passes (`ggnn_bwd`); and
+    in `ggnn_step`, every instance of kernel 1 (fp32, bf16, int8 x fold,
+    mxu) at every width with the `step_tile` body it runs and the int8
+    pre-pass (kernel and warp body); None for one the build did not
+    report. The GGNN entries are returned at d 128 and wherever one spills
+    or is missing; every width is checked. Kernel 2's are in
+    `fused_spill_report`."""
     out = {}
     for lib, c in (("flash_attention", ""), ("flash_attention_causal", ", causal")):
         for kernel in ("flash_fwd_bf16_mma", "flash_dq_bf16_mma", "flash_dkv_bf16_mma"):
@@ -2628,6 +2654,33 @@ def no_spill_report(ptxas: dict) -> dict:
     for kernel in ("gru_bwd_gates_kernel", "gru_bwd_inputs_kernel", "gru_bwd_weights_kernel"):
         for d in range(32, 257, 32):
             out[f"{kernel}<{d}>"] = ptxas["ggnn_bwd"].get(f"{kernel}<{d}>")
+    for d in range(32, 257, 32):
+        names = [f"mxu_colmax_kernel<{d}>", f"mxu_colmax_warp<{d}>"]
+        for p in (0, 1, 2):
+            for mxu in ("", ", mxu"):
+                names += [f"ggnn_step_kernel<{d}, {p}{mxu}>", f"step_tile<{d}, {p}{mxu}>"]
+        for k in names:
+            r = ptxas["ggnn_step"].get(k)
+            if d == 128 or r is None or r["spill_bytes"]:
+                out[k] = r
+    return out
+
+
+def fused_spill_report(ptxas: dict) -> dict:
+    """{kernel: ptxas's registers and spills} of every instance of GGNN
+    kernel 2 (`ggnn_fused_kernel`) at every width, with the coherent
+    `step_tile` and pre-pass bodies it calls. At d <= 128 (two blocks an
+    SM, 128 registers) kernel 2 holds its step and tile loops' state
+    across the `__noinline__` call of a body that wants every register,
+    so the call saves and restores it (PERF.md, kernel 2): reported, not
+    gated."""
+    out = {}
+    for d in range(32, 257, 32):
+        names = [f"mxu_colmax_warp<{d}, coherent>"]
+        for p in (0, 1, 2):
+            for mxu in ("", ", mxu"):
+                names += [f"ggnn_fused_kernel<{d}, {p}{mxu}>", f"step_tile<{d}, {p}{mxu}, coherent>"]
+        out.update({k: ptxas["ggnn_step"].get(k) for k in names})
     return out
 
 
@@ -2679,7 +2732,8 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
     no_spill = no_spill_report(ptxas)
     if any(r is None or r["spill_bytes"] for r in no_spill.values()):
         fail(f"flash_causal: an instance that must not spill (a D 64 tensor-core instance, a "
-             f"register-tiled FMA instance or a B3 pass) is missing or spills: {no_spill}")
+             f"register-tiled FMA instance, a B3 pass or a GGNN forward instance) is missing "
+             f"or spills: {no_spill}")
     H, D = 12, 64
     gen = torch.Generator().manual_seed(11)
     report, worst, timing = {}, {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "dbias": 0.0}, {}
@@ -2822,7 +2876,7 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
           "bf16_bwd_vs_baseline": bf16_bwd, "fp32_dbias_vs_baseline": fp32_dbias,
           "fp32_dbias_cut": cuts,
           "fwd_mma_rows": rows,
-          "no_spill_ptxas": no_spill, **report})
+          "no_spill_ptxas": no_spill, "fused_spill_ptxas": fused_spill_report(ptxas), **report})
     return worst, timing
 
 
@@ -3278,33 +3332,49 @@ def kernel_name(mangled: str) -> str:
     flags that are on (the flash kernels' kBias and kCausal; the dbias
     and FMA instances have kCausal only); the mangled name where the
     pattern does not hold."""
-    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    m = None
+    for m in re.finditer(r"_cu_[0-9a-f]{8}(\d+)", mangled):
+        pass  # the innermost: a device function's name nests its namespace's
     if not m:
         return mangled
     start = m.end()
     base, rest = mangled[start:start + int(m.group(1))], mangled[start + int(m.group(1)):]
-    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))((?:Li\d+E)*)((?:Lb[01]E)*)E", rest)
+    arg = re.match(r"I(?:Li(\d+)E|(f)|(13__nv_bfloat16))((?:Li\d+E)*)((?:Lb[01]E)*)"
+                   r"(?:a|f|13__nv_bfloat16)?E", rest)
     if not arg:
         return base
     first = arg.group(1) or ("float" if arg.group(2) else "bf16")
     ints = re.findall(r"Li(\d+)E", arg.group(4))
     flags = re.findall(r"Lb([01])E", arg.group(5))
-    names = (("mxu",) if base.startswith("ggnn") else
+    names = (("mxu",) if base.startswith("ggnn") else ("mxu", "coherent") if base == "step_tile"
+             else ("coherent",) if base == "mxu_colmax_warp" else
              ("bias", "causal") if len(flags) == 2 else ("causal",))
     return f"{base}<{', '.join([first, *ints, *(n for n, f in zip(names, flags) if f == '1')])}>"
 
 
 def ptxas_summary(log: str) -> dict:
-    """{kernel: {"registers", "spill_bytes"}} from nvcc's -Xptxas -v log."""
-    out, name, spill = {}, None, None
+    """{kernel: {"registers", "spill_bytes"}} from nvcc's -Xptxas -v log;
+    a device function that is not inlined (the GGNN `step_tile`) has its
+    own spills, under its name with registers None (it runs within its
+    kernel's)."""
+    out, name, spill, fn = {}, None, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name, spill = kernel_name(m.group(1)), None
+            name, spill, fn = kernel_name(m.group(1)), None, None
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            fn = None if fn == name else fn
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            spill = int(m.group(1)) + int(m.group(2))
+            if fn is not None:
+                out[fn] = {"registers": None, "spill_bytes": int(m.group(1)) + int(m.group(2))}
+                fn = None
+            else:
+                spill = int(m.group(1)) + int(m.group(2))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:

@@ -56,7 +56,10 @@ and applies the policy's Wm_t, bm_t once per node; B4 applies Wm_t^T
 once per node before the edge sums. Both are reassociations of the
 reference's per-edge transform, covered by the fp32 tolerances of the
 tests. The mxu forward computes every edge's message, as the reference
-does. Weights keep the reference's [in, out] layout.
+does; under int8 on the card's integer tensor cores, exactly (the
+products are integers below 2^24), from a [T, out, in] copy of the
+quantized transform that the wrapper makes each call. Weights keep the
+reference's [in, out] layout.
 """
 
 from __future__ import annotations
@@ -323,6 +326,20 @@ def msg_weights(wm: torch.Tensor, accum: str) -> tuple[torch.Tensor, torch.Tenso
     return wm, None
 
 
+def _kernel_weights(kernel: str, wm, wih, whh, accum: str, scatter: str):
+    """(Wm operand, ws) as the step kernels read them: the policy's
+    transform (`msg_weights`), transposed to [T, out, in] under int8 mxu
+    (the tensor cores' B operand). The kernels stage Wm, Wih and Whh 16
+    bytes at a time, so each must start 16-byte aligned."""
+    for name, x in (("wm", wm), ("wih", wih), ("whh", whh)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must start 16-byte aligned")
+    wm_k, ws = msg_weights(wm, accum)
+    if accum == "int8" and scatter == "mxu":
+        wm_k = wm_k.transpose(1, 2).contiguous()
+    return wm_k, ws
+
+
 def _fold_aggregate_plain(h, edges: EdgeIndex, wm, bm, accum: str):
     """The fold scatter's aggregate: per type, sum(coef * row) and
     sum(w) per node, then the policy's Wm_t (and ws_t) and c * bm_t."""
@@ -587,6 +604,8 @@ def _library(name: str) -> ctypes.CDLL:
             lib.ggnn_step.restype = i
             lib.ggnn_fused.argtypes = [i, i] + [p] * 19 + [i] * 7 + [p, p]
             lib.ggnn_fused.restype = i
+            lib.ggnn_fused_blocks_per_sm.argtypes = [i, i, i, p]
+            lib.ggnn_fused_blocks_per_sm.restype = i
             lib.ggnn_cuda_error_string.argtypes = [i]
             lib.ggnn_cuda_error_string.restype = ctypes.c_char_p
             lib.ggnn_step_tile_nodes.argtypes = []
@@ -702,7 +721,7 @@ def ggnn_step(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh,
         return h_new, (a if with_aggregate else None)
     n, e, d, t = _check_step_operands("ggnn_step", h, edges, wm, bm, wih, whh, bih, bhh)
     lib = _library("ggnn_step")
-    wm_k, ws = msg_weights(wm, accum)
+    wm_k, ws = _kernel_weights("ggnn_step", wm, wih, whh, accum, scatter)
     table = tscale = colmax = None
     if accum == "bf16":
         table = torch.empty((n, d), dtype=torch.bfloat16, device=h.device)
@@ -747,7 +766,7 @@ def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: i
                                 block_e=block_e)
     n, e, d, t = _check_step_operands("ggnn_fused", feat, edges, wm, bm, wih, whh, bih, bhh)
     lib = _library("ggnn_step")
-    wm_k, ws = msg_weights(wm, accum)
+    wm_k, ws = _kernel_weights("ggnn_fused", wm, wih, whh, accum, scatter)
     dev = feat.device
     h_out = torch.empty_like(feat)
     scratch = torch.empty_like(feat) if n_steps > 1 else None
@@ -776,6 +795,21 @@ def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: i
     if with_chain:
         _count("FUSED_CHAIN_LAUNCHES")
     return h_out, chain
+
+
+def fused_blocks_per_sm(accum: str, scatter: str, d: int, device: torch.device) -> int:
+    """Blocks of kernel 2 under (accum, scatter) at width d that one SM of
+    the CUDA `device` holds at once; its cooperative grid is that times
+    the SM count, at most one block a tile."""
+    check_accum(accum, scatter)
+    _check_shape("ggnn_fused", 1, 1, d, 1)
+    lib = _library("ggnn_step")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.ggnn_fused_blocks_per_sm(POLICIES[accum], SCATTERS[scatter], d,
+                                          ctypes.addressof(per_sm))
+    _raise_on(rc, "ggnn_fused", lib, "ggnn_cuda_error_string")
+    return per_sm.value
 
 
 def gru_bwd(h, a, wih, whh, bih, bhh, g):

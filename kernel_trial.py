@@ -6,6 +6,7 @@ one CUDA card, from copies of their source that differ in a line or two.
     python3 kernel_trial.py bwd [--layouts LABEL ...] [--source LABEL=PATH ...] [--out FILE]
     python3 kernel_trial.py dbias [--layouts LABEL ...] [--out FILE]
     python3 kernel_trial.py gru [--layouts LABEL ...] [--tree LABEL=PATH ...] [--out FILE]
+    python3 kernel_trial.py step [--layouts LABEL ...] [--tree LABEL=PATH ...] [--out FILE]
 
 Run from the root of a checkout on a machine with the card and the CUDA
 toolkit. Each mode (TRIALS) names a source under deepdfa_tpu_torch/csrc,
@@ -54,13 +55,34 @@ it), the calls it times and the launches that weight them:
   largest difference from `gru_bwd_plain` over its largest magnitude,
   whether every output is within the card gate (rtol 1e-4, atol 1e-5,
   scaled for the parameter cotangents), and repeat bits.
+- step: kernels 1 and 2, the GGNN forward step (`ggnn_step_kernel`,
+  `ggnn_fused_kernel`). gru_4x4, gru_16x1: a thread's micro-tile of a
+  GRU product 4 nodes x 4 columns or 16 x 1 (3 gates) in place of 8 x 2
+  (`kGruCols`); gru_k4: a and h read 4 k a load in place of 2
+  (`kGruK`); ring3: a three-stage GRU weight ring in place of
+  two (`kRing`); int8_fma: the int8 mxu messages as fp32 FMA chains in
+  place of the integer tensor cores (`kImmaMessages`); uncapped: no
+  register cap of two blocks an SM (`min_blocks`); inline: the step body
+  inlined into both kernels (`step_tile` not `__noinline__`). At the flagship batch
+  (N 16384, E 65536, d 128; seeded normal h, weights at d^-1/2, biases
+  at 0.1), kernel 1 timed under fp32, bf16 and int8 fold and fp32 and
+  int8 mxu (edge block 512), kernel 2 for 5 steps under fp32 fold and
+  int8 mxu; int8 mxu also split by launch (the quantizing table, the
+  pre-pass, the step). At that batch and a 3-edge-type one, every
+  instance (fp32, bf16, int8 x fold, mxu) of kernel 1 (h', a) and of
+  kernel 2 (h_out and the chain of 5 steps) is hashed: `bits_equal`
+  says, for each build, whether each hash equals the `parent` tree's
+  (or the first build's) and its own second run's; kernel 1's h' is also
+  held to its plain version at the card gate (rtol 1e-4, atol 1e-5). The
+  build report adds, per build, the SASS functions that hold IMMA
+  instructions (cuobjdump) and how many.
 
 Every layout is a copy under build/deepdfa_tpu_torch/trial/MODE/LABEL/ (with
 the headers beside the source); --layouts picks some (by default all,
 `as_is` being the source unedited). --source adds another flash source,
 unedited, with this tree's C interface (fwd, bwd); --tree adds another
-checkout whose own package, wrapper and source, is timed as it is (gru:
-an earlier tree whose B3 takes other arguments). Each build is
+checkout whose own package, wrapper and source, is timed as it is (gru,
+step: an earlier tree whose kernels take other arguments). Each build is
 compiled by the package's `cuda_build.build`, every build in a process
 of its own, all started together. Each is then loaded in a process of
 its own; the processes run one at a time, forward then backward through
@@ -108,13 +130,21 @@ _DB_ROWS = "constexpr int kDbRows = 64;"
 _GATES = "__global__ void __launch_bounds__(kGateThreads, 2)\ngru_bwd_gates_kernel"
 _INPUTS = "__global__ void __launch_bounds__(kInThreads, 2)\ngru_bwd_inputs_kernel"
 _W_TARGET = "constexpr int kWTargetBlocks = 512;"
+_COLS = "constexpr int kGruCols = 2;"
+_GRU_K = "constexpr int kGruK = 2;"
+_RING = "constexpr int kRing = 2;"
+_IMMA = "constexpr bool kImmaMessages = true;"
+_STEP_TILE = "__device__ __noinline__ void step_tile("
+_MIN_BLOCKS = ("constexpr int min_blocks(int d) { return 2 * (smem_bytes(d) + 1024) <= 228 * 1024 "
+               "? 2 : 1; }")
 
 #: mode: source, libraries, ptxas prefixes reported, layouts (label: the
 #: edits), the calls' weights (launches on the main paths of one
 #: chip_smoke.py run) and the timed fields they weight. fwd: cs (combined
 #: serving) plain, ct (combined training) dropout 0.1, 5s and 5t (T5
 #: serving and training) bias; bwd: ct at dropout 0.1, 5t with the bias;
-#: dbias: train_gen 20 steps x 12 at each of its calls, train_clone 8 x 12
+#: dbias: train_gen 20 steps x 12 at each of its calls, train_clone 8 x 12;
+#: step: each instance's launches on the main paths (PERF.md, kernel table)
 TRIALS = {
     "fwd": {
         "source": "flash_attention.cu", "libs": FLASH_LIBS,
@@ -176,11 +206,36 @@ TRIALS = {
         "weights": {"flagship": 1},
         "weighted": ("ms",),
     },
+    "step": {
+        "source": "ggnn_step.cu", "libs": ("ggnn_step",),
+        "ptxas": ("ggnn_step_kernel<128,", "ggnn_fused_kernel<128,", "step_tile<128,",
+                  "mxu_colmax_kernel<128>", "mxu_colmax_warp<128"),
+        "layouts": {
+            "as_is": (),
+            "gru_4x4": ((_COLS, _COLS.replace("2;", "4;")),),
+            "gru_16x1": ((_COLS, _COLS.replace("2;", "1;")),),
+            "gru_k4": ((_GRU_K, _GRU_K.replace("2;", "4;")),),
+            "ring3": ((_RING, _RING.replace("2;", "3;")),),
+            "int8_fma": ((_IMMA, _IMMA.replace("true", "false")),),
+            "uncapped": ((_MIN_BLOCKS, "constexpr int min_blocks(int) { return 1; }"),),
+            "inline": ((_STEP_TILE, _STEP_TILE.replace("__noinline__", "__forceinline__")),),
+        },
+        "weights": {"step_fold_fp32": 650, "step_fold_bf16": 200, "step_fold_int8": 75,
+                    "step_mxu_fp32": 135, "step_mxu_int8": 260, "fused_fold_fp32": 65,
+                    "fused_mxu_int8": 59},
+        "weighted": ("ms",),
+    },
 }
 #: the fp32 dbias calls of the dbias mode: (B, T, causal)
 DBIAS_CALLS = {"gen_decoder": (16, 128, True), "gen_encoder": (16, 256, False),
                "clone_encoder": (32, 256, False), "clone_decoder": (32, 256, True)}
 GRU_N, GRU_D = 16384, 128
+#: the step mode's batch and edge block; its timed kernel-1 instances
+#: (scatter, policy) and kernel-2 ones, 5 steps
+STEP_N, STEP_E, STEP_BLOCK, STEP_STEPS = 16384, 65536, 512, 5
+STEP_TIMED = (("fold", "fp32"), ("fold", "bf16"), ("fold", "int8"), ("mxu", "fp32"),
+              ("mxu", "int8"))
+FUSED_TIMED = (("fold", "fp32"), ("mxu", "int8"))
 
 
 def edited(mode: str, label: str, text: str) -> str:
@@ -360,7 +415,75 @@ def time_gru(torch, cs) -> dict:
             "repeat_equal": all(torch.equal(x, y) for x, y in zip(got, again))}}
 
 
-TIMERS = {"fwd": time_fwd, "bwd": time_bwd, "dbias": time_dbias, "gru": time_gru}
+def time_step(torch, cs) -> dict:
+    import hashlib
+
+    import numpy as np
+
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    def digest(*xs) -> str:
+        h = hashlib.sha256()
+        for x in xs:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator().manual_seed(14)
+    out = {}
+    with torch.inference_mode():
+        for batch, t in (("flagship", 1), ("etypes3", 3)):
+            _, edges, h, params = cs.ggnn_case(torch, gen, cs.full_batch(rng, STEP_N, STEP_E, t), t)
+            for scatter in ("fold", "mxu"):
+                for accum in ("fp32", "bf16", "int8"):
+                    kw = {"accum": accum, "scatter": scatter,
+                          "block_e": STEP_BLOCK if scatter == "mxu" else 0}
+                    h1, a1 = gk.ggnn_step(h, edges, *params, with_aggregate=True, **kw)
+                    hf, chain = gk.ggnn_fused(h, edges, *params, n_steps=STEP_STEPS,
+                                              with_chain=True, **kw)
+                    want, _ = gk.ggnn_step_plain(h, edges, *params, accum, scatter,
+                                                 kw["block_e"])
+                    out[f"{batch}_{scatter}_{accum}"] = {
+                        "step_digest": digest(h1, a1), "fused_digest": digest(hf, chain),
+                        "step_err": (h1 - want).abs().max().item(),
+                        "within_gate": bool(torch.allclose(h1, want, rtol=cs.RTOL,
+                                                           atol=cs.ATOL))}
+                    del h1, a1, hf, chain, want
+                    if batch != "flagship":
+                        continue
+                    if (scatter, accum) in STEP_TIMED:
+                        out[f"step_{scatter}_{accum}"] = {"ms": cs.median_ms(
+                            torch, lambda: gk.ggnn_step(h, edges, *params, **kw))}
+                    if (scatter, accum) in FUSED_TIMED:
+                        out[f"fused_{scatter}_{accum}"] = {"ms": cs.median_ms(
+                            torch, lambda: gk.ggnn_fused(h, edges, *params, n_steps=STEP_STEPS,
+                                                         **kw))}
+                    if (scatter, accum) == ("mxu", "int8"):
+                        out["step_mxu_int8"]["launch_split"] = cs.launch_split(
+                            torch, lambda: gk.ggnn_step(h, edges, *params, **kw))
+    return out
+
+
+def imma_counts(cuda_build, lib: str) -> dict:
+    """{SASS function: IMMA instructions} of the built library `lib`, for
+    the functions that hold any (cuobjdump beside nvcc)."""
+    import re
+
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cuda_build.library_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(r"\bIMMA\b", line):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+TIMERS = {"fwd": time_fwd, "bwd": time_bwd, "dbias": time_dbias, "gru": time_gru,
+          "step": time_step}
 
 
 def child(mode: str, what: str, label: str, tree: str | None) -> dict:
@@ -377,8 +500,11 @@ def child(mode: str, what: str, label: str, tree: str | None) -> dict:
     trial = TRIALS[mode]
     if what == "build":
         report = cuda_build.build(trial["libs"])
-        return {lib: {k: v for k, v in cs.ptxas_summary(r["log"]).items()
-                      if k.startswith(trial["ptxas"])} for lib, r in report.items()}
+        out = {lib: {k: v for k, v in cs.ptxas_summary(r["log"]).items()
+                     if k.startswith(trial["ptxas"])} for lib, r in report.items()}
+        if mode == "step":
+            out["imma"] = imma_counts(cuda_build, "ggnn_step")
+        return out
     import torch
 
     return TIMERS[mode](torch, cs)
@@ -399,8 +525,11 @@ def result(proc: subprocess.Popen, what: str, label: str) -> dict:
 
 def merge(first, second, key: str = ""):
     """One build's two runs of a call: times (`ms`, `*_ms`) as their mean
-    beside both medians, errors (`*err*`) their larger, flags both, the
-    rest (the batch cut, the launch split) the first run's."""
+    beside both medians, errors (`*err*`) their larger, flags both, a
+    hash (`*digest`) itself where both runs agree and "differs" where
+    not, the rest (the batch cut, the launch split) the first run's."""
+    if key.endswith("digest"):
+        return first if first == second else "differs"
     if isinstance(first, dict) and "err" in key:
         return {k: merge(first[k], second[k], key) for k in first}
     if isinstance(first, bool):
@@ -410,6 +539,21 @@ def merge(first, second, key: str = ""):
     if "err" in key:
         return max(first, second)
     return first
+
+
+def bits_equal(calls: dict, ref: str) -> dict:
+    """{build: {call: {hash field: equal}}} for the calls that carry
+    hashes: a hash equals `ref`'s and is the same on both runs of the
+    build ("differs" never equals)."""
+    out = {}
+    for label, by_call in calls.items():
+        for call, fields in by_call.items():
+            for k, v in fields.items():
+                if k.endswith("digest"):
+                    want = calls[ref][call][k]
+                    out.setdefault(label, {}).setdefault(call, {})[k] = (
+                        v == want and v != "differs")
+    return out
 
 
 def main() -> None:
@@ -436,8 +580,8 @@ def main() -> None:
     if args.source and args.mode not in ("fwd", "bwd"):
         sys.exit("--source applies to fwd and bwd: an earlier tree's other kernels take "
                  "other arguments")
-    if args.tree and args.mode != "gru":
-        sys.exit("--tree applies to gru")
+    if args.tree and args.mode not in ("gru", "step"):
+        sys.exit("--tree applies to gru and step")
     import torch
 
     if not torch.cuda.is_available():
@@ -473,6 +617,7 @@ def main() -> None:
                      for c in first}
              for label, (first, second) in runs.items()}
     weights = trial["weights"]
+    bits = bits_equal(calls, "parent" if "parent" in calls else labels[0])
     weighted = {label: sum(n * sum(calls[label][c][f] for f in trial["weighted"])
                            for c, n in weights.items()) / sum(weights.values())
                 for label in labels}
@@ -480,7 +625,8 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip()
     line = json.dumps({"card": smi, "mode": args.mode, "build_seconds": build_s, "ptxas": ptxas,
                        "weights": weights, "weighted_fields": trial["weighted"],
-                       "weighted_ms": weighted, "calls": calls})
+                       "weighted_ms": weighted, **({"bits_equal": bits} if bits else {}),
+                       "calls": calls})
     print(line)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -107,6 +107,10 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(card):
                      *params[3:])
     with pytest.raises(ValueError, match="is on"):
         gk.ggnn_step(h, edges, params[0].cpu(), *params[1:])
+    # the step kernels stage the weights 16 bytes at a time
+    off_grid = torch.zeros(32 * 32 + 1, device=card)[1:].view(1, 32, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gk.ggnn_step(h, edges, off_grid, *params[1:])
     # the backward kernels check their operands the same way
     g = torch.zeros(128, 32, device=card)
     with pytest.raises(TypeError, match="needs torch.float32"):
