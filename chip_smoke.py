@@ -18,9 +18,11 @@ prints one JSON line; any failure exits non-zero before the last line.
 4. kernel ggnn_gru_bwd, kernel ggnn_dmsg — the two backward kernels
    (B3, B4) against their plain versions at the same three batches, the
    same way (the parameter cotangents, sums over every node, are held
-   with atol 1e-5 times their largest magnitude); B3's time beside its
-   first design's (GRU_BWD_BASELINE_MS), and on a line before the
-   phase's, one B3 call's device time split by launch (torch.profiler);
+   with atol 1e-5 times their largest magnitude); B4 both alone and
+   added into B3's dh, as step_bwd calls it; their times beside their
+   first designs' (GRU_BWD_BASELINE_MS, DMSG_BASELINE_MS), and on lines
+   before the phase's, one B3 call's and one B4 call's device time split
+   by launch (torch.profiler);
 5. serve   — a flagship-width DeepDFA (hidden 32, 5 steps, input_dim
    1002, random weights from a seeded generator) behind a started
    DynamicBatcher answers seeded synthetic requests; every probability
@@ -571,13 +573,14 @@ def gru_bwd_bound(n: int, d: int):
     return roofline(flops, nbytes)
 
 
-def dmsg_bound(n: int, e_live: int, d: int, t: int):
-    """(bound_ms, bound_by) of B4: 2*N*d^2*T (q_t = da @ Wm_t^T per node)
-    plus 2*d per live edge (each live edge has one type); bytes: da read
-    and dh_msg written once, the live edges' dst and T weights, the src
-    row pointer, Wm."""
+def dmsg_bound(n: int, e_live: int, d: int, t: int, add: bool = False):
+    """(bound_ms, bound_by) of B4: 2*N*d^2*T (each node's sums times
+    Wm_t^T) plus 2*d per live edge (each live edge has one type); bytes:
+    da read and dh_msg written once (with `add`, the dh it is added to
+    read too), the live edges' dst and T weights, the src row pointer,
+    Wm."""
     flops = 2 * n * d * d * t + 2 * e_live * d
-    nbytes = 4 * (2 * n * d + e_live * (1 + t) + (n + 1) + t * d * d)
+    nbytes = 4 * ((3 if add else 2) * n * d + e_live * (1 + t) + (n + 1) + t * d * d)
     return roofline(flops, nbytes)
 
 
@@ -604,9 +607,13 @@ def launch_split(torch, fn, calls: int = 10) -> dict:
 
 def bwd_kernel_phase(torch, rng):
     """B3 and B4 against their plain versions at the flagship, T = 3
-    and all-padding batches; timings at the flagship batch, B3's beside
-    its first design's (GRU_BWD_BASELINE_MS), and B3's device time split
-    by launch on a line of its own before the phase's lines."""
+    and all-padding batches, B4 alone (dh_msg) and added into B3's dh
+    (dh_added, step_bwd's call); timings at the flagship batch beside the
+    first designs' (GRU_BWD_BASELINE_MS, DMSG_BASELINE_MS: B4's `ms` is
+    the call into dh, `fresh_ms` alone, `fresh_add_ms` alone plus the
+    separate add that step_bwd made before B4 added into dh), and each
+    kernel's device time split by launch on a line of its own before the
+    phase's lines."""
     from deepdfa_tpu_torch.graphs import pack
     from deepdfa_tpu_torch.nn import ggnn_kernel as gk
 
@@ -644,10 +651,14 @@ def bwd_kernel_phase(torch, rng):
             want = gk.gru_bwd_plain(h, a, *gru, g)
             got_msg = gk.dmsg(a, edges, wm)
             want_msg = gk.dmsg_plain(a, edges, wm)
-            again = gk.gru_bwd(h, a, *gru, g), gk.dmsg(a, edges, wm)
+            got_add = gk.dmsg(a, edges, wm, got[1].clone())
+            want_add = gk.dmsg_plain(a, edges, wm, got[1].clone())
+            again = (gk.gru_bwd(h, a, *gru, g), gk.dmsg(a, edges, wm),
+                     gk.dmsg(a, edges, wm, got[1].clone()))
         torch.cuda.synchronize()
         checks = [("ggnn_gru_bwd", k, x, y) for k, x, y in zip(names, got, want)]
-        checks.append(("ggnn_dmsg", "dh_msg", got_msg, want_msg))
+        checks += [("ggnn_dmsg", "dh_msg", got_msg, want_msg),
+                   ("ggnn_dmsg", "dh_added", got_add, want_add)]
         for kernel, what, x, y in checks:
             if not torch.isfinite(x).all():
                 fail(f"{name}: {kernel} {what} has non-finite values")
@@ -660,7 +671,7 @@ def bwd_kernel_phase(torch, rng):
             worst[kernel] = max(worst[kernel], err)
             reports[kernel][f"{name}_{what}_max_abs_err"] = err
         if not (all(torch.equal(x, y) for x, y in zip(got, again[0]))
-                and torch.equal(got_msg, again[1])):
+                and torch.equal(got_msg, again[1]) and torch.equal(got_add, again[2])):
             fail(f"{name}: a backward kernel gave other bits on a rerun")
         if name == "flagship":
             with torch.inference_mode():
@@ -673,14 +684,28 @@ def bwd_kernel_phase(torch, rng):
                 timing["ggnn_gru_bwd"].update(
                     baseline_ms=base, baseline_over_ms=base / timing["ggnn_gru_bwd"]["ms"])
                 split = launch_split(torch, lambda: gk.gru_bwd(h, a, *gru, g))
+                # B4 adds into a dh of its own here: the values grow over
+                # the runs, the work does not
+                dh = got[1].clone()
+                fresh = median_ms(torch, lambda: gk.dmsg(a, edges, wm))
                 timing["ggnn_dmsg"] = {
-                    "ms": median_ms(torch, lambda: gk.dmsg(a, edges, wm)),
-                    "plain_ms": median_ms(torch, lambda: gk.dmsg_plain(a, edges, wm)),
-                    **dict(zip(("bound_ms", "bound_by"), dmsg_bound(n, e_live, d, t))),
+                    "ms": median_ms(torch, lambda: gk.dmsg(a, edges, wm, dh)),
+                    "plain_ms": median_ms(torch, lambda: gk.dmsg_plain(a, edges, wm, dh)),
+                    **dict(zip(("bound_ms", "bound_by"),
+                               dmsg_bound(n, e_live, d, t, add=True))),
+                    "fresh_ms": fresh,
+                    "fresh_add_ms": median_ms(torch, lambda: dh + gk.dmsg(a, edges, wm)),
+                    "fresh_bound_ms": dmsg_bound(n, e_live, d, t)[0],
+                    "baseline_ms": DMSG_BASELINE_MS["ggnn_dmsg"],
+                    "baseline_over_fresh_ms": DMSG_BASELINE_MS["ggnn_dmsg"] / fresh,
                 }
+                msg_split = launch_split(torch, lambda: gk.dmsg(a, edges, wm, dh))
             shape = {"n": n, "e": b.edge_budget, "e_live": e_live, "d": d, "n_etypes": t}
     emit({"phase": "kernel ggnn_gru_bwd launches", **shape, "device_ms_by_launch": split,
           "device_ms": sum(x["ms"] for x in split.values())})
+    emit({"phase": "kernel ggnn_dmsg launches", **shape, "added_into_dh": True,
+          "device_ms_by_launch": msg_split,
+          "device_ms": sum(x["ms"] for x in msg_split.values())})
     for kernel in reports:
         emit({"phase": f"kernel {kernel}", "ok": True, "rtol": RTOL, "atol": ATOL,
               "max_abs_err": worst[kernel], **reports[kernel], **shape, **timing[kernel],
@@ -1948,7 +1973,12 @@ def flash_bias_kernel_phase(torch):
     bias (dbias at 0.1 too), the plain forward and backward with the bias,
     one scaled_dot_product_attention call with bias and mask as a float
     attn_mask and its backward with that mask requiring grad (the
-    library yardstick, never called by the port), and the bounds."""
+    library yardstick, never called by the port), and the bounds; the
+    tensor-core dbias beside its first design's (BF16_DBIAS_BASELINE_MS)
+    and at the T5 training path's three buckets (`dbias_buckets`: token
+    budget 8192, so B 64 at T 128, 32 at 256 and 16 at 512, every key
+    live), each bucket's batch cut, time and bound, held to the plain
+    dbias as above and to its bits on a repeat."""
     from deepdfa_tpu_torch.nn import flash_attention as fa
 
     B, H, T, D = 16, 12, 512, 64
@@ -2059,6 +2089,41 @@ def flash_bias_kernel_phase(torch):
                     ("dbias", 2, 0, bias_bytes + 4 * H * T * T)):
                 timing[f"{kernel}_bound"] = flash_bwd_bound(B, H, T, lens, D, 2, products,
                                                             out_tokens, extra)
+    del q, k, v, do, bias, mask
+    now = {"t5_flagship": timing["dbias_ms"], "dropout": timing["dbias_dropout_ms"]}
+    timing["bf16_dbias_vs_baseline"] = {
+        call: {"ms": now[call], "baseline_ms": base, "baseline_over_ms": base / now[call]}
+        for call, base in BF16_DBIAS_BASELINE_MS.items() if call in now}
+    buckets = {}
+    for Bb, Tb in ((64, 128), (32, 256), (16, 512)):
+        q, k, v, do = (torch.randn(Bb, H, Tb, D, generator=gen).to(torch.bfloat16).cuda()
+                       for _ in range(4))
+        bias = (torch.randn(H, Tb, Tb, generator=gen) * 2.0).to(torch.bfloat16).cuda()
+        mask = torch.ones(Bb, Tb, dtype=torch.bool, device="cuda")
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, mask, scale=1.0, bias=bias)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            got, again = (fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, scale=1.0)
+                          for _ in range(2))
+            want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, bias=bias)[3]
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(want.abs().max().item(), 1e-6)
+        if not torch.isfinite(got).all() or err > tol * scale:
+            fail(f"flash_bias bucket T {Tb}: dbias err {err} > {tol * scale} (or non-finite)")
+        if not torch.equal(got, again):
+            fail(f"flash_bias bucket T {Tb}: dbias other bits on a rerun")
+        with torch.inference_mode():
+            ms = median_ms(torch, lambda: fa.flash_dbias(q, k, v, mask, lse, delta, do, bias,
+                                                         scale=1.0))
+        bound = flash_bwd_bound(Bb, H, Tb, [Tb] * Bb, D, 2, 2, 0,
+                                2 * H * Tb * Tb + 4 * H * Tb * Tb)
+        buckets[f"t{Tb}"] = {"B": Bb, "ms": ms, "bound_ms": bound[0], "bound_by": bound[1],
+                             "cut": dbias_cut(fa, Bb, H, Tb, Tb, False, D, mma=True),
+                             "max_abs_err": err, "scale": scale}
+        worst["dbias"] = max(worst["dbias"], err)
+        del q, k, v, do, bias, mask, o, lse, delta, got, again, want
+    timing["dbias_buckets"] = buckets
     emit({"phase": "kernel flash_bias", "ok": True, "shape": [B, H, T, T, D], "scale": 1.0,
           "rates": [0.0, DROPOUT_RATE], "seed": DROPOUT_SEED,
           "tolerance": {"o": tol, "lse": "1e-5 + 1e-5 |lse|", "grads": "2e-2 of scale"},
@@ -2625,15 +2690,30 @@ GRU_BWD_BASELINE_MS = {"ggnn_gru_bwd": 0.6196}
 #: for its first FMA instance (a lane one key of a 32-key tile for 4 rows;
 #: NVIDIA H100 80GB HBM3, 700 W), before its register-tiled redesign
 FP32_DBIAS_BASELINE_MS = {"gen_decoder_t128": 0.1674, "gen_encoder_t256": 0.4932}
+#: the tensor-core dbias times at the T5 call (B 16, H 12, T 512, D 64,
+#: a bf16 bias, scale 1) that PERF.md records from before its redesign
+#: (NVIDIA H100 80GB HBM3, 700 W; 64 x 64 blocks over the whole batch,
+#: each batch row's k and v tiles behind two barriers, q and do fragments
+#: read a lane at a time from device memory): every key live, at dropout
+#: 0.1, and causal with the bias
+BF16_DBIAS_BASELINE_MS = {"t5_flagship": 0.1910, "dropout": 0.2498, "causal_bias": 0.1774}
+#: B4's time at the flagship batch (N 16384, E 65536, d 128, T 1) that
+#: PERF.md records for its first design (two launches: q_t = da @ Wm_t^T
+#: a column a lane into a [T, N, d] buffer, then a warp per node over its
+#: src run; the wrapper's Wm transpose; NVIDIA H100 80GB HBM3, 700 W),
+#: before its one-launch redesign; step_bwd added its result into dh in a
+#: pass of its own
+DMSG_BASELINE_MS = {"ggnn_dmsg": 0.0508}
 
 
 def no_spill_report(ptxas: dict) -> dict:
     """{kernel: ptxas's registers and spills} of the instances that must
     not spill, in both flash libraries: every tensor-core forward, dq and
     dk/dv instance at D 64 (three of each: without a bias and with a bf16
-    or fp32 bias), the fp32 and bf16 FMA forwards, the register-tiled
-    fp32 dq, dk/dv and dbias that the gen path launches and the bf16 FMA
-    dbias; every width's instance of B3's three passes (`ggnn_bwd`); and
+    or fp32 bias), both tensor-core dbias instances at D 64 (a bf16 or
+    fp32 bias), the fp32 and bf16 FMA forwards, the register-tiled fp32
+    dq, dk/dv and dbias that the gen path launches and the bf16 FMA dbias;
+    every width's instance of B3's three passes and of B4 (`ggnn_bwd`); and
     in `ggnn_step`, every instance of kernel 1 (fp32, bf16, int8 x fold,
     mxu) at every width with the `step_tile` body it runs and the int8
     pre-pass (kernel and warp body); None for one the build did not
@@ -2642,16 +2722,18 @@ def no_spill_report(ptxas: dict) -> dict:
     `fused_spill_report`."""
     out = {}
     for lib, c in (("flash_attention", ""), ("flash_attention_causal", ", causal")):
-        for kernel in ("flash_fwd_bf16_mma", "flash_dq_bf16_mma", "flash_dkv_bf16_mma"):
+        for kernel, count in (("flash_fwd_bf16_mma", 3), ("flash_dq_bf16_mma", 3),
+                              ("flash_dkv_bf16_mma", 3), ("flash_dbias_bf16_mma", 2)):
             mma = sorted(k for k in ptxas[lib] if k.startswith(f"{kernel}<64, "))
             out.update({k: ptxas[lib][k] for k in mma})
-            if len(mma) != 3:
-                out[f"{kernel}<64, ...{c}> x 3"] = None
+            if len(mma) != count:
+                out[f"{kernel}<64, ...{c}> x {count}"] = None
         for k in (f"flash_fwd_scalar<float, 64{c}>", f"flash_fwd_scalar<bf16, 64{c}>",
                   f"flash_dq_scalar<float, 64{c}>", f"flash_dkv_scalar<float, 64{c}>",
                   f"flash_dbias_scalar<float, 64{c}>", f"flash_dbias_scalar<bf16, 64{c}>"):
             out[k] = ptxas[lib].get(k)
-    for kernel in ("gru_bwd_gates_kernel", "gru_bwd_inputs_kernel", "gru_bwd_weights_kernel"):
+    for kernel in ("gru_bwd_gates_kernel", "gru_bwd_inputs_kernel", "gru_bwd_weights_kernel",
+                   "dmsg_kernel"):
         for d in range(32, 257, 32):
             out[f"{kernel}<{d}>"] = ptxas["ggnn_bwd"].get(f"{kernel}<{d}>")
     for d in range(32, 257, 32):
@@ -2684,11 +2766,13 @@ def fused_spill_report(ptxas: dict) -> dict:
     return out
 
 
-def dbias_cut(fa, B: int, H: int, Tq: int, Tk: int, causal: bool) -> dict:
-    """The batch cut of the fp32 dbias (kernel 8's FMA instance) at a
-    call, from the workspace its library asks for: `slices` runs of `per`
-    rows (per = ceil(B / slices) for the library's power-of-two cuts)."""
-    floats = fa._library(causal).flash_dbias_workspace_floats(B, H, Tq, Tk)
+def dbias_cut(fa, B: int, H: int, Tq: int, Tk: int, causal: bool, D: int = 64,
+              mma: bool = False) -> dict:
+    """The batch cut of kernel 8 (the fp32 FMA instance, or with `mma`
+    the tensor-core one at head width D) at a call, from the workspace its
+    library asks for: `slices` runs of `per` rows (per = ceil(B /
+    slices) for the library's power-of-two cuts)."""
+    floats = fa._library(causal).flash_dbias_workspace_floats(B, H, Tq, Tk, D, int(mma))
     slices = max(1, floats // (H * Tq * Tk))
     return {"slices": slices, "per": -(-B // slices)}
 
@@ -2867,6 +2951,11 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
                          "baseline_over_ms": base / timing[case]["dbias_ms"],
                          "cut": cuts[case]}
                   for case, base in FP32_DBIAS_BASELINE_MS.items()}
+    causal_bias = timing["t5_flagship_t512"]["dbias_ms"]
+    bf16_dbias = {"causal_bias": {"ms": causal_bias,
+                                  "baseline_ms": BF16_DBIAS_BASELINE_MS["causal_bias"],
+                                  "baseline_over_ms": BF16_DBIAS_BASELINE_MS["causal_bias"]
+                                  / causal_bias}}
     emit({"phase": "kernel flash_causal", "ok": True,
           "tolerance": {"o": FLASH_TOL, "lse": "1e-5 + 1e-5 |lse|",
                         "grads": {"bfloat16": "2e-2 of scale", "float32": "1e-4 of scale"}},
@@ -2874,6 +2963,7 @@ def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_fl
           "noncausal_flagship_ms": noncausal, "noncausal_over_baseline": ratio,
           "fp32_bwd_vs_baseline": fp32_bwd, "fwd_vs_baseline": fwd,
           "bf16_bwd_vs_baseline": bf16_bwd, "fp32_dbias_vs_baseline": fp32_dbias,
+          "bf16_dbias_vs_baseline": bf16_dbias,
           "fp32_dbias_cut": cuts,
           "fwd_mma_rows": rows,
           "no_spill_ptxas": no_spill, "fused_spill_ptxas": fused_spill_report(ptxas), **report})
@@ -3303,8 +3393,9 @@ def device_groups(prof) -> dict:
     (cuBLAS's gemm and Hopper `nvjet` kernels, CUTLASS) and everything
     else; with launch counts."""
     # kernel-name fragments of each group: the flash kernels, the GGNN
-    # whole unroll and step, B3 (gru_bwd_*, reduce_splits) and B4 (dmsg_*);
-    # kernel 8 with the sum of its cut batch's partials (dbias_reduce)
+    # whole unroll and step, B3 (gru_bwd_*, reduce_splits) and B4
+    # (dmsg_kernel); kernel 8 (flash_dbias_bf16_mma, flash_dbias_scalar)
+    # with the sum of its cut batch's partials (dbias_reduce)
     names = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
              "flash_dkv": ("flash_dkv",), "flash_dbias": ("flash_dbias", "dbias_reduce"),
              "ggnn_fused": ("ggnn_fused",),

@@ -73,14 +73,15 @@
 //    shared memory, the next tile's in flight while this one computes);
 //    each warp owns 16 keys (tensor cores) or each thread 4 (FMA), so dk
 //    and dv stay in registers;
-//  - dbias: one block per (h, 64-row q-tile, 64-key tile) loops over the
-//    batch IN ORDER, recomputing s, p and dp for each b and summing ds in
-//    the S-shaped fp32 accumulator, then writes its tile once. The
-//    reference zeroes its output at b == 0 and accumulates across grid
-//    steps, which is right only because the TPU grid runs in order; GPU
-//    blocks run concurrently, so the batch loop lives inside the block.
-//    The FMA dbias cuts the batch into slices whose partials a second
-//    launch sums in slice order, to fill the card at few tiles a head.
+//  - dbias: one block per (h, q tile, key tile, slice of the batch) loops
+//    over its batch rows IN ORDER, recomputing s, p and dp for each b and
+//    summing ds in the S-shaped fp32 accumulator, then writes its tile
+//    once. The reference zeroes its output at b == 0 and accumulates
+//    across grid steps, which is right only because the TPU grid runs in
+//    order; GPU blocks run concurrently, so the batch loop lives inside
+//    the block. Where a head has few tiles the batch is cut into slices
+//    whose partials a second launch sums in slice order, to fill the
+//    card.
 // No float atomics anywhere (the usual FA2 backward sums dq with atomics):
 // the same inputs on the same card give the same bits.
 //
@@ -110,9 +111,9 @@
 // keys] tile with q and do (read transposed from shared memory), and all
 // three read its fragments there; the FMA forward stages it the same way.
 // The FMA dq and dk/dv read their elements from device memory four at a
-// time (bias4), dbias its lanes' elements once, before its batch loop: the
-// [H, Tq, Tk] bias is shared by the B blocks of a head and stays in the
-// 50 MB L2 across them (6.3 MB in bf16 at H 12, T 512).
+// time (bias4); both dbias instances stage their tile once, before their
+// batch loop: the [H, Tq, Tk] bias is shared by the B blocks of a head and
+// stays in the 50 MB L2 across them (6.3 MB in bf16 at H 12, T 512).
 //
 //  - bf16, D a multiple of 16 (<= 128): warps of 16 rows (the
 //    non-causal forward at D <= 64: 32, two m16 tiles sharing each k/v
@@ -175,8 +176,13 @@
 // accumulators live, for more warps an SM), issue a part's Philox calls
 // before its elementwise work, so that their chains overlap, and use
 // every word of each call (lanes trade them by shuffle). The tensor-core
-// dbias has no double buffering: each tile's loads wait on a barrier, and
-// it uses 2 of each Philox call's 4 words.
+// dbias does the same with its batch loop: batch row b+1's tiles in
+// flight while row b computes. Its blocks re-read every q/do tile once a
+// key tile and every k/v tile once a q tile (at the T5 call ~403 MB of
+// L2 reads a launch with 64 x 64 tiles against 50 MB of operands), yet
+// 128-row or 128-key blocks, a third fewer reads, ran slower than 64 x 64
+// ones with twice the warps: latency, not L2 bandwidth, binds it
+// (DbiasMmaLayout).
 //
 // The wrappers (nn/flash_attention.py) pass each operand's (batch, head,
 // token) strides and the bias's (head, row) strides; the innermost
@@ -198,10 +204,7 @@ constexpr float kNegBig = -1e30f;              // the reference's _NEG_BIG
 constexpr float kTiny = 1.17549435082228751e-38f;  // jnp.finfo(float32).tiny
 constexpr int kMaxD = 128;
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = kMmaWarps * 16;  // query (dq, dbias) or key (dk/dv) rows per block
-constexpr int kMmaKeys = 64;               // keys (fwd, dq) or queries (dk/dv) per tile
+constexpr int kMmaKeys = 64;  // keys (fwd, dq) or queries (dk/dv) per tile
 
 
 struct Strides {
@@ -334,60 +337,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* base, int row, int col,
-                                              int rows, long long stride) {
-  if (row >= rows) return 0u;
-  return *reinterpret_cast<const uint32_t*>(base + row * stride + col);
-}
-
-__device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragments from a global strided [rows, D] operand (zero past `rows`)
-template <int NK>
-__device__ __forceinline__ void global_a_frags(uint32_t (&f)[NK][4], const __nv_bfloat16* base,
-                                               int r0, int r1, int rows, long long stride,
-                                               int t) {
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    f[kk][0] = load_pair(base, r0, c, rows, stride);
-    f[kk][1] = load_pair(base, r1, c, rows, stride);
-    f[kk][2] = load_pair(base, r0, c + 8, rows, stride);
-    f[kk][3] = load_pair(base, r1, c + 8, rows, stride);
-  }
-}
-
-// rows [row0, row0 + 64) of a strided [rows, D] operand into a shared
-// tile of row stride KS, zeros past `rows`; 16-byte chunks
-template <int D, int KS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
-                                          int rows, long long stride, int tid) {
-  constexpr int CH = D / 8;
-  for (int idx = tid; idx < 64 * CH; idx += kMmaThreads) {
-    const int r = idx / CH, c = (idx - r * CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) x = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * KS + c) = x;
-  }
-}
-
-// acc[NJ] += A . B^T where B's rows are the 64 rows of a shared tile
-// (B[k][n] = tile[n][k]: the k-dimension runs along a row)
-template <int NJ, int NK, int KS>
-__device__ __forceinline__ void mma_abt(float (&acc)[NJ][4], const uint32_t (&a)[NK][4],
-                                        const __nv_bfloat16* tile, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const __nv_bfloat16* r = tile + (j * 8 + g) * KS + kk * 16 + 2 * t;
-      mma_bf16(acc[j], a[kk], smem_pair(r), smem_pair(r + 8));
-    }
-  }
 }
 
 // rows r0, r1 (= r0 + 8) of the [16, D] accumulators acc times `mul`,
@@ -1869,132 +1818,229 @@ __global__ void __launch_bounds__(kTileThreads, KS == 64 ? 2 : 1) flash_dkv_scal
 }
 
 // ---------------------------------------------------------------------------
-// dbias, bf16 on tensor cores: one block per (64-key tile, 64-row q-tile,
-// h); the batch loop runs inside the block, in order, and ds sums in the
-// S-shaped fp32 accumulator
+// dbias, bf16 on tensor cores. A block owns ROWS query rows x KEYS keys of
+// one head and a slice of the batch, whose rows it visits in order; a warp
+// owns 16 rows x WK keys and sums ds over the batch in an S-shaped fp32
+// accumulator (WK / 2 registers). Each batch row's q and do tiles, k and v
+// tiles, key mask, lse and delta come in through a two-stage cp.async
+// ring while the row before computes; the bias tile is staged once, before
+// the batch loop. Per row and 32-key part, S = Q K^T and dP = dO V^T
+// through ldmatrix.x4 (mma_qk), p from bwd_p, one Philox call a lane per
+// n8 tile with the words traded by xor shuffles (as in dq), and acc += p
+// (dp - delta). Where the grid is small (the short buckets), the batch is
+// cut into slices whose [slices, H, Tq, Tk] partials dbias_reduce sums in
+// slice order (dbias_mma_cut); a causal tile wholly above the diagonal
+// writes zeros.
+
+// The tile layout of the tensor-core dbias: query rows and keys a block,
+// keys a warp (a warp per 16 rows x kWarpKeys) and the keys a warp scores
+// at a time. 64 x 64 blocks of 8 warps of 32 keys: with a bf16 bias at D
+// 64 a block takes ~85 KB of shared memory and ~122 registers a thread,
+// two blocks (16 warps) an SM; 128-row or 128-key blocks take one an SM,
+// and warps of 64 keys give 8 warps an SM, all slower at the T5 training
+// path's calls, weighted by its launches (PERF.md; kernel_trial.py
+// dbias_mma). The cut aims at 528 live blocks, two waves of two an SM.
+template <int D, bool kCausal>
+struct DbiasMmaLayout {
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = 64;
+  static constexpr int kWarpKeys = 32;
+  static constexpr int kSub = 32;
+};
+constexpr int kDbMmaSplitBlocks = 528;  // live blocks the tensor-core batch cut aims for
+
+// one ring stage of the tensor-core dbias: q, do [rows][D + 8], k, v
+// [keys][D + 8] (bf16), the key mask [keys] and lse, delta [rows]
+template <int D>
+__host__ __device__ constexpr int dbias_mma_stage_bytes(int rows, int keys) {
+  return 2 * (rows + keys) * (D + 8) * 2 + keys * 4 + 2 * rows * 4;
+}
+
+// dynamic shared memory of the tensor-core dbias: two ring stages and the
+// bias tile [rows][keys + 8] in the bias's dtype
+template <int D>
+int dbias_mma_smem_bytes(int rows, int keys, const Bias& bi) {
+  return 2 * dbias_mma_stage_bytes<D>(rows, keys) + bias_stage_bytes(rows, bi.bf16, keys);
+}
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
+__host__ __device__ constexpr int dbias_mma_threads() {
+  using L = DbiasMmaLayout<D, kCausal>;
+  return L::kRows / 16 * (L::kKeys / L::kWarpKeys) * 32;
+}
+
+// BIAS: the bytes of a bias element, 2 (bf16) or 4 (fp32). One block:
+// keys k0 .. k0+KEYS-1 and rows q0 .. q0+ROWS-1 of head h over the batch
+// rows slice * per .. of its slice, into slice's [H, Tq, Tk] of `out`
+// (dbias itself when the batch is not cut).
+template <int D, int BIAS, bool kCausal>
+__global__ void __launch_bounds__(DbiasMmaLayout<D, kCausal>::kRows / 16 *
+                                  (DbiasMmaLayout<D, kCausal>::kKeys /
+                                   DbiasMmaLayout<D, kCausal>::kWarpKeys) * 32)
+    flash_dbias_bf16_mma(BwdArgs a, float* out, int per) {
+  using L = DbiasMmaLayout<D, kCausal>;
+  constexpr int ROWS = L::kRows, KEYS = L::kKeys, WK = L::kWarpKeys, SUB = L::kSub;
+  static_assert(WK == 32 || WK == 64, "a warp scores 32 or 64 keys");
+  static_assert(SUB <= WK && KEYS % WK == 0, "a warp's keys hold whole parts");
+  constexpr int RW = ROWS / 16;  // warps along the rows
+  constexpr int NT = dbias_mma_threads<D, kCausal>();
   constexpr int KS = D + 8;
-  constexpr int NJ = kMmaKeys / 8;
+  constexpr int NJ = SUB / 8;  // n8 tiles of a part
+  constexpr int NA = WK / 8;   // n8 tiles of a warp's keys
   constexpr int NK = D / 16;
-  __shared__ __align__(16) __nv_bfloat16 k_s[kMmaKeys * KS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kMmaKeys * KS];
-  __shared__ float ok_s[kMmaKeys];
+  constexpr int SB = dbias_mma_stage_bytes<D>(ROWS, KEYS);
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [stage][q, do [ROWS][KS]; k, v [KEYS][KS]; mask [KEYS]; lse, delta [ROWS]]
+  unsigned char* bias_s = smem + 2 * SB;  // [ROWS][KEYS + 8] in the bias's dtype
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.z;
-  const int k0 = blockIdx.x * kMmaKeys;
-  const int r0 = blockIdx.y * kMmaRows + warp * 16 + g;  // this lane's rows
-  const int r1 = r0 + 8;
-  const bool v0 = r0 < a.Tq, v1 = r1 < a.Tq;
-  float* out = a.dbias + (long long)h * a.Tq * a.Tk;
-  const int q_start = blockIdx.y * kMmaRows;
-  if (kCausal && k0 >= q_start + kMmaRows) {
-    // wholly above the diagonal: ds is 0 there, and the tile is written
+  const int h = blockIdx.z % a.H, slice = blockIdx.z / a.H;
+  const int k0 = blockIdx.x * KEYS, q0 = blockIdx.y * ROWS;
+  const int wr = warp % RW, kw = warp / RW * WK;  // the warp's rows / 16 and first key
+  const int w0 = q0 + wr * 16;                    // this warp's first row
+  const int ra = w0 + g, rb = ra + 8;             // this lane's rows
+
+  float acc[NA][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + j * 8 + 2 * t + e;
-        if (key >= a.Tk) continue;
-        if (v0) out[(long long)r0 * a.Tk + key] = 0.0f;
-        if (v1) out[(long long)r1 * a.Tk + key] = 0.0f;
+  for (int j = 0; j < NA; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  const int b0 = slice * per;
+  const int nb = min(per, a.B - b0);
+  // else wholly above the diagonal: ds is 0 and the tile is written as zeros
+  if ((!kCausal || k0 < q0 + ROWS) && nb > 0) {
+    // batch row b0 + i into stage i & 1
+    auto stage = [&](int i) {
+      const int b = b0 + i;
+      __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + (i & 1) * SB);
+      cp_tile<ROWS, D, KS, NT>(qs, static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b +
+                                       h * a.sq.h, q0, a.Tq, a.sq.t, tid);
+      cp_tile<ROWS, D, KS, NT>(qs + ROWS * KS, static_cast<const __nv_bfloat16*>(a.dout) +
+                                                   b * a.sdo.b + h * a.sdo.h, q0, a.Tq,
+                               a.sdo.t, tid);
+      cp_tile<KEYS, D, KS, NT>(qs + 2 * ROWS * KS, static_cast<const __nv_bfloat16*>(a.k) +
+                                                       b * a.sk.b + h * a.sk.h, k0, a.Tk,
+                               a.sk.t, tid);
+      cp_tile<KEYS, D, KS, NT>(qs + (2 * ROWS + KEYS) * KS,
+                               static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h,
+                               k0, a.Tk, a.sv.t, tid);
+      int* ok_s = reinterpret_cast<int*>(qs + 2 * (ROWS + KEYS) * KS);
+      float* ld_s = reinterpret_cast<float*>(ok_s + KEYS);
+      const int* maskp = a.mask + (long long)b * a.Tk;
+      for (int c = tid; c < KEYS; c += NT) {
+        const bool in = k0 + c < a.Tk;
+        cp_async4(ok_s + c, in ? maskp + k0 + c : maskp, in ? 4 : 0);
       }
-    }
-    return;
-  }
-  const bool diag = kCausal && k0 + kMmaKeys > q_start;
-
-  // this lane's bias elements (rows r0, r1; columns j*8 + 2t + {0, 1}),
-  // the same for every b
-  float bv[NJ][4], acc[NJ][4];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + j * 8 + 2 * t + e;
-      bv[j][e] = (v0 && key < a.Tk) ? bias_at(a.bias, h, r0, key) : 0.0f;
-      bv[j][2 + e] = (v1 && key < a.Tk) ? bias_at(a.bias, h, r1, key) : 0.0f;
-    }
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-  }
-
-  for (int b = 0; b < a.B; ++b) {
-    const int bh = b * a.H + h;
-    const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.sq.b + h * a.sq.h;
-    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.sk.b + h * a.sk.h;
-    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.sv.b + h * a.sv.h;
-    const __nv_bfloat16* dop =
-        static_cast<const __nv_bfloat16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
-    const int* maskp = a.mask + (long long)b * a.Tk;
-    __syncthreads();  // the previous b's tiles are consumed
-    load_tile<D, KS>(k_s, kp, k0, a.Tk, a.sk.t, tid);
-    load_tile<D, KS>(v_s, vp, k0, a.Tk, a.sv.t, tid);
-    if (tid < kMmaKeys) {
-      const int key = k0 + tid;
-      ok_s[tid] = (key < a.Tk && maskp[key] != 0) ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-
-    const float* lp = a.lse + (long long)bh * a.Tq;
-    const float* dlp = a.delta + (long long)bh * a.Tq;
-    const float lse0 = v0 ? lp[r0] : 0.0f, lse1 = v1 ? lp[r1] : 0.0f;
-    const float del0 = v0 ? dlp[r0] : 0.0f, del1 = v1 ? dlp[r1] : 0.0f;
-    uint32_t qf[NK][4], df[NK][4];
-    global_a_frags<NK>(qf, qp, r0, r1, a.Tq, a.sq.t, t);
-    global_a_frags<NK>(df, dop, r0, r1, a.Tq, a.sdo.t, t);
-
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-    }
-    mma_abt<NJ, NK, KS>(s, qf, k_s, g, t);   // S = Q K^T
-    mma_abt<NJ, NK, KS>(dp, df, v_s, g, t);  // dP = dO V^T
-
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = j * 8 + 2 * t;
-      uint32_t bw[4] = {0u, 0u, 0u, 0u};
-      if (a.drop.on) {
-        const uint4 w0 = bits4(a.drop, bh, r0, k0 + col), w1 = bits4(a.drop, bh, r1, k0 + col);
-        const bool odd = t & 1;
-        bw[0] = odd ? w0.z : w0.x;
-        bw[1] = odd ? w0.w : w0.y;
-        bw[2] = odd ? w1.z : w1.x;
-        bw[3] = odd ? w1.w : w1.y;
+      const long long lrow = ((long long)b * a.H + h) * a.Tq + q0;
+      for (int c = tid; c < 2 * ROWS; c += NT) {
+        const int r = c % ROWS;
+        const float* src = c < ROWS ? a.lse : a.delta;
+        const bool in = q0 + r < a.Tq;
+        cp_async4(ld_s + c, in ? src + lrow + r : src, in ? 4 : 0);
       }
+      cp_async_commit();
+    };
+    stage_bias_raw<ROWS, NT, BIAS, KEYS>(bias_s, a.bias, h, q0, k0, a.Tq, a.Tk, tid);
+    stage(0);  // one group: the bias tile and batch row b0
+
+    for (int i = 0; i < nb; ++i) {
+      cp_async_wait_all();
+      __syncthreads();  // row i is in; every warp is done with row i - 1
+      if (i + 1 < nb) stage(i + 1);
+      const int bh = (b0 + i) * a.H + h;
+      const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(smem + (i & 1) * SB);
+      const __nv_bfloat16* ks = qs + 2 * ROWS * KS + kw * KS;
+      const int* ok_s = reinterpret_cast<const int*>(qs + 2 * (ROWS + KEYS) * KS);
+      const float* ld_s = reinterpret_cast<const float*>(ok_s + KEYS);
+      // this lane's rows' -lse log2 e and delta (zeros past Tq: never stored)
+      const float nla = -ld_s[ra - q0] * kLog2e, nlb = -ld_s[rb - q0] * kLog2e;
+      const float dela = ld_s[ROWS + ra - q0], delb = ld_s[ROWS + rb - q0];
+      // the warp's real keys as bits, bit c <-> key kw + c of the tile
+      uint64_t real64 = __ballot_sync(0xffffffffu, ok_s[kw + lane] != 0);
+      if (WK > 32)
+        real64 |= (uint64_t)__ballot_sync(0xffffffffu, ok_s[kw + 32 + lane] != 0) << 32;
+
+      // the warp's WK keys in SUB-key parts kc .. kc + SUB - 1
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool ok = ok_s[col + e] != 0.0f;
-        const bool ok0 = ok && v0 && (!diag || k0 + col + e <= r0);
-        const bool ok1 = ok && v1 && (!diag || k0 + col + e <= r1);
-        const float p0 = ok0 ? bwd_p<true>(s[j][e], a.scale, bv[j][e], -lse0 * kLog2e) : 0.0f;
-        const float p1 =
-            ok1 ? bwd_p<true>(s[j][2 + e], a.scale, bv[j][2 + e], -lse1 * kLog2e) : 0.0f;
-        float d0 = dp[j][e], d1 = dp[j][2 + e];
-        if (a.drop.on) {
-          d0 = bw[e] < a.drop.threshold ? d0 * a.drop.inv_keep : 0.0f;
-          d1 = bw[2 + e] < a.drop.threshold ? d1 * a.drop.inv_keep : 0.0f;
+      for (int kc = 0; kc < WK; kc += SUB) {
+        const int c0 = k0 + kw + kc;  // the part's first key
+        if (kCausal && c0 > w0 + 15) continue;  // every key is past this warp's rows
+        // the part's live keys, bit c <-> column kc + 2t + c of this lane;
+        // a part that crosses this warp's diagonal keeps col <= row
+        const uint64_t real = real64 >> (kc + 2 * t);
+        const bool diag = kCausal && c0 + SUB - 1 > w0;
+        const uint64_t la = diag ? first_cols(real, ra - c0 - 2 * t + 1) : real;
+        const uint64_t lb = diag ? first_cols(real, rb - c0 - 2 * t + 1) : real;
+
+        // S = Q K^T and dP = dO V^T: rows ra, rb, columns j*8 + 2t + {0, 1}
+        float s[1][NJ][4], dp[1][NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          s[0][j][0] = s[0][j][1] = s[0][j][2] = s[0][j][3] = 0.0f;
+          dp[0][j][0] = dp[0][j][1] = dp[0][j][2] = dp[0][j][3] = 0.0f;
         }
-        acc[j][e] += p0 * (d0 - del0);
-        acc[j][2 + e] += p1 * (d1 - del1);
+        mma_qk<1, NJ, NK, KS>(s, qs + wr * 16 * KS, ks + kc * KS, lane);
+        mma_qk<1, NJ, NK, KS>(dp, qs + (ROWS + wr * 16) * KS, ks + (KEYS + kc) * KS, lane);
+
+        // keep bits of n8 tile j as in dq: 0, 1 for row ra, 8, 9 for rb
+        uint32_t keep[NJ];
+        if (a.drop.on) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            keep[j] = keep4(bits4(a.drop, bh, (t & 2) ? rb : ra, c0 + j * 8 + 4 * (t & 1)),
+                            a.drop.threshold)
+                      << (4 * t);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            keep[j] |= __shfl_xor_sync(0xffffffffu, keep[j], 1);
+            keep[j] |= __shfl_xor_sync(0xffffffffu, keep[j], 2);
+            keep[j] >>= 2 * t;
+          }
+        }
+
+        // acc += p (dp - delta), in batch order
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = kw + kc + j * 8 + 2 * t;  // the lane's first column in the tile
+          const float2 ba = bias_pair<BIAS, KEYS>(bias_s, ra - q0, col);
+          const float2 bb = bias_pair<BIAS, KEYS>(bias_s, rb - q0, col);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + e;
+            const float pa =
+                (la >> c) & 1 ? bwd_p<true>(s[0][j][e], a.scale, e ? ba.y : ba.x, nla) : 0.0f;
+            const float pb =
+                (lb >> c) & 1 ? bwd_p<true>(s[0][j][2 + e], a.scale, e ? bb.y : bb.x, nlb) : 0.0f;
+            float da = dp[0][j][e], db = dp[0][j][2 + e];
+            if (a.drop.on) {
+              da = (keep[j] >> e) & 1u ? da * a.drop.inv_keep : 0.0f;
+              db = (keep[j] >> (8 + e)) & 1u ? db * a.drop.inv_keep : 0.0f;
+            }
+            acc[kc / 8 + j][e] += pa * (da - dela);
+            acc[kc / 8 + j][2 + e] += pb * (db - delb);
+          }
+        }
       }
     }
   }
 
+  float* o = out + ((long long)slice * a.H + h) * a.Tq * a.Tk;
+  const bool pairs = (a.Tk & 1) == 0;
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
+  for (int j = 0; j < NA; ++j) {
+    const int key = k0 + kw + j * 8 + 2 * t;
+    if (key >= a.Tk) continue;
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = k0 + j * 8 + 2 * t + e;
-      if (key >= a.Tk) continue;
-      if (v0) out[(long long)r0 * a.Tk + key] = acc[j][e];
-      if (v1) out[(long long)r1 * a.Tk + key] = acc[j][2 + e];
+    for (int m = 0; m < 2; ++m) {
+      const int row = m ? rb : ra;
+      if (row >= a.Tq) continue;
+      float* p = o + (long long)row * a.Tk + key;
+      if (pairs) {  // Tk even: key + 1 < Tk, and the pair is 8-byte aligned
+        *reinterpret_cast<float2*>(p) = make_float2(acc[j][2 * m], acc[j][2 * m + 1]);
+      } else {
+        p[0] = acc[j][2 * m];
+        if (key + 1 < a.Tk) p[1] = acc[j][2 * m + 1];
+      }
     }
   }
 }
@@ -2024,7 +2070,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dbias_bf16_mma(BwdArgs a) {
 // few tiles (the decoder call, T 128 causal: 3 live 64 x 64 tiles, 36
 // blocks for 132 SMs), so the batch is cut into `slices` of `per` rows: each block
 // writes its slice's [H, Tq, Tk] partial and dbias_reduce sums the
-// partials in slice order. dbias_cut picks the cut so that the grid holds
+// partials in slice order. dbias_fma_cut picks the cut so that the grid holds
 // about kDbSplitBlocks live blocks. Every sum
 // keeps one order: the same bits on every run, no atomics. p uses expf,
 // as in the FMA dq and dk/dv. Bound at the generation path's calls (B
@@ -2286,13 +2332,6 @@ constexpr bool kCausalBuild = FLASH_CAUSAL != 0;
 
 
 
-template <int D>
-cudaError_t launch_dbias_mma(const BwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.Tk + kMmaKeys - 1) / kMmaKeys, (a.Tq + kMmaRows - 1) / kMmaRows, a.H);
-  flash_dbias_bf16_mma<D, kCausalBuild><<<grid, kMmaThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // a kernel with `bytes` of dynamic shared memory (allow_smem)
 template <typename K, typename A>
 cudaError_t launch_smem(K kernel, dim3 grid, int threads, int bytes, const A& a, cudaStream_t s) {
@@ -2377,29 +2416,48 @@ cudaError_t launch_dkv_tiled(const BwdArgs& a, int bf16, cudaStream_t s) {
   return launch_tiled(flash_dkv_scalar<float, KS, kCausalBuild>, grid, bytes, a, s);
 }
 
-// The FMA dbias's cut of the batch: `slices` contiguous runs of `per`
-// rows (the last may be shorter), a block each. The cut is the smallest
-// power of two (at most about B) that puts kDbSplitBlocks live blocks on
-// the card; a causal tile wholly above the diagonal is not live. One
-// slice keeps the whole batch in each block.
+// A dbias cut of the batch: `slices` contiguous runs of `per` rows (the
+// last may be shorter), a block each. The cut is the smallest power of
+// two (at most about B) that puts `target` live blocks of rows x keys
+// tiles on the card; a causal tile wholly above the diagonal is not live.
+// One slice keeps the whole batch in each block.
 struct DbiasCut {
   int slices, per;
 };
 
-DbiasCut dbias_cut(int B, int H, int Tq, int Tk) {
-  const int n_q = (Tq + kDbRows - 1) / kDbRows, n_k = (Tk + kDbKeys - 1) / kDbKeys;
+DbiasCut dbias_cut(int B, int H, int Tq, int Tk, int rows, int keys, int target) {
+  const int n_q = (Tq + rows - 1) / rows, n_k = (Tk + keys - 1) / keys;
   long long tiles = (long long)n_q * n_k;
-  if (kCausalBuild) {  // key tile c is live for the q tile r if 64 c < kDbRows (r + 1)
+  if (kCausalBuild) {  // key tile c is live for the q tile r if keys c < rows (r + 1)
     tiles = 0;
     for (int r = 0; r < n_q; ++r) {
-      const int live = (kDbRows * (r + 1) + kDbKeys - 1) / kDbKeys;
+      const int live = (rows * (r + 1) + keys - 1) / keys;
       tiles += live < n_k ? live : n_k;
     }
   }
   int want = 1;
-  while (want < B && (long long)want * H * tiles < kDbSplitBlocks) want *= 2;
+  while (want < B && (long long)want * H * tiles < target) want *= 2;
   const int per = (B + want - 1) / want;
   return {(B + per - 1) / per, per};
+}
+
+// the FMA dbias's cut (kDbSplitBlocks live blocks of its 64 x 64 tiles)
+DbiasCut dbias_fma_cut(int B, int H, int Tq, int Tk) {
+  return dbias_cut(B, H, Tq, Tk, kDbRows, kDbKeys, kDbSplitBlocks);
+}
+
+// the tensor-core dbias's cut at head width D
+template <int D>
+DbiasCut dbias_mma_cut(int B, int H, int Tq, int Tk) {
+  using L = DbiasMmaLayout<D, kCausalBuild>;
+  return dbias_cut(B, H, Tq, Tk, L::kRows, L::kKeys, kDbMmaSplitBlocks);
+}
+
+// with slices > 1, dbias = the slices' partials in `work`, summed in order
+cudaError_t reduce_dbias(const BwdArgs& a, const float* work, int slices, cudaStream_t s) {
+  const long long count = (long long)a.H * a.Tq * a.Tk;
+  dbias_reduce<<<(unsigned)((count + 1023) / 1024), 256, 0, s>>>(work, a.dbias, count, slices);
+  return cudaGetLastError();
 }
 
 // the FMA dbias: the grid is (key tiles, q tiles, slices x H); with
@@ -2408,7 +2466,7 @@ DbiasCut dbias_cut(int B, int H, int Tq, int Tk) {
 template <typename T>
 cudaError_t launch_dbias_tiled(const BwdArgs& a, float* work, cudaStream_t s) {
   constexpr int R = kDbRows;
-  const DbiasCut cut = dbias_cut(a.B, a.H, a.Tq, a.Tk);
+  const DbiasCut cut = dbias_fma_cut(a.B, a.H, a.Tq, a.Tk);
   const int slices = cut.slices;
   if (slices > 1 && work == nullptr) return cudaErrorInvalidValue;
   auto kernel = flash_dbias_scalar<T, R, kCausalBuild>;
@@ -2419,23 +2477,42 @@ cudaError_t launch_dbias_tiled(const BwdArgs& a, float* work, cudaStream_t s) {
   kernel<<<grid, 4 * R, bytes, s>>>(a, slices > 1 ? work : a.dbias, cut.per);
   err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return err;
-  const long long count = (long long)a.H * a.Tq * a.Tk;
-  dbias_reduce<<<(unsigned)((count + 1023) / 1024), 256, 0, s>>>(work, a.dbias, count, slices);
-  return cudaGetLastError();
+  return reduce_dbias(a, work, slices, s);
+}
+
+// the tensor-core dbias: the grid is (key tiles, q tiles, slices x H), as
+// the FMA dbias's
+template <int D>
+cudaError_t launch_dbias_mma(const BwdArgs& a, cudaStream_t s, float* work) {
+  using L = DbiasMmaLayout<D, kCausalBuild>;
+  const DbiasCut cut = dbias_mma_cut<D>(a.B, a.H, a.Tq, a.Tk);
+  if (cut.slices > 1 && work == nullptr) return cudaErrorInvalidValue;
+  auto kernel = a.bias.bf16 ? flash_dbias_bf16_mma<D, 2, kCausalBuild>
+                            : flash_dbias_bf16_mma<D, 4, kCausalBuild>;
+  const int bytes = dbias_mma_smem_bytes<D>(L::kRows, L::kKeys, a.bias);
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tk + L::kKeys - 1) / L::kKeys, (a.Tq + L::kRows - 1) / L::kRows,
+                  a.H * cut.slices);
+  kernel<<<grid, dbias_mma_threads<D, kCausalBuild>(), bytes, s>>>(
+      a, cut.slices > 1 ? work : a.dbias, cut.per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || cut.slices == 1) return err;
+  return reduce_dbias(a, work, cut.slices, s);
 }
 
 // dispatch on the head width of the tensor-core instances
-template <template <int> class L, typename A>
-cudaError_t by_width(int D, const A& a, cudaStream_t s) {
+template <template <int> class L, typename A, typename... X>
+cudaError_t by_width(int D, const A& a, cudaStream_t s, X... x) {
   switch (D) {
-    case 16: return L<16>::run(a, s);
-    case 32: return L<32>::run(a, s);
-    case 48: return L<48>::run(a, s);
-    case 64: return L<64>::run(a, s);
-    case 80: return L<80>::run(a, s);
-    case 96: return L<96>::run(a, s);
-    case 112: return L<112>::run(a, s);
-    case 128: return L<128>::run(a, s);
+    case 16: return L<16>::run(a, s, x...);
+    case 32: return L<32>::run(a, s, x...);
+    case 48: return L<48>::run(a, s, x...);
+    case 64: return L<64>::run(a, s, x...);
+    case 80: return L<80>::run(a, s, x...);
+    case 96: return L<96>::run(a, s, x...);
+    case 112: return L<112>::run(a, s, x...);
+    case 128: return L<128>::run(a, s, x...);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2454,7 +2531,17 @@ struct DkvMma {
 };
 template <int D>
 struct DbiasMma {
-  static cudaError_t run(const BwdArgs& a, cudaStream_t s) { return launch_dbias_mma<D>(a, s); }
+  static cudaError_t run(const BwdArgs& a, cudaStream_t s, float* work) {
+    return launch_dbias_mma<D>(a, s, work);
+  }
+};
+// the tensor-core dbias's cut at D (as `run`, for by_width; not a launch)
+template <int D>
+struct DbiasMmaSlices {
+  static cudaError_t run(const BwdArgs& a, cudaStream_t, int* slices) {
+    *slices = dbias_mma_cut<D>(a.B, a.H, a.Tq, a.Tk).slices;
+    return cudaSuccess;
+  }
 };
 
 bool bad_problem(int B, int H, int Tq, int Tk, int D) {
@@ -2646,21 +2733,31 @@ int flash_dkv(const void* q, const void* k, const void* v, const int* mask, cons
                        : launch_dkv_tiled<128>(a, dtype_bf16, s));
 }
 
-// Floats of the FMA dbias's workspace (kernel 8's fp32 instance): the
-// [slices, H, Tq, Tk] partials of its cut batch, 0 when it is not cut.
-long long flash_dbias_workspace_floats(int B, int H, int Tq, int Tk) {
-  const int slices = dbias_cut(B, H, Tq, Tk).slices;
+// Floats of the dbias workspace (kernel 8): the [slices, H, Tq, Tk]
+// partials of its cut batch, 0 when it is not cut; use_mma: the
+// tensor-core instance at head width D, else the FMA one.
+long long flash_dbias_workspace_floats(int B, int H, int Tq, int Tk, int D, int use_mma) {
+  int slices = 1;
+  if (!use_mma) {
+    slices = dbias_fma_cut(B, H, Tq, Tk).slices;
+  } else {
+    BwdArgs a;
+    a.B = B;
+    a.H = H;
+    a.Tq = Tq;
+    a.Tk = Tk;
+    if (by_width<DbiasMmaSlices>(D, a, nullptr, &slices) != cudaSuccess) slices = 1;
+  }
   return slices > 1 ? (long long)slices * H * Tq * Tk : 0;
 }
 
 // dbias of one backward call (kernel 8): dbias [H, Tq, Tk] fp32
 // contiguous, the batch sum of ds. bias is required (the scores are
 // recomputed with it); strides holds 14 element strides: (batch, head,
-// token) of q, k, v and do, then the bias's (head, row). The FMA instance
-// (use_mma 0) cuts the batch (dbias_cut) and sums the cut's partials in
-// slice order: work holds flash_dbias_workspace_floats(B, H, Tq, Tk)
-// floats (NULL when that is 0). The tensor-core instance takes no
-// workspace. The rest as for flash_dq.
+// token) of q, k, v and do, then the bias's (head, row). Either instance
+// may cut the batch and sum the cut's partials in slice order: work holds
+// flash_dbias_workspace_floats(B, H, Tq, Tk, D, use_mma) floats (NULL when
+// that is 0). The rest as for flash_dq.
 int flash_dbias(const void* q, const void* k, const void* v, const int* mask, const float* lse,
                 const float* delta, const void* dout, const void* bias, int bias_bf16,
                 float* dbias, float* work, int B, int H, int Tq, int Tk, int D, float scale,
@@ -2680,7 +2777,7 @@ int flash_dbias(const void* q, const void* k, const void* v, const int* mask, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_mma) {
     if (!dtype_bf16) return (int)cudaErrorInvalidValue;
-    return (int)by_width<DbiasMma>(D, a, s);
+    return (int)by_width<DbiasMma>(D, a, s, work);
   }
   set_tile_args(a);
   return (int)(dtype_bf16 ? launch_dbias_tiled<__nv_bfloat16>(a, work, s)

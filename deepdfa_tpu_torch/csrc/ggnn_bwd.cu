@@ -57,13 +57,37 @@
 // Every sum has one fixed order, so the gradients are the same bits on
 // every run.
 //
-// B4. The port's forward sums w * h_src per node before applying Wm_t
-// (ggnn_step.cu, point 2); the backward mirrors it. A first launch
-// forms q_t = da @ Wm_t^T once per node (N*d^2 per type instead of the
-// reference's E*d^2); a second gives each node one warp that walks its
-// run of the src-sorted live edges (a CSR row pointer over the live
-// prefix, built by prepare_edges) and sums w_{t,e} * q_t[dst_e] in
-// edge order, one column per lane, with no atomics.
+// B4. The transposed message, summed first: by linearity
+//   dh_msg_u = sum_t (sum_{e: src_e = u} w_{t,e} da_{dst_e}) @ Wm_t^T,
+// the fold of the forward (ggnn_step.cu, point 1) run over the src CSR.
+// Bound at the flagship (N 16384, d 128, T 1): 2 N d^2 T = 0.54 GFLOP
+// (0.008 ms at 67 TFLOP/s) against ~17 MB (0.005 ms): the operations
+// bind. The first design (PERF.md: 0.0508 ms, 16% of the bound) was two
+// launches bound by load latency: q_t = da @ Wm_t^T a column a lane with
+// Wm_t^T read from device memory (4 loads per 32 FMAs) into a [T, N, d]
+// buffer, then a warp per node walking its run through a chain of
+// dependent loads; the wrapper transposed Wm every call and step_bwd added
+// the result into dh in a pass of its own. Now one launch, a block of 64
+// nodes:
+//   1. the sums: the block's src-sorted live edges (one range, through
+//      the src CSR row pointer over the live prefix, built by
+//      prepare_edges) are cut into 8 equal pieces, a warp each, so a hub
+//      node's long run is summed by every warp of its block rather than
+//      by one. A warp loads its dst and weights 32 at a time and gathers
+//      the da rows 4 ahead of the FMAs (one column a lane); each node's
+//      chain runs in edge order into a [64][d + 4] shared plane. A node
+//      cut by a piece boundary leaves one partial a piece, which the
+//      warp of its first piece adds in piece order.
+//   2. the product with Wm_t^T, read in its stored [in, out] layout (no
+//      transposed copy): a thread owns kMsgTN nodes x 4 columns (the
+//      columns NX apart), per 4 k 4 + kMsgTN LDS.128 feeding 16 kMsgTN
+//      FMAs, over [panel][kMsgK] k panels of Wm_t staged swizzled through
+//      a two-stage cp.async ring (panels of 128 columns at kMsgTN 8);
+//      types ascend, each type's product added to the output (with
+//      `accumulate`, to the dh that B3 wrote, so step_bwd needs no add of
+//      its own).
+// The sums and the products have one fixed order: the same bits on
+// every run, no atomics.
 //
 // All sums are IEEE fp32 FMA: no tensor cores, no TF32.
 
@@ -96,11 +120,18 @@ constexpr int kWNodes = 32;
 constexpr int kWThreads = 128;
 constexpr int kWTargetBlocks = 512;  // blocks the node chunks aim for
 constexpr int kMaxSplits = 64;
-// B4: 8 warps per block, 8 nodes a warp
-constexpr int kNodesPerWarp = 8;
+// B4: a block of 64 nodes and 8 warps; a thread's product micro-tile is
+// kMsgTN nodes x 4 columns (8 x 4: 12 LDS.128 per 128 FMAs; 4 x 4 ran
+// 11% slower at the flagship, PERF.md), and a ring unit holds kMsgK k of
+// Wm_t
+constexpr int kMsgNodes = 64;
 constexpr int kMsgWarps = 8;
 constexpr int kMsgThreads = kMsgWarps * 32;
-constexpr int kMsgTileNodes = kMsgWarps * kNodesPerWarp;
+constexpr int kMsgTN = 8;
+constexpr int kMsgK = 32;
+// the columns of a product panel: 4 a thread, across the threads that
+// share a node group
+constexpr int kMsgPanel = 4 * kMsgThreads / (kMsgNodes / kMsgTN);
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -499,85 +530,227 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part, float* __re
   *reinterpret_cast<float4*>(out + i) = acc;
 }
 
-// B4 part 1: q_t = da @ Wm_t^T for every node and type
-template <int D>
-__global__ void __launch_bounds__(kMsgThreads)
-dmsg_transform_kernel(const float* __restrict__ da, const float* __restrict__ wm_t,
-                      float* __restrict__ q, int n, int n_etypes) {
-  constexpr int C = D / 32;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int row0 = warp * kNodesPerWarp;
-  const int v0 = blockIdx.x * kMsgTileNodes + row0;
-  float* das = smem + row0 * D;
-  for (int r = 0; r < kNodesPerWarp; ++r) {
-    const int v = v0 + r;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int j = c * 32 + lane;
-      das[r * D + j] = v < n ? da[(size_t)v * D + j] : 0.0f;
-    }
-  }
-  __syncwarp();
-  for (int t = 0; t < n_etypes; ++t) {
-    const float* wt = wm_t + (size_t)t * D * D;  // wt[k][j] = Wm_t[j][k]
-#pragma unroll 1
-    for (int c = 0; c < C; ++c) {
-      const int j = c * 32 + lane;
-      float acc[kNodesPerWarp];
-#pragma unroll
-      for (int r = 0; r < kNodesPerWarp; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < D; k += 4) {
-        float wq[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) wq[u] = __ldg(wt + (size_t)(k + u) * D + j);
-#pragma unroll
-        for (int r = 0; r < kNodesPerWarp; ++r) {
-          const float4 s = *reinterpret_cast<const float4*>(das + r * D + k);
-          acc[r] = fmaf(s.x, wq[0], acc[r]);
-          acc[r] = fmaf(s.y, wq[1], acc[r]);
-          acc[r] = fmaf(s.z, wq[2], acc[r]);
-          acc[r] = fmaf(s.w, wq[3], acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kNodesPerWarp; ++r) {
-        const int v = v0 + r;
-        if (v < n) q[((size_t)t * n + v) * D + j] = acc[r];
-      }
-    }
-  }
+// B4: a row of the sums plane, padded so the rows a warp reads at one k
+// fall in distinct bank groups
+__host__ __device__ constexpr int msg_row(int d) { return d + 4; }
+
+// B4's k rows a ring unit: kMsgK, or all of d where d is smaller
+__host__ __device__ constexpr int msg_k(int d) { return kMsgK < d ? kMsgK : d; }
+
+// B4's shared memory, in floats: the sums [64][d + 4], the ring [2][panel
+// columns][k], the cut nodes' pieces [head, tail][8 warps][d], and ints:
+// the block's row pointer [65] and the pieces' nodes [head, tail][8]
+__host__ __device__ constexpr int dmsg_smem_floats(int d) {
+  return kMsgNodes * msg_row(d) + 2 * kMsgPanel * msg_k(d) + 2 * kMsgWarps * d + kMsgNodes +
+         1 + 2 * kMsgWarps;
 }
 
-// B4 part 2: each node sums w * q_t[dst] over its src-sorted live run
+// B4: ring unit u of Wm_t, as stored ([in][out]): the in rows p PW .. +
+// PW - 1 (zeros past D) of column panel p = u / (D / KU) and the out
+// columns (u % (D / KU)) KU .. + KU - 1; 16-byte chunk c of row r sits at
+// c ^ (r & 7), so the rows that a quarter warp reads hit 8 bank groups
+template <int D, int PW, int KU>
+__device__ __forceinline__ void stage_msg_unit(const float* __restrict__ wmt, int u, float* dst) {
+  constexpr int CH = KU / 4;
+  const int i0 = u / (D / KU) * PW, k0 = u % (D / KU) * KU;
+  for (int idx = threadIdx.x; idx < PW * CH; idx += kMsgThreads) {
+    const int r = idx / CH, c = idx % CH;
+    const int row = i0 + r;
+    cp_async16(dst + r * KU + 4 * (c ^ (r & 7)),
+               row < D ? wmt + (size_t)row * D + k0 + 4 * c : wmt, row < D ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// B4's sums of one type over this warp's piece [a0, a1) of the block's
+// src-sorted edges (sp: the block's row pointer). Each node's chain runs
+// in edge order; a node whose run the piece holds whole goes to its row
+// of ss, one the piece cuts to a piece slot: the head slot for a run that
+// began before a0, the tail slot for one that goes on past a1, with its
+// node in pnode[head or tail][warp]. Warp 0 starts at node 0 and every
+// warp closes the runs that end by a1, so empty runs get their zero rows.
 template <int D>
-__global__ void __launch_bounds__(kMsgThreads)
-dmsg_gather_kernel(const float* __restrict__ q, const int* __restrict__ dstp,
-                   const float* __restrict__ wp, const int* __restrict__ srcptr,
-                   float* __restrict__ dh_msg, int n, int e, int n_etypes) {
+__device__ __forceinline__ void dmsg_sums(const float* __restrict__ da,
+                                          const int* __restrict__ dstp,
+                                          const float* __restrict__ wt, const int* sp, int a0,
+                                          int a1, float* ss, float* piece, int* pnode) {
   constexpr int C = D / 32;
+  constexpr int RS = msg_row(D);
   const int lane = threadIdx.x & 31;
-  const int u = blockIdx.x * kMsgWarps + (threadIdx.x >> 5);
-  if (u >= n) return;
+  const int warp = threadIdx.x >> 5;
+  // the first node: the one whose run holds edge a0 (sp[r] <= a0 < sp[r + 1])
+  int r = 0;
+  if (warp > 0)
+    r = __popc(__ballot_sync(0xffffffffu, sp[lane] <= a0)) +
+        __popc(__ballot_sync(0xffffffffu, sp[32 + lane] <= a0)) - 1;
+  const int r_head = warp > 0 && sp[r] < a0 ? r : -1;  // its run began before a0
+  int run_end = sp[r + 1];
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  const int k1 = srcptr[u + 1];
-  for (int k = srcptr[u]; k < k1; ++k) {
-    const int v = dstp[k];
-    for (int t = 0; t < n_etypes; ++t) {
-      const float w = wp[(size_t)t * e + k];
-      if (w != 0.0f) {
-        const float* row = q + ((size_t)t * n + v) * D + lane;
+  auto put = [&](float* dst) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] = fmaf(w, __ldg(row + c * 32), acc[c]);
+    for (int c = 0; c < C; ++c) {
+      dst[c * 32 + lane] = acc[c];
+      acc[c] = 0.0f;
+    }
+  };
+  // node r's run is over
+  auto close = [&]() {
+    if (r == r_head) {
+      put(piece + warp * D);
+      if (lane == 0) pnode[warp] = r;
+    } else {
+      put(ss + r * RS);
+    }
+    if (++r < kMsgNodes) run_end = sp[r + 1];
+  };
+  for (int base = a0; base < a1; base += 32) {
+    const int cnt = min(32, a1 - base);
+    int u_l = 0;
+    float w_l = 0.0f;
+    if (lane < cnt) {
+      w_l = __ldg(wt + base + lane);
+      u_l = __ldg(dstp + base + lane);
+    }
+    for (int j0 = 0; j0 < cnt; j0 += 4) {
+      float x[4][C];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int u = __shfl_sync(0xffffffffu, u_l, j0 + q);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          x[q][c] = j0 + q < cnt ? __ldg(da + (size_t)u * D + c * 32 + lane) : 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float w = __shfl_sync(0xffffffffu, w_l, j0 + q);
+        if (j0 + q < cnt) {
+          while (base + j0 + q >= run_end) close();
+          if (w != 0.0f) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[c] = fmaf(w, x[q][c], acc[c]);
+          }
+        }
       }
     }
   }
+  while (r < kMsgNodes && run_end <= a1) close();
+  // node r goes on past a1; its piece here, if its run began before a1
+  if (r < kMsgNodes && sp[r] < a1) {
+    const int slot = r == r_head ? warp : kMsgWarps + warp;
+    put(piece + slot * D);
+    if (lane == 0) pnode[slot] = r;
+  }
+}
+
+// B4: dh_msg for 64 nodes (out: dh_msg, or with `accumulate` the dh it is
+// added to), per type the sums (dmsg_sums, then the cut nodes' pieces in
+// order) and their product with Wm_t^T
+template <int D>
+__global__ void __launch_bounds__(kMsgThreads, 2)
+dmsg_kernel(const float* __restrict__ da, const float* __restrict__ wm,
+            const int* __restrict__ dstp, const float* __restrict__ wp,
+            const int* __restrict__ srcptr, float* __restrict__ out, int n, int e,
+            int n_etypes, int accumulate) {
+  constexpr int C = D / 32;
+  constexpr int RS = msg_row(D);
+  constexpr int TN = kMsgTN;
+  constexpr int NY = kMsgNodes / TN;   // threads along the nodes
+  constexpr int NX = kMsgThreads / NY;  // threads along the columns
+  constexpr int PW = kMsgPanel;        // 4 NX columns a panel
+  constexpr int KU = msg_k(D);
+  constexpr int NKU = D / KU;           // ring units a panel
+  constexpr int U = (D + PW - 1) / PW * NKU;  // ring units a type
+  extern __shared__ float4 smem4[];
+  float* ss = reinterpret_cast<float*>(smem4);
+  float* ring = ss + kMsgNodes * RS;
+  float* piece = ring + 2 * PW * KU;
+  int* sp = reinterpret_cast<int*>(piece + 2 * kMsgWarps * D);
+  int* pnode = sp + kMsgNodes + 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int vb = blockIdx.x * kMsgNodes;
+  const int tx = tid % NX, ty = tid / NX;
+  const int sw = tx & 7;
+
+  if (tid <= kMsgNodes) sp[tid] = __ldg(srcptr + min(vb + tid, n));
+  __syncthreads();
+  const int e0 = sp[0], len = sp[kMsgNodes] - e0;
+  const int a0 = e0 + (int)((long long)len * warp / kMsgWarps);
+  const int a1 = e0 + (int)((long long)len * (warp + 1) / kMsgWarps);
+  for (int t = 0; t < n_etypes; ++t) {
+    const float* wmt = wm + (size_t)t * D * D;
+    stage_msg_unit<D, PW, KU>(wmt, 0, ring);
+    if (lane == 0) pnode[warp] = pnode[kMsgWarps + warp] = -1;
+    if (warp == 0 || a0 < a1)
+      dmsg_sums<D>(da, dstp, wp + (size_t)t * e, sp, a0, a1, ss, piece, pnode);
+    __syncthreads();  // every piece is in
+    const int rt = pnode[kMsgWarps + warp];  // the node this warp's tail piece began
+    if (rt >= 0) {
+      float x[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) dh_msg[(size_t)u * D + c * 32 + lane] = acc[c];
+      for (int c = 0; c < C; ++c) x[c] = piece[(kMsgWarps + warp) * D + c * 32 + lane];
+      for (int w = warp + 1; w < kMsgWarps; ++w) {
+        if (pnode[w] != rt) continue;
+#pragma unroll
+        for (int c = 0; c < C; ++c) x[c] += piece[w * D + c * 32 + lane];
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) ss[rt * RS + c * 32 + lane] = x[c];
+    }
+
+    // the product, nodes TN ty .. + TN - 1 x columns p PW + tx + NX j
+    float acc[TN][4];
+#pragma unroll 1
+    for (int u = 0; u < U; ++u) {
+      cp_async_wait_all();
+      __syncthreads();  // unit u is in, the sums too; unit u - 1 is done with
+      if (u + 1 < U) stage_msg_unit<D, PW, KU>(wmt, u + 1, ring + ((u + 1) & 1) * PW * KU);
+      const int kp = u % NKU;
+      if (kp == 0) {
+#pragma unroll
+        for (int i = 0; i < TN; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      }
+      const float* xs = ss + TN * ty * RS + kp * KU;
+      const float* ws = ring + (u & 1) * PW * KU + tx * KU;
+#pragma unroll 2
+      for (int c = 0; c < KU / 4; ++c) {
+        float4 y[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          y[j] = *reinterpret_cast<const float4*>(ws + NX * j * KU + 4 * (c ^ sw));
+#pragma unroll
+        for (int i = 0; i < TN; ++i) {
+          const float4 x = *reinterpret_cast<const float4*>(xs + i * RS + 4 * c);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = fmaf(x.x, y[j].x, acc[i][j]);
+            acc[i][j] = fmaf(x.y, y[j].y, acc[i][j]);
+            acc[i][j] = fmaf(x.z, y[j].z, acc[i][j]);
+            acc[i][j] = fmaf(x.w, y[j].w, acc[i][j]);
+          }
+        }
+      }
+      if (kp != NKU - 1) continue;
+      const int col0 = u / NKU * PW + tx;
+#pragma unroll
+      for (int i = 0; i < TN; ++i) {
+        const int v = vb + TN * ty + i;
+        if (v >= n) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = col0 + NX * j;
+          if (col >= D) continue;
+          float* dst = out + (size_t)v * D + col;
+          *dst = t == 0 && !accumulate ? acc[i][j] : *dst + acc[i][j];
+        }
+      }
+    }
+    __syncthreads();  // every unit is done with ss, the pieces and the ring
+  }
 }
 
 template <int D>
@@ -619,20 +792,15 @@ cudaError_t launch_gru_bwd(const float* h, const float* a, const float* g, const
 }
 
 template <int D>
-cudaError_t launch_dmsg(const float* da, const float* wm_t, const int* dstp, const float* wp,
-                        const int* srcptr, float* dh_msg, float* q, int n, int e, int n_etypes,
-                        cudaStream_t stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  const int smem = kMsgTileNodes * D * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dmsg_transform_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+cudaError_t launch_dmsg(const float* da, const float* wm, const int* dstp, const float* wp,
+                        const int* srcptr, float* out, int accumulate, int n, int e,
+                        int n_etypes, cudaStream_t stream) {
+  if (n <= 0 || e <= 0 || n_etypes <= 0) return cudaErrorInvalidValue;
+  constexpr int smem = dmsg_smem_floats(D) * (int)sizeof(float);
+  const cudaError_t err = allow_smem(dmsg_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  dmsg_transform_kernel<D><<<(n + kMsgTileNodes - 1) / kMsgTileNodes, kMsgThreads, smem, stream>>>(
-      da, wm_t, q, n, n_etypes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dmsg_gather_kernel<D><<<(n + kMsgWarps - 1) / kMsgWarps, kMsgThreads, 0, stream>>>(
-      q, dstp, wp, srcptr, dh_msg, n, e, n_etypes);
+  dmsg_kernel<D><<<(n + kMsgNodes - 1) / kMsgNodes, kMsgThreads, smem, stream>>>(
+      da, wm, dstp, wp, srcptr, out, n, e, n_etypes, accumulate);
   return cudaGetLastError();
 }
 
@@ -675,17 +843,18 @@ int ggnn_gru_bwd_f32(const float* h, const float* a, const float* g, const float
 #undef GRU_CASE
 }
 
-// B4. Device pointers; shapes: da, dh_msg [n, d]; wm_t [n_etypes, d, d]
-// with wm_t[t][k][j] = Wm_t[j][k]; dstp [e] and wp [n_etypes, e] in
+// B4. Device pointers; shapes: da, out [n, d]; wm [n_etypes, d, d] as
+// stored ([in, out], 16-byte aligned); dstp [e] and wp [n_etypes, e] in
 // src-sorted edge order; srcptr [n + 1] over the live prefix of that
-// order; q holds n_etypes * n * d floats. Returns a cudaError_t.
-int ggnn_dmsg_f32(const float* da, const float* wm_t, const int* dstp, const float* wp,
-                  const int* srcptr, float* dh_msg, float* q, int n, int e, int d,
+// order. out receives dh_msg, or with accumulate != 0 out + dh_msg (in
+// place). Returns a cudaError_t.
+int ggnn_dmsg_f32(const float* da, const float* wm, const int* dstp, const float* wp,
+                  const int* srcptr, float* out, int accumulate, int n, int e, int d,
                   int n_etypes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DMSG_CASE(DD) \
   case DD:            \
-    return (int)launch_dmsg<DD>(da, wm_t, dstp, wp, srcptr, dh_msg, q, n, e, n_etypes, s);
+    return (int)launch_dmsg<DD>(da, wm, dstp, wp, srcptr, out, accumulate, n, e, n_etypes, s);
   switch (d) {
     DMSG_CASE(32)
     DMSG_CASE(64)

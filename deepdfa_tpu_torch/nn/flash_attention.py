@@ -289,7 +289,7 @@ def _library(causal: bool = False) -> ctypes.CDLL:
             lib.flash_fwd_tile_rows.restype = i
             lib.flash_causal.argtypes = []
             lib.flash_causal.restype = i
-            lib.flash_dbias_workspace_floats.argtypes = [i] * 4
+            lib.flash_dbias_workspace_floats.argtypes = [i] * 6
             lib.flash_dbias_workspace_floats.restype = ctypes.c_longlong
             if lib.flash_fwd_max_head_dim() != MAX_HEAD_DIM:
                 raise RuntimeError(
@@ -550,13 +550,13 @@ def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
 def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None = None,
                 dropout_rate: float = 0.0, seed: int | None = None, causal: bool = False):
     """Kernel 8 on CUDA tensors: dbias [H, Tq, Tk] fp32, the batch sum of
-    ds = p (dp - delta) (contiguous). The tensor-core instance gives each
-    block (h, 64-row q tile, 64-key tile) the whole batch; the FMA
-    instance cuts the batch into runs, a block each (the library picks the
-    cut and says how much workspace its [slices, H, Tq, Tk] partials
-    take), and a second launch sums the partials in slice order. Each block
-    loops over its rows of the batch in order, so the sum takes the same
-    bits on every run, with no atomics. Arguments as for `flash_dq`; the
+    ds = p (dp - delta) (contiguous). A block owns a (head, q tile, key
+    tile) and a run of the batch's rows; where a head has few tiles, both
+    instances cut the batch into runs (the library picks the cut and says
+    how much workspace its [slices, H, Tq, Tk] partials take), and a
+    second launch sums the partials in slice order. Each block loops over
+    its rows of the batch in order, so the sum takes the same bits on every
+    run, with no atomics. Arguments as for `flash_dq`; the
     bias is required (the scores are recomputed with it). With `causal`,
     the tiles wholly above the diagonal are written as zeros."""
     global DBIAS_LAUNCHES
@@ -572,7 +572,7 @@ def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None =
     lib = _library(causal)
     dbias = torch.empty((H, Tq, Tk), dtype=torch.float32, device=q.device)
     mma = _tensor_core(q)
-    floats = 0 if mma else lib.flash_dbias_workspace_floats(B, H, Tq, Tk)
+    floats = lib.flash_dbias_workspace_floats(B, H, Tq, Tk, D, int(mma))
     work = torch.empty(floats, dtype=torch.float32, device=q.device) if floats else None
     strides = _strides(q, k, v, do) + bias_strides
     with torch.cuda.device(q.device):

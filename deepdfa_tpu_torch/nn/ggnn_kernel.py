@@ -52,8 +52,9 @@ scatter (`FUSED_LAUNCHES`, `FUSED_MXU_LAUNCHES`; of them
 `resolve_unroll` refused.
 
 The fold forward aggregates sum(coef * row) and sum(w) per node first
-and applies the policy's Wm_t, bm_t once per node; B4 applies Wm_t^T
-once per node before the edge sums. Both are reassociations of the
+and applies the policy's Wm_t, bm_t once per node; B4 likewise sums
+w * da_dst over each node's src run and applies Wm_t^T once per node,
+adding into the dh that B3 wrote. Both are reassociations of the
 reference's per-edge transform, covered by the fp32 tolerances of the
 tests. The mxu forward computes every edge's message, as the reference
 does; under int8 on the card's integer tensor cores, exactly (the
@@ -559,16 +560,18 @@ def gru_bwd_plain(h, a, wih, whh, bih, bhh, g):
     return da, dh, a.T @ dgx, h.T @ dgh, dgx.sum(0), dgh.sum(0)
 
 
-def dmsg_plain(da, edges: EdgeIndex, wm):
+def dmsg_plain(da, edges: EdgeIndex, wm, dh=None):
     """B4's function in plain PyTorch: dh_msg [N, d], the reference's
-    `segment_sum(_dmsg_call(...), src_sorted)` with Wm_t^T applied once
-    per node (q_t = da @ Wm_t^T) before the edge sums."""
+    `segment_sum(_dmsg_call(...), src_sorted)` in the kernel's order: per
+    type the src runs' sums s_t = sum_e w_te da_dst (edge order), then
+    s_t @ Wm_t^T, the types added in order. With `dh`, dh + dh_msg, added
+    into dh in place."""
     srcp = edges.srcp.long()
     dstp = edges.dstp.long()
-    out = torch.zeros_like(da)
+    out = torch.zeros_like(da) if dh is None else dh
     for t in range(wm.shape[0]):
-        q = da @ wm[t].T
-        out.index_add_(0, srcp, q[dstp] * edges.wp[t].to(da.dtype)[:, None])
+        s = torch.zeros_like(da).index_add_(0, srcp, da[dstp] * edges.wp[t].to(da.dtype)[:, None])
+        out.add_(s @ wm[t].T)
     return out
 
 
@@ -622,7 +625,7 @@ def _library(name: str) -> ctypes.CDLL:
             lib.ggnn_gru_bwd_workspace_floats.restype = ll
             lib.ggnn_gru_bwd_splits.argtypes = [i, i]
             lib.ggnn_gru_bwd_splits.restype = i
-            lib.ggnn_dmsg_f32.argtypes = [p] * 7 + [i] * 4 + [p]
+            lib.ggnn_dmsg_f32.argtypes = [p] * 6 + [i] * 5 + [p]
             lib.ggnn_dmsg_f32.restype = i
             lib.ggnn_bwd_error_string.argtypes = [i]
             lib.ggnn_bwd_error_string.restype = ctypes.c_char_p
@@ -853,17 +856,20 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g):
             grads[2 * w:2 * w + 3 * d], grads[2 * w + 3 * d:])
 
 
-def dmsg(da, edges: EdgeIndex, wm):
-    """B4: dh_msg [N, d], the transposed message summed by src.
+def dmsg(da, edges: EdgeIndex, wm, dh=None):
+    """B4: dh_msg [N, d], the transposed message summed by src; with `dh`
+    ([N, d] f32, contiguous), dh + dh_msg, added into dh in place.
 
-    CPU tensors run `dmsg_plain`; CUDA tensors launch the kernel (the
-    per-node transform, then the src-CSR run sums) on the current
-    stream or raise. `edges` needs the src-sorted layout."""
+    CPU tensors run `dmsg_plain`; CUDA tensors launch the kernel (one
+    launch: per 64-node block the src runs' sums, then their product with
+    each Wm_t^T) on the current stream or raise. `edges` needs the
+    src-sorted layout. The kernel stages Wm 16 bytes at a time, so wm
+    must start 16-byte aligned."""
     global DMSG_LAUNCHES
     if edges.srcptr is None:
         raise ValueError("dmsg needs prepare_edges(..., transpose=True)")
     if not _on_cuda("dmsg", da.device):
-        return dmsg_plain(da, edges, wm)
+        return dmsg_plain(da, edges, wm, dh)
     n, d = da.shape
     t = wm.shape[0]
     e = edges.dstp.shape[0]
@@ -872,17 +878,18 @@ def dmsg(da, edges: EdgeIndex, wm):
         "da": (da, f32, (n, d)), "wm": (wm, f32, (t, d, d)),
         "dstp": (edges.dstp, i32, (e,)), "wp": (edges.wp, f32, (t, e)),
         "srcptr": (edges.srcptr, i32, (n + 1,)),
+        **({} if dh is None else {"dh": (dh, f32, (n, d))}),
     })
     _check_shape("dmsg", n, e, d, t)
+    if wm.data_ptr() % 16:
+        raise ValueError("dmsg: wm must start 16-byte aligned")
     lib = _library("ggnn_bwd")
-    wm_t = wm.transpose(1, 2).contiguous()
-    out = torch.empty_like(da)
-    q = torch.empty((t, n, d), dtype=f32, device=da.device)
+    out = torch.empty_like(da) if dh is None else dh
     with torch.cuda.device(da.device):
         rc = lib.ggnn_dmsg_f32(
-            da.data_ptr(), wm_t.data_ptr(), edges.dstp.data_ptr(),
-            edges.wp.data_ptr(), edges.srcptr.data_ptr(), out.data_ptr(),
-            q.data_ptr(), n, e, d, t, _stream(da.device),
+            da.data_ptr(), wm.data_ptr(), edges.dstp.data_ptr(), edges.wp.data_ptr(),
+            edges.srcptr.data_ptr(), out.data_ptr(), int(dh is not None), n, e, d, t,
+            _stream(da.device),
         )
     _raise_on(rc, "dmsg", lib, "ggnn_bwd_error_string")
     with _launch_lock:
@@ -891,10 +898,11 @@ def dmsg(da, edges: EdgeIndex, wm):
 
 
 def step_bwd(h, a, g, edges: EdgeIndex, wm, wih, whh, bih, bhh):
-    """One step's backward from its saved (h, a): B3, then B4, then the
-    message weights' cotangents; (dh, dwm, dbm, dwih, dwhh, dbih, dbhh)."""
+    """One step's backward from its saved (h, a): B3, then B4 adding into
+    B3's dh, then the message weights' cotangents; (dh, dwm, dbm, dwih,
+    dwhh, dbih, dbhh)."""
     da, dh, dwih, dwhh, dbih, dbhh = gru_bwd(h, a, wih, whh, bih, bhh, g.contiguous())
-    dh = dh + dmsg(da, edges, wm)
+    dh = dmsg(da, edges, wm, dh)
     dwm, dbm = msg_weight_grads(h, da, edges)
     return dh, dwm, dbm, dwih, dwhh, dbih, dbhh
 

@@ -5,6 +5,8 @@ one CUDA card, from copies of their source that differ in a line or two.
     python3 kernel_trial.py fwd [--layouts LABEL ...] [--source LABEL=PATH ...] [--out FILE]
     python3 kernel_trial.py bwd [--layouts LABEL ...] [--source LABEL=PATH ...] [--out FILE]
     python3 kernel_trial.py dbias [--layouts LABEL ...] [--out FILE]
+    python3 kernel_trial.py dbias_mma [--layouts LABEL ...] [--out FILE]
+    python3 kernel_trial.py dmsg [--layouts LABEL ...] [--tree LABEL=PATH ...] [--out FILE]
     python3 kernel_trial.py gru [--layouts LABEL ...] [--tree LABEL=PATH ...] [--out FILE]
     python3 kernel_trial.py step [--layouts LABEL ...] [--tree LABEL=PATH ...] [--out FILE]
 
@@ -45,6 +47,36 @@ it), the calls it times and the launches that weight them:
   T 256), train_clone's encoder (B 32, T 256) and decoder (B 32, T 256,
   causal). Beside each time, dbias's largest difference from the plain
   one over its largest magnitude, repeat bits and the batch cut.
+- dbias_mma: kernel 8's tensor-core instance, the bf16 dbias
+  (`flash_dbias_bf16_mma`, `DbiasMmaLayout`; the source keeps 64 x 64
+  blocks of 8 warps of 16 rows x 32 keys and cuts the batch for about
+  528 live blocks). split264, no_split: the cut aimed at 264 blocks, or
+  none (`kDbMmaSplitBlocks`); rows128, keys128: 128-row or 128-key blocks
+  of 16 warps at D <= 64; wk64 (and _sub64): warps of 64 keys (scored 32
+  or 64 at a time, `kSub`); rows128_wk64_split264: 128 x 64 blocks of 8
+  such warps, the cut at 264; rows128_keys128_wk64: 128 x 128 blocks of
+  16 such warps.
+  Called through `flash_dbias` at the T5 training path's three buckets
+  (H 12, D 64, a bf16 bias, scale 1.0, every key live, token budget
+  8192: B 64 at T 128, 32 at 256, 16 at 512), and at T 512 at dropout
+  0.1 and causal (timed, not weighted: no main path runs them). Beside
+  each time, dbias's largest difference from the plain one over its
+  largest magnitude, repeat bits and the batch cut.
+- dmsg: B4, the GGNN transposed message (`ggnn_dmsg_f32`). tn4: a
+  thread's product micro-tile 4 nodes x 4 columns (64-column panels) in
+  place of 8 x 4 (`kMsgTN`); k64: 64 k a ring unit in place of 32
+  (`kMsgK`); tn4_k64: both; uncapped: no register cap of two blocks an
+  SM. Called through `dmsg` at the flagship batch (N 16384, E 65536, d
+  128, T 1; seeded normal da at 1e-2, Wm at d^-1/2) and at a hub batch
+  (the same sizes, a quarter of the edges leaving one node; timed, not
+  weighted): `ms` is step_bwd's call, B4 added into B3's dh (for a
+  --tree whose `dmsg` takes no dh, B4 alone plus the separate add that
+  step_bwd made), `fresh_ms` B4 alone. Beside each time, the largest
+  difference from `dmsg_plain` over its largest magnitude, whether it is
+  within the card gate (rtol 1e-4, atol 1e-5) and repeat bits; the
+  flagship call's device time split by launch. `--tree parent=<an
+  earlier checkout>` times that tree's B4 (an earlier design's own
+  wrapper and kernels) in the same call.
 - gru: B3, the GGNN GRU backward (`ggnn_gru_bwd_f32`). w256, w1024: the
   weight pass's node chunks aimed at 256 or 1024 blocks
   (`kWTargetBlocks`) in place of 512; gates_uncapped, inputs_uncapped:
@@ -82,7 +114,7 @@ the headers beside the source); --layouts picks some (by default all,
 `as_is` being the source unedited). --source adds another flash source,
 unedited, with this tree's C interface (fwd, bwd); --tree adds another
 checkout whose own package, wrapper and source, is timed as it is (gru,
-step: an earlier tree whose kernels take other arguments). Each build is
+step, dmsg: an earlier tree whose kernels take other arguments). Each build is
 compiled by the package's `cuda_build.build`, every build in a process
 of its own, all started together. Each is then loaded in a process of
 its own; the processes run one at a time, forward then backward through
@@ -130,6 +162,17 @@ _DB_ROWS = "constexpr int kDbRows = 64;"
 _GATES = "__global__ void __launch_bounds__(kGateThreads, 2)\ngru_bwd_gates_kernel"
 _INPUTS = "__global__ void __launch_bounds__(kInThreads, 2)\ngru_bwd_inputs_kernel"
 _W_TARGET = "constexpr int kWTargetBlocks = 512;"
+_DBM_ROWS = "  static constexpr int kRows = 64;"
+_DBM_ROWS128 = (_DBM_ROWS, "  static constexpr int kRows = D <= 64 ? 128 : 64;")
+_DBM_KEYS = "  static constexpr int kKeys = 64;"
+_DBM_SUB = "  static constexpr int kSub = 32;"
+_DBM_WK = "  static constexpr int kWarpKeys = 32;"
+_DBM_WK64 = (_DBM_WK, _DBM_WK.replace("32", "64"))
+_DBM_KEYS128 = (_DBM_KEYS, "  static constexpr int kKeys = D <= 64 ? 128 : 64;")
+_DBM_SPLIT = "constexpr int kDbMmaSplitBlocks = 528;"
+_MSG_TN = "constexpr int kMsgTN = 8;"
+_MSG_K = "constexpr int kMsgK = 32;"
+_MSG_BOUNDS = "__global__ void __launch_bounds__(kMsgThreads, 2)\ndmsg_kernel"
 _COLS = "constexpr int kGruCols = 2;"
 _GRU_K = "constexpr int kGruK = 2;"
 _RING = "constexpr int kRing = 2;"
@@ -144,7 +187,10 @@ _MIN_BLOCKS = ("constexpr int min_blocks(int d) { return 2 * (smem_bytes(d) + 10
 #: serving) plain, ct (combined training) dropout 0.1, 5s and 5t (T5
 #: serving and training) bias; bwd: ct at dropout 0.1, 5t with the bias;
 #: dbias: train_gen 20 steps x 12 at each of its calls, train_clone 8 x 12;
-#: step: each instance's launches on the main paths (PERF.md, kernel table)
+#: dbias_mma: train_t5's 12 a step at each bucket (6 steps at T 128 and at
+#: T 256, 11 at T 512, warm-up included); dmsg: B4's launches on the main
+#: paths; step: each instance's launches on the main paths (PERF.md,
+#: kernel table)
 TRIALS = {
     "fwd": {
         "source": "flash_attention.cu", "libs": FLASH_LIBS,
@@ -193,6 +239,38 @@ TRIALS = {
                     "clone_decoder": 96},
         "weighted": ("ms",),
     },
+    "dbias_mma": {
+        "source": "flash_attention.cu", "libs": FLASH_LIBS,
+        "ptxas": ("flash_dbias_bf16_mma<64",),
+        "layouts": {
+            "as_is": (),
+            "split264": ((_DBM_SPLIT, _DBM_SPLIT.replace("528", "264")),),
+            "no_split": ((_DBM_SPLIT, _DBM_SPLIT.replace("528", "0")),),
+            "rows128": (_DBM_ROWS128,),
+            "keys128": (_DBM_KEYS128,),
+            "wk64": (_DBM_WK64,),
+            "wk64_sub64": (_DBM_WK64, (_DBM_SUB, _DBM_SUB.replace("32", "64"))),
+            "rows128_wk64_split264": (_DBM_ROWS128, _DBM_WK64,
+                                      (_DBM_SPLIT, _DBM_SPLIT.replace("528", "264"))),
+            "rows128_keys128_wk64": (_DBM_ROWS128, _DBM_KEYS128, _DBM_WK64),
+        },
+        "weights": {"t128": 72, "t256": 72, "t512": 132},
+        "weighted": ("ms",),
+    },
+    "dmsg": {
+        "source": "ggnn_bwd.cu", "libs": ("ggnn_bwd",),
+        "ptxas": ("dmsg",),
+        "layouts": {
+            "as_is": (),
+            "tn4": ((_MSG_TN, _MSG_TN.replace("8;", "4;")),),
+            "k64": ((_MSG_K, _MSG_K.replace("32;", "64;")),),
+            "tn4_k64": ((_MSG_TN, _MSG_TN.replace("8;", "4;")),
+                        (_MSG_K, _MSG_K.replace("32;", "64;"))),
+            "uncapped": ((_MSG_BOUNDS, _MSG_BOUNDS.replace(", 2)", ")")),),
+        },
+        "weights": {"flagship": 650},
+        "weighted": ("ms",),
+    },
     "gru": {
         "source": "ggnn_bwd.cu", "libs": ("ggnn_bwd",),
         "ptxas": ("gru_bwd", "reduce"),
@@ -229,6 +307,13 @@ TRIALS = {
 #: the fp32 dbias calls of the dbias mode: (B, T, causal)
 DBIAS_CALLS = {"gen_decoder": (16, 128, True), "gen_encoder": (16, 256, False),
                "clone_encoder": (32, 256, False), "clone_decoder": (32, 256, True)}
+#: the bf16 dbias calls of the dbias_mma mode: (B, T, dropout rate, causal)
+DBIAS_MMA_CALLS = {"t128": (64, 128, 0.0, False), "t256": (32, 256, 0.0, False),
+                   "t512": (16, 512, 0.0, False), "t512_dropout": (16, 512, 0.1, False),
+                   "t512_causal": (16, 512, 0.0, True)}
+#: the dmsg mode's batches (N, E, d) and the hub batch's share of edges
+#: leaving one node
+MSG_N, MSG_E, MSG_D, MSG_HUB = 16384, 65536, 128, 0.25
 GRU_N, GRU_D = 16384, 128
 #: the step mode's batch and edge block; its timed kernel-1 instances
 #: (scatter, policy) and kernel-2 ones, 5 steps
@@ -387,6 +472,90 @@ def time_dbias(torch, cs) -> dict:
     return out
 
 
+def time_dbias_mma(torch, cs) -> dict:
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    H, D = 12, 64
+    gen = torch.Generator().manual_seed(15)
+    out = {}
+    with torch.inference_mode():
+        for name, (B, T, rate, causal) in DBIAS_MMA_CALLS.items():
+            q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(torch.bfloat16).cuda()
+                           for _ in range(4))
+            bias = (torch.randn(H, T, T, generator=gen) * 2.0).to(torch.bfloat16).cuda()
+            mask = torch.ones(B, T, dtype=torch.bool, device="cuda")
+            kw = {"scale": 1.0, "causal": causal, "dropout_rate": rate, "seed": SEED}
+            o, lse = fa.flash_fwd(q, k, v, mask, bias=bias, **kw)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            got, again = (fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, **kw)
+                          for _ in range(2))
+            bits = fa.dropout_bits(SEED, B, H, T, T, q.device) if rate else None
+            want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, rate, bits, bias,
+                                          causal)[3]
+            del bits
+            out[name] = {
+                "ms": cs.median_ms(torch, lambda: fa.flash_dbias(q, k, v, mask, lse, delta, do,
+                                                                 bias, **kw)),
+                "err_of_scale": ((got - want).abs().max() / want.abs().max()).item(),
+                "repeat_equal": torch.equal(got, again),
+                "cut": cs.dbias_cut(fa, B, H, T, T, causal, D, mma=True)}
+            del q, k, v, do, bias, o, lse, delta, got, again, want
+    return out
+
+
+def msg_batches(torch, gk, cs, rng) -> dict:
+    """{name: EdgeIndex} of the dmsg mode: the flagship batch of
+    `chip_smoke.full_batch` and a hub batch of the same sizes, every edge
+    live and dst-sorted, MSG_HUB of them leaving node 7."""
+    b = cs.full_batch(rng, MSG_N, MSG_E, 1).to("cuda")
+    out = {"flagship": gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, None, MSG_N, 1,
+                                        transpose=True)}
+    src = rng.integers(0, MSG_N, MSG_E)
+    src[rng.random(MSG_E) < MSG_HUB] = 7
+    dst = torch.from_numpy(rng.integers(0, MSG_N, MSG_E)).sort().values.to(torch.int32)
+    out["hub"] = gk.prepare_edges(torch.from_numpy(src).to(torch.int32).cuda(), dst.cuda(),
+                                  torch.ones(MSG_E, dtype=torch.bool, device="cuda"), None,
+                                  MSG_N, 1, transpose=True)
+    return out
+
+
+def time_dmsg(torch, cs) -> dict:
+    import inspect
+
+    import numpy as np
+
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator().manual_seed(16)
+    da = (torch.randn(MSG_N, MSG_D, generator=gen) * 1e-2).cuda()
+    dh0 = (torch.randn(MSG_N, MSG_D, generator=gen) * 1e-2).cuda()
+    wm = (torch.randn(1, MSG_D, MSG_D, generator=gen) * MSG_D ** -0.5).cuda()
+    into_dh = "dh" in inspect.signature(gk.dmsg).parameters
+    out = {}
+    with torch.inference_mode():
+        for name, edges in msg_batches(torch, gk, cs, rng).items():
+            if into_dh:
+                def call(dh):
+                    return gk.dmsg(da, edges, wm, dh)
+            else:  # an earlier tree: B4, then step_bwd's separate add
+                def call(dh):
+                    return dh + gk.dmsg(da, edges, wm)
+            got, again = call(dh0.clone()), call(dh0.clone())
+            want = gk.dmsg_plain(da, edges, wm) + dh0
+            dh = dh0.clone()
+            out[name] = {
+                "ms": cs.median_ms(torch, lambda: call(dh)),
+                "fresh_ms": cs.median_ms(torch, lambda: gk.dmsg(da, edges, wm)),
+                "err_of_scale": ((got - want).abs().max() / want.abs().max()).item(),
+                "within_gate": bool(torch.allclose(got, want, rtol=cs.RTOL, atol=cs.ATOL)),
+                "repeat_equal": torch.equal(got, again)}
+            if name == "flagship":
+                out[name]["launch_split"] = cs.launch_split(torch, lambda: call(dh))
+    return out
+
+
 def time_gru(torch, cs) -> dict:
     from deepdfa_tpu_torch.nn import ggnn_kernel as gk
 
@@ -482,8 +651,8 @@ def imma_counts(cuda_build, lib: str) -> dict:
     return counts
 
 
-TIMERS = {"fwd": time_fwd, "bwd": time_bwd, "dbias": time_dbias, "gru": time_gru,
-          "step": time_step}
+TIMERS = {"fwd": time_fwd, "bwd": time_bwd, "dbias": time_dbias, "dbias_mma": time_dbias_mma,
+          "dmsg": time_dmsg, "gru": time_gru, "step": time_step}
 
 
 def child(mode: str, what: str, label: str, tree: str | None) -> dict:
@@ -563,7 +732,8 @@ def main() -> None:
     ap.add_argument("--source", action="append", default=[],
                     help="LABEL=PATH of another flash_attention.cu to time (fwd, bwd)")
     ap.add_argument("--tree", action="append", default=[],
-                    help="LABEL=PATH of another checkout whose package to time (gru)")
+                    help="LABEL=PATH of another checkout whose package to time (gru, step, "
+                         "dmsg)")
     ap.add_argument("--out", type=Path)
     ap.add_argument("--child", nargs=2, metavar=("WHAT", "LABEL"), help=argparse.SUPPRESS)
     ap.add_argument("--tree-path", help=argparse.SUPPRESS)
@@ -580,8 +750,8 @@ def main() -> None:
     if args.source and args.mode not in ("fwd", "bwd"):
         sys.exit("--source applies to fwd and bwd: an earlier tree's other kernels take "
                  "other arguments")
-    if args.tree and args.mode not in ("gru", "step"):
-        sys.exit("--tree applies to gru and step")
+    if args.tree and args.mode not in ("gru", "step", "dmsg"):
+        sys.exit("--tree applies to gru, step and dmsg")
     import torch
 
     if not torch.cuda.is_available():

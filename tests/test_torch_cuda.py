@@ -173,6 +173,69 @@ def test_backward_kernels_match_plain(card, n, d, n_etypes, count):
     assert torch.equal(gk.dmsg(a, edges, wm), got_msg)
 
 
+#: B4's batches: (nodes, d, edge types, graphs or None for the hub batch,
+#: edges); the flagship's budgets (16384 nodes, 65536 edges) at T 1 and
+#: 3, the all-padding batch, one node holding a quarter of the edges
+#: (its run cut across every warp of its block), and widths 32, 96, 256
+DMSG_CASES = [(16384, 128, 1, 600, 65536), (16384, 128, 3, 600, 65536), (16384, 128, 1, 0, 65536),
+              (16384, 128, 1, None, 65536), (2048, 32, 1, 80, 8192), (2048, 96, 2, 80, 8192),
+              (2048, 256, 1, 80, 8192)]
+DMSG_IDS = ["flagship", "etypes3", "all_padding", "hub", "d32", "d96_t2", "d256"]
+
+
+@pytest.mark.parametrize("n, d, n_etypes, count, e", DMSG_CASES, ids=DMSG_IDS)
+def test_dmsg_matches_plain_and_repeats(card, n, d, n_etypes, count, e):
+    """B4 alone and added into a dh in place (step_bwd's call) against
+    dmsg_plain on the card (rtol 1e-4, atol 1e-5), one launch a call, the
+    same bits on a repeat; the in-place call returns the dh it was given.
+    The hub's row sums ~16k edges, whose fp32 sums differ by order alone
+    by ~1e-3 on values of ~100 (the plain version's index_add_ sums in no
+    fixed order on the card): it is held against the plain version in
+    float64 within 1e-5 of that row's largest magnitude, every other row
+    as above."""
+    rng = np.random.default_rng(n + d + n_etypes)
+    if count is None:
+        src = rng.integers(0, n, e)
+        src[rng.random(e) < 0.25] = 7
+        dst = np.sort(rng.integers(0, n, e))
+        edges = gk.prepare_edges(torch.from_numpy(src).to(torch.int32).to(card),
+                                 torch.from_numpy(dst).to(torch.int32).to(card),
+                                 torch.ones(e, dtype=torch.bool, device=card), None, n, 1,
+                                 transpose=True)
+        assert int(edges.srcptr[8] - edges.srcptr[7]) > e // 5
+    else:
+        b = pack(_graphs(rng, count, n_etypes, max_nodes=50), max(count, 1), n, e,
+                 etypes=n_etypes > 1).to(card)
+        edges = gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, b.edge_type, n,
+                                 n_etypes, transpose=True)
+    da, dh0 = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(card)
+               for _ in range(2))
+    wm = _params(rng, d, n_etypes, card)[0]
+    before = gk.DMSG_LAUNCHES
+    got = gk.dmsg(da, edges, wm)
+    dh = dh0.clone()
+    added = gk.dmsg(da, edges, wm, dh)
+    torch.cuda.synchronize()
+    assert gk.DMSG_LAUNCHES == before + 2 and added is dh
+    want = gk.dmsg_plain(da, edges, wm)
+    want_added = gk.dmsg_plain(da, edges, wm, dh0.clone())
+    if count is None:
+        hub = torch.zeros(n, dtype=torch.bool, device=card)
+        hub[7] = True
+        wide = [x.double() if x is not None and x.is_floating_point() else x
+                for x in edges.tensors()]
+        exact = gk.dmsg_plain(da.double(), gk.EdgeIndex(*wide), wm.double())[7]
+        for x in (got[7], added[7] - dh0[7]):
+            assert (x.double() - exact).abs().max() <= 1e-5 * exact.abs().max()
+        got, want, added, want_added = got[~hub], want[~hub], added[~hub], want_added[~hub]
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(added, want_added, rtol=RTOL, atol=ATOL)
+    if count == 0:
+        assert (got == 0).all() and torch.equal(added, dh0)
+    assert torch.equal(gk.dmsg(da, edges, wm), gk.dmsg(da, edges, wm))
+    assert torch.equal(gk.dmsg(da, edges, wm, dh0.clone()), gk.dmsg(da, edges, wm, dh0.clone()))
+
+
 def _gru_operands(rng, n, d, device):
     h, a, g = (torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(device)
                for _ in range(3))
@@ -295,7 +358,7 @@ def test_failed_build_and_launch_raise(card, tmp_path, monkeypatch):
     lib = gk._library("ggnn_bwd")
     x = torch.zeros(64, 48, device=card)
     rc = lib.ggnn_dmsg_f32(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(),
-                           x.data_ptr(), x.data_ptr(), x.data_ptr(), 64, 64, 48, 1,
+                           x.data_ptr(), x.data_ptr(), 0, 64, 64, 48, 1,
                            torch.cuda.current_stream().cuda_stream)
     assert rc != 0  # d = 48 has no kernel instance
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -1049,6 +1112,48 @@ def test_flash_dbias_repeats_bit_for_bit_at_the_t5_call(card):
     _close(runs[0], want, "bfloat16")
 
 
+#: the tensor-core dbias at the T5 training path's buckets (token budget
+#: 8192): B, T, real keys per row, the training path's strides, dropout
+#: rate; the short buckets' batches are cut into runs of rows
+T5_BUCKET_CASES = [
+    (64, 128, [128, 100, 65, 64, 1, 0, 127, 128] * 8, False, 0.0),
+    (64, 128, [128] * 64, True, 0.1),
+    (32, 256, [256, 255, 200, 129, 128, 0, 1, 256] * 4, False, 0.1),
+    (32, 256, [256] * 32, True, 0.0),
+    (16, 512, [512, 480, 300, 0] * 4, True, 0.1),
+]
+T5_BUCKET_IDS = ["t128_ragged", "t128_strided_dropout", "t256_ragged_dropout", "t256_strided",
+                 "t512_strided_dropout"]
+
+
+@pytest.mark.parametrize("B, T, lens, strided, rate", T5_BUCKET_CASES, ids=T5_BUCKET_IDS)
+def test_mma_dbias_at_the_t5_buckets_matches_plain_and_repeats(card, B, T, lens, strided, rate):
+    """Kernel 8's tensor-core instance (bf16 bias, scale 1.0, 12 heads) at
+    the T5 path's three buckets, ragged and all-padding rows, the training
+    path's strided views, at dropout 0 and 0.1: within 2e-2 of the plain
+    dbias's largest magnitude, padded keys' columns exactly 0, one launch
+    a call and five runs the same bits; T 128 and 256 cut the batch."""
+    H = 12
+    slices = fa._library(False).flash_dbias_workspace_floats(B, H, T, T, 64, 1) // (H * T * T)
+    assert (slices > 1) == (T < 512)  # 64 x 64 tiles, ~528 live blocks
+    q, k, v, do, mask, bias = _bias_inputs(card, B, H, T, T, 64, "bfloat16", "bfloat16", lens,
+                                           strided)
+    seed = 13579
+    kw = {"scale": 1.0, "dropout_rate": rate, "seed": seed}
+    o, lse = fa.flash_fwd(q, k, v, mask, bias=bias, **kw)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    before = fa.DBIAS_LAUNCHES
+    runs = [fa.flash_dbias(q, k, v, mask, lse, delta, do, bias, **kw) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert fa.DBIAS_LAUNCHES == before + 5
+    bits = fa.dropout_bits(seed, B, H, T, T, card) if rate else None
+    want = fa.attention_bwd_plain(q, k, v, mask, o, lse, do, 1.0, rate, bits, bias)[3]
+    assert torch.isfinite(runs[0]).all()
+    _close(runs[0], want, "bfloat16")
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert (runs[0][:, :, max(lens):] == 0).all()
+
+
 DBIAS_FMA_CASES = [
     # B, Tq, Tk, D, dtype (q's and the bias's), real keys per row, causal
     (1, 100, 77, 64, "float32", [77], False),
@@ -1093,7 +1198,7 @@ def test_fma_dbias_sums_runs_of_rows_in_order(card, B, T, dtype, lens, causal):
     dbias's largest magnitude, padded and causal zeros, five runs the same
     bits)."""
     H = 12
-    floats = fa._library(causal).flash_dbias_workspace_floats(B, H, T, T)
+    floats = fa._library(causal).flash_dbias_workspace_floats(B, H, T, T, 64, 0)
     slices = floats // (H * T * T)
     assert 1 < slices < B  # a cut, with runs of more than one row
     _check_fma_dbias(card, B, H, T, T, 64, dtype, lens[:B], causal)

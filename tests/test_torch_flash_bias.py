@@ -229,11 +229,31 @@ def test_dbias_is_the_in_order_sum_of_its_batch_runs(B, slices, causal):
     not) equals, within REL, the plain version's dbias of each contiguous
     run of the batch summed in run order, as the FMA kernel sums its
     slices' partials; ragged rows and an all-padding one included."""
-    rng = np.random.default_rng(40 + B + slices)
-    H, T, D = 2, 64, 16
+    _check_run_sums(B, slices, causal, 64)
+
+
+#: (T, B, slices): the tensor-core dbias's cuts at the T5 path's short
+#: buckets, runs of 4 rows at T 128 (B 64 in 16) and of 8 at T 256 (B 32
+#: in 4), here at fewer rows with the same run lengths, and an odd batch
+#: whose last run is shorter
+BUCKET_CUTS = [(128, 8, 2), (128, 7, 2), (256, 16, 2), (256, 5, 3)]
+
+
+@pytest.mark.parametrize("T, B, slices", BUCKET_CUTS,
+                         ids=[f"t{t}_b{b}_s{s}" for t, b, s in BUCKET_CUTS])
+def test_dbias_run_sums_at_the_t5_buckets(T, B, slices):
+    """test_dbias_is_the_in_order_sum_of_its_batch_runs at the T5 path's
+    bucket lengths T 128 and 256, where the tensor-core dbias cuts the
+    batch (the reference's blocks min(512, T) wide)."""
+    _check_run_sums(B, slices, False, T)
+
+
+def _check_run_sums(B, slices, causal, T):
+    rng = np.random.default_rng(40 + B + slices + (T if T != 64 else 0))
+    H, D = 2, 16
     q, k, v, do = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in range(4))
     bias = (rng.standard_normal((H, T, T)) * 0.5).astype(np.float32)
-    lens = np.resize([T, 1, 0, 40, 63], B)
+    lens = np.resize([T, 1, 0, 40, T - 1], B)
     mask = np.arange(T)[None, :] < lens[:, None]
     if causal:  # the causal build takes every row at full length
         mask[:] = True

@@ -69,6 +69,21 @@ def _graphs(rng, count, n_etypes, max_nodes=40):
     return ref, port
 
 
+def _hub_graphs(rng, n_etypes, count=3, hub_edges=600):
+    """`count` graphs whose first has a hub: node 3 is the src of
+    `hub_edges` of its edges (a long src run among runs of a few)."""
+    ref, port = _graphs(rng, count, n_etypes)
+    g = port[0]
+    n = g.node_feats.shape[0]
+    src = np.concatenate([np.full(hub_edges, 3 % n, np.int32), g.edge_src])
+    dst = np.concatenate([rng.integers(0, n, hub_edges).astype(np.int32), g.edge_dst])
+    et = (None if g.edge_type is None else
+          np.concatenate([rng.integers(0, n_etypes, hub_edges).astype(np.int32), g.edge_type]))
+    kw = dict(graph_id=0, node_feats=g.node_feats, node_vuln=g.node_vuln, edge_src=src,
+              edge_dst=dst, label=g.label, edge_type=et)
+    return [JSpec(**kw), *ref[1:]], [TSpec(**kw), *port[1:]]
+
+
 def _ladder(rung, n_etypes):
     rng = np.random.default_rng(11)
     if rung == "1_single_node":
@@ -81,6 +96,8 @@ def _ladder(rung, n_etypes):
         return 1, [JSpec(**kw)], [TSpec(**kw)]
     if rung == "2_all_padding":
         return 2, [], []
+    if rung == "3_hub":
+        return 3, *_hub_graphs(rng, n_etypes)
     size = int(rung[0])
     return (size, *_graphs(rng, size, n_etypes))
 
@@ -152,7 +169,7 @@ def test_gru_bwd_plain_matches_reference_kernel(n, d):
 
 
 @pytest.mark.parametrize("n_etypes", [1, 3])
-@pytest.mark.parametrize("rung", ["1_single_node", "2_all_padding", "4_graphs"])
+@pytest.mark.parametrize("rung", ["1_single_node", "2_all_padding", "4_graphs", "3_hub"])
 def test_dmsg_plain_matches_reference_kernel(rung, n_etypes):
     size, ref, port = _ladder(rung, n_etypes)
     etypes = n_etypes > 1
@@ -178,6 +195,49 @@ def test_dmsg_plain_matches_reference_kernel(rung, n_etypes):
                               NODE_BUDGET, n_etypes, transpose=True)
     got = tgk.dmsg(torch.from_numpy(da), edges, torch.from_numpy(wm)).numpy()
     assert _rel(got, want) <= REL
+
+
+def _dmsg_operands(rung, n_etypes, d=32):
+    size, _, port = _ladder(rung, n_etypes)
+    tb = tpack(port, size, NODE_BUDGET, EDGE_BUDGET, etypes=n_etypes > 1).to("cpu")
+    edges = tgk.prepare_edges(tb.edge_src, tb.edge_dst, tb.edge_mask, tb.edge_type,
+                              NODE_BUDGET, n_etypes, transpose=True)
+    rng = np.random.default_rng(17 + n_etypes)
+    da = torch.from_numpy(rng.standard_normal((NODE_BUDGET, d)).astype(np.float32))
+    wm = torch.from_numpy(_weights(rng, d, n_etypes)["wm"])
+    return da, edges, wm
+
+
+@pytest.mark.parametrize("n_etypes", [1, 3])
+@pytest.mark.parametrize("rung", ["4_graphs", "3_hub"])
+def test_dmsg_sum_first_matches_transform_first(rung, n_etypes):
+    """B4 sums w * da_dst over each src run and then applies Wm_t^T; the
+    first design applied Wm_t^T per node (q_t = da @ Wm_t^T) and summed
+    w * q_t[dst]. The two orders agree within 1e-5 of the largest
+    magnitude (fp32 reassociation)."""
+    da, edges, wm = _dmsg_operands(rung, n_etypes)
+    srcp, dstp = edges.srcp.long(), edges.dstp.long()
+    old = torch.zeros_like(da)
+    for t in range(wm.shape[0]):
+        old.index_add_(0, srcp, (da @ wm[t].T)[dstp] * edges.wp[t][:, None])
+    assert _rel(tgk.dmsg_plain(da, edges, wm).numpy(), old.numpy()) <= REL
+
+
+@pytest.mark.parametrize("n_etypes", [1, 3])
+def test_dmsg_adds_into_dh_in_place(n_etypes):
+    """dmsg(..., dh) returns dh itself, now dh + dh_msg: at one edge type
+    the bits of adding dmsg's own result, at three within fp32 rounding
+    (each type's product is added to dh in turn)."""
+    da, edges, wm = _dmsg_operands("4_graphs", n_etypes)
+    dh0 = torch.from_numpy(np.random.default_rng(3).standard_normal(da.shape).astype(np.float32))
+    dh = dh0.clone()
+    out = tgk.dmsg(da, edges, wm, dh)
+    assert out is dh
+    want = dh0 + tgk.dmsg(da, edges, wm)
+    if n_etypes == 1:
+        assert torch.equal(out, want)
+    else:
+        assert _rel(out.numpy(), want.numpy()) <= REL
 
 
 @functools.lru_cache(maxsize=None)

@@ -48,9 +48,23 @@ def test_two_runs_merge_as_reported():
     assert set(kt.TRIALS["dbias"]["weights"]) == set(kt.DBIAS_CALLS)
 
 
+def test_the_bf16_dbias_and_b4_modes_weight_calls_they_time():
+    """dbias_mma weights the T5 training path's three buckets (its other
+    calls are timed, not weighted); dmsg weights the flagship batch; both
+    modes' layouts edit their own source."""
+    assert set(kt.TRIALS["dbias_mma"]["weights"]) == {"t128", "t256", "t512"}
+    assert set(kt.TRIALS["dbias_mma"]["weights"]) < set(kt.DBIAS_MMA_CALLS)
+    assert set(kt.TRIALS["dmsg"]["weights"]) == {"flagship"}
+    assert kt.TRIALS["dbias_mma"]["source"] == "flash_attention.cu"
+    assert kt.TRIALS["dmsg"]["source"] == "ggnn_bwd.cu"
+    assert kt.TIMERS["dbias_mma"] is kt.time_dbias_mma and kt.TIMERS["dmsg"] is kt.time_dmsg
+
+
 @pytest.mark.parametrize("argv, says", [
     (["fwd", "--tree", "parent=."], "--tree applies to gru"),
     (["dbias", "--source", "parent=x.cu"], "--source applies to fwd and bwd"),
+    (["dbias_mma", "--tree", "parent=."], "--tree applies to gru"),
+    (["dmsg", "--layouts", "tn16"], "has no layouts"),
     (["gru", "--layouts", "w2048"], "has no layouts"),
     (["gru", "--layouts", "as_is"], "no CUDA card"),
 ])
