@@ -106,8 +106,30 @@ prints one JSON line; any failure exits non-zero before the last line.
    verdict, a winner, a valid tuned.json (its candidate table on the
    line tune_candidates); then `cli train` (flagship model,
    ggnn_kernel=true, tune.enabled=true, 2 epochs on 120 seeded graphs in
-   a graph store there) prints the overrides it applied, saves them in
-   its config and launches the winner's kernel;
+   a graph store there, written with the port's GraphStore.write) prints
+   the overrides it applied, saves them in its config and launches the
+   winner's kernel;
+7j. pipeline — the port's own data path at the flagship config, under a
+   temporary storage root: 2048 seeded synthetic functions at Big-Vul
+   tail sizes (`data/synthetic.py:bigvul_stmt_sizes`, median 14
+   statements, clipped at 500) written as a Devign-format json, then
+   `cli prepare --source <json>` and `cli extract --workers 4` (the C
+   frontend over every function, the train split's vocabularies, the
+   graph store), each in a process of its own; every example is a graph
+   or a missing id, every
+   feature lies inside input_dim 1002; then `cli train` of the flagship
+   model (hidden 32, 5 steps, node budget 16384) on the card, 2 epochs
+   over every train graph (data.undersample=false), and `cli test`,
+   counted from 0: losses finite, kernel 1 5 times a
+   forward batch (train steps, validation batches, and each test batch
+   twice: `test --export` evaluates, then exports), B3 and B4 5 times a
+   train step and no other kernel, the test split's
+   probabilities on the card within rtol 1e-4 / atol 1e-5 of the same
+   checkpoint's on the CPU plain path; prepare and extract seconds,
+   functions/s of extraction on the card machine's host, graphs and
+   nodes, the median ms and graphs/s of a train step timed alone
+   (synchronized before and after), and the training loop's own rate
+   (train graphs over each epoch's seconds, evaluation outside them);
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -232,10 +254,11 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the twenty-one main
+21. kernels — every kernel with its launches on the twenty-two main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
-   four of 7g-7h, tune and tune_train, each counted from 0, and by path),
+   four of 7g-7h, tune, tune_train and pipeline, each counted from 0,
+   and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -1552,22 +1575,6 @@ def train_mxu_phase(torch, rng):
             "ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"], "ggnn_dmsg": counts["DMSG_LAUNCHES"]}
 
 
-def write_graph_store(directory: Path, graphs) -> None:
-    """One npz shard in the reference's graph-store layout (the port
-    reads stores; the reference's `extract` writes them)."""
-    import numpy as np
-
-    directory.mkdir(parents=True, exist_ok=True)
-    cat = lambda f: np.concatenate([getattr(g, f) for g in graphs])  # noqa: E731
-    np.savez(directory / "graphs-00000.npz", version=np.int64(1),
-             graph_ids=np.array([g.graph_id for g in graphs], np.int64),
-             labels=np.array([g.label for g in graphs], np.float32),
-             node_offsets=np.concatenate([[0], np.cumsum([g.num_nodes for g in graphs])]),
-             edge_offsets=np.concatenate([[0], np.cumsum([g.num_edges for g in graphs])]),
-             node_feats=cat("node_feats"), node_vuln=cat("node_vuln"),
-             edge_src=cat("edge_src"), edge_dst=cat("edge_dst"))
-
-
 def tune_phase(torch, rng):
     """`cli tune` at the flagship serving budgets (16384 x 65536, d 128,
     5 steps) over the card-legal grid, counted from 0: every candidate
@@ -1587,6 +1594,7 @@ def tune_phase(torch, rng):
     from deepdfa_tpu_torch import cli
     from deepdfa_tpu_torch.core import config as config_mod
     from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.graphs import GraphStore
     from deepdfa_tpu_torch.nn import ggnn_kernel as gk
     from deepdfa_tpu_torch.tune import cache as tune_cache
 
@@ -1631,7 +1639,7 @@ def tune_phase(torch, rng):
             graphs = [synthetic_graph(rng, i, int(rng.integers(10, 401)),
                                       cfg.data.feat.input_dim, signal=True) for i in range(120)]
             out = Path(tmp) / "processed" / cfg.data.dataset
-            write_graph_store(out / cli.graphs_dirname(cfg), graphs)
+            GraphStore(out / cli.graphs_dirname(cfg)).write(graphs)
             (out / "splits.json").write_text(json.dumps(
                 {str(g.graph_id): "val" if g.graph_id % 4 == 3 else "train" for g in graphs}))
             tcfg = config_mod.apply_overrides(cfg, [
@@ -1679,6 +1687,205 @@ def tune_phase(torch, rng):
                   "tune_train": {r: train_counts[GGNN_ROWS[r]]
                                  for r in (row, "ggnn_gru_bwd", "ggnn_dmsg")}}
     return tune_paths
+
+
+PIPELINE_FUNCTIONS = 2048
+PIPELINE_WORKERS = 4
+PIPELINE_EPOCHS = 2
+# card vs CPU plain path on the test split's probabilities
+PIPELINE_RTOL, PIPELINE_ATOL = 1e-4, 1e-5
+
+
+def run_port_cli(args: list[str], env: dict, timeout: int = 900) -> float:
+    """`python -m deepdfa_tpu_torch.cli ARGS` in a process of its own (its
+    extraction pool forks from a process without a CUDA context); its
+    wall seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "deepdfa_tpu_torch.cli", *args], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        fail(f"pipeline: cli {args[0]} exited {res.returncode}: {res.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def predictions(path: Path) -> dict:
+    import csv
+
+    with path.open() as f:
+        return {int(r["id"]): float(r["prob"]) for r in csv.DictReader(f)}
+
+
+def pipeline_phase(torch):
+    """The port's own data path: `prepare` of PIPELINE_FUNCTIONS seeded
+    synthetic functions at Big-Vul tail sizes (a Devign-format json) and
+    `extract --workers 4` at the flagship config, each a subprocess under a
+    temporary storage root; then `cli
+    train` of the flagship model on the card in-process (2 epochs over
+    every train graph: data.undersample=false, or an epoch is one step) and
+    `cli test`, counted from 0: every example a graph or a missing id,
+    every feature inside input_dim, losses finite, kernel 1 n_steps
+    times a forward batch and B3, B4 n_steps times a backward batch, and
+    the test split's probabilities on the card those of the same
+    checkpoint on the CPU plain path."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.data import load_examples, synthetic
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.train import loop
+
+    cfg = config_mod.apply_overrides(load(FLAGSHIP_CONFIG), [
+        'run_name="pipeline"', f"train.max_epochs={PIPELINE_EPOCHS}",
+        "train.log_every_steps=1", "data.undersample=false"])
+    n_steps = cfg.model.n_steps
+    saved_env = os.environ.get("DEEPDFA_TPU_STORAGE")
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, DEEPDFA_TPU_STORAGE=tmp)
+        os.environ["DEEPDFA_TPU_STORAGE"] = tmp
+        try:
+            cfg_path = Path(tmp) / "pipeline.json"
+            config_mod.to_json(cfg, cfg_path)
+            seed = cfg.data.seed
+            source = Path(tmp) / "bigvul_sized.json"
+            synth = synthetic.generate(
+                PIPELINE_FUNCTIONS, seed=seed,
+                stmt_sizes=synthetic.bigvul_stmt_sizes(PIPELINE_FUNCTIONS, seed=seed))
+            source.write_text(json.dumps([{"func": x.before, "target": x.label}
+                                          for x in synth]))
+            prepare_s = run_port_cli(["prepare", "--source", str(source), "--config",
+                                      str(cfg_path)], env)
+            extract_s = run_port_cli(["extract", "--workers", str(PIPELINE_WORKERS),
+                                      "--config", str(cfg_path)], env)
+            out = Path(tmp) / "processed" / cfg.data.dataset
+            store_dir = out / cli.graphs_dirname(cfg)
+            examples = {e.id for e in load_examples(out / "examples.pkl")}
+            graphs = GraphStore(store_dir).load_all()
+            missing = {int(x) for x in (store_dir / "missing_ids.txt").read_text().split()}
+            if set(graphs) | missing != examples or set(graphs) & missing:
+                fail(f"pipeline: {len(examples)} examples, {len(graphs)} graphs, "
+                     f"{len(missing)} missing ids do not add up")
+            feats = np.concatenate([g.node_feats for g in graphs.values()])
+            input_dim = cfg.data.feat.input_dim
+            vocab = json.loads((out / f"vocab{cfg.data.feat.name}.json").read_text())
+            if (feats.shape[1] != 4 or feats.min() < 0 or feats.max() >= input_dim
+                    or max(len(v["hashes"]) for v in vocab.values()) > cfg.data.feat.limit_all):
+                fail(f"pipeline: features {feats.shape} in [{feats.min()}, {feats.max()}] "
+                     f"exceed input_dim {input_dim}")
+            splits = cli.load_graph_splits(cfg)
+            val_batches = len(cli.epoch_batches(cfg, splits["val"], phase="eval"))
+            test_batches = len(cli.epoch_batches(cfg, splits["test"], phase="eval"))
+
+            # cli train on the card, each step timed (the loop syncs on every
+            # logged loss anyway at log_every_steps=1)
+            step_ms, step_graphs = [], []
+            train_step = loop.GraphTrainer.train_step
+
+            def timed_step(self, state, batch):
+                torch.cuda.synchronize()
+                t_a = time.perf_counter()
+                loss = train_step(self, state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t_a))
+                step_graphs.append(int(batch.graph_mask.sum()))
+                return loss
+
+            gk.reset_launch_counts()
+            loop.GraphTrainer.train_step = timed_step
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main(["train", "--config", str(cfg_path), "--device", CARD])
+            finally:
+                loop.GraphTrainer.train_step = train_step
+            train_s = time.perf_counter() - t0
+            train_counts = gk.launch_counts()
+            run = Path(tmp) / "runs" / "pipeline"
+            log = [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
+            epochs = [r for r in log if "epoch" in r]
+            steps = sum("step" in r for r in log)
+            # the loop's own rate: each epoch's train graphs over its
+            # epoch_seconds (steps and host packing; validation after)
+            epoch_graphs, done = [], 0
+            for r in log:
+                if "epoch" in r:
+                    n_before = sum(len(x) for x in epoch_graphs)
+                    epoch_graphs.append(step_graphs[n_before:done])
+                elif "step" in r:
+                    done += 1
+            losses = [r[k] for r in epochs for k in ("train_loss", "val_loss")]
+            if len(epochs) != PIPELINE_EPOCHS or steps != len(step_ms) or not all(
+                    math.isfinite(x) for x in losses + [r["loss"] for r in log if "step" in r]):
+                fail(f"pipeline: train logged {epochs}, {steps} steps ({len(step_ms)} timed)")
+
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["test", "--device", CARD, "--export", 'run_name="pipeline"'])
+            test_s = time.perf_counter() - t0
+            test_counts = gk.launch_counts()
+            card_probs = predictions(run / "predictions_test.csv")
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["test", "--device", "cpu", "--export", 'run_name="pipeline"'])
+            cpu_probs = predictions(run / "predictions_test.csv")
+        finally:
+            if saved_env is None:
+                os.environ.pop("DEEPDFA_TPU_STORAGE", None)
+            else:
+                os.environ["DEEPDFA_TPU_STORAGE"] = saved_env
+    fwd = n_steps * (steps + PIPELINE_EPOCHS * val_batches)
+    want = {"LAUNCHES": fwd, "GRU_BWD_LAUNCHES": n_steps * steps,
+            "DMSG_LAUNCHES": n_steps * steps}
+    got = {k: train_counts[k] for k in want}
+    others = {k: v for k, v in train_counts.items() if k not in want and v}
+    if got != want or others:
+        fail(f"pipeline: train launched {train_counts}, expected {want} ({steps} steps, "
+             f"{val_batches} val batches an epoch)")
+    # `test --export` runs every batch twice: the evaluation, then the export
+    want_test = {"LAUNCHES": 2 * n_steps * test_batches}
+    if {k: v for k, v in test_counts.items() if v} != want_test:
+        fail(f"pipeline: test launched {test_counts}, expected {want_test}")
+    ids = sorted(card_probs)
+    if ids != sorted(cpu_probs) or ids != sorted(g.graph_id for g in splits["test"]):
+        fail("pipeline: the card and CPU test predictions cover other ids")
+    card_p = np.array([card_probs[i] for i in ids])
+    cpu_p = np.array([cpu_probs[i] for i in ids])
+    prob_err = float(np.max(np.abs(card_p - cpu_p)))
+    if not np.all(np.isfinite(card_p)) or not np.allclose(card_p, cpu_p, rtol=PIPELINE_RTOL,
+                                                           atol=PIPELINE_ATOL):
+        fail(f"pipeline: card vs CPU test probabilities differ by up to {prob_err}")
+    nodes = int(sum(g.num_nodes for g in graphs.values()))
+    emit({"phase": "pipeline", "ok": True, "functions": len(examples), "graphs": len(graphs),
+          "missing_ids": len(missing), "nodes": nodes,
+          "edges": int(sum(g.num_edges for g in graphs.values())),
+          "max_feature": int(feats.max()), "input_dim": input_dim,
+          "prepare_seconds": prepare_s, "extract_seconds": extract_s,
+          "extract_workers": PIPELINE_WORKERS,
+          "extract_functions_per_sec": len(examples) / extract_s,
+          "splits": {k: len(v) for k, v in splits.items()}, "train_steps": steps,
+          "val_batches": val_batches, "test_batches": test_batches,
+          "epoch_train_loss": [r["train_loss"] for r in epochs],
+          "epoch_val_loss": [r["val_loss"] for r in epochs],
+          "train_seconds": train_s, "test_seconds": test_s,
+          "train_launches": {k: train_counts[k] for k in want}, "test_launches": test_counts,
+          "synced_step_ms": statistics.median(step_ms),
+          "synced_step_graphs_per_sec": sum(step_graphs) / (sum(step_ms) / 1e3),
+          "epoch_seconds": [r["epoch_seconds"] for r in epochs],
+          "epoch_host_pack_seconds": [r["host_pack_seconds"] for r in epochs],
+          "loop_graphs_per_sec": [sum(g) / r["epoch_seconds"]
+                                  for g, r in zip(epoch_graphs, epochs)],
+          "train_outside_epochs_seconds": train_s - sum(r["epoch_seconds"] for r in epochs),
+          "test_prob_max_abs_err": prob_err, "test_examples": len(ids)})
+    return {"ggnn_step": train_counts["LAUNCHES"] + test_counts["LAUNCHES"],
+            "ggnn_gru_bwd": train_counts["GRU_BWD_LAUNCHES"],
+            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]}
 
 
 def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
@@ -3551,6 +3758,7 @@ def main() -> None:
                                 variant_probs["int8", "per_step"])
     train_mxu = train_mxu_phase(torch, mrng)
     tune_paths = tune_phase(torch, mrng)
+    pipeline_launches = pipeline_phase(torch)
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
@@ -3580,7 +3788,8 @@ def main() -> None:
              "serve_combined": combined_launches, "train_combined": tc_launches,
              "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
              "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
-             **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths}
+             **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
+             "pipeline": pipeline_launches}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

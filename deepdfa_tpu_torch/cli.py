@@ -1,12 +1,20 @@
-"""Command line of the port: train and test the DeepDFA GGNN, train the
+"""Command line of the port: prepare a dataset and extract its graphs
+from C sources, train and test the DeepDFA GGNN, train the
 combined DeepDFA+LineVul and CodeT5+DeepDFA models, and train and decode
 the CodeT5 generation family, on one device (the reference's
-`deepdfa-tpu train`, `test`, `train-combined`, `train-gen`,
-`train-multi-gen`, `train-clone` and `tune`,
-`deepdfa_tpu/cli/main.py:cmd_train`, `cmd_test`, `cmd_train_combined`,
+`deepdfa-tpu prepare`, `extract-vocab`, `extract`, `train`, `test`,
+`train-combined`, `train-gen`, `train-multi-gen`, `train-clone` and
+`tune`, `deepdfa_tpu/cli/main.py:cmd_prepare`, `cmd_extract_vocab`,
+`cmd_extract`, `cmd_train`, `cmd_test`, `cmd_train_combined`,
 `cmd_train_gen`, `cmd_train_multi_gen`, `cmd_train_clone` and
 `cmd_tune`), and tune the GGNN kernel layout on the card.
 
+    python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
+        [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
+        [--sample N] [--mutated-jsonl F [--mutated-flip]] [--export-codet5] [key=value ...]
+    python -m deepdfa_tpu_torch.cli extract-vocab [--workers N] [key=value ...]
+    python -m deepdfa_tpu_torch.cli extract [--workers N] [--num-shards K --shard I] \
+        [--vocab-from VOCAB_JSON] [key=value ...]
     python -m deepdfa_tpu_torch.cli train --config configs/bigvul_deepdfa.json [key=value ...]
     python -m deepdfa_tpu_torch.cli test --checkpoint best --split test [--export]
     python -m deepdfa_tpu_torch.cli train-combined --config configs/bigvul_combined.json \
@@ -19,11 +27,24 @@ the CodeT5 generation family, on one device (the reference's
     python -m deepdfa_tpu_torch.cli tune [--smoke] [--out F] [--serve-log F] [--manifest F] \
         [--skip-kernel] [--config F] [--override key=value ...] [--device cpu]
 
-They read the processed-dir layout the reference's `prepare` and
-`extract` write under the storage root (`$DEEPDFA_TPU_STORAGE`, else
-`storage/` at the repo root): `processed/<dataset>/splits.json`, the
-graph store `processed/<dataset>/graphs<feat name>[_gtype_<gtype>]/` and,
-for `train-combined`, `processed/<dataset>/examples.pkl`. A run writes
+`prepare`, `extract-vocab` and `extract` are host commands (no
+`--device`). `prepare` reads a dataset (the seeded synthetic corpus, a
+Big-Vul csv, a Devign json, a DbgBench csv) and writes
+`processed/<dataset>/examples.pkl` (the port's `Example` rows),
+`splits.json` and, with `--export-codet5`, `codet5/{train,valid,test}.jsonl`
+under the storage root (`$DEEPDFA_TPU_STORAGE`, else `storage/` at the
+repo root). `extract` parses every function with the port's C frontend
+and writes the graph store `processed/<dataset>/graphs<feat
+name>[_gtype_<gtype>]/`, its `missing_ids[-<tag>].txt` and
+`vocab<feat name>.json`; `--workers` fans extraction out over forked
+processes. Sharded extraction builds the train split's vocabularies once
+(`extract-vocab`), then each `extract --num-shards K --shard I` encodes
+every K-th example against them into `graphs-shard<I>-*.npz`. The
+outputs equal the reference's commands' (the stores member for member).
+`data.feat.max_defs` and `data.feat.struct_feats` are not ported and
+raise. The other commands read that layout, and the reference's outputs
+the same way: `splits.json`, the graph store and, for `train-combined`,
+`examples.pkl`. A run writes
 `runs/<run_name>/config.json`, `train_log.jsonl` and torch checkpoints
 under `runs/<run_name>/checkpoints-torch/` (GGNN) or
 `checkpoints-combined-torch/` (combined); the reference's orbax
@@ -123,8 +144,8 @@ def load_graph_splits(cfg: Config) -> dict[str, list]:
     by_id = store.load_all()
     if not by_id:
         raise SystemExit(
-            f"no graphs in {store.directory} — run the reference's `extract` "
-            "with the same data.feat.* / data.gtype settings as this command"
+            f"no graphs in {store.directory} — run `python -m deepdfa_tpu_torch.cli "
+            "extract` with the same data.feat.* / data.gtype settings as this command"
         )
     out = {"train": [], "val": [], "test": []}
     for gid, spec in by_id.items():
@@ -201,6 +222,182 @@ class RunLog:
 
     def close(self) -> None:
         self._f.close()
+
+
+# -- data preparation (the reference's cmd_prepare, cmd_extract_vocab,
+# cmd_extract) ---------------------------------------------------------------
+
+
+def cmd_prepare(args) -> None:
+    import dataclasses
+    import pickle
+
+    from deepdfa_tpu_torch.data import readers, synthetic
+
+    cfg = _load_config(args)
+    out_dir = processed_dir(cfg.data.dataset)
+    fmt = args.format
+    if fmt == "auto":
+        if args.source == "synthetic":
+            fmt = "synthetic"
+        elif args.source.endswith(".json"):
+            fmt = "devign"
+        else:
+            fmt = "bigvul"
+    if fmt == "synthetic":
+        if not args.synthetic_v2 and (args.lookalike_rate != 0.5 or args.label_noise != 0.02):
+            raise SystemExit(
+                "--lookalike-rate/--label-noise only apply with "
+                "--synthetic-v2 (the v1 generator has neither knob)"
+            )
+        if args.synthetic_v2:
+            synth = synthetic.generate_v2(
+                args.n_examples, seed=cfg.data.seed,
+                lookalike_rate=args.lookalike_rate, label_noise=args.label_noise,
+            )
+        else:
+            synth = synthetic.generate(args.n_examples, seed=cfg.data.seed)
+        examples = synthetic.to_examples(synth)
+    elif fmt == "devign":
+        examples = readers.read_devign(args.source, sample=args.sample)
+    elif fmt == "dbgbench":
+        examples = readers.read_dbgbench(args.source, sample=args.sample)
+    else:
+        examples = readers.read_bigvul(args.source, sample=args.sample)
+    if args.mutated_jsonl:
+        # mutated subdatasets replace each example's code via id join
+        examples = readers.read_mutated(args.mutated_jsonl, examples, flip=args.mutated_flip)
+    if args.dep_closure:
+        # statement labels: changed lines plus the lines data/control
+        # dependent on them (the reference's dep-add closure)
+        from deepdfa_tpu_torch.frontend import parse_function
+        from deepdfa_tpu_torch.frontend.deps import dependent_lines
+
+        enriched = []
+        for e in examples:
+            if e.vuln_lines:
+                try:
+                    extra = dependent_lines(parse_function(e.code), set(e.vuln_lines))
+                    e = dataclasses.replace(e, vuln_lines=frozenset(set(e.vuln_lines) | extra))
+                except ValueError:
+                    pass
+            enriched.append(e)
+        examples = enriched
+
+    if args.splits:
+        splits = readers.read_splits_csv(args.splits)
+    elif args.cross_project:
+        if args.source == "synthetic" or args.source.endswith(".json"):
+            raise SystemExit("--cross-project requires a Big-Vul csv with a `project` column")
+        splits = readers.cross_project_splits(args.source, seed=cfg.data.seed)
+    else:
+        splits = readers.random_splits([e.id for e in examples], seed=cfg.data.seed)
+    with (out_dir / "examples.pkl").open("wb") as f:
+        pickle.dump(examples, f)
+    (out_dir / "splits.json").write_text(json.dumps({str(k): v for k, v in splits.items()}))
+    if args.export_codet5:
+        # per-split defect jsonl {"idx", "code", "target"}: the corpus in
+        # the format the defect task reader (data/gen_data.py) consumes
+        c5_dir = out_dir / "codet5"
+        c5_dir.mkdir(parents=True, exist_ok=True)
+        counts = {}
+        for split, fname in {"train": "train", "val": "valid", "test": "test"}.items():
+            rows = [e for e in examples if splits.get(e.id) == split]
+            with (c5_dir / f"{fname}.jsonl").open("w") as f:
+                for e in rows:
+                    f.write(json.dumps({"idx": e.id, "code": e.code,
+                                        "target": int(e.label)}) + "\n")
+            counts[fname] = len(rows)
+        print(f"codet5 export -> {c5_dir}: {counts}")
+    print(f"prepared {len(examples)} examples -> {out_dir}")
+
+
+def _prepared(cfg: Config):
+    """(processed dir, examples, train ids) of a prepared dataset."""
+    from deepdfa_tpu_torch.data import load_examples
+
+    out_dir = processed_dir(cfg.data.dataset)
+    examples = load_examples(out_dir / "examples.pkl")
+    splits = json.loads((out_dir / "splits.json").read_text())
+    return out_dir, examples, [int(k) for k, v in splits.items() if v == "train"]
+
+
+def _vocab_json(vocabs) -> str:
+    return json.dumps({k: v.to_json() for k, v in vocabs.items()})
+
+
+def cmd_extract_vocab(args) -> None:
+    """Build the shared train-split vocabularies (run once before sharded
+    extraction; unsharded `extract` does this itself)."""
+    from deepdfa_tpu_torch.data.pipeline import build_corpus_vocabs
+
+    cfg = _load_config(args)
+    out_dir, examples, train_ids = _prepared(cfg)
+    vocabs = build_corpus_vocabs(
+        examples, train_ids=train_ids, limit_all=cfg.data.feat.limit_all,
+        limit_subkeys=cfg.data.feat.limit_subkeys, workers=args.workers,
+    )
+    vocab_path = out_dir / f"vocab{cfg.data.feat.name}.json"
+    vocab_path.write_text(_vocab_json(vocabs))
+    print(f"built vocabularies -> {vocab_path}")
+
+
+def _write_missing_ids(store_dir: Path, examples, specs, tag: str | None = None) -> None:
+    """Record the ids the frontend could not turn into graphs, inside the
+    graph store (the failure set differs by gtype)."""
+    got = {s.graph_id for s in specs}
+    missing = sorted(e.id for e in examples if e.id not in got)
+    name = f"missing_ids-{tag}.txt" if tag else "missing_ids.txt"
+    (store_dir / name).write_text("".join(f"{i}\n" for i in missing))
+
+
+def cmd_extract(args) -> None:
+    from deepdfa_tpu_torch.data.pipeline import build_dataset, encode_corpus
+    from deepdfa_tpu_torch.frontend.vocab import AbsDfVocab
+    from deepdfa_tpu_torch.graphs import GraphStore
+
+    cfg = _load_config(args)
+    feat = cfg.data.feat
+    out_dir, examples, train_ids = _prepared(cfg)
+    vocab_path = out_dir / f"vocab{feat.name}.json"
+    store = GraphStore(out_dir / graphs_dirname(cfg))
+
+    # fixed vocabularies: another dataset's (--vocab-from, the
+    # cross-dataset workflow) or this dataset's own pre-built ones
+    # (sharded extraction); shard jobs write tagged npz files
+    fixed_vocab_src = None
+    if args.vocab_from:
+        fixed_vocab_src = Path(args.vocab_from)
+    elif args.num_shards > 1:
+        if not vocab_path.exists():
+            raise SystemExit(f"sharded extract requires {vocab_path}; run "
+                             "`python -m deepdfa_tpu_torch.cli extract-vocab` first")
+        fixed_vocab_src = vocab_path
+
+    if fixed_vocab_src is not None:
+        vocabs = {k: AbsDfVocab.from_json(v)
+                  for k, v in json.loads(fixed_vocab_src.read_text()).items()}
+        sel = [e for i, e in enumerate(examples) if i % args.num_shards == args.shard]
+        specs = encode_corpus(sel, vocabs, workers=args.workers, max_defs=feat.max_defs,
+                              gtype=cfg.data.gtype, struct_feats=feat.struct_feats)
+        tag = f"shard{args.shard:04d}" if args.num_shards > 1 else None
+        store.write(specs, tag=tag)
+        _write_missing_ids(store.directory, sel, specs, tag=tag)
+        if fixed_vocab_src != vocab_path:
+            vocab_path.write_text(fixed_vocab_src.read_text())
+        print(f"extracted shard {args.shard}/{args.num_shards}: {len(specs)}/{len(sel)} "
+              f"graphs (vocab: {fixed_vocab_src}) -> {store.directory}")
+        return
+
+    specs, vocabs = build_dataset(
+        examples, train_ids=train_ids, limit_all=feat.limit_all,
+        limit_subkeys=feat.limit_subkeys, workers=args.workers, max_defs=feat.max_defs,
+        gtype=cfg.data.gtype, struct_feats=feat.struct_feats,
+    )
+    store.write(specs)
+    _write_missing_ids(store.directory, examples, specs)
+    vocab_path.write_text(_vocab_json(vocabs))
+    print(f"extracted {len(specs)}/{len(examples)} graphs -> {store.directory}")
 
 
 def _apply_tuned(cfg: Config, device) -> Config:
@@ -722,6 +919,52 @@ def build_parser() -> argparse.ArgumentParser:
                        help="cuda (default) or cpu (the plain PyTorch path)")
         p.add_argument("overrides", nargs="*", default=[],
                        help="dotted key=value overrides")
+
+    def host_common(p):
+        p.add_argument("--config", default=None, help="json config file")
+        p.add_argument("overrides", nargs="*", default=[],
+                       help="dotted key=value overrides")
+
+    p = sub.add_parser("prepare", help="read + clean a dataset, line labels, splits")
+    p.add_argument("--source", required=True, help="csv/json path or 'synthetic'")
+    p.add_argument("--splits", default=None, help="optional splits csv")
+    p.add_argument("--cross-project", action="store_true",
+                   help="project-disjoint splits from the csv's project column")
+    p.add_argument("--dep-closure", action="store_true",
+                   help="expand line labels with data/control dependents")
+    p.add_argument("--sample", type=int, default=None)
+    p.add_argument("--n-examples", type=int, default=2000)
+    p.add_argument("--synthetic-v2", action="store_true",
+                   help="hardened synthetic corpus: order-sensitive bug families + "
+                        "benign lookalikes + label noise")
+    p.add_argument("--lookalike-rate", type=float, default=0.5)
+    p.add_argument("--label-noise", type=float, default=0.02)
+    p.add_argument("--format", default="auto",
+                   choices=("auto", "bigvul", "devign", "dbgbench", "synthetic"),
+                   help="source format (auto: by file extension)")
+    p.add_argument("--mutated-jsonl", default=None,
+                   help="mutated-variant jsonl to join onto the base dataset")
+    p.add_argument("--mutated-flip", action="store_true",
+                   help="use the jsonl 'source' field (the *_flip variants)")
+    p.add_argument("--export-codet5", action="store_true",
+                   help="also write per-split CodeT5 defect jsonl (idx/code/target)")
+    host_common(p)
+    p.set_defaults(fn=cmd_prepare)
+
+    p = sub.add_parser("extract", help="C frontend: CPG -> features -> vocab -> graph shards")
+    p.add_argument("--workers", type=int, default=0)
+    p.add_argument("--shard", type=int, default=0, help="job-array shard id")
+    p.add_argument("--num-shards", type=int, default=1)
+    p.add_argument("--vocab-from", default=None,
+                   help="encode with another dataset's vocab json (cross-dataset evaluation)")
+    host_common(p)
+    p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("extract-vocab", help="the train split's vocabularies, once, "
+                                             "before sharded extraction")
+    p.add_argument("--workers", type=int, default=0)
+    host_common(p)
+    p.set_defaults(fn=cmd_extract_vocab)
 
     p = sub.add_parser("train")
     common(p)

@@ -1,12 +1,15 @@
-"""Dataset rows of the combined path: the port's own copy of the
-reference's `deepdfa_tpu/data/pipeline.py:Example` and a reader of the
-`processed/<dataset>/examples.pkl` that the reference's `prepare` writes.
+"""Dataset rows: the port's own copy of the reference's
+`deepdfa_tpu/data/pipeline.py:Example` and a reader of the
+`processed/<dataset>/examples.pkl` that `prepare` writes.
 
-That file pickles `deepdfa_tpu.data.pipeline.Example` objects, so a plain
-`pickle.load` would import the JAX package. `load_examples` unpickles
-with a `find_class` that maps that one class to the port's `Example`
-and refuses every other class of `deepdfa_tpu`; other modules resolve
-as usual (the file is the program's own output, as with any pickle).
+The port's `prepare` (`python -m deepdfa_tpu_torch.cli prepare`) pickles
+this module's `Example`; the reference's pickles
+`deepdfa_tpu.data.pipeline.Example`, which a plain `pickle.load` would
+resolve by importing the JAX package. `load_examples` reads both: its
+`find_class` maps the reference's class to the port's `Example` and
+refuses every other class of `deepdfa_tpu`; other modules resolve as
+usual (the file is the program's own output, as with any pickle). The
+reference cannot read the port's pickle.
 """
 
 from __future__ import annotations

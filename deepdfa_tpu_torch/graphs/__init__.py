@@ -11,7 +11,7 @@ from deepdfa_tpu_torch.graphs.batch import (
     plan_shard_bucket_batches,
     shard_bucket_batches,
 )
-from deepdfa_tpu_torch.graphs.store import GraphStore, load_shard
+from deepdfa_tpu_torch.graphs.store import GraphStore, file_digest, load_shard, save_shard
 
 __all__ = [
     "ARRAY_FIELDS",
@@ -22,9 +22,11 @@ __all__ = [
     "GraphSpec",
     "GraphStore",
     "bucket_batches",
+    "file_digest",
     "load_shard",
     "pack",
     "pack_plan",
     "plan_shard_bucket_batches",
+    "save_shard",
     "shard_bucket_batches",
 ]

@@ -83,8 +83,8 @@ class DeepDFA(nn.Module):
     def from_config(cls, cfg: ModelConfig, input_dim: int, **overrides) -> "DeepDFA":
         if cfg.struct_feats:
             raise NotImplementedError(
-                "model.struct_feats: the structural channels come with the "
-                "frontend slice of the port"
+                "model.struct_feats: the structural channels need frontend/structfeat.py, "
+                "which comes with a later frontend slice of the port (ROADMAP queue A, item 3)"
             )
         if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
             raise NotImplementedError(

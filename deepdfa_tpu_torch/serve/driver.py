@@ -1,6 +1,7 @@
 """Scoring drives: a started DynamicBatcher over an executor (the
 reference's `deepdfa_tpu/serve/driver.py:run_score`, from graphs and
-token ids instead of C sources — the frontend comes with a later slice).
+token ids; scoring C sources through the port's frontend, `cli score`
+and `cli serve` are ROADMAP queue A, item 3(b)).
 
 `score_graphs` (a `GgnnExecutor` over the DeepDFA GGNN) and
 `score_combined` (a `CombinedExecutor` over the DeepDFA+LineVul model or

@@ -1,9 +1,10 @@
 """The port stands alone: `deepdfa_tpu_torch` and `chip_smoke.py` load no
-`jax`, `flax` or `deepdfa_tpu` module, because the machine with the card
-has none of them; and `chip_smoke.py` refuses to run without a card or
-without the package beside it."""
+`jax`, `flax` or `deepdfa_tpu` module, nor `pandas` or `regex`, because
+the machine with the card has none of them; and `chip_smoke.py` refuses
+to run without a card or without the package beside it."""
 
 import ast
+import functools
 import json
 import shutil
 import subprocess
@@ -18,6 +19,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deepdfa_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "deepdfa_tpu")
+#: host libraries the reference uses that the card's machine lacks
+ABSENT_ON_CARD = ("pandas", "regex")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -33,15 +36,20 @@ print(json.dumps({"modules": names, "new": new}))
 
 
 def _forbidden(module: str) -> bool:
-    return module.split(".")[0] in FORBIDDEN
+    return module.split(".")[0] in FORBIDDEN + ABSENT_ON_CARD
 
 
-def test_importing_every_module_loads_no_jax():
+@functools.lru_cache(maxsize=1)
+def _import_report() -> dict:
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
         text=True, timeout=300, check=True,
     )
-    report = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_importing_every_module_loads_no_jax():
+    report = _import_report()
     expected = {
         "deepdfa_tpu_torch.core.config", "deepdfa_tpu_torch.graphs.batch",
         "deepdfa_tpu_torch.nn.cuda_build", "deepdfa_tpu_torch.nn.ggnn_kernel",
@@ -59,10 +67,23 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.train.transfer", "deepdfa_tpu_torch.nn.dropout",
         "deepdfa_tpu_torch.models.t5", "deepdfa_tpu_torch.tune.kernel",
         "deepdfa_tpu_torch.tune.ladder", "deepdfa_tpu_torch.tune.cache",
-        "deepdfa_tpu_torch.tune.driver",
+        "deepdfa_tpu_torch.tune.driver", "deepdfa_tpu_torch.frontend",
+        "deepdfa_tpu_torch.frontend.tokens", "deepdfa_tpu_torch.frontend.preproc",
+        "deepdfa_tpu_torch.frontend.cpg", "deepdfa_tpu_torch.frontend.parser",
+        "deepdfa_tpu_torch.frontend.reaching", "deepdfa_tpu_torch.frontend.deps",
+        "deepdfa_tpu_torch.frontend.absdf", "deepdfa_tpu_torch.frontend.vocab",
+        "deepdfa_tpu_torch.data.diffs", "deepdfa_tpu_torch.data.pipeline",
+        "deepdfa_tpu_torch.data.readers", "deepdfa_tpu_torch.data.synthetic",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
+
+
+def test_importing_every_module_loads_no_pandas_or_regex():
+    """The readers parse csv without pandas, and no module needs `regex`."""
+    report = _import_report()
+    assert "deepdfa_tpu_torch.data.readers" in report["modules"]
+    assert [m for m in report["new"] if m.split(".")[0] in ABSENT_ON_CARD] == []
 
 
 def _imports(path: Path) -> set[str]:
