@@ -130,6 +130,26 @@ prints one JSON line; any failure exits non-zero before the last line.
    nodes, the median ms and graphs/s of a train step timed alone
    (synchronized before and after), and the training loop's own rate
    (train graphs over each epoch's seconds, evaluation outside them);
+7k. serve_source — scoring and serving C sources over the pipeline's run
+   and storage root: the test split's functions written as .c files with
+   8 texts the frontend cannot parse, `cli score` on the card (every
+   extracted function ok, every text a failed row, each probability
+   within rtol 1e-4 / atol 1e-5 of `cli test --export`'s on the card and
+   of `cli score --device cpu`'s, kernel 1 n_steps times a batch in the
+   scoring window and no other kernel); `cli serve --port 0` as a
+   subprocess: /healthz (checkpoint tag, step, config digest) and /stats
+   200, malformed JSON 400, an unknown route 404, an unparseable
+   function 422, then 1024 /score requests drawn from the test split by
+   8 client threads, every one 200 with `cli score`'s probability
+   (rtol 1e-4), and the same requests again, every one a feature-cache
+   hit; requests/s, p50/p99 and mean batch occupancy of both passes;
+   then `cli train-combined` for 2 steps at codebert-base width (hash
+   tokenizer) on the pipeline's examples, and `cli score --family
+   combined` over 64 of the files from the run's model_cfg.json on the
+   card (kernel 5 once an encoder layer and kernel 1 n_steps times a
+   batch) and on the CPU (within 2e-2); the frontend's median ms a
+   function and `score`'s requests/s and p50/p99, beside nvidia-smi's
+   name and power limit;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -254,11 +274,11 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the twenty-two main
+21. kernels — every kernel with its launches on the twenty-three main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
-   four of 7g-7h, tune, tune_train and pipeline, each counted from 0,
-   and by path),
+   four of 7g-7h, tune, tune_train, pipeline and serve_source, each
+   counted from 0, and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -280,6 +300,7 @@ script.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -288,6 +309,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1715,22 +1737,36 @@ def predictions(path: Path) -> dict:
         return {int(r["id"]): float(r["prob"]) for r in csv.DictReader(f)}
 
 
-def pipeline_phase(torch):
+@contextlib.contextmanager
+def storage_root(root: Path):
+    """DEEPDFA_TPU_STORAGE set to `root` inside the block, restored after."""
+    import os
+
+    saved = os.environ.get("DEEPDFA_TPU_STORAGE")
+    os.environ["DEEPDFA_TPU_STORAGE"] = str(root)
+    try:
+        yield dict(os.environ)
+    finally:
+        if saved is None:
+            os.environ.pop("DEEPDFA_TPU_STORAGE", None)
+        else:
+            os.environ["DEEPDFA_TPU_STORAGE"] = saved
+
+
+def pipeline_phase(torch, tmp: Path):
     """The port's own data path: `prepare` of PIPELINE_FUNCTIONS seeded
     synthetic functions at Big-Vul tail sizes (a Devign-format json) and
-    `extract --workers 4` at the flagship config, each a subprocess under a
-    temporary storage root; then `cli
+    `extract --workers 4` at the flagship config, each a subprocess under
+    the storage root `tmp` (kept for serve_source); then `cli
     train` of the flagship model on the card in-process (2 epochs over
     every train graph: data.undersample=false, or an epoch is one step) and
     `cli test`, counted from 0: every example a graph or a missing id,
     every feature inside input_dim, losses finite, kernel 1 n_steps
     times a forward batch and B3, B4 n_steps times a backward batch, and
     the test split's probabilities on the card those of the same
-    checkpoint on the CPU plain path."""
-    import contextlib
+    checkpoint on the CPU plain path. Returns (launches, the card's test
+    probabilities by id)."""
     import io
-    import os
-    import tempfile
 
     import numpy as np
 
@@ -1746,100 +1782,91 @@ def pipeline_phase(torch):
         'run_name="pipeline"', f"train.max_epochs={PIPELINE_EPOCHS}",
         "train.log_every_steps=1", "data.undersample=false"])
     n_steps = cfg.model.n_steps
-    saved_env = os.environ.get("DEEPDFA_TPU_STORAGE")
-    with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, DEEPDFA_TPU_STORAGE=tmp)
-        os.environ["DEEPDFA_TPU_STORAGE"] = tmp
+    with storage_root(tmp) as env:
+        cfg_path = Path(tmp) / "pipeline.json"
+        config_mod.to_json(cfg, cfg_path)
+        seed = cfg.data.seed
+        source = Path(tmp) / "bigvul_sized.json"
+        synth = synthetic.generate(
+            PIPELINE_FUNCTIONS, seed=seed,
+            stmt_sizes=synthetic.bigvul_stmt_sizes(PIPELINE_FUNCTIONS, seed=seed))
+        source.write_text(json.dumps([{"func": x.before, "target": x.label}
+                                      for x in synth]))
+        prepare_s = run_port_cli(["prepare", "--source", str(source), "--config",
+                                  str(cfg_path)], env)
+        extract_s = run_port_cli(["extract", "--workers", str(PIPELINE_WORKERS),
+                                  "--config", str(cfg_path)], env)
+        out = Path(tmp) / "processed" / cfg.data.dataset
+        store_dir = out / cli.graphs_dirname(cfg)
+        examples = {e.id for e in load_examples(out / "examples.pkl")}
+        graphs = GraphStore(store_dir).load_all()
+        missing = {int(x) for x in (store_dir / "missing_ids.txt").read_text().split()}
+        if set(graphs) | missing != examples or set(graphs) & missing:
+            fail(f"pipeline: {len(examples)} examples, {len(graphs)} graphs, "
+                 f"{len(missing)} missing ids do not add up")
+        feats = np.concatenate([g.node_feats for g in graphs.values()])
+        input_dim = cfg.data.feat.input_dim
+        vocab = json.loads((out / f"vocab{cfg.data.feat.name}.json").read_text())
+        if (feats.shape[1] != 4 or feats.min() < 0 or feats.max() >= input_dim
+                or max(len(v["hashes"]) for v in vocab.values()) > cfg.data.feat.limit_all):
+            fail(f"pipeline: features {feats.shape} in [{feats.min()}, {feats.max()}] "
+                 f"exceed input_dim {input_dim}")
+        splits = cli.load_graph_splits(cfg)
+        val_batches = len(cli.epoch_batches(cfg, splits["val"], phase="eval"))
+        test_batches = len(cli.epoch_batches(cfg, splits["test"], phase="eval"))
+
+        # cli train on the card, each step timed (the loop syncs on every
+        # logged loss anyway at log_every_steps=1)
+        step_ms, step_graphs = [], []
+        train_step = loop.GraphTrainer.train_step
+
+        def timed_step(self, state, batch):
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            loss = train_step(self, state, batch)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t_a))
+            step_graphs.append(int(batch.graph_mask.sum()))
+            return loss
+
+        gk.reset_launch_counts()
+        loop.GraphTrainer.train_step = timed_step
+        t0 = time.perf_counter()
         try:
-            cfg_path = Path(tmp) / "pipeline.json"
-            config_mod.to_json(cfg, cfg_path)
-            seed = cfg.data.seed
-            source = Path(tmp) / "bigvul_sized.json"
-            synth = synthetic.generate(
-                PIPELINE_FUNCTIONS, seed=seed,
-                stmt_sizes=synthetic.bigvul_stmt_sizes(PIPELINE_FUNCTIONS, seed=seed))
-            source.write_text(json.dumps([{"func": x.before, "target": x.label}
-                                          for x in synth]))
-            prepare_s = run_port_cli(["prepare", "--source", str(source), "--config",
-                                      str(cfg_path)], env)
-            extract_s = run_port_cli(["extract", "--workers", str(PIPELINE_WORKERS),
-                                      "--config", str(cfg_path)], env)
-            out = Path(tmp) / "processed" / cfg.data.dataset
-            store_dir = out / cli.graphs_dirname(cfg)
-            examples = {e.id for e in load_examples(out / "examples.pkl")}
-            graphs = GraphStore(store_dir).load_all()
-            missing = {int(x) for x in (store_dir / "missing_ids.txt").read_text().split()}
-            if set(graphs) | missing != examples or set(graphs) & missing:
-                fail(f"pipeline: {len(examples)} examples, {len(graphs)} graphs, "
-                     f"{len(missing)} missing ids do not add up")
-            feats = np.concatenate([g.node_feats for g in graphs.values()])
-            input_dim = cfg.data.feat.input_dim
-            vocab = json.loads((out / f"vocab{cfg.data.feat.name}.json").read_text())
-            if (feats.shape[1] != 4 or feats.min() < 0 or feats.max() >= input_dim
-                    or max(len(v["hashes"]) for v in vocab.values()) > cfg.data.feat.limit_all):
-                fail(f"pipeline: features {feats.shape} in [{feats.min()}, {feats.max()}] "
-                     f"exceed input_dim {input_dim}")
-            splits = cli.load_graph_splits(cfg)
-            val_batches = len(cli.epoch_batches(cfg, splits["val"], phase="eval"))
-            test_batches = len(cli.epoch_batches(cfg, splits["test"], phase="eval"))
-
-            # cli train on the card, each step timed (the loop syncs on every
-            # logged loss anyway at log_every_steps=1)
-            step_ms, step_graphs = [], []
-            train_step = loop.GraphTrainer.train_step
-
-            def timed_step(self, state, batch):
-                torch.cuda.synchronize()
-                t_a = time.perf_counter()
-                loss = train_step(self, state, batch)
-                torch.cuda.synchronize()
-                step_ms.append(1e3 * (time.perf_counter() - t_a))
-                step_graphs.append(int(batch.graph_mask.sum()))
-                return loss
-
-            gk.reset_launch_counts()
-            loop.GraphTrainer.train_step = timed_step
-            t0 = time.perf_counter()
-            try:
-                with contextlib.redirect_stdout(io.StringIO()):
-                    cli.main(["train", "--config", str(cfg_path), "--device", CARD])
-            finally:
-                loop.GraphTrainer.train_step = train_step
-            train_s = time.perf_counter() - t0
-            train_counts = gk.launch_counts()
-            run = Path(tmp) / "runs" / "pipeline"
-            log = [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
-            epochs = [r for r in log if "epoch" in r]
-            steps = sum("step" in r for r in log)
-            # the loop's own rate: each epoch's train graphs over its
-            # epoch_seconds (steps and host packing; validation after)
-            epoch_graphs, done = [], 0
-            for r in log:
-                if "epoch" in r:
-                    n_before = sum(len(x) for x in epoch_graphs)
-                    epoch_graphs.append(step_graphs[n_before:done])
-                elif "step" in r:
-                    done += 1
-            losses = [r[k] for r in epochs for k in ("train_loss", "val_loss")]
-            if len(epochs) != PIPELINE_EPOCHS or steps != len(step_ms) or not all(
-                    math.isfinite(x) for x in losses + [r["loss"] for r in log if "step" in r]):
-                fail(f"pipeline: train logged {epochs}, {steps} steps ({len(step_ms)} timed)")
-
-            gk.reset_launch_counts()
-            t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
-                cli.main(["test", "--device", CARD, "--export", 'run_name="pipeline"'])
-            test_s = time.perf_counter() - t0
-            test_counts = gk.launch_counts()
-            card_probs = predictions(run / "predictions_test.csv")
-            with contextlib.redirect_stdout(io.StringIO()):
-                cli.main(["test", "--device", "cpu", "--export", 'run_name="pipeline"'])
-            cpu_probs = predictions(run / "predictions_test.csv")
+                cli.main(["train", "--config", str(cfg_path), "--device", CARD])
         finally:
-            if saved_env is None:
-                os.environ.pop("DEEPDFA_TPU_STORAGE", None)
-            else:
-                os.environ["DEEPDFA_TPU_STORAGE"] = saved_env
+            loop.GraphTrainer.train_step = train_step
+        train_s = time.perf_counter() - t0
+        train_counts = gk.launch_counts()
+        run = Path(tmp) / "runs" / "pipeline"
+        log = [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
+        epochs = [r for r in log if "epoch" in r]
+        steps = sum("step" in r for r in log)
+        # the loop's own rate: each epoch's train graphs over its
+        # epoch_seconds (steps and host packing; validation after)
+        epoch_graphs, done = [], 0
+        for r in log:
+            if "epoch" in r:
+                n_before = sum(len(x) for x in epoch_graphs)
+                epoch_graphs.append(step_graphs[n_before:done])
+            elif "step" in r:
+                done += 1
+        losses = [r[k] for r in epochs for k in ("train_loss", "val_loss")]
+        if len(epochs) != PIPELINE_EPOCHS or steps != len(step_ms) or not all(
+                math.isfinite(x) for x in losses + [r["loss"] for r in log if "step" in r]):
+            fail(f"pipeline: train logged {epochs}, {steps} steps ({len(step_ms)} timed)")
+
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["test", "--device", CARD, "--export", 'run_name="pipeline"'])
+        test_s = time.perf_counter() - t0
+        test_counts = gk.launch_counts()
+        card_probs = predictions(run / "predictions_test.csv")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["test", "--device", "cpu", "--export", 'run_name="pipeline"'])
+        cpu_probs = predictions(run / "predictions_test.csv")
     fwd = n_steps * (steps + PIPELINE_EPOCHS * val_batches)
     want = {"LAUNCHES": fwd, "GRU_BWD_LAUNCHES": n_steps * steps,
             "DMSG_LAUNCHES": n_steps * steps}
@@ -1885,7 +1912,307 @@ def pipeline_phase(torch):
           "test_prob_max_abs_err": prob_err, "test_examples": len(ids)})
     return {"ggnn_step": train_counts["LAUNCHES"] + test_counts["LAUNCHES"],
             "ggnn_gru_bwd": train_counts["GRU_BWD_LAUNCHES"],
-            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]}
+            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]}, card_probs
+
+
+#: serve_source: the HTTP load and its clients, the combined run's steps
+SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 1024, 8
+SERVE_COMBINED_TRAIN, SERVE_COMBINED_VAL, SERVE_COMBINED_FILES = 32, 16, 64
+SERVE_COMBINED_ENCODER = "codebert-base"
+# combined scores, card (bf16) vs the CPU plain path
+SERVE_COMBINED_TOL = 2e-2
+#: texts the C frontend cannot turn into a graph (422 over HTTP)
+UNPARSEABLE_TEXTS = ("not a function @@@", "", "}}}} ;;", "int x;", "#include <x.h>",
+                     "return 1;", "x = 1", "if (x) { y(); }")
+
+
+def cli_summary(cli, args: list[str]) -> dict:
+    """`cli.main(args)` in this process; the JSON summary it prints last."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(args)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def score_rows(path: Path) -> dict:
+    """{name: row} of a scores.jsonl."""
+    return {r["name"]: r for r in map(json.loads, path.read_text().splitlines())}
+
+
+def http_call(port: int, method: str, path: str, body: bytes | None = None):
+    """(status, JSON body, seconds) of one request to localhost:port."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"} if body else {})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return resp.status, json.loads(data or b"{}"), time.perf_counter() - t0
+
+
+def http_load(port: int, codes: list[str]) -> dict:
+    """POST /score of every code from SERVE_CLIENTS threads; statuses,
+    probabilities and client latencies in submission order, and the wall
+    seconds of the whole load."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(code):
+        st, body, dt = http_call(port, "POST", "/score", json.dumps({"code": code}).encode())
+        return st, body.get("prob"), dt
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        got = list(pool.map(one, codes))
+    wall = time.perf_counter() - t0
+    lat = sorted(dt for _, _, dt in got)
+    return {"status": [st for st, _, _ in got], "probs": [p for _, p, _ in got],
+            "seconds": wall, "requests_per_sec": len(codes) / wall,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+
+def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dict:
+    """Scoring and serving C sources on the card over the pipeline
+    phase's run (storage root `tmp`): `cli score` of the test split's
+    functions written as .c files plus the unparseable texts, on the card
+    and on the CPU plain path, held against `cli test --export`'s card
+    probabilities (`card_test_probs`) and each other; `cli serve` as a
+    subprocess on a free port under HTTP load; `cli train-combined` for 2
+    steps at codebert-base width on the pipeline's examples and `cli
+    score --family combined` on the card and the CPU. Returns the launches
+    of the card's scoring runs."""
+    import io
+    import signal
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.data import load_examples
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    run = tmp / "runs" / "pipeline"
+    cfg = config_mod.load(run / "config.json")
+    n_steps = cfg.model.n_steps
+    out = tmp / "processed" / cfg.data.dataset
+    splits = json.loads((out / "splits.json").read_text())
+    examples = {e.id: e for e in load_examples(out / "examples.pkl")}
+    graphs = set(GraphStore(out / cli.graphs_dirname(cfg)).load_all())
+    test_ids = sorted(int(k) for k, v in splits.items() if v == "test")
+    src = tmp / "serve_src"
+    src.mkdir()
+    for i in test_ids:
+        (src / f"fn_{i:06d}.c").write_text(examples[i].code)
+    for k, text in enumerate(UNPARSEABLE_TEXTS):
+        (src / f"zz_unparseable_{k}.c").write_text(text)
+    want_ok = {str(src / f"fn_{i:06d}.c") for i in test_ids if i in graphs}
+    run_arg = ["--override", 'run_name="pipeline"']
+    report: dict = {"phase": "serve_source", "nvidia_smi": smi,
+                    "test_functions": len(test_ids), "unparseable": len(UNPARSEABLE_TEXTS)}
+    paths: dict = {}
+    with storage_root(tmp) as env:
+        # 1. cli score from source, on the card, then on the CPU
+        (run / "serve_log.jsonl").unlink(missing_ok=True)
+        gk.reset_launch_counts()
+        card = cli_summary(cli, ["score", str(src), "--out", str(tmp / "scores_card.jsonl"),
+                                 "--device", CARD, "--override", "serve.request_log=true",
+                                 *run_arg])
+        counts = gk.launch_counts()
+        log = [json.loads(x) for x in (run / "serve_log.jsonl").read_text().splitlines()]
+        frontend_ms = [e["request"]["frontend_ms"] for e in log
+                       if "request" in e and e["request"]["status"] == 200]
+        card_rows = score_rows(tmp / "scores_card.jsonl")
+        cpu = cli_summary(cli, ["score", str(src), "--out", str(tmp / "scores_cpu.jsonl"),
+                                "--device", "cpu", *run_arg])
+        cpu_rows = score_rows(tmp / "scores_cpu.jsonl")
+        ok = {n for n, r in card_rows.items() if r["ok"]}
+        if ok != want_ok or {n for n, r in cpu_rows.items() if r["ok"]} != want_ok:
+            fail(f"serve_source: {len(ok)} sources scored on the card, {len(want_ok)} expected "
+                 f"(every extracted test function; the {len(UNPARSEABLE_TEXTS)} texts fail)")
+        names = sorted(want_ok)
+        got = np.array([card_rows[n]["prob"] for n in names])
+        want = np.array([card_test_probs[int(Path(n).stem[3:])] for n in names])
+        plain = np.array([cpu_rows[n]["prob"] for n in names])
+        err_test = float(np.max(np.abs(got - want)))
+        err_cpu = float(np.max(np.abs(got - plain)))
+        if not (np.allclose(got, want, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+                and np.allclose(got, plain, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)):
+            fail(f"serve_source: scores from source differ from `test --export` by {err_test} "
+                 f"and from the CPU plain path by {err_cpu}")
+        # the scoring window launched kernel 1 n_steps times a batch and no
+        # other kernel; the service's warm-up ran each ladder rung once
+        window = {k: v for k, v in card.items() if k.endswith("_launches") and v}
+        warm = {k: v for k, v in counts.items() if v} == {
+            "LAUNCHES": card["ggnn_step_launches"] + n_steps * len(cli_ladder(cfg))}
+        if window != {"ggnn_step_launches": n_steps * card["serve_batches"]} or not warm:
+            fail(f"serve_source: score launched {window} in its window, {counts} in all; "
+                 f"expected {n_steps} x {card['serve_batches']} batches and no other kernel")
+        paths["ggnn_step"] = counts["LAUNCHES"]
+        report.update(
+            scored=card["serve_scored"], failed=card["serve_failed_requests"],
+            score_requests_per_sec=card["serve_requests_per_sec"],
+            score_p50_ms=card["serve_latency_p50_ms"], score_p99_ms=card["serve_latency_p99_ms"],
+            score_batches=card["serve_batches"],
+            score_batch_occupancy_mean=card["serve_batch_occupancy_mean"],
+            score_launches=card["ggnn_step_launches"],
+            frontend_ms_median=statistics.median(frontend_ms),
+            frontend_ms_p99=sorted(frontend_ms)[int(0.99 * len(frontend_ms))],
+            vs_test_export_max_abs_err=err_test, vs_cpu_max_abs_err=err_cpu,
+            cpu_requests_per_sec=cpu["serve_requests_per_sec"])
+
+        # 2. cli serve as a subprocess on a free port, under HTTP load
+        err_log = tmp / "serve_stderr.log"
+        with err_log.open("w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "deepdfa_tpu_torch.cli", "serve", "--port", "0",
+                 "--device", CARD, *run_arg],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            t0 = time.perf_counter()
+            line = proc.stdout.readline()
+            if not line:
+                fail(f"serve_source: cli serve ended: {err_log.read_text()[-3000:]}")
+            hello = json.loads(line)
+            port = hello["port"]
+            report["serve_start_seconds"] = time.perf_counter() - t0
+            h_st, health, _ = http_call(port, "GET", "/healthz")
+            s_st, _, _ = http_call(port, "GET", "/stats")
+            bad_st = http_call(port, "POST", "/score", b"{not json")[0]
+            route_st = http_call(port, "GET", "/no-such-route")[0]
+            unparse_st = http_call(port, "POST", "/score",
+                                   json.dumps({"code": UNPARSEABLE_TEXTS[0]}).encode())[0]
+            statuses = (h_st, s_st, bad_st, route_st, unparse_st)
+            if statuses != (200, 200, 400, 404, 422) or any(
+                    health.get(k) is None for k in ("checkpoint", "checkpoint_step",
+                                                    "config_digest")):
+                fail(f"serve_source: healthz/stats/bad json/route/unparseable answered "
+                     f"{statuses}; healthz {health}")
+            rng = np.random.default_rng(16)
+            picks = [names[i] for i in rng.integers(0, len(names), SERVE_LOAD_REQUESTS)]
+            codes = [Path(n).read_text() for n in picks]
+            want_http = np.array([card_rows[n]["prob"] for n in picks])
+            passes = {}
+            for name in ("load", "cached"):
+                before = http_call(port, "GET", "/stats")[1]
+                res = http_load(port, codes)
+                after = http_call(port, "GET", "/stats")[1]
+                if set(res["status"]) != {200}:
+                    fail(f"serve_source: the {name} pass answered {sorted(set(res['status']))}")
+                probs = np.array(res["probs"])
+                if not np.allclose(probs, want_http, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL):
+                    fail(f"serve_source: HTTP scores differ from `cli score`'s by "
+                         f"{float(np.max(np.abs(probs - want_http)))}")
+                hits = after["feature_cache_hits"] - before["feature_cache_hits"]
+                misses = after["feature_cache_misses"] - before["feature_cache_misses"]
+                passes[name] = {
+                    **{k: res[k] for k in ("seconds", "requests_per_sec", "p50_ms", "p99_ms")},
+                    "cache_hit_share": hits / (hits + misses),
+                    "batches": after["batches"] - before["batches"],
+                    "batch_occupancy_mean": after["batch_occupancy_mean"],
+                    "max_abs_err": float(np.max(np.abs(probs - want_http)))}
+            if passes["cached"]["cache_hit_share"] != 1.0:
+                fail(f"serve_source: the repeat pass hit the feature cache "
+                     f"{passes['cached']['cache_hit_share']} of the time")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            if rc != 0:
+                fail(f"serve_source: cli serve exited {rc} on SIGTERM: "
+                     f"{err_log.read_text()[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        report.update(http_healthz=health, http=passes)
+
+        # 3. the combined family: 2 train-combined steps, then score
+        ids = {s: sorted(int(k) for k, v in splits.items() if v == s and int(k) in graphs)
+               for s in ("train", "val")}
+        ds = tmp / "processed" / "pipeline-combined"
+        ds.mkdir()
+        for name in ("examples.pkl", f"vocab{cfg.data.feat.name}.json",
+                     cli.graphs_dirname(cfg)):
+            (ds / name).symlink_to(out / name)
+        (ds / "splits.json").write_text(json.dumps(
+            {**{str(i): "train" for i in ids["train"][:SERVE_COMBINED_TRAIN]},
+             **{str(i): "val" for i in ids["val"][:SERVE_COMBINED_VAL]}}))
+        ccfg = config_mod.apply_overrides(load(COMBINED_CONFIG), [
+            'run_name="serve-combined"', 'data.dataset="pipeline-combined"',
+            "train.max_epochs=1", "train.log_every_steps=1"])
+        ccfg_path = tmp / "serve_combined.json"
+        config_mod.to_json(ccfg, ccfg_path)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["train-combined", "--config", str(ccfg_path), "--encoder",
+                      SERVE_COMBINED_ENCODER, "--max-length", "512", "--device", CARD])
+        crun = tmp / "runs" / "serve-combined"
+        steps = sum("step" in json.loads(x)
+                    for x in (crun / "train_log.jsonl").read_text().splitlines())
+        if steps != 2 or not (crun / "model_cfg.json").exists():
+            fail(f"serve_source: train-combined took {steps} steps (2 expected) or wrote no "
+                 "model_cfg.json")
+        report["combined_train_seconds"] = time.perf_counter() - t0
+        csrc = tmp / "serve_src_combined"
+        csrc.mkdir()
+        for n in names[:SERVE_COMBINED_FILES]:
+            (csrc / Path(n).name).write_text(Path(n).read_text())
+        crun_arg = ["--family", "combined", "--override", 'run_name="serve-combined"',
+                    "--override", f"data.seq_buckets={json.dumps(COMBINED_BUCKETS)}"]
+        gk.reset_launch_counts()
+        reset_flash(fa)
+        comb = cli_summary(cli, ["score", str(csrc), "--out", str(tmp / "comb_card.jsonl"),
+                                 "--device", CARD, *crun_arg])
+        ccounts = {"ggnn_step": gk.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+        t0 = time.perf_counter()
+        comb_cpu = cli_summary(cli, ["score", str(csrc), "--out", str(tmp / "comb_cpu.jsonl"),
+                                     "--device", "cpu", *crun_arg])
+        comb_cpu_s = time.perf_counter() - t0
+        rows_card, rows_cpu = score_rows(tmp / "comb_card.jsonl"), score_rows(tmp / "comb_cpu.jsonl")
+        layers = json.loads((crun / "model_cfg.json").read_text())["encoder"]["num_layers"]
+        if comb["serve_scored"] != SERVE_COMBINED_FILES or comb_cpu["serve_scored"] != \
+                SERVE_COMBINED_FILES:
+            fail(f"serve_source: combined scored {comb['serve_scored']} on the card, "
+                 f"{comb_cpu['serve_scored']} on the CPU, of {SERVE_COMBINED_FILES}")
+        cp = np.array([rows_card[n]["prob"] for n in sorted(rows_card)])
+        pp = np.array([rows_cpu[n]["prob"] for n in sorted(rows_card)])
+        comb_err = float(np.max(np.abs(cp - pp)))
+        if not np.all(np.isfinite(cp)) or comb_err > SERVE_COMBINED_TOL:
+            fail(f"serve_source: combined card vs CPU scores differ by {comb_err}")
+        if (comb["flash_fwd_launches"] != layers * comb["serve_batches"]
+                or comb["ggnn_step_launches"] != n_steps * comb["serve_batches"]):
+            fail(f"serve_source: combined score launched {comb['flash_fwd_launches']} flash "
+                 f"and {comb['ggnn_step_launches']} GGNN kernels over {comb['serve_batches']} "
+                 f"batches ({layers} layers, {n_steps} steps)")
+        paths["ggnn_step"] += ccounts["ggnn_step"]
+        paths["flash_fwd"] = ccounts["flash_fwd"]
+        report["combined"] = {
+            "functions": SERVE_COMBINED_FILES, "encoder": SERVE_COMBINED_ENCODER,
+            "layers": layers, "batches": comb["serve_batches"],
+            "flash_fwd_launches": comb["flash_fwd_launches"],
+            "ggnn_step_launches": comb["ggnn_step_launches"],
+            "requests_per_sec": comb["serve_requests_per_sec"],
+            "p50_ms": comb["serve_latency_p50_ms"], "p99_ms": comb["serve_latency_p99_ms"],
+            "vs_cpu_max_abs_err": comb_err, "cpu_seconds": comb_cpu_s}
+    report["launches"] = paths
+    emit(report)
+    return paths
+
+
+def cli_ladder(cfg) -> tuple[int, ...]:
+    """The serve ladder `cli score` warms for `cfg` (no tuned rungs)."""
+    from deepdfa_tpu_torch.serve.batcher import _ladder_sizes
+
+    return _ladder_sizes(None, cfg.serve.max_batch_graphs)
+
 
 
 def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
@@ -3758,7 +4085,9 @@ def main() -> None:
                                 variant_probs["int8", "per_step"])
     train_mxu = train_mxu_phase(torch, mrng)
     tune_paths = tune_phase(torch, mrng)
-    pipeline_launches = pipeline_phase(torch)
+    with tempfile.TemporaryDirectory() as pipeline_root:
+        pipeline_launches, test_probs = pipeline_phase(torch, Path(pipeline_root))
+        serve_source_launches = serve_source_phase(torch, Path(pipeline_root), test_probs, smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
@@ -3789,7 +4118,7 @@ def main() -> None:
              "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
              "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
-             "pipeline": pipeline_launches}
+             "pipeline": pipeline_launches, "serve_source": serve_source_launches}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

@@ -7,7 +7,9 @@ the CodeT5 generation family, on one device (the reference's
 `tune`, `deepdfa_tpu/cli/main.py:cmd_prepare`, `cmd_extract_vocab`,
 `cmd_extract`, `cmd_train`, `cmd_test`, `cmd_train_combined`,
 `cmd_train_gen`, `cmd_train_multi_gen`, `cmd_train_clone` and
-`cmd_tune`), and tune the GGNN kernel layout on the card.
+`cmd_tune`), tune the GGNN kernel layout on the card, and score and
+serve C sources against a trained run (`score`, `serve`: `cmd_score`,
+`cmd_serve`).
 
     python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
         [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
@@ -26,6 +28,10 @@ the CodeT5 generation family, on one device (the reference's
     python -m deepdfa_tpu_torch.cli train-clone --train-file F [--dev-file F] [--test-file F]
     python -m deepdfa_tpu_torch.cli tune [--smoke] [--out F] [--serve-log F] [--manifest F] \
         [--skip-kernel] [--config F] [--override key=value ...] [--device cpu]
+    python -m deepdfa_tpu_torch.cli score SRC... [--family deepdfa|combined|t5] [--out F] \
+        [--smoke] [--config F] [--override key=value ...] [--device cpu]
+    python -m deepdfa_tpu_torch.cli serve [--host H] [--port P] [--family F] [--smoke] \
+        [--config F] [--override key=value ...] [--device cpu]
 
 `prepare`, `extract-vocab` and `extract` are host commands (no
 `--device`). `prepare` reads a dataset (the seeded synthetic corpus, a
@@ -81,6 +87,20 @@ numerics verdict, into a hardware-keyed `tuned.json`
 (`<storage>/tuned.json` or `tune.path`); with `tune.enabled=true`,
 `train` and `train-combined` fold the record matching this card into
 their config first and print `[tune] {"matched", "overrides"}`.
+
+`score` and `serve` restore `runs/<run_name>/` (`--override
+run_name='"..."'`; its saved `config.json` unless `--config` is given)
+through `serve/registry.py`: the `serve.checkpoint` tag of
+`checkpoints-torch/` (`--family deepdfa`) or, with the run's
+`model_cfg.json` that `train-combined` writes, of
+`checkpoints-combined-torch/` (`combined`, `t5`), and the run's
+vocabulary. `score` writes `scores.jsonl` ({"name", "request_id", "ok",
+"prob" | "error"} a source) and prints the summary; `serve` answers
+`POST /score` {"code": ...}, `GET /healthz` and `GET /stats` with the
+reference's status codes (serve/server.py). `serve.hot_swap=true`
+reloads a moved tag between batches. Refused: `serve.use_joern`,
+`serve.cascade`, `serve.lines`, a `tag@int8` checkpoint and
+`serve.pipeline_depth > 0`.
 """
 
 from __future__ import annotations
@@ -88,7 +108,6 @@ from __future__ import annotations
 import argparse
 import csv
 import json
-import os
 import sys
 from pathlib import Path
 
@@ -96,40 +115,16 @@ import numpy as np
 
 from deepdfa_tpu_torch.core import config as config_mod
 from deepdfa_tpu_torch.core.config import Config
+from deepdfa_tpu_torch.core.paths import (
+    CHECKPOINTS_DIR,
+    COMBINED_CHECKPOINTS_DIR,
+    graphs_dirname,
+    processed_dir,
+    runs_dir,
+)
 
-CHECKPOINTS_DIR = "checkpoints-torch"
-COMBINED_CHECKPOINTS_DIR = "checkpoints-combined-torch"
 #: rows of a fixed (unbucketed) combined batch: the LineVul recipe's 16
 FIXED_ROWS = 16
-
-
-# -- storage layout (own copy of the reference's core/paths.py) -------------
-
-
-def storage_root() -> Path:
-    root = os.environ.get("DEEPDFA_TPU_STORAGE")
-    return Path(root) if root else Path(__file__).resolve().parents[1] / "storage"
-
-
-def _sub(kind: str, name: str | None = None) -> Path:
-    p = storage_root() / kind
-    if name is not None:
-        p = p / name
-    p.mkdir(parents=True, exist_ok=True)
-    return p
-
-
-def processed_dir(dataset: str) -> Path:
-    return _sub("processed", dataset)
-
-
-def runs_dir(run_name: str) -> Path:
-    return _sub("runs", run_name)
-
-
-def graphs_dirname(cfg: Config) -> str:
-    suffix = "" if cfg.data.gtype == "cfg" else f"_gtype_{cfg.data.gtype}"
-    return f"graphs{cfg.data.feat.name}{suffix}"
 
 
 # -- data ---------------------------------------------------------------------
@@ -400,17 +395,27 @@ def cmd_extract(args) -> None:
     print(f"extracted {len(specs)}/{len(examples)} graphs -> {store.directory}")
 
 
-def _apply_tuned(cfg: Config, device) -> Config:
+def _apply_tuned(cfg: Config, device, serve_side: bool = False) -> Config:
     """Under tune.enabled, fold the tuned.json record matching this
-    card and the data.batch budgets into the config (the reference's
-    `_apply_tuned`): the winning kernel layout and fitted seq-bucket
-    edges; printed as `[tune] ...`. A mismatch or a missing file falls
-    back to the config as it is, loudly (tune/cache.py)."""
+    card into the config (the reference's `_apply_tuned`); printed as
+    `[tune] ...`. Training takes the winning kernel layout and the
+    fitted seq-bucket edges, keyed at the data.batch budgets; serving
+    (`score`, `serve`) takes the kernel layout only, keyed at the serve
+    budgets (its ladder rungs and bucket edges reach the executors
+    through ScoringService, so the registry's digest never sees a tuned
+    data section). A mismatch or a missing file falls back to the
+    config as it is, loudly (tune/cache.py)."""
     if not cfg.tune.enabled:
         return cfg
     from deepdfa_tpu_torch.tune import cache as tune_cache
 
-    cfg, report = tune_cache.apply_to_config(cfg, device=device)
+    if serve_side:
+        node_budget, edge_budget = config_mod.serve_budgets(cfg)
+        cfg, report = tune_cache.apply_to_config(cfg, sections=("kernel",),
+                                                 node_budget=node_budget,
+                                                 edge_budget=edge_budget, device=device)
+    else:
+        cfg, report = tune_cache.apply_to_config(cfg, device=device)
     print("[tune] " + json.dumps(report), flush=True)
     return cfg
 
@@ -537,6 +542,7 @@ def cmd_train_combined(args) -> None:
         plan_bucketed_batches,
     )
     from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.serve.cascade import save_model_setup
     from deepdfa_tpu_torch.train import CheckpointManager, CombinedTrainer, undersample_epoch
 
     cfg = _apply_tuned(_load_config(args), args.device)
@@ -546,6 +552,11 @@ def cmd_train_combined(args) -> None:
     out_dir = processed_dir(cfg.data.dataset)
     run_dir = runs_dir(cfg.run_name)
     config_mod.to_json(cfg, run_dir / "config.json")
+    # the run-dir model manifest: serving rebuilds the tokenizer and the
+    # encoder config from it, never from re-supplied CLI arguments
+    save_model_setup(run_dir, "t5" if args.arch == "t5" else "combined", mcfg,
+                     {"kind": "hash", "vocab_size": tok.vocab_size,
+                      "t5_frame": args.arch == "t5"}, args.max_length)
     examples = load_examples(out_dir / "examples.pkl")
     splits = json.loads((out_dir / "splits.json").read_text())
     graphs_by_id = {} if args.no_graph else GraphStore(out_dir / graphs_dirname(cfg)).load_all()
@@ -909,6 +920,69 @@ def cmd_tune(args) -> None:
                          + "; ".join(verdict["problems"]))
 
 
+# -- scoring and serving C sources (the reference's cmd_score, cmd_serve) -----
+
+
+def cmd_score(args) -> None:
+    """Offline scoring of C source files against a trained checkpoint
+    through the online path (cached frontend -> dynamic batcher -> the
+    model on the card): one row a source in `scores.jsonl` (or --out)
+    and the summary on stdout. --smoke trains a tiny run first and
+    fails unless every source scored."""
+    from deepdfa_tpu_torch.serve import driver
+
+    if args.smoke:
+        cfg, run_dir, sources_dir = driver.build_smoke_run(extra_overrides=args.overrides,
+                                                           device=args.device)
+        sources = driver.collect_sources([str(sources_dir)])
+    else:
+        if not args.sources:
+            raise SystemExit("score needs source files/dirs (or --smoke)")
+        cfg = _apply_tuned(_load_run_config(args), args.device, serve_side=True)
+        run_dir = runs_dir(cfg.run_name)
+        sources = driver.collect_sources(args.sources)
+    summary = driver.run_score(cfg, run_dir, sources, out_path=args.out, family=args.family,
+                               device=args.device)
+    print(json.dumps(summary), flush=True)
+    if args.smoke and summary["serve_scored"] != len(sources):
+        raise SystemExit(f"score smoke contract violated: {summary['serve_scored']} of "
+                         f"{len(sources)} sources scored")
+
+
+def cmd_serve(args) -> None:
+    """The online scoring service: stdlib HTTP `POST /score`, `GET
+    /healthz` and `GET /stats` over the dynamic batcher, on --host and
+    --port (0 picks a free port; the first stdout line names it).
+    --smoke serves a tiny run on a free port, round-trips real requests
+    and exits non-zero unless every status is the contract's."""
+    from deepdfa_tpu_torch.serve import driver
+    from deepdfa_tpu_torch.serve.registry import ModelRegistry
+    from deepdfa_tpu_torch.serve.server import ScoringService, serve_forever
+
+    if args.smoke:
+        report = driver.run_serve_smoke(extra_overrides=args.overrides, device=args.device)
+        print(json.dumps(report), flush=True)
+        health = report["healthz"]
+        bad = (
+            any(s["status"] != 200 for s in report["scored"])
+            or report["reject_status"] != 422
+            or report["bad_json_status"] != 400
+            or report["no_code_status"] != 400
+            or report["unknown_route_status"] != 404
+            or report["healthz_status"] != 200
+            or any(health.get(k) is None for k in ("checkpoint", "checkpoint_step",
+                                                   "config_digest"))
+            or report["stats_status"] != 200
+        )
+        if bad:
+            raise SystemExit("serve smoke contract violated (see report)")
+        return
+    cfg = _apply_tuned(_load_run_config(args), args.device, serve_side=True)
+    registry = ModelRegistry(runs_dir(cfg.run_name), family=args.family,
+                             checkpoint=cfg.serve.checkpoint, cfg=cfg, device=args.device)
+    serve_forever(ScoringService(registry, cfg), args.host, args.port)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m deepdfa_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -1076,6 +1150,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu (the plain PyTorch path)")
     p.set_defaults(fn=cmd_tune)
+
+    def serve_common(p):
+        p.add_argument("--family", default="deepdfa", choices=["deepdfa", "combined", "t5"])
+        p.add_argument("--smoke", action="store_true",
+                       help="a tiny run trained first, under the storage root (tests)")
+        # no positional overrides: score's positionals are its sources
+        p.add_argument("--config", default=None, help="json config file")
+        p.add_argument("--override", action="append", default=[], dest="overrides",
+                       help="dotted key=value config override (repeatable)")
+        p.add_argument("--device", default=None,
+                       help="cuda (default) or cpu (the plain PyTorch path)")
+
+    p = sub.add_parser("score", help="score C source files/dirs against a run's checkpoint "
+                                     "through the serving path")
+    p.add_argument("sources", nargs="*", help="C source files or directories")
+    p.add_argument("--out", default=None, help="scores jsonl path (default <run>/scores.jsonl)")
+    serve_common(p)
+    p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("serve", help="HTTP /score /healthz /stats over the dynamic batcher")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8471, help="0 picks a free port")
+    serve_common(p)
+    p.set_defaults(fn=cmd_serve)
     return parser
 
 

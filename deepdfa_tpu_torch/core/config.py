@@ -4,14 +4,14 @@ It reads the same JSON files as the JAX package (`configs/*.json`,
 `config.json` in a run dir) and keeps the sections this port runs: the
 feature spec, batch budgets, split and sampling fields and the text
 buckets (`seq_buckets`, `token_budget`) of `data`, all of
-`model`, the batcher fields of `serve`, and the one-card training fields
+`model`, the batcher, registry and frontend fields of `serve`, and the one-card training fields
 of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
 resilience switch, which must say "one card, off", and the
 `debug_nans`/`enable_checks` sanitizer switches, which must be off),
 the `obs` switches (which must be off) and the autotuner's `tune`
 section. Field names and defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
 file configures both packages. Keys the port does not run yet (the
-rest of observability, fleet, the frontend, the prefetch pipeline and
+rest of observability, fleet, the Joern pool, the prefetch pipeline and
 `train.step_cache_entries`, which sizes the reference's cache of
 compiled steps) are read past; the JAX package validates them.
 """
@@ -154,7 +154,13 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """The dynamic batcher's knobs (serve/batcher.py)."""
+    """The serving knobs the port runs: the dynamic batcher's
+    (serve/batcher.py), the registry's (serve/registry.py), the request
+    frontend's (serve/frontend.py) and the request log's
+    (serve/server.py). `use_joern`, `lines` and `cascade` are read so
+    that turning one on is refused by name (`refuse_unported_serving`);
+    the reference's SLO windows, health probe, Joern pool and
+    localization tuning keys are read past."""
 
     # bounded request queue; submissions beyond this raise QueueFull
     queue_limit: int = 256
@@ -168,6 +174,20 @@ class ServeConfig:
     # > 0 overlaps host work with the device in the reference; the port
     # runs the serial path (0) only in this slice
     pipeline_depth: int = 0
+    # the checkpoint tag the registry serves (best | last | a history tag)
+    checkpoint: str = "best"
+    # between batches, poll the checkpoint manifest and hot-swap the
+    # weights when the tracked tag moved (same config and vocab digests)
+    hot_swap: bool = False
+    # content-keyed feature cache entries; 0 disables
+    feature_cache_entries: int = 1024
+    # Joern CPG extraction instead of the built-in parser: refused
+    use_joern: bool = False
+    # one {"request": {...}} line a request in <run_dir>/serve_log.jsonl
+    request_log: bool = False
+    # served line attributions and the two-stage cascade: refused
+    lines: bool = False
+    cascade: bool = False
 
 
 @dataclass(frozen=True)
@@ -308,6 +328,28 @@ def refuse_unported_training(cfg: Config) -> None:
             f"obs={cfg.obs}: the telemetry instruments come with a later slice of the "
             "port (ROADMAP queue A, item 10)"
         )
+
+
+def refuse_unported_serving(cfg: Config) -> None:
+    """NotImplementedError for the serving options the port does not run,
+    each naming the ROADMAP queue A item that brings it: the Joern
+    frontend (item 3), the cascade (item 4), line attributions (item 5)
+    and the pipelined batcher (item 6); a quantized `tag@int8`
+    checkpoint (item 6) is refused by the registry."""
+    scfg = cfg.serve
+    refused = {
+        "serve.use_joern=true: the Joern CPG importer and session pool are not "
+        "ported (ROADMAP queue A, item 3); the built-in parser serves": scfg.use_joern,
+        "serve.cascade=true: the two-stage cascade is not ported (ROADMAP queue A, "
+        "item 4)": scfg.cascade,
+        "serve.lines=true: served line attributions are not ported (ROADMAP queue A, "
+        "item 5)": scfg.lines,
+        "serve.pipeline_depth > 0: the pipelined batcher is not ported (ROADMAP queue A, "
+        "item 6); use 0 (serial)": bool(scfg.pipeline_depth),
+    }
+    for what, asked in refused.items():
+        if asked:
+            raise NotImplementedError(what)
 
 
 #: relation count each gtype produces (the reference's pipeline.extract_graph)

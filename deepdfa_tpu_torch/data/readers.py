@@ -20,7 +20,9 @@ on: an empty header cell at position i is the column `Unnamed: i`, a
 missing cell or one of pandas' default NA strings is NaN (so `str()` of
 it is "nan"), blank lines are skipped, and a quoted cell may span lines.
 Column types are not inferred: ids and labels are converted where they
-are read, as the reference's `int()`/`float()` calls do.
+are read, as the reference's `int()`/`float()` calls do; the one column
+whose values are compared and sorted, `cross_project_splits`'s
+`project`, is typed as pandas types it (`_typed_column`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import csv
 import dataclasses
 import json
 import math
+import re
 import sys
 from pathlib import Path
 from typing import Iterable, Sequence
@@ -250,6 +253,19 @@ def read_splits_csv(path: str | Path) -> dict[int, str]:
     return mapping
 
 
+_INT_CELL = re.compile(r"\s*[+-]?\d+\s*")
+
+
+def _typed_column(rows: list[Row], column: str) -> list[Row]:
+    """`column` typed as pandas types it: ints when every non-NaN cell
+    parses as one (pandas makes such a column int64, or float64 beside a
+    NaN; either sorts and compares as numbers), else the text as read."""
+    cells = [r[column] for r in rows if not _isnan(r[column])]
+    if not cells or not all(_INT_CELL.fullmatch(c) for c in cells):
+        return rows
+    return [r if _isnan(r[column]) else {**r, column: int(r[column])} for r in rows]
+
+
 def cross_project_splits(
     csv_path: str | Path,
     test_projects: Sequence[str] | None = None,
@@ -262,7 +278,7 @@ def cross_project_splits(
     Reads the `project` column of the Big-Vul csv. Either pass explicit
     test_projects, or a seeded holdout_frac of projects becomes test and
     the rest splits train/val 90/10 by example."""
-    rows = _read_with_ids(csv_path, ("project",))
+    rows = _typed_column(_read_with_ids(csv_path, ("project",)), "project")
     projects = sorted({r["project"] for r in rows if not _isnan(r["project"])})
     rng = np.random.default_rng(seed)
     if test_projects is None:

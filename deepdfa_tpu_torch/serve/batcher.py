@@ -8,6 +8,11 @@
 - a max-latency flush: a partial batch executes once its oldest request
   has waited `max_batch_delay_s`.
 
+Executors read their model through a callable on every batch (the
+registry's `model`), so a hot swap is one reference assignment: a batch
+runs the old weights or the new ones, never a mix. `on_batch` is called
+once before every executed batch (the registry's hot-swap poll).
+
 Two executors: `GgnnExecutor` (graph requests, all co-batchable; each
 chunk pads to the smallest ladder size 1, 2, 4, ..., max_batch_graphs,
 or of a tuned rung set, that holds it) and `CombinedExecutor` (text +
@@ -24,10 +29,12 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
+import os
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Any, Hashable, Sequence
+from typing import Any, Callable, Hashable, Sequence
 
 import numpy as np
 import torch
@@ -36,7 +43,27 @@ from deepdfa_tpu_torch.core.device import resolve_device
 from deepdfa_tpu_torch.data.text import _fit_width, collate, rows_for_bucket, token_lengths
 from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, pack
 
+logger = logging.getLogger(__name__)
+
 _req_ids = itertools.count()
+
+
+def new_request_id() -> str:
+    """A process-unique request id assigned at ingress ("<pid hex>-<seq
+    hex>", the reference's rule): echoed in `/score` responses, score
+    rows and serve_log.jsonl entries."""
+    return f"{os.getpid():x}-{next(_req_ids):x}"
+
+
+def model_source(model, device: torch.device) -> Callable[[], torch.nn.Module]:
+    """A callable giving the model on every batch: `model` itself when it
+    is one (moved to `device` and put in eval mode once), else `model`,
+    a callable that already gives an eval-mode module on `device` (the
+    registry's `model`)."""
+    if isinstance(model, torch.nn.Module):
+        module = model.to(device).eval()
+        return lambda: module
+    return model
 
 
 class QueueFull(RuntimeError):
@@ -49,16 +76,23 @@ class RequestTooLarge(ValueError):
 
 @dataclasses.dataclass
 class ScoreRequest:
-    """One in-flight scoring request (a thread-safe future);
-    `batch_size` is how many requests shared its batch."""
+    """One in-flight scoring request (a thread-safe future) and its stage
+    attribution: `frontend_s` extraction seconds (measured by the
+    caller), `queue_wait_s` from submit to its batch's start, `device_s`
+    its batch's dispatch to fetch, `batch_size` how many requests shared
+    that batch."""
 
     payload: Any
     id: int = dataclasses.field(default_factory=lambda: next(_req_ids))
+    request_id: str = dataclasses.field(default_factory=new_request_id)
     t_submit: float = dataclasses.field(default_factory=time.monotonic)
     _done: threading.Event = dataclasses.field(default_factory=threading.Event)
     result: float | None = None
     error: Exception | None = None
     latency_s: float | None = None
+    frontend_s: float | None = None
+    queue_wait_s: float | None = None
+    device_s: float | None = None
     batch_size: int | None = None
 
     @property
@@ -122,13 +156,13 @@ class GgnnExecutor:
     Capacity is bounded by `max_batch_graphs` AND the packed node/edge
     budgets; each chunk pads to the smallest ladder size >= its row
     count: the pow2 ladder, or the tuned rungs `ladder` (tune/ladder.py,
-    clamped to the capacity). The model is moved to `device` (default
-    "cuda", which raises when CUDA is unavailable) and put in eval
-    mode."""
+    clamped to the capacity). `model` is a module, moved to `device`
+    (default "cuda", which raises when CUDA is unavailable) and put in
+    eval mode, or a callable read on every batch (`model_source`)."""
 
     def __init__(
         self,
-        model: torch.nn.Module,
+        model: torch.nn.Module | Callable[[], torch.nn.Module],
         node_budget: int,
         edge_budget: int,
         max_batch_graphs: int = 16,
@@ -137,12 +171,21 @@ class GgnnExecutor:
         ladder: Sequence[int] | None = None,
     ):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self._model = model_source(model, self.device)
         self.node_budget = int(node_budget)
         self.edge_budget = int(edge_budget)
         self.sizes = _ladder_sizes(ladder, int(max_batch_graphs))
         self.etypes = bool(etypes)
         self._warmed: set[int] = set()
+
+    @property
+    def model(self) -> torch.nn.Module:
+        """The model the next batch runs."""
+        return self._model()
+
+    def signatures(self) -> list[tuple[int]]:
+        """(graphs,) of every warmed ladder rung."""
+        return [(s,) for s in self.sizes]
 
     # -- grouping ------------------------------------------------------------
 
@@ -210,8 +253,9 @@ class GgnnExecutor:
         """Copy the batch to the device and launch the model; returns
         the probabilities without waiting for the device."""
         _, batch = packed
+        model = self._model()
         with torch.inference_mode():
-            return torch.sigmoid(self.model(batch.to(self.device)))
+            return torch.sigmoid(model(batch.to(self.device)))
 
     def fetch(self, handle: torch.Tensor, n: int) -> np.ndarray:
         """The sync point: [n] probabilities on the host."""
@@ -232,11 +276,12 @@ class CombinedExecutor:
     padded shape alone or co-batched. The budget accounting of `admit`
     and `fits` is `collate`'s, so an admitted chunk degrades no row to
     has_graph=False. The model is moved to `device` (default "cuda",
-    which raises when CUDA is unavailable) and put in eval mode."""
+    which raises when CUDA is unavailable) and put in eval mode, or is a
+    callable read on every batch (`model_source`)."""
 
     def __init__(
         self,
-        model: torch.nn.Module,
+        model: torch.nn.Module | Callable[[], torch.nn.Module],
         tokenizer,
         seq_buckets: Sequence[int],
         token_budget: int,
@@ -245,7 +290,7 @@ class CombinedExecutor:
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self._model = model_source(model, self.device)
         self.tok = tokenizer
         self.buckets = tuple(int(b) for b in seq_buckets)
         if not self.buckets:
@@ -256,7 +301,7 @@ class CombinedExecutor:
         self.token_budget = int(token_budget)
         self.node_budget = int(node_budget)
         self.edge_budget = int(edge_budget)
-        self.pad_id = int(model.cfg.encoder.pad_token_id)
+        self.pad_id = int(self._model().cfg.encoder.pad_token_id)
         if int(tokenizer.pad_id) != self.pad_id:
             raise ValueError(
                 f"tokenizer pads with {tokenizer.pad_id}, the encoder masks "
@@ -264,6 +309,11 @@ class CombinedExecutor:
             )
         self._rows = {T: rows_for_bucket(T, self.token_budget, 1) for T in self.buckets}
         self._warmed: set[int] = set()
+
+    @property
+    def model(self) -> torch.nn.Module:
+        """The model the next batch runs."""
+        return self._model()
 
     def ledger_signature(self, key: Hashable, n: int) -> str:
         T = int(key)
@@ -355,8 +405,9 @@ class CombinedExecutor:
         P(class 1) per row without waiting for the device."""
         _, batch = packed
         b = batch.to(self.device)
+        model = self._model()
         with torch.inference_mode():
-            logits = self.model(b.input_ids, b.graphs, b.has_graph)
+            logits = model(b.input_ids, b.graphs, b.has_graph)
             return torch.softmax(logits, dim=-1)[:, 1]
 
     def fetch(self, handle: torch.Tensor, n: int) -> np.ndarray:
@@ -379,10 +430,14 @@ class DynamicBatcher:
         executor,
         queue_limit: int = 256,
         max_batch_delay_s: float = 0.025,
+        on_batch: Callable[[], Any] | None = None,
     ):
         self.executor = executor
         self.queue_limit = int(queue_limit)
         self.max_batch_delay_s = float(max_batch_delay_s)
+        #: called before every executed batch (the registry's hot-swap
+        #: poll); a failing hook never fails the batch
+        self.on_batch = on_batch
         self._lock = threading.Condition()
         self._pending: "OrderedDict[Hashable, deque[ScoreRequest]]" = OrderedDict()
         self._n_pending = 0
@@ -396,11 +451,17 @@ class DynamicBatcher:
 
     # -- admission -----------------------------------------------------------
 
-    def submit(self, payload) -> ScoreRequest:
-        """Enqueue one request; raises QueueFull or RequestTooLarge."""
+    def submit(self, payload, request_id: str | None = None,
+               frontend_s: float | None = None) -> ScoreRequest:
+        """Enqueue one request; raises QueueFull or RequestTooLarge.
+        `request_id` is the ingress id (a fresh one otherwise) and
+        `frontend_s` the extraction seconds measured upstream."""
         self.executor.admit(payload)
         key = self.executor.bucket_key(payload)
         req = ScoreRequest(payload)
+        if request_id is not None:
+            req.request_id = request_id
+        req.frontend_s = frontend_s
         with self._lock:
             if self._closed:
                 raise RuntimeError("batcher is closed")
@@ -417,6 +478,22 @@ class DynamicBatcher:
     def mean_occupancy(self) -> float | None:
         """Mean of executed batches' rows / capacity."""
         return self._occupancy_sum / self.batches_run if self.batches_run else None
+
+    def stats(self) -> dict:
+        """Queue depth, batches run, rejections, mean occupancy and the
+        recent window's latency quantiles (the `/stats` body's batcher
+        half)."""
+        with self._lock:
+            depth = self._n_pending
+        lat = sorted(self.recent_latencies)
+        return {
+            "queue_depth": depth,
+            "batches": self.batches_run,
+            "rejected": self.rejected,
+            "batch_occupancy_mean": self.mean_occupancy(),
+            "latency_p50_s": percentile(lat, 0.50),
+            "latency_p99_s": percentile(lat, 0.99),
+        }
 
     # -- scheduling ----------------------------------------------------------
 
@@ -459,15 +536,24 @@ class DynamicBatcher:
         return None, self.max_batch_delay_s - (now - oldest_t)
 
     def _run_batch(self, key: Hashable, chunk: list[ScoreRequest]) -> None:
-        """pack -> dispatch -> fetch inline on the drive thread; a failure
-        fails this batch's requests and nothing else."""
+        """on_batch, then pack -> dispatch -> fetch inline on the drive
+        thread; a failure fails this batch's requests and nothing else."""
+        if self.on_batch is not None:
+            try:
+                self.on_batch()
+            except Exception:  # a failed poll must never fail the batch
+                logger.exception("on_batch hook failed")
+        t0 = time.monotonic()
         for req in chunk:
             req.batch_size = len(chunk)
+            req.queue_wait_s = t0 - req.t_submit
         try:
             _, packed = self.executor.pack_chunk(key, [r.payload for r in chunk])
+            t_dispatch = time.monotonic()
             probs = self.executor.fetch(
                 self.executor.dispatch(key, packed), len(chunk)
             )
+            device_s = time.monotonic() - t_dispatch
         except Exception as e:  # the scheduler must outlive a bad batch
             for req in chunk:
                 req.set_error(e)
@@ -475,6 +561,7 @@ class DynamicBatcher:
         self.batches_run += 1
         self._occupancy_sum += len(chunk) / max(1, self.executor.capacity(key))
         for req, p in zip(chunk, probs):
+            req.device_s = device_s
             req.set_result(float(p))
             self.recent_latencies.append(req.latency_s)
 
@@ -497,25 +584,37 @@ class DynamicBatcher:
                     if self._n_pending == 0:
                         break
 
-    def score_all(self, payloads: Sequence) -> list[ScoreRequest]:
+    def score_all(
+        self,
+        payloads: Sequence,
+        request_ids: Sequence[str] | None = None,
+        frontend_seconds: Sequence[float] | None = None,
+    ) -> list[ScoreRequest]:
         """Synchronously score a payload sequence through the same
         grouping/flush path the online scheduler uses. A full queue
         drains in place; an over-budget payload becomes a failed
-        request instead of failing the job."""
+        request instead of failing the job. Optional per-payload
+        `request_ids`/`frontend_seconds` carry the ingress ids and the
+        extraction seconds the caller measured."""
         if self._thread is not None:
             raise RuntimeError(
                 "score_all is the offline drive; the scheduler thread is running"
             )
         reqs: list[ScoreRequest] = []
-        for p in payloads:
+        for i, p in enumerate(payloads):
+            rid = request_ids[i] if request_ids is not None else None
+            fs = frontend_seconds[i] if frontend_seconds is not None else None
             while True:
                 try:
-                    reqs.append(self.submit(p))
+                    reqs.append(self.submit(p, request_id=rid, frontend_s=fs))
                     break
                 except QueueFull:
                     self._drain_once(force=True)
                 except RequestTooLarge as e:
                     req = ScoreRequest(p)
+                    if rid is not None:
+                        req.request_id = rid
+                    req.frontend_s = fs
                     req.set_error(e)
                     reqs.append(req)
                     break

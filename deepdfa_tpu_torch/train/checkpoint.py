@@ -6,7 +6,7 @@ Each tag is a directory holding `state.pt`, a `torch.save` of the
 model's state dict (and of whatever else the caller hands `save`). A
 json manifest records `best`, `last` and the history of (tag, step,
 metrics); `monitor` and `mode` pick the best, which is also copied to
-`best/`. The manifest is written atomically (tmp + fsync + rename); a
+`best/`. The manifest is written atomically (core/ioutil.py); a
 corrupt one is rebuilt from the tag directories on disk. `keep_last`
 bounds the tagged directories a run keeps (`best` and the last tag are
 always kept). Restoring an orbax checkpoint of the JAX package is not
@@ -24,18 +24,11 @@ from typing import Any
 
 import torch
 
+from deepdfa_tpu_torch.core.ioutil import atomic_write_text
+
 logger = logging.getLogger(__name__)
 
 STATE_FILE = "state.pt"
-
-
-def atomic_write_text(path: Path, text: str) -> None:
-    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    with open(tmp, "w") as f:
-        f.write(text)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
 
 
 class CheckpointManager:

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import json
 import logging
-import os
 import time
 from pathlib import Path
 from typing import Any
@@ -79,12 +78,12 @@ def load_tuned(path: str | Path) -> dict | None:
 
 
 def save_tuned(path: str | Path, doc: dict) -> Path:
-    """Write `doc` to `path` atomically (a temporary file, then a rename)."""
+    """Write `doc` to `path` atomically (core/ioutil.py)."""
+    from deepdfa_tpu_torch.core.ioutil import atomic_write_text
+
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
-    tmp.write_text(json.dumps(doc, indent=1))
-    os.replace(tmp, path)
+    atomic_write_text(path, json.dumps(doc, indent=1))
     return path
 
 
@@ -241,7 +240,7 @@ def tuned_path(cfg) -> Path:
     """cfg.tune.path, else <storage>/tuned.json."""
     if cfg.tune.path:
         return Path(cfg.tune.path)
-    from deepdfa_tpu_torch.cli import storage_root
+    from deepdfa_tpu_torch.core.paths import storage_root
 
     return storage_root() / "tuned.json"
 

@@ -109,7 +109,7 @@ def run_tune_smoke(out_path: str | Path | None = None, reps: int = 2, n_steps: i
                    device: str | torch.device | None = None) -> dict:
     """The reference's smoke search on `device` (None: the card):
     reduced candidates, synthetic distributions, a valid tuned.json."""
-    from deepdfa_tpu_torch.cli import storage_root
+    from deepdfa_tpu_torch.core.paths import storage_root
 
     t0 = time.perf_counter()
     n, e, d = SMOKE_BUDGETS

@@ -74,6 +74,9 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.frontend.absdf", "deepdfa_tpu_torch.frontend.vocab",
         "deepdfa_tpu_torch.data.diffs", "deepdfa_tpu_torch.data.pipeline",
         "deepdfa_tpu_torch.data.readers", "deepdfa_tpu_torch.data.synthetic",
+        "deepdfa_tpu_torch.core.paths", "deepdfa_tpu_torch.core.ioutil",
+        "deepdfa_tpu_torch.serve.frontend", "deepdfa_tpu_torch.serve.registry",
+        "deepdfa_tpu_torch.serve.cascade", "deepdfa_tpu_torch.serve.server",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []

@@ -180,6 +180,22 @@ def test_cross_project_and_random_splits_equal(small_csvs, name, seed):
     assert {k: rows(v) for k, v in got.items()} == {k: rows(v) for k, v in want.items()}
 
 
+@pytest.mark.parametrize("kw", [{"holdout_frac": 0.4}, {"holdout_frac": 0.4, "seed": 3},
+                                {"test_projects": ["9"]}])
+def test_cross_project_splits_type_numeric_projects_as_pandas(tmp_path, kw):
+    """An all-numeric `project` column sorts and compares as numbers, as
+    pandas types it: the seeded holdout picks the reference's projects,
+    and the text "9" matches no project (the reference holds out 0 rows)."""
+    projects = (9, 10, 100, 2, 33)
+    path = tmp_path / "numeric_projects.csv"
+    path.write_text(MSR_HEADER + "".join(
+        f'{i},"int f{i}(int a) {{ return a; }}","int f{i}(int a) {{ return a; }}",0,'
+        f"{projects[i % 5]}\n" for i in range(40)))
+    want = ref_readers.cross_project_splits(path, **kw)
+    assert readers.cross_project_splits(path, **kw) == want
+    assert sum(v == "test" for v in want.values()) == (0 if "test_projects" in kw else 16)
+
+
 def test_read_splits_devign_dbgbench_and_mutated_equal(tmp_path):
     assert readers.read_splits_csv(GOLDEN_SPLITS) == ref_readers.read_splits_csv(GOLDEN_SPLITS)
     (tmp_path / "splits.csv").write_text("idx,partition\n4,valid\n2,holdout\n9,train\n")

@@ -1,0 +1,298 @@
+"""The port's HTTP handler, scoring service and `score`/`serve` commands
+(deepdfa_tpu_torch/serve/server.py, driver.py, cli.py) on the CPU.
+
+- through `BackgroundServer`, every status code of the reference's
+  handler: 200, 400 (malformed JSON, no `code`), 404 (an unknown route,
+  `/metrics` among them), 413 (over the serve budgets), 422
+  (unparseable), 429 (queue full), 500 (executor failure) and 504
+  (not answered in time), with `/healthz` and `/stats`;
+- the combined family scores C sources through the same service as
+  `score_combined` scores the same model on the same payloads (fp32
+  rtol 1e-5, atol 1e-6);
+- the serving options the port does not run are refused by name;
+- `cli score --device cpu`, `cli serve --smoke --device cpu` and `cli
+  serve --port 0` end to end in subprocesses under a temporary storage
+  root.
+"""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from deepdfa_tpu_torch.core import config as config_mod  # noqa: E402
+from deepdfa_tpu_torch.core import paths  # noqa: E402
+from deepdfa_tpu_torch.data import pipeline, synthetic  # noqa: E402
+from deepdfa_tpu_torch.models import DeepDFA  # noqa: E402
+from deepdfa_tpu_torch.serve.registry import ModelRegistry  # noqa: E402
+from deepdfa_tpu_torch.serve.server import BackgroundServer, ScoringService, score_texts  # noqa: E402
+from deepdfa_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-5, 1e-6
+NODE_BUDGET = 64
+OVERRIDES = ['data.feat={"limit_all": 50, "limit_subkeys": 50}', "model.hidden_dim=8",
+             "model.n_steps=2", 'data.dataset="http"', 'run_name="http"',
+             "serve.max_batch_graphs=4", f"serve.node_budget={NODE_BUDGET}",
+             "serve.edge_budget=512"]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """(cfg, run_dir, functions that fit the budgets, one that does not)
+    under a storage root of this module's."""
+    root = tmp_path_factory.mktemp("storage")
+    saved = os.environ.get("DEEPDFA_TPU_STORAGE")
+    os.environ["DEEPDFA_TPU_STORAGE"] = str(root)
+    try:
+        cfg = config_mod.apply_overrides(config_mod.Config(), OVERRIDES)
+        examples = synthetic.to_examples(synthetic.generate(32, seed=11))
+        specs, vocabs = pipeline.build_dataset(examples, train_ids=range(32), limit_all=50,
+                                               limit_subkeys=50)
+        (paths.processed_dir("http") / f"vocab{cfg.data.feat.name}.json").write_text(
+            json.dumps({k: v.to_json() for k, v in vocabs.items()}))
+        run_dir = paths.runs_dir("http")
+        config_mod.to_json(cfg, run_dir / "config.json")
+        model = DeepDFA.from_config(cfg.model, cfg.data.feat.input_dim)
+        model.reset_parameters(torch.Generator().manual_seed(3))
+        CheckpointManager(run_dir / "checkpoints-torch").save(
+            "epoch-0001", {"model": model.state_dict()}, {"val_loss": 1.0}, step=1)
+        nodes = {s.graph_id: s.num_nodes for s in specs}
+        small = [e.code for e in examples if nodes[e.id] <= NODE_BUDGET]
+        big = next(e.code for e in examples if nodes[e.id] > NODE_BUDGET)
+        assert len(small) >= 6
+        yield cfg, run_dir, small, big
+    finally:
+        if saved is None:
+            os.environ.pop("DEEPDFA_TPU_STORAGE", None)
+        else:
+            os.environ["DEEPDFA_TPU_STORAGE"] = saved
+
+
+def _server(run, *extra):
+    cfg, run_dir, _, _ = run
+    cfg = config_mod.apply_overrides(cfg, list(extra))
+    return BackgroundServer(ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), cfg))
+
+
+def test_handler_answers_the_reference_status_codes(run):
+    _, _, small, big = run
+    server = _server(run)
+    try:
+        got = [server.request("POST", "/score", {"code": c}) for c in small[:6]]
+        assert all(st == 200 and body["ok"] and 0 < body["prob"] < 1 for st, body in got)
+        # a repeat is a cache hit with the same score
+        st, again = server.request("POST", "/score", {"code": small[0]})
+        assert st == 200 and again["prob"] == got[0][1]["prob"]
+        assert server.request("POST", "/score", raw=b"{not json")[0] == 400
+        assert server.request("POST", "/score", {"text": small[0]})[0] == 400
+        assert server.request("POST", "/score", ["a list"])[0] == 400
+        assert server.request("POST", "/score", {"code": 7})[0] == 400
+        assert server.request("POST", "/other", {"code": small[0]})[0] == 404
+        assert server.request("GET", "/metrics")[0] == 404
+        st, body = server.request("POST", "/score", {"code": big})
+        assert st == 413 and "serving budgets" in body["error"]
+        st, body = server.request("POST", "/score", {"code": "not a function @@@"})
+        assert st == 422 and body["request_id"]
+        st, health = server.request("GET", "/healthz?deep=1")
+        assert st == 200 and health["checkpoint"] == "best" and health["checkpoint_step"] == 1
+        assert health["config_digest"] and health["warmed_signatures"] == [[1], [2], [4]]
+        st, stats = server.request("GET", "/stats")
+        assert st == 200 and stats["feature_cache_hits"] >= 1
+        assert stats["status_counts"] == {"200": 7, "400": 4, "413": 1, "422": 1}
+        assert stats["frontend"]["failures"] == 1 and stats["batches"] >= 2
+    finally:
+        server.close()
+
+
+def test_handler_answers_429_500_and_504(run, monkeypatch):
+    _, _, small, _ = run
+    server = _server(run, "serve.queue_limit=0")
+    try:
+        st, body = server.request("POST", "/score", {"code": small[0]})
+        assert st == 429 and "queue at limit" in body["error"]
+    finally:
+        server.close()
+    server = _server(run)
+    try:
+        def broken(key, packed):
+            raise RuntimeError("device lost")
+
+        monkeypatch.setattr(server.service.executor, "dispatch", broken)
+        st, body = server.request("POST", "/score", {"code": small[0]})
+        assert st == 500 and "device lost" in body["error"]
+        dispatch = type(server.service.executor).dispatch
+
+        def slow(key, packed):
+            time.sleep(0.5)
+            return dispatch(server.service.executor, key, packed)
+
+        monkeypatch.setattr(server.service.executor, "dispatch", slow)
+        monkeypatch.setattr(server.httpd.RequestHandlerClass, "request_timeout_s", 0.05)
+        st, body = server.request("POST", "/score", {"code": small[1]})
+        assert st == 504 and "not scored" in body["error"]
+        counts = server.request("GET", "/stats")[1]["status_counts"]
+        assert counts == {"500": 1, "504": 1}
+    finally:
+        server.close()
+
+
+def test_request_log_and_hot_swap_through_the_service(run):
+    import shutil
+
+    cfg, http_run, small, _ = run
+    run_dir = paths.runs_dir("http-swap")  # a copy: the other tests keep step 1
+    shutil.copytree(http_run, run_dir, dirs_exist_ok=True)
+    cfg = config_mod.apply_overrides(cfg, ["serve.request_log=true", "serve.hot_swap=true"])
+    log = run_dir / "serve_log.jsonl"
+    log.unlink(missing_ok=True)
+    registry = ModelRegistry(run_dir, cfg=cfg, device="cpu")
+    service = ScoringService(registry, cfg)
+    try:
+        [before] = score_texts(service, [("a.c", small[0])])
+        state = {k: v + 0.1 if v.is_floating_point() else v
+                 for k, v in registry.params().items()}
+        CheckpointManager(run_dir / "checkpoints-torch").save(
+            "epoch-0002", {"model": state}, {"val_loss": 0.5}, step=2)
+        [after] = score_texts(service, [("a.c", small[0])])
+        assert registry.reloads == 1 and after["prob"] != before["prob"]
+        assert service.healthz()["checkpoint_step"] == 2
+    finally:
+        service.close()
+    entries = [json.loads(x)["request"] for x in log.read_text().splitlines()]
+    assert [e["status"] for e in entries] == [200, 200]
+    assert all(e["frontend_ms"] >= 0 and e["batch_size"] == 1 for e in entries)
+
+
+@pytest.mark.parametrize("override, item", [
+    ("serve.use_joern=true", "item 3"), ("serve.cascade=true", "item 4"),
+    ("serve.lines=true", "item 5"), ("serve.pipeline_depth=2", "item 6")])
+def test_unported_serving_options_are_refused(run, override, item):
+    cfg, run_dir, _, _ = run
+    bad = config_mod.apply_overrides(cfg, [override])
+    with pytest.raises(NotImplementedError, match=item):
+        ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), bad)
+
+
+def test_a_quantized_checkpoint_tag_is_refused(run):
+    cfg, run_dir, _, _ = run
+    with pytest.raises(NotImplementedError, match="item 6"):
+        ModelRegistry(run_dir, checkpoint="best@int8", cfg=cfg, device="cpu")
+
+
+def test_combined_family_scores_sources_as_score_combined(run):
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.models import CombinedConfig, CombinedModel, TransformerConfig
+    from deepdfa_tpu_torch.serve import score_combined
+    from deepdfa_tpu_torch.serve.cascade import save_model_setup
+    from deepdfa_tpu_torch.serve.frontend import FrontendError, RequestPreprocessor
+
+    _, _, small, _ = run
+    cfg = config_mod.apply_overrides(run[0], [
+        'run_name="comb"', "data.seq_buckets=[16,32,64]", "data.token_budget=256",
+        "serve.node_budget=2048", "serve.edge_budget=8192"])
+    run_dir = paths.runs_dir("comb")
+    config_mod.to_json(cfg, run_dir / "config.json")
+    mcfg = CombinedConfig(encoder=TransformerConfig.tiny(vocab_size=512), graph_hidden_dim=8,
+                          graph_input_dim=cfg.data.feat.input_dim)
+    model = CombinedModel(mcfg, generator=torch.Generator().manual_seed(5)).eval()
+    save_model_setup(run_dir, "combined", mcfg,
+                     {"kind": "hash", "vocab_size": 512, "t5_frame": False}, 64)
+    CheckpointManager(run_dir / "checkpoints-combined-torch").save(
+        "epoch-0000", {"model": model.state_dict()}, {"val_loss": 0.5}, step=1)
+    registry = ModelRegistry(run_dir, family="combined", cfg=cfg, device="cpu")
+    service = ScoringService(registry, cfg)
+    texts = small[:8] + ["not a function @@@"]
+    try:
+        rows = score_texts(service, [(f"f{i}.c", t) for i, t in enumerate(texts)])
+        assert service.healthz()["warmed_signatures"] == [[16, 16, 16], [32, 8, 8], [64, 4, 4]]
+    finally:
+        service.close()
+    assert all(r["ok"] for r in rows)  # an unparseable function scores text-only
+    fe = RequestPreprocessor(cfg, registry.vocabs)
+
+    def spec(t):
+        try:
+            return fe.features(t)
+        except FrontendError:
+            return None
+
+    want = score_combined(model, [(t, spec(t)) for t in texts], cfg, HashTokenizer(512),
+                          device="cpu")["probs"]
+    np.testing.assert_allclose([r["prob"] for r in rows], want, rtol=RTOL, atol=ATOL)
+
+
+# -- the commands, in subprocesses -------------------------------------------------
+
+
+def _cli(storage, *argv, timeout=300):
+    env = dict(os.environ, DEEPDFA_TPU_STORAGE=str(storage))
+    res = subprocess.run([sys.executable, "-m", "deepdfa_tpu_torch.cli", *argv], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_cli_score_smoke_then_score_a_directory(tmp_path):
+    smoke = _cli(tmp_path, "score", "--smoke", "--device", "cpu")
+    assert smoke["serve_scored"] == 24 and smoke["device"] == "cpu"
+    run_dir = tmp_path / "runs" / "serve-smoke"
+    first = [json.loads(x) for x in (run_dir / "scores.jsonl").read_text().splitlines()]
+    (run_dir / "smoke_src" / "zz_bad.c").write_text("not a function @@@")
+    out = tmp_path / "again.jsonl"
+    summary = _cli(tmp_path, "score", str(run_dir / "smoke_src"), "--out", str(out),
+                   "--device", "cpu", "--override", 'run_name="serve-smoke"')
+    assert summary["serve_scored"] == 24 and summary["serve_failed_requests"] == 1
+    assert summary["ggnn_step_launches"] == 0  # the plain path launches no kernel
+    rows = [json.loads(x) for x in out.read_text().splitlines()]
+    assert [r["name"] for r in rows[:24]] == [r["name"] for r in first]
+    np.testing.assert_allclose([r["prob"] for r in rows[:24]], [r["prob"] for r in first],
+                               rtol=RTOL, atol=ATOL)
+    assert rows[24]["ok"] is False and rows[24]["name"].endswith("zz_bad.c")
+    log = [json.loads(x) for x in (run_dir / "serve_log.jsonl").read_text().splitlines()]
+    assert log[-1]["serve_scored"] == 24 and log[-1]["serve"]["status_counts"]["422"] == 1
+
+
+def test_cli_serve_smoke(tmp_path):
+    report = _cli(tmp_path, "serve", "--smoke", "--device", "cpu")
+    assert [s["status"] for s in report["scored"]] == [200] * 6
+    assert (report["reject_status"], report["bad_json_status"], report["no_code_status"],
+            report["unknown_route_status"]) == (422, 400, 400, 404)
+    assert report["healthz"]["checkpoint_step"] is not None
+
+
+def test_cli_serve_on_a_free_port_until_sigterm(tmp_path):
+    import http.client
+
+    _cli(tmp_path, "score", "--smoke", "--device", "cpu")
+    env = dict(os.environ, DEEPDFA_TPU_STORAGE=str(tmp_path))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepdfa_tpu_torch.cli", "serve", "--port", "0", "--device",
+         "cpu", "--override", 'run_name="serve-smoke"'],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        hello = json.loads(proc.stdout.readline())
+        assert hello["serving"] and hello["port"] > 0 and hello["checkpoint"] == "best"
+        code = (tmp_path / "runs" / "serve-smoke" / "smoke_src" / "fn_0000.c").read_text()
+        conn = http.client.HTTPConnection("127.0.0.1", hello["port"], timeout=60)
+        conn.request("POST", "/score", body=json.dumps({"code": code}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200 and 0 < body["prob"] < 1
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
