@@ -145,11 +145,40 @@ prints one JSON line; any failure exits non-zero before the last line.
    hit; requests/s, p50/p99 and mean batch occupancy of both passes;
    then `cli train-combined` for 2 steps at codebert-base width (hash
    tokenizer) on the pipeline's examples, and `cli score --family
-   combined` over 64 of the files from the run's model_cfg.json on the
+   combined` over 16 of the files from the run's model_cfg.json on the
    card (kernel 5 once an encoder layer and kernel 1 n_steps times a
    batch) and on the CPU (within 2e-2); the frontend's median ms a
    function and `score`'s requests/s and p50/p99, beside nvidia-smi's
    name and power limit;
+7l. bpe — the shipped byte-level BPE vocabulary (`data/assets/bpe_c/`)
+   over the pipeline's test functions on the host: build seconds,
+   tokens a function (median, p90, max, the share past 512) and encode
+   µs a function, cold and warm;
+7m. train_attn_saved — one training step (forward + backward) under
+   remat "full" and under "attn_saved" from the same weights, batch and
+   dropout seed, for the combined model at codebert-base width (16 x 512
+   BPE ids of the pipeline's test functions, bf16, dropout 0.1, encoder
+   weights from a random HF-layout state dict through the CLI's
+   `--pretrained` loader), the T5 defect model (codet5-base width, bf16)
+   and the generation model (fp32, 16 rows of 256 -> 128): the same loss
+   and gradients to the bit, kernel 5 once a layer's attention call
+   instead of twice with dq, dk/dv and dbias unchanged; each policy's
+   synchronized step (median of 3) and its peak memory above the
+   weights;
+7n. cascade — stage 2 trained by `cli train-combined --tokenizer <the
+   shipped BPE> --pretrained <that state dict> --remat-policy attn_saved`
+   (codebert-base width, buckets 128/256/512) on serve_source's derived
+   dataset; `cli score` of the val split joined with its labels, `cli
+   cascade-calibrate --target-escalation 0.3`; with its overrides `cli
+   score` of the test split's functions in cascade mode on the card and
+   on the CPU beside the GGNN alone and the combined model alone (rows
+   not escalated the GGNN's probability to the bit, escalated rows
+   within 2e-2 of the combined model alone, the counters adding up, the
+   same stages on the CPU for the first 64); `cli serve` for each of the
+   three under 1024
+   requests from 8 client threads (seed 17); the escalation rates,
+   requests/s and p50/p99 offline and over HTTP, kernel 1's and kernel
+   5's launches;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -274,11 +303,12 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the twenty-three main
+21. kernels — every kernel with its launches on the twenty-six main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
-   four of 7g-7h, tune, tune_train, pipeline and serve_source, each
-   counted from 0, and by path),
+   four of 7g-7h, tune, tune_train, pipeline, serve_source,
+   train_attn_saved, cascade_train and cascade, each counted from 0, and
+   by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -1917,7 +1947,9 @@ def pipeline_phase(torch, tmp: Path):
 
 #: serve_source: the HTTP load and its clients, the combined run's steps
 SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 1024, 8
-SERVE_COMBINED_TRAIN, SERVE_COMBINED_VAL, SERVE_COMBINED_FILES = 32, 16, 64
+#: (16 files since the cascade phase: the CPU pass at codebert-base width
+#: takes ~1.5 s a file, and the script aims at half its time limit)
+SERVE_COMBINED_TRAIN, SERVE_COMBINED_VAL, SERVE_COMBINED_FILES = 32, 16, 16
 SERVE_COMBINED_ENCODER = "codebert-base"
 # combined scores, card (bf16) vs the CPU plain path
 SERVE_COMBINED_TOL = 2e-2
@@ -2203,6 +2235,587 @@ def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dic
             "p50_ms": comb["serve_latency_p50_ms"], "p99_ms": comb["serve_latency_p99_ms"],
             "vs_cpu_max_abs_err": comb_err, "cpu_seconds": comb_cpu_s}
     report["launches"] = paths
+    emit(report)
+    return paths
+
+
+#: bpe, train_attn_saved and cascade: the shipped BPE vocabulary, the
+#: generation model's rows, and the cascade's calibration target, HTTP
+#: load (seed 17) and combined card-vs-alone bound (serve_source's)
+BPE_DIR = ROOT / "deepdfa_tpu_torch" / "data" / "assets" / "bpe_c"
+ATTN_SAVED_TIMED = 3
+CASCADE_TARGET_ESCALATION = 0.3
+CASCADE_HTTP_SEED = 17
+#: test functions of the cascade's CPU run (its stage 2 at codebert-base
+#: width costs ~1.4 s an escalated row on the host)
+CASCADE_CPU_FUNCTIONS = 64
+
+
+def pipeline_split(tmp: Path, split: str) -> list:
+    """The pipeline run's examples of `split` that have a graph, by id."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.data import load_examples
+    from deepdfa_tpu_torch.graphs import GraphStore
+
+    cfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    out = tmp / "processed" / cfg.data.dataset
+    splits = json.loads((out / "splits.json").read_text())
+    graphs = set(GraphStore(out / cli.graphs_dirname(cfg)).load_all())
+    examples = {e.id: e for e in load_examples(out / "examples.pkl")}
+    return [examples[i] for i in sorted(int(k) for k, v in splits.items()
+                                        if v == split and int(k) in graphs)]
+
+
+def bpe_phase(tmp: Path) -> None:
+    """The shipped byte-level BPE (`data/assets/bpe_c/`) over the pipeline
+    phase's test functions on the host: the tokenizer's build seconds,
+    tokens a function (untruncated: median, p90, max; the share past a
+    512-token frame) and encode µs a function, cold (first pass) and warm
+    (every chunk cached)."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.data.tokenizer import BpeTokenizer
+
+    codes = [e.code for e in pipeline_split(tmp, "test")]
+    t0 = time.perf_counter()
+    tok = BpeTokenizer.from_dir(BPE_DIR)
+    build_s = time.perf_counter() - t0
+    passes = {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        ids = [tok.encode(c, 1 << 16) for c in codes]
+        passes[name] = 1e6 * (time.perf_counter() - t0) / len(codes)
+    n = np.array([int((x != tok.pad_id).sum()) for x in ids])
+    if not codes or n.min() < 3 or not all(
+            int(x[0]) == tok.cls_id and int(x[k - 1]) == tok.sep_id for x, k in zip(ids, n)):
+        fail(f"bpe: {len(codes)} functions, token counts from {n.min()}: a row lacks its frame")
+    emit({"phase": "bpe", "ok": True, "vocab_size": tok.vocab_size, "functions": len(codes),
+          "build_seconds": build_s, "tokens_median": float(np.median(n)),
+          "tokens_p90": float(np.percentile(n, 90)), "tokens_max": int(n.max()),
+          "share_past_512": float(np.mean(n > 512)),
+          "chars_per_token": float(sum(map(len, codes)) / n.sum()),
+          "encode_us_per_function_cold": passes["cold"],
+          "encode_us_per_function_warm": passes["warm"]})
+
+
+def hf_roberta_state_dict(torch, enc_cfg, seed: int = 0) -> dict:
+    """A Hugging Face `RobertaModel` state_dict at `enc_cfg`'s width with
+    random values from `seed`, under the `roberta.` prefix (the layout
+    of a codebert-base checkpoint; its weights are not in the
+    repository)."""
+    g = torch.Generator().manual_seed(seed)
+    D, F = enc_cfg.hidden_size, enc_cfg.intermediate_size
+
+    def w(*shape, base=0.0):
+        return base + 0.02 * torch.randn(shape, generator=g)
+
+    sd = {"embeddings.word_embeddings.weight": w(enc_cfg.vocab_size, D),
+          "embeddings.position_embeddings.weight": w(enc_cfg.max_position_embeddings, D),
+          "embeddings.token_type_embeddings.weight": w(enc_cfg.type_vocab_size, D),
+          "embeddings.LayerNorm.weight": w(D, base=1.0), "embeddings.LayerNorm.bias": w(D),
+          "pooler.dense.weight": w(D, D), "pooler.dense.bias": w(D)}
+    for i in range(enc_cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        for name in ("attention.self.query", "attention.self.key", "attention.self.value",
+                     "attention.output.dense"):
+            sd[p + name + ".weight"], sd[p + name + ".bias"] = w(D, D), w(D)
+        sd[p + "intermediate.dense.weight"], sd[p + "intermediate.dense.bias"] = w(F, D), w(F)
+        sd[p + "output.dense.weight"], sd[p + "output.dense.bias"] = w(D, F), w(D)
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + ln + ".weight"], sd[p + ln + ".bias"] = w(D, base=1.0), w(D)
+    return {"roberta." + k: v for k, v in sd.items()}
+
+
+def write_hf_roberta(torch, tmp: Path, enc_cfg) -> Path:
+    """The smoke's HF-layout state dict at `enc_cfg`'s width (codebert-base
+    on the main path), written once under `tmp`: what `--pretrained`
+    loads."""
+    path = tmp / f"hf_roberta_{enc_cfg.hidden_size}x{enc_cfg.num_layers}_{enc_cfg.vocab_size}.pt"
+    if not path.exists():
+        torch.save(hf_roberta_state_dict(torch, enc_cfg), path)
+    return path
+
+
+def bpe_rows(tmp: Path, tok, rows: int, length: int) -> list[str]:
+    """`rows` texts of the pipeline's test functions, each as many
+    functions joined as fill `length` BPE tokens."""
+    codes = [e.code for e in pipeline_split(tmp, "test")]
+    out, k = [], 0
+    for _ in range(rows):
+        text = ""
+        while int((tok.encode(text, length + 1) != tok.pad_id).sum()) <= length:
+            text += codes[k % len(codes)] + "\n"
+            k += 1
+        out.append(text)
+    return out
+
+
+def attn_saved_case(torch, rng, tmp: Path, model: str, policy: str):
+    """(trainer, state, batch on the card) of `model` under remat
+    `policy` at the train phase's flagship batch: "combined" (codebert-base
+    width, bf16, dropout 0.1, 16 x 512 BPE ids of the pipeline's test
+    functions, encoder weights from `hf_path` through the CLI's
+    `--pretrained` loader; the HF-layout weights are written at the
+    model's width), "t5" (the defect model at codet5-base width,
+    bf16, 16 x 512 hash ids) or "gen" (the generation model, fp32, 16
+    rows of 256 -> 128, through the CLI's `_gen_setup`). One seed, so
+    every policy starts from the same weights; the rng draws the same
+    batch for both when it is re-seeded by the caller."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.data import collate
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.data.tokenizer import BpeTokenizer
+    from deepdfa_tpu_torch.train import CombinedTrainer
+
+    if model == "gen":
+        args = gen_args()
+        args.remat_policy = policy
+        cfg = gen_config()
+        path = summarize_corpus(rng, GEN_ROWS)
+        tok, gcfg, trainer, state, rows = cli._gen_setup(args, cfg, total_steps=1)
+        _, src, tgt = cli._gen_encode_file(args, tok, "summarize", str(path))
+        batch = gen_data.batches_of(src, tgt, 1, rows, pad_id=tok.pad_id)[0]
+        return trainer, state, batch.to(trainer.device)
+    arch = "t5" if model == "t5" else "roberta"
+    cfg, mcfg = combined_train_setup(torch, arch=arch)
+    mcfg = dataclasses.replace(mcfg, encoder=dataclasses.replace(mcfg.encoder,
+                                                                 remat_policy=policy))
+    if arch == "t5":
+        tok = tokenizer("t5")
+        texts = [c_like_text(rng, 600) for _ in range(16)]
+    else:
+        tok = BpeTokenizer.from_dir(BPE_DIR)
+        texts = bpe_rows(tmp, tok, 16, 512)
+    ids = tok.batch_encode(texts, 512)
+    if (ids == tok.pad_id).any():
+        fail(f"train_attn_saved: a {model} row is shorter than 512 tokens")
+    graphs = {i: dataclasses.replace(synthetic_graph(rng, i, int(rng.integers(10, 151)),
+                                                     cfg.data.feat.input_dim, signal=True),
+                                     graph_id=i) for i in range(16)}
+    bcfg = cfg.data.batch
+    batch = collate(ids, [i % 2 for i in range(16)], list(range(16)), graphs, 16,
+                    bcfg.node_budget, bcfg.edge_budget, pad_id=tok.pad_id)
+    trainer = CombinedTrainer(cfg, mcfg, total_steps=1, device=CARD)
+    state = trainer.init_state(seed=0)
+    if arch == "roberta":
+        hf_path = write_hf_roberta(torch, tmp, mcfg.encoder)
+        state = trainer.load_encoder(state, cli.encoder_from_hf(mcfg.encoder, hf_path))
+    return trainer, state, batch.to(trainer.device)
+
+
+def train_attn_saved_phase(torch, tmp: Path) -> dict:
+    """remat_policy "full" against "attn_saved" on one training step
+    (forward and backward) of each of three models at the flagship batch
+    (`attn_saved_case`), both trainers alive, from the same weights,
+    batch and dropout seed: the loss and every gradient the same bits;
+    kernel 5 launched once a layer's attention call instead of twice, dq,
+    dk/dv and dbias as often. Each policy's synchronized step (forward +
+    backward; after a warm-up each, timed in turns full, attn_saved,
+    attn_saved, full, ATTN_SAVED_TIMED times; medians), its device busy
+    time and kernel 5's device time in one profiled step, and its memory
+    above the weights and optimiser state with no gradient allocated: at
+    the end of the forward (the saved activations, the stash included)
+    and at the step's peak (torch.cuda.max_memory_allocated). Returns the
+    attn_saved steps' launches (the path's)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+
+    per_layer = {"combined": 1, "t5": 1, "gen": 3}  # flash calls a layer's forward
+    policies = ("full", "attn_saved")
+    seed = fold_seed(DROPOUT_SEED, 1)
+    report = {"phase": "train_attn_saved"}
+    path: dict = {}
+    for model in ("combined", "t5", "gen"):
+        cases = {p: attn_saved_case(torch, np.random.default_rng(21), tmp, model, p)
+                 for p in policies}
+        for trainer, state, _ in cases.values():
+            state.model.zero_grad(set_to_none=True)
+        runs: dict = {p: {} for p in policies}
+        grads = {}
+        for policy in policies:
+            trainer, state, batch = cases[policy]
+            trainer.forward_loss(state, batch, seed).backward()  # warm-up
+            state.model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_flash(fa)
+            gk.reset_launch_counts()
+            loss = trainer.forward_loss(state, batch, seed)
+            torch.cuda.synchronize()
+            forward_end = torch.cuda.memory_allocated() - base
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = {**flash_counts(fa), "ggnn_step": gk.LAUNCHES,
+                      "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES, "ggnn_dmsg": gk.DMSG_LAUNCHES}
+            runs[policy].update(loss=loss.item(), launches=counts,
+                                forward_end_mb=forward_end / 2**20,
+                                peak_mb=(torch.cuda.max_memory_allocated() - base) / 2**20)
+            grads[policy] = (loss.detach(), grads_of(state))
+            state.model.zero_grad(set_to_none=True)
+            del loss
+        (l1, g1), (l2, g2) = grads["full"], grads["attn_saved"]
+        if not (torch.equal(l1, l2) and g1.keys() == g2.keys()
+                and all(torch.equal(g1[k], g2[k]) for k in g1)):
+            fail(f"train_attn_saved: {model}'s loss or gradients under attn_saved differ "
+                 "from full's")
+        del grads, g1, g2
+        trainer = cases["full"][0]
+        layers = (trainer.gen_cfg.encoder.num_layers if model == "gen"
+                  else trainer.model_cfg.encoder.num_layers)
+        want = per_layer[model] * layers
+        c_full, c_saved = runs["full"]["launches"], runs["attn_saved"]["launches"]
+        if (c_full["flash_fwd"], c_saved["flash_fwd"]) != (2 * want, want) or \
+                {k: v for k, v in c_full.items() if k != "flash_fwd"} != \
+                {k: v for k, v in c_saved.items() if k != "flash_fwd"}:
+            fail(f"train_attn_saved: {model} launched {c_full} under full and {c_saved} "
+                 "under attn_saved")
+        for k, v in c_saved.items():
+            path[k] = path.get(k, 0) + v
+        times = {p: [] for p in policies}
+        for _ in range(ATTN_SAVED_TIMED):
+            for policy in ("full", "attn_saved", "attn_saved", "full"):
+                trainer, state, batch = cases[policy]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.forward_loss(state, batch, seed).backward()
+                torch.cuda.synchronize()
+                times[policy].append(1e3 * (time.perf_counter() - t0))
+        for p in policies:
+            runs[p].update(step_ms=statistics.median(times[p]), step_ms_all=times[p])
+            # one profiled step (after a dropped warm one): device busy time
+            trainer, state, batch = cases[p]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                trainer.forward_loss(state, batch, seed).backward()
+                torch.cuda.synchronize()
+                prof.step()
+                t0 = time.perf_counter()
+                trainer.forward_loss(state, batch, seed).backward()
+                torch.cuda.synchronize()
+                profiled_ms = 1e3 * (time.perf_counter() - t0)
+            dev, groups = device_profile(prof, profiled_ms), device_groups(prof)
+            runs[p].update(device_busy_ms=dev["device_busy_ms"],
+                           device_idle_share=dev["device_idle_share"],
+                           flash_fwd_device_ms=groups["flash_fwd"]["ms"],
+                           flash_fwd_traced_calls=groups["flash_fwd"]["calls"])
+        runs.update(
+            saved_ms=runs["full"]["step_ms"] - runs["attn_saved"]["step_ms"],
+            saved_device_ms=runs["full"]["device_busy_ms"] - runs["attn_saved"]["device_busy_ms"],
+            saved_flash_fwd_device_ms=runs["full"]["flash_fwd_device_ms"]
+            - runs["attn_saved"]["flash_fwd_device_ms"],
+            extra_forward_end_mb=runs["attn_saved"]["forward_end_mb"]
+            - runs["full"]["forward_end_mb"],
+            extra_peak_mb=runs["attn_saved"]["peak_mb"] - runs["full"]["peak_mb"],
+            bits_equal=True)
+        report[model] = runs
+        del cases, trainer, state, batch
+        torch.cuda.empty_cache()
+    report["launches"] = path
+    emit(report)
+    return path
+
+
+def write_sources(directory: Path, examples) -> dict:
+    """Each example's code as `fn_<id>.c` under `directory`; {path: id}."""
+    directory.mkdir()
+    out = {}
+    for e in examples:
+        path = directory / f"fn_{e.id:06d}.c"
+        path.write_text(e.code)
+        out[str(path)] = e.id
+    return out
+
+
+@contextlib.contextmanager
+def port_server(tmp: Path, env: dict, args: list[str], what: str):
+    """`cli serve --port 0 ARGS` as a subprocess; yields (port, seconds
+    to listen), then SIGTERM and exit 0."""
+    import signal
+
+    err_log = tmp / f"serve_{what}.log"
+    with err_log.open("w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepdfa_tpu_torch.cli", "serve", "--port", "0", *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        if not line:
+            fail(f"cascade: cli serve ({what}) ended: {err_log.read_text()[-3000:]}")
+        yield json.loads(line)["port"], time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=120) != 0:
+            fail(f"cascade: cli serve ({what}) exited {proc.returncode} on SIGTERM: "
+                 f"{err_log.read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def http_cascade_load(port: int, codes: list[str]) -> dict:
+    """http_load keeping every response body."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(code):
+        return http_call(port, "POST", "/score", json.dumps({"code": code}).encode())
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        got = list(pool.map(one, codes))
+    wall = time.perf_counter() - t0
+    lat = sorted(dt for _, _, dt in got)
+    return {"status": [st for st, _, _ in got], "bodies": [b for _, b, _ in got],
+            "seconds": wall, "requests_per_sec": len(codes) / wall,
+            "p50_ms": 1e3 * lat[len(lat) // 2],
+            "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+
+def cascade_phase(torch, tmp: Path, smi: str) -> dict:
+    """The two-stage cascade over the pipeline's run (stage 1, the
+    flagship GGNN) and a combined stage 2 at codebert-base width that
+    `cli train-combined --tokenizer <the shipped BPE> --pretrained <the
+    smoke's HF-layout state dict> --remat-policy attn_saved` trains on
+    serve_source's derived dataset (buckets 128/256/512; one epoch).
+    `cli score` of the val split's functions, joined with their labels,
+    feeds `cli cascade-calibrate --target-escalation 0.3`; with its
+    overrides `cli score` runs the cascade over the test split's
+    functions on the card and on the CPU, beside the GGNN alone and the
+    combined model alone on the same files (in-process after serve_source:
+    every function's features come from the shared feature cache, so
+    these offline rates leave the frontend out); then `cli serve` (GGNN alone,
+    combined alone, cascade) each under 1024 requests from 8 client
+    threads (test functions drawn with seed 17). Gates: every row not
+    escalated is the GGNN alone's probability to the bit, every escalated
+    row within serve_source's combined bound of the combined model
+    alone's, requests = screened + escalations + sheds + failures, the
+    CPU cascade decides the same stages (on the first
+    CASCADE_CPU_FUNCTIONS), the HTTP cascade's stage follows
+    its own stage-1 score and the band, kernel 5 once an encoder layer a
+    stage-2 batch and kernel 1 n_steps times a stage-1 batch. Returns the
+    launches of the training run and of the card's cascade scoring."""
+    import io
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.data import lengths_for, plan_bucketed_batches
+    from deepdfa_tpu_torch.data.tokenizer import BpeTokenizer
+    from deepdfa_tpu_torch.eval import calibrate
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    n_steps = pcfg.model.n_steps
+    val, test = pipeline_split(tmp, "val"), pipeline_split(tmp, "test")
+    labels = {e.id: int(e.label or 0) for e in val + test}
+    run_arg = ["--override", 'run_name="pipeline"']
+    report: dict = {"phase": "cascade", "nvidia_smi": smi, "val_functions": len(val),
+                    "test_functions": len(test)}
+    paths: dict = {}
+    with storage_root(tmp) as env:
+        # 1. stage 2: BPE ids, HF-layout weights, attn_saved layer checkpoints
+        ccfg = config_mod.apply_overrides(load(COMBINED_CONFIG), [
+            'run_name="cascade-combined"', 'data.dataset="pipeline-combined"',
+            "train.max_epochs=1", "train.log_every_steps=1",
+            f"data.seq_buckets={json.dumps(COMBINED_BUCKETS)}"])
+        ccfg_path = tmp / "cascade_combined.json"
+        config_mod.to_json(ccfg, ccfg_path)
+        train_args = ["train-combined", "--config", str(ccfg_path), "--encoder",
+                      SERVE_COMBINED_ENCODER, "--max-length", "512", "--tokenizer", str(BPE_DIR),
+                      "--remat-policy", "attn_saved", "--device", CARD]
+        # the state dict at the width the command builds
+        enc_cfg = cli.combined_setup(cli.build_parser().parse_args(train_args), ccfg)[1].encoder
+        hf_path = write_hf_roberta(torch, tmp, enc_cfg)
+        gk.reset_launch_counts()
+        reset_flash(fa)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main([*train_args, "--pretrained", str(hf_path)])
+        train_s = time.perf_counter() - t0
+        train_counts = {**flash_counts(fa), "ggnn_step": gk.LAUNCHES,
+                        "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES, "ggnn_dmsg": gk.DMSG_LAUNCHES}
+        crun = tmp / "runs" / "cascade-combined"
+        log = [json.loads(x) for x in (crun / "train_log.jsonl").read_text().splitlines()]
+        steps = sum("step" in r for r in log)
+        warm = sum(r.get("warmup_signatures", 0) for r in log)
+        manifest = json.loads((crun / "model_cfg.json").read_text())
+        L = manifest["encoder"]["num_layers"]
+        # the val split's bucket batches: forward only
+        tok = BpeTokenizer.from_dir(BPE_DIR)
+        cout = tmp / "processed" / "pipeline-combined"
+        csplits = json.loads((cout / "splits.json").read_text())
+        by_id = {e.id: e for e in pipeline_split(tmp, "val") + pipeline_split(tmp, "train")}
+        val_ids = sorted(int(k) for k, v in csplits.items() if v == "val")
+        ids = {i: tok.encode(by_id[i].code, 512) for i in val_ids}
+        bcfg = ccfg.data.batch
+        n_eval = sum(1 for _ in plan_bucketed_batches(
+            lengths_for(ids, val_ids, tok.pad_id), val_ids, COMBINED_BUCKETS,
+            ccfg.data.token_budget, 1, bcfg.node_budget, bcfg.edge_budget))
+        trained = steps + warm
+        want = {"flash_fwd": L * (trained + n_eval), "flash_dq": L * trained,
+                "flash_dkv": L * trained, "flash_dbias": 0}
+        if manifest["tokenizer"]["kind"] != "bpe" or steps < 1 or \
+                {k: train_counts[k] for k in want} != want:
+            fail(f"cascade: train-combined took {steps} steps ({warm} warm-ups, {n_eval} eval "
+                 f"batches), launched {train_counts}, expected {want}; tokenizer "
+                 f"{manifest['tokenizer']}")
+        paths["cascade_train"] = {k: v for k, v in train_counts.items() if v}
+        report["stage2"] = {"steps": steps, "warmup_signatures": warm, "eval_batches": n_eval,
+                            "train_seconds": train_s, "layers": L, "launches": train_counts,
+                            "tokenizer": manifest["tokenizer"]["kind"],
+                            "vocab_size": manifest["encoder"]["vocab_size"]}
+
+        # 2. calibration on the val split (the GGNN alone, on the card)
+        val_files = write_sources(tmp / "cascade_val", val)
+        val_scores = tmp / "cascade_val_scores.jsonl"
+        cli_summary(cli, ["score", str(tmp / "cascade_val"), "--out", str(val_scores),
+                          "--device", CARD, *run_arg])
+        vrows = score_rows(val_scores)
+        joined = tmp / "cascade_val_joined.jsonl"
+        joined.write_text("".join(json.dumps({"prob": r["prob"],
+                                              "label": labels[val_files[n]]}) + "\n"
+                                  for n, r in vrows.items() if r["ok"]))
+        calib = cli_summary(cli, ["cascade-calibrate", "--scores", str(joined),
+                                  "--target-escalation", str(CASCADE_TARGET_ESCALATION)])
+        band, temp = tuple(calib["band"]), calib["temperature"]
+        casc_args = [*run_arg, "--override", "serve.cascade=true",
+                     *[a for o in calib["overrides"] for a in ("--override", o)],
+                     "--override", f"serve.cascade_run_dir={json.dumps(str(crun))}"]
+        comb_args = ["--family", "combined", "--override", 'run_name="cascade-combined"']
+
+        # 3. the test split: GGNN alone, combined alone, the cascade (card, CPU)
+        src = tmp / "cascade_src"
+        write_sources(src, test)
+        cpu_src = tmp / "cascade_src_cpu"
+        write_sources(cpu_src, test[:CASCADE_CPU_FUNCTIONS])
+        offline = {}
+        for name, args in (("ggnn", run_arg), ("combined", comb_args)):
+            offline[name] = cli_summary(cli, ["score", str(src), "--out",
+                                              str(tmp / f"cascade_{name}.jsonl"), "--device",
+                                              CARD, *args])
+        alone = score_rows(tmp / "cascade_ggnn.jsonl")
+        comb_alone = score_rows(tmp / "cascade_combined.jsonl")
+        log_path = tmp / "runs" / "pipeline" / "serve_log.jsonl"
+        log_path.unlink(missing_ok=True)
+        gk.reset_launch_counts()
+        reset_flash(fa)
+        casc = cli_summary(cli, ["score", str(src), "--out", str(tmp / "cascade_card.jsonl"),
+                                 "--device", CARD, "--override", "serve.request_log=true",
+                                 *casc_args])
+        paths["cascade"] = {"ggnn_step": gk.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+        rows = score_rows(tmp / "cascade_card.jsonl")
+        entries = [json.loads(x)["request"] for x in log_path.read_text().splitlines()
+                   if '"request"' in x]
+        t0 = time.perf_counter()
+        casc_cpu = cli_summary(cli, ["score", str(cpu_src), "--out",
+                                     str(tmp / "cascade_cpu.jsonl"), "--device", "cpu",
+                                     *casc_args])
+        cpu_s = time.perf_counter() - t0
+        rows_cpu = {str(src / Path(n).name): r
+                    for n, r in score_rows(tmp / "cascade_cpu.jsonl").items()}
+        names = sorted(rows)
+        if not all(rows[n]["ok"] for n in names) or len(names) != len(test) or \
+                len(rows_cpu) != min(len(test), CASCADE_CPU_FUNCTIONS):
+            fail(f"cascade: {sum(r['ok'] for r in rows.values())} of {len(test)} rows scored")
+        stage = {n: rows[n]["stage"] for n in names}
+        up = [n for n in names if stage[n] == 2]
+        screened = [n for n in names if stage[n] == 1 and not rows[n].get("cascade_shed")
+                    and not rows[n].get("cascade_failed")]
+        bits = all(rows[n]["stage1_prob"] == alone[n]["prob"] for n in names) and all(
+            rows[n]["prob"] == alone[n]["prob"] for n in names if stage[n] == 1)
+        comb_err = max((abs(rows[n]["prob"] - comb_alone[n]["prob"]) for n in up), default=0.0)
+        c = casc["cascade"]
+        if not bits:
+            fail("cascade: a row not escalated differs from the GGNN alone's probability")
+        if comb_err > SERVE_COMBINED_TOL:
+            fail(f"cascade: an escalated row differs from the combined model alone by {comb_err}")
+        if c["requests"] != len(screened) + c["escalations"] + c["sheds"] + c["failures"] or \
+                c["requests"] != len(names) or c["escalations"] != len(up):
+            fail(f"cascade: counters {c} do not add up over {len(names)} rows "
+                 f"({len(screened)} screened, {len(up)} escalated)")
+        if any(r["stage"] != stage[n] for n, r in rows_cpu.items()):
+            fail("cascade: the CPU cascade decided other stages than the card's")
+        # kernel 1 n_steps a stage-1 batch, and a stage-2 batch of a
+        # model with its graph branch
+        s2_steps = manifest["model"]["graph_n_steps"] * manifest["model"]["use_graph"]
+        if casc["ggnn_step_launches"] != n_steps * casc["serve_batches"] + s2_steps * c[
+                "stage2_batches"] or casc["flash_fwd_launches"] != L * c["stage2_batches"]:
+            fail(f"cascade: score launched {casc['ggnn_step_launches']} GGNN and "
+                 f"{casc['flash_fwd_launches']} flash kernels over {casc['serve_batches']} and "
+                 f"{c['stage2_batches']} batches ({n_steps} steps, {L} layers)")
+        total_ms = sorted(e["latency_ms"] + e.get("cascade_stage2_ms", 0.0) for e in entries
+                          if e["status"] == 200)
+        report["offline"] = {
+            **{name: {"requests_per_sec": s["serve_requests_per_sec"],
+                      "p50_ms": s["serve_latency_p50_ms"], "p99_ms": s["serve_latency_p99_ms"],
+                      "batches": s["serve_batches"], "seconds": s["serve_seconds"]}
+               for name, s in offline.items()},
+            "cascade": {"requests_per_sec": casc["serve_requests_per_sec"],
+                        "seconds": casc["serve_seconds"],
+                        "p50_ms": total_ms[len(total_ms) // 2],
+                        "p99_ms": total_ms[min(len(total_ms) - 1, int(0.99 * len(total_ms)))],
+                        "stage1_batches": casc["serve_batches"],
+                        "stage2_batches": c["stage2_batches"]},
+            "cascade_cpu_functions": len(rows_cpu), "cascade_cpu_seconds": cpu_s,
+            "cascade_cpu_escalated": casc_cpu["cascade"]["escalations"]}
+        report.update(
+            calibration={k: calib[k] for k in ("temperature", "band", "dev_escalation_rate",
+                                               "dev_auc", "dev_nll", "n")},
+            test_escalation_rate=c["escalation_rate"], rows_stage1=len(names) - len(up),
+            rows_stage2=len(up), counters=c, escalated_vs_combined_max_abs_err=comb_err,
+            launches=paths["cascade"], kernel_launches_in_window={
+                "ggnn_step": casc["ggnn_step_launches"],
+                "flash_fwd": casc["flash_fwd_launches"]})
+
+        # 4. HTTP: the GGNN alone, the combined model alone, the cascade
+        rng = np.random.default_rng(CASCADE_HTTP_SEED)
+        picks = [names[i] for i in rng.integers(0, len(names), SERVE_LOAD_REQUESTS)]
+        codes = [Path(n).read_text() for n in picks]
+        http = {}
+        for name, args in (("ggnn", run_arg), ("combined", comb_args), ("cascade", casc_args)):
+            with port_server(tmp, env, ["--device", CARD, *args], name) as (port, start_s):
+                res = http_cascade_load(port, codes)
+                stats = http_call(port, "GET", "/stats")[1]
+                health = http_call(port, "GET", "/healthz")[1]
+            if set(res["status"]) != {200}:
+                fail(f"cascade: HTTP ({name}) answered {sorted(set(res['status']))}")
+            http[name] = {k: res[k] for k in ("seconds", "requests_per_sec", "p50_ms", "p99_ms")}
+            http[name].update(start_seconds=start_s, batches=stats["batches"],
+                              batch_occupancy_mean=stats["batch_occupancy_mean"])
+            if name == "cascade":
+                bodies = res["bodies"]
+                hc = stats["cascade"]
+                cal_http = calibrate.temperature_scale([b["stage1_prob"] for b in bodies], temp)
+                follows = all((b["stage"] == 2) == (calibrate.in_band(p, band)
+                                                    and not b.get("cascade_shed")
+                                                    and not b.get("cascade_failed"))
+                              for b, p in zip(bodies, cal_http))
+                p1_err = max(abs(b["stage1_prob"] - alone[n]["prob"])
+                             for b, n in zip(bodies, picks))
+                n_up = sum(b["stage"] == 2 for b in bodies)
+                n_screened = sum(b["stage"] == 1 and not b.get("cascade_shed")
+                                 and not b.get("cascade_failed") for b in bodies)
+                if not follows or p1_err > PIPELINE_ATOL + PIPELINE_RTOL or \
+                        hc["requests"] != len(codes) or hc["escalations"] != n_up or \
+                        hc["requests"] != n_screened + hc["escalations"] + hc["sheds"] + \
+                        hc["failures"]:
+                    fail(f"cascade: HTTP stages follow the band {follows}, stage-1 error "
+                         f"{p1_err}, counters {hc} over {n_up} escalated of {len(codes)}")
+                http[name].update(counters=hc, escalation_rate=hc["escalation_rate"],
+                                  stage1_vs_offline_max_abs_err=p1_err,
+                                  healthz_cascade={k: health["cascade"][k] for k in (
+                                      "band", "temperature", "stage2_family",
+                                      "stage2_checkpoint_step")})
+        report["http"] = http
     emit(report)
     return paths
 
@@ -4088,6 +4701,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as pipeline_root:
         pipeline_launches, test_probs = pipeline_phase(torch, Path(pipeline_root))
         serve_source_launches = serve_source_phase(torch, Path(pipeline_root), test_probs, smi)
+        bpe_phase(Path(pipeline_root))
+        attn_saved_launches = train_attn_saved_phase(torch, Path(pipeline_root))
+        cascade_paths = cascade_phase(torch, Path(pipeline_root), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
@@ -4118,7 +4734,8 @@ def main() -> None:
              "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
              "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
-             "pipeline": pipeline_launches, "serve_source": serve_source_launches}
+             "pipeline": pipeline_launches, "serve_source": serve_source_launches,
+             "train_attn_saved": attn_saved_launches, **cascade_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

@@ -7,9 +7,10 @@ the CodeT5 generation family, on one device (the reference's
 `tune`, `deepdfa_tpu/cli/main.py:cmd_prepare`, `cmd_extract_vocab`,
 `cmd_extract`, `cmd_train`, `cmd_test`, `cmd_train_combined`,
 `cmd_train_gen`, `cmd_train_multi_gen`, `cmd_train_clone` and
-`cmd_tune`), tune the GGNN kernel layout on the card, and score and
-serve C sources against a trained run (`score`, `serve`: `cmd_score`,
-`cmd_serve`).
+`cmd_tune`), tune the GGNN kernel layout on the card, score and serve C
+sources against a trained run (`score`, `serve`: `cmd_score`,
+`cmd_serve`), and fit the two-stage cascade's calibration
+(`cascade-calibrate`: `cmd_cascade_calibrate`).
 
     python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
         [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
@@ -20,10 +21,13 @@ serve C sources against a trained run (`score`, `serve`: `cmd_score`,
     python -m deepdfa_tpu_torch.cli train --config configs/bigvul_deepdfa.json [key=value ...]
     python -m deepdfa_tpu_torch.cli test --checkpoint best --split test [--export]
     python -m deepdfa_tpu_torch.cli train-combined --config configs/bigvul_combined.json \
-        [--arch roberta|t5] --encoder codebert-base|codet5-base|tiny \
+        [--arch roberta|t5] --encoder codebert-base|codet5-base|tiny [--tokenizer DIR] \
+        [--pretrained STATE_DICT] [--remat-policy full|attn_saved] \
         [--graph-checkpoint RUN [--freeze-graph]] [key=value ...]
     python -m deepdfa_tpu_torch.cli train-gen --task summarize --train-file F \
-        [--dev-file F] [--test-file F] [--do-eval-bleu] [--tiny] [key=value ...]
+        [--dev-file F] [--test-file F] [--do-eval-bleu] [--tiny] \
+        [--tokenizer bpe --vocab-file F --merges-file F] [--pretrained STATE_DICT] \
+        [--remat-policy full|attn_saved] [key=value ...]
     python -m deepdfa_tpu_torch.cli train-multi-gen --task-spec NAME=TRAIN[:DEV] ...
     python -m deepdfa_tpu_torch.cli train-clone --train-file F [--dev-file F] [--test-file F]
     python -m deepdfa_tpu_torch.cli tune [--smoke] [--out F] [--serve-log F] [--manifest F] \
@@ -32,6 +36,8 @@ serve C sources against a trained run (`score`, `serve`: `cmd_score`,
         [--smoke] [--config F] [--override key=value ...] [--device cpu]
     python -m deepdfa_tpu_torch.cli serve [--host H] [--port P] [--family F] [--smoke] \
         [--config F] [--override key=value ...] [--device cpu]
+    python -m deepdfa_tpu_torch.cli cascade-calibrate --scores F [--prob-key prob] \
+        [--label-key label] [--target-escalation 0.3] [--out F]
 
 `prepare`, `extract-vocab` and `extract` are host commands (no
 `--device`). `prepare` reads a dataset (the seeded synthetic corpus, a
@@ -60,11 +66,14 @@ device; `--device cpu` runs the plain path.
 `train-combined` takes the reference's arguments. `--arch t5` builds
 the CodeT5+DeepDFA defect model (`--encoder tiny|codet5-base`, the
 T5-framed hash tokenizer, `max_sequence_length = --max-length`), as the
-reference does without `--pretrained` (`cli/main.py:771-815`). Not ported
-yet, and refused: `--tokenizer` (BPE; no vocabulary is in the
-repository), `--pretrained` (no CodeBERT or CodeT5 weights either),
-`--sp-variant ulysses` and `--remat-policy attn_saved`. Rows are
-bucketed by `data.seq_buckets` (the largest edge equal to
+reference does (`cli/main.py:771-815`). `--tokenizer DIR` tokenizes with
+the byte-level BPE of DIR's `*vocab.json` + `*merges.txt` (the port
+ships one, `data/assets/bpe_c/`; refused with `--arch t5`, as in the
+reference); `--pretrained F` loads a Hugging Face torch state_dict
+(`RobertaModel`, or `T5EncoderModel`/`T5Model` for t5; weights only)
+into the encoder; `--remat-policy attn_saved` keeps the flash kernel's
+output across each layer checkpoint. `--sp-variant ulysses` is refused.
+Rows are bucketed by `data.seq_buckets` (the largest edge equal to
 `--max-length`) or padded to `--max-length` in fixed 16-row batches.
 
 The generation commands read the reference's task files
@@ -76,9 +85,12 @@ best-ppl checkpoint in `runs/<run>/checkpoints-gen-torch/` (and with
 and with `--test-file` restores the best-ppl checkpoint, decodes the test
 set by beam search and writes `results/test_best-ppl.{output,gold}`.
 `train-multi-gen` keeps `checkpoints-multi-<task>-torch/`, `train-clone`
-`checkpoints-clone-torch/`. Refused (`NotImplementedError`):
-`--pretrained` and `--tokenizer bpe` (ROADMAP queue A, item 4), and the
-training options `core/config.py:refuse_unported_training` names.
+`checkpoints-clone-torch/`. `--tokenizer bpe --vocab-file F
+--merges-file F` tokenizes with a byte-level BPE, `--pretrained F` loads
+a Hugging Face `T5ForConditionalGeneration` state_dict and
+`--remat-policy attn_saved` keeps the attention output across the layer
+checkpoints. Refused (`NotImplementedError`): the training options
+`core/config.py:refuse_unported_training` names.
 
 `tune` searches the GGNN kernel layouts (fold and mxu scatter, fp32,
 bf16 and int8 policies, per step and fused) at the serving budgets on
@@ -98,8 +110,12 @@ vocabulary. `score` writes `scores.jsonl` ({"name", "request_id", "ok",
 "prob" | "error"} a source) and prints the summary; `serve` answers
 `POST /score` {"code": ...}, `GET /healthz` and `GET /stats` with the
 reference's status codes (serve/server.py). `serve.hot_swap=true`
-reloads a moved tag between batches. Refused: `serve.use_joern`,
-`serve.cascade`, `serve.lines`, a `tag@int8` checkpoint and
+reloads a moved tag between batches. `serve.cascade=true` (with
+`serve.cascade_band`, `cascade_temperature`, `cascade_run_dir`, ...)
+scores every source with the GGNN and escalates the calibrated
+uncertainty band to a combined or t5 run (serve/cascade.py); the fit
+comes from `cascade-calibrate` over `score` rows joined with labels.
+Refused: `serve.use_joern`, `serve.lines`, a `tag@int8` checkpoint and
 `serve.pipeline_depth > 0`.
 """
 
@@ -492,27 +508,26 @@ def cmd_test(args) -> None:
 def combined_setup(args, cfg: Config):
     """(tokenizer, model config) of `train-combined` (the reference's
     `_combined_setup`): a CombinedConfig for `--arch roberta`, a
-    DefectConfig for `--arch t5`; the options the port does not run raise
-    NotImplementedError."""
+    DefectConfig for `--arch t5`; `--tokenizer DIR` is the byte-level BPE
+    of DIR's `*vocab.json` + `*merges.txt` (roberta only, as in the
+    reference). `--sp-variant ulysses` raises NotImplementedError."""
     import dataclasses
 
-    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.data.tokenizer import BpeTokenizer, HashTokenizer
     from deepdfa_tpu_torch.models import CombinedConfig, DefectConfig, T5Config, TransformerConfig
 
-    refused = {
-        "--tokenizer (BPE: no vocabulary in the repository)": args.tokenizer is not None,
-        "--pretrained (no CodeBERT or CodeT5 weights in the repository)":
-            args.pretrained is not None,
-        "--sp-variant ulysses (multi-device slice)": args.sp_variant != "ring",
-        "--remat-policy attn_saved (ROADMAP queue A, item 4)": args.remat_policy != "full",
-    }
-    for what, asked in refused.items():
-        if asked:
-            raise NotImplementedError(f"train-combined {what} is not ported yet")
+    if args.sp_variant != "ring":
+        raise NotImplementedError("train-combined --sp-variant ulysses (the multi-device "
+                                  "slice, ROADMAP queue A, item 9) is not ported yet")
     widths = {"roberta": ("tiny", "codebert-base"), "t5": ("tiny", "codet5-base")}[args.arch]
     if args.encoder not in widths:
         raise SystemExit(f"--encoder {args.encoder} is not valid for --arch {args.arch} "
                          f"(choose from {widths})")
+    if args.arch == "t5" and args.tokenizer:
+        raise SystemExit(
+            "--arch t5 supports only the built-in hash tokenizer for now: BPE vocab.json "
+            "assets use the RoBERTa special-id layout, which conflicts with T5's "
+            "pad=0/eos=2 attention-mask convention")
     kw = dict(attn_impl=args.attn_impl, remat_policy=args.remat_policy)
     graph = dict(graph_hidden_dim=cfg.model.hidden_dim, graph_input_dim=cfg.data.feat.input_dim,
                  use_graph=not args.no_graph)
@@ -524,13 +539,32 @@ def combined_setup(args, cfg: Config):
         # by the recipe's max_length, as the reference's CLI does
         enc_cfg = dataclasses.replace(enc_cfg, max_sequence_length=args.max_length)
         return tok, DefectConfig(encoder=enc_cfg, **graph)
-    tok = HashTokenizer(vocab_size=4096)
+    tok = BpeTokenizer.from_dir(args.tokenizer) if args.tokenizer else HashTokenizer(4096)
     if args.encoder == "codebert-base":
         enc_cfg = TransformerConfig(dtype="bfloat16", **kw)
     else:
         enc_cfg = TransformerConfig.tiny(vocab_size=tok.vocab_size,
                                          max_position_embeddings=args.max_length + 4, **kw)
     return tok, CombinedConfig(encoder=enc_cfg, **graph)
+
+
+def load_hf_state_dict(path) -> dict:
+    """A Hugging Face torch state_dict file (weights only, on the CPU),
+    as the reference's `--pretrained` reads it."""
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def encoder_from_hf(enc_cfg, path) -> dict:
+    """The encoder state dict of `--pretrained PATH`: a `RobertaModel`
+    state_dict for a TransformerConfig, a `T5EncoderModel` / `T5Model`
+    one for a T5Config."""
+    from deepdfa_tpu_torch.models import T5Config, t5, transformer
+
+    importer = t5.params_from_hf_torch if isinstance(enc_cfg, T5Config) else \
+        transformer.params_from_hf_torch
+    return importer(enc_cfg, load_hf_state_dict(path))
 
 
 def cmd_train_combined(args) -> None:
@@ -541,6 +575,7 @@ def cmd_train_combined(args) -> None:
         load_examples,
         plan_bucketed_batches,
     )
+    from deepdfa_tpu_torch.data.tokenizer import bpe_files
     from deepdfa_tpu_torch.graphs import GraphStore
     from deepdfa_tpu_torch.serve.cascade import save_model_setup
     from deepdfa_tpu_torch.train import CheckpointManager, CombinedTrainer, undersample_epoch
@@ -554,9 +589,14 @@ def cmd_train_combined(args) -> None:
     config_mod.to_json(cfg, run_dir / "config.json")
     # the run-dir model manifest: serving rebuilds the tokenizer and the
     # encoder config from it, never from re-supplied CLI arguments
-    save_model_setup(run_dir, "t5" if args.arch == "t5" else "combined", mcfg,
-                     {"kind": "hash", "vocab_size": tok.vocab_size,
-                      "t5_frame": args.arch == "t5"}, args.max_length)
+    if args.tokenizer:
+        vocab, merges = bpe_files(args.tokenizer)
+        tok_desc = {"kind": "bpe", "vocab": str(vocab.resolve()),
+                    "merges": str(merges.resolve())}
+    else:
+        tok_desc = {"kind": "hash", "vocab_size": tok.vocab_size, "t5_frame": args.arch == "t5"}
+    save_model_setup(run_dir, "t5" if args.arch == "t5" else "combined", mcfg, tok_desc,
+                     args.max_length)
     examples = load_examples(out_dir / "examples.pkl")
     splits = json.loads((out_dir / "splits.json").read_text())
     graphs_by_id = {} if args.no_graph else GraphStore(out_dir / graphs_dirname(cfg)).load_all()
@@ -628,6 +668,8 @@ def cmd_train_combined(args) -> None:
             state, CheckpointManager(ckpt_dir).restore("best")["model"])
         print(f"loaded graph encoder from {ckpt_dir}"
               + (" (frozen)" if args.freeze_graph else ""))
+    if args.pretrained:
+        state = trainer.load_encoder(state, encoder_from_hf(mcfg.encoder, args.pretrained))
     ckpts = trainer.make_checkpoints(run_dir / COMBINED_CHECKPOINTS_DIR)
     run_log = RunLog(run_dir)
     try:
@@ -649,22 +691,21 @@ CLONE_CHECKPOINTS_DIR = "checkpoints-clone-torch"
 
 def _gen_tokenizer_and_encoder(args):
     """(tokenizer, T5Config) of the generation commands: the T5-framed
-    hash tokenizer at --vocab-size and the tiny or codet5-base config
-    (fp32 activations, the reference's default); --pretrained and
-    --tokenizer bpe raise NotImplementedError."""
-    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    hash tokenizer at --vocab-size, or with `--tokenizer bpe` the
+    byte-level BPE of --vocab-file and --merges-file (its pad and eos ids
+    frame the model), and the tiny or codet5-base config (fp32
+    activations, the reference's default) under `--remat-policy`."""
+    from deepdfa_tpu_torch.data.tokenizer import BpeTokenizer, HashTokenizer
     from deepdfa_tpu_torch.models import T5Config
 
     if args.tokenizer == "bpe":
-        raise NotImplementedError(
-            f"{args.cmd} --tokenizer bpe is not ported yet: the port has no BpeTokenizer "
-            "(ROADMAP queue A, item 4)")
-    if args.pretrained is not None:
-        raise NotImplementedError(
-            f"{args.cmd} --pretrained is not ported yet: the port has no "
-            "gen_params_from_hf_torch (ROADMAP queue A, item 4)")
-    tok = HashTokenizer(vocab_size=args.vocab_size, t5_frame=True)
-    kw = dict(vocab_size=tok.vocab_size, pad_token_id=tok.pad_id, eos_token_id=tok.sep_id)
+        if not (args.vocab_file and args.merges_file):
+            raise SystemExit(f"{args.cmd} --tokenizer bpe needs --vocab-file and --merges-file")
+        tok = BpeTokenizer(args.vocab_file, args.merges_file)
+    else:
+        tok = HashTokenizer(vocab_size=args.vocab_size, t5_frame=True)
+    kw = dict(vocab_size=tok.vocab_size, pad_token_id=tok.pad_id, eos_token_id=tok.sep_id,
+              remat_policy=args.remat_policy)
     return tok, (T5Config.tiny(**kw) if args.tiny else T5Config(**kw))
 
 
@@ -672,6 +713,7 @@ def _gen_setup(args, cfg: Config, total_steps: int | None = None):
     """(tokenizer, GenConfig, GenTrainer, fresh state, rows per batch) of
     `train-gen` and `train-multi-gen` (the reference's `_gen_setup`)."""
     from deepdfa_tpu_torch.models import GenConfig
+    from deepdfa_tpu_torch.models import t5_gen as genm
     from deepdfa_tpu_torch.train.gen_loop import GenTrainer
 
     tok, enc_cfg = _gen_tokenizer_and_encoder(args)
@@ -679,7 +721,11 @@ def _gen_setup(args, cfg: Config, total_steps: int | None = None):
                      beam_size=args.beam_size)
     config_mod.one_card(cfg.train.mesh)
     trainer = GenTrainer(cfg, gcfg, total_steps=total_steps, device=args.device)
-    return tok, gcfg, trainer, trainer.init_state(), max(1, args.batch_size)
+    state = trainer.init_state()
+    if args.pretrained:
+        state = trainer.load_params(
+            state, genm.gen_params_from_hf_torch(gcfg, load_hf_state_dict(args.pretrained)))
+    return tok, gcfg, trainer, state, max(1, args.batch_size)
 
 
 def _gen_encode_file(args, tok, task_name: str, filename: str,
@@ -855,6 +901,11 @@ def cmd_train_clone(args) -> None:
         total_steps = max(1, -(-n_train // rows)) * max(1, cfg.train.max_epochs)
     trainer = CloneTrainer(cfg, ccfg, total_steps=total_steps, device=args.device)
     state = trainer.init_state()
+    if args.pretrained:
+        from deepdfa_tpu_torch.models import GenConfig, t5_gen as genm
+
+        state = trainer.load_seq2seq(state, genm.gen_params_from_hf_torch(
+            GenConfig(encoder=enc_cfg), load_hf_state_dict(args.pretrained)))
     ckpt_dir = run_dir / CLONE_CHECKPOINTS_DIR
     if args.train_file:
         config_mod.to_json(cfg, run_dir / "config.json")
@@ -921,6 +972,39 @@ def cmd_tune(args) -> None:
 
 
 # -- scoring and serving C sources (the reference's cmd_score, cmd_serve) -----
+
+
+def cmd_cascade_calibrate(args) -> None:
+    """Fit the cascade's temperature and uncertainty band from a labeled
+    dev set: a JSONL of {"prob": p, "label": 0|1} rows (`score`'s output
+    joined with labels) -> one JSON line with the fit and the
+    `serve.cascade_temperature` / `serve.cascade_band` overrides to
+    serve with (the reference's `cmd_cascade_calibrate`)."""
+    from deepdfa_tpu_torch.eval import calibrate as calibrate_mod
+
+    probs, labels = [], []
+    with open(args.scores) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            row = json.loads(line)
+            p, y = row.get(args.prob_key), row.get(args.label_key)
+            if p is None or y is None:
+                continue
+            probs.append(float(p))
+            labels.append(int(y))
+    if not probs:
+        raise SystemExit(f"no rows in {args.scores} carry both {args.prob_key!r} and "
+                         f"{args.label_key!r}")
+    result = calibrate_mod.calibrate(probs, labels, target_escalation=args.target_escalation)
+    result["overrides"] = [
+        f"serve.cascade_temperature={result['temperature']}",
+        f"serve.cascade_band={json.dumps(result['band'])}",
+    ]
+    print(json.dumps(result), flush=True)
+    if args.out:
+        Path(args.out).write_text(json.dumps(result, indent=2))
 
 
 def cmd_score(args) -> None:
@@ -1057,9 +1141,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--encoder", default="tiny",
                    help="tiny | codebert-base (roberta) | codet5-base (t5)")
     p.add_argument("--pretrained", default=None,
-                   help="a torch state_dict for the encoder (not ported yet)")
+                   help="a Hugging Face torch state_dict for the encoder (RobertaModel, or "
+                        "T5EncoderModel/T5Model for --arch t5)")
     p.add_argument("--tokenizer", default=None,
-                   help="dir with vocab.json + merges.txt (not ported yet; default: hash)")
+                   help="dir with *vocab.json + *merges.txt (byte-level BPE; default: hash)")
     p.add_argument("--max-length", type=int, default=512)
     p.add_argument("--sp-variant", default="ring", choices=["ring", "ulysses"])
     p.add_argument("--attn-impl", default="auto", choices=["auto", "xla", "flash"],
@@ -1077,12 +1162,15 @@ def build_parser() -> argparse.ArgumentParser:
     def gen_model_args(p):
         p.add_argument("--tiny", action="store_true", help="tiny T5 config (tests, smoke)")
         p.add_argument("--tokenizer", choices=("hash", "bpe"), default="hash",
-                       help="hash (default); bpe is not ported yet")
+                       help="hash (default) or bpe (--vocab-file, --merges-file)")
         p.add_argument("--vocab-size", type=int, default=4096)
         p.add_argument("--vocab-file", default=None)
         p.add_argument("--merges-file", default=None)
         p.add_argument("--pretrained", default=None,
-                       help="HF torch T5ForConditionalGeneration state_dict (not ported yet)")
+                       help="HF torch T5ForConditionalGeneration state_dict")
+        p.add_argument("--remat-policy", default="full", choices=["full", "attn_saved"],
+                       help="layer checkpoints: replay all (full) or keep the attention "
+                            "output (attn_saved)")
 
     p = sub.add_parser("train-gen")
     p.add_argument("--task", required=True,
@@ -1128,6 +1216,17 @@ def build_parser() -> argparse.ArgumentParser:
     gen_model_args(p)
     common(p)
     p.set_defaults(fn=cmd_train_clone)
+
+    p = sub.add_parser("cascade-calibrate",
+                       help="fit the cascade's temperature and uncertainty band from a "
+                            "labeled dev-set scores jsonl")
+    p.add_argument("--scores", required=True, help="jsonl with per-row prob + label fields")
+    p.add_argument("--prob-key", default="prob")
+    p.add_argument("--label-key", default="label")
+    p.add_argument("--target-escalation", type=float, default=0.3,
+                   help="dev-set fraction the band should escalate")
+    p.add_argument("--out", default=None, help="also write the result json here")
+    p.set_defaults(fn=cmd_cascade_calibrate)
 
     p = sub.add_parser("tune", help="offline autotuner: GGNN kernel layouts and batch "
                                     "ladders fitted to observed traffic, in tuned.json")

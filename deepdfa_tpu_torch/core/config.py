@@ -156,11 +156,11 @@ class DataConfig:
 class ServeConfig:
     """The serving knobs the port runs: the dynamic batcher's
     (serve/batcher.py), the registry's (serve/registry.py), the request
-    frontend's (serve/frontend.py) and the request log's
-    (serve/server.py). `use_joern`, `lines` and `cascade` are read so
-    that turning one on is refused by name (`refuse_unported_serving`);
-    the reference's SLO windows, health probe, Joern pool and
-    localization tuning keys are read past."""
+    frontend's (serve/frontend.py), the request log's (serve/server.py)
+    and the two-stage cascade's (serve/cascade.py). `use_joern` and
+    `lines` are read so that turning one on is refused by name
+    (`refuse_unported_serving`); the reference's SLO windows, health
+    probe, Joern pool and localization tuning keys are read past."""
 
     # bounded request queue; submissions beyond this raise QueueFull
     queue_limit: int = 256
@@ -185,9 +185,27 @@ class ServeConfig:
     use_joern: bool = False
     # one {"request": {...}} line a request in <run_dir>/serve_log.jsonl
     request_log: bool = False
-    # served line attributions and the two-stage cascade: refused
+    # served line attributions: refused
     lines: bool = False
+    # the two-stage cascade (serve/cascade.py): the GGNN scores every
+    # request and the requests whose calibrated stage-1 probability falls
+    # in the band go on to the combined or t5 model
     cascade: bool = False
+    # lo <= p < hi of the calibrated stage-1 probability escalates (fit
+    # with eval/calibrate.py, `cli cascade-calibrate`)
+    cascade_band: tuple[float, float] = (0.25, 0.75)
+    # stage-1 calibration temperature (1.0 = identity)
+    cascade_temperature: float = 1.0
+    # the stage-2 run directory (None: the serving run's own), its family
+    # and checkpoint tag
+    cascade_run_dir: str | None = None
+    cascade_family: str = "combined"
+    cascade_checkpoint: str = "best"
+    # a request's wait on the stage-2 batcher
+    cascade_timeout_s: float = 60.0
+    # once the stage-2 queue holds this fraction of queue_limit, new
+    # escalations answer with their stage-1 score (shed)
+    cascade_shed_depth_fraction: float = 0.75
 
 
 @dataclass(frozen=True)
@@ -301,7 +319,7 @@ def one_card(mesh: MeshConfig) -> int:
         raise NotImplementedError(
             f"train.mesh={mesh}: the port trains on one card (dp -1 or 1, "
             "every other axis and num_shards 1); data parallelism comes "
-            "with a later slice (ROADMAP queue A)"
+            "with the multi-device slice (ROADMAP queue A, item 9)"
         )
     return 1
 
@@ -316,12 +334,13 @@ def refuse_unported_training(cfg: Config) -> None:
         if getattr(cfg.train, name):
             raise NotImplementedError(
                 f"train.{name}: the reference's jax sanitizer has no counterpart in the "
-                "port yet (ROADMAP queue C); set it to false"
+                "port yet (ROADMAP queue A, item 10); set it to false"
             )
     if cfg.train.resilience.enabled:
         raise NotImplementedError(
             "train.resilience.enabled: the resilient runtime (guarded step, step "
-            "checkpoints, resume) comes with a later slice of the port (ROADMAP queue A)"
+            "checkpoints, resume) comes with a later slice of the port (ROADMAP queue A, "
+            "item 10)"
         )
     if cfg.obs.enabled:
         raise NotImplementedError(
@@ -333,15 +352,13 @@ def refuse_unported_training(cfg: Config) -> None:
 def refuse_unported_serving(cfg: Config) -> None:
     """NotImplementedError for the serving options the port does not run,
     each naming the ROADMAP queue A item that brings it: the Joern
-    frontend (item 3), the cascade (item 4), line attributions (item 5)
-    and the pipelined batcher (item 6); a quantized `tag@int8`
-    checkpoint (item 6) is refused by the registry."""
+    frontend (item 3), line attributions (item 5) and the pipelined
+    batcher (item 6); a quantized `tag@int8` checkpoint (item 6) is
+    refused by the registry."""
     scfg = cfg.serve
     refused = {
         "serve.use_joern=true: the Joern CPG importer and session pool are not "
         "ported (ROADMAP queue A, item 3); the built-in parser serves": scfg.use_joern,
-        "serve.cascade=true: the two-stage cascade is not ported (ROADMAP queue A, "
-        "item 4)": scfg.cascade,
         "serve.lines=true: served line attributions are not ported (ROADMAP queue A, "
         "item 5)": scfg.lines,
         "serve.pipeline_depth > 0: the pipelined batcher is not ported (ROADMAP queue A, "

@@ -11,9 +11,10 @@ from deepdfa_tpu_torch.data.text import (
     rows_for_bucket,
     token_lengths,
 )
-from deepdfa_tpu_torch.data.tokenizer import HashTokenizer, Tokenizer, split_lines
+from deepdfa_tpu_torch.data.tokenizer import BpeTokenizer, HashTokenizer, Tokenizer, split_lines
 
 __all__ = [
+    "BpeTokenizer",
     "Example",
     "HashTokenizer",
     "TextBatch",

@@ -250,7 +250,7 @@ def collate_plan(
     if plan.num_shards != 1:
         raise NotImplementedError(
             f"a plan of {plan.num_shards} shards: the port collates one logical shard "
-            "(data parallelism comes with the multi-device slice, ROADMAP queue A)"
+            "(data parallelism comes with the multi-device slice, ROADMAP queue A, item 9)"
         )
     ids = plan.example_ids
     if ids:

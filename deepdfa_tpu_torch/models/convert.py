@@ -32,6 +32,15 @@ H*Dh], `ck/cv` fuse into `ckv` [D, 2*H*Dh], `wo`/`co` become [H*Dh, D];
 an untied `lm_head` [V, D] keeps its layout (the model must then be
 built with `untied_head=True`); the clone head's Dense kernels are
 transposed for `nn.Linear`.
+
+`hf_roberta_tree` / `hf_t5_tree` / `hf_gen_tree`: a Hugging Face torch
+`state_dict` (`RobertaModel` with a `'roberta.'` prefix or none;
+`T5EncoderModel` / `T5Model`; `T5ForConditionalGeneration`) -> the
+reference's parameter tree as numpy fp32 arrays, by the reference's own
+key map (`params_from_hf_torch` of its `models/transformer.py` and
+`models/t5.py`, `gen_params_from_hf_torch` of `models/t5_gen.py`). The
+models' `params_from_hf_torch` / `gen_params_from_hf_torch` feed these
+trees to the `from_jax_*` functions above.
 """
 
 from __future__ import annotations
@@ -204,3 +213,134 @@ def from_jax_clone_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     sd["out.weight"] = _t(head["out_w"]).T.contiguous()
     sd["out.bias"] = _t(head["out_b"])
     return sd
+
+
+def _hf_getter(state_dict, prefixes):
+    def get(name):
+        for prefix in prefixes:
+            k = prefix + name
+            if k in state_dict:
+                v = state_dict[k]
+                v = v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else v
+                return np.asarray(v, np.float32)
+        raise KeyError(name)
+    return get
+
+
+def _stack(n_layers: int, fn) -> np.ndarray:
+    return np.stack([fn(i) for i in range(n_layers)])
+
+
+def hf_roberta_tree(cfg, state_dict) -> dict:
+    """A HF `RobertaModel` state_dict -> the reference's encoder tree
+    {"embeddings", "layers", "pooler"} (a zero pooler when the state dict
+    has none). `cfg` is a TransformerConfig."""
+    get = _hf_getter(state_dict, ("", "roberta."))
+    D, H, Dh, L = cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.num_layers
+    emb = {
+        "word": get("embeddings.word_embeddings.weight"),
+        "position": get("embeddings.position_embeddings.weight"),
+        "token_type": get("embeddings.token_type_embeddings.weight"),
+        "ln_scale": get("embeddings.LayerNorm.weight"),
+        "ln_bias": get("embeddings.LayerNorm.bias"),
+    }
+
+    def layer(name):
+        return lambda i: get(f"encoder.layer.{i}.{name}")
+
+    def heads_in(name):  # torch Linear [out, in] -> [in, H, Dh]
+        return lambda i: layer(name)(i).T.reshape(D, H, Dh)
+
+    layers = {
+        "wq": _stack(L, heads_in("attention.self.query.weight")),
+        "bq": _stack(L, lambda i: layer("attention.self.query.bias")(i).reshape(H, Dh)),
+        "wk": _stack(L, heads_in("attention.self.key.weight")),
+        "bk": _stack(L, lambda i: layer("attention.self.key.bias")(i).reshape(H, Dh)),
+        "wv": _stack(L, heads_in("attention.self.value.weight")),
+        "bv": _stack(L, lambda i: layer("attention.self.value.bias")(i).reshape(H, Dh)),
+        "wo": _stack(L, lambda i: layer("attention.output.dense.weight")(i).T.reshape(H, Dh, D)),
+        "bo": _stack(L, layer("attention.output.dense.bias")),
+        "ln1_scale": _stack(L, layer("attention.output.LayerNorm.weight")),
+        "ln1_bias": _stack(L, layer("attention.output.LayerNorm.bias")),
+        "w1": _stack(L, lambda i: layer("intermediate.dense.weight")(i).T),
+        "b1": _stack(L, layer("intermediate.dense.bias")),
+        "w2": _stack(L, lambda i: layer("output.dense.weight")(i).T),
+        "b2": _stack(L, layer("output.dense.bias")),
+        "ln2_scale": _stack(L, layer("output.LayerNorm.weight")),
+        "ln2_bias": _stack(L, layer("output.LayerNorm.bias")),
+    }
+    try:
+        pooler = {"w": get("pooler.dense.weight").T, "b": get("pooler.dense.bias")}
+    except KeyError:
+        pooler = {"w": np.zeros((D, D), np.float32), "b": np.zeros((D,), np.float32)}
+    return {"embeddings": emb, "layers": layers, "pooler": pooler}
+
+
+def _t5_attention(blk, L, D, H, Dh, prefix: str, names=("q", "k", "v", "o")) -> dict:
+    out = {}
+    for w, n in zip(("wq", "wk", "wv"), names[:3]):
+        out[w] = _stack(L, lambda i, n=n: blk(i, f"{prefix}.{n}.weight").T.reshape(D, H, Dh))
+    out["wo"] = _stack(L, lambda i: blk(i, f"{prefix}.{names[3]}.weight").T.reshape(H, Dh, D))
+    return out
+
+
+def hf_t5_tree(cfg, state_dict) -> dict:
+    """A HF `T5EncoderModel` / `T5Model` state_dict (keys bare, under
+    `encoder.` or `transformer.`) -> the reference's T5 encoder tree
+    {"word", "rel_bias", "layers", "final_ln"}. `cfg` is a T5Config."""
+    get = _hf_getter(state_dict, ("", "encoder.", "transformer."))
+    D, H, Dh, L = cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.num_layers
+
+    def blk(i, name):
+        return get(f"block.{i}.layer.{name}")
+
+    try:
+        word = get("shared.weight")
+    except KeyError:
+        word = get("embed_tokens.weight")
+    layers = _t5_attention(blk, L, D, H, Dh, "0.SelfAttention")
+    layers.update(
+        ln1=_stack(L, lambda i: blk(i, "0.layer_norm.weight")),
+        wi=_stack(L, lambda i: blk(i, "1.DenseReluDense.wi.weight").T),
+        wo_ffn=_stack(L, lambda i: blk(i, "1.DenseReluDense.wo.weight").T),
+        ln2=_stack(L, lambda i: blk(i, "1.layer_norm.weight")),
+    )
+    return {"word": word,
+            "rel_bias": get("block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+            "layers": layers, "final_ln": get("final_layer_norm.weight")}
+
+
+def hf_gen_tree(cfg, state_dict) -> dict:
+    """A HF `T5ForConditionalGeneration` state_dict -> the reference's
+    seq2seq tree {"encoder", "decoder"}; an `lm_head` that differs from
+    the shared embedding (an untied checkpoint) is kept as the decoder's
+    `lm_head`. `cfg` is a GenConfig."""
+    ecfg = cfg.encoder
+    get = _hf_getter(state_dict, ("",))
+    D, H, Dh, L = ecfg.hidden_size, ecfg.num_heads, ecfg.head_dim, cfg.n_dec_layers
+
+    def blk(i, name):
+        return get(f"decoder.block.{i}.layer.{name}")
+
+    enc_sd = {k[len("encoder."):]: v for k, v in state_dict.items() if k.startswith("encoder.")}
+    enc_sd["shared.weight"] = state_dict["shared.weight"]
+    layers = _t5_attention(blk, L, D, H, Dh, "0.SelfAttention")
+    cross = _t5_attention(blk, L, D, H, Dh, "1.EncDecAttention")
+    layers.update(
+        ln1=_stack(L, lambda i: blk(i, "0.layer_norm.weight")),
+        cq=cross["wq"], ck=cross["wk"], cv=cross["wv"], co=cross["wo"],
+        lnc=_stack(L, lambda i: blk(i, "1.layer_norm.weight")),
+        wi=_stack(L, lambda i: blk(i, "2.DenseReluDense.wi.weight").T),
+        wo_ffn=_stack(L, lambda i: blk(i, "2.DenseReluDense.wo.weight").T),
+        ln2=_stack(L, lambda i: blk(i, "2.layer_norm.weight")),
+    )
+    decoder = {
+        "rel_bias": get("decoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"),
+        "layers": layers,
+        "final_ln": get("decoder.final_layer_norm.weight"),
+    }
+    if "lm_head.weight" in state_dict:
+        head = get("lm_head.weight")
+        if not np.array_equal(head, get("shared.weight")):
+            decoder["lm_head"] = head
+    return {"encoder": hf_t5_tree(ecfg, enc_sd), "decoder": decoder}

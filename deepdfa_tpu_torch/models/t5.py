@@ -34,12 +34,17 @@ version. As in the reference, there is no attention-probs dropout
 `dropout_key`, at the embedding, after each layer's attention and FFN
 (seeds (1,) and (2,) folded from the layer's) and after the final norm.
 With `remat` and gradients on, each layer runs under
-`torch.utils.checkpoint` (non-reentrant); every mask is a function of
-its seed, so the replay draws the same masks.
+`torch.utils.checkpoint` (non-reentrant, `nn/flash_attention.py:
+remat_layer`); every mask is a function of its seed, so the replay draws
+the same masks. `remat_policy="attn_saved"` keeps the flash kernel's (o,
+lse) across the checkpoint, so the replay launches no forward kernel.
 
-Not ported (raise `NotImplementedError`): `remat_policy="attn_saved"`,
-sequence and tensor parallelism (`sp_axis`, `tp_axis`,
-`sp_variant="ulysses"`) and the pipeline (`pp_axis`).
+`params_from_hf_torch` reads a Hugging Face `T5EncoderModel` / `T5Model`
+state_dict (codet5-base's layout) into the encoder.
+
+Not ported (raise `NotImplementedError`): sequence and tensor
+parallelism (`sp_axis`, `tp_axis`, `sp_variant="ulysses"`) and the
+pipeline (`pp_axis`).
 """
 
 from __future__ import annotations
@@ -51,14 +56,19 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
 from deepdfa_tpu_torch.core.config import PAD_ID_BY_FAMILY
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
+from deepdfa_tpu_torch.models.convert import from_jax_t5_params, hf_t5_tree
 from deepdfa_tpu_torch.models.deepdfa import DeepDFA
 from deepdfa_tpu_torch.models.transformer import _DTYPES, _normal_
 from deepdfa_tpu_torch.nn.dropout import dropout, fold_seed
-from deepdfa_tpu_torch.nn.flash_attention import attention_plain, flash_attention, resolve_impl
+from deepdfa_tpu_torch.nn.flash_attention import (
+    attention_plain,
+    flash_attention,
+    remat_layer,
+    resolve_impl,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +95,7 @@ class T5Config:
     remat: bool = True  # checkpoint each layer when gradients are on
     sp_variant: str = "ring"
     attn_impl: str = "auto"  # auto | xla | flash
-    remat_policy: str = "full"  # full | attn_saved (not ported)
+    remat_policy: str = "full"  # full | attn_saved
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
@@ -301,11 +311,6 @@ class T5Encoder(nn.Module):
                 "configured bound"
             )
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy == "attn_saved":
-            raise NotImplementedError(
-                "remat_policy='attn_saved': saving the attention output across the "
-                "layer checkpoint is not ported yet (ROADMAP queue A, item 4); use 'full'"
-            )
         if attn_mask is None:
             attn_mask = input_ids != cfg.pad_token_id
         dt = cfg.torch_dtype
@@ -317,9 +322,7 @@ class T5Encoder(nn.Module):
         for i, layer in enumerate(self.layers):
             seed = fold_seed(dropout_key, 1, i) if seeded else None
             if remat:
-                # every mask is a function of its seed: nothing to restore
-                x = checkpoint(layer, x, attn_mask, bias, seed, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = remat_layer(layer, x, attn_mask, bias, seed, policy=cfg.remat_policy)
             else:
                 x = layer(x, attn_mask, bias, seed)
         x = rms_norm(x, self.final_ln, cfg.layer_norm_eps)
@@ -410,3 +413,10 @@ class DefectModel(nn.Module):
                 gvec = gvec * has_graph[:, None].to(gvec.dtype)
             vec = torch.cat([vec, gvec.to(vec.dtype)], dim=-1)
         return self.head(vec.float())
+
+
+def params_from_hf_torch(cfg: T5Config, state_dict) -> dict[str, torch.Tensor]:
+    """A Hugging Face torch `T5EncoderModel` / `T5Model` state_dict -> a
+    `T5Encoder` state_dict, through the reference's key map
+    (`models/convert.py:hf_t5_tree`)."""
+    return from_jax_t5_params(hf_t5_tree(cfg, state_dict))

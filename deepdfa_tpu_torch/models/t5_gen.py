@@ -28,7 +28,10 @@ seed (0,), the decoder (1,), and inside the decoder the embedding (0,),
 layer i (1, i) with (1,), (2,), (3,) after its self-attention,
 cross-attention and FFN, and the final norm's output (2,). With `remat`
 and gradients on, each decoder layer runs under `torch.utils.checkpoint`,
-as the encoder's layers do.
+as the encoder's layers do, under the encoder config's `remat_policy`
+("attn_saved" keeps both flash calls' (o, lse) across the checkpoint).
+`gen_params_from_hf_torch` reads a Hugging Face
+`T5ForConditionalGeneration` state_dict into a `T5Seq2Seq`.
 
 Incremental decoding (`_decode_step`, `beam_search`, `greedy_decode`)
 keeps the reference's KV-cached attention in plain PyTorch (the reference
@@ -46,8 +49,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
+from deepdfa_tpu_torch.models.convert import from_jax_gen_params, hf_gen_tree
 from deepdfa_tpu_torch.models.t5 import (
     T5Config,
     T5Encoder,
@@ -59,6 +62,7 @@ from deepdfa_tpu_torch.models.t5 import (
 )
 from deepdfa_tpu_torch.models.transformer import _normal_
 from deepdfa_tpu_torch.nn.dropout import dropout, fold_seed
+from deepdfa_tpu_torch.nn.flash_attention import remat_layer
 
 #: the reference's score of a dead beam
 NEG_SCORE = -1e9
@@ -234,8 +238,8 @@ def decode_train(model: T5Seq2Seq, dec_input_ids, dec_mask, enc_hidden, enc_mask
     for i, layer in enumerate(dec.layers):
         seed = fold_seed(dropout_key, 1, i) if seeded else None
         if remat:
-            x = checkpoint(layer, x, dec_mask, bias, enc_h, enc_mask, seed,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = remat_layer(layer, x, dec_mask, bias, enc_h, enc_mask, seed,
+                            policy=ecfg.remat_policy)
         else:
             x = layer(x, dec_mask, bias, enc_h, enc_mask, seed)
     x = rms_norm(x, dec.final_ln, ecfg.layer_norm_eps)
@@ -488,3 +492,11 @@ def clone_forward(model: CloneModel, pair_ids, dropout_key=None) -> torch.Tensor
     vec = clone_vec(model, pair_ids.reshape(B * two, T), dropout_key=dropout_key)
     x = torch.tanh(model.dense(vec.float().reshape(B, -1)))
     return model.out(x)
+
+
+def gen_params_from_hf_torch(cfg: GenConfig, state_dict) -> dict[str, torch.Tensor]:
+    """A Hugging Face torch `T5ForConditionalGeneration` state_dict -> a
+    `T5Seq2Seq` state_dict (with `decoder.lm_head` when the checkpoint's
+    head is untied: build the model with `untied_head=True` for it),
+    through the reference's key map (`models/convert.py:hf_gen_tree`)."""
+    return from_jax_gen_params(hf_gen_tree(cfg, state_dict))

@@ -30,12 +30,18 @@ attention output and FFN output are dropped by `dropout` (a generator
 built from the site's seed on each call) and the attention probs inside
 the flash kernel (Philox bits from the layer's seed), at
 `dropout_rate`. With `remat` (the reference's default) and gradients
-on, each layer runs under `torch.utils.checkpoint` (non-reentrant), as
-the reference's `remat_wrap` puts it under `jax.checkpoint`; the
-recomputation draws the same masks because every mask is a function of
-its seed. `remat_policy="attn_saved"` raises `NotImplementedError`, as
-do sequence and tensor parallelism (`sp_axis`, `tp_axis`,
-`sp_variant="ulysses"`).
+on, each layer runs under `torch.utils.checkpoint` (non-reentrant,
+`nn/flash_attention.py:remat_layer`), as the reference's `remat_wrap`
+puts it under `jax.checkpoint`; the recomputation draws the same masks
+because every mask is a function of its seed. `remat_policy="full"`
+replays the whole layer in the backward, "attn_saved" keeps the flash
+kernel's (o, lse) across the checkpoint so the replay launches no
+forward kernel (the same gradients, to the bit). Sequence and tensor
+parallelism (`sp_axis`, `tp_axis`, `sp_variant="ulysses"`) raise
+`NotImplementedError`.
+
+`params_from_hf_torch` reads a Hugging Face `RobertaModel` state_dict
+(codebert-base's layout) into this module.
 """
 
 from __future__ import annotations
@@ -45,14 +51,15 @@ import dataclasses
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
 from deepdfa_tpu_torch.core.config import PAD_ID_BY_FAMILY
+from deepdfa_tpu_torch.models.convert import from_jax_encoder_params, hf_roberta_tree
 from deepdfa_tpu_torch.nn.dropout import dropout, fold_seed
 from deepdfa_tpu_torch.nn.flash_attention import (
     attention_plain,
     dropout_bits,
     flash_attention,
+    remat_layer,
     resolve_impl,
 )
 
@@ -77,7 +84,7 @@ class TransformerConfig:
     sp_variant: str = "ring"
     remat: bool = True  # checkpoint each layer when gradients are on
     attn_impl: str = "auto"  # auto | xla | flash
-    remat_policy: str = "full"  # full | attn_saved (not ported)
+    remat_policy: str = "full"  # full | attn_saved
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
@@ -279,11 +286,6 @@ class RobertaEncoder(nn.Module):
             )
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy == "attn_saved":
-            raise NotImplementedError(
-                "remat_policy='attn_saved': saving the attention output across the "
-                "layer checkpoint is not ported yet (ROADMAP queue A, item 4); use 'full'"
-            )
         if attn_mask is None:
             attn_mask = input_ids != cfg.pad_token_id
         seeded = dropout_key is not None
@@ -291,9 +293,7 @@ class RobertaEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             seed = fold_seed(dropout_key, 1, i) if seeded else None
             if remat:
-                # every mask is a function of its seed: nothing to restore
-                x = checkpoint(layer, x, attn_mask, seed, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = remat_layer(layer, x, attn_mask, seed, policy=cfg.remat_policy)
             else:
                 x = layer(x, attn_mask, seed)
         return x
@@ -306,3 +306,11 @@ class RobertaEncoder(nn.Module):
             raise ValueError("this encoder was built without its pooler (with_pooler=False)")
         cls = hidden[:, 0, :]
         return torch.tanh(cls @ self.pooler_w.to(cls.dtype) + self.pooler_b.to(cls.dtype))
+
+
+def params_from_hf_torch(cfg: TransformerConfig, state_dict) -> dict[str, torch.Tensor]:
+    """A Hugging Face torch `RobertaModel` state_dict (keys with a
+    `'roberta.'` prefix or none) -> a `RobertaEncoder` state_dict with its
+    pooler (zeros when the state dict has none), through the reference's
+    key map (`models/convert.py:hf_roberta_tree`)."""
+    return from_jax_encoder_params(hf_roberta_tree(cfg, state_dict))

@@ -60,6 +60,16 @@ GFLOP) on ~70 MB including its fp32 output (0.021 ms, bytes bind). The
 kernels stream tiles through shared memory, so no T x T matrix but the
 bias and dbias reaches device memory; the source's header has the rest
 of the design.
+
+Layer checkpoints (`remat_layer`). Under remat_policy "full" a
+checkpointed layer replays its whole forward in the backward, kernel 5
+included. Under "attn_saved" (the reference's `remat_wrap`, which saves
+only the flash kernel's `attn_ctx` and `attn_lse` across
+`jax.checkpoint`) each `FlashAttention` call of the layer's forward keeps
+its (o, lse) in a stash that the checkpoint's recompute context hands
+back: the replay recomputes q, k and v from the layer's input but takes
+o and lse from the stash and launches nothing. The kernel is
+deterministic, so both policies give the same gradients to the bit.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ import ctypes
 import threading
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deepdfa_tpu_torch.nn import cuda_build
 from deepdfa_tpu_torch.nn.ggnn_kernel import _on_cuda, _stream
@@ -632,8 +643,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, bias, scale, dropout_rate, seed, debug_bits,
                 causal=False):
-        o, lse = flash_fwd(q, k, v, kv_mask, scale=scale, dropout_rate=dropout_rate,
-                           seed=seed, debug_bits=debug_bits, bias=bias, causal=causal)
+        stash = getattr(_stash_state, "stash", None)
+        if stash is not None and stash.replay:
+            o, lse = stash.take()  # an attn_saved replay: no launch
+        else:
+            o, lse = flash_fwd(q, k, v, kv_mask, scale=scale, dropout_rate=dropout_rate,
+                               seed=seed, debug_bits=debug_bits, bias=bias, causal=causal)
+            if stash is not None:
+                stash.keep(o, lse)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse, bias, debug_bits)
         ctx.scale, ctx.dropout_rate, ctx.seed, ctx.causal = scale, dropout_rate, seed, causal
         return o
@@ -648,6 +665,72 @@ class FlashAttention(torch.autograd.Function):
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
         return dq, dk, dv, None, dbias, None, None, None, None, None
+
+
+_stash_state = threading.local()
+
+
+class _AttnStash:
+    """The (o, lse) of each FlashAttention forward of one checkpointed
+    layer, in call order. `keep` records them in the layer's forward,
+    `take` hands them back in its replay (each replay starts from the
+    first)."""
+
+    def __init__(self):
+        self.saved: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self.replay = False
+        self.cursor = 0
+
+    def keep(self, o: torch.Tensor, lse: torch.Tensor) -> None:
+        self.saved.append((o.detach(), lse.detach()))
+
+    def take(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self.cursor >= len(self.saved):
+            raise RuntimeError("attn_saved replay: the layer's replay made more flash "
+                               f"calls than its forward ({len(self.saved)})")
+        o, lse = self.saved[self.cursor]
+        self.cursor += 1
+        return o.detach(), lse.detach()
+
+
+class _StashMode:
+    """Context manager: FlashAttention calls in this thread record into
+    (or, with `replay`, take from) `stash`."""
+
+    def __init__(self, stash: _AttnStash, replay: bool):
+        self.stash, self.replay = stash, replay
+
+    def __enter__(self):
+        self._outer = getattr(_stash_state, "stash", None)
+        self.stash.replay = self.replay
+        self.stash.cursor = 0
+        _stash_state.stash = self.stash
+        return self.stash
+
+    def __exit__(self, *exc):
+        _stash_state.stash = self._outer
+        return False
+
+
+def _attn_saved_contexts():
+    stash = _AttnStash()
+    return _StashMode(stash, replay=False), _StashMode(stash, replay=True)
+
+
+REMAT_POLICIES = ("full", "attn_saved")
+
+
+def remat_layer(layer, *args, policy: str = "full"):
+    """`layer(*args)` under a non-reentrant `torch.utils.checkpoint`
+    without RNG state (every dropout mask is a function of its seed, so
+    the replay draws it again). "full" replays the whole layer in the
+    backward; "attn_saved" keeps each flash call's (o, lse) and the
+    replay takes them instead of launching kernel 5 (the plain route,
+    `attn_impl="xla"`, has no kernel to skip and replays as "full")."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r} (one of {REMAT_POLICIES})")
+    kw = {"context_fn": _attn_saved_contexts} if policy == "attn_saved" else {}
+    return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def flash_attention(

@@ -29,6 +29,7 @@ flash-attention kernel's (one per encoder layer per batch).
 
 from __future__ import annotations
 
+import collections
 import json
 import time
 from pathlib import Path
@@ -279,7 +280,9 @@ def run_score(
 ) -> dict:
     """Score (name, code) pairs against a run's `serve.checkpoint` on
     `device` (None: the card); the summary, also appended to
-    <run_dir>/serve_log.jsonl with the service's counters."""
+    <run_dir>/serve_log.jsonl with the service's counters. In cascade
+    mode the summary's `cascade` holds the cascade's counters and the
+    rows each stage decided."""
     from deepdfa_tpu_torch.serve.registry import ModelRegistry
     from deepdfa_tpu_torch.serve.server import ScoringService, score_texts, write_serve_log
 
@@ -317,6 +320,14 @@ def run_score(
             **launches,
             "scores_path": str(out_path),
         }
+        if service.cascade is not None:
+            # which stage decided each scored row, beside the counters
+            stages = collections.Counter(r.get("stage") for r in rows if r.get("ok"))
+            summary["cascade"] = {**service.cascade.counters(),
+                                  "band": list(service.cascade.band),
+                                  "temperature": service.cascade.temperature,
+                                  "stage1_rows": stages[1], "stage2_rows": stages[2],
+                                  "stage2_batches": service.cascade.service.batcher.batches_run}
         write_serve_log(run_dir, [{**summary, "serve": service.stats()}])
         return summary
     finally:

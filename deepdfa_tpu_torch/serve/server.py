@@ -4,7 +4,10 @@ of the reference's `deepdfa_tpu/serve/server.py`).
 stdlib only (`http.server.ThreadingHTTPServer`):
 
   POST /score    {"code": "<C function>"} -> {"ok": true, "prob": p,
-                 "latency_ms": ..., "request_id": ...}
+                 "latency_ms": ..., "request_id": ...}; with
+                 `serve.cascade` also "stage" (1 or 2), "stage1_prob",
+                 "calibrated_prob" and, when it happened, "cascade_shed"
+                 or "cascade_failed"
   GET  /healthz  what is serving: family, checkpoint tag and step,
                  config and vocabulary digests, device, warmed rungs
   GET  /stats    batcher, feature cache, frontend and status counts
@@ -16,10 +19,17 @@ bad body or a missing `code` is 400, an unknown route 404, an
 over-budget graph 413, an unparseable function 422, a full queue 429,
 an executor failure 500 and a request not answered in time 504.
 
+Cascade mode (`serve.cascade=true`, serve/cascade.py): a deepdfa
+service builds a `CascadeStage2`; `/score` screens each stage-1 score and
+escalates the calibrated uncertainty band to the combined or t5 model,
+and `score_texts` takes every stage-1 verdict first, then escalates the
+band in one grouped `escalate_many`. `/healthz` and `/stats` carry a
+`cascade` section, and the request log the verdict's fields.
+
 Left out (ROADMAP queue A item 12, the operations layer): `/metrics`
 (it answers 404), the SLO windows, `/healthz?deep=1`'s backend probe
-(the query is ignored) and trace spans. `serve.cascade` and
-`serve.lines` are refused (core/config.py:refuse_unported_serving).
+(the query is ignored) and trace spans. `serve.lines` is refused
+(core/config.py:refuse_unported_serving).
 """
 
 from __future__ import annotations
@@ -116,6 +126,13 @@ class ScoringService:
 
             self.frontend, self.executor = build_combined_service_parts(
                 registry, cfg, node_budget, edge_budget, seq_buckets=tuned_buckets)
+        # the stage-2 stack, its own warm-up included, before this one's
+        self.cascade = None
+        if scfg.cascade and registry.family == "deepdfa":
+            from deepdfa_tpu_torch.serve.cascade import CascadeStage2
+
+            self.cascade = CascadeStage2.from_config(cfg, registry.run_dir,
+                                                     device=registry.device)
         self.request_log: RequestLog | None = (
             RequestLog(registry.run_dir / "serve_log.jsonl") if scfg.request_log else None)
         self.batcher = DynamicBatcher(
@@ -142,14 +159,18 @@ class ScoringService:
 
     def finish_request(self, request_id: str, status: int, latency_s: float | None,
                        req: ScoreRequest | None = None,
-                       frontend_s: float | None = None) -> dict:
+                       frontend_s: float | None = None, extra_stages: dict | None = None,
+                       log_fields: dict | None = None) -> dict:
         """The one request epilogue (HTTP handler and offline drive): count
         the status, append the serve_log entry, and return the stage
-        milliseconds."""
+        milliseconds. `extra_stages` carries the cascade's stage seconds
+        (cascade_stage1, cascade_stage2), `log_fields` its verdict
+        (stage, stage1_prob, ...) for the log entry."""
         stages = {
             "frontend": req.frontend_s if req is not None else frontend_s,
             "queue": req.queue_wait_s if req is not None else None,
             "device": req.device_s if req is not None else None,
+            **(extra_stages or {}),
         }
         with self._status_lock:
             self.status_counts[int(status)] += 1
@@ -160,8 +181,19 @@ class ScoringService:
                 entry["latency_ms"] = 1e3 * latency_s
             if req is not None and req.batch_size is not None:
                 entry["batch_size"] = req.batch_size
+            entry.update(log_fields or {})
             self.request_log.append({"request": entry})
         return ms
+
+    def cascade_decide(self, code: str, prob1: float, request_id: str,
+                       req: ScoreRequest | None = None):
+        """The cascade verdict of one stage-1 score: (final prob, response
+        fields, extra stage seconds); cascade_stage1 is the stage-1
+        request's latency, cascade_stage2 the escalation's."""
+        prob, info, extra = self.cascade.decide(code, prob1, request_id=request_id)
+        if req is not None and req.latency_s is not None:
+            extra = {"cascade_stage1": req.latency_s, **extra}
+        return prob, info, extra
 
     def healthz(self) -> dict:
         info = self.registry.info()
@@ -175,6 +207,8 @@ class ScoringService:
                             ggnn_kernel_unroll=mcfg.ggnn_kernel_unroll)
         if self.tuned is not None:
             info["tuned"] = self.tuned
+        if self.cascade is not None:
+            info["cascade"] = self.cascade.info()
         return info
 
     def stats(self) -> dict:
@@ -189,13 +223,19 @@ class ScoringService:
         )
         with self._status_lock:
             out["status_counts"] = {str(k): v for k, v in sorted(self.status_counts.items())}
+        if self.cascade is not None:
+            out["cascade"] = self.cascade.counters()
         return out
 
     def start(self) -> None:
+        if self.cascade is not None:
+            self.cascade.start()
         self.batcher.start()
 
     def close(self) -> None:
         self.batcher.close()
+        if self.cascade is not None:
+            self.cascade.close()
         if self.request_log is not None:
             self.request_log.close()
 
@@ -216,9 +256,12 @@ def score_texts(service: ScoringService, texts: list[tuple[str, str]],
     Frontend failures become rows with ok false, never a crash; the
     batcher groups whatever was admitted as live traffic would. Every
     row goes through `finish_request` with the status the HTTP path
-    would give it."""
+    would give it. In cascade mode every stage-1 verdict comes first
+    (`CascadeStage2.screen`, as the handler), then the escalated band
+    goes through the stage-2 batcher in one `escalate_many`; a failed
+    stage-2 pass serves the row's stage-1 score."""
     rows: list[dict] = []
-    payloads: list[tuple[dict, Any, str, float]] = []
+    payloads: list[tuple[dict, Any, str, float, str]] = []
     for name, code in texts:
         rid = new_request_id()
         row = {"name": name, "request_id": rid}
@@ -226,19 +269,20 @@ def score_texts(service: ScoringService, texts: list[tuple[str, str]],
         t0 = time.perf_counter()
         try:
             spec = service.frontend.features(code)
-            payloads.append((row, spec, rid, time.perf_counter() - t0))
+            payloads.append((row, spec, rid, time.perf_counter() - t0, code))
         except (FrontendError, RequestTooLarge) as e:
             status = 422 if isinstance(e, FrontendError) else 413
             row.update(ok=False, error=str(e))
             service.finish_request(rid, status, time.perf_counter() - t0,
                                    frontend_s=time.perf_counter() - t0)
     reqs = service.batcher.score_all(
-        [spec for _, spec, _, _ in payloads],
-        request_ids=[rid for _, _, rid, _ in payloads],
-        frontend_seconds=[fs for _, _, _, fs in payloads])
-    for (row, _, rid, _), req in zip(payloads, reqs):
+        [p[1] for p in payloads], request_ids=[p[2] for p in payloads],
+        frontend_seconds=[p[3] for p in payloads])
+    casc = service.cascade
+    escalate: list[tuple[dict, ScoreRequest, str, str, dict]] = []
+    for (row, _, rid, _, code), req in zip(payloads, reqs):
         try:
-            prob = req.wait(timeout_s)
+            prob1 = req.wait(timeout_s)
         except Exception as e:  # per-row fault isolation
             row.update(ok=False, error=str(e))
             if isinstance(e, RequestTooLarge):
@@ -249,8 +293,31 @@ def score_texts(service: ScoringService, texts: list[tuple[str, str]],
                 status = 500
             service.finish_request(rid, status, req.latency_s, req=req)
             continue
-        row.update(ok=True, prob=prob)
-        service.finish_request(rid, 200, req.latency_s, req=req)
+        if casc is None:
+            row.update(ok=True, prob=prob1)
+            service.finish_request(rid, 200, req.latency_s, req=req)
+            continue
+        up, fields = casc.screen(prob1)
+        if up:
+            escalate.append((row, req, rid, code, fields))
+            continue
+        row.update(ok=True, prob=prob1, **fields)
+        service.finish_request(rid, 200, req.latency_s, req=req,
+                               extra_stages={"cascade_stage1": req.latency_s},
+                               log_fields=fields)
+    if escalate:
+        results = casc.escalate_many([e[3] for e in escalate])
+        for (row, req, rid, _, fields), (prob2, s2) in zip(escalate, results):
+            extra = {"cascade_stage1": req.latency_s}
+            if prob2 is None:
+                fields["cascade_failed"] = 1
+                row.update(ok=True, prob=fields["stage1_prob"], **fields)
+            else:
+                fields["stage"] = 2
+                row.update(ok=True, prob=prob2, **fields)
+                extra["cascade_stage2"] = s2
+            service.finish_request(rid, 200, req.latency_s, req=req, extra_stages=extra,
+                                   log_fields=fields)
     return rows
 
 
@@ -298,9 +365,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(400, {"error": f"bad request: {e}", "request_id": rid})
             return
         req = None
+        fields: dict = {}
+        extra = None
         try:
             req = service.submit_code(code, request_id=rid)
             prob = req.wait(self.request_timeout_s)
+            if service.cascade is not None:
+                prob, fields, extra = service.cascade_decide(code, prob, rid, req=req)
         except QueueFull as e:
             status, err = 429, e
         except RequestTooLarge as e:
@@ -313,10 +384,11 @@ class _Handler(BaseHTTPRequestHandler):
             logger.exception("request %s failed", rid)
             status, err = 500, e
         else:
-            service.finish_request(rid, 200, time.monotonic() - t0, req=req)
+            service.finish_request(rid, 200, time.monotonic() - t0, req=req,
+                                   extra_stages=extra, log_fields=fields)
             self._reply(200, {"ok": True, "prob": prob,
                               "latency_ms": (time.monotonic() - t0) * 1e3,
-                              "request_id": rid})
+                              "request_id": rid, **fields})
             return
         service.finish_request(rid, status, time.monotonic() - t0, req=req,
                                frontend_s=getattr(err, "frontend_s", None))

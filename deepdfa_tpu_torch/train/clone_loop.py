@@ -27,7 +27,7 @@ from deepdfa_tpu_torch.data.gen_data import one_shard, to_tensor
 from deepdfa_tpu_torch.models import t5_gen as gen
 from deepdfa_tpu_torch.nn.dropout import fold_seed
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
-from deepdfa_tpu_torch.train.gen_loop import model_state, refuse_attn_saved
+from deepdfa_tpu_torch.train.gen_loop import model_state
 from deepdfa_tpu_torch.train.metrics import BinaryClassificationMetrics
 from deepdfa_tpu_torch.train.state import TrainState
 
@@ -80,7 +80,6 @@ class CloneTrainer:
 
     def __init__(self, cfg: Config, clone_cfg: gen.CloneConfig, total_steps: int | None = None,
                  device: str | torch.device | None = None):
-        refuse_attn_saved(clone_cfg.encoder)
         refuse_unported_training(cfg)
         self.cfg = cfg
         self.clone_cfg = clone_cfg

@@ -34,8 +34,8 @@ the reference's `is_t5` switch picks `defect_forward` (`:123-128,
 
 Not in the port yet, and refused when configured: a mesh beyond one
 card, `train.resilience.enabled` (the divergence guard, step
-checkpoints, resume), the `obs` instruments, `remat_policy="attn_saved"`
-and the MoE adapter (`moe_experts > 0`). The prefetch
+checkpoints, resume), the `obs` instruments and the MoE adapter
+(`moe_experts > 0`). The prefetch
 pipeline, `data.pack_workers`/`data.packed_cache` and
 `train.step_cache_entries` are read past.
 """
@@ -76,12 +76,6 @@ class CombinedTrainer:
         if not isinstance(model_cfg, (CombinedConfig, DefectConfig)):
             raise TypeError(f"{type(model_cfg).__name__}: the trainer takes a CombinedConfig "
                             "(RoBERTa family) or a DefectConfig (T5 family)")
-        if model_cfg.encoder.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={model_cfg.encoder.remat_policy!r}: saving the attention "
-                "output across the layer checkpoint is not ported yet (ROADMAP queue A, "
-                "item 4); use 'full'"
-            )
         if getattr(model_cfg, "moe_experts", 0):
             raise NotImplementedError(
                 f"moe_experts={model_cfg.moe_experts}: the MoE adapter comes with a later "
@@ -126,6 +120,16 @@ class CombinedTrainer:
         the graph branch; the optimiser starts afresh, as the reference's
         `tx.init` does."""
         load_graph_encoder(state.model, deepdfa_state)
+        return self._state(state.model, step=state.step)
+
+    def load_encoder(self, state: TrainState, encoder_params) -> TrainState:
+        """Load pretrained encoder weights (a `RobertaEncoder` or
+        `T5Encoder` state dict, e.g. `params_from_hf_torch`'s) into the
+        text branch; a pooler in them is dropped (the combined head never
+        uses it) and the optimiser starts afresh, as the reference's
+        `load_encoder` does."""
+        sd = {k: v for k, v in encoder_params.items() if not k.startswith("pooler_")}
+        state.model.encoder.load_state_dict(sd, strict=True)
         return self._state(state.model, step=state.step)
 
     def make_checkpoints(self, directory) -> CheckpointManager:

@@ -27,7 +27,7 @@
 Not in the port yet, and refused when configured: a mesh beyond one
 card, `train.resilience.enabled`, the `obs` instruments and the
 `train.debug_nans`/`enable_checks` sanitizers (`core/config.py:
-refuse_unported_training`), and `remat_policy="attn_saved"`.
+refuse_unported_training`).
 """
 
 from __future__ import annotations
@@ -54,14 +54,6 @@ logger = logging.getLogger(__name__)
 DECODE_ROWS = 16
 
 
-def refuse_attn_saved(encoder_cfg) -> None:
-    if encoder_cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={encoder_cfg.remat_policy!r}: saving the attention output across "
-            "the layer checkpoint is not ported yet (ROADMAP queue A, item 4); use 'full'"
-        )
-
-
 def model_state(model: torch.nn.Module) -> dict:
     """What a checkpoint holds: the model's state dict on the CPU."""
     return {"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
@@ -73,7 +65,6 @@ class GenTrainer:
 
     def __init__(self, cfg: Config, gen_cfg: gen.GenConfig, total_steps: int | None = None,
                  device: str | torch.device | None = None):
-        refuse_attn_saved(gen_cfg.encoder)
         refuse_unported_training(cfg)
         self.cfg = cfg
         self.gen_cfg = gen_cfg
@@ -100,9 +91,16 @@ class GenTrainer:
 
     def load_params(self, state: TrainState, params: dict[str, torch.Tensor]) -> TrainState:
         """`params` loaded into the model; the optimiser starts afresh and
-        the step count stays, as the reference's `load_params` does."""
-        state.model.load_state_dict(params, strict=True)
-        new = TrainState.create(state.model, self.cfg.train.optim, self.total_steps)
+        the step count stays, as the reference's `load_params` does. An
+        untied `decoder.lm_head` in them (a Hugging Face checkpoint with
+        tie_word_embeddings off) gets a model with its own head, and a
+        tied state dict one without, as the reference's tree decides."""
+        model = state.model
+        untied = "decoder.lm_head" in params
+        if untied != (model.decoder.lm_head is not None):
+            model = gen.T5Seq2Seq(self.gen_cfg, untied_head=untied).to(self.device)
+        model.load_state_dict(params, strict=True)
+        new = TrainState.create(model, self.cfg.train.optim, self.total_steps)
         new.step = state.step
         return new
 

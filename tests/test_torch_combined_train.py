@@ -414,17 +414,90 @@ def test_cli_train_combined_on_a_reference_processed_dir(tmp_path, monkeypatch, 
     assert tconfig.load(run / "config.json").run_name == "port-combined"
 
 
-@pytest.mark.parametrize("flags", [["--arch", "t5", "--pretrained", "w.pt"], ["--tokenizer", "vocab"],
-                                   ["--pretrained", "w.pt"], ["--sp-variant", "ulysses"],
-                                   ["--remat-policy", "attn_saved"]],
-                         ids=["t5", "bpe", "pretrained", "ulysses", "attn_saved"])
+@pytest.mark.parametrize("flags", [["--sp-variant", "ulysses"]], ids=["ulysses"])
 def test_cli_refuses_what_the_port_does_not_run(tmp_path, monkeypatch, flags):
     monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.main(["train-combined", "--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("what", ["dp2", "resilience", "obs", "moe", "t5"])
+def _hf_state_dict(tmp_path, arch: str) -> Path:
+    """A randomly initialised Hugging Face encoder at the CLI's tiny
+    width, saved as a torch state_dict: RobertaModel for roberta (the
+    hash tokenizer's 4096 ids, positions for --max-length 64),
+    T5EncoderModel for t5."""
+    transformers = pytest.importorskip("transformers")
+    torch.manual_seed(0)
+    if arch == "t5":
+        hf = transformers.T5EncoderModel(transformers.T5Config(
+            vocab_size=4096, d_model=64, num_layers=2, num_heads=4, d_kv=16, d_ff=128,
+            relative_attention_num_buckets=32, relative_attention_max_distance=128,
+            dropout_rate=0.0, feed_forward_proj="relu"))
+    else:
+        hf = transformers.RobertaModel(transformers.RobertaConfig(
+            vocab_size=4096, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+            intermediate_size=128, max_position_embeddings=68, type_vocab_size=1,
+            pad_token_id=1), add_pooling_layer=True)
+    path = tmp_path / f"hf_{arch}.pt"
+    torch.save(hf.state_dict(), path)
+    return path
+
+
+def _train_log_losses(run: Path) -> list:
+    return [r["loss"] for r in map(json.loads, (run / "train_log.jsonl").read_text().splitlines())
+            if "loss" in r]
+
+
+@pytest.mark.parametrize("case", ["t5", "bpe", "pretrained", "attn_saved"])
+def test_cli_runs_what_was_refused(tmp_path, monkeypatch, capsys, case):
+    """What `train-combined` refused before this slice now trains end to
+    end: `--arch t5 --pretrained`, `--tokenizer` (the shipped BPE; its
+    manifest rebuilds the same tokenizer), `--pretrained` (with a zero
+    learning rate the best checkpoint's encoder is the imported weights,
+    bit for bit) and `--remat-policy attn_saved` (the same step losses,
+    bit for bit, as "full")."""
+    from deepdfa_tpu.data.tokenizer import BpeTokenizer as JBpe
+    from deepdfa_tpu_torch.data.tokenizer import BPE_C_DIR, BpeTokenizer, bpe_files
+    from deepdfa_tpu_torch.models import t5 as tt5, transformer as ttfm
+    from deepdfa_tpu_torch.serve.cascade import load_model_setup
+    from deepdfa_tpu_torch.train import CheckpointManager
+
+    monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
+    _, tcfg = _cfgs()
+    cfg_path = _processed_dir(tmp_path, tcfg)
+    run = tmp_path / "runs" / "port-combined"
+    base = ["train-combined", "--config", str(cfg_path), "--device", "cpu", "--max-length", "64",
+            "--encoder", "tiny"]
+    log = "train.log_every_steps=1"  # overrides go last: they are the positionals
+    if case in ("t5", "pretrained"):
+        arch = "t5" if case == "t5" else "roberta"
+        sd = torch.load(_hf_state_dict(tmp_path, arch), weights_only=True)
+        cli.main([*base, "--arch", arch, "--pretrained", str(tmp_path / f"hf_{arch}.pt"), log,
+                  "train.optim.learning_rate=0.0"])
+        family = "t5" if arch == "t5" else "combined"
+        _, mcfg, _ = load_model_setup(run, family)
+        want = (tt5 if arch == "t5" else ttfm).params_from_hf_torch(mcfg.encoder, sd)
+        best = CheckpointManager(run / cli.COMBINED_CHECKPOINTS_DIR).restore("best")["model"]
+        got = {k[len("encoder."):]: v for k, v in best.items() if k.startswith("encoder.")}
+        assert set(got) == {k for k in want if not k.startswith("pooler_")}
+        assert all(torch.equal(got[k], want[k]) for k in got)
+    elif case == "bpe":
+        cli.main([*base, "--tokenizer", str(BPE_C_DIR), log])
+        tok, mcfg, max_length = load_model_setup(run, "combined")
+        assert isinstance(tok, BpeTokenizer) and max_length == 64
+        assert mcfg.encoder.vocab_size == tok.vocab_size
+        text = _corpus()[0][3]
+        assert np.array_equal(tok.encode(text, 64), JBpe(*bpe_files(BPE_C_DIR)).encode(text, 64))
+        assert np.isfinite(_train_log_losses(run)).all()
+    else:
+        cli.main([*base, log, 'run_name="full"'])
+        cli.main([*base, "--remat-policy", "attn_saved", log, 'run_name="saved"'])
+        full = _train_log_losses(tmp_path / "runs" / "full")
+        assert full and _train_log_losses(tmp_path / "runs" / "saved") == full
+    assert "best:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("what", ["dp2", "resilience", "obs", "moe"])
 def test_trainer_refuses_what_the_port_does_not_run(what):
     _, tmcfg = _model_cfgs()
     train = {"dp2": {"mesh": {"dp": 2}}, "resilience": {"resilience": {"enabled": True}}}
@@ -433,12 +506,30 @@ def test_trainer_refuses_what_the_port_does_not_run(what):
         tcfg = tconfig.apply_overrides(tcfg, ["obs.metrics=true"])
     if what == "moe":
         tmcfg = dataclasses.replace(tmcfg, moe_experts=4)
-    if what == "t5":  # the T5 family trains; its attn_saved remat is not ported
-        from deepdfa_tpu_torch.models import DefectConfig, T5Config
-
-        tmcfg = DefectConfig(encoder=T5Config.tiny(remat_policy="attn_saved"))
     with pytest.raises(NotImplementedError):
         CombinedTrainer(tcfg, tmcfg, device="cpu")
+
+
+def test_trainer_takes_attn_saved_for_the_t5_family():
+    """The T5 family under remat_policy="attn_saved": a training step's
+    loss and every gradient equal "full"'s to the bit."""
+    from deepdfa_tpu_torch.models import DefectConfig, T5Config
+
+    _, tcfg = _cfgs()
+    batch = _batches(True)[1].to("cpu")
+    out = {}
+    for policy in ("full", "attn_saved"):
+        tmcfg = DefectConfig(encoder=T5Config.tiny(remat_policy=policy, dropout_rate=0.1),
+                             graph_hidden_dim=8, graph_n_steps=3, graph_input_dim=INPUT_DIM)
+        trainer = CombinedTrainer(tcfg, tmcfg, total_steps=4, device="cpu")
+        state = trainer.init_state(seed=3)
+        loss = trainer.forward_loss(state, batch, fold_seed(9, 0))
+        loss.backward()
+        out[policy] = (loss.detach(), {k: p.grad.clone() for k, p in state.model.named_parameters()
+                                       if p.grad is not None})
+    (l1, g1), (l2, g2) = out["full"], out["attn_saved"]
+    assert torch.equal(l1, l2) and g1.keys() == g2.keys() and len(g1) > 10
+    assert all(torch.equal(g1[k], g2[k]) for k in g1)
 
 
 def test_encoder_seeds_fold_per_layer_and_site():

@@ -1465,3 +1465,116 @@ def test_gen_train_step_repeats_bit_for_bit(card):
     assert launched == (12, 6, 6, 4)
     assert np.isfinite(results[0][0]) and results[0][0] == results[1][0]
     assert all(torch.equal(results[0][1][k], results[1][1][k]) for k in results[0][1])
+
+
+def _attn_saved_case(model: str, policy: str, card):
+    """(trainer, state, batch) of one small model on the card under
+    `policy`: the combined model (bf16, D 64), the defect model (bf16,
+    biased) or the generation model (fp32, causal and cross)."""
+    import dataclasses
+
+    from deepdfa_tpu_torch.core.config import DataConfig
+    from deepdfa_tpu_torch.data.gen_data import collate_gen
+    from deepdfa_tpu_torch.data.text import collate
+    from deepdfa_tpu_torch.data.tokenizer import HashTokenizer
+    from deepdfa_tpu_torch.models import CombinedConfig, TransformerConfig
+    from deepdfa_tpu_torch.train import CombinedTrainer, GenTrainer
+
+    rng = np.random.default_rng(11)
+    if model == "gen":
+        src = rng.integers(3, 256, (6, 40)).astype(np.int32)
+        tgt = rng.integers(3, 256, (6, 24)).astype(np.int32)
+        src[2, 30:] = 0
+        tgt[3, 10:] = 0
+        gcfg = _gen_cfg()
+        gcfg = dataclasses.replace(gcfg, encoder=dataclasses.replace(gcfg.encoder,
+                                                                     remat_policy=policy))
+        trainer = GenTrainer(Config(), gcfg, total_steps=1, device=card)
+        return trainer, trainer.init_state(seed=0), collate_gen(src, tgt, 8).to(card)
+    t5 = model == "t5"
+    tok = HashTokenizer(256, t5_frame=t5)
+    texts = [" ".join(["x", "y", "z"][i % 3] for i in range(int(rng.integers(5, 60))))
+             for _ in range(8)]
+    specs = _graphs(rng, 8)
+    batch = collate(tok.batch_encode(texts, 64), [i % 2 for i in range(8)], list(range(8)),
+                    {i: specs[i] for i in range(8)}, 8, 512, 2048, pad_id=tok.pad_id).to(card)
+    if t5:
+        mcfg = _defect_cfg(remat_policy=policy)
+    else:
+        mcfg = CombinedConfig(encoder=TransformerConfig.tiny(
+            vocab_size=256, hidden_size=128, num_heads=2, intermediate_size=256,
+            dtype="bfloat16", remat_policy=policy), graph_hidden_dim=32, graph_input_dim=52)
+    cfg = Config(data=DataConfig(seq_buckets=(), token_budget=512))
+    trainer = CombinedTrainer(cfg, mcfg, total_steps=1, device=card)
+    return trainer, trainer.init_state(seed=0), batch
+
+
+@pytest.mark.parametrize("model", ["combined", "t5", "gen"])
+def test_attn_saved_halves_the_forward_launches_with_the_same_bits(card, model):
+    """One step's loss and every gradient under remat_policy="attn_saved"
+    equal "full"'s to the bit; the flash forward launches once a layer
+    instead of twice (its replay takes the saved output), and dq, dk/dv
+    and dbias launch as often."""
+    counters = ("LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "DBIAS_LAUNCHES")
+    out = {}
+    for policy in ("full", "attn_saved"):
+        trainer, state, batch = _attn_saved_case(model, policy, card)
+        before = [getattr(fa, c) for c in counters]
+        loss = trainer.forward_loss(state, batch, 1234)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = [getattr(fa, c) - b for c, b in zip(counters, before)]
+        grads = {k: p.grad.clone() for k, p in state.model.named_parameters()
+                 if p.grad is not None}
+        out[policy] = (loss.detach(), grads, launched)
+    (l1, g1, n1), (l2, g2, n2) = out["full"], out["attn_saved"]
+    assert torch.isfinite(l1) and torch.equal(l1, l2) and g1.keys() == g2.keys()
+    assert all(torch.equal(g1[k], g2[k]) for k in g1)
+    assert n1[0] == 2 * n2[0] > 0 and n1[1:] == n2[1:]
+
+
+def test_cascade_on_the_card_matches_the_cpu(card, tmp_path, monkeypatch):
+    """A GGNN stage 1 and a combined stage 2 (fp32) served in cascade mode
+    on the card and on the CPU: the same stage for every function (the
+    band's edges lie between stage-1 scores), stage-1 scores within the
+    GGNN kernels' fp32 bound and stage-2 scores within the flash kernel's
+    fp32 bound of the CPU's."""
+    import json
+
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.eval import calibrate
+    from deepdfa_tpu_torch.serve import driver
+    from deepdfa_tpu_torch.serve.cascade import build_stage2_smoke
+    from deepdfa_tpu_torch.serve.registry import ModelRegistry
+    from deepdfa_tpu_torch.serve.server import ScoringService, score_texts
+
+    monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
+    cfg, run_dir, src = driver.build_smoke_run(
+        extra_overrides=["serve.node_budget=2048", "serve.edge_budget=8192"], device="cpu",
+        vuln_rate=0.5)
+    build_stage2_smoke(run_dir, cfg, family="combined")
+    texts = [(p.name, p.read_text()) for p in sorted(src.glob("*.c"))]
+    plain = ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), cfg)
+    try:
+        p1 = sorted(r["prob"] for r in score_texts(plain, texts))
+    finally:
+        plain.close()
+    cal = calibrate.temperature_scale(p1, 1.3)
+    q = len(cal) // 4
+    band = [float(cal[q - 1] + cal[q]) / 2, float(cal[3 * q - 1] + cal[3 * q]) / 2]
+    ccfg = config_mod.apply_overrides(cfg, [
+        "serve.cascade=true", f"serve.cascade_band={json.dumps(band)}",
+        "serve.cascade_temperature=1.3"])
+    rows = {}
+    for device in ("cpu", card):
+        service = ScoringService(ModelRegistry(run_dir, cfg=ccfg, device=device), ccfg)
+        try:
+            rows[str(device)] = score_texts(service, texts)
+        finally:
+            service.close()
+    cpu, got = rows["cpu"], rows[str(card)]
+    assert [r["stage"] for r in got] == [r["stage"] for r in cpu]
+    assert 0 < sum(r["stage"] == 2 for r in got) < len(got)
+    for a, b in zip(got, cpu):
+        np.testing.assert_allclose(a["stage1_prob"], b["stage1_prob"], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(a["prob"], b["prob"], rtol=RTOL, atol=ATOL)

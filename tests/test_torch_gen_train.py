@@ -446,15 +446,65 @@ def test_cli_train_multi_gen_and_clone_end_to_end(tmp_path, monkeypatch, capsys)
 
 @pytest.mark.parametrize("cmd", [["train-gen", "--task", "summarize"], ["train-clone"],
                                  ["train-multi-gen", "--task-spec", "summarize=x"]])
-def test_cli_refuses_pretrained_bpe_and_unported_options(tmp_path, monkeypatch, cmd):
+def test_cli_refuses_unported_training_options(tmp_path, monkeypatch, cmd):
     monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
-    for flags in (["--pretrained", "w.pt"], ["--tokenizer", "bpe"]):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            cli.main([*cmd, "--tiny", "--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="debug_nans"):
         cli.main([*cmd, "--tiny", "--device", "cpu", "train.debug_nans=true"])
     with pytest.raises(NotImplementedError, match="resilience"):
         cli.main([*cmd, "--tiny", "--device", "cpu", "train.resilience.enabled=true"])
+
+
+@pytest.mark.parametrize("cmd", ["train-gen", "train-clone", "train-multi-gen"])
+def test_cli_takes_pretrained_bpe_and_attn_saved(tmp_path, monkeypatch, capsys, cmd):
+    """What the generation commands refused before this slice now trains:
+    `--tokenizer bpe --vocab-file --merges-file` (the shipped BPE frames
+    the model: its vocabulary, pad 1, eos 2), `--pretrained` (a Hugging
+    Face T5ForConditionalGeneration state_dict; at learning rate 0 the
+    saved weights are the imported ones, bit for bit) and
+    `--remat-policy attn_saved`."""
+    transformers = pytest.importorskip("transformers")
+    from deepdfa_tpu_torch.data.tokenizer import BPE_C_DIR, BpeTokenizer, bpe_files
+    from deepdfa_tpu_torch.models import t5_gen as tgen
+    from deepdfa_tpu_torch.train import CheckpointManager
+
+    monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
+    files, cfg_path = _cli_files(tmp_path)
+    vocab, merges = bpe_files(BPE_C_DIR)
+    tok = BpeTokenizer(vocab, merges)
+    torch.manual_seed(0)
+    hf = transformers.T5ForConditionalGeneration(transformers.T5Config(
+        vocab_size=tok.vocab_size, d_model=64, num_layers=2, num_decoder_layers=2, num_heads=4,
+        d_kv=16, d_ff=128, relative_attention_num_buckets=32,
+        relative_attention_max_distance=128, dropout_rate=0.0, feed_forward_proj="relu",
+        decoder_start_token_id=tok.pad_id, eos_token_id=tok.sep_id, pad_token_id=tok.pad_id))
+    torch.save(hf.state_dict(), tmp_path / "hf.pt")
+    flags = ["--tiny", "--device", "cpu", "--config", cfg_path, "--tokenizer", "bpe",
+             "--vocab-file", str(vocab), "--merges-file", str(merges), "--pretrained",
+             str(tmp_path / "hf.pt"), "--remat-policy", "attn_saved", "--batch-size", "4",
+             "--max-source-length", "32"]
+    run = tmp_path / "runs" / "port-gen"
+    if cmd == "train-gen":
+        cli.main([cmd, "--task", "summarize", "--train-file", files["summarize"],
+                  "--dev-file", files["summarize"], "--max-target-length", "8", *flags,
+                  "train.optim.learning_rate=0.0"])
+        saved = run / cli.GEN_CHECKPOINTS_DIR
+    elif cmd == "train-clone":
+        cli.main([cmd, "--train-file", files["clone"], "--dev-file", files["clone"], *flags,
+                  "train.optim.learning_rate=0.0"])
+        saved = run / cli.CLONE_CHECKPOINTS_DIR
+    else:
+        cli.main([cmd, "--task-spec", f"summarize_python={files['summarize']}:"
+                  f"{files['summarize']}", "--max-steps", "2", "--eval-every", "2",
+                  "--max-target-length", "8", *flags, "train.optim.learning_rate=0.0"])
+        saved = run / "checkpoints-multi-summarize_python-torch"
+    capsys.readouterr()
+    gcfg = GenConfig(encoder=T5Config.tiny(vocab_size=tok.vocab_size, pad_token_id=tok.pad_id,
+                                           eos_token_id=tok.sep_id))
+    want = tgen.gen_params_from_hf_torch(gcfg, hf.state_dict())
+    got = CheckpointManager(saved).restore("best")["model"]
+    if cmd == "train-clone":
+        got = {k[len("seq2seq."):]: v for k, v in got.items() if k.startswith("seq2seq.")}
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_clone_trainer_warm_starts_from_a_seq2seq_state():

@@ -1,7 +1,8 @@
 """The port stands alone: `deepdfa_tpu_torch` and `chip_smoke.py` load no
-`jax`, `flax` or `deepdfa_tpu` module, nor `pandas` or `regex`, because
-the machine with the card has none of them; and `chip_smoke.py` refuses
-to run without a card or without the package beside it."""
+`jax`, `flax` or `deepdfa_tpu` module, nor `pandas`, `regex`,
+`tokenizers` or `transformers`, because the machine with the card has
+none of them; and `chip_smoke.py` refuses to run without a card or
+without the package beside it."""
 
 import ast
 import functools
@@ -20,7 +21,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deepdfa_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "deepdfa_tpu")
 #: host libraries the reference uses that the card's machine lacks
-ABSENT_ON_CARD = ("pandas", "regex")
+ABSENT_ON_CARD = ("pandas", "regex", "tokenizers", "transformers")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -77,13 +78,18 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.core.paths", "deepdfa_tpu_torch.core.ioutil",
         "deepdfa_tpu_torch.serve.frontend", "deepdfa_tpu_torch.serve.registry",
         "deepdfa_tpu_torch.serve.cascade", "deepdfa_tpu_torch.serve.server",
+        "deepdfa_tpu_torch.eval.calibrate", "deepdfa_tpu_torch.eval.codebleu",
+        "deepdfa_tpu_torch.models.t5_gen", "deepdfa_tpu_torch.train.gen_loop",
+        "deepdfa_tpu_torch.train.clone_loop",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
 
 
 def test_importing_every_module_loads_no_pandas_or_regex():
-    """The readers parse csv without pandas, and no module needs `regex`."""
+    """The readers parse csv without pandas, the BPE tokenizer
+    pre-tokenizes without `regex`, and no module needs `tokenizers` or
+    `transformers` (the HF weight import reads a plain state dict)."""
     report = _import_report()
     assert "deepdfa_tpu_torch.data.readers" in report["modules"]
     assert [m for m in report["new"] if m.split(".")[0] in ABSENT_ON_CARD] == []

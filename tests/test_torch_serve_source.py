@@ -329,8 +329,17 @@ def test_model_cfg_manifest_round_trips_through_both_packages(tmp_path, family):
     assert cascade.load_model_setup(ref_dir, family)[1] == mcfg
     with pytest.raises(ValueError, match="family"):
         cascade.load_model_setup(tmp_path, "t5" if not t5 else "combined")
+    # a "bpe" manifest rebuilds the byte-level BPE in both packages
+    from deepdfa_tpu_torch.data.tokenizer import BPE_C_DIR, BpeTokenizer, bpe_files
+
+    vocab, merges = bpe_files(BPE_C_DIR)
     doc = json.loads((tmp_path / cascade.MODEL_CFG_MANIFEST).read_text())
-    doc["tokenizer"] = {"kind": "bpe", "vocab": "v.json", "merges": "m.txt"}
+    doc["tokenizer"] = {"kind": "bpe", "vocab": str(vocab), "merges": str(merges)}
     (tmp_path / cascade.MODEL_CFG_MANIFEST).write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        cascade.load_model_setup(tmp_path, family)
+    bpe = cascade.load_model_setup(tmp_path, family)[0]
+    ref_bpe = ref_cascade.load_model_setup(tmp_path, family)[0]
+    assert isinstance(bpe, BpeTokenizer)
+    assert (bpe.vocab_size, bpe.pad_id, bpe.sep_id) == (ref_bpe.vocab_size, ref_bpe.pad_id,
+                                                        ref_bpe.sep_id)
+    code = "int f(char *s) {\n  return s[0] + 'a';\n}\n"
+    assert np.array_equal(bpe.encode(code, 32), ref_bpe.encode(code, 32))

@@ -9,7 +9,10 @@
 - the combined family scores C sources through the same service as
   `score_combined` scores the same model on the same payloads (fp32
   rtol 1e-5, atol 1e-6);
-- the serving options the port does not run are refused by name;
+- the serving options the port does not run are refused by name, and
+  cascade mode (`serve.cascade=true`) answers through the handler with
+  the stage fields, `/healthz` and `/stats` sections and the request
+  log's verdicts;
 - `cli score --device cpu`, `cli serve --smoke --device cpu` and `cli
   serve --port 0` end to end in subprocesses under a temporary storage
   root.
@@ -174,13 +177,72 @@ def test_request_log_and_hot_swap_through_the_service(run):
 
 
 @pytest.mark.parametrize("override, item", [
-    ("serve.use_joern=true", "item 3"), ("serve.cascade=true", "item 4"),
-    ("serve.lines=true", "item 5"), ("serve.pipeline_depth=2", "item 6")])
+    ("serve.use_joern=true", "item 3"), ("serve.lines=true", "item 5"),
+    ("serve.pipeline_depth=2", "item 6")])
 def test_unported_serving_options_are_refused(run, override, item):
     cfg, run_dir, _, _ = run
     bad = config_mod.apply_overrides(cfg, [override])
     with pytest.raises(NotImplementedError, match=item):
         ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), bad)
+
+
+def test_cascade_mode_answers_through_the_handler(run, tmp_path):
+    """`serve.cascade=true` over a stage-2 combined run: each 200 carries
+    its stage, stage-1 and calibrated probabilities; the band decides
+    the stage; an escalated request gets the stage-2 model's own score
+    and a screened one the GGNN's; the counters add up in `/stats` and
+    `/healthz`; the request log carries each verdict."""
+    from deepdfa_tpu_torch.serve.cascade import build_stage2_smoke
+
+    cfg, run_dir, small, _ = run
+    stage2 = tmp_path / "stage2"
+    stage2.mkdir()
+    # the stage-2 run's own config: its serve budgets hold a text batch's
+    # (empty) graph rows
+    s2cfg = config_mod.apply_overrides(cfg, ["serve.node_budget=2048", "serve.edge_budget=8192"])
+    config_mod.to_json(s2cfg, stage2 / "config.json")
+    build_stage2_smoke(stage2, s2cfg, family="combined")
+    codes = small[:8]
+    plain = ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), cfg)
+    try:
+        p1 = {r["name"]: r["prob"] for r in score_texts(plain, list(enumerate(codes)))}
+    finally:
+        plain.close()
+    cut = float(np.median(list(p1.values())))  # about half of them escalate
+    ccfg = config_mod.apply_overrides(cfg, [
+        "serve.cascade=true", f"serve.cascade_band=[0.0, {cut}]",
+        f'serve.cascade_run_dir="{stage2}"', "serve.request_log=true"])
+    log = run_dir / "serve_log.jsonl"
+    log.unlink(missing_ok=True)
+    server = BackgroundServer(ScoringService(ModelRegistry(run_dir, cfg=ccfg, device="cpu"),
+                                             ccfg))
+    try:
+        got = [server.request("POST", "/score", {"code": c}) for c in codes]
+        stats = server.request("GET", "/stats")[1]
+        health = server.request("GET", "/healthz")[1]
+    finally:
+        server.close()
+    s2 = ScoringService(ModelRegistry(stage2, family="combined", cfg=s2cfg, device="cpu"), s2cfg)
+    try:
+        alone = {r["name"]: r["prob"] for r in score_texts(s2, list(enumerate(codes)))}
+    finally:
+        s2.close()
+    assert all(st == 200 for st, _ in got)
+    for i, (_, body) in enumerate(got):
+        assert body["stage1_prob"] == p1[i]
+        assert body["stage"] == (2 if p1[i] < cut else 1)
+        assert body["prob"] == (alone[i] if body["stage"] == 2 else p1[i])
+    n2 = sum(body["stage"] == 2 for _, body in got)
+    assert 0 < n2 < len(codes)
+    counts = stats["cascade"]
+    assert counts["requests"] == len(codes) and counts["escalations"] == n2
+    assert counts["sheds"] == counts["failures"] == 0
+    assert health["cascade"]["band"] == [0.0, cut] and health["cascade"]["stage2_family"] == \
+        "combined" and health["cascade"]["requests"] == len(codes)
+    entries = [json.loads(x)["request"] for x in log.read_text().splitlines()]
+    assert [e["stage"] for e in entries] == [body["stage"] for _, body in got]
+    assert all("cascade_stage1_ms" in e for e in entries)
+    assert sum("cascade_stage2_ms" in e for e in entries) == n2
 
 
 def test_a_quantized_checkpoint_tag_is_refused(run):

@@ -147,9 +147,17 @@ def test_encoder_guards_and_refusals():
         model.encode(torch.zeros(1, 8, dtype=torch.int64), sp_axis="sp")
     with pytest.raises(NotImplementedError, match="multi-device"):
         T5Config.tiny(sp_variant="ulysses")
-    saved = T5Encoder(dataclasses.replace(tcfg, remat=True, remat_policy="attn_saved"))
-    with pytest.raises(NotImplementedError, match="attn_saved"):  # remat with grads on
-        saved.encode(torch.zeros(1, 8, dtype=torch.int64))
+    # attn_saved (remat with grads on) runs, and gives "full"'s bits
+    ids = torch.from_numpy(np.random.default_rng(2).integers(3, 256, (2, 16)))
+    outs = []
+    for policy in ("full", "attn_saved"):
+        enc = T5Encoder(dataclasses.replace(tcfg, remat=True, remat_policy=policy),
+                        generator=torch.Generator().manual_seed(1))
+        h = enc.encode(ids, dropout_key=3)
+        h.float().square().mean().backward()
+        outs.append((h.detach(), [p.grad for p in enc.parameters()]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
 
 
 def test_eos_pool_takes_the_last_eos_or_the_last_position():

@@ -123,8 +123,17 @@ def test_unported_knobs_raise():
         TransformerConfig.tiny(**TINY, attn_impl="sdpa")
     model = RobertaEncoder(cfg)
     ids = torch.from_numpy(_ids())
-    with pytest.raises(NotImplementedError, match="attn_saved"):  # remat with grads on
-        RobertaEncoder(dataclasses.replace(cfg, remat_policy="attn_saved")).encode(ids)
+    # attn_saved (remat with grads on) runs, and gives "full"'s bits
+    outs = []
+    for policy in ("full", "attn_saved"):
+        enc = RobertaEncoder(dataclasses.replace(cfg, remat_policy=policy),
+                             generator=torch.Generator().manual_seed(1))
+        h = enc.encode(ids, dropout_key=5)
+        h.float().square().mean().backward()
+        outs.append((h.detach(), [p.grad for p in enc.parameters()]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(outs[0][1], outs[1][1]))
     with pytest.raises(ValueError, match="remat_policy"):
         TransformerConfig.tiny(**TINY, remat_policy="dots")
     model.eval()
