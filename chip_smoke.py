@@ -179,6 +179,42 @@ prints one JSON line; any failure exits non-zero before the last line.
    requests from 8 client threads (seed 17); the escalation rates,
    requests/s and p50/p99 offline and over HTTP, kernel 1's and kernel
    5's launches;
+7o. localize_ggnn — GGNN node attributions (eval/localize.py:
+   ggnn_score_fn) of phase 5's model on the profile phase's full serving
+   batch (16 graphs, 16384 nodes, 65536 edges), each of the five methods
+   (path methods at 8 steps) on the card against the CPU plain path
+   (probabilities rtol 1e-4 / atol 1e-5, node scores within 1e-4 of each
+   graph's largest |score|), padding zero, the same bits on a repeat,
+   counted from 0: kernel 1 with the aggregate, B3 and B4 n_steps times a
+   gradient evaluation (1 for saliency and input_x_gradient, 8 for
+   deeplift and lig), kernel 1 without it n_steps times a forward alone
+   (attention, and the path methods' probabilities), B3 and B4 at 0 under
+   attention; saliency under ggnn_kernel_unroll=fused the per-step bits;
+   one gradient evaluation with every parameter requiring a gradient and
+   with none (the same cotangent, the device kernels the input-only
+   backward saves, both times); ms a batch and functions/s per method
+   and one profiled saliency and lig batch (device busy time, idle share);
+7p. serve_lines — `cli serve` over the pipeline's checkpoint without
+   serve.lines ({"lines": true} answered 400, healthz lines false) and
+   with it (saliency, 8 steps, top 10): 1024 requests from 8 client
+   threads, every other one with {"lines": true}, each lines answer the
+   offline attribution of that function alone at rung 1 to the bit;
+   requests/s and p50/p99 with and without lines; the launches of 64
+   lines requests through the same service in-process;
+7q. localize_combined — `cli localize` of the cascade's stage-2 run
+   (codebert-base width, the shipped BPE, T 512, graphs) over 32
+   functions with labelled lines, each of the seven methods: the
+   report's keys and finite metrics, one IFA line a function, kernel 5
+   once a layer an evaluation, dq and dk/dv once a layer an evaluation
+   (no remat replay), kernel 8 at 0, the graph encoder's kernel 1
+   without the aggregate; seconds a function; on 2 functions saliency
+   and lig (4 steps) in fp32 on the card against the CPU (1e-3 of each
+   row's largest |score|) and bf16 against fp32 on the card (5e-2);
+7r. localize_t5 — saliency and lig (4 steps) of a codet5-base-width
+   DefectModel (bf16, graphs) on 4 rows of 512 tokens: kernels 5, 6 and
+   7 once a layer an evaluation, kernel 8 at 0, seconds; a 2-layer fp32
+   model of the same width on the card against the CPU (2e-2, the T5
+   gradient check's fp32 bound: a flipped ReLU gate moves a row);
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -303,12 +339,12 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the twenty-six main
+21. kernels — every kernel with its launches on the thirty main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
    four of 7g-7h, tune, tune_train, pipeline, serve_source,
-   train_attn_saved, cascade_train and cascade, each counted from 0, and
-   by path),
+   train_attn_saved, cascade_train, cascade, localize_ggnn, serve_lines,
+   localize_combined and localize_t5, each counted from 0, and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -1561,6 +1597,7 @@ def train_mxu_phase(torch, rng):
     fit_s = time.perf_counter() - t0
     counts = gk.launch_counts()
     want = {"MXU_INT8_LAUNCHES": (steps + TRAIN_EPOCHS) * n_steps,
+            "AGGREGATE_LAUNCHES": steps * n_steps,
             "GRU_BWD_LAUNCHES": steps * n_steps, "DMSG_LAUNCHES": steps * n_steps}
     others = {k: v for k, v in counts.items() if k not in want and v}
     if any(counts[k] != v for k, v in want.items()) or others:
@@ -1898,8 +1935,8 @@ def pipeline_phase(torch, tmp: Path):
             cli.main(["test", "--device", "cpu", "--export", 'run_name="pipeline"'])
         cpu_probs = predictions(run / "predictions_test.csv")
     fwd = n_steps * (steps + PIPELINE_EPOCHS * val_batches)
-    want = {"LAUNCHES": fwd, "GRU_BWD_LAUNCHES": n_steps * steps,
-            "DMSG_LAUNCHES": n_steps * steps}
+    want = {"LAUNCHES": fwd, "AGGREGATE_LAUNCHES": n_steps * steps,
+            "GRU_BWD_LAUNCHES": n_steps * steps, "DMSG_LAUNCHES": n_steps * steps}
     got = {k: train_counts[k] for k in want}
     others = {k: v for k, v in train_counts.items() if k not in want and v}
     if got != want or others:
@@ -2547,11 +2584,11 @@ def port_server(tmp: Path, env: dict, args: list[str], what: str):
         t0 = time.perf_counter()
         line = proc.stdout.readline()
         if not line:
-            fail(f"cascade: cli serve ({what}) ended: {err_log.read_text()[-3000:]}")
+            fail(f"cli serve ({what}) ended: {err_log.read_text()[-3000:]}")
         yield json.loads(line)["port"], time.perf_counter() - t0
         proc.send_signal(signal.SIGTERM)
         if proc.wait(timeout=120) != 0:
-            fail(f"cascade: cli serve ({what}) exited {proc.returncode} on SIGTERM: "
+            fail(f"cli serve ({what}) exited {proc.returncode} on SIGTERM: "
                  f"{err_log.read_text()[-2000:]}")
     finally:
         if proc.poll() is None:
@@ -2819,6 +2856,568 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
     emit(report)
     return paths
 
+
+#: localize_ggnn, serve_lines, localize_combined, localize_t5: the GGNN
+#: path methods' Riemann steps (serve.lines_steps' default) and each
+#: method's gradient evaluations a batch; card vs CPU node scores (of each
+#: graph's largest |score|), token scores card fp32 vs CPU fp32 and card
+#: bf16 vs card fp32 (of each row's largest |score|; the T5 defect model's
+#: card-vs-CPU bound is its fp32 gradient check's, train_combined's 2e-2:
+#: an fp32 reassociation flips a ReLU gate near 0, and eos pooling feeds
+#: the last FFN one token a row); cli localize's functions and the
+#: evaluations a function its defaults give
+LOCALIZE_STEPS = 8
+LOCALIZE_EVALS = {"attention": 0, "saliency": 1, "input_x_gradient": 1,
+                  "deeplift": LOCALIZE_STEPS, "lig": LOCALIZE_STEPS}
+LOCALIZE_SCORE_TOL = 1e-4
+LOCALIZE_TOKEN_TOL = {"card_fp32_vs_cpu": 1e-3, "bf16_vs_fp32": 5e-2,
+                      "t5_card_fp32_vs_cpu": COMBINED_TRAIN_GRAD_TOL}
+LOCALIZE_TIMED = 5
+LOCALIZE_COMBINED_LIMIT = 32
+LOCALIZE_CLI_EVALS = {"attention": 0, "saliency": 1, "input_x_gradient": 1, "lig": 20,
+                      "deeplift": 20, "deeplift_shap": 8 * 5, "gradient_shap": 8}
+LOCALIZE_CHECK_STEPS = 4
+SERVE_LINES_SEED, SERVE_LINES_COUNTED = 18, 64
+
+
+def device_kernels(prof) -> int:
+    """Device kernels (and copies) a torch.profiler run launched."""
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False))
+
+
+def timed_ms(torch, fn, runs: int = LOCALIZE_TIMED) -> float:
+    """Median host milliseconds of `fn` between two synchronizes."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def localize_ggnn_phase(torch, model, specs, budgets, smi: str) -> dict:
+    """GGNN node attributions (eval/localize.py:ggnn_score_fn) of phase
+    5's flagship-width model on one full serving batch (the profile
+    phase's 16 graphs at 16384 nodes / 65536 edges): for each method, the
+    card against the CPU plain path (probabilities rtol 1e-4 / atol 1e-5,
+    node scores within LOCALIZE_SCORE_TOL of each graph's scale), padding
+    zero, the same bits on a repeat, and kernel 1 (with the aggregate for
+    each gradient evaluation, without it for a forward alone), B3 and B4
+    launched exactly as the method's evaluations say; saliency under
+    ggnn_kernel_unroll=fused the per-step scores' bits; one gradient
+    evaluation with and without parameters requiring gradients (the
+    input-only backward: the same rows cotangent, the kernels it saves);
+    ms a batch and functions/s per method, and one profiled saliency and
+    lig batch (device busy time and idle share). Returns the launches."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.eval.localize import GGNN_METHODS, ggnn_score_fn
+    from deepdfa_tpu_torch.graphs import pack
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    t_phase = time.perf_counter()
+    cfg = load(FLAGSHIP_CONFIG)
+    n_steps = cfg.model.n_steps
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    def fresh(device, **kw):
+        m = DeepDFA.from_config(cfg.model, cfg.data.feat.input_dim, **kw)
+        m.load_state_dict(weights)
+        return m.to(device).eval()
+
+    packed = pack(specs, len(specs), *budgets)
+    card_b, cpu_b = packed.to(CARD), packed.to("cpu")
+    graph, mask = np.asarray(packed.node_graph), np.asarray(packed.node_mask)
+    on_card, on_cpu = fresh(CARD), fresh("cpu")
+    report: dict = {"phase": "localize_ggnn", "nvidia_smi": smi, "graphs": len(specs),
+                    "nodes": int(mask.sum()), "node_budget": budgets[0],
+                    "edge_budget": budgets[1], "n_steps": n_steps,
+                    "path_steps": LOCALIZE_STEPS, "methods": {}}
+    launched = dict.fromkeys(("ggnn_step", "ggnn_gru_bwd", "ggnn_dmsg"), 0)
+    results = {}
+    for method in GGNN_METHODS:
+        run = ggnn_score_fn(method, on_card, LOCALIZE_STEPS)
+        gk.reset_launch_counts()
+        probs, scores = run(card_b)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in gk.launch_counts().items() if v}
+        evals = LOCALIZE_EVALS[method]
+        forward_alone = method in ("attention", "deeplift", "lig")
+        want = {k: v for k, v in {
+            "LAUNCHES": n_steps * (evals + forward_alone), "AGGREGATE_LAUNCHES": n_steps * evals,
+            "GRU_BWD_LAUNCHES": n_steps * evals, "DMSG_LAUNCHES": n_steps * evals}.items() if v}
+        if counts != want:
+            fail(f"localize_ggnn: {method} launched {counts}, expected {want}")
+        for row, counter in (("ggnn_step", "LAUNCHES"), ("ggnn_gru_bwd", "GRU_BWD_LAUNCHES"),
+                             ("ggnn_dmsg", "DMSG_LAUNCHES")):
+            launched[row] += counts.get(counter, 0)
+        again = run(card_b)
+        if not (torch.equal(again[0], probs) and torch.equal(again[1], scores)):
+            fail(f"localize_ggnn: {method} gave other bits on a repeat")
+        cpu_p, cpu_s = (x.numpy() for x in ggnn_score_fn(method, on_cpu, LOCALIZE_STEPS)(cpu_b))
+        p, s = probs.cpu().numpy(), scores.cpu().numpy()
+        results[method] = (p, s)
+        scale = np.zeros(len(specs) + 1)
+        np.maximum.at(scale, graph, np.abs(cpu_s))
+        score_err = float(np.max(np.abs(s - cpu_s)[mask] / scale[graph][mask]))
+        prob_err = float(np.max(np.abs(p - cpu_p)))
+        if not np.allclose(p, cpu_p, rtol=RTOL, atol=ATOL) or score_err > LOCALIZE_SCORE_TOL:
+            fail(f"localize_ggnn: {method} card vs CPU: probabilities {prob_err}, node scores "
+                 f"{score_err} of scale (limit {LOCALIZE_SCORE_TOL})")
+        if np.any(s[~mask] != 0) or not np.all(np.isfinite(s)) or not np.abs(s[mask]).max() > 0:
+            fail(f"localize_ggnn: {method} scores padding or are not finite")
+        ms = timed_ms(torch, lambda: run(card_b))
+        report["methods"][method] = {
+            "evaluations": evals, "launches": counts, "ms_a_batch": ms,
+            "functions_per_sec": len(specs) / ms * 1e3,
+            "vs_cpu_prob_max_abs_err": prob_err, "vs_cpu_score_err_of_scale": score_err}
+
+    # saliency through kernel 2: the forward with the chain, the backward
+    # recomputing each step's aggregate with kernel 1
+    fused = fresh(CARD, ggnn_kernel=True, ggnn_kernel_unroll="fused")
+    gk.reset_launch_counts()
+    f_p, f_s = (x.cpu().numpy() for x in ggnn_score_fn("saliency", fused, LOCALIZE_STEPS)(card_b))
+    fused_counts = {k: v for k, v in gk.launch_counts().items() if v}
+    want = {"FUSED_LAUNCHES": 1, "FUSED_CHAIN_LAUNCHES": 1, "LAUNCHES": n_steps,
+            "AGGREGATE_LAUNCHES": n_steps, "GRU_BWD_LAUNCHES": n_steps, "DMSG_LAUNCHES": n_steps}
+    sal_p, sal_s = results["saliency"]
+    if fused_counts != want or not (np.array_equal(f_p, sal_p) and np.array_equal(f_s, sal_s)):
+        fail(f"localize_ggnn: fused saliency launched {fused_counts} (expected {want}); the "
+             f"per-step bits: {np.array_equal(f_p, sal_p)}, {np.array_equal(f_s, sal_s)}")
+    for row, counter in (("ggnn_step", "LAUNCHES"), ("ggnn_gru_bwd", "GRU_BWD_LAUNCHES"),
+                         ("ggnn_dmsg", "DMSG_LAUNCHES")):
+        launched[row] += fused_counts.get(counter, 0)
+    launched["ggnn_fused"] = fused_counts.get("FUSED_LAUNCHES", 0)
+    report["fused_saliency"] = {"launches": fused_counts, "bits_equal_per_step": True}
+
+    # the input-only backward: one saliency gradient with every parameter
+    # requiring a gradient (the weight passes run) and with none
+    def rows_grad(m):
+        with torch.no_grad():
+            rows = m.embedding(card_b.node_feats)
+        r = rows.requires_grad_(True)
+        out = torch.cat([m.ggnn(card_b, r), r], dim=-1)
+        (g,) = torch.autograd.grad(m.head(m.pooling(card_b, out)).sum(), r)
+        return g
+
+    backward = {}
+    grads = {}
+    for name, needs in (("with_weights", True), ("input_only", False)):
+        m = fresh(CARD).requires_grad_(needs)
+        grads[name] = rows_grad(m)
+        torch.cuda.synchronize()  # the window holds this evaluation's kernels alone
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rows_grad(m)
+            torch.cuda.synchronize()
+        backward[name] = {"device_kernels": device_kernels(prof),
+                          "ms": timed_ms(torch, lambda: rows_grad(m))}
+    if not torch.equal(grads["with_weights"], grads["input_only"]):
+        fail("localize_ggnn: the input-only backward changed the rows' cotangent")
+    backward["kernels_saved"] = (backward["with_weights"]["device_kernels"]
+                                 - backward["input_only"]["device_kernels"])
+    report["input_only_backward"] = backward
+
+    # where one batch's time goes
+    for method in ("saliency", "lig"):
+        run = ggnn_score_fn(method, on_card, LOCALIZE_STEPS)
+        run(card_b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(card_b)[1].cpu()
+            window = 1e3 * (time.perf_counter() - t0)
+        report["methods"][method]["profile"] = device_profile(prof, window)
+    report.update(launches=launched, phase_seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return {"localize_ggnn": launched}
+
+
+def serve_lines_phase(torch, tmp: Path, smi: str) -> dict:
+    """`serve.lines` over the pipeline run's flagship checkpoint (storage
+    root `tmp`): `cli serve` without the option (healthz lines false,
+    {"lines": true} answered 400, then SERVE_LOAD_REQUESTS test-split
+    functions from SERVE_CLIENTS threads) and with it (saliency,
+    LOCALIZE_STEPS, top 10: healthz names the method; the same requests,
+    every other one carrying {"lines": true}), each a subprocess on the
+    card. Every lines answer equals the offline ggnn_score_fn of that
+    function alone at rung 1 on the same checkpoint, to the bit.
+    Requests/s and p50/p99, with lines and without; then the launches of
+    SERVE_LINES_COUNTED lines requests through the same service in this
+    process (kernel 1 n_steps times a scoring batch and, with the
+    aggregate, n_steps times a request; B3 and B4 n_steps times a
+    request). Returns those launches."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core.config import serve_budgets
+    from deepdfa_tpu_torch.eval.localize import ggnn_score_fn, node_line_attributions
+    from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, pack
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve.frontend import RequestPreprocessor
+    from deepdfa_tpu_torch.serve.registry import ModelRegistry
+    from deepdfa_tpu_torch.serve.server import BackgroundServer, ScoringService
+
+    t_phase = time.perf_counter()
+    run_dir = tmp / "runs" / "pipeline"
+    pcfg = config_mod.load(run_dir / "config.json")
+    n_steps = pcfg.model.n_steps
+    lines_over = ["serve.lines=true", 'serve.lines_method="saliency"',
+                  f"serve.lines_steps={LOCALIZE_STEPS}", "serve.lines_top_k=10"]
+    lcfg = config_mod.apply_overrides(pcfg, lines_over)
+    test = pipeline_split(tmp, "test")
+    rng = np.random.default_rng(SERVE_LINES_SEED)
+    codes = [test[i].code for i in rng.integers(0, len(test), SERVE_LOAD_REQUESTS)]
+    flags = [i % 2 == 0 for i in range(len(codes))]
+    run_arg = ["--override", 'run_name="pipeline"']
+    report: dict = {"phase": "serve_lines", "nvidia_smi": smi, "requests": len(codes),
+                    "lines_requests": sum(flags), "clients": SERVE_CLIENTS, "method": "saliency",
+                    "lines_steps": LOCALIZE_STEPS, "top_k": 10}
+
+    def load(port, lines_flags):
+        def one(args):
+            code, lines = args
+            body = {"code": code, **({"lines": True} if lines else {})}
+            return http_call(port, "POST", "/score", json.dumps(body).encode())
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            got = list(pool.map(one, zip(codes, lines_flags)))
+        return got, time.perf_counter() - t0
+
+    def quantiles(lat) -> dict:
+        lat = sorted(lat)
+        return {"p50_ms": 1e3 * lat[len(lat) // 2],
+                "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+    with storage_root(tmp) as env:
+        # the offline program: each function alone at rung 1, on the card
+        registry = ModelRegistry(run_dir, cfg=pcfg, device=CARD)
+        pre = RequestPreprocessor(pcfg, registry.vocabs)
+        run = ggnn_score_fn("saliency", registry.model(), LOCALIZE_STEPS)
+        nb, eb = serve_budgets(pcfg)
+        offline = {}
+        for code in {c for c, f in zip(codes, flags) if f}:
+            feats = pre.features_full(code)
+            batch = pack([feats.spec], 1, nb, eb, feat_width=NUM_SUBKEY_FEATS,
+                         etypes=pcfg.model.n_etypes > 1)
+            scores = run(batch.to(CARD))[1].cpu().numpy()
+            offline[code] = node_line_attributions(scores[:feats.spec.num_nodes],
+                                                   feats.node_lines, top_k=10)
+
+        with port_server(tmp, env, ["--device", CARD, *run_arg], "plain") as (port, start_s):
+            health = http_call(port, "GET", "/healthz")[1]
+            refused = http_call(port, "POST", "/score",
+                                json.dumps({"code": codes[0], "lines": True}).encode())[0]
+            plain, wall = load(port, [False] * len(codes))
+        if health.get("lines") is not False or refused != 400 or \
+                {st for st, _, _ in plain} != {200}:
+            fail(f"serve_lines: a server without serve.lines reported lines "
+                 f"{health.get('lines')}, answered {{\"lines\": true}} with {refused} and its "
+                 f"load with {sorted({st for st, _, _ in plain})}")
+        report["without_lines"] = {"requests_per_sec": len(codes) / wall, "start_seconds": start_s,
+                                   "lines_request_status": refused,
+                                   **quantiles([dt for _, _, dt in plain])}
+        over = [a for o in lines_over for a in ("--override", o)]
+        with port_server(tmp, env, ["--device", CARD, *run_arg, *over], "lines") as (port,
+                                                                                   start_s):
+            health = http_call(port, "GET", "/healthz")[1]
+            mixed, wall = load(port, flags)
+            stats = http_call(port, "GET", "/stats")[1]
+        if health.get("lines") is not True or health.get("lines_method") != "saliency":
+            fail(f"serve_lines: healthz says lines {health.get('lines')}, method "
+                 f"{health.get('lines_method')}")
+        if {st for st, _, _ in mixed} != {200}:
+            fail(f"serve_lines: the mixed load answered {sorted({st for st, _, _ in mixed})}")
+        wrong = sum(body.get("lines") != (offline[c] if f else None)
+                    for (_, body, _), c, f in zip(mixed, codes, flags))
+        if wrong:
+            fail(f"serve_lines: {wrong} of {len(codes)} answers differ from the offline "
+                 "attribution of the function alone at rung 1 (or carry lines unasked)")
+        report["with_lines"] = {
+            "requests_per_sec": len(codes) / wall, "start_seconds": start_s,
+            "lines": quantiles([dt for (_, _, dt), f in zip(mixed, flags) if f]),
+            "score_only": quantiles([dt for (_, _, dt), f in zip(mixed, flags) if not f]),
+            "localize_stats": stats.get("localize"), "bits_equal_offline": True,
+            "distinct_functions_attributed": len(offline)}
+
+        # the launches of lines requests, through the same service in-process
+        service = ScoringService(ModelRegistry(run_dir, cfg=lcfg, device=CARD), lcfg)
+        server = BackgroundServer(service)
+        try:
+            gk.reset_launch_counts()
+            for code in codes[:SERVE_LINES_COUNTED]:
+                if server.request("POST", "/score", {"code": code, "lines": True})[0] != 200:
+                    fail("serve_lines: an in-process lines request failed")
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in gk.launch_counts().items() if v}
+            batches = service.batcher.batches_run
+        finally:
+            server.close()
+        n = SERVE_LINES_COUNTED
+        want = {"LAUNCHES": n_steps * (batches + n), "AGGREGATE_LAUNCHES": n_steps * n,
+                "GRU_BWD_LAUNCHES": n_steps * n, "DMSG_LAUNCHES": n_steps * n}
+        if counts != want:
+            fail(f"serve_lines: {n} lines requests in {batches} scoring batches launched "
+                 f"{counts}, expected {want}")
+    launched = {"ggnn_step": counts.get("LAUNCHES", 0),
+                "ggnn_gru_bwd": counts.get("GRU_BWD_LAUNCHES", 0),
+                "ggnn_dmsg": counts.get("DMSG_LAUNCHES", 0)}
+    report.update(counted_requests=n, counted_batches=batches, launches=launched,
+                  phase_seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return {"serve_lines": launched}
+
+
+def localize_combined_phase(torch, tmp: Path, smi: str) -> dict:
+    """`cli localize --device cuda` over the cascade phase's stage-2 run
+    (codebert-base width, the shipped BPE, T 512, its graph branch) on a
+    dataset of the pipeline's functions that carry labelled lines (the
+    pipeline wrote a Devign json, which has none: the lines come from the
+    same seeded synthetic draw) outside that run's training subset, all
+    of them in the test split, --limit LOCALIZE_COMBINED_LIMIT; each of
+    the seven methods in this process, counted from 0: the report's keys,
+    n_examples, finite metrics, one IFA line an example, kernel 5 once an
+    encoder layer an evaluation (the attention method: a forward), dq and
+    dk/dv once a layer an evaluation (no remat replay), kernel 8 at 0,
+    and kernel 1 graph_n_steps times an evaluation (the graph encoder,
+    without the aggregate); seconds a function. Then 2 of the functions
+    in-process, saliency and lig at LOCALIZE_CHECK_STEPS: the model in
+    fp32 on the card against the CPU, and bf16 against fp32 on the card
+    (LOCALIZE_TOKEN_TOL). Returns the launches."""
+    import dataclasses
+    import io
+    import pickle
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.data import collate, load_examples, synthetic
+    from deepdfa_tpu_torch.eval import localize as L
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.models import CombinedModel
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    out = tmp / "processed" / pcfg.data.dataset
+    seed = pcfg.data.seed
+    synth = synthetic.generate(PIPELINE_FUNCTIONS, seed=seed,
+                               stmt_sizes=synthetic.bigvul_stmt_sizes(PIPELINE_FUNCTIONS,
+                                                                      seed=seed))
+    examples = [dataclasses.replace(e, vuln_lines=synth[e.id].vuln_lines)
+                if e.code == synth[e.id].before else e
+                for e in load_examples(out / "examples.pkl")]
+    graphs = set(GraphStore(out / cli.graphs_dirname(pcfg)).load_all())
+    trained = json.loads((tmp / "processed" / "pipeline-combined" / "splits.json").read_text())
+    split = {str(e.id): "test" for e in examples
+             if e.vuln_lines and e.id in graphs and str(e.id) not in trained}
+    ds = tmp / "processed" / "pipeline-localize"
+    ds.mkdir()
+    with (ds / "examples.pkl").open("wb") as f:
+        pickle.dump(examples, f)
+    for name in (f"vocab{pcfg.data.feat.name}.json", cli.graphs_dirname(pcfg)):
+        (ds / name).symlink_to(out / name)
+    (ds / "splits.json").write_text(json.dumps(split))
+    ccfg = config_mod.apply_overrides(config_mod.load(tmp / "cascade_combined.json"),
+                                      ['data.dataset="pipeline-localize"'])
+    cfg_path = tmp / "localize_combined.json"
+    config_mod.to_json(ccfg, cfg_path)
+    crun = tmp / "runs" / "cascade-combined"
+    manifest = json.loads((crun / "model_cfg.json").read_text())
+    layers = manifest["encoder"]["num_layers"]
+    graph_steps = manifest["model"]["graph_n_steps"] * manifest["model"]["use_graph"]
+    n = min(LOCALIZE_COMBINED_LIMIT, len(split))
+    base = ["localize", "--config", str(cfg_path), "--encoder", SERVE_COMBINED_ENCODER,
+            "--tokenizer", str(BPE_DIR), "--max-length", "512",
+            "--limit", str(LOCALIZE_COMBINED_LIMIT), "--device", CARD]
+    report: dict = {"phase": "localize_combined", "nvidia_smi": smi, "functions": n,
+                    "labelled_candidates": len(split), "layers": layers, "methods": {}}
+    if n < 2:
+        fail(f"localize_combined: {len(split)} functions carry labelled lines")
+    keys = {"top_1_acc", "top_3_acc", "top_5_acc", "top_10_acc", "ifa",
+            "effort_at_20_recall", "recall_at_1_loc", "n_examples", "method"}
+    launched = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv", "ggnn_step"), 0)
+    calls: list[float] = []
+    token_scores = L.token_scores
+
+    def timed_scores(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = token_scores(*a, **k)  # numpy: synchronized
+        calls.append(time.perf_counter() - t0)
+        return got
+
+    with storage_root(tmp):
+        L.token_scores = timed_scores
+        try:
+            for method in L.METHODS:
+                calls.clear()
+                gk.reset_launch_counts()
+                reset_flash(fa)
+                printed = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    cli.main([*base, "--method", method])
+                seconds = time.perf_counter() - t0
+                rep = json.loads(printed.getvalue())
+                counts = {**flash_counts(fa), "ggnn_step": gk.LAUNCHES,
+                          "ggnn_aggregate": gk.AGGREGATE_LAUNCHES,
+                          "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES, "ggnn_dmsg": gk.DMSG_LAUNCHES}
+                evals = LOCALIZE_CLI_EVALS[method]
+                want = {"flash_fwd": layers * n * max(evals, 1), "flash_dq": layers * n * evals,
+                        "flash_dkv": layers * n * evals, "flash_dbias": 0,
+                        "ggnn_step": graph_steps * n * evals, "ggnn_aggregate": 0,
+                        "ggnn_gru_bwd": 0, "ggnn_dmsg": 0}
+                ifa = (crun / "ifa_records" / f"ifa_{method}.txt").read_text().split()
+                saved = json.loads((crun / f"localize_test_{method}.json").read_text())
+                if set(rep) != keys or rep != saved or rep["n_examples"] != n or \
+                        rep["method"] != method or len(ifa) != n or not all(
+                        math.isfinite(rep[k]) for k in keys - {"n_examples", "method"}):
+                    fail(f"localize_combined: {method} reported {rep} ({len(ifa)} IFA lines)")
+                if counts != want:
+                    fail(f"localize_combined: {method} launched {counts}, expected {want}")
+                for k in launched:
+                    launched[k] += counts[k]
+                report["methods"][method] = {
+                    "evaluations_a_function": evals, "seconds": seconds,
+                    "seconds_a_function": statistics.median(calls),
+                    "seconds_a_function_max": max(calls), "report": rep, "launches": counts}
+        finally:
+            L.token_scores = token_scores
+
+    # 2 functions in-process: fp32 on the card against the CPU, bf16
+    # against fp32 on the card
+    args = cli.build_parser().parse_args([*base, "--method", "saliency"])
+    tok, mcfg = cli.combined_setup(args, ccfg)
+    f32 = dataclasses.replace(mcfg, encoder=dataclasses.replace(mcfg.encoder, dtype="float32"))
+    state = CheckpointManager(crun / cli.COMBINED_CHECKPOINTS_DIR).restore("best")["model"]
+
+    def build(cfg, device):
+        m = CombinedModel(cfg)
+        m.load_state_dict(state)
+        return m.to(device).eval()
+
+    models = {"bf16": build(mcfg, CARD), "fp32": build(f32, CARD), "cpu": build(f32, "cpu")}
+    by_id = {e.id: e for e in examples}
+    graph_specs = GraphStore(out / cli.graphs_dirname(pcfg)).load_all()
+    bcfg = ccfg.data.batch
+    check: dict = {}
+    for i in sorted(int(k) for k in split)[:2]:
+        ids, _ = tok.encode_with_lines(by_id[i].code, max_length=512)
+        b = collate(ids[None], [1], [i], graph_specs, 1, bcfg.node_budget, bcfg.edge_budget,
+                    pad_id=tok.pad_id)
+        for method in ("saliency", "lig"):
+            got = {}
+            for name, m in models.items():
+                d = b.to("cpu" if name == "cpu" else CARD)
+                got[name] = L.token_scores(method, "roberta", m, d.input_ids, d.graphs,
+                                           d.has_graph, n_steps=LOCALIZE_CHECK_STEPS)
+            errs = {"card_fp32_vs_cpu": float(np.max(np.abs(got["fp32"] - got["cpu"]))
+                                              / np.max(np.abs(got["cpu"]))),
+                    "bf16_vs_fp32": float(np.max(np.abs(got["bf16"] - got["fp32"]))
+                                          / np.max(np.abs(got["fp32"])))}
+            for k, v in errs.items():
+                check[f"{method}_{k}"] = max(v, check.get(f"{method}_{k}", 0.0))
+                if not v <= LOCALIZE_TOKEN_TOL[k]:
+                    fail(f"localize_combined: {method} {k} {v} of scale "
+                         f"(limit {LOCALIZE_TOKEN_TOL[k]})")
+    report.update(check_functions=2, check_steps=LOCALIZE_CHECK_STEPS, check_err_of_scale=check,
+                  launches=launched, phase_seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return {"localize_combined": launched}
+
+
+def localize_t5_phase(torch, rng, smi: str) -> dict:
+    """Token attributions of a codet5-base-width DefectModel (seeded
+    weights, bf16, the flagship graph encoder) on 4 rows of 512 T5-framed
+    tokens with graphs, saliency and lig (LOCALIZE_CHECK_STEPS), counted
+    from 0: kernel 5 once a layer an evaluation, dq and dk/dv once a layer
+    an evaluation, kernel 8 at 0 (the relative bias takes no gradient),
+    and the seconds of each; then a 2-layer model of the same width in
+    fp32 on the card against the CPU (LOCALIZE_TOKEN_TOL's T5 bound; the
+    max and the 99th percentile of the error). Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.data import collate
+    from deepdfa_tpu_torch.eval import localize as L
+    from deepdfa_tpu_torch.models import DefectModel
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    t_phase = time.perf_counter()
+    cfg = load(COMBINED_CONFIG)
+    tok = tokenizer("t5")
+    rows = 4
+    ids = tok.batch_encode([c_like_text(rng, 700) for _ in range(rows)], 512)
+    specs = {i: synthetic_graph(rng, i, int(rng.integers(10, 401)), cfg.data.feat.input_dim)
+             for i in range(rows)}
+    batch = collate(ids, [0] * rows, list(range(rows)), specs, rows,
+                    cfg.data.batch.node_budget, cfg.data.batch.edge_budget, pad_id=tok.pad_id)
+    card_b = batch.to(CARD)
+    model = combined_model(torch, arch="t5").to(CARD)
+    layers, graph_steps = model.cfg.encoder.num_layers, model.cfg.graph_n_steps
+    report: dict = {"phase": "localize_t5", "nvidia_smi": smi, "rows": rows, "T": 512,
+                    "layers": layers, "steps": LOCALIZE_CHECK_STEPS, "methods": {}}
+    launched = dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv", "ggnn_step"), 0)
+    for method in ("saliency", "lig"):
+        evals = 1 if method == "saliency" else LOCALIZE_CHECK_STEPS
+        gk.reset_launch_counts()
+        reset_flash(fa)
+        t0 = time.perf_counter()
+        scores = L.token_scores(method, "t5", model, card_b.input_ids, card_b.graphs,
+                                card_b.has_graph, n_steps=LOCALIZE_CHECK_STEPS)
+        seconds = time.perf_counter() - t0
+        counts = {**flash_counts(fa), "ggnn_step": gk.LAUNCHES,
+                  "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES}
+        want = {"flash_fwd": layers * evals, "flash_dq": layers * evals,
+                "flash_dkv": layers * evals, "flash_dbias": 0, "ggnn_step": graph_steps * evals,
+                "ggnn_gru_bwd": 0}
+        if counts != want or not np.all(np.isfinite(scores)):
+            fail(f"localize_t5: {method} launched {counts}, expected {want}")
+        for k in launched:
+            launched[k] += counts[k]
+        report["methods"][method] = {"evaluations": evals, "launches": counts,
+                                     "seconds_a_batch": seconds,
+                                     "ms_an_evaluation": 1e3 * seconds / evals}
+    del model
+    small = model_config("t5", layers=2)
+    f32 = dataclasses.replace(small, encoder=dataclasses.replace(small.encoder, dtype="float32"))
+    ref = DefectModel(f32, generator=torch.Generator().manual_seed(0)).eval()
+    on_card = copy.deepcopy(ref).to(CARD)
+    errs = {}
+    cpu_b = batch.to("cpu")
+    for method in ("saliency", "lig"):
+        got = L.token_scores(method, "t5", on_card, card_b.input_ids, card_b.graphs,
+                             card_b.has_graph, n_steps=LOCALIZE_CHECK_STEPS)
+        want = L.token_scores(method, "t5", ref, cpu_b.input_ids, cpu_b.graphs,
+                              cpu_b.has_graph, n_steps=LOCALIZE_CHECK_STEPS)
+        err = np.abs(got - want) / np.abs(want).max(-1, keepdims=True)
+        errs[method] = {"max": float(err.max()), "p99": float(np.quantile(err, 0.99))}
+        if not errs[method]["max"] <= LOCALIZE_TOKEN_TOL["t5_card_fp32_vs_cpu"]:
+            fail(f"localize_t5: {method} card vs CPU (2 layers, fp32) {errs[method]} of scale "
+                 f"(limit {LOCALIZE_TOKEN_TOL['t5_card_fp32_vs_cpu']})")
+    report.update(card_fp32_vs_cpu_err_of_scale=errs, launches=launched,
+                  phase_seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return {"localize_t5": launched}
 
 def cli_ladder(cfg) -> tuple[int, ...]:
     """The serve ladder `cli score` warms for `cfg` (no tuned rungs)."""
@@ -4704,6 +5303,12 @@ def main() -> None:
         bpe_phase(Path(pipeline_root))
         attn_saved_launches = train_attn_saved_phase(torch, Path(pipeline_root))
         cascade_paths = cascade_phase(torch, Path(pipeline_root), smi)
+        localize_paths = localize_ggnn_phase(torch, model, serve_specs[:max_graphs], budgets,
+                                             smi)
+        localize_paths |= serve_lines_phase(torch, Path(pipeline_root), smi)
+        localize_paths |= localize_combined_phase(torch, Path(pipeline_root), smi)
+    # on a seed of its own, so the phases after it see the data they always saw
+    localize_paths |= localize_t5_phase(torch, np.random.default_rng(19), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
     combined_launches, cmodel, tok, ccfg, cenc = serve_combined_phase(torch, rng)
     profile_combined_phase(torch, cmodel, tok, ccfg, cenc)
@@ -4735,7 +5340,7 @@ def main() -> None:
              "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
-             "train_attn_saved": attn_saved_launches, **cascade_paths}
+             "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

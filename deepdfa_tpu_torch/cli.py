@@ -9,8 +9,10 @@ the CodeT5 generation family, on one device (the reference's
 `cmd_train_gen`, `cmd_train_multi_gen`, `cmd_train_clone` and
 `cmd_tune`), tune the GGNN kernel layout on the card, score and serve C
 sources against a trained run (`score`, `serve`: `cmd_score`,
-`cmd_serve`), and fit the two-stage cascade's calibration
-(`cascade-calibrate`: `cmd_cascade_calibrate`).
+`cmd_serve`), fit the two-stage cascade's calibration
+(`cascade-calibrate`: `cmd_cascade_calibrate`), and rank the lines of a
+combined run's functions by their attributions (`localize`:
+`cmd_localize`).
 
     python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
         [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
@@ -38,6 +40,10 @@ sources against a trained run (`score`, `serve`: `cmd_score`,
         [--config F] [--override key=value ...] [--device cpu]
     python -m deepdfa_tpu_torch.cli cascade-calibrate --scores F [--prob-key prob] \
         [--label-key label] [--target-escalation 0.3] [--out F]
+    python -m deepdfa_tpu_torch.cli localize [--arch roberta|t5] [--no-graph] \
+        [--method saliency|attention|input_x_gradient|lig|deeplift|deeplift_shap|gradient_shap] \
+        [--checkpoint best] [--split test] [--encoder tiny|codebert-base|codet5-base] \
+        [--tokenizer DIR] [--max-length 512] [--limit N] [--device cpu] [key=value ...]
 
 `prepare`, `extract-vocab` and `extract` are host commands (no
 `--device`). `prepare` reads a dataset (the seeded synthetic corpus, a
@@ -115,8 +121,19 @@ reloads a moved tag between batches. `serve.cascade=true` (with
 scores every source with the GGNN and escalates the calibrated
 uncertainty band to a combined or t5 run (serve/cascade.py); the fit
 comes from `cascade-calibrate` over `score` rows joined with labels.
-Refused: `serve.use_joern`, `serve.lines`, a `tag@int8` checkpoint and
-`serve.pipeline_depth > 0`.
+`serve.lines=true` (with `serve.lines_method`, `lines_steps`,
+`lines_top_k`) also answers {"code": ..., "lines": true} with the GGNN's
+ranked line attributions. Refused: `serve.use_joern`, a `tag@int8`
+checkpoint and `serve.pipeline_depth > 0`.
+
+`localize` restores a `train-combined` run (`--arch`, `--encoder`,
+`--tokenizer`, `--no-graph` and `--max-length` as it was trained) from
+`checkpoints-combined-torch/`, attributes the vulnerable-class logit to
+the tokens of every `--split` function that has labelled lines
+(eval/localize.py:token_scores, `--method`), ranks each function's lines
+and writes `runs/<run>/localize_<split>_<method>.json` (top-k accuracy,
+IFA, effort@20% recall, recall@1% LOC, `n_examples`, `method`) and
+`runs/<run>/ifa_records/ifa_<method>.txt`, as the reference does.
 """
 
 from __future__ import annotations
@@ -681,6 +698,72 @@ def cmd_train_combined(args) -> None:
     print("best:", ckpts.best_metrics())
 
 
+def cmd_localize(args) -> None:
+    """Line-level localization over a trained combined model: token
+    attributions -> per-line ranking -> top-k / IFA / effort metrics
+    against the labelled vulnerable lines (the reference's
+    `cmd_localize`)."""
+    from deepdfa_tpu_torch.data import collate, load_examples
+    from deepdfa_tpu_torch.data.tokenizer import split_lines
+    from deepdfa_tpu_torch.eval.localize import aggregate_line_scores, token_scores
+    from deepdfa_tpu_torch.eval.statements import (
+        RankedExample,
+        per_example_ifa,
+        statement_report,
+    )
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.train import CombinedTrainer
+
+    cfg = _load_run_config(args)
+    if cfg.data.gtype != "cfg":
+        raise SystemExit(f"localize supports data.gtype=cfg only (got {cfg.data.gtype!r})")
+    out_dir = processed_dir(cfg.data.dataset)
+    run_dir = runs_dir(cfg.run_name)
+    examples = load_examples(out_dir / "examples.pkl")
+    splits = json.loads((out_dir / "splits.json").read_text())
+    tok, mcfg = combined_setup(args, cfg)
+    trainer = CombinedTrainer(cfg, mcfg, total_steps=1, device=args.device)
+    model = trainer.init_state().model
+    ckpts = trainer.make_checkpoints(run_dir / COMBINED_CHECKPOINTS_DIR)
+    model.load_state_dict(ckpts.restore(args.checkpoint)["model"])
+    model.eval()
+    graphs_by_id = {} if not mcfg.use_graph else \
+        GraphStore(out_dir / graphs_dirname(cfg)).load_all()
+
+    targets = [e for e in examples if splits.get(str(e.id)) == args.split and e.vuln_lines]
+    if args.limit:
+        targets = targets[:args.limit]
+    bcfg = cfg.data.batch
+    ranked = []
+    for e in targets:
+        ids, tok_lines = tok.encode_with_lines(e.code, max_length=args.max_length)
+        b = collate(ids[None], [int(e.label or 0)], [e.id], graphs_by_id, batch_rows=1,
+                    node_budget=bcfg.node_budget, edge_budget=bcfg.edge_budget,
+                    pad_id=tok.pad_id).to(trainer.device)
+        scores = token_scores(args.method, args.arch, model, b.input_ids,
+                              b.graphs if mcfg.use_graph else None,
+                              b.has_graph if mcfg.use_graph else None)
+        # \n-only numbering: the coordinates of e.vuln_lines
+        n_lines = len(split_lines(e.code))
+        line_scores = aggregate_line_scores(scores[0], tok_lines, n_lines)
+        flagged = np.zeros(n_lines, bool)
+        for ln in e.vuln_lines:
+            if 1 <= ln <= n_lines:
+                flagged[ln - 1] = True
+        ranked.append(RankedExample(line_scores, flagged))
+
+    report = statement_report(ranked)
+    report["n_examples"] = len(ranked)
+    report["method"] = args.method
+    print(json.dumps(report, indent=2))
+    (run_dir / f"localize_{args.split}_{args.method}.json").write_text(json.dumps(report))
+    # per-example IFA (the reference's ifa_records/ifa_<method>.txt)
+    ifa_dir = run_dir / "ifa_records"
+    ifa_dir.mkdir(parents=True, exist_ok=True)
+    (ifa_dir / f"ifa_{args.method}.txt").write_text(
+        "\n".join(str(v) for v in per_example_ifa(ranked)) + "\n")
+
+
 # -- the generation family -------------------------------------------------
 
 
@@ -1227,6 +1310,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dev-set fraction the band should escalate")
     p.add_argument("--out", default=None, help="also write the result json here")
     p.set_defaults(fn=cmd_cascade_calibrate)
+
+    p = sub.add_parser("localize", help="rank a combined run's lines by token attributions "
+                                        "and score them against the labelled lines")
+    p.add_argument("--arch", default="roberta", choices=["roberta", "t5"],
+                   help="combined architecture the checkpoint was trained with (the "
+                        "attention method is roberta-only)")
+    p.add_argument("--no-graph", action="store_true")
+    p.add_argument("--method", default="saliency",
+                   choices=["attention", "saliency", "input_x_gradient", "lig", "deeplift",
+                            "deeplift_shap", "gradient_shap"])
+    p.add_argument("--checkpoint", default="best")
+    p.add_argument("--split", default="test")
+    p.add_argument("--encoder", default="tiny",
+                   help="tiny | codebert-base (roberta) | codet5-base (t5)")
+    p.add_argument("--tokenizer", default=None,
+                   help="dir with *vocab.json + *merges.txt (byte-level BPE; default: hash)")
+    p.add_argument("--max-length", type=int, default=512)
+    p.add_argument("--limit", type=int, default=None)
+    # combined_setup's training-only knobs at their defaults
+    p.set_defaults(sp_variant="ring", attn_impl="auto", remat_policy="full")
+    common(p)
+    p.set_defaults(fn=cmd_localize)
 
     p = sub.add_parser("tune", help="offline autotuner: GGNN kernel layouts and batch "
                                     "ladders fitted to observed traffic, in tuned.json")

@@ -156,11 +156,11 @@ class DataConfig:
 class ServeConfig:
     """The serving knobs the port runs: the dynamic batcher's
     (serve/batcher.py), the registry's (serve/registry.py), the request
-    frontend's (serve/frontend.py), the request log's (serve/server.py)
-    and the two-stage cascade's (serve/cascade.py). `use_joern` and
-    `lines` are read so that turning one on is refused by name
-    (`refuse_unported_serving`); the reference's SLO windows, health
-    probe, Joern pool and localization tuning keys are read past."""
+    frontend's (serve/frontend.py), the request log's (serve/server.py),
+    the served line attributions' (serve/localize.py) and the two-stage
+    cascade's (serve/cascade.py). `use_joern` is read so that turning it
+    on is refused by name (`refuse_unported_serving`); the reference's
+    SLO windows, health probe and Joern pool keys are read past."""
 
     # bounded request queue; submissions beyond this raise QueueFull
     queue_limit: int = 256
@@ -185,8 +185,17 @@ class ServeConfig:
     use_joern: bool = False
     # one {"request": {...}} line a request in <run_dir>/serve_log.jsonl
     request_log: bool = False
-    # served line attributions: refused
+    # run the GGNN attribution program beside the scoring ladder and
+    # accept {"lines": true} on POST /score (serve/localize.py)
     lines: bool = False
+    # attribution method of the served line scores (eval/localize.py
+    # GGNN_METHODS: attention | saliency | input_x_gradient | deeplift | lig)
+    lines_method: str = "saliency"
+    # Riemann steps of the path methods (deeplift, lig): each request
+    # pays that many gradient evaluations
+    lines_steps: int = 8
+    # top-scoring lines in a response (0 = every line with a node)
+    lines_top_k: int = 10
     # the two-stage cascade (serve/cascade.py): the GGNN scores every
     # request and the requests whose calibrated stage-1 probability falls
     # in the band go on to the combined or t5 model
@@ -352,15 +361,12 @@ def refuse_unported_training(cfg: Config) -> None:
 def refuse_unported_serving(cfg: Config) -> None:
     """NotImplementedError for the serving options the port does not run,
     each naming the ROADMAP queue A item that brings it: the Joern
-    frontend (item 3), line attributions (item 5) and the pipelined
-    batcher (item 6); a quantized `tag@int8` checkpoint (item 6) is
-    refused by the registry."""
+    frontend (item 3) and the pipelined batcher (item 6); a quantized
+    `tag@int8` checkpoint (item 6) is refused by the registry."""
     scfg = cfg.serve
     refused = {
         "serve.use_joern=true: the Joern CPG importer and session pool are not "
         "ported (ROADMAP queue A, item 3); the built-in parser serves": scfg.use_joern,
-        "serve.lines=true: served line attributions are not ported (ROADMAP queue A, "
-        "item 5)": scfg.lines,
         "serve.pipeline_depth > 0: the pipelined batcher is not ported (ROADMAP queue A, "
         "item 6); use 0 (serial)": bool(scfg.pipeline_depth),
     }

@@ -55,7 +55,9 @@
 //      partials.
 //   3. reduce: a thread sums 4 outputs over the partials in chunk order.
 // Every sum has one fixed order, so the gradients are the same bits on
-// every run.
+// every run. Where no parameter takes a cotangent (an attribution, which
+// wants the input's alone), the call runs passes 1a and 1b only: da and
+// dh keep their bits, and the workspace holds the deltas alone.
 //
 // B4. The transposed message, summed first: by linearity
 //   dh_msg_u = sum_t (sum_{e: src_e = u} w_{t,e} da_{dst_e}) @ Wm_t^T,
@@ -757,7 +759,7 @@ template <int D>
 cudaError_t launch_gru_bwd(const float* h, const float* a, const float* g, const float* wih,
                            const float* whh, const float* bih, const float* bhh, float* da,
                            float* dh, float* grads, float* workspace, int n,
-                           cudaStream_t stream) {
+                           bool weights, cudaStream_t stream) {
   if (n <= 0) return cudaErrorInvalidValue;
   constexpr int gate_smem = 2 * kGateStage * (int)sizeof(float);
   constexpr int in_smem = 2 * kInStage * (int)sizeof(float);
@@ -777,7 +779,7 @@ cudaError_t launch_gru_bwd(const float* h, const float* a, const float* g, const
   gru_bwd_inputs_kernel<D><<<dim3((n + kInNodes - 1) / kInNodes, (D + kInCols - 1) / kInCols),
                              kInThreads, in_smem, stream>>>(delta, wih, whh, da, dh, n);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !weights) return err;
   const int chunk = gru_chunk(n, D);
   const int splits = gru_splits(n, D);
   const dim3 grid(3 * D / kWJ, D / gru_tile_rows(D), 2 * splits);
@@ -808,9 +810,11 @@ cudaError_t launch_dmsg(const float* da, const float* wm, const int* dstp, const
 
 extern "C" {
 
-// Floats of B3's workspace: the [n, 4d] deltas and the weight partials.
-long long ggnn_gru_bwd_workspace_floats(int n, int d) {
-  return (long long)n * 4 * d + (long long)gru_splits(n, d) * gru_partial_floats(d);
+// Floats of B3's workspace: the [n, 4d] deltas and, with weights != 0,
+// the weight partials.
+long long ggnn_gru_bwd_workspace_floats(int n, int d, int weights) {
+  return (long long)n * 4 * d +
+         (weights ? (long long)gru_splits(n, d) * gru_partial_floats(d) : 0LL);
 }
 
 // Node chunks of B3's weight pass for n nodes at width d (PERF.md
@@ -818,16 +822,19 @@ long long ggnn_gru_bwd_workspace_floats(int n, int d) {
 int ggnn_gru_bwd_splits(int n, int d) { return gru_splits(n, d); }
 
 // B3. Device pointers, every one 16-byte aligned; shapes: h, a, g, da, dh
-// [n, d]; wih, whh [d, 3d]; bih, bhh [3d]; grads [2*d*3d + 2*3d] receives
-// dWih | dWhh | dbih | dbhh; workspace holds
-// ggnn_gru_bwd_workspace_floats(n, d) floats. Returns a cudaError_t.
+// [n, d]; wih, whh [d, 3d]; bih, bhh [3d]; with weights != 0, grads
+// [2*d*3d + 2*3d] receives dWih | dWhh | dbih | dbhh (with weights == 0
+// the weight pass and its reduce do not run and grads is not touched);
+// workspace holds ggnn_gru_bwd_workspace_floats(n, d, weights) floats.
+// Returns a cudaError_t.
 int ggnn_gru_bwd_f32(const float* h, const float* a, const float* g, const float* wih,
                      const float* whh, const float* bih, const float* bhh, float* da, float* dh,
-                     float* grads, float* workspace, int n, int d, void* stream) {
+                     float* grads, float* workspace, int n, int d, int weights, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GRU_CASE(DD) \
-  case DD:           \
-    return (int)launch_gru_bwd<DD>(h, a, g, wih, whh, bih, bhh, da, dh, grads, workspace, n, s);
+#define GRU_CASE(DD)                                                                       \
+  case DD:                                                                                 \
+    return (int)launch_gru_bwd<DD>(h, a, g, wih, whh, bih, bhh, da, dh, grads, workspace, n, \
+                                   weights != 0, s);
   switch (d) {
     GRU_CASE(32)
     GRU_CASE(64)

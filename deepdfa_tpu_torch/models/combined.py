@@ -96,9 +96,13 @@ class CombinedModel(nn.Module):
         position_offset: int = 0,
         pp_axis: str | None = None,
         ep_axis: str | None = None,
+        inputs_embeds: torch.Tensor | None = None,
+        remat: bool = True,
     ) -> torch.Tensor:
         """[B, T] ids (+ a GraphBatch of B graphs aligned with the rows)
-        -> logits [B, num_classes] in fp32; dropout with a `dropout_key`."""
+        -> logits [B, num_classes] in fp32; dropout with a `dropout_key`;
+        `inputs_embeds` and `remat` go to `RobertaEncoder.encode` (the
+        attribution hook: without a key the head runs without dropout)."""
         if pp_axis is not None or ep_axis is not None:
             raise NotImplementedError(
                 "pp_axis / ep_axis: pipeline and expert parallelism come with the "
@@ -109,7 +113,7 @@ class CombinedModel(nn.Module):
             k_enc, k_head = fold_seed(dropout_key, 0), fold_seed(dropout_key, 1)
         hidden = self.encoder.encode(
             input_ids, dropout_key=k_enc, sp_axis=sp_axis, tp_axis=tp_axis,
-            position_offset=position_offset,
+            position_offset=position_offset, inputs_embeds=inputs_embeds, remat=remat,
         )
         x = hidden[:, 0, :]
         if self.cfg.use_graph:

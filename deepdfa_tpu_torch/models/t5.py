@@ -292,11 +292,16 @@ class T5Encoder(nn.Module):
         dropout_key=None,
         sp_axis: str | None = None,
         tp_axis: str | None = None,
+        inputs_embeds: torch.Tensor | None = None,
+        remat: bool = True,
     ) -> torch.Tensor:
         """[B, T] int ids -> [B, T, D] final hidden states (after the final
         RMS norm). `dropout_key` (a 64-bit seed)
         turns dropout on: the embedding takes seed (0,), layer i (1, i),
-        the final norm's output (2,)."""
+        the final norm's output (2,). `inputs_embeds` ([B, T, D]) replaces
+        the word gather (the reference's hook, `encode`, `:314`), and
+        `remat=False` runs the layers plainly with gradients on (the
+        attribution forward, eval/localize.py)."""
         if sp_axis is not None or tp_axis is not None:
             raise NotImplementedError(
                 "sp_axis / tp_axis: sequence and tensor parallelism come with the "
@@ -310,11 +315,11 @@ class T5Encoder(nn.Module):
                 "— lower the bucket edge (data.seq_buckets) / max_length or raise the "
                 "configured bound"
             )
-        remat = cfg.remat and torch.is_grad_enabled()
+        remat = remat and cfg.remat and torch.is_grad_enabled()
         if attn_mask is None:
             attn_mask = input_ids != cfg.pad_token_id
         dt = cfg.torch_dtype
-        x = F.embedding(input_ids, self.word).to(dt)
+        x = (F.embedding(input_ids, self.word) if inputs_embeds is None else inputs_embeds).to(dt)
         seeded = dropout_key is not None and cfg.dropout_rate > 0.0
         rate = cfg.dropout_rate if seeded else 0.0
         x = dropout(x, rate, fold_seed(dropout_key, 0) if seeded else None)
@@ -393,17 +398,20 @@ class DefectModel(nn.Module):
         sp_axis: str | None = None,
         tp_axis: str | None = None,
         pp_axis: str | None = None,
+        inputs_embeds: torch.Tensor | None = None,
+        remat: bool = True,
     ) -> torch.Tensor:
         """[B, T] ids (+ a GraphBatch of B graphs aligned with the rows)
         -> logits [B, num_classes] in fp32 (`defect_forward`,
-        `:533-597`); dropout with a `dropout_key`."""
+        `:533-597`); dropout with a `dropout_key`; `inputs_embeds` and
+        `remat` go to `T5Encoder.encode`."""
         if pp_axis is not None:
             raise NotImplementedError(
                 "pp_axis: the pipeline comes with the multi-device slice of the port "
                 "(ROADMAP queue A, item 9)"
             )
         hidden = self.encoder.encode(input_ids, dropout_key=dropout_key, sp_axis=sp_axis,
-                                     tp_axis=tp_axis)
+                                     tp_axis=tp_axis, inputs_embeds=inputs_embeds, remat=remat)
         vec = eos_pool(self.cfg.encoder, hidden, input_ids)
         if self.cfg.use_graph:
             if graph_batch is None:

@@ -158,7 +158,10 @@ class Embeddings(nn.Module):
         nn.init.zeros_(self.ln_bias)
 
     def forward(self, input_ids: torch.Tensor, position_offset: int = 0,
-                seed: int | None = None) -> torch.Tensor:
+                seed: int | None = None, rows: torch.Tensor | None = None) -> torch.Tensor:
+        """`rows` ([B, T, D] fp32), when given, stands in for the word
+        gather (the attribution hook, eval/localize.py); positions, token
+        type and the LayerNorm stay."""
         cfg = self.cfg
         top = input_ids.shape[1] + position_offset + cfg.pad_token_id
         if top > cfg.max_position_embeddings - 1:
@@ -171,7 +174,8 @@ class Embeddings(nn.Module):
             )
         mask = (input_ids != cfg.pad_token_id).to(torch.int64)
         pos = (torch.cumsum(mask, dim=-1) + position_offset) * mask + cfg.pad_token_id
-        x = F.embedding(input_ids, self.word) + F.embedding(pos, self.position) + self.token_type[0]
+        word = F.embedding(input_ids, self.word) if rows is None else rows
+        x = word + F.embedding(pos, self.position) + self.token_type[0]
         x = _layer_norm(x, self.ln_scale, self.ln_bias, cfg.layer_norm_eps)
         x = dropout(x, cfg.dropout_rate, seed)  # fp32, before the cast, as the reference
         return x.to(cfg.torch_dtype)
@@ -261,10 +265,12 @@ class RobertaEncoder(nn.Module):
             nn.init.zeros_(self.pooler_b)
 
     def embed(self, input_ids: torch.Tensor, position_offset: int = 0,
-              seed: int | None = None) -> torch.Tensor:
+              seed: int | None = None, inputs_embeds: torch.Tensor | None = None
+              ) -> torch.Tensor:
         """[B, T] ids -> [B, T, D] embeddings in the activation dtype
-        (dropped with `seed` when one is given)."""
-        return self.embeddings(input_ids, position_offset, seed)
+        (dropped with `seed` when one is given); `inputs_embeds` replaces
+        the word gather."""
+        return self.embeddings(input_ids, position_offset, seed, inputs_embeds)
 
     def encode(
         self,
@@ -275,21 +281,29 @@ class RobertaEncoder(nn.Module):
         sp_axis: str | None = None,
         tp_axis: str | None = None,
         position_offset: int = 0,
+        inputs_embeds: torch.Tensor | None = None,
+        remat: bool = True,
     ) -> torch.Tensor:
         """[B, T] int ids -> [B, T, D] hidden states. `dropout_key` (a
         64-bit seed) turns dropout on: the embedding takes seed (0,),
-        layer i seed (1, i) folded from it (`nn/dropout.py:fold_seed`)."""
+        layer i seed (1, i) folded from it (`nn/dropout.py:fold_seed`).
+        `inputs_embeds` ([B, T, D] fp32) replaces the word gather, and
+        `remat=False` runs the layers plainly with gradients on: the
+        attribution forward (eval/localize.py), which differentiates
+        with respect to those rows, as the reference's `_roberta_forward`
+        scans its plain layers."""
         if sp_axis is not None or tp_axis is not None:
             raise NotImplementedError(
                 "sp_axis / tp_axis: sequence and tensor parallelism come with the "
                 "multi-device slice of the port (ROADMAP queue A, item 9)"
             )
         cfg = self.cfg
-        remat = cfg.remat and torch.is_grad_enabled()
+        remat = remat and cfg.remat and torch.is_grad_enabled()
         if attn_mask is None:
             attn_mask = input_ids != cfg.pad_token_id
         seeded = dropout_key is not None
-        x = self.embed(input_ids, position_offset, fold_seed(dropout_key, 0) if seeded else None)
+        x = self.embed(input_ids, position_offset, fold_seed(dropout_key, 0) if seeded else None,
+                       inputs_embeds)
         for i, layer in enumerate(self.layers):
             seed = fold_seed(dropout_key, 1, i) if seeded else None
             if remat:

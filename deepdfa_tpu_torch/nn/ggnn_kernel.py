@@ -45,11 +45,11 @@ CUDA kernel for tensors on a CUDA device and runs its plain PyTorch
 version for tensors on the CPU; there is no other route and no fallback
 from one to the other. `launch_counts()` names every counter: kernel
 1's per (scatter, policy) (`LAUNCHES`, `BF16_LAUNCHES`, `INT8_LAUNCHES`,
-`MXU_LAUNCHES`, `MXU_BF16_LAUNCHES`, `MXU_INT8_LAUNCHES`), kernel 2's per
-scatter (`FUSED_LAUNCHES`, `FUSED_MXU_LAUNCHES`; of them
-`FUSED_CHAIN_LAUNCHES` with the chain), `GRU_BWD_LAUNCHES`,
-`DMSG_LAUNCHES`, and `FUSED_FALLBACKS`, the fused unrolls
-`resolve_unroll` refused.
+`MXU_LAUNCHES`, `MXU_BF16_LAUNCHES`, `MXU_INT8_LAUNCHES`; of them
+`AGGREGATE_LAUNCHES` writing the aggregate), kernel 2's per scatter
+(`FUSED_LAUNCHES`, `FUSED_MXU_LAUNCHES`; of them `FUSED_CHAIN_LAUNCHES`
+with the chain), `GRU_BWD_LAUNCHES`, `DMSG_LAUNCHES`, and
+`FUSED_FALLBACKS`, the fused unrolls `resolve_unroll` refused.
 
 The fold forward aggregates sum(coef * row) and sum(w) per node first
 and applies the policy's Wm_t, bm_t once per node; B4 likewise sums
@@ -85,6 +85,7 @@ INT8_LAUNCHES = 0  # ggnn_step, accum="int8"
 MXU_LAUNCHES = 0  # ggnn_step, scatter="mxu", accum="fp32"
 MXU_BF16_LAUNCHES = 0  # ggnn_step, scatter="mxu", accum="bf16"
 MXU_INT8_LAUNCHES = 0  # ggnn_step, scatter="mxu", accum="int8" (with its pre-pass)
+AGGREGATE_LAUNCHES = 0  # of those six, the ones writing the aggregate (a backward follows)
 FUSED_LAUNCHES = 0  # ggnn_fused (kernel 2), fold, any policy
 FUSED_MXU_LAUNCHES = 0  # ggnn_fused, mxu, any policy
 FUSED_CHAIN_LAUNCHES = 0  # of those two, the ones writing the chain
@@ -168,8 +169,8 @@ def resolve_scatter(scatter: str) -> str:
     return "fold"
 
 
-_COUNTERS = (*_STEP_COUNTER.values(), *_FUSED_COUNTER.values(), "FUSED_CHAIN_LAUNCHES",
-             "GRU_BWD_LAUNCHES", "DMSG_LAUNCHES", "FUSED_FALLBACKS")
+_COUNTERS = (*_STEP_COUNTER.values(), "AGGREGATE_LAUNCHES", *_FUSED_COUNTER.values(),
+             "FUSED_CHAIN_LAUNCHES", "GRU_BWD_LAUNCHES", "DMSG_LAUNCHES", "FUSED_FALLBACKS")
 
 
 def launch_counts() -> dict[str, int]:
@@ -536,9 +537,10 @@ def _note_fused_fallback(reason: str) -> None:
                        "back to the per-step kernel", reason)
 
 
-def gru_bwd_plain(h, a, wih, whh, bih, bhh, g):
+def gru_bwd_plain(h, a, wih, whh, bih, bhh, g, weights: bool = True):
     """B3's function in plain PyTorch, step by step as the reference's
-    `_gru_bwd_kernel`: (da, dh_gru, dwih, dwhh, dbih, dbhh)."""
+    `_gru_bwd_kernel`: (da, dh_gru, dwih, dwhh, dbih, dbhh); without
+    `weights` the four weight cotangents are None and not computed."""
     gx = a @ wih + bih
     gh = h @ whh + bhh
     xr, xz, xn = gx.chunk(3, dim=-1)
@@ -557,6 +559,8 @@ def gru_bwd_plain(h, a, wih, whh, bih, bhh, g):
     dgh = torch.cat([dsr, dsz, dhn], dim=-1)
     da = dgx @ wih.T
     dh = dgh @ whh.T + g * z
+    if not weights:
+        return da, dh, None, None, None, None
     return da, dh, a.T @ dgx, h.T @ dgh, dgx.sum(0), dgh.sum(0)
 
 
@@ -619,9 +623,9 @@ def _library(name: str) -> ctypes.CDLL:
                     f"nodes per block; NODE_TILE says {NODE_TILE}"
                 )
         else:
-            lib.ggnn_gru_bwd_f32.argtypes = [p] * 11 + [i] * 2 + [p]
+            lib.ggnn_gru_bwd_f32.argtypes = [p] * 11 + [i] * 3 + [p]
             lib.ggnn_gru_bwd_f32.restype = i
-            lib.ggnn_gru_bwd_workspace_floats.argtypes = [i, i]
+            lib.ggnn_gru_bwd_workspace_floats.argtypes = [i, i, i]
             lib.ggnn_gru_bwd_workspace_floats.restype = ll
             lib.ggnn_gru_bwd_splits.argtypes = [i, i]
             lib.ggnn_gru_bwd_splits.restype = i
@@ -745,6 +749,8 @@ def ggnn_step(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh,
         )
     _raise_on(rc, "ggnn_step", lib, "ggnn_cuda_error_string")
     _count(_STEP_COUNTER[scatter, accum])
+    if with_aggregate:
+        _count("AGGREGATE_LAUNCHES")
     return h_out, a_out
 
 
@@ -815,16 +821,19 @@ def fused_blocks_per_sm(accum: str, scatter: str, d: int, device: torch.device) 
     return per_sm.value
 
 
-def gru_bwd(h, a, wih, whh, bih, bhh, g):
-    """B3: (da, dh_gru, dwih, dwhh, dbih, dbhh) of one step's GRU.
+def gru_bwd(h, a, wih, whh, bih, bhh, g, weights: bool = True):
+    """B3: (da, dh_gru, dwih, dwhh, dbih, dbhh) of one step's GRU; without
+    `weights` (no parameter takes a cotangent) (da, dh_gru, None, None,
+    None, None), da and dh_gru the same bits.
 
     CPU tensors run `gru_bwd_plain`; CUDA tensors launch the kernel (its
-    gate pass, input pass, split-K weight pass and fixed-order reduce) on
-    the current stream or raise. The kernel stages its operands 16 bytes
-    at a time, so every operand must start 16-byte aligned."""
+    gate pass, input pass and, with `weights`, its split-K weight pass and
+    fixed-order reduce) on the current stream or raise. The kernel stages
+    its operands 16 bytes at a time, so every operand must start 16-byte
+    aligned."""
     global GRU_BWD_LAUNCHES
     if not _on_cuda("gru_bwd", h.device):
-        return gru_bwd_plain(h, a, wih, whh, bih, bhh, g)
+        return gru_bwd_plain(h, a, wih, whh, bih, bhh, g, weights)
     n, d = h.shape
     f32 = torch.float32
     _check_args("gru_bwd", h.device, {
@@ -839,18 +848,22 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g):
     lib = _library("ggnn_bwd")
     da = torch.empty_like(h)
     dh = torch.empty_like(h)
-    grads = torch.empty(2 * d * 3 * d + 2 * 3 * d, dtype=f32, device=h.device)
-    work = torch.empty(lib.ggnn_gru_bwd_workspace_floats(n, d), dtype=f32, device=h.device)
+    grads = (torch.empty(2 * d * 3 * d + 2 * 3 * d, dtype=f32, device=h.device)
+             if weights else None)
+    work = torch.empty(lib.ggnn_gru_bwd_workspace_floats(n, d, int(weights)), dtype=f32,
+                       device=h.device)
     with torch.cuda.device(h.device):
         rc = lib.ggnn_gru_bwd_f32(
             h.data_ptr(), a.data_ptr(), g.data_ptr(), wih.data_ptr(),
             whh.data_ptr(), bih.data_ptr(), bhh.data_ptr(), da.data_ptr(),
-            dh.data_ptr(), grads.data_ptr(),
-            work.data_ptr(), n, d, _stream(h.device),
+            dh.data_ptr(), _ptr(grads), work.data_ptr(), n, d, int(weights),
+            _stream(h.device),
         )
     _raise_on(rc, "gru_bwd", lib, "ggnn_bwd_error_string")
     with _launch_lock:
         GRU_BWD_LAUNCHES += 1
+    if not weights:
+        return da, dh, None, None, None, None
     w = d * 3 * d
     return (da, dh, grads[:w].view(d, 3 * d), grads[w:2 * w].view(d, 3 * d),
             grads[2 * w:2 * w + 3 * d], grads[2 * w + 3 * d:])
@@ -897,12 +910,16 @@ def dmsg(da, edges: EdgeIndex, wm, dh=None):
     return out
 
 
-def step_bwd(h, a, g, edges: EdgeIndex, wm, wih, whh, bih, bhh):
+def step_bwd(h, a, g, edges: EdgeIndex, wm, wih, whh, bih, bhh, weights: bool = True):
     """One step's backward from its saved (h, a): B3, then B4 adding into
     B3's dh, then the message weights' cotangents; (dh, dwm, dbm, dwih,
-    dwhh, dbih, dbhh)."""
-    da, dh, dwih, dwhh, dbih, dbhh = gru_bwd(h, a, wih, whh, bih, bhh, g.contiguous())
+    dwhh, dbih, dbhh). Without `weights` (an attribution: only the input
+    takes a cotangent) B3 skips its weight pass and the message weights'
+    cotangents are not formed: (dh, None, ..., None), dh the same bits."""
+    da, dh, dwih, dwhh, dbih, dbhh = gru_bwd(h, a, wih, whh, bih, bhh, g.contiguous(), weights)
     dh = dmsg(da, edges, wm, dh)
+    if not weights:
+        return dh, None, None, None, None, None, None
     dwm, dbm = msg_weight_grads(h, da, edges)
     return dh, dwm, dbm, dwih, dwhh, dbih, dbhh
 
@@ -913,7 +930,8 @@ class GgnnStep(torch.autograd.Function):
     forward: the step kernel under `accum` and `scatter` (mxu: edge
     blocks of `block_e`) with its aggregate, saving (h, a); backward:
     `step_bwd`, straight-through for the policy and the scatter (fp32 on
-    h and Wm, from the saved aggregate). The edge tensors
+    h and Wm, from the saved aggregate), without the weight passes when
+    no parameter requires a gradient. The edge tensors
     (`EdgeIndex.tensors()`, src-sorted layout included) are passed one by
     one, take no gradient and must not require one."""
 
@@ -933,7 +951,9 @@ class GgnnStep(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         h, a, wm, wih, whh, bih, bhh, *edge_tensors = ctx.saved_tensors
-        dh, *grads = step_bwd(h, a, g, EdgeIndex(*edge_tensors), wm, wih, whh, bih, bhh)
+        weights = any(ctx.needs_input_grad[4:10])
+        dh, *grads = step_bwd(h, a, g, EdgeIndex(*edge_tensors), wm, wih, whh, bih, bhh,
+                              weights)
         return (None, None, None, dh, *grads) + (None,) * len(edge_tensors)
 
 
@@ -947,7 +967,8 @@ class GgnnUnroll(torch.autograd.Function):
     aggregate from its chain entry, then `step_bwd`; the parameter
     cotangents sum over the steps from the last one down, the order in
     which autograd sums a chain of `GgnnStep`s, so both unrolls give the
-    same bits."""
+    same bits. Without a parameter requiring a gradient the weight
+    passes are skipped, as in `GgnnStep`."""
 
     @staticmethod
     def forward(ctx, accum, scatter, block_e, n_steps, feat, wm, bm, wih, whh, bih, bhh,
@@ -970,12 +991,16 @@ class GgnnUnroll(torch.autograd.Function):
         chain, wm, bm, wih, whh, bih, bhh, *edge_tensors = ctx.saved_tensors
         edges = EdgeIndex(*edge_tensors)
         accum, scatter, block_e = ctx.variant
+        weights = any(ctx.needs_input_grad[5:11])
         dh, total = g, None
         for s in reversed(range(chain.shape[0])):
             _, a = ggnn_step(chain[s], edges, wm, bm, wih, whh, bih, bhh, accum=accum,
                              scatter=scatter, block_e=block_e, with_aggregate=True)
-            dh, *grads = step_bwd(chain[s], a, dh, edges, wm, wih, whh, bih, bhh)
-            total = grads if total is None else [x + y for x, y in zip(total, grads)]
+            dh, *grads = step_bwd(chain[s], a, dh, edges, wm, wih, whh, bih, bhh, weights)
+            if weights:
+                total = grads if total is None else [x + y for x, y in zip(total, grads)]
+        if not weights:
+            total = [None] * 6
         return (None, None, None, None, dh, *total) + (None,) * len(edge_tensors)
 
 

@@ -7,9 +7,12 @@ stdlib only (`http.server.ThreadingHTTPServer`):
                  "latency_ms": ..., "request_id": ...}; with
                  `serve.cascade` also "stage" (1 or 2), "stage1_prob",
                  "calibrated_prob" and, when it happened, "cascade_shed"
-                 or "cascade_failed"
+                 or "cascade_failed"; {"code": ..., "lines": true} adds
+                 "lines", the ranked [{"line", "score"}] of the GGNN's
+                 attribution (`serve.lines`)
   GET  /healthz  what is serving: family, checkpoint tag and step,
-                 config and vocabulary digests, device, warmed rungs
+                 config and vocabulary digests, device, warmed rungs,
+                 `lines` and `lines_method`
   GET  /stats    batcher, feature cache, frontend and status counts
 
 Request lifecycle: HTTP thread -> frontend (cached extraction) ->
@@ -26,10 +29,17 @@ and `score_texts` takes every stage-1 verdict first, then escalates the
 band in one grouped `escalate_many`. `/healthz` and `/stats` carry a
 `cascade` section, and the request log the verdict's fields.
 
+Line attributions (`serve.lines=true`, deepdfa family): the service
+builds a `GgnnLocalizer` (serve/localize.py) over the scoring ladder,
+with `serve.lines_method`, `lines_steps` and `lines_top_k`, and warms it
+beside the executor. A request with {"lines": true} is scored as any
+other, then its function is attributed alone; on a server started
+without `serve.lines` it answers 400 before any device work. On a
+cascade server the lines are stage 1's.
+
 Left out (ROADMAP queue A item 12, the operations layer): `/metrics`
 (it answers 404), the SLO windows, `/healthz?deep=1`'s backend probe
-(the query is ignored) and trace spans. `serve.lines` is refused
-(core/config.py:refuse_unported_serving).
+(the query is ignored) and trace spans.
 """
 
 from __future__ import annotations
@@ -85,9 +95,10 @@ class ScoringService:
     """Registry + frontend + batcher wired per the serve config: the one
     object the HTTP server and the offline `score` command both drive.
 
-    Family dispatch: the GGNN gets the graph frontend and a
-    GgnnExecutor; the combined and t5 registries the tokenizer frontend
-    and a CombinedExecutor (serve/cascade.py). Under `tune.enabled` the
+    Family dispatch: the GGNN gets the graph frontend, a GgnnExecutor
+    and, with `serve.lines`, a GgnnLocalizer on the same ladder; the
+    combined and t5 registries the tokenizer frontend and a
+    CombinedExecutor (serve/cascade.py). Under `tune.enabled` the
     tuned.json record matching this card and the serve budgets gives the
     GGNN ladder's rungs and the combined buckets' edges (loudly the
     defaults when none matches); the registry's config digest never sees
@@ -115,12 +126,21 @@ class ScoringService:
                     "serve_rungs": list(tuned_rungs) if tuned_rungs else None,
                     "seq_buckets": list(tuned_buckets) if tuned_buckets else None,
                 }
+        self.localizer = None
         if registry.family == "deepdfa":
             self.frontend = RequestPreprocessor(
                 cfg, registry.vocabs, cache=shared_cache(scfg.feature_cache_entries))
             self.executor = GgnnExecutor(
                 registry.model, node_budget, edge_budget, scfg.max_batch_graphs,
                 etypes=cfg.model.n_etypes > 1, device=registry.device, ladder=tuned_rungs)
+            if scfg.lines:
+                from deepdfa_tpu_torch.serve.localize import GgnnLocalizer
+
+                self.localizer = GgnnLocalizer(
+                    registry.model, node_budget, edge_budget, self.executor.sizes,
+                    method=scfg.lines_method, n_steps=scfg.lines_steps,
+                    top_k=scfg.lines_top_k, etypes=cfg.model.n_etypes > 1,
+                    device=registry.device)
         else:
             from deepdfa_tpu_torch.serve.cascade import build_combined_service_parts
 
@@ -142,20 +162,35 @@ class ScoringService:
         self._status_lock = threading.Lock()
         self.status_counts: collections.Counter = collections.Counter()
         self.warmup_report = self.executor.warmup()
+        if self.localizer is not None:
+            self.warmup_report.update(self.localizer.warmup())
 
-    def submit_code(self, code: str, request_id: str | None = None) -> ScoreRequest:
-        """frontend + enqueue; the caller waits on the returned request.
-        A rejection (422, 413, 429) carries its frontend seconds on the
+    def submit_code(self, code: str, request_id: str | None = None, want_feats: bool = False):
+        """frontend + enqueue; the caller waits on the returned request
+        (with `want_feats`, (request, the cached extraction), which the
+        lines path attributes without a second frontend trip). A
+        rejection (422, 413, 429) carries its frontend seconds on the
         exception as `frontend_s`."""
         rid = request_id or new_request_id()
         t0 = time.perf_counter()
         try:
             feats = self.frontend.features_full(code)
-            return self.batcher.submit(feats.spec, request_id=rid,
-                                       frontend_s=time.perf_counter() - t0)
+            req = self.batcher.submit(feats.spec, request_id=rid,
+                                      frontend_s=time.perf_counter() - t0)
+            return (req, feats) if want_feats else req
         except Exception as e:
             e.frontend_s = time.perf_counter() - t0
             raise
+
+    def attribute_lines(self, feats) -> list[dict]:
+        """The ranked [{"line", "score"}] of one extracted function,
+        attributed alone (the `{"lines": true}` half of a request);
+        FrontendError when the server runs without `serve.lines`."""
+        if self.localizer is None:
+            raise FrontendError(
+                "line attributions are disabled; start the server with serve.lines=true")
+        [(_, lines)] = self.localizer.attribute([feats])
+        return lines
 
     def finish_request(self, request_id: str, status: int, latency_s: float | None,
                        req: ScoreRequest | None = None,
@@ -198,6 +233,9 @@ class ScoringService:
     def healthz(self) -> dict:
         info = self.registry.info()
         info["warmed_signatures"] = [list(s) for s in self.executor.signatures()]
+        info["lines"] = self.localizer is not None
+        if self.localizer is not None:
+            info["lines_method"] = self.localizer.method
         if self.registry.family == "deepdfa":
             mcfg = self.registry.cfg.model
             info["ggnn_kernel"] = mcfg.ggnn_kernel
@@ -223,6 +261,8 @@ class ScoringService:
         )
         with self._status_lock:
             out["status_counts"] = {str(k): v for k, v in sorted(self.status_counts.items())}
+        if self.localizer is not None:
+            out["localize"] = self.localizer.stats()
         if self.cascade is not None:
             out["cascade"] = self.cascade.counters()
         return out
@@ -364,14 +404,29 @@ class _Handler(BaseHTTPRequestHandler):
             service.finish_request(rid, 400, time.monotonic() - t0)
             self._reply(400, {"error": f"bad request: {e}", "request_id": rid})
             return
+        want_lines = bool(payload.get("lines"))
+        if want_lines and service.localizer is None:
+            # refused before any device work: lines are opted into at
+            # server start (serve.lines=true warms the attribution ladder)
+            service.finish_request(rid, 400, time.monotonic() - t0)
+            self._reply(400, {"error": "line attributions are disabled on this server "
+                                       "(start it with serve.lines=true)",
+                              "request_id": rid})
+            return
         req = None
         fields: dict = {}
         extra = None
+        lines = None
         try:
-            req = service.submit_code(code, request_id=rid)
+            if want_lines:
+                req, feats = service.submit_code(code, request_id=rid, want_feats=True)
+            else:
+                req = service.submit_code(code, request_id=rid)
             prob = req.wait(self.request_timeout_s)
             if service.cascade is not None:
                 prob, fields, extra = service.cascade_decide(code, prob, rid, req=req)
+            if want_lines:
+                lines = service.attribute_lines(feats)
         except QueueFull as e:
             status, err = 429, e
         except RequestTooLarge as e:
@@ -386,13 +441,23 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             service.finish_request(rid, 200, time.monotonic() - t0, req=req,
                                    extra_stages=extra, log_fields=fields)
-            self._reply(200, {"ok": True, "prob": prob,
-                              "latency_ms": (time.monotonic() - t0) * 1e3,
-                              "request_id": rid, **fields})
+            out = {"ok": True, "prob": prob, "latency_ms": (time.monotonic() - t0) * 1e3,
+                   "request_id": rid, **fields}
+            if lines is not None:
+                out["lines"] = lines
+            self._reply(200, out)
             return
         service.finish_request(rid, status, time.monotonic() - t0, req=req,
                                frontend_s=getattr(err, "frontend_s", None))
         self._reply(status, {"error": str(err), "request_id": rid})
+
+
+class _Server(ThreadingHTTPServer):
+    # the listen backlog: clients that open a connection a request (8 in
+    # chip_smoke.py's loads) overflow socketserver's default of 5 while
+    # the accept thread waits on the GIL (a batch, an attribution), and an
+    # overflowed connection can be reset instead of queued
+    request_queue_size = 128
 
 
 def make_server(service: ScoringService, host: str = "127.0.0.1",
@@ -400,7 +465,7 @@ def make_server(service: ScoringService, host: str = "127.0.0.1",
     """A bound (not yet serving) HTTP server; port 0 picks a free port
     (server.server_address[1] holds it)."""
     handler = type("BoundHandler", (_Handler,), {"service": service})
-    return ThreadingHTTPServer((host, port), handler)
+    return _Server((host, port), handler)
 
 
 def _interrupt(signum, frame):

@@ -1578,3 +1578,97 @@ def test_cascade_on_the_card_matches_the_cpu(card, tmp_path, monkeypatch):
     for a, b in zip(got, cpu):
         np.testing.assert_allclose(a["stage1_prob"], b["stage1_prob"], rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(a["prob"], b["prob"], rtol=RTOL, atol=ATOL)
+
+
+# -- line-level localization ------------------------------------------------------
+
+
+def _localize_case(card):
+    """(model on the card, the same weights on the CPU, a batch of 8
+    graphs on each): a flagship-width DeepDFA (hidden 32: d 128, 5
+    steps)."""
+    model = DeepDFA(52, 32, 5, generator=torch.Generator().manual_seed(0)).eval()
+    cpu = DeepDFA(52, 32, 5).eval()
+    cpu.load_state_dict(model.state_dict())
+    packed = pack(_graphs(np.random.default_rng(9), 8), 8, 1024, 4096)
+    return model.to(card), cpu, packed.to(card), packed.to("cpu")
+
+
+@pytest.mark.parametrize("method", ["attention", "saliency", "input_x_gradient", "deeplift",
+                                    "lig"])
+def test_ggnn_attribution_on_card_matches_cpu(card, method):
+    """ggnn_score_fn on the card against the CPU plain path: probabilities
+    at RTOL/ATOL, node scores within 1e-4 of each graph's largest |score|,
+    padding zero, the same bits on a repeat; kernel 1 with the aggregate,
+    B3 and B4 5 times a gradient evaluation (3 path steps here), kernel 1
+    without it 5 times a forward alone."""
+    from deepdfa_tpu_torch.eval.localize import ggnn_score_fn
+
+    model, cpu, b, cpu_b = _localize_case(card)
+    run = ggnn_score_fn(method, model, n_steps=3)
+    gk.reset_launch_counts()
+    probs, scores = run(b)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in gk.launch_counts().items() if v}
+    evals = {"attention": 0, "saliency": 1, "input_x_gradient": 1}.get(method, 3)
+    alone = method in ("attention", "deeplift", "lig")
+    want = {"LAUNCHES": 5 * (evals + alone), "AGGREGATE_LAUNCHES": 5 * evals,
+            "GRU_BWD_LAUNCHES": 5 * evals, "DMSG_LAUNCHES": 5 * evals}
+    assert counts == {k: v for k, v in want.items() if v}
+    again = run(b)
+    assert torch.equal(again[0], probs) and torch.equal(again[1], scores)
+    want_p, want_s = ggnn_score_fn(method, cpu, n_steps=3)(cpu_b)
+    torch.testing.assert_close(probs.cpu(), want_p, rtol=RTOL, atol=ATOL)
+    graph, mask = cpu_b.node_graph.numpy(), cpu_b.node_mask.numpy()
+    s, ws = scores.cpu().numpy(), want_s.numpy()
+    scale = np.zeros(9)
+    np.maximum.at(scale, graph, np.abs(ws))
+    assert np.all(np.abs(s - ws)[mask] <= 1e-4 * scale[graph][mask])
+    assert np.all(s[~mask] == 0)
+
+
+def test_input_only_backward_on_card_keeps_the_bits(card):
+    """step_bwd without the weights: B3 skips its weight pass, dh the same
+    bits as the full backward's; one B3 and one B4 launch each."""
+    rng = np.random.default_rng(5)
+    b, edges, h, params = _policy_case(rng, 512, 128, 1, 8, card, transpose=True)
+    wm, _, wih, whh, bih, bhh = params
+    a = torch.randn_like(h)
+    g = torch.randn_like(h)
+    full = gk.step_bwd(h, a, g, edges, wm, wih, whh, bih, bhh)
+    before = gk.launch_counts()
+    only = gk.step_bwd(h, a, g, edges, wm, wih, whh, bih, bhh, weights=False)
+    torch.cuda.synchronize()
+    after = gk.launch_counts()
+    assert torch.equal(full[0], only[0]) and all(x is None for x in only[1:])
+    assert after["GRU_BWD_LAUNCHES"] - before["GRU_BWD_LAUNCHES"] == 1
+    assert after["DMSG_LAUNCHES"] - before["DMSG_LAUNCHES"] == 1
+
+
+def test_served_lines_on_card_equal_the_offline_program(card):
+    """A function attributed alone by the served localizer on the card is
+    the offline ggnn_score_fn at rung 1 to the bit; co-batched, the same
+    line ranking and rtol 1e-5."""
+    from deepdfa_tpu_torch.eval.localize import ggnn_score_fn, node_line_attributions
+    from deepdfa_tpu_torch.serve.frontend import Features
+    from deepdfa_tpu_torch.serve.localize import GgnnLocalizer
+
+    model, _, _, _ = _localize_case(card)
+    rng = np.random.default_rng(11)
+    feats = [Features(s, rng.integers(1, 12, s.num_nodes).astype(np.int32))
+             for s in _graphs(rng, 4)]
+    loc = GgnnLocalizer(model, 1024, 4096, sizes=(1, 2, 4), method="lig", n_steps=3, top_k=0,
+                        device=card)
+    loc.warmup()
+    offline = ggnn_score_fn("lig", model, n_steps=3)
+    alone = []
+    for f in feats:
+        _, scores = offline(pack([f.spec], 1, 1024, 4096).to(card))
+        want = node_line_attributions(scores.cpu().numpy()[:f.spec.num_nodes], f.node_lines)
+        [(_, lines)] = loc.attribute([f])
+        assert lines == want
+        alone.append(lines)
+    for (_, lines), ref in zip(loc.attribute(feats), alone):
+        assert [d["line"] for d in lines] == [d["line"] for d in ref]
+        np.testing.assert_allclose([d["score"] for d in lines], [d["score"] for d in ref],
+                                   rtol=1e-5, atol=1e-7)

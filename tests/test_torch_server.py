@@ -9,10 +9,10 @@
 - the combined family scores C sources through the same service as
   `score_combined` scores the same model on the same payloads (fp32
   rtol 1e-5, atol 1e-6);
-- the serving options the port does not run are refused by name, and
-  cascade mode (`serve.cascade=true`) answers through the handler with
-  the stage fields, `/healthz` and `/stats` sections and the request
-  log's verdicts;
+- the serving options the port does not run are refused by name,
+  `serve.lines` is served, and cascade mode (`serve.cascade=true`)
+  answers through the handler with the stage fields, `/healthz` and
+  `/stats` sections and the request log's verdicts;
 - `cli score --device cpu`, `cli serve --smoke --device cpu` and `cli
   serve --port 0` end to end in subprocesses under a temporary storage
   root.
@@ -177,13 +177,40 @@ def test_request_log_and_hot_swap_through_the_service(run):
 
 
 @pytest.mark.parametrize("override, item", [
-    ("serve.use_joern=true", "item 3"), ("serve.lines=true", "item 5"),
-    ("serve.pipeline_depth=2", "item 6")])
+    ("serve.use_joern=true", "item 3"), ("serve.pipeline_depth=2", "item 6")])
 def test_unported_serving_options_are_refused(run, override, item):
     cfg, run_dir, _, _ = run
     bad = config_mod.apply_overrides(cfg, [override])
     with pytest.raises(NotImplementedError, match=item):
         ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), bad)
+
+
+def test_serve_lines_is_accepted_and_served(run):
+    """`serve.lines=true`, refused before line attributions were ported,
+    builds and warms a localizer on the scoring ladder: scores are the
+    plain service's, each function's lines come back ranked, and a
+    service without the option refuses to attribute."""
+    from deepdfa_tpu_torch.serve.frontend import FrontendError
+
+    cfg, run_dir, small, _ = run
+    lcfg = config_mod.apply_overrides(cfg, ["serve.lines=true", "serve.lines_top_k=2"])
+    service = ScoringService(ModelRegistry(run_dir, cfg=lcfg, device="cpu"), lcfg)
+    plain = ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), cfg)
+    try:
+        assert service.localizer.sizes == service.executor.sizes
+        assert {f"L{s}" for s in service.executor.sizes} <= set(service.warmup_report)
+        texts = list(enumerate(small[:4]))
+        assert [r["prob"] for r in score_texts(service, texts)] == \
+            [r["prob"] for r in score_texts(plain, texts)]
+        for code in small[:4]:
+            lines = service.attribute_lines(service.frontend.features_full(code))
+            assert 0 < len(lines) <= 2 and lines[0]["score"] >= lines[-1]["score"]
+        with pytest.raises(FrontendError, match="serve.lines=true"):
+            plain.attribute_lines(plain.frontend.features_full(small[0]))
+        assert service.healthz()["lines_method"] == "saliency"
+    finally:
+        service.close()
+        plain.close()
 
 
 def test_cascade_mode_answers_through_the_handler(run, tmp_path):
