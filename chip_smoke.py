@@ -139,7 +139,7 @@ prints one JSON line; any failure exits non-zero before the last line.
    scoring window and no other kernel); `cli serve --port 0` as a
    subprocess: /healthz (checkpoint tag, step, config digest) and /stats
    200, malformed JSON 400, an unknown route 404, an unparseable
-   function 422, then 1024 /score requests drawn from the test split by
+   function 422, then 512 /score requests drawn from the test split by
    8 client threads, every one 200 with `cli score`'s probability
    (rtol 1e-4), and the same requests again, every one a feature-cache
    hit; requests/s, p50/p99 and mean batch occupancy of both passes;
@@ -175,7 +175,7 @@ prints one JSON line; any failure exits non-zero before the last line.
    not escalated the GGNN's probability to the bit, escalated rows
    within 2e-2 of the combined model alone, the counters adding up, the
    same stages on the CPU for the first 64); `cli serve` for each of the
-   three under 1024
+   three under 512
    requests from 8 client threads (seed 17); the escalation rates,
    requests/s and p50/p99 offline and over HTTP, kernel 1's and kernel
    5's launches;
@@ -196,13 +196,13 @@ prints one JSON line; any failure exits non-zero before the last line.
    and one profiled saliency and lig batch (device busy time, idle share);
 7p. serve_lines — `cli serve` over the pipeline's checkpoint without
    serve.lines ({"lines": true} answered 400, healthz lines false) and
-   with it (saliency, 8 steps, top 10): 1024 requests from 8 client
+   with it (saliency, 8 steps, top 10): 512 requests from 8 client
    threads, every other one with {"lines": true}, each lines answer the
    offline attribution of that function alone at rung 1 to the bit;
    requests/s and p50/p99 with and without lines; the launches of 64
    lines requests through the same service in-process;
 7q. localize_combined — `cli localize` of the cascade's stage-2 run
-   (codebert-base width, the shipped BPE, T 512, graphs) over 32
+   (codebert-base width, the shipped BPE, T 512, graphs) over 16
    functions with labelled lines, each of the seven methods: the
    report's keys and finite metrics, one IFA line a function, kernel 5
    once a layer an evaluation, dq and dk/dv once a layer an evaluation
@@ -215,6 +215,41 @@ prints one JSON line; any failure exits non-zero before the last line.
    7 once a layer an evaluation, kernel 8 at 0, seconds; a 2-layer fp32
    model of the same width on the card against the CPU (2e-2, the T5
    gradient check's fp32 bound: a flipped ReLU gate moves a row);
+7s. native — the native C++ lexer and solver (`deepdfa_tpu_torch/
+   native/`, g++ at first use) on the pipeline's 2048 functions: `cli
+   extract --workers 4` again natively (the library built) and on the
+   Python path (the native library switched off in that process and its
+   workers) under two more storage roots, each store, vocabulary and
+   missing-id list equal to the pipeline phase's extraction (whose
+   workers built the library); seconds and functions/s each way; in this
+   process each extraction stage's seconds and share (lex, parse,
+   reaching definitions, dependences, abstract dataflow, encoding,
+   store) over 128 functions under each backend;
+7t. serve_pipelined — phase 5's model and requests (x 8) through
+   `score_all` at serve.pipeline_depth 0, 1 and 2 (the same bits at
+   every depth, the in-flight peak the depth, kernel 1 n_steps times a
+   batch) and through a started batcher with 8 submitting threads at
+   depths 0 and 2 (within rtol 1e-4 / atol 1e-5); requests/s, p50/p99
+   and the DeviceWindow idle fraction of each; serve_lines (7p) also
+   runs its lines server at depth 2 (every lines answer the offline
+   bits) and counts its in-process launches serial and pipelined;
+7u. serve_int8_entry — the quantized `tag@int8` entry (apart from 7c's
+   serve_int8, the int8 message policy): `cli score` with the fp32 entry,
+   then with `--override serve.checkpoint='"best@int8"'`, over
+   serve_source's files on the card and the CPU: the calibration
+   drift within 5e-2, the bytes fraction, card vs CPU within rtol 1e-4 /
+   atol 1e-5, each probability within 5e-2 of the fp32 entry's, kernel
+   1 n_steps times a batch; then the cascade's `cli score` with its
+   stage 2 as `best@int8` (its drift and bytes fraction, the fp32
+   cascade's stages, each escalated probability's distance to the fp32
+   stage 2's, kernels 1 and 5);
+7v. train_prefetch — the pipeline's `cli train` again at
+   train.prefetch_batches=0, and at 2 with data.pack_workers=4 and
+   data.packed_cache=true (both epochs replay the stream the step-count
+   estimate wrote): every step's loss the pipeline run's (prefetch 2,
+   the default) to the bit, the loop's graphs/s and the epochs' host
+   load, pack, place and wait seconds; a window of 24 steps at prefetch
+   0 and 2 under torch.profiler (device busy time, idle share);
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -339,12 +374,15 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the thirty main
+21. kernels — every kernel with its launches on the thirty-five main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
    four of 7g-7h, tune, tune_train, pipeline, serve_source,
    train_attn_saved, cascade_train, cascade, localize_ggnn, serve_lines,
-   localize_combined and localize_t5, each counted from 0, and by path),
+   localize_combined, localize_t5, serve_pipelined,
+   serve_lines_pipelined, serve_int8_entry, cascade_int8 and
+   train_prefetch,
+   each counted from 0, and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -624,6 +662,7 @@ def profile_phase(torch, model, specs, budgets) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from deepdfa_tpu_torch.serve import GgnnExecutor
+    from deepdfa_tpu_torch.serve.batcher import DeviceResult
 
     ex = GgnnExecutor(model, *budgets, len(specs), device="cuda")
     ex.warmup()
@@ -639,7 +678,7 @@ def profile_phase(torch, model, specs, budgets) -> None:
             probs = torch.sigmoid(ex.model(b))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        ex.fetch(probs, len(specs))
+        ex.fetch(DeviceResult((probs,)), len(specs))
         t4 = time.perf_counter()
         for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0)):
             stages[k].append(1e3 * v)
@@ -1832,7 +1871,7 @@ def pipeline_phase(torch, tmp: Path):
     times a forward batch and B3, B4 n_steps times a backward batch, and
     the test split's probabilities on the card those of the same
     checkpoint on the CPU plain path. Returns (launches, the card's test
-    probabilities by id)."""
+    probabilities by id, extract's seconds)."""
     import io
 
     import numpy as np
@@ -1979,11 +2018,11 @@ def pipeline_phase(torch, tmp: Path):
           "test_prob_max_abs_err": prob_err, "test_examples": len(ids)})
     return {"ggnn_step": train_counts["LAUNCHES"] + test_counts["LAUNCHES"],
             "ggnn_gru_bwd": train_counts["GRU_BWD_LAUNCHES"],
-            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]}, card_probs
+            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]}, card_probs, extract_s
 
 
 #: serve_source: the HTTP load and its clients, the combined run's steps
-SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 1024, 8
+SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 512, 8
 #: (16 files since the cascade phase: the CPU pass at codebert-base width
 #: takes ~1.5 s a file, and the script aims at half its time limit)
 SERVE_COMBINED_TRAIN, SERVE_COMBINED_VAL, SERVE_COMBINED_FILES = 32, 16, 16
@@ -2627,7 +2666,7 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
     combined model alone on the same files (in-process after serve_source:
     every function's features come from the shared feature cache, so
     these offline rates leave the frontend out); then `cli serve` (GGNN alone,
-    combined alone, cascade) each under 1024 requests from 8 client
+    combined alone, cascade) each under 512 requests from 8 client
     threads (test functions drawn with seed 17). Gates: every row not
     escalated is the GGNN alone's probability to the bit, every escalated
     row within serve_source's combined bound of the combined model
@@ -2636,7 +2675,8 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
     CASCADE_CPU_FUNCTIONS), the HTTP cascade's stage follows
     its own stage-1 score and the band, kernel 5 once an encoder layer a
     stage-2 batch and kernel 1 n_steps times a stage-1 batch. Returns the
-    launches of the training run and of the card's cascade scoring."""
+    launches of the training run and of the card's cascade scoring, and
+    the cascade's `cli score` arguments."""
     import io
 
     import numpy as np
@@ -2854,7 +2894,7 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
                                       "stage2_checkpoint_step")})
         report["http"] = http
     emit(report)
-    return paths
+    return paths, casc_args
 
 
 #: localize_ggnn, serve_lines, localize_combined, localize_t5: the GGNN
@@ -2873,7 +2913,7 @@ LOCALIZE_SCORE_TOL = 1e-4
 LOCALIZE_TOKEN_TOL = {"card_fp32_vs_cpu": 1e-3, "bf16_vs_fp32": 5e-2,
                       "t5_card_fp32_vs_cpu": COMBINED_TRAIN_GRAD_TOL}
 LOCALIZE_TIMED = 5
-LOCALIZE_COMBINED_LIMIT = 32
+LOCALIZE_COMBINED_LIMIT = 16
 LOCALIZE_CLI_EVALS = {"attention": 0, "saliency": 1, "input_x_gradient": 1, "lig": 20,
                       "deeplift": 20, "deeplift_shap": 8 * 5, "gradient_shap": 8}
 LOCALIZE_CHECK_STEPS = 4
@@ -3152,32 +3192,59 @@ def serve_lines_phase(torch, tmp: Path, smi: str) -> dict:
             "localize_stats": stats.get("localize"), "bits_equal_offline": True,
             "distinct_functions_attributed": len(offline)}
 
-        # the launches of lines requests, through the same service in-process
-        service = ScoringService(ModelRegistry(run_dir, cfg=lcfg, device=CARD), lcfg)
-        server = BackgroundServer(service)
-        try:
-            gk.reset_launch_counts()
-            for code in codes[:SERVE_LINES_COUNTED]:
-                if server.request("POST", "/score", {"code": code, "lines": True})[0] != 200:
-                    fail("serve_lines: an in-process lines request failed")
-            torch.cuda.synchronize()
-            counts = {k: v for k, v in gk.launch_counts().items() if v}
-            batches = service.batcher.batches_run
-        finally:
-            server.close()
-        n = SERVE_LINES_COUNTED
-        want = {"LAUNCHES": n_steps * (batches + n), "AGGREGATE_LAUNCHES": n_steps * n,
-                "GRU_BWD_LAUNCHES": n_steps * n, "DMSG_LAUNCHES": n_steps * n}
-        if counts != want:
-            fail(f"serve_lines: {n} lines requests in {batches} scoring batches launched "
-                 f"{counts}, expected {want}")
-    launched = {"ggnn_step": counts.get("LAUNCHES", 0),
-                "ggnn_gru_bwd": counts.get("GRU_BWD_LAUNCHES", 0),
-                "ggnn_dmsg": counts.get("DMSG_LAUNCHES", 0)}
+        # again with the pipelined batcher (serve.pipeline_depth=2)
+        piped_over = [*over, "--override", "serve.pipeline_depth=2"]
+        with port_server(tmp, env, ["--device", CARD, *run_arg, *piped_over],
+                         "lines_pipelined") as (port, start_s):
+            piped, wall = load(port, flags)
+            stats = http_call(port, "GET", "/stats")[1]
+        wrong = sum(body.get("lines") != (offline[c] if f else None)
+                    for (_, body, _), c, f in zip(piped, codes, flags))
+        if {st for st, _, _ in piped} != {200} or wrong or stats.get("pipeline_depth") != 2:
+            fail(f"serve_lines: at pipeline_depth 2 the load answered "
+                 f"{sorted({st for st, _, _ in piped})}, {wrong} lines answers differ from "
+                 f"the offline attribution, /stats depth {stats.get('pipeline_depth')}")
+        report["with_lines_pipelined"] = {
+            "pipeline_depth": 2, "requests_per_sec": len(codes) / wall,
+            "start_seconds": start_s,
+            "lines": quantiles([dt for (_, _, dt), f in zip(piped, flags) if f]),
+            "score_only": quantiles([dt for (_, _, dt), f in zip(piped, flags) if not f]),
+            "batches": stats["batches"], "in_flight_peak": stats["pipeline_in_flight_peak"],
+            "device_idle_fraction": stats["pipeline_device_idle_fraction"],
+            "localize_stats": stats.get("localize"), "bits_equal_offline": True}
+
+        # the launches of lines requests, through the same service in-process,
+        # serial and pipelined
+        counted = {}
+        for name, cfg_ in (("serve_lines", lcfg), ("serve_lines_pipelined",
+                           config_mod.apply_overrides(lcfg, ["serve.pipeline_depth=2"]))):
+            service = ScoringService(ModelRegistry(run_dir, cfg=cfg_, device=CARD), cfg_)
+            server = BackgroundServer(service)
+            try:
+                gk.reset_launch_counts()
+                for code in codes[:SERVE_LINES_COUNTED]:
+                    if server.request("POST", "/score", {"code": code, "lines": True})[0] != 200:
+                        fail("serve_lines: an in-process lines request failed")
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in gk.launch_counts().items() if v}
+                batches = service.batcher.batches_run
+            finally:
+                server.close()
+            n = SERVE_LINES_COUNTED
+            want = {"LAUNCHES": n_steps * (batches + n), "AGGREGATE_LAUNCHES": n_steps * n,
+                    "GRU_BWD_LAUNCHES": n_steps * n, "DMSG_LAUNCHES": n_steps * n}
+            if counts != want:
+                fail(f"{name}: {n} lines requests in {batches} scoring batches launched "
+                     f"{counts}, expected {want}")
+            counted[name] = ({"ggnn_step": counts.get("LAUNCHES", 0),
+                              "ggnn_gru_bwd": counts.get("GRU_BWD_LAUNCHES", 0),
+                              "ggnn_dmsg": counts.get("DMSG_LAUNCHES", 0)}, batches)
+    launched, batches = counted["serve_lines"]
     report.update(counted_requests=n, counted_batches=batches, launches=launched,
+                  launches_pipelined=counted["serve_lines_pipelined"][0],
                   phase_seconds=time.perf_counter() - t_phase)
     emit(report)
-    return {"serve_lines": launched}
+    return {name: launches for name, (launches, _) in counted.items()}
 
 
 def localize_combined_phase(torch, tmp: Path, smi: str) -> dict:
@@ -3418,6 +3485,450 @@ def localize_t5_phase(torch, rng, smi: str) -> dict:
                   phase_seconds=time.perf_counter() - t_phase)
     emit(report)
     return {"localize_t5": launched}
+
+#: native: the functions of the in-process stage split (each backend),
+#: after a warm-up pass of each over other functions
+NATIVE_STAGE_FUNCTIONS = 128
+NATIVE_WARM_FUNCTIONS = 32
+#: serve_pipelined: the depths of the offline drive, the started drive's,
+#: phase 5's requests repeated this many times, and the client threads
+PIPELINED_DEPTHS = (0, 1, 2)
+PIPELINED_ROUNDS = 3
+PIPELINED_ONLINE_DEPTHS = (0, 2)
+PIPELINED_REPEATS = 8
+#: serve_int8_entry: the int8 entry's calibration drift bound (serve's default)
+#: and the card-vs-CPU tolerance of its scores
+INT8_DRIFT_BOUND = 5e-2
+INT8_RTOL, INT8_ATOL = 1e-4, 1e-5
+#: train_prefetch: the input pipeline of the pipeline's `cli train`, and
+#: the steps of each profiled window
+PREFETCH_RUNS = {"prefetch_0": ["train.prefetch_batches=0"],
+                 "prefetch_2_pool_cache": ["train.prefetch_batches=2", "data.pack_workers=4",
+                                           "data.packed_cache=true"]}
+PREFETCH_PROFILED_STEPS = 24
+
+
+def python_frontend_cli(args: list[str], env: dict, timeout: int = 900) -> float:
+    """`run_port_cli` with the port's native library switched off in the
+    process and in the workers it forks (the frontend's Python path);
+    its wall seconds."""
+    probe = ("import sys; from deepdfa_tpu_torch import native; "
+             "native.available = lambda: False; "
+             "from deepdfa_tpu_torch.cli import main; main(sys.argv[1:])")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", probe, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        fail(f"native: the Python-path cli {args[0]} exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def frontend_stages(examples, native_on: bool) -> dict:
+    """Seconds of each extraction stage over `examples` in this process,
+    under the native or the Python lexer and solver: lex (conditionals
+    and tokens), parse (the rest of parse_function), reaching
+    definitions and dependences (not on the flagship cfg path, measured
+    for their share), abstract dataflow (graph_from_cpg), encoding
+    (to_graph_spec against vocabularies built from these graphs) and
+    store (one GraphStore.write)."""
+    import tempfile as tf
+
+    from deepdfa_tpu_torch import native
+    from deepdfa_tpu_torch.data import pipeline
+    from deepdfa_tpu_torch.frontend import deps, parser, preproc, reaching, tokens, vocab
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.nn.embedding import SUBKEY_ORDER
+
+    saved = native.available
+    if not native_on:
+        native.available = lambda: False
+    try:
+        t = dict.fromkeys(("lex", "parse", "reaching_definitions", "dependences",
+                           "abstract_dataflow", "encoding", "store"), 0.0)
+        graphs = []
+        for e in examples:
+            t0 = time.perf_counter()
+            tokens.tokenize(preproc.evaluate_conditionals(e.code))
+            t1 = time.perf_counter()
+            try:
+                cpg = parser.parse_function(e.code)
+            except ValueError:
+                t["parse"] += time.perf_counter() - t1
+                t["lex"] += t1 - t0
+                continue
+            t2 = time.perf_counter()
+            reaching.ReachingDefinitions(cpg).solve()
+            t3 = time.perf_counter()
+            deps.data_dependences(cpg)
+            deps.control_dependences(cpg)
+            t4 = time.perf_counter()
+            g = pipeline.graph_from_cpg(cpg, e.id, set(e.vuln_lines) or None, label=e.label)
+            t5 = time.perf_counter()
+            # parse_function lexes again inside: its lex share moves to lex
+            t["lex"] += t1 - t0
+            t["parse"] += max(0.0, (t2 - t1) - (t1 - t0))
+            t["reaching_definitions"] += t3 - t2
+            t["dependences"] += t4 - t3
+            t["abstract_dataflow"] += t5 - t4
+            if g is not None:
+                graphs.append(g)
+        vocabs = vocab.build_vocabs([f for g in graphs for f in g.def_fields.values()],
+                                    SUBKEY_ORDER)
+        t0 = time.perf_counter()
+        specs = [pipeline.to_graph_spec(g, vocabs) for g in graphs]
+        t["encoding"] = time.perf_counter() - t0
+        with tf.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            GraphStore(Path(d)).write(specs)
+            t["store"] = time.perf_counter() - t0
+    finally:
+        native.available = saved
+    total = sum(t.values())
+    cfg_path = ("lex", "parse", "abstract_dataflow", "encoding", "store")
+    return {"seconds": t, "share": {k: v / total for k, v in t.items()},
+            "total_seconds": total, "functions": len(examples), "graphs": len(graphs),
+            "functions_per_sec": len(examples) / total,
+            # the flagship gtype "cfg" runs no reaching definitions or dependences
+            "cfg_path_ms_a_function": 1e3 * sum(t[k] for k in cfg_path) / len(examples)}
+
+
+def native_phase(torch, tmp: Path, native_extract_s: float, smi: str) -> None:
+    """The native C++ lexer and solver on the pipeline phase's functions:
+    `cli extract --workers 4` again into two more storage roots holding
+    the same prepare outputs, first native (the library built: the
+    pipeline phase's extraction, timed there too, had its 4 workers build
+    it with g++), then on the Python path (the port's native library
+    switched off), each store, vocabulary and missing-id list equal to the
+    pipeline's; then, in this process on the host, each extraction
+    stage's seconds and share over NATIVE_STAGE_FUNCTIONS functions under
+    each backend, both warmed first on NATIVE_WARM_FUNCTIONS others."""
+    import shutil
+
+    from deepdfa_tpu_torch import cli, native
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.data import load_examples
+    from deepdfa_tpu_torch.graphs import GraphStore
+
+    if not native.available():
+        fail("native: the native library did not build (g++ missing)")
+    cfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    src = tmp / "processed" / cfg.data.dataset
+    store = cli.graphs_dirname(cfg)
+    vocab_name = f"vocab{cfg.data.feat.name}.json"
+    seconds, equal = {"native_with_build": native_extract_s}, {}
+    for backend, run in (("native", run_port_cli), ("python", python_frontend_cli)):
+        root = tmp / f"{backend}_frontend"
+        dst = root / "processed" / cfg.data.dataset
+        dst.mkdir(parents=True)
+        for p in src.iterdir():
+            if p.is_file() and not p.name.startswith("vocab"):
+                shutil.copy(p, dst / p.name)
+        with storage_root(root) as env:
+            seconds[backend] = run(["extract", "--workers", str(PIPELINE_WORKERS),
+                                    "--config", str(tmp / "pipeline.json")], env)
+        missing = [(d / store / "missing_ids.txt").read_text() for d in (src, dst)]
+        equal[backend] = {
+            "store_digest": GraphStore(src / store).digest() == GraphStore(dst / store).digest(),
+            "vocabularies": (src / vocab_name).read_text() == (dst / vocab_name).read_text(),
+            "missing_ids": missing[0] == missing[1]}
+    if not all(v for e in equal.values() for v in e.values()):
+        fail(f"native: an extraction differs from the pipeline's: {equal}")
+    n = len(load_examples(src / "examples.pkl"))
+    examples = sorted(load_examples(src / "examples.pkl"), key=lambda e: e.id)
+    subset = examples[:NATIVE_STAGE_FUNCTIONS]
+    for native_on in (True, False):  # warm both paths (imports, caches) before timing
+        frontend_stages(examples[-NATIVE_WARM_FUNCTIONS:], native_on)
+    stages = {"native": frontend_stages(subset, True), "python": frontend_stages(subset, False)}
+    emit({"phase": "native", "ok": True, "nvidia_smi": smi, "functions": n,
+          "workers": PIPELINE_WORKERS, "outputs_equal": equal, "extract_seconds": seconds,
+          "extract_functions_per_sec": {k: n / v for k, v in seconds.items()},
+          "stage_split": stages,
+          "stage_speedup": {k: stages["python"]["seconds"][k] / v
+                            for k, v in stages["native"]["seconds"].items() if v > 0}})
+
+
+def serve_pipelined_phase(torch, model, specs, budgets, max_graphs, smi: str) -> dict:
+    """Phase 5's model and requests (repeated PIPELINED_REPEATS times)
+    through `score_all` at depths 0, 1 and 2, PIPELINED_ROUNDS rounds in
+    rotated order (the same bits at every depth, the in-flight peak the
+    depth, kernel 1 n_steps times a batch; each depth's median run and
+    every run's rate),
+    and through a started batcher with SERVE_CLIENTS submitting threads
+    at depths 0 and 2 (within rtol 1e-4 / atol 1e-5 of the offline
+    scores: the batches form by arrival); requests/s, p50/p99 and the
+    DeviceWindow idle fraction of each. Returns the launches of the
+    depth-2 offline drive."""
+    import threading
+
+    import numpy as np
+
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve import DynamicBatcher, GgnnExecutor
+
+    n_steps = load(FLAGSHIP_CONFIG).model.n_steps
+    ex = GgnnExecutor(model, *budgets, max_graphs, device=CARD)
+    ex.warmup()
+    load = list(specs) * PIPELINED_REPEATS
+    report: dict = {"phase": "serve_pipelined", "nvidia_smi": smi, "requests": len(load),
+                    "offline": {}, "online": {}}
+
+    def summary(batcher, reqs, wall) -> dict:
+        lat = sorted(r.latency_s for r in reqs)
+        st = batcher.stats()
+        return {"requests_per_sec": len(reqs) / wall, "seconds": wall,
+                "p50_ms": 1e3 * lat[len(lat) // 2],
+                "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+                "batches": st["batches"], "in_flight_peak": st["pipeline_in_flight_peak"],
+                "device_idle_fraction": st["pipeline_device_idle_fraction"],
+                "device_busy_s": st["pipeline_device_busy_s"],
+                "overlap_seconds": st["pipeline_overlap_seconds"],
+                "fetch_seconds": st["pipeline_fetch_seconds"]}
+
+    results, launches, runs = {}, {}, {d: [] for d in PIPELINED_DEPTHS}
+    # rounds with the depths in rotated order: host times drift within a call
+    for r in range(PIPELINED_ROUNDS):
+        for depth in PIPELINED_DEPTHS[r % 3:] + PIPELINED_DEPTHS[:r % 3]:
+            # no flush timer: a group runs when full, the tail at the drain, so
+            # every run forms the same batches whatever the host's pace
+            batcher = DynamicBatcher(ex, queue_limit=len(load), max_batch_delay_s=3600.0,
+                                     pipeline_depth=depth)
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = batcher.score_all(load)
+            wall = time.perf_counter() - t0
+            launches[depth] = gk.LAUNCHES
+            batcher.close()
+            if results.setdefault(depth, [q.result for q in reqs]) != [q.result for q in reqs]:
+                fail(f"serve_pipelined: depth {depth}'s scores changed between rounds")
+            runs[depth].append(summary(batcher, reqs, wall))
+            if launches[depth] != n_steps * batcher.batches_run:
+                fail(f"serve_pipelined: depth {depth} launched kernel 1 {launches[depth]} "
+                     f"times over {batcher.batches_run} batches")
+            if depth and batcher.stats()["pipeline_in_flight_peak"] != depth:
+                fail(f"serve_pipelined: depth {depth} peaked at "
+                     f"{batcher.stats()['pipeline_in_flight_peak']} batches in flight")
+    for depth, rs in runs.items():
+        report["offline"][f"depth_{depth}"] = {
+            **min(rs, key=lambda x: abs(x["requests_per_sec"] - statistics.median(
+                y["requests_per_sec"] for y in rs))),
+            "requests_per_sec_runs": [x["requests_per_sec"] for x in rs]}
+    if any(results[d] != results[0] for d in PIPELINED_DEPTHS):
+        fail("serve_pipelined: a depth's scores differ from depth 0's bits")
+    want = np.array(results[0])
+    for depth in PIPELINED_ONLINE_DEPTHS:
+        batcher = DynamicBatcher(ex, queue_limit=len(load), pipeline_depth=depth)
+        batcher.start()
+        out: list = [None] * len(load)
+
+        def client(k):
+            for i in range(k, len(load), SERVE_CLIENTS):
+                out[i] = batcher.submit(load[i])
+                out[i].wait(600)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        batcher.close()
+        got = np.array([r.result for r in out])
+        err = float(np.max(np.abs(got - want)))
+        if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
+            fail(f"serve_pipelined: the started batcher at depth {depth} differs from the "
+                 f"offline scores by {err}")
+        report["online"][f"depth_{depth}"] = {**summary(batcher, out, wall),
+                                              "max_abs_err_vs_offline": err,
+                                              "bits_equal_offline": bool(np.array_equal(got,
+                                                                                        want))}
+    report.update(bits_equal_across_depths=True, launches=launches,
+                  kernel1_per_batch=n_steps)
+    emit(report)
+    return {"serve_pipelined": {"ggnn_step": launches[2]}}
+
+
+def serve_int8_entry_phase(torch, tmp: Path, casc_args: list[str], smi: str) -> dict:
+    """The quantized `tag@int8` entry (named apart from phase 7c's
+    serve_int8, kernel 1's int8 message policy): `cli score` over
+    serve_source's files (the pipeline's run) with the fp32 entry, then
+    `--override serve.checkpoint="best@int8"` on the card and on the CPU:
+    the calibration drift within serve.quant_drift_bound, the bytes
+    fraction, card against CPU within rtol 1e-4 / atol 1e-5, each
+    probability within the drift bound of the fp32 entry's (serve_source's
+    card rows), kernel 1 n_steps times a batch; then the cascade phase's
+    `cli score` with its stage 2 as `best@int8`: its stage-2 drift and
+    bytes fraction, the same stages as the fp32 cascade, each escalated
+    probability's distance to the fp32 stage 2's. Returns both launches."""
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    n_steps = pcfg.model.n_steps
+    run_arg = ["--override", 'run_name="pipeline"']
+    int8 = ["--override", 'serve.checkpoint="best@int8"']
+    src = tmp / "serve_src"
+    report: dict = {"phase": "serve_int8_entry", "nvidia_smi": smi}
+    paths: dict = {}
+    with storage_root(tmp):
+        # the fp32 entry in the same call, features from the same cache
+        fp32_run = cli_summary(cli, ["score", str(src), "--out", str(tmp / "fp32_again.jsonl"),
+                                     "--device", CARD, *run_arg])
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = cli_summary(cli, ["score", str(src), "--out", str(tmp / "int8_card.jsonl"),
+                                 "--device", CARD, *run_arg, *int8])
+        card_s = time.perf_counter() - t0
+        paths["serve_int8_entry"] = {"ggnn_step": gk.LAUNCHES}
+        cpu = cli_summary(cli, ["score", str(src), "--out", str(tmp / "int8_cpu.jsonl"),
+                                "--device", "cpu", *run_arg, *int8])
+        rows, cpu_rows = score_rows(tmp / "int8_card.jsonl"), score_rows(tmp / "int8_cpu.jsonl")
+        fp32 = score_rows(tmp / "scores_card.jsonl")
+        names = sorted(n for n, r in fp32.items() if r["ok"])
+        if sorted(n for n, r in rows.items() if r["ok"]) != names:
+            fail("serve_int8_entry: the int8 entry scored other files than the fp32 one")
+        got = np.array([rows[n]["prob"] for n in names])
+        plain = np.array([cpu_rows[n]["prob"] for n in names])
+        ref = np.array([fp32[n]["prob"] for n in names])
+        q = card["quant"]
+        err_cpu = float(np.max(np.abs(got - plain)))
+        err_fp32 = float(np.max(np.abs(got - ref)))
+        if not (0 <= q["quant_drift"] <= INT8_DRIFT_BOUND == q["quant_drift_bound"]):
+            fail(f"serve_int8_entry: calibration drift {q}")
+        if not np.allclose(got, plain, rtol=INT8_RTOL, atol=INT8_ATOL):
+            fail(f"serve_int8_entry: card vs CPU int8 scores differ by {err_cpu}")
+        if err_fp32 > INT8_DRIFT_BOUND:
+            fail(f"serve_int8_entry: an int8 score is {err_fp32} from the fp32 entry's")
+        if card["ggnn_step_launches"] != n_steps * card["serve_batches"]:
+            fail(f"serve_int8_entry: kernel 1 launched {card['ggnn_step_launches']} times over "
+                 f"{card['serve_batches']} batches")
+        report.update(functions=len(names), quant=q, cpu_quant=cpu["quant"],
+                      card_vs_cpu_max_abs_err=err_cpu, vs_fp32_max_abs_err=err_fp32,
+                      vs_fp32_mean_abs_err=float(np.mean(np.abs(got - ref))),
+                      requests_per_sec=card["serve_requests_per_sec"], seconds=card_s,
+                      p50_ms=card["serve_latency_p50_ms"], p99_ms=card["serve_latency_p99_ms"],
+                      batches=card["serve_batches"], fp32_entry={
+                          k: fp32_run[f"serve_{k}"] for k in (
+                              "requests_per_sec", "latency_p50_ms", "latency_p99_ms",
+                              "batches")})
+
+        # the cascade's stage 2 as best@int8
+        fp32_casc = score_rows(tmp / "cascade_card.jsonl")
+        gk.reset_launch_counts()
+        reset_flash(fa)
+        casc = cli_summary(cli, ["score", str(tmp / "cascade_src"), "--out",
+                                 str(tmp / "cascade_int8.jsonl"), "--device", CARD, *casc_args,
+                                 "--override", 'serve.cascade_checkpoint="best@int8"'])
+        paths["cascade_int8"] = {"ggnn_step": gk.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+        crows = score_rows(tmp / "cascade_int8.jsonl")
+        c = casc["cascade"]
+        if set(crows) != set(fp32_casc) or not all(r["ok"] for r in crows.values()) or any(
+                crows[n]["stage"] != fp32_casc[n]["stage"] for n in crows):
+            fail("serve_int8_entry: the int8 stage-2 cascade decided other rows or stages")
+        up = [n for n in crows if crows[n]["stage"] == 2]
+        errs = [abs(crows[n]["prob"] - fp32_casc[n]["prob"]) for n in up]
+        s2q = c["stage2_quant"]
+        if not 0 <= s2q["quant_drift"] <= s2q["quant_drift_bound"] or not all(
+                math.isfinite(crows[n]["prob"]) for n in up) or not up:
+            fail(f"serve_int8_entry: stage 2 {s2q}, {len(up)} escalated rows")
+        report["cascade_stage2"] = {
+            "quant": s2q, "escalated": len(up), "stage2_batches": c["stage2_batches"],
+            "vs_fp32_stage2_max_abs_err": max(errs), "vs_fp32_stage2_mean_abs_err":
+                float(np.mean(errs)), "requests_per_sec": casc["serve_requests_per_sec"],
+            "launches": paths["cascade_int8"]}
+    emit(report)
+    return paths
+
+
+def train_prefetch_phase(torch, tmp: Path, smi: str) -> dict:
+    """The pipeline's `cli train` (its config and store: 2 epochs over
+    every train graph) again under the input pipeline's knobs of
+    PREFETCH_RUNS: inline (train.prefetch_batches=0), and prefetched with
+    a pool of 4 spawned packers and the packed-batch cache (the
+    step-count estimate packs and writes the stream, both epochs replay
+    it); every step's loss the pipeline phase's run's (prefetch 2, the
+    default) to the bit, launches counted from 0 around the last run;
+    the loop's graphs/s and the epoch records' host seconds; then a
+    window of PREFETCH_PROFILED_STEPS steps under torch.profiler at
+    prefetch 0, 2, 2, 0 (device busy time, idle share). Returns the
+    launches."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.train import GraphTrainer
+
+    def log_of(run: str):
+        log = [json.loads(x) for x in
+               (tmp / "runs" / run / "train_log.jsonl").read_text().splitlines()]
+        return [r["loss"] for r in log if "step" in r], [r for r in log if "epoch" in r]
+
+    want, _ = log_of("pipeline")
+    report: dict = {"phase": "train_prefetch", "nvidia_smi": smi, "runs": {}}
+    with storage_root(tmp):
+        pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+        splits = cli.load_graph_splits(pcfg)
+        graphs = sum(int(b.graph_mask.sum()) for b in cli.epoch_batches(pcfg, splits["train"], 0))
+        for name, over in PREFETCH_RUNS.items():
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["train", "--config", str(tmp / "pipeline.json"), "--device", CARD,
+                          f"run_name=\"{name}\"", *over])
+            seconds = time.perf_counter() - t0
+            counts = gk.launch_counts()
+            losses, epochs = log_of(name)
+            if losses != want:
+                fail(f"train_prefetch: {name}'s losses differ from the pipeline run's "
+                     f"({len(losses)} vs {len(want)} steps)")
+            report["runs"][name] = {
+                "overrides": over, "seconds": seconds, "steps": len(losses),
+                "loop_graphs_per_sec": [graphs / r["epoch_seconds"] for r in epochs],
+                **{k: [r[k] for r in epochs] for k in (
+                    "epoch_seconds", "host_load_seconds", "host_pack_seconds",
+                    "host_place_seconds", "input_wait_seconds", "input_wait_fraction")}}
+        cached = report["runs"]["prefetch_2_pool_cache"]
+        if not all(s > 0 for s in cached["host_load_seconds"]) or any(cached["host_pack_seconds"]):
+            fail(f"train_prefetch: the cached run's epochs did not replay the cache: {cached}")
+        n_steps = pcfg.model.n_steps
+        steps = len(want)
+        if counts["GRU_BWD_LAUNCHES"] != n_steps * steps or \
+                counts["DMSG_LAUNCHES"] != n_steps * steps:
+            fail(f"train_prefetch: launched {counts} over {steps} steps")
+        paths = {"train_prefetch": {"ggnn_step": counts["LAUNCHES"],
+                                    "ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"],
+                                    "ggnn_dmsg": counts["DMSG_LAUNCHES"]}}
+        batches = cli.epoch_batches(pcfg, splits["train"], 0)[:PREFETCH_PROFILED_STEPS]
+        report["profiled"] = {}
+        for order, depth in enumerate((0, 2, 2, 0)):
+            cfg = config_mod.apply_overrides(pcfg, [f"train.prefetch_batches={depth}"])
+            trainer = GraphTrainer(cli._model(cfg), cfg, total_steps=2 * len(batches),
+                                   device=CARD)
+            state = trainer.init_state()
+            trainer.fit(state, lambda epoch: iter(batches[:4]), max_epochs=1)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.fit(state, lambda epoch: iter(batches), max_epochs=1)
+                torch.cuda.synchronize()
+                window_ms = 1e3 * (time.perf_counter() - t0)
+            report["profiled"][f"prefetch_{depth}_{'ab'[order // 2]}"] = {
+                "steps": len(batches), "ms_a_step": window_ms / len(batches),
+                **device_profile(prof, window_ms)}
+    report.update(train_graphs_an_epoch=graphs, losses_equal_pipeline_run=True,
+                  launches=paths["train_prefetch"])
+    emit(report)
+    return paths
+
 
 def cli_ladder(cfg) -> tuple[int, ...]:
     """The serve ladder `cli score` warms for `cfg` (no tuned rungs)."""
@@ -4051,6 +4562,7 @@ def profile_combined_phase(torch, model, tok, cfg, enc, phase: str = "profile_co
 
     from deepdfa_tpu_torch.core.config import serve_budgets
     from deepdfa_tpu_torch.serve import CombinedExecutor
+    from deepdfa_tpu_torch.serve.batcher import DeviceResult
 
     ex = CombinedExecutor(model, tok, [512], cfg.data.token_budget, *serve_budgets(cfg),
                           device="cuda")
@@ -4070,7 +4582,7 @@ def profile_combined_phase(torch, model, tok, cfg, enc, phase: str = "profile_co
             probs = torch.softmax(ex.model(b.input_ids, b.graphs, b.has_graph), dim=-1)[:, 1]
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        ex.fetch(probs, rows)
+        ex.fetch(DeviceResult((probs,)), rows)
         t4 = time.perf_counter()
         for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t4 - t0)):
             stages[k].append(1e3 * v)
@@ -5298,15 +5810,19 @@ def main() -> None:
     train_mxu = train_mxu_phase(torch, mrng)
     tune_paths = tune_phase(torch, mrng)
     with tempfile.TemporaryDirectory() as pipeline_root:
-        pipeline_launches, test_probs = pipeline_phase(torch, Path(pipeline_root))
+        pipeline_launches, test_probs, extract_s = pipeline_phase(torch, Path(pipeline_root))
+        native_phase(torch, Path(pipeline_root), extract_s, smi)
         serve_source_launches = serve_source_phase(torch, Path(pipeline_root), test_probs, smi)
         bpe_phase(Path(pipeline_root))
         attn_saved_launches = train_attn_saved_phase(torch, Path(pipeline_root))
-        cascade_paths = cascade_phase(torch, Path(pipeline_root), smi)
+        cascade_paths, casc_args = cascade_phase(torch, Path(pipeline_root), smi)
         localize_paths = localize_ggnn_phase(torch, model, serve_specs[:max_graphs], budgets,
                                              smi)
         localize_paths |= serve_lines_phase(torch, Path(pipeline_root), smi)
         localize_paths |= localize_combined_phase(torch, Path(pipeline_root), smi)
+        host_paths = serve_pipelined_phase(torch, model, serve_specs, budgets, max_graphs, smi)
+        host_paths |= serve_int8_entry_phase(torch, Path(pipeline_root), casc_args, smi)
+        host_paths |= train_prefetch_phase(torch, Path(pipeline_root), smi)
     # on a seed of its own, so the phases after it see the data they always saw
     localize_paths |= localize_t5_phase(torch, np.random.default_rng(19), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
@@ -5340,7 +5856,8 @@ def main() -> None:
              "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
-             "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths}
+             "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths,
+             **host_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

@@ -123,8 +123,11 @@ uncertainty band to a combined or t5 run (serve/cascade.py); the fit
 comes from `cascade-calibrate` over `score` rows joined with labels.
 `serve.lines=true` (with `serve.lines_method`, `lines_steps`,
 `lines_top_k`) also answers {"code": ..., "lines": true} with the GGNN's
-ranked line attributions. Refused: `serve.use_joern`, a `tag@int8`
-checkpoint and `serve.pipeline_depth > 0`.
+ranked line attributions. `serve.pipeline_depth=N` keeps up to N
+batches dispatched and not yet fetched (the same bits as 0), and a
+`serve.checkpoint` tag with the suffix `@int8` serves the quantized
+entry within `serve.quant_drift_bound` (serve/quant.py). Refused:
+`serve.use_joern`.
 
 `localize` restores a `train-combined` run (`--arch`, `--encoder`,
 `--tokenizer`, `--no-graph` and `--max-length` as it was trained) from
@@ -151,6 +154,7 @@ from deepdfa_tpu_torch.core.config import Config
 from deepdfa_tpu_torch.core.paths import (
     CHECKPOINTS_DIR,
     COMBINED_CHECKPOINTS_DIR,
+    cache_dir,
     graphs_dirname,
     processed_dir,
     runs_dir,
@@ -183,33 +187,93 @@ def load_graph_splits(cfg: Config) -> dict[str, list]:
     return out
 
 
+class BatchStream:
+    """A single-use lazy batch stream whose `source_stage` tells the
+    prefetch pipeline where to book its pull time: "pack" for live
+    packing, "load" for a warm cache replay."""
+
+    def __init__(self, it, source_stage: str):
+        self._it = iter(it)
+        self.source_stage = source_stage
+
+    def __iter__(self):
+        return self._it
+
+
 def epoch_batches(cfg: Config, specs, shuffle_epoch: int | None = None,
-                  phase: str = "train", lazy: bool = False):
+                  phase: str = "train", lazy: bool = False, source_digest: str | None = None,
+                  packer=None):
     """Budget-aware batches for one pass over `specs`: over-budget graphs
     are dropped in training and get their own pow2-budget batches in
     evaluation; with data.undersample, a training epoch draws its 1:1
-    selection from (epoch, data.seed)."""
+    selection from (epoch, data.seed).
+
+    The host pipeline's knobs (the reference's `_epoch_batches`):
+    `data.pack_workers > 1` packs on a spawn process pool (pass a
+    long-lived `packer`, an MpPacker bound to `specs`, to keep one pool
+    for every epoch); `data.packed_cache` with a `source_digest` of the
+    corpus writes the packed stream through and replays it when the
+    content key matches (the selection is a function of epoch and seed,
+    which the key covers). `lazy` gives a `BatchStream`."""
     from deepdfa_tpu_torch.graphs import shard_bucket_batches
     from deepdfa_tpu_torch.train import undersample_epoch
 
+    if packer is not None and packer.graphs is not specs:
+        raise ValueError("packer must be bound to the same corpus as `specs`: its plans "
+                         "index into the corpus it was built with")
     bcfg = cfg.data.batch
+    batcher = dict(num_shards=1, num_graphs=bcfg.graphs_per_batch,
+                   node_budget=bcfg.node_budget, edge_budget=bcfg.edge_budget,
+                   oversized="drop" if phase == "train" else "singleton")
+    # per-epoch undersampling is the only reason the stream varies across
+    # epochs; without it one cache entry serves every epoch and re-run
+    undersampling = bool(shuffle_epoch is not None and cfg.data.undersample)
 
     def build():
-        if shuffle_epoch is not None and cfg.data.undersample:
+        idx = None
+        if undersampling:
             labels = np.array([s.label for s in specs])
-            sel = [specs[i] for i in undersample_epoch(labels, shuffle_epoch, seed=cfg.data.seed)]
+            idx = undersample_epoch(labels, shuffle_epoch, seed=cfg.data.seed)
+            sel = [specs[i] for i in idx]
         else:
             sel = list(specs)
         stats: dict = {}
-        yield from shard_bucket_batches(
-            sel, bcfg.graphs_per_batch, bcfg.node_budget, bcfg.edge_budget,
-            oversized="drop" if phase == "train" else "singleton", stats=stats,
-        )
+        args = {k: v for k, v in batcher.items() if k != "num_shards"}
+        if packer is not None:
+            it = packer.shard_bucket_batches(stats=stats, select=idx, **args)
+        elif cfg.data.pack_workers > 1:
+            from deepdfa_tpu_torch.data.mp_pack import mp_shard_bucket_batches
+
+            it = mp_shard_bucket_batches(sel, stats=stats, workers=cfg.data.pack_workers,
+                                         **args)
+        else:
+            it = shard_bucket_batches(sel, stats=stats, **args)
+        yield from it
         if stats.get("dropped"):
             print(f"[batch] dropped {stats['dropped']}/{len(sel)} over-budget graphs "
                   "(training only; eval scores every example)")
 
-    return build() if lazy else list(build())
+    if cfg.data.packed_cache and source_digest is not None:
+        from deepdfa_tpu_torch.data.packed_cache import PackedBatchCache, cache_key
+
+        rcfg = cfg.train.resilience
+        cache = PackedBatchCache(cache_dir(cfg.data.dataset) / "packed",
+                                 max_entries=cfg.data.packed_cache_max_entries,
+                                 io_retries=rcfg.io_retries, io_backoff_s=rcfg.io_backoff_s)
+        key = cache_key(dict(
+            batcher,
+            add_self_loops=packer.add_self_loops if packer is not None else True,
+            phase=phase,
+            # epoch shapes the stream only when undersampling resamples
+            epoch=shuffle_epoch if undersampling else None,
+            undersample=undersampling,
+            data_seed=cfg.data.seed,
+        ), source_digest)
+        stage = "load" if cache.has(key) else "pack"
+        stream = cache.get_or_pack(key, build)
+    else:
+        stage, stream = "pack", build()
+    return BatchStream(stream, stage) if lazy else list(stream)
 
 
 def _load_config(args) -> Config:
@@ -463,24 +527,56 @@ def cmd_train(args) -> None:
     pw = None
     if cfg.train.pos_weight is None and not cfg.data.undersample:
         pw = positive_weight(np.array([s.label for s in split_specs["train"]]))
-    batches0 = epoch_batches(cfg, split_specs["train"], shuffle_epoch=0)
-    trainer = GraphTrainer(
-        _model(cfg), cfg, pos_weight=pw,
-        total_steps=len(batches0) * max(1, cfg.train.max_epochs), device=args.device,
-    )
-    state = trainer.init_state()
-    ckpts = trainer.make_checkpoints(run_dir / CHECKPOINTS_DIR)
-    run_log = RunLog(run_dir)
+    # content digests key the packed-batch cache (once a run: any
+    # re-extraction changes them)
+    train_digest = val_digest = None
+    if cfg.data.packed_cache:
+        from deepdfa_tpu_torch.data.packed_cache import corpus_digest
+
+        train_digest = corpus_digest(split_specs["train"])
+        val_digest = corpus_digest(split_specs["val"])
+    # one spawn pool a split for the whole run, started lazily: a run
+    # whose epochs all replay the cache never spawns a worker
+    packer = val_packer = None
+    if cfg.data.pack_workers > 1:
+        from deepdfa_tpu_torch.data.mp_pack import MpPacker
+
+        packer = MpPacker(split_specs["train"], workers=cfg.data.pack_workers)
+        val_packer = MpPacker(split_specs["val"], workers=cfg.data.pack_workers)
+    run_log = None
     try:
+        batches0 = epoch_batches(cfg, split_specs["train"], shuffle_epoch=0,
+                                 source_digest=train_digest, packer=packer)
+        trainer = GraphTrainer(
+            _model(cfg), cfg, pos_weight=pw,
+            total_steps=len(batches0) * max(1, cfg.train.max_epochs), device=args.device,
+        )
+        state = trainer.init_state()
+        ckpts = trainer.make_checkpoints(run_dir / CHECKPOINTS_DIR)
+
+        def val_batches():
+            out = epoch_batches(cfg, split_specs["val"], phase="eval",
+                                source_digest=val_digest, packer=val_packer)
+            if cfg.data.packed_cache and val_packer is not None:
+                # the eval entry is cached now: release the idle pool
+                val_packer.close()
+            return out
+
+        run_log = RunLog(run_dir)
         trainer.fit(
             state,
-            lambda epoch: epoch_batches(cfg, split_specs["train"], epoch, lazy=True),
-            val_batches=lambda: epoch_batches(cfg, split_specs["val"], phase="eval"),
+            lambda epoch: epoch_batches(cfg, split_specs["train"], epoch, lazy=True,
+                                        source_digest=train_digest, packer=packer),
+            val_batches=val_batches,
             checkpoints=ckpts,
             log_fn=run_log.log,
         )
     finally:
-        run_log.close()
+        if run_log is not None:
+            run_log.close()
+        for p in (packer, val_packer):
+            if p is not None:
+                p.close()
     print("best:", ckpts.best_metrics())
 
 
@@ -616,7 +712,8 @@ def cmd_train_combined(args) -> None:
                      args.max_length)
     examples = load_examples(out_dir / "examples.pkl")
     splits = json.loads((out_dir / "splits.json").read_text())
-    graphs_by_id = {} if args.no_graph else GraphStore(out_dir / graphs_dirname(cfg)).load_all()
+    store = None if args.no_graph else GraphStore(out_dir / graphs_dirname(cfg))
+    graphs_by_id = {} if store is None else store.load_all()
 
     by_id = {e.id: e for e in examples}
     used = {int(k) for k, v in splits.items() if v in ("train", "val") and int(k) in by_id}
@@ -663,13 +760,61 @@ def cmd_train_combined(args) -> None:
     trainer = CombinedTrainer(cfg, mcfg, total_steps=total_steps,
                               freeze_graph=args.freeze_graph, device=args.device)
 
-    def batches(ids):
-        ids = list(ids)
-        if buckets:
+    # bucketed streams take the graph path's host levers: a spawn-pool
+    # collater (data.pack_workers) and the packed-batch cache
+    # (data.packed_cache), the bucket layout in its key
+    text_packer = text_cache = source_digest = None
+    if buckets and cfg.data.pack_workers > 1:
+        from deepdfa_tpu_torch.data.mp_pack import TextMpPacker
+
+        text_packer = TextMpPacker(token_ids, labels, graphs_by_id, pad_id=tok.pad_id,
+                                   workers=cfg.data.pack_workers)
+    if buckets and cfg.data.packed_cache:
+        from deepdfa_tpu_torch.data.packed_cache import PackedBatchCache, text_corpus_digest
+
+        rcfg = cfg.train.resilience
+        text_cache = PackedBatchCache(cache_dir(cfg.data.dataset) / "packed-text",
+                                      max_entries=cfg.data.packed_cache_max_entries,
+                                      io_retries=rcfg.io_retries, io_backoff_s=rcfg.io_backoff_s)
+        source_digest = (text_corpus_digest(token_ids, labels) + ":"
+                         + (store.digest() if store is not None else ""))
+
+    def bucketed(ids, phase, epoch):
+        def build():
+            sel_lengths = [lengths_by_id[i] for i in ids]
+            if text_packer is not None:
+                return text_packer.bucketed_batches(ids, buckets, cfg.data.token_budget, 1,
+                                                    bcfg.node_budget, bcfg.edge_budget,
+                                                    lengths=sel_lengths)
             return bucketed_collate_batches(
                 token_ids, labels, ids, graphs_by_id, buckets, cfg.data.token_budget, 1,
-                bcfg.node_budget, bcfg.edge_budget, pad_id=tok.pad_id,
-                lengths=[lengths_by_id[i] for i in ids])
+                bcfg.node_budget, bcfg.edge_budget, pad_id=tok.pad_id, lengths=sel_lengths)
+
+        if text_cache is None:
+            return BatchStream(build(), "pack")
+        import hashlib
+
+        from deepdfa_tpu_torch.data.packed_cache import cache_key
+
+        undersampling = bool(phase == "train" and cfg.data.undersample)
+        key = cache_key(dict(
+            kind="text", seq_buckets=list(buckets), token_budget=cfg.data.token_budget,
+            num_shards=1, node_budget=bcfg.node_budget, edge_budget=bcfg.edge_budget,
+            pad_id=tok.pad_id, max_length=args.max_length, phase=phase,
+            # the ordered selection itself: the source digest covers the
+            # train+val union, so a repartition or a reorder must miss
+            ids_digest=hashlib.sha256(np.asarray(ids, np.int64).tobytes()).hexdigest(),
+            epoch=epoch if undersampling else None,
+            undersample=undersampling,
+            data_seed=cfg.data.seed,
+        ), source_digest)
+        stage = "load" if text_cache.has(key) else "pack"
+        return BatchStream(text_cache.get_or_pack(key, build), stage)
+
+    def batches(ids, phase="train", epoch=None):
+        ids = list(ids)
+        if buckets:
+            return bucketed(ids, phase, epoch)
         return [collate(np.stack([token_ids[i] for i in ids[k:k + FIXED_ROWS]]),
                         [labels[i] for i in ids[k:k + FIXED_ROWS]], ids[k:k + FIXED_ROWS],
                         graphs_by_id, FIXED_ROWS, bcfg.node_budget, bcfg.edge_budget,
@@ -690,11 +835,13 @@ def cmd_train_combined(args) -> None:
     ckpts = trainer.make_checkpoints(run_dir / COMBINED_CHECKPOINTS_DIR)
     run_log = RunLog(run_dir)
     try:
-        trainer.fit(state, lambda epoch: batches(epoch_ids(epoch)),
-                    val_batches=lambda: batches(split_ids("val")), checkpoints=ckpts,
-                    log_fn=run_log.log)
+        trainer.fit(state, lambda epoch: batches(epoch_ids(epoch), epoch=epoch),
+                    val_batches=lambda: batches(split_ids("val"), phase="eval"),
+                    checkpoints=ckpts, log_fn=run_log.log)
     finally:
         run_log.close()
+        if text_packer is not None:
+            text_packer.close()
     print("best:", ckpts.best_metrics())
 
 

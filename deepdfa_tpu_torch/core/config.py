@@ -3,15 +3,17 @@
 It reads the same JSON files as the JAX package (`configs/*.json`,
 `config.json` in a run dir) and keeps the sections this port runs: the
 feature spec, batch budgets, split and sampling fields and the text
-buckets (`seq_buckets`, `token_budget`) of `data`, all of
-`model`, the batcher, registry and frontend fields of `serve`, and the one-card training fields
-of `train` (optimiser, schedule, checkpoint cadence, the mesh and the
+buckets (`seq_buckets`, `token_budget`) and the host input pipeline
+(`pack_workers`, `packed_cache*`) of `data`, all of `model`, the
+batcher, registry, quantization and frontend fields of `serve`, and the
+one-card training fields of `train` (optimiser, schedule, checkpoint
+cadence, prefetch, the mesh and the
 resilience switch, which must say "one card, off", and the
 `debug_nans`/`enable_checks` sanitizer switches, which must be off),
 the `obs` switches (which must be off) and the autotuner's `tune`
 section. Field names and defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
 file configures both packages. Keys the port does not run yet (the
-rest of observability, fleet, the Joern pool, the prefetch pipeline and
+rest of observability, fleet, the Joern pool and
 `train.step_cache_entries`, which sizes the reference's cache of
 compiled steps) are read past; the JAX package validates them.
 """
@@ -144,6 +146,14 @@ class DataConfig:
     seed: int = 0
     undersample: bool = True  # epoch-wise 1:1 undersampling of negatives
     batch: BatchConfig = field(default_factory=BatchConfig)
+    # host input pipeline: > 1 packs first-epoch batches on a spawn
+    # process pool of this many workers (data/mp_pack.py)
+    pack_workers: int = 0
+    # persist packed batch streams under cache/<dataset>/packed and replay
+    # them (mmap) when the content key matches (data/packed_cache.py)
+    packed_cache: bool = False
+    # entries that cache keeps, least recently used evicted first
+    packed_cache_max_entries: int = 64
     # sequence-length buckets of the combined (text + graph) path: a row
     # pads to the smallest edge >= its real token length; () = none
     seq_buckets: tuple[int, ...] = ()
@@ -171,11 +181,17 @@ class ServeConfig:
     # packed-batch budgets for serving; 0 = inherit data.batch.*
     node_budget: int = 0
     edge_budget: int = 0
-    # > 0 overlaps host work with the device in the reference; the port
-    # runs the serial path (0) only in this slice
+    # dispatched-but-unsynced batches the batcher and the localizer keep
+    # in flight (host packing overlaps the card); 0 = serial
     pipeline_depth: int = 0
-    # the checkpoint tag the registry serves (best | last | a history tag)
+    # the checkpoint tag the registry serves (best | last | a history tag),
+    # with the suffix "@int8" for the quantized entry (serve/quant.py)
     checkpoint: str = "best"
+    # an @int8 entry's largest calibration probability drift against the
+    # fp32 weights; past it the registry refuses the entry loudly
+    quant_drift_bound: float = 5e-2
+    # calibration rows of the drift measurement (one packed batch)
+    quant_calibration_samples: int = 8
     # between batches, poll the checkpoint manifest and hot-swap the
     # weights when the tracked tag moved (same config and vocab digests)
     hot_swap: bool = False
@@ -244,9 +260,13 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class ResilienceConfig:
-    """Only the switch: the resilient runtime comes with a later slice."""
+    """The switch (the resilient runtime comes with a later slice) and
+    the transient host-I/O retry policy of the packed-batch cache's
+    reads."""
 
     enabled: bool = False
+    io_retries: int = 2
+    io_backoff_s: float = 0.05
 
 
 @dataclass(frozen=True)
@@ -282,6 +302,11 @@ class TrainConfig:
     # feature-identity dropout: with this probability per node, known
     # abstract-dataflow buckets map to UNKNOWN (train/loop.py)
     feat_unknown_dropout: float = 0.0
+    # batches packed and copied to the card by background threads this
+    # many steps ahead of the train step (data/prefetch.py); 0 = inline
+    prefetch_batches: int = 2
+    # producer threads of that pipeline (source pulls stay serialized)
+    prefetch_producers: int = 1
     # the reference's jax sanitizers (NaN checks, invariant checks): the
     # port has no counterpart yet and refuses them when set
     debug_nans: bool = False
@@ -361,18 +386,11 @@ def refuse_unported_training(cfg: Config) -> None:
 def refuse_unported_serving(cfg: Config) -> None:
     """NotImplementedError for the serving options the port does not run,
     each naming the ROADMAP queue A item that brings it: the Joern
-    frontend (item 3) and the pipelined batcher (item 6); a quantized
-    `tag@int8` checkpoint (item 6) is refused by the registry."""
-    scfg = cfg.serve
-    refused = {
-        "serve.use_joern=true: the Joern CPG importer and session pool are not "
-        "ported (ROADMAP queue A, item 3); the built-in parser serves": scfg.use_joern,
-        "serve.pipeline_depth > 0: the pipelined batcher is not ported (ROADMAP queue A, "
-        "item 6); use 0 (serial)": bool(scfg.pipeline_depth),
-    }
-    for what, asked in refused.items():
-        if asked:
-            raise NotImplementedError(what)
+    frontend (item 3)."""
+    if cfg.serve.use_joern:
+        raise NotImplementedError(
+            "serve.use_joern=true: the Joern CPG importer and session pool are not "
+            "ported (ROADMAP queue A, item 3); the built-in parser serves")
 
 
 #: relation count each gtype produces (the reference's pipeline.extract_graph)

@@ -8,12 +8,18 @@ machine.
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """`None` means "cuda". Raises RuntimeError when CUDA is asked for
-    and `torch.cuda.is_available()` is False."""
+    and `torch.cuda.is_available()` is False. torch is imported here, so
+    `deepdfa_tpu_torch.core` loads without it (the packing workers)."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -3,6 +3,7 @@
 
     <root>/
       processed/<dataset>/  examples, splits, vocabularies, graph stores
+      cache/<dataset>/      packed-batch cache entries (packed/, packed-text/)
       runs/<run-name>/      config.json, logs, checkpoints-torch/ and
                             checkpoints-combined-torch/
 
@@ -37,6 +38,10 @@ def _sub(kind: str, name: str | None = None) -> Path:
 
 def processed_dir(dataset: str) -> Path:
     return _sub("processed", dataset)
+
+
+def cache_dir(dataset: str) -> Path:
+    return _sub("cache", dataset)
 
 
 def runs_dir(run_name: str) -> Path:

@@ -24,13 +24,15 @@ same batch as torch tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, Iterator, Mapping, Sequence
+from typing import TYPE_CHECKING, Any, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 from deepdfa_tpu_torch.core.config import PAD_ID_BY_FAMILY
-from deepdfa_tpu_torch.graphs.batch import GraphBatch, GraphSpec, pack
+from deepdfa_tpu_torch.graphs.batch import GraphBatch, GraphSpec, host_tensor, pack, pin
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,21 +43,36 @@ class TextBatch:
     has_graph: Any  # [B] bool
     graphs: GraphBatch  # num_graphs == B, graph i <-> text row i
 
-    def to(self, device: str | torch.device) -> "TextBatch":
-        """The same batch as torch tensors on `device` (dtypes kept)."""
+    def to(self, device: str | torch.device, non_blocking: bool = False) -> "TextBatch":
+        """The same batch as torch tensors on `device` (dtypes kept);
+        `non_blocking` as `GraphBatch.to`."""
+        import torch
+
         dev = torch.device(device)
 
         def move(x):
             if isinstance(x, torch.Tensor):
-                return x.to(dev)
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                return x.to(dev, non_blocking=non_blocking)
+            return host_tensor(x).to(dev)
 
         return TextBatch(
             input_ids=move(self.input_ids), labels=move(self.labels),
             row_mask=move(self.row_mask), has_graph=move(self.has_graph),
-            graphs=self.graphs.to(dev),
+            graphs=self.graphs.to(dev, non_blocking=non_blocking),
         )
 
+    def pinned(self) -> "TextBatch":
+        """The same batch as host tensors in page-locked memory
+        (`GraphBatch.pinned`)."""
+        return TextBatch(
+            input_ids=pin(self.input_ids), labels=pin(self.labels),
+            row_mask=pin(self.row_mask), has_graph=pin(self.has_graph),
+            graphs=self.graphs.pinned(),
+        )
+
+
+#: TextBatch's own array fields (its `graphs` is a GraphBatch)
+TEXT_ARRAY_FIELDS = ("input_ids", "labels", "row_mask", "has_graph")
 
 #: the 1-node, 0-edge placeholder graph of a row without one
 _EMPTY = GraphSpec(

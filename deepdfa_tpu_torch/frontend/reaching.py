@@ -13,9 +13,9 @@ ReachingDefProblem export it mimics:
 - IN(n) = union of OUT(preds); OUT(n) = gen(n) u (IN(n) - kill(n));
   iterated with a worklist to fixpoint.
 
-The port's copy of the reference's `deepdfa_tpu/frontend/reaching.py`
-with the pure-Python solver only (the executable spec); the reference's
-C++ bitset solver is ROADMAP queue A, item 6.
+The port's copy of the reference's `deepdfa_tpu/frontend/reaching.py`.
+The pure-Python solver here is the executable spec; the C++ bitset solver
+(the port's `native/`) is the fast path, held equal to this one.
 """
 
 from __future__ import annotations
@@ -96,21 +96,25 @@ class ReachingDefinitions:
     def solve(self, backend: str = "auto") -> dict[int, set[Definition]]:
         """Worklist to fixpoint; returns IN sets per CFG node.
 
-        backend: "auto" and "python" run the Python solver below;
-        "native" (the reference's C++ bitset solver) is not ported yet
-        and raises (ROADMAP queue A, item 6).
+        backend: "python" (the executable spec below), "native" (the C++
+        bitset solver, `deepdfa_tpu_torch/native`), or "auto" (native
+        unless the machine has no g++ to build it).
         """
-        if backend == "native":
-            raise NotImplementedError(
-                "solve(backend='native'): the C++ bitset solver is not ported yet "
-                "(ROADMAP queue A, item 6); use backend='auto' or 'python'"
-            )
+        if backend != "python":
+            from deepdfa_tpu_torch import native
+
+            if native.available():
+                return self._solve_native()
+            if backend == "native":
+                raise RuntimeError(
+                    "native backend requested but g++ is not on PATH to build "
+                    "libdeepdfa_native (python -m deepdfa_tpu_torch.native.build)")
         return self._solve_python()
 
     def dense_cfg(self) -> tuple[list[int], dict[int, int], list[int], list[int]]:
         """(nodes, node->dense index, edge src, edge dst) over the CFG —
-        the shared dense view of the reference's native solver and training
-        label builders (nn/bitprop.rd_bit_problem)."""
+        the shared dense view of the native solver and of the reference's
+        training label builders (nn/bitprop.rd_bit_problem)."""
         nodes = self.cfg_nodes
         dense = {n: i for i, n in enumerate(nodes)}
         src, dst = [], []
@@ -120,6 +124,29 @@ class ReachingDefinitions:
                     src.append(dense[n])
                     dst.append(dense[s])
         return nodes, dense, src, dst
+
+    def _solve_native(self) -> dict[int, set[Definition]]:
+        import numpy as np
+
+        from deepdfa_tpu_torch.native import rd_solve_native
+
+        nodes, dense, src, dst = self.dense_cfg()
+        var_ids: dict[str, int] = {}
+        def_var = np.full(len(nodes), -1, np.int32)
+        for n in nodes:
+            v = self._var[n]
+            if v is not None:
+                def_var[dense[n]] = var_ids.setdefault(v, len(var_ids))
+        raw = rd_solve_native(
+            len(nodes), np.array(src, np.int32), np.array(dst, np.int32), def_var
+        )
+        by_node = {
+            d.node: d for s in self.gen_set.values() for d in s
+        }
+        return {
+            nodes[i]: {by_node[nodes[j]] for j in sites}
+            for i, sites in raw.items()
+        }
 
     def _solve_python(self) -> dict[int, set[Definition]]:
         """Worklist to fixpoint; returns IN sets per CFG node."""

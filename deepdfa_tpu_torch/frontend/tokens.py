@@ -1,7 +1,7 @@
 """C tokenizer for the built-in CPG frontend.
 
-The port's copy of the reference's `deepdfa_tpu/frontend/tokens.py`,
-with the Python lexer only (its C++ lexer is ROADMAP queue A, item 6).
+The port's copy of the reference's `deepdfa_tpu/frontend/tokens.py`;
+its C++ lexer is the port's `native/` library.
 The original DeepDFA delegates all C parsing to the external Joern JVM;
 this frontend runs hermetically in-process. The lexer handles the
 C-function subset that appears in vulnerability datasets: comments, string
@@ -79,21 +79,36 @@ def strip_comments(code: str) -> str:
 def tokenize(code: str, backend: str = "auto") -> list[Token]:
     """Tokenize C (or C++) source.
 
-    The port keeps only the Python lexer (the reference's executable
-    spec): "auto" and "python" both run it, so every Token carries its
-    column. "native" (the reference's C++ lexer) is not ported yet and
-    raises (ROADMAP queue A, item 6).
+    backend "auto" routes pure-ASCII input through the native C++ lexer
+    (`deepdfa_tpu_torch/native`, built with g++ at first use; equal to
+    the Python lexer on ASCII except that native Tokens carry col 0 and
+    the end-of-file token sits on the last token's line). Non-ASCII
+    input always takes the Python path, whose unicode identifier
+    handling the native lexer does not replicate, and so does "auto" on
+    a machine without g++. "python" forces the Python lexer (every Token
+    carries its column); "native" forces the C++ one and raises on
+    non-ASCII input or without g++.
 
     The reference's non-C dialects (java, c#, js, go, php, ruby: its
     CodeBLEU syntax match) are not ported yet (ROADMAP queue A, item 3).
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "tokenize(backend='native'): the C++ lexer is not ported yet "
-            "(ROADMAP queue A, item 6); use backend='auto' or 'python'"
-        )
-    if backend not in ("auto", "python"):
+    if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown backend {backend!r}")
+    if backend != "python":
+        is_ascii = code.isascii()
+        if backend == "native" and not is_ascii:
+            raise ValueError("native lexer only supports ASCII input; use backend='auto'")
+        if is_ascii:
+            from deepdfa_tpu_torch import native
+
+            if native.available():
+                toks = native.lex_c_native(code)
+                toks.append(Token("eof", "", toks[-1].line if toks else 1, 0))
+                return toks
+            if backend == "native":
+                raise RuntimeError(
+                    "native backend requested but g++ is not on PATH to build "
+                    "libdeepdfa_native (python -m deepdfa_tpu_torch.native.build)")
     return _tokenize_python(code)
 
 

@@ -17,16 +17,20 @@ A batch is a fixed budget of graphs/nodes/edges with padding masks:
 tests/test_torch_pack.py), and so is the batch planner below
 (`plan_shard_bucket_batches` and friends, with one logical shard;
 tests/test_torch_train.py). A `GraphBatch` holds numpy arrays on the
-host; `to(device)` gives the same batch as torch tensors.
+host; `to(device)` gives the same batch as torch tensors. torch is
+imported where a tensor is made, so the spawned packing workers
+(data/mp_pack.py), which pack numpy alone, start without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, Iterator, Sequence
+from typing import TYPE_CHECKING, Any, Iterable, Iterator, Sequence
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 NUM_SUBKEY_FEATS = 4  # api, datatype, literal, operator
 
@@ -92,11 +96,15 @@ class GraphBatch:
     def edge_budget(self) -> int:
         return int(self.edge_src.shape[0])
 
-    def to(self, device: str | torch.device) -> "GraphBatch":
+    def to(self, device: str | torch.device, non_blocking: bool = False) -> "GraphBatch":
         """The same batch as torch tensors on `device` (dtypes kept:
         int32, bool, float32). Host arrays are checked for the edge
         invariant first, since the CUDA step cannot check it without a
-        device sync."""
+        device sync. `non_blocking` copies host tensors asynchronously:
+        it overlaps only from pinned memory (`pinned`), and the source
+        must then stay alive until the copy is done."""
+        import torch
+
         if isinstance(self.edge_mask, np.ndarray):
             _check_edge_layout(self.edge_dst, self.edge_mask)
         dev = torch.device(device)
@@ -106,10 +114,42 @@ class GraphBatch:
             if v is None:
                 moved[f] = None
             elif isinstance(v, torch.Tensor):
-                moved[f] = v.to(dev)
+                moved[f] = v.to(dev, non_blocking=non_blocking)
             else:
-                moved[f] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                moved[f] = host_tensor(v).to(dev)
         return dataclasses.replace(self, **moved)
+
+    def pinned(self) -> "GraphBatch":
+        """The same batch as host tensors in page-locked memory, the
+        source a `to(cuda, non_blocking=True)` copies without blocking
+        the host (a copy from pageable memory does block it)."""
+        if isinstance(self.edge_mask, np.ndarray):
+            _check_edge_layout(self.edge_dst, self.edge_mask)
+        return dataclasses.replace(self, **{
+            f: None if getattr(self, f) is None else pin(getattr(self, f))
+            for f in ARRAY_FIELDS})
+
+
+def host_tensor(x) -> torch.Tensor:
+    """A numpy array as a host tensor: shared when it is writable, copied
+    when it is not (a read-only mmap view of the packed-batch cache)."""
+    import torch
+
+    a = np.ascontiguousarray(x)
+    return torch.from_numpy(a) if a.flags.writeable else torch.tensor(a)
+
+
+def pin(x) -> torch.Tensor:
+    """A numpy array or host tensor copied into page-locked memory."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+    a = np.asarray(x)
+    out = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                      pin_memory=True)
+    out.numpy()[...] = a
+    return out
 
 
 #: GraphBatch's array fields (everything but the static num_graphs)

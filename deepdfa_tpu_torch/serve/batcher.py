@@ -1,12 +1,30 @@
 """Dynamic request batcher over bucket signatures (the reference's
-`deepdfa_tpu/serve/batcher.py`, serial path).
+`deepdfa_tpu/serve/batcher.py`).
 
 - a BOUNDED queue with admission control: a full queue raises
   `QueueFull` instead of buffering unbounded latency;
 - requests group by bucket key and a chunk holds as many as fit the
   executor's budgets;
 - a max-latency flush: a partial batch executes once its oldest request
-  has waited `max_batch_delay_s`.
+  has waited `max_batch_delay_s`;
+- pipelined execution (`pipeline_depth > 0`): a batch's pack, dispatch
+  and fetch stages split, so the host packs and launches the next batch
+  while the card runs this one, with at most `pipeline_depth` batches
+  dispatched and not yet fetched (`DynamicBatcher`). At every depth the
+  scores are bit-identical to depth 0 for the same batches: the same
+  kernels run on the same shapes; only the sync point moves. (The flush
+  timer forms batches at the host's pace in either drive, and a batch's
+  composition moves a score by fp32 reassociation.)
+
+The executors' stages do not sync the card until `fetch`: `pack_chunk`
+packs into page-locked host memory on a CUDA device, `dispatch` copies
+the batch with `non_blocking=True`, launches the model, copies the
+probabilities into a pinned buffer and records a CUDA event
+(`DeviceResult`), and `fetch` waits on that event alone, where a
+`.cpu()` would wait for the whole stream. The handle keeps the batch's
+host buffers and the model it ran alive until then, so a pinned buffer
+is never reused under its copy and a hot swap between dispatch and
+fetch mixes nothing.
 
 Executors read their model through a callable on every batch (the
 registry's `model`), so a hot swap is one reference assignment: a batch
@@ -64,6 +82,74 @@ def model_source(model, device: torch.device) -> Callable[[], torch.nn.Module]:
         module = model.to(device).eval()
         return lambda: module
     return model
+
+
+class DeviceWindow:
+    """FIFO union attribution of device-busy time over dispatch->sync
+    windows that may overlap under pipelining (the reference's).
+
+    With batches dispatched back to back, batch i's raw window includes
+    time spent queued behind batch i-1 on the card; since fetches sync in
+    FIFO order, the busy interval attributable to batch i is
+    `[max(submit_i, sync_{i-1}), sync_i]`. At depth 0 `sync_{i-1} <=
+    submit_i` always holds and the busy window is the plain
+    dispatch->sync time, so one accounting serves both paths. The gap
+    `max(0, submit_i - sync_{i-1})` is device-idle time: the overlap gap
+    the pipeline exists to close."""
+
+    def __init__(self):
+        self.last_sync: float | None = None
+        self.busy_s = 0.0
+        self.idle_s = 0.0
+
+    def observe(self, t_submit: float, t_sync: float) -> float:
+        """Fold one dispatch->sync window in; returns its busy share."""
+        last = self.last_sync
+        start = t_submit if last is None else max(t_submit, last)
+        busy = max(0.0, t_sync - start)
+        if last is not None:
+            self.idle_s += max(0.0, t_submit - last)
+        self.busy_s += busy
+        self.last_sync = max(t_sync, last or t_sync)
+        return busy
+
+    def idle_fraction(self) -> float | None:
+        total = self.busy_s + self.idle_s
+        return (self.idle_s / total) if total > 0.0 else None
+
+
+class DeviceResult:
+    """One dispatched batch's outputs on their way to the host. On a
+    CUDA device each output is copied into a page-locked host buffer
+    with `non_blocking=True` and a CUDA event is recorded after the
+    copies; `wait()` waits on that event alone and returns the host
+    tensors. `keep` (the batch's host and device buffers, the model)
+    stays referenced until then. On the CPU the outputs are the host
+    tensors already."""
+
+    def __init__(self, outputs: tuple[torch.Tensor, ...], keep: tuple = ()):
+        if outputs[0].is_cuda:
+            self._host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                               for o in outputs)
+            for h, o in zip(self._host, outputs):
+                h.copy_(o, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = outputs, None
+        self._keep = keep
+
+    def wait(self) -> tuple[torch.Tensor, ...]:
+        if self._event is not None:
+            self._event.synchronize()
+        self._keep = ()
+        return self._host
+
+
+def host_batch(batch, device: torch.device):
+    """A packed batch as the dispatch stage copies it: in page-locked
+    memory for a CUDA device, the numpy arrays otherwise."""
+    return batch.pinned() if device.type == "cuda" else batch
 
 
 class QueueFull(RuntimeError):
@@ -230,7 +316,8 @@ class GgnnExecutor:
             if size in self._warmed:
                 continue
             t0 = time.perf_counter()
-            self.fetch(self.dispatch("graph", (size, self._pack(size, []))), size)
+            packed = (size, host_batch(self._pack(size, []), self.device))
+            self.fetch(self.dispatch("graph", packed), size)
             report[f"G{size}"] = time.perf_counter() - t0
             self._warmed.add(size)
         return report
@@ -244,22 +331,23 @@ class GgnnExecutor:
         )
 
     def pack_chunk(self, key: Hashable, chunk: Sequence):
-        """Host pack into the padded ladder batch; (signature label,
-        packed)."""
+        """Host pack into the padded ladder batch (page-locked on a CUDA
+        device); (signature label, packed)."""
         size = self._size_for(len(chunk))
-        return f"G{size}", (size, self._pack(size, chunk))
+        return f"G{size}", (size, host_batch(self._pack(size, chunk), self.device))
 
-    def dispatch(self, key: Hashable, packed) -> torch.Tensor:
-        """Copy the batch to the device and launch the model; returns
-        the probabilities without waiting for the device."""
+    def dispatch(self, key: Hashable, packed) -> DeviceResult:
+        """Copy the batch to the device and launch the model; returns the
+        probabilities' `DeviceResult` without waiting for the device."""
         _, batch = packed
         model = self._model()
+        b = batch.to(self.device, non_blocking=True)
         with torch.inference_mode():
-            return torch.sigmoid(model(batch.to(self.device)))
+            return DeviceResult((torch.sigmoid(model(b)),), keep=(batch, b, model))
 
-    def fetch(self, handle: torch.Tensor, n: int) -> np.ndarray:
+    def fetch(self, handle: DeviceResult, n: int) -> np.ndarray:
         """The sync point: [n] probabilities on the host."""
-        return handle[:n].cpu().numpy()
+        return handle.wait()[0][:n].numpy()
 
 
 class CombinedExecutor:
@@ -388,7 +476,7 @@ class CombinedExecutor:
             if T in self._warmed:
                 continue
             t0 = time.perf_counter()
-            self.fetch(self.dispatch(T, (T, self._collate(T, []))), self._rows[T])
+            self.fetch(self.dispatch(T, self.pack_chunk(T, [])[1]), self._rows[T])
             report[self.ledger_signature(T, 0)] = time.perf_counter() - t0
             self._warmed.add(T)
         return report
@@ -396,23 +484,26 @@ class CombinedExecutor:
     # -- execution (pack -> dispatch -> fetch) --------------------------------
 
     def pack_chunk(self, key: Hashable, chunk: Sequence):
-        """Host collate into the bucket's padded batch; (signature
-        label, packed)."""
-        return self.ledger_signature(key, len(chunk)), (int(key), self._collate(int(key), chunk))
+        """Host collate into the bucket's padded batch (page-locked on a
+        CUDA device); (signature label, packed)."""
+        T = int(key)
+        return self.ledger_signature(key, len(chunk)), (
+            T, host_batch(self._collate(T, chunk), self.device))
 
-    def dispatch(self, key: Hashable, packed) -> torch.Tensor:
+    def dispatch(self, key: Hashable, packed) -> DeviceResult:
         """Copy the batch to the device and launch the model; returns
-        P(class 1) per row without waiting for the device."""
+        P(class 1) per row as a `DeviceResult` without waiting for the
+        device."""
         _, batch = packed
-        b = batch.to(self.device)
+        b = batch.to(self.device, non_blocking=True)
         model = self._model()
         with torch.inference_mode():
             logits = model(b.input_ids, b.graphs, b.has_graph)
-            return torch.softmax(logits, dim=-1)[:, 1]
+            return DeviceResult((torch.softmax(logits, dim=-1)[:, 1],), keep=(batch, b, model))
 
-    def fetch(self, handle: torch.Tensor, n: int) -> np.ndarray:
+    def fetch(self, handle: DeviceResult, n: int) -> np.ndarray:
         """The sync point: [n] probabilities on the host."""
-        return handle[:n].cpu().numpy()
+        return handle.wait()[0][:n].numpy()
 
 
 class DynamicBatcher:
@@ -423,7 +514,18 @@ class DynamicBatcher:
         flush when a group is full or its oldest request aged past
         `max_batch_delay_s`;
       - `score_all(payloads)` drives synchronously (offline; full groups
-        flush as they fill, the tail force-flushes)."""
+        flush as they fill, the tail force-flushes).
+
+    Pipelined execution (`pipeline_depth > 0`, the reference's): the
+    drive side (scheduler thread or offline drain) packs and dispatches
+    without syncing, keeping at most `pipeline_depth` dispatched batches
+    not yet fetched (backpressure blocks the dispatcher, never deepens
+    the window); the FIFO fetch stage syncs results, resolves the
+    requests and owns the `device_s` attribution (FIFO-union windows,
+    `DeviceWindow`). Online the fetch stage runs on its own thread;
+    offline drives sync the oldest batch inline when the window fills.
+    Arrival order, grouping and packing are unchanged, so the same
+    batches give the depth-0 bits."""
 
     def __init__(
         self,
@@ -431,10 +533,12 @@ class DynamicBatcher:
         queue_limit: int = 256,
         max_batch_delay_s: float = 0.025,
         on_batch: Callable[[], Any] | None = None,
+        pipeline_depth: int = 0,
     ):
         self.executor = executor
         self.queue_limit = int(queue_limit)
         self.max_batch_delay_s = float(max_batch_delay_s)
+        self.pipeline_depth = max(0, int(pipeline_depth))
         #: called before every executed batch (the registry's hot-swap
         #: poll); a failing hook never fails the batch
         self.on_batch = on_batch
@@ -448,6 +552,22 @@ class DynamicBatcher:
         self.batches_run = 0
         self.rejected = 0
         self._occupancy_sum = 0.0
+        # -- pipelined execution state (pipeline_depth > 0) ------------------
+        #: FIFO of dispatched-but-unsynced batches, synced in submission
+        #: order; _n_inflight counts batches whose fetch has not completed
+        #: (popped-but-syncing still holds its slot); both under _fetch_cv
+        self._inflight: deque = deque()
+        self._n_inflight = 0
+        self._fetch_cv = threading.Condition()
+        self._fetch_thread: threading.Thread | None = None
+        self._fetch_stop = False
+        #: FIFO-union device-busy attribution shared by both depths
+        self._window = DeviceWindow()
+        #: plain stage counters (seconds summed over batches): host pack,
+        #: dispatch (copy + launch), fetch (the wait on the card), and the
+        #: host stage seconds spent while another batch was in flight
+        self.pack_s = self.dispatch_s = self.fetch_s = self.overlap_s = 0.0
+        self.inflight_peak = 0
 
     # -- admission -----------------------------------------------------------
 
@@ -480,11 +600,13 @@ class DynamicBatcher:
         return self._occupancy_sum / self.batches_run if self.batches_run else None
 
     def stats(self) -> dict:
-        """Queue depth, batches run, rejections, mean occupancy and the
-        recent window's latency quantiles (the `/stats` body's batcher
-        half)."""
+        """Queue depth, batches run, rejections, mean occupancy, the
+        recent window's latency quantiles and the pipeline's counters
+        (the `/stats` body's batcher half)."""
         with self._lock:
             depth = self._n_pending
+        with self._fetch_cv:
+            in_flight = self._n_inflight
         lat = sorted(self.recent_latencies)
         return {
             "queue_depth": depth,
@@ -493,6 +615,24 @@ class DynamicBatcher:
             "batch_occupancy_mean": self.mean_occupancy(),
             "latency_p50_s": percentile(lat, 0.50),
             "latency_p99_s": percentile(lat, 0.99),
+            "pipeline_depth": self.pipeline_depth,
+            "pipeline_in_flight": in_flight,
+            "pipeline_in_flight_peak": self.inflight_peak,
+            "pipeline_pack_seconds": self.pack_s,
+            "pipeline_dispatch_seconds": self.dispatch_s,
+            "pipeline_fetch_seconds": self.fetch_s,
+            "pipeline_overlap_seconds": self.overlap_s,
+            **{f"pipeline_{k}": v for k, v in self.pipeline_stats().items() if k != "depth"},
+        }
+
+    def pipeline_stats(self) -> dict:
+        """The device-window attribution at any depth: busy and idle
+        seconds between dispatches and syncs, and the idle fraction."""
+        return {
+            "depth": self.pipeline_depth,
+            "device_busy_s": self._window.busy_s,
+            "device_idle_s": self._window.idle_s,
+            "device_idle_fraction": self._window.idle_fraction(),
         }
 
     # -- scheduling ----------------------------------------------------------
@@ -535,9 +675,9 @@ class DynamicBatcher:
             return oldest_key, None
         return None, self.max_batch_delay_s - (now - oldest_t)
 
-    def _run_batch(self, key: Hashable, chunk: list[ScoreRequest]) -> None:
-        """on_batch, then pack -> dispatch -> fetch inline on the drive
-        thread; a failure fails this batch's requests and nothing else."""
+    def _begin_batch(self, chunk: list[ScoreRequest]) -> None:
+        """Drive-side prologue of both paths: the hot-swap poll and the
+        queue-wait attribution."""
         if self.on_batch is not None:
             try:
                 self.on_batch()
@@ -547,23 +687,178 @@ class DynamicBatcher:
         for req in chunk:
             req.batch_size = len(chunk)
             req.queue_wait_s = t0 - req.t_submit
+
+    def _pack(self, key: Hashable, chunk: list[ScoreRequest]):
+        t0 = time.perf_counter()
+        _, packed = self.executor.pack_chunk(key, [r.payload for r in chunk])
+        pack_s = time.perf_counter() - t0
+        self.pack_s += pack_s
+        return packed, pack_s
+
+    def _complete_batch(self, key: Hashable, chunk: list[ScoreRequest], probs,
+                        t_submit: float, t_sync: float) -> None:
+        """Fetch-side epilogue (the drive thread at depth 0, the fetch
+        stage otherwise): the FIFO-union busy share becomes each
+        request's `device_s`, then the futures resolve."""
+        busy = self._window.observe(t_submit, t_sync)
+        self.batches_run += 1
+        self._occupancy_sum += len(chunk) / max(1, self.executor.capacity(key))
+        for req, p in zip(chunk, probs):
+            req.device_s = busy
+            req.set_result(float(p))
+            self.recent_latencies.append(req.latency_s)
+
+    def _run_batch(self, key: Hashable, chunk: list[ScoreRequest]) -> None:
+        """Serial path (pipeline_depth == 0): pack -> dispatch -> fetch
+        inline on the drive thread; a failure fails this batch's requests
+        and nothing else."""
+        self._begin_batch(chunk)
         try:
-            _, packed = self.executor.pack_chunk(key, [r.payload for r in chunk])
-            t_dispatch = time.monotonic()
-            probs = self.executor.fetch(
-                self.executor.dispatch(key, packed), len(chunk)
-            )
-            device_s = time.monotonic() - t_dispatch
+            packed, _ = self._pack(key, chunk)
+            t_submit = time.perf_counter()
+            handle = self.executor.dispatch(key, packed)
+            td = time.perf_counter()
+            probs = self.executor.fetch(handle, len(chunk))
+            t_sync = time.perf_counter()
         except Exception as e:  # the scheduler must outlive a bad batch
             for req in chunk:
                 req.set_error(e)
             return
-        self.batches_run += 1
-        self._occupancy_sum += len(chunk) / max(1, self.executor.capacity(key))
-        for req, p in zip(chunk, probs):
-            req.device_s = device_s
-            req.set_result(float(p))
-            self.recent_latencies.append(req.latency_s)
+        self.dispatch_s += td - t_submit
+        self.fetch_s += t_sync - td
+        self._complete_batch(key, chunk, probs, t_submit, t_sync)
+
+    # -- pipelined path (pipeline_depth > 0) ---------------------------------
+
+    def _dispatch_batch(self, key: Hashable, chunk: list[ScoreRequest]) -> None:
+        """Pipelined drive side: pack + dispatch without syncing. Blocks
+        while `pipeline_depth` batches are in flight: the bounded window
+        is the backpressure."""
+        self._begin_batch(chunk)
+        try:
+            packed, pack_s = self._pack(key, chunk)
+        except Exception as e:
+            for req in chunk:
+                req.set_error(e)
+            return
+        # the in-flight slot comes BEFORE the dispatch: dispatched-but-
+        # unsynced batches never exceed pipeline_depth. Online the fetch
+        # thread frees slots; offline the drive syncs the oldest inline
+        if self._fetch_thread is not None:
+            with self._fetch_cv:
+                while self._n_inflight >= self.pipeline_depth:
+                    self._fetch_cv.wait(0.25)
+                self._n_inflight += 1
+                overlapped = self._n_inflight > 1
+                self.inflight_peak = max(self.inflight_peak, self._n_inflight)
+        else:
+            while True:
+                with self._fetch_cv:
+                    if self._n_inflight < self.pipeline_depth:
+                        self._n_inflight += 1
+                        overlapped = self._n_inflight > 1
+                        self.inflight_peak = max(self.inflight_peak, self._n_inflight)
+                        break
+                self._sync_oldest()
+        try:
+            t_submit = time.perf_counter()
+            handle = self.executor.dispatch(key, packed)
+            dispatch_s = time.perf_counter() - t_submit
+        except Exception as e:
+            for req in chunk:
+                req.set_error(e)
+            with self._fetch_cv:
+                self._n_inflight -= 1
+                self._fetch_cv.notify_all()
+            return
+        self.dispatch_s += dispatch_s
+        if overlapped:
+            # host stage seconds spent while the card held another batch
+            self.overlap_s += pack_s + dispatch_s
+        with self._fetch_cv:
+            self._inflight.append((key, chunk, handle, t_submit))
+            self._fetch_cv.notify_all()
+
+    def _sync_oldest(self) -> bool:
+        """Fetch + resolve the oldest in-flight batch on the calling
+        thread (the offline drive's fetch stage); False if none."""
+        with self._fetch_cv:
+            if not self._inflight:
+                return False
+            item = self._inflight.popleft()
+        try:
+            self._fetch_one(*item)
+        finally:
+            with self._fetch_cv:
+                self._n_inflight -= 1
+                self._fetch_cv.notify_all()
+        return True
+
+    def _fetch_loop(self) -> None:
+        """FIFO fetch stage: sync each dispatched batch in submission
+        order and resolve its requests. Exits once stop was asked and
+        the in-flight FIFO has drained."""
+        while True:
+            with self._fetch_cv:
+                while not self._inflight and not self._fetch_stop:
+                    self._fetch_cv.wait(0.25)
+                if not self._inflight:
+                    return
+                item = self._inflight.popleft()
+            try:
+                self._fetch_one(*item)
+            finally:
+                with self._fetch_cv:
+                    self._n_inflight -= 1
+                    self._fetch_cv.notify_all()
+
+    def _fetch_one(self, key: Hashable, chunk: list[ScoreRequest], handle,
+                   t_submit: float) -> None:
+        try:
+            tf = time.perf_counter()
+            probs = self.executor.fetch(handle, len(chunk))
+            t_sync = time.perf_counter()
+        except Exception as e:
+            for req in chunk:
+                req.set_error(e)
+            return
+        self.fetch_s += t_sync - tf
+        self._complete_batch(key, chunk, probs, t_submit, t_sync)
+
+    def _ensure_fetch_thread(self) -> None:
+        if self._fetch_thread is None:
+            self._fetch_stop = False
+            self._fetch_thread = threading.Thread(
+                target=self._fetch_loop, name="serve-fetch", daemon=True)
+            self._fetch_thread.start()
+
+    def _wait_inflight(self, timeout_s: float = 60.0) -> None:
+        """Block until every dispatched batch has been fetched and its
+        requests resolved (the pipelined half of drain); no-op at depth 0."""
+        deadline = time.monotonic() + timeout_s
+        with self._fetch_cv:
+            while self._n_inflight > 0:
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"{self._n_inflight} pipelined batches still in flight after "
+                        f"{timeout_s:.0f}s")
+                self._fetch_cv.wait(0.25)
+
+    def _stop_fetch(self) -> None:
+        t = self._fetch_thread
+        if t is None:
+            return
+        with self._fetch_cv:
+            self._fetch_stop = True
+            self._fetch_cv.notify_all()
+        t.join(timeout=10)
+        self._fetch_thread = None
+
+    def _execute(self, key: Hashable, chunk: list[ScoreRequest]) -> None:
+        if self.pipeline_depth > 0:
+            self._dispatch_batch(key, chunk)
+        else:
+            self._run_batch(key, chunk)
 
     def _drain_once(self, force: bool = False) -> bool:
         """Run at most one batch; True if one ran."""
@@ -573,16 +868,22 @@ class DynamicBatcher:
                 return False
             chunk = self._pop_chunk(key)
         if chunk:
-            self._run_batch(key, chunk)
+            self._execute(key, chunk)
         return bool(chunk)
 
     def drain(self) -> None:
-        """Offline: run batches until the queue is empty."""
+        """Offline: run batches until the queue is empty; pipelined, also
+        until the in-flight window is empty, so every request is resolved
+        on return."""
         while True:
             if not self._drain_once(force=True):
                 with self._lock:
                     if self._n_pending == 0:
                         break
+        if self._fetch_thread is None:
+            while self._sync_oldest():
+                pass
+        self._wait_inflight()
 
     def score_all(
         self,
@@ -628,6 +929,9 @@ class DynamicBatcher:
     def start(self) -> None:
         if self._thread is not None:
             return
+        if self.pipeline_depth > 0:
+            # online, the scheduler pairs with the FIFO fetch thread
+            self._ensure_fetch_thread()
         self._thread = threading.Thread(
             target=self._loop, name="serve-batcher", daemon=True
         )
@@ -645,11 +949,12 @@ class DynamicBatcher:
                 if chunk is None:
                     self._lock.wait(timeout=wait if wait is not None else 0.25)
                     continue
-            self._run_batch(key, chunk)
+            self._execute(key, chunk)
 
     def close(self, timeout_s: float = 60.0) -> None:
         """Stop accepting requests, score what is queued, stop the
-        scheduler thread."""
+        scheduler thread and, pipelined, the fetch thread once every
+        dispatched batch is resolved."""
         with self._lock:
             self._closed = True
             self._lock.notify_all()
@@ -660,3 +965,6 @@ class DynamicBatcher:
                     f"serve-batcher thread still running after {timeout_s}s"
                 )
             self._thread = None
+        if self._fetch_thread is not None:
+            self._wait_inflight(timeout_s)
+            self._stop_fetch()

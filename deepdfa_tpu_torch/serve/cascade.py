@@ -37,7 +37,9 @@ The cascade's counters are plain integers (`counters()`, in `/stats`
 and `/healthz`), as the service's own `/stats` are. The reference's `obs`
 registry metrics, SLO windows per stage, trace spans and
 `validate_cascade_log`'s schema check belong to the operations layer
-(ROADMAP queue A, item 12); a quantized `tag@int8` stage 2 is item 6.
+(ROADMAP queue A, item 12). A `serve.cascade_checkpoint` tag with the
+suffix `@int8` serves a quantized stage 2 (serve/quant.py, through the
+registry).
 """
 
 from __future__ import annotations

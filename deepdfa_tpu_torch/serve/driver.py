@@ -63,6 +63,11 @@ SUMMARY_KEYS = {
 }
 
 
+#: the registry's quantized-entry fields a summary carries (`quant`, and
+#: the cascade's `stage2_quant`)
+QUANT_KEYS = ("quantized", "quant_drift", "quant_drift_bound", "quant_param_bytes_fraction")
+
+
 def _launch_counts() -> dict[str, int]:
     gk = ggnn_kernel.launch_counts()
     return {**{key: gk[name] for name, key in SUMMARY_KEYS.items()},
@@ -76,6 +81,7 @@ def _serve_online(executor, payloads: Sequence, cfg: Config, timeout_s: float) -
     batcher = DynamicBatcher(
         executor, queue_limit=cfg.serve.queue_limit,
         max_batch_delay_s=cfg.serve.max_batch_delay_ms / 1e3,
+        pipeline_depth=cfg.serve.pipeline_depth,
     )
     batcher.start()
     try:
@@ -282,7 +288,9 @@ def run_score(
     `device` (None: the card); the summary, also appended to
     <run_dir>/serve_log.jsonl with the service's counters. In cascade
     mode the summary's `cascade` holds the cascade's counters and the
-    rows each stage decided."""
+    rows each stage decided; an `@int8` entry adds `quant` (and a quantized
+    stage 2 the cascade's `stage2_quant`): the drift, its bound and the
+    bytes fraction."""
     from deepdfa_tpu_torch.serve.registry import ModelRegistry
     from deepdfa_tpu_torch.serve.server import ScoringService, score_texts, write_serve_log
 
@@ -320,6 +328,9 @@ def run_score(
             **launches,
             "scores_path": str(out_path),
         }
+        if registry.quant_mode:
+            info = registry.info()
+            summary["quant"] = {k: info[k] for k in QUANT_KEYS}
         if service.cascade is not None:
             # which stage decided each scored row, beside the counters
             stages = collections.Counter(r.get("stage") for r in rows if r.get("ok"))
@@ -328,6 +339,10 @@ def run_score(
                                   "temperature": service.cascade.temperature,
                                   "stage1_rows": stages[1], "stage2_rows": stages[2],
                                   "stage2_batches": service.cascade.service.batcher.batches_run}
+            stage2 = service.cascade.service.registry
+            if stage2.quant_mode:
+                info = stage2.info()
+                summary["cascade"]["stage2_quant"] = {k: info[k] for k in QUANT_KEYS}
         write_serve_log(run_dir, [{**summary, "serve": service.stats()}])
         return summary
     finally:

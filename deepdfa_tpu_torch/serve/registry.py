@@ -29,8 +29,17 @@ The port restores its own checkpoints only: a run directory that holds
 only the reference's orbax `checkpoints/` is refused by a message that
 says so (the card's machine has no JAX, orbax or tensorstore). Left out:
 `serve_mesh` (queue A item 9), `swap_checkpoint` and `rollback` (the
-fleet rollout, item 12); a quantized `tag@int8` entry (item 6) is
-refused.
+fleet rollout, item 12).
+
+Quantized entries (serve/quant.py): a `tag@int8` checkpoint restores the
+fp32 `tag`, quantizes it, measures the probability drift over
+`serve.quant_calibration_samples` calibration rows against the fp32
+weights, and refuses the entry past `serve.quant_drift_bound` (loudly,
+naming the worst-quantized tensors; at hot swap the refusal is logged
+and the old weights keep serving). The entry keeps the int8 weights,
+their scales and the bf16 tensors on the device behind a
+`QuantizedModel`, which dequantizes in every call; `info()` reports the
+drift and the bytes fraction.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from deepdfa_tpu_torch.core import config as config_mod
 from deepdfa_tpu_torch.core import paths
 from deepdfa_tpu_torch.core.config import Config
 from deepdfa_tpu_torch.core.device import resolve_device
+from deepdfa_tpu_torch.serve import quant
 
 logger = logging.getLogger(__name__)
 
@@ -171,13 +181,14 @@ class ModelRegistry:
         if family not in CKPT_DIR_BY_FAMILY:
             raise RegistryError(f"unknown model family {family!r}; known: "
                                 f"{sorted(CKPT_DIR_BY_FAMILY)}")
-        if "@" in checkpoint:
-            raise NotImplementedError(
-                f"checkpoint {checkpoint!r}: quantized int8 serving (serve/quant.py) is "
-                "not ported (ROADMAP queue A, item 6)")
         self.run_dir = Path(run_dir)
         self.family = family
+        #: the served tag ("best@int8"), the fp32 tag it restores ("best")
+        #: and the quantization mode (None or "int8")
         self.checkpoint = checkpoint
+        self.base_checkpoint, self.quant_mode = quant.split_checkpoint_tag(checkpoint)
+        self.quant_drift: float | None = None
+        self.quant_bytes_fraction: float | None = None
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else load_run_config(self.run_dir)
         self.model_cfg = model_cfg
@@ -240,10 +251,11 @@ class ModelRegistry:
 
     def _entry(self, manifest: dict) -> dict | None:
         """The manifest entry of the tracked tag."""
-        if self.checkpoint in ("best", "last"):
-            return manifest.get(self.checkpoint)
+        tag = self.base_checkpoint
+        if tag in ("best", "last"):
+            return manifest.get(tag)
         return next((e for e in reversed(manifest.get("history", []))
-                     if e.get("tag") == self.checkpoint), None)
+                     if e.get("tag") == tag), None)
 
     def _manifest_sig(self) -> tuple | None:
         """(step, mtime_ns) of the tracked tag: the cheap change detector
@@ -256,8 +268,9 @@ class ModelRegistry:
         return (entry.get("step", -1) if entry else -1, mtime)
 
     def _restore(self) -> torch.nn.Module:
-        """One weights restore into a new eval-mode module on the device,
-        with operator-grade errors."""
+        """One weights restore into a new eval-mode module on the device
+        (a `QuantizedModel` for an `@int8` tag), with operator-grade
+        errors."""
         from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
 
         if not self.ckpt_dir.is_dir():
@@ -273,7 +286,7 @@ class ModelRegistry:
                 f"no checkpoint directory {self.ckpt_dir}: family {self.family!r} "
                 f"expects the {CKPT_DIR_BY_FAMILY[self.family]}/ layout the port's "
                 "training CLI writes")
-        tag = self.checkpoint
+        tag = self.base_checkpoint
         if tag == "last":
             got = self._manifest()
             entry = got and got[0].get("last")
@@ -298,7 +311,65 @@ class ModelRegistry:
                     "checkpoint restore failed; config keys differ from the run's saved "
                     f"config.json: {drift} ({e})") from e
             raise RegistryError(f"checkpoint restore failed: {e}") from e
-        return model.to(self.device).eval()
+        return self._maybe_quantize(model.to(self.device).eval())
+
+    # -- quantized entries (serve/quant.py) ----------------------------------
+
+    def _score_fn(self, module: torch.nn.Module):
+        """(fp32 state dict, host batch) -> probabilities on the device:
+        the family's serving probability rule, run through `module`."""
+
+        def score(params, batch):
+            b = batch.to(self.device)
+            if self.family == "deepdfa":
+                return torch.sigmoid(torch.func.functional_call(module, params, (b,)))
+            logits = torch.func.functional_call(
+                module, params, (b.input_ids, b.graphs, b.has_graph))
+            return torch.softmax(logits, dim=-1)[:, 1]
+
+        return score
+
+    def _calibration_batches(self) -> list:
+        """The reference's deterministic calibration input: one packed
+        batch of `serve.quant_calibration_samples` real rows."""
+        n = max(1, int(self.cfg.serve.quant_calibration_samples))
+        if self.family == "deepdfa":
+            from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS
+
+            return [quant.calibration_graph_batch(
+                n, node_budget=1024, edge_budget=4096, feat_width=NUM_SUBKEY_FEATS,
+                input_dim=self.cfg.data.feat.input_dim, etypes=self.cfg.model.n_etypes > 1,
+                n_etypes=self.cfg.model.n_etypes)]
+        enc = self.model_cfg.encoder
+        cap = int(getattr(enc, "max_sequence_length", 0)
+                  or getattr(enc, "max_position_embeddings", 36) - 4)
+        return [quant.calibration_text_batch(
+            rows=n, seq_len=max(8, min(32, cap)), vocab_size=int(enc.vocab_size),
+            pad_id=int(enc.pad_token_id), node_budget=1024, edge_budget=4096)]
+
+    def _maybe_quantize(self, model: torch.nn.Module) -> torch.nn.Module:
+        """A plain entry passes through; an `@int8` one is quantized, its
+        calibration drift measured against the fp32 weights and refused
+        past `serve.quant_drift_bound`."""
+        if not self.quant_mode:
+            return model
+        params = model.state_dict()
+        heads = getattr(getattr(self.model_cfg, "encoder", None), "num_heads", None)
+        qtree = quant.quantize_params(params, num_heads=heads)
+        bound = float(self.cfg.serve.quant_drift_bound)
+        on_device = quant.tree_to(qtree, self.device)
+        try:
+            drift = quant.check_drift(self._score_fn(model), params, on_device,
+                                      self._calibration_batches(), bound)
+        except quant.QuantizationError as e:
+            raise RegistryError(str(e)) from e
+        report = quant.quant_report(params, qtree)
+        self.quant_drift = drift
+        self.quant_bytes_fraction = round(report.bytes_fraction, 4)
+        logger.info("quantized %s: %.0f -> %.0f param bytes (%.1f%%), calibration drift "
+                    "%.2e (bound %g)", self.checkpoint, report.bytes_fp32, report.bytes_quant,
+                    100 * report.bytes_fraction, drift, bound)
+        return quant.QuantizedModel(model, on_device)
 
     def _load_initial(self) -> None:
         sig = self._manifest_sig()
@@ -311,13 +382,18 @@ class ModelRegistry:
     # -- serving surface -----------------------------------------------------
 
     def model(self) -> torch.nn.Module:
-        """The served module (eval mode, on the device)."""
+        """The served module (eval mode, on the device; a
+        `QuantizedModel` for an `@int8` entry)."""
         with self._lock:
             return self._model
 
-    def params(self) -> dict[str, torch.Tensor]:
-        """The served module's weights."""
-        return self.model().state_dict()
+    def params(self) -> dict:
+        """The served weights: the module's state dict, or an `@int8`
+        entry's quantized tree."""
+        model = self.model()
+        if isinstance(model, quant.QuantizedModel):
+            return model.qtree
+        return model.state_dict()
 
     def maybe_reload(self) -> bool:
         """Poll the manifest; hot-swap when the tracked tag moved. Called
@@ -365,7 +441,7 @@ class ModelRegistry:
 
     def info(self) -> dict:
         """The /healthz payload: what is serving, from where, pinned how."""
-        return {
+        out = {
             "family": self.family,
             "run_dir": str(self.run_dir),
             "checkpoint": self.checkpoint,
@@ -375,3 +451,8 @@ class ModelRegistry:
             "hot_swaps": self.reloads,
             "device": str(self.device),
         }
+        if self.quant_mode:
+            out.update(quantized=self.quant_mode, quant_drift=self.quant_drift,
+                       quant_drift_bound=self.cfg.serve.quant_drift_bound,
+                       quant_param_bytes_fraction=self.quant_bytes_fraction)
+        return out

@@ -140,7 +140,7 @@ class ScoringService:
                     registry.model, node_budget, edge_budget, self.executor.sizes,
                     method=scfg.lines_method, n_steps=scfg.lines_steps,
                     top_k=scfg.lines_top_k, etypes=cfg.model.n_etypes > 1,
-                    device=registry.device)
+                    device=registry.device, pipeline_depth=scfg.pipeline_depth)
         else:
             from deepdfa_tpu_torch.serve.cascade import build_combined_service_parts
 
@@ -158,7 +158,8 @@ class ScoringService:
         self.batcher = DynamicBatcher(
             self.executor, queue_limit=scfg.queue_limit,
             max_batch_delay_s=scfg.max_batch_delay_ms / 1000.0,
-            on_batch=self.registry.maybe_reload if scfg.hot_swap else None)
+            on_batch=self.registry.maybe_reload if scfg.hot_swap else None,
+            pipeline_depth=scfg.pipeline_depth)
         self._status_lock = threading.Lock()
         self.status_counts: collections.Counter = collections.Counter()
         self.warmup_report = self.executor.warmup()

@@ -22,10 +22,13 @@ the reference's `is_t5` switch picks `defect_forward` (`:123-128,
   takes no gradient, no update and no weight decay (`train/transfer.py`).
 - Evaluation accumulates the exact masked mean of the per-row loss in
   float64 on the host, and the classification metrics on p(class 1).
-- `fit` runs epochs of a plain host loop: each batch is collated on the
-  host and copied to the device once, `train_step` runs, and the epoch
-  record (loss, host seconds, real-token throughput, padding waste, the
-  per-signature step counts) goes to `log_fn`; validation each epoch;
+- `fit` runs epochs through the prefetch pipeline (data/prefetch.py,
+  `train.prefetch_batches` ahead, 0 = inline, the same losses either
+  way): each batch is collated on the host and copied to the device
+  once by a producer thread, `train_step` runs, and the epoch record
+  (loss, the pipeline's host seconds, real-token throughput, padding
+  waste, the per-signature step counts) goes to `log_fn`; validation
+  each epoch;
   checkpoints on the reference's cadence, the best by `train.monitor`.
   With `data.seq_buckets` set, `fit` first builds the kernels and runs
   one forward and backward per bucket signature on an all-padding batch
@@ -35,9 +38,7 @@ the reference's `is_t5` switch picks `defect_forward` (`:123-128,
 Not in the port yet, and refused when configured: a mesh beyond one
 card, `train.resilience.enabled` (the divergence guard, step
 checkpoints, resume), the `obs` instruments and the MoE adapter
-(`moe_experts > 0`). The prefetch
-pipeline, `data.pack_workers`/`data.packed_cache` and
-`train.step_cache_entries` are read past.
+(`moe_experts > 0`). `train.step_cache_entries` is read past.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ import torch
 
 from deepdfa_tpu_torch.core.config import Config, refuse_unported_training
 from deepdfa_tpu_torch.core.device import resolve_device
+from deepdfa_tpu_torch.data.prefetch import DevicePlacer, PipelineStats, prefetch
 from deepdfa_tpu_torch.data.text import TextBatch, batch_token_counts, collate, rows_for_bucket
 from deepdfa_tpu_torch.models.combined import CombinedConfig, CombinedModel
 from deepdfa_tpu_torch.models.t5 import DefectConfig, DefectModel
@@ -230,6 +232,7 @@ class CombinedTrainer:
         max_epochs: int | None = None,
         log_fn: Callable[[dict], None] | None = None,
         seed: int = 0,
+        source_stage: str = "pack",
     ) -> TrainState:
         """Epochs over `train_batches(epoch)` (host TextBatches); step s
         drops with `fold_seed(seed, s)`."""
@@ -239,40 +242,48 @@ class CombinedTrainer:
         if warm and log_fn is not None:
             log_fn({"warmup_signatures": len(warm),
                     "warmup_seconds": round(sum(warm.values()), 3)})
+        placer = DevicePlacer(self.device)
         for epoch in range(max_epochs):
             t0 = time.perf_counter()
             losses = []
-            pack_s = place_s = 0.0
-            real = padded = rows = 0
-            source = iter(train_batches(epoch))
-            while True:
-                t_pull = time.perf_counter()
-                batch = next(source, None)
-                if batch is None:
-                    break
-                t_place = time.perf_counter()
-                r, p, n = batch_token_counts(batch.input_ids, batch.row_mask, self.pad_id)
-                real, padded, rows = real + r, padded + p, rows + n
-                batch = batch.to(self.device)
-                pack_s += t_place - t_pull
-                place_s += time.perf_counter() - t_place
-                losses.append(self.train_step(state, batch, fold_seed(seed, state.step)))
-                if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
-                    log_fn({"step": state.step, "loss": float(losses[-1])})
+            stats = PipelineStats()
+
+            def place(batch: TextBatch):
+                # token accounting on the host arrays, before the copy
+                stats.add_tokens(*batch_token_counts(batch.input_ids, batch.row_mask,
+                                                     self.pad_id))
+                return placer(batch)
+
+            source = train_batches(epoch)
+            stream = prefetch(source, tcfg.prefetch_batches, place,
+                              producers=tcfg.prefetch_producers, stats=stats,
+                              source_stage=getattr(source, "source_stage", source_stage))
+            try:
+                for item in stream:
+                    losses.append(self.train_step(state, placer.receive(item),
+                                                  fold_seed(seed, state.step)))
+                    if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
+                        log_fn({"step": state.step, "loss": float(losses[-1])})
+            finally:
+                stream.close()  # joins the producers on any exit
             train_loss = (float(np.mean(torch.stack(losses).cpu().numpy()))
                           if losses else float("nan"))
             epoch_seconds = time.perf_counter() - t0
+            real, padded, rows = stats.real_tokens, stats.padded_tokens, stats.rows
             record = {
                 "epoch": epoch,
                 "train_loss": train_loss,
                 "epoch_seconds": epoch_seconds,
-                "host_pack_seconds": round(pack_s, 3),
-                "host_place_seconds": round(place_s, 3),
+                "host_load_seconds": round(stats.load_seconds, 3),
+                "host_pack_seconds": round(stats.pack_seconds, 3),
+                "host_place_seconds": round(stats.place_seconds, 3),
+                "input_wait_seconds": round(stats.wait_seconds, 3),
+                "input_wait_fraction": round(stats.wait_fraction(epoch_seconds), 4),
                 "train_examples_per_sec": rows / epoch_seconds if epoch_seconds else None,
                 "train_tokens_per_sec": real / epoch_seconds if epoch_seconds else None,
                 "real_tokens": real,
                 "padded_tokens": padded,
-                "padding_waste": round(1.0 - real / padded, 4) if padded else 0.0,
+                "padding_waste": round(stats.padding_waste(), 4),
                 "step_signatures": {k: dict(v) for k, v in self.signature_stats.items()},
             }
             if val_batches is not None:

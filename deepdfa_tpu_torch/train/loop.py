@@ -7,15 +7,17 @@ reference's `deepdfa_tpu/train/loop.py:GraphTrainer`).
   B4 in reverse, nn/ggnn_kernel.py), and one optimiser update.
 - Evaluation accumulates an exact masked mean of the per-example loss
   in float64 on the host, and the classification metrics.
-- `fit` runs epochs of a plain host loop (each batch is packed on the
-  host and copied to the device once), evaluates every
-  `eval_every_epochs`, checkpoints on the reference's cadence and hands
-  each record to `log_fn`.
+- `fit` runs epochs through the prefetch pipeline (data/prefetch.py):
+  `train.prefetch_batches` batches are packed and copied to the card by
+  `train.prefetch_producers` background threads ahead of the step (a
+  pure reordering in time: the losses are the inline loop's bits, which
+  `prefetch_batches=0` runs), evaluates every `eval_every_epochs`,
+  checkpoints on the reference's cadence and hands each record (with
+  the pipeline's load, pack, place and wait seconds) to `log_fn`.
 
 Not in the port yet, and refused when configured: data parallelism or
 any mesh beyond one card, `train.resilience.enabled` (the guarded step,
-step checkpoints, resume), the obs instruments and the prefetch
-pipeline.
+step checkpoints, resume) and the obs instruments.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from deepdfa_tpu_torch.core.config import Config, refuse_unported_training
 from deepdfa_tpu_torch.core.device import resolve_device
+from deepdfa_tpu_torch.data.prefetch import DevicePlacer, PipelineStats, prefetch
 from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, GraphBatch
 from deepdfa_tpu_torch.train.checkpoint import CheckpointManager
 from deepdfa_tpu_torch.train.losses import (
@@ -183,34 +186,43 @@ class GraphTrainer:
         checkpoints: CheckpointManager | None = None,
         max_epochs: int | None = None,
         log_fn: Callable[[dict], None] | None = None,
+        source_stage: str = "pack",
     ) -> TrainState:
         tcfg = self.cfg.train
         max_epochs = max_epochs if max_epochs is not None else tcfg.max_epochs
+        placer = DevicePlacer(self.device)
         for epoch in range(max_epochs):
             t0 = time.perf_counter()
             losses = []
-            pack_s = place_s = 0.0
-            source = iter(train_batches(epoch))
-            while True:
-                t_pull = time.perf_counter()
-                batch = next(source, None)
-                if batch is None:
-                    break
-                t_place = time.perf_counter()
-                batch = batch.to(self.device)
-                pack_s += t_place - t_pull
-                place_s += time.perf_counter() - t_place
-                losses.append(self.train_step(state, batch))
-                if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
-                    log_fn({"step": state.step, "loss": float(losses[-1])})
+            stats = PipelineStats()
+            source = train_batches(epoch)
+            # a source may know which stage its pulls are (cli.BatchStream:
+            # "load" on a warm cache epoch, "pack" on a cold one)
+            stage = getattr(source, "source_stage", source_stage)
+            stream = prefetch(source, tcfg.prefetch_batches, placer,
+                              producers=tcfg.prefetch_producers, stats=stats,
+                              source_stage=stage)
+            try:
+                for item in stream:
+                    losses.append(self.train_step(state, placer.receive(item)))
+                    if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
+                        log_fn({"step": state.step, "loss": float(losses[-1])})
+            finally:
+                stream.close()  # joins the producers on any exit
             train_loss = (float(np.mean(torch.stack(losses).cpu().numpy()))
                           if losses else float("nan"))
+            epoch_seconds = time.perf_counter() - t0
             record = {
                 "epoch": epoch,
                 "train_loss": train_loss,
-                "epoch_seconds": time.perf_counter() - t0,
-                "host_pack_seconds": round(pack_s, 3),
-                "host_place_seconds": round(place_s, 3),
+                "epoch_seconds": epoch_seconds,
+                # host stage attribution: load/pack = the source, place =
+                # the host-to-device copy, wait = the step starved of input
+                "host_load_seconds": round(stats.load_seconds, 3),
+                "host_pack_seconds": round(stats.pack_seconds, 3),
+                "host_place_seconds": round(stats.place_seconds, 3),
+                "input_wait_seconds": round(stats.wait_seconds, 3),
+                "input_wait_fraction": round(stats.wait_fraction(epoch_seconds), 4),
             }
             if val_batches is not None and (
                 (epoch + 1) % tcfg.eval_every_epochs == 0 or epoch == max_epochs - 1

@@ -325,10 +325,11 @@ def test_score_combined_encodes_text_and_refuses_oversized():
                          device="cpu")
     with pytest.raises(ValueError, match="seq_buckets"):
         CombinedExecutor(model, tok, (), 256, 64, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        cfg = _serve_cfg()
-        score_combined(model, payloads, dataclasses.replace(
-            cfg, serve=dataclasses.replace(cfg.serve, pipeline_depth=2)), tok, device="cpu")
+    cfg = _serve_cfg()
+    piped = score_combined(model, payloads, dataclasses.replace(
+        cfg, serve=dataclasses.replace(cfg.serve, pipeline_depth=2)), tok, device="cpu")
+    assert piped["serve_scored"] == 2 and piped["probs"][2] is None
+    assert piped["probs"][:2] == direct
 
 
 def test_combined_config_loads_and_defaults_to_cuda():

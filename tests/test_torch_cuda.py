@@ -1672,3 +1672,97 @@ def test_served_lines_on_card_equal_the_offline_program(card):
         assert [d["line"] for d in lines] == [d["line"] for d in ref]
         np.testing.assert_allclose([d["score"] for d in lines], [d["score"] for d in ref],
                                    rtol=1e-5, atol=1e-7)
+
+
+# -- host speed: pinned copies, events, streams, int8 entries ------------------
+
+
+def test_pinned_batches_copy_without_blocking_and_keep_the_bits(card):
+    """`GraphBatch.pinned()` / `TextBatch.pinned()` lie in page-locked
+    memory, and `to(cuda, non_blocking=True)` from them gives the pageable
+    copy's tensors."""
+    from deepdfa_tpu_torch.data.text import collate
+
+    rng = np.random.default_rng(30)
+    b = pack(_graphs(rng, 6, n_etypes=2), 8, 512, 2048, etypes=True)
+    host = b.pinned()
+    assert host.node_feats.is_pinned() and host.edge_type.is_pinned()
+    fast, slow = host.to(card, non_blocking=True), b.to(card)
+    torch.cuda.synchronize()
+    for f in ("node_feats", "node_graph", "edge_src", "edge_dst", "edge_mask", "edge_type"):
+        assert torch.equal(getattr(fast, f), getattr(slow, f)), f
+    tb = collate(rng.integers(4, 100, (3, 16)).astype(np.int32), [0, 1, 0], [0, 1, 2],
+                 {0: _graphs(rng, 1)[0]}, 4, 256, 1024)
+    thost = tb.pinned()
+    assert thost.input_ids.is_pinned() and thost.graphs.node_feats.is_pinned()
+    moved = thost.to(card, non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(moved.input_ids.cpu(), torch.from_numpy(tb.input_ids))
+
+
+def test_pipelined_executor_waits_on_its_event_and_keeps_the_bits(card):
+    """The GGNN executor's dispatch returns before the card is done (a
+    pinned output behind a CUDA event), fetch waits on that event, and
+    depth 2 scores equal depth 0's bit for bit on the card."""
+    from deepdfa_tpu_torch.serve.batcher import DeviceResult
+
+    rng = np.random.default_rng(31)
+    specs = _graphs(rng, 21)
+    model = DeepDFA(52, 32, 5, generator=torch.Generator().manual_seed(1))
+    ex = GgnnExecutor(model, 1024, 4096, 4, device=card)
+    ex.warmup()
+    _, packed = ex.pack_chunk("graph", specs[:4])
+    assert packed[1].node_feats.is_pinned()
+    handle = ex.dispatch("graph", packed)
+    assert isinstance(handle, DeviceResult) and handle._event is not None
+    assert ex.fetch(handle, 4).shape == (4,)
+    want = [r.result for r in DynamicBatcher(ex, max_batch_delay_s=3600.0).score_all(specs)]
+    for depth in (1, 2):
+        got = DynamicBatcher(ex, max_batch_delay_s=3600.0, pipeline_depth=depth)
+        assert [r.result for r in got.score_all(specs)] == want
+        assert got.stats()["pipeline_in_flight_peak"] == depth
+
+
+def test_prefetched_training_keeps_the_losses_on_the_card(card):
+    """GraphTrainer.fit with prefetch 0 and 2 (two producers copying on a
+    side stream, the consumer waiting on each copy's event) gives the
+    same losses bit for bit on the card."""
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.graphs import shard_bucket_batches
+    from deepdfa_tpu_torch.train import GraphTrainer
+
+    rng = np.random.default_rng(32)
+    batches = list(shard_bucket_batches(_graphs(rng, 80), 8, 512, 2048))
+    out = []
+    for depth in (0, 2):
+        cfg = config_mod.apply_overrides(Config(), [
+            "model.hidden_dim=32", "model.n_steps=5", "train.log_every_steps=1",
+            f"train.prefetch_batches={depth}", "train.prefetch_producers=2"])
+        trainer = GraphTrainer(DeepDFA(52, 32, 5), cfg, total_steps=2 * len(batches),
+                               device=card)
+        state = trainer.init_state(seed=4)
+        logged = []
+        trainer.fit(state, lambda epoch: iter(batches), log_fn=logged.append, max_epochs=2)
+        out.append([r["loss"] for r in logged if "step" in r])
+    assert out[0] == out[1] and len(out[0]) == 2 * len(batches)
+
+
+def test_quantized_model_on_card_matches_the_cpu(card):
+    """An int8 tree served from the card: the dequantized weights are the
+    CPU's bit for bit, and the scores agree within fp32 tolerance."""
+    from deepdfa_tpu_torch.serve import quant
+
+    rng = np.random.default_rng(33)
+    model = DeepDFA(52, 32, 5, generator=torch.Generator().manual_seed(2)).eval()
+    qtree = quant.quantize_params(model.state_dict())
+    on_card = quant.QuantizedModel(DeepDFA(52, 32, 5), quant.tree_to(qtree, card))
+    on_cpu = quant.QuantizedModel(DeepDFA(52, 32, 5), qtree)
+    deq_card, deq_cpu = (quant.dequantize_params(m.qtree) for m in (on_card, on_cpu))
+    assert all(torch.equal(deq_card[k].cpu(), deq_cpu[k]) for k in deq_cpu)
+    b = pack(_graphs(rng, 8), 8, 1024, 4096)
+    before = gk.LAUNCHES
+    with torch.inference_mode():
+        got = on_card(b.to(card)).cpu()
+        want = on_cpu(b.to("cpu"))
+    assert gk.LAUNCHES - before == 5
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)

@@ -5,13 +5,16 @@ abstract-dataflow features, vocabularies and their encodings, on every
 function of tests/fidelity_corpus/, on non-ASCII sources and on seeded
 token soups; `labeled_diff` on tests/goldens/diff_labels.json.
 
-Tokens are held against the reference's Python lexer (its native lexer,
-taken by default where it is built, gives every token col 0); everything
-downstream against the reference's default path and its Python path.
-The two differ on a source that ends without a statement after its last
-newline: the native lexer puts the end-of-file token on the last token's
-line, the Python lexer on the line after, and a CPG node placed at the
-end of file moves with it. The port follows the Python lexer there."""
+Both packages take their native C++ lexer and solver by default
+("auto", for ASCII input), and each has its Python spec. The port's
+default path is held against the reference's default path, and the
+port's Python path (native switched off in both packages) against the
+reference's Python path. The two paths differ: native tokens carry col
+0, and on a source that ends without a statement after its last newline
+the native lexer puts the end-of-file token on the last token's line,
+the Python lexer on the line after, so a CPG node placed at the end of
+file moves with it. The port's native path equals the reference's
+native path there, token for token and node for node."""
 
 import contextlib
 import json
@@ -35,6 +38,7 @@ from deepdfa_tpu.frontend import reaching as ref_reaching  # noqa: E402
 from deepdfa_tpu.frontend import tokens as ref_tokens  # noqa: E402
 from deepdfa_tpu.frontend import vocab as ref_vocab  # noqa: E402
 
+from deepdfa_tpu_torch import native  # noqa: E402
 from deepdfa_tpu_torch.data import diffs  # noqa: E402
 from deepdfa_tpu_torch.frontend import (  # noqa: E402
     absdf,
@@ -104,14 +108,14 @@ def cpg_view(cpg) -> dict:
 
 
 @contextlib.contextmanager
-def reference_python_path():
-    """The reference's lexer and solver without its native library."""
-    available = ref_native.available
-    ref_native.available = lambda: False
+def python_paths():
+    """Both packages' lexer and solver without their native libraries."""
+    saved = ref_native.available, native.available
+    ref_native.available = native.available = lambda: False
     try:
         yield
     finally:
-        ref_native.available = available
+        ref_native.available, native.available = saved
 
 
 def parse_or_error(mod, code: str):
@@ -128,9 +132,11 @@ def parsed(code: str):
 
 
 @lru_cache(maxsize=None)
-def parsed_by_reference_python(code: str):
-    with reference_python_path():
-        return parse_or_error(ref_parser, code)
+def parsed_by_python(code: str):
+    """(reference CPG, port CPG) on both Python paths, or the exceptions'
+    class names."""
+    with python_paths():
+        return parse_or_error(ref_parser, code), parse_or_error(parser, code)
 
 
 def view(got):
@@ -148,6 +154,7 @@ def rd_view(in_sets: dict) -> dict:
 
 
 def test_sources_are_there():
+    assert native.available() and ref_native.available()
     assert len(CORPUS) >= 60
     assert sum(name.endswith(".cc") for name in CORPUS) >= 10
     assert not all(code.isascii() for code in UNICODE.values())
@@ -156,26 +163,55 @@ def test_sources_are_there():
 @pytest.mark.parametrize("name", sorted(SOURCES))
 def test_tokens_and_preprocessor_equal(name):
     code = SOURCES[name]
-    assert toks(tokens.tokenize(code)) == toks(ref_tokens.tokenize(code, backend="python"))
+    assert toks(tokens.tokenize(code)) == toks(ref_tokens.tokenize(code))
     assert toks(tokens.tokenize(code, backend="python")) == toks(
         ref_tokens.tokenize(code, backend="python"))
+    if code.isascii():
+        assert toks(tokens.tokenize(code, backend="native")) == toks(
+            ref_tokens.tokenize(code, backend="native"))
     assert tokens.strip_comments(code) == ref_tokens.strip_comments(code)
     assert preproc.evaluate_conditionals(code) == ref_preproc.evaluate_conditionals(code)
 
 
 def test_native_backends_are_refused():
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
-        tokens.tokenize("int x;", backend="native")
-    cpg = parser.parse_function(CORPUS["casts.c"])
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
-        reaching.ReachingDefinitions(cpg).solve(backend="native")
+    """`backend="native"` (refused before the port had its C++ library)
+    refuses only what the reference's refuses: non-ASCII input. On ASCII
+    it is the reference's native lexer and bitset solver, bit for bit,
+    and the raw bindings equal the reference's on the programs of
+    tests/test_native.py and its lexer edge cases."""
+    with pytest.raises(ValueError, match="ASCII"):
+        tokens.tokenize(UNICODE["identifiers"], backend="native")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tokens.tokenize("int x;", backend="rust")
+    from tests.test_native import PROGRAMS
+
+    edge_cases = ['char *s = "a\\"b\\\\";', "int x = 0xFF + 1.5e-3 - 07u;",
+                  "#define FOO(a) \\\n  (a+1)\nint y;", "/* multi\nline */ int z; // tail",
+                  "a <<= 2; b >>= 1; c ...", '"unterminated', "#define A /* multi\nline */ int q;",
+                  "#define C // tail comment\nint s;", "#define D \\\n  cont /* x\ny */ int t;"]
+    for code in PROGRAMS + edge_cases:
+        assert toks(native.lex_c_native(code)) == toks(ref_native.lex_c_native(code))
+        assert toks(tokens.tokenize(code, backend="native")) == toks(
+            ref_tokens.tokenize(code, backend="native"))
+    for code in PROGRAMS + [CORPUS["casts.c"]]:
+        port_rd = reaching.ReachingDefinitions(parser.parse_function(code))
+        ref_rd = ref_reaching.ReachingDefinitions(ref_parser.parse_function(code))
+        assert rd_view(port_rd.solve(backend="native")) == rd_view(
+            ref_rd.solve(backend="native"))
+        assert rd_view(port_rd.solve(backend="native")) == rd_view(
+            port_rd.solve(backend="python"))
+        nodes, _, src, dst = port_rd.dense_cfg()
+        def_var = np.array([i % 3 - 1 for i in range(len(nodes))], np.int32)
+        args = (len(nodes), np.array(src, np.int32), np.array(dst, np.int32), def_var)
+        assert native.rd_solve_native(*args) == ref_native.rd_solve_native(*args)
 
 
 @pytest.mark.parametrize("name", sorted(SOURCES))
 def test_cpg_equal(name):
     ref, port = both_cpgs(SOURCES[name])
     assert cpg_view(port) == cpg_view(ref)
-    assert cpg_view(port) == view(parsed_by_reference_python(SOURCES[name]))
+    ref_python, port_python = parsed_by_python(SOURCES[name])
+    assert view(port_python) == view(ref_python)
     assert port.cfg_nodes() == ref.cfg_nodes()
 
 
@@ -233,24 +269,26 @@ def test_vocabularies_and_encodings_equal(limit):
 @pytest.mark.parametrize("block", range(8))
 def test_token_soups_parse_or_fail_alike(block):
     """Seeded soups: both packages raise the same error, or give the same
-    CPG, reaching definitions, dependences and features; where the
-    reference's native and Python paths disagree, the port is the Python
-    path's and the two reference lexers differ in the end-of-file line
-    alone."""
-    n_parsed = 0
+    CPG, reaching definitions, dependences and features, on their default
+    (native) paths and on their Python paths; where the two paths
+    disagree, the port's native path is the reference's native path and
+    the two lexers differ in the end-of-file line alone."""
+    n_parsed = n_differ = 0
     for seed in range(block * N_SOUPS // 8, (block + 1) * N_SOUPS // 8):
         code = soup(seed)
-        want = toks(ref_tokens.tokenize(code, backend="python"))
+        want = toks(ref_tokens.tokenize(code))
         assert toks(tokens.tokenize(code)) == want
+        python_toks = toks(ref_tokens.tokenize(code, backend="python"))
+        assert toks(tokens.tokenize(code, backend="python")) == python_toks
         assert preproc.evaluate_conditionals(code) == ref_preproc.evaluate_conditionals(code)
         ref, port = parsed(code)
-        ref_python = view(parsed_by_reference_python(code))
-        assert view(port) == ref_python, (seed, code)
-        if view(ref) != ref_python:
-            native_toks = [t[:3] for t in toks(ref_tokens.tokenize(code))]
-            assert native_toks[:-1] == [t[:3] for t in want[:-1]], (seed, code)
-            assert native_toks[-1][:2] == ("eof", "") and native_toks[-1] != want[-1][:3]
-            continue
+        assert view(port) == view(ref), (seed, code)
+        ref_python, port_python = parsed_by_python(code)
+        assert view(port_python) == view(ref_python), (seed, code)
+        if view(ref) != view(ref_python):
+            n_differ += 1
+            assert [t[:3] for t in want[:-1]] == [t[:3] for t in python_toks[:-1]], (seed, code)
+            assert want[-1][:2] == ("eof", "") and want[-1][:3] != python_toks[-1][:3]
         if isinstance(ref, str):
             continue
         n_parsed += 1
@@ -259,7 +297,7 @@ def test_token_soups_parse_or_fail_alike(block):
         assert deps.data_dependences(port) == ref_deps.data_dependences(ref)
         assert deps.control_dependences(port) == ref_deps.control_dependences(ref)
         assert absdf.graph_features(port) == ref_absdf.graph_features(ref)
-    assert n_parsed > 0
+    assert n_parsed > 0 and n_differ <= 1
 
 
 #: other languages' spellings (the reference parses java, c#, js, go, php
@@ -295,9 +333,12 @@ def test_other_language_spellings_parse_as_c_alike(block):
     outcomes = set()
     for seed in range(block * N_OTHER // 4, (block + 1) * N_OTHER // 4):
         code = other_language_soup(seed)
-        assert toks(tokens.tokenize(code)) == toks(ref_tokens.tokenize(code, backend="python"))
+        assert toks(tokens.tokenize(code)) == toks(ref_tokens.tokenize(code))
+        assert toks(tokens.tokenize(code, backend="python")) == toks(
+            ref_tokens.tokenize(code, backend="python"))
         got = view(parse_or_error(parser, code))
-        assert got == view(parsed_by_reference_python(code)), (seed, code)
+        assert got == view(parse_or_error(ref_parser, code)), (seed, code)
+        assert view(parsed_by_python(code)[1]) == view(parsed_by_python(code)[0]), (seed, code)
         outcomes.add(isinstance(got, str))
     assert outcomes == {True, False}
 

@@ -80,7 +80,10 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.serve.cascade", "deepdfa_tpu_torch.serve.server",
         "deepdfa_tpu_torch.eval.calibrate", "deepdfa_tpu_torch.eval.codebleu",
         "deepdfa_tpu_torch.models.t5_gen", "deepdfa_tpu_torch.train.gen_loop",
-        "deepdfa_tpu_torch.train.clone_loop",
+        "deepdfa_tpu_torch.train.clone_loop", "deepdfa_tpu_torch.native",
+        "deepdfa_tpu_torch.native.build", "deepdfa_tpu_torch.serve.quant",
+        "deepdfa_tpu_torch.serve.localize", "deepdfa_tpu_torch.data.prefetch",
+        "deepdfa_tpu_torch.data.mp_pack", "deepdfa_tpu_torch.data.packed_cache",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
@@ -113,6 +116,30 @@ def test_no_source_imports_jax():
     bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f) if _forbidden(m))
            for f in files}
     assert {f: m for f, m in bad.items() if m} == {}
+
+
+def test_native_library_is_the_ports_own():
+    """The native lexer and solver build from the port's own copy of the
+    C++ source, into build/deepdfa_tpu_torch/, and the copy includes
+    nothing of the JAX package."""
+    from deepdfa_tpu_torch.native import build
+
+    assert build.SRC == PACKAGE / "native" / "src" / "native.cpp"
+    assert build.library_path().parent == ROOT / "build" / "deepdfa_tpu_torch"
+    assert build.library_path().name.startswith("libdeepdfa_native-")
+    source = build.SRC.read_text()
+    includes = [ln for ln in source.splitlines() if ln.startswith("#include")]
+    assert includes and all("<" in ln and "deepdfa" not in ln for ln in includes)
+    ref = (ROOT / "deepdfa_tpu" / "native" / "src" / "native.cpp").read_text()
+    # byte for byte below the header comment
+    assert source[source.index("#include"):] == ref[ref.index("#include"):]
+    probe = ("import sys; from deepdfa_tpu_torch import native; "
+             "assert native.available(); native.lex_c_native('int x;'); "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'flax', 'deepdfa_tpu')))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300, check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -145,9 +145,10 @@ def test_score_graphs_summary_on_cpu():
     for key in ("serve_seconds", "serve_requests_per_sec", "serve_latency_p50_ms",
                 "serve_latency_p99_ms", "serve_batch_occupancy_mean"):
         assert summary[key] > 0, key
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        score_graphs(model, specs, dataclasses.replace(
-            cfg, serve=dataclasses.replace(cfg.serve, pipeline_depth=2)), device="cpu")
+    piped = score_graphs(model, specs, dataclasses.replace(
+        cfg, serve=dataclasses.replace(cfg.serve, pipeline_depth=2)), device="cpu")
+    assert piped["serve_scored"] == 9 and piped["probs"][-1] is None
+    np.testing.assert_allclose(piped["probs"][:9], want, rtol=RTOL, atol=ATOL)
 
 
 def test_entry_points_default_to_cuda():

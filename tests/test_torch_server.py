@@ -176,8 +176,7 @@ def test_request_log_and_hot_swap_through_the_service(run):
     assert all(e["frontend_ms"] >= 0 and e["batch_size"] == 1 for e in entries)
 
 
-@pytest.mark.parametrize("override, item", [
-    ("serve.use_joern=true", "item 3"), ("serve.pipeline_depth=2", "item 6")])
+@pytest.mark.parametrize("override, item", [("serve.use_joern=true", "item 3")])
 def test_unported_serving_options_are_refused(run, override, item):
     cfg, run_dir, _, _ = run
     bad = config_mod.apply_overrides(cfg, [override])
@@ -272,10 +271,80 @@ def test_cascade_mode_answers_through_the_handler(run, tmp_path):
     assert sum("cascade_stage2_ms" in e for e in entries) == n2
 
 
+def test_pipelined_service_scores_as_serial(run):
+    """`serve.pipeline_depth=2` (refused before the pipelined batcher and
+    localizer were ported): the service's scores and line attributions
+    are the serial service's bits, its `/stats` carry the pipeline's
+    counters, and a started pipelined server answers as the serial one."""
+    cfg, run_dir, small, _ = run
+    # no flush timer offline: both services form the same batches
+    lines = ["serve.lines=true", "serve.lines_top_k=0", "serve.max_batch_delay_ms=3600000"]
+    serial_cfg = config_mod.apply_overrides(cfg, lines)
+    piped_cfg = config_mod.apply_overrides(cfg, lines + ["serve.pipeline_depth=2"])
+    serial = ScoringService(ModelRegistry(run_dir, cfg=serial_cfg, device="cpu"), serial_cfg)
+    piped = ScoringService(ModelRegistry(run_dir, cfg=piped_cfg, device="cpu"), piped_cfg)
+    try:
+        names = [(f"f{i}.c", c) for i, c in enumerate(small)]
+        want, got = score_texts(serial, names), score_texts(piped, names)
+        assert [r["prob"] for r in got] == [r["prob"] for r in want]
+        feats = [piped.frontend.features_full(c) for c in small]
+        assert piped.localizer.pipeline_depth == 2
+        assert piped.localizer.attribute_all(feats) == serial.localizer.attribute_all(feats)
+        stats = piped.stats()
+        assert stats["pipeline_depth"] == 2 and stats["pipeline_in_flight"] == 0
+        assert 1 <= stats["pipeline_in_flight_peak"] <= 2
+        assert stats["batches"] == serial.stats()["batches"]
+        assert stats["pipeline_device_busy_s"] > 0
+    finally:
+        serial.close()
+        piped.close()
+    server = _server(run, "serve.pipeline_depth=2")
+    try:
+        got = [server.request("POST", "/score", {"code": c}) for c in small[:4]]
+        assert all(st == 200 for st, _ in got)
+        np.testing.assert_allclose([b["prob"] for _, b in got],
+                                   [r["prob"] for r in want[:4]], rtol=RTOL, atol=ATOL)
+        assert server.request("GET", "/stats")[1]["pipeline_depth"] == 2
+    finally:
+        server.close()
+
+
 def test_a_quantized_checkpoint_tag_is_refused(run):
-    cfg, run_dir, _, _ = run
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ModelRegistry(run_dir, checkpoint="best@int8", cfg=cfg, device="cpu")
+    """A `tag@int8` entry (refused outright before serve/quant.py was
+    ported) is refused only past `serve.quant_drift_bound`, loudly, naming
+    tensors; within it, the registry serves the quantized tree (int8
+    weights, fp32 scales, bf16 vectors), reports its drift and bytes
+    fraction on `/healthz`, and scores within the drift bound of the fp32
+    entry."""
+    from deepdfa_tpu_torch.serve import quant
+    from deepdfa_tpu_torch.serve.registry import RegistryError
+
+    cfg, run_dir, small, _ = run
+    tight = config_mod.apply_overrides(cfg, ["serve.quant_drift_bound=1e-12"])
+    with pytest.raises(RegistryError, match="quant_drift_bound") as err:
+        ModelRegistry(run_dir, checkpoint="best@int8", cfg=tight, device="cpu")
+    assert "ggnn." in str(err.value) or "embedding." in str(err.value)
+    registry = ModelRegistry(run_dir, checkpoint="best@int8", cfg=cfg, device="cpu")
+    assert isinstance(registry.model(), quant.QuantizedModel)
+    qtree = registry.params()
+    assert qtree["ggnn.gru.input_kernel"]["int8"].dtype == torch.int8
+    assert qtree["ggnn.gru.input_bias"].dtype == torch.bfloat16
+    info = registry.info()
+    assert info["checkpoint"] == "best@int8" and info["quantized"] == "int8"
+    assert 0 <= info["quant_drift"] <= info["quant_drift_bound"] == 5e-2
+    assert 0.25 < info["quant_param_bytes_fraction"] < 0.5
+    service = ScoringService(registry, cfg)
+    plain = ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), cfg)
+    try:
+        names = [(f"f{i}.c", c) for i, c in enumerate(small)]
+        got = [r["prob"] for r in score_texts(service, names)]
+        want = [r["prob"] for r in score_texts(plain, names)]
+        assert got != want
+        np.testing.assert_allclose(got, want, atol=5e-2)
+        assert service.healthz()["quant_drift"] == info["quant_drift"]
+    finally:
+        service.close()
+        plain.close()
 
 
 def test_combined_family_scores_sources_as_score_combined(run):
