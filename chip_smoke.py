@@ -250,6 +250,26 @@ prints one JSON line; any failure exits non-zero before the last line.
    the default) to the bit, the loop's graphs/s and the epochs' host
    load, pack, place and wait seconds; a window of 24 steps at prefetch
    0 and 2 under torch.profiler (device busy time, idle share);
+7w. struct_feats — the structural-feature GGNN at the flagship recipe's
+   width (scripts/train_flagship.py: hidden 32, 5 steps, cfg+dep,
+   struct channels; d = 9 x 32 = 288): `cli extract` (a subprocess) of
+   the pipeline's first 1024 functions with data.feat.struct_feats=true
+   (9 columns a node, each struct column inside its vocabulary), `cli
+   train` of one epoch on the card (finite losses; kernel 1, B3, B4
+   n_steps times a step), `cli score` of the test functions on the card
+   and the CPU plain path (rtol 1e-4, atol 1e-5); then kernel 1 under
+   every policy and scatter, kernel 2, B3 (and its input-only form) and
+   B4 at d 288 and T 3 on the flagship batch against their plain
+   versions, kernels 1, 2, B3 and B4 timed beside their bounds;
+7x. scan — `cli scan --lines` on the card with that run over a
+   repository of 320 of its functions in 40 files (nested directories,
+   a decoy in .git and third_party, a generated file past
+   scan.max_file_kb): cold, then after one function is edited (one
+   extraction, the rest reused, the unedited findings unchanged); both
+   SARIF documents valid, every finding attributed to lines inside its
+   function and its probability `cli score`'s for the same function
+   (rtol 1e-4, atol 1e-5); the seconds by stage and functions/s of both
+   scans;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -374,21 +394,24 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the thirty-five main
+21. kernels — every kernel with its launches on the thirty-eight main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
    four of 7g-7h, tune, tune_train, pipeline, serve_source,
    train_attn_saved, cascade_train, cascade, localize_ggnn, serve_lines,
    localize_combined, localize_t5, serve_pipelined,
-   serve_lines_pipelined, serve_int8_entry, cascade_int8 and
-   train_prefetch,
+   serve_lines_pipelined, serve_int8_entry, cascade_int8,
+   train_prefetch, struct_train, struct_score and scan,
    each counted from 0, and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
    1's instances (the mxu rows add their fold instance's fold_ms),
    ggnn_fused and ggnn_fused_mxu kernel 2's (fp32 without the chain,
-   by_policy and chain the rest).
+   by_policy and chain the rest); the d288 entry of the ggnn_step,
+   ggnn_fused, ggnn_gru_bwd and ggnn_dmsg rows holds their time, plain
+   time, bound and error at d 288 (phase 7w) and their launches on the
+   struct_feats and scan paths, which run only the d 288 model.
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -452,7 +475,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: the script's start on the host clock; each phase line carries its
+#: seconds since (`t_s`), so a run shows where its time limit goes
+T_START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    if "phase" in record:
+        record = {**record, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(record), flush=True)
 
 
@@ -2323,8 +2353,9 @@ ATTN_SAVED_TIMED = 3
 CASCADE_TARGET_ESCALATION = 0.3
 CASCADE_HTTP_SEED = 17
 #: test functions of the cascade's CPU run (its stage 2 at codebert-base
-#: width costs ~1.4 s an escalated row on the host)
-CASCADE_CPU_FUNCTIONS = 64
+#: width costs ~1.4 s an escalated row on the host; 64 until the
+#: struct_feats and scan phases came, which it made room for)
+CASCADE_CPU_FUNCTIONS = 32
 
 
 def pipeline_split(tmp: Path, split: str) -> list:
@@ -2913,7 +2944,9 @@ LOCALIZE_SCORE_TOL = 1e-4
 LOCALIZE_TOKEN_TOL = {"card_fp32_vs_cpu": 1e-3, "bf16_vs_fp32": 5e-2,
                       "t5_card_fp32_vs_cpu": COMBINED_TRAIN_GRAD_TOL}
 LOCALIZE_TIMED = 5
-LOCALIZE_COMBINED_LIMIT = 16
+#: functions of `cli localize` (cut from 32 to 16, then to 8 when the
+#: struct_feats and scan phases came: the script's time limit)
+LOCALIZE_COMBINED_LIMIT = 8
 LOCALIZE_CLI_EVALS = {"attention": 0, "saliency": 1, "input_x_gradient": 1, "lig": 20,
                       "deeplift": 20, "deeplift_shap": 8 * 5, "gradient_shap": 8}
 LOCALIZE_CHECK_STEPS = 4
@@ -3928,6 +3961,362 @@ def train_prefetch_phase(torch, tmp: Path, smi: str) -> dict:
                   launches=paths["train_prefetch"])
     emit(report)
     return paths
+
+
+#: struct_feats: the pipeline's first STRUCT_FUNCTIONS functions as a
+#: dataset of their own, extracted with the structural channels and
+#: trained at the flagship recipe (scripts/train_flagship.py: hidden 32,
+#: 5 steps, cfg+dep, struct channels: d = 9 x 32 = 288) for one epoch;
+#: `cli score` of its test functions runs at the serve budgets below, so
+#: the CPU plain pass stays short
+STRUCT_FUNCTIONS = 1024
+STRUCT_DATASET = "pipeline-struct"
+STRUCT_RUN = "struct"
+STRUCT_OVERRIDES = ["model.struct_feats=true", "data.feat.struct_feats=true",
+                    'data.gtype="cfg+dep"', "model.n_etypes=3", "model.hidden_dim=32",
+                    "model.n_steps=5", "train.max_epochs=1", "train.log_every_steps=1",
+                    "data.undersample=false"]
+STRUCT_SERVE = ["serve.node_budget=4096", "serve.edge_budget=16384"]
+#: scan: SCAN_FUNCTIONS of the struct dataset's functions, SCAN_PER_FILE a
+#: file, over nested directories, plus a decoy in an excluded directory and
+#: a generated file past scan.max_file_kb
+SCAN_FUNCTIONS = 320
+SCAN_PER_FILE = 8
+
+
+def struct_feats_phase(torch, tmp: Path, smi: str) -> dict:
+    """The structural-feature GGNN at the flagship recipe's width on the
+    pipeline's storage root `tmp`: `cli extract` (a subprocess) of its
+    first STRUCT_FUNCTIONS functions with `data.feat.struct_feats=true`
+    (every node 4 + 5 columns, each struct column inside its vocabulary),
+    `cli train` of one epoch on the card (d 288: kernel 1 n_steps times a
+    forward batch, B3 and B4 n_steps times a backward batch, finite falling
+    losses) and `cli score` of the test split's functions on the card and
+    on the CPU plain path (fp32 gate). Then kernels 1 (fp32, every policy
+    checked), 2, B3 and B4 at d 288 against their plain versions on the
+    flagship batch with T 3 (the recipe's cfg+dep), timed beside their
+    bounds. Returns (the launches of the train and score runs, the d 288
+    rows)."""
+    import io
+    import pickle
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.data import load_examples
+    from deepdfa_tpu_torch.frontend.structfeat import STRUCT_VOCAB
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    t_phase = time.perf_counter()
+    pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    src_dir = tmp / "processed" / pcfg.data.dataset
+    out = tmp / "processed" / STRUCT_DATASET
+    out.mkdir(parents=True)
+    examples = load_examples(src_dir / "examples.pkl")[:STRUCT_FUNCTIONS]
+    ids = {str(e.id) for e in examples}
+    with (out / "examples.pkl").open("wb") as f:
+        pickle.dump(examples, f)
+    splits = {k: v for k, v in json.loads((src_dir / "splits.json").read_text()).items()
+              if k in ids}
+    (out / "splits.json").write_text(json.dumps(splits))
+    cfg = config_mod.apply_overrides(load(FLAGSHIP_CONFIG), [
+        f'run_name="{STRUCT_RUN}"', f'data.dataset="{STRUCT_DATASET}"', *STRUCT_OVERRIDES])
+    d = cfg.model.hidden_dim * (4 + len(STRUCT_VOCAB))
+    report: dict = {"phase": "struct_feats", "nvidia_smi": smi, "functions": len(examples),
+                    "d": d, "n_etypes": cfg.model.n_etypes}
+    with storage_root(tmp) as env:
+        cfg_path = tmp / "struct.json"
+        config_mod.to_json(cfg, cfg_path)
+        extract_s = run_port_cli(["extract", "--workers", str(PIPELINE_WORKERS), "--config",
+                                  str(cfg_path)], env)
+        store_dir = out / cli.graphs_dirname(cfg)
+        graphs = GraphStore(store_dir).load_all()
+        feats = np.concatenate([g.node_feats for g in graphs.values()])
+        struct = feats[:, 4:]
+        if feats.shape[1] != 9 or not all(
+                0 <= struct[:, j].min() and struct[:, j].max() < v
+                for j, v in enumerate(STRUCT_VOCAB)):
+            fail(f"struct_feats: features {feats.shape}, struct columns outside "
+                 f"{STRUCT_VOCAB}")
+        if any(g.edge_type is None for g in graphs.values()):
+            fail("struct_feats: a cfg+dep graph without edge types")
+        report.update(graphs=len(graphs), nodes=int(feats.shape[0]), extract_seconds=extract_s,
+                      struct_histogram=[np.bincount(struct[:, j], minlength=v).tolist()
+                                        for j, v in enumerate(STRUCT_VOCAB)])
+
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["train", "--config", str(cfg_path), "--device", CARD])
+        train_s = time.perf_counter() - t0
+        train_counts = gk.launch_counts()
+        run = tmp / "runs" / STRUCT_RUN
+        log = [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in log if "step" in r]
+        steps = len(losses)
+        n_steps = cfg.model.n_steps
+        val_batches = len(cli.epoch_batches(cfg, cli.load_graph_splits(cfg)["val"],
+                                            phase="eval"))
+        want = {"LAUNCHES": n_steps * (steps + val_batches), "GRU_BWD_LAUNCHES": n_steps * steps,
+                "DMSG_LAUNCHES": n_steps * steps}
+        if steps < 2 or not all(math.isfinite(x) for x in losses) or \
+                {k: train_counts[k] for k in want} != want:
+            fail(f"struct_feats: train ran {steps} steps, losses {losses}, launched "
+                 f"{train_counts}, expected {want}")
+        model_cfg = config_mod.load(run / "config.json").model
+        if not model_cfg.struct_feats:
+            fail("struct_feats: the run's config lost model.struct_feats")
+        report.update(train_seconds=train_s, train_steps=steps, train_losses=losses,
+                      train_launches={k: train_counts[k] for k in want})
+
+        # cli score of the test split's functions, on the card, then on the CPU
+        test_ids = sorted(int(k) for k, v in splits.items() if v == "test" and int(k) in graphs)
+        by_id = {e.id: e for e in examples}
+        fns = tmp / "struct_src"
+        names = write_sources(fns, [by_id[i] for i in test_ids])
+        serve_args = ["--override", f'run_name="{STRUCT_RUN}"',
+                      *(a for o in STRUCT_SERVE for a in ("--override", o))]
+        gk.reset_launch_counts()
+        card = cli_summary(cli, ["score", str(fns), "--out", str(tmp / "struct_card.jsonl"),
+                                 "--device", CARD, *serve_args])
+        score_counts = gk.launch_counts()
+        cpu = cli_summary(cli, ["score", str(fns), "--out", str(tmp / "struct_cpu.jsonl"),
+                                "--device", "cpu", *serve_args])
+        card_rows = score_rows(tmp / "struct_card.jsonl")
+        cpu_rows = score_rows(tmp / "struct_cpu.jsonl")
+        if not all(card_rows[n]["ok"] and cpu_rows[n]["ok"] for n in names):
+            fail("struct_feats: a test function failed to score")
+        card_p = np.array([card_rows[n]["prob"] for n in names])
+        cpu_p = np.array([cpu_rows[n]["prob"] for n in names])
+        err = float(np.abs(card_p - cpu_p).max())
+        if not np.all(np.isfinite(card_p)) or not np.allclose(card_p, cpu_p, rtol=RTOL,
+                                                               atol=ATOL):
+            fail(f"struct_feats: card vs CPU probabilities differ by up to {err}")
+        if score_counts["LAUNCHES"] <= 0 or score_counts["LAUNCHES"] % n_steps:
+            fail(f"struct_feats: cli score launched {score_counts}")
+        report["score"] = {
+            "functions": len(names), "card_vs_cpu_max_abs_err": err,
+            **{f"card_{k}": card[k] for k in ("serve_seconds", "serve_requests_per_sec",
+                                              "serve_batches", "ggnn_step_launches")},
+            "cpu_serve_seconds": cpu["serve_seconds"]}
+
+    # the kernels at d 288 on the flagship batch, T 3 as the recipe runs
+    rng = np.random.default_rng(23)
+    gen = torch.Generator().manual_seed(23)
+    t = cfg.model.n_etypes
+    b, edges, h, params = ggnn_case(torch, gen, full_batch(rng, 16384, 65536, t), t, d)
+    n, e_live = b.node_budget, int(b.edge_mask.sum())
+    tedges = gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, b.edge_type, n, t,
+                              transpose=True)
+    wm, _, wih, whh, bih, bhh = params
+    a = torch.randn(n, d, generator=gen).to(CARD)
+    g = (torch.randn(n, d, generator=gen) * 1e-2).to(CARD)
+    errs = {}
+    with torch.inference_mode():
+        for accum in ("fp32", "bf16", "int8"):
+            for scatter in ("fold", "mxu"):
+                kw = dict(accum=accum, scatter=scatter)
+                h_k, a_k = gk.ggnn_step(h, edges, *params, with_aggregate=True, **kw)
+                want_h, want_a = gk.ggnn_step_plain(
+                    h, edges, *params, accum, scatter,
+                    gk.edge_block(b.edge_budget) if scatter == "mxu" else 0)
+                torch.cuda.synchronize()
+                errs[f"step_{accum}_{scatter}"] = max(
+                    step_check(torch, f"struct_feats d {d} step {accum} {scatter} {w}", x, y)
+                    for w, x, y in (("h", h_k, want_h), ("a", a_k, want_a)))
+        h_f, _ = gk.ggnn_fused(h, edges, *params, n_steps=n_steps)
+        states = [h]
+        for _ in range(n_steps):
+            states.append(gk.ggnn_step(states[-1], edges, *params)[0])
+        plain_f, _ = gk.ggnn_fused_plain(h, edges, *params, n_steps=n_steps)
+        torch.cuda.synchronize()
+        if not torch.equal(h_f, states[-1]):
+            fail(f"struct_feats: kernel 2 at d {d} differs from {n_steps} launches of kernel 1")
+        errs["fused"] = step_check(torch, f"struct_feats d {d} fused", h_f, plain_f)
+        got_b3 = gk.gru_bwd(h, a, wih, whh, bih, bhh, g)
+        want_b3 = gk.gru_bwd_plain(h, a, wih, whh, bih, bhh, g)
+        got_in = gk.gru_bwd(h, a, wih, whh, bih, bhh, g, weights=False)
+        got_b4 = gk.dmsg(a, tedges, wm, got_b3[1].clone())
+        want_b4 = gk.dmsg_plain(a, tedges, wm, got_b3[1].clone())
+        torch.cuda.synchronize()
+        errs["gru_bwd"] = 0.0
+        for what, x, y in zip(("da", "dh", "dwih", "dwhh", "dbih", "dbhh"), got_b3, want_b3):
+            tol = ATOL * max(1.0, y.abs().max().item()) if what[:2] in ("dw", "db") else ATOL
+            err = (x - y).abs().max().item()
+            if not torch.isfinite(x).all() or not torch.allclose(x, y, rtol=RTOL, atol=tol):
+                fail(f"struct_feats: B3 at d {d} {what} differs from the plain version by {err}")
+            errs["gru_bwd"] = max(errs["gru_bwd"], err)
+        if not (torch.equal(got_in[0], got_b3[0]) and torch.equal(got_in[1], got_b3[1])):
+            fail(f"struct_feats: B3's input-only form at d {d} changed da or dh")
+        errs["dmsg"] = step_check(torch, f"struct_feats d {d} B4", got_b4, want_b4)
+        rows = {
+            "ggnn_step": {"ms": median_ms(torch, lambda: gk.ggnn_step(h, edges, *params)),
+                          "plain_ms": median_ms(torch, lambda: gk.ggnn_step_plain(
+                              h, edges, *params)),
+                          **dict(zip(("bound_ms", "bound_by"),
+                                     step_bound(n, e_live, d, t, with_aggregate=False)))},
+            "ggnn_fused": {"ms": median_ms(torch, lambda: gk.ggnn_fused(
+                               h, edges, *params, n_steps=n_steps)),
+                           "plain_ms": median_ms(torch, lambda: gk.ggnn_fused_plain(
+                               h, edges, *params, n_steps=n_steps)),
+                           **dict(zip(("bound_ms", "bound_by"),
+                                      fused_bound(n, e_live, d, t, "fp32", n_steps, False))),
+                           **fused_grid(torch, gk, "fp32", "fold", n, d)},
+            "ggnn_gru_bwd": {"ms": median_ms(torch, lambda: gk.gru_bwd(h, a, wih, whh, bih, bhh,
+                                                                       g)),
+                             "plain_ms": median_ms(torch, lambda: gk.gru_bwd_plain(
+                                 h, a, wih, whh, bih, bhh, g)),
+                             "input_only_ms": median_ms(torch, lambda: gk.gru_bwd(
+                                 h, a, wih, whh, bih, bhh, g, weights=False)),
+                             **dict(zip(("bound_ms", "bound_by"), gru_bwd_bound(n, d)))},
+        }
+        dh = got_b3[1].clone()
+        rows["ggnn_dmsg"] = {"ms": median_ms(torch, lambda: gk.dmsg(a, tedges, wm, dh)),
+                             "plain_ms": median_ms(torch, lambda: gk.dmsg_plain(
+                                 a, tedges, wm, dh)),
+                             **dict(zip(("bound_ms", "bound_by"),
+                                        dmsg_bound(n, e_live, d, t, add=True)))}
+    for name, row in rows.items():
+        row["max_abs_err"] = errs[{"ggnn_step": "step_fp32_fold", "ggnn_fused": "fused",
+                                   "ggnn_gru_bwd": "gru_bwd", "ggnn_dmsg": "dmsg"}[name]]
+    report.update(kernels={"n": n, "e": b.edge_budget, "e_live": e_live, "d": d, "n_etypes": t,
+                           "max_abs_err": errs, "rows": rows},
+                  phase_seconds=time.perf_counter() - t_phase)
+    paths = {"struct_train": {"ggnn_step": train_counts["LAUNCHES"],
+                              "ggnn_gru_bwd": train_counts["GRU_BWD_LAUNCHES"],
+                              "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]},
+             "struct_score": {"ggnn_step": score_counts["LAUNCHES"]}}
+    report["launches"] = paths
+    emit(report)
+    return paths, rows
+
+
+def scan_phase(torch, tmp: Path, smi: str) -> dict:
+    """`cli scan --lines` on the card with the struct_feats phase's run
+    (d 288) over a repository written from SCAN_FUNCTIONS of its
+    functions: cold (every function extracted, scored and attributed:
+    kernel 1, B3 and B4 at d 288, counted from 0), then again after one
+    function is edited (one extraction, every other function reused).
+    Each scan's SARIF valid, every finding's probability the one `cli
+    score` gives the same function on the card (fp32 gate) and every
+    finding of the re-scan the cold scan's but the edited one. Returns
+    the cold scan's launches."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.data import load_examples
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.scan import validate_sarif
+    from deepdfa_tpu_torch.scan.walker import split_functions
+
+    t_phase = time.perf_counter()
+    examples = load_examples(tmp / "processed" / STRUCT_DATASET / "examples.pkl")
+    examples = examples[-SCAN_FUNCTIONS:]
+    repo = tmp / "scan_repo"
+    for k in range(0, len(examples), SCAN_PER_FILE):
+        sub = repo / "src" / ("core" if k % (2 * SCAN_PER_FILE) == 0 else "util") / \
+            f"part_{k // (4 * SCAN_PER_FILE)}"
+        sub.mkdir(parents=True, exist_ok=True)
+        (sub / f"mod_{k // SCAN_PER_FILE:03d}.c").write_text(
+            "\n".join(e.code for e in examples[k:k + SCAN_PER_FILE]) + "\n")
+    (repo / ".git").mkdir()
+    (repo / ".git" / "decoy.c").write_text("int decoy(void) { return 1; }\n")
+    (repo / "third_party").mkdir()
+    (repo / "third_party" / "vendored.c").write_text("int vendored(void) { return 2; }\n")
+    (repo / "gen").mkdir()
+    (repo / "gen" / "amalgamated.c").write_text("int filler;\n" * (1024 * 1024 // 12 + 1))
+    # each function alone, for `cli score`
+    fns = tmp / "scan_fns"
+    fns.mkdir()
+    spans = {}
+    for path in sorted(repo.glob("src/**/*.c")):
+        for sp in split_functions(path.read_text()):
+            rel = path.relative_to(repo).as_posix()
+            spans[(rel, sp.name, sp.start_line)] = sp
+            (fns / f"{len(spans):04d}.c").write_text(sp.code)
+    run_arg = ["--override", f'run_name="{STRUCT_RUN}"',
+               *(a for o in STRUCT_SERVE for a in ("--override", o))]
+    report: dict = {"phase": "scan", "nvidia_smi": smi, "functions_written": len(examples),
+                    "files": len(list(repo.glob("src/**/*.c"))), "functions_split": len(spans)}
+    with storage_root(tmp):
+        gk.reset_launch_counts()
+        cold = cli_summary(cli, ["scan", str(repo), "--lines", "--device", CARD, *run_arg])
+        counts = gk.launch_counts()
+        findings = [json.loads(x) for x in Path(cold["scores_path"]).read_text().splitlines()]
+        sarif_cold = json.loads(Path(cold["sarif_path"]).read_text())
+        score = cli_summary(cli, ["score", str(fns), "--out", str(tmp / "scan_scores.jsonl"),
+                                  "--device", CARD, *run_arg])
+        # one statement into the second function of the first file: its
+        # later functions move down a line, their bytes unchanged
+        target = sorted(repo.glob("src/**/*.c"))[0]
+        text = target.read_text()
+        edited = split_functions(text)[1]
+        lines = text.split("\n")
+        lines.insert(edited.start_line, "  int scan_smoke_edited = 1;")
+        target.write_text("\n".join(lines))
+        edited_file, edited_fn = target.relative_to(repo).as_posix(), edited.name
+        incr = cli_summary(cli, ["scan", str(repo), "--lines", "--device", CARD, *run_arg])
+        findings2 = [json.loads(x) for x in Path(incr["scores_path"]).read_text().splitlines()]
+        sarif_incr = json.loads(Path(incr["sarif_path"]).read_text())
+    rows = score_rows(tmp / "scan_scores.jsonl")
+    by_code = {sp.code: rows[str(fns / f"{k + 1:04d}.c")] for k, sp in enumerate(spans.values())}
+    problems = validate_sarif(sarif_cold) + validate_sarif(sarif_incr)
+    if problems:
+        fail(f"scan: invalid SARIF: {problems}")
+    n = len(spans)
+    if (cold["scan_functions"] != n or cold["scan_extracted"] != n or cold["scan_reused"]
+            or cold["scan_scored"] != n or cold["scan_files"] != report["files"]
+            or cold["scan_files_skipped"] != 1):
+        fail(f"scan: the cold scan's counts {cold} do not match {n} functions in "
+             f"{report['files']} files and one oversized file")
+    if incr["scan_extracted"] != 1 or incr["scan_reused"] != n - 1 or \
+            incr["scan_functions"] != n:
+        fail(f"scan: the re-scan after one edit extracted {incr['scan_extracted']} and "
+             f"reused {incr['scan_reused']} of {n}")
+    if not all(f["ok"] and f.get("lines") for f in findings):
+        fail("scan: a finding without a probability or line attributions")
+    worst = 0.0
+    for f in findings:
+        sp = spans[(f["file"], f["function"], f["start_line"])]
+        row = by_code[sp.code]
+        if not row["ok"]:
+            fail(f"scan: cli score could not score {f['function']} of {f['file']}")
+        err = abs(f["prob"] - row["prob"])
+        worst = max(worst, err)
+        if err > ATOL + RTOL * abs(row["prob"]):
+            fail(f"scan: {f['file']}:{f['function']} scanned {f['prob']}, scored {row['prob']}")
+        if not all(sp.start_line <= la["line"] <= sp.end_line for la in f["lines"]):
+            fail(f"scan: a line attribution of {f['function']} lies outside its function")
+    same = {(f["file"], f["function"]): f["prob"] for f in findings}
+    changed = [f for f in findings2 if (f["file"], f["function"]) != (edited_file, edited_fn)
+               and f["prob"] != same[(f["file"], f["function"])]]
+    if changed:
+        fail(f"scan: the re-scan changed {len(changed)} unedited findings")
+    for k in ("ggnn_step", "ggnn_gru_bwd", "ggnn_dmsg"):
+        key = {"ggnn_step": "LAUNCHES", "ggnn_gru_bwd": "GRU_BWD_LAUNCHES",
+               "ggnn_dmsg": "DMSG_LAUNCHES"}[k]
+        if counts[key] <= 0:
+            fail(f"scan: the cold scan launched {k} no time: {counts}")
+    split = ("walk", "split", "frontend", "score", "attribute", "write")
+    report.update(
+        cold={**{k: cold[f"scan_{k}"] for k in ("seconds", "functions_per_sec", "findings",
+                                                "cache_hit_fraction")},
+              "seconds_by_stage": {s: cold[f"scan_{s}_seconds"] for s in split}},
+        incremental={**{k: incr[f"scan_{k}"] for k in ("seconds", "functions_per_sec",
+                                                       "extracted", "reused",
+                                                       "incremental_skip_fraction")},
+                     "seconds_by_stage": {s: incr[f"scan_{s}_seconds"] for s in split}},
+        sarif_results=len(sarif_cold["runs"][0]["results"]),
+        findings_with_lines=sum(1 for f in findings if f.get("lines")),
+        scan_vs_score_max_abs_err=worst, score_requests_per_sec=score["serve_requests_per_sec"],
+        edited=[edited_file, edited_fn],
+        launches={"LAUNCHES": counts["LAUNCHES"], "GRU_BWD_LAUNCHES": counts["GRU_BWD_LAUNCHES"],
+                  "DMSG_LAUNCHES": counts["DMSG_LAUNCHES"]},
+        phase_seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return {"scan": {"ggnn_step": counts["LAUNCHES"], "ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"],
+                     "ggnn_dmsg": counts["DMSG_LAUNCHES"]}}
 
 
 def cli_ladder(cfg) -> tuple[int, ...]:
@@ -4964,6 +5353,12 @@ BF16_DBIAS_BASELINE_MS = {"t5_flagship": 0.1910, "dropout": 0.2498, "causal_bias
 DMSG_BASELINE_MS = {"ggnn_dmsg": 0.0508}
 
 
+#: the widths the GGNN kernels take (csrc/ggnn_step.cu: GGNN_WIDTHS; the
+#: backward's GRU_CASE and DMSG_CASE lists), 288 the structural-feature
+#: model's
+GGNN_WIDTHS = range(32, 289, 32)
+
+
 def no_spill_report(ptxas: dict) -> dict:
     """{kernel: ptxas's registers and spills} of the instances that must
     not spill, in both flash libraries: every tensor-core forward, dq and
@@ -4992,9 +5387,9 @@ def no_spill_report(ptxas: dict) -> dict:
             out[k] = ptxas[lib].get(k)
     for kernel in ("gru_bwd_gates_kernel", "gru_bwd_inputs_kernel", "gru_bwd_weights_kernel",
                    "dmsg_kernel"):
-        for d in range(32, 257, 32):
+        for d in GGNN_WIDTHS:
             out[f"{kernel}<{d}>"] = ptxas["ggnn_bwd"].get(f"{kernel}<{d}>")
-    for d in range(32, 257, 32):
+    for d in GGNN_WIDTHS:
         names = [f"mxu_colmax_kernel<{d}>", f"mxu_colmax_warp<{d}>"]
         for p in (0, 1, 2):
             for mxu in ("", ", mxu"):
@@ -5015,7 +5410,7 @@ def fused_spill_report(ptxas: dict) -> dict:
     so the call saves and restores it (PERF.md, kernel 2): reported, not
     gated."""
     out = {}
-    for d in range(32, 257, 32):
+    for d in GGNN_WIDTHS:
         names = [f"mxu_colmax_warp<{d}, coherent>"]
         for p in (0, 1, 2):
             for mxu in ("", ", mxu"):
@@ -5823,6 +6218,8 @@ def main() -> None:
         host_paths = serve_pipelined_phase(torch, model, serve_specs, budgets, max_graphs, smi)
         host_paths |= serve_int8_entry_phase(torch, Path(pipeline_root), casc_args, smi)
         host_paths |= train_prefetch_phase(torch, Path(pipeline_root), smi)
+        struct_paths, d288 = struct_feats_phase(torch, Path(pipeline_root), smi)
+        struct_paths |= scan_phase(torch, Path(pipeline_root), smi)
     # on a seed of its own, so the phases after it see the data they always saw
     localize_paths |= localize_t5_phase(torch, np.random.default_rng(19), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
@@ -5857,7 +6254,7 @@ def main() -> None:
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
              "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths,
-             **host_paths}
+             **host_paths, **struct_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]
@@ -5958,9 +6355,15 @@ def main() -> None:
          "dropout_ms": fb["dbias_dropout_ms"],
          "dropout_library_ms": fb["dbias_dropout_library"]["ms"]},
     ]
+    kernels_by_name = {k["name"]: k for k in kernels}
     for k in kernels:
         k["launches_by_path"] = by_path(k["name"])
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] in d288:
+            # the struct_feats and scan paths run only the d 288 model
+            at = {p: n for p, n in k["launches_by_path"].items() if p in struct_paths}
+            k["d288"] = {**d288[k["name"]], "launches": sum(at.values()),
+                         "launches_by_path": at}
         if k["name"].startswith("flash_"):
             k["by_call"] = by_call(k["name"][len("flash_"):])
     emit({"kernels": [{"name": k["name"], "route": "cuda", "source": k["source"],
@@ -5975,7 +6378,8 @@ def main() -> None:
                           if "dropout_library_ms" in k else {}),
                        **({f"bias_{f}": v for f, v in k["bias"].items()} if "bias" in k else {}),
                        **({"by_call": k["by_call"]} if "by_call" in k else {}),
-                       **({f: k[f] for f in ("by_policy", "chain", "fold_ms") if f in k})}
+                       **({f: k[f] for f in ("by_policy", "chain", "fold_ms", "d288")
+                           if f in k})}
                       for k in kernels]})
     times = [k[f] for k in kernels for f in ("ms", "plain_ms", "bound_ms")]
     times += [k["bias"][f] for k in kernels if "bias" in k for f in ("ms", "plain_ms", "bound_ms")]
@@ -5983,6 +6387,11 @@ def main() -> None:
               for f in ("ms", "plain_ms", "library_ms", "bound_ms")]
     times += [c[f] for k in kernels for c in k.get("by_policy", {}).values()
               for f in ("ms", "chain_ms", "step_launches_ms", "plain_ms", "bound_ms")]
+    times += [k["d288"][f] for k in kernels if "d288" in k for f in ("ms", "plain_ms", "bound_ms")]
+    if not all(kernels_by_name[name]["d288"]["launches"] > 0
+               for name in ("ggnn_step", "ggnn_gru_bwd", "ggnn_dmsg")):
+        fail(f"a d 288 kernel launched no time on the struct_feats and scan paths: "
+             f"{ {k['name']: k['d288']['launches'] for k in kernels if 'd288' in k} }")
     if not all(math.isfinite(t) for t in times):
         fail("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):

@@ -9,10 +9,10 @@ the CodeT5 generation family, on one device (the reference's
 `cmd_train_gen`, `cmd_train_multi_gen`, `cmd_train_clone` and
 `cmd_tune`), tune the GGNN kernel layout on the card, score and serve C
 sources against a trained run (`score`, `serve`: `cmd_score`,
-`cmd_serve`), fit the two-stage cascade's calibration
-(`cascade-calibrate`: `cmd_cascade_calibrate`), and rank the lines of a
-combined run's functions by their attributions (`localize`:
-`cmd_localize`).
+`cmd_serve`), scan a whole repository (`scan`: `cmd_scan`), fit the
+two-stage cascade's calibration (`cascade-calibrate`:
+`cmd_cascade_calibrate`), and rank the lines of a combined run's
+functions by their attributions (`localize`: `cmd_localize`).
 
     python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
         [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
@@ -36,6 +36,9 @@ combined run's functions by their attributions (`localize`:
         [--skip-kernel] [--config F] [--override key=value ...] [--device cpu]
     python -m deepdfa_tpu_torch.cli score SRC... [--family deepdfa|combined|t5] [--out F] \
         [--smoke] [--config F] [--override key=value ...] [--device cpu]
+    python -m deepdfa_tpu_torch.cli scan REPO [--out F] [--sarif F] [--lines] \
+        [--no-incremental] [--smoke] [--family deepdfa] [--config F] [--override k=v ...] \
+        [--device cpu]
     python -m deepdfa_tpu_torch.cli serve [--host H] [--port P] [--family F] [--smoke] \
         [--config F] [--override key=value ...] [--device cpu]
     python -m deepdfa_tpu_torch.cli cascade-calibrate --scores F [--prob-key prob] \
@@ -59,8 +62,10 @@ processes. Sharded extraction builds the train split's vocabularies once
 (`extract-vocab`), then each `extract --num-shards K --shard I` encodes
 every K-th example against them into `graphs-shard<I>-*.npz`. The
 outputs equal the reference's commands' (the stores member for member).
-`data.feat.max_defs` and `data.feat.struct_feats` are not ported and
-raise. The other commands read that layout, and the reference's outputs
+`data.feat.struct_feats=true` appends the five structural channels
+(frontend/structfeat.py) to every node's features; a run trained on such
+a store sets `model.struct_feats=true` (its GGNN then runs at 9 x
+`model.hidden_dim`). `data.feat.max_defs` is not ported and raises. The other commands read that layout, and the reference's outputs
 the same way: `splits.json`, the graph store and, for `train-combined`,
 `examples.pkl`. A run writes
 `runs/<run_name>/config.json`, `train_log.jsonl` and torch checkpoints
@@ -128,6 +133,16 @@ batches dispatched and not yet fetched (the same bits as 0), and a
 `serve.checkpoint` tag with the suffix `@int8` serves the quantized
 entry within `serve.quant_drift_bound` (serve/quant.py). Refused:
 `serve.use_joern`.
+
+`scan REPO` scores every C/C++ function of a repository with a GGNN
+run through the same registry, frontend and batcher (`scan.*`: suffixes,
+excluded directories, the file-size cap, the SARIF threshold; `--lines`
+for line attributions, `--no-incremental` to ignore the manifest) and
+writes `runs/<run>/scan/findings.jsonl` and `findings.sarif` (or --out,
+--sarif), the manifest under `runs/<run>/scan_state/` and a summary in
+`scan_log.jsonl`; a re-scan extracts only changed functions. --smoke
+trains a tiny run, scans a synthetic repository cold, edits one
+function and scans again.
 
 `localize` restores a `train-combined` run (`--arch`, `--encoder`,
 `--tokenizer`, `--no-graph` and `--max-length` as it was trained) from
@@ -1297,6 +1312,42 @@ def cmd_serve(args) -> None:
     serve_forever(ScoringService(registry, cfg), args.host, args.port)
 
 
+def cmd_scan(args) -> None:
+    """Whole-repo incremental scanning: walk a repository, split its
+    C/C++ sources into functions, score each through the serving stack
+    on the card, write findings JSONL and SARIF 2.1.0. --smoke trains a
+    tiny checkpoint, scans a synthetic repo cold, edits one function and
+    fails unless the incremental contract holds."""
+    from deepdfa_tpu_torch.scan import scanner as scan_mod
+
+    if args.smoke:
+        report = scan_mod.run_scan_smoke(extra_overrides=args.overrides, device=args.device)
+        print(json.dumps(report), flush=True)
+        problems = scan_mod.smoke_problems(report)
+        if problems:
+            raise SystemExit(f"scan smoke contract violated: {problems}")
+        return
+    if not args.repo:
+        raise SystemExit("scan needs a repository path (or --smoke)")
+    cfg = _apply_tuned(_load_run_config(args), args.device, serve_side=True)
+    if args.lines:
+        cfg = config_mod.apply_overrides(cfg, ["scan.lines=true"])
+    if args.no_incremental:
+        cfg = config_mod.apply_overrides(cfg, ["scan.incremental=false"])
+    from deepdfa_tpu_torch.serve.registry import ModelRegistry
+    from deepdfa_tpu_torch.serve.server import ScoringService
+
+    registry = ModelRegistry(runs_dir(cfg.run_name), family=args.family,
+                             checkpoint=cfg.serve.checkpoint, cfg=cfg, device=args.device)
+    service = ScoringService(registry, cfg)
+    try:
+        summary = scan_mod.RepoScanner(service, cfg).scan(args.repo, out_jsonl=args.out,
+                                                          sarif_out=args.sarif)
+    finally:
+        service.close()
+    print(json.dumps(summary), flush=True)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m deepdfa_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -1519,6 +1570,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="scores jsonl path (default <run>/scores.jsonl)")
     serve_common(p)
     p.set_defaults(fn=cmd_score)
+
+    p = sub.add_parser("scan", help="whole-repo incremental scan through the serving stack: "
+                                    "findings JSONL + SARIF 2.1.0, content-keyed re-scans")
+    p.add_argument("repo", nargs="?", default=None, help="repository root to scan")
+    p.add_argument("--out", default=None,
+                   help="findings jsonl path (default <run>/scan/findings.jsonl)")
+    p.add_argument("--sarif", default=None,
+                   help="SARIF 2.1.0 path (default <run>/scan/findings.sarif)")
+    p.add_argument("--lines", action="store_true",
+                   help="per-finding line attributions (scan.lines)")
+    p.add_argument("--no-incremental", action="store_true",
+                   help="ignore the scan manifest (still written): score every function cold")
+    p.add_argument("--family", default="deepdfa", choices=["deepdfa"])
+    p.add_argument("--smoke", action="store_true",
+                   help="a tiny run, a synthetic repo, cold and incremental scans (tests)")
+    # no positional overrides: the optional repo positional would take them
+    p.add_argument("--config", default=None, help="json config file")
+    p.add_argument("--override", action="append", default=[], dest="overrides",
+                   help="dotted key=value config override (repeatable)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu (the plain PyTorch path)")
+    p.set_defaults(fn=cmd_scan)
 
     p = sub.add_parser("serve", help="HTTP /score /healthz /stats over the dynamic batcher")
     p.add_argument("--host", default="127.0.0.1")

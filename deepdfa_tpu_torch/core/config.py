@@ -10,8 +10,8 @@ one-card training fields of `train` (optimiser, schedule, checkpoint
 cadence, prefetch, the mesh and the
 resilience switch, which must say "one card, off", and the
 `debug_nans`/`enable_checks` sanitizer switches, which must be off),
-the `obs` switches (which must be off) and the autotuner's `tune`
-section. Field names and defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
+the `obs` switches (which must be off), the whole-repo scanner's `scan`
+section and the autotuner's `tune` section. Field names and defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
 file configures both packages. Keys the port does not run yet (the
 rest of observability, fleet, the Joern pool and
 `train.step_cache_entries`, which sizes the reference's cache of
@@ -317,6 +317,39 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class ScanConfig:
+    """Whole-repo incremental scanning (the reference's `ScanConfig`;
+    `deepdfa_tpu_torch/scan/`). Only `cli scan` reads it: walk a
+    repository, split every C/C++ source into function definitions, score
+    each through the serving stack and write findings as JSONL and SARIF
+    2.1.0; the manifest makes a re-scan touch only changed functions."""
+
+    #: source suffixes the walker collects
+    suffixes: tuple[str, ...] = (
+        ".c", ".cc", ".cpp", ".cxx", ".h", ".hpp", ".hh", ".hxx",
+    )
+    #: directory names pruned anywhere in the tree (hidden directories are
+    #: pruned regardless)
+    exclude_dirs: tuple[str, ...] = (
+        ".git", ".hg", ".svn", "build", "cmake-build-debug", "out",
+        "node_modules", "third_party", "vendor", "external",
+    )
+    #: files larger than this are skipped
+    max_file_kb: int = 1024
+    #: functions scoring >= this land in the SARIF results (every function
+    #: lands in the JSONL stream)
+    threshold: float = 0.5
+    #: per-finding line attributions (serve/localize.py; method, steps and
+    #: top-k from serve.lines_*)
+    lines: bool = False
+    #: reuse the manifest's entries whose content key and model identity
+    #: match; false scans cold (the manifest is still written)
+    incremental: bool = True
+    #: manifest path; None: <run_dir>/scan_state/<sha16 of repo abspath>.json
+    state: str | None = None
+
+
+@dataclass(frozen=True)
 class TuneConfig:
     """The reference's autotuner section (its `TuneConfig`): `enabled`
     makes `train` fold the matching tuned.json record into the config
@@ -340,6 +373,7 @@ class Config:
     serve: ServeConfig = field(default_factory=ServeConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    scan: ScanConfig = field(default_factory=ScanConfig)
     tune: TuneConfig = field(default_factory=TuneConfig)
 
 

@@ -844,6 +844,7 @@ int ggnn_gru_bwd_f32(const float* h, const float* a, const float* g, const float
     GRU_CASE(192)
     GRU_CASE(224)
     GRU_CASE(256)
+    GRU_CASE(288)
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -871,6 +872,7 @@ int ggnn_dmsg_f32(const float* da, const float* wm, const int* dstp, const float
     DMSG_CASE(192)
     DMSG_CASE(224)
     DMSG_CASE(256)
+    DMSG_CASE(288)
     default:
       return (int)cudaErrorInvalidValue;
   }

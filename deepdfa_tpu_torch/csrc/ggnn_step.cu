@@ -112,7 +112,7 @@
 // swizzled by row, so the 16 lanes of a half warp read 16 bank pairs.
 // A lane's 8 consecutive k of A pair with the same 8 k of B, a permuted
 // k order inside each product, which integers do not see. The products
-// are integers, at most 127^2 d < 2^24 for d <= 256, so each int32 sum
+// are integers, at most 127^2 d < 2^24 for d <= 288, so each int32 sum
 // converts to float exactly: the value the first design's fp32 FMA chain
 // gave. The fragments' layout (rows of edges, 2 columns a lane) is re-laid
 // through the warp's rows of ss into the lane-per-column layout the sums
@@ -134,6 +134,13 @@
 // over the persistent grid before each step, with a grid barrier after
 // it: two barriers a step, and one colmax slice per step, zeroed before
 // the launch (kernel 2's extra residency, `fused_residency_bytes`).
+//
+// Widths. d is a multiple of 32 up to 288 (GGNN_WIDTHS): 288 is the
+// structural-feature model's embedding, (4 + 5) x 32. Past d 128 a block
+// has its SM to itself (the planes take 195 KB of shared memory at d 256,
+// 219 KB at d 288, of the 227 KB a block may have); at d 288 int8 mxu's
+// Wq_t^T (81 KB) no longer fits the hs plane and the products read it in
+// place.
 //
 // Bound on this card. One flagship fold step (N 16384, d 128, T 1) does
 // 2*N*d^2*T + 12*N*d^2 ~ 3.8 GFLOP against ~16 MB of node state moved,
@@ -344,13 +351,25 @@ struct StepArgs {
 
 constexpr int kChunk = kNodesPerWarp;  // mxu: edges a warp computes at once
 
+// int8 mxu: whether Wq_t^T ([D][D] bytes) fits the hs plane. Up to d 256
+// it does; past that (d 288: 81 KB against 73 KB) the products read it
+// from device memory as the wrapper laid it out, through the read-only
+// path (L1 and L2 hold it: a type's rows are what every warp reads).
+template <int D>
+__host__ __device__ constexpr bool wqt_staged() {
+  return D * D <= kTileNodes * row_stride(D) * (int)sizeof(float);
+}
+static_assert(wqt_staged<256>(), "Wq_t^T is staged at d 256");
+
 // int8 mxu: the XOR on the 8-byte word index of row r of the staged
 // Wq_t^T ([D][D] bytes, rows of D bytes), chosen so that the 16 lanes of
 // a half warp, reading word 4 ks + (lane & 3) of rows 8 nt + (lane >> 2),
-// hit 16 distinct bank pairs at every width
+// hit 16 distinct bank pairs at every width; none where it is not staged
 template <int D>
 __device__ __forceinline__ int wqt_swizzle(int r) {
-  if constexpr (D % 128 == 0) {
+  if constexpr (!wqt_staged<D>()) {
+    return 0;
+  } else if constexpr (D % 128 == 0) {
     return 4 * (r & 3);
   } else if constexpr (D % 64 == 0) {
     return 4 * ((r >> 1) & 1);
@@ -360,11 +379,13 @@ __device__ __forceinline__ int wqt_swizzle(int r) {
 }
 
 // int8 mxu: Wq_t^T of type t (the wrapper's [out, in] bytes) into the hs
-// plane, swizzled; the block waits for it
+// plane, swizzled; the block waits for it. Where it does not fit, the
+// device copy itself.
 template <int D>
 __device__ __forceinline__ const int8_t* stage_wqt(const StepArgs& a, int t, float* smem) {
   int8_t* dst = reinterpret_cast<int8_t*>(smem);
   const int8_t* src = static_cast<const int8_t*>(a.wm) + (size_t)t * D * D;
+  if constexpr (!wqt_staged<D>()) return src;
   constexpr int kChunks = D / 16;  // 16-byte chunks a row
   for (int idx = threadIdx.x; idx < D * kChunks; idx += kThreads) {
     const int r = idx / kChunks, m = idx % kChunks;
@@ -406,7 +427,8 @@ __device__ __forceinline__ void imma_products(const int8_t* table, int u_l, int 
     int acc[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      const int2 b = *reinterpret_cast<const int2*>(row + 8 * ((4 * ks + q) ^ wqt_swizzle<D>(r)));
+      const int2* bp = reinterpret_cast<const int2*>(row + 8 * ((4 * ks + q) ^ wqt_swizzle<D>(r)));
+      const int2 b = wqt_staged<D>() ? *bp : __ldg(bp);
       mma_s8(acc, lo[ks], 0u, hi[ks], 0u, static_cast<unsigned>(b.x), static_cast<unsigned>(b.y));
     }
     *reinterpret_cast<float2*>(stage + g * RS + 8 * nt + 2 * q) =
@@ -1300,7 +1322,7 @@ struct FusedBlocks {
 
 }  // namespace
 
-#define GGNN_WIDTHS(X) X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256)
+#define GGNN_WIDTHS(X) X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256) X(288)
 
 extern "C" {
 

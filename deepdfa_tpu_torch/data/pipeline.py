@@ -14,10 +14,11 @@ DDFA/sastvd/linevd/utils.py:28-76 with graph_type="cfg"); per-node vuln
 labels come from changed-line sets (dbize.py:35-50); self-loops are added
 at batch time (dbize_graphs.py:25).
 
-Not ported yet, and refused with NotImplementedError before any work:
-`max_defs` (reaching-definitions bit labels, which need `nn/bitprop.py`,
-ROADMAP queue A, item 8) and `struct_feats` (the structural channels of
-`frontend/structfeat.py`, queue A, item 3).
+`struct_feats` appends the five structural channels of
+`frontend/structfeat.py` after the four subkey columns. Not ported yet,
+and refused with NotImplementedError before any work: `max_defs`
+(reaching-definitions bit labels, which need `nn/bitprop.py`, ROADMAP
+queue A, item 8).
 """
 
 from __future__ import annotations
@@ -41,17 +42,12 @@ from deepdfa_tpu_torch.graphs.batch import GraphSpec
 from deepdfa_tpu_torch.nn.embedding import SUBKEY_ORDER
 
 
-def refuse_unported(max_defs: int | None, struct_feats: bool) -> None:
+def refuse_unported(max_defs: int | None) -> None:
     """NotImplementedError for the feature options the port lacks."""
     if max_defs is not None:
         raise NotImplementedError(
             f"data.feat.max_defs={max_defs}: the reaching-definitions bit labels need "
             "nn/bitprop.py, which is not ported yet (ROADMAP queue A, item 8)"
-        )
-    if struct_feats:
-        raise NotImplementedError(
-            "data.feat.struct_feats: the structural channels need "
-            "frontend/structfeat.py, which is not ported yet (ROADMAP queue A, item 3)"
         )
 
 
@@ -68,6 +64,9 @@ class ExtractedGraph:
     #: per-edge relation ids (gtype="cfg+dep": 0=cfg, 1=data-dependence,
     #: 2=control-dependence); None for single-type cfg graphs
     edge_type: np.ndarray | None = None
+    #: optional [n, NUM_STRUCT_FEATS] family-invariant structural channels
+    #: (frontend/structfeat.py) appended to node_feats by to_graph_spec
+    struct: np.ndarray | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -95,7 +94,7 @@ def extract_graph(
     - "cfg+dep": cfg (type 0) + data-dependence (1) + control-dependence
       (2) as typed edges for an n_etypes=3 GGNN
     """
-    refuse_unported(max_defs, struct_feats)
+    refuse_unported(max_defs)
     # validate BEFORE parsing: a bad gtype must fail fast on the first
     # call, not only on the subset of a corpus that happens to parse
     if gtype not in GTYPE_ETYPES:
@@ -125,7 +124,7 @@ def graph_from_cpg(
     and the Joern-backed serving frontend (serve/frontend.py, via
     frontend/joern_io.py:load_joern_cpg) both land here, so their
     features are computed by the same code."""
-    refuse_unported(max_defs, struct_feats)
+    refuse_unported(max_defs)
     if gtype not in GTYPE_ETYPES:
         raise ValueError(f"gtype={gtype!r}")
 
@@ -177,6 +176,11 @@ def graph_from_cpg(
             if vuln_lines and any(int(l) in vuln_lines for l in node_lines)
             else 0.0
         )
+    struct = None
+    if struct_feats:
+        from deepdfa_tpu_torch.frontend.structfeat import struct_features
+
+        struct = struct_features(cpg, keep)
     return ExtractedGraph(
         graph_id=graph_id,
         node_lines=node_lines,
@@ -185,6 +189,7 @@ def graph_from_cpg(
         def_fields=def_fields,
         label=float(label),
         edge_type=edge_type,
+        struct=struct,
     )
 
 
@@ -198,6 +203,10 @@ def to_graph_spec(
 
     n = eg.num_nodes
     feats = encode_nodes(vocabs, eg.def_fields, range(n), SUBKEY_ORDER)
+    if eg.struct is not None:
+        # struct channels ride as extra columns; the embedding splits
+        # them back out by position (nn/embedding.py struct_vocab)
+        feats = np.concatenate([feats, eg.struct], axis=1)
     if vuln_lines:
         vuln = np.array(
             [1 if int(l) in vuln_lines else 0 for l in eg.node_lines], np.int32
@@ -246,7 +255,7 @@ def extract_corpus(
     """Stage getgraphs+absdf-stage-1 over a corpus (mp fan-out like the
     reference's dfmp, sastvd/__init__.py:198-244)."""
     # refused here, before the workers, whose failures are logged and skipped
-    refuse_unported(max_defs, struct_feats)
+    refuse_unported(max_defs)
     fn = partial(_extract_one, max_defs=max_defs, gtype=gtype,
                  struct_feats=struct_feats)
     if workers and workers > 1:

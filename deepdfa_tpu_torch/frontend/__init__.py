@@ -1,6 +1,6 @@
 """The C frontend: the port's copy of the reference's
 `deepdfa_tpu/frontend/` (tokens, preproc, parser, cpg, reaching, deps,
-absdf, vocab). Under backend "auto" the lexer and the reaching-definitions
+absdf, vocab, structfeat). Under backend "auto" the lexer and the reaching-definitions
 solver run the port's native C++ library (`deepdfa_tpu_torch/native`),
 as the reference's default path does; "python" runs the Python spec."""
 

@@ -1,15 +1,16 @@
 """The DeepDFA model: abstract-dataflow GGNN graph classifier (the
 reference's `deepdfa_tpu/models/deepdfa.py`).
 
-  node idx --4x Embed--> feat_embed (4*H)
-           --GatedGraphConv n_steps--> ggnn_out (4*H)
-  concat [ggnn_out, feat_embed] (8*H)
+  node idx --4x Embed (+5 struct tables)--> feat_embed (4*H, or 9*H)
+           --GatedGraphConv n_steps--> ggnn_out (same width)
+  concat [ggnn_out, feat_embed] (8*H, or 18*H)
   label_style == "graph": GlobalAttentionPooling -> [G, 8*H]
   encoder_mode: return that embedding (out_dim = 8*H)
   else: OutputHead -> logits
 
 The flagship (hidden 32, concat_all_absdf, n_steps 5, input_dim 1002)
-has 375,938 parameters.
+has 375,938 parameters; with `struct_feats` (the flagship recipe of
+scripts/train_flagship.py) the GGNN runs at 9 * 32 = 288.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from deepdfa_tpu_torch.core.config import ModelConfig
+from deepdfa_tpu_torch.frontend.structfeat import STRUCT_VOCAB
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
 from deepdfa_tpu_torch.nn import (
     AbstractDataflowEmbedding,
@@ -40,6 +42,7 @@ class DeepDFA(nn.Module):
         encoder_mode: bool = False,
         generator: torch.Generator | None = None,
         *,
+        struct_feats: bool = False,
         scan_steps: bool = False,
         ggnn_kernel: bool = False,
         ggnn_kernel_accum: str = "fp32",
@@ -64,8 +67,10 @@ class DeepDFA(nn.Module):
         self.hidden_dim = hidden_dim
         self.label_style = label_style
         self.encoder_mode = encoder_mode
+        self.struct_feats = struct_feats
         self.embedding = AbstractDataflowEmbedding(
-            input_dim, hidden_dim, concat_all=concat_all_absdf
+            input_dim, hidden_dim, concat_all=concat_all_absdf,
+            struct_vocab=STRUCT_VOCAB if struct_feats else (),
         )
         width = self.embedding.out_dim
         self.ggnn = GatedGraphConv(
@@ -81,11 +86,6 @@ class DeepDFA(nn.Module):
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, input_dim: int, **overrides) -> "DeepDFA":
-        if cfg.struct_feats:
-            raise NotImplementedError(
-                "model.struct_feats: the structural channels need frontend/structfeat.py, "
-                "which comes with a later frontend slice of the port (ROADMAP queue A, item 3)"
-            )
         if cfg.param_dtype != "float32" or cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 "the port runs fp32 only in this slice "
@@ -100,6 +100,7 @@ class DeepDFA(nn.Module):
             concat_all_absdf=cfg.concat_all_absdf,
             label_style=cfg.label_style,
             encoder_mode=cfg.encoder_mode,
+            struct_feats=cfg.struct_feats,
             scan_steps=cfg.scan_steps,
             ggnn_kernel=cfg.ggnn_kernel,
             ggnn_kernel_accum=cfg.ggnn_kernel_accum,

@@ -119,7 +119,7 @@ CPU_BUDGET_BYTES = 50 * 2**20
 #: nodes per thread block and the widest d the kernels take
 #: (csrc/ggnn_step.cu: kTileNodes, the GGNN_CASE list)
 NODE_TILE = 64
-MAX_WIDTH = 256
+MAX_WIDTH = 288
 
 
 #: the reference's default edge block (`block_sizes`: 512-edge tiles)

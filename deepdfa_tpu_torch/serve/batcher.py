@@ -255,6 +255,7 @@ class GgnnExecutor:
         etypes: bool = False,
         device: str | torch.device | None = None,
         ladder: Sequence[int] | None = None,
+        feat_width: int | None = None,
     ):
         self.device = resolve_device(device)
         self._model = model_source(model, self.device)
@@ -262,6 +263,8 @@ class GgnnExecutor:
         self.edge_budget = int(edge_budget)
         self.sizes = _ladder_sizes(ladder, int(max_batch_graphs))
         self.etypes = bool(etypes)
+        # node_feats columns: 4, or 9 for a struct_feats model
+        self.feat_width = NUM_SUBKEY_FEATS if feat_width is None else int(feat_width)
         self._warmed: set[int] = set()
 
     @property
@@ -327,7 +330,7 @@ class GgnnExecutor:
     def _pack(self, size: int, specs: Sequence):
         return pack(
             list(specs), size, self.node_budget, self.edge_budget,
-            feat_width=NUM_SUBKEY_FEATS, etypes=self.etypes,
+            feat_width=self.feat_width, etypes=self.etypes,
         )
 
     def pack_chunk(self, key: Hashable, chunk: Sequence):

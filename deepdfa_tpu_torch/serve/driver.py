@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from deepdfa_tpu_torch.core.config import Config, refuse_unported_serving, serve_budgets
+from deepdfa_tpu_torch.frontend.structfeat import feat_width
 from deepdfa_tpu_torch.graphs.batch import GraphSpec
 from deepdfa_tpu_torch.nn import flash_attention, ggnn_kernel
 from deepdfa_tpu_torch.serve.batcher import (
@@ -152,6 +153,7 @@ def score_graphs(
     executor = GgnnExecutor(
         model, node_budget, edge_budget, cfg.serve.max_batch_graphs,
         etypes=cfg.model.n_etypes > 1, device=device,
+        feat_width=feat_width(cfg.model.struct_feats),
     )
     return _serve_online(executor, specs, cfg, timeout_s)
 
@@ -256,7 +258,7 @@ def build_smoke_run(
                                                         seed=seed))
     specs, vocabs = pipeline.build_dataset(
         examples, train_ids=range(n_examples), limit_all=cfg.data.feat.limit_all,
-        limit_subkeys=cfg.data.feat.limit_subkeys)
+        limit_subkeys=cfg.data.feat.limit_subkeys, struct_feats=cfg.data.feat.struct_feats)
     (paths.processed_dir(dataset) / f"vocab{cfg.data.feat.name}.json").write_text(
         json.dumps({k: v.to_json() for k, v in vocabs.items()}))
     run_dir = paths.runs_dir(run_name)

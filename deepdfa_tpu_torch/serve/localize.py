@@ -71,6 +71,7 @@ class GgnnLocalizer:
         etypes: bool = False,
         device: str | torch.device | None = None,
         pipeline_depth: int = 0,
+        feat_width: int | None = None,
     ):
         self.device = resolve_device(device)
         self._model = model_source(model, self.device)
@@ -81,6 +82,7 @@ class GgnnLocalizer:
         self.n_steps = int(n_steps)
         self.top_k = int(top_k)
         self.etypes = bool(etypes)
+        self.feat_width = NUM_SUBKEY_FEATS if feat_width is None else int(feat_width)
         ggnn_score_fn(method, None, self.n_steps)  # refuses an unknown method now
         self.pipeline_depth = max(0, int(pipeline_depth))
         self._lock = threading.Lock()  # one dispatch at a time
@@ -125,7 +127,7 @@ class GgnnLocalizer:
 
     def _pack(self, size: int, specs: Sequence):
         return pack(list(specs), size, self.node_budget, self.edge_budget,
-                    feat_width=NUM_SUBKEY_FEATS, etypes=self.etypes)
+                    feat_width=self.feat_width, etypes=self.etypes)
 
     def _pack_chunk(self, feats_list: Sequence[Features]):
         """Host pack stage: (ladder size, padded batch, page-locked on a

@@ -353,9 +353,12 @@ def calibration_graph_batch(
     seed: int = 0,
 ):
     """A deterministic random-feature packed GraphBatch (the reference's,
-    array for array): real rows, so every weight the quantizer touched
-    contributes to the measured drift."""
-    from deepdfa_tpu_torch.graphs.batch import GraphSpec, pack
+    array for array, at 4 columns): real rows, so every weight the
+    quantizer touched contributes to the measured drift. Columns past the
+    four subkeys (a struct_feats model's) are taken modulo their channel's
+    vocabulary, which the reference's draw over [0, input_dim) overruns."""
+    from deepdfa_tpu_torch.frontend.structfeat import STRUCT_VOCAB
+    from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, GraphSpec, pack
 
     rng = np.random.default_rng(seed)
     specs = []
@@ -364,9 +367,12 @@ def calibration_graph_batch(
         # a chain + a few random extra edges: connected, varied degrees
         src = list(range(n - 1)) + list(rng.integers(0, n, size=3))
         dst = list(range(1, n)) + list(rng.integers(0, n, size=3))
+        feats = rng.integers(0, input_dim, size=(n, feat_width)).astype(np.int32)
+        feats[:, NUM_SUBKEY_FEATS:] %= np.asarray(
+            STRUCT_VOCAB[:feat_width - NUM_SUBKEY_FEATS], np.int32)
         specs.append(GraphSpec(
             graph_id=g,
-            node_feats=rng.integers(0, input_dim, size=(n, feat_width)).astype(np.int32),
+            node_feats=feats,
             node_vuln=np.zeros(n, np.int32),
             edge_src=np.asarray(src, np.int32),
             edge_dst=np.asarray(dst, np.int32),

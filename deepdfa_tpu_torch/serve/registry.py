@@ -57,6 +57,7 @@ from deepdfa_tpu_torch.core import config as config_mod
 from deepdfa_tpu_torch.core import paths
 from deepdfa_tpu_torch.core.config import Config
 from deepdfa_tpu_torch.core.device import resolve_device
+from deepdfa_tpu_torch.frontend.structfeat import feat_width
 from deepdfa_tpu_torch.serve import quant
 
 logger = logging.getLogger(__name__)
@@ -334,10 +335,8 @@ class ModelRegistry:
         batch of `serve.quant_calibration_samples` real rows."""
         n = max(1, int(self.cfg.serve.quant_calibration_samples))
         if self.family == "deepdfa":
-            from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS
-
             return [quant.calibration_graph_batch(
-                n, node_budget=1024, edge_budget=4096, feat_width=NUM_SUBKEY_FEATS,
+                n, node_budget=1024, edge_budget=4096, feat_width=self._feat_width(),
                 input_dim=self.cfg.data.feat.input_dim, etypes=self.cfg.model.n_etypes > 1,
                 n_etypes=self.cfg.model.n_etypes)]
         enc = self.model_cfg.encoder
@@ -346,6 +345,11 @@ class ModelRegistry:
         return [quant.calibration_text_batch(
             rows=n, seq_len=max(8, min(32, cap)), vocab_size=int(enc.vocab_size),
             pad_id=int(enc.pad_token_id), node_budget=1024, edge_budget=4096)]
+
+    def _feat_width(self) -> int:
+        """node_feats columns the GGNN family packs: 4, or 9 for a
+        struct_feats model."""
+        return feat_width(self.cfg.model.struct_feats)
 
     def _maybe_quantize(self, model: torch.nn.Module) -> torch.nn.Module:
         """A plain entry passes through; an `@int8` one is quantized, its

@@ -132,7 +132,8 @@ class ScoringService:
                 cfg, registry.vocabs, cache=shared_cache(scfg.feature_cache_entries))
             self.executor = GgnnExecutor(
                 registry.model, node_budget, edge_budget, scfg.max_batch_graphs,
-                etypes=cfg.model.n_etypes > 1, device=registry.device, ladder=tuned_rungs)
+                etypes=cfg.model.n_etypes > 1, device=registry.device, ladder=tuned_rungs,
+                feat_width=registry._feat_width())
             if scfg.lines:
                 from deepdfa_tpu_torch.serve.localize import GgnnLocalizer
 
@@ -140,7 +141,8 @@ class ScoringService:
                     registry.model, node_budget, edge_budget, self.executor.sizes,
                     method=scfg.lines_method, n_steps=scfg.lines_steps,
                     top_k=scfg.lines_top_k, etypes=cfg.model.n_etypes > 1,
-                    device=registry.device, pipeline_depth=scfg.pipeline_depth)
+                    device=registry.device, pipeline_depth=scfg.pipeline_depth,
+                    feat_width=registry._feat_width())
         else:
             from deepdfa_tpu_torch.serve.cascade import build_combined_service_parts
 

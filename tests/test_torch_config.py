@@ -17,7 +17,8 @@ from deepdfa_tpu_torch.core import config as tcfg  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("name", ["FeatureSpec", "ModelConfig", "BatchConfig", "ServeConfig"])
+@pytest.mark.parametrize("name", ["FeatureSpec", "ModelConfig", "BatchConfig", "ServeConfig",
+                                  "ScanConfig"])
 def test_fields_and_defaults_match_reference(name):
     port = getattr(tcfg, name)()
     ref = getattr(jcfg, name)()
@@ -33,7 +34,7 @@ def test_fields_and_defaults_match_reference(name):
 def test_loads_the_shared_json_files(path):
     port = tcfg.load(path)
     ref = jcfg.load(path)
-    for section in ("model", "serve"):
+    for section in ("model", "serve", "scan"):
         for f in dataclasses.fields(getattr(port, section)):
             assert getattr(getattr(port, section), f.name) == getattr(
                 getattr(ref, section), f.name

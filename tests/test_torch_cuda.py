@@ -67,8 +67,9 @@ def _params(rng, d, t, device):
 @pytest.mark.parametrize(
     "n, d, n_etypes, count",
     [(512, 128, 1, 8), (512, 128, 3, 8), (200, 32, 1, 4), (512, 256, 2, 8),
-     (512, 96, 1, 8), (512, 128, 1, 0)],
-    ids=["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding"],
+     (512, 96, 1, 8), (512, 128, 1, 0), (512, 288, 1, 8), (200, 288, 2, 4)],
+    ids=["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding", "d288",
+         "partial_tile_d288_t2"],
 )
 def test_kernel_matches_plain(card, n, d, n_etypes, count):
     rng = np.random.default_rng(n + d + n_etypes)
@@ -97,6 +98,18 @@ def test_kernel_wrapper_refuses_what_it_cannot_take(card):
     h = torch.zeros(128, 48, device=card)
     with pytest.raises(ValueError, match="multiple of 32"):
         gk.ggnn_step(h, edges, *_params(rng, 48, 1, card))
+    # past the widest instance (d 288) every kernel refuses, none falls back
+    wide = _params(rng, 320, 1, card)
+    h = torch.zeros(128, 320, device=card)
+    with pytest.raises(ValueError, match="up to 288"):
+        gk.ggnn_step(h, edges, *wide)
+    with pytest.raises(ValueError, match="up to 288"):
+        gk.ggnn_fused(h, edges, *wide, n_steps=2)
+    with pytest.raises(ValueError, match="up to 288"):
+        gk.gru_bwd(h, h, *wide[2:], h)
+    with pytest.raises(ValueError, match="up to 288"):
+        gk.dmsg(h, gk.prepare_edges(b.edge_src, b.edge_dst, b.edge_mask, None, 128,
+                                    transpose=True), wide[0])
     params = _params(rng, 32, 1, card)
     h = torch.zeros(128, 32, device=card)
     bad = gk.EdgeIndex(edges.src.long(), edges.dst, edges.w2, edges.rowptr)
@@ -147,8 +160,9 @@ def _bwd_case(rng, n, d, n_etypes, count, device):
 @pytest.mark.parametrize(
     "n, d, n_etypes, count",
     [(512, 128, 1, 8), (512, 128, 3, 8), (200, 32, 1, 4), (512, 256, 2, 8),
-     (512, 96, 1, 8), (512, 128, 1, 0)],
-    ids=["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding"],
+     (512, 96, 1, 8), (512, 128, 1, 0), (512, 288, 1, 8), (200, 288, 2, 4)],
+    ids=["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding", "d288",
+         "partial_tile_d288_t2"],
 )
 def test_backward_kernels_match_plain(card, n, d, n_etypes, count):
     """B3 (gru_bwd) and B4 (dmsg) against their plain versions on the
@@ -179,8 +193,9 @@ def test_backward_kernels_match_plain(card, n, d, n_etypes, count):
 #: (its run cut across every warp of its block), and widths 32, 96, 256
 DMSG_CASES = [(16384, 128, 1, 600, 65536), (16384, 128, 3, 600, 65536), (16384, 128, 1, 0, 65536),
               (16384, 128, 1, None, 65536), (2048, 32, 1, 80, 8192), (2048, 96, 2, 80, 8192),
-              (2048, 256, 1, 80, 8192)]
-DMSG_IDS = ["flagship", "etypes3", "all_padding", "hub", "d32", "d96_t2", "d256"]
+              (2048, 256, 1, 80, 8192), (2048, 288, 1, 80, 8192), (16384, 288, 1, 600, 65536)]
+DMSG_IDS = ["flagship", "etypes3", "all_padding", "hub", "d32", "d96_t2", "d256", "d288",
+            "flagship_d288"]
 
 
 @pytest.mark.parametrize("n, d, n_etypes, count, e", DMSG_CASES, ids=DMSG_IDS)
@@ -249,8 +264,9 @@ def _check_gru_bwd(got, want):
 
 
 @pytest.mark.parametrize("n, d", [(1000, 128), (16384 - 37, 128), (1000, 32), (1000, 96),
-                                  (1000, 256), (1, 64)],
-                         ids=["n1000_d128", "flagship_less_37", "d32", "d96", "d256", "one_node"])
+                                  (1000, 256), (1, 64), (1000, 288), (16384 - 37, 288)],
+                         ids=["n1000_d128", "flagship_less_37", "d32", "d96", "d256", "one_node",
+                              "d288", "flagship_less_37_d288"])
 def test_gru_bwd_at_ragged_node_counts_matches_plain(card, n, d):
     """B3 at node counts that are no multiple of its 64-node tiles or its
     weight pass's 32-node panels, at widths whose weight tiles are 32 rows
@@ -368,8 +384,9 @@ def test_failed_build_and_launch_raise(card, tmp_path, monkeypatch):
 # -- kernel 1's bf16/int8 instances and kernel 2 (the whole unroll) ----------
 
 POLICY_CASES = [(512, 128, 1, 8), (512, 128, 3, 8), (200, 32, 1, 4), (512, 256, 2, 8),
-                (512, 96, 1, 8), (512, 128, 1, 0)]
-POLICY_IDS = ["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding"]
+                (512, 96, 1, 8), (512, 128, 1, 0), (512, 288, 1, 8), (200, 288, 2, 4)]
+POLICY_IDS = ["d128", "d128_t3", "partial_tile_d32", "d256_t2", "d96", "all_padding", "d288",
+              "partial_tile_d288_t2"]
 #: card vs CPU probabilities under bf16/int8: the two sum the fp32 state
 #: in other orders, so a bf16 rounding or an int8 quantum of a state
 #: element near its boundary can flip between them and move that row's
@@ -1627,11 +1644,12 @@ def test_ggnn_attribution_on_card_matches_cpu(card, method):
     assert np.all(s[~mask] == 0)
 
 
-def test_input_only_backward_on_card_keeps_the_bits(card):
+@pytest.mark.parametrize("d", [128, 288])
+def test_input_only_backward_on_card_keeps_the_bits(card, d):
     """step_bwd without the weights: B3 skips its weight pass, dh the same
     bits as the full backward's; one B3 and one B4 launch each."""
     rng = np.random.default_rng(5)
-    b, edges, h, params = _policy_case(rng, 512, 128, 1, 8, card, transpose=True)
+    b, edges, h, params = _policy_case(rng, 512, d, 1, 8, card, transpose=True)
     wm, _, wih, whh, bih, bhh = params
     a = torch.randn_like(h)
     g = torch.randn_like(h)

@@ -219,9 +219,9 @@ def test_rowptr_covers_the_live_prefix_only():
 def test_shape_rules_and_tiling():
     assert tgk.kernel_shape_ok(16384, 65536, 128)
     assert tgk.kernel_shape_ok(16384, 65536, 128, n_etypes=3)
-    for d in (32, 64, 96, 160, 224, 256):
+    for d in (32, 64, 96, 160, 224, 256, 288):
         assert tgk.kernel_shape_ok(512, 2048, d)
-    for d in (8, 48, 100, 288, 0):
+    for d in (8, 48, 100, 320, 0):
         assert not tgk.kernel_shape_ok(512, 2048, d)
     assert not tgk.kernel_shape_ok(0, 2048, 128)
     assert tgk.block_sizes(16384) == (tgk.NODE_TILE, 16384 // tgk.NODE_TILE)

@@ -84,6 +84,9 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.native.build", "deepdfa_tpu_torch.serve.quant",
         "deepdfa_tpu_torch.serve.localize", "deepdfa_tpu_torch.data.prefetch",
         "deepdfa_tpu_torch.data.mp_pack", "deepdfa_tpu_torch.data.packed_cache",
+        "deepdfa_tpu_torch.frontend.structfeat", "deepdfa_tpu_torch.scan",
+        "deepdfa_tpu_torch.scan.walker", "deepdfa_tpu_torch.scan.manifest",
+        "deepdfa_tpu_torch.scan.sarif", "deepdfa_tpu_torch.scan.scanner",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []

@@ -157,7 +157,9 @@ def test_seeded_init_is_reproducible():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         DeepDFA(INPUT_DIM, HIDDEN, label_style="dataflow_solution_in")
-    with pytest.raises(NotImplementedError, match="frontend slice"):
-        DeepDFA.from_config(ModelConfig(struct_feats=True), INPUT_DIM)
+    # struct_feats runs since the structural channels were ported: the
+    # embedding takes 5 more tables, the GGNN 9 x hidden
+    wide = DeepDFA.from_config(ModelConfig(struct_feats=True, hidden_dim=HIDDEN), INPUT_DIM)
+    assert wide.embedding.out_dim == 9 * HIDDEN
     with pytest.raises(NotImplementedError, match="fp32"):
         DeepDFA.from_config(ModelConfig(param_dtype="bfloat16"), INPUT_DIM)

@@ -117,10 +117,12 @@ def test_unported_features_raise():
     examples = corpus(synthetic, "v1", n=4)
     with pytest.raises(NotImplementedError, match="bitprop.*item 8"):
         pipeline.build_dataset(examples, [0], max_defs=8)
-    with pytest.raises(NotImplementedError, match="structfeat"):
-        pipeline.extract_corpus(examples, struct_feats=True, workers=2)
-    with pytest.raises(NotImplementedError, match="structfeat"):
-        pipeline.extract_graph(examples[0].code, 0, struct_feats=True)
+    # the structural channels are ported: extraction takes them, in the
+    # pool as in one process
+    pooled = pipeline.extract_corpus(examples, struct_feats=True, workers=2)
+    assert [g.struct.shape[1] for g in pooled] == [5] * len(pooled)
+    one = pipeline.extract_graph(examples[0].code, 0, struct_feats=True)
+    assert np.array_equal(one.struct, pooled[0].struct)
     with pytest.raises(ValueError, match="gtype"):
         pipeline.extract_graph(examples[0].code, 0, gtype="ast")
 
@@ -349,8 +351,8 @@ def test_extract_refuses_unported_features(tmp_path, monkeypatch):
     cli.main(["prepare", "--source", "synthetic", "--n-examples", "8"])
     with pytest.raises(NotImplementedError, match="max_defs.*bitprop"):
         cli.main(["extract", "data.feat.max_defs=16"])
-    with pytest.raises(NotImplementedError, match="struct_feats.*structfeat"):
-        cli.main(["extract", "--num-shards", "1", "data.feat.struct_feats=true"])
+    with pytest.raises(NotImplementedError, match="max_defs.*bitprop"):
+        cli.main(["extract", "--num-shards", "1", "data.feat.max_defs=16"])
     with pytest.raises(SystemExit, match="extract-vocab"):
         cli.main(["extract", "--num-shards", "2"])
     with pytest.raises(SystemExit):
