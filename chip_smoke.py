@@ -270,6 +270,23 @@ prints one JSON line; any failure exits non-zero before the last line.
    function and its probability `cli score`'s for the same function
    (rtol 1e-4, atol 1e-5); the seconds by stage and functions/s of both
    scans;
+7y. dataflow_bits — the reaching-definitions bit supervision: `cli
+   extract` of the first 512 of 7w's functions with data.feat.max_defs=64, `cli
+   train` of one epoch under model.label_style=dataflow_solution_out at
+   the flagship recipe (hidden 32, 5 steps, d 128; kernel 1, B3, B4 and
+   the bit propagation's segment-sum kernel, csrc/setops.cu, counted;
+   losses finite and falling) and `cli test`; the propagation without
+   its gate and with n_steps = the largest graph + 1 on the card equals
+   the stored IN and OUT bits of one packed batch within 1e-5 (relu and
+   simple unions), twice to the bit; the trained model's node logits on
+   the card those of the CPU plain path (1e-5); a step's gradients the
+   same bits twice; the segment-sum kernel against its plain version
+   (exactly) and index_add_ on a flagship training batch, timed;
+7z. bf16_params — model.param_dtype=bfloat16 on the pipeline's store:
+   `cli train` of one epoch on the card, every floating leaf of the
+   checkpoint bf16, `cli score` of the test functions on the card and
+   the CPU plain path (1e-5), the same weights upcast into an fp32 model
+   (5e-2), one saliency localization batch;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -394,15 +411,23 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
-21. kernels — every kernel with its launches on the thirty-eight main
+20a. moe_combined — phase 12's model with the MoE adapter (8 experts,
+   top 2) on its 16-row T 512 batches: 4 CombinedTrainer steps (bf16,
+   dropout 0.1) and one serving forward through score_combined, kernels
+   5-7 and the GGNN kernels counted; finite losses and aux; the MoE
+   block on the last step's [CLS] rows in fp32 gives the same dispatch,
+   and outputs and aux within 1e-5, on the card and the CPU; the block
+   and a step's gradients the same bits on a repeat;
+21. kernels — every kernel with its launches on the forty-five main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
    four of 7g-7h, tune, tune_train, pipeline, serve_source,
    train_attn_saved, cascade_train, cascade, localize_ggnn, serve_lines,
    localize_combined, localize_t5, serve_pipelined,
    serve_lines_pipelined, serve_int8_entry, cascade_int8,
-   train_prefetch, struct_train, struct_score and scan,
-   each counted from 0, and by path),
+   train_prefetch, struct_train, struct_score, scan, bits_train,
+   bits_test, bf16_train, bf16_score, bf16_localize, moe_train and
+   moe_serve, each counted from 0, and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -411,7 +436,9 @@ prints one JSON line; any failure exits non-zero before the last line.
    by_policy and chain the rest); the d288 entry of the ggnn_step,
    ggnn_fused, ggnn_gru_bwd and ggnn_dmsg rows holds their time, plain
    time, bound and error at d 288 (phase 7w) and their launches on the
-   struct_feats and scan paths, which run only the d 288 model.
+   struct_feats and scan paths, which run only the d 288 model;
+   setops_gather_sum is the bit propagation's segment sum, which
+   replaces no TPU kernel (the reference's jax.ops.segment_sum).
 
 The line before the last is nvidia-smi's "name, power.limit"; the last
 line is {"ok": true, "device": {...}}.
@@ -4319,6 +4346,538 @@ def scan_phase(torch, tmp: Path, smi: str) -> dict:
                      "ggnn_dmsg": counts["DMSG_LAUNCHES"]}}
 
 
+#: dataflow_bits: the pipeline's first BITS_FUNCTIONS functions as a
+#: dataset of their own extracted with the reaching-definitions bits of
+#: BITS_MAX_DEFS definition sites, trained one epoch under
+#: dataflow_solution_out at the flagship recipe (hidden 32, 5 steps, d
+#: 128); 512, not struct_feats' 1024, to keep the script inside its limit
+BITS_FUNCTIONS = 512
+BITS_DATASET = "pipeline-bits"
+BITS_RUN = "bits"
+BITS_MAX_DEFS = 64
+BITS_OVERRIDES = [f"data.feat.max_defs={BITS_MAX_DEFS}", "model.label_style=dataflow_solution_out",
+                  "train.max_epochs=1", "train.log_every_steps=1", "data.undersample=false"]
+#: exact-solver labels, and the card against the CPU plain path
+BITS_TOL = 1e-5
+#: bf16_params: the pipeline's flagship store trained one epoch with the
+#: parameters stored in bfloat16; the card against the CPU plain path
+#: within BITS_TOL, the same weights upcast into an fp32 model within
+#: BF16_VS_FP32_TOL
+BF16_RUN = "bf16"
+BF16_VS_FP32_TOL = 5e-2
+#: moe_combined: the combined training path at codebert-base width with
+#: the MoE adapter, MOE_STEPS steps on 16-row T 512 batches
+MOE_EXPERTS, MOE_TOP_K, MOE_STEPS = 8, 2, 4
+MOE_TOL = 1e-5
+
+
+def subset_dataset(tmp: Path, dataset: str, n: int):
+    """The pipeline dataset's first `n` functions as `dataset` under the
+    storage root `tmp` (examples.pkl and splits.json); (examples, splits)."""
+    import pickle
+
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.data import load_examples
+
+    pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    src_dir = tmp / "processed" / pcfg.data.dataset
+    out = tmp / "processed" / dataset
+    out.mkdir(parents=True)
+    examples = load_examples(src_dir / "examples.pkl")[:n]
+    ids = {str(e.id) for e in examples}
+    with (out / "examples.pkl").open("wb") as f:
+        pickle.dump(examples, f)
+    splits = {k: v for k, v in json.loads((src_dir / "splits.json").read_text()).items()
+              if k in ids}
+    (out / "splits.json").write_text(json.dumps(splits))
+    return examples, splits
+
+
+def run_log(run: Path) -> list:
+    return [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
+
+
+def gather_sum_bound(n: int, e_live: int, b: int):
+    """The least time of one fixed-order segment sum: y and the output
+    [n, b] f32, idx [e_live] and ptr [n + 1] int32, each moved once;
+    e_live * b fp32 additions."""
+    return roofline(e_live * b, 4 * (2 * n * b + e_live + n + 1))
+
+
+def dataflow_bits_phase(torch, tmp: Path, smi: str):
+    """The dataflow_solution_out path on the pipeline's storage root: `cli
+    extract` (a subprocess) of BITS_FUNCTIONS functions with
+    `data.feat.max_defs=64`, `cli train` of one epoch on the card at the
+    flagship recipe (kernel 1, B3, B4 and the segment-sum kernel counted,
+    the step losses finite and falling) and `cli test`. Checks: without
+    the gate and with n_steps = the batch's largest graph + 1,
+    `BitvectorPropagation` (both unions) on the card gives the stored IN
+    and OUT bits of one packed batch of the CFG edges (packed without the
+    self-loops the model's batches carry) within BITS_TOL, twice to the
+    bit; the trained model's node logits on the card are those of the CPU
+    plain path within BITS_TOL; a training step's gradients repeat to the
+    bit. Then the segment-sum kernel against its plain version on a
+    flagship training batch, timed beside its bound and `index_add_`.
+    Returns (the paths' launches, the kernel's row)."""
+    import io
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.graphs import GraphStore, pack
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.nn import setops
+    from deepdfa_tpu_torch.nn.bitprop import BitvectorPropagation
+    from deepdfa_tpu_torch.train import CheckpointManager, GraphTrainer
+
+    t_phase = time.perf_counter()
+    examples, _ = subset_dataset(tmp, BITS_DATASET, BITS_FUNCTIONS)
+    cfg = config_mod.apply_overrides(load(FLAGSHIP_CONFIG), [
+        f'run_name="{BITS_RUN}"', f'data.dataset="{BITS_DATASET}"', *BITS_OVERRIDES])
+    n_steps = cfg.model.n_steps
+    report: dict = {"phase": "dataflow_bits", "nvidia_smi": smi, "functions": len(examples),
+                    "max_defs": BITS_MAX_DEFS, "label_style": cfg.model.label_style,
+                    "d": 4 * cfg.model.hidden_dim}
+
+    def counts() -> dict:
+        return {**gk.launch_counts(), "SETOPS": setops.LAUNCHES}
+
+    def reset() -> None:
+        gk.reset_launch_counts()
+        setops.reset_launch_counts()
+
+    with storage_root(tmp) as env:
+        cfg_path = tmp / "bits.json"
+        config_mod.to_json(cfg, cfg_path)
+        extract_s = run_port_cli(["extract", "--workers", str(PIPELINE_WORKERS), "--config",
+                                  str(cfg_path)], env)
+        graphs = GraphStore(tmp / "processed" / BITS_DATASET / cli.graphs_dirname(cfg)).load_all()
+        if any(g.node_gen is None or g.node_gen.shape[1] != BITS_MAX_DEFS
+               for g in graphs.values()):
+            fail("dataflow_bits: a graph of the store without its bits")
+        set_bits = int(sum(g.node_bits_out.sum() for g in graphs.values()))
+        report.update(graphs=len(graphs), extract_seconds=extract_s, label_bits_set=set_bits,
+                      nodes=int(sum(g.num_nodes for g in graphs.values())))
+        if set_bits <= 0:
+            fail("dataflow_bits: the store has no reaching definition")
+
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["train", "--config", str(cfg_path), "--device", CARD])
+        train_s = time.perf_counter() - t0
+        train_counts = counts()
+        run = tmp / "runs" / BITS_RUN
+        losses = [r["loss"] for r in run_log(run) if "step" in r]
+        steps = len(losses)
+        splits = cli.load_graph_splits(cfg)
+        val_batches = len(cli.epoch_batches(cfg, splits["val"], phase="eval"))
+        test_batches = len(cli.epoch_batches(cfg, splits["test"], phase="eval"))
+        # the segment sum: n_steps a forward batch, n_steps - 1 a backward
+        # (the first step's input is the stored gen bits, which take no gradient)
+        want = {"LAUNCHES": n_steps * (steps + val_batches), "GRU_BWD_LAUNCHES": n_steps * steps,
+                "DMSG_LAUNCHES": n_steps * steps,
+                "SETOPS": n_steps * (steps + val_batches) + (n_steps - 1) * steps}
+        if steps < 2 or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] \
+                or {k: train_counts[k] for k in want} != want:
+            fail(f"dataflow_bits: train ran {steps} steps, losses {losses}, launched "
+                 f"{train_counts}, expected {want}")
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["test", "--device", CARD, f'run_name="{BITS_RUN}"'])
+        test_s = time.perf_counter() - t0
+        test_counts = counts()
+        metrics = json.loads((run / "test_metrics_test.json").read_text())
+        want_test = {"LAUNCHES": n_steps * test_batches, "SETOPS": n_steps * test_batches}
+        if {k: test_counts[k] for k in want_test} != want_test or \
+                not math.isfinite(metrics["loss"]):
+            fail(f"dataflow_bits: test launched {test_counts} (expected {want_test}), "
+                 f"metrics {metrics}")
+        report.update(train_seconds=train_s, train_steps=steps, train_losses=losses,
+                      train_launches={k: train_counts[k] for k in want}, test_seconds=test_s,
+                      test_batches=test_batches, test_launches=want_test,
+                      test_metrics={k: metrics[k] for k in ("loss", "acc", "f1", "precision",
+                                                             "recall")})
+
+        # the exact simulator on one packed batch of the stored CFG edges
+        bcfg = cfg.data.batch
+        chosen, nodes, edges = [], 0, 0
+        for g in sorted(graphs.values(), key=lambda g: g.graph_id):
+            if (len(chosen) < bcfg.graphs_per_batch and nodes + g.num_nodes <= bcfg.node_budget
+                    and edges + g.num_edges <= bcfg.edge_budget):
+                chosen.append(g)
+                nodes, edges = nodes + g.num_nodes, edges + g.num_edges
+        b = pack(chosen, bcfg.graphs_per_batch, bcfg.node_budget, bcfg.edge_budget,
+                 add_self_loops=False).to(CARD)
+        exact_steps = max(g.num_nodes for g in chosen) + 1
+        live = b.node_mask[:, None]
+        exact = {}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for union in ("relu", "simple"):
+                prop = BitvectorPropagation(exact_steps, union)
+                runs = [prop(b.node_gen, b.node_kill, b.edge_src, b.edge_dst, b.edge_mask)
+                        for _ in range(2)]
+                (i1, o1), (i2, o2) = runs
+                err = max(float(((i1 - b.node_bits_in).abs() * live).max()),
+                          float(((o1 - b.node_bits_out).abs() * live).max()))
+                if err > BITS_TOL or not (torch.equal(i1, i2) and torch.equal(o1, o2)):
+                    fail(f"dataflow_bits: the {union} propagation on the card is {err} from the "
+                         "stored labels, or a repeat gave other bits")
+                exact[union] = err
+        torch.cuda.synchronize()
+        report["exact_solver"] = {"graphs": len(chosen), "nodes": nodes, "edges": edges,
+                                  "n_steps": exact_steps, "max_abs_err": exact,
+                                  "bits_equal_on_repeat": True,
+                                  "seconds": time.perf_counter() - t0}
+
+        # the trained model: node logits on the card and on the CPU
+        state = CheckpointManager(run / cli.CHECKPOINTS_DIR).restore("best")["model"]
+        batch = cli.epoch_batches(cfg, splits["test"], phase="eval")[0]
+        logits = {}
+        for dev in (CARD, "cpu"):
+            model = cli._model(cfg)
+            model.load_state_dict(state)
+            model = model.to(dev).eval()
+            with torch.inference_mode():
+                logits[dev] = model(batch.to(dev)).cpu()
+        mask = torch.as_tensor(np.asarray(batch.node_mask))
+        got, want_l = logits[CARD][mask], logits["cpu"][mask]
+        logit_err = float((got - want_l).abs().max())
+        if got.shape[1] != BITS_MAX_DEFS or not torch.isfinite(got).all() or \
+                not torch.allclose(got, want_l, rtol=BITS_TOL, atol=BITS_TOL):
+            fail(f"dataflow_bits: card vs CPU node logits differ by up to {logit_err}")
+
+        # one training step's gradients, twice from the same weights
+        trainer = GraphTrainer(cli._model(cfg), cfg, total_steps=1, device=CARD)
+        tstate = trainer.init_state(params=state)
+        tb = cli.epoch_batches(cfg, splits["train"], shuffle_epoch=0)[0].to(CARD)
+        grads = []
+        for _ in range(2):
+            trainer.forward_loss(tstate, tb).backward()
+            grads.append({k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()})
+        if not all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]):
+            fail("dataflow_bits: two backward passes on one batch gave other gradients")
+        report.update(card_vs_cpu_logit_max_abs_err=logit_err, grads_bit_equal=True)
+
+    # the segment-sum kernel on a flagship training batch (its cfg edges)
+    n, bw = tb.node_budget, BITS_MAX_DEFS
+    e_live = int(tb.edge_mask.sum())
+    gen = torch.Generator().manual_seed(29)
+    y = torch.rand(n, bw, generator=gen).to(CARD)
+    idx, ptr, t_idx, t_ptr = setops.edge_runs(tb.edge_src, tb.edge_dst, tb.edge_mask, n)
+    live_e = tb.edge_mask.bool()
+    src_l, dst_l = tb.edge_src[live_e].long(), tb.edge_dst[live_e].long()
+    with torch.inference_mode():
+        errs = []
+        for a, p in ((idx, ptr), (t_idx, t_ptr)):
+            k_out, p_out = setops.gather_sum(y, a, p), setops.gather_sum_plain(y, a, p)
+            torch.cuda.synchronize()
+            errs.append(float((k_out - p_out).abs().max()))
+        lib = torch.zeros(n, bw, device=CARD).index_add_(0, dst_l, y[src_l])
+        errs.append(float((setops.gather_sum(y, idx, ptr) - lib).abs().max()))
+        if max(errs[:2]) > 0.0 or errs[2] > BITS_TOL:
+            fail(f"dataflow_bits: the segment-sum kernel differs from its plain version "
+                 f"({errs[:2]}) or from index_add_ ({errs[2]})")
+        row = {"ms": median_ms(torch, lambda: setops.gather_sum(y, idx, ptr)),
+               "plain_ms": median_ms(torch, lambda: setops.gather_sum_plain(y, idx, ptr)),
+               "library_ms": median_ms(torch, lambda: torch.zeros(n, bw, device=CARD)
+                                       .index_add_(0, dst_l, y[src_l])),
+               "transposed_ms": median_ms(torch, lambda: setops.gather_sum(y, t_idx, t_ptr)),
+               **dict(zip(("bound_ms", "bound_by"), gather_sum_bound(n, e_live, bw))),
+               "max_abs_err": max(errs[:2]), "vs_index_add_max_abs_err": errs[2],
+               "n": n, "e_live": e_live, "b": bw}
+    report.update(kernel=row, phase_seconds=time.perf_counter() - t_phase)
+    paths = {"bits_train": {"ggnn_step": train_counts["LAUNCHES"],
+                            "ggnn_gru_bwd": train_counts["GRU_BWD_LAUNCHES"],
+                            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"],
+                            "setops_gather_sum": train_counts["SETOPS"]},
+             "bits_test": {"ggnn_step": test_counts["LAUNCHES"],
+                           "setops_gather_sum": test_counts["SETOPS"]}}
+    report["launches"] = paths
+    emit(report)
+    return paths, row
+
+
+def bf16_params_phase(torch, tmp: Path, smi: str) -> dict:
+    """`model.param_dtype=bfloat16` on the pipeline's flagship store (no
+    new extraction): `cli train` of one epoch on the card (kernel 1, B3
+    and B4 counted, finite losses), every floating leaf of its checkpoint
+    bf16, `cli score` of the test split's functions on the card and on
+    the CPU plain path (within BITS_TOL), the same weights upcast into an
+    fp32 model on a test batch (within BF16_VS_FP32_TOL), and one
+    saliency localization batch on the card. Returns the paths'
+    launches."""
+    import io
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.data import load_examples
+    from deepdfa_tpu_torch.eval import localize
+    from deepdfa_tpu_torch.models import DeepDFA
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.train import CheckpointManager
+
+    t_phase = time.perf_counter()
+    pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    cfg = config_mod.apply_overrides(pcfg, [f'run_name="{BF16_RUN}"', "model.param_dtype=bfloat16",
+                                            "train.max_epochs=1"])
+    n_steps = cfg.model.n_steps
+    report: dict = {"phase": "bf16_params", "nvidia_smi": smi,
+                    "param_dtype": cfg.model.param_dtype}
+    with storage_root(tmp):
+        cfg_path = tmp / "bf16.json"
+        config_mod.to_json(cfg, cfg_path)
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["train", "--config", str(cfg_path), "--device", CARD])
+        train_s = time.perf_counter() - t0
+        train_counts = gk.launch_counts()
+        run = tmp / "runs" / BF16_RUN
+        log = run_log(run)
+        losses = [r["loss"] for r in log if "step" in r]
+        steps = len(losses)
+        splits = cli.load_graph_splits(cfg)
+        val_batches = len(cli.epoch_batches(cfg, splits["val"], phase="eval"))
+        want = {"LAUNCHES": n_steps * (steps + val_batches), "GRU_BWD_LAUNCHES": n_steps * steps,
+                "DMSG_LAUNCHES": n_steps * steps}
+        if steps < 2 or not all(math.isfinite(x) for x in losses) or \
+                {k: train_counts[k] for k in want} != want:
+            fail(f"bf16_params: train ran {steps} steps, losses {losses}, launched "
+                 f"{train_counts}, expected {want}")
+        state = CheckpointManager(run / cli.CHECKPOINTS_DIR).restore("best")["model"]
+        dtypes = sorted({str(v.dtype) for v in state.values() if v.is_floating_point()})
+        if dtypes != ["torch.bfloat16"]:
+            fail(f"bf16_params: the checkpoint holds {dtypes}")
+        report.update(train_seconds=train_s, train_steps=steps, train_losses=losses,
+                      epoch_seconds=[r["epoch_seconds"] for r in log if "epoch" in r],
+                      train_launches={k: train_counts[k] for k in want},
+                      checkpoint_dtypes=dtypes, checkpoint_leaves=len(state))
+
+        # cli score of the test split's functions, on the card, then on the CPU
+        by_id = {e.id: e for e in load_examples(
+            tmp / "processed" / cfg.data.dataset / "examples.pkl")}
+        test_ids = sorted(g.graph_id for g in splits["test"])
+        fns = tmp / "bf16_src"
+        names = write_sources(fns, [by_id[i] for i in test_ids])
+        serve_args = ["--override", f'run_name="{BF16_RUN}"',
+                      *(a for o in STRUCT_SERVE for a in ("--override", o))]
+        gk.reset_launch_counts()
+        card = cli_summary(cli, ["score", str(fns), "--out", str(tmp / "bf16_card.jsonl"),
+                                 "--device", CARD, *serve_args])
+        score_counts = gk.launch_counts()
+        cli_summary(cli, ["score", str(fns), "--out", str(tmp / "bf16_cpu.jsonl"),
+                          "--device", "cpu", *serve_args])
+        card_rows = score_rows(tmp / "bf16_card.jsonl")
+        cpu_rows = score_rows(tmp / "bf16_cpu.jsonl")
+        if not all(card_rows[n]["ok"] and cpu_rows[n]["ok"] for n in names):
+            fail("bf16_params: a test function failed to score")
+        card_p = np.array([card_rows[n]["prob"] for n in names])
+        cpu_p = np.array([cpu_rows[n]["prob"] for n in names])
+        score_err = float(np.abs(card_p - cpu_p).max())
+        if not np.all(np.isfinite(card_p)) or not np.allclose(card_p, cpu_p, rtol=BITS_TOL,
+                                                               atol=BITS_TOL):
+            fail(f"bf16_params: card vs CPU probabilities differ by up to {score_err}")
+        if score_counts["LAUNCHES"] <= 0 or score_counts["LAUNCHES"] % n_steps:
+            fail(f"bf16_params: cli score launched {score_counts}")
+
+        # the bf16 model against its weights upcast into an fp32 model
+        batch = cli.epoch_batches(cfg, splits["test"], phase="eval")[0].to(CARD)
+        half = DeepDFA.from_config(cfg.model, cfg.data.feat.input_dim)
+        half.load_state_dict(state)
+        full = DeepDFA.from_config(dataclasses.replace(cfg.model, param_dtype="float32"),
+                                   cfg.data.feat.input_dim)
+        full.load_state_dict({k: v.float() for k, v in state.items()})
+        half, full = half.to(CARD).eval(), full.to(CARD).eval()
+        with torch.inference_mode():
+            p_half, p_full = torch.sigmoid(half(batch)), torch.sigmoid(full(batch))
+        valid = batch.graph_mask
+        upcast_err = float((p_half - p_full)[valid].abs().max())
+        if upcast_err > BF16_VS_FP32_TOL or not torch.isfinite(p_half).all():
+            fail(f"bf16_params: the bf16 model is {upcast_err} from its fp32 upcast")
+
+        # one saliency localization batch through the bf16 model
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        probs, scores = localize.ggnn_score_fn("saliency", half)(batch)
+        torch.cuda.synchronize()
+        loc_s = time.perf_counter() - t0
+        loc_counts = gk.launch_counts()
+        loc_err = float((probs - p_half)[valid].abs().max())
+        if not torch.isfinite(scores).all() or loc_err > BITS_TOL or \
+                min(loc_counts[k] for k in ("LAUNCHES", "GRU_BWD_LAUNCHES", "DMSG_LAUNCHES")) <= 0:
+            fail(f"bf16_params: saliency gave non-finite scores, probabilities {loc_err} from "
+                 f"the model's, or launched {loc_counts}")
+    report.update(score={"functions": len(names), "card_vs_cpu_max_abs_err": score_err,
+                         **{f"card_{k}": card[k] for k in ("serve_seconds",
+                                                           "serve_requests_per_sec",
+                                                           "serve_batches")}},
+                  bf16_vs_fp32_upcast_max_abs_err=upcast_err,
+                  saliency={"seconds": loc_s, "prob_vs_model_max_abs_err": loc_err,
+                            "graphs": int(valid.sum())},
+                  phase_seconds=time.perf_counter() - t_phase)
+    paths = {"bf16_train": {"ggnn_step": train_counts["LAUNCHES"],
+                            "ggnn_gru_bwd": train_counts["GRU_BWD_LAUNCHES"],
+                            "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]},
+             "bf16_score": {"ggnn_step": score_counts["LAUNCHES"]},
+             "bf16_localize": {"ggnn_step": loc_counts["LAUNCHES"],
+                               "ggnn_gru_bwd": loc_counts["GRU_BWD_LAUNCHES"],
+                               "ggnn_dmsg": loc_counts["DMSG_LAUNCHES"]}}
+    report["launches"] = paths
+    emit(report)
+    return paths
+
+
+def moe_combined_phase(torch, smi: str) -> dict:
+    """The combined training path with the MoE adapter (MOE_EXPERTS
+    experts, top MOE_TOP_K) at codebert-base width, bf16 activations,
+    dropout 0.1: MOE_STEPS `CombinedTrainer` steps on the 16-row T 512
+    batches of the training corpus, then one serving forward of those
+    rows through `score_combined`, with kernels 5-7 and the GGNN kernels
+    counted. Checks: finite losses and aux; the MoE block on the last
+    step's [CLS] rows in fp32 on the card and on the CPU (the same
+    dispatch, outputs and aux within MOE_TOL); the block and a training
+    step's gradients the same bits on a repeat. Then one step under
+    torch.profiler (device time by group, idle share). Returns the
+    paths' launches."""
+    import numpy as np
+
+    from deepdfa_tpu_torch.data import collate_plan, lengths_for, plan_bucketed_batches
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+    from deepdfa_tpu_torch.parallel import moe
+    from deepdfa_tpu_torch.serve import score_combined
+    from deepdfa_tpu_torch.train import CombinedTrainer
+
+    t_phase = time.perf_counter()
+    cfg, mcfg = combined_train_setup(torch)
+    mcfg = dataclasses.replace(mcfg, moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K)
+    tok = tokenizer("roberta")
+    token_ids, labels, graphs = training_corpus(np.random.default_rng(21),
+                                                cfg.data.feat.input_dim, tok)
+    bcfg = cfg.data.batch
+    order = sorted(token_ids)
+    plans = [p for p in plan_bucketed_batches(
+        lengths_for(token_ids, order, tok.pad_id), order, COMBINED_BUCKETS,
+        cfg.data.token_budget, 1, bcfg.node_budget, bcfg.edge_budget) if p.seq_len == 512]
+    batches = [collate_plan(p, token_ids, labels, graphs, pad_id=tok.pad_id) for p in plans]
+    shapes = [list(b.input_ids.shape) for b in batches]
+    if not batches or any(s != [16, 512] for s in shapes):
+        fail(f"moe_combined: planned T 512 batches {shapes}, want 16 x 512")
+    trainer = CombinedTrainer(cfg, mcfg, total_steps=MOE_STEPS, device=CARD)
+    t0 = time.perf_counter()
+    state = trainer.init_state(seed=0)
+    init_s = time.perf_counter() - t0
+    seen = []
+    hook = state.model.moe.register_forward_hook(
+        lambda mod, args, out: seen.append((args[0].detach(), out[1].detach())))
+
+    fa.LAUNCHES = fa.DQ_LAUNCHES = fa.DKV_LAUNCHES = fa.DBIAS_LAUNCHES = 0
+    gk.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(MOE_STEPS):
+        b = batches[i % len(batches)].to(trainer.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(state, b, fold_seed(0, i))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    train = {"flash_fwd": fa.LAUNCHES, "flash_dq": fa.DQ_LAUNCHES, "flash_dkv": fa.DKV_LAUNCHES,
+             "ggnn_step": gk.LAUNCHES, "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES,
+             "ggnn_dmsg": gk.DMSG_LAUNCHES}
+    L, S = mcfg.encoder.num_layers, mcfg.graph_n_steps
+    want = {"flash_fwd": 2 * L * MOE_STEPS, "flash_dq": L * MOE_STEPS, "flash_dkv": L * MOE_STEPS,
+            "ggnn_step": S * MOE_STEPS, "ggnn_gru_bwd": S * MOE_STEPS,
+            "ggnn_dmsg": S * MOE_STEPS}
+    auxes = [float(a) for _, a in seen]
+    if train != want or not all(math.isfinite(x) for x in losses + auxes) or \
+            len(auxes) != MOE_STEPS:
+        fail(f"moe_combined: launched {train} (expected {want}), losses {losses}, aux {auxes}")
+    cls_rows = seen[-1][0]
+    hook.remove()
+
+    # one serving forward of the last batch's rows (ties: its padded rows)
+    ids = [i for i in plans[(MOE_STEPS - 1) % len(plans)].example_ids]
+    payloads = [(token_ids[i], graphs[i]) for i in ids]
+    state.model.eval()
+    fa.LAUNCHES = 0
+    gk.reset_launch_counts()
+    summary = score_combined(state.model, payloads, cfg, tok, device=CARD)
+    serve = {"flash_fwd": fa.LAUNCHES, "ggnn_step": gk.LAUNCHES}
+    probs = np.asarray(summary.pop("probs"), dtype=np.float64)
+    if summary["serve_scored"] != len(payloads) or not np.all(np.isfinite(probs)) or \
+            min(serve.values()) <= 0:
+        fail(f"moe_combined: serving scored {summary['serve_scored']}/{len(payloads)}, "
+             f"launched {serve}")
+
+    # the MoE block on the last step's [CLS] rows, fp32, card and CPU
+    block = state.model.moe
+    x32 = cls_rows.float()
+    with torch.inference_mode():
+        cap = moe.capacity(block.cfg, x32.shape[0])
+        d_card, c_card, a_card = moe._route(block.cfg, block.router, x32, cap)
+        out_card, aux_card = block(x32)
+        out_again, aux_again = block(x32)
+        cpu_params = {k: v.detach().cpu() for k, v in block.params().items()}
+        d_cpu, _, _ = moe._route(block.cfg, cpu_params["router"], x32.cpu(), cap)
+        out_cpu, aux_cpu = moe.moe_ffn(block.cfg, cpu_params, x32.cpu())
+    out_err = float((out_card.cpu() - out_cpu).abs().max())
+    aux_err = abs(float(aux_card) - float(aux_cpu))
+    if not torch.equal(d_card.cpu(), d_cpu) or not torch.allclose(
+            out_card.cpu(), out_cpu, rtol=MOE_TOL, atol=MOE_TOL) or aux_err > MOE_TOL:
+        fail(f"moe_combined: the MoE block on the card vs the CPU: dispatch equal "
+             f"{torch.equal(d_card.cpu(), d_cpu)}, outputs {out_err}, aux {aux_err}")
+    if not (torch.equal(out_card, out_again) and torch.equal(aux_card, aux_again)):
+        fail("moe_combined: the MoE block gave other bits on a repeat")
+    kept = int(d_card.sum())
+
+    # a training step's gradients, twice with one seed
+    b0 = batches[0].to(trainer.device)
+    grads = []
+    state.model.train()
+    for _ in range(2):
+        trainer.forward_loss(state, b0, fold_seed(0, 999)).backward()
+        grads.append(grads_of(state))
+    if not all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0]):
+        fail("moe_combined: two backward passes on one batch gave other gradients")
+    del grads
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        trainer.train_step(state, b0, fold_seed(3, 0))
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        trainer.train_step(state, b0, fold_seed(3, 1))
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0)
+    profiled = {**device_profile(prof, profiled_ms), "device_ms_by_group": device_groups(prof)}
+    n_params = sum(p.numel() for p in state.model.parameters())
+    n_moe = sum(p.numel() for p in block.parameters())
+    del state, trainer
+    paths = {"moe_train": train, "moe_serve": serve}
+    emit({"phase": "moe_combined", "nvidia_smi": smi, "experts": MOE_EXPERTS,
+          "top_k": MOE_TOP_K, "params": n_params, "moe_params": n_moe, "init_seconds": init_s,
+          "batch_shapes": shapes, "dropout": DROPOUT_RATE, "losses": losses, "aux": auxes,
+          "step_ms": step_ms, "median_step_ms_after_first": statistics.median(step_ms[1:]),
+          "cls_rows": int(x32.shape[0]), "capacity": cap, "slots_kept": kept,
+          "card_vs_cpu_out_max_abs_err": out_err, "card_vs_cpu_aux_abs_err": aux_err,
+          "dispatch_equal": True, "bits_equal_on_repeat": True, "grads_bit_equal": True,
+          "serve": {k: summary[k] for k in ("serve_seconds", "serve_batches")},
+          "profiled_step": profiled, "launches": paths,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return paths
+
+
 def cli_ladder(cfg) -> tuple[int, ...]:
     """The serve ladder `cli score` warms for `cfg` (no tuned rungs)."""
     from deepdfa_tpu_torch.serve.batcher import _ladder_sizes
@@ -6220,6 +6779,8 @@ def main() -> None:
         host_paths |= train_prefetch_phase(torch, Path(pipeline_root), smi)
         struct_paths, d288 = struct_feats_phase(torch, Path(pipeline_root), smi)
         struct_paths |= scan_phase(torch, Path(pipeline_root), smi)
+        model_paths, gather_row = dataflow_bits_phase(torch, Path(pipeline_root), smi)
+        model_paths |= bf16_params_phase(torch, Path(pipeline_root), smi)
     # on a seed of its own, so the phases after it see the data they always saw
     localize_paths |= localize_t5_phase(torch, np.random.default_rng(19), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
@@ -6246,6 +6807,7 @@ def main() -> None:
     gen_decode = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
     del gen_trainer, gen_state
     gen_clone = train_clone_phase(torch, rng)
+    model_paths |= moe_combined_phase(torch, smi)
     # each main path's launches, counted from 0 just before it ran
     paths = {"serve": {"ggnn_step": launches}, "train": train_launches,
              "serve_combined": combined_launches, "train_combined": tc_launches,
@@ -6254,7 +6816,7 @@ def main() -> None:
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
              "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths,
-             **host_paths, **struct_paths}
+             **host_paths, **struct_paths, **model_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]
@@ -6354,6 +6916,12 @@ def main() -> None:
          "bound_by": fb["dbias_bound"][1], "library_ms": fb["bwd_library_ms"],
          "dropout_ms": fb["dbias_dropout_ms"],
          "dropout_library_ms": fb["dbias_dropout_library"]["ms"]},
+        # the bit propagation's fixed-order segment sum (no TPU kernel: the
+        # reference's jax.ops.segment_sum); library_ms is index_add_
+        {"name": "setops_gather_sum", "source": "deepdfa_tpu_torch/csrc/setops.cu",
+         "replaces": "deepdfa_tpu/nn/setops.py:56",
+         **{k: gather_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}},
     ]
     kernels_by_name = {k["name"]: k for k in kernels}
     for k in kernels:

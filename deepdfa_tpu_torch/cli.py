@@ -65,7 +65,12 @@ outputs equal the reference's commands' (the stores member for member).
 `data.feat.struct_feats=true` appends the five structural channels
 (frontend/structfeat.py) to every node's features; a run trained on such
 a store sets `model.struct_feats=true` (its GGNN then runs at 9 x
-`model.hidden_dim`). `data.feat.max_defs` is not ported and raises. The other commands read that layout, and the reference's outputs
+`model.hidden_dim`). `data.feat.max_defs=N` attaches the reaching-
+definitions bit labels of N definition sites (the store directory takes
+`_maxdefs_N`); a run trained on such a store may set
+`model.label_style=dataflow_solution_in` or `_out`, whose `test` scores
+every node's bits (and refuses `--export`, which writes one row a
+function). The other commands read that layout, and the reference's outputs
 the same way: `splits.json`, the graph store and, for `train-combined`,
 `examples.pkl`. A run writes
 `runs/<run_name>/config.json`, `train_log.jsonl` and torch checkpoints
@@ -311,10 +316,13 @@ def _load_run_config(args) -> Config:
 
 
 def _model(cfg: Config):
-    """The configured DeepDFA; `init_state` or a checkpoint sets its weights."""
+    """The configured DeepDFA; `init_state` or a checkpoint sets its
+    weights. The dataflow styles take their bit width from the store's
+    extraction (`data.feat.max_defs`)."""
     from deepdfa_tpu_torch.models import DeepDFA
 
-    return DeepDFA.from_config(cfg.model, cfg.data.feat.input_dim)
+    return DeepDFA.from_config(cfg.model, cfg.data.feat.input_dim,
+                               max_defs=cfg.data.feat.max_defs)
 
 
 class RunLog:
@@ -599,6 +607,9 @@ def cmd_test(args) -> None:
     from deepdfa_tpu_torch.train import GraphTrainer, classification_report
 
     cfg = _load_run_config(args)
+    if args.export and cfg.model.label_style != "graph":
+        raise SystemExit(f"test --export writes one prediction a function; "
+                         f"label_style={cfg.model.label_style!r} scores nodes")
     split_specs = load_graph_splits(cfg)
     run_dir = runs_dir(cfg.run_name)
     trainer = GraphTrainer(_model(cfg), cfg, total_steps=1, device=args.device)

@@ -15,10 +15,10 @@ labels come from changed-line sets (dbize.py:35-50); self-loops are added
 at batch time (dbize_graphs.py:25).
 
 `struct_feats` appends the five structural channels of
-`frontend/structfeat.py` after the four subkey columns. Not ported yet,
-and refused with NotImplementedError before any work: `max_defs`
-(reaching-definitions bit labels, which need `nn/bitprop.py`, ROADMAP
-queue A, item 8).
+`frontend/structfeat.py` after the four subkey columns. `max_defs`
+attaches the reaching-definitions bit labels of that width
+(`nn/bitprop.py:rd_bit_problem`, solved over the full CFG and remapped
+onto the kept nodes) for the dataflow_solution_{in,out} label styles.
 """
 
 from __future__ import annotations
@@ -42,15 +42,6 @@ from deepdfa_tpu_torch.graphs.batch import GraphSpec
 from deepdfa_tpu_torch.nn.embedding import SUBKEY_ORDER
 
 
-def refuse_unported(max_defs: int | None) -> None:
-    """NotImplementedError for the feature options the port lacks."""
-    if max_defs is not None:
-        raise NotImplementedError(
-            f"data.feat.max_defs={max_defs}: the reaching-definitions bit labels need "
-            "nn/bitprop.py, which is not ported yet (ROADMAP queue A, item 8)"
-        )
-
-
 @dataclasses.dataclass
 class ExtractedGraph:
     """Host-side intermediate: one function's model graph + features."""
@@ -61,6 +52,9 @@ class ExtractedGraph:
     edge_dst: np.ndarray
     def_fields: dict[int, Fields]  # dense node idx -> stage-1 fields
     label: float  # function-level label
+    #: optional reaching-definitions bit labels ([n, max_defs] float32 each:
+    #: gen/kill/in/out) for the dataflow_solution_{in,out} label styles
+    bits: dict[str, np.ndarray] | None = None
     #: per-edge relation ids (gtype="cfg+dep": 0=cfg, 1=data-dependence,
     #: 2=control-dependence); None for single-type cfg graphs
     edge_type: np.ndarray | None = None
@@ -94,7 +88,6 @@ def extract_graph(
     - "cfg+dep": cfg (type 0) + data-dependence (1) + control-dependence
       (2) as typed edges for an n_etypes=3 GGNN
     """
-    refuse_unported(max_defs)
     # validate BEFORE parsing: a bad gtype must fail fast on the first
     # call, not only on the subset of a corpus that happens to parse
     if gtype not in GTYPE_ETYPES:
@@ -124,7 +117,6 @@ def graph_from_cpg(
     and the Joern-backed serving frontend (serve/frontend.py, via
     frontend/joern_io.py:load_joern_cpg) both land here, so their
     features are computed by the same code."""
-    refuse_unported(max_defs)
     if gtype not in GTYPE_ETYPES:
         raise ValueError(f"gtype={gtype!r}")
 
@@ -170,6 +162,26 @@ def graph_from_cpg(
             if fields:
                 def_fields[dense[nid]] = fields
 
+    bits = None
+    if max_defs is not None:
+        # reaching-definitions supervision over the FULL CFG, remapped onto
+        # the kept (line-bearing) nodes; graphs with zero definition sites
+        # get all-zero arrays so the corpus stays fixed-width
+        from deepdfa_tpu_torch.nn.bitprop import rd_bit_problem
+
+        prob = rd_bit_problem(cpg, max_defs, clip=True)
+        n_keep = len(keep)
+        bits = {
+            k: np.zeros((n_keep, max_defs), np.float32)
+            for k in ("gen", "kill", "labels_in", "labels_out")
+        }
+        if prob is not None:
+            full_dense = {nid: i for i, nid in enumerate(prob["nodes"])}
+            rows = np.array([full_dense.get(nid, -1) for nid in keep], np.int64)
+            ok = rows >= 0
+            for k in bits:
+                bits[k][ok] = prob[k][rows[ok]]
+
     if label is None:
         label = (
             1.0
@@ -188,6 +200,7 @@ def graph_from_cpg(
         edge_dst=np.array(dst, np.int32),
         def_fields=def_fields,
         label=float(label),
+        bits=bits,
         edge_type=edge_type,
         struct=struct,
     )
@@ -213,6 +226,14 @@ def to_graph_spec(
         )
     else:
         vuln = np.zeros((n,), np.int32)  # graph label carried separately
+    bit_kw = {}
+    if eg.bits is not None:
+        bit_kw = dict(
+            node_gen=eg.bits["gen"],
+            node_kill=eg.bits["kill"],
+            node_bits_in=eg.bits["labels_in"],
+            node_bits_out=eg.bits["labels_out"],
+        )
     return GraphSpec(
         graph_id=eg.graph_id,
         node_feats=feats,
@@ -221,6 +242,7 @@ def to_graph_spec(
         edge_dst=eg.edge_dst,
         label=eg.label,
         edge_type=eg.edge_type,
+        **bit_kw,
     )
 
 
@@ -254,8 +276,6 @@ def extract_corpus(
 ) -> list[ExtractedGraph]:
     """Stage getgraphs+absdf-stage-1 over a corpus (mp fan-out like the
     reference's dfmp, sastvd/__init__.py:198-244)."""
-    # refused here, before the workers, whose failures are logged and skipped
-    refuse_unported(max_defs)
     fn = partial(_extract_one, max_defs=max_defs, gtype=gtype,
                  struct_feats=struct_feats)
     if workers and workers > 1:

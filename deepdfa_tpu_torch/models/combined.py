@@ -4,6 +4,7 @@
     input_ids --RobertaEncoder--> hidden [B, T, D] --> [CLS] hidden[:, 0]
     graphs ----DeepDFA (encoder mode)--> pooled [B, 8*graph_hidden_dim],
                zeroed on rows whose has_graph is False
+    with moe_experts > 0: [CLS] += MoE([CLS]) (a residual expert block)
     concat [CLS, graph] --> dense --> tanh --> out --> logits [B, classes]
 
 (LineVul's RobertaClassificationHead over [CLS] concatenated with the
@@ -19,9 +20,14 @@ the head, whose two sites (before the dense layer, after the tanh) take
 (1,) and (2,) of it, at `head_dropout` (`head_logits`, `:141-151`).
 Without a key the function is the same in either module mode.
 
-Not ported (raise `NotImplementedError`): the MoE adapter
-(`moe_experts > 0`), the pipeline, expert and sequence/tensor-parallel
-paths.
+The MoE adapter (`moe_experts > 0`, parallel/moe.py) is the reference's
+residual block on the [CLS] row: cls + moe_out, which promotes a bf16
+row to fp32 (the MoE's parameters are fp32), so the graph embedding then
+joins it in fp32, as in the reference; `forward(..., with_aux=True)`
+returns the load-balancing aux loss with the logits (0 without MoE).
+
+Not ported (raise `NotImplementedError`): the pipeline, expert and
+sequence/tensor-parallel paths.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from deepdfa_tpu_torch.graphs.batch import GraphBatch
 from deepdfa_tpu_torch.models.deepdfa import DeepDFA
 from deepdfa_tpu_torch.models.transformer import RobertaEncoder, TransformerConfig, _normal_
 from deepdfa_tpu_torch.nn.dropout import dropout, fold_seed
+from deepdfa_tpu_torch.parallel.moe import MoE, MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,18 +63,20 @@ class CombinedConfig:
     def graph_out_dim(self) -> int:
         return 8 * self.graph_hidden_dim  # concat_all_absdf encoder out_dim
 
+    @property
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(hidden_size=self.encoder.hidden_size,
+                         intermediate_size=self.encoder.intermediate_size,
+                         num_experts=self.moe_experts, top_k=self.moe_top_k)
+
 
 class CombinedModel(nn.Module):
-    """Encoder (no pooler), encoder-mode DeepDFA (when `use_graph`) and
-    the classification head. `generator` seeds the initial weights."""
+    """Encoder (no pooler), encoder-mode DeepDFA (when `use_graph`), the
+    MoE adapter (when `moe_experts`) and the classification head.
+    `generator` seeds the initial weights."""
 
     def __init__(self, cfg: CombinedConfig, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                f"moe_experts={cfg.moe_experts}: the MoE adapter (parallel/moe.py) "
-                "comes with a later slice of the port (ROADMAP queue A, item 8)"
-            )
         self.cfg = cfg
         d = cfg.encoder.hidden_size
         self.encoder = RobertaEncoder(cfg.encoder, with_pooler=False, generator=generator)
@@ -83,6 +92,8 @@ class CombinedModel(nn.Module):
         for lin in (self.head_dense, self.head_out):
             _normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
+        if cfg.moe_experts:
+            self.moe = MoE(cfg.moe_cfg, generator)
 
     def forward(
         self,
@@ -98,11 +109,13 @@ class CombinedModel(nn.Module):
         ep_axis: str | None = None,
         inputs_embeds: torch.Tensor | None = None,
         remat: bool = True,
-    ) -> torch.Tensor:
+        with_aux: bool = False,
+    ):
         """[B, T] ids (+ a GraphBatch of B graphs aligned with the rows)
         -> logits [B, num_classes] in fp32; dropout with a `dropout_key`;
         `inputs_embeds` and `remat` go to `RobertaEncoder.encode` (the
-        attribution hook: without a key the head runs without dropout)."""
+        attribution hook: without a key the head runs without dropout).
+        `with_aux`: (logits, the MoE's aux loss, 0 without MoE)."""
         if pp_axis is not None or ep_axis is not None:
             raise NotImplementedError(
                 "pp_axis / ep_axis: pipeline and expert parallelism come with the "
@@ -116,6 +129,10 @@ class CombinedModel(nn.Module):
             position_offset=position_offset, inputs_embeds=inputs_embeds, remat=remat,
         )
         x = hidden[:, 0, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.cfg.moe_experts:
+            moe_out, aux = self.moe(x)
+            x = x + moe_out  # residual: dropped tokens pass through
         if self.cfg.use_graph:
             if graph_batch is None:
                 raise ValueError(
@@ -126,7 +143,8 @@ class CombinedModel(nn.Module):
             if has_graph is not None:
                 graph_vec = graph_vec * has_graph[:, None].to(graph_vec.dtype)
             x = torch.cat([x, graph_vec.to(x.dtype)], dim=-1)
-        return self.head_logits(x, k_head)
+        logits = self.head_logits(x, k_head)
+        return (logits, aux) if with_aux else logits
 
     def head_logits(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
         """RobertaClassificationHead: dropout -> dense -> tanh -> dropout

@@ -1,7 +1,10 @@
 """Reference parameter trees -> the port's `state_dict`s.
 
 `from_jax_params`: the Flax DeepDFA variables, `{"params": {...}}` (or
-the bare params dict) with numpy arrays as leaves. Embedding tables and
+the bare params dict) with numpy arrays as leaves, the dataflow styles'
+`bitprop` gate included. A bfloat16 leaf (an `ml_dtypes.bfloat16`
+array) becomes a `torch.bfloat16` tensor of the same bits, any other
+leaf fp32. Embedding tables and
 the GGNN's weights keep their layout (the CUDA kernel reads the
 reference's [in, out] kernels as they are); the per-etype Dense
 subtrees stack into one [T, d, d] tensor; Dense layers that become
@@ -53,12 +56,18 @@ import torch
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+    """A leaf as a tensor: bfloat16 bit for bit (read as its raw 16
+    bits, so ml_dtypes is never imported), anything else fp32."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        raw = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(raw).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     p = tree["params"] if "params" in tree else tree
-    unknown = set(p) - {"embedding", "ggnn", "pooling", "head"}
+    unknown = set(p) - {"embedding", "ggnn", "pooling", "bitprop", "head"}
     if unknown:
         raise KeyError(
             f"parameter subtrees the port has no module for: {sorted(unknown)}"
@@ -83,6 +92,10 @@ def from_jax_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         gate = p["pooling"]["gate_nn"]
         sd["pooling.gate_nn.weight"] = _t(gate["kernel"]).T.contiguous()
         sd["pooling.gate_nn.bias"] = _t(gate["bias"])
+    if "bitprop" in p:
+        gate = p["bitprop"]["kill_gate"]
+        sd["bitprop.kill_gate.weight"] = _t(gate["kernel"]).T.contiguous()
+        sd["bitprop.kill_gate.bias"] = _t(gate["bias"])
     for name, dense in p.get("head", {}).items():
         sd[f"head.{name}.weight"] = _t(dense["kernel"]).T.contiguous()
         sd[f"head.{name}.bias"] = _t(dense["bias"])
@@ -117,9 +130,9 @@ def from_jax_encoder_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 
 def from_jax_combined_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The reference combined tree {"encoder", "head"[, "graph"]} -> a
-    `CombinedModel` state_dict."""
-    unknown = set(tree) - {"encoder", "head", "graph"}
+    """The reference combined tree {"encoder", "head"[, "graph", "moe"]}
+    -> a `CombinedModel` state_dict; the MoE leaves keep their layout."""
+    unknown = set(tree) - {"encoder", "head", "graph", "moe"}
     if unknown:
         raise KeyError(f"combined subtrees the port has no module for: {sorted(unknown)}")
     sd = {f"encoder.{k}": v for k, v in from_jax_encoder_params(tree["encoder"]).items()}
@@ -130,6 +143,8 @@ def from_jax_combined_params(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]
     sd["head_out.bias"] = _t(head["out_b"])
     if "graph" in tree:
         sd.update({f"graph.{k}": v for k, v in from_jax_params(tree["graph"]).items()})
+    if "moe" in tree:
+        sd.update({f"moe.{k}": _t(tree["moe"][k]) for k in ("router", "w1", "b1", "w2", "b2")})
     return sd
 
 

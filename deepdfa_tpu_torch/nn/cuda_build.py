@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 #: (the library's name, none)
 VARIANTS = {"flash_attention_causal": ("flash_attention", ("-DFLASH_CAUSAL=1",))}
 #: every kernel library of the package
-SOURCES = ("ggnn_step", "ggnn_bwd", "flash_attention", "flash_attention_causal")
+SOURCES = ("ggnn_step", "ggnn_bwd", "flash_attention", "flash_attention_causal", "setops")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

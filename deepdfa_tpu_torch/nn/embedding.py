@@ -8,6 +8,7 @@ flagship) there is one table per subkey and the four embeddings are
 concatenated to 4 * embedding_dim. `struct_vocab` adds one small table
 per structural channel (frontend/structfeat.py: STRUCT_VOCAB), read from
 the columns after the four subkey columns and concatenated after them.
+The tables are stored in `param_dtype`, and the rows come out in it.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ SUBKEY_ORDER = ("api", "datatype", "literal", "operator")
 
 class AbstractDataflowEmbedding(nn.Module):
     def __init__(self, input_dim: int, embedding_dim: int, concat_all: bool = True,
-                 struct_vocab: tuple[int, ...] = ()):
+                 struct_vocab: tuple[int, ...] = (), param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.concat_all = concat_all
@@ -31,10 +32,10 @@ class AbstractDataflowEmbedding(nn.Module):
             tuple(f"embed_{k}" for k in SUBKEY_ORDER) if concat_all else ("embed",)
         )
         for name in self.names:
-            setattr(self, name, nn.Embedding(input_dim, embedding_dim))
+            setattr(self, name, nn.Embedding(input_dim, embedding_dim, dtype=param_dtype))
         self.struct_names = tuple(f"embed_struct_{j}" for j in range(len(self.struct_vocab)))
         for name, vocab in zip(self.struct_names, self.struct_vocab):
-            setattr(self, name, nn.Embedding(vocab, embedding_dim))
+            setattr(self, name, nn.Embedding(vocab, embedding_dim, dtype=param_dtype))
 
     @property
     def out_dim(self) -> int:

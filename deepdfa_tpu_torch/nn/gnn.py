@@ -12,6 +12,10 @@
   reference's lax function. Weights
   keep the reference's [in, out] layout, which the kernels read
   directly.
+- `param_dtype` (the reference's): the parameters are created and stored
+  in it; the GGNN computes as `ggnn_propagate` does, its weights and
+  state cast up to fp32 at the call (the reference's kernel path), and
+  the pooling gate is a `Dense`, which computes in the promoted dtype.
 - pooling: masked segment softmax; padded node slots belong to the dummy
   segment `num_graphs`, which is sliced off. The segment reductions and
   the per-node gathers are one-hot products over num_graphs + 1
@@ -28,6 +32,7 @@ from torch import nn
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
 from deepdfa_tpu_torch.nn import ggnn_kernel
 from deepdfa_tpu_torch.nn.init import truncated_normal_
+from deepdfa_tpu_torch.nn.mlp import Dense
 
 
 def segment_softmax(
@@ -75,15 +80,17 @@ def attention_pool(
 class GRUCell(nn.Module):
     """torch.nn.GRUCell's update with the reference's parameter layout:
     input/hidden projections [features, 3 * features] ([in, out]), gates
-    in r, z, n order."""
+    in r, z, n order; the parameters in `param_dtype`, the update in the
+    promoted dtype of the inputs and parameters."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.features = features
-        self.input_kernel = nn.Parameter(torch.empty(features, 3 * features))
-        self.input_bias = nn.Parameter(torch.zeros(3 * features))
-        self.hidden_kernel = nn.Parameter(torch.empty(features, 3 * features))
-        self.hidden_bias = nn.Parameter(torch.zeros(3 * features))
+        kw = dict(dtype=param_dtype)
+        self.input_kernel = nn.Parameter(torch.empty(features, 3 * features, **kw))
+        self.input_bias = nn.Parameter(torch.zeros(3 * features, **kw))
+        self.hidden_kernel = nn.Parameter(torch.empty(features, 3 * features, **kw))
+        self.hidden_bias = nn.Parameter(torch.zeros(3 * features, **kw))
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         truncated_normal_(self.input_kernel, self.features, generator)
@@ -92,9 +99,10 @@ class GRUCell(nn.Module):
         nn.init.zeros_(self.hidden_bias)
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(torch.promote_types(x.dtype, h.dtype), self.input_kernel.dtype)
         return ggnn_kernel.gru_cell(
-            x, h, self.input_kernel, self.hidden_kernel,
-            self.input_bias, self.hidden_bias,
+            x.to(dt), h.to(dt), *(w.to(dt) for w in (
+                self.input_kernel, self.hidden_kernel, self.input_bias, self.hidden_bias)),
         )
 
 
@@ -107,11 +115,12 @@ class GatedGraphConv(nn.Module):
     `block_edges` (the mxu edge block; the reference's
     `kernel_block_edges`, 0 = 512) and `unroll` (per_step | fused) act
     only under `use_kernel`; `scan_steps` enters the fused admission
-    rule."""
+    rule. The parameters are stored in `param_dtype`; the steps run fp32."""
 
     def __init__(self, out_features: int, n_steps: int, n_etypes: int = 1, *,
                  use_kernel: bool = False, accum: str = "fp32", scatter: str = "auto",
-                 block_edges: int = 0, unroll: str = "per_step", scan_steps: bool = False):
+                 block_edges: int = 0, unroll: str = "per_step", scan_steps: bool = False,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_features = out_features
         self.n_steps = n_steps
@@ -122,9 +131,10 @@ class GatedGraphConv(nn.Module):
         self.block_edges = block_edges
         self.unroll = unroll
         self.scan_steps = scan_steps
-        self.etype_kernel = nn.Parameter(torch.empty(n_etypes, out_features, out_features))
-        self.etype_bias = nn.Parameter(torch.zeros(n_etypes, out_features))
-        self.gru = GRUCell(out_features)
+        kw = dict(dtype=param_dtype)
+        self.etype_kernel = nn.Parameter(torch.empty(n_etypes, out_features, out_features, **kw))
+        self.etype_bias = nn.Parameter(torch.zeros(n_etypes, out_features, **kw))
+        self.gru = GRUCell(out_features, param_dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for t in range(self.n_etypes):
@@ -166,13 +176,12 @@ class GlobalAttentionPooling(nn.Module):
     """Gated attention readout: gate = softmax_over_graph(gate_nn(h));
     out_g = sum_v gate_v * h_v (DGL's, with identity feat_nn)."""
 
-    def __init__(self, in_features: int):
+    def __init__(self, in_features: int, param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.gate_nn = nn.Linear(in_features, 1)
+        self.gate_nn = Dense(in_features, 1, param_dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        truncated_normal_(self.gate_nn.weight, self.gate_nn.in_features, generator)
-        nn.init.zeros_(self.gate_nn.bias)
+        self.gate_nn.init_flax(generator)
 
     def forward(self, batch: GraphBatch, feat: torch.Tensor) -> torch.Tensor:
         gate = self.gate_nn(feat)[:, 0]

@@ -106,14 +106,12 @@ class RequestPreprocessor:
 
     def __init__(self, cfg, vocabs, cache_entries: int = 1024,
                  cache: FeatureCache | None = None):
-        from deepdfa_tpu_torch.data.pipeline import refuse_unported
-
         feat = cfg.data.feat
-        refuse_unported(feat.max_defs)
         self.cfg = cfg
         self.vocabs = vocabs
         self.gtype = cfg.data.gtype
         self.struct_feats = bool(feat.struct_feats)
+        self.max_defs = feat.max_defs
         self.cache = cache if cache is not None else FeatureCache(cache_entries)
         self._lock = threading.Lock()
         self.failures = 0
@@ -170,7 +168,8 @@ class RequestPreprocessor:
     def _extract(self, code: str, request_id: int) -> Features | None:
         from deepdfa_tpu_torch.data.pipeline import extract_graph, to_graph_spec
 
-        eg = extract_graph(code, request_id, gtype=self.gtype, struct_feats=self.struct_feats)
+        eg = extract_graph(code, request_id, max_defs=self.max_defs, gtype=self.gtype,
+                           struct_feats=self.struct_feats)
         if eg is None:
             return None
         return Features(to_graph_spec(eg, self.vocabs), eg.node_lines.copy())

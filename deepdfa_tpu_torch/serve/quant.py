@@ -9,7 +9,12 @@ rewrites the module's state dict:
   kernels, embeddings, attention projections and its stacked per-layer
   vectors) become per-channel SYMMETRIC int8: one fp32 scale per output
   channel, values rounded into [-127, 127]; dequantizing is one multiply;
-- **every other float** (biases, norms, the GRU's vectors) becomes bf16.
+- **every other float** (biases, norms, the GRU's vectors) becomes bf16;
+- **a bfloat16 tensor** (a `model.param_dtype=bfloat16` checkpoint) stays
+  as it is, neither quantized nor counted: the reference's float test
+  (`_is_float`, numpy's `np.floating`) does not take ml_dtypes'
+  bfloat16, so its `@int8` entry of such a checkpoint holds the bf16
+  weights, and serving upcasts them to fp32 (its `dequantize_params`).
 
 The port's state dicts are laid out otherwise than the reference's
 parameter trees (`models/convert.py`): an `nn.Linear` weight is [out,
@@ -130,6 +135,7 @@ _ROBERTA_RULES = (
     (r"encoder\.pooler_b", "bf16"),
     (r"head_(dense|out)\.weight", "first"),
     (r"head_(dense|out)\.bias", "bf16"),
+    (r"moe\.(router|w1|b1|w2|b2)", "last"),
 )
 _T5_RULES = (
     (r"encoder\.(word|rel_bias)", "last"),
@@ -197,7 +203,8 @@ def quantize_params(params: Mapping[str, torch.Tensor], num_heads: int | None = 
     rules = _rules_for(host)
     if "encoder.rel_bias" in host:
         num_heads = int(host["encoder.rel_bias"].shape[1])
-    floats = {k: v.float().numpy() for k, v in host.items() if v.is_floating_point()}
+    floats = {k: v.float().numpy() for k, v in host.items()
+              if v.is_floating_point() and v.dtype != torch.bfloat16}
     kinds = {k: _kind(k, rules) for k in floats}
     if num_heads is None and "heads" in kinds.values():
         raise ValueError("quantize_params needs num_heads for the fused q/k/v tensors")

@@ -15,6 +15,7 @@ from deepdfa_tpu_torch.train.losses import (
     bce_with_logits,
     check_label_style,
     classifier_loss,
+    dataflow_labels,
     graph_labels,
     labels_and_mask,
     masked_softmax_cross_entropy,
@@ -52,6 +53,7 @@ __all__ = [
     "check_label_style",
     "classification_report",
     "classifier_loss",
+    "dataflow_labels",
     "drop_known_feats",
     "fit_multi",
     "freeze",

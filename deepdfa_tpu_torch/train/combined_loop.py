@@ -18,6 +18,10 @@ the reference's `is_t5` switch picks `defect_forward` (`:123-128,
   (the reference folds the step into its root key): the encoder's and
   head's sites at the model config's rates, with any seed a different
   but equally distributed stream from the reference's.
+- With the MoE adapter (`moe_experts > 0`) the loss sum takes the
+  reference's load-balancing term, moe_aux_weight * aux * valid rows
+  (`_loss_sum`, `:327-331`), so the per-row normalization leaves its
+  weight constant across batch sizes.
 - `freeze_graph` (the reference's `--freeze_graph`): the graph branch
   takes no gradient, no update and no weight decay (`train/transfer.py`).
 - Evaluation accumulates the exact masked mean of the per-row loss in
@@ -36,9 +40,11 @@ the reference's `is_t5` switch picks `defect_forward` (`:123-128,
   reference's ahead-of-time `warmup` compile.
 
 Not in the port yet, and refused when configured: a mesh beyond one
-card, `train.resilience.enabled` (the divergence guard, step
-checkpoints, resume), the `obs` instruments and the MoE adapter
-(`moe_experts > 0`). `train.step_cache_entries` is read past.
+card (an `ep` mesh among them: the reference's refusals of one without
+MoE, or with an expert count it does not divide, come first, as
+ValueError), `train.resilience.enabled` (the divergence guard, step
+checkpoints, resume) and the `obs` instruments. `train.step_cache_entries`
+is read past.
 """
 
 from __future__ import annotations
@@ -78,11 +84,12 @@ class CombinedTrainer:
         if not isinstance(model_cfg, (CombinedConfig, DefectConfig)):
             raise TypeError(f"{type(model_cfg).__name__}: the trainer takes a CombinedConfig "
                             "(RoBERTa family) or a DefectConfig (T5 family)")
-        if getattr(model_cfg, "moe_experts", 0):
-            raise NotImplementedError(
-                f"moe_experts={model_cfg.moe_experts}: the MoE adapter comes with a later "
-                "slice of the port (ROADMAP queue A, item 8)"
-            )
+        self.moe = bool(getattr(model_cfg, "moe_experts", 0))
+        ep = cfg.train.mesh.ep
+        if ep > 1 and not self.moe:
+            raise ValueError("an ep>1 mesh needs an MoE block to shard (set model moe_experts)")
+        if self.moe and model_cfg.moe_experts % ep:
+            raise ValueError(f"{model_cfg.moe_experts} experts not divisible by ep={ep}")
         refuse_unported_training(cfg)
         self.cfg = cfg
         self.model_cfg = model_cfg
@@ -156,8 +163,15 @@ class CombinedTrainer:
         backward; `seed` is the step's dropout seed (None: no dropout)."""
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        logits = state.model(batch.input_ids, batch.graphs, batch.has_graph, dropout_key=seed)
+        if self.moe:
+            logits, aux = state.model(batch.input_ids, batch.graphs, batch.has_graph,
+                                      dropout_key=seed, with_aux=True)
+        else:
+            logits = state.model(batch.input_ids, batch.graphs, batch.has_graph,
+                                 dropout_key=seed)
         loss_sum, count = masked_softmax_cross_entropy(logits, batch.labels, batch.row_mask)
+        if self.moe:
+            loss_sum = loss_sum + self.model_cfg.moe_aux_weight * aux * count
         return loss_sum / count.clamp(min=1.0)
 
     def train_step(self, state: TrainState, batch: TextBatch, seed: int | None) -> torch.Tensor:

@@ -6,7 +6,9 @@ reference's `deepdfa_tpu/train/loop.py:GraphTrainer`).
   GGNN step kernel with its aggregate, then the backward kernels B3 and
   B4 in reverse, nn/ggnn_kernel.py), and one optimiser update.
 - Evaluation accumulates an exact masked mean of the per-example loss
-  in float64 on the host, and the classification metrics.
+  in float64 on the host, and the classification metrics (under the
+  dataflow_solution_* styles over every valid node's bits, the
+  reference's masked [N, max_defs] arrays flattened).
 - `fit` runs epochs through the prefetch pipeline (data/prefetch.py):
   `train.prefetch_batches` batches are packed and copied to the card by
   `train.prefetch_producers` background threads ahead of the step (a

@@ -2,9 +2,10 @@
 `deepdfa_tpu/train/losses.py`).
 
 - label styles: "graph" = max over the graph's node vulnerability
-  labels, OR'd with the stored graph label; "node" = per-node labels.
-  The dataflow_solution_* styles raise, as the model does: their
-  bit-propagation head comes with a later slice of the port.
+  labels, OR'd with the stored graph label; "node" = per-node labels;
+  "dataflow_solution_in" / "_out" = the exact reaching-definitions IN /
+  OUT bits of every node, [N, max_defs], with the node mask broadcast
+  over the bit axis.
 - loss = BCE-with-logits with optional pos_weight, as masked means over
   the valid (non-padding) slots, so padding never biases the loss.
 """
@@ -15,17 +16,12 @@ import torch
 import torch.nn.functional as F
 
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
+from deepdfa_tpu_torch.models.deepdfa import LABEL_STYLES
 
 
 def check_label_style(style: str) -> str:
-    """`style` if the port trains it; the dataflow_solution_* styles
-    raise NotImplementedError, anything else ValueError."""
-    if style.startswith("dataflow_solution"):
-        raise NotImplementedError(
-            f"label_style={style!r}: the bit-propagation head comes with a "
-            "later slice of the port"
-        )
-    if style not in ("graph", "node"):
+    """`style` if the port trains it, else ValueError."""
+    if style not in LABEL_STYLES:
         raise ValueError(f"unsupported label_style: {style}")
     return style
 
@@ -48,10 +44,28 @@ def node_labels(batch: GraphBatch) -> torch.Tensor:
     return batch.node_vuln.to(torch.float32)
 
 
+def dataflow_labels(batch: GraphBatch, style: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """(labels, mask), both [N, B]: the exact reaching-definitions IN/OUT
+    fixpoint bits; the node mask broadcasts over the bit axis."""
+    if style == "dataflow_solution_in":
+        bits = batch.node_bits_in
+    elif style == "dataflow_solution_out":
+        bits = batch.node_bits_out
+    else:
+        raise ValueError(f"unsupported dataflow label_style: {style}")
+    if bits is None:
+        raise ValueError(f"label_style={style} requires bit labels on the batch "
+                         "(extract with max_defs set)")
+    return bits, batch.node_mask[:, None].expand(bits.shape)
+
+
 def labels_and_mask(batch: GraphBatch, label_style: str = "graph"):
     """(labels, mask) of the configured label style."""
-    if check_label_style(label_style) == "graph":
+    style = check_label_style(label_style)
+    if style == "graph":
         return graph_labels(batch), batch.graph_mask
+    if style.startswith("dataflow_solution"):
+        return dataflow_labels(batch, style)
     return node_labels(batch), batch.node_mask
 
 

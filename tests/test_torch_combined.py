@@ -195,10 +195,17 @@ def test_codebert_width_model_is_the_reference_size():
 
 def test_unported_options_raise():
     _, tenc = _enc_cfgs()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        CombinedModel(CombinedConfig(encoder=tenc, moe_experts=4))
-    model = CombinedModel(CombinedConfig(encoder=tenc, use_graph=False))
+    # the MoE adapter is ported (tests/test_torch_moe.py): its block sits
+    # under `moe`, and the expert-parallel axis is still item 9
     ids = torch.full((2, 8), 5, dtype=torch.int32)
+    with_moe = CombinedModel(CombinedConfig(encoder=tenc, moe_experts=4, use_graph=False)).eval()
+    assert {k for k in with_moe.state_dict() if k.startswith("moe.")} == {
+        "moe.router", "moe.w1", "moe.b1", "moe.w2", "moe.b2"}
+    logits, aux = with_moe(ids, with_aux=True)
+    assert logits.shape == (2, 2) and aux.item() > 0
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        with_moe(ids, ep_axis="ep")
+    model = CombinedModel(CombinedConfig(encoder=tenc, use_graph=False))
     model.eval()
     with pytest.raises(NotImplementedError, match="multi-device"):
         model(ids, pp_axis="pp")

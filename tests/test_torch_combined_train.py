@@ -497,14 +497,17 @@ def test_cli_runs_what_was_refused(tmp_path, monkeypatch, capsys, case):
     assert "best:" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("what", ["dp2", "resilience", "obs", "moe"])
+@pytest.mark.parametrize("what", ["dp2", "resilience", "obs", "ep"])
 def test_trainer_refuses_what_the_port_does_not_run(what):
     _, tmcfg = _model_cfgs()
-    train = {"dp2": {"mesh": {"dp": 2}}, "resilience": {"resilience": {"enabled": True}}}
+    train = {"dp2": {"mesh": {"dp": 2}}, "resilience": {"resilience": {"enabled": True}},
+             "ep": {"mesh": {"dp": 1, "ep": 2}}}
     _, tcfg = _cfgs(**train.get(what, {}))
     if what == "obs":
         tcfg = tconfig.apply_overrides(tcfg, ["obs.metrics=true"])
-    if what == "moe":
+    if what == "ep":
+        # the MoE adapter runs (tests/test_torch_moe.py); an ep mesh over it
+        # is multi-device work
         tmcfg = dataclasses.replace(tmcfg, moe_experts=4)
     with pytest.raises(NotImplementedError):
         CombinedTrainer(tcfg, tmcfg, device="cpu")

@@ -1784,3 +1784,138 @@ def test_quantized_model_on_card_matches_the_cpu(card):
         want = on_cpu(b.to("cpu"))
     assert gk.LAUNCHES - before == 5
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+# -- the remaining model code: bit supervision, bf16 parameters, MoE ---------
+
+
+def _bit_problem(rng, n_graphs=12, bits=16):
+    """Graphs with random CFG edges and 0/1 gen and kill bits, packed
+    without self-loops."""
+    specs = []
+    for gid in range(n_graphs):
+        n = int(rng.integers(2, 40))
+        e = int(rng.integers(1, 3 * n))
+        specs.append(GraphSpec(
+            graph_id=gid, node_feats=rng.integers(0, 52, (n, 4)).astype(np.int32),
+            node_vuln=np.zeros((n,), np.int32),
+            edge_src=rng.integers(0, n, (e,)).astype(np.int32),
+            edge_dst=rng.integers(0, n, (e,)).astype(np.int32), label=0.0,
+            node_gen=(rng.random((n, bits)) < 0.1).astype(np.float32),
+            node_kill=(rng.random((n, bits)) < 0.1).astype(np.float32),
+            node_bits_in=np.zeros((n, bits), np.float32),
+            node_bits_out=np.zeros((n, bits), np.float32)))
+    return pack(specs, n_graphs, 1024, 4096, add_self_loops=False)
+
+
+@pytest.mark.parametrize("union_type", ["simple", "relu"])
+def test_segment_union_and_bitprop_on_card_match_cpu(card, union_type):
+    """The segment-sum kernel gives the plain version's bits (the same
+    additions in the same order), forward and backward, and the learned
+    gate's propagation on the card the CPU's gradients within 1e-5; twice
+    the same bits."""
+    from deepdfa_tpu_torch.nn import setops
+    from deepdfa_tpu_torch.nn.bitprop import BitvectorPropagation
+
+    rng = np.random.default_rng(31)
+    b = _bit_problem(rng)
+    msgs = torch.from_numpy(rng.random((b.edge_budget, 16)).astype(np.float32))
+    init = torch.from_numpy(rng.random((b.node_budget, 16)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((b.node_budget, 16)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        m = msgs.detach().to(dev).requires_grad_(True)
+        i = init.detach().to(dev).requires_grad_(True)
+        y = setops.segment_union(m, i, torch.as_tensor(b.edge_dst).to(dev),
+                                 torch.as_tensor(b.edge_mask).to(dev), union_type)
+        y.backward(cot.to(dev))
+        got = [t.detach().cpu() for t in (y, m.grad, i.grad)]
+        if dev in out:
+            assert all(torch.equal(x, z) for x, z in zip(got, out[dev]))
+        out[dev] = got
+    for x, z in zip(out["cuda"], out["cpu"]):
+        assert torch.allclose(x, z, rtol=0, atol=1e-6)
+    feats = torch.from_numpy(rng.standard_normal((b.node_budget, 24)).astype(np.float32))
+    prop = BitvectorPropagation(6, union_type, learned_gate=True, width=24)
+    prop.reset_parameters(torch.Generator().manual_seed(0))
+    res = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        bd = b.to(dev)
+        p = prop.to(dev)
+        p.zero_grad()
+        f = feats.detach().to(dev).requires_grad_(True)
+        i_s, o_s = p(bd.node_gen, bd.node_kill, bd.edge_src, bd.edge_dst, bd.edge_mask, f)
+        (i_s.square().sum() + o_s.sum()).backward()
+        got = [t.detach().cpu() for t in (i_s, o_s, f.grad, p.kill_gate.weight.grad)]
+        if dev in res:
+            assert all(torch.equal(x, z) for x, z in zip(got, res[dev]))
+        res[dev] = got
+    for x, z in zip(res["cuda"], res["cpu"]):
+        assert torch.allclose(x, z, rtol=1e-5, atol=1e-5)
+
+
+def test_gather_sum_launches_its_kernel_and_refuses_other_dtypes(card):
+    from deepdfa_tpu_torch.nn import setops
+
+    y = torch.rand(10, 8, device=card)
+    idx, ptr = setops.csr_layout(torch.tensor([3, 1, 3, 0], device=card),
+                                 torch.ones(4, dtype=torch.bool, device=card), 10)
+    setops.reset_launch_counts()
+    got = setops.gather_sum(y, idx, ptr)
+    assert setops.LAUNCHES == 1
+    assert torch.equal(got.cpu(), setops.gather_sum_plain(y.cpu(), idx.cpu(), ptr.cpu()))
+    with pytest.raises(TypeError):
+        setops.gather_sum(y.double(), idx, ptr)
+
+
+def test_bf16_ggnn_train_step_runs_the_kernels(card):
+    """A bf16-parameter DeepDFA's training step on the card: kernel 1, B3
+    and B4 launch, the gradients are bf16 leaves within 1e-2 of each
+    leaf's scale of the CPU plain path's (as tests/test_torch_param_dtype.py
+    holds them against the reference: the embedding tables' gradients
+    sum repeated rows in bf16, in another order on the card), twice the
+    same bits."""
+    from deepdfa_tpu_torch.core.config import ModelConfig
+
+    rng = np.random.default_rng(33)
+    batch = pack(_graphs(rng, 8), 8, 512, 2048)
+    model = DeepDFA.from_config(ModelConfig(hidden_dim=8, n_steps=3, param_dtype="bfloat16"), 52,
+                                generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        m = model.to(dev)
+        m.zero_grad()
+        gk.reset_launch_counts()
+        torch.sigmoid(m(batch.to(dev))).sum().backward()
+        got = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+        if dev == "cuda":
+            counts = gk.launch_counts()
+            assert counts["LAUNCHES"] == counts["GRU_BWD_LAUNCHES"] == counts["DMSG_LAUNCHES"] == 3
+        if dev in grads:
+            assert all(torch.equal(got[k], grads[dev][k]) for k in got)
+        grads[dev] = got
+    assert {g.dtype for g in grads["cuda"].values()} == {torch.bfloat16}
+    for k, g in grads["cuda"].items():
+        w = grads["cpu"][k].float()
+        scale = max(float(w.abs().max()), 1e-6)
+        assert float((g.float() - w).abs().max()) <= 1e-2 * scale, k
+
+
+def test_moe_dispatch_and_output_on_card_match_cpu(card):
+    from deepdfa_tpu_torch.parallel import moe
+
+    cfg = moe.MoEConfig(hidden_size=64, intermediate_size=128, num_experts=8, top_k=2)
+    params = moe.init_moe_params(cfg, torch.Generator().manual_seed(2))
+    x = torch.randn(16, 64, generator=torch.Generator().manual_seed(3))
+    x[8:] = x[7]  # identical rows tie, as a serving bucket's padding does
+    cap = moe.capacity(cfg, 16)
+    d_cpu, c_cpu, a_cpu = moe._route(cfg, params["router"], x, cap)
+    out_cpu, _ = moe.moe_ffn(cfg, params, x)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    d_card, c_card, a_card = moe._route(cfg, on_card["router"], x.to(card), cap)
+    out_card, _ = moe.moe_ffn(cfg, on_card, x.to(card))
+    again, _ = moe.moe_ffn(cfg, on_card, x.to(card))
+    assert torch.equal(d_card.cpu(), d_cpu) and torch.equal(out_card, again)
+    assert torch.allclose(c_card.cpu(), c_cpu, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(out_card.cpu(), out_cpu, rtol=1e-5, atol=1e-5)
+    assert abs(float(a_card) - float(a_cpu)) <= 1e-5

@@ -1,5 +1,5 @@
 """The port stands alone: `deepdfa_tpu_torch` and `chip_smoke.py` load no
-`jax`, `flax` or `deepdfa_tpu` module, nor `pandas`, `regex`,
+`jax`, `flax`, `ml_dtypes` or `deepdfa_tpu` module, nor `pandas`, `regex`,
 `tokenizers` or `transformers`, because the machine with the card has
 none of them; and `chip_smoke.py` refuses to run without a card or
 without the package beside it."""
@@ -19,7 +19,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deepdfa_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "deepdfa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "deepdfa_tpu")
 #: host libraries the reference uses that the card's machine lacks
 ABSENT_ON_CARD = ("pandas", "regex", "tokenizers", "transformers")
 
@@ -87,6 +87,8 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.frontend.structfeat", "deepdfa_tpu_torch.scan",
         "deepdfa_tpu_torch.scan.walker", "deepdfa_tpu_torch.scan.manifest",
         "deepdfa_tpu_torch.scan.sarif", "deepdfa_tpu_torch.scan.scanner",
+        "deepdfa_tpu_torch.nn.setops", "deepdfa_tpu_torch.nn.bitprop",
+        "deepdfa_tpu_torch.parallel", "deepdfa_tpu_torch.parallel.moe",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []

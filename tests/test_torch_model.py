@@ -141,8 +141,10 @@ def test_flagship_param_tree_converts_exactly():
         port.embedding.embed_literal.weight.detach().numpy(),
         p["embedding"]["embed_literal"]["embedding"],
     )
-    with pytest.raises(KeyError, match="bitprop"):
-        from_jax_params({"params": {**p, "bitprop": {}}})
+    # the dataflow styles' bitprop gate converts now (test_torch_dataflow_labels.py);
+    # a subtree the port has no module for is still refused by name
+    with pytest.raises(KeyError, match="router"):
+        from_jax_params({"params": {**p, "router": {}}})
 
 
 def test_seeded_init_is_reproducible():
@@ -155,11 +157,21 @@ def test_seeded_init_is_reproducible():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # the dataflow styles are ported: they need the bit width, and take
+    # the gate and the [N, max_defs] head
+    with pytest.raises(ValueError, match="max_defs"):
         DeepDFA(INPUT_DIM, HIDDEN, label_style="dataflow_solution_in")
+    bits = DeepDFA(INPUT_DIM, HIDDEN, label_style="dataflow_solution_in", max_defs=16)
+    assert bits.head.dense_2.out_features == 16 and not hasattr(bits, "pooling")
+    assert bits.head.dense_0.in_features == 8 * HIDDEN + 4 * 16
     # struct_feats runs since the structural channels were ported: the
     # embedding takes 5 more tables, the GGNN 9 x hidden
     wide = DeepDFA.from_config(ModelConfig(struct_feats=True, hidden_dim=HIDDEN), INPUT_DIM)
     assert wide.embedding.out_dim == 9 * HIDDEN
-    with pytest.raises(NotImplementedError, match="fp32"):
-        DeepDFA.from_config(ModelConfig(param_dtype="bfloat16"), INPUT_DIM)
+    # param_dtype is ported: the parameters are stored in it (the bit
+    # gate excepted), and compute_dtype is accepted with no effect
+    half = DeepDFA.from_config(ModelConfig(param_dtype="bfloat16", compute_dtype="bfloat16"),
+                               INPUT_DIM)
+    assert {p.dtype for p in half.parameters()} == {torch.bfloat16}
+    with pytest.raises(ValueError, match="dtype"):
+        DeepDFA.from_config(ModelConfig(param_dtype="int8"), INPUT_DIM)

@@ -115,8 +115,15 @@ def test_build_dataset_workers_equal_and_encode_corpus():
 
 def test_unported_features_raise():
     examples = corpus(synthetic, "v1", n=4)
-    with pytest.raises(NotImplementedError, match="bitprop.*item 8"):
-        pipeline.build_dataset(examples, [0], max_defs=8)
+    # max_defs is ported: the bit labels ride on every spec, equal to the
+    # reference's, in the pool as in one process
+    specs, _ = pipeline.build_dataset(examples, [0], max_defs=8)
+    want, _ = ref_pipeline.build_dataset(corpus(ref_synthetic, "v1", n=4), [0], max_defs=8)
+    assert_specs_equal(specs, want)
+    assert all(s.node_gen.shape == (len(s.node_feats), 8) for s in specs)
+    bits = pipeline.extract_corpus(examples, max_defs=8, workers=2)
+    assert [np.array_equal(g.bits["labels_out"], s.node_bits_out) for g, s in zip(bits, specs)] \
+        == [True] * len(specs)
     # the structural channels are ported: extraction takes them, in the
     # pool as in one process
     pooled = pipeline.extract_corpus(examples, struct_feats=True, workers=2)
@@ -349,10 +356,18 @@ def test_prepare_and_extract_commands_equal(tmp_path, monkeypatch, scenario):
 def test_extract_refuses_unported_features(tmp_path, monkeypatch):
     monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
     cli.main(["prepare", "--source", "synthetic", "--n-examples", "8"])
-    with pytest.raises(NotImplementedError, match="max_defs.*bitprop"):
-        cli.main(["extract", "data.feat.max_defs=16"])
-    with pytest.raises(NotImplementedError, match="max_defs.*bitprop"):
-        cli.main(["extract", "--num-shards", "1", "data.feat.max_defs=16"])
+    # data.feat.max_defs is ported: the store takes _maxdefs_N and the bits
+    processed = tmp_path / "processed" / "bigvul"
+    cli.main(["extract", "data.feat.max_defs=16"])
+    (store_dir,) = processed.glob("graphs*_maxdefs_16")
+    one = list(store.GraphStore(store_dir).iter_graphs())
+    assert one and all(s.node_bits_in.shape[1] == 16 for s in one)
+    monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path / "two"))
+    cli.main(["prepare", "--source", "synthetic", "--n-examples", "8"])
+    cli.main(["extract", "--num-shards", "1", "data.feat.max_defs=16"])
+    two = tmp_path / "two" / store_dir.relative_to(tmp_path)
+    assert_specs_equal(list(store.GraphStore(two).iter_graphs()), one)
+    assert len(list(processed.glob("vocab*_maxdefs_16.json"))) == 1
     with pytest.raises(SystemExit, match="extract-vocab"):
         cli.main(["extract", "--num-shards", "2"])
     with pytest.raises(SystemExit):

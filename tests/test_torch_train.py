@@ -152,8 +152,12 @@ def test_graph_labels_take_the_stored_label_and_skip_padding():
     assert got[1] == 1.0 and not got[4:].any()
     empty = tpack([], 3, 64, 256).to("cpu")
     assert not tlosses.graph_labels(empty).any()
-    with pytest.raises(NotImplementedError, match="bit-propagation"):
+    # the dataflow styles are ported: a batch without bits is refused as
+    # the reference refuses it
+    with pytest.raises(ValueError, match="bit labels"):
         tlosses.classifier_loss(torch.zeros(3), empty, "dataflow_solution_in")
+    with pytest.raises(ValueError, match="bit labels"):
+        jlosses.dataflow_labels(jpack([], 3, 64, 256), "dataflow_solution_in")
 
 
 # -- host-side copies: bit for bit ------------------------------------------
