@@ -134,12 +134,13 @@ prints one JSON line; any failure exits non-zero before the last line.
    and storage root: the test split's functions written as .c files with
    8 texts the frontend cannot parse, `cli score` on the card (every
    extracted function ok, every text a failed row, each probability
-   within rtol 1e-4 / atol 1e-5 of `cli test --export`'s on the card and
-   of `cli score --device cpu`'s, kernel 1 n_steps times a batch in the
-   scoring window and no other kernel); `cli serve --port 0` as a
-   subprocess: /healthz (checkpoint tag, step, config digest) and /stats
-   200, malformed JSON 400, an unknown route 404, an unparseable
-   function 422, then 512 /score requests drawn from the test split by
+   within rtol 1e-4 / atol 1e-5 of `cli test --export`'s on the card and,
+   for the first 64 sources, of `cli score --device cpu`'s, kernel 1
+   n_steps times a batch in the scoring window and no other kernel); `cli
+   serve --port 0` as a subprocess: /healthz (checkpoint tag, step,
+   config digest) and /stats 200, malformed JSON 400, an unknown route
+   404, an unparseable function 422, then 256 /score requests drawn from
+   the test split by
    8 client threads, every one 200 with `cli score`'s probability
    (rtol 1e-4), and the same requests again, every one a feature-cache
    hit; requests/s, p50/p99 and mean batch occupancy of both passes;
@@ -147,7 +148,8 @@ prints one JSON line; any failure exits non-zero before the last line.
    tokenizer) on the pipeline's examples, and `cli score --family
    combined` over 16 of the files from the run's model_cfg.json on the
    card (kernel 5 once an encoder layer and kernel 1 n_steps times a
-   batch) and on the CPU (within 2e-2); the frontend's median ms a
+   batch) and over 4 of them on the CPU, warming the top bucket alone
+   (within 2e-2); the frontend's median ms a
    function and `score`'s requests/s and p50/p99, beside nvidia-smi's
    name and power limit;
 7l. bpe — the shipped byte-level BPE vocabulary (`data/assets/bpe_c/`)
@@ -174,8 +176,8 @@ prints one JSON line; any failure exits non-zero before the last line.
    on the CPU beside the GGNN alone and the combined model alone (rows
    not escalated the GGNN's probability to the bit, escalated rows
    within 2e-2 of the combined model alone, the counters adding up, the
-   same stages on the CPU for the first 64); `cli serve` for each of the
-   three under 512
+   same stages on the CPU for the first 8, its stage 2 warming the top
+   bucket alone); `cli serve` for each of the three under 256
    requests from 8 client threads (seed 17); the escalation rates,
    requests/s and p50/p99 offline and over HTTP, kernel 1's and kernel
    5's launches;
@@ -196,13 +198,13 @@ prints one JSON line; any failure exits non-zero before the last line.
    and one profiled saliency and lig batch (device busy time, idle share);
 7p. serve_lines — `cli serve` over the pipeline's checkpoint without
    serve.lines ({"lines": true} answered 400, healthz lines false) and
-   with it (saliency, 8 steps, top 10): 512 requests from 8 client
+   with it (saliency, 8 steps, top 10): 256 requests from 8 client
    threads, every other one with {"lines": true}, each lines answer the
    offline attribution of that function alone at rung 1 to the bit;
    requests/s and p50/p99 with and without lines; the launches of 64
    lines requests through the same service in-process;
 7q. localize_combined — `cli localize` of the cascade's stage-2 run
-   (codebert-base width, the shipped BPE, T 512, graphs) over 16
+   (codebert-base width, the shipped BPE, T 512, graphs) over 4
    functions with labelled lines, each of the seven methods: the
    report's keys and finite metrics, one IFA line a function, kernel 5
    once a layer an evaluation, dq and dk/dv once a layer an evaluation
@@ -287,6 +289,27 @@ prints one JSON line; any failure exits non-zero before the last line.
    checkpoint bf16, `cli score` of the test functions on the card and
    the CPU plain path (1e-5), the same weights upcast into an fp32 model
    (5e-2), one saliency localization batch;
+7za. runtime_hooks_train — the resilient runtime: `cli train` on the
+   pipeline's store (one epoch, inline input, a step checkpoint every 2
+   steps) under DEEPDFA_FAULTS nan@3,nan@4; again with sigterm@6 (exit
+   143) and resumed by a second `cli train`, whose final weights,
+   moments and counts equal the first run's to the bit, both with steps
+   3 and 4 skipped and no rollback; nan@3,4,5 at max_consecutive_bad 3
+   rolls back once with the LR cooled to 0.5; a stalled source under a
+   5 s watchdog exits 113 (a subprocess) with a valid postmortem; then
+   8 guarded steps make as many synchronizing calls as 8 unguarded ones
+   (torch.cuda.set_sync_debug_mode), a step of each timed (A B B A), a
+   step checkpoint's seconds and bytes;
+7zb. efficiency — `cli test --profile --xprof-dir` on that run prints
+   Table 5's record, its counted FLOPs equal the CPU count of the same
+   batch exactly and its trace names ggnn_step_kernel; `cli score` with
+   obs.ledger and obs.ledger_ceilings books one ledger site a warmed
+   rung, every ledger_mfu in (0, 1.05]; `cli train-combined` at
+   codebert-base width, 4 steps under the resilient runtime and the
+   ledger with nan@2: the step skipped, the flash kernels launched, the
+   ledger holding the step's site; the bounded health probe answers ok
+   inside 120 s. Every phase line carries its seconds since the one
+   before (`since_last_phase_s`);
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -418,7 +441,7 @@ prints one JSON line; any failure exits non-zero before the last line.
    block on the last step's [CLS] rows in fp32 gives the same dispatch,
    and outputs and aux within 1e-5, on the card and the CPU; the block
    and a step's gradients the same bits on a repeat;
-21. kernels — every kernel with its launches on the forty-five main
+21. kernels — every kernel with its launches on the fifty main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
    four of 7g-7h, tune, tune_train, pipeline, serve_source,
@@ -426,8 +449,9 @@ prints one JSON line; any failure exits non-zero before the last line.
    localize_combined, localize_t5, serve_pipelined,
    serve_lines_pipelined, serve_int8_entry, cascade_int8,
    train_prefetch, struct_train, struct_score, scan, bits_train,
-   bits_test, bf16_train, bf16_score, bf16_localize, moe_train and
-   moe_serve, each counted from 0, and by path),
+   bits_test, bf16_train, bf16_score, bf16_localize, moe_train,
+   moe_serve, hooks_train, hooks_resume, hooks_test_profile, hooks_score
+   and hooks_train_combined, each counted from 0, and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -507,9 +531,15 @@ def fail(msg: str) -> None:
 T_START = time.perf_counter()
 
 
+_LAST_EMIT = [T_START]
+
+
 def emit(record: dict) -> None:
     if "phase" in record:
-        record = {**record, "t_s": round(time.perf_counter() - T_START, 1)}
+        now = time.perf_counter()
+        record = {**record, "t_s": round(now - T_START, 1),
+                  "since_last_phase_s": round(now - _LAST_EMIT[0], 1)}
+        _LAST_EMIT[0] = now
     print(json.dumps(record), flush=True)
 
 
@@ -590,19 +620,12 @@ def roofline(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
 
 
 def step_bound(n: int, e_live: int, d: int, t: int, with_aggregate: bool):
-    """(bound_ms, bound_by) of one GGNN step: the larger of the fp32
-    operations over the card's fp32 peak and the bytes over its HBM
-    rate. Operations: 2*d per live edge (the run sums), 2*N*d^2*T (the
-    per-type transform), 12*N*d^2 (the two GRU products); the gate
-    arithmetic (~30 per node and column, under 2%) is not counted.
-    Bytes: h read and h' (and a) written once, the live edges' src and
-    weights, the row pointer, the weights."""
-    flops = 2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d
-    weights = t * d * d + t * d + 2 * (3 * d * d + 3 * d)
-    nbytes = 4 * (
-        n * d * (3 if with_aggregate else 2) + e_live * (1 + t) + (n + 1) + weights
-    )
-    return roofline(flops, nbytes)
+    """(bound_ms, bound_by) of one fp32 fold GGNN step, from the
+    package's work formula (`nn/ggnn_kernel.py:step_work`, the one the
+    counted cost reads)."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    return roofline(*gk.step_work(n, e_live, d, t, with_aggregate))
 
 
 def kernel_phase(torch, rng):
@@ -771,24 +794,17 @@ def device_profile(prof, window_ms: float) -> dict:
 
 
 def gru_bwd_bound(n: int, d: int):
-    """(bound_ms, bound_by) of B3: 36*N*d^2 operations (the two
-    recomputed gate products, da, dh_gru and the two weight products, 6*N*d^2
-    each), the gate chain not counted; bytes: h, a, g read and da, dh
-    written once, the weights read and their cotangents written once."""
-    flops = 36 * n * d * d
-    nbytes = 4 * (5 * n * d + 2 * (2 * 3 * d * d + 2 * 3 * d))
-    return roofline(flops, nbytes)
+    """(bound_ms, bound_by) of B3 (`nn/ggnn_kernel.py:gru_bwd_work`)."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    return roofline(*gk.gru_bwd_work(n, d))
 
 
 def dmsg_bound(n: int, e_live: int, d: int, t: int, add: bool = False):
-    """(bound_ms, bound_by) of B4: 2*N*d^2*T (each node's sums times
-    Wm_t^T) plus 2*d per live edge (each live edge has one type); bytes:
-    da read and dh_msg written once (with `add`, the dh it is added to
-    read too), the live edges' dst and T weights, the src row pointer,
-    Wm."""
-    flops = 2 * n * d * d * t + 2 * e_live * d
-    nbytes = 4 * ((3 if add else 2) * n * d + e_live * (1 + t) + (n + 1) + t * d * d)
-    return roofline(flops, nbytes)
+    """(bound_ms, bound_by) of B4 (`nn/ggnn_kernel.py:dmsg_work`)."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    return roofline(*gk.dmsg_work(n, e_live, d, t, add))
 
 
 def launch_split(torch, fn, calls: int = 10) -> dict:
@@ -1121,26 +1137,18 @@ def ggnn_cases(rng) -> dict:
 
 
 def policy_step_bound(n: int, e_live: int, d: int, t: int, accum: str):
-    """step_bound without the aggregate, with Wm read in the policy's
-    type (int8 adds its [T, d] scales); the per-row quantization (~4
-    operations an element) is not counted. The message-side table is an
-    intermediate and moves no counted bytes."""
-    flops = 2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d
-    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[accum]
-    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d) + (t * d if accum == "int8" else 0))
-    nbytes = 4 * (2 * n * d + e_live * (1 + t) + (n + 1)) + weights + itemsize * t * d * d
-    return roofline(flops, nbytes)
+    """step_bound without the aggregate, with Wm in the policy's type
+    (`nn/ggnn_kernel.py:policy_step_work`)."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    return roofline(*gk.policy_step_work(n, e_live, d, t, accum))
 
 
 def fused_bound(n: int, e_live: int, d: int, t: int, accum: str, n_steps: int, chain: bool):
-    """(bound_ms, bound_by) of kernel 2: n_steps steps' operations
-    (step_bound's count); bytes: feat read and h_out written once, the
-    chain written once when asked for, the edges and weights once."""
-    flops = n_steps * (2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d)
-    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[accum]
-    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d)) + itemsize * t * d * d
-    nbytes = 4 * ((2 + (n_steps if chain else 0)) * n * d + e_live * (1 + t) + (n + 1)) + weights
-    return roofline(flops, nbytes)
+    """(bound_ms, bound_by) of kernel 2 (`nn/ggnn_kernel.py:fused_work`)."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    return roofline(*gk.fused_work(n, e_live, d, t, accum, n_steps, chain))
 
 
 def step_check(torch, what: str, got, want) -> float:
@@ -1462,16 +1470,13 @@ MSG_PEAK = {"fp32": PEAK_FP32_FLOPS, "bf16": PEAK_BF16_FLOPS, "int8": 1979e12}
 
 def mxu_bound(n: int, e_live: int, d: int, t: int, accum: str, n_steps: int = 1,
               chain: bool = False):
-    """(bound_ms, bound_by) of n_steps mxu steps: the per-edge messages'
-    2*E_live*d^2*T products at the policy's peak (MSG_PEAK) plus the
-    GRU's 12*N*d^2 and the sums' 2*E_live*d at the fp32 peak, against
-    policy_step_bound's bytes (kernel 2's: fused_bound's)."""
-    t_ops = n_steps * (2 * e_live * d * d * t / MSG_PEAK[accum]
-                       + (12 * n * d * d + 2 * e_live * d) / PEAK_FP32_FLOPS) * 1e3
-    itemsize = {"fp32": 4, "bf16": 2, "int8": 1}[accum]
-    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d) + (t * d if accum == "int8" else 0))
-    nbytes = (4 * ((2 + (n_steps if chain else 0)) * n * d + e_live * (1 + t) + (n + 1))
-              + weights + itemsize * t * d * d)
+    """(bound_ms, bound_by) of n_steps mxu steps (`nn/ggnn_kernel.py:
+    mxu_work`): the messages' products at the policy's peak (MSG_PEAK),
+    the GRU's and the sums' at the fp32 peak, against its bytes."""
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+
+    msg, other, nbytes = gk.mxu_work(n, e_live, d, t, accum, n_steps, chain)
+    t_ops = (msg / MSG_PEAK[accum] + other / PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -2078,11 +2083,16 @@ def pipeline_phase(torch, tmp: Path):
             "ggnn_dmsg": train_counts["DMSG_LAUNCHES"]}, card_probs, extract_s
 
 
-#: serve_source: the HTTP load and its clients, the combined run's steps
-SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 512, 8
-#: (16 files since the cascade phase: the CPU pass at codebert-base width
-#: takes ~1.5 s a file, and the script aims at half its time limit)
+#: serve_source: the HTTP load and its clients (512 requests until the
+#: runtime hooks' phases), the combined run's steps
+SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 256, 8
+#: (16 files since the cascade phase; the CPU pass at codebert-base width
+#: takes ~1.5 s a file, so it scores the first 4 of them since the runtime
+#: hooks' phases, and the GGNN's CPU pass the first 64 of the 206 test
+#: functions: the script aims at half its time limit)
 SERVE_COMBINED_TRAIN, SERVE_COMBINED_VAL, SERVE_COMBINED_FILES = 32, 16, 16
+SERVE_COMBINED_CPU_FILES = 4
+SERVE_SOURCE_CPU_FUNCTIONS = 64
 SERVE_COMBINED_ENCODER = "codebert-base"
 # combined scores, card (bf16) vs the CPU plain path
 SERVE_COMBINED_TOL = 2e-2
@@ -2197,21 +2207,32 @@ def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dic
         frontend_ms = [e["request"]["frontend_ms"] for e in log
                        if "request" in e and e["request"]["status"] == 200]
         card_rows = score_rows(tmp / "scores_card.jsonl")
-        cpu = cli_summary(cli, ["score", str(src), "--out", str(tmp / "scores_cpu.jsonl"),
+        # the CPU plain path over the first SERVE_SOURCE_CPU_FUNCTIONS
+        # sources (the card scores them all)
+        cpu_src = tmp / "serve_src_cpu"
+        cpu_src.mkdir()
+        for name in sorted(p.name for p in src.iterdir())[:SERVE_SOURCE_CPU_FUNCTIONS]:
+            (cpu_src / name).write_text((src / name).read_text())
+        cpu = cli_summary(cli, ["score", str(cpu_src), "--out", str(tmp / "scores_cpu.jsonl"),
                                 "--device", "cpu", *run_arg])
-        cpu_rows = score_rows(tmp / "scores_cpu.jsonl")
+        cpu_rows = {str(src / Path(n).name): r
+                    for n, r in score_rows(tmp / "scores_cpu.jsonl").items()}
         ok = {n for n, r in card_rows.items() if r["ok"]}
-        if ok != want_ok or {n for n, r in cpu_rows.items() if r["ok"]} != want_ok:
+        if ok != want_ok or {n for n, r in cpu_rows.items() if r["ok"]} != \
+                want_ok & set(cpu_rows):
             fail(f"serve_source: {len(ok)} sources scored on the card, {len(want_ok)} expected "
                  f"(every extracted test function; the {len(UNPARSEABLE_TEXTS)} texts fail)")
         names = sorted(want_ok)
         got = np.array([card_rows[n]["prob"] for n in names])
         want = np.array([card_test_probs[int(Path(n).stem[3:])] for n in names])
-        plain = np.array([cpu_rows[n]["prob"] for n in names])
+        on_cpu = [n for n in names if n in cpu_rows]
+        plain = np.array([cpu_rows[n]["prob"] for n in on_cpu])
+        got_cpu = np.array([card_rows[n]["prob"] for n in on_cpu])
         err_test = float(np.max(np.abs(got - want)))
-        err_cpu = float(np.max(np.abs(got - plain)))
-        if not (np.allclose(got, want, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
-                and np.allclose(got, plain, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)):
+        err_cpu = float(np.max(np.abs(got_cpu - plain)))
+        if not on_cpu or not (np.allclose(got, want, rtol=PIPELINE_RTOL, atol=PIPELINE_ATOL)
+                              and np.allclose(got_cpu, plain, rtol=PIPELINE_RTOL,
+                                              atol=PIPELINE_ATOL)):
             fail(f"serve_source: scores from source differ from `test --export` by {err_test} "
                  f"and from the CPU plain path by {err_cpu}")
         # the scoring window launched kernel 1 n_steps times a batch and no
@@ -2233,7 +2254,7 @@ def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dic
             frontend_ms_median=statistics.median(frontend_ms),
             frontend_ms_p99=sorted(frontend_ms)[int(0.99 * len(frontend_ms))],
             vs_test_export_max_abs_err=err_test, vs_cpu_max_abs_err=err_cpu,
-            cpu_requests_per_sec=cpu["serve_requests_per_sec"])
+            cpu_functions=len(on_cpu), cpu_requests_per_sec=cpu["serve_requests_per_sec"])
 
         # 2. cli serve as a subprocess on a free port, under HTTP load
         err_log = tmp / "serve_stderr.log"
@@ -2337,18 +2358,27 @@ def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dic
         comb = cli_summary(cli, ["score", str(csrc), "--out", str(tmp / "comb_card.jsonl"),
                                  "--device", CARD, *crun_arg])
         ccounts = {"ggnn_step": gk.LAUNCHES, "flash_fwd": fa.LAUNCHES}
+        csrc_cpu = tmp / "serve_src_combined_cpu"
+        csrc_cpu.mkdir()
+        for n in names[:SERVE_COMBINED_CPU_FILES]:
+            (csrc_cpu / Path(n).name).write_text(Path(n).read_text())
         t0 = time.perf_counter()
-        comb_cpu = cli_summary(cli, ["score", str(csrc), "--out", str(tmp / "comb_cpu.jsonl"),
-                                     "--device", "cpu", *crun_arg])
+        # the CPU pass warms the top bucket alone (the card's warms three):
+        # on the host each bucket's warm-up costs ~20 s at codebert-base width
+        comb_cpu = cli_summary(cli, ["score", str(csrc_cpu), "--out",
+                                     str(tmp / "comb_cpu.jsonl"), "--device", "cpu",
+                                     *crun_arg[:-1], f"data.seq_buckets={COMBINED_BUCKETS[-1:]}"])
         comb_cpu_s = time.perf_counter() - t0
-        rows_card, rows_cpu = score_rows(tmp / "comb_card.jsonl"), score_rows(tmp / "comb_cpu.jsonl")
+        rows_card = {Path(n).name: r for n, r in score_rows(tmp / "comb_card.jsonl").items()}
+        rows_cpu = {Path(n).name: r for n, r in score_rows(tmp / "comb_cpu.jsonl").items()}
         layers = json.loads((crun / "model_cfg.json").read_text())["encoder"]["num_layers"]
         if comb["serve_scored"] != SERVE_COMBINED_FILES or comb_cpu["serve_scored"] != \
-                SERVE_COMBINED_FILES:
-            fail(f"serve_source: combined scored {comb['serve_scored']} on the card, "
-                 f"{comb_cpu['serve_scored']} on the CPU, of {SERVE_COMBINED_FILES}")
-        cp = np.array([rows_card[n]["prob"] for n in sorted(rows_card)])
-        pp = np.array([rows_cpu[n]["prob"] for n in sorted(rows_card)])
+                SERVE_COMBINED_CPU_FILES:
+            fail(f"serve_source: combined scored {comb['serve_scored']} on the card (of "
+                 f"{SERVE_COMBINED_FILES}), {comb_cpu['serve_scored']} on the CPU (of "
+                 f"{SERVE_COMBINED_CPU_FILES})")
+        cp = np.array([rows_card[n]["prob"] for n in sorted(rows_cpu)])
+        pp = np.array([rows_cpu[n]["prob"] for n in sorted(rows_cpu)])
         comb_err = float(np.max(np.abs(cp - pp)))
         if not np.all(np.isfinite(cp)) or comb_err > SERVE_COMBINED_TOL:
             fail(f"serve_source: combined card vs CPU scores differ by {comb_err}")
@@ -2366,7 +2396,8 @@ def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dic
             "ggnn_step_launches": comb["ggnn_step_launches"],
             "requests_per_sec": comb["serve_requests_per_sec"],
             "p50_ms": comb["serve_latency_p50_ms"], "p99_ms": comb["serve_latency_p99_ms"],
-            "vs_cpu_max_abs_err": comb_err, "cpu_seconds": comb_cpu_s}
+            "vs_cpu_max_abs_err": comb_err, "cpu_functions": SERVE_COMBINED_CPU_FILES,
+            "cpu_seconds": comb_cpu_s}
     report["launches"] = paths
     emit(report)
     return paths
@@ -2381,8 +2412,8 @@ CASCADE_TARGET_ESCALATION = 0.3
 CASCADE_HTTP_SEED = 17
 #: test functions of the cascade's CPU run (its stage 2 at codebert-base
 #: width costs ~1.4 s an escalated row on the host; 64 until the
-#: struct_feats and scan phases came, which it made room for)
-CASCADE_CPU_FUNCTIONS = 32
+#: struct_feats and scan phases came, 32 until the runtime hooks' phases)
+CASCADE_CPU_FUNCTIONS = 8
 
 
 def pipeline_split(tmp: Path, split: str) -> list:
@@ -2724,13 +2755,14 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
     combined model alone on the same files (in-process after serve_source:
     every function's features come from the shared feature cache, so
     these offline rates leave the frontend out); then `cli serve` (GGNN alone,
-    combined alone, cascade) each under 512 requests from 8 client
+    combined alone, cascade) each under 256 requests from 8 client
     threads (test functions drawn with seed 17). Gates: every row not
     escalated is the GGNN alone's probability to the bit, every escalated
     row within serve_source's combined bound of the combined model
     alone's, requests = screened + escalations + sheds + failures, the
     CPU cascade decides the same stages (on the first
-    CASCADE_CPU_FUNCTIONS), the HTTP cascade's stage follows
+    CASCADE_CPU_FUNCTIONS, its stage 2 warming the top bucket alone), the
+    HTTP cascade's stage follows
     its own stage-1 score and the band, kernel 5 once an encoder layer a
     stage-2 batch and kernel 1 n_steps times a stage-1 batch. Returns the
     launches of the training run and of the card's cascade scoring, and
@@ -2850,10 +2882,21 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
         rows = score_rows(tmp / "cascade_card.jsonl")
         entries = [json.loads(x)["request"] for x in log_path.read_text().splitlines()
                    if '"request"' in x]
+        # the CPU pass's stage 2 warms its top bucket alone: a copy of the
+        # stage-2 run (its files linked) whose config keeps that edge
+        cpu_run = tmp / "runs" / "cascade-combined-cpu"
+        cpu_run.mkdir()
+        for item in crun.iterdir():
+            if item.name != "config.json":
+                (cpu_run / item.name).symlink_to(item)
+        config_mod.to_json(config_mod.apply_overrides(
+            config_mod.load(crun / "config.json"),
+            [f"data.seq_buckets={COMBINED_BUCKETS[-1:]}"]), cpu_run / "config.json")
         t0 = time.perf_counter()
         casc_cpu = cli_summary(cli, ["score", str(cpu_src), "--out",
                                      str(tmp / "cascade_cpu.jsonl"), "--device", "cpu",
-                                     *casc_args])
+                                     *casc_args[:-1],
+                                     f"serve.cascade_run_dir={json.dumps(str(cpu_run))}"])
         cpu_s = time.perf_counter() - t0
         rows_cpu = {str(src / Path(n).name): r
                     for n, r in score_rows(tmp / "cascade_cpu.jsonl").items()}
@@ -2972,8 +3015,9 @@ LOCALIZE_TOKEN_TOL = {"card_fp32_vs_cpu": 1e-3, "bf16_vs_fp32": 5e-2,
                       "t5_card_fp32_vs_cpu": COMBINED_TRAIN_GRAD_TOL}
 LOCALIZE_TIMED = 5
 #: functions of `cli localize` (cut from 32 to 16, then to 8 when the
-#: struct_feats and scan phases came: the script's time limit)
-LOCALIZE_COMBINED_LIMIT = 8
+#: struct_feats and scan phases came, then to 4 for the runtime hooks'
+#: phases: the script's time limit)
+LOCALIZE_COMBINED_LIMIT = 4
 LOCALIZE_CLI_EVALS = {"attention": 0, "saliency": 1, "input_x_gradient": 1, "lig": 20,
                       "deeplift": 20, "deeplift_shap": 8 * 5, "gradient_shap": 8}
 LOCALIZE_CHECK_STEPS = 4
@@ -4398,10 +4442,11 @@ def run_log(run: Path) -> list:
 
 
 def gather_sum_bound(n: int, e_live: int, b: int):
-    """The least time of one fixed-order segment sum: y and the output
-    [n, b] f32, idx [e_live] and ptr [n + 1] int32, each moved once;
-    e_live * b fp32 additions."""
-    return roofline(e_live * b, 4 * (2 * n * b + e_live + n + 1))
+    """The least time of one fixed-order segment sum
+    (`nn/setops.py:gather_sum_work`)."""
+    from deepdfa_tpu_torch.nn import setops
+
+    return roofline(*setops.gather_sum_work(n, e_live, b))
 
 
 def dataflow_bits_phase(torch, tmp: Path, smi: str):
@@ -4888,17 +4933,13 @@ def cli_ladder(cfg) -> tuple[int, ...]:
 
 def flash_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
                 extra_bytes: int = 0, pairs: int | None = None):
-    """(bound_ms, bound_by) of one flash_fwd call: 4*H*D operations per
-    live (query, key) pair (q.k and p.v; a padded key, or with causal a
-    key after its query, needs none) at the bf16 tensor-core peak (fp32
-    at the fp32 peak); `pairs` counts them over the batch (default
-    Tq * sum(Tk_live)); bytes: q, k, v read and o written once, the mask
-    and lse, and `extra_bytes` (a bias read once)."""
-    flops = 4 * H * D * (Tq * sum(Tk_live) if pairs is None else pairs)
-    Tk = max(Tk_live + [1])
-    nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * Tk + 4 * B * H * Tq
-              + extra_bytes)
-    return roofline(flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
+    """(bound_ms, bound_by) of one flash_fwd call
+    (`nn/flash_attention.py:flash_work`) at the bf16 tensor-core peak
+    (fp32 at the fp32 peak)."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    return roofline(*fa.flash_work(B, H, Tq, Tk_live, D, itemsize, extra_bytes, pairs),
+                    PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
 def flash_kernel_phase(torch):
@@ -5005,18 +5046,14 @@ def flash_fwd_dropout_case(torch, fa, q, k, v, mask) -> dict:
 def flash_bwd_bound(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
                     products: int, out_tokens: int, extra_bytes: int = 0,
                     pairs: int | None = None):
-    """(bound_ms, bound_by) of one backward kernel: `products` matrix
-    products of 2*H*Tq*D operations per live key of each row (dq: s, dp,
-    ds.k = 3; dk/dv: s, dp, p.do, ds.q = 4; dbias: s, dp = 2) at the bf16
-    tensor-core peak (fp32 at the fp32 peak); bytes: q, k, v, do read and
-    the gradients' `out_tokens` rows of [B, H, ., D] written once (dq: Tq;
-    dk, dv: 2 Tk; dbias: 0), lse, delta and the mask, and `extra_bytes`
-    (a bias read once, dbias written once); `pairs` as for `flash_bound`."""
-    flops = 2 * products * H * D * (Tq * sum(Tk_live) if pairs is None else pairs)
-    Tk = max(Tk_live + [1])
-    nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk + out_tokens) + 8 * B * H * Tq
-              + 4 * B * Tk + extra_bytes)
-    return roofline(flops, nbytes, PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
+    """(bound_ms, bound_by) of one backward kernel
+    (`nn/flash_attention.py:flash_bwd_work`: dq 3 products, Tq output
+    rows; dk/dv 4, 2 Tk; dbias 2, 0)."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    return roofline(*fa.flash_bwd_work(B, H, Tq, Tk_live, D, itemsize, products, out_tokens,
+                                       extra_bytes, pairs),
+                    PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS)
 
 
 def flash_bwd_kernel_phase(torch):
@@ -5990,13 +6027,11 @@ def dbias_cut(fa, B: int, H: int, Tq: int, Tk: int, causal: bool, D: int = 64,
 
 
 def live_pairs(torch, mask, Tq: int, causal: bool) -> int:
-    """(query, key) pairs that a call computes, over the batch: each real
-    key j of a row pairs with every query, or with causal with queries
-    j .. Tq-1."""
-    m = mask.cpu().to(torch.int64)
-    if not causal:
-        return int(m.sum()) * Tq
-    return int((m * torch.arange(m.shape[1], 0, -1)).sum())
+    """(query, key) pairs that a call computes, over the batch
+    (`nn/flash_attention.py:live_pairs`)."""
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+
+    return fa.live_pairs(mask, Tq, causal)
 
 
 def flash_causal_kernel_phase(torch, noncausal: dict, fwd_flagship: dict, bwd_flagship: dict,
@@ -6686,6 +6721,408 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+#: runtime_hooks_train and efficiency (the runtime hooks, queue A item 10):
+#: the pipeline's store at the flagship recipe, one epoch, inline input,
+#: a step checkpoint every HOOKS_STEP_EVERY steps; the guard's faults, the
+#: preemption's step and the watchdog's timeout; HOOKS_SYNC_STEPS guarded
+#: and unguarded steps a sync count (and a timed window of each, A B B A);
+#: the combined run's steps and poisoned step; the health probe's bound
+HOOKS_STEP_EVERY = 2
+HOOKS_NAN = "nan@3,nan@4"
+HOOKS_SIGTERM_AT = 6
+HOOKS_STALL_AT, HOOKS_WATCHDOG_S = 6, 5.0
+HOOKS_SYNC_STEPS = 8
+HOOKS_COMBINED_TRAIN, HOOKS_COMBINED_NAN = 64, 2
+HEALTH_TIMEOUT_S = 120.0
+#: ledger MFU must lie in (0, LEDGER_MFU_MAX]: a probe is a point sample
+LEDGER_MFU_MAX = 1.05
+
+
+@contextlib.contextmanager
+def faults_env(spec: str):
+    """DEEPDFA_FAULTS set to `spec` inside the block."""
+    import os
+
+    os.environ["DEEPDFA_FAULTS"] = spec
+    try:
+        yield
+    finally:
+        os.environ.pop("DEEPDFA_FAULTS", None)
+
+
+def cli_rc(cli, args: list[str]) -> int:
+    """`cli.main(args)` in this process, its stdout swallowed; the exit
+    code (0, or a SystemExit's)."""
+    import io
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(args)
+    except SystemExit as e:
+        return int(e.code or 0)
+    return 0
+
+
+def count_syncs(torch, fn, steps: int) -> int:
+    """Synchronizing CUDA calls made by `steps` calls of fn(k), counted
+    under torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k in range(steps):
+                fn(k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def runtime_hooks_train_phase(torch, tmp: Path, smi: str) -> dict:
+    """The resilient runtime on the card (`cli train` in-process on the
+    pipeline's store at the flagship recipe, one epoch, inline input,
+    train.resilience.enabled, a step checkpoint every HOOKS_STEP_EVERY
+    steps): (a) DEEPDFA_FAULTS=HOOKS_NAN; (b) the same plan plus
+    sigterm@HOOKS_SIGTERM_AT exits 143 and a second `cli train` resumes
+    it; (b)'s final weights, moments and counters equal (a)'s to the bit,
+    and both skip steps 3 and 4 without a rollback; (c) three bad steps
+    in a row at max_consecutive_bad=3 roll back once with the LR cooled
+    to lr_cooldown; (d) a stalled source under a short watchdog exits 113
+    (a subprocess, run beside (a)-(c): the watchdog ends its process) with
+    a postmortem that `validate_postmortem` accepts. Then, in-process at
+    the flagship
+    batch, the synchronizing calls of HOOKS_SYNC_STEPS guarded steps
+    (the runner reading each ok flag a step late) against as many
+    unguarded ones, a step of each timed, and a step checkpoint's
+    seconds. Returns the launches of (a) and of (b)'s resumed run."""
+    import os
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.obs.flight import validate_postmortem_file
+    from deepdfa_tpu_torch.train import GraphTrainer
+    from deepdfa_tpu_torch.train.resilience import ResilientRunner, ResumeCursor, StepCheckpointer
+
+    t_phase = time.perf_counter()
+    base = ["train", "--config", str(tmp / "pipeline.json"), "--device", CARD,
+            "train.max_epochs=1", "train.prefetch_batches=0", "train.resilience.enabled=true",
+            f"train.resilience.step_checkpoint_every={HOOKS_STEP_EVERY}"]
+    report: dict = {"phase": "runtime_hooks_train", "nvidia_smi": smi, "faults": HOOKS_NAN,
+                    "sigterm_at": HOOKS_SIGTERM_AT, "step_checkpoint_every": HOOKS_STEP_EVERY}
+    paths: dict = {}
+
+    def final_state(run: str) -> dict:
+        ckpt = StepCheckpointer(tmp / "runs" / run / cli.STEP_CHECKPOINTS_DIR)
+        return ckpt.restore(ckpt.latest())
+
+    def epochs(run: str) -> list:
+        return [r for r in run_log(tmp / "runs" / run) if "epoch" in r]
+
+    with storage_root(tmp):
+        runs = {}
+        # (d) runs in a process of its own (the watchdog ends it) beside
+        # (a)-(c), which it shares nothing with but the read-only store
+        env = {**os.environ, "DEEPDFA_FAULTS": f"stall@{HOOKS_STALL_AT}"}
+        t_d = time.perf_counter()
+        err_path = tmp / "hooks-d.stderr"
+        with err_path.open("w") as err_file:
+            stalled = subprocess.Popen(
+                [sys.executable, "-m", "deepdfa_tpu_torch.cli", *base, 'run_name="hooks-d"',
+                 f"train.resilience.watchdog_timeout_s={HOOKS_WATCHDOG_S}", "obs.flight=true"],
+                cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=err_file)
+        gk.reset_launch_counts()
+        with faults_env(HOOKS_NAN):
+            rc_a = cli_rc(cli, [*base, 'run_name="hooks-a"'])
+        counts = gk.launch_counts()
+        paths["hooks_train"] = {"ggnn_step": counts["LAUNCHES"],
+                                "ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"],
+                                "ggnn_dmsg": counts["DMSG_LAUNCHES"]}
+        with faults_env(f"{HOOKS_NAN},sigterm@{HOOKS_SIGTERM_AT}"):
+            rc_b1 = cli_rc(cli, [*base, 'run_name="hooks-b"'])
+        manifest_b1 = json.loads((tmp / "runs" / "hooks-b" / cli.STEP_CHECKPOINTS_DIR
+                                  / "resume.json").read_text())
+        gk.reset_launch_counts()
+        with faults_env(HOOKS_NAN):
+            rc_b2 = cli_rc(cli, [*base, 'run_name="hooks-b"'])
+        counts = gk.launch_counts()
+        paths["hooks_resume"] = {"ggnn_step": counts["LAUNCHES"],
+                                 "ggnn_gru_bwd": counts["GRU_BWD_LAUNCHES"],
+                                 "ggnn_dmsg": counts["DMSG_LAUNCHES"]}
+        if (rc_a, rc_b1, rc_b2) != (0, 143, 0):
+            fail(f"runtime_hooks_train: exit codes (a, b preempted, b resumed) "
+                 f"{(rc_a, rc_b1, rc_b2)}, expected (0, 143, 0)")
+        if manifest_b1["reason"] != "preempt" or manifest_b1["step"] != HOOKS_SIGTERM_AT:
+            fail(f"runtime_hooks_train: the preemption's manifest {manifest_b1}")
+        a, b = final_state("hooks-a"), final_state("hooks-b")
+        same = (a["step"] == b["step"] and a["schedule_count"] == b["schedule_count"]
+                and a["model"].keys() == b["model"].keys()
+                and all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"]))
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        same = same and sa.keys() == sb.keys() and all(
+            sa[i].keys() == sb[i].keys() and all(torch.equal(sa[i][k], sb[i][k]) for k in sa[i])
+            for i in sa)
+        if not same:
+            fail("runtime_hooks_train: the resumed run's final weights, moments or counters "
+                 "differ from the uninterrupted run's")
+        for run in ("hooks-a", "hooks-b"):
+            rec = epochs(run)[-1]
+            bad = [r["step"] for r in run_log(tmp / "runs" / run)
+                   if "loss" in r and "epoch" not in r and not math.isfinite(r["loss"])]
+            if rec["skipped_steps"] != 2 or rec["rollbacks"] != 0 or bad != [3, 4]:
+                fail(f"runtime_hooks_train: {run} skipped {rec['skipped_steps']} steps "
+                     f"(non-finite at {bad}) with {rec['rollbacks']} rollbacks (steps 3 and 4, "
+                     f"no rollback expected)")
+        steps_a = a["step"]
+        if a["schedule_count"] != steps_a - 2:
+            fail(f"runtime_hooks_train: {a['schedule_count']} updates applied over "
+                 f"{steps_a} steps with 2 skipped")
+        runs["a"] = {"steps": steps_a, "updates": a["schedule_count"],
+                     "skipped_steps": 2, "rollbacks": 0, "train_loss": epochs("hooks-a")[-1][
+                         "train_loss"]}
+        runs["b"] = {"preempted_at": manifest_b1["step"], "resumed_from_step":
+                     epochs("hooks-b")[-1]["resumed_from_step"], "equal_to_a_bits": True}
+
+        with faults_env("nan@3,nan@4,nan@5"):
+            rc_c = cli_rc(cli, [*base, 'run_name="hooks-c"',
+                                "train.resilience.max_consecutive_bad=3"])
+        rec_c = epochs("hooks-c")[-1]
+        guard_c = json.loads((tmp / "runs" / "hooks-c" / cli.STEP_CHECKPOINTS_DIR
+                              / "resume.json").read_text())["guard"]
+        if rc_c != 0 or rec_c["rollbacks"] != 1 or guard_c["lr_scale"] != 0.5:
+            fail(f"runtime_hooks_train: three bad steps gave rc {rc_c}, {rec_c['rollbacks']} "
+                 f"rollbacks, lr_scale {guard_c['lr_scale']} (1 rollback at 0.5 expected)")
+        runs["c"] = {"rollbacks": rec_c["rollbacks"], "skipped_steps": rec_c["skipped_steps"],
+                     "lr_scale": guard_c["lr_scale"]}
+
+        try:
+            stalled.wait(timeout=600)
+        finally:
+            if stalled.poll() is None:
+                stalled.kill()
+                stalled.wait()
+        pm = validate_postmortem_file(tmp / "runs" / "hooks-d" / "postmortem.json")
+        if stalled.returncode != 113 or not pm["ok"] or pm["trigger"] != "watchdog_abort":
+            fail(f"runtime_hooks_train: the stalled run exited {stalled.returncode} (113 "
+                 f"expected), postmortem {pm}: {err_path.read_text()[-2000:]}")
+        runs["d"] = {"exit": stalled.returncode, "seconds": time.perf_counter() - t_d,
+                     "postmortem": {k: pm[k] for k in ("trigger", "steps", "events")}}
+        report["runs"] = runs
+
+        # the guard's syncs and cost at the flagship batch
+        pcfg = config_mod.load(tmp / "pipeline.json")
+        cfg = config_mod.apply_overrides(pcfg, ["train.resilience.enabled=true"])
+        splits = cli.load_graph_splits(cfg)
+        batches = [b.to(CARD) for b in cli.epoch_batches(cfg, splits["train"], 0)[:HOOKS_SYNC_STEPS]]
+        # two states: the guarded update keeps the optimiser's counts on
+        # the card, torch.optim's own step keeps them on the host
+        trainer_g = GraphTrainer(cli._model(cfg), cfg, total_steps=100, device=CARD)
+        state_g = trainer_g.init_state()
+        trainer_u = GraphTrainer(cli._model(cfg), cfg, total_steps=100, device=CARD)
+        state_u = trainer_u.init_state()
+        runner = ResilientRunner(cfg.train.resilience, None, seed=cfg.train.seed)
+
+        def guarded(k):
+            _, ok = trainer_g.train_step_guarded(state_g, batches[k % len(batches)],
+                                                 runner.lr_scale())
+            runner.after_step(state_g, ok, ResumeCursor(0, k + 1, state_g.step))
+
+        def plain(k):
+            trainer_u.train_step(state_u, batches[k % len(batches)])
+
+        guarded(0)
+        plain(0)
+        syncs = {"guarded": count_syncs(torch, guarded, HOOKS_SYNC_STEPS),
+                 "unguarded": count_syncs(torch, plain, HOOKS_SYNC_STEPS),
+                 "control_item": count_syncs(torch, lambda k: float(
+                     trainer_u.train_step(state_u, batches[0])), 1)}
+        if syncs["guarded"] != syncs["unguarded"] or syncs["control_item"] < 1:
+            fail(f"runtime_hooks_train: synchronizing calls {syncs} (the guard must add none; "
+                 f"the .item() control must count)")
+        if runner.skipped_steps:
+            fail(f"runtime_hooks_train: the guard skipped {runner.skipped_steps} clean steps")
+        ms = {}
+        for name in ("unguarded", "guarded", "guarded_2", "unguarded_2"):
+            fn = guarded if name.startswith("guarded") else plain
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(HOOKS_SYNC_STEPS):
+                fn(k)
+            torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t0) / HOOKS_SYNC_STEPS
+        ckpt = StepCheckpointer(tmp / "hooks-ckpt-timing")
+        t0 = time.perf_counter()
+        ckpt.save(state_g.state_dict(), ResumeCursor(0, 1, state_g.step), seed=cfg.train.seed)
+        save_s = time.perf_counter() - t0
+        report.update(
+            sync_calls=syncs, step_ms=ms,
+            guard_cost_ms_a_step=(ms["guarded"] + ms["guarded_2"] - ms["unguarded"]
+                                  - ms["unguarded_2"]) / 2,
+            step_checkpoint_seconds=save_s,
+            step_checkpoint_bytes=sum(p.stat().st_size for p in ckpt.directory.rglob("*.pt")),
+            launches=paths, seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return paths
+
+
+def efficiency_phase(torch, tmp: Path, smi: str) -> dict:
+    """The efficiency hooks on the card: (1) `cli test --profile
+    --xprof-dir` on runtime_hooks_train's run (a) prints Table 5's record
+    (GFLOPs and ms a call and an example, p95); the counted FLOPs of its
+    batch equal the CPU count of the same batch exactly, and the trace
+    names the port's CUDA kernels; (2) `cli score` of serve_source's
+    sources with obs.ledger and obs.ledger_ceilings prints a ledger with
+    one site a warmed rung and every ledger_mfu in (0, LEDGER_MFU_MAX];
+    (3) `cli train-combined` at codebert-base width, HOOKS_COMBINED_TRAIN
+    rows (4 steps of 16) under the resilient runtime and the ledger with
+    DEEPDFA_FAULTS=nan@HOOKS_COMBINED_NAN: that step is skipped, the
+    flash kernels launch, the ledger holds the step's site; (4) the
+    bounded health probe (a subprocess, run beside 1-3) answers ok inside
+    HEALTH_TIMEOUT_S. Returns the launches of (1)-(3)."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core import load
+    from deepdfa_tpu_torch.eval import profiling
+    from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.obs.health import BackendHealth
+    from deepdfa_tpu_torch.train import CheckpointManager
+
+    import threading
+
+    t_phase = time.perf_counter()
+    report: dict = {"phase": "efficiency", "nvidia_smi": smi}
+    paths: dict = {}
+    # 4. the bounded health probe, a subprocess of its own, beside 1-3
+    probe: dict = {}
+    prober = threading.Thread(
+        target=lambda: probe.update(BackendHealth().probe(timeout_s=HEALTH_TIMEOUT_S)))
+    prober.start()
+    with storage_root(tmp):
+        # 1. Table 5's record and the count's equality, card and CPU
+        run = tmp / "runs" / "hooks-a"
+        xprof_dir = tmp / "hooks-xprof"
+        (run / "profiledata.jsonl").unlink(missing_ok=True)
+        gk.reset_launch_counts()
+        rc = cli_rc(cli, ["test", "--device", CARD, "--profile", "--xprof-dir", str(xprof_dir),
+                          'run_name="hooks-a"'])
+        paths["hooks_test_profile"] = {"ggnn_step": gk.LAUNCHES}
+        rec = json.loads((run / "profiledata.jsonl").read_text().splitlines()[-1])
+        keys = ("gflops_per_call", "gflops_per_example", "ms_per_call", "ms_per_example",
+                "p95_ms_per_call")
+        if rc != 0 or not all(math.isfinite(rec[k]) and rec[k] > 0 for k in keys):
+            fail(f"efficiency: test --profile exited {rc} with the record {rec}")
+        cfg = config_mod.load(run / "config.json")
+        model = cli._model(cfg)
+        model.load_state_dict(CheckpointManager(run / cli.CHECKPOINTS_DIR).restore("best")[
+            "model"])
+        model.eval()
+        batch = cli.epoch_batches(cfg, cli.load_graph_splits(cfg)["test"], phase="eval")[0]
+
+        def fwd(b):
+            with torch.inference_mode():
+                return model(b)
+
+        model.to(CARD)
+        card = profiling.compiled_cost(fwd, batch.to(CARD))
+        model.to("cpu")
+        cpu = profiling.compiled_cost(fwd, batch.to("cpu"))
+        if card["flops"] != cpu["flops"] or abs(card["flops"] / 1e9 - rec["gflops_per_call"]) \
+                > 1e-9 * card["flops"]:
+            fail(f"efficiency: counted FLOPs card {card['flops']}, CPU {cpu['flops']}, "
+                 f"the record's {rec['gflops_per_call']} GFLOP")
+        trace = json.loads((xprof_dir / "trace.json").read_text())
+        names = {e.get("name", "") for e in trace.get("traceEvents", [])
+                 if e.get("cat") == "kernel"}
+        ours = sorted(n for n in names if "ggnn_step_kernel" in n)
+        if not ours:
+            fail(f"efficiency: the xprof trace names no ggnn_step_kernel among "
+                 f"{sorted(names)[:20]}")
+        report["table5"] = {**{k: rec[k] for k in (*keys, "examples_per_call",
+                                                   "bytes_accessed")},
+                            "flops_card": card["flops"], "flops_cpu": cpu["flops"],
+                            "trace_kernels": ours[:4]}
+
+        # 2. cli score with the ledger and measured ceilings
+        pcfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+        gk.reset_launch_counts()
+        summary = cli_summary(cli, [
+            "score", str(tmp / "serve_src"), "--out", str(tmp / "hooks_scores.jsonl"),
+            "--device", CARD, "--override", 'run_name="pipeline"',
+            "--override", "obs.ledger=true", "--override", "obs.ledger_ceilings=true"])
+        paths["hooks_score"] = {"ggnn_step": gk.LAUNCHES}
+        ledger = summary["ledger"]
+        want = {f"serve_score/G{s}" for s in cli_ladder(pcfg)}
+        mfu = summary.get("ledger_mfu", {})
+        if set(ledger["sites"]) != want or not mfu or not all(
+                0.0 < v <= LEDGER_MFU_MAX for v in mfu.values()):
+            fail(f"efficiency: the score ledger's sites {sorted(ledger['sites'])} (one a rung "
+                 f"of {sorted(want)} expected), ledger_mfu {mfu}")
+        report["score_ledger"] = {"sites": ledger["sites"], "ceilings": ledger.get("ceilings"),
+                                  "ledger_mfu": mfu,
+                                  "requests_per_sec": summary["serve_requests_per_sec"]}
+
+        # 3. train-combined at codebert-base width with a poisoned step
+        out = tmp / "processed" / pcfg.data.dataset
+        splits = json.loads((out / "splits.json").read_text())
+        graphs = set(GraphStore(out / cli.graphs_dirname(pcfg)).load_all())
+        ids = {s: sorted(int(k) for k, v in splits.items() if v == s and int(k) in graphs)
+               for s in ("train", "val")}
+        ds = tmp / "processed" / "pipeline-hooks"
+        ds.mkdir()
+        for name in ("examples.pkl", f"vocab{pcfg.data.feat.name}.json",
+                     cli.graphs_dirname(pcfg)):
+            (ds / name).symlink_to(out / name)
+        (ds / "splits.json").write_text(json.dumps(
+            {**{str(i): "train" for i in ids["train"][:HOOKS_COMBINED_TRAIN]},
+             **{str(i): "val" for i in ids["val"][:SERVE_COMBINED_VAL]}}))
+        ccfg = config_mod.apply_overrides(load(COMBINED_CONFIG), [
+            'run_name="hooks-combined"', 'data.dataset="pipeline-hooks"',
+            "train.max_epochs=1", "train.log_every_steps=1", "train.prefetch_batches=0",
+            "train.resilience.enabled=true", "train.resilience.step_checkpoint_every=2",
+            "obs.ledger=true"])
+        ccfg_path = tmp / "hooks_combined.json"
+        config_mod.to_json(ccfg, ccfg_path)
+        gk.reset_launch_counts()
+        reset_flash(fa)
+        t0 = time.perf_counter()
+        with faults_env(f"nan@{HOOKS_COMBINED_NAN}"):
+            rc = cli_rc(cli, ["train-combined", "--config", str(ccfg_path), "--encoder",
+                              SERVE_COMBINED_ENCODER, "--max-length", "512", "--device", CARD])
+        comb_s = time.perf_counter() - t0
+        paths["hooks_train_combined"] = {**{k: v for k, v in flash_counts(fa).items()
+                                            if k != "flash_dbias"},
+                                         "ggnn_step": gk.LAUNCHES,
+                                         "ggnn_gru_bwd": gk.GRU_BWD_LAUNCHES,
+                                         "ggnn_dmsg": gk.DMSG_LAUNCHES}
+        log = run_log(tmp / "runs" / "hooks-combined")
+        steps = [r for r in log if "step" in r and "loss" in r]
+        rec = [r for r in log if "epoch" in r][-1]
+        sites = sorted(rec.get("ledger", {}).get("sites", {}))
+        bad = [r["step"] for r in steps if not math.isfinite(r["loss"])]
+        if rc != 0 or len(steps) != 4 or bad != [HOOKS_COMBINED_NAN] or \
+                rec["skipped_steps"] != 1 or not any(s.startswith("train_step/") for s in sites):
+            fail(f"efficiency: train-combined exited {rc} after {len(steps)} steps (4 "
+                 f"expected), non-finite at {bad}, skipped {rec.get('skipped_steps')}, "
+                 f"ledger sites {sites}")
+        report["train_combined"] = {
+            "encoder": SERVE_COMBINED_ENCODER, "steps": len(steps),
+            "losses": [r["loss"] for r in steps], "skipped_steps": rec["skipped_steps"],
+            "ledger_sites": {s: rec["ledger"]["sites"][s] for s in sites},
+            "seconds": comb_s, "launches": paths["hooks_train_combined"]}
+
+    prober.join(timeout=2 * HEALTH_TIMEOUT_S)
+    if not probe.get("ok") or probe["latency_s"] >= HEALTH_TIMEOUT_S:
+        fail(f"efficiency: the health probe answered {probe}")
+    report.update(health_probe=probe, launches=paths, seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return paths
+
+
 #: the phases --phase can run alone
 LONE_PHASES = ("train", "train_gen", "train_clone")
 
@@ -6781,6 +7218,8 @@ def main() -> None:
         struct_paths |= scan_phase(torch, Path(pipeline_root), smi)
         model_paths, gather_row = dataflow_bits_phase(torch, Path(pipeline_root), smi)
         model_paths |= bf16_params_phase(torch, Path(pipeline_root), smi)
+        hooks_paths = runtime_hooks_train_phase(torch, Path(pipeline_root), smi)
+        hooks_paths |= efficiency_phase(torch, Path(pipeline_root), smi)
     # on a seed of its own, so the phases after it see the data they always saw
     localize_paths |= localize_t5_phase(torch, np.random.default_rng(19), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
@@ -6816,7 +7255,7 @@ def main() -> None:
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
              "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths,
-             **host_paths, **struct_paths, **model_paths}
+             **host_paths, **struct_paths, **model_paths, **hooks_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

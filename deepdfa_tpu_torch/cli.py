@@ -79,6 +79,25 @@ under `runs/<run_name>/checkpoints-torch/` (GGNN) or
 checkpoints of the same run stay untouched. The card is the default
 device; `--device cpu` runs the plain path.
 
+The runtime hooks (`train`, `train-combined`): `train.resilience.
+enabled=true` runs the resilient runtime (train/resilience.py: the
+on-device divergence guard, step checkpoints every
+`train.resilience.step_checkpoint_every` steps under
+`runs/<run>/checkpoints-torch-step/` or
+`checkpoints-combined-torch-step/`, resume on the next run of the same
+command, rollback, the watchdog); a preempted run (SIGTERM) checkpoints
+and exits 143, a watchdog abort exits 113. `DEEPDFA_FAULTS` (e.g.
+`"nan@3,sigterm@6"`, testing/faults.py) injects faults into the train
+stream. The `obs.*` switches (obs/) open a telemetry session for the
+run (also for `score` and `serve`): trace spans, the metrics snapshot,
+`torch.profiler` captures, the efficiency ledger (`obs.ledger`, with
+measured ceilings under `obs.ledger_ceilings`) and the flight recorder.
+`train.debug_nans` and `train.enable_checks` run the sanitizers
+(core/sanitize.py). `test --profile` prints Table 5's record (GFLOPs
+and ms a call and an example, p95) of the first batch's forward and
+appends it to `profiledata.jsonl`; `--xprof-dir D` writes a
+`torch.profiler` Chrome trace of the evaluation to `D/trace.json`.
+
 `train-combined` takes the reference's arguments. `--arch t5` builds
 the CodeT5+DeepDFA defect model (`--encoder tiny|codet5-base`, the
 T5-framed hash tokenizer, `max_sequence_length = --max-length`), as the
@@ -162,6 +181,7 @@ IFA, effort@20% recall, recall@1% LOC, `n_examples`, `method`) and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
 import sys
@@ -174,6 +194,8 @@ from deepdfa_tpu_torch.core.config import Config
 from deepdfa_tpu_torch.core.paths import (
     CHECKPOINTS_DIR,
     COMBINED_CHECKPOINTS_DIR,
+    COMBINED_STEP_CHECKPOINTS_DIR,
+    STEP_CHECKPOINTS_DIR,
     cache_dir,
     graphs_dirname,
     processed_dir,
@@ -541,7 +563,10 @@ def _apply_tuned(cfg: Config, device, serve_side: bool = False) -> Config:
 
 
 def cmd_train(args) -> None:
+    from deepdfa_tpu_torch import obs
+    from deepdfa_tpu_torch.testing.faults import injector_from_env
     from deepdfa_tpu_torch.train import GraphTrainer, positive_weight
+    from deepdfa_tpu_torch.train.resilience import make_runner
 
     cfg = _apply_tuned(_load_config(args), args.device)
     split_specs = load_graph_splits(cfg)
@@ -567,6 +592,8 @@ def cmd_train(args) -> None:
         packer = MpPacker(split_specs["train"], workers=cfg.data.pack_workers)
         val_packer = MpPacker(split_specs["val"], workers=cfg.data.pack_workers)
     run_log = None
+    obs_cm = obs.session(cfg, run_dir)
+    obs_cm.__enter__()
     try:
         batches0 = epoch_batches(cfg, split_specs["train"], shuffle_epoch=0,
                                  source_digest=train_digest, packer=packer)
@@ -585,21 +612,35 @@ def cmd_train(args) -> None:
                 val_packer.close()
             return out
 
+        # the resilient runtime (off unless train.resilience.enabled) and
+        # the fault injector (armed only by DEEPDFA_FAULTS)
+        res = make_runner(cfg, run_dir / STEP_CHECKPOINTS_DIR,
+                          rng={"feat_dropout_seed": cfg.train.seed + 7919})
+        injector = injector_from_env()
+
+        def train_stream(epoch):
+            s = epoch_batches(cfg, split_specs["train"], epoch, lazy=True,
+                              source_digest=train_digest, packer=packer)
+            return injector.wrap(s) if injector is not None else s
+
         run_log = RunLog(run_dir)
         trainer.fit(
             state,
-            lambda epoch: epoch_batches(cfg, split_specs["train"], epoch, lazy=True,
-                                        source_digest=train_digest, packer=packer),
+            train_stream,
             val_batches=val_batches,
             checkpoints=ckpts,
             log_fn=run_log.log,
+            resilience=res,
         )
     finally:
-        if run_log is not None:
-            run_log.close()
-        for p in (packer, val_packer):
-            if p is not None:
-                p.close()
+        try:
+            if run_log is not None:
+                run_log.close()
+            for p in (packer, val_packer):
+                if p is not None:
+                    p.close()
+        finally:
+            obs_cm.__exit__(None, None, None)
     print("best:", ckpts.best_metrics())
 
 
@@ -616,7 +657,14 @@ def cmd_test(args) -> None:
     ckpts = trainer.make_checkpoints(run_dir / CHECKPOINTS_DIR)
     trainer.model.load_state_dict(ckpts.restore(args.checkpoint)["model"])
     batches = epoch_batches(cfg, split_specs[args.split], phase="eval")
-    metrics, m = trainer.evaluate(batches)
+    trace_ctx = contextlib.nullcontext()
+    if args.xprof_dir:
+        # the device timeline of the evaluation (the reference's xprof dump)
+        from deepdfa_tpu_torch.eval.profiling import xprof_trace
+
+        trace_ctx = xprof_trace(args.xprof_dir)
+    with trace_ctx:
+        metrics, m = trainer.evaluate(batches)
     print(classification_report(m))
     print(json.dumps(metrics, indent=2))
     (run_dir / f"test_metrics_{args.split}.json").write_text(json.dumps(metrics))
@@ -642,6 +690,25 @@ def cmd_test(args) -> None:
             w.writerow(["id", "prob", "label"])
             w.writerows(sorted(rows))
         print(f"exported {len(rows)} predictions")
+
+    if args.profile:
+        # Table 5's record: the first batch's forward, its counted FLOPs
+        # (the kernels' formulas + the aten ops) and its device time
+        import torch
+
+        from deepdfa_tpu_torch.eval.profiling import profile_model
+
+        batch = batches[0].to(trainer.device)
+        trainer.model.eval()
+
+        def fwd(b):
+            with torch.inference_mode():
+                return trainer.model(b)
+
+        rec = profile_model(fwd, (batch,),
+                            examples_per_call=int(np.asarray(batches[0].graph_mask).sum()),
+                            out_path=run_dir / "profiledata.jsonl")
+        print(json.dumps(rec, indent=2))
 
 
 def combined_setup(args, cfg: Config):
@@ -716,8 +783,11 @@ def cmd_train_combined(args) -> None:
     )
     from deepdfa_tpu_torch.data.tokenizer import bpe_files
     from deepdfa_tpu_torch.graphs import GraphStore
+    from deepdfa_tpu_torch import obs
     from deepdfa_tpu_torch.serve.cascade import save_model_setup
+    from deepdfa_tpu_torch.testing.faults import injector_from_env
     from deepdfa_tpu_torch.train import CheckpointManager, CombinedTrainer, undersample_epoch
+    from deepdfa_tpu_torch.train.resilience import make_runner
 
     cfg = _apply_tuned(_load_config(args), args.device)
     if cfg.data.gtype != "cfg":
@@ -859,11 +929,21 @@ def cmd_train_combined(args) -> None:
     if args.pretrained:
         state = trainer.load_encoder(state, encoder_from_hf(mcfg.encoder, args.pretrained))
     ckpts = trainer.make_checkpoints(run_dir / COMBINED_CHECKPOINTS_DIR)
+    # the resilient runtime (off unless train.resilience.enabled), the fault
+    # injector (armed only by DEEPDFA_FAULTS) and the telemetry session
+    res = make_runner(cfg, run_dir / COMBINED_STEP_CHECKPOINTS_DIR, rng={"dropout_seed": 0})
+    injector = injector_from_env()
+
+    def train_stream(epoch):
+        s = batches(epoch_ids(epoch), epoch=epoch)
+        return injector.wrap(s) if injector is not None else s
+
     run_log = RunLog(run_dir)
     try:
-        trainer.fit(state, lambda epoch: batches(epoch_ids(epoch), epoch=epoch),
-                    val_batches=lambda: batches(split_ids("val"), phase="eval"),
-                    checkpoints=ckpts, log_fn=run_log.log)
+        with obs.session(cfg, run_dir):
+            trainer.fit(state, train_stream,
+                        val_batches=lambda: batches(split_ids("val"), phase="eval"),
+                        checkpoints=ckpts, log_fn=run_log.log, resilience=res)
     finally:
         run_log.close()
         if text_packer is not None:
@@ -1269,6 +1349,7 @@ def cmd_score(args) -> None:
     model on the card): one row a source in `scores.jsonl` (or --out)
     and the summary on stdout. --smoke trains a tiny run first and
     fails unless every source scored."""
+    from deepdfa_tpu_torch import obs
     from deepdfa_tpu_torch.serve import driver
 
     if args.smoke:
@@ -1281,8 +1362,9 @@ def cmd_score(args) -> None:
         cfg = _apply_tuned(_load_run_config(args), args.device, serve_side=True)
         run_dir = runs_dir(cfg.run_name)
         sources = driver.collect_sources(args.sources)
-    summary = driver.run_score(cfg, run_dir, sources, out_path=args.out, family=args.family,
-                               device=args.device)
+    with obs.session(cfg, run_dir):
+        summary = driver.run_score(cfg, run_dir, sources, out_path=args.out,
+                                   family=args.family, device=args.device)
     print(json.dumps(summary), flush=True)
     if args.smoke and summary["serve_scored"] != len(sources):
         raise SystemExit(f"score smoke contract violated: {summary['serve_scored']} of "
@@ -1295,6 +1377,7 @@ def cmd_serve(args) -> None:
     --port (0 picks a free port; the first stdout line names it).
     --smoke serves a tiny run on a free port, round-trips real requests
     and exits non-zero unless every status is the contract's."""
+    from deepdfa_tpu_torch import obs
     from deepdfa_tpu_torch.serve import driver
     from deepdfa_tpu_torch.serve.registry import ModelRegistry
     from deepdfa_tpu_torch.serve.server import ScoringService, serve_forever
@@ -1318,9 +1401,10 @@ def cmd_serve(args) -> None:
             raise SystemExit("serve smoke contract violated (see report)")
         return
     cfg = _apply_tuned(_load_run_config(args), args.device, serve_side=True)
-    registry = ModelRegistry(runs_dir(cfg.run_name), family=args.family,
-                             checkpoint=cfg.serve.checkpoint, cfg=cfg, device=args.device)
-    serve_forever(ScoringService(registry, cfg), args.host, args.port)
+    with obs.session(cfg, runs_dir(cfg.run_name)):
+        registry = ModelRegistry(runs_dir(cfg.run_name), family=args.family,
+                                 checkpoint=cfg.serve.checkpoint, cfg=cfg, device=args.device)
+        serve_forever(ScoringService(registry, cfg), args.host, args.port)
 
 
 def cmd_scan(args) -> None:
@@ -1424,6 +1508,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--split", default="test")
     p.add_argument("--export", action="store_true",
                    help="write per-example predictions csv")
+    p.add_argument("--profile", action="store_true",
+                   help="FLOPs + latency of the first batch's forward (Table 5's record)")
+    p.add_argument("--xprof-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the evaluation here")
     common(p)
     p.set_defaults(fn=cmd_test)
 
@@ -1613,8 +1701,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> None:
+    from deepdfa_tpu_torch.train.resilience import EXIT_PREEMPTED, Preempted
+
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    try:
+        args.fn(args)
+    except Preempted as e:
+        # a clean preemption exit: the in-flight step finished, the state
+        # and its resume manifest are on disk, and re-running the same
+        # command resumes where this one stopped
+        print(f"preempted: {e}")
+        if e.manifest is not None:
+            print(f"resume manifest: {e.manifest} (re-run to resume)")
+        raise SystemExit(EXIT_PREEMPTED)
 
 
 if __name__ == "__main__":

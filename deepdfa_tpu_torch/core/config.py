@@ -7,13 +7,13 @@ buckets (`seq_buckets`, `token_budget`) and the host input pipeline
 (`pack_workers`, `packed_cache*`) of `data`, all of `model`, the
 batcher, registry, quantization and frontend fields of `serve`, and the
 one-card training fields of `train` (optimiser, schedule, checkpoint
-cadence, prefetch, the mesh and the
-resilience switch, which must say "one card, off", and the
-`debug_nans`/`enable_checks` sanitizer switches, which must be off),
-the `obs` switches (which must be off), the whole-repo scanner's `scan`
-section and the autotuner's `tune` section. Field names and defaults are the reference's (`deepdfa_tpu/core/config.py`), so one
-file configures both packages. Keys the port does not run yet (the
-rest of observability, fleet, the Joern pool and
+cadence, prefetch, the mesh, which must say "one card", the resilient
+runtime's `resilience` section and the `debug_nans`/`enable_checks`
+sanitizers), the `obs` switches, the whole-repo scanner's `scan`
+section and the autotuner's `tune` section. Field names and defaults
+are the reference's (`deepdfa_tpu/core/config.py`), so one file
+configures both packages. Keys the port does not run yet (the rest of
+observability, fleet, the Joern pool and
 `train.step_cache_entries`, which sizes the reference's cache of
 compiled steps) are read past; the JAX package validates them.
 """
@@ -260,27 +260,51 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class ResilienceConfig:
-    """The switch (the resilient runtime comes with a later slice) and
-    the transient host-I/O retry policy of the packed-batch cache's
-    reads."""
+    """The resilient training runtime's knobs (train/resilience.py), the
+    reference's fields and defaults; everything hangs off `enabled`, so
+    the default path is the plain loop."""
 
     enabled: bool = False
+    # step-granular checkpoint cadence (steps); 0 = only on preemption
+    step_checkpoint_every: int = 50
+    keep_last_k: int = 3
+    auto_resume: bool = True
+    # the on-device finiteness guard; the flag is read `guard_lag` steps late
+    divergence_guard: bool = True
+    guard_lag: int = 1
+    # rollback to the last-good step checkpoint after this many consecutive
+    # bad steps, the LR scaled by lr_cooldown, at most rollback_budget times
+    max_consecutive_bad: int = 3
+    rollback_budget: int = 2
+    lr_cooldown: float = 0.5
+    # abort (exit 113) when no heartbeat lands for this long; 0 = off
+    watchdog_timeout_s: float = 0.0
+    # the stall threshold until the first completed step; 0 = 10x timeout
+    watchdog_first_step_grace_s: float = 0.0
+    # transient host-I/O retry policy of the packed-batch cache's reads
     io_retries: int = 2
     io_backoff_s: float = 0.05
 
 
 @dataclass(frozen=True)
 class ObsConfig:
-    """The reference's telemetry switches (its `obs` section). The port
-    has no instruments yet; a trainer refuses a config that turns one on."""
+    """The reference's telemetry switches (its `obs` section), all off by
+    default (deepdfa_tpu_torch/obs/): Chrome-trace spans, the metrics
+    snapshot in epoch records, `torch.profiler` captures of a step window
+    or on a trigger, the efficiency ledger (with measured ceilings) and
+    the flight recorder."""
 
     trace: bool = False
+    trace_dir: str | None = None
     metrics: bool = False
     xprof_start_step: int = -1
+    xprof_num_steps: int = 5
     xprof_trigger: bool = False
     ledger: bool = False
     ledger_ceilings: bool = False
     flight: bool = False
+    flight_steps: int = 64
+    flight_events: int = 128
 
     @property
     def enabled(self) -> bool:
@@ -307,8 +331,9 @@ class TrainConfig:
     prefetch_batches: int = 2
     # producer threads of that pipeline (source pulls stay serialized)
     prefetch_producers: int = 1
-    # the reference's jax sanitizers (NaN checks, invariant checks): the
-    # port has no counterpart yet and refuses them when set
+    # the sanitizers: debug_nans raises at the first module whose output
+    # or gradient is not finite; enable_checks checks every kernel
+    # launch's arguments and synchronizes after it (core/sanitize.py)
     debug_nans: bool = False
     enable_checks: bool = False
     optim: OptimConfig = field(default_factory=OptimConfig)
@@ -392,28 +417,34 @@ def one_card(mesh: MeshConfig) -> int:
     return 1
 
 
-def refuse_unported_training(cfg: Config) -> None:
+def refuse_unported_training(cfg: Config, runtime_hooks: bool = False) -> None:
     """NotImplementedError for the training options the port does not
-    run: a mesh beyond one card, `train.resilience.enabled`, the
-    `train.debug_nans`/`train.enable_checks` sanitizers and any `obs`
-    instrument."""
+    run: a mesh beyond one card, and — for a trainer without the runtime
+    hooks (`runtime_hooks` False: the generation and clone trainers) —
+    `train.resilience.enabled`, the `train.debug_nans`/
+    `train.enable_checks` sanitizers and any `obs` instrument. The GGNN
+    and combined trainers run all of them."""
     one_card(cfg.train.mesh)
+    if runtime_hooks:
+        return
     for name in ("debug_nans", "enable_checks"):
         if getattr(cfg.train, name):
             raise NotImplementedError(
-                f"train.{name}: the reference's jax sanitizer has no counterpart in the "
-                "port yet (ROADMAP queue A, item 10); set it to false"
+                f"train.{name}: the sanitizers run in `train` and `train-combined`; "
+                "the generation and clone trainers take them with ROADMAP queue A, "
+                "item 10's remainder; set it to false"
             )
     if cfg.train.resilience.enabled:
         raise NotImplementedError(
-            "train.resilience.enabled: the resilient runtime (guarded step, step "
-            "checkpoints, resume) comes with a later slice of the port (ROADMAP queue A, "
-            "item 10)"
+            "train.resilience.enabled: the resilient runtime runs in `train` and "
+            "`train-combined`; the generation and clone loops take it with ROADMAP "
+            "queue A, item 10's remainder"
         )
     if cfg.obs.enabled:
         raise NotImplementedError(
-            f"obs={cfg.obs}: the telemetry instruments come with a later slice of the "
-            "port (ROADMAP queue A, item 10)"
+            f"obs={cfg.obs}: the telemetry instruments run in `train`, "
+            "`train-combined`, `test`, `score` and `serve`; the generation and clone "
+            "loops take them with ROADMAP queue A, item 10's remainder"
         )
 
 

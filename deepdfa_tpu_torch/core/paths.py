@@ -21,6 +21,9 @@ _ENV_VAR = "DEEPDFA_TPU_STORAGE"
 #: combined and t5 families' (`cli train-combined`)
 CHECKPOINTS_DIR = "checkpoints-torch"
 COMBINED_CHECKPOINTS_DIR = "checkpoints-combined-torch"
+#: the resilient runtime's step checkpoints of each (train/resilience.py)
+STEP_CHECKPOINTS_DIR = "checkpoints-torch-step"
+COMBINED_STEP_CHECKPOINTS_DIR = "checkpoints-combined-torch-step"
 
 
 def storage_root() -> Path:

@@ -23,8 +23,9 @@ Stage instrumentation: pass a `PipelineStats` and each stage's wall
 time accumulates into it: `load`/`pack` (source pulls, by
 `source_stage`), `place` (the host-to-device copy), `wait` (the
 consumer blocked on the queue). The train loops report them per epoch.
-The reference's trace spans are the operations layer (ROADMAP queue A,
-item 12).
+Each stage is also a cat="input" span of the unified trace
+(obs/trace.py; a shared no-op unless tracing is on), named as the
+reference names them.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ import time
 from typing import Any, Callable, Iterable, Iterator, TypeVar
 
 import torch
+
+from deepdfa_tpu_torch.obs import trace as obs_trace
 
 T = TypeVar("T")
 
@@ -143,14 +146,16 @@ def prefetch(
         it = iter(source)
         while True:
             t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
+            with obs_trace.span(source_stage, cat="input"):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
             stats.add(source_stage, time.perf_counter() - t0, produced=1)
             if place is not None:
                 t0 = time.perf_counter()
-                item = place(item)
+                with obs_trace.span("place", cat="input"):
+                    item = place(item)
                 stats.add("place", time.perf_counter() - t0)
             stats.consumed += 1
             yield item
@@ -189,7 +194,8 @@ def prefetch(
                 idx = state["next_in"]
                 t0 = time.perf_counter()
                 try:
-                    item = next(src_iter)
+                    with obs_trace.span(source_stage, cat="input"):
+                        item = next(src_iter)
                 except StopIteration:
                     with cond:
                         state["done_at"] = idx
@@ -206,7 +212,8 @@ def prefetch(
             if place is not None:
                 try:
                     t0 = time.perf_counter()
-                    item = place(item)
+                    with obs_trace.span("place", cat="input"):
+                        item = place(item)
                     stats.add("place", time.perf_counter() - t0)
                 except BaseException as e:
                     with cond:
@@ -229,7 +236,7 @@ def prefetch(
 
     try:
         while True:
-            with cond:
+            with obs_trace.span("wait", cat="input"), cond:
                 t0 = time.perf_counter()
                 while True:
                     nxt = state["next_out"]

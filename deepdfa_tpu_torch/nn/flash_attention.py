@@ -59,7 +59,11 @@ ms); dk/dv 4 (25.8 GFLOP, 0.026 ms) on ~76 MB (0.023 ms); dbias 2 (12.9
 GFLOP) on ~70 MB including its fp32 output (0.021 ms, bytes bind). The
 kernels stream tiles through shared memory, so no T x T matrix but the
 bias and dbias reaches device memory; the source's header has the rest
-of the design.
+of the design. `flash_work` and `flash_bwd_work` are those counts as
+formulas of a call's shapes and live (query, key) pairs (`live_pairs`):
+the wrappers report them to an open count (obs/cost.py) at each launch,
+the plain versions on the CPU in the kernels' place, and the card's
+bounds are computed from them.
 
 Layer checkpoints (`remat_layer`). Under remat_policy "full" a
 checkpointed layer replays its whole forward in the backward, kernel 5
@@ -80,8 +84,10 @@ import threading
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deepdfa_tpu_torch.core import sanitize
 from deepdfa_tpu_torch.nn import cuda_build
 from deepdfa_tpu_torch.nn.ggnn_kernel import _on_cuda, _stream
+from deepdfa_tpu_torch.obs import cost
 
 #: kernel launches since the process started (or since a caller reset
 #: them), counted where each kernel is launched and nowhere else
@@ -274,6 +280,78 @@ _lib_lock = threading.Lock()
 _libs: dict[bool, ctypes.CDLL] = {}
 
 
+# ---------------------------------------------------------------------------
+# work formulas: (operations, bytes) of each kernel's call, for the card's
+# bounds and the counted cost (obs/cost.py)
+
+
+def flash_work(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
+               extra_bytes: int = 0, pairs: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one kernel 5 call: 4*H*D operations per
+    live (query, key) pair (q.k and p.v; a padded key, or with causal a
+    key after its query, needs none); `pairs` counts them over the batch
+    (default Tq * sum(Tk_live)); bytes: q, k, v read and o written once,
+    the mask and lse, and `extra_bytes` (a bias read once)."""
+    flops = 4 * H * D * (Tq * sum(Tk_live) if pairs is None else pairs)
+    Tk = max(list(Tk_live) + [1])
+    nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * Tk + 4 * B * H * Tq
+              + extra_bytes)
+    return flops, nbytes
+
+
+def flash_bwd_work(B: int, H: int, Tq: int, Tk_live: list, D: int, itemsize: int,
+                   products: int, out_tokens: int, extra_bytes: int = 0,
+                   pairs: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one backward kernel: `products` matrix
+    products of 2*H*Tq*D operations per live key of each row (dq: s, dp,
+    ds.k = 3; dk/dv: s, dp, p.do, ds.q = 4; dbias: s, dp = 2); bytes: q,
+    k, v, do read and the gradients' `out_tokens` rows of [B, H, ., D]
+    written once (dq: Tq; dk, dv: 2 Tk; dbias: 0), lse, delta and the
+    mask, and `extra_bytes` (a bias read once, dbias written once);
+    `pairs` as for `flash_work`."""
+    flops = 2 * products * H * D * (Tq * sum(Tk_live) if pairs is None else pairs)
+    Tk = max(list(Tk_live) + [1])
+    nbytes = (itemsize * B * H * D * (2 * Tq + 2 * Tk + out_tokens) + 8 * B * H * Tq
+              + 4 * B * Tk + extra_bytes)
+    return flops, nbytes
+
+
+def live_pairs(kv_mask: torch.Tensor, Tq: int, causal: bool) -> int:
+    """(query, key) pairs that a call computes, over the batch: each real
+    key j of a row pairs with every query, or with causal with queries
+    j .. Tq-1."""
+    m = kv_mask.cpu().to(torch.int64)
+    if not causal:
+        return int(m.sum()) * Tq
+    return int((m * torch.arange(m.shape[1], 0, -1)).sum())
+
+
+#: (products, output rows) of each backward kernel, Tq and Tk given
+_BWD_SHAPE = {"flash_dq": lambda Tq, Tk: (3, Tq), "flash_dkv": lambda Tq, Tk: (4, 2 * Tk),
+              "flash_dbias": lambda Tq, Tk: (2, 0)}
+
+
+def _report(kernels, q, k, kv_mask, bias, causal: bool) -> None:
+    """Report one call of each of `kernels` (flash_fwd or the backward
+    kernels) to the open counts; reads the live keys from the device."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    lens = kv_mask.sum(-1).cpu().tolist()
+    pairs = live_pairs(kv_mask, Tq, causal)
+    itemsize = q.element_size()
+    bias_bytes = 0 if bias is None else bias.element_size() * H * Tq * Tk
+    precision = "bf16" if itemsize == 2 else "fp32"
+    for kernel in kernels:
+        if kernel == "flash_fwd":
+            flops, nbytes = flash_work(B, H, Tq, lens, D, itemsize, bias_bytes, pairs)
+        else:
+            products, out_tokens = _BWD_SHAPE[kernel](Tq, Tk)
+            extra = bias_bytes + (4 * H * Tq * Tk if kernel == "flash_dbias" else 0)
+            flops, nbytes = flash_bwd_work(B, H, Tq, lens, D, itemsize, products, out_tokens,
+                                           extra, pairs)
+        cost.report(kernel, flops, nbytes, precision)
+
+
 def _library(causal: bool = False) -> ctypes.CDLL:
     """The loaded, typed library of csrc/flash_attention.cu (built at
     first use): its non-causal instances, or with `causal` the causal
@@ -347,7 +425,11 @@ def _aligned(x) -> bool:
 
 
 def _check_card(what: str, q, k, v, kv_mask, extra=()) -> None:
-    """What every kernel of the module takes on the card, or raise."""
+    """What every kernel of the module takes on the card, or raise (with
+    `enable_checks`, also the key mask's shape against k's)."""
+    if sanitize.checks_on() and tuple(kv_mask.shape) != (k.shape[0], k.shape[2]):
+        raise ValueError(f"enable_checks: {what}: kv_mask {tuple(kv_mask.shape)} does not "
+                         f"cover k's {(k.shape[0], k.shape[2])} keys")
     for name, x in (("k", k), ("v", v), ("kv_mask", kv_mask), *extra):
         if x.device != q.device:
             raise ValueError(f"{what}: {name} is on {x.device}, not {q.device}")
@@ -450,8 +532,12 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
     B, H, Tq, Tk, D = _check_shapes(q, k, v, kv_mask, bias=bias, causal=causal)
     rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_fwd", q.device):
-        return attention_plain(q, k, v, kv_mask, scale, rate,
-                               _plain_bits(q, k, rate, seed, debug_bits), bias, causal)
+        with cost.plain():
+            out = attention_plain(q, k, v, kv_mask, scale, rate,
+                                  _plain_bits(q, k, rate, seed, debug_bits), bias, causal)
+        if cost.counting():
+            _report(("flash_fwd",), q, k, kv_mask, bias, causal)
+        return out
     _check_card("flash_fwd", q, k, v, kv_mask)
     _refuse_debug_bits(debug_bits, "flash_fwd")
     bias_args, bias_strides = _bias_args("flash_fwd", q, bias)
@@ -469,8 +555,11 @@ def flash_fwd(q, k, v, kv_mask, *, scale: float | None = None, dropout_rate: flo
             (ctypes.c_longlong * 14)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_fwd")
+    sanitize.after_launch("flash_fwd", q.device)
     with _launch_lock:
         LAUNCHES += 1
+    if cost.counting():
+        _report(("flash_fwd",), q, k, kv_mask, bias, causal)
     return o, lse
 
 
@@ -524,8 +613,11 @@ def flash_dq(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
             (ctypes.c_longlong * 17)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_dq")
+    sanitize.after_launch("flash_dq", q.device)
     with _launch_lock:
         DQ_LAUNCHES += 1
+    if cost.counting():
+        _report(("flash_dq",), q, k, kv_mask, bias, causal)
     return dq
 
 
@@ -553,8 +645,11 @@ def flash_dkv(q, k, v, kv_mask, lse, delta, do, *, scale: float | None = None,
             int(_tensor_core(q)), *drop, (ctypes.c_longlong * 20)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_dkv")
+    sanitize.after_launch("flash_dkv", q.device)
     with _launch_lock:
         DKV_LAUNCHES += 1
+    if cost.counting():
+        _report(("flash_dkv",), q, k, kv_mask, bias, causal)
     return dk, dv
 
 
@@ -595,8 +690,11 @@ def flash_dbias(q, k, v, kv_mask, lse, delta, do, bias, *, scale: float | None =
             (ctypes.c_longlong * 14)(*strides), _stream(q.device),
         )
     _raise_on(lib, rc, "flash_dbias")
+    sanitize.after_launch("flash_dbias", q.device)
     with _launch_lock:
         DBIAS_LAUNCHES += 1
+    if cost.counting():
+        _report(("flash_dbias",), q, k, kv_mask, bias, causal)
     return dbias
 
 
@@ -615,9 +713,14 @@ def flash_bwd(q, k, v, kv_mask, o, lse, do, *, scale: float | None = None,
     rate = _check_rate(dropout_rate)
     if not _on_cuda("flash_bwd", q.device):
         _check_shapes(q, k, v, kv_mask, "flash_bwd", bias, causal)
-        dq, dk, dv, dbias = attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale, rate,
-                                                _plain_bits(q, k, rate, seed, debug_bits), bias,
-                                                causal)
+        with cost.plain():
+            dq, dk, dv, dbias = attention_bwd_plain(q, k, v, kv_mask, o, lse, do, scale, rate,
+                                                    _plain_bits(q, k, rate, seed, debug_bits),
+                                                    bias, causal)
+        if cost.counting():
+            _report(("flash_dq", "flash_dkv")
+                    + (("flash_dbias",) if bias is not None and with_dbias else ()),
+                    q, k, kv_mask, bias, causal)
         return dq, dk, dv, dbias if with_dbias else None
     _refuse_debug_bits(debug_bits, "flash_bwd")
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)

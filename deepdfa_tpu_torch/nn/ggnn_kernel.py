@@ -51,6 +51,13 @@ from one to the other. `launch_counts()` names every counter: kernel
 with the chain), `GRU_BWD_LAUNCHES`, `DMSG_LAUNCHES`, and
 `FUSED_FALLBACKS`, the fused unrolls `resolve_unroll` refused.
 
+The work formulas (`step_work`, `policy_step_work`, `fused_work`,
+`mxu_work`, `gru_bwd_work`, `dmsg_work`) give each kernel's operations
+and bytes from its shapes and live edges. Under an open count
+(obs/cost.py) every wrapper reports them at each launch, and on the CPU
+runs its plain version where the count cannot see its aten ops; the
+card's bounds (`chip_smoke.py`) are computed from the same formulas.
+
 The fold forward aggregates sum(coef * row) and sum(w) per node first
 and applies the policy's Wm_t, bm_t once per node; B4 likewise sums
 w * da_dst over each node's src run and applies Wm_t^T once per node,
@@ -73,7 +80,9 @@ import threading
 import torch
 from torch.autograd.function import once_differentiable
 
+from deepdfa_tpu_torch.core import sanitize
 from deepdfa_tpu_torch.nn import cuda_build
+from deepdfa_tpu_torch.obs import cost
 
 logger = logging.getLogger(__name__)
 
@@ -277,6 +286,111 @@ def prepare_edges(
         srcp=src[perm].contiguous(), dstp=dst[perm].contiguous(),
         wp=w2[:, perm].contiguous(), srcptr=_row_pointer(key[perm], n),
     )
+
+
+# ---------------------------------------------------------------------------
+# work formulas: (operations, bytes) of each kernel's call, for the card's
+# bounds and the counted cost (obs/cost.py)
+
+_ITEMSIZE = {"fp32": 4, "bf16": 2, "int8": 1}
+
+
+def step_work(n: int, e_live: int, d: int, t: int, with_aggregate: bool) -> tuple[int, int]:
+    """(operations, bytes) of one fp32 fold step (kernel 1). Operations:
+    2*d per live edge (the run sums), 2*N*d^2*T (the per-type transform),
+    12*N*d^2 (the two GRU products); the gate arithmetic (~30 per node
+    and column, under 2%) is not counted. Bytes: h read and h' (and a)
+    written once, the live edges' src and weights, the row pointer, the
+    weights."""
+    flops = 2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d
+    weights = t * d * d + t * d + 2 * (3 * d * d + 3 * d)
+    nbytes = 4 * (
+        n * d * (3 if with_aggregate else 2) + e_live * (1 + t) + (n + 1) + weights
+    )
+    return flops, nbytes
+
+
+def policy_step_work(n: int, e_live: int, d: int, t: int, accum: str) -> tuple[int, int]:
+    """`step_work` without the aggregate, with Wm read in the policy's
+    type (int8 adds its [T, d] scales); the per-row quantization (~4
+    operations an element) is not counted. The message-side table is an
+    intermediate and moves no counted bytes."""
+    flops = 2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d
+    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d) + (t * d if accum == "int8" else 0))
+    nbytes = (4 * (2 * n * d + e_live * (1 + t) + (n + 1)) + weights
+              + _ITEMSIZE[accum] * t * d * d)
+    return flops, nbytes
+
+
+def fused_work(n: int, e_live: int, d: int, t: int, accum: str, n_steps: int,
+               chain: bool) -> tuple[int, int]:
+    """(operations, bytes) of kernel 2: n_steps steps' operations
+    (`step_work`'s count); bytes: feat read and h_out written once, the
+    chain written once when asked for, the edges and weights once."""
+    flops = n_steps * (2 * e_live * d + 2 * n * d * d * t + 12 * n * d * d)
+    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d)) + _ITEMSIZE[accum] * t * d * d
+    nbytes = (4 * ((2 + (n_steps if chain else 0)) * n * d + e_live * (1 + t) + (n + 1))
+              + weights)
+    return flops, nbytes
+
+
+def mxu_work(n: int, e_live: int, d: int, t: int, accum: str, n_steps: int = 1,
+             chain: bool = False) -> tuple[int, int, int]:
+    """(message operations, fp32 operations, bytes) of n_steps mxu steps
+    (kernel 1, or kernel 2 with `n_steps` and `chain`): the per-edge
+    messages' 2*E_live*d^2*T products, in the policy's type, and the
+    GRU's 12*N*d^2 plus the sums' 2*E_live*d in fp32; bytes as
+    `policy_step_work`'s, with the chain written once when asked for."""
+    weights = 4 * (t * d + 2 * (3 * d * d + 3 * d) + (t * d if accum == "int8" else 0))
+    nbytes = (4 * ((2 + (n_steps if chain else 0)) * n * d + e_live * (1 + t) + (n + 1))
+              + weights + _ITEMSIZE[accum] * t * d * d)
+    return (n_steps * 2 * e_live * d * d * t,
+            n_steps * (12 * n * d * d + 2 * e_live * d), nbytes)
+
+
+def gru_bwd_work(n: int, d: int, weights: bool = True) -> tuple[int, int]:
+    """(operations, bytes) of B3: 36*N*d^2 operations (the two recomputed
+    gate products, da, dh_gru and the two weight products, 6*N*d^2 each;
+    24*N*d^2 without the weight pass), the gate chain not counted; bytes:
+    h, a, g read and da, dh written once, the weights read and (with the
+    weight pass) their cotangents written once."""
+    if weights:
+        return 36 * n * d * d, 4 * (5 * n * d + 2 * (2 * 3 * d * d + 2 * 3 * d))
+    return 24 * n * d * d, 4 * (5 * n * d + 2 * (3 * d * d + 3 * d))
+
+
+def dmsg_work(n: int, e_live: int, d: int, t: int, add: bool = False) -> tuple[int, int]:
+    """(operations, bytes) of B4: 2*N*d^2*T (each node's sums times
+    Wm_t^T) plus 2*d per live edge (each live edge has one type); bytes:
+    da read and dh_msg written once (with `add`, the dh it is added to
+    read too), the live edges' dst and T weights, the src row pointer,
+    Wm."""
+    flops = 2 * n * d * d * t + 2 * e_live * d
+    nbytes = 4 * ((3 if add else 2) * n * d + e_live * (1 + t) + (n + 1) + t * d * d)
+    return flops, nbytes
+
+
+def _report_step(kernel: str, n: int, d: int, t: int, edges: "EdgeIndex", accum: str,
+                 scatter: str, with_aggregate: bool, n_steps: int = 0,
+                 chain: bool = False) -> None:
+    """Report one launch of kernel 1 (`n_steps` 0) or kernel 2 to the
+    open counts; reads the live edge count from the device."""
+    e_live = int(edges.rowptr[-1])
+    aggregate = 4 * n * d if with_aggregate else 0
+    if scatter == "mxu":
+        msg, other, nbytes = mxu_work(n, e_live, d, t, accum, max(1, n_steps), chain)
+        by = {"fp32": other}
+        by[accum] = by.get(accum, 0) + msg
+        cost.report(kernel, by, nbytes + aggregate)
+        return
+    if n_steps:
+        flops, nbytes = fused_work(n, e_live, d, t, accum, n_steps, chain)
+    elif accum == "fp32":
+        flops, nbytes = step_work(n, e_live, d, t, with_aggregate)
+        aggregate = 0
+    else:
+        flops, nbytes = policy_step_work(n, e_live, d, t, accum)
+    cost.report(kernel, flops, nbytes + aggregate)
 
 
 def gru_cell(x, h, wih, whh, bih, bhh):
@@ -724,9 +838,16 @@ def ggnn_step(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh,
     check_accum(accum, scatter)
     block_e = _mxu_block(scatter, edges.src.shape[0], block_e)
     if not _on_cuda("ggnn_step", h.device):
-        h_new, a = ggnn_step_plain(h, edges, wm, bm, wih, whh, bih, bhh, accum, scatter, block_e)
+        with cost.plain():
+            h_new, a = ggnn_step_plain(h, edges, wm, bm, wih, whh, bih, bhh, accum, scatter,
+                                       block_e)
+        if cost.counting():
+            _report_step("ggnn_step", *h.shape, wm.shape[0], edges, accum, scatter,
+                         with_aggregate)
         return h_new, (a if with_aggregate else None)
     n, e, d, t = _check_step_operands("ggnn_step", h, edges, wm, bm, wih, whh, bih, bhh)
+    if sanitize.checks_on():
+        sanitize.check_edges("ggnn_step", edges, n)
     lib = _library("ggnn_step")
     wm_k, ws = _kernel_weights("ggnn_step", wm, wih, whh, accum, scatter)
     table = tscale = colmax = None
@@ -748,9 +869,12 @@ def ggnn_step(h, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh,
             n, e, d, t, block_e, _stream(h.device),
         )
     _raise_on(rc, "ggnn_step", lib, "ggnn_cuda_error_string")
+    sanitize.after_launch("ggnn_step", h.device)
     _count(_STEP_COUNTER[scatter, accum])
     if with_aggregate:
         _count("AGGREGATE_LAUNCHES")
+    if cost.counting():
+        _report_step("ggnn_step", n, d, t, edges, accum, scatter, with_aggregate)
     return h_out, a_out
 
 
@@ -770,10 +894,17 @@ def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: i
         raise ValueError(f"ggnn_fused runs n_steps >= 1, got {n_steps}")
     block_e = _mxu_block(scatter, edges.src.shape[0], block_e)
     if not _on_cuda("ggnn_fused", feat.device):
-        return ggnn_fused_plain(feat, edges, wm, bm, wih, whh, bih, bhh, n_steps=n_steps,
-                                accum=accum, with_chain=with_chain, scatter=scatter,
-                                block_e=block_e)
+        with cost.plain():
+            out = ggnn_fused_plain(feat, edges, wm, bm, wih, whh, bih, bhh, n_steps=n_steps,
+                                   accum=accum, with_chain=with_chain, scatter=scatter,
+                                   block_e=block_e)
+        if cost.counting():
+            _report_step("ggnn_fused", *feat.shape, wm.shape[0], edges, accum, scatter, False,
+                         n_steps, with_chain)
+        return out
     n, e, d, t = _check_step_operands("ggnn_fused", feat, edges, wm, bm, wih, whh, bih, bhh)
+    if sanitize.checks_on():
+        sanitize.check_edges("ggnn_fused", edges, n)
     lib = _library("ggnn_step")
     wm_k, ws = _kernel_weights("ggnn_fused", wm, wih, whh, accum, scatter)
     dev = feat.device
@@ -800,9 +931,12 @@ def ggnn_fused(feat, edges: EdgeIndex, wm, bm, wih, whh, bih, bhh, *, n_steps: i
             ctypes.addressof(used), _stream(dev),
         )
     _raise_on(rc, "ggnn_fused", lib, "ggnn_cuda_error_string")
+    sanitize.after_launch("ggnn_fused", dev)
     _count(_FUSED_COUNTER[scatter])
     if with_chain:
         _count("FUSED_CHAIN_LAUNCHES")
+    if cost.counting():
+        _report_step("ggnn_fused", n, d, t, edges, accum, scatter, False, n_steps, with_chain)
     return h_out, chain
 
 
@@ -833,7 +967,11 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g, weights: bool = True):
     aligned."""
     global GRU_BWD_LAUNCHES
     if not _on_cuda("gru_bwd", h.device):
-        return gru_bwd_plain(h, a, wih, whh, bih, bhh, g, weights)
+        with cost.plain():
+            out = gru_bwd_plain(h, a, wih, whh, bih, bhh, g, weights)
+        if cost.counting():
+            cost.report("gru_bwd", *gru_bwd_work(*h.shape, weights))
+        return out
     n, d = h.shape
     f32 = torch.float32
     _check_args("gru_bwd", h.device, {
@@ -860,8 +998,11 @@ def gru_bwd(h, a, wih, whh, bih, bhh, g, weights: bool = True):
             _stream(h.device),
         )
     _raise_on(rc, "gru_bwd", lib, "ggnn_bwd_error_string")
+    sanitize.after_launch("gru_bwd", h.device)
     with _launch_lock:
         GRU_BWD_LAUNCHES += 1
+    if cost.counting():
+        cost.report("gru_bwd", *gru_bwd_work(n, d, weights))
     if not weights:
         return da, dh, None, None, None, None
     w = d * 3 * d
@@ -882,7 +1023,12 @@ def dmsg(da, edges: EdgeIndex, wm, dh=None):
     if edges.srcptr is None:
         raise ValueError("dmsg needs prepare_edges(..., transpose=True)")
     if not _on_cuda("dmsg", da.device):
-        return dmsg_plain(da, edges, wm, dh)
+        with cost.plain():
+            out = dmsg_plain(da, edges, wm, dh)
+        if cost.counting():
+            cost.report("dmsg", *dmsg_work(da.shape[0], int(edges.srcptr[-1]), da.shape[1],
+                                           wm.shape[0], dh is not None))
+        return out
     n, d = da.shape
     t = wm.shape[0]
     e = edges.dstp.shape[0]
@@ -896,6 +1042,9 @@ def dmsg(da, edges: EdgeIndex, wm, dh=None):
     _check_shape("dmsg", n, e, d, t)
     if wm.data_ptr() % 16:
         raise ValueError("dmsg: wm must start 16-byte aligned")
+    if sanitize.checks_on():
+        live = sanitize.check_pointer("dmsg", "srcptr", edges.srcptr, e)
+        sanitize.check_index("dmsg", "dstp", edges.dstp, n, live)
     lib = _library("ggnn_bwd")
     out = torch.empty_like(da) if dh is None else dh
     with torch.cuda.device(da.device):
@@ -905,8 +1054,11 @@ def dmsg(da, edges: EdgeIndex, wm, dh=None):
             _stream(da.device),
         )
     _raise_on(rc, "dmsg", lib, "ggnn_bwd_error_string")
+    sanitize.after_launch("dmsg", da.device)
     with _launch_lock:
         DMSG_LAUNCHES += 1
+    if cost.counting():
+        cost.report("dmsg", *dmsg_work(n, int(edges.srcptr[-1]), d, t, dh is not None))
     return out
 
 

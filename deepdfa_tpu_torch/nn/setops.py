@@ -18,7 +18,9 @@ that sum over a CSR layout (`csr_layout`): on a CUDA tensor it launches
 `csrc/setops.cu` (counted in `LAUNCHES`), on a CPU tensor it runs
 `gather_sum_plain`, the same additions in the same order. `GatherSum`
 makes it differentiable with the transposed layout, which is the same
-kernel over the other sort of the edges.
+kernel over the other sort of the edges. `gather_sum_work` gives its
+operations and bytes, which the wrapper reports to an open count
+(obs/cost.py) at each call and the card's bound is computed from.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import threading
 
 import torch
 
+from deepdfa_tpu_torch.core import sanitize
 from deepdfa_tpu_torch.nn import cuda_build
+from deepdfa_tpu_torch.obs import cost
 
 #: gather_sum kernel launches since the process started (or a reset)
 LAUNCHES = 0
@@ -95,6 +99,17 @@ def gather_sum_plain(y: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor) -> t
     return out
 
 
+def gather_sum_work(n: int, e_live: int, b: int) -> tuple[int, int]:
+    """(operations, bytes) of one fixed-order segment sum: e_live * b
+    fp32 additions; y and the output [n, b] f32, idx [e_live] and ptr
+    [n + 1] int32, each moved once."""
+    return e_live * b, 4 * (2 * n * b + e_live + n + 1)
+
+
+def _report(y: torch.Tensor, ptr: torch.Tensor) -> None:
+    cost.report("gather_sum", *gather_sum_work(ptr.shape[0] - 1, int(ptr[-1]), y.shape[1]))
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     with _launch_lock:
@@ -115,7 +130,11 @@ def gather_sum(y: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor) -> torch.T
     kernel on the current stream or raise."""
     global LAUNCHES
     if y.device.type == "cpu":
-        return gather_sum_plain(y, idx, ptr)
+        with cost.plain():
+            out = gather_sum_plain(y, idx, ptr)
+        if cost.counting():
+            _report(y, ptr)
+        return out
     if y.device.type != "cuda":
         raise ValueError(f"gather_sum runs on cuda or cpu, not {y.device}")
     if y.dim() != 2 or y.dtype != torch.float32 or not y.is_contiguous():
@@ -125,6 +144,9 @@ def gather_sum(y: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor) -> torch.T
         if x.device != y.device or x.dtype != torch.int32 or not x.is_contiguous():
             raise TypeError(f"gather_sum: {name} must be contiguous int32 on {y.device}")
     n, b = ptr.shape[0] - 1, y.shape[1]
+    if sanitize.checks_on():
+        live = sanitize.check_pointer("gather_sum", "ptr", ptr, idx.shape[0])
+        sanitize.check_index("gather_sum", "idx", idx, y.shape[0], live)
     out = torch.empty((n, b), dtype=torch.float32, device=y.device)
     lib = _library()
     with torch.cuda.device(y.device):
@@ -134,8 +156,11 @@ def gather_sum(y: torch.Tensor, idx: torch.Tensor, ptr: torch.Tensor) -> torch.T
     if rc != 0:
         raise RuntimeError(f"gather_sum kernel launch failed: "
                            f"{lib.setops_error_string(rc).decode()} (cudaError {rc})")
+    sanitize.after_launch("gather_sum", y.device)
     with _launch_lock:
         LAUNCHES += 1
+    if cost.counting():
+        _report(y, ptr)
     return out
 
 

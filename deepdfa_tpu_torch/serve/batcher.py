@@ -41,6 +41,12 @@ bucket's full row count).
 A request's score does not depend on what it was batched with beyond
 fp32 reassociation: padding slots are masked out of every reduction and
 per-graph compute is independent.
+
+With the efficiency ledger on (obs/ledger.py, `obs.ledger`) each
+executor books its warm-up rungs as sites (`ledger_tag`, "G{size}" or
+"T{T}xR{rows}": the warm-up call's counted cost, seconds and peak
+memory) and each batch as an execution of its rung, timed by CUDA
+events around the model call and read at `fetch`, after its sync.
 """
 
 from __future__ import annotations
@@ -60,6 +66,8 @@ import torch
 from deepdfa_tpu_torch.core.device import resolve_device
 from deepdfa_tpu_torch.data.text import _fit_width, collate, rows_for_bucket, token_lengths
 from deepdfa_tpu_torch.graphs.batch import NUM_SUBKEY_FEATS, pack
+from deepdfa_tpu_torch.obs import cost as obs_cost, ledger as obs_ledger
+from deepdfa_tpu_torch.obs.xprof import EventWindow
 
 logger = logging.getLogger(__name__)
 
@@ -144,6 +152,34 @@ class DeviceResult:
             self._event.synchronize()
         self._keep = ()
         return self._host
+
+
+def _ledger_warm(tag: str, sig: str, device: torch.device, run) -> float:
+    """Run one warm-up call `run()`; with the ledger on, counted and
+    booked as the site's warm-up. Its wall seconds."""
+    if not obs_ledger.enabled():
+        t0 = time.perf_counter()
+        run()
+        return time.perf_counter() - t0
+    with obs_ledger.PeakMemory(device.type == "cuda") as mem:
+        t0 = time.perf_counter()
+        _, counted = obs_cost.count_cost(run)
+        dt = time.perf_counter() - t0
+    obs_ledger.record_compile(tag, sig, counted, dt, live_bytes=mem.live_bytes)
+    return dt
+
+
+def _ledger_window(device: torch.device) -> EventWindow | None:
+    """A started device window around a batch's model call when the
+    ledger is on."""
+    return EventWindow(device.type == "cuda").start() if obs_ledger.enabled() else None
+
+
+def _ledger_observe(tag: str, handle: DeviceResult) -> None:
+    """After a batch's sync: its window's device seconds to the ledger."""
+    window = getattr(handle, "ledger_window", None)
+    if window is not None:
+        obs_ledger.observe_execution(tag, handle.ledger_sig, window.seconds())
 
 
 def host_batch(batch, device: torch.device):
@@ -267,6 +303,9 @@ class GgnnExecutor:
         self.feat_width = NUM_SUBKEY_FEATS if feat_width is None else int(feat_width)
         self._warmed: set[int] = set()
 
+    #: the efficiency ledger's site tag of this executor's rungs
+    ledger_tag = "serve_score"
+
     @property
     def model(self) -> torch.nn.Module:
         """The model the next batch runs."""
@@ -318,11 +357,13 @@ class GgnnExecutor:
         for size in self.sizes:
             if size in self._warmed:
                 continue
-            t0 = time.perf_counter()
-            packed = (size, host_batch(self._pack(size, []), self.device))
-            self.fetch(self.dispatch("graph", packed), size)
-            report[f"G{size}"] = time.perf_counter() - t0
+            report[f"G{size}"] = _ledger_warm(
+                self.ledger_tag, f"G{size}", self.device,
+                lambda: self.fetch(self.dispatch(
+                    "graph", (size, host_batch(self._pack(size, []), self.device)), warm=True),
+                    size))
             self._warmed.add(size)
+        obs_ledger.record_memory("warmup")
         return report
 
     # -- execution (pack -> dispatch -> fetch) --------------------------------
@@ -339,18 +380,28 @@ class GgnnExecutor:
         size = self._size_for(len(chunk))
         return f"G{size}", (size, host_batch(self._pack(size, chunk), self.device))
 
-    def dispatch(self, key: Hashable, packed) -> DeviceResult:
+    def dispatch(self, key: Hashable, packed, warm: bool = False) -> DeviceResult:
         """Copy the batch to the device and launch the model; returns the
-        probabilities' `DeviceResult` without waiting for the device."""
-        _, batch = packed
+        probabilities' `DeviceResult` without waiting for the device.
+        With the ledger on (and not `warm`), the model call is timed."""
+        size, batch = packed
         model = self._model()
         b = batch.to(self.device, non_blocking=True)
+        window = None if warm else _ledger_window(self.device)
         with torch.inference_mode():
-            return DeviceResult((torch.sigmoid(model(b)),), keep=(batch, b, model))
+            probs = torch.sigmoid(model(b))
+        if window is not None:
+            window.stop()
+        result = DeviceResult((probs,), keep=(batch, b, model))
+        if window is not None:
+            result.ledger_window, result.ledger_sig = window, f"G{size}"
+        return result
 
     def fetch(self, handle: DeviceResult, n: int) -> np.ndarray:
         """The sync point: [n] probabilities on the host."""
-        return handle.wait()[0][:n].numpy()
+        out = handle.wait()[0][:n].numpy()
+        _ledger_observe(self.ledger_tag, handle)
+        return out
 
 
 class CombinedExecutor:
@@ -405,6 +456,9 @@ class CombinedExecutor:
     def model(self) -> torch.nn.Module:
         """The model the next batch runs."""
         return self._model()
+
+    #: the efficiency ledger's site tag of this executor's buckets
+    ledger_tag = "serve_combined"
 
     def ledger_signature(self, key: Hashable, n: int) -> str:
         T = int(key)
@@ -478,10 +532,13 @@ class CombinedExecutor:
         for T in self.buckets:
             if T in self._warmed:
                 continue
-            t0 = time.perf_counter()
-            self.fetch(self.dispatch(T, self.pack_chunk(T, [])[1]), self._rows[T])
-            report[self.ledger_signature(T, 0)] = time.perf_counter() - t0
+            sig = self.ledger_signature(T, 0)
+            report[sig] = _ledger_warm(
+                self.ledger_tag, sig, self.device,
+                lambda: self.fetch(self.dispatch(T, self.pack_chunk(T, [])[1], warm=True),
+                                   self._rows[T]))
             self._warmed.add(T)
+        obs_ledger.record_memory("warmup")
         return report
 
     # -- execution (pack -> dispatch -> fetch) --------------------------------
@@ -493,20 +550,30 @@ class CombinedExecutor:
         return self.ledger_signature(key, len(chunk)), (
             T, host_batch(self._collate(T, chunk), self.device))
 
-    def dispatch(self, key: Hashable, packed) -> DeviceResult:
+    def dispatch(self, key: Hashable, packed, warm: bool = False) -> DeviceResult:
         """Copy the batch to the device and launch the model; returns
         P(class 1) per row as a `DeviceResult` without waiting for the
-        device."""
-        _, batch = packed
+        device. With the ledger on (and not `warm`), the model call is
+        timed."""
+        T, batch = packed
         b = batch.to(self.device, non_blocking=True)
         model = self._model()
+        window = None if warm else _ledger_window(self.device)
         with torch.inference_mode():
             logits = model(b.input_ids, b.graphs, b.has_graph)
-            return DeviceResult((torch.softmax(logits, dim=-1)[:, 1],), keep=(batch, b, model))
+            probs = torch.softmax(logits, dim=-1)[:, 1]
+        if window is not None:
+            window.stop()
+        result = DeviceResult((probs,), keep=(batch, b, model))
+        if window is not None:
+            result.ledger_window, result.ledger_sig = window, self.ledger_signature(T, 0)
+        return result
 
     def fetch(self, handle: DeviceResult, n: int) -> np.ndarray:
         """The sync point: [n] probabilities on the host."""
-        return handle.wait()[0][:n].numpy()
+        out = handle.wait()[0][:n].numpy()
+        _ledger_observe(self.ledger_tag, handle)
+        return out
 
 
 class DynamicBatcher:

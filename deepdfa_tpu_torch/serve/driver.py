@@ -292,7 +292,10 @@ def run_score(
     mode the summary's `cascade` holds the cascade's counters and the
     rows each stage decided; an `@int8` entry adds `quant` (and a quantized
     stage 2 the cascade's `stage2_quant`): the drift, its bound and the
-    bytes fraction."""
+    bytes fraction. With the efficiency ledger on (`obs.ledger`, inside
+    an obs session) the summary carries its snapshot (a site a warmed
+    rung) and `ledger_mfu`."""
+    from deepdfa_tpu_torch.obs import ledger as obs_ledger
     from deepdfa_tpu_torch.serve.registry import ModelRegistry
     from deepdfa_tpu_torch.serve.server import ScoringService, score_texts, write_serve_log
 
@@ -345,6 +348,11 @@ def run_score(
             if stage2.quant_mode:
                 info = stage2.info()
                 summary["cascade"]["stage2_quant"] = {k: info[k] for k in QUANT_KEYS}
+        led = obs_ledger.get()
+        if led is not None:
+            # one site a warmed rung, its executions, MFU against the card
+            summary["ledger"] = led.snapshot()
+            summary.update(led.mfu_record())
         write_serve_log(run_dir, [{**summary, "serve": service.stats()}])
         return summary
     finally:

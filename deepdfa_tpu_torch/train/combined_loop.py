@@ -39,16 +39,27 @@ the reference's `is_t5` switch picks `defect_forward` (`:123-128,
   (no update), outside every epoch's time: the counterpart of the
   reference's ahead-of-time `warmup` compile.
 
+The runtime hooks, as `train/loop.py:GraphTrainer.fit` runs them (the
+reference's `fit`, `:687`): with a `ResilientRunner` each step is
+`train_step_guarded` (the on-device divergence guard), with the
+runner's lagged ok read, step checkpoints, resume, rollback and
+watchdog heartbeats; the obs instruments book the first step of each
+batch signature "T{T}xR{rows}xG{graphs}" as a ledger site (counted in
+the activations' type) and time the rest with CUDA events; the
+sanitizers run the fit under core/sanitize.py's checks. A batch the
+fault injector poisoned (`testing/faults.py:PoisonedTextBatch`: the
+text batches have no float input to poison) has its loss multiplied by
+NaN on the device.
+
 Not in the port yet, and refused when configured: a mesh beyond one
 card (an `ep` mesh among them: the reference's refusals of one without
 MoE, or with an expert count it does not divide, come first, as
-ValueError), `train.resilience.enabled` (the divergence guard, step
-checkpoints, resume) and the `obs` instruments. `train.step_cache_entries`
-is read past.
+ValueError). `train.step_cache_entries` is read past.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Callable, Iterable
@@ -90,7 +101,7 @@ class CombinedTrainer:
             raise ValueError("an ep>1 mesh needs an MoE block to shard (set model moe_experts)")
         if self.moe and model_cfg.moe_experts % ep:
             raise ValueError(f"{model_cfg.moe_experts} experts not divisible by ep={ep}")
-        refuse_unported_training(cfg)
+        refuse_unported_training(cfg, runtime_hooks=True)
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.total_steps = total_steps
@@ -172,7 +183,10 @@ class CombinedTrainer:
         loss_sum, count = masked_softmax_cross_entropy(logits, batch.labels, batch.row_mask)
         if self.moe:
             loss_sum = loss_sum + self.model_cfg.moe_aux_weight * aux * count
-        return loss_sum / count.clamp(min=1.0)
+        loss = loss_sum / count.clamp(min=1.0)
+        if getattr(batch, "poisoned", False):
+            loss = loss * float("nan")
+        return loss
 
     def train_step(self, state: TrainState, batch: TextBatch, seed: int | None) -> torch.Tensor:
         """One update on a batch already on the device; the loss,
@@ -182,6 +196,23 @@ class CombinedTrainer:
         state.apply_gradients()
         self._stats(batch)["train_steps"] += 1
         return loss.detach()
+
+    def train_step_guarded(self, state: TrainState, batch: TextBatch, seed: int | None,
+                           lr_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+        """`train_step` under the divergence guard: (loss, ok), both left
+        on the device; a non-finite loss or gradient leaves the state as
+        it was (TrainState.apply_gradients_guarded)."""
+        loss = self.forward_loss(state, batch, seed)
+        loss.backward()
+        ok = state.apply_gradients_guarded(loss, lr_scale)
+        self._stats(batch)["train_steps"] += 1
+        return loss.detach(), ok
+
+    def aten_precision(self) -> str:
+        """The type the aten products of a step run in (the ledger's MFU
+        ceiling for them): the encoder's activations."""
+        dtype = str(getattr(self.model_cfg.encoder, "dtype", "float32"))
+        return "bf16" if "bfloat16" in dtype else "fp32"
 
     @torch.inference_mode()
     def eval_step(self, state: TrainState, batch: TextBatch):
@@ -247,75 +278,139 @@ class CombinedTrainer:
         log_fn: Callable[[dict], None] | None = None,
         seed: int = 0,
         source_stage: str = "pack",
+        resilience=None,
     ) -> TrainState:
         """Epochs over `train_batches(epoch)` (host TextBatches); step s
         drops with `fold_seed(seed, s)`."""
+        from deepdfa_tpu_torch import obs
+        from deepdfa_tpu_torch.core import sanitize
+        from deepdfa_tpu_torch.train.resilience import ResumeCursor, finite_mean, skip_first
+
         tcfg = self.cfg.train
         max_epochs = max_epochs if max_epochs is not None else tcfg.max_epochs
+        inst = obs.instruments(self.cfg, self.device)
+        res = resilience
+        guard = res is not None and res.guard_active
+        start_epoch = skip_batches = 0
+        cursor = res.maybe_resume(state) if res is not None else None
+        if cursor is not None:
+            start_epoch, skip_batches = cursor.epoch, cursor.batch_index
         warm = self.warmup(state)
         if warm and log_fn is not None:
             log_fn({"warmup_signatures": len(warm),
                     "warmup_seconds": round(sum(warm.values()), 3)})
         placer = DevicePlacer(self.device)
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            losses = []
-            stats = PipelineStats()
+        precision = self.aten_precision()
+        with contextlib.ExitStack() as hooks:
+            if res is not None:
+                hooks.enter_context(res)
+            hooks.enter_context(sanitize.nan_checks(state.model, tcfg.debug_nans))
+            hooks.enter_context(sanitize.launch_checks(tcfg.enable_checks))
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.perf_counter()
+                losses = []
+                stats = PipelineStats()
+                if res is not None:
+                    res.attach_stats(stats)
 
-            def place(batch: TextBatch):
-                # token accounting on the host arrays, before the copy
-                stats.add_tokens(*batch_token_counts(batch.input_ids, batch.row_mask,
-                                                     self.pad_id))
-                return placer(batch)
+                def place(batch: TextBatch):
+                    # token accounting on the host arrays, before the copy
+                    stats.add_tokens(*batch_token_counts(batch.input_ids, batch.row_mask,
+                                                         self.pad_id))
+                    return placer(batch)
 
-            source = train_batches(epoch)
-            stream = prefetch(source, tcfg.prefetch_batches, place,
-                              producers=tcfg.prefetch_producers, stats=stats,
-                              source_stage=getattr(source, "source_stage", source_stage))
-            try:
-                for item in stream:
-                    losses.append(self.train_step(state, placer.receive(item),
-                                                  fold_seed(seed, state.step)))
-                    if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
-                        log_fn({"step": state.step, "loss": float(losses[-1])})
-            finally:
-                stream.close()  # joins the producers on any exit
-            train_loss = (float(np.mean(torch.stack(losses).cpu().numpy()))
-                          if losses else float("nan"))
-            epoch_seconds = time.perf_counter() - t0
-            real, padded, rows = stats.real_tokens, stats.padded_tokens, stats.rows
-            record = {
-                "epoch": epoch,
-                "train_loss": train_loss,
-                "epoch_seconds": epoch_seconds,
-                "host_load_seconds": round(stats.load_seconds, 3),
-                "host_pack_seconds": round(stats.pack_seconds, 3),
-                "host_place_seconds": round(stats.place_seconds, 3),
-                "input_wait_seconds": round(stats.wait_seconds, 3),
-                "input_wait_fraction": round(stats.wait_fraction(epoch_seconds), 4),
-                "train_examples_per_sec": rows / epoch_seconds if epoch_seconds else None,
-                "train_tokens_per_sec": real / epoch_seconds if epoch_seconds else None,
-                "real_tokens": real,
-                "padded_tokens": padded,
-                "padding_waste": round(stats.padding_waste(), 4),
-                "step_signatures": {k: dict(v) for k, v in self.signature_stats.items()},
-            }
-            if val_batches is not None:
-                val_metrics, _ = self.evaluate(state, val_batches())
-                record.update({f"val_{k}": v for k, v in val_metrics.items()})
-            if checkpoints is not None and (
-                any(k.startswith("val_") for k in record)
-                or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
-                or epoch == max_epochs - 1
-            ):
-                checkpoints.save(
-                    f"epoch-{epoch:04d}",
-                    {"model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}},
-                    {k: float(v) for k, v in record.items()
-                     if k != "epoch" and isinstance(v, (int, float))},
-                    step=state.step,
-                )
-            logger.info("epoch %d: %s", epoch, record)
-            if log_fn is not None:
-                log_fn(record)
+                source = train_batches(epoch)
+                stage = getattr(source, "source_stage", source_stage)
+                batch_index = 0
+                if epoch == start_epoch and skip_batches:
+                    source = skip_first(source, skip_batches, heartbeat=lambda: res.heartbeat(
+                        "input", epoch=epoch, step=state.step))
+                    batch_index = skip_batches
+                stream = prefetch(source, tcfg.prefetch_batches, place,
+                                  producers=tcfg.prefetch_producers, stats=stats,
+                                  source_stage=stage)
+                try:
+                    it = iter(stream)
+                    while True:
+                        if res is not None:
+                            res.heartbeat("input", epoch=epoch, step=state.step)
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            break
+                        batch = placer.receive(item)
+                        if res is not None:
+                            res.heartbeat("device", epoch=epoch, step=state.step)
+                        step_seed = fold_seed(seed, state.step)
+                        ok = None
+                        if guard:
+                            loss, ok = inst.run_step(
+                                state.step, "train_step", self.signature(batch),
+                                lambda: self.train_step_guarded(state, batch, step_seed,
+                                                                res.lr_scale()),
+                                precision)
+                        else:
+                            loss = inst.run_step(
+                                state.step, "train_step", self.signature(batch),
+                                lambda: self.train_step(state, batch, step_seed), precision)
+                        losses.append(loss)
+                        batch_index += 1
+                        if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
+                            log_fn({"step": state.step, "loss": float(losses[-1])})
+                        if res is not None:
+                            res.after_step(state, ok, ResumeCursor(epoch, batch_index,
+                                                                   state.step))
+                finally:
+                    stream.close()  # joins the producers on any exit
+                if losses:
+                    values = torch.stack(losses).cpu().numpy()
+                    train_loss = finite_mean(values) if guard else float(np.mean(values))
+                else:
+                    train_loss = float("nan")
+                epoch_seconds = time.perf_counter() - t0
+                real, padded, rows = stats.real_tokens, stats.padded_tokens, stats.rows
+                record = {
+                    "epoch": epoch,
+                    "train_loss": train_loss,
+                    "epoch_seconds": epoch_seconds,
+                    "host_load_seconds": round(stats.load_seconds, 3),
+                    "host_pack_seconds": round(stats.pack_seconds, 3),
+                    "host_place_seconds": round(stats.place_seconds, 3),
+                    "input_wait_seconds": round(stats.wait_seconds, 3),
+                    "input_wait_fraction": round(stats.wait_fraction(epoch_seconds), 4),
+                    "train_examples_per_sec": rows / epoch_seconds if epoch_seconds else None,
+                    "train_tokens_per_sec": real / epoch_seconds if epoch_seconds else None,
+                    "real_tokens": real,
+                    "padded_tokens": padded,
+                    "padding_waste": round(stats.padding_waste(), 4),
+                    "step_signatures": {k: dict(v) for k, v in self.signature_stats.items()},
+                }
+                if res is not None:
+                    record.update(res.record())
+                inst.observe_pipeline(stats)
+                inst.finish_epoch(record)
+                if val_batches is not None:
+                    if res is not None:
+                        res.heartbeat("eval", epoch=epoch)
+                    val_metrics, _ = self.evaluate(state, val_batches())
+                    record.update({f"val_{k}": v for k, v in val_metrics.items()})
+                if checkpoints is not None and (
+                    any(k.startswith("val_") for k in record)
+                    or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
+                    or epoch == max_epochs - 1
+                ):
+                    if res is not None:
+                        res.heartbeat("checkpoint", epoch=epoch)
+                    checkpoints.save(
+                        f"epoch-{epoch:04d}",
+                        {"model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}},
+                        {k: float(v) for k, v in record.items()
+                         if k != "epoch" and isinstance(v, (int, float))},
+                        step=state.step,
+                    )
+                logger.info("epoch %d: %s", epoch, record)
+                if log_fn is not None:
+                    log_fn(record)
+            if res is not None:
+                res.finish(state, ResumeCursor(max_epochs, 0, state.step))
         return state

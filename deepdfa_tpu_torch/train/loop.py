@@ -16,14 +16,25 @@ reference's `deepdfa_tpu/train/loop.py:GraphTrainer`).
   `prefetch_batches=0` runs), evaluates every `eval_every_epochs`,
   checkpoints on the reference's cadence and hands each record (with
   the pipeline's load, pack, place and wait seconds) to `log_fn`.
+- The runtime hooks (the reference's `fit`, `:284-499`): with a
+  `ResilientRunner` (`train.resilience.enabled`) each step is
+  `train_step_guarded` (the on-device divergence guard,
+  train/state.py), the runner reads its ok flag lagged, checkpoints
+  every `step_checkpoint_every` steps, resumes (fast-forwarding the
+  stream) and rolls back, and a heartbeat feeds its watchdog; the obs
+  instruments (`obs.instruments`) wrap each step in a trace span, book
+  the first step of each batch signature as a ledger site and time the
+  rest with CUDA events; `train.debug_nans` and `train.enable_checks`
+  run the fit under core/sanitize.py's checks. With all of them off the
+  loop is the plain one.
 
 Not in the port yet, and refused when configured: data parallelism or
-any mesh beyond one card, `train.resilience.enabled` (the guarded step,
-step checkpoints, resume) and the obs instruments.
+any mesh beyond one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -79,7 +90,7 @@ class GraphTrainer:
         device: str | torch.device | None = None,
     ):
         tcfg = cfg.train
-        refuse_unported_training(cfg)
+        refuse_unported_training(cfg, runtime_hooks=True)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -152,6 +163,22 @@ class GraphTrainer:
         state.apply_gradients()
         return loss.detach()
 
+    def train_step_guarded(self, state: TrainState, batch: GraphBatch,
+                           lr_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+        """`train_step` under the divergence guard: (loss, ok), both left
+        on the device; a non-finite loss or gradient leaves the state as
+        it was (TrainState.apply_gradients_guarded)."""
+        self.model.train()
+        loss = self.forward_loss(state, batch)
+        loss.backward()
+        ok = state.apply_gradients_guarded(loss, lr_scale)
+        return loss.detach(), ok
+
+    def step_signature(self, batch: GraphBatch) -> str:
+        """The ledger's site of a training batch: G{graphs}xN{N}xE{E}."""
+        return (f"G{batch.num_graphs}xN{batch.node_feats.shape[0]}"
+                f"xE{batch.edge_src.shape[-1]}")
+
     @torch.inference_mode()
     def eval_step(self, batch: GraphBatch):
         """(probs, labels, mask, per-example loss) of a device batch."""
@@ -189,61 +216,128 @@ class GraphTrainer:
         max_epochs: int | None = None,
         log_fn: Callable[[dict], None] | None = None,
         source_stage: str = "pack",
+        resilience=None,
     ) -> TrainState:
+        from deepdfa_tpu_torch import obs
+        from deepdfa_tpu_torch.core import sanitize
+        from deepdfa_tpu_torch.train.resilience import ResumeCursor, finite_mean, skip_first
+
         tcfg = self.cfg.train
         max_epochs = max_epochs if max_epochs is not None else tcfg.max_epochs
+        inst = obs.instruments(self.cfg, self.device)
+        res = resilience
+        guard = res is not None and res.guard_active
+        start_epoch = skip_batches = 0
+        cursor = res.maybe_resume(state) if res is not None else None
+        if cursor is not None:
+            start_epoch, skip_batches = cursor.epoch, cursor.batch_index
         placer = DevicePlacer(self.device)
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            losses = []
-            stats = PipelineStats()
-            source = train_batches(epoch)
-            # a source may know which stage its pulls are (cli.BatchStream:
-            # "load" on a warm cache epoch, "pack" on a cold one)
-            stage = getattr(source, "source_stage", source_stage)
-            stream = prefetch(source, tcfg.prefetch_batches, placer,
-                              producers=tcfg.prefetch_producers, stats=stats,
-                              source_stage=stage)
-            try:
-                for item in stream:
-                    losses.append(self.train_step(state, placer.receive(item)))
-                    if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
-                        log_fn({"step": state.step, "loss": float(losses[-1])})
-            finally:
-                stream.close()  # joins the producers on any exit
-            train_loss = (float(np.mean(torch.stack(losses).cpu().numpy()))
-                          if losses else float("nan"))
-            epoch_seconds = time.perf_counter() - t0
-            record = {
-                "epoch": epoch,
-                "train_loss": train_loss,
-                "epoch_seconds": epoch_seconds,
-                # host stage attribution: load/pack = the source, place =
-                # the host-to-device copy, wait = the step starved of input
-                "host_load_seconds": round(stats.load_seconds, 3),
-                "host_pack_seconds": round(stats.pack_seconds, 3),
-                "host_place_seconds": round(stats.place_seconds, 3),
-                "input_wait_seconds": round(stats.wait_seconds, 3),
-                "input_wait_fraction": round(stats.wait_fraction(epoch_seconds), 4),
-            }
-            if val_batches is not None and (
-                (epoch + 1) % tcfg.eval_every_epochs == 0 or epoch == max_epochs - 1
-            ):
-                val_metrics, _ = self.evaluate(val_batches())
-                record.update({f"val_{k}": v for k, v in val_metrics.items()})
-            if checkpoints is not None and (
-                any(k.startswith("val_") for k in record)
-                or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
-                or epoch == max_epochs - 1
-            ):
-                checkpoints.save(
-                    f"epoch-{epoch:04d}",
-                    {"model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()}},
-                    {k: float(v) for k, v in record.items()
-                     if k != "epoch" and isinstance(v, (int, float))},
-                    step=state.step,
-                )
-            logger.info("epoch %d: %s", epoch, record)
-            if log_fn is not None:
-                log_fn(record)
+        with contextlib.ExitStack() as hooks:
+            if res is not None:
+                hooks.enter_context(res)
+            hooks.enter_context(sanitize.nan_checks(self.model, tcfg.debug_nans))
+            hooks.enter_context(sanitize.launch_checks(tcfg.enable_checks))
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.perf_counter()
+                losses = []
+                stats = PipelineStats()
+                if res is not None:
+                    res.attach_stats(stats)
+                source = train_batches(epoch)
+                # a source may know which stage its pulls are (cli.BatchStream:
+                # "load" on a warm cache epoch, "pack" on a cold one)
+                stage = getattr(source, "source_stage", source_stage)
+                batch_index = 0
+                if epoch == start_epoch and skip_batches:
+                    # the resume fast-forward, before the pipeline: the
+                    # stream is a pure function of (epoch, seed, data)
+                    source = skip_first(source, skip_batches, heartbeat=lambda: res.heartbeat(
+                        "input", epoch=epoch, step=state.step))
+                    batch_index = skip_batches
+                stream = prefetch(source, tcfg.prefetch_batches, placer,
+                                  producers=tcfg.prefetch_producers, stats=stats,
+                                  source_stage=stage)
+                try:
+                    it = iter(stream)
+                    while True:
+                        if res is not None:
+                            res.heartbeat("input", epoch=epoch, step=state.step)
+                        try:
+                            item = next(it)
+                        except StopIteration:
+                            break
+                        batch = placer.receive(item)
+                        if res is not None:
+                            res.heartbeat("device", epoch=epoch, step=state.step)
+                        ok = None
+                        if guard:
+                            loss, ok = inst.run_step(
+                                state.step, "train_step", self.step_signature(batch),
+                                lambda: self.train_step_guarded(state, batch, res.lr_scale()))
+                        else:
+                            loss = inst.run_step(state.step, "train_step",
+                                                 self.step_signature(batch),
+                                                 lambda: self.train_step(state, batch))
+                        losses.append(loss)
+                        batch_index += 1
+                        if log_fn is not None and state.step % max(1, tcfg.log_every_steps) == 0:
+                            log_fn({"step": state.step, "loss": float(losses[-1])})
+                        # after the step's own logging: a preemption here
+                        # raises, and the step it finished stays logged
+                        if res is not None:
+                            res.after_step(state, ok, ResumeCursor(epoch, batch_index,
+                                                                   state.step))
+                finally:
+                    stream.close()  # joins the producers on any exit
+                if losses:
+                    values = torch.stack(losses).cpu().numpy()
+                    # guarded runs: a skipped step's poisoned loss stays in the
+                    # per-step log, not in the epoch's mean
+                    train_loss = finite_mean(values) if guard else float(np.mean(values))
+                else:
+                    train_loss = float("nan")
+                epoch_seconds = time.perf_counter() - t0
+                record = {
+                    "epoch": epoch,
+                    "train_loss": train_loss,
+                    "epoch_seconds": epoch_seconds,
+                    # host stage attribution: load/pack = the source, place =
+                    # the host-to-device copy, wait = the step starved of input
+                    "host_load_seconds": round(stats.load_seconds, 3),
+                    "host_pack_seconds": round(stats.pack_seconds, 3),
+                    "host_place_seconds": round(stats.place_seconds, 3),
+                    "input_wait_seconds": round(stats.wait_seconds, 3),
+                    "input_wait_fraction": round(stats.wait_fraction(epoch_seconds), 4),
+                }
+                if res is not None:
+                    record.update(res.record())
+                inst.observe_pipeline(stats)
+                inst.finish_epoch(record)
+                if val_batches is not None and (
+                    (epoch + 1) % tcfg.eval_every_epochs == 0 or epoch == max_epochs - 1
+                ):
+                    if res is not None:
+                        res.heartbeat("eval", epoch=epoch)
+                    val_metrics, _ = self.evaluate(val_batches())
+                    record.update({f"val_{k}": v for k, v in val_metrics.items()})
+                if checkpoints is not None and (
+                    any(k.startswith("val_") for k in record)
+                    or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
+                    or epoch == max_epochs - 1
+                ):
+                    if res is not None:
+                        res.heartbeat("checkpoint", epoch=epoch)
+                    checkpoints.save(
+                        f"epoch-{epoch:04d}",
+                        {"model": {k: v.detach().cpu() for k, v in self.model.state_dict().items()}},
+                        {k: float(v) for k, v in record.items()
+                         if k != "epoch" and isinstance(v, (int, float))},
+                        step=state.step,
+                    )
+                logger.info("epoch %d: %s", epoch, record)
+                if log_fn is not None:
+                    log_fn(record)
+            if res is not None:
+                # drain lagged guard flags + leave a final resume point
+                res.finish(state, ResumeCursor(max_epochs, 0, state.step))
         return state

@@ -499,6 +499,13 @@ def test_cli_runs_what_was_refused(tmp_path, monkeypatch, capsys, case):
 
 @pytest.mark.parametrize("what", ["dp2", "resilience", "obs", "ep"])
 def test_trainer_refuses_what_the_port_does_not_run(what):
+    """A mesh beyond one card is refused. The resilient runtime and the
+    obs instruments run in the combined trainer since the runtime-hooks
+    slice (tests/test_torch_resilience.py, test_torch_obs.py); the
+    generation trainer still refuses them."""
+    from deepdfa_tpu_torch.models import GenConfig, T5Config
+    from deepdfa_tpu_torch.train.gen_loop import GenTrainer
+
     _, tmcfg = _model_cfgs()
     train = {"dp2": {"mesh": {"dp": 2}}, "resilience": {"resilience": {"enabled": True}},
              "ep": {"mesh": {"dp": 1, "ep": 2}}}
@@ -509,6 +516,11 @@ def test_trainer_refuses_what_the_port_does_not_run(what):
         # the MoE adapter runs (tests/test_torch_moe.py); an ep mesh over it
         # is multi-device work
         tmcfg = dataclasses.replace(tmcfg, moe_experts=4)
+    if what in ("resilience", "obs"):
+        CombinedTrainer(tcfg, tmcfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            GenTrainer(tcfg, GenConfig(encoder=T5Config()), device="cpu")
+        return
     with pytest.raises(NotImplementedError):
         CombinedTrainer(tcfg, tmcfg, device="cpu")
 

@@ -1919,3 +1919,139 @@ def test_moe_dispatch_and_output_on_card_match_cpu(card):
     assert torch.allclose(c_card.cpu(), c_cpu, rtol=1e-5, atol=1e-5)
     assert torch.allclose(out_card.cpu(), out_cpu, rtol=1e-5, atol=1e-5)
     assert abs(float(a_card) - float(a_cpu)) <= 1e-5
+
+
+# -- the runtime hooks (the counted cost, the guarded update) ------------------
+
+
+def _flagship_model(card):
+    from deepdfa_tpu_torch.core.config import ModelConfig
+
+    model = DeepDFA.from_config(ModelConfig(hidden_dim=32, n_steps=5), 1002)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model.to(card).eval()
+
+
+def test_counted_flops_equal_on_card_and_cpu(card):
+    """The counted cost of one forward (the kernels' formulas from the
+    wrappers' reports plus FlopCounterMode's aten ops) is the same number
+    on the card, where the kernels launch, and on the CPU, where the
+    plain versions run hidden from the counter; and so is the count of a
+    training step's forward and backward."""
+    from deepdfa_tpu_torch.obs.cost import count_cost
+
+    rng = np.random.default_rng(22)
+    b = pack(_graphs(rng, 16), 16, 1024, 4096)
+    model = _flagship_model(card)
+
+    def fwd(m, batch):
+        with torch.inference_mode():
+            return m(batch)
+
+    _, on_card = count_cost(fwd, model, b.to(card))
+    _, on_cpu = count_cost(fwd, model.cpu(), b.to("cpu"))
+    assert on_card["flops"] == on_cpu["flops"] > 1e9
+    assert on_card["kernels"] == on_cpu["kernels"]
+    assert on_card["kernels"]["ggnn_step"]["launches"] == 5
+
+    def step(m, batch):
+        m.train()
+        out = m(batch).sum()
+        out.backward()
+        return out
+
+    model = _flagship_model(card)
+    _, train_card = count_cost(step, model, b.to(card))
+    _, train_cpu = count_cost(step, model.cpu(), b.to("cpu"))
+    assert train_card["flops"] == train_cpu["flops"]
+    assert {k: v["launches"] for k, v in train_card["kernels"].items()} == {
+        "ggnn_step": 5, "gru_bwd": 5, "dmsg": 5}
+
+
+def _sync_calls(fn, steps):
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for k in range(steps):
+                fn(k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def test_guarded_steps_add_no_synchronizing_call(card):
+    """N guarded training steps, the runner reading each ok flag a step
+    late, make as many synchronizing calls as N unguarded ones (none);
+    an `.item()` counts as one."""
+    from deepdfa_tpu_torch.core.config import ResilienceConfig
+    from deepdfa_tpu_torch.train import GraphTrainer
+    from deepdfa_tpu_torch.train.resilience import ResilientRunner, ResumeCursor
+
+    rng = np.random.default_rng(23)
+    cfg = Config()
+    batches = [pack(_graphs(rng, 16), 16, 1024, 4096).to(card) for _ in range(4)]
+    trainer_g = GraphTrainer(DeepDFA.from_config(cfg.model, 1002), cfg, device=card)
+    state_g = trainer_g.init_state()
+    trainer_u = GraphTrainer(DeepDFA.from_config(cfg.model, 1002), cfg, device=card)
+    state_u = trainer_u.init_state()
+    runner = ResilientRunner(ResilienceConfig(enabled=True), None)
+
+    def guarded(k):
+        _, ok = trainer_g.train_step_guarded(state_g, batches[k % 4], runner.lr_scale())
+        runner.after_step(state_g, ok, ResumeCursor(0, k + 1, state_g.step))
+
+    def plain(k):
+        trainer_u.train_step(state_u, batches[k % 4])
+
+    guarded(0)
+    plain(0)
+    assert _sync_calls(guarded, 8) == _sync_calls(plain, 8) == 0
+    assert _sync_calls(lambda k: float(trainer_u.train_step(state_u, batches[0])), 1) == 1
+    assert runner.skipped_steps == 0
+
+
+def test_guarded_step_skips_on_the_card_without_moving_anything(card):
+    from deepdfa_tpu_torch.train import GraphTrainer
+
+    rng = np.random.default_rng(24)
+    cfg = Config()
+    batch = pack(_graphs(rng, 16), 16, 1024, 4096)
+    trainer = GraphTrainer(DeepDFA.from_config(cfg.model, 1002), cfg, device=card)
+    state = trainer.init_state()
+    _, ok = trainer.train_step_guarded(state, batch.to(card))
+    assert bool(ok)
+    before = state.state_dict()
+    poisoned = batch.to(card)
+    poisoned.graph_label.fill_(float("nan"))
+    loss, ok = trainer.train_step_guarded(state, poisoned)
+    assert not bool(ok) and not torch.isfinite(loss)
+    after = state.state_dict()
+    assert all(torch.equal(before["model"][k], after["model"][k]) for k in before["model"])
+    for i, st in before["optimizer"]["state"].items():
+        assert all(torch.equal(st[k], after["optimizer"]["state"][i][k]) for k in st)
+    assert after["schedule_count"] == 1 and after["step"] == 2
+
+
+def test_step_timer_reads_event_times_without_a_synchronize(card):
+    from deepdfa_tpu_torch.obs import metrics
+    from deepdfa_tpu_torch.obs.xprof import StepTimer
+
+    reg = metrics.MetricsRegistry()
+    timer = StepTimer(lag=1, registry=reg, cuda=True)
+    x = torch.randn(2048, 2048, device=card)
+
+    def step(k):
+        timer.begin()
+        (x @ x).sum()
+        timer.dispatched(None, 0.0)
+
+    step(0)
+    assert _sync_calls(step, 4) == 0
+    timer.drain()
+    snap = reg.snapshot()
+    assert snap["obs/step/seconds/count"] == 5 and snap["obs/step/seconds/mean"] > 0

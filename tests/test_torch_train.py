@@ -390,13 +390,21 @@ def test_adamw_trajectory_stays_close_to_reference_trainer():
 
 
 def test_trainer_refuses_what_the_port_does_not_run():
+    """A mesh beyond one card is refused. The resilient runtime runs in
+    GraphTrainer since the runtime-hooks slice
+    (tests/test_torch_resilience.py); the generation and clone trainers'
+    rule (`refuse_unported_training` without the hooks) still refuses it."""
     _, tcfg = _cfgs()
     model = DeepDFA.from_config(tcfg.model, VOCAB)
     for train in ({"mesh": {"dp": 2}}, {"mesh": {"dp": 1, "tp": 2}},
-                  {"mesh": {"dp": 1, "num_shards": 4}}, {"resilience": {"enabled": True}}):
+                  {"mesh": {"dp": 1, "num_shards": 4}}):
         _, cfg = _cfgs(**train)
         with pytest.raises(NotImplementedError):
             GraphTrainer(model, cfg, device="cpu")
+    _, cfg = _cfgs(resilience={"enabled": True})
+    GraphTrainer(model, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tconfig.refuse_unported_training(cfg)
     flagship = tconfig.load(cli.Path(__file__).resolve().parents[1] / "configs" / "bigvul_deepdfa.json")
     assert tconfig.one_card(flagship.train.mesh) == 1
     ref = jconfig.load(cli.Path(__file__).resolve().parents[1] / "configs" / "bigvul_deepdfa.json")
