@@ -139,7 +139,7 @@ prints one JSON line; any failure exits non-zero before the last line.
    n_steps times a batch in the scoring window and no other kernel); `cli
    serve --port 0` as a subprocess: /healthz (checkpoint tag, step,
    config digest) and /stats 200, malformed JSON 400, an unknown route
-   404, an unparseable function 422, then 256 /score requests drawn from
+   404, an unparseable function 422, then 128 /score requests drawn from
    the test split by
    8 client threads, every one 200 with `cli score`'s probability
    (rtol 1e-4), and the same requests again, every one a feature-cache
@@ -198,13 +198,13 @@ prints one JSON line; any failure exits non-zero before the last line.
    and one profiled saliency and lig batch (device busy time, idle share);
 7p. serve_lines — `cli serve` over the pipeline's checkpoint without
    serve.lines ({"lines": true} answered 400, healthz lines false) and
-   with it (saliency, 8 steps, top 10): 256 requests from 8 client
+   with it (saliency, 8 steps, top 10): 128 requests from 8 client
    threads, every other one with {"lines": true}, each lines answer the
    offline attribution of that function alone at rung 1 to the bit;
-   requests/s and p50/p99 with and without lines; the launches of 64
+   requests/s and p50/p99 with and without lines; the launches of 32
    lines requests through the same service in-process;
 7q. localize_combined — `cli localize` of the cascade's stage-2 run
-   (codebert-base width, the shipped BPE, T 512, graphs) over 4
+   (codebert-base width, the shipped BPE, T 512, graphs) over 2
    functions with labelled lines, each of the seven methods: the
    report's keys and finite metrics, one IFA line a function, kernel 5
    once a layer an evaluation, dq and dk/dv once a layer an evaluation
@@ -434,6 +434,31 @@ prints one JSON line; any failure exits non-zero before the last line.
    CloneTrainer at codet5-base width (fp32), 8 steps on 16 pairs of 256
    tokens; every loss finite; the gen step's launches per step; one
    profiled step (device busy time, idle share, device ms by group);
+19a. codebleu — `cli codebleu --lang c` (host only) scores decode_gen's
+   beam-search outputs against their targets (the hash tokenizer's ids
+   mapped back to the corpus's words): every component finite and in
+   [0, 1]; the decoded examples' source code (each framed in a function
+   that defines and returns a variable) as both --refs and --hyp gives
+   1.0 in every component; fixed java, c# and python pairs give
+   the reference package's values exactly (CODEBLEU_PINNED);
+19b. gen_runtime — `train-gen` under the resilient runtime. At full depth
+   (phase 18's model and batches, in-process): the synchronizing calls
+   of 8 guarded steps (the runner reading each ok flag a step late) and
+   of 8 unguarded ones, which must be equal; each step's ms (8 of each
+   kind, in rounds A B B A of 4) and the guard's cost a step (the
+   medians' difference); one step checkpoint's
+   seconds and bytes; 4 guarded steps of GenTrainer.fit under the
+   ledger (obs.ledger, measured ceilings): the step's site
+   `train_step/<signature>`, its counted TFLOP and its MFU in
+   (0, LEDGER_MFU_MAX]. At 2 + 2 layers of the same width (the depth cut
+   that holds the step checkpoints' writes down), `cli train-gen`
+   in-process over one epoch of GEN_RT_BATCHES batches with a step
+   checkpoint every GEN_RT_STEP_EVERY steps: (a) DEEPDFA_FAULTS=
+   GEN_RT_NAN; (b) the same plus sigterm@GEN_RT_SIGTERM_AT exits 143 and
+   a second command resumes it; (b)'s final weights, moments and counts
+   equal (a)'s to the bit, both records show the two planned steps
+   skipped and no rollback; (c) nan@3,4,5 at max_consecutive_bad=3 rolls
+   back once with the LR cooled to 0.5;
 20a. moe_combined — phase 12's model with the MoE adapter (8 experts,
    top 2) on its 16-row T 512 batches: 4 CombinedTrainer steps (bf16,
    dropout 0.1) and one serving forward through score_combined, kernels
@@ -441,9 +466,10 @@ prints one JSON line; any failure exits non-zero before the last line.
    block on the last step's [CLS] rows in fp32 gives the same dispatch,
    and outputs and aux within 1e-5, on the card and the CPU; the block
    and a step's gradients the same bits on a repeat;
-21. kernels — every kernel with its launches on the fifty main
+21. kernels — every kernel with its launches on the fifty-three main
    paths (serve, train, serve_combined, train_combined, serve_t5,
-   train_t5, train_gen, decode_gen, train_clone, the six of 7c-7d, the
+   train_t5, train_gen, decode_gen, gen_runtime_full, gen_runtime_faults,
+   gen_runtime_resume, train_clone, the six of 7c-7d, the
    four of 7g-7h, tune, tune_train, pipeline, serve_source,
    train_attn_saved, cascade_train, cascade, localize_ggnn, serve_lines,
    localize_combined, localize_t5, serve_pipelined,
@@ -2084,8 +2110,9 @@ def pipeline_phase(torch, tmp: Path):
 
 
 #: serve_source: the HTTP load and its clients (512 requests until the
-#: runtime hooks' phases), the combined run's steps
-SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 256, 8
+#: runtime hooks' phases, 256 until the generation runtime's), the
+#: combined run's steps
+SERVE_LOAD_REQUESTS, SERVE_CLIENTS = 128, 8
 #: (16 files since the cascade phase; the CPU pass at codebert-base width
 #: takes ~1.5 s a file, so it scores the first 4 of them since the runtime
 #: hooks' phases, and the GGNN's CPU pass the first 64 of the 206 test
@@ -2407,13 +2434,13 @@ def serve_source_phase(torch, tmp: Path, card_test_probs: dict, smi: str) -> dic
 #: generation model's rows, and the cascade's calibration target, HTTP
 #: load (seed 17) and combined card-vs-alone bound (serve_source's)
 BPE_DIR = ROOT / "deepdfa_tpu_torch" / "data" / "assets" / "bpe_c"
-ATTN_SAVED_TIMED = 3
+ATTN_SAVED_TIMED = 2
 CASCADE_TARGET_ESCALATION = 0.3
 CASCADE_HTTP_SEED = 17
 #: test functions of the cascade's CPU run (its stage 2 at codebert-base
 #: width costs ~1.4 s an escalated row on the host; 64 until the
 #: struct_feats and scan phases came, 32 until the runtime hooks' phases)
-CASCADE_CPU_FUNCTIONS = 8
+CASCADE_CPU_FUNCTIONS = 4
 
 
 def pipeline_split(tmp: Path, split: str) -> list:
@@ -2755,7 +2782,7 @@ def cascade_phase(torch, tmp: Path, smi: str) -> dict:
     combined model alone on the same files (in-process after serve_source:
     every function's features come from the shared feature cache, so
     these offline rates leave the frontend out); then `cli serve` (GGNN alone,
-    combined alone, cascade) each under 256 requests from 8 client
+    combined alone, cascade) each under 128 requests from 8 client
     threads (test functions drawn with seed 17). Gates: every row not
     escalated is the GGNN alone's probability to the bit, every escalated
     row within serve_source's combined bound of the combined model
@@ -3017,11 +3044,11 @@ LOCALIZE_TIMED = 5
 #: functions of `cli localize` (cut from 32 to 16, then to 8 when the
 #: struct_feats and scan phases came, then to 4 for the runtime hooks'
 #: phases: the script's time limit)
-LOCALIZE_COMBINED_LIMIT = 4
+LOCALIZE_COMBINED_LIMIT = 2
 LOCALIZE_CLI_EVALS = {"attention": 0, "saliency": 1, "input_x_gradient": 1, "lig": 20,
                       "deeplift": 20, "deeplift_shap": 8 * 5, "gradient_shap": 8}
 LOCALIZE_CHECK_STEPS = 4
-SERVE_LINES_SEED, SERVE_LINES_COUNTED = 18, 64
+SERVE_LINES_SEED, SERVE_LINES_COUNTED = 18, 32
 
 
 def device_kernels(prof) -> int:
@@ -6246,14 +6273,19 @@ def gen_config(overrides=()):
                                       "train.optim.grad_clip_norm=1.0", *overrides])
 
 
-def summarize_corpus(rng, n: int) -> Path:
+#: the summarize corpus's docstring words
+GEN_DOC_WORDS = ("returns", "the", "buffer", "length", "of", "a", "list", "node", "frees",
+                 "copies", "into", "checks", "if", "pointer", "is", "null", "size", "array",
+                 "index", "value")
+
+
+def summarize_corpus(rng, n: int, name: str = "summarize.jsonl") -> Path:
     """A summarize-task jsonl of n seeded rows (code of 300-500 C-like
     words, truncated to 256 tokens; docstrings of 20-160 words, to 128)
     in the reference's format, under build/ (gitignored)."""
     vocab = [w for w in C_WORDS if w not in ("->", "++")]
-    doc = ("returns", "the", "buffer", "length", "of", "a", "list", "node", "frees", "copies",
-           "into", "checks", "if", "pointer", "is", "null", "size", "array", "index", "value")
-    out = ROOT / "build" / "smoke_gen" / "summarize.jsonl"
+    doc = GEN_DOC_WORDS
+    out = ROOT / "build" / "smoke_gen" / name
     out.parent.mkdir(parents=True, exist_ok=True)
     rows = [{"code_tokens": [str(w) for w in rng.choice(vocab, int(rng.integers(300, 501)))],
              "docstring_tokens": [str(w) for w in rng.choice(doc, int(rng.integers(20, 161)))],
@@ -6561,7 +6593,7 @@ def decode_gen_phase(torch, trainer, state, src, args):
           "two_layer_step_logit_rel_err": worst, "two_layer_steps": Tmax,
           "two_layer_min_topk_margin": margin, "two_layer_ids_compared": compared,
           "two_layer_ids_equal": bool(torch.equal(ids_card, ids_cpu))})
-    return launches
+    return launches, preds
 
 
 def train_clone_phase(torch, rng):
@@ -7123,6 +7155,330 @@ def efficiency_phase(torch, tmp: Path, smi: str) -> dict:
     return paths
 
 
+#: CodeBLEU of fixed pairs: the reference package's tests' java, c# and
+#: python snippets (tests/test_codebleu.py), scored by the reference's
+#: get_codebleu on the CPU (the same values under every PYTHONHASHSEED
+#: tried); the port must give them exactly
+CODEBLEU_JAVA = ("public int sumPositive(int[] xs) {\n  int total = 0;\n"
+                 "  for (int i = 0; i < xs.length; i++) {\n    if (xs[i] > 0) {\n"
+                 "      total += xs[i];\n    }\n  }\n  return total;\n}",
+                 "public int sumPositive(int[] xs) {\n  int total = 0;\n  int i = 0;\n"
+                 "  while (i < xs.length) {\n    total += Math.max(xs[i], 0);\n    i++;\n"
+                 "  }\n  return total;\n}")
+CODEBLEU_CSHARP = ("public virtual int SumPositive(int[] xs) {\n  int total = 0;\n"
+                   "  foreach (int x in xs) {\n    if (x > 0) {\n      total += x;\n    }\n"
+                   "  }\n  return total;\n}",
+                   "public virtual int SumPositive(int[] xs) {\n  int total = 0;\n"
+                   "  for (int i = 0; i < xs.Length; i++) {\n"
+                   "    total += Math.Max(xs[i], 0);\n  }\n  return total;\n}")
+CODEBLEU_PY = ("def add(a, b):\n    total = a + b\n    return total\n",
+               "def add(x, y):\n    result = x + y\n    return result\n",
+               "def mul(a, b):\n    if a > b:\n        return a * b\n    return 0\n")
+#: lang: (references, hypotheses, the reference's get_codebleu)
+CODEBLEU_PINNED = {
+    "java": ([CODEBLEU_JAVA[0]] * 2, [CODEBLEU_JAVA[1], CODEBLEU_JAVA[0]],
+             {"ngram_match": 0.7117310445980464, "weighted_ngram_match": 0.6550978106135386,
+              "syntax_match": 0.9090909090909091, "dataflow_match": 0.9,
+              "codebleu": 0.7939799410756235}),
+    "c_sharp": ([CODEBLEU_CSHARP[0]] * 2, [CODEBLEU_CSHARP[1], CODEBLEU_CSHARP[0]],
+                {"ngram_match": 0.727800444251498, "weighted_ngram_match": 0.7147946741053282,
+                 "syntax_match": 0.9166666666666666, "dataflow_match": 0.8888888888888888,
+                 "codebleu": 0.8120376684780954}),
+    "python": ([CODEBLEU_PY[0]] * 2, [CODEBLEU_PY[1], CODEBLEU_PY[2]],
+               {"ngram_match": 0.027559619301326558, "weighted_ngram_match": 0.03622673932874929,
+                "syntax_match": 0.7, "dataflow_match": 0.75, "codebleu": 0.378446589657519}),
+}
+
+
+def cli_json(cli, args: list[str]) -> dict:
+    """`cli.main(args)` in this process; its stdout as one JSON object."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(args)
+    return json.loads(buf.getvalue())
+
+
+def codebleu_phase(tok, preds, tgt, smi: str) -> None:
+    """`cli codebleu` on the host: decode_gen's beam-search outputs (ids
+    mapped back to the corpus's words through the hash tokenizer) against
+    their targets, every component finite and in [0, 1]; the decoded
+    examples' source code against itself, 1.0 in every component; and
+    CODEBLEU_PINNED's pairs equal the reference's values exactly. The
+    docstring targets have no def-use triple, and the code's random C
+    words seldom a parseable definition (a run's 32 rows can hold none),
+    so the dataflow match of either against itself could degenerate to 0
+    by the evaluator's rule: the identity check frames each example's
+    code in a function that defines and returns a variable
+    (`int f<i>(char *src, int n) { int len = n + <i>; <code> ; return
+    len; }`), and the targets against themselves are reported, not
+    gated."""
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.eval.codebleu import get_codebleu
+    from deepdfa_tpu_torch.models import t5_gen as genm
+
+    t0 = time.perf_counter()
+    # the corpus's words (summarize_corpus leaves out "->" and "++", which
+    # the hash tokenizer splits into "-" ">" and "+" "+")
+    words = sorted(set(GEN_DOC_WORDS) | set(C_WORDS) - {"->", "++"})
+    inverse = {int(tok.encode(w, max_length=8)[1]): w for w in words}
+    if len(inverse) != len(words):
+        fail(f"codebleu: the hash tokenizer maps two corpus words to one id ({len(inverse)} "
+             f"ids for {len(words)} words)")
+
+    specials = {tok.cls_id, tok.pad_id, tok.sep_id}
+
+    def text(ids) -> str:
+        return " ".join(inverse.get(int(i), f"tok{int(i)}") for i in ids
+                        if int(i) not in specials)
+
+    n = len(preds)
+    refs = genm.trim_at_eos(tgt[:n], tok.sep_id, tok.pad_id)
+    rows = [json.loads(x) for x in (ROOT / "build" / "smoke_gen" / "summarize.jsonl")
+            .read_text().splitlines()[:n]]
+    report: dict = {"phase": "codebleu", "nvidia_smi": smi, "examples": n}
+    with tempfile.TemporaryDirectory() as d:
+        files = {"targets": [text(r) for r in refs], "decoded": [text(p) for p in preds],
+                 "code": [f"int f{i}(char *src, int n) {{ int len = n + {i}; "
+                          f"{' '.join(r['code_tokens'])} ; return len; }}"
+                          for i, r in enumerate(rows)]}
+        for name, lines in files.items():
+            (Path(d) / f"{name}.txt").write_text("\n".join(lines) + "\n")
+
+        def score(refs_name: str, hyp_name: str) -> dict:
+            return cli_json(cli, ["codebleu", "--refs", f"{d}/{refs_name}.txt", "--hyp",
+                                  f"{d}/{hyp_name}.txt", "--lang", "c"])
+
+        decoded = score("targets", "decoded")
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in decoded.values()):
+            fail(f"codebleu: decode_gen's outputs against their targets scored {decoded}")
+        same = score("code", "code")
+        if set(same.values()) != {1.0}:
+            fail(f"codebleu: the decoded examples' code against itself scored {same}")
+        report.update(decoded_vs_targets=decoded, code_vs_itself=same,
+                      targets_vs_themselves=score("targets", "targets"),
+                      mean_decoded_words=statistics.mean(len(p) for p in preds))
+    pinned = {}
+    for lang, (r, h, want) in CODEBLEU_PINNED.items():
+        got = get_codebleu(r, h, lang)
+        if got != want:
+            fail(f"codebleu: {lang} pair scored {got}, the reference's {want}")
+        pinned[lang] = got
+    report.update(pinned=pinned, seconds=time.perf_counter() - t0)
+    emit(report)
+
+
+#: the generation runtime's fault runs: one epoch of GEN_RT_BATCHES
+#: batches of the summarize corpus at GEN_RT_LAYERS + GEN_RT_LAYERS
+#: layers (codet5-base width), a step checkpoint every GEN_RT_STEP_EVERY
+GEN_RT_LAYERS = 2
+GEN_RT_BATCHES = 8
+GEN_RT_STEP_EVERY = 3
+GEN_RT_NAN = "nan@3,nan@4"
+GEN_RT_SIGTERM_AT = 6
+GEN_RT_SYNC_STEPS = 8
+GEN_RT_TIMED_STEPS = 4
+GEN_RT_LEDGER_STEPS = 4
+
+
+@contextlib.contextmanager
+def gen_layers(cli, layers: int):
+    """The generation commands build `layers` + `layers` layers inside the
+    block (the depth cut of a smoke; widths as the command line says)."""
+    real = cli._gen_tokenizer_and_encoder
+
+    def cut(args):
+        tok, enc = real(args)
+        return tok, dataclasses.replace(enc, num_layers=layers)
+
+    cli._gen_tokenizer_and_encoder = cut
+    try:
+        yield
+    finally:
+        cli._gen_tokenizer_and_encoder = real
+
+
+def gen_runtime_phase(torch, trainer, state, tok, src, tgt, smi: str) -> dict:
+    """`train-gen` under the resilient runtime (phase 19b): at full depth
+    in-process on phase 18's trainer (its state takes the unguarded
+    torch.optim steps, a second state the guarded ones), then the 2 + 2
+    layer fault runs through `cli train-gen`. Returns the launches of the
+    full-depth guarded steps, of run (a) and of (b)'s resumed run."""
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli, obs
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.core.config import ResilienceConfig
+    from deepdfa_tpu_torch.data import gen_data
+    from deepdfa_tpu_torch.nn import flash_attention as fa
+    from deepdfa_tpu_torch.nn.dropout import fold_seed
+    from deepdfa_tpu_torch.train.resilience import ResilientRunner, ResumeCursor, StepCheckpointer
+
+    t_phase = time.perf_counter()
+    report: dict = {"phase": "gen_runtime", "nvidia_smi": smi}
+    paths: dict = {}
+    host = gen_data.batches_of(src[:GEN_ROWS * GEN_BATCHES], tgt[:GEN_ROWS * GEN_BATCHES], 1,
+                               GEN_ROWS, pad_id=tok.pad_id)
+    batches = [b.to(trainer.device) for b in host]
+    state_g = trainer.init_state(seed=1)
+    runner = ResilientRunner(ResilienceConfig(enabled=True), None)
+
+    def guarded(k):
+        _, ok = trainer.train_step_guarded(state_g, batches[k % len(batches)],
+                                           fold_seed(0, state_g.step), runner.lr_scale())
+        runner.after_step(state_g, ok, ResumeCursor(0, k + 1, state_g.step))
+
+    def plain(k):
+        trainer.train_step(state, batches[k % len(batches)], fold_seed(0, state.step))
+
+    guarded(0)
+    plain(0)
+    reset_flash(fa)
+    syncs = {"guarded": count_syncs(torch, guarded, GEN_RT_SYNC_STEPS)}
+    paths["gen_runtime_full"] = flash_counts(fa)
+    syncs["unguarded"] = count_syncs(torch, plain, GEN_RT_SYNC_STEPS)
+    syncs["control_item"] = count_syncs(torch, lambda k: float(trainer.train_step(
+        state, batches[0], fold_seed(0, state.step))), 1)
+    if syncs["guarded"] != syncs["unguarded"] or syncs["control_item"] < 1:
+        fail(f"gen_runtime: synchronizing calls {syncs} (the guard must add none; the "
+             f".item() control must count)")
+    if runner.skipped_steps:
+        fail(f"gen_runtime: the guard skipped {runner.skipped_steps} clean steps")
+    # each step timed alone (synchronized), in rounds A B B A
+    times: dict = {"unguarded": [], "guarded": []}
+    for name in ("unguarded", "guarded", "guarded", "unguarded"):
+        fn = guarded if name == "guarded" else plain
+        for k in range(GEN_RT_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(k)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = StepCheckpointer(Path(d) / "gen-ckpt-timing")
+        t0 = time.perf_counter()
+        ckpt.save(state_g.state_dict(), ResumeCursor(0, 1, state_g.step), seed=0)
+        save_s = time.perf_counter() - t0
+        save_bytes = sum(p.stat().st_size for p in ckpt.directory.rglob("*.pt"))
+    # the ledger's site of a generation step (measured ceilings)
+    lcfg = config_mod.apply_overrides(gen_config(), ["obs.ledger=true",
+                                                     "obs.ledger_ceilings=true"])
+    records: list = []
+    t0 = time.perf_counter()
+    with obs.session(lcfg, None):
+        trainer.fit(state_g, lambda e: host[:GEN_RT_LEDGER_STEPS], max_epochs=1,
+                    log_fn=records.append,
+                    resilience=ResilientRunner(ResilienceConfig(enabled=True), None))
+    ledger_s = time.perf_counter() - t0
+    site = f"train_step/{trainer.signature(batches[0])}"
+    view = records[-1].get("ledger", {}).get("sites", {}).get(site, {})
+    mfu = view.get("mfu_vs_measured_ceiling")
+    if mfu is None or not 0.0 < mfu <= LEDGER_MFU_MAX or not view.get("flops"):
+        fail(f"gen_runtime: the ledger's {site} is {view} (an MFU in (0, {LEDGER_MFU_MAX}] "
+             f"expected)")
+    report["full_depth"] = {
+        "layers": [trainer.gen_cfg.encoder.num_layers, trainer.gen_cfg.n_dec_layers],
+        "batch": [GEN_ROWS, GEN_SRC, GEN_TGT], "sync_calls": syncs, "step_ms_median": ms,
+        "step_ms": times, "guard_cost_ms_a_step": ms["guarded"] - ms["unguarded"],
+        "step_checkpoint_seconds": save_s, "step_checkpoint_bytes": save_bytes,
+        "ledger": {"site": site, f"ledger_mfu/{site}": mfu, "counted_tflop": view["flops"] / 1e12,
+                   "flops_by_precision": view.get("flops_by_precision"),
+                   "executions": view.get("executions"), "compile_seconds":
+                   view.get("compile_seconds"), "ceilings": records[-1]["ledger"].get("ceilings"),
+                   "fit_seconds": ledger_s}}
+    del state_g, runner
+
+    # the 2 + 2 layer fault runs through the command line
+    path = summarize_corpus(np.random.default_rng(23), GEN_ROWS * (GEN_RT_BATCHES + 1),
+                            "summarize_runtime.jsonl")
+    lines = path.read_text().splitlines()
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        (tmp / "train.jsonl").write_text("\n".join(lines[:GEN_ROWS * GEN_RT_BATCHES]) + "\n")
+        (tmp / "dev.jsonl").write_text("\n".join(lines[GEN_ROWS * GEN_RT_BATCHES:]) + "\n")
+        cfg = config_mod.apply_overrides(gen_config(), [
+            "train.max_epochs=1", "train.resilience.enabled=true",
+            f"train.resilience.step_checkpoint_every={GEN_RT_STEP_EVERY}"])
+        config_mod.to_json(cfg, tmp / "gen_runtime.json")
+        base = ["train-gen", "--task", "summarize", "--vocab-size", str(GEN_VOCAB),
+                "--config", str(tmp / "gen_runtime.json"), "--train-file",
+                str(tmp / "train.jsonl"), "--dev-file", str(tmp / "dev.jsonl"),
+                "--device", CARD]
+
+        def final_state(run: str) -> dict:
+            ckpt = StepCheckpointer(tmp / "runs" / run / cli.GEN_STEP_CHECKPOINTS_DIR)
+            return ckpt.restore(ckpt.latest())
+
+        def record(run: str) -> dict:
+            return [r for r in run_log(tmp / "runs" / run) if "epoch" in r][-1]
+
+        runs: dict = {}
+        t0 = time.perf_counter()
+        with storage_root(tmp), gen_layers(cli, GEN_RT_LAYERS):
+            reset_flash(fa)
+            with faults_env(GEN_RT_NAN):
+                rc_a = cli_rc(cli, [*base, 'run_name="gen-a"'])
+            paths["gen_runtime_faults"] = flash_counts(fa)
+            with faults_env(f"{GEN_RT_NAN},sigterm@{GEN_RT_SIGTERM_AT}"):
+                rc_b1 = cli_rc(cli, [*base, 'run_name="gen-b"'])
+            manifest_b1 = json.loads((tmp / "runs" / "gen-b" / cli.GEN_STEP_CHECKPOINTS_DIR
+                                      / "resume.json").read_text())
+            reset_flash(fa)
+            with faults_env(GEN_RT_NAN):
+                rc_b2 = cli_rc(cli, [*base, 'run_name="gen-b"'])
+            paths["gen_runtime_resume"] = flash_counts(fa)
+            with faults_env("nan@3,nan@4,nan@5"):
+                rc_c = cli_rc(cli, [*base, 'run_name="gen-c"',
+                                    "train.resilience.max_consecutive_bad=3"])
+        runs_s = time.perf_counter() - t0
+        if (rc_a, rc_b1, rc_b2, rc_c) != (0, 143, 0, 0):
+            fail(f"gen_runtime: exit codes (a, b preempted, b resumed, c) "
+                 f"{(rc_a, rc_b1, rc_b2, rc_c)}, expected (0, 143, 0, 0)")
+        if manifest_b1["reason"] != "preempt" or manifest_b1["step"] != GEN_RT_SIGTERM_AT:
+            fail(f"gen_runtime: the preemption's manifest {manifest_b1}")
+        a, b = final_state("gen-a"), final_state("gen-b")
+        sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+        same = (a["step"] == b["step"] == GEN_RT_BATCHES
+                and a["schedule_count"] == b["schedule_count"] == GEN_RT_BATCHES - 2
+                and a["model"].keys() == b["model"].keys()
+                and all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"])
+                and sa.keys() == sb.keys()
+                and all(sa[i].keys() == sb[i].keys()
+                        and all(torch.equal(sa[i][k], sb[i][k]) for k in sa[i]) for i in sa))
+        if not same:
+            fail(f"gen_runtime: the resumed run's final weights, moments or counts differ from "
+                 f"the uninterrupted run's (steps {a['step']}/{b['step']}, updates "
+                 f"{a['schedule_count']}/{b['schedule_count']})")
+        for run in ("gen-a", "gen-b"):
+            rec = record(run)
+            if rec["skipped_steps"] != 2 or rec["rollbacks"] != 0 or not math.isfinite(
+                    rec["train_loss"]):
+                fail(f"gen_runtime: {run}'s record {rec} (steps 3 and 4 skipped, no rollback "
+                     f"expected)")
+            runs[run] = {k: rec[k] for k in ("train_loss", "val_ppl", "skipped_steps",
+                                             "rollbacks", "resumed_from_step")}
+        rec_c = record("gen-c")
+        guard_c = json.loads((tmp / "runs" / "gen-c" / cli.GEN_STEP_CHECKPOINTS_DIR
+                              / "resume.json").read_text())["guard"]
+        if rec_c["rollbacks"] != 1 or guard_c["lr_scale"] != 0.5:
+            fail(f"gen_runtime: three bad steps gave {rec_c['rollbacks']} rollbacks, lr_scale "
+                 f"{guard_c['lr_scale']} (1 rollback at 0.5 expected)")
+        runs["gen-c"] = {"rollbacks": rec_c["rollbacks"], "skipped_steps":
+                         rec_c["skipped_steps"], "lr_scale": guard_c["lr_scale"]}
+        ckpt_bytes = sum(p.stat().st_size for p in (tmp / "runs" / "gen-a"
+                                                     / cli.GEN_STEP_CHECKPOINTS_DIR).rglob("*.pt"))
+    report["two_layer"] = {"layers": [GEN_RT_LAYERS, GEN_RT_LAYERS], "steps": GEN_RT_BATCHES,
+                           "faults": GEN_RT_NAN, "sigterm_at": GEN_RT_SIGTERM_AT,
+                           "step_checkpoint_every": GEN_RT_STEP_EVERY, "runs": runs,
+                           "b_equal_to_a_bits": True, "a_checkpoint_bytes_kept": ckpt_bytes,
+                           "seconds": runs_s}
+    report.update(launches=paths, seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return paths
+
+
 #: the phases --phase can run alone
 LONE_PHASES = ("train", "train_gen", "train_clone")
 
@@ -7242,8 +7598,11 @@ def main() -> None:
         "dropout": {"flash_dq": bwd_flash[f"dq_ms_rate{DROPOUT_RATE}"],
                     "flash_dkv": bwd_flash[f"dkv_ms_rate{DROPOUT_RATE}"]},
         "bias": {"flash_dq": fb["dq_ms"], "flash_dkv": fb["dkv_ms"]}}, ptxas)
-    gen_train, gen_trainer, gen_state, _, gen_src, _ = train_gen_phase(torch, rng)
-    gen_decode = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
+    gen_train, gen_trainer, gen_state, gen_tok, gen_src, gen_tgt = train_gen_phase(torch, rng)
+    gen_decode, gen_preds = decode_gen_phase(torch, gen_trainer, gen_state, gen_src, gen_args())
+    codebleu_phase(gen_tok, gen_preds, gen_tgt, smi)
+    gen_runtime = gen_runtime_phase(torch, gen_trainer, gen_state, gen_tok, gen_src, gen_tgt,
+                                    smi)
     del gen_trainer, gen_state
     gen_clone = train_clone_phase(torch, rng)
     model_paths |= moe_combined_phase(torch, smi)
@@ -7251,7 +7610,8 @@ def main() -> None:
     paths = {"serve": {"ggnn_step": launches}, "train": train_launches,
              "serve_combined": combined_launches, "train_combined": tc_launches,
              "serve_t5": t5_serve, "train_t5": t5_train, "train_gen": gen_train,
-             "decode_gen": gen_decode, "train_clone": gen_clone, **serve_variants,
+             "decode_gen": gen_decode, **gen_runtime, "train_clone": gen_clone,
+             **serve_variants,
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
              "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths,

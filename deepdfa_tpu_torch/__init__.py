@@ -19,7 +19,8 @@ Layering (bottom-up):
   graphs/   GraphSpec / GraphBatch, `pack` and the bucket planner, bit-for-bit
             with the reference; the graph store
   frontend/ the C frontend: lexer, `#if` preprocessor, parser into a CPG, reaching
-            definitions, dependences, abstract-dataflow features and vocabularies
+            definitions, dependences, abstract-dataflow features and vocabularies;
+            the java, c#, js, go, php and ruby dialects CodeBLEU parses
   data/     dataset readers, the synthetic corpus, diff line labels, the extraction
             pipeline (C source -> GraphSpec); the hash tokenizer, the text (+ graph)
             collater of the combined path, the generation and clone task readers
@@ -29,11 +30,12 @@ Layering (bottom-up):
   models/   DeepDFA, the RoBERTa and T5 encoders, the combined and defect models, the
             T5 encoder-decoder (beam search, clone head) and the parameter converters
   serve/    ladder and bucket executors, dynamic batcher, offline scoring drives
-  eval/     corpus BLEU (the n-gram half of CodeBLEU)
+  eval/     CodeBLEU (n-gram, weighted n-gram, syntax and dataflow matches; the
+            digit-exact java/c# dataflow), calibration, localization, profiling
   train/    losses, optimiser state, samplers, metrics, checkpoints, GraphTrainer,
             CombinedTrainer, GenTrainer, fit_multi, CloneTrainer
   cli.py    `python -m deepdfa_tpu_torch.cli prepare|extract-vocab|extract|train|test|
-            train-combined|train-gen|train-multi-gen|train-clone|tune`
+            train-combined|train-gen|train-multi-gen|train-clone|tune|codebleu|...`
 """
 
 __version__ = "0.1.0"

@@ -11,8 +11,9 @@ the CodeT5 generation family, on one device (the reference's
 sources against a trained run (`score`, `serve`: `cmd_score`,
 `cmd_serve`), scan a whole repository (`scan`: `cmd_scan`), fit the
 two-stage cascade's calibration (`cascade-calibrate`:
-`cmd_cascade_calibrate`), and rank the lines of a combined run's
-functions by their attributions (`localize`: `cmd_localize`).
+`cmd_cascade_calibrate`), rank the lines of a combined run's
+functions by their attributions (`localize`: `cmd_localize`), and score
+generated code with CodeBLEU (`codebleu`: `cmd_codebleu`).
 
     python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
         [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
@@ -47,6 +48,8 @@ functions by their attributions (`localize`: `cmd_localize`).
         [--method saliency|attention|input_x_gradient|lig|deeplift|deeplift_shap|gradient_shap] \
         [--checkpoint best] [--split test] [--encoder tiny|codebert-base|codet5-base] \
         [--tokenizer DIR] [--max-length 512] [--limit N] [--device cpu] [key=value ...]
+    python -m deepdfa_tpu_torch.cli codebleu --refs F [F ...] --hyp F \
+        [--lang c|cpp|java|c_sharp|javascript|php|go|ruby|python] [--params a,b,g,t]
 
 `prepare`, `extract-vocab` and `extract` are host commands (no
 `--device`). `prepare` reads a dataset (the seeded synthetic corpus, a
@@ -79,12 +82,12 @@ under `runs/<run_name>/checkpoints-torch/` (GGNN) or
 checkpoints of the same run stay untouched. The card is the default
 device; `--device cpu` runs the plain path.
 
-The runtime hooks (`train`, `train-combined`): `train.resilience.
-enabled=true` runs the resilient runtime (train/resilience.py: the
-on-device divergence guard, step checkpoints every
-`train.resilience.step_checkpoint_every` steps under
-`runs/<run>/checkpoints-torch-step/` or
-`checkpoints-combined-torch-step/`, resume on the next run of the same
+The runtime hooks (`train`, `train-combined`, `train-gen`):
+`train.resilience.enabled=true` runs the resilient runtime
+(train/resilience.py: the on-device divergence guard, step checkpoints
+every `train.resilience.step_checkpoint_every` steps under
+`runs/<run>/checkpoints-torch-step/`, `checkpoints-combined-torch-step/`
+or `checkpoints-gen-torch-step/`, resume on the next run of the same
 command, rollback, the watchdog); a preempted run (SIGTERM) checkpoints
 and exits 143, a watchdog abort exits 113. `DEEPDFA_FAULTS` (e.g.
 `"nan@3,sigterm@6"`, testing/faults.py) injects faults into the train
@@ -93,10 +96,11 @@ run (also for `score` and `serve`): trace spans, the metrics snapshot,
 `torch.profiler` captures, the efficiency ledger (`obs.ledger`, with
 measured ceilings under `obs.ledger_ceilings`) and the flight recorder.
 `train.debug_nans` and `train.enable_checks` run the sanitizers
-(core/sanitize.py). `test --profile` prints Table 5's record (GFLOPs
-and ms a call and an example, p95) of the first batch's forward and
-appends it to `profiledata.jsonl`; `--xprof-dir D` writes a
-`torch.profiler` Chrome trace of the evaluation to `D/trace.json`.
+(core/sanitize.py) in every training command. `test --profile` prints
+Table 5's record (GFLOPs and ms a call and an example, p95) of the first
+batch's forward and appends it to `profiledata.jsonl`; `--xprof-dir D`
+writes a `torch.profiler` Chrome trace of the evaluation to
+`D/trace.json`.
 
 `train-combined` takes the reference's arguments. `--arch t5` builds
 the CodeT5+DeepDFA defect model (`--encoder tiny|codet5-base`, the
@@ -124,8 +128,15 @@ set by beam search and writes `results/test_best-ppl.{output,gold}`.
 --merges-file F` tokenizes with a byte-level BPE, `--pretrained F` loads
 a Hugging Face `T5ForConditionalGeneration` state_dict and
 `--remat-policy attn_saved` keeps the attention output across the layer
-checkpoints. Refused (`NotImplementedError`): the training options
-`core/config.py:refuse_unported_training` names.
+checkpoints. `train-gen` runs the runtime hooks above; `train-multi-gen`
+and `train-clone` run the sanitizers and refuse (`NotImplementedError`)
+`train.resilience.enabled` and the `obs` switches, which the reference's
+loops do not run either (`core/config.py:refuse_unported_training`).
+
+`codebleu --refs F [F ...] --hyp F --lang L` prints CodeBLEU's n-gram,
+weighted n-gram, syntax and dataflow matches and their composite
+(`--params`) as JSON, for c, cpp, java, c_sharp, javascript, php, go,
+ruby and python (eval/codebleu.py).
 
 `tune` searches the GGNN kernel layouts (fold and mxu scatter, fp32,
 bf16 and int8 policies, per step and fused) at the serving budgets on
@@ -1023,6 +1034,8 @@ def cmd_localize(args) -> None:
 GEN_CHECKPOINTS_DIR = "checkpoints-gen-torch"
 GEN_BLEU_CHECKPOINTS_DIR = "checkpoints-gen-bleu-torch"
 CLONE_CHECKPOINTS_DIR = "checkpoints-clone-torch"
+#: `train-gen`'s step checkpoints under train.resilience.enabled
+GEN_STEP_CHECKPOINTS_DIR = "checkpoints-gen-torch-step"
 
 
 def _gen_tokenizer_and_encoder(args):
@@ -1083,9 +1096,15 @@ def _gen_encode_file(args, tok, task_name: str, filename: str,
 
 
 def cmd_train_gen(args) -> None:
-    """Seq2seq training and test decoding (CodeT5's run_gen.py)."""
+    """Seq2seq training and test decoding (CodeT5's run_gen.py), under the
+    runtime hooks as the reference's `cmd_train_gen` runs them (`:1351-
+    1372`): the resilient runtime, the fault injector and the telemetry
+    session."""
+    from deepdfa_tpu_torch import obs
     from deepdfa_tpu_torch.data import gen_data
     from deepdfa_tpu_torch.models import t5_gen as genm
+    from deepdfa_tpu_torch.testing.faults import injector_from_env
+    from deepdfa_tpu_torch.train.resilience import make_runner
 
     cfg = _load_config(args)
     run_dir = runs_dir(cfg.run_name)
@@ -1113,23 +1132,32 @@ def cmd_train_gen(args) -> None:
         bleu_ckpts = (trainer.make_checkpoints(run_dir / GEN_BLEU_CHECKPOINTS_DIR,
                                                monitor="val_bleu_em", mode="max")
                       if args.do_eval_bleu else None)
+        # the resilient runtime (off unless train.resilience.enabled), the
+        # fault injector (armed only by DEEPDFA_FAULTS) and the telemetry
+        # session; the dropout streams are functions of (seed 0, step)
+        res = make_runner(cfg, run_dir / GEN_STEP_CHECKPOINTS_DIR, rng={"dropout_seed": 0})
+        injector = injector_from_env()
+
+        def train_stream(epoch):
+            s = gen_data.batches_of(train_src, train_tgt, 1, rows, pad_id=tok.pad_id,
+                                    shuffle_seed=cfg.train.seed + epoch)
+            return injector.wrap(s) if injector is not None else s
+
         run_log = RunLog(run_dir)
         try:
-            state = trainer.fit(
-                state,
-                lambda epoch: gen_data.batches_of(train_src, train_tgt, 1, rows,
-                                                  pad_id=tok.pad_id,
-                                                  shuffle_seed=cfg.train.seed + epoch),
-                val_batches=val_batches, val_decode=val_decode, checkpoints=ckpts,
-                bleu_checkpoints=bleu_ckpts, patience=args.patience, log_fn=run_log.log)
+            with obs.session(cfg, run_dir):
+                state = trainer.fit(
+                    state, train_stream, val_batches=val_batches, val_decode=val_decode,
+                    checkpoints=ckpts, bleu_checkpoints=bleu_ckpts, patience=args.patience,
+                    log_fn=run_log.log, resilience=res)
         finally:
             run_log.close()
         print("best:", ckpts.best_metrics())
 
     if args.test_file:
         ex, test_src, test_tgt = load(args.test_file)
-        # decode from the best-ppl weights, not the last epoch's (run_gen.py
-        # reloads checkpoint-best-ppl before test decoding)
+        # decode from the best-ppl weights, not the last epoch's or a resumed
+        # state's (run_gen.py reloads checkpoint-best-ppl before test decoding)
         if (run_dir / GEN_CHECKPOINTS_DIR / "best").exists():
             best = trainer.make_checkpoints(run_dir / GEN_CHECKPOINTS_DIR).restore("best")
             state = trainer.load_params(state, best["model"])
@@ -1341,6 +1369,25 @@ def cmd_cascade_calibrate(args) -> None:
     print(json.dumps(result), flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=2))
+
+
+def cmd_codebleu(args) -> None:
+    """Score a hypothesis file against one or more reference files, one
+    example a line (the reference's `cmd_codebleu`, CodeT5's
+    calc_code_bleu.py:66-81): CodeBLEU's four components and the
+    composite under `--params` (alpha,beta,gamma,theta), as JSON."""
+    from deepdfa_tpu_torch.eval.codebleu import get_codebleu
+
+    refs_per_file = [[line.strip() for line in Path(f).read_text().splitlines()]
+                     for f in args.refs]
+    hyps = [line.strip() for line in Path(args.hyp).read_text().splitlines()]
+    for rr in refs_per_file:
+        if len(rr) != len(hyps):
+            raise SystemExit("refs and hyp must have equal line counts")
+    references = [[rr[i] for rr in refs_per_file] for i in range(len(hyps))]
+    out = get_codebleu(references, hyps, lang=args.lang,
+                       params=tuple(float(x) for x in args.params.split(",")))
+    print(json.dumps(out, indent=2))
 
 
 def cmd_score(args) -> None:
@@ -1607,6 +1654,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dev-set fraction the band should escalate")
     p.add_argument("--out", default=None, help="also write the result json here")
     p.set_defaults(fn=cmd_cascade_calibrate)
+
+    p = sub.add_parser("codebleu", help="CodeBLEU of a hypothesis file against reference "
+                                        "files (one example a line)")
+    p.add_argument("--refs", nargs="+", required=True,
+                   help="reference files (one example per line)")
+    p.add_argument("--hyp", required=True, help="hypothesis file")
+    from deepdfa_tpu_torch.eval.codebleu import LANG_DIALECT
+
+    p.add_argument("--lang", default="c", choices=sorted(set(LANG_DIALECT) | {"python"}))
+    p.add_argument("--params", default="0.25,0.25,0.25,0.25",
+                   help="alpha,beta,gamma,theta component weights")
+    p.set_defaults(fn=cmd_codebleu)
 
     p = sub.add_parser("localize", help="rank a combined run's lines by token attributions "
                                         "and score them against the labelled lines")

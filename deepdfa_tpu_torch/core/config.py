@@ -420,31 +420,27 @@ def one_card(mesh: MeshConfig) -> int:
 def refuse_unported_training(cfg: Config, runtime_hooks: bool = False) -> None:
     """NotImplementedError for the training options the port does not
     run: a mesh beyond one card, and — for a trainer without the runtime
-    hooks (`runtime_hooks` False: the generation and clone trainers) —
-    `train.resilience.enabled`, the `train.debug_nans`/
-    `train.enable_checks` sanitizers and any `obs` instrument. The GGNN
-    and combined trainers run all of them."""
+    hooks (`runtime_hooks` False: `train-multi-gen`'s and `train-clone`'s
+    loops) — `train.resilience.enabled` and any `obs` instrument, which
+    the reference's `train-multi-gen` and `train-clone` do not run either
+    (they read past them). Every trainer runs the `train.debug_nans`/
+    `train.enable_checks` sanitizers (core/sanitize.py), as the
+    reference's `_load_config` applies them to every command; the GGNN,
+    combined and generation (`train-gen`) trainers run all of it."""
     one_card(cfg.train.mesh)
     if runtime_hooks:
         return
-    for name in ("debug_nans", "enable_checks"):
-        if getattr(cfg.train, name):
-            raise NotImplementedError(
-                f"train.{name}: the sanitizers run in `train` and `train-combined`; "
-                "the generation and clone trainers take them with ROADMAP queue A, "
-                "item 10's remainder; set it to false"
-            )
     if cfg.train.resilience.enabled:
         raise NotImplementedError(
-            "train.resilience.enabled: the resilient runtime runs in `train` and "
-            "`train-combined`; the generation and clone loops take it with ROADMAP "
-            "queue A, item 10's remainder"
+            "train.resilience.enabled: the resilient runtime runs in `train`, "
+            "`train-combined` and `train-gen`; the reference's `train-multi-gen` and "
+            "`train-clone` loops do not run it either"
         )
     if cfg.obs.enabled:
         raise NotImplementedError(
-            f"obs={cfg.obs}: the telemetry instruments run in `train`, "
-            "`train-combined`, `test`, `score` and `serve`; the generation and clone "
-            "loops take them with ROADMAP queue A, item 10's remainder"
+            f"obs={cfg.obs}: the telemetry instruments run in `train`, `train-combined`, "
+            "`train-gen`, `test`, `score` and `serve`; the reference's `train-multi-gen` "
+            "and `train-clone` loops do not run them either"
         )
 
 

@@ -1,7 +1,9 @@
-"""C tokenizer for the built-in CPG frontend.
+"""C tokenizer for the built-in CPG frontend, with the six non-C
+dialects CodeBLEU's structural matches parse (java, c#, js, go, php,
+ruby: `DIALECT_OPERATORS`).
 
 The port's copy of the reference's `deepdfa_tpu/frontend/tokens.py`;
-its C++ lexer is the port's `native/` library.
+its C++ lexer is the port's `native/` library, which lexes C only.
 The original DeepDFA delegates all C parsing to the external Joern JVM;
 this frontend runs hermetically in-process. The lexer handles the
 C-function subset that appears in vulnerability datasets: comments, string
@@ -31,6 +33,46 @@ OPERATORS = [
     "+", "-", "*", "/", "%", "=", "<", ">", "!", "~", "&", "|", "^",
     "?", ":", ".", ",", ";", "(", ")", "[", "]", "{", "}",
 ]
+
+#: extra multi-char operators per non-C dialect (CodeBLEU structural
+#: matching parses java/c_sharp/js/go/php/ruby snippets through the same
+#: frontend — eval/codebleu.py). Non-C dialects always lex through the
+#: python path, so the native C++ lexer's bit-identical-on-C contract
+#: (tests/test_native.py) is untouched.
+DIALECT_OPERATORS: dict[str, list[str]] = {
+    "c": [],
+    "java": [">>>=", ">>>"],
+    "cs": ["??=", "?.", "??", "=>"],
+    "js": [">>>=", "===", "!==", ">>>", "??=", "**=", "?.", "??", "**", "=>"],
+    "go": [":=", "<-", "&^=", "&^"],
+    "php": ["===", "!==", "<=>", "?->", "??=", "**=", ".=", "??", "**", "=>"],
+    "ruby": ["<=>", "===", "**=", "**", "=~", "!~", "=>", "&.", ".."],
+}
+
+#: dialects whose grammar ends statements at line end (Go's automatic
+#: semicolon insertion; Ruby's newline termination). A ';' is inserted
+#: when a line's last token can end an expression — Go spec §Semicolons:
+#: after an identifier, literal, one of break/continue/fallthrough/
+#: return, ++/--, or a closing bracket. Trailing binary operators keep
+#: the statement open, exactly the rule both languages rely on.
+_ASI_DIALECTS = frozenset(("go", "ruby"))
+#: keywords that open a construct and therefore keep the line open
+#: (ruby `loop do` / `x = if cond`; C-keyword collisions like `do`)
+_ASI_CONTINUE_KW = frozenset(
+    ("do", "else", "if", "for", "while", "switch", "case", "default",
+     "goto", "struct", "union", "enum", "sizeof")
+)
+
+
+def _ends_statement(tok: Token) -> bool:
+    if tok.kind in ("num", "str", "char", "id"):
+        return True
+    if tok.kind == "kw":
+        # break/continue/return/`int` (go: `var x int`) end a line;
+        # construct-openers don't
+        return tok.text not in _ASI_CONTINUE_KW
+    return tok.text in (")", "]", "}", "++", "--")
+
 
 @dataclasses.dataclass(frozen=True)
 class Token:
@@ -76,8 +118,8 @@ def strip_comments(code: str) -> str:
     return "".join(out)
 
 
-def tokenize(code: str, backend: str = "auto") -> list[Token]:
-    """Tokenize C (or C++) source.
+def tokenize(code: str, backend: str = "auto", dialect: str = "c") -> list[Token]:
+    """Tokenize C (or C++) source, or a snippet of another dialect.
 
     backend "auto" routes pure-ASCII input through the native C++ lexer
     (`deepdfa_tpu_torch/native`, built with g++ at first use; equal to
@@ -89,9 +131,15 @@ def tokenize(code: str, backend: str = "auto") -> list[Token]:
     carries its column); "native" forces the C++ one and raises on
     non-ASCII input or without g++.
 
-    The reference's non-C dialects (java, c#, js, go, php, ruby: its
-    CodeBLEU syntax match) are not ported yet (ROADMAP queue A, item 3).
+    `dialect` selects extra multi-char operators (DIALECT_OPERATORS), php
+    and ruby sigils, js/go backtick strings, and go/ruby newline
+    semicolons; any dialect other than "c" lexes through the Python path
+    whatever `backend` says, so the C path never moves.
     """
+    if dialect != "c":
+        if dialect not in DIALECT_OPERATORS:
+            raise ValueError(f"unknown dialect {dialect!r}")
+        return _tokenize_python(code, dialect)
     if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend != "python":
@@ -112,8 +160,14 @@ def tokenize(code: str, backend: str = "auto") -> list[Token]:
     return _tokenize_python(code)
 
 
-def _tokenize_python(code: str) -> list[Token]:
+def _tokenize_python(code: str, dialect: str = "c") -> list[Token]:
     code = strip_comments(code)
+    operators = (
+        sorted(DIALECT_OPERATORS[dialect] + OPERATORS, key=len, reverse=True)
+        if dialect != "c"
+        else OPERATORS
+    )
+    asi = dialect in _ASI_DIALECTS
     toks: list[Token] = []
     line, col = 1, 1
     i, n = 0, len(code)
@@ -124,6 +178,8 @@ def _tokenize_python(code: str) -> list[Token]:
     while i < n:
         c = code[i]
         if c == "\n":
+            if asi and toks and _ends_statement(toks[-1]):
+                emit("op", ";", line, col)
             line += 1
             col = 1
             i += 1
@@ -141,6 +197,49 @@ def _tokenize_python(code: str) -> list[Token]:
                     i += 1
             continue
         start_l, start_c = line, col
+        if (
+            (
+                c == "$"
+                and dialect in ("php", "ruby")
+                and i + 1 < n
+                and (code[i + 1].isalpha() or code[i + 1] == "_")
+            )
+            or (
+                c == "@"
+                and dialect == "ruby"
+                and i + 1 < n
+                and (
+                    code[i + 1].isalpha()
+                    or code[i + 1] == "_"
+                    or code[i + 1] == "@"
+                )
+            )
+        ):
+            # php/ruby variables: the sigil ($ / @ / @@) is part of the
+            # identifier
+            j = i + 1
+            if c == "@" and code[j] == "@":
+                j += 1
+            while j < n and (code[j].isalnum() or code[j] == "_"):
+                j += 1
+            emit("id", code[i:j], start_l, start_c)
+            col += j - i
+            i = j
+            continue
+        if c == "`" and dialect in ("js", "go"):
+            # js template literal / go raw string: one opaque string token
+            j = i + 1
+            while j < n and code[j] != "`":
+                if dialect == "js" and code[j] == "\\":
+                    j += 1
+                if j < n and code[j] == "\n":
+                    line += 1
+                j += 1
+            j = min(j + 1, n)
+            emit("str", code[i:j], start_l, start_c)
+            col += j - i
+            i = j
+            continue
         if c.isalpha() or c == "_":
             j = i
             while j < n and (code[j].isalnum() or code[j] == "_"):
@@ -157,7 +256,16 @@ def _tokenize_python(code: str) -> list[Token]:
                 while j < n and (code[j].isdigit() or code[j] in "abcdefABCDEF"):
                     j += 1
             else:
-                while j < n and (code[j].isdigit() or code[j] == "."):
+                while j < n and (
+                    code[j].isdigit()
+                    or (
+                        code[j] == "."
+                        # ruby ranges: `1..9` is num op num, never `1..`
+                        and not (
+                            dialect == "ruby" and code[j : j + 2] == ".."
+                        )
+                    )
+                ):
                     j += 1
                 if j < n and code[j] in "eE":  # exponent
                     k = j + 1
@@ -186,9 +294,23 @@ def _tokenize_python(code: str) -> list[Token]:
             col += j - i
             i = j
             continue
-        for op in OPERATORS:
+        for op in operators:
             if code.startswith(op, i):
-                emit("op", op, start_l, start_c)
+                if (
+                    dialect == "ruby"
+                    and op in ("?", "!")
+                    and toks
+                    and toks[-1].kind == "id"
+                    and toks[-1].line == start_l
+                    and toks[-1].col + len(toks[-1].text) == start_c
+                ):
+                    # ruby method-name suffixes: `empty?` / `save!` are
+                    # one identifier (a spaced `x ? y : z` stays ternary)
+                    toks[-1] = Token(
+                        "id", toks[-1].text + op, start_l, toks[-1].col
+                    )
+                else:
+                    emit("op", op, start_l, start_c)
                 i += len(op)
                 col += len(op)
                 break

@@ -43,6 +43,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from deepdfa_tpu_torch.data.gen_data import GenBatch
 from deepdfa_tpu_torch.data.text import TextBatch
 from deepdfa_tpu_torch.graphs.batch import GraphBatch
 
@@ -111,17 +112,20 @@ def poison_batch(batch):
     """A copy of `batch` whose loss goes non-finite, so the divergence
     guard's skip path fires. A GraphBatch gets an all-NaN float label
     array (the reference's injection). A TextBatch (the combined
-    families) has no float input at all, so it becomes a
-    `PoisonedTextBatch`, whose loss the trainer multiplies by NaN (the
-    reference's injector refuses text batches). Other batch types raise
-    loudly rather than inject nothing."""
+    families) and a GenBatch (the generation family) have no float input
+    at all, so they become a `PoisonedTextBatch` or a `PoisonedGenBatch`,
+    whose loss the trainer multiplies by NaN (the reference's injector
+    refuses both). Other batch types raise loudly rather than inject
+    nothing."""
     if isinstance(batch, GraphBatch):
         label = np.asarray(batch.graph_label)
         return dataclasses.replace(batch, graph_label=np.full_like(label, np.nan))
     if isinstance(batch, TextBatch):
         return PoisonedTextBatch.of(batch)
+    if isinstance(batch, GenBatch):
+        return PoisonedGenBatch.of(batch)
     raise TypeError(
-        f"nan injection supports GraphBatch and TextBatch streams, got "
+        f"nan injection supports GraphBatch, TextBatch and GenBatch streams, got "
         f"{type(batch).__name__}"
     )
 
@@ -142,6 +146,21 @@ class PoisonedTextBatch(TextBatch):
 
     def pinned(self) -> "PoisonedTextBatch":
         return self.of(super().pinned())
+
+
+class PoisonedGenBatch(GenBatch):
+    """A GenBatch marked `poisoned`: the generation trainer multiplies its
+    loss by NaN (on the device, with no sync). Placement keeps the
+    mark."""
+
+    poisoned = True
+
+    @classmethod
+    def of(cls, batch: GenBatch) -> "PoisonedGenBatch":
+        return cls(**{f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)})
+
+    def to(self, device) -> "PoisonedGenBatch":
+        return self.of(super().to(device))
 
 
 class FaultInjector:

@@ -6,8 +6,11 @@ checkpoint each evaluated epoch, the best by dev F1; early stop when F1
 has not risen for more than `patience` epochs. Step s drops with
 `fold_seed(seed, s)`. On a CUDA device each code runs the seq2seq stack
 with its flash kernels, the decoder's causal ones among them (`dec_mask`
-= the source mask). The options `refuse_unported_training` names are
-refused, as in the other trainers.
+= the source mask). The `train.debug_nans`/`train.enable_checks`
+sanitizers run the fit under core/sanitize.py's checks; as in the
+reference, the loop takes no resilient runtime and no obs instruments,
+and refuses them when configured (`core/config.py:
+refuse_unported_training`), as it refuses a mesh beyond one card.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from deepdfa_tpu_torch.core import sanitize
 from deepdfa_tpu_torch.core.config import Config, refuse_unported_training
 from deepdfa_tpu_torch.core.device import resolve_device
 from deepdfa_tpu_torch.data.gen_data import one_shard, to_tensor
@@ -169,37 +173,40 @@ class CloneTrainer:
         tcfg = self.cfg.train
         max_epochs = max_epochs if max_epochs is not None else tcfg.max_epochs
         best_f1, not_inc = -1.0, 0
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            losses = [self.train_step(state, batch.to(self.device), fold_seed(seed, state.step))
-                      for batch in train_batches(epoch)]
-            record = {
-                "epoch": epoch,
-                "train_loss": (float(np.mean(torch.stack(losses).cpu().numpy()))
-                               if losses else float("nan")),
-                "epoch_seconds": time.perf_counter() - t0,
-            }
-            if val_batches is not None:
-                metrics, _ = self.evaluate(state, val_batches())
-                record.update({f"val_{k}": v for k, v in metrics.items()})
-                f1 = metrics.get("f1", 0.0)
-                if f1 > best_f1:
-                    best_f1, not_inc = f1, 0
-                else:
-                    not_inc += 1
-            if checkpoints is not None and (
-                any(k.startswith("val_") for k in record)
-                or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
-                or epoch == max_epochs - 1
-            ):
-                checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model),
-                                 {k: float(v) for k, v in record.items()
-                                  if isinstance(v, (int, float)) and k != "epoch"},
-                                 step=state.step)
-            logger.info("epoch %d: %s", epoch, record)
-            if log_fn is not None:
-                log_fn(record)
-            if patience and not_inc > patience:
-                logger.info("early stop: F1 stagnant for %d epochs", not_inc)
-                break
-        return state
+        with sanitize.nan_checks(state.model, tcfg.debug_nans), \
+                sanitize.launch_checks(tcfg.enable_checks):
+            for epoch in range(max_epochs):
+                t0 = time.perf_counter()
+                losses = [self.train_step(state, batch.to(self.device),
+                                          fold_seed(seed, state.step))
+                          for batch in train_batches(epoch)]
+                record = {
+                    "epoch": epoch,
+                    "train_loss": (float(np.mean(torch.stack(losses).cpu().numpy()))
+                                   if losses else float("nan")),
+                    "epoch_seconds": time.perf_counter() - t0,
+                }
+                if val_batches is not None:
+                    metrics, _ = self.evaluate(state, val_batches())
+                    record.update({f"val_{k}": v for k, v in metrics.items()})
+                    f1 = metrics.get("f1", 0.0)
+                    if f1 > best_f1:
+                        best_f1, not_inc = f1, 0
+                    else:
+                        not_inc += 1
+                if checkpoints is not None and (
+                    any(k.startswith("val_") for k in record)
+                    or (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
+                    or epoch == max_epochs - 1
+                ):
+                    checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model),
+                                     {k: float(v) for k, v in record.items()
+                                      if isinstance(v, (int, float)) and k != "epoch"},
+                                     step=state.step)
+                logger.info("epoch %d: %s", epoch, record)
+                if log_fn is not None:
+                    log_fn(record)
+                if patience and not_inc > patience:
+                    logger.info("early stop: F1 stagnant for %d epochs", not_inc)
+                    break
+            return state

@@ -11,7 +11,8 @@
   of kernels 5-8 with the unidirectional bias and its cross-attention
   the rectangular kernels 5-7; every layer is replayed under remat.
 - Dropout: step s draws its masks from `fold_seed(seed, s)`, a different
-  but equally distributed stream from the reference's keys.
+  but equally distributed stream from the reference's keys; s is the host
+  step (the data cursor's), which a guard-skipped step advances too.
 - `eval_ppl` is exp of the token-weighted mean CE over a set of batches;
   `decode` runs `beam_search` over chunks of 16 sources (the last chunk
   padded with pad rows, as the reference pads it) and trims at EOS;
@@ -24,14 +25,27 @@
   `patience` (`run_gen.py:398-405`; the BLEU counter is infinite without
   `val_decode`).
 
+The runtime hooks, as the reference's `fit` runs them (`:265-441`): with
+a `ResilientRunner` each step is `train_step_guarded` (the on-device
+divergence guard, `TrainState.apply_gradients_guarded`, no host sync),
+with the runner's lagged ok read, step checkpoints, resume (the stream
+fast-forwarded past the consumed batches), rollback and watchdog
+heartbeats (input, device, eval); the obs instruments book the first
+step of each batch signature "S{source}xT{target}xR{rows}" as a ledger
+site (its FLOPs counted through the flash kernels' work formulas,
+obs/cost.py) and time the rest with CUDA events; the sanitizers
+(`train.debug_nans`, `train.enable_checks`) run the fit under
+core/sanitize.py's checks. A batch the fault injector poisoned
+(`testing/faults.py:PoisonedGenBatch`: a generation batch has no float
+input to poison) has its loss multiplied by NaN on the device.
+
 Not in the port yet, and refused when configured: a mesh beyond one
-card, `train.resilience.enabled`, the `obs` instruments and the
-`train.debug_nans`/`enable_checks` sanitizers (`core/config.py:
-refuse_unported_training`).
+card (`core/config.py:refuse_unported_training`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Callable, Iterable, Sequence
@@ -65,7 +79,7 @@ class GenTrainer:
 
     def __init__(self, cfg: Config, gen_cfg: gen.GenConfig, total_steps: int | None = None,
                  device: str | torch.device | None = None):
-        refuse_unported_training(cfg)
+        refuse_unported_training(cfg, runtime_hooks=True)
         self.cfg = cfg
         self.gen_cfg = gen_cfg
         self.total_steps = total_steps
@@ -119,7 +133,10 @@ class GenTrainer:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum, count = self.token_loss(state.model, batch, seed)
-        return loss_sum / count.clamp(min=1.0)
+        loss = loss_sum / count.clamp(min=1.0)
+        if getattr(batch, "poisoned", False):
+            loss = loss * float("nan")
+        return loss
 
     def train_step(self, state: TrainState, batch: GenBatch, seed: int | None) -> torch.Tensor:
         """One update on a batch already on the device; the loss,
@@ -128,6 +145,28 @@ class GenTrainer:
         loss.backward()
         state.apply_gradients()
         return loss.detach()
+
+    def train_step_guarded(self, state: TrainState, batch: GenBatch, seed: int | None,
+                           lr_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+        """`train_step` under the divergence guard (the reference's
+        `train_step_guarded`, `:152-158`): (loss, ok), both left on the
+        device; a non-finite loss or gradient leaves the state as it was
+        (TrainState.apply_gradients_guarded)."""
+        loss = self.forward_loss(state, batch, seed)
+        loss.backward()
+        ok = state.apply_gradients_guarded(loss, lr_scale)
+        return loss.detach(), ok
+
+    @staticmethod
+    def signature(batch: GenBatch) -> str:
+        """The ledger site of a step: source and target lengths, rows."""
+        rows, S = batch.source_ids.shape
+        return f"S{int(S)}xT{int(batch.target_ids.shape[1])}xR{int(rows)}"
+
+    def aten_precision(self) -> str:
+        """The type the aten products of a step run in (the ledger's MFU
+        ceiling for them): the model's activations."""
+        return "bf16" if "bfloat16" in str(self.gen_cfg.encoder.dtype) else "fp32"
 
     @torch.inference_mode()
     def eval_step(self, state_or_model, batch: GenBatch) -> torch.Tensor:
@@ -195,65 +234,134 @@ class GenTrainer:
         patience: int | None = None,
         log_fn: Callable[[dict], None] | None = None,
         seed: int = 0,
+        resilience=None,
     ) -> TrainState:
         """Epochs over `train_batches(epoch)` (host GenBatches); step s
         drops with `fold_seed(seed, s)`. `val_decode` is (source ids,
-        target token lists) for dev BLEU/EM."""
+        target token lists) for dev BLEU/EM. `resilience`: a
+        `ResilientRunner` (train/resilience.py); a mid-epoch resume
+        restores the exact state and fast-forwards the (seeded) stream,
+        and the best-ppl/BLEU early-stop counters restart at the resumed
+        epoch, as the reference's do."""
+        from deepdfa_tpu_torch import obs
+        from deepdfa_tpu_torch.core import sanitize
+        from deepdfa_tpu_torch.train.resilience import ResumeCursor, finite_mean, skip_first
+
         tcfg = self.cfg.train
         max_epochs = max_epochs if max_epochs is not None else tcfg.max_epochs
         patience = patience or 0
+        inst = obs.instruments(self.cfg, self.device)
+        res = resilience
+        guard = res is not None and res.guard_active
+        start_epoch = skip_batches = 0
+        cursor = res.maybe_resume(state) if res is not None else None
+        if cursor is not None:
+            start_epoch, skip_batches = cursor.epoch, cursor.batch_index
+        precision = self.aten_precision()
         best_ppl, best_bleu_em = float("inf"), -1.0
         not_ppl_dec = 0
         not_bleu_inc = 0 if val_decode is not None else float("inf")
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            losses = []
-            tokens = 0
-            for batch in train_batches(epoch):
-                tokens += int(((np.asarray(batch.target_ids) != self.pad_id)
-                               & np.asarray(batch.row_mask)[:, None]).sum())
-                losses.append(self.train_step(state, batch.to(self.device),
-                                              fold_seed(seed, state.step)))
-            seconds = time.perf_counter() - t0
-            record = {
-                "epoch": epoch,
-                "train_loss": (float(np.mean(torch.stack(losses).cpu().numpy()))
-                               if losses else float("nan")),
-                "epoch_seconds": seconds,
-                "train_target_tokens_per_sec": tokens / seconds if seconds else None,
-            }
-            if val_batches is not None:
-                ppl = self.eval_ppl(state, val_batches())
-                record["val_ppl"] = ppl
-                if ppl < best_ppl:
-                    best_ppl, not_ppl_dec = ppl, 0
-                    if checkpoints is not None:
-                        checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model),
-                                         {"val_ppl": ppl}, step=state.step)
+        with contextlib.ExitStack() as hooks:
+            if res is not None:
+                hooks.enter_context(res)
+            hooks.enter_context(sanitize.nan_checks(state.model, tcfg.debug_nans))
+            hooks.enter_context(sanitize.launch_checks(tcfg.enable_checks))
+            for epoch in range(start_epoch, max_epochs):
+                t0 = time.perf_counter()
+                losses = []
+                tokens = 0
+                source = train_batches(epoch)
+                batch_index = 0
+                if epoch == start_epoch and skip_batches:
+                    # deterministic fast-forward (the shuffle is seeded by
+                    # epoch), a beat per skipped pull
+                    source = skip_first(source, skip_batches, heartbeat=lambda: res.heartbeat(
+                        "input", epoch=epoch, step=state.step))
+                    batch_index = skip_batches
+                it = iter(source)
+                while True:
+                    if res is not None:
+                        res.heartbeat("input", epoch=epoch, step=state.step)
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        break
+                    tokens += int(((np.asarray(batch.target_ids) != self.pad_id)
+                                   & np.asarray(batch.row_mask)[:, None]).sum())
+                    batch = batch.to(self.device)
+                    if res is not None:
+                        res.heartbeat("device", epoch=epoch, step=state.step)
+                    step_seed = fold_seed(seed, state.step)
+                    ok = None
+                    if guard:
+                        loss, ok = inst.run_step(
+                            state.step, "train_step", self.signature(batch),
+                            lambda: self.train_step_guarded(state, batch, step_seed,
+                                                            res.lr_scale()),
+                            precision)
+                    else:
+                        loss = inst.run_step(
+                            state.step, "train_step", self.signature(batch),
+                            lambda: self.train_step(state, batch, step_seed), precision)
+                    losses.append(loss)
+                    batch_index += 1
+                    if res is not None:
+                        res.after_step(state, ok, ResumeCursor(epoch, batch_index, state.step))
+                seconds = time.perf_counter() - t0
+                if losses:
+                    # guarded runs leave a skipped step's poisoned loss out
+                    values = torch.stack(losses).cpu().numpy()
+                    train_loss = finite_mean(values) if guard else float(np.mean(values))
                 else:
-                    not_ppl_dec += 1
-            elif checkpoints is not None and (
-                (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
-                or epoch == max_epochs - 1
-            ):
-                checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model), {},
-                                 step=state.step)
-            if val_decode is not None:
-                src, refs = val_decode
-                bleu = self.eval_bleu_em(state, src, refs)
-                record.update({f"val_{k}": v for k, v in bleu.items()})
-                if bleu["bleu_em"] > best_bleu_em:
-                    best_bleu_em, not_bleu_inc = bleu["bleu_em"], 0
-                    if bleu_checkpoints is not None:
-                        bleu_checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model),
-                                              {"val_bleu_em": bleu["bleu_em"]}, step=state.step)
-                else:
-                    not_bleu_inc += 1
-            logger.info("epoch %d: %s", epoch, record)
-            if log_fn is not None:
-                log_fn(record)
-            if patience and not_ppl_dec > patience and not_bleu_inc > patience:
-                logger.info("early stop: ppl counter %d, bleu counter %s > patience %d",
-                            not_ppl_dec, not_bleu_inc, patience)
-                break
+                    train_loss = float("nan")
+                record = {
+                    "epoch": epoch,
+                    "train_loss": train_loss,
+                    "epoch_seconds": seconds,
+                    "train_target_tokens_per_sec": tokens / seconds if seconds else None,
+                }
+                if res is not None:
+                    record.update(res.record())
+                    # the epoch-end stages (perplexity, decoding, saves) run
+                    # under the watchdog's grace threshold
+                    res.heartbeat("eval", epoch=epoch)
+                inst.finish_epoch(record)
+                if val_batches is not None:
+                    ppl = self.eval_ppl(state, val_batches())
+                    record["val_ppl"] = ppl
+                    if ppl < best_ppl:
+                        best_ppl, not_ppl_dec = ppl, 0
+                        if checkpoints is not None:
+                            checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model),
+                                             {"val_ppl": ppl}, step=state.step)
+                    else:
+                        not_ppl_dec += 1
+                elif checkpoints is not None and (
+                    (epoch + 1) % max(1, tcfg.checkpoint_every_epochs) == 0
+                    or epoch == max_epochs - 1
+                ):
+                    checkpoints.save(f"epoch-{epoch:04d}", model_state(state.model), {},
+                                     step=state.step)
+                if val_decode is not None:
+                    src, refs = val_decode
+                    bleu = self.eval_bleu_em(state, src, refs)
+                    record.update({f"val_{k}": v for k, v in bleu.items()})
+                    if bleu["bleu_em"] > best_bleu_em:
+                        best_bleu_em, not_bleu_inc = bleu["bleu_em"], 0
+                        if bleu_checkpoints is not None:
+                            bleu_checkpoints.save(f"epoch-{epoch:04d}",
+                                                  model_state(state.model),
+                                                  {"val_bleu_em": bleu["bleu_em"]},
+                                                  step=state.step)
+                    else:
+                        not_bleu_inc += 1
+                logger.info("epoch %d: %s", epoch, record)
+                if log_fn is not None:
+                    log_fn(record)
+                if patience and not_ppl_dec > patience and not_bleu_inc > patience:
+                    logger.info("early stop: ppl counter %d, bleu counter %s > patience %d",
+                                not_ppl_dec, not_bleu_inc, patience)
+                    break
+            if res is not None:
+                res.finish(state, ResumeCursor(max_epochs, 0, state.step))
         return state

@@ -12,7 +12,11 @@ Python over one `GenTrainer`:
   (per family: summarize 2, translate 5, refine 5, concode 3, defect 2);
   more than 50 draws in a row of stopped tasks end the run, as does every
   evaluated task stopping;
-- step s drops with `fold_seed(seed, s)`.
+- step s drops with `fold_seed(seed, s)`;
+- the `train.debug_nans`/`train.enable_checks` sanitizers run the loop
+  under core/sanitize.py's checks. As in the reference, the loop takes no
+  resilient runtime and no obs instruments, and refuses them when
+  configured (`core/config.py:refuse_unported_training`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Callable, Iterable, Iterator, Sequence
 import numpy as np
 import torch
 
+from deepdfa_tpu_torch.core import sanitize
+from deepdfa_tpu_torch.core.config import refuse_unported_training
 from deepdfa_tpu_torch.data.gen_data import GenBatch
 from deepdfa_tpu_torch.nn.dropout import fold_seed
 from deepdfa_tpu_torch.train.gen_loop import GenTrainer, model_state
@@ -117,6 +123,7 @@ def fit_multi(
     `checkpoints(task_name, monitor, mode)` makes a CheckpointManager,
     called once per task for its best-ppl (and best-BLEU) checkpoints;
     `eval_every` defaults to an eighth of the tasks' total size."""
+    refuse_unported_training(trainer.cfg)
     if not tasks:
         raise ValueError("fit_multi needs at least one task")
     names = [t.name for t in tasks]
@@ -138,69 +145,72 @@ def fit_multi(
     t0 = time.perf_counter()
     losses: list = []
     skip_draws = 0
-    while step < max_steps:
-        task = tasks[int(rng.choice(len(tasks), p=probs))]
-        book = books[task.name]
-        if book.stopped:
-            skip_draws += 1
-            if skip_draws > _STOP_DRAWS:
-                logger.info("all tasks early-stopped at step %d", step)
-                break
-            continue
-        skip_draws = 0
-        batch = next(streams[task.name]).to(trainer.device)
-        losses.append(trainer.train_step(state, batch, fold_seed(seed, step)))
-        step += 1
-        if step % eval_every and step < max_steps:
-            continue
-
-        record: dict = {
-            "step": step,
-            "train_loss": float(np.mean(torch.stack(losses).cpu().numpy())),
-            "window_seconds": time.perf_counter() - t0,
-        }
-        losses, t0 = [], time.perf_counter()
-        for t in tasks:
-            b = books[t.name]
-            if b.stopped or t.val_batches is None:
+    tcfg = trainer.cfg.train
+    with sanitize.nan_checks(state.model, tcfg.debug_nans), \
+            sanitize.launch_checks(tcfg.enable_checks):
+        while step < max_steps:
+            task = tasks[int(rng.choice(len(tasks), p=probs))]
+            book = books[task.name]
+            if book.stopped:
+                skip_draws += 1
+                if skip_draws > _STOP_DRAWS:
+                    logger.info("all tasks early-stopped at step %d", step)
+                    break
                 continue
-            ppl = trainer.eval_ppl(state, t.val_batches())
-            record[f"{t.name}/val_ppl"] = ppl
-            if ppl < b.best_ppl:
-                b.best_ppl, b.not_ppl_dec = ppl, 0
-                if checkpoints is not None:
-                    if t.name not in ppl_ckpt:
-                        ppl_ckpt[t.name] = checkpoints(t.name, "val_ppl", "min")
-                    ppl_ckpt[t.name].save(f"step-{step:07d}", model_state(state.model),
-                                          {"val_ppl": ppl}, step=step)
-            else:
-                b.not_ppl_dec += 1
-            if t.val_decode is not None:
-                src, refs = t.val_decode
-                scores = trainer.eval_bleu_em(state, src, refs)
-                record[f"{t.name}/val_bleu_em"] = scores["bleu_em"]
-                if scores["bleu_em"] > b.best_bleu_em:
-                    b.best_bleu_em, b.not_bleu_inc = scores["bleu_em"], 0
+            skip_draws = 0
+            batch = next(streams[task.name]).to(trainer.device)
+            losses.append(trainer.train_step(state, batch, fold_seed(seed, step)))
+            step += 1
+            if step % eval_every and step < max_steps:
+                continue
+
+            record: dict = {
+                "step": step,
+                "train_loss": float(np.mean(torch.stack(losses).cpu().numpy())),
+                "window_seconds": time.perf_counter() - t0,
+            }
+            losses, t0 = [], time.perf_counter()
+            for t in tasks:
+                b = books[t.name]
+                if b.stopped or t.val_batches is None:
+                    continue
+                ppl = trainer.eval_ppl(state, t.val_batches())
+                record[f"{t.name}/val_ppl"] = ppl
+                if ppl < b.best_ppl:
+                    b.best_ppl, b.not_ppl_dec = ppl, 0
                     if checkpoints is not None:
-                        if t.name not in bleu_ckpt:
-                            bleu_ckpt[t.name] = checkpoints(t.name + "-bleu", "val_bleu_em",
-                                                            "max")
-                        bleu_ckpt[t.name].save(f"step-{step:07d}", model_state(state.model),
-                                               {"val_bleu_em": scores["bleu_em"]}, step=step)
+                        if t.name not in ppl_ckpt:
+                            ppl_ckpt[t.name] = checkpoints(t.name, "val_ppl", "min")
+                        ppl_ckpt[t.name].save(f"step-{step:07d}", model_state(state.model),
+                                              {"val_ppl": ppl}, step=step)
                 else:
-                    b.not_bleu_inc += 1
-            patience = t.resolved_patience()
-            if patience and b.not_ppl_dec > patience and b.not_bleu_inc > patience:
-                b.stopped, b.stopped_at = True, step
-                logger.info("task %s early-stopped at step %d (ppl counter %d, bleu "
-                            "counter %s)", t.name, step, b.not_ppl_dec, b.not_bleu_inc)
-        logger.info("step %d: %s", step, record)
-        if log_fn is not None:
-            log_fn(record)
-        evaluated = [t for t in tasks if t.val_batches is not None]
-        if evaluated and all(books[t.name].stopped for t in evaluated):
-            logger.info("every evaluated task early-stopped; ending run")
-            break
+                    b.not_ppl_dec += 1
+                if t.val_decode is not None:
+                    src, refs = t.val_decode
+                    scores = trainer.eval_bleu_em(state, src, refs)
+                    record[f"{t.name}/val_bleu_em"] = scores["bleu_em"]
+                    if scores["bleu_em"] > b.best_bleu_em:
+                        b.best_bleu_em, b.not_bleu_inc = scores["bleu_em"], 0
+                        if checkpoints is not None:
+                            if t.name not in bleu_ckpt:
+                                bleu_ckpt[t.name] = checkpoints(t.name + "-bleu", "val_bleu_em",
+                                                                "max")
+                            bleu_ckpt[t.name].save(f"step-{step:07d}", model_state(state.model),
+                                                   {"val_bleu_em": scores["bleu_em"]}, step=step)
+                    else:
+                        b.not_bleu_inc += 1
+                patience = t.resolved_patience()
+                if patience and b.not_ppl_dec > patience and b.not_bleu_inc > patience:
+                    b.stopped, b.stopped_at = True, step
+                    logger.info("task %s early-stopped at step %d (ppl counter %d, bleu "
+                                "counter %s)", t.name, step, b.not_ppl_dec, b.not_bleu_inc)
+            logger.info("step %d: %s", step, record)
+            if log_fn is not None:
+                log_fn(record)
+            evaluated = [t for t in tasks if t.val_batches is not None]
+            if evaluated and all(books[t.name].stopped for t in evaluated):
+                logger.info("every evaluated task early-stopped; ending run")
+                break
 
     summary = {
         name: {

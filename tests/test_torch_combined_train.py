@@ -501,9 +501,11 @@ def test_cli_runs_what_was_refused(tmp_path, monkeypatch, capsys, case):
 def test_trainer_refuses_what_the_port_does_not_run(what):
     """A mesh beyond one card is refused. The resilient runtime and the
     obs instruments run in the combined trainer since the runtime-hooks
-    slice (tests/test_torch_resilience.py, test_torch_obs.py); the
-    generation trainer still refuses them."""
-    from deepdfa_tpu_torch.models import GenConfig, T5Config
+    slice (tests/test_torch_resilience.py, test_torch_obs.py), and in the
+    generation trainer (tests/test_torch_gen_resilience.py); the clone
+    trainer refuses them, as its reference loop does not run them."""
+    from deepdfa_tpu_torch.models import CloneConfig, GenConfig, T5Config
+    from deepdfa_tpu_torch.train.clone_loop import CloneTrainer
     from deepdfa_tpu_torch.train.gen_loop import GenTrainer
 
     _, tmcfg = _model_cfgs()
@@ -518,8 +520,9 @@ def test_trainer_refuses_what_the_port_does_not_run(what):
         tmcfg = dataclasses.replace(tmcfg, moe_experts=4)
     if what in ("resilience", "obs"):
         CombinedTrainer(tcfg, tmcfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            GenTrainer(tcfg, GenConfig(encoder=T5Config()), device="cpu")
+        GenTrainer(tcfg, GenConfig(encoder=T5Config()), device="cpu")
+        with pytest.raises(NotImplementedError, match="reference's `train-multi-gen`"):
+            CloneTrainer(tcfg, CloneConfig(encoder=T5Config()), device="cpu")
         return
     with pytest.raises(NotImplementedError):
         CombinedTrainer(tcfg, tmcfg, device="cpu")

@@ -167,12 +167,18 @@ def test_validate_checks_etypes_against_gtype_like_the_reference(gtype, n_etypes
 def test_sanitizer_switches_are_read_and_refused(name):
     """train.debug_nans / train.enable_checks are fields of the port's
     config with the reference's defaults, read from JSON (not passed
-    over), and refused by every trainer of the port."""
+    over), and taken by every trainer of the port (the reference's
+    `_load_config` applies them to every command): the refusal rule of
+    the trainers without the runtime hooks refuses the resilient runtime
+    beside them, never the sanitizer."""
     assert getattr(tcfg.TrainConfig(), name) is getattr(jcfg.TrainConfig(), name) is False
     cfg = tcfg.from_dict({"train": {name: True}})
     assert getattr(cfg.train, name) is True
     tcfg.refuse_unported_training(tcfg.Config())
-    with pytest.raises(NotImplementedError, match=name):
-        tcfg.refuse_unported_training(cfg)
-    with pytest.raises(NotImplementedError, match=name):
-        tcfg.refuse_unported_training(tcfg.apply_overrides(tcfg.Config(), [f"train.{name}=true"]))
+    tcfg.refuse_unported_training(cfg)
+    tcfg.refuse_unported_training(cfg, runtime_hooks=True)
+    over = tcfg.apply_overrides(tcfg.Config(), [f"train.{name}=true"])
+    tcfg.refuse_unported_training(over)
+    with pytest.raises(NotImplementedError, match="resilience"):
+        tcfg.refuse_unported_training(tcfg.apply_overrides(
+            over, ["train.resilience.enabled=true"]))

@@ -2037,6 +2037,79 @@ def test_guarded_step_skips_on_the_card_without_moving_anything(card):
     assert after["schedule_count"] == 1 and after["step"] == 2
 
 
+def _gen_batches(card, n=4):
+    from deepdfa_tpu_torch.data.gen_data import collate_gen
+
+    rng = np.random.default_rng(25)
+    out = []
+    for _ in range(n):
+        src = rng.integers(3, 256, (8, 40)).astype(np.int32)
+        tgt = rng.integers(3, 256, (8, 24)).astype(np.int32)
+        src[2, 30:] = 0
+        tgt[3, 10:] = 0
+        out.append(collate_gen(src, tgt, 8).to(card))
+    return out
+
+
+def test_generation_guarded_steps_add_no_synchronizing_call(card):
+    """The generation trainer's guarded steps (fp32, dropout 0.1, the
+    runner reading each ok flag a step late) make as many synchronizing
+    calls as its unguarded ones (none); a poisoned batch's step is
+    skipped on the card with nothing moved."""
+    from deepdfa_tpu_torch.core.config import ResilienceConfig
+    from deepdfa_tpu_torch.testing.faults import poison_batch
+    from deepdfa_tpu_torch.train import GenTrainer
+    from deepdfa_tpu_torch.train.resilience import ResilientRunner, ResumeCursor
+
+    batches = _gen_batches(card)
+    trainer = GenTrainer(Config(), _gen_cfg(), total_steps=100, device=card)
+    state_g, state_u = trainer.init_state(seed=0), trainer.init_state(seed=0)
+    runner = ResilientRunner(ResilienceConfig(enabled=True), None)
+
+    def guarded(k):
+        _, ok = trainer.train_step_guarded(state_g, batches[k % 4], 7 + k, runner.lr_scale())
+        runner.after_step(state_g, ok, ResumeCursor(0, k + 1, state_g.step))
+
+    def plain(k):
+        trainer.train_step(state_u, batches[k % 4], 7 + k)
+
+    guarded(0)
+    plain(0)
+    assert _sync_calls(guarded, 8) == _sync_calls(plain, 8) == 0
+    assert runner.skipped_steps == 0
+    runner.finish(state_g, ResumeCursor(1, 0, state_g.step))
+    before = state_g.state_dict()
+    loss, ok = trainer.train_step_guarded(state_g, poison_batch(batches[0]).to(card), 99)
+    assert not bool(ok) and not torch.isfinite(loss)
+    after = state_g.state_dict()
+    assert all(torch.equal(before["model"][k], after["model"][k]) for k in before["model"])
+    for i, st in before["optimizer"]["state"].items():
+        assert all(torch.equal(st[k], after["optimizer"]["state"][i][k]) for k in st)
+    assert after["schedule_count"] == before["schedule_count"]
+
+
+def test_counted_flops_of_a_generation_step_equal_on_card_and_cpu(card):
+    """The counted cost of one generation training step (the flash
+    kernels' work formulas from the wrappers' reports plus
+    FlopCounterMode's aten products) is the same number on the card,
+    where kernels 5-8 launch, and on the CPU, where their plain versions
+    run hidden from the counter."""
+    from deepdfa_tpu_torch.obs.cost import count_cost
+    from deepdfa_tpu_torch.train import GenTrainer
+
+    batch = _gen_batches(card, 1)[0]
+    counts = {}
+    for dev in (card, "cpu"):
+        trainer = GenTrainer(Config(), _gen_cfg(), total_steps=1, device=dev)
+        state = trainer.init_state(seed=0)
+        _, counts[str(dev)] = count_cost(lambda: trainer.train_step(state, batch.to(dev), 3))
+    on_card, on_cpu = counts[str(card)], counts["cpu"]
+    assert on_card["flops"] == on_cpu["flops"] > 0
+    assert on_card["kernels"] == on_cpu["kernels"]
+    assert {k: v["launches"] for k, v in on_card["kernels"].items()} == {
+        "flash_fwd": 12, "flash_dq": 6, "flash_dkv": 6, "flash_dbias": 4}
+
+
 def test_step_timer_reads_event_times_without_a_synchronize(card):
     from deepdfa_tpu_torch.obs import metrics
     from deepdfa_tpu_torch.obs.xprof import StepTimer

@@ -300,9 +300,9 @@ def test_token_soups_parse_or_fail_alike(block):
     assert n_parsed > 0 and n_differ <= 1
 
 
-#: other languages' spellings (the reference parses java, c#, js, go, php
-#: and ruby under its `dialect=`, which the port leaves out): in C source
-#: they must lex and parse as the reference's C path does
+#: other languages' spellings (both packages parse java, c#, js, go, php
+#: and ruby under `dialect=`, tests/test_torch_codebleu_dialects.py): in C
+#: source they must lex and parse as the reference's C path does
 OTHER_LANGUAGE_WORDS = SOUP_WORDS + (
     "foreach", "using", "lock", "=>", "instanceof", "is", "as", "func", "var", "def", "end",
     "$x", "@y", "`s`", "?.", "?->", "&.", "..", "...", ":=", "<-", "===", "**", "try",
@@ -327,9 +327,9 @@ def other_language_soup(seed: int) -> str:
 
 @pytest.mark.parametrize("block", range(4))
 def test_other_language_spellings_parse_as_c_alike(block):
-    """The port's lexer and parser take C alone; on C sources strewn with
-    other languages' tokens they give the reference's C tokens and CPG, or
-    the same error."""
+    """Under the C dialect (the default), on C sources strewn with other
+    languages' tokens, the port's lexer and parser give the reference's C
+    tokens and CPG, or the same error."""
     outcomes = set()
     for seed in range(block * N_OTHER // 4, (block + 1) * N_OTHER // 4):
         code = other_language_soup(seed)

@@ -300,9 +300,11 @@ class _Tagged:
 
 class _Recorder:
     """A stand-in trainer recording the task of each step (both packages'
-    fit_multi call only train_step while no task evaluates)."""
+    fit_multi call only train_step while no task evaluates; the port's
+    reads the config's sanitizer switches first)."""
 
     device = "cpu"
+    cfg = tconfig.Config()
 
     def __init__(self, port: bool):
         self.port, self.order = port, []
@@ -317,6 +319,7 @@ class _Recorder:
 
 class _Step:
     step = 0
+    model = torch.nn.Module()
 
 
 def test_fit_multi_draws_the_reference_task_order():
@@ -447,11 +450,33 @@ def test_cli_train_multi_gen_and_clone_end_to_end(tmp_path, monkeypatch, capsys)
 @pytest.mark.parametrize("cmd", [["train-gen", "--task", "summarize"], ["train-clone"],
                                  ["train-multi-gen", "--task-spec", "summarize=x"]])
 def test_cli_refuses_unported_training_options(tmp_path, monkeypatch, cmd):
+    """Every generation command trains under the sanitizers
+    (`train.debug_nans`, `train.enable_checks`); `train-gen` also under the
+    resilient runtime and the obs instruments, which `train-multi-gen` and
+    `train-clone` refuse, naming the reference's loops, which do not run
+    them either."""
     monkeypatch.setenv("DEEPDFA_TPU_STORAGE", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="debug_nans"):
-        cli.main([*cmd, "--tiny", "--device", "cpu", "train.debug_nans=true"])
-    with pytest.raises(NotImplementedError, match="resilience"):
-        cli.main([*cmd, "--tiny", "--device", "cpu", "train.resilience.enabled=true"])
+    files, cfg_path = _cli_files(tmp_path)
+    data = {"train-gen": ["--train-file", files["summarize"]],
+            "train-clone": ["--train-file", files["clone"]],
+            "train-multi-gen": ["--task-spec", f"summarize={files['summarize']}",
+                                "--max-steps", "3"]}[cmd[0]]
+    base = [cmd[0], *cmd[1:3 if cmd[0] == "train-gen" else 1], "--tiny", "--device", "cpu",
+            "--config", cfg_path, *data, "--batch-size", "4", "--max-source-length", "24",
+            "--vocab-size", "128", *(["--max-target-length", "8"]
+                                     if cmd[0] != "train-clone" else [])]
+    cli.main([*base, "train.debug_nans=true", "train.enable_checks=true"])
+    hooks = ["train.resilience.enabled=true", "obs.metrics=true"]
+    if cmd[0] == "train-gen":
+        cli.main([*base, *hooks, 'run_name="hooks"'])
+        run = tmp_path / "runs" / "hooks"
+        assert (run / cli.GEN_STEP_CHECKPOINTS_DIR / "resume.json").is_file()
+        records = [json.loads(x) for x in (run / "train_log.jsonl").read_text().splitlines()]
+        assert all(r["skipped_steps"] == 0 and "obs" in r for r in records)
+        return
+    for over in hooks:
+        with pytest.raises(NotImplementedError, match="reference's `train-multi-gen`"):
+            cli.main([*base, over])
 
 
 @pytest.mark.parametrize("cmd", ["train-gen", "train-clone", "train-multi-gen"])

@@ -89,6 +89,8 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.scan.sarif", "deepdfa_tpu_torch.scan.scanner",
         "deepdfa_tpu_torch.nn.setops", "deepdfa_tpu_torch.nn.bitprop",
         "deepdfa_tpu_torch.parallel", "deepdfa_tpu_torch.parallel.moe",
+        "deepdfa_tpu_torch.eval.dfg_parity", "deepdfa_tpu_torch.testing.faults",
+        "deepdfa_tpu_torch.train.resilience",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []

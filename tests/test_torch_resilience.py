@@ -549,13 +549,23 @@ def test_enable_checks_catch_bad_indices():
 @pytest.mark.parametrize("over", ["train.resilience.enabled=true", "obs.metrics=true",
                                   "train.debug_nans=true", "train.enable_checks=true"])
 def test_trainers_take_the_hooks_and_gen_clone_refuse_them(over):
-    from deepdfa_tpu_torch.models import GenConfig, T5Config
+    """The GGNN, combined and generation trainers take every hook; the
+    multi-task generation and clone loops take the sanitizers and refuse
+    the resilient runtime and the obs instruments, naming the reference's
+    loops, which do not run them either."""
+    from deepdfa_tpu_torch.models import CloneConfig, GenConfig, T5Config
+    from deepdfa_tpu_torch.train.clone_loop import CloneTrainer
     from deepdfa_tpu_torch.train.gen_loop import GenTrainer
 
     cfg = tconfig.apply_overrides(tconfig.Config(), [over])
     tconfig.refuse_unported_training(cfg, runtime_hooks=True)
     GraphTrainer(DeepDFA.from_config(cfg.model, INPUT_DIM), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    GenTrainer(cfg, GenConfig(encoder=T5Config()), device="cpu")
+    if "debug_nans" in over or "enable_checks" in over:
         tconfig.refuse_unported_training(cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GenTrainer(cfg, GenConfig(encoder=T5Config()), device="cpu")
+        CloneTrainer(cfg, CloneConfig(encoder=T5Config()), device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="reference's `train-multi-gen`"):
+        tconfig.refuse_unported_training(cfg)
+    with pytest.raises(NotImplementedError, match="reference's `train-multi-gen`"):
+        CloneTrainer(cfg, CloneConfig(encoder=T5Config()), device="cpu")

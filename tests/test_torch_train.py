@@ -392,8 +392,9 @@ def test_adamw_trajectory_stays_close_to_reference_trainer():
 def test_trainer_refuses_what_the_port_does_not_run():
     """A mesh beyond one card is refused. The resilient runtime runs in
     GraphTrainer since the runtime-hooks slice
-    (tests/test_torch_resilience.py); the generation and clone trainers'
-    rule (`refuse_unported_training` without the hooks) still refuses it."""
+    (tests/test_torch_resilience.py); the multi-task generation and clone
+    loops' rule (`refuse_unported_training` without the hooks) still
+    refuses it, as their reference loops do not run it."""
     _, tcfg = _cfgs()
     model = DeepDFA.from_config(tcfg.model, VOCAB)
     for train in ({"mesh": {"dp": 2}}, {"mesh": {"dp": 1, "tp": 2}},
@@ -403,7 +404,7 @@ def test_trainer_refuses_what_the_port_does_not_run():
             GraphTrainer(model, cfg, device="cpu")
     _, cfg = _cfgs(resilience={"enabled": True})
     GraphTrainer(model, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="reference's `train-multi-gen`"):
         tconfig.refuse_unported_training(cfg)
     flagship = tconfig.load(cli.Path(__file__).resolve().parents[1] / "configs" / "bigvul_deepdfa.json")
     assert tconfig.one_card(flagship.train.mesh) == 1
