@@ -310,6 +310,29 @@ prints one JSON line; any failure exits non-zero before the last line.
    ledger holding the step's site; the bounded health probe answers ok
    inside 120 s. Every phase line carries its seconds since the one
    before (`since_last_phase_s`);
+7zc. joern_and_tools — on the same root and checkpoint (d 128): (a) `cli
+   score` in-process with serve.use_joern=true, a pool of 2 and a stub
+   `joern` REPL on PATH (deepdfa_tpu_torch/testing/joern_stub.py: the five
+   hand-built Joern fixture exports; neither machine has Joern) over the
+   five fixture sources, a repeat of each and a source the stub does not
+   know, on the card and on the CPU plain path: the fixtures and repeats
+   scored (each through an import and an export round trip, the repeats
+   cache hits), the unknown source one counted failure, card vs CPU
+   within 1e-5, kernel 1 n_steps times a batch; then, with the shared
+   feature cache dropped, a stub that wedges after its handshake under
+   serve.joern_timeout_s=2: one JoernTimeout, one restart, the five
+   scored with (a)'s probabilities; (b) `Tuner` over `random_search` of
+   train.optim.learning_rate, 2 trials of GraphTrainer on the card (4
+   steps, 2 validation batches) logging through RunLogger: a 2-row
+   trial ledger of finite values, each trial's launches, TensorBoard
+   where it imports; (c) `cli run-exp --tasks deepdfa --seeds 0 1` (1
+   epoch): two `cli train` subprocesses on the card under the storage
+   root, 2 summary rows with rc 0 and a parsed result, their launches
+   read from each subprocess's counters at its exit (a sitecustomize
+   the script writes); (d) `cli coverage`, `logistic_control` on the
+   store's splits beside the GGNN's test metrics (the pipeline's card
+   probabilities), `cli ivdetect` over 16 test functions; each part's
+   seconds and the phase's;
 8. kernel flash_fwd — the flash-attention forward kernel against its
    plain version on the card: the flagship serving shape (B 16, H 12,
    T 512, D 64) in bf16, the T = 256 and T = 128 bucket shapes, an fp32
@@ -466,7 +489,7 @@ prints one JSON line; any failure exits non-zero before the last line.
    block on the last step's [CLS] rows in fp32 gives the same dispatch,
    and outputs and aux within 1e-5, on the card and the CPU; the block
    and a step's gradients the same bits on a repeat;
-21. kernels — every kernel with its launches on the fifty-three main
+21. kernels — every kernel with its launches on the fifty-seven main
    paths (serve, train, serve_combined, train_combined, serve_t5,
    train_t5, train_gen, decode_gen, gen_runtime_full, gen_runtime_faults,
    gen_runtime_resume, train_clone, the six of 7c-7d, the
@@ -476,8 +499,9 @@ prints one JSON line; any failure exits non-zero before the last line.
    serve_lines_pipelined, serve_int8_entry, cascade_int8,
    train_prefetch, struct_train, struct_score, scan, bits_train,
    bits_test, bf16_train, bf16_score, bf16_localize, moe_train,
-   moe_serve, hooks_train, hooks_resume, hooks_test_profile, hooks_score
-   and hooks_train_combined, each counted from 0, and by path),
+   moe_serve, hooks_train, hooks_resume, hooks_test_profile, hooks_score,
+   hooks_train_combined, jo, jo_restart, tn and rx, each counted from 0,
+   and by path),
    error, time, plain time, bound and library time; the flash rows add
    their biased times as bias_* and their causal and gen-path times under
    by_call; ggnn_step_bf16, ggnn_step_int8 and ggnn_step_mxu* are kernel
@@ -7155,6 +7179,368 @@ def efficiency_phase(torch, tmp: Path, smi: str) -> dict:
     return paths
 
 
+#: joern_and_tools: the Joern route's pool, its per-command bound in the
+#: restart check, the card-vs-CPU gate on its probabilities (fp32)
+JOERN_POOL_SIZE, JOERN_WEDGE_TIMEOUT_S, JOERN_PROB_TOL = 2, 2.0, 1e-5
+#: a source the stub REPL has no export for: a counted failure
+JOERN_UNKNOWN = "int other(int a) {\n  int b = a * 2;\n  return b;\n}\n"
+#: the search: trials, their train and validation batches, the space
+TUNER_TRIALS, TUNER_TRAIN_BATCHES, TUNER_VAL_BATCHES = 2, 4, 2
+TUNER_LR_RANGE = (1e-4, 3e-3, True)
+#: run-exp's seeds; ivdetect's sources
+RUN_EXP_SEEDS = (0, 1)
+IVDETECT_FUNCTIONS = 16
+
+#: a sitecustomize for the run-exp subprocesses: it chains to the one it
+#: shadows, if any, and at exit writes the process's GGNN kernel launch
+#: counts to $CHIP_SMOKE_COUNTS_DIR/<pid>.json (the subprocesses count from
+#: 0 as any process does; the parent cannot read their counters)
+_COUNTS_HOOK = '''
+import atexit, importlib.machinery, importlib.util, json, os, sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None and _spec.loader is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+
+
+def _dump():
+    gk = sys.modules.get("deepdfa_tpu_torch.nn.ggnn_kernel")
+    if gk is not None:
+        path = os.path.join(os.environ["CHIP_SMOKE_COUNTS_DIR"], f"{os.getpid()}.json")
+        with open(path, "w") as f:
+            json.dump(gk.launch_counts(), f)
+
+
+atexit.register(_dump)
+'''
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """os.environ[k] = v inside the block, restored after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def recorded_joern(joern_session, serve_frontend):
+    """JoernSession and SessionPool replaced by subclasses that record
+    every instance and each session's round trips (label, ms); yields
+    (sessions, pools)."""
+    sessions, pools = [], []
+
+    class Session(joern_session.JoernSession):
+        def __init__(self, *a, **k):
+            self.round_trips = []
+            sessions.append(self)
+            super().__init__(*a, **k)
+
+        def _exchange(self, cmd, timeout=None):
+            t0 = time.perf_counter()
+            try:
+                return super()._exchange(cmd, timeout)
+            finally:
+                what = ("export" if "PrintWriter" in cmd else
+                        "import" if cmd.startswith("importCode(") else "handshake")
+                self.round_trips.append((what, 1e3 * (time.perf_counter() - t0)))
+
+    class Pool(serve_frontend.SessionPool):
+        def __init__(self, *a, **k):
+            pools.append(self)
+            super().__init__(*a, **k)
+
+    saved = joern_session.JoernSession, serve_frontend.SessionPool
+    joern_session.JoernSession, serve_frontend.SessionPool = Session, Pool
+    try:
+        yield sessions, pools
+    finally:
+        joern_session.JoernSession, serve_frontend.SessionPool = saved
+
+
+def joern_and_tools_phase(torch, tmp: Path, test_probs: dict, smi: str) -> dict:
+    """The Joern route and the evaluation and experiment tools on the
+    pipeline's storage root, run and checkpoint (flagship width, d 128):
+
+    (a) `cli score` in-process with serve.use_joern=true and a pool of
+    JOERN_POOL_SIZE over a stub `joern` REPL on PATH
+    (deepdfa_tpu_torch/testing/joern_stub.py: neither machine has Joern)
+    that exports the five hand-built Joern fixtures: the five fixture
+    sources, a repeat of each (cache hits) and JOERN_UNKNOWN (a counted
+    failure), on the card, counted from 0, then the same on the CPU plain
+    path (every probability within JOERN_PROB_TOL); every fixture went
+    through an import and an export round trip. Then, as in a fresh
+    process (the shared feature cache dropped), a stub that wedges after
+    its handshake under serve.joern_timeout_s=JOERN_WEDGE_TIMEOUT_S: one
+    JoernTimeout, one restart, and the five scored with (a)'s
+    probabilities. (b) `Tuner` over `random_search` of
+    train.optim.learning_rate, TUNER_TRIALS trials of GraphTrainer on the
+    card (TUNER_TRAIN_BATCHES steps, TUNER_VAL_BATCHES validation
+    batches), each logging through RunLogger: 2 ledger rows, every value
+    finite. (c) `cli run-exp --tasks deepdfa --seeds 0 1` (1 epoch): its
+    `cli train` subprocesses inherit the storage root and the card; 2
+    summary rows with rc 0 and a parsed result, each run's train_log.jsonl.
+    (d) `cli coverage`, `logistic_control` on the store's splits beside the
+    GGNN's test metrics from the card's pipeline probabilities, and `cli
+    ivdetect` over IVDETECT_FUNCTIONS of serve_source's C files. Returns
+    the launches of the paths jo, jo_restart, tn and rx."""
+    import io
+    import os
+
+    import numpy as np
+
+    from deepdfa_tpu_torch import cli
+    from deepdfa_tpu_torch.core import config as config_mod
+    from deepdfa_tpu_torch.eval import trivial_baseline
+    from deepdfa_tpu_torch.frontend import joern_session
+    from deepdfa_tpu_torch.nn import ggnn_kernel as gk
+    from deepdfa_tpu_torch.serve import frontend as serve_frontend
+    from deepdfa_tpu_torch.testing import joern_stub
+    from deepdfa_tpu_torch.train import GraphTrainer, positive_weight, tuning
+    from deepdfa_tpu_torch.train.logging import RunLogger
+
+    t_phase = time.perf_counter()
+    report: dict = {"phase": "joern_and_tools", "nvidia_smi": smi}
+    paths: dict = {}
+    cfg = config_mod.load(tmp / "runs" / "pipeline" / "config.json")
+    n_steps = cfg.model.n_steps
+    bwd = ("ggnn_gru_bwd", "GRU_BWD_LAUNCHES"), ("ggnn_dmsg", "DMSG_LAUNCHES")
+    with storage_root(tmp):
+        # (a) the Joern route
+        src = tmp / "joern_src"
+        src.mkdir()
+        for name, code in joern_stub.SOURCES.items():
+            (src / f"{name}.c").write_text(code)
+            (src / f"{name}_repeat.c").write_text(code)
+        (src / "unknown.c").write_text(JOERN_UNKNOWN)
+        stub_dir = tmp / "joern_bin"
+        joern_stub.write_stub(stub_dir)
+        score = ["score", str(src), "--override", 'run_name="pipeline"', "--override",
+                 "serve.use_joern=true", "--override", f"serve.joern_pool_size={JOERN_POOL_SIZE}"]
+        cache = serve_frontend.shared_cache()
+        hits0, misses0 = cache.hits, cache.misses
+        with env_vars(PATH=f"{stub_dir}{os.pathsep}{os.environ.get('PATH', '')}"), \
+                recorded_joern(joern_session, serve_frontend) as (sessions, pools):
+            gk.reset_launch_counts()
+            card = cli_summary(cli, [*score, "--out", str(tmp / "joern_card.jsonl"),
+                                     "--device", CARD])
+            paths["jo"] = {"ggnn_step": gk.LAUNCHES}
+            card_counts = gk.launch_counts()
+            hits = cache.hits - hits0
+            gk.reset_launch_counts()
+            cpu = cli_summary(cli, [*score, "--out", str(tmp / "joern_cpu.jsonl"),
+                                    "--device", "cpu"])
+            cpu_launches = sum(gk.launch_counts().values())
+        card_rows, cpu_rows = (score_rows(tmp / "joern_card.jsonl"),
+                               score_rows(tmp / "joern_cpu.jsonl"))
+        ok = sorted(n for n, r in card_rows.items() if r["ok"])
+        trips = [t for s in sessions for t in s.round_trips]
+        exports = sum(w == "export" for w, _ in trips)
+        want_ok = sorted(str(src / f"{n}{s}.c") for n in joern_stub.SOURCES
+                         for s in ("", "_repeat"))
+        err = max((abs(card_rows[n]["prob"] - cpu_rows[n]["prob"]) for n in ok),
+                  default=math.inf)
+        # the card and CPU runs each made a pool; only the card's made a
+        # session: the CPU's found every source in the shared cache
+        if (ok != want_ok or [n for n, r in cpu_rows.items() if r["ok"]] != ok
+                or card["serve_failed_requests"] != 1 or cpu["serve_failed_requests"] != 1
+                or not err <= JOERN_PROB_TOL or hits != len(joern_stub.SOURCES)
+                or exports != len(joern_stub.SOURCES) + 1
+                or [p.size for p in pools] != [JOERN_POOL_SIZE] * 2 or cpu_launches):
+            fail(f"joern_and_tools: the Joern route scored {ok} (the fixtures and their "
+                 f"repeats expected), failed {card['serve_failed_requests']} on the card and "
+                 f"{cpu['serve_failed_requests']} on the CPU (1 expected), card vs CPU "
+                 f"{err} (gate {JOERN_PROB_TOL}), {hits} cache hits, {exports} export round "
+                 f"trips, pools {[p.size for p in pools]}, {cpu_launches} CPU launches")
+        if card_counts["LAUNCHES"] < n_steps * card["serve_batches"] or \
+                card["ggnn_step_launches"] != n_steps * card["serve_batches"] or \
+                any(v for k, v in card_counts.items() if k != "LAUNCHES"):
+            fail(f"joern_and_tools: the Joern route's score launched {card_counts} over "
+                 f"{card['serve_batches']} batches")
+        probs = {Path(n).stem: card_rows[n]["prob"] for n in ok if "_repeat" not in n}
+        report["joern"] = {
+            "probs_card": probs,
+            "probs_cpu": {Path(n).stem: cpu_rows[n]["prob"] for n in ok if "_repeat" not in n},
+            "max_abs_err": err, "cache_hits": hits, "cache_misses": cache.misses - misses0,
+            "failed": {Path(n).name: r["error"] for n, r in card_rows.items() if not r["ok"]},
+            "round_trip_ms": {w: [ms for x, ms in trips if x == w]
+                              for w in ("handshake", "import", "export")},
+            "pool_size": pools[0].size, "sessions": len(sessions),
+            "replaced": pools[0].replaced, "launches": card_counts["LAUNCHES"],
+            "batches": card["serve_batches"], "seconds": card["serve_seconds"]}
+
+        # the wedged stub, as in a fresh process: the shared cache dropped
+        serve_frontend._SHARED_CACHE = None
+        wedge_dir = tmp / "joern_wedge_bin"
+        joern_stub.write_stub(wedge_dir, wedge_flag=tmp / "joern_wedged")
+        fresh = tmp / "joern_src_restart"
+        fresh.mkdir()
+        for name, code in joern_stub.SOURCES.items():
+            (fresh / f"{name}.c").write_text(code)
+        with env_vars(PATH=f"{wedge_dir}{os.pathsep}{os.environ.get('PATH', '')}"), \
+                recorded_joern(joern_session, serve_frontend) as (sessions, pools):
+            gk.reset_launch_counts()
+            t0 = time.perf_counter()
+            wedged = cli_summary(cli, [
+                "score", str(fresh), "--out", str(tmp / "joern_restart.jsonl"), "--device",
+                CARD, "--override", 'run_name="pipeline"', "--override", "serve.use_joern=true",
+                "--override", "serve.joern_pool_size=1", "--override",
+                f"serve.joern_timeout_s={JOERN_WEDGE_TIMEOUT_S}"])
+            restart_s = time.perf_counter() - t0
+            paths["jo_restart"] = {"ggnn_step": gk.LAUNCHES}
+        rows = score_rows(tmp / "joern_restart.jsonl")
+        restart_err = max(abs(r["prob"] - probs[Path(n).stem]) for n, r in rows.items()
+                          if r["ok"])
+        restarts = [s.restarts for s in sessions]
+        if wedged["serve_scored"] != len(joern_stub.SOURCES) or sum(restarts) != 1 or \
+                restart_err > JOERN_PROB_TOL:
+            fail(f"joern_and_tools: the wedged stub's score scored {wedged['serve_scored']} "
+                 f"with restarts {restarts} (one expected), {restart_err} from (a)'s scores")
+        report["joern_restart"] = {"restarts": sum(restarts), "sessions": len(sessions),
+                                   "replaced": pools[0].replaced, "seconds": restart_s,
+                                   "max_abs_err_vs_first": restart_err,
+                                   "timeout_s": JOERN_WEDGE_TIMEOUT_S}
+
+        # (b) hyperparameter search, each trial a few steps on the card
+        splits = cli.load_graph_splits(cfg)
+        train_b = cli.epoch_batches(cfg, splits["train"], shuffle_epoch=0)[:TUNER_TRAIN_BATCHES]
+        val_b = cli.epoch_batches(cfg, splits["val"], phase="eval")[:TUNER_VAL_BATCHES]
+        pw = positive_weight(np.array([s.label for s in splits["train"]]))
+        tensorboard = []
+
+        def train_fn(overrides, report_fn):
+            tcfg = config_mod.apply_overrides(cfg, [*overrides, "train.max_epochs=1"])
+            run_dir = tmp / "runs" / f"tune-trial{len(tensorboard)}"
+            trainer = GraphTrainer(cli._model(tcfg), tcfg, pos_weight=pw,
+                                   total_steps=len(train_b), device=CARD)
+            with RunLogger(run_dir) as run_log:
+                records = []
+
+                def log(r):
+                    records.append(r)
+                    run_log.log(r)
+                    report_fn(r)
+
+                trainer.fit(trainer.init_state(), lambda epoch: train_b,
+                            val_batches=lambda: val_b, log_fn=log)
+                tensorboard.append(run_log.has_tensorboard
+                                   and any((run_dir / "tb").glob("events*")))
+            if not (run_dir / "train_log.jsonl").exists():
+                fail(f"joern_and_tools: trial {run_dir.name} wrote no train_log.jsonl")
+            return {k: v for k, v in records[-1].items() if isinstance(v, (int, float))}
+
+        tuner = tuning.Tuner(tmp / "tune" / "trials.jsonl", monitor="val_loss", mode="min")
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        space = tuning.SearchSpace(ranges={"train.optim.learning_rate": TUNER_LR_RANGE})
+        best = tuner.run(tuning.random_search(space, TUNER_TRIALS, seed=0), train_fn)
+        tune_s = time.perf_counter() - t0
+        paths["tn"] = {"ggnn_step": gk.LAUNCHES,
+                       **{name: getattr(gk, counter) for name, counter in bwd}}
+        ledger = [json.loads(x) for x in (tmp / "tune" / "trials.jsonl").read_text().splitlines()]
+        values = [v for r in ledger for v in (
+            *[x for x in r["final"].values()],
+            *[x for i in r["intermediate"] for x in i.values() if isinstance(x, (int, float))])]
+        if len(ledger) != TUNER_TRIALS or best is None or not all(math.isfinite(v)
+                                                                  for v in values):
+            fail(f"joern_and_tools: the search's ledger {ledger}, best {best}")
+        steps = TUNER_TRIALS * len(train_b)
+        want = {"ggnn_step": n_steps * (steps + TUNER_TRIALS * len(val_b)),
+                "ggnn_gru_bwd": n_steps * steps, "ggnn_dmsg": n_steps * steps}
+        if paths["tn"] != want:
+            fail(f"joern_and_tools: the search launched {paths['tn']}, expected {want}")
+        report["search"] = {
+            "trials": [{"overrides": r["overrides"], "val_loss": r["final"].get("val_loss"),
+                        "seconds": r["seconds"]} for r in ledger],
+            "best": best, "has_tensorboard": tensorboard, "seconds": tune_s}
+
+        # (c) cli run-exp: cli train subprocesses on the card
+        hook_dir, counts_dir = tmp / "runexp_hook", tmp / "runexp_counts"
+        hook_dir.mkdir()
+        counts_dir.mkdir()
+        (hook_dir / "sitecustomize.py").write_text(_COUNTS_HOOK)
+        pythonpath = os.pathsep.join(
+            [str(hook_dir), str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])])
+        t0 = time.perf_counter()
+        with env_vars(PYTHONPATH=pythonpath, CHIP_SMOKE_COUNTS_DIR=str(counts_dir)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                cli.main(["run-exp", "--tasks", "deepdfa", "--seeds",
+                          *map(str, RUN_EXP_SEEDS), "--tag", "chip",
+                          f"--extra-arg=--config={tmp / 'pipeline.json'}",
+                          f"--extra-arg=--device={CARD}", "--override", "train.max_epochs=1"])
+        run_exp_s = time.perf_counter() - t0
+        exp_dir = tmp / "runs" / "experiments" / "chip"
+        summary = [json.loads(x) for x in (exp_dir / "summary.jsonl").read_text().splitlines()]
+        child = [json.loads(p.read_text()) for p in sorted(counts_dir.glob("*.json"))]
+        paths["rx"] = {"ggnn_step": sum(c["LAUNCHES"] for c in child),
+                       **{name: sum(c[counter] for c in child) for name, counter in bwd}}
+        logs = {r["name"]: tmp / "runs" / r["name"] / "train_log.jsonl" for r in summary}
+        if len(summary) != len(RUN_EXP_SEEDS) or any(
+                r["rc"] != 0 or not r["result"] for r in summary) or not all(
+                p.exists() for p in logs.values()) or len(child) != len(RUN_EXP_SEEDS):
+            tails = {r["name"]: (exp_dir / f"{r['name']}.log").read_text()[-1500:]
+                     for r in summary}
+            fail(f"joern_and_tools: run-exp summary {summary}, {len(child)} counted "
+                 f"subprocesses, logs {tails}")
+        epochs = {n: [r for r in run_log(p.parent) if "epoch" in r] for n, p in logs.items()}
+        report["run_exp"] = {
+            "rows": [{k: r[k] for k in ("name", "rc", "seconds", "result")} for r in summary],
+            "epoch_losses": {n: [(r["train_loss"], r["val_loss"]) for r in e]
+                             for n, e in epochs.items()},
+            "launches": paths["rx"], "seconds": run_exp_s}
+
+        # (d) the host tools on the same root
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["coverage", "--config", str(tmp / "pipeline.json")])
+        cov = json.loads(out.getvalue())
+        coverage_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        control = trivial_baseline.logistic_control(
+            splits["train"], {"val": splits["val"], "test": splits["test"]},
+            cfg.data.feat.input_dim)
+        control_s = time.perf_counter() - t0
+        test_ids = sorted(test_probs)
+        labels = {s.graph_id: s.label for s in splits["test"]}
+        ggnn = trivial_baseline.binary_metrics(np.array([test_probs[i] for i in test_ids]),
+                                               np.array([labels[i] for i in test_ids]))
+        files = [tmp / "serve_src" / f"fn_{i:06d}.c" for i in test_ids[:IVDETECT_FUNCTIONS]]
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["ivdetect", *map(str, files), "--out-dir", str(tmp / "ivdetect")])
+        ivdetect_s = time.perf_counter() - t0
+        dumped = [json.loads(Path(p).read_text()) for p in out.getvalue().split()]
+        if set(cov) != {"train", "val", "test"} or not all(
+                0.0 <= c["known_coverage"] <= 1.0 and c["n_graphs"] for c in cov.values()) or \
+                not all(0.0 <= v <= 1.0 for m in control.values() for v in m.values()) or \
+                len(dumped) != len(files) or not all(d["lines"] for d in dumped):
+            fail(f"joern_and_tools: coverage {cov}, control {control}, "
+                 f"{len(dumped)} ivdetect dumps of {len(files)}")
+        report["host_tools"] = {
+            "coverage": cov, "coverage_seconds": coverage_s,
+            "logistic_control": control, "logistic_control_seconds": control_s,
+            "ggnn_test": ggnn, "ivdetect_functions": len(files),
+            "ivdetect_lines": sum(len(d["lines"]) for d in dumped),
+            "ivdetect_seconds": ivdetect_s}
+    report.update(launches=paths, phase_seconds=time.perf_counter() - t_phase)
+    emit(report)
+    return paths
+
+
 #: CodeBLEU of fixed pairs: the reference package's tests' java, c# and
 #: python snippets (tests/test_codebleu.py), scored by the reference's
 #: get_codebleu on the CPU (the same values under every PYTHONHASHSEED
@@ -7576,6 +7962,7 @@ def main() -> None:
         model_paths |= bf16_params_phase(torch, Path(pipeline_root), smi)
         hooks_paths = runtime_hooks_train_phase(torch, Path(pipeline_root), smi)
         hooks_paths |= efficiency_phase(torch, Path(pipeline_root), smi)
+        tools_paths = joern_and_tools_phase(torch, Path(pipeline_root), test_probs, smi)
     # on a seed of its own, so the phases after it see the data they always saw
     localize_paths |= localize_t5_phase(torch, np.random.default_rng(19), smi)
     flash_err, flash_timing = flash_kernel_phase(torch)
@@ -7615,7 +8002,7 @@ def main() -> None:
              **train_variants, **serve_mxu, "train_mxu": train_mxu, **tune_paths,
              "pipeline": pipeline_launches, "serve_source": serve_source_launches,
              "train_attn_saved": attn_saved_launches, **cascade_paths, **localize_paths,
-             **host_paths, **struct_paths, **model_paths, **hooks_paths}
+             **host_paths, **struct_paths, **model_paths, **hooks_paths, **tools_paths}
     for path, counts in paths.items():
         idle = [k for k, n in counts.items() if n <= 0 and (k, path) != ("flash_dbias",
                                                                      "train_combined")]

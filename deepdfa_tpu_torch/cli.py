@@ -12,8 +12,11 @@ sources against a trained run (`score`, `serve`: `cmd_score`,
 `cmd_serve`), scan a whole repository (`scan`: `cmd_scan`), fit the
 two-stage cascade's calibration (`cascade-calibrate`:
 `cmd_cascade_calibrate`), rank the lines of a combined run's
-functions by their attributions (`localize`: `cmd_localize`), and score
-generated code with CodeBLEU (`codebleu`: `cmd_codebleu`).
+functions by their attributions (`localize`: `cmd_localize`), score
+generated code with CodeBLEU (`codebleu`: `cmd_codebleu`), audit a
+store's abstract-dataflow coverage (`coverage`: `cmd_coverage`), dump
+IVDetect's per-line features (`ivdetect`: `cmd_ivdetect`) and run a
+task x seed matrix of these commands (`run-exp`: `cmd_run_exp`).
 
     python -m deepdfa_tpu_torch.cli prepare --source synthetic|CSV|JSON [--n-examples N] \
         [--synthetic-v2] [--format F] [--splits CSV | --cross-project] [--dep-closure] \
@@ -50,6 +53,10 @@ generated code with CodeBLEU (`codebleu`: `cmd_codebleu`).
         [--tokenizer DIR] [--max-length 512] [--limit N] [--device cpu] [key=value ...]
     python -m deepdfa_tpu_torch.cli codebleu --refs F [F ...] --hyp F \
         [--lang c|cpp|java|c_sharp|javascript|php|go|ruby|python] [--params a,b,g,t]
+    python -m deepdfa_tpu_torch.cli coverage [--config F] [key=value ...]
+    python -m deepdfa_tpu_torch.cli ivdetect SRC... [--out-dir D]
+    python -m deepdfa_tpu_torch.cli run-exp (--matrix F | --tasks T... [--seeds N...]) \
+        [--extra-arg=FLAG ...] [--override key=value ...] [--tag TAG] [--dry-run]
 
 `prepare`, `extract-vocab` and `extract` are host commands (no
 `--device`). `prepare` reads a dataset (the seeded synthetic corpus, a
@@ -133,6 +140,22 @@ and `train-clone` run the sanitizers and refuse (`NotImplementedError`)
 `train.resilience.enabled` and the `obs` switches, which the reference's
 loops do not run either (`core/config.py:refuse_unported_training`).
 
+Every training command appends its records to
+`runs/<run>/train_log.jsonl` through train/logging.py:RunLogger; `train`
+also mirrors them into TensorBoard event files under `runs/<run>/tb/`
+where `torch.utils.tensorboard` imports, as the reference's `cmd_train`.
+Under an NNI experiment (`NNI_PLATFORM` set, the `nni` package
+importable) the trial's parameters override the config, each validation epoch reports `train.monitor` and the best
+checkpoint's value is the final report (train/nni_bridge.py); otherwise
+the hooks do nothing. `run-exp` expands `--tasks` x `--seeds` with each
+task's defaults (train/experiments.py:TASK_DEFAULTS), runs each as a
+`python -m deepdfa_tpu_torch.cli` subprocess that inherits this
+process's environment, and writes each run's log, its parsed last
+result line and its exit code to `runs/experiments/<tag>/` (one row a
+run in `summary.jsonl`). `coverage` prints each split's definition-node
+and known-hash counts over the graph store; `ivdetect` writes
+`<stem>.ivdetect.json` beside each source (or in `--out-dir`).
+
 `codebleu --refs F [F ...] --hyp F --lang L` prints CodeBLEU's n-gram,
 weighted n-gram, syntax and dataflow matches and their composite
 (`--params`) as JSON, for c, cpp, java, c_sharp, javascript, php, go,
@@ -166,8 +189,11 @@ comes from `cascade-calibrate` over `score` rows joined with labels.
 ranked line attributions. `serve.pipeline_depth=N` keeps up to N
 batches dispatched and not yet fetched (the same bits as 0), and a
 `serve.checkpoint` tag with the suffix `@int8` serves the quantized
-entry within `serve.quant_drift_bound` (serve/quant.py). Refused:
-`serve.use_joern`.
+entry within `serve.quant_drift_bound` (serve/quant.py).
+`serve.use_joern=true` extracts every function through a pool of
+`serve.joern_pool_size` Joern sessions (`serve.joern_timeout_s` a
+command) instead of the built-in parser; it needs a `joern` binary on
+PATH and raises without one (serve/frontend.py).
 
 `scan REPO` scores every C/C++ function of a repository with a GGNN
 run through the same registry, frontend and batcher (`scan.*`: suffixes,
@@ -356,20 +382,6 @@ def _model(cfg: Config):
 
     return DeepDFA.from_config(cfg.model, cfg.data.feat.input_dim,
                                max_defs=cfg.data.feat.max_defs)
-
-
-class RunLog:
-    """Appends each record to `train_log.jsonl` in the run dir."""
-
-    def __init__(self, run_dir: Path):
-        self._f = open(run_dir / "train_log.jsonl", "a")
-
-    def log(self, record: dict) -> None:
-        self._f.write(json.dumps(record) + "\n")
-        self._f.flush()
-
-    def close(self) -> None:
-        self._f.close()
 
 
 # -- data preparation (the reference's cmd_prepare, cmd_extract_vocab,
@@ -576,10 +588,16 @@ def _apply_tuned(cfg: Config, device, serve_side: bool = False) -> Config:
 def cmd_train(args) -> None:
     from deepdfa_tpu_torch import obs
     from deepdfa_tpu_torch.testing.faults import injector_from_env
-    from deepdfa_tpu_torch.train import GraphTrainer, positive_weight
+    from deepdfa_tpu_torch.train import GraphTrainer, nni_bridge, positive_weight
+    from deepdfa_tpu_torch.train.logging import RunLogger
     from deepdfa_tpu_torch.train.resilience import make_runner
 
-    cfg = _apply_tuned(_load_config(args), args.device)
+    cfg = _load_config(args)
+    # under an NNI experiment the trial's parameters override the config
+    # and the monitored value goes back each validation epoch and at the end
+    if nni_bridge.active():
+        cfg = config_mod.apply_overrides(cfg, nni_bridge.nni_overrides())
+    cfg = _apply_tuned(cfg, args.device)
     split_specs = load_graph_splits(cfg)
     run_dir = runs_dir(cfg.run_name)
     config_mod.to_json(cfg, run_dir / "config.json")
@@ -634,13 +652,13 @@ def cmd_train(args) -> None:
                               source_digest=train_digest, packer=packer)
             return injector.wrap(s) if injector is not None else s
 
-        run_log = RunLog(run_dir)
+        run_log = RunLogger(run_dir)
         trainer.fit(
             state,
             train_stream,
             val_batches=val_batches,
             checkpoints=ckpts,
-            log_fn=run_log.log,
+            log_fn=nni_bridge.intermediate_log_fn(cfg.train.monitor, run_log.log),
             resilience=res,
         )
     finally:
@@ -652,7 +670,10 @@ def cmd_train(args) -> None:
                     p.close()
         finally:
             obs_cm.__exit__(None, None, None)
-    print("best:", ckpts.best_metrics())
+    best = ckpts.best_metrics()
+    if best and cfg.train.monitor in best:
+        nni_bridge.report_final(best[cfg.train.monitor])
+    print("best:", best)
 
 
 def cmd_test(args) -> None:
@@ -798,6 +819,7 @@ def cmd_train_combined(args) -> None:
     from deepdfa_tpu_torch.serve.cascade import save_model_setup
     from deepdfa_tpu_torch.testing.faults import injector_from_env
     from deepdfa_tpu_torch.train import CheckpointManager, CombinedTrainer, undersample_epoch
+    from deepdfa_tpu_torch.train.logging import RunLogger
     from deepdfa_tpu_torch.train.resilience import make_runner
 
     cfg = _apply_tuned(_load_config(args), args.device)
@@ -949,7 +971,7 @@ def cmd_train_combined(args) -> None:
         s = batches(epoch_ids(epoch), epoch=epoch)
         return injector.wrap(s) if injector is not None else s
 
-    run_log = RunLog(run_dir)
+    run_log = RunLogger(run_dir, tensorboard=False)
     try:
         with obs.session(cfg, run_dir):
             trainer.fit(state, train_stream,
@@ -1104,6 +1126,7 @@ def cmd_train_gen(args) -> None:
     from deepdfa_tpu_torch.data import gen_data
     from deepdfa_tpu_torch.models import t5_gen as genm
     from deepdfa_tpu_torch.testing.faults import injector_from_env
+    from deepdfa_tpu_torch.train.logging import RunLogger
     from deepdfa_tpu_torch.train.resilience import make_runner
 
     cfg = _load_config(args)
@@ -1143,7 +1166,7 @@ def cmd_train_gen(args) -> None:
                                     shuffle_seed=cfg.train.seed + epoch)
             return injector.wrap(s) if injector is not None else s
 
-        run_log = RunLog(run_dir)
+        run_log = RunLogger(run_dir, tensorboard=False)
         try:
             with obs.session(cfg, run_dir):
                 state = trainer.fit(
@@ -1181,6 +1204,7 @@ def cmd_train_multi_gen(args) -> None:
     picks the reader, the patience and the target length."""
     from deepdfa_tpu_torch.data import gen_data
     from deepdfa_tpu_torch.models import t5_gen as genm
+    from deepdfa_tpu_torch.train.logging import RunLogger
     from deepdfa_tpu_torch.train.multi_gen import GenTask, fit_multi, task_target_length
 
     cfg = _load_config(args)
@@ -1226,7 +1250,7 @@ def cmd_train_multi_gen(args) -> None:
                                         monitor=monitor, mode=mode)
 
     config_mod.to_json(cfg, run_dir / "config.json")
-    run_log = RunLog(run_dir)
+    run_log = RunLogger(run_dir, tensorboard=False)
     try:
         state, summary = fit_multi(trainer, state, tasks, max_steps=args.max_steps,
                                    eval_every=args.eval_every, checkpoints=checkpoints,
@@ -1242,6 +1266,7 @@ def cmd_train_clone(args) -> None:
     from deepdfa_tpu_torch.data import gen_data
     from deepdfa_tpu_torch.models import CloneConfig
     from deepdfa_tpu_torch.train.clone_loop import CloneTrainer, clone_batches_of
+    from deepdfa_tpu_torch.train.logging import RunLogger
 
     cfg = _load_config(args)
     run_dir = runs_dir(cfg.run_name)
@@ -1280,7 +1305,7 @@ def cmd_train_clone(args) -> None:
             dev = clone_batches_of(dev_pairs, dev_labels, 1, rows, pad_id=tok.pad_id)
             val_batches = lambda: dev  # noqa: E731
         ckpts = trainer.make_checkpoints(ckpt_dir)
-        run_log = RunLog(run_dir)
+        run_log = RunLogger(run_dir, tensorboard=False)
         try:
             state = trainer.fit(
                 state,
@@ -1490,6 +1515,49 @@ def cmd_scan(args) -> None:
     print(json.dumps(summary), flush=True)
 
 
+def cmd_coverage(args) -> None:
+    """Per split: graphs, nodes, definition nodes, known and unknown
+    hashes, and the known-definition coverage (eval/coverage.py)."""
+    from deepdfa_tpu_torch.eval.coverage import coverage_report
+
+    cfg = _load_config(args)
+    print(json.dumps(coverage_report(load_graph_splits(cfg)), indent=2))
+
+
+def cmd_ivdetect(args) -> None:
+    """Per-line IVDetect features of each C file into
+    `<out-dir or the file's dir>/<stem>.ivdetect.json` (eval/ivdetect.py);
+    prints each path written."""
+    from deepdfa_tpu_torch.eval.ivdetect import dump_features
+
+    for src in args.sources:
+        src = Path(src)
+        out = Path(args.out_dir) if args.out_dir else src.parent
+        out.mkdir(parents=True, exist_ok=True)
+        dest = out / f"{src.stem}.ivdetect.json"
+        dump_features(src.read_text(), dest)
+        print(dest)
+
+
+def cmd_run_exp(args) -> None:
+    """Experiment-matrix runner: --matrix <json> (explicit runs) or
+    --tasks/--seeds (train/experiments.py:TASK_DEFAULTS); runs each as a
+    `python -m deepdfa_tpu_torch.cli` subprocess and writes per-run logs
+    and summary.jsonl under <runs>/experiments/<tag>."""
+    from deepdfa_tpu_torch.train.experiments import Run, expand_matrix, load_matrix, run_matrix
+
+    if args.matrix:
+        runs = load_matrix(args.matrix)
+        if args.override:
+            runs = [Run(r.name, r.cmd, r.args + tuple(args.override)) for r in runs]
+    elif args.tasks:
+        runs = expand_matrix(args.tasks, seeds=args.seeds, extra_args=args.extra_arg,
+                             overrides=args.override)
+    else:
+        raise SystemExit("pass --matrix or --tasks")
+    run_matrix(runs, runs_dir("experiments") / args.tag, dry_run=args.dry_run)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m deepdfa_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -1643,6 +1711,32 @@ def build_parser() -> argparse.ArgumentParser:
     gen_model_args(p)
     common(p)
     p.set_defaults(fn=cmd_train_clone)
+
+    # no overrides positional: the nargs='*' flags would swallow them;
+    # per-run config overrides go through --override
+    p = sub.add_parser("run-exp", help="run a task x seed matrix of CLI runs and summarize "
+                                       "their results")
+    p.add_argument("--matrix", default=None, help="json run-matrix spec")
+    p.add_argument("--tasks", nargs="*", default=None,
+                   help="built-in task names (deepdfa/combined/summarize/...)")
+    p.add_argument("--seeds", nargs="*", type=int, default=[0])
+    p.add_argument("--extra-arg", action="append", default=[],
+                   help="extra CLI flag passed to every run (repeatable)")
+    p.add_argument("--override", action="append", default=[],
+                   help="dotted key=value config override for every run (repeatable)")
+    p.add_argument("--tag", default="default")
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(fn=cmd_run_exp)
+
+    p = sub.add_parser("coverage", help="abstract-dataflow coverage of each split's graphs")
+    host_common(p)
+    p.set_defaults(fn=cmd_coverage)
+
+    p = sub.add_parser("ivdetect", help="dump per-line IVDetect features (subseq/ast/"
+                                        "nametypes/data/control) for C files")
+    p.add_argument("sources", nargs="+", help="C/C++ source files")
+    p.add_argument("--out-dir", default=None)
+    p.set_defaults(fn=cmd_ivdetect)
 
     p = sub.add_parser("cascade-calibrate",
                        help="fit the cascade's temperature and uncertainty band from a "

@@ -13,7 +13,7 @@ sanitizers), the `obs` switches, the whole-repo scanner's `scan`
 section and the autotuner's `tune` section. Field names and defaults
 are the reference's (`deepdfa_tpu/core/config.py`), so one file
 configures both packages. Keys the port does not run yet (the rest of
-observability, fleet, the Joern pool and
+observability, fleet and
 `train.step_cache_entries`, which sizes the reference's cache of
 compiled steps) are read past; the JAX package validates them.
 """
@@ -168,9 +168,9 @@ class ServeConfig:
     (serve/batcher.py), the registry's (serve/registry.py), the request
     frontend's (serve/frontend.py), the request log's (serve/server.py),
     the served line attributions' (serve/localize.py) and the two-stage
-    cascade's (serve/cascade.py). `use_joern` is read so that turning it
-    on is refused by name (`refuse_unported_serving`); the reference's
-    SLO windows, health probe and Joern pool keys are read past."""
+    cascade's (serve/cascade.py), the Joern route's (`use_joern`,
+    `joern_pool_size`, `joern_timeout_s`); the reference's SLO windows and
+    health probe keys are read past."""
 
     # bounded request queue; submissions beyond this raise QueueFull
     queue_limit: int = 256
@@ -197,8 +197,12 @@ class ServeConfig:
     hot_swap: bool = False
     # content-keyed feature cache entries; 0 disables
     feature_cache_entries: int = 1024
-    # Joern CPG extraction instead of the built-in parser: refused
+    # route extraction through a pooled Joern session (frontend/
+    # joern_session.py, bounded restart) instead of the built-in parser;
+    # needs `joern` on PATH
     use_joern: bool = False
+    joern_pool_size: int = 1
+    joern_timeout_s: float = 300.0
     # one {"request": {...}} line a request in <run_dir>/serve_log.jsonl
     request_log: bool = False
     # run the GGNN attribution program beside the scoring ladder and
@@ -442,16 +446,6 @@ def refuse_unported_training(cfg: Config, runtime_hooks: bool = False) -> None:
             "`train-gen`, `test`, `score` and `serve`; the reference's `train-multi-gen` "
             "and `train-clone` loops do not run them either"
         )
-
-
-def refuse_unported_serving(cfg: Config) -> None:
-    """NotImplementedError for the serving options the port does not run,
-    each naming the ROADMAP queue A item that brings it: the Joern
-    frontend (item 3)."""
-    if cfg.serve.use_joern:
-        raise NotImplementedError(
-            "serve.use_joern=true: the Joern CPG importer and session pool are not "
-            "ported (ROADMAP queue A, item 3); the built-in parser serves")
 
 
 #: relation count each gtype produces (the reference's pipeline.extract_graph)

@@ -18,6 +18,7 @@ tests hold the port's records to the reference's SCHEMA).
 from __future__ import annotations
 
 import fnmatch
+import logging
 import math
 import threading
 
@@ -477,7 +478,15 @@ def flatten_scalars(record: dict, prefix: str = "") -> dict[str, float]:
     return out
 
 
+_warned_collisions: set[str] = set()
+
+
 def _put(out: dict[str, float], key: str, value: float) -> None:
     if key in out:
         REGISTRY.counter("obs/logging/flatten_collisions").inc()
+        if key not in _warned_collisions:
+            _warned_collisions.add(key)
+            logging.getLogger(__name__).warning(
+                "flatten_scalars: tag %r emitted twice (%.6g shadowed by %.6g) — a literal "
+                "slash key collides with a nested dict; last write wins", key, out[key], value)
     out[key] = value

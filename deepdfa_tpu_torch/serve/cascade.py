@@ -131,7 +131,7 @@ class TextFeatures:
 
 class CombinedFrontend:
     """code -> (token ids, GraphSpec | None), with RequestPreprocessor's
-    surface (`features_full`, `features`, `cache`, `stats`).
+    surface (`features_full`, `features`, `cache`, `stats`, `close`).
 
     For a model trained with use_graph the graph half goes through a
     RequestPreprocessor (the shared cache); a function the graph frontend
@@ -164,6 +164,10 @@ class CombinedFrontend:
     def stats(self) -> dict:
         return self.graph_frontend.stats() if self.graph_frontend is not None else {}
 
+    def close(self) -> None:
+        if self.graph_frontend is not None:
+            self.graph_frontend.close()
+
 
 def build_combined_service_parts(registry, cfg, node_budget: int, edge_budget: int,
                                  seq_buckets=None):
@@ -190,7 +194,8 @@ def build_combined_service_parts(registry, cfg, node_budget: int, edge_budget: i
     graph_fe = None
     if registry.model_cfg.use_graph:
         graph_fe = RequestPreprocessor(
-            cfg, registry.vocabs, cache=shared_cache(cfg.serve.feature_cache_entries))
+            cfg, registry.vocabs, use_joern=cfg.serve.use_joern,
+            cache=shared_cache(cfg.serve.feature_cache_entries))
     frontend = CombinedFrontend(tok, max_length or buckets[-1], graph_frontend=graph_fe)
     executor = CombinedExecutor(
         registry.model, tok, buckets, cfg.data.token_budget, node_budget, edge_budget,

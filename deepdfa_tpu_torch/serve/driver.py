@@ -38,7 +38,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from deepdfa_tpu_torch.core.config import Config, refuse_unported_serving, serve_budgets
+from deepdfa_tpu_torch.core.config import Config, serve_budgets
 from deepdfa_tpu_torch.frontend.structfeat import feat_width
 from deepdfa_tpu_torch.graphs.batch import GraphSpec
 from deepdfa_tpu_torch.nn import flash_attention, ggnn_kernel
@@ -148,7 +148,6 @@ def score_graphs(
     """Score `specs` through the online serving path; the summary
     record, with per-request probabilities under "probs" (None for a
     failed request)."""
-    refuse_unported_serving(cfg)
     node_budget, edge_budget = serve_budgets(cfg)
     executor = GgnnExecutor(
         model, node_budget, edge_budget, cfg.serve.max_batch_graphs,
@@ -176,7 +175,6 @@ def score_combined(
     tokenizer's pad id. Buckets and budgets: `data.seq_buckets`,
     `data.token_budget`, and `serve.node_budget`/`edge_budget` (else
     `data.batch.*`)."""
-    refuse_unported_serving(cfg)
     node_budget, edge_budget = serve_budgets(cfg)
     executor = CombinedExecutor(
         model, tokenizer, cfg.data.seq_buckets, cfg.data.token_budget,

@@ -2,22 +2,26 @@
 reference's `deepdfa_tpu/serve/frontend.py`).
 
 Raw C/C++ source -> model-ready `GraphSpec`, through exactly the path
-`cli extract` takes (`data/pipeline.py:extract_graph` + `to_graph_spec`
+`cli extract` takes (`data/pipeline.py:graph_from_cpg` + `to_graph_spec`
 against the run's vocabularies), so a served function is featurized as
 the training corpus was.
 
-A content-keyed feature cache (sha256 of the source + the feature spec,
-gtype and vocabulary identity, the reference's key) sits in front of
-the parser: repeat functions skip the frontend. Failures are cached too:
-a function the parser cannot handle stays unparseable until its bytes
-change.
+Two parser routes share that path:
+  - the built-in frontend parser (default; no JVM);
+  - a pooled Joern session (`serve.use_joern`): a bounded pool of
+    `frontend/joern_session.py` sessions (`serve.joern_pool_size`, each
+    command bounded by `serve.joern_timeout_s`, each session with its own
+    bounded restart), checked out per request and replaced when one
+    fails. Without a `joern` binary on PATH the route raises; it never
+    falls back to the built-in parser.
 
-Left out: the reference's pooled Joern route (`SessionPool`,
-`_joern_cpg`): neither machine has Joern, and `serve.use_joern=true` is
-refused (core/config.py:refuse_unported_serving). The reference's
-process-wide metrics histogram is plain counters here: the cache's
-`hits`/`misses`, the preprocessor's `failures`, `extractions` and
-`frontend_seconds`.
+A content-keyed feature cache (sha256 of the source + the feature spec,
+gtype, route and vocabulary identity, the reference's key) sits in front
+of both routes: repeat functions skip the frontend. Failures are cached
+too: a function the parser cannot handle stays unparseable until its
+bytes change. The reference's process-wide metrics histogram is plain
+counters here: the cache's `hits`/`misses`, the preprocessor's
+`failures`, `extractions` and `frontend_seconds`.
 """
 
 from __future__ import annotations
@@ -25,12 +29,17 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import logging
+import tempfile
 import threading
 import time
 from collections import OrderedDict
-from typing import Any
+from pathlib import Path
+from typing import Any, Callable
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 class FrontendError(ValueError):
@@ -99,12 +108,109 @@ def shared_cache(max_entries: int = 1024) -> FeatureCache:
         return _SHARED_CACHE
 
 
-class RequestPreprocessor:
-    """source text -> GraphSpec, cached and timed. `cache` joins an
-    existing store (the serving path passes `shared_cache(...)`); None
-    keeps a private one of `cache_entries`."""
+class SessionPool:
+    """Bounded pool of frontend sessions (Joern JVMs; anything with
+    close() in tests).
 
-    def __init__(self, cfg, vocabs, cache_entries: int = 1024,
+    Sessions are created lazily up to `size`, checked out exclusively,
+    and replaced (closed, and recreated at a later checkout) when the
+    borrower saw an exception; `replaced` counts those. The session's own
+    restart (JoernSession.max_restarts) handles transient hangs; the pool
+    handles sessions that died for good."""
+
+    def __init__(self, factory: Callable[[int], Any], size: int = 1):
+        self.factory = factory
+        self.size = max(1, int(size))
+        # one condition guards both the free list and the creation
+        # budget: a discard frees creation capacity (not a queued
+        # session), so a waiter re-checks both when notified
+        self._cond = threading.Condition()
+        self._free: list[Any] = []
+        self._created = 0
+        self._next_id = 0
+        self.replaced = 0
+        self._closed = False
+
+    def _checkout(self):
+        with self._cond:
+            while True:
+                if self._closed:
+                    raise RuntimeError("session pool is closed")
+                if self._free:
+                    return self._free.pop()
+                if self._created < self.size:
+                    self._created += 1
+                    self._next_id += 1
+                    worker_id = self._next_id - 1
+                    break
+                self._cond.wait()
+        # construct outside the lock (a Joern JVM takes seconds to start)
+        try:
+            return self.factory(worker_id)
+        except Exception:
+            with self._cond:
+                self._created -= 1
+                self._cond.notify()
+            raise
+
+    def session(self):
+        """Context manager: checkout, yield, return, or discard on error."""
+        pool = self
+
+        class _Lease:
+            def __enter__(self):
+                self.s = pool._checkout()
+                return self.s
+
+            def __exit__(self, exc_type, exc, tb):
+                if exc_type is None:
+                    pool._return(self.s)
+                else:
+                    # the borrower's exception propagates; the session
+                    # leaves the pool
+                    pool._discard(self.s)
+                return False
+
+        return _Lease()
+
+    def _return(self, s) -> None:
+        with self._cond:
+            self._free.append(s)
+            self._cond.notify()
+
+    def _discard(self, s) -> None:
+        try:
+            s.close()
+        except Exception:
+            pass
+        with self._cond:
+            self._created -= 1
+            self.replaced += 1
+            self._cond.notify()  # creation capacity freed: wake a waiter
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            free, self._free = self._free, []
+            self._cond.notify_all()
+        for s in free:
+            try:
+                s.close()
+            except Exception:
+                pass
+
+
+class RequestPreprocessor:
+    """source text -> GraphSpec, cached, timed and parser-routed. `cache`
+    joins an existing store (the serving path passes `shared_cache(...)`);
+    None keeps a private one of `cache_entries`. `use_joern` routes
+    extraction through `joern_pool`, or, when none is given, through a
+    pool of `serve.joern_pool_size` JoernSessions that this preprocessor
+    creates (and `close` closes); it raises FrontendError when no
+    `joern` binary is on PATH."""
+
+    def __init__(self, cfg, vocabs, use_joern: bool = False,
+                 joern_pool: SessionPool | None = None, cache_entries: int = 1024,
                  cache: FeatureCache | None = None):
         feat = cfg.data.feat
         self.cfg = cfg
@@ -113,15 +219,26 @@ class RequestPreprocessor:
         self.struct_feats = bool(feat.struct_feats)
         self.max_defs = feat.max_defs
         self.cache = cache if cache is not None else FeatureCache(cache_entries)
+        self.use_joern = bool(use_joern)
+        self.pool = joern_pool
+        if self.use_joern and self.pool is None:
+            from deepdfa_tpu_torch.frontend import joern_session
+
+            if not joern_session.available():
+                raise FrontendError("serve.use_joern=true but no `joern` binary on PATH")
+            scfg = cfg.serve
+            self.pool = SessionPool(
+                lambda i: joern_session.JoernSession(worker_id=i, timeout=scfg.joern_timeout_s),
+                size=scfg.joern_pool_size,
+            )
         self._lock = threading.Lock()
         self.failures = 0
         self.extractions = 0
         self.frontend_seconds = 0.0
         # the reference's key: every knob that changes the extracted bytes,
-        # the vocabulary content included ("joern=False": the built-in
-        # parser, the only route here)
+        # the parser route and the vocabulary content included
         self._key_suffix = (
-            f"|{feat.name}|{self.gtype}|joern=False|vocab={self._vocab_digest()}"
+            f"|{feat.name}|{self.gtype}|joern={self.use_joern}|vocab={self._vocab_digest()}"
         )
 
     def _vocab_digest(self) -> str:
@@ -166,15 +283,42 @@ class RequestPreprocessor:
             self.failures += 1
 
     def _extract(self, code: str, request_id: int) -> Features | None:
-        from deepdfa_tpu_torch.data.pipeline import extract_graph, to_graph_spec
+        from deepdfa_tpu_torch.data.pipeline import extract_graph, graph_from_cpg, to_graph_spec
 
-        eg = extract_graph(code, request_id, max_defs=self.max_defs, gtype=self.gtype,
-                           struct_feats=self.struct_feats)
+        if self.use_joern:
+            cpg = self._joern_cpg(code)
+            eg = None if cpg is None else graph_from_cpg(
+                cpg, request_id, max_defs=self.max_defs, gtype=self.gtype,
+                struct_feats=self.struct_feats)
+        else:
+            eg = extract_graph(code, request_id, max_defs=self.max_defs, gtype=self.gtype,
+                               struct_feats=self.struct_feats)
         if eg is None:
             return None
         return Features(to_graph_spec(eg, self.vocabs), eg.node_lines.copy())
+
+    def _joern_cpg(self, code: str):
+        """One pooled session round trip: tmp file -> export -> Cpg, or
+        None when the export cannot be read."""
+        from deepdfa_tpu_torch.frontend.joern_io import load_joern_cpg
+
+        with self.pool.session() as sess:
+            with tempfile.TemporaryDirectory(prefix="serve-joern-") as d:
+                src = Path(d) / "request.c"
+                src.write_text(code)
+                sess.import_code(src)
+                sess.export_cpg_json(src)  # writes <src>.{nodes,edges}.json
+                try:
+                    return load_joern_cpg(src)
+                except (OSError, ValueError) as e:
+                    logger.warning("joern export unreadable: %s", e)
+                    return None
 
     def stats(self) -> dict:
         with self._lock:
             return {"failures": self.failures, "extractions": self.extractions,
                     "frontend_seconds": self.frontend_seconds}
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.close()

@@ -55,7 +55,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 from typing import Any
 
-from deepdfa_tpu_torch.core.config import refuse_unported_serving, serve_budgets
+from deepdfa_tpu_torch.core.config import serve_budgets
 from deepdfa_tpu_torch.serve.batcher import (
     DynamicBatcher,
     GgnnExecutor,
@@ -106,7 +106,6 @@ class ScoringService:
 
     def __init__(self, registry, cfg=None):
         cfg = cfg if cfg is not None else registry.cfg
-        refuse_unported_serving(cfg)
         self.cfg = cfg
         scfg = cfg.serve
         self.registry = registry
@@ -129,7 +128,8 @@ class ScoringService:
         self.localizer = None
         if registry.family == "deepdfa":
             self.frontend = RequestPreprocessor(
-                cfg, registry.vocabs, cache=shared_cache(scfg.feature_cache_entries))
+                cfg, registry.vocabs, use_joern=scfg.use_joern,
+                cache=shared_cache(scfg.feature_cache_entries))
             self.executor = GgnnExecutor(
                 registry.model, node_budget, edge_budget, scfg.max_batch_graphs,
                 etypes=cfg.model.n_etypes > 1, device=registry.device, ladder=tuned_rungs,
@@ -277,6 +277,7 @@ class ScoringService:
 
     def close(self) -> None:
         self.batcher.close()
+        self.frontend.close()
         if self.cascade is not None:
             self.cascade.close()
         if self.request_log is not None:

@@ -20,8 +20,10 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "deepdfa_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "deepdfa_tpu")
-#: host libraries the reference uses that the card's machine lacks
-ABSENT_ON_CARD = ("pandas", "regex", "tokenizers", "transformers")
+#: host libraries the reference uses that the card's machine lacks (or
+#: may lack: tensorboard); the port imports them only where it calls them
+ABSENT_ON_CARD = ("pandas", "regex", "tokenizers", "transformers", "nni", "tensorboard",
+                  "tensorflow")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -90,7 +92,14 @@ def test_importing_every_module_loads_no_jax():
         "deepdfa_tpu_torch.nn.setops", "deepdfa_tpu_torch.nn.bitprop",
         "deepdfa_tpu_torch.parallel", "deepdfa_tpu_torch.parallel.moe",
         "deepdfa_tpu_torch.eval.dfg_parity", "deepdfa_tpu_torch.testing.faults",
-        "deepdfa_tpu_torch.train.resilience",
+        "deepdfa_tpu_torch.train.resilience", "deepdfa_tpu_torch.frontend.joern_io",
+        "deepdfa_tpu_torch.frontend.joern_session", "deepdfa_tpu_torch.frontend.typeinfo",
+        "deepdfa_tpu_torch.frontend.fidelity", "deepdfa_tpu_torch.frontend.tokenise",
+        "deepdfa_tpu_torch.eval.ivdetect", "deepdfa_tpu_torch.eval.coverage",
+        "deepdfa_tpu_torch.eval.trivial_baseline", "deepdfa_tpu_torch.train.logging",
+        "deepdfa_tpu_torch.train.nni_bridge", "deepdfa_tpu_torch.train.tuning",
+        "deepdfa_tpu_torch.train.experiments", "deepdfa_tpu_torch.data.tokenizer_training",
+        "deepdfa_tpu_torch.testing.joern_stub",
     }
     assert expected <= set(report["modules"])
     assert [m for m in report["new"] if _forbidden(m)] == []
@@ -116,12 +125,37 @@ def _imports(path: Path) -> set[str]:
     return found
 
 
+#: the one module that may import each optional host package, inside the
+#: function that needs it (the reference's lazy imports); everywhere else
+#: they are as forbidden as JAX
+OPTIONAL_AT_CALL_SITE = {
+    "deepdfa_tpu_torch/data/tokenizer_training.py": "tokenizers",
+    "deepdfa_tpu_torch/train/nni_bridge.py": "nni",
+}
+
+
+def _top_level_imports(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            found.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            found.add(node.module)
+    return found
+
+
 def test_no_source_imports_jax():
     files = sorted(PACKAGE.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "kernel_trial.py")]
     assert len(files) > 13
-    bad = {str(f.relative_to(ROOT)): sorted(m for m in _imports(f) if _forbidden(m))
-           for f in files}
+    bad = {}
+    for f in files:
+        rel = str(f.relative_to(ROOT))
+        optional = OPTIONAL_AT_CALL_SITE.get(rel)
+        lazy_ok = {m for m in _imports(f) - _top_level_imports(f)
+                   if optional is not None and m.split(".")[0] == optional}
+        bad[rel] = sorted(m for m in _imports(f) - lazy_ok if _forbidden(m))
     assert {f: m for f, m in bad.items() if m} == {}
 
 

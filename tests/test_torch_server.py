@@ -9,8 +9,8 @@
 - the combined family scores C sources through the same service as
   `score_combined` scores the same model on the same payloads (fp32
   rtol 1e-5, atol 1e-6);
-- the serving options the port does not run are refused by name,
-  `serve.lines` is served, and cascade mode (`serve.cascade=true`)
+- `serve.use_joern=true` without a `joern` on PATH raises the
+  reference's error, `serve.lines` is served, and cascade mode (`serve.cascade=true`)
   answers through the handler with the stage fields, `/healthz` and
   `/stats` sections and the request log's verdicts;
 - `cli score --device cpu`, `cli serve --smoke --device cpu` and `cli
@@ -176,12 +176,21 @@ def test_request_log_and_hot_swap_through_the_service(run):
     assert all(e["frontend_ms"] >= 0 and e["batch_size"] == 1 for e in entries)
 
 
-@pytest.mark.parametrize("override, item", [("serve.use_joern=true", "item 3")])
-def test_unported_serving_options_are_refused(run, override, item):
+@pytest.mark.parametrize("override, error", [
+    ("serve.use_joern=true", "serve.use_joern=true but no `joern` binary on PATH")])
+def test_unported_serving_options_are_refused(run, monkeypatch, tmp_path, override, error):
+    """An option whose external tool is missing raises the reference's own
+    error (deepdfa_tpu/serve/frontend.py's FrontendError, a ValueError)
+    and never falls back to another route: `serve.use_joern=true` with no
+    `joern` on PATH."""
+    from deepdfa_tpu_torch.serve.frontend import FrontendError
+
     cfg, run_dir, _, _ = run
     bad = config_mod.apply_overrides(cfg, [override])
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(FrontendError) as e:
         ScoringService(ModelRegistry(run_dir, cfg=cfg, device="cpu"), bad)
+    assert str(e.value) == error
 
 
 def test_serve_lines_is_accepted_and_served(run):
